@@ -1,0 +1,249 @@
+#!/usr/bin/env python3
+"""The Pyro driver: solver/problem registry, param layering, run loop.
+
+The port of pyro2_tpu/pyro_sim.py (Pyro and the CLI main; PyroBenchmark
+is not ported yet).  Runs on CUDA unless the caller passes a device::
+
+    python -m pyro2_tpu_torch.pyro_sim compressible quad inputs.quad \
+        io.do_io=0
+"""
+
+import argparse
+import importlib
+import os
+
+import pyro2_tpu_torch.util.profile_pyro as profile
+from pyro2_tpu_torch.defaults import dtype as working_dtype
+from pyro2_tpu_torch.defaults import resolve_device
+from pyro2_tpu_torch.util import msg
+from pyro2_tpu_torch.util.runparams import RuntimeParameters, _get_val
+
+valid_solvers = ["compressible"]
+
+
+class Pyro:
+    """The main driver: pairs a solver with a problem and runs it.
+
+    `device` defaults to CUDA and raises when there is none; pass
+    device="cpu" to run on the CPU.  `dtype` defaults to float32 on CUDA
+    and float64 on the CPU."""
+
+    def __init__(self, solver_name, *, from_commandline=False, device=None,
+                 dtype=None):
+        if from_commandline:
+            msg.bold("pyro ...")
+
+        if solver_name not in valid_solvers:
+            msg.fail(f"ERROR: {solver_name} is not a valid solver")
+
+        self.device = resolve_device(device)
+        self.dtype = working_dtype(self.device, dtype)
+        self.from_commandline = from_commandline
+
+        self.pyro_home = os.path.dirname(os.path.realpath(__file__)) + "/"
+        solver_import = "pyro2_tpu_torch.solvers." + solver_name
+
+        self.solver = importlib.import_module(solver_import)
+        self.solver_name = solver_name
+
+        self.problem_name = None
+        self.problem_func = None
+        self.problem_source = None
+        self.problem_params = None
+        self.problem_finalize = None
+
+        self.custom_problems = {}
+
+        # layered runtime parameters: package defaults, then solver defaults
+        self.rp = RuntimeParameters()
+        self.rp.load_params(self.pyro_home + "_defaults")
+        self.rp.load_params(self.pyro_home + "solvers/" + self.solver_name +
+                            "/_defaults")
+
+        self.tc = profile.TimerCollection()
+        self.is_initialized = False
+
+    def add_problem(self, name, problem_func, *, problem_params=None):
+        """Register a custom problem setup for this solver."""
+        if problem_params is None:
+            problem_params = {}
+        self.custom_problems[name] = (problem_func, problem_params)
+
+    def initialize_problem(self, problem_name, *, inputs_file=None,
+                           inputs_dict=None):
+        """Set up the named problem: params, Simulation, initialize."""
+        if problem_name in self.custom_problems:
+            self.problem_name = problem_name
+            self.problem_func, self.problem_params = \
+                self.custom_problems[problem_name]
+            self.problem_finalize = None
+            self.problem_source = None
+        else:
+            problem = importlib.import_module(
+                f"pyro2_tpu_torch.solvers.{self.solver_name}.problems."
+                f"{problem_name}")
+            self.problem_name = problem_name
+            self.problem_func = problem.init_data
+            self.problem_params = getattr(problem, "PROBLEM_PARAMS", {})
+            self.problem_finalize = problem.finalize
+            self.problem_source = getattr(problem, "source_terms", None)
+
+            if inputs_file is None:
+                inputs_file = problem.DEFAULT_INPUTS
+
+        for k, v in self.problem_params.items():
+            self.rp.set_param(k, v, no_new=False)
+
+        if inputs_file is not None:
+            if not os.path.isfile(inputs_file):
+                inputs_file = (self.pyro_home + "solvers/" +
+                               self.solver_name + "/problems/" + inputs_file)
+                if not os.path.isfile(inputs_file):
+                    msg.fail("ERROR: inputs file does not exist")
+            self.rp.load_params(inputs_file, no_new=1)
+
+        # library mode: vis/io/verbose off by default
+        if not self.from_commandline:
+            self.rp.set_param("vis.dovis", 0)
+            self.rp.set_param("driver.verbose", 0)
+            self.rp.set_param("io.do_io", 0)
+
+        if inputs_dict is not None:
+            for k, v in inputs_dict.items():
+                self.rp.set_param(k, v)
+
+        self.rp.print_paramfile()
+
+        self.verbose = self.rp.get_param("driver.verbose")
+        self.dovis = self.rp.get_param("vis.dovis")
+
+        self.sim = self.solver.Simulation(
+            self.solver_name, self.problem_name, self.problem_func, self.rp,
+            problem_finalize_func=self.problem_finalize,
+            problem_source_func=self.problem_source,
+            timers=self.tc, device=self.device, dtype=self.dtype)
+
+        self.sim.initialize()
+        self.sim.preevolve()
+
+        self.sim.cc_data.t = 0.0
+        self.is_initialized = True
+
+    def run_sim(self):
+        """Evolve the entire simulation."""
+        if not self.is_initialized:
+            msg.fail("ERROR: problem has not been initialized")
+
+        tm_main = self.tc.timer("main")
+        tm_main.begin()
+
+        basename = self.rp.get_param("io.basename")
+        do_io = self.rp.get_param("io.do_io")
+
+        if do_io:
+            self.sim.write(f"{basename}{self.sim.n:04d}")
+
+        if self.dovis:
+            self.sim.dovis()
+
+        while not self.sim.finished():
+            self.single_step()
+
+        force_final_output = self.rp.get_param("io.force_final_output")
+        if do_io or force_final_output:
+            if self.verbose > 0:
+                msg.warning("outputting...")
+            self.sim.write(f"{basename}{self.sim.n:04d}")
+
+        tm_main.end(sync=self.sim.cc_data.data)
+
+        if self.verbose > 0:
+            self.rp.print_unused_params()
+            self.tc.report()
+
+        self.sim.finalize()
+
+    def single_step(self):
+        """fill BCs -> compute dt -> evolve -> output -> vis."""
+        if not self.is_initialized:
+            msg.fail("ERROR: problem has not been initialized")
+
+        self.sim.cc_data.fill_BC_all()
+        self.sim.compute_timestep()
+        self.sim.evolve()
+
+        if self.verbose > 0:
+            print(f"{self.sim.n:5d} {self.sim.cc_data.t:10.5f} "
+                  f"{self.sim.dt:10.5f}")
+
+        if self.sim.do_output():
+            if self.verbose > 0:
+                msg.warning("outputting...")
+            basename = self.rp.get_param("io.basename")
+            self.sim.write(f"{basename}{self.sim.n:04d}")
+
+        if self.dovis:
+            self.sim.dovis()
+
+    def __repr__(self):
+        return f"Pyro('{self.solver_name}')"
+
+    def __str__(self):
+        s = f"Solver = {self.solver_name}\n"
+        if self.is_initialized:
+            s += f"Problem = {self.sim.problem_name}\n"
+            s += f"Simulation time = {self.sim.cc_data.t}\n"
+            s += f"Simulation step number = {self.sim.n}\n"
+        s += "\nRuntime Parameters\n------------------\n"
+        s += str(self.rp)
+        return s
+
+    def get_var(self, v):
+        """The simulation data tensor for variable name v."""
+        if not self.is_initialized:
+            msg.fail("ERROR: problem has not been initialized")
+        return self.sim.cc_data.get_var(v)
+
+    def get_grid(self):
+        if not self.is_initialized:
+            msg.fail("ERROR: problem has not been initialized")
+        return self.sim.cc_data.grid
+
+    def get_sim(self):
+        return self.sim
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser()
+    p.add_argument("--device", default=None,
+                   help="torch device to run on (default: cuda)")
+    p.add_argument("solver", metavar="solver-name", type=str, nargs=1,
+                   help="name of the solver to use", choices=valid_solvers)
+    p.add_argument("problem", metavar="problem-name", type=str, nargs=1,
+                   help="name of the problem to run")
+    p.add_argument("param", metavar="inputs-file", type=str, nargs=1,
+                   help="name of the inputs file")
+    p.add_argument("other", metavar="runtime-parameters", type=str, nargs="*",
+                   help="additional runtime parameters that override the "
+                        "inputs file in the format section.option=value")
+    return p.parse_args(argv)
+
+
+def main(argv=None):
+    args = parse_args(argv)
+
+    pyro = Pyro(args.solver[0], from_commandline=True, device=args.device)
+
+    other = {}
+    for param_string in args.other:
+        k, v = param_string.split("=")
+        other[k] = _get_val(v)
+
+    pyro.initialize_problem(problem_name=args.problem[0],
+                            inputs_file=args.param[0],
+                            inputs_dict=other)
+    pyro.run_sim()
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,239 @@
+"""The wrapper of the CUDA CTU step kernel (pyro2_tpu_torch/csrc/ctu_step.cu).
+
+The kernel is the counterpart of the JAX package's fused Pallas step
+(pyro2_tpu/solvers/compressible/pallas_step.py::
+make_pallas_ctu_step_padded_general) for Cartesian geometry.  It is built
+with nvcc into a shared library under pyro2_tpu_torch/_build/ at first use
+and bound with ctypes.
+
+`CTUStep(sim)(U, t, dt)` is the step the Simulation evolves with:
+
+  * for a CUDA tensor it launches the kernel (or raises: there is no
+    fallback), counting the launch in the module-level `launches`;
+  * for a CPU tensor it runs the plain PyTorch step, `sim._make_step()`.
+
+The kernel updates the interior and carries the input's ghost cells through
+unchanged; `fill_BC_all` refills them before the next step.  Ghost fills,
+the external-source stack S and the CFL timestep stay plain PyTorch, as they
+were plain JAX outside the Pallas kernel.
+"""
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+
+from pyro2_tpu_torch.mesh.grid import Cartesian2d
+
+__all__ = ["CTUStep", "build", "launches", "work", "FLOPS_PER_ZONE"]
+
+_PKG = Path(__file__).resolve().parents[2]
+SOURCE = _PKG / "csrc" / "ctu_step.cu"
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC"]
+
+MAXVAR = 8
+RIEMANN = {"HLLC": 0, "HLLC_lm": 1, "CGF": 2}
+
+# floating-point operations per zone of one step, counted from ctu_step.cu
+# for the main path's configuration (HLLC, limiter 2, flattening on, nvar 4,
+# no sources, no sponge; +, -, *, /, sqrt, pow each one operation):
+FLOPS_PER_ZONE_BY_STAGE = {
+    "prim": 11,        # cons -> prim with the rho == 0 guard
+    "flatten": 22,     # two 1-D flattening coefficients
+    "states": 420,     # 4th-order MC slopes, tracing, prim -> cons, x and y
+    "riemann1": 232,   # two HLLC solves (one x, one y interface)
+    "riemann2": 400,   # transverse corrections, two HLLC solves, avisc
+    "update": 36,      # conservative update
+}
+FLOPS_PER_ZONE = sum(FLOPS_PER_ZONE_BY_STAGE.values())
+
+launches = 0   # kernel launches made through CTUStep (read by chip_smoke.py)
+
+_lib = None
+
+
+def _nvcc():
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    return os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                        "bin", "nvcc")
+
+
+def _library_path():
+    key = hashlib.sha256(SOURCE.read_bytes() +
+                         " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"libctu_step-{key}.so"
+
+
+def build(verbose=False):
+    """Compile ctu_step.cu (if its library is not built yet).
+
+    Returns (library path, seconds spent in nvcc, nvcc's stderr).  With
+    verbose=True ptxas reports registers, shared memory and spills."""
+    so = _library_path()
+    if so.exists() and not verbose:
+        return so, 0.0, ""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+           "-o", str(tmp), str(SOURCE)]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
+    os.replace(tmp, so)
+    return so, seconds, res.stderr
+
+
+def _load():
+    global _lib
+    if _lib is None:
+        so, _, _ = build()
+        lib = ctypes.CDLL(str(so))
+        for name in ("ctu_step_f32", "ctu_step_f64"):
+            fn = getattr(lib, name)
+            fn.argtypes = [ctypes.c_void_p] * 4 + [
+                ctypes.POINTER(ctypes.c_int),
+                ctypes.POINTER(ctypes.c_double), ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+        lib.ctu_scratch_planes.argtypes = [ctypes.c_int]
+        lib.ctu_scratch_planes.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def work(nx, ny, nvar, dtype, with_sources=False):
+    """(bytes, operations) one step must move and do at least: the state
+    read once and written once (plus the S stack when there are sources),
+    and FLOPS_PER_ZONE per interior zone."""
+    item = torch.empty((), dtype=dtype).element_size()
+    planes = 2 * nvar + (4 if with_sources else 0)
+    return planes * (nx + 8) * (ny + 8) * item, FLOPS_PER_ZONE * nx * ny
+
+
+class CTUStep:
+    """step(U, t, dt) -> U_new for a live compressible Simulation."""
+
+    def __init__(self, sim):
+        rp = sim.rp
+        myg = sim.cc_data.grid
+        ivars = sim.ivars
+        if not isinstance(myg, Cartesian2d):
+            raise NotImplementedError(
+                "spherical geometry waits for a later slice of the port "
+                "(ROADMAP.md, queue B item 1)")
+        if sim.problem_source is not None:
+            raise NotImplementedError(
+                "problem source terms wait for a later slice of the port "
+                "(ROADMAP.md, queue B item 1)")
+        if not 4 <= ivars.nvar <= MAXVAR:
+            raise NotImplementedError(
+                f"the CTU kernel takes 4..{MAXVAR} variables, not "
+                f"{ivars.nvar}")
+        method = rp.get_param("compressible.riemann")
+        if method not in RIEMANN:
+            raise ValueError(f"unknown Riemann solver {method}")
+
+        self.sim = sim
+        self.plain = sim._make_step()
+        self.shape = (ivars.nvar, myg.qx, myg.qy)
+        self.small_dens = rp.get_param("compressible.small_dens")
+        self.with_sources = rp.get_param("compressible.grav") != 0.0
+        solid = sim.solid
+        self._ints = [ivars.nvar, myg.nx, myg.ny, myg.ng,
+                      ivars.idens, ivars.ixmom, ivars.iymom, ivars.iener,
+                      RIEMANN[method], rp.get_param("compressible.limiter"),
+                      int(bool(rp.get_param("compressible.use_flattening"))),
+                      int(self.with_sources),
+                      int(bool(rp.get_param("sponge.do_sponge"))),
+                      0,  # has_floor, set per dtype
+                      solid.xl, solid.xr, solid.yl, solid.yr]
+        self._doubles = [myg.dx, myg.dy, 0.0,  # dt, set per call
+                         rp.get_param("eos.gamma"),
+                         rp.get_param("compressible.z0"),
+                         rp.get_param("compressible.z1"),
+                         rp.get_param("compressible.delta"),
+                         rp.get_param("compressible.cvisc"),
+                         0.0,  # floor, set per dtype
+                         rp.get_param("compressible.grav"),
+                         rp.get_param("sponge.sponge_rho_begin"),
+                         rp.get_param("sponge.sponge_rho_full"),
+                         rp.get_param("sponge.sponge_timescale")]
+
+    def check(self, U):
+        """Raise on anything the kernel and its plain version do not take."""
+        if not isinstance(U, torch.Tensor):
+            raise TypeError("the CTU step takes a torch.Tensor")
+        if U.device.type not in ("cpu", "cuda"):
+            raise ValueError(f"unsupported device {U.device}")
+        if U.dtype not in (torch.float32, torch.float64):
+            raise TypeError(f"unsupported dtype {U.dtype}")
+        if tuple(U.shape) != self.shape:
+            raise ValueError(f"state shape {tuple(U.shape)} is not "
+                             f"{self.shape}")
+        if not U.is_contiguous():
+            raise ValueError("the state must be contiguous")
+
+    def __call__(self, U, t, dt):
+        self.check(U)
+        if U.device.type == "cpu":
+            return self.plain(U, t, dt)
+        return self.launch(U, t, dt)
+
+    def kernel_args(self, U, t, dt):
+        """(int parameters, double parameters, S stack or None) of one
+        kernel call on U.  S is the ghost-filled external-source stack of
+        the floored state, built in PyTorch on U's device."""
+        sim = self.sim
+        floor_min = torch.finfo(U.dtype).min
+        ints = list(self._ints)
+        doubles = list(self._doubles)
+        ints[13] = int(self.small_dens > floor_min)
+        doubles[2] = float(dt)
+        doubles[8] = max(self.small_dens, floor_min)
+
+        S = None
+        if self.with_sources:
+            from pyro2_tpu_torch.solvers.compressible import simulation
+            from pyro2_tpu_torch.solvers.compressible.unsplit_fluxes import \
+                source_stack
+            Uf = sim.clean_state(U) if ints[13] else U
+            S = source_stack(simulation.get_external_sources(
+                t, dt, Uf, sim.ivars, sim.rp, sim.cc_data.grid), sim.ivars)
+            S = sim.aux_data.fill_bc_stack(S, t=t)
+        return ints, doubles, S
+
+    def launch(self, U, t, dt):
+        """Launch the CUDA kernel on U's device and current stream."""
+        global launches
+        self.check(U)
+        if U.device.type != "cuda":
+            raise ValueError("the CUDA CTU kernel takes a CUDA tensor")
+        ints, doubles, S = self.kernel_args(U, t, dt)
+
+        lib = _load()
+        nvar, qx, qy = self.shape
+        out = torch.empty_like(U)
+        scratch = torch.empty((lib.ctu_scratch_planes(nvar), qx, qy),
+                              dtype=U.dtype, device=U.device)
+        fn = lib.ctu_step_f32 if U.dtype == torch.float32 \
+            else lib.ctu_step_f64
+        with torch.cuda.device(U.device):
+            stream = torch.cuda.current_stream(U.device).cuda_stream
+            err = fn(U.data_ptr(), None if S is None else S.data_ptr(),
+                     out.data_ptr(), scratch.data_ptr(),
+                     (ctypes.c_int * len(ints))(*ints),
+                     (ctypes.c_double * len(doubles))(*doubles), stream)
+        if err != 0:
+            raise RuntimeError(f"CTU kernel launch failed: CUDA error {err}")
+        launches += 1
+        return out

@@ -1,0 +1,351 @@
+"""Compressible Euler CTU Simulation.
+
+The port of pyro2_tpu/solvers/compressible/simulation.py for Cartesian
+geometry.  The plain step (`Simulation._make_step`) runs the CTU pipeline
+as tensor code: density floor -> tracing -> sources -> transverse ->
+Riemann -> artificial viscosity -> conservative update ->
+predictor-corrector sources -> sponge.  `evolve` goes through the CUDA CTU
+kernel's wrapper (ctu_kernel.CTUStep), which launches the kernel for CUDA
+tensors and runs the plain step for CPU tensors.
+
+Stacks are (nvar, qx, qy); conserved order (density, energy, x-momentum,
+y-momentum[, rho X...]) as registered, primitive order (rho, u, v, p[,
+X...]).
+"""
+
+import math
+
+import torch
+
+import pyro2_tpu_torch.mesh.boundary as bnd
+import pyro2_tpu_torch.solvers.compressible.unsplit_fluxes as flx
+from pyro2_tpu_torch.mesh.indexer import ai, aic
+from pyro2_tpu_torch.simulation_null import (NullSimulation, bc_setup,
+                                             grid_setup)
+from pyro2_tpu_torch.solvers.compressible import BC, derives, eos, riemann
+
+__all__ = ["Variables", "cons_to_prim", "prim_to_cons",
+           "get_external_sources", "get_sponge_factor", "Simulation"]
+
+
+class Variables:
+    """Integer indices of the conserved and primitive variable layouts."""
+
+    def __init__(self, myd):
+        self.nvar = len(myd.names)
+
+        self.idens = myd.names.index("density")
+        self.ixmom = myd.names.index("x-momentum")
+        self.iymom = myd.names.index("y-momentum")
+        self.iener = myd.names.index("energy")
+
+        # any additional variables are passively advected scalars
+        self.naux = self.nvar - 4
+        self.irhox = 4 if self.naux > 0 else -1
+
+        self.nq = 4 + self.naux
+        self.irho = 0
+        self.iu = 1
+        self.iv = 2
+        self.ip = 3
+        self.ix = 4 if self.naux > 0 else -1
+
+
+def cons_to_prim(U, gamma, ivars, myg, *, check=True):
+    """Conserved stack -> primitive stack (guarding rho == 0 zones).
+
+    `check` runs the host-side state-validity check (min rho and min e on
+    the interior must be positive), which reads values back from the
+    device.  The JAX package runs it only outside jit, i.e. in host-side
+    calls; the step and the CFL timestep pass check=False, as their jitted
+    JAX twins skip it."""
+    rho = U[ivars.idens]
+    nonzero = rho != 0.0
+    safe_rho = torch.where(nonzero, rho, 1.0)
+
+    u = torch.where(nonzero, U[ivars.ixmom] / safe_rho, 0.0)
+    v = torch.where(nonzero, U[ivars.iymom] / safe_rho, 0.0)
+    e = torch.where(nonzero,
+                    (U[ivars.iener] - 0.5 * rho * (u ** 2 + v ** 2)) /
+                    safe_rho, 0.0)
+
+    if check:
+        e_min = float(ai(e, myg).v().min())
+        rho_min = float(ai(rho, myg).v().min())
+        if not (e_min > 0.0 and rho_min > 0.0):
+            raise ValueError(
+                f"invalid state, min(rho) = {rho_min}, min(e) = {e_min}")
+
+    rows = [None] * ivars.nq
+    rows[ivars.irho] = rho
+    rows[ivars.iu] = u
+    rows[ivars.iv] = v
+    rows[ivars.ip] = eos.pres(gamma, rho, e)
+    for nq_i, nu_i in zip(range(ivars.ix, ivars.ix + ivars.naux),
+                          range(ivars.irhox, ivars.irhox + ivars.naux)):
+        rows[nq_i] = torch.where(nonzero, U[nu_i] / safe_rho, 0.0)
+    return torch.stack(rows)
+
+
+def prim_to_cons(q, gamma, ivars, myg):
+    """Primitive stack -> conserved stack."""
+    rows = [None] * ivars.nvar
+    rows[ivars.idens] = q[ivars.irho]
+    rows[ivars.ixmom] = q[ivars.iu] * q[ivars.irho]
+    rows[ivars.iymom] = q[ivars.iv] * q[ivars.irho]
+    rhoe = eos.rhoe(gamma, q[ivars.ip])
+    rows[ivars.iener] = rhoe + 0.5 * q[ivars.irho] * \
+        (q[ivars.iu] ** 2 + q[ivars.iv] ** 2)
+    for nq_i, nu_i in zip(range(ivars.ix, ivars.ix + ivars.naux),
+                          range(ivars.irhox, ivars.irhox + ivars.naux)):
+        rows[nu_i] = q[nq_i] * q[ivars.irho]
+    return torch.stack(rows)
+
+
+def _uncovered(what):
+    return NotImplementedError(
+        f"{what} waits for a later slice of the port (ROADMAP.md, queue B "
+        "item 1: spherical and problem-source coverage)")
+
+
+def get_external_sources(t, dt, U, ivars, rp, myg, *,
+                         U_old=None, problem_source=None):
+    """External sources: gravity in y (Cartesian geometry).  With U_old
+    (U ~ U^{n+1} including a full dt*S_old) the energy source is
+    time-centred with the corrected momentum."""
+    if getattr(myg, "coord_type", 0) != 0:
+        raise _uncovered("spherical geometry")
+    if problem_source:
+        raise _uncovered("problem source terms")
+    grav = rp.get_param("compressible.grav")
+
+    zero = torch.zeros_like(U[0])
+    rows = [zero] * ivars.nvar
+    if U_old is None:
+        rows[ivars.iymom] = U[ivars.idens] * grav
+        rows[ivars.iener] = U[ivars.iymom] * grav
+    else:
+        S_ymom = U[ivars.idens] * grav
+        S_old_ymom = U_old[ivars.idens] * grav
+        ymom_new = U[ivars.iymom] + 0.5 * dt * (S_ymom - S_old_ymom)
+        rows[ivars.iymom] = S_ymom
+        rows[ivars.iener] = ymom_new * grav
+    return torch.stack(rows)
+
+
+def get_sponge_factor(U, ivars, rp, myg):
+    """The sponge damping rate f/tau."""
+    rho = U[ivars.idens]
+    rho_begin = rp.get_param("sponge.sponge_rho_begin")
+    rho_full = rp.get_param("sponge.sponge_rho_full")
+    if not rho_begin > rho_full:
+        raise ValueError("sponge_rho_begin must exceed sponge_rho_full")
+
+    f = torch.where(rho > rho_begin, 0.0,
+                    torch.where(rho < rho_full, 1.0,
+                                0.5 * (1.0 - torch.cos(
+                                    math.pi * (rho - rho_begin) /
+                                    (rho_full - rho_begin)))))
+    tau = rp.get_param("sponge.sponge_timescale")
+    return f / tau
+
+
+class Simulation(NullSimulation):
+    """The CTU compressible hydrodynamics solver."""
+
+    def initialize(self, *, extra_vars=None, ng=4):
+        """Grid (ng=4), the 4 conserved vars (+extras), aux source-term
+        container, custom BCs, ICs, and the step."""
+        from pyro2_tpu_torch.solvers.compressible.ctu_kernel import CTUStep
+
+        my_grid = grid_setup(self.rp, ng=ng)
+        if getattr(my_grid, "coord_type", 0) != 0:
+            raise _uncovered("spherical geometry")
+        if self.problem_source is not None:
+            raise _uncovered("problem source terms")
+        if self.rp.get_param("particles.do_particles") == 1:
+            raise NotImplementedError(
+                "particles wait for a later slice of the port (ROADMAP.md)")
+        my_data = self.data_class(my_grid)
+
+        bnd.define_bc("hse", BC.user, is_solid=False)
+        bnd.define_bc("ambient", BC.user, is_solid=False)
+        bnd.define_bc("ramp", BC.user, is_solid=False)
+
+        bc, bc_xodd, bc_yodd = bc_setup(self.rp)
+        self.solid = bnd.bc_is_solid(bc)
+
+        my_data.register_var("density", bc)
+        my_data.register_var("energy", bc)
+        my_data.register_var("x-momentum", bc_xodd)
+        my_data.register_var("y-momentum", bc_yodd)
+        if extra_vars is not None:
+            for v in extra_vars:
+                my_data.register_var(v, bc)
+
+        my_data.set_aux("gamma", self.rp.get_param("eos.gamma"))
+        my_data.set_aux("grav", self.rp.get_param("compressible.grav"))
+
+        my_data.create()
+        self.cc_data = my_data
+
+        # source terms needing their own ghost fill
+        aux_data = self.data_class(my_grid)
+        aux_data.register_var("dens_src", bc)
+        aux_data.register_var("xmom_src", bc_xodd)
+        aux_data.register_var("ymom_src", bc_yodd)
+        aux_data.register_var("E_src", bc)
+        aux_data.create()
+        aux_data.aux = my_data.aux
+        self.aux_data = aux_data
+
+        self.ivars = Variables(my_data)
+        self.cc_data.add_ivars(self.ivars)
+        self.cc_data.add_derived(derives.derive_primitives)
+
+        self.problem_func(self.cc_data, self.rp)
+
+        if self.verbose > 0:
+            print(my_data)
+
+        # no fallback: CUDA tensors launch the kernel or raise
+        self._step = CTUStep(self)
+        self._dt_fn = self._make_dt()
+
+    # -- the plain step and timestep -----------------------------------------
+    def _make_dt(self):
+        myg = self.cc_data.grid
+        gamma = self.rp.get_param("eos.gamma")
+        ivars = self.ivars
+
+        def dt_fn(U):
+            q = cons_to_prim(U, gamma, ivars, myg, check=False)
+            cs = torch.sqrt(gamma * q[ivars.ip] / q[ivars.irho])
+            xtmp = ai(myg.dx / (q[ivars.iu].abs() + cs), myg).v()
+            ytmp = ai(myg.dy / (q[ivars.iv].abs() + cs), myg).v()
+            return torch.minimum(xtmp.min(), ytmp.min())
+
+        return dt_fn
+
+    def _make_step(self):
+        """The plain tensor CTU step(U, t, dt) -> U_new (the CPU oracle
+        of the CUDA kernel; U is not modified)."""
+        myg = self.cc_data.grid
+        rp = self.rp
+        ivars = self.ivars
+        gamma = rp.get_param("eos.gamma")
+        solid = self.solid
+        tc = self.tc
+        small_dens = rp.get_param("compressible.small_dens")
+        do_sponge = rp.get_param("sponge.do_sponge")
+        my_data = self.cc_data
+        my_aux = self.aux_data
+
+        iv_sl = (slice(myg.ilo, myg.ihi + 1), slice(myg.jlo, myg.jhi + 1))
+        all_iv = (slice(None),) + iv_sl
+
+        def step(U, t, dt):
+            # density floor (clean_state) on the global interior.  The
+            # default sentinel (-1e200) is out of f32 range: clamp it to
+            # the dtype's finfo min, which keeps the floor a no-op
+            floor = max(small_dens, torch.finfo(U.dtype).min)
+            U = U.clone()
+            U[(ivars.idens,) + iv_sl] = \
+                U[(ivars.idens,) + iv_sl].clamp_min(floor)
+
+            U_xl, U_xr, U_yl, U_yr = flx.interface_states(
+                U, my_data, rp, ivars, tc, dt)
+
+            U_xl, U_xr, U_yl, U_yr = flx.apply_source_terms(
+                U_xl, U_xr, U_yl, U_yr, U, t, my_data, my_aux, rp, ivars,
+                tc, dt)
+
+            U_xl, U_xr, U_yl, U_yr = flx.apply_transverse_flux(
+                U_xl, U_xr, U_yl, U_yr, my_data, rp, ivars, solid, tc, dt)
+
+            F_x = riemann.riemann_flux(1, U_xl, U_xr, my_data, rp,
+                                       ivars, solid.xl, solid.xr, tc)
+            F_y = riemann.riemann_flux(2, U_yl, U_yr, my_data, rp,
+                                       ivars, solid.yl, solid.yr, tc)
+
+            q = cons_to_prim(U, gamma, ivars, myg, check=False)
+            F_x, F_y = flx.apply_artificial_viscosity(
+                F_x, F_y, q, U, my_data, rp, ivars)
+
+            U_old = U
+
+            # conservative update (uniform Cartesian geometry)
+            dtdV = dt / (myg.dx * myg.dy)
+            Ax = aic(myg.dy)
+            Ay = aic(myg.dx)
+            Fx = ai(F_x, myg)
+            Fy = ai(F_y, myg)
+            upd = dtdV * (
+                Fx.v() * Ax.v() - Fx.ip(1) * Ax.ip(1) +
+                Fy.v() * Ay.v() - Fy.jp(1) * Ay.jp(1))
+            U = U_old.clone()
+            U[all_iv] += upd
+
+            # predictor-corrector external sources
+            S_old = get_external_sources(t, dt, U_old, ivars, rp, myg)
+            U[all_iv] += dt * S_old[all_iv]
+
+            S_new = get_external_sources(t, dt, U, ivars, rp, myg,
+                                         U_old=U_old)
+            U[all_iv] += 0.5 * dt * (S_new - S_old)[all_iv]
+
+            # implicit sponge damping of the velocity (whole array)
+            if do_sponge:
+                kappa_f = get_sponge_factor(U, ivars, rp, myg)
+                damp = 1.0 + dt * kappa_f
+                pre_x = U[ivars.ixmom].clone()
+                pre_y = U[ivars.iymom].clone()
+                U[ivars.ixmom] = pre_x / damp
+                U[ivars.iymom] = pre_y / damp
+                dke = 0.5 * ((U[ivars.ixmom] ** 2 + U[ivars.iymom] ** 2) -
+                             (pre_x ** 2 + pre_y ** 2)) / U[ivars.idens]
+                U[ivars.iener] += dke
+
+            return U
+
+        return step
+
+    # -- host-side driver hooks --------------------------------------------
+    def method_compute_timestep(self):
+        """CFL: dt = cfl * min(Lx/(|u|+cs), Ly/(|v|+cs))."""
+        cfl = self.rp.get_param("driver.cfl")
+        self.dt = cfl * float(self._dt_fn(self.cc_data.data))
+
+    def evolve(self):
+        """One CTU step (one kernel launch on CUDA)."""
+        tm_evolve = self.tc.timer("evolve")
+        tm_evolve.begin()
+
+        U = self._step(self.cc_data.data, self.cc_data.t, self.dt)
+        self.cc_data.set_vars(U)
+
+        self.cc_data.t += self.dt
+        self.n += 1
+        tm_evolve.end(sync=self.cc_data.data)
+
+    def clean_state(self, U):
+        """Enforce the density floor on a stack (returns a new tensor)."""
+        small_dens = self.rp.get_param("compressible.small_dens")
+        g = self.cc_data.grid
+        sl = (self.ivars.idens, slice(g.ilo, g.ihi + 1),
+              slice(g.jlo, g.jhi + 1))
+        floor = max(small_dens, torch.finfo(U.dtype).min)
+        U = U.clone()
+        U[sl] = U[sl].clamp_min(floor)
+        return U
+
+    def dovis(self):
+        raise NotImplementedError(
+            "runtime visualization waits for a later slice of the port "
+            "(ROADMAP.md); run with vis.dovis=0")
+
+    def write_extras(self, f):
+        """Record the custom-BC names (restart support)."""
+        gb = f.create_group("BC")
+        gb.create_dataset("hse", data=False)
+        gb.create_dataset("ambient", data=False)

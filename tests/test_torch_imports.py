@@ -1,0 +1,95 @@
+"""The PyTorch port stands alone: it imports neither JAX nor pyro2_tpu, and
+its entry points never fall back to the CPU when there is no GPU."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "pyro2_tpu_torch"
+
+
+def _imported_modules(path):
+    """Every module name an `import` / `from ... import` in `path` names."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.module and \
+                node.level == 0:
+            names.append(node.module)
+    return names
+
+
+def _forbidden(name):
+    top = name.split(".")[0]
+    # exact module names: pyro2_tpu_torch starts with "pyro2_tpu"
+    return top in ("jax", "jaxlib", "pyro2_tpu")
+
+
+def test_no_jax_or_pyro2_tpu_import_in_source():
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 20
+    bad = [(str(f.relative_to(ROOT)), n) for f in files
+           for n in _imported_modules(f) if _forbidden(n)]
+    assert bad == []
+
+
+def test_forbidden_matches_exact_module_names():
+    assert _forbidden("jax.numpy") and _forbidden("pyro2_tpu.mesh.grid")
+    assert _forbidden("pyro2_tpu")
+    assert not _forbidden("pyro2_tpu_torch.mesh.grid")
+
+
+def test_import_pulls_in_no_jax():
+    code = (
+        "import sys\n"
+        "import pyro2_tpu_torch\n"
+        "import pyro2_tpu_torch.solvers.compressible\n"
+        "import pyro2_tpu_torch.solvers.compressible.ctu_kernel\n"
+        "from pyro2_tpu_torch.solvers.compressible.problems import "
+        "advect, kh, quad, rt, sod\n"
+        "import pyro2_tpu_torch.util.carry\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'pyro2_tpu')]\n"
+        "assert not bad, bad\n"
+        "print('clean')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "clean"
+
+
+def test_default_device_raises_without_cuda(monkeypatch, tmp_path):
+    from pyro2_tpu_torch import Pyro
+    from pyro2_tpu_torch.defaults import resolve_device
+
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Pyro("compressible")
+    with pytest.raises(RuntimeError):
+        resolve_device("cuda")
+    assert resolve_device("cpu") == torch.device("cpu")
+    p = Pyro("compressible", device="cpu")
+    assert p.dtype == torch.float64
+
+
+def test_chip_smoke_refuses_without_cuda(tmp_path):
+    # alone in a directory and without a GPU, it fails and prints no result
+    script = tmp_path / "chip_smoke.py"
+    script.write_text((ROOT / "chip_smoke.py").read_text())
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    env.pop("PYTHONPATH", None)
+    res = subprocess.run([sys.executable, str(script)], cwd=tmp_path,
+                         env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert res.returncode != 0
+    assert '"ok"' not in res.stdout

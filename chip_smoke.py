@@ -5,18 +5,31 @@
 
 Phases (any failure exits non-zero and prints no result line):
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
-  2. build the CUDA CTU kernel from pyro2_tpu_torch/csrc with nvcc;
-  3. the kernel against its plain PyTorch version on the card, one step
+  2. build the CUDA sources of pyro2_tpu_torch/csrc (ctu_step.cu,
+     mg_vcycle.cu) with nvcc, one process each, started together, and print
+     what ptxas reports (registers, shared memory, spills);
+  3. the CTU kernel against its plain PyTorch version on the card, one step
      from the same state, for five configurations at a ragged 200x136 and at
      1024^2, in float64 (max |diff| <= 1e-12 max|U|) and float32
      (<= 1e-5 max|U|);
-  4. the main path through Pyro("compressible") -> run_sim on CUDA in
-     float32: quad at 1024^2 for 100 steps and rt at 256x768 for 50 steps,
-     each with the launch count reset just before and read just after;
-  5. CUDA-event timing of the kernel and the plain step at quad 1024^2
-     float32, beside the kernel's bound on this card;
-  6. a torch.profiler breakdown of 20 main-path steps: device time by
-     kernel and the device's busy share of the wall time.
+  4. the multigrid kernels (mg_core, mg_down, mg_up) against their plain
+     versions from the same inputs, each entry, one whole V-cycle and one
+     whole solve, at 64^2 (core only) and 1024^2 (core up to 128^2 in
+     float32 and 64^2 in float64, the finer levels peeled), with the
+     Neumann Helmholtz operator of diffusion and the periodic Poisson
+     operator of the projections, in float64 (<= 1e-12 max|v|) and float32
+     (<= 1e-5 max|v|);
+  5. the main paths through Pyro -> run_sim on CUDA in float32, each with
+     every launch count reset just before and read just after:
+     compressible quad at 1024^2 for 100 steps and rt at 256x768 for 50
+     steps (one CTU launch per step), then diffusion gaussian and
+     incompressible shear at 1024^2 for 10 steps each (per multigrid
+     cycle one mg_core and one mg_down plus one mg_up per peeled level);
+  6. CUDA-event timing of each kernel and its plain version at the main
+     paths' shapes (quad 1024^2; the 1024^2 solve's levels), beside each
+     kernel's bound on this card;
+  7. torch.profiler breakdowns of 20 quad steps and 5 shear steps: device
+     time by kernel and the device's busy share of the wall time.
 
 The line before the last is a JSON object describing every kernel; the last
 line is {"ok": true, "device": {...}}.
@@ -52,6 +65,16 @@ CONFIGS = (
         "sponge.sponge_rho_begin": 0.6, "sponge.sponge_rho_full": 0.3},
      ["passive"]),
 )
+
+
+# multigrid checks: the operator of each BC set, as the solvers use them:
+# diffusion's Crank-Nicolson Helmholtz operator (alpha 1, beta = dt k / 2
+# with dt = 2 dx^2) on Neumann walls, and the projections' Poisson
+# operator (alpha 0, beta -1) on the doubly periodic shear domain
+MG_OPERATORS = (("neumann_helmholtz", "neumann", 1.0, None),
+                ("periodic_poisson", "periodic", 0.0, -1.0))
+
+MG_KERNELS = ("mg_core", "mg_down", "mg_up")
 
 
 def log(*a):
@@ -128,12 +151,14 @@ def main_path(problem, nx, ny, steps):
     assert p.sim.cc_data.data.is_cuda
     assert p.sim.cc_data.data.dtype == torch.float32
     torch.cuda.synchronize()
-    ctu_kernel.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     p.run_sim()
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     n_launch = ctu_kernel.launches
+    if read_counts()[1] != dict.fromkeys(MG_KERNELS, 0):
+        raise AssertionError(f"{problem}: multigrid kernels launched")
 
     sim = p.sim
     g = sim.cc_data.grid
@@ -153,7 +178,271 @@ def main_path(problem, nx, ny, steps):
     return p, seconds, n_launch
 
 
-def profile_steps(p, steps):
+def reset_counts():
+    """Every kernel's launch count, and the multigrid solve and cycle
+    counts, to 0."""
+    from pyro2_tpu_torch.multigrid import MG, mg_kernel
+    from pyro2_tpu_torch.solvers.compressible import ctu_kernel
+
+    ctu_kernel.launches = 0
+    for key in mg_kernel.launches:
+        mg_kernel.launches[key] = 0
+    for key in MG.stats:
+        MG.stats[key] = 0
+
+
+def read_counts():
+    """(CTU launches, multigrid launches by kernel, multigrid stats)."""
+    from pyro2_tpu_torch.multigrid import MG, mg_kernel
+    from pyro2_tpu_torch.solvers.compressible import ctu_kernel
+
+    return ctu_kernel.launches, dict(mg_kernel.launches), dict(MG.stats)
+
+
+def make_mg(n, bc, alpha, beta, dtype):
+    from pyro2_tpu_torch.multigrid.MG import CellCenterMG2d
+
+    return CellCenterMG2d(n, n, xl_BC_type=bc, xr_BC_type=bc,
+                          yl_BC_type=bc, yr_BC_type=bc, alpha=alpha,
+                          beta=(1.0 / n) ** 2 if beta is None else beta,
+                          device="cuda", dtype=dtype)
+
+
+def frame(rng, g, dtype, scale=1.0, zero_mean=False):
+    """A random (qx, qy) frame on the card; zero_mean removes the interior
+    mean (a periodic Poisson right-hand side must have none)."""
+    import torch
+
+    a = scale * rng.standard_normal((g.qx, g.qy))
+    if zero_mean:
+        a[1:-1, 1:-1] -= a[1:-1, 1:-1].mean()
+    return torch.as_tensor(a, dtype=dtype, device="cuda")
+
+
+def resid_scale(mg, level, v, f):
+    """The size of the terms a residual f - alpha v + beta L v of a level
+    cancels: its roundoff is relative to these, not to the residual."""
+    vmax, fmax = float(v.abs().max()), float(f.abs().max())
+    return fmax + abs(mg.alpha) * vmax + \
+        8.0 * abs(mg.beta) * vmax / mg.grids[level].dx ** 2
+
+
+def mg_compare(n, op, dtype, tol, errs):
+    """Each multigrid kernel, one whole cycle and one whole solve against
+    their plain versions from the same inputs; records the worst |diff| of
+    each kernel in errs[kernel]."""
+    import numpy as np
+    import torch
+
+    from pyro2_tpu_torch.multigrid import mg_kernel
+
+    name, bc, alpha, beta = op
+    mg = make_mg(n, bc, alpha, beta, dtype)
+    rng = np.random.default_rng(n)
+    top, peeled = mg_kernel.split(mg, dtype)
+    fine = mg.nlevels - 1
+    rows = []
+
+    def check(what, kernel, ref, got, scale=None):
+        """|diff| <= tol max|ref|, or tol times the size of the terms a
+        residual cancels (scale) for a residual."""
+        err = float((ref - got).abs().max())
+        if scale is None:
+            scale = float(ref.abs().max())
+        ok = bool(torch.isfinite(got).all()) and err <= tol * scale
+        rows.append((what, err, scale, ok))
+        if kernel:
+            errs[kernel] = max(errs.get(kernel, 0.0), err)
+        if not ok:
+            raise AssertionError(f"multigrid kernel disagrees with its plain "
+                                 f"version: {what} {n}^2 {name} {dtype}")
+
+    for guess in (True, False):                  # the core
+        g = mg.grids[top]
+        v = frame(rng, g, dtype, 0.1) if guess else None
+        f = frame(rng, g, dtype)
+        ref = mg_kernel.core_plain(mg, top, v, f, True)
+        got = mg_kernel.launch_core(mg, top, v, f, True)
+        check(f"mg_core v {g.nx}^2", "mg_core", ref[0], got[0])
+        check(f"mg_core r {g.nx}^2", "mg_core", ref[1], got[1],
+              resid_scale(mg, top, ref[0], f))
+    for lv in peeled:                            # every peeled level
+        g, gc = mg.grids[lv], mg.grids[lv - 1]
+        v, f = frame(rng, g, dtype, 0.1), frame(rng, g, dtype)
+        for guess in ((v, None) if lv < fine else (v,)):
+            ref = mg_kernel.down_plain(mg, lv, guess, f)
+            got = mg_kernel.launch_down(mg, lv, guess, f)
+            check(f"mg_down v {g.nx}^2", "mg_down", ref[0], got[0])
+            check(f"mg_down fc {g.nx}^2", "mg_down", ref[1], got[1],
+                  resid_scale(mg, lv, ref[0], f))
+        vc = frame(rng, gc, dtype, 0.1)
+        ref = mg_kernel.up_plain(mg, lv, v, f, vc, lv == fine)
+        got = mg_kernel.launch_up(mg, lv, v, f, vc, lv == fine)
+        check(f"mg_up v {g.nx}^2", "mg_up", ref[0], got[0])
+        if lv == fine:
+            check(f"mg_up r {g.nx}^2", "mg_up", ref[1], got[1],
+                  resid_scale(mg, lv, ref[0], f))
+
+    g = mg.soln_grid                             # one whole cycle
+    v = frame(rng, g, dtype, 0.1)
+    f = frame(rng, g, dtype, zero_mean=alpha == 0.0)
+    ref = mg_kernel.core_plain(mg, fine, v, f, True)
+    got = mg_kernel.cycle(mg, v, f)
+    check("cycle v", None, ref[0], got[0])
+    check("cycle r", None, ref[1], got[1], resid_scale(mg, fine, ref[0], f))
+
+    # one whole solve: the kernels' and, with the plain cycle, the plain
+    # version's, from a zero guess
+    solves = []
+    for plain in (True, False):
+        m = make_mg(n, bc, alpha, beta, dtype)
+        m.init_zeros()
+        m.init_RHS(f)
+        saved = mg_kernel.cycle
+        if plain:
+            mg_kernel.cycle = lambda mm, vv, ff: mg_kernel.core_plain(
+                mm, mm.nlevels - 1, vv, ff, True)
+        try:
+            m.solve(rtol=1.e-11)
+        finally:
+            mg_kernel.cycle = saved
+        solves.append(m)
+    ref, got = solves
+    check("solve v", None, ref.get_solution(), got.get_solution())
+    if dtype == torch.float64 and got.num_cycles != ref.num_cycles:
+        raise AssertionError(f"solve: {got.num_cycles} kernel cycles, "
+                             f"{ref.num_cycles} plain")
+    torch.cuda.synchronize()
+    worst = max(rows, key=lambda r: r[1] / r[2])
+    log(f"  ok  {n:5d}^2 {name:17s} {str(dtype)[6:]:8s} core top "
+        f"{2 ** (top + 1)}^2, {len(peeled)} peeled; {len(rows)} checks, "
+        f"worst {worst[0]}: {worst[1]:.3e} (tol {tol:g} x "
+        f"{worst[2]:.3g}); solve cycles kernel "
+        f"{got.num_cycles} plain {ref.num_cycles}, residual "
+        f"{got.residual_error:.3e} / {ref.residual_error:.3e}")
+
+
+def mg_main_path(solver, problem, n, steps):
+    """Pyro(solver) -> run_sim on CUDA float32 with the counts reset just
+    before and read just after; returns (pyro, launches by kernel)."""
+    import torch
+
+    from pyro2_tpu_torch import Pyro
+    from pyro2_tpu_torch.multigrid import mg_kernel
+
+    p = Pyro(solver)                    # default device: CUDA, float32
+    p.initialize_problem(problem, inputs_dict={
+        "mesh.nx": n, "mesh.ny": n, "driver.max_steps": steps,
+        "driver.tmax": 1.0e30})
+    sim = p.sim
+    assert sim.cc_data.data.is_cuda
+    assert sim.cc_data.data.dtype == torch.float32
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    p.run_sim()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    ctu, launches, stats = read_counts()
+
+    peeled = len(mg_kernel.split(make_mg(n, "periodic", 0.0, -1.0,
+                                         torch.float32), torch.float32)[1])
+    cycles = stats["cycles"]
+    expect = {"mg_core": cycles, "mg_down": cycles * peeled,
+              "mg_up": cycles * peeled}
+    if sim.n != steps or ctu != 0 or launches != expect or cycles == 0:
+        raise AssertionError(
+            f"{solver}: {sim.n} steps, launches {launches} (CTU {ctu}) for "
+            f"{cycles} cycles, expected {expect}")
+    data = sim.cc_data.data
+    if not bool(torch.isfinite(data).all()):
+        raise AssertionError(f"{solver}: the state is not finite")
+    zps = n * n * steps / seconds
+    log(f"  {solver} {problem} {n}x{n} f32: {steps} steps in {seconds:.3f} s,"
+        f" {1e3 * seconds / steps:.3f} ms/step, {zps:.4e} zone-updates/s; "
+        f"{stats['solves']} solves, {cycles} cycles "
+        f"({cycles / stats['solves']:.2f} per solve); launches {launches}; "
+        f"t = {sim.cc_data.t:.6g}, max|state| {float(data.abs().max()):.6g}")
+    return p, launches
+
+
+def time_pair(name, kern, plain, work, bw, fp32):
+    """CUDA-event ms of a kernel and its plain version (plain, kernel,
+    kernel, plain), beside the kernel's bound; returns (ms, plain ms,
+    bound ms, bound by)."""
+    nbytes, nops = work
+    event_ms(kern, 3)                               # warm up
+    event_ms(plain, 1)
+    plain_a = event_ms(plain, 3)
+    kern_a = event_ms(kern, 20)
+    kern_b = event_ms(kern, 20)
+    plain_b = event_ms(plain, 3)
+    kern_ms, plain_ms = 0.5 * (kern_a + kern_b), 0.5 * (plain_a + plain_b)
+    bytes_ms, ops_ms = 1e3 * nbytes / bw, 1e3 * nops / fp32
+    bound_ms = max(bytes_ms, ops_ms)
+    bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
+    log(f"  {name}: kernel {kern_ms:.4f} ms ({kern_a:.4f}, {kern_b:.4f}); "
+        f"plain {plain_ms:.4f} ms ({plain_a:.4f}, {plain_b:.4f}); bound "
+        f"{bound_ms:.4f} ms ({bound_by}: {nbytes} B = {bytes_ms:.4f} ms, "
+        f"{nops} ops = {ops_ms:.4f} ms); kernel at "
+        f"{100 * bound_ms / kern_ms:.2f}% of it")
+    return kern_ms, plain_ms, bound_ms, bound_by
+
+
+def mg_timing(bw, fp32):
+    """CUDA-event times of each multigrid kernel and its plain version as
+    one 1024^2 float32 cycle calls them: the core from a zero guess, and
+    the down and up of every peeled level; returns the core's and the
+    finest level's."""
+    import numpy as np
+    import torch
+
+    from pyro2_tpu_torch.multigrid import mg_kernel
+
+    dtype = torch.float32
+    mg = make_mg(1024, "periodic", 0.0, -1.0, dtype)
+    top, peeled = mg_kernel.split(mg, dtype)
+    fine = mg.nlevels - 1
+    rng = np.random.default_rng(7)
+    gt = mg.grids[top]
+    ft = frame(rng, gt, dtype)
+    out = {"mg_core": time_pair(
+        f"mg_core ({gt.nx}^2 top, zero guess)",
+        lambda: mg_kernel.launch_core(mg, top, None, ft, False),
+        lambda: mg_kernel.core_plain(mg, top, None, ft, False),
+        mg_kernel.work("mg_core", gt.nx, mg.nsmooth, dtype,
+                       nsmooth_bottom=mg.nsmooth_bottom, with_guess=False,
+                       want_r=False), bw, fp32)}
+    for lv in reversed(peeled):
+        g, gc = mg.grids[lv], mg.grids[lv - 1]
+        f, vc = frame(rng, g, dtype), frame(rng, gc, dtype, 0.1)
+        v = frame(rng, g, dtype, 0.1)
+        guess = v if lv == fine else None           # as the cycle calls it
+        want_r = lv == fine
+        times = {
+            "mg_down": time_pair(
+                f"mg_down ({g.nx}^2)",
+                lambda: mg_kernel.launch_down(mg, lv, guess, f),
+                lambda: mg_kernel.down_plain(mg, lv, guess, f),
+                mg_kernel.work("mg_down", g.nx, mg.nsmooth, dtype,
+                               with_guess=guess is not None), bw, fp32),
+            "mg_up": time_pair(
+                f"mg_up ({g.nx}^2)",
+                lambda: mg_kernel.launch_up(mg, lv, v, f, vc, want_r),
+                lambda: mg_kernel.up_plain(mg, lv, v, f, vc, want_r),
+                mg_kernel.work("mg_up", g.nx, mg.nsmooth, dtype,
+                               want_r=want_r), bw, fp32)}
+        if lv == fine:
+            out.update(times)
+    v, f = frame(rng, mg.soln_grid, dtype, 0.1), frame(rng, mg.soln_grid,
+                                                       dtype)
+    cyc = event_ms(lambda: mg_kernel.cycle(mg, v, f), 10)
+    log(f"  one 1024^2 cycle (1 core, {len(peeled)} down, {len(peeled)} up): "
+        f"{cyc:.4f} ms")
+    return out
+
+
+def profile_steps(p, steps, label):
     """torch.profiler over `steps` main-path steps: device time by kernel
     and the device's busy share of the wall time."""
     import re
@@ -176,14 +465,18 @@ def profile_steps(p, steps):
                          getattr(e, "cuda_time_total", 0.0))
         if e.device_type == torch.autograd.DeviceType.CUDA and dev_us > 0:
             m = re.search(r"(k_[a-z0-9]+)<(float|double)>", e.key)
-            name = f"ctu_step.cu {m.group(1)}<{m.group(2)}>" if m \
-                else e.key[:72]
+            if m:
+                src = "mg_vcycle.cu" if m.group(1) in \
+                    ("k_core", "k_down", "k_up") else "ctu_step.cu"
+                name = f"{src} {m.group(1)}<{m.group(2)}>"
+            else:
+                name = e.key[:72]
             rows.append((dev_us, e.count, name))
     rows.sort(reverse=True)
     if not rows:
         raise AssertionError("the profiler recorded no device time")
     busy_us = sum(r[0] for r in rows)
-    log(f"[profile: {steps} main-path steps, quad 1024^2 float32]")
+    log(f"[profile: {steps} main-path steps, {label}]")
     log(f"  wall {wall_us / steps:.1f} us/step, device busy "
         f"{busy_us / steps:.1f} us/step ({100 * busy_us / wall_us:.1f}% "
         f"busy, {100 - 100 * busy_us / wall_us:.1f}% idle)")
@@ -211,7 +504,9 @@ def main():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
     sys.path.insert(0, HERE)
+    from pyro2_tpu_torch.multigrid import mg_kernel
     from pyro2_tpu_torch.solvers.compressible import ctu_kernel
+    from pyro2_tpu_torch.util import cuda_build
 
     # 1. the card
     smi = subprocess.run(
@@ -222,21 +517,26 @@ def main():
     kind = torch.cuda.get_device_name(0)
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"python {sys.version.split()[0]}, device 0: {kind}")
+    bw, fp32 = next((b, f) for key, b, f in PEAKS if key in kind)
 
-    # 2. build
+    # 2. build, one nvcc per source, all started together
     log("[build]")
     t0 = time.perf_counter()
-    so, nvcc_s, ptxas = ctu_kernel.build(verbose=True)
+    built = cuda_build.build_many([ctu_kernel.SOURCE, mg_kernel.SOURCE],
+                                  verbose=True)
     ctu_kernel._load()
-    log(f"  built {os.path.relpath(so, HERE)} in {nvcc_s:.1f} s "
-        f"(nvcc) / {time.perf_counter() - t0:.1f} s (with load)")
-    for line in ptxas.splitlines():
-        if "Compiling entry" in line or "registers" in line:
-            log("  " + line.strip())
+    mg_kernel._load()
+    log(f"  built in {time.perf_counter() - t0:.1f} s (with load)")
+    for so, nvcc_s, ptxas in built:
+        log(f"  {os.path.relpath(so, HERE)}: nvcc {nvcc_s:.1f} s")
+        for line in ptxas.splitlines():
+            if any(k in line for k in ("Compiling entry", "registers",
+                                       "spill", "smem")):
+                log("    " + line.strip())
 
-    # 3. kernel vs plain on the card
-    log("[kernel vs plain step on the card]")
-    main_err = None
+    # 3. the CTU kernel vs its plain step on the card
+    log("[ctu_step vs plain step on the card]")
+    ctu_err = None
     for dtype, tol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
         for nx, ny in ((200, 136), (1024, 1024)):
             for name, problem, inputs, extra in CONFIGS:
@@ -244,15 +544,30 @@ def main():
                               tol)
                 if (name == "quad_hllc" and nx == 1024 and
                         dtype == torch.float32):
-                    main_err = err
+                    ctu_err = err
             torch.cuda.empty_cache()
 
-    # 4. the main path
-    log("[main path: Pyro('compressible') -> run_sim, CUDA float32]")
+    # 4. the multigrid kernels vs their plain versions on the card
+    log("[multigrid kernels vs plain versions on the card]")
+    mg_err = {}
+    for dtype, tol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
+        for n in (64, 1024):
+            for op in MG_OPERATORS:
+                mg_compare(n, op, dtype, tol,
+                           mg_err if (n, dtype) == (1024, torch.float32)
+                           else {})
+        torch.cuda.empty_cache()
+
+    # 5. the main paths
+    log("[main paths: Pyro -> run_sim, CUDA float32]")
     p, _, quad_launches = main_path("quad", 1024, 1024, 100)
     main_path("rt", 256, 768, 50)
+    _, diff_launches = mg_main_path("diffusion", "gaussian", 1024, 10)
+    shear, shear_launches = mg_main_path("incompressible", "shear", 1024, 10)
+    mg_launches = {k: diff_launches[k] + shear_launches[k]
+                   for k in MG_KERNELS}
 
-    # 5. timing at the main path's shapes
+    # 6. timing at the main paths' shapes
     log("[timing: quad 1024^2 float32, CUDA events]")
     sim = p.sim
     sim.cc_data.fill_BC_all()
@@ -271,7 +586,6 @@ def main():
     g = sim.cc_data.grid
     nbytes, nops = ctu_kernel.work(g.nx, g.ny, sim.ivars.nvar,
                                    torch.float32, step.with_sources)
-    bw, fp32 = next((b, f) for key, b, f in PEAKS if key in kind)
     bytes_ms = 1e3 * nbytes / bw
     ops_ms = 1e3 * nops / fp32
     bound_ms = max(bytes_ms, ops_ms)
@@ -283,23 +597,42 @@ def main():
         f"{bw:.3g} B/s = {bytes_ms:.4f} ms, {nops} ops "
         f"({ctu_kernel.FLOPS_PER_ZONE}/zone) at {fp32:.3g} op/s = "
         f"{ops_ms:.4f} ms; kernel at {100 * bound_ms / kern_ms:.2f}% of it")
+    log("[timing: the 1024^2 float32 solve's levels, CUDA events]")
+    mg_times = mg_timing(bw, fp32)
 
-    # 6. where a main-path step's time goes
-    profile_steps(p, 20)
+    # 7. where a main-path step's time goes
+    profile_steps(p, 20, "quad 1024^2 float32")
+    profile_steps(shear, 5, "incompressible shear 1024^2 float32")
 
-    log(json.dumps({"kernels": [{
+    kernels = [{
         "name": "ctu_step",
         "route": "cuda",
         "source": "pyro2_tpu_torch/csrc/ctu_step.cu",
         "replaces": "pyro2_tpu/solvers/compressible/pallas_step.py:603",
         "launches": quad_launches,
-        "max_abs_err": main_err,
+        "max_abs_err": ctu_err,
         "ms": kern_ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,
-    }]}))
+    }]
+    for name, line in (("mg_core", 191), ("mg_down", 236), ("mg_up", 260)):
+        ms, p_ms, b_ms, b_by = mg_times[name]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "pyro2_tpu_torch/csrc/mg_vcycle.cu",
+            "replaces": f"pyro2_tpu/multigrid/pallas_mg.py:{line}",
+            "launches": mg_launches[name],
+            "max_abs_err": mg_err[name],
+            "ms": ms,
+            "plain_ms": p_ms,
+            "bound_ms": b_ms,
+            "bound_by": b_by,
+            "library_ms": None,
+        })
+    log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

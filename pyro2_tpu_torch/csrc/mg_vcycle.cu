@@ -1,0 +1,535 @@
+// mg_vcycle.cu -- the constant-coefficient multigrid V-cycle on Hopper.
+//
+// Replaces the fused Pallas TPU V-cycle of pyro2_tpu/multigrid/pallas_mg.py
+// for (alpha - beta L) phi = f, L the 5-point Laplacian, on a square 2^k
+// grid with one ghost cell and homogeneous standard BCs:
+//
+//   mg_core  <- _make_core_kernel: the whole sub-V-cycle of the coarse
+//               levels 0..top (nsmooth_bottom sweeps on 2x2), plus the
+//               residual when no level is peeled;
+//   mg_down  <- _make_down_kernel and _make_down_banded: nsmooth red-black
+//               Gauss-Seidel sweeps, the residual, and its factor-2
+//               restriction into the coarse f (ghosts zero);
+//   mg_up    <- _make_up_kernel and _make_up_banded: prolong and correct,
+//               a ghost fill, nsmooth sweeps, and the residual on the
+//               finest level.
+//
+// The TPU cut levels above 512^2 into 128-row bands with deep halos only
+// because a frame did not fit in VMEM; here one mg_down and one mg_up serve
+// every peeled level, whatever its size.  Restriction and prolongation are
+// plain stencils (the TPU built them as iota matmuls only because Mosaic
+// could not lower strided ops): no tensor cores, no TF32.
+//
+// Arithmetic: each stencil is written in the order of the plain PyTorch
+// version (pyro2_tpu_torch/multigrid/MG.py), and the build uses -fmad=false,
+// so the two agree to a few roundings.
+//
+// Ghost fills.  A homogeneous fill sets every ghost cell to +-1 times one
+// interior cell: x-lo, x-hi, y-lo, y-hi in that order, so a corner is the
+// y-edge rule applied to the x-filled row, i.e. sx * sy * v[src_x, src_y].
+// Periodic in a one-ghost frame reads ghost_lo <- a[q-2], ghost_hi <- a[1].
+// Since a ghost depends on exactly one interior cell, the thread that
+// writes an interior cell also writes the ghosts that mirror it (`put`).
+// That keeps the ghosts consistent after every half-sweep without a
+// separate fill pass.  It is race-free: in a red-black half-sweep a ghost
+// is read only by the interior cell next to it, and that cell is either
+// the ghost's own source (same thread, read before write) or, for periodic
+// edges, a cell of the other colour (n is even), which is not updated in
+// the same half-sweep.
+//
+// mg_down / mg_up: one cooperative launch per call, grid-stride loops over
+// the level, cooperative_groups grid.sync() between phases (one per
+// half-sweep).  The grid is sized to what can be co-resident.  The level
+// frames live in device memory; up to 1026^2 floats (4.2 MB) per frame,
+// they stay in the 50 MB L2 across the sweeps.
+// mg_core: one block of 1024 threads holding v and f of every level
+// 0..top in shared memory (128^2 float32: 183 KB; 64^2 float64: 96 KB),
+// __syncthreads() between phases.
+//
+// What bounds it on the H100: a level's sweeps are a chain of dependent
+// stencils, ~7 operations per cell update against 2 values in and one out,
+// so a call's least time is the bytes of its frames over the memory rate
+// (mg_kernel.work counts them).  This first design is simple instead: it
+// pays one grid-wide barrier per half-sweep (21 per mg_down at nsmooth 10)
+// and reads each cell's neighbours from L2, with stride-2 colour accesses.
+// Fusing sweeps in shared-memory tiles with halos is the next step.
+//
+// Each entry point returns the launch's cudaError_t (0 on success).
+//
+// Build (see mg_kernel.py and util/cuda_build.py):
+//   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -fmad=false
+//        -shared -Xcompiler -fPIC -o libmg_vcycle.so mg_vcycle.cu
+
+#include <cooperative_groups.h>
+#include <cuda_runtime.h>
+#include <stddef.h>
+
+namespace cg = cooperative_groups;
+
+namespace {
+
+constexpr int MAXLEV = 16;        // levels of the core: 2^1 .. 2^16 per side
+constexpr int THREADS = 256;      // block of mg_down / mg_up
+constexpr int CORE_THREADS = 1024;
+
+// ghost-fill kind of an edge
+enum { COPY = 0, NEGATE = 1, PERIODIC = 2 };
+
+// one level: its size, stencil coefficients and ghost sources
+template <typename T>
+struct Lev {
+  int n, q;                  // interior cells per side; frame side n + 2
+  T xc, yc, den;             // beta/dx^2, beta/dy^2, alpha + 2 xc + 2 yc
+  T dx2, dy2;                // dx^2, dy^2 of the residual's Laplacian
+  int sxl, sxh, syl, syh;    // interior row / column each ghost edge mirrors
+  T gxl, gxh, gyl, gyh;      // and its sign
+};
+
+// coef holds xc, yc, den, dx2, dy2; bc the kinds of x-lo, x-hi, y-lo, y-hi
+template <typename T>
+Lev<T> make_level(int n, const double* coef, const int* bc) {
+  Lev<T> L;
+  L.n = n;
+  L.q = n + 2;
+  L.xc = (T)coef[0];
+  L.yc = (T)coef[1];
+  L.den = (T)coef[2];
+  L.dx2 = (T)coef[3];
+  L.dy2 = (T)coef[4];
+  L.sxl = bc[0] == PERIODIC ? L.q - 2 : 1;
+  L.sxh = bc[1] == PERIODIC ? 1 : L.q - 2;
+  L.syl = bc[2] == PERIODIC ? L.q - 2 : 1;
+  L.syh = bc[3] == PERIODIC ? 1 : L.q - 2;
+  L.gxl = bc[0] == NEGATE ? T(-1) : T(1);
+  L.gxh = bc[1] == NEGATE ? T(-1) : T(1);
+  L.gyl = bc[2] == NEGATE ? T(-1) : T(1);
+  L.gyh = bc[3] == NEGATE ? T(-1) : T(1);
+  return L;
+}
+
+// write interior cell (i, j) and every ghost cell that mirrors it
+template <typename T>
+__device__ __forceinline__ void put(T* v, const Lev<T>& L, int i, int j,
+                                    T val) {
+  const int q = L.q;
+  v[i * q + j] = val;
+  const bool xl = i == L.sxl, xh = i == L.sxh;
+  const bool yl = j == L.syl, yh = j == L.syh;
+  if (xl) v[j] = L.gxl * val;
+  if (xh) v[(q - 1) * q + j] = L.gxh * val;
+  if (yl) v[i * q] = L.gyl * val;
+  if (yh) v[i * q + q - 1] = L.gyh * val;
+  if (xl && yl) v[0] = L.gyl * (L.gxl * val);
+  if (xl && yh) v[q - 1] = L.gyh * (L.gxl * val);
+  if (xh && yl) v[(q - 1) * q] = L.gyl * (L.gxh * val);
+  if (xh && yh) v[(q - 1) * q + q - 1] = L.gyh * (L.gxh * val);
+}
+
+// the Gauss-Seidel update of cell c
+template <typename T>
+__device__ __forceinline__ T gs(const T* v, const T* f, const Lev<T>& L,
+                                int c) {
+  const int q = L.q;
+  return (f[c] + L.xc * (v[c + q] + v[c - q]) +
+          L.yc * (v[c + 1] + v[c - 1])) / L.den;
+}
+
+// r = f - alpha v + beta L v at cell c
+template <typename T>
+__device__ __forceinline__ T resid(const T* v, const T* f, const Lev<T>& L,
+                                   T alpha, T beta, int c) {
+  const int q = L.q;
+  const T lap = (v[c - q] + v[c + q] - T(2) * v[c]) / L.dx2 +
+                (v[c - 1] + v[c + 1] - T(2) * v[c]) / L.dy2;
+  return f[c] - alpha * v[c] + beta * lap;
+}
+
+// the factor-2 average of the residual over the four children of coarse
+// frame cell (I, J)
+template <typename T>
+__device__ __forceinline__ T restricted(const T* v, const T* f,
+                                        const Lev<T>& L, T alpha, T beta,
+                                        int I, int J) {
+  const int q = L.q;
+  const int c = (2 * I - 1) * q + 2 * J - 1;
+  return T(0.25) * (((resid(v, f, L, alpha, beta, c) +
+                      resid(v, f, L, alpha, beta, c + q)) +
+                     resid(v, f, L, alpha, beta, c + 1)) +
+                    resid(v, f, L, alpha, beta, c + q + 1));
+}
+
+// the centred-slope prolongation of coarse frame vc (side qc) at fine
+// frame cell (i, j)
+template <typename T>
+__device__ __forceinline__ T prolong(const T* vc, int qc, int i, int j) {
+  const int C = ((i + 1) >> 1) * qc + ((j + 1) >> 1);
+  const T sx = ((i - 1) & 1) ? T(0.25) : T(-0.25);
+  const T sy = ((j - 1) & 1) ? T(0.25) : T(-0.25);
+  const T mx = T(0.5) * (vc[C + qc] - vc[C - qc]);
+  const T my = T(0.5) * (vc[C + 1] - vc[C - 1]);
+  return vc[C] + sx * mx + sy * my;
+}
+
+// frame (i, j) of the k-th interior cell of a colour: red (0) has
+// (i - 1) + (j - 1) even
+__device__ __forceinline__ void colored(int k, int n, int color, int& i,
+                                        int& j) {
+  const int h = n >> 1;
+  const int ii = k / h;
+  i = ii + 1;
+  j = 2 * (k - ii * h) + ((ii + color) & 1) + 1;
+}
+
+// nsmooth red-black iterations in place; `sync` is the barrier
+template <typename T, typename Sync>
+__device__ void smooth(T* v, const T* f, const Lev<T>& L, int nsmooth,
+                       int t0, int nt, Sync sync) {
+  const int half = L.n * L.n / 2;
+  for (int it = 0; it < nsmooth; ++it) {
+    for (int color = 0; color < 2; ++color) {
+      for (int k = t0; k < half; k += nt) {
+        int i, j;
+        colored(k, L.n, color, i, j);
+        put(v, L, i, j, gs(v, f, L, i * L.q + j));
+      }
+      sync();
+    }
+  }
+}
+
+// -- mg_down ------------------------------------------------------------------
+
+template <typename T>
+struct DownArgs {
+  const T* v;  // the guess, or nullptr for zero
+  const T* f;
+  T* vo;       // the smoothed guess, ghosts filled
+  T* fc;       // the restricted residual, on the coarse frame
+  Lev<T> L;
+  T alpha, beta;
+  int nsmooth;
+};
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS) k_down(DownArgs<T> a) {
+  cg::grid_group grid = cg::this_grid();
+  auto sync = [&]() { grid.sync(); };
+  const Lev<T>& L = a.L;
+  const int n = L.n, q = L.q;
+  const int t0 = blockIdx.x * blockDim.x + threadIdx.x;
+  const int nt = gridDim.x * blockDim.x;
+
+  for (int k = t0; k < n * n; k += nt) {
+    const int i = k / n + 1, j = k % n + 1;
+    put(a.vo, L, i, j, a.v ? a.v[i * q + j] : T(0));
+  }
+  sync();
+  smooth(a.vo, a.f, L, a.nsmooth, t0, nt, sync);
+
+  const int nc = n / 2, qc = nc + 2;
+  for (int k = t0; k < qc * qc; k += nt) {
+    const int I = k / qc, J = k % qc;
+    a.fc[k] = (I >= 1 && I <= nc && J >= 1 && J <= nc)
+                  ? restricted(a.vo, a.f, L, a.alpha, a.beta, I, J)
+                  : T(0);
+  }
+}
+
+// -- mg_up --------------------------------------------------------------------
+
+template <typename T>
+struct UpArgs {
+  const T* v;   // the pre-smoothed guess of this level
+  const T* f;
+  const T* vc;  // the coarse correction, ghosts filled
+  T* vo;
+  T* r;         // the residual, or nullptr
+  Lev<T> L;
+  T alpha, beta;
+  int nsmooth;
+};
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS) k_up(UpArgs<T> a) {
+  cg::grid_group grid = cg::this_grid();
+  auto sync = [&]() { grid.sync(); };
+  const Lev<T>& L = a.L;
+  const int n = L.n, q = L.q, qc = n / 2 + 2;
+  const int t0 = blockIdx.x * blockDim.x + threadIdx.x;
+  const int nt = gridDim.x * blockDim.x;
+
+  for (int k = t0; k < n * n; k += nt) {
+    const int i = k / n + 1, j = k % n + 1;
+    put(a.vo, L, i, j, a.v[i * q + j] + prolong(a.vc, qc, i, j));
+  }
+  sync();
+  smooth(a.vo, a.f, L, a.nsmooth, t0, nt, sync);
+
+  if (a.r) {
+    for (int k = t0; k < q * q; k += nt) {
+      const int i = k / q, j = k % q;
+      a.r[k] = (i >= 1 && i <= n && j >= 1 && j <= n)
+                   ? resid(a.vo, a.f, L, a.alpha, a.beta, k)
+                   : T(0);
+    }
+  }
+}
+
+// -- mg_core ------------------------------------------------------------------
+
+template <typename T>
+struct CoreArgs {
+  const T* v;  // the guess of level top, or nullptr for zero
+  const T* f;
+  T* vo;
+  T* r;        // the residual of level top, or nullptr
+  Lev<T> lev[MAXLEV];
+  T alpha, beta;
+  int top, nsmooth, nsmooth_bottom;
+};
+
+// shared-memory layout: v then f of level 0, then of level 1, ...
+__host__ __device__ inline size_t core_offset(int level) {
+  size_t off = 0;
+  for (int l = 0; l < level; ++l) {
+    const size_t q = (size_t(2) << l) + 2;
+    off += 2 * q * q;
+  }
+  return off;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(CORE_THREADS) k_core(CoreArgs<T> a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* base = reinterpret_cast<T*>(smem_raw);
+  auto sync = []() { __syncthreads(); };
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int top = a.top;
+
+  {
+    const Lev<T>& L = a.lev[top];
+    T* V = base + core_offset(top);
+    T* F = V + L.q * L.q;
+    for (int k = tid; k < L.n * L.n; k += nt) {
+      const int i = k / L.n + 1, j = k % L.n + 1, c = i * L.q + j;
+      F[c] = a.f[c];
+      put(V, L, i, j, a.v ? a.v[c] : T(0));
+    }
+    sync();
+  }
+  // descent: smooth, then restrict the residual into the next coarser f,
+  // whose guess is zero (ghosts included)
+  for (int l = top; l >= 1; --l) {
+    const Lev<T>& L = a.lev[l];
+    const Lev<T>& C = a.lev[l - 1];
+    T* V = base + core_offset(l);
+    T* F = V + L.q * L.q;
+    T* Vc = base + core_offset(l - 1);
+    T* Fc = Vc + C.q * C.q;
+    smooth(V, F, L, a.nsmooth, tid, nt, sync);
+    for (int k = tid; k < C.q * C.q; k += nt) {
+      const int I = k / C.q, J = k % C.q;
+      Vc[k] = T(0);
+      Fc[k] = (I >= 1 && I <= C.n && J >= 1 && J <= C.n)
+                  ? restricted(V, F, L, a.alpha, a.beta, I, J)
+                  : T(0);
+    }
+    sync();
+  }
+  {
+    T* V = base;
+    smooth(V, V + a.lev[0].q * a.lev[0].q, a.lev[0], a.nsmooth_bottom, tid,
+           nt, sync);
+  }
+  // ascent: prolong and correct (the ghosts follow), then smooth
+  for (int l = 1; l <= top; ++l) {
+    const Lev<T>& L = a.lev[l];
+    T* V = base + core_offset(l);
+    T* F = V + L.q * L.q;
+    const T* Vc = base + core_offset(l - 1);
+    for (int k = tid; k < L.n * L.n; k += nt) {
+      const int i = k / L.n + 1, j = k % L.n + 1;
+      put(V, L, i, j, V[i * L.q + j] + prolong(Vc, a.lev[l - 1].q, i, j));
+    }
+    sync();
+    smooth(V, F, L, a.nsmooth, tid, nt, sync);
+  }
+  {
+    const Lev<T>& L = a.lev[top];
+    const T* V = base + core_offset(top);
+    const T* F = V + L.q * L.q;
+    for (int k = tid; k < L.q * L.q; k += nt) {
+      a.vo[k] = V[k];
+      if (a.r) {
+        const int i = k / L.q, j = k % L.q;
+        a.r[k] = (i >= 1 && i <= L.n && j >= 1 && j <= L.n)
+                     ? resid(V, F, L, a.alpha, a.beta, k)
+                     : T(0);
+      }
+    }
+  }
+}
+
+// -- launches -------------------------------------------------------------------
+
+// blocks of a cooperative launch over `items` cells: no more than can be
+// co-resident on the card (queried once per kernel)
+int coop_blocks(const void* kernel, int& cached, int items) {
+  if (cached < 0) {
+    int dev = 0, sms = 0, per_sm = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess ||
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      THREADS, 0) !=
+            cudaSuccess)
+      return 0;
+    cached = per_sm * sms;
+  }
+  const int want = (items + THREADS - 1) / THREADS;
+  return want < cached ? want : cached;
+}
+
+template <typename Args>
+int launch_cooperative(void (*kernel)(Args), int& cached, int items,
+                       Args a, cudaStream_t st) {
+  const int blocks = coop_blocks((const void*)kernel, cached, items);
+  if (blocks < 1) return (int)cudaErrorLaunchOutOfResources;
+  void* params[] = {&a};
+  cudaError_t err = cudaLaunchCooperativeKernel(
+      (const void*)kernel, dim3(blocks), dim3(THREADS), params, 0, st);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+bool valid_size(int n) { return n >= 2 && (n & (n - 1)) == 0; }
+
+template <typename T>
+int down(const T* v, const T* f, T* vo, T* fc, int n, int nsmooth,
+         const int* bc, const double* coef, const double* ab,
+         cudaStream_t st) {
+  static int cached = -1;
+  if (!valid_size(n) || n < 4 || nsmooth < 0) return (int)cudaErrorInvalidValue;
+  DownArgs<T> a;
+  a.v = v;
+  a.f = f;
+  a.vo = vo;
+  a.fc = fc;
+  a.L = make_level<T>(n, coef, bc);
+  a.alpha = (T)ab[0];
+  a.beta = (T)ab[1];
+  a.nsmooth = nsmooth;
+  return launch_cooperative(k_down<T>, cached, n * n, a, st);
+}
+
+template <typename T>
+int up(const T* v, const T* f, const T* vc, T* vo, T* r, int n,
+       int nsmooth, const int* bc, const double* coef, const double* ab,
+       cudaStream_t st) {
+  static int cached = -1;
+  if (!valid_size(n) || n < 4 || nsmooth < 0) return (int)cudaErrorInvalidValue;
+  UpArgs<T> a;
+  a.v = v;
+  a.f = f;
+  a.vc = vc;
+  a.vo = vo;
+  a.r = r;
+  a.L = make_level<T>(n, coef, bc);
+  a.alpha = (T)ab[0];
+  a.beta = (T)ab[1];
+  a.nsmooth = nsmooth;
+  return launch_cooperative(k_up<T>, cached, (n + 2) * (n + 2), a, st);
+}
+
+template <typename T>
+int core(const T* v, const T* f, T* vo, T* r, int top, int nsmooth,
+         int nsmooth_bottom, const int* bc, const double* coef,
+         const double* ab, cudaStream_t st) {
+  static int optin = -1;
+  if (top < 0 || top >= MAXLEV || nsmooth < 0 || nsmooth_bottom < 0)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = core_offset(top + 1) * sizeof(T);
+  if (optin < 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                               dev) != cudaSuccess ||
+        cudaFuncSetAttribute((const void*)k_core<T>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             optin) != cudaSuccess) {
+      optin = -1;
+      return (int)cudaGetLastError();
+    }
+  }
+  if (smem > (size_t)optin) return (int)cudaErrorInvalidValue;
+  CoreArgs<T> a;
+  a.v = v;
+  a.f = f;
+  a.vo = vo;
+  a.r = r;
+  for (int l = 0; l <= top; ++l)
+    a.lev[l] = make_level<T>(2 << l, coef + 5 * l, bc);
+  a.alpha = (T)ab[0];
+  a.beta = (T)ab[1];
+  a.top = top;
+  a.nsmooth = nsmooth;
+  a.nsmooth_bottom = nsmooth_bottom;
+  k_core<T><<<1, CORE_THREADS, smem, st>>>(a);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// shared memory the core kernel needs for levels 0..top
+extern "C" size_t mg_core_smem(int top, int itemsize) {
+  return core_offset(top + 1) * (size_t)itemsize;
+}
+
+extern "C" int mg_core_f32(const float* v, const float* f, float* vo,
+                           float* r, int top, int nsmooth, int nsmooth_bottom,
+                           const int* bc, const double* coef,
+                           const double* ab, void* stream) {
+  return core<float>(v, f, vo, r, top, nsmooth, nsmooth_bottom, bc, coef, ab,
+                     (cudaStream_t)stream);
+}
+
+extern "C" int mg_core_f64(const double* v, const double* f, double* vo,
+                           double* r, int top, int nsmooth,
+                           int nsmooth_bottom, const int* bc,
+                           const double* coef, const double* ab,
+                           void* stream) {
+  return core<double>(v, f, vo, r, top, nsmooth, nsmooth_bottom, bc, coef,
+                      ab, (cudaStream_t)stream);
+}
+
+extern "C" int mg_down_f32(const float* v, const float* f, float* vo,
+                           float* fc, int n, int nsmooth, const int* bc,
+                           const double* coef, const double* ab,
+                           void* stream) {
+  return down<float>(v, f, vo, fc, n, nsmooth, bc, coef, ab,
+                     (cudaStream_t)stream);
+}
+
+extern "C" int mg_down_f64(const double* v, const double* f, double* vo,
+                           double* fc, int n, int nsmooth, const int* bc,
+                           const double* coef, const double* ab,
+                           void* stream) {
+  return down<double>(v, f, vo, fc, n, nsmooth, bc, coef, ab,
+                      (cudaStream_t)stream);
+}
+
+extern "C" int mg_up_f32(const float* v, const float* f, const float* vc,
+                         float* vo, float* r, int n, int nsmooth,
+                         const int* bc, const double* coef, const double* ab,
+                         void* stream) {
+  return up<float>(v, f, vc, vo, r, n, nsmooth, bc, coef, ab,
+                   (cudaStream_t)stream);
+}
+
+extern "C" int mg_up_f64(const double* v, const double* f, const double* vc,
+                         double* vo, double* r, int n, int nsmooth,
+                         const int* bc, const double* coef, const double* ab,
+                         void* stream) {
+  return up<double>(v, f, vc, vo, r, n, nsmooth, bc, coef, ab,
+                    (cudaStream_t)stream);
+}

@@ -66,7 +66,7 @@ class ai:
 
     The tensor has trailing dims (qx, qy); leading dims pass through.  Views
     are same-sized windows over the valid region, optionally shifted
-    (ip/jp) and buffered into the ghosts (buf)."""
+    (ip/jp), buffered into the ghosts (buf) and strided (s)."""
 
     __slots__ = ("a", "g")
 
@@ -74,28 +74,41 @@ class ai:
         self.a = a
         self.g = g
 
-    def _win(self, ishift, jshift, buf):
+    def _win(self, ishift, jshift, buf, s):
         g = self.g
         bxlo, bxhi, bylo, byhi = _buf_split(buf)
-        isl = slice(g.ilo - bxlo + ishift, g.ihi + 1 + bxhi + ishift)
-        jsl = slice(g.jlo - bylo + jshift, g.jhi + 1 + byhi + jshift)
+        isl = slice(g.ilo - bxlo + ishift, g.ihi + 1 + bxhi + ishift, s)
+        jsl = slice(g.jlo - bylo + jshift, g.jhi + 1 + byhi + jshift, s)
         return self.a[..., isl, jsl]
 
-    def v(self, buf=0):
+    def v(self, buf=0, s=1):
         """The valid region (optionally including buf ghost cells)."""
-        return self._win(0, 0, buf)
+        return self._win(0, 0, buf, s)
 
-    def ip(self, shift, buf=0):
+    def ip(self, shift, buf=0, s=1):
         """Valid-region-sized window shifted by `shift` zones in x."""
-        return self._win(shift, 0, buf)
+        return self._win(shift, 0, buf, s)
 
-    def jp(self, shift, buf=0):
+    def jp(self, shift, buf=0, s=1):
         """Valid-region-sized window shifted by `shift` zones in y."""
-        return self._win(0, shift, buf)
+        return self._win(0, shift, buf, s)
 
-    def ip_jp(self, ishift, jshift, buf=0):
+    def ip_jp(self, ishift, jshift, buf=0, s=1):
         """Window shifted by ishift in x and jshift in y."""
-        return self._win(ishift, jshift, buf)
+        return self._win(ishift, jshift, buf, s)
+
+    def lap(self, buf=0):
+        """The 5-point Laplacian over the (buffered) valid region."""
+        g = self.g
+        return ((self.ip(-1, buf=buf) - 2.0 * self.v(buf=buf)
+                 + self.ip(1, buf=buf)) / g.dx ** 2 +
+                (self.jp(-1, buf=buf) - 2.0 * self.v(buf=buf)
+                 + self.jp(1, buf=buf)) / g.dy ** 2)
+
+    def norm(self):
+        """Grid-weighted L2 norm over the valid region (a 0-d tensor)."""
+        g = self.g
+        return torch.sqrt(g.dx * g.dy * torch.sum(self.v() ** 2))
 
 
 # ---------------------------------------------------------------------------

@@ -1,9 +1,11 @@
-"""Cell-centered state container.
+"""Cell-centered state container and the grid transfer operators.
 
 The port of pyro2_tpu/mesh/patch.py's CellCenterData2d: registration and
 metadata live on the Python object, the state is one (nvar, qx, qy) tensor
 with y the fastest-varying dim, on an explicit device and dtype.  Ghost
-fills update that tensor in place.
+fills update that tensor in place.  `restrict_array` / `prolong_array` are
+the factor-2 (and 4) transfers multigrid uses; `cell_center_data_clone`
+copies the state, because the port writes state tensors in place.
 """
 
 import torch
@@ -11,7 +13,50 @@ import torch
 import pyro2_tpu_torch.mesh.boundary as bnd
 from pyro2_tpu_torch.mesh.indexer import ai, fill_ghost
 
-__all__ = ["CellCenterData2d"]
+__all__ = ["CellCenterData2d", "cell_center_data_clone", "restrict_array",
+           "prolong_array"]
+
+
+# ---------------------------------------------------------------------------
+# transfer operators (shared with multigrid)
+# ---------------------------------------------------------------------------
+
+def restrict_array(fdata, fgrid, cgrid, N=2):
+    """Average a fine (..., qx, qy) tensor onto the factor-N coarser grid.
+
+    Conservative box average; ghost zones of the result are zero."""
+    f = ai(fdata, fgrid)
+    if N == 2:
+        avg = 0.25 * (f.v(s=2) + f.ip(1, s=2) + f.jp(1, s=2)
+                      + f.ip_jp(1, 1, s=2))
+    elif N == 4:
+        avg = sum(f.ip_jp(i, j, s=4) for i in range(4)
+                  for j in range(4)) / 16.0
+    else:
+        raise ValueError("restriction is only allowed by 2 or 4")
+    cdata = fdata.new_zeros(fdata.shape[:-2] + (cgrid.qx, cgrid.qy))
+    cdata[..., cgrid.ilo:cgrid.ihi + 1, cgrid.jlo:cgrid.jhi + 1] = avg
+    return cdata
+
+
+def prolong_array(cdata, cgrid, fgrid):
+    """Bilinear-with-centered-slopes prolongation to the 2x finer grid.
+
+    Each coarse zone's reconstruction f(x,y) = <f> + m_x x/dx + m_y y/dy is
+    averaged over its 4 children.  Ghosts zero."""
+    c = ai(cdata, cgrid)
+    m_x = 0.5 * (c.ip(1) - c.ip(-1))
+    m_y = 0.5 * (c.jp(1) - c.jp(-1))
+
+    fdata = cdata.new_zeros(cdata.shape[:-2] + (fgrid.qx, fgrid.qy))
+    ilo, ihi = fgrid.ilo, fgrid.ihi
+    jlo, jhi = fgrid.jlo, fgrid.jhi
+    cv = c.v()
+    for di, dj, sx, sy in ((0, 0, -1, -1), (1, 0, 1, -1),
+                           (0, 1, -1, 1), (1, 1, 1, 1)):
+        fdata[..., ilo + di:ihi + 1:2, jlo + dj:jhi + 1:2] = \
+            cv + 0.25 * sx * m_x + 0.25 * sy * m_y
+    return fdata
 
 
 class CellCenterData2d:
@@ -151,6 +196,17 @@ class CellCenterData2d:
             self.t = old_t
         return stack
 
+    # -- coarsen / refine ---------------------------------------------------
+    def restrict(self, varname, N=2):
+        """Conservatively restrict one variable to a factor-N coarser grid."""
+        cgrid = self.grid.coarse_like(N)
+        return restrict_array(self.get_var(varname), self.grid, cgrid, N)
+
+    def prolong(self, varname):
+        """Prolong one variable to a 2x finer grid."""
+        fgrid = self.grid.fine_like(2)
+        return prolong_array(self.get_var(varname), self.grid, fgrid)
+
     # -- I/O ----------------------------------------------------------------
     def write(self, filename):
         """Write grid + state to an HDF5 file (the JAX package's layout)."""
@@ -194,3 +250,22 @@ class CellCenterData2d:
             s += (f"{' ':>16s}  BCs: -x: {b.xlb:12s} +x: {b.xrb:12s}"
                   f" -y: {b.ylb:12s} +y: {b.yrb:12s}\n")
         return s
+
+
+def cell_center_data_clone(old):
+    """Deep-copy a CellCenterData2d (BCs, aux, derives, data, time).
+
+    The state tensor is copied: the port writes state in place, so a clone
+    that shared it would change with the original."""
+    if not isinstance(old, CellCenterData2d):
+        raise TypeError("Can't clone object")
+    new = type(old)(old.grid, dtype=old.dtype, device=old.device)
+    for name in old.names:
+        new.register_var(name, old.BCs[name])
+    new.create()
+    new.aux = old.aux.copy()
+    new.data = old.data.clone()
+    new.derives = old.derives.copy()
+    new.ivars = old.ivars
+    new.t = old.t
+    return new

@@ -2,7 +2,8 @@
 """The Pyro driver: solver/problem registry, param layering, run loop.
 
 The port of pyro2_tpu/pyro_sim.py (Pyro and the CLI main; PyroBenchmark
-is not ported yet).  Runs on CUDA unless the caller passes a device::
+is not ported yet), for the solvers in `valid_solvers`.  Runs on CUDA
+unless the caller passes a device::
 
     python -m pyro2_tpu_torch.pyro_sim compressible quad inputs.quad \
         io.do_io=0
@@ -18,7 +19,7 @@ from pyro2_tpu_torch.defaults import resolve_device
 from pyro2_tpu_torch.util import msg
 from pyro2_tpu_torch.util.runparams import RuntimeParameters, _get_val
 
-valid_solvers = ["compressible"]
+valid_solvers = ["compressible", "diffusion", "incompressible"]
 
 
 class Pyro:

@@ -4,7 +4,7 @@ The kernel is the counterpart of the JAX package's fused Pallas step
 (pyro2_tpu/solvers/compressible/pallas_step.py::
 make_pallas_ctu_step_padded_general) for Cartesian geometry.  It is built
 with nvcc into a shared library under pyro2_tpu_torch/_build/ at first use
-and bound with ctypes.
+(pyro2_tpu_torch.util.cuda_build) and bound with ctypes.
 
 `CTUStep(sim)(U, t, dt)` is the step the Simulation evolves with:
 
@@ -19,24 +19,15 @@ were plain JAX outside the Pallas kernel.
 """
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import time
-from pathlib import Path
 
 import torch
 
 from pyro2_tpu_torch.mesh.grid import Cartesian2d
+from pyro2_tpu_torch.util import cuda_build
 
 __all__ = ["CTUStep", "build", "launches", "work", "FLOPS_PER_ZONE"]
 
-_PKG = Path(__file__).resolve().parents[2]
-SOURCE = _PKG / "csrc" / "ctu_step.cu"
-BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC"]
+SOURCE = cuda_build.CSRC / "ctu_step.cu"
 
 MAXVAR = 8
 RIEMANN = {"HLLC": 0, "HLLC_lm": 1, "CGF": 2}
@@ -59,39 +50,12 @@ launches = 0   # kernel launches made through CTUStep (read by chip_smoke.py)
 _lib = None
 
 
-def _nvcc():
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    return os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
-                        "bin", "nvcc")
-
-
-def _library_path():
-    key = hashlib.sha256(SOURCE.read_bytes() +
-                         " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"libctu_step-{key}.so"
-
-
 def build(verbose=False):
     """Compile ctu_step.cu (if its library is not built yet).
 
     Returns (library path, seconds spent in nvcc, nvcc's stderr).  With
     verbose=True ptxas reports registers, shared memory and spills."""
-    so = _library_path()
-    if so.exists() and not verbose:
-        return so, 0.0, ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", str(tmp), str(SOURCE)]
-    t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    os.replace(tmp, so)
-    return so, seconds, res.stderr
+    return cuda_build.build(SOURCE, verbose)
 
 
 def _load():

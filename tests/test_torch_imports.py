@@ -56,6 +56,16 @@ def test_import_pulls_in_no_jax():
         "from pyro2_tpu_torch.solvers.compressible.problems import "
         "advect, kh, quad, rt, sod\n"
         "import pyro2_tpu_torch.util.carry\n"
+        "import pyro2_tpu_torch.util.cuda_build\n"
+        "import pyro2_tpu_torch.multigrid.MG\n"
+        "import pyro2_tpu_torch.multigrid.mg_kernel\n"
+        "import pyro2_tpu_torch.solvers.diffusion\n"
+        "import pyro2_tpu_torch.solvers.burgers\n"
+        "import pyro2_tpu_torch.solvers.incompressible\n"
+        "from pyro2_tpu_torch.solvers.diffusion.problems import "
+        "gaussian, test\n"
+        "from pyro2_tpu_torch.solvers.incompressible.problems import "
+        "converge, shear\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'pyro2_tpu')]\n"
         "assert not bad, bad\n"
@@ -79,6 +89,18 @@ def test_default_device_raises_without_cuda(monkeypatch, tmp_path):
         resolve_device("cuda")
     assert resolve_device("cpu") == torch.device("cpu")
     p = Pyro("compressible", device="cpu")
+    assert p.dtype == torch.float64
+
+
+@pytest.mark.parametrize("solver", ["diffusion", "incompressible"])
+def test_multigrid_solvers_raise_without_cuda(monkeypatch, tmp_path, solver):
+    from pyro2_tpu_torch import Pyro
+
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Pyro(solver)
+    p = Pyro(solver, device="cpu")
     assert p.dtype == torch.float64
 
 

@@ -6,12 +6,19 @@
 Phases (any failure exits non-zero and prints no result line):
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
   2. build the CUDA sources of pyro2_tpu_torch/csrc (ctu_step.cu,
-     mg_vcycle.cu) with nvcc, one process each, started together, and print
-     what ptxas reports (registers, shared memory, spills);
+     mg_vcycle.cu, mol_substep.cu) with nvcc, one process each, started
+     together, and print what ptxas reports (registers, shared memory,
+     spills);
   3. the CTU kernel against its plain PyTorch version on the card, one step
      from the same state, for five configurations at a ragged 200x136 and at
      1024^2, in float64 (max |diff| <= 1e-12 max|U|) and float32
      (<= 1e-5 max|U|);
+  3b. the MOL stage-increment kernels (mol_rk, mol_fv4) against their plain
+     versions on the card, one increment from the same state after 3
+     kernel steps, for four rk and three fv4 configurations at a ragged
+     200x136 (fv4 rt: 200x600, square cells) and at 1024^2, in float64
+     (max |diff| <= 1e-12 of max|F_x|/dx + max|F_y|/dy + max|S|, the terms
+     k cancels) and float32 (<= 1e-5 of it), the ghosts of k exactly zero;
   4. the multigrid kernels (mg_core, mg_down, mg_up) against their plain
      versions from the same inputs, each entry, one whole V-cycle and one
      whole solve, at 64^2 (core only) and 1024^2 (core up to 128^2 in
@@ -24,12 +31,20 @@ Phases (any failure exits non-zero and prints no result line):
      compressible quad at 1024^2 for 100 steps and rt at 256x768 for 50
      steps (one CTU launch per step), then diffusion gaussian and
      incompressible shear at 1024^2 for 10 steps each (per multigrid
-     cycle one mg_core and one mg_down plus one mg_up per peeled level);
+     cycle one mg_core and one mg_down plus one mg_up per peeled level),
+     then the MOL solvers, each timed after one warm-up step:
+     compressible_rk quad 1024^2 and rt 256x768 for 20 RK4 steps each (4
+     mol_rk launches a step), compressible_fv4 acoustic_pulse 1024^2 for
+     20 steps (4 mol_fv4 a step) and compressible_sdc acoustic_pulse
+     1024^2 for 5 steps (9 mol_fv4 a step), with no CTU or multigrid
+     launch on those paths;
   6. CUDA-event timing of each kernel and its plain version at the main
-     paths' shapes (quad 1024^2; the 1024^2 solve's levels), beside each
-     kernel's bound on this card;
-  7. torch.profiler breakdowns of 20 quad steps and 5 shear steps: device
-     time by kernel and the device's busy share of the wall time.
+     paths' shapes (quad 1024^2; the 1024^2 solve's levels; the rk quad
+     and fv4 acoustic_pulse 1024^2 increments), beside each kernel's bound
+     on this card;
+  7. torch.profiler breakdowns of 20 quad steps, 5 shear steps and 5 fv4
+     acoustic_pulse steps: device time by kernel and the device's busy
+     share of the wall time.
 
 The line before the last is a JSON object describing every kernel; the last
 line is {"ok": true, "device": {...}}.
@@ -67,6 +82,28 @@ CONFIGS = (
 )
 
 
+# one MOL stage increment each: (name, solver, problem, inputs, extras).
+# fv4 needs square cells: its domains are sized to the grid in mol_sim
+WALLS = {"mesh.xlboundary": "reflect", "mesh.xrboundary": "reflect",
+         "mesh.ylboundary": "reflect", "mesh.yrboundary": "reflect"}
+MOL_CONFIGS = (
+    ("rk_quad_hllc", "compressible_rk", "quad", {}, None),
+    ("rk_kh_hllc_lm_periodic", "compressible_rk", "kh",
+     {"compressible.riemann": "HLLC_lm"}, None),
+    ("rk_rt_gravity_hse", "compressible_rk", "rt", {}, None),
+    ("rk_walls_floor_sponge_scalar", "compressible_rk", "quad", {
+        **WALLS, "compressible.riemann": "CGF",
+        "compressible.small_dens": 0.2, "compressible.grav": -0.5,
+        "sponge.do_sponge": 1, "sponge.sponge_rho_begin": 0.6,
+        "sponge.sponge_rho_full": 0.3}, ["passive"]),
+    ("fv4_acoustic_pulse", "compressible_fv4", "acoustic_pulse", {}, None),
+    ("fv4_kh", "compressible_fv4", "kh", {}, None),
+    ("fv4_rt_gravity", "compressible_fv4", "rt", {}, None),
+)
+
+MOL_KERNELS = ("mol_rk", "mol_fv4")
+
+
 # multigrid checks: the operator of each BC set, as the solvers use them:
 # diffusion's Crank-Nicolson Helmholtz operator (alpha 1, beta = dt k / 2
 # with dt = 2 dx^2) on Neumann walls, and the projections' Poisson
@@ -81,19 +118,20 @@ def log(*a):
     print(*a, flush=True)
 
 
-def make_sim(problem, inputs, dtype, extra_vars=None):
+def make_sim(problem, inputs, dtype, extra_vars=None,
+             solver="compressible"):
     import numpy as np
 
     from pyro2_tpu_torch import Pyro
-    from pyro2_tpu_torch.solvers.compressible.simulation import Simulation
 
-    p = Pyro("compressible", device="cuda", dtype=dtype)
+    p = Pyro(solver, device="cuda", dtype=dtype)
     p.initialize_problem(problem, inputs_dict=inputs)
     if not extra_vars:
         return p.sim
-    sim = Simulation("compressible", problem, p.problem_func, p.rp,
-                     device="cuda", dtype=dtype)
+    sim = type(p.sim)(solver, problem, p.problem_func, p.rp,
+                      device="cuda", dtype=dtype)
     sim.initialize(extra_vars=extra_vars)
+    sim.preevolve()
     rng = np.random.default_rng(5)
     dens = sim.cc_data.get_var("density").cpu().numpy()
     for name in extra_vars:
@@ -137,6 +175,100 @@ def compare(name, problem, inputs, extra, nx, ny, dtype, tol):
     return err
 
 
+def mol_sim(solver, problem, inputs, extra, nx, ny, dtype):
+    """A MOL simulation on the card, stepping at the CFL dt (the
+    acoustic_pulse inputs fix dt for 128^2); fv4 grids get square cells."""
+    inputs = {"mesh.nx": nx, "mesh.ny": ny, "driver.fix_dt": -1.0, **inputs}
+    if solver != "compressible_rk":
+        inputs.update({"mesh.xmax": 1.0, "mesh.ymax": ny / nx})
+    return make_sim(problem, inputs, dtype, extra, solver=solver)
+
+
+def mol_compare(name, solver, problem, inputs, extra, nx, ny, dtype, tol):
+    """A MOL kernel vs its plain version, one stage increment from the
+    same state after 3 kernel steps; returns max |diff|."""
+    import torch
+
+    from pyro2_tpu_torch.solvers.compressible_fv4 import mol_kernel
+
+    sim = mol_sim(solver, problem, inputs, extra, nx, ny, dtype)
+    for _ in range(3):
+        sim.cc_data.fill_BC_all()
+        sim.compute_timestep()
+        sim.evolve()
+    sim.cc_data.fill_BC_all()
+    sim.compute_timestep()
+    U, t, dt = sim.cc_data.data, sim.cc_data.t, sim.dt
+    step = sim._step
+    got = step.launch(U, t, dt)
+    ref = step.plain(U, t, dt)
+    torch.cuda.synchronize()
+    scale = mol_kernel.increment_scale(sim, step.kind, U, t, dt)
+    err = float((ref - got).abs().max())
+    g = sim.cc_data.grid
+    ghost = torch.ones(U.shape[1:], dtype=torch.bool, device=U.device)
+    ghost[g.ilo:g.ihi + 1, g.jlo:g.jhi + 1] = False
+    zero = not bool(got[:, ghost].any())
+    ok = bool(torch.isfinite(got).all()) and err <= tol * scale and zero
+    log(f"  {'ok ' if ok else 'BAD'} {name:29s} {g.nx}x{g.ny} "
+        f"{str(dtype)[6:]:8s} max|diff| = {err:.3e}  (tol {tol:g} x "
+        f"{scale:.4g} = {tol * scale:.3e}), ghosts of k zero: {zero}")
+    if not ok:
+        raise AssertionError(f"MOL kernel disagrees with its plain "
+                             f"version: {name}")
+    return err
+
+
+def mol_main_path(solver, problem, nx, ny, steps, kernel, per_step,
+                  inputs=None):
+    """Pyro(solver) -> run_sim on CUDA float32 for `steps` steps after one
+    untimed warm-up step, with every count reset just before and read just
+    after; returns (pyro, launches of `kernel`)."""
+    import torch
+
+    from pyro2_tpu_torch import Pyro
+    from pyro2_tpu_torch.solvers.compressible_fv4 import mol_kernel
+
+    p = Pyro(solver)                    # default device: CUDA, float32
+    p.initialize_problem(problem, inputs_dict={
+        "mesh.nx": nx, "mesh.ny": ny, "driver.max_steps": steps + 1,
+        "driver.tmax": 1.0e30, **(inputs or {})})
+    sim = p.sim
+    assert sim.cc_data.data.is_cuda
+    assert sim.cc_data.data.dtype == torch.float32
+    p.single_step()
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    p.run_sim()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    ctu, mg, _ = read_counts()
+    mol = dict(mol_kernel.launches)
+    expect = dict.fromkeys(MOL_KERNELS, 0)
+    expect[kernel] = per_step * steps
+    if sim.n != steps + 1 or mol != expect or ctu != 0 or any(mg.values()):
+        raise AssertionError(
+            f"{solver} {problem}: {sim.n} steps, MOL launches {mol}, CTU "
+            f"{ctu}, multigrid {mg}; expected {steps} + 1 steps, MOL "
+            f"{expect} "
+            "and no other launch")
+    g = sim.cc_data.grid
+    dens = interior(sim.cc_data.data, g)[sim.ivars.idens]
+    pres = interior(sim.cc_data.get_var("pressure"), g)
+    for name, f in (("density", dens), ("pressure", pres)):
+        if not bool(torch.isfinite(f).all()) or float(f.min()) <= 0.0:
+            raise AssertionError(f"{solver} {problem}: {name} not finite "
+                                 "and positive")
+    zps = nx * ny * steps / seconds
+    log(f"  {solver} {problem} {nx}x{ny} f32: {steps} steps (after 1) in "
+        f"{seconds:.3f} s, {1e3 * seconds / steps:.3f} ms/step, "
+        f"{zps:.4e} zone-updates/s, {kernel} launches {mol[kernel]} "
+        f"({per_step}/step), CTU 0, multigrid 0, t = {sim.cc_data.t:.6g}, "
+        f"min rho {float(dens.min()):.6g}, min p {float(pres.min()):.6g}")
+    return p, mol[kernel]
+
+
 def main_path(problem, nx, ny, steps):
     """Pyro -> run_sim on CUDA float32; returns (pyro, seconds, launches)."""
     import torch
@@ -159,6 +291,7 @@ def main_path(problem, nx, ny, steps):
     n_launch = ctu_kernel.launches
     if read_counts()[1] != dict.fromkeys(MG_KERNELS, 0):
         raise AssertionError(f"{problem}: multigrid kernels launched")
+    no_mol_launches(problem)
 
     sim = p.sim
     g = sim.cc_data.grid
@@ -183,10 +316,13 @@ def reset_counts():
     counts, to 0."""
     from pyro2_tpu_torch.multigrid import MG, mg_kernel
     from pyro2_tpu_torch.solvers.compressible import ctu_kernel
+    from pyro2_tpu_torch.solvers.compressible_fv4 import mol_kernel
 
     ctu_kernel.launches = 0
     for key in mg_kernel.launches:
         mg_kernel.launches[key] = 0
+    for key in mol_kernel.launches:
+        mol_kernel.launches[key] = 0
     for key in MG.stats:
         MG.stats[key] = 0
 
@@ -197,6 +333,14 @@ def read_counts():
     from pyro2_tpu_torch.solvers.compressible import ctu_kernel
 
     return ctu_kernel.launches, dict(mg_kernel.launches), dict(MG.stats)
+
+
+def no_mol_launches(what):
+    from pyro2_tpu_torch.solvers.compressible_fv4 import mol_kernel
+
+    if any(mol_kernel.launches.values()):
+        raise AssertionError(f"{what}: MOL kernels launched "
+                             f"{mol_kernel.launches}")
 
 
 def make_mg(n, bc, alpha, beta, dtype):
@@ -344,6 +488,7 @@ def mg_main_path(solver, problem, n, steps):
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     ctu, launches, stats = read_counts()
+    no_mol_launches(solver)
 
     peeled = len(mg_kernel.split(make_mg(n, "periodic", 0.0, -1.0,
                                          torch.float32), torch.float32)[1])
@@ -464,11 +609,10 @@ def profile_steps(p, steps, label):
         dev_us = getattr(e, "device_time_total",
                          getattr(e, "cuda_time_total", 0.0))
         if e.device_type == torch.autograd.DeviceType.CUDA and dev_us > 0:
-            m = re.search(r"(k_[a-z0-9]+)<(float|double)>", e.key)
+            m = re.search(r"(k_[a-z0-9_]+)<(float|double)>", e.key)
             if m:
-                src = "mg_vcycle.cu" if m.group(1) in \
-                    ("k_core", "k_down", "k_up") else "ctu_step.cu"
-                name = f"{src} {m.group(1)}<{m.group(2)}>"
+                name = f"{kernel_source(m.group(1))} " \
+                    f"{m.group(1)}<{m.group(2)}>"
             else:
                 name = e.key[:72]
             rows.append((dev_us, e.count, name))
@@ -482,6 +626,48 @@ def profile_steps(p, steps, label):
         f"busy, {100 - 100 * busy_us / wall_us:.1f}% idle)")
     for dev_us, count, name in rows[:14]:
         log(f"  {dev_us / steps:9.2f} us/step  {count // steps:3d}x  {name}")
+
+
+def ptxas_summary(text):
+    """One line per compiled kernel from ptxas' verbose report: its name
+    and type, registers, shared memory, stack frame and spills."""
+    import re
+
+    out, name, info = [], None, []
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            if name:
+                out.append(f"{name}: {', '.join(info)}")
+            k = re.search(r"(k_[a-z0-9_]+)I([fd])E", m.group(1))
+            kind = "float" if k and k.group(2) == "f" else "double"
+            name = f"{k.group(1)}<{kind}>" if k else m.group(1)[:60]
+            info = []
+            continue
+        for pat in (r"Used (\d+ registers)", r"(\d+ bytes smem)",
+                    r"(\d+) bytes stack frame, (\d+) bytes spill stores"):
+            m = re.search(pat, line)
+            if m and name:
+                item = m.group(1) if m.lastindex == 1 else \
+                    f"{m.group(1)} B stack, {m.group(2)} B spilled"
+                # the entry's own frame comes first; callees' follow
+                if "stack" not in item or not any("stack" in i
+                                                  for i in info):
+                    info.append(item)
+    if name:
+        out.append(f"{name}: {', '.join(info)}")
+    return out
+
+
+def kernel_source(kernel):
+    """The source file of a device kernel, by its name."""
+    if kernel in ("k_core", "k_down", "k_up"):
+        return "mg_vcycle.cu"
+    if kernel.startswith(("k_rk_", "k_fv4_")):
+        return "mol_substep.cu"
+    if kernel in ("k_prim", "k_flatten"):
+        return "euler_common.cuh"
+    return "ctu_step.cu"
 
 
 def event_ms(fn, reps):
@@ -506,6 +692,7 @@ def main():
     sys.path.insert(0, HERE)
     from pyro2_tpu_torch.multigrid import mg_kernel
     from pyro2_tpu_torch.solvers.compressible import ctu_kernel
+    from pyro2_tpu_torch.solvers.compressible_fv4 import mol_kernel
     from pyro2_tpu_torch.util import cuda_build
 
     # 1. the card
@@ -522,17 +709,16 @@ def main():
     # 2. build, one nvcc per source, all started together
     log("[build]")
     t0 = time.perf_counter()
-    built = cuda_build.build_many([ctu_kernel.SOURCE, mg_kernel.SOURCE],
-                                  verbose=True)
+    built = cuda_build.build_many([ctu_kernel.SOURCE, mg_kernel.SOURCE,
+                                   mol_kernel.SOURCE], verbose=True)
     ctu_kernel._load()
     mg_kernel._load()
+    mol_kernel._load()
     log(f"  built in {time.perf_counter() - t0:.1f} s (with load)")
     for so, nvcc_s, ptxas in built:
         log(f"  {os.path.relpath(so, HERE)}: nvcc {nvcc_s:.1f} s")
-        for line in ptxas.splitlines():
-            if any(k in line for k in ("Compiling entry", "registers",
-                                       "spill", "smem")):
-                log("    " + line.strip())
+        for line in ptxas_summary(ptxas):
+            log("    " + line)
 
     # 3. the CTU kernel vs its plain step on the card
     log("[ctu_step vs plain step on the card]")
@@ -545,6 +731,22 @@ def main():
                 if (name == "quad_hllc" and nx == 1024 and
                         dtype == torch.float32):
                     ctu_err = err
+            torch.cuda.empty_cache()
+
+    # 3b. the MOL kernels vs their plain versions on the card
+    log("[mol_substep vs plain stage increment on the card]")
+    mol_err = {}
+    for dtype, tol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
+        for nx, ny in ((200, 136), (1024, 1024)):
+            for name, solver, problem, inputs, extra in MOL_CONFIGS:
+                shape = (nx, ny)
+                if name == "fv4_rt_gravity" and nx == 200:
+                    shape = (200, 600)          # square cells, rt's 1 x 3
+                err = mol_compare(name, solver, problem, inputs, extra,
+                                  *shape, dtype, tol)
+                if nx == 1024 and dtype == torch.float32 and name in (
+                        "rk_quad_hllc", "fv4_acoustic_pulse"):
+                    mol_err["mol_" + name[:name.index("_")]] = err
             torch.cuda.empty_cache()
 
     # 4. the multigrid kernels vs their plain versions on the card
@@ -566,6 +768,17 @@ def main():
     shear, shear_launches = mg_main_path("incompressible", "shear", 1024, 10)
     mg_launches = {k: diff_launches[k] + shear_launches[k]
                    for k in MG_KERNELS}
+    rk_quad, n_rk_quad = mol_main_path("compressible_rk", "quad", 1024,
+                                       1024, 20, "mol_rk", 4)
+    _, n_rk_rt = mol_main_path("compressible_rk", "rt", 256, 768, 20,
+                               "mol_rk", 4)
+    fv4, n_fv4 = mol_main_path("compressible_fv4", "acoustic_pulse", 1024,
+                               1024, 20, "mol_fv4", 4,
+                               {"driver.fix_dt": 0.192 / 1024})
+    _, n_sdc = mol_main_path("compressible_sdc", "acoustic_pulse", 1024,
+                             1024, 5, "mol_fv4", 9,
+                             {"driver.fix_dt": 0.192 / 1024})
+    mol_launches = {"mol_rk": n_rk_quad + n_rk_rt, "mol_fv4": n_fv4 + n_sdc}
 
     # 6. timing at the main paths' shapes
     log("[timing: quad 1024^2 float32, CUDA events]")
@@ -599,10 +812,26 @@ def main():
         f"{ops_ms:.4f} ms; kernel at {100 * bound_ms / kern_ms:.2f}% of it")
     log("[timing: the 1024^2 float32 solve's levels, CUDA events]")
     mg_times = mg_timing(bw, fp32)
+    log("[timing: the MOL increments at 1024^2 float32, CUDA events]")
+    mol_times = {}
+    for kname, pp in (("mol_rk", rk_quad), ("mol_fv4", fv4)):
+        msim = pp.sim
+        msim.cc_data.fill_BC_all()
+        msim.compute_timestep()
+        mU, mt, mdt = msim.cc_data.data, msim.cc_data.t, msim.dt
+        mstep = msim._step
+        g = msim.cc_data.grid
+        mol_times[kname] = time_pair(
+            f"{kname} ({msim.problem_name} {g.nx}x{g.ny})",
+            lambda: mstep.launch(mU, mt, mdt),
+            lambda: mstep.plain(mU, mt, mdt),
+            mol_kernel.work(mstep.kind, g.nx, g.ny, msim.ivars.nvar,
+                            torch.float32), bw, fp32)
 
     # 7. where a main-path step's time goes
     profile_steps(p, 20, "quad 1024^2 float32")
     profile_steps(shear, 5, "incompressible shear 1024^2 float32")
+    profile_steps(fv4, 5, "compressible_fv4 acoustic_pulse 1024^2 float32")
 
     kernels = [{
         "name": "ctu_step",
@@ -632,6 +861,22 @@ def main():
             "bound_by": b_by,
             "library_ms": None,
         })
+    for name in MOL_KERNELS:
+        ms, p_ms, b_ms, b_by = mol_times[name]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "pyro2_tpu_torch/csrc/mol_substep.cu",
+            "replaces": "pyro2_tpu/solvers/compressible_fv4/pallas_step.py:92",
+            "launches": mol_launches[name],
+            "max_abs_err": mol_err[name],
+            "ms": ms,
+            "plain_ms": p_ms,
+            "bound_ms": b_ms,
+            "bound_by": b_by,
+            "library_ms": None,
+        })
+    log(smi)                            # the card, again, for the record
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -13,8 +13,10 @@ device="cpu":
     p.run_sim()
     dens = p.get_var("density")
 
-This slice ports the compressible CTU solver (Cartesian geometry) and the
-layers under it; ROADMAP.md lists what waits.
+Ported so far: the compressible CTU solver (Cartesian geometry), the
+constant-coefficient multigrid with diffusion and incompressible, and the
+method-of-lines tier (compressible_rk, compressible_fv4, compressible_sdc),
+with the layers under them; ROADMAP.md lists what waits.
 """
 
 from pyro2_tpu_torch.mesh.boundary import BC, bc_is_solid, define_bc

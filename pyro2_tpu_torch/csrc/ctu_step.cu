@@ -40,415 +40,9 @@
 // plain PyTorch step rounds them, so the two agree to the last bits that
 // the order of operations allows.
 
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stddef.h>
-
-#define MAXVAR 8
+#include "euler_common.cuh"
 
 namespace {
-
-struct Params {
-  int nvar, nx, ny, ng, qx, qy;
-  int idens, ixmom, iymom, iener;
-  int riemann;  // 0 HLLC, 1 HLLC_lm, 2 CGF
-  int limiter;  // 0 none, 1 2nd-order MC, otherwise 4th-order MC
-  int flatten, with_sources, do_sponge, has_floor;
-  int solid_xl, solid_xr, solid_yl, solid_yr;
-  double dx, dy, dt, gamma, z0, z1, delta, cvisc, floor, grav;
-  double rho_begin, rho_full, tau;
-};
-
-// primitive order: rho, u, v, p, then the passive scalars
-constexpr int IRHO = 0, IU = 1, IV = 2, IP = 3;
-
-constexpr double SMALLC = 1.e-10;
-constexpr double SMALLRHO = 1.e-10;
-constexpr double SMALLP = 1.e-10;
-constexpr double PI = 3.141592653589793;
-
-__device__ __forceinline__ size_t at(const Params& p, int n, int i, int j) {
-  return ((size_t)n * p.qx + i) * p.qy + j;
-}
-
-__device__ __forceinline__ int ilo(const Params& p) { return p.ng; }
-__device__ __forceinline__ int ihi(const Params& p) { return p.ng + p.nx - 1; }
-__device__ __forceinline__ int jlo(const Params& p) { return p.ng; }
-__device__ __forceinline__ int jhi(const Params& p) { return p.ng + p.ny - 1; }
-
-// (i, j) inside the window [ilo - bxlo, ihi + bxhi] x [jlo - bylo, jhi + byhi]
-__device__ __forceinline__ bool inwin(const Params& p, int i, int j, int bxlo,
-                                      int bxhi, int bylo, int byhi) {
-  return i >= ilo(p) - bxlo && i <= ihi(p) + bxhi && j >= jlo(p) - bylo &&
-         j <= jhi(p) + byhi;
-}
-
-// the state with the density floor applied on the global interior
-template <typename T>
-__device__ __forceinline__ T ldU(const T* __restrict__ U, const Params& p,
-                                 int n, int i, int j) {
-  T v = U[at(p, n, i, j)];
-  if (p.has_floor && n == p.idens && inwin(p, i, j, 0, 0, 0, 0))
-    v = fmax(v, (T)p.floor);
-  return v;
-}
-
-// ---------------------------------------------------------------------------
-// Riemann solvers on one interface: Ul, Ur conserved states -> flux F
-// ---------------------------------------------------------------------------
-
-template <typename T>
-struct Side {
-  T rho, un, ut, rhoe, p;
-};
-
-template <typename T>
-__device__ __forceinline__ Side<T> decompose(const Params& p, int idir,
-                                             const T* U) {
-  Side<T> s;
-  const int in = idir == 1 ? p.ixmom : p.iymom;
-  const int it = idir == 1 ? p.iymom : p.ixmom;
-  s.rho = U[p.idens];
-  s.un = U[in] / s.rho;
-  s.ut = U[it] / s.rho;
-  s.rhoe = U[p.iener] - T(0.5) * s.rho * (s.un * s.un + s.ut * s.ut);
-  s.p = fmax(s.rhoe * T(p.gamma - 1.0), T(SMALLP));
-  return s;
-}
-
-template <typename T>
-__device__ void cons_flux(const Params& p, int idir, const T* U, T* F) {
-  const T rho = U[p.idens];
-  const bool nz = rho != T(0);
-  const T safe = nz ? rho : T(1);
-  const T u = nz ? U[p.ixmom] / safe : T(0);
-  const T v = nz ? U[p.iymom] / safe : T(0);
-  const T pr = (U[p.iener] - T(0.5) * rho * (u * u + v * v)) *
-               T(p.gamma - 1.0);
-  const T vel = idir == 1 ? u : v;
-  F[p.idens] = rho * vel;
-  F[p.ixmom] = U[p.ixmom] * vel;
-  F[p.iymom] = U[p.iymom] * vel;
-  if (idir == 1)
-    F[p.ixmom] = F[p.ixmom] + pr;
-  else
-    F[p.iymom] = F[p.iymom] + pr;
-  F[p.iener] = (U[p.iener] + pr) * vel;
-  for (int n = 4; n < p.nvar; ++n) F[n] = U[n] * vel;
-}
-
-template <typename T>
-__device__ void wave_speeds(const Params& p, T rho_l, T u_l, T p_l, T c_l,
-                            T rho_r, T u_r, T p_r, T c_r, T& S_l, T& S_r) {
-  const double g = p.gamma;
-  const T p_max = fmax(p_l, p_r);
-  const T p_min = fmin(p_l, p_r);
-  const T Q = p_max / p_min;
-
-  const T rho_avg = T(0.5) * (rho_l + rho_r);
-  const T c_avg = T(0.5) * (c_l + c_r);
-  const T factor = rho_avg * c_avg;
-  const T pstar0 = T(0.5) * (p_l + p_r) + T(0.5) * (u_l - u_r) * factor;
-
-  const bool upgrade = (Q > T(2)) && ((pstar0 < p_min) || (pstar0 > p_max));
-  T pstar = pstar0;
-  if (upgrade && pstar0 < p_min) {
-    // 2-rarefaction estimate
-    const double z = (g - 1.0) / (2.0 * g);
-    const T p_lr = pow(p_l / p_r, T(z));
-    const T ustar_2r = (p_lr * u_l / c_l + u_r / c_r +
-                        T(2) * (p_lr - T(1)) / T(g - 1.0)) /
-                       (p_lr / c_l + T(1) / c_r);
-    pstar = T(0.5) *
-            (p_l * pow(T(1) + T(g - 1.0) * (u_l - ustar_2r) / (T(2) * c_l),
-                       T(1.0 / z)) +
-             p_r * pow(T(1) + T(g - 1.0) * (ustar_2r - u_r) / (T(2) * c_r),
-                       T(1.0 / z)));
-  } else if (upgrade) {
-    // 2-shock estimate
-    const T A_r = T(2) / (T(g + 1.0) * rho_r);
-    const T B_r = p_r * T(g - 1.0) / T(g + 1.0);
-    const T A_l = T(2) / (T(g + 1.0) * rho_l);
-    const T B_l = p_l * T(g - 1.0) / T(g + 1.0);
-    const T p_guess = fmax(T(0), pstar0);
-    const T g_l = sqrt(A_l / (p_guess + B_l));
-    const T g_r = sqrt(A_r / (p_guess + B_r));
-    pstar = (g_l * p_l + g_r * p_r - (u_r - u_l)) / (g_l + g_r);
-  }
-
-  S_l = pstar <= p_l
-            ? u_l - c_l
-            : u_l - c_l * sqrt(T(1) + T((g + 1.0) / (2.0 * g)) *
-                                          (pstar / p_l - T(1)));
-  // (gamma + 1) / (2 / gamma), as the JAX package and upstream pyro2 write it
-  S_r = pstar <= p_r
-            ? u_r + c_r
-            : u_r + c_r * sqrt(T(1) + T((g + 1.0) / (2.0 / g)) *
-                                          (pstar / p_r - T(1)));
-}
-
-template <typename T>
-__device__ void hllc(const Params& p, int idir, const T* Ul, const T* Ur,
-                     T* F) {
-  const Side<T> L = decompose(p, idir, Ul);
-  const Side<T> R = decompose(p, idir, Ur);
-  const T g = T(p.gamma);
-  const T c_l = fmax(T(SMALLC), sqrt(g * L.p / L.rho));
-  const T c_r = fmax(T(SMALLC), sqrt(g * R.p / R.rho));
-  T S_l, S_r;
-  wave_speeds(p, L.rho, L.un, L.p, c_l, R.rho, R.un, R.p, c_r, S_l, S_r);
-  const T S_c = (R.p - L.p + L.rho * L.un * (S_l - L.un) -
-                 R.rho * R.un * (S_r - R.un)) /
-                (L.rho * (S_l - L.un) - R.rho * (S_r - R.un));
-
-  const int in = idir == 1 ? p.ixmom : p.iymom;
-  const int it = idir == 1 ? p.iymom : p.ixmom;
-
-  // region select, then only the flux that region needs
-  int region;  // 0: F_r, 1: F*_r, 2: F*_l, 3: F_l
-  if (S_r <= T(0))
-    region = 0;
-  else if (S_c <= T(0) && S_r > T(0))
-    region = 1;
-  else if (S_l < T(0) && S_c > T(0))
-    region = 2;
-  else
-    region = 3;
-
-  const bool right = region <= 1;
-  const T* U = right ? Ur : Ul;
-  const Side<T>& s = right ? R : L;
-  cons_flux(p, idir, U, F);
-  if (region == 0 || region == 3) return;
-
-  const T S = right ? S_r : S_l;
-  if (p.riemann == 0) {
-    // HLLC star state: F* = F + S (U* - U)
-    T Us[MAXVAR];
-    const T f = s.rho * (S - s.un) / (S - S_c);
-    Us[p.idens] = f;
-    Us[in] = f * S_c;
-    Us[it] = f * s.ut;
-    Us[p.iener] = f * (U[p.iener] / s.rho +
-                       (S_c - s.un) * (S_c + s.p / (s.rho * (S - s.un))));
-    for (int n = 4; n < p.nvar; ++n) Us[n] = f * U[n] / s.rho;
-    for (int n = 0; n < p.nvar; ++n) F[n] = F[n] + S * (Us[n] - U[n]);
-  } else {
-    // HLLC_lm: Toro's alternate form with the low-Mach pressure fix
-    const T vmag_l = sqrt(L.un * L.un + L.ut * L.ut);
-    const T vmag_r = sqrt(R.un * R.un + R.ut * R.ut);
-    const T cs_max = fmax(c_l, c_r);
-    const T chi = fmin(T(1), fmax(vmag_l, vmag_r) / cs_max);
-    const T phi = chi * (T(2) - chi);
-    const T pstar_lr = T(0.5) * (L.p + R.p) +
-                       T(0.5) * phi *
-                           (L.rho * (S_l - L.un) * (S_c - L.un) +
-                            R.rho * (S_r - R.un) * (S_c - R.un));
-    T num[MAXVAR];
-    for (int n = 0; n < p.nvar; ++n) num[n] = S_c * (S * U[n] - F[n]);
-    num[in] = num[in] + S * pstar_lr;
-    num[p.iener] = num[p.iener] + S * pstar_lr * S_c;
-    for (int n = 0; n < p.nvar; ++n) F[n] = num[n] / (S - S_c);
-  }
-}
-
-// CGF wave-region select for one side of the contact
-template <typename T>
-__device__ __forceinline__ T cgf_resolve(T outer, T star, T lam, T lamstar,
-                                         T pstar, T p_s, bool left) {
-  const T sigma = T(0.5) * (lam + lamstar);
-  const T shock = left ? (sigma > T(0) ? outer : star)
-                       : (sigma > T(0) ? star : outer);
-  const T denom = lam - lamstar;
-  const T alpha = lam / (denom == T(0) ? T(1) : denom);
-  const T interp = alpha * star + (T(1) - alpha) * outer;
-  const bool neg = lam < T(0) && lamstar < T(0);
-  const bool pos = lam > T(0) && lamstar > T(0);
-  const T raref = left ? (neg ? star : (pos ? outer : interp))
-                       : (neg ? outer : (pos ? star : interp));
-  return pstar > p_s ? shock : raref;
-}
-
-template <typename T>
-__device__ void cgf(const Params& p, int idir, const T* Ul, const T* Ur,
-                    bool solid, T* F) {
-  const Side<T> L = decompose(p, idir, Ul);
-  const Side<T> R = decompose(p, idir, Ur);
-  const T g = T(p.gamma);
-
-  const T W_l = fmax(T(SMALLRHO * SMALLC), sqrt(g * L.p * L.rho));
-  const T W_r = fmax(T(SMALLRHO * SMALLC), sqrt(g * R.p * R.rho));
-  const T c_l = fmax(T(SMALLC), sqrt(g * L.p / L.rho));
-  const T c_r = fmax(T(SMALLC), sqrt(g * R.p / R.rho));
-
-  const T pstar = fmax(
-      (W_l * R.p + W_r * L.p + W_l * W_r * (L.un - R.un)) / (W_l + W_r),
-      T(SMALLP));
-  const T ustar = (W_l * L.un + W_r * R.un + (L.p - R.p)) / (W_l + W_r);
-
-  const T rhostar_l = L.rho + (pstar - L.p) / (c_l * c_l);
-  const T rhostar_r = R.rho + (pstar - R.p) / (c_r * c_r);
-  const T rhoestar_l = L.rhoe + (pstar - L.p) *
-                                    (L.rhoe / L.rho + L.p / L.rho) /
-                                    (c_l * c_l);
-  const T rhoestar_r = R.rhoe + (pstar - R.p) *
-                                    (R.rhoe / R.rho + R.p / R.rho) /
-                                    (c_r * c_r);
-  const T cstar_l = fmax(T(SMALLC), sqrt(g * pstar / rhostar_l));
-  const T cstar_r = fmax(T(SMALLC), sqrt(g * pstar / rhostar_r));
-
-  const T lam_l = L.un - c_l;
-  const T lamstar_l = ustar - cstar_l;
-  const T lam_r = R.un + c_r;
-  const T lamstar_r = ustar + cstar_r;
-
-  auto pick = [&](T lo, T ls, T ro, T rs, T mid) {
-    if (ustar > T(0))
-      return cgf_resolve(lo, ls, lam_l, lamstar_l, pstar, L.p, true);
-    if (ustar < T(0))
-      return cgf_resolve(ro, rs, lam_r, lamstar_r, pstar, R.p, false);
-    return mid;
-  };
-
-  const T rho_s = pick(L.rho, rhostar_l, R.rho, rhostar_r,
-                       T(0.5) * (rhostar_l + rhostar_r));
-  T un_s = pick(L.un, ustar, R.un, ustar, ustar);
-  const T rhoe_s = pick(L.rhoe, rhoestar_l, R.rhoe, rhoestar_r,
-                        T(0.5) * (rhoestar_l + rhoestar_r));
-  const T ut_s = ustar > T(0)   ? L.ut
-                 : ustar < T(0) ? R.ut
-                                : T(0.5) * (L.ut + R.ut);
-  if (solid) un_s = T(0);
-
-  const int in = idir == 1 ? p.ixmom : p.iymom;
-  const int it = idir == 1 ? p.iymom : p.ixmom;
-  T Us[MAXVAR];
-  Us[p.idens] = rho_s;
-  Us[in] = rho_s * un_s;
-  Us[it] = rho_s * ut_s;
-  Us[p.iener] = rhoe_s + T(0.5) * rho_s * (un_s * un_s + ut_s * ut_s);
-  for (int n = 4; n < p.nvar; ++n) {
-    const T xn_l = Ul[n] / Ul[p.idens];
-    const T xn_r = Ur[n] / Ur[p.idens];
-    const T xn = ustar > T(0)   ? xn_l
-                 : ustar < T(0) ? xn_r
-                                : T(0.5) * (xn_l + xn_r);
-    Us[n] = xn * rho_s;
-  }
-  cons_flux(p, idir, Us, F);
-}
-
-// interface (i, j) normal to idir: is it a clamped solid wall?
-__device__ __forceinline__ bool solid_face(const Params& p, int idir, int i,
-                                           int j) {
-  if (idir == 1)
-    return (i == ilo(p) && p.solid_xl) || (i == ihi(p) + 1 && p.solid_xr);
-  return (j == jlo(p) && p.solid_yl) || (j == jhi(p) + 1 && p.solid_yr);
-}
-
-template <typename T>
-__device__ __forceinline__ void riemann(const Params& p, int idir,
-                                        const T* Ul, const T* Ur, int i,
-                                        int j, T* F) {
-  if (p.riemann == 2)
-    cgf(p, idir, Ul, Ur, solid_face(p, idir, i, j), F);
-  else
-    hllc(p, idir, Ul, Ur, F);  // HLLC ignores solid walls, as in JAX
-}
-
-// ---------------------------------------------------------------------------
-// slopes and flattening
-// ---------------------------------------------------------------------------
-
-template <typename T>
-__device__ __forceinline__ T mc(T dc, T dl, T dr) {
-  const T d1 = T(2) * (fabs(dl) < fabs(dr) ? dl : dr);
-  const T d = fabs(dc) < fabs(d1) ? dc : d1;
-  return dl * dr > T(0) ? d : T(0);
-}
-
-// 2nd-order MC slope of plane a at (i, j) along idir, zero outside the
-// buf=2 window (the embed of the plain version)
-template <typename T>
-__device__ __forceinline__ T limit2_at(const Params& p, const T* a, int i,
-                                       int j, int di, int dj) {
-  if (!inwin(p, i, j, 2, 2, 2, 2)) return T(0);
-  const T ap = a[(size_t)(i + di) * p.qy + j + dj];
-  const T a0 = a[(size_t)i * p.qy + j];
-  const T am = a[(size_t)(i - di) * p.qy + j - dj];
-  return mc(T(0.5) * (ap - am), ap - a0, a0 - am);
-}
-
-// the limited slope of plane a at a buf=2-window cell (i, j) along idir
-template <typename T>
-__device__ T slope(const Params& p, const T* a, int i, int j, int di,
-                   int dj) {
-  const T ap = a[(size_t)(i + di) * p.qy + j + dj];
-  const T a0 = a[(size_t)i * p.qy + j];
-  const T am = a[(size_t)(i - di) * p.qy + j - dj];
-  if (p.limiter == 0) return T(0.5) * (ap - am);
-  if (p.limiter == 1) return mc(T(0.5) * (ap - am), ap - a0, a0 - am);
-  const T tp = limit2_at(p, a, i + di, j + dj, di, dj);
-  const T tm = limit2_at(p, a, i - di, j - dj, di, dj);
-  const T dc = T(2.0 / 3.0) * (ap - am - T(0.25) * (tp + tm));
-  return mc(dc, ap - a0, a0 - am);
-}
-
-// ---------------------------------------------------------------------------
-// stage kernels
-// ---------------------------------------------------------------------------
-
-#define CELL_INDEX                                    \
-  const int j = blockIdx.x * blockDim.x + threadIdx.x; \
-  const int i = blockIdx.y * blockDim.y + threadIdx.y; \
-  if (i >= p.qx || j >= p.qy) return;
-
-// stage 1: primitives of the floored state on every cell
-template <typename T>
-__global__ void k_prim(const T* __restrict__ U, T* __restrict__ Q, Params p) {
-  CELL_INDEX
-  const T rho = ldU(U, p, p.idens, i, j);
-  const bool nz = rho != T(0);
-  const T safe = nz ? rho : T(1);
-  const T u = nz ? U[at(p, p.ixmom, i, j)] / safe : T(0);
-  const T v = nz ? U[at(p, p.iymom, i, j)] / safe : T(0);
-  const T e = nz ? (U[at(p, p.iener, i, j)] - T(0.5) * rho * (u * u + v * v)) /
-                       safe
-                 : T(0);
-  Q[at(p, IRHO, i, j)] = rho;
-  Q[at(p, IU, i, j)] = u;
-  Q[at(p, IV, i, j)] = v;
-  Q[at(p, IP, i, j)] = rho * e * T(p.gamma - 1.0);
-  for (int n = 4; n < p.nvar; ++n)
-    Q[at(p, n, i, j)] = nz ? U[at(p, n, i, j)] / safe : T(0);
-}
-
-// stage 2: 1-D flattening coefficients xi_x, xi_y (1 outside buf=2)
-template <typename T>
-__global__ void k_flatten(const T* __restrict__ Q, T* __restrict__ XI,
-                          Params p) {
-  CELL_INDEX
-  const bool w2 = inwin(p, i, j, 2, 2, 2, 2);
-  for (int d = 0; d < 2; ++d) {
-    T xi = T(1);
-    if (w2) {
-      const int di = d == 0, dj = d == 1;
-      const T* P = Q + (size_t)IP * p.qx * p.qy;
-      const T* un = Q + (size_t)(d == 0 ? IU : IV) * p.qx * p.qy;
-      const size_t c = (size_t)i * p.qy + j;
-      const size_t s1 = (size_t)di * p.qy + dj;
-      const T dp1 = fabs(P[c + s1] - P[c - s1]);
-      const T dp2 = fabs(P[c + 2 * s1] - P[c - 2 * s1]);
-      const T z = dp1 / fmax(dp2, T(1.0e-10));
-      const T t2 = dp1 / fmin(P[c + s1], P[c - s1]);
-      const T t1 = un[c - s1] - un[c + s1];
-      const T x = fmin(T(1), fmax(T(0), T(1) - (z - T(p.z0)) /
-                                                  T(p.z1 - p.z0)));
-      xi = (t1 > T(0) && t2 > T(p.delta)) ? x : T(1);
-    }
-    XI[at(p, d, i, j)] = xi;
-  }
-}
 
 // trace cell-centred primitives q (slopes dq) to its two faces along idir
 template <typename T>
@@ -506,16 +100,6 @@ __device__ void trace(const Params& p, int idir, const T* q, const T* dq,
   }
 }
 
-template <typename T>
-__device__ __forceinline__ void prim_to_cons(const Params& p, const T* q,
-                                             T* U) {
-  U[p.idens] = q[IRHO];
-  U[p.ixmom] = q[IU] * q[IRHO];
-  U[p.iymom] = q[IV] * q[IRHO];
-  U[p.iener] = q[IP] / T(p.gamma - 1.0) +
-               T(0.5) * q[IRHO] * (q[IU] * q[IU] + q[IV] * q[IV]);
-  for (int n = 4; n < p.nvar; ++n) U[n] = q[n] * q[IRHO];
-}
 
 // store an interface state at (i, j), adding 0.5 dt of the cell (si, sj)'s
 // sources on the buf=1 window
@@ -562,15 +146,7 @@ __global__ void k_states(const T* __restrict__ Q, const T* __restrict__ XI,
     return;
   }
 
-  T xi = T(1);
-  if (p.flatten) {
-    const T* P = Q + (size_t)IP * plane;
-    const T* xx = XI;
-    const T* xy = XI + plane;
-    const T px = P[c + p.qy] - P[c - p.qy] > T(0) ? xx[c - p.qy] : xx[c + p.qy];
-    const T py = P[c + 1] - P[c - 1] > T(0) ? xy[c - 1] : xy[c + 1];
-    xi = fmin(fmin(xx[c], px), fmin(xy[c], py));
-  }
+  const T xi = flat_xi(p, Q, XI, i, j);
 
   T q[MAXVAR], dq[MAXVAR], ql[MAXVAR], qr[MAXVAR];
   for (int n = 0; n < p.nvar; ++n) q[n] = Q[n * plane + c];
@@ -618,22 +194,6 @@ __global__ void k_riemann1(const T* __restrict__ UXL,
   }
 }
 
-// vertex divergence of (u, v) at the lower-left corner of cell (i, j),
-// zero outside the buf=1 window
-template <typename T>
-__device__ __forceinline__ T vertex_div(const Params& p, const T* Q, int i,
-                                        int j) {
-  if (!inwin(p, i, j, 1, 1, 1, 1)) return T(0);
-  const T* u = Q + (size_t)IU * p.qx * p.qy;
-  const T* v = Q + (size_t)IV * p.qx * p.qy;
-  const size_t c = (size_t)i * p.qy + j;
-  const size_t w = c - p.qy, s = c - 1, sw = c - p.qy - 1;
-  const T ur = T(0.5) * (u[c] + u[s]);
-  const T ul = T(0.5) * (u[w] + u[sw]);
-  const T vt = T(0.5) * (v[c] + v[w]);
-  const T vb = T(0.5) * (v[s] + v[sw]);
-  return (ur - ul) / T(p.dx) + (vt - vb) / T(p.dy);
-}
 
 // stage 5: transverse corrections, the final Riemann pair and artificial
 // viscosity on the faces the update reads: x faces i in [ilo, ihi+1],
@@ -730,15 +290,7 @@ __global__ void k_update(const T* __restrict__ U, const T* __restrict__ F2X,
   }
 
   if (p.do_sponge) {
-    const T rho = u[p.idens];
-    const T f =
-        rho > T(p.rho_begin)
-            ? T(0)
-            : (rho < T(p.rho_full)
-                   ? T(1)
-                   : T(0.5) * (T(1) - cos(T(PI) * (rho - T(p.rho_begin)) /
-                                          T(p.rho_full - p.rho_begin))));
-    const T damp = T(1) + T(p.dt) * (f / T(p.tau));
+    const T damp = T(1) + T(p.dt) * sponge_rate(p, u[p.idens]);
     const T x = u[p.ixmom], y = u[p.iymom];
     const T nx = x / damp, ny = y / damp;
     u[p.ixmom] = nx;
@@ -749,49 +301,11 @@ __global__ void k_update(const T* __restrict__ U, const T* __restrict__ F2X,
   for (int n = 0; n < p.nvar; ++n) out[at(p, n, i, j)] = u[n];
 }
 
-#define LAUNCH_CHECK                                   \
-  do {                                                 \
-    cudaError_t e = cudaGetLastError();                \
-    if (e != cudaSuccess) return (int)e;               \
-  } while (0)
 
 template <typename T>
 int run(const T* U, const T* S, T* out, T* scratch, const int* ip,
         const double* dp, cudaStream_t st) {
-  Params p;
-  p.nvar = ip[0];
-  p.nx = ip[1];
-  p.ny = ip[2];
-  p.ng = ip[3];
-  p.idens = ip[4];
-  p.ixmom = ip[5];
-  p.iymom = ip[6];
-  p.iener = ip[7];
-  p.riemann = ip[8];
-  p.limiter = ip[9];
-  p.flatten = ip[10];
-  p.with_sources = ip[11];
-  p.do_sponge = ip[12];
-  p.has_floor = ip[13];
-  p.solid_xl = ip[14];
-  p.solid_xr = ip[15];
-  p.solid_yl = ip[16];
-  p.solid_yr = ip[17];
-  p.dx = dp[0];
-  p.dy = dp[1];
-  p.dt = dp[2];
-  p.gamma = dp[3];
-  p.z0 = dp[4];
-  p.z1 = dp[5];
-  p.delta = dp[6];
-  p.cvisc = dp[7];
-  p.floor = dp[8];
-  p.grav = dp[9];
-  p.rho_begin = dp[10];
-  p.rho_full = dp[11];
-  p.tau = dp[12];
-  p.qx = p.nx + 2 * p.ng;
-  p.qy = p.ny + 2 * p.ng;
+  const Params p = load_params(ip, dp, false);
   if (p.nvar < 4 || p.nvar > MAXVAR || p.ng < 4 || p.nx < 1 || p.ny < 1)
     return (int)cudaErrorInvalidValue;
   if (p.with_sources && S == nullptr) return (int)cudaErrorInvalidValue;

@@ -19,7 +19,8 @@ from pyro2_tpu_torch.defaults import resolve_device
 from pyro2_tpu_torch.util import msg
 from pyro2_tpu_torch.util.runparams import RuntimeParameters, _get_val
 
-valid_solvers = ["compressible", "diffusion", "incompressible"]
+valid_solvers = ["compressible", "compressible_rk", "compressible_fv4",
+                 "compressible_sdc", "diffusion", "incompressible"]
 
 
 class Pyro:

@@ -1,1 +1,1 @@
-__all__ = ["advect", "kh", "quad", "rt", "sod"]
+__all__ = ["acoustic_pulse", "advect", "kh", "quad", "rt", "sod", "test"]

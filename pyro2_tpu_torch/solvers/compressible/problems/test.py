@@ -1,0 +1,22 @@
+"""A uniform state for unit testing."""
+
+import numpy as np
+
+DEFAULT_INPUTS = None
+
+PROBLEM_PARAMS = {}
+
+
+def init_data(my_data, rp):
+    """Uniform static state: rho=1, u=v=0, rho e = 2.5."""
+    del rp
+    g = my_data.grid
+    shape = (g.qx, g.qy)
+    my_data.set_var("density", np.ones(shape))
+    my_data.set_var("x-momentum", np.zeros(shape))
+    my_data.set_var("y-momentum", np.zeros(shape))
+    my_data.set_var("energy", np.full(shape, 2.5))
+
+
+def finalize():
+    """Print out any information to the user at the end of the run."""

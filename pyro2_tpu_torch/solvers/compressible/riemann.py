@@ -14,7 +14,8 @@ import torch
 from pyro2_tpu_torch.mesh.indexer import embed
 from pyro2_tpu_torch.util import msg
 
-__all__ = ["riemann_cgf", "estimate_wave_speed", "riemann_hllc",
+__all__ = ["riemann_cgf", "riemann_prim", "estimate_wave_speed",
+           "riemann_hllc",
            "riemann_hllc_lowspeed", "riemann_flux", "consFlux"]
 
 SMALLC = 1.e-10
@@ -168,6 +169,49 @@ def riemann_cgf(idir, g, ivars, lower_solid, upper_solid, gamma, U_l, U_r):
                          torch.where(ustar < 0.0, xn_r,
                                      0.5 * (xn_l + xn_r)))
         rows[n] = xn * rho_s
+
+    return embed(torch.stack(rows), g, 1)
+
+
+def riemann_prim(idir, g, ivars, lower_solid, upper_solid, gamma, q_l, q_r):
+    """CGF solver on primitive states; returns the primitive interface
+    state, valid on the buf=1 window (the 4th-order solver's)."""
+    w = _wslice(g)
+    ql = q_l[(slice(None),) + w]
+    qr = q_r[(slice(None),) + w]
+
+    rho_l = ql[ivars.irho]
+    rho_r = qr[ivars.irho]
+    if idir == 1:
+        un_l, ut_l = ql[ivars.iu], ql[ivars.iv]
+        un_r, ut_r = qr[ivars.iu], qr[ivars.iv]
+    else:
+        un_l, ut_l = ql[ivars.iv], ql[ivars.iu]
+        un_r, ut_r = qr[ivars.iv], qr[ivars.iu]
+    p_l = ql[ivars.ip].clamp_min(SMALLP)
+    p_r = qr[ivars.ip].clamp_min(SMALLP)
+    rhoe_l = p_l / (gamma - 1.0)
+    rhoe_r = p_r / (gamma - 1.0)
+
+    rho_s, un_s, ut_s, p_s, _rhoe_s, ustar = _cgf_core(
+        idir, g, lower_solid, upper_solid, gamma,
+        rho_l, un_l, ut_l, rhoe_l, p_l, rho_r, un_r, ut_r, rhoe_r, p_r)
+
+    rows = [None] * ivars.nq
+    rows[ivars.irho] = rho_s
+    if idir == 1:
+        rows[ivars.iu] = un_s
+        rows[ivars.iv] = ut_s
+    else:
+        rows[ivars.iu] = ut_s
+        rows[ivars.iv] = un_s
+    rows[ivars.ip] = p_s
+
+    # species ride with the contact
+    for n in range(ivars.ix, ivars.ix + ivars.naux):
+        rows[n] = torch.where(ustar > 0.0, ql[n],
+                              torch.where(ustar < 0.0, qr[n],
+                                          0.5 * (ql[n] + qr[n])))
 
     return embed(torch.stack(rows), g, 1)
 

@@ -102,10 +102,12 @@ def prim_to_cons(q, gamma, ivars, myg):
     return torch.stack(rows)
 
 
-def _uncovered(what):
+CTU_ITEM = "queue B item 1: spherical and problem-source coverage"
+
+
+def _uncovered(what, item=CTU_ITEM):
     return NotImplementedError(
-        f"{what} waits for a later slice of the port (ROADMAP.md, queue B "
-        "item 1: spherical and problem-source coverage)")
+        f"{what} waits for a later slice of the port (ROADMAP.md, {item})")
 
 
 def get_external_sources(t, dt, U, ivars, rp, myg, *,
@@ -153,16 +155,17 @@ def get_sponge_factor(U, ivars, rp, myg):
 class Simulation(NullSimulation):
     """The CTU compressible hydrodynamics solver."""
 
+    # the ROADMAP item that uncovered configurations of this solver name
+    UNCOVERED_ITEM = CTU_ITEM
+
     def initialize(self, *, extra_vars=None, ng=4):
         """Grid (ng=4), the 4 conserved vars (+extras), aux source-term
         container, custom BCs, ICs, and the step."""
-        from pyro2_tpu_torch.solvers.compressible.ctu_kernel import CTUStep
-
         my_grid = grid_setup(self.rp, ng=ng)
         if getattr(my_grid, "coord_type", 0) != 0:
-            raise _uncovered("spherical geometry")
+            raise _uncovered("spherical geometry", self.UNCOVERED_ITEM)
         if self.problem_source is not None:
-            raise _uncovered("problem source terms")
+            raise _uncovered("problem source terms", self.UNCOVERED_ITEM)
         if self.rp.get_param("particles.do_particles") == 1:
             raise NotImplementedError(
                 "particles wait for a later slice of the port (ROADMAP.md)")
@@ -209,8 +212,15 @@ class Simulation(NullSimulation):
             print(my_data)
 
         # no fallback: CUDA tensors launch the kernel or raise
-        self._step = CTUStep(self)
+        self._step = self._make_kernel_step()
         self._dt_fn = self._make_dt()
+
+    def _make_kernel_step(self):
+        """The kernel-backed callable that `evolve` runs: the CTU step.
+        The method-of-lines solvers override it with their stage
+        increment, so they never build (or launch) the CTU kernel."""
+        from pyro2_tpu_torch.solvers.compressible.ctu_kernel import CTUStep
+        return CTUStep(self)
 
     # -- the plain step and timestep -----------------------------------------
     def _make_dt(self):

@@ -1,0 +1,273 @@
+"""The wrapper of the CUDA MOL stage-increment kernels
+(pyro2_tpu_torch/csrc/mol_substep.cu).
+
+The kernels are the counterpart of the JAX package's fused Pallas band
+kernel (pyro2_tpu/solvers/compressible_fv4/pallas_step.py::
+make_pallas_mol_substep) through both of its builders: kind "rk" is the
+2nd-order pipeline of compressible_rk (PLM, one Riemann pass, artificial
+viscosity), kind "fv4" the McCorquodale-Colella pipeline of
+compressible_fv4, which compressible_sdc inherits.  They are built with
+nvcc into a shared library under pyro2_tpu_torch/_build/ at first use
+(pyro2_tpu_torch.util.cuda_build) and bound with ctypes.
+
+`MOLSubstep(sim, kind)(U, t, dt)` is the stage increment k the Simulation
+evolves with.  U is the ghost-filled (nvar, qx, qy) stack; k has its shape
+and is exactly zero on every ghost cell.
+
+  * for a CUDA tensor it launches the kernel (or raises: there is no
+    fallback), counting the launch in the module-level `launches`;
+  * for a CPU tensor it runs the plain PyTorch version,
+    `sim._make_substep()` (compressible_rk.build_substep or
+    compressible_fv4.build_substep).
+
+Unlike the TPU kernel, the CUDA entries cover solid walls and a positive
+density floor, gated on the global interior.  Spherical grids, problem
+sources and the well-balanced reconstruction raise NotImplementedError.
+"""
+
+import ctypes
+
+import torch
+
+from pyro2_tpu_torch.mesh.grid import Cartesian2d
+from pyro2_tpu_torch.solvers.compressible.ctu_kernel import MAXVAR, RIEMANN
+from pyro2_tpu_torch.solvers.compressible.simulation import _uncovered
+from pyro2_tpu_torch.solvers.compressible_fv4.fluxes import ALPHA, BETA
+from pyro2_tpu_torch.solvers.compressible_rk.simulation import MOL_ITEM
+from pyro2_tpu_torch.util import cuda_build
+
+__all__ = ["MOLSubstep", "build", "launches", "work", "increment_scale",
+           "KINDS", "FLOPS_PER_ZONE_BY_STAGE"]
+
+SOURCE = cuda_build.CSRC / "mol_substep.cu"
+
+KINDS = ("rk", "fv4")
+
+# floating-point operations per interior zone of one stage increment,
+# counted from mol_substep.cu and euler_common.cuh for the main paths'
+# configurations (nvar 4, flattening on, no sponge; rk with HLLC and
+# limiter 2, fv4 with its CGF solver; +, -, *, /, sqrt, pow and cos each
+# one operation, compares, selects, min and max none; a branch counted by
+# its longer arm).  Stages that run on a wider window than the interior
+# are counted per interior zone all the same.
+FLOPS_PER_ZONE_BY_STAGE = {
+    "rk": {
+        "prim": 11,        # cons -> prim with the rho == 0 guard
+        "flatten": 22,     # two 1-D flattening coefficients
+        "states": 246,     # 8 x (4th-order MC slope 21, xi dq, q -+ dq/2),
+                           # 4 prim -> cons of 9
+        "flux": 318,       # two HLLC solves (116 each), two avisc (43)
+        "update": 24,      # flux divergence and the gravity source
+    },
+    "fv4": {
+        "prim": 78,        # to centres (12 / var), the fallback test, two
+                           # cons -> prim, the centred sources
+        "flatten": 22,
+        "qavg": 44,        # q_avg = q_cc + dx^2/24 lap(q_bar), 11 / var
+        "faces": 1136,     # per face (x, y) and var two limited 4th-order
+                           # states (55 each) and the blend (8); one CGF
+                           # solve on primitives (96) per face
+        "flux": 256,       # per face: face centres (20), four flux_cons
+                           # (15 each), the transverse Laplacian (20),
+                           # the avisc (28)
+        "update": 46,      # divergence (20) and the averaged sources (26)
+    },
+}
+
+launches = {"mol_rk": 0, "mol_fv4": 0}   # read by chip_smoke.py
+
+_lib = None
+
+
+def build(verbose=False):
+    """Compile mol_substep.cu (if its library is not built yet).
+
+    Returns (library path, seconds spent in nvcc, nvcc's stderr).  With
+    verbose=True ptxas reports registers, shared memory and spills."""
+    return cuda_build.build(SOURCE, verbose)
+
+
+def _load():
+    global _lib
+    if _lib is None:
+        so, _, _ = build()
+        lib = ctypes.CDLL(str(so))
+        for kind in KINDS:
+            for dt in ("f32", "f64"):
+                fn = getattr(lib, f"mol_{kind}_substep_{dt}")
+                fn.argtypes = [ctypes.c_void_p] * 3 + [
+                    ctypes.POINTER(ctypes.c_int),
+                    ctypes.POINTER(ctypes.c_double), ctypes.c_void_p]
+                fn.restype = ctypes.c_int
+        lib.mol_scratch_planes.argtypes = [ctypes.c_int, ctypes.c_int]
+        lib.mol_scratch_planes.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def work(kind, nx, ny, nvar, dtype):
+    """(bytes, operations) one stage increment must move and do at least:
+    the state read once and k written once, and the operations counted
+    from the source per interior zone."""
+    item = torch.empty((), dtype=dtype).element_size()
+    flops = sum(FLOPS_PER_ZONE_BY_STAGE[kind].values())
+    return 2 * nvar * (nx + 8) * (ny + 8) * item, flops * nx * ny
+
+
+def increment_scale(sim, kind, U, t, dt):
+    """max|F_x|/dx + max|F_y|/dy + max|S|: the size of the terms a stage
+    increment k of U cancels, which bounds its roundoff.  Computed by the
+    plain pipeline on U's device (a check's yardstick, not a main-path
+    call)."""
+    from pyro2_tpu_torch.mesh.indexer import ai
+    from pyro2_tpu_torch.solvers.compressible import get_external_sources
+    from pyro2_tpu_torch.solvers.compressible_rk.simulation import _floored
+
+    myg = sim.cc_data.grid
+    rp, ivars = sim.rp, sim.ivars
+    U = _floored(U, rp.get_param("compressible.small_dens"), ivars, myg)
+
+    class _Data:
+        grid = myg
+
+    if kind == "rk":
+        from pyro2_tpu_torch.solvers.compressible_rk import fluxes
+        F_x, F_y = fluxes.fluxes(U, _Data(), rp, ivars, sim.solid, sim.tc)
+        S = get_external_sources(t, dt, U, ivars, rp, myg)
+    else:
+        from pyro2_tpu_torch.mesh.fv import to_centers_array
+        from pyro2_tpu_torch.solvers.compressible_fv4 import fluxes
+        F_x, F_y = fluxes.fluxes(U, _Data(), rp, ivars)
+        S = get_external_sources(t, dt, to_centers_array(U, myg), ivars, rp,
+                                 myg)
+    return (float(ai(F_x, myg).v(buf=(0, 1, 0, 0)).abs().max()) / myg.dx +
+            float(ai(F_y, myg).v(buf=(0, 0, 0, 1)).abs().max()) / myg.dy +
+            float(ai(S, myg).v(buf=1).abs().max()))
+
+
+class MOLSubstep:
+    """substep(U, t, dt) -> k for a live compressible_rk (kind "rk") or
+    compressible_fv4 / compressible_sdc (kind "fv4") Simulation."""
+
+    def __init__(self, sim, kind):
+        if kind not in KINDS:
+            raise ValueError(f"unknown MOL kernel kind {kind}")
+        rp = sim.rp
+        myg = sim.cc_data.grid
+        ivars = sim.ivars
+        if not isinstance(myg, Cartesian2d):
+            raise _uncovered("spherical geometry", MOL_ITEM)
+        if sim.problem_source is not None:
+            raise _uncovered("problem source terms", MOL_ITEM)
+        if not 4 <= ivars.nvar <= MAXVAR:
+            raise NotImplementedError(
+                f"the MOL kernels take 4..{MAXVAR} variables, not "
+                f"{ivars.nvar}")
+        if myg.ng != 4:
+            raise NotImplementedError(
+                f"the MOL kernels take 4 ghost cells, not {myg.ng}")
+        riemann = 2        # fv4 always solves CGF on primitive states
+        if kind == "rk":
+            from pyro2_tpu_torch.solvers.compressible_rk.fluxes import \
+                uncovered_well_balanced
+            if rp.get_param("compressible.well_balanced"):
+                raise uncovered_well_balanced()
+            method = rp.get_param("compressible.riemann")
+            if method not in RIEMANN:
+                raise ValueError(f"unknown Riemann solver {method}")
+            riemann = RIEMANN[method]
+
+        self.sim = sim
+        self.kind = kind
+        self.plain = sim._make_substep()
+        self.shape = (ivars.nvar, myg.qx, myg.qy)
+        self.small_dens = rp.get_param("compressible.small_dens")
+        s = sim.solid
+        # the fv4 pipeline clamps no walls (riemann_prim with solid 0, 0)
+        walls = [s.xl, s.xr, s.yl, s.yr] if kind == "rk" else [0, 0, 0, 0]
+        gamma = rp.get_param("eos.gamma")
+        self._ints = [ivars.nvar, myg.nx, myg.ny, myg.ng,
+                      ivars.idens, ivars.ixmom, ivars.iymom, ivars.iener,
+                      riemann, rp.get_param("compressible.limiter"),
+                      int(bool(rp.get_param("compressible.use_flattening"))),
+                      1,  # gravity sources: always added, as the plain
+                          # version adds its (zero when grav = 0) S stack
+                      int(bool(rp.get_param("sponge.do_sponge"))),
+                      0,  # has_floor, set per dtype
+                      *walls]
+        # the host-side constants are rounded in double, as the plain
+        # version's Python floats are
+        self._doubles = [myg.dx, myg.dy, 0.0,  # dt, set per call
+                         gamma,
+                         rp.get_param("compressible.z0"),
+                         rp.get_param("compressible.z1"),
+                         rp.get_param("compressible.delta"),
+                         rp.get_param("compressible.cvisc"),
+                         0.0,  # floor, set per dtype
+                         rp.get_param("compressible.grav"),
+                         rp.get_param("sponge.sponge_rho_begin"),
+                         rp.get_param("sponge.sponge_rho_full"),
+                         rp.get_param("sponge.sponge_timescale"),
+                         myg.dx ** 2, myg.dy ** 2, myg.dx ** 2 / 24.0,
+                         -myg.dx ** 2, ALPHA, BETA * gamma]
+
+    @property
+    def name(self):
+        return f"mol_{self.kind}"
+
+    def check(self, U):
+        """Raise on anything the kernel and its plain version do not take."""
+        if not isinstance(U, torch.Tensor):
+            raise TypeError("the MOL substep takes a torch.Tensor")
+        if U.device.type not in ("cpu", "cuda"):
+            raise ValueError(f"unsupported device {U.device}")
+        if U.dtype not in (torch.float32, torch.float64):
+            raise TypeError(f"unsupported dtype {U.dtype}")
+        if tuple(U.shape) != self.shape:
+            raise ValueError(f"state shape {tuple(U.shape)} is not "
+                             f"{self.shape}")
+        if not U.is_contiguous():
+            raise ValueError("the state must be contiguous")
+
+    def __call__(self, U, t, dt):
+        self.check(U)
+        if U.device.type == "cpu":
+            return self.plain(U, t, dt)
+        return self.launch(U, t, dt)
+
+    def kernel_args(self, U, dt):
+        """(int parameters, double parameters) of one kernel call on U."""
+        floor_min = torch.finfo(U.dtype).min
+        ints = list(self._ints)
+        doubles = list(self._doubles)
+        ints[13] = int(self.small_dens > floor_min)
+        doubles[2] = float(dt)
+        doubles[8] = max(self.small_dens, floor_min)
+        return ints, doubles
+
+    def launch(self, U, t, dt):
+        """Launch the CUDA kernel on U's device and current stream.  The
+        gravity source does not depend on t, so t is not passed."""
+        self.check(U)
+        if U.device.type != "cuda":
+            raise ValueError("the CUDA MOL kernel takes a CUDA tensor")
+        ints, doubles = self.kernel_args(U, dt)
+
+        lib = _load()
+        nvar, qx, qy = self.shape
+        k = torch.empty_like(U)
+        scratch = torch.empty(
+            (lib.mol_scratch_planes(KINDS.index(self.kind), nvar), qx, qy),
+            dtype=U.dtype, device=U.device)
+        suffix = "f32" if U.dtype == torch.float32 else "f64"
+        fn = getattr(lib, f"mol_{self.kind}_substep_{suffix}")
+        with torch.cuda.device(U.device):
+            stream = torch.cuda.current_stream(U.device).cuda_stream
+            err = fn(U.data_ptr(), k.data_ptr(), scratch.data_ptr(),
+                     (ctypes.c_int * len(ints))(*ints),
+                     (ctypes.c_double * len(doubles))(*doubles), stream)
+        if err != 0:
+            raise RuntimeError(
+                f"MOL {self.kind} kernel launch failed: CUDA error {err}")
+        launches[self.name] += 1
+        return k

@@ -5,14 +5,20 @@ stack.  `carry` takes both as plain Python/numpy values -- for example a
 JAX simulation's `rp.params` and `numpy.asarray(sim.cc_data.data)` -- and
 returns the port's RuntimeParameters and a state tensor on the given device
 and dtype, so both packages can be set to identical inputs.
+`carry_simulation` goes one step further and returns a live, initialized
+Simulation of the port holding that state as it stands: the state of a
+4th-order (FV2d) solver is a stack of cell averages, so `preevolve`, which
+converts centers to averages, is not run again.
 """
+
+import importlib
 
 import numpy as np
 import torch
 
 from pyro2_tpu_torch.util.runparams import RuntimeParameters
 
-__all__ = ["carry"]
+__all__ = ["carry", "carry_simulation"]
 
 
 def carry(params, state, *, device="cpu", dtype=torch.float64):
@@ -24,3 +30,29 @@ def carry(params, state, *, device="cpu", dtype=torch.float64):
     U = torch.as_tensor(np.array(state, dtype=np.float64),
                         dtype=dtype, device=device).contiguous()
     return rp, U
+
+
+def carry_simulation(solver_name, problem_name, params, state, *, t=0.0,
+                     n=0, extra_vars=None, device="cpu",
+                     dtype=torch.float64):
+    """An initialized Simulation of `solver_name` whose parameters are
+    `params` and whose state is `state` at time t after n steps (the
+    problem's initial conditions are set and then replaced)."""
+    rp, U = carry(params, state, device=device, dtype=dtype)
+    solver = importlib.import_module(f"pyro2_tpu_torch.solvers.{solver_name}")
+    problem = importlib.import_module(
+        f"pyro2_tpu_torch.solvers.{solver_name}.problems.{problem_name}")
+    sim = solver.Simulation(solver_name, problem_name, problem.init_data, rp,
+                            problem_finalize_func=problem.finalize,
+                            device=device, dtype=dtype)
+    if extra_vars:
+        sim.initialize(extra_vars=extra_vars)
+    else:
+        sim.initialize()
+    if tuple(U.shape) != tuple(sim.cc_data.data.shape):
+        raise ValueError(f"state shape {tuple(U.shape)} does not fit the "
+                         f"simulation's {tuple(sim.cc_data.data.shape)}")
+    sim.cc_data.set_vars(U)
+    sim.cc_data.t = t
+    sim.n = n
+    return sim

@@ -3,19 +3,21 @@
 Every kernel source under pyro2_tpu_torch/csrc has a plain C interface and
 is bound with ctypes.  `build(source)` compiles it for sm_90a into
 pyro2_tpu_torch/_build/lib<stem>-<key>.so at first use, where <key> hashes
-the source and the flags, so an edited source is rebuilt.  `build_many`
-starts one nvcc per source, all together, and waits for them.
+the source, every local header it includes (`#include "..."`, followed
+recursively) and the flags, so an edited source or header is rebuilt.
+`build_many` starts one nvcc per source, all together, and waits for them.
 """
 
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
 from pathlib import Path
 
 __all__ = ["BUILD_DIR", "CSRC", "NVCC_FLAGS", "build", "build_many",
-           "library_path"]
+           "library_path", "local_includes"]
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
@@ -34,12 +36,34 @@ def _nvcc():
                         "bin", "nvcc")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def local_includes(source):
+    """Every header a source includes with `#include "..."`, resolved
+    against the including file's directory and followed recursively, in
+    the order first met."""
+    found = []
+    todo = [Path(source).resolve()]
+    while todo:
+        f = todo.pop(0)
+        for name in _INCLUDE.findall(f.read_bytes()):
+            h = (f.parent / name.decode()).resolve()
+            if h not in found:
+                found.append(h)
+                todo.append(h)
+    return found
+
+
 def library_path(source):
-    """The library a source builds into: lib<stem>-<hash>.so."""
+    """The library a source builds into: lib<stem>-<hash>.so, the hash
+    over the source, its local headers and the flags."""
     source = Path(source)
-    key = hashlib.sha256(source.read_bytes() +
-                         " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{source.stem}-{key}.so"
+    h = hashlib.sha256(source.read_bytes())
+    for header in local_includes(source):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{source.stem}-{h.hexdigest()[:16]}.so"
 
 
 def _start(source, verbose):

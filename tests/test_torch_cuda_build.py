@@ -1,0 +1,46 @@
+"""The CUDA build key: a library is named by a hash of its source, the
+local headers it includes and the nvcc flags, so editing any of them
+rebuilds it.  Runs on the CPU: nothing is compiled."""
+
+from pyro2_tpu_torch.util import cuda_build
+
+
+def _write(path, text):
+    path.write_text(text)
+    return path
+
+
+def test_header_edit_changes_library_path(tmp_path):
+    src = _write(tmp_path / "k.cu",
+                 '#include "a.cuh"\nint f() { return g(); }\n')
+    _write(tmp_path / "a.cuh", '#pragma once\n#include "sub/b.cuh"\n'
+           "int g() { return h(); }\n")
+    (tmp_path / "sub").mkdir()
+    b = _write(tmp_path / "sub" / "b.cuh", "int h() { return 1; }\n")
+
+    assert [h.name for h in cuda_build.local_includes(src)] == \
+        ["a.cuh", "b.cuh"]
+    first = cuda_build.library_path(src)
+    assert first.name.startswith("libk-") and first.suffix == ".so"
+    assert cuda_build.library_path(src) == first        # deterministic
+
+    b.write_text("int h() { return 2; }\n")              # a nested header
+    second = cuda_build.library_path(src)
+    assert second != first
+
+    src.write_text(src.read_text() + "// edited\n")      # the source
+    assert cuda_build.library_path(src) not in (first, second)
+
+
+def test_system_includes_are_not_followed(tmp_path):
+    src = _write(tmp_path / "k.cu", "#include <cuda_runtime.h>\n"
+                 "#include <math.h>\nint f() { return 0; }\n")
+    assert cuda_build.local_includes(src) == []
+    cuda_build.library_path(src)
+
+
+def test_port_sources_share_the_euler_header():
+    for name in ("ctu_step.cu", "mol_substep.cu"):
+        heads = cuda_build.local_includes(cuda_build.CSRC / name)
+        assert [h.name for h in heads] == ["euler_common.cuh"]
+    assert cuda_build.local_includes(cuda_build.CSRC / "mg_vcycle.cu") == []

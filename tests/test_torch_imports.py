@@ -66,6 +66,20 @@ def test_import_pulls_in_no_jax():
         "gaussian, test\n"
         "from pyro2_tpu_torch.solvers.incompressible.problems import "
         "converge, shear\n"
+        "import pyro2_tpu_torch.mesh.integration\n"
+        "import pyro2_tpu_torch.mesh.fv\n"
+        "import pyro2_tpu_torch.mesh.fourth_order\n"
+        "import pyro2_tpu_torch.solvers.compressible_rk\n"
+        "import pyro2_tpu_torch.solvers.compressible_rk.fluxes\n"
+        "import pyro2_tpu_torch.solvers.compressible_fv4\n"
+        "import pyro2_tpu_torch.solvers.compressible_fv4.fluxes\n"
+        "import pyro2_tpu_torch.solvers.compressible_fv4.mol_kernel\n"
+        "import pyro2_tpu_torch.solvers.compressible_sdc\n"
+        "from pyro2_tpu_torch.solvers.compressible.problems import "
+        "acoustic_pulse, test\n"
+        "for s in ('rk', 'fv4', 'sdc'):\n"
+        "    __import__('pyro2_tpu_torch.solvers.compressible_' + s + "
+        "'.problems.acoustic_pulse')\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'pyro2_tpu')]\n"
         "assert not bad, bad\n"
@@ -92,7 +106,9 @@ def test_default_device_raises_without_cuda(monkeypatch, tmp_path):
     assert p.dtype == torch.float64
 
 
-@pytest.mark.parametrize("solver", ["diffusion", "incompressible"])
+@pytest.mark.parametrize("solver", ["diffusion", "incompressible",
+                                    "compressible_rk", "compressible_fv4",
+                                    "compressible_sdc"])
 def test_multigrid_solvers_raise_without_cuda(monkeypatch, tmp_path, solver):
     from pyro2_tpu_torch import Pyro
 

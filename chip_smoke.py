@@ -6,13 +6,18 @@
 Phases (any failure exits non-zero and prints no result line):
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
   2. build the CUDA sources of pyro2_tpu_torch/csrc (ctu_step.cu,
-     mg_vcycle.cu, mol_substep.cu) with nvcc, one process each, started
-     together, and print what ptxas reports (registers, shared memory,
-     spills);
+     mg_vcycle.cu, mol_substep.cu, swe_step.cu) with nvcc, one process
+     each, started together, and print what ptxas reports (registers,
+     shared memory, spills);
   3. the CTU kernel against its plain PyTorch version on the card, one step
-     from the same state, for five configurations at a ragged 200x136 and at
-     1024^2, in float64 (max |diff| <= 1e-12 max|U|) and float32
-     (<= 1e-5 max|U|);
+     from the same state after 3 kernel steps, for five configurations at a
+     ragged 200x136 and at 1024^2, in float64 (max |diff| <= 1e-12 max|U|)
+     and float32 (<= 1e-5 max|U|), the output's ghosts equal to the
+     input's;
+  3a. the swe kernel against its plain step the same way, for five
+     configurations (quad Roe limiter 2 outflow, kh HLLC periodic, dam Roe
+     limiter 1 with reflecting y walls, advect limiter 0 with grav 0.001,
+     quad HLLC with a passive scalar);
   3b. the MOL stage-increment kernels (mol_rk, mol_fv4) against their plain
      versions on the card, one increment from the same state after 3
      kernel steps, for four rk and three fv4 configurations at a ragged
@@ -37,14 +42,16 @@ Phases (any failure exits non-zero and prints no result line):
      mol_rk launches a step), compressible_fv4 acoustic_pulse 1024^2 for
      20 steps (4 mol_fv4 a step) and compressible_sdc acoustic_pulse
      1024^2 for 5 steps (9 mol_fv4 a step), with no CTU or multigrid
-     launch on those paths;
+     launch on those paths; then swe quad (Roe, limiter 2) and kh (HLLC)
+     at 1024^2 for 100 steps each, one swe launch a step and no other
+     kernel's; no earlier path makes a swe launch;
   6. CUDA-event timing of each kernel and its plain version at the main
      paths' shapes (quad 1024^2; the 1024^2 solve's levels; the rk quad
-     and fv4 acoustic_pulse 1024^2 increments), beside each kernel's bound
-     on this card;
-  7. torch.profiler breakdowns of 20 quad steps, 5 shear steps and 5 fv4
-     acoustic_pulse steps: device time by kernel and the device's busy
-     share of the wall time.
+     and fv4 acoustic_pulse 1024^2 increments; the swe quad 1024^2 step),
+     beside each kernel's bound on this card;
+  7. torch.profiler breakdowns of 20 quad steps, 5 shear steps, 5 fv4
+     acoustic_pulse steps and 5 swe quad steps: device time by kernel and
+     the device's busy share of the wall time.
 
 The line before the last is a JSON object describing every kernel; the last
 line is {"ok": true, "device": {...}}.
@@ -113,6 +120,20 @@ MG_OPERATORS = (("neumann_helmholtz", "neumann", 1.0, None),
 
 MG_KERNELS = ("mg_core", "mg_down", "mg_up")
 
+# one swe step each: (name, problem, inputs, extra passive scalars); the
+# dam's y extent is widened from 0.05 to 1 so that its cells are not
+# slivers
+SWE_CONFIGS = (
+    ("swe_quad_roe", "quad", {"swe.riemann": "Roe", "swe.limiter": 2},
+     None),
+    ("swe_kh_hllc_periodic", "kh", {"swe.riemann": "HLLC"}, None),
+    ("swe_dam_roe_lim1_walls", "dam", {"swe.riemann": "Roe",
+                                       "swe.limiter": 1, "mesh.ymax": 1.0},
+     None),
+    ("swe_advect_lim0", "advect", {}, None),
+    ("swe_quad_hllc_scalar", "quad", {"swe.riemann": "HLLC"}, ["passive"]),
+)
+
 
 def log(*a):
     print(*a, flush=True)
@@ -133,9 +154,9 @@ def make_sim(problem, inputs, dtype, extra_vars=None,
     sim.initialize(extra_vars=extra_vars)
     sim.preevolve()
     rng = np.random.default_rng(5)
-    dens = sim.cc_data.get_var("density").cpu().numpy()
+    base = sim.cc_data.data[0].cpu().numpy()    # density or height
     for name in extra_vars:
-        sim.cc_data.set_var(name, dens * rng.random(dens.shape))
+        sim.cc_data.set_var(name, base * rng.random(base.shape))
     sim.cc_data.t = 0.0
     return sim
 
@@ -144,12 +165,13 @@ def interior(U, g):
     return U[..., g.ilo:g.ihi + 1, g.jlo:g.jhi + 1]
 
 
-def compare(name, problem, inputs, extra, nx, ny, dtype, tol):
+def compare(name, problem, inputs, extra, nx, ny, dtype, tol,
+            solver="compressible"):
     """Kernel vs plain step from the same state after 3 kernel steps."""
     import torch
 
     sim = make_sim(problem, {"mesh.nx": nx, "mesh.ny": ny, **inputs},
-                   dtype, extra)
+                   dtype, extra, solver=solver)
     for _ in range(3):
         sim.cc_data.fill_BC_all()
         sim.compute_timestep()
@@ -164,8 +186,9 @@ def compare(name, problem, inputs, extra, nx, ny, dtype, tol):
     a, b = interior(ref, g), interior(got, g)
     err = float((a - b).abs().max())
     scale = float(a.abs().max())
-    ghosts = torch.equal(got[:, :g.ilo], U[:, :g.ilo]) and \
-        torch.equal(got[:, :, g.jhi + 1:], U[:, :, g.jhi + 1:])
+    ghost = torch.ones(U.shape[1:], dtype=torch.bool, device=U.device)
+    ghost[g.ilo:g.ihi + 1, g.jlo:g.jhi + 1] = False
+    ghosts = torch.equal(got[:, ghost], U[:, ghost])
     ok = bool(torch.isfinite(b).all()) and err <= tol * scale and ghosts
     log(f"  {'ok ' if ok else 'BAD'} {name:27s} {nx}x{ny} "
         f"{str(dtype)[6:]:8s} max|diff| = {err:.3e}  "
@@ -244,6 +267,7 @@ def mol_main_path(solver, problem, nx, ny, steps, kernel, per_step,
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     ctu, mg, _ = read_counts()
+    no_swe_launches(solver)
     mol = dict(mol_kernel.launches)
     expect = dict.fromkeys(MOL_KERNELS, 0)
     expect[kernel] = per_step * steps
@@ -292,6 +316,7 @@ def main_path(problem, nx, ny, steps):
     if read_counts()[1] != dict.fromkeys(MG_KERNELS, 0):
         raise AssertionError(f"{problem}: multigrid kernels launched")
     no_mol_launches(problem)
+    no_swe_launches(problem)
 
     sim = p.sim
     g = sim.cc_data.grid
@@ -317,8 +342,10 @@ def reset_counts():
     from pyro2_tpu_torch.multigrid import MG, mg_kernel
     from pyro2_tpu_torch.solvers.compressible import ctu_kernel
     from pyro2_tpu_torch.solvers.compressible_fv4 import mol_kernel
+    from pyro2_tpu_torch.solvers.swe import swe_kernel
 
     ctu_kernel.launches = 0
+    swe_kernel.launches = 0
     for key in mg_kernel.launches:
         mg_kernel.launches[key] = 0
     for key in mol_kernel.launches:
@@ -341,6 +368,60 @@ def no_mol_launches(what):
     if any(mol_kernel.launches.values()):
         raise AssertionError(f"{what}: MOL kernels launched "
                              f"{mol_kernel.launches}")
+
+
+def no_swe_launches(what):
+    from pyro2_tpu_torch.solvers.swe import swe_kernel
+
+    if swe_kernel.launches:
+        raise AssertionError(f"{what}: the swe kernel launched "
+                             f"{swe_kernel.launches} times")
+
+
+def swe_main_path(problem, nx, ny, steps, inputs):
+    """Pyro("swe") -> run_sim on CUDA float32 with every count reset just
+    before and read just after; returns (pyro, swe launches)."""
+    import torch
+
+    from pyro2_tpu_torch import Pyro
+    from pyro2_tpu_torch.solvers.compressible_fv4 import mol_kernel
+    from pyro2_tpu_torch.solvers.swe import swe_kernel
+
+    p = Pyro("swe")                     # default device: CUDA, float32
+    p.initialize_problem(problem, inputs_dict={
+        "mesh.nx": nx, "mesh.ny": ny, "driver.max_steps": steps,
+        "driver.tmax": 1.0e30, **inputs})
+    sim = p.sim
+    assert sim.cc_data.data.is_cuda
+    assert sim.cc_data.data.dtype == torch.float32
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    p.run_sim()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    ctu, mg, _ = read_counts()
+    n_swe = swe_kernel.launches
+    if (sim.n != steps or n_swe != steps or ctu != 0 or any(mg.values())
+            or any(mol_kernel.launches.values())):
+        raise AssertionError(
+            f"swe {problem}: {sim.n} steps, swe launches {n_swe}, CTU "
+            f"{ctu}, multigrid {mg}, MOL {mol_kernel.launches}; expected "
+            f"{steps} steps, one swe launch each and no other launch")
+    g = sim.cc_data.grid
+    h = interior(sim.cc_data.data, g)[sim.ivars.ih]
+    if not bool(torch.isfinite(interior(sim.cc_data.data, g)).all()) or \
+            float(h.min()) <= 0.0:
+        raise AssertionError(f"swe {problem}: the state is not finite or "
+                             "the height not positive")
+    zps = nx * ny * steps / seconds
+    log(f"  swe {problem} {nx}x{ny} f32 ({sim.rp.get_param('swe.riemann')},"
+        f" limiter {sim.rp.get_param('swe.limiter')}): {steps} steps in "
+        f"{seconds:.3f} s, {1e3 * seconds / steps:.3f} ms/step, {zps:.4e} "
+        f"zone-updates/s, swe launches {n_swe}, CTU 0, MOL 0, multigrid 0, "
+        f"t = {sim.cc_data.t:.6g}, min h {float(h.min()):.6g}, max h "
+        f"{float(h.max()):.6g}")
+    return p, n_swe
 
 
 def make_mg(n, bc, alpha, beta, dtype):
@@ -489,6 +570,7 @@ def mg_main_path(solver, problem, n, steps):
     seconds = time.perf_counter() - t0
     ctu, launches, stats = read_counts()
     no_mol_launches(solver)
+    no_swe_launches(solver)
 
     peeled = len(mg_kernel.split(make_mg(n, "periodic", 0.0, -1.0,
                                          torch.float32), torch.float32)[1])
@@ -665,6 +747,8 @@ def kernel_source(kernel):
         return "mg_vcycle.cu"
     if kernel.startswith(("k_rk_", "k_fv4_")):
         return "mol_substep.cu"
+    if kernel.startswith("k_swe_"):
+        return "swe_step.cu"
     if kernel in ("k_prim", "k_flatten"):
         return "euler_common.cuh"
     return "ctu_step.cu"
@@ -693,6 +777,7 @@ def main():
     from pyro2_tpu_torch.multigrid import mg_kernel
     from pyro2_tpu_torch.solvers.compressible import ctu_kernel
     from pyro2_tpu_torch.solvers.compressible_fv4 import mol_kernel
+    from pyro2_tpu_torch.solvers.swe import swe_kernel
     from pyro2_tpu_torch.util import cuda_build
 
     # 1. the card
@@ -710,10 +795,12 @@ def main():
     log("[build]")
     t0 = time.perf_counter()
     built = cuda_build.build_many([ctu_kernel.SOURCE, mg_kernel.SOURCE,
-                                   mol_kernel.SOURCE], verbose=True)
+                                   mol_kernel.SOURCE, swe_kernel.SOURCE],
+                                  verbose=True)
     ctu_kernel._load()
     mg_kernel._load()
     mol_kernel._load()
+    swe_kernel._load()
     log(f"  built in {time.perf_counter() - t0:.1f} s (with load)")
     for so, nvcc_s, ptxas in built:
         log(f"  {os.path.relpath(so, HERE)}: nvcc {nvcc_s:.1f} s")
@@ -731,6 +818,19 @@ def main():
                 if (name == "quad_hllc" and nx == 1024 and
                         dtype == torch.float32):
                     ctu_err = err
+            torch.cuda.empty_cache()
+
+    # 3a. the swe kernel vs its plain step on the card
+    log("[swe_step vs plain step on the card]")
+    swe_err = None
+    for dtype, tol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
+        for nx, ny in ((200, 136), (1024, 1024)):
+            for name, problem, inputs, extra in SWE_CONFIGS:
+                err = compare(name, problem, inputs, extra, nx, ny, dtype,
+                              tol, solver="swe")
+                if (name == "swe_quad_roe" and nx == 1024 and
+                        dtype == torch.float32):
+                    swe_err = err
             torch.cuda.empty_cache()
 
     # 3b. the MOL kernels vs their plain versions on the card
@@ -779,6 +879,10 @@ def main():
                              1024, 5, "mol_fv4", 9,
                              {"driver.fix_dt": 0.192 / 1024})
     mol_launches = {"mol_rk": n_rk_quad + n_rk_rt, "mol_fv4": n_fv4 + n_sdc}
+    swe_quad, n_swe_quad = swe_main_path(
+        "quad", 1024, 1024, 100, {"swe.riemann": "Roe", "swe.limiter": 2})
+    _, n_swe_kh = swe_main_path("kh", 1024, 1024, 100,
+                                {"swe.riemann": "HLLC"})
 
     # 6. timing at the main paths' shapes
     log("[timing: quad 1024^2 float32, CUDA events]")
@@ -828,10 +932,25 @@ def main():
             mol_kernel.work(mstep.kind, g.nx, g.ny, msim.ivars.nvar,
                             torch.float32), bw, fp32)
 
+    log("[timing: the swe step at quad 1024^2 float32, CUDA events]")
+    ssim = swe_quad.sim
+    ssim.cc_data.fill_BC_all()
+    ssim.compute_timestep()
+    sU, st, sdt = ssim.cc_data.data, ssim.cc_data.t, ssim.dt
+    sstep = ssim._step
+    g = ssim.cc_data.grid
+    swe_times = time_pair(
+        f"swe_step (quad {g.nx}x{g.ny}, {sstep.method})",
+        lambda: sstep.launch(sU, st, sdt),
+        lambda: sstep.plain(sU, st, sdt),
+        swe_kernel.work(g.nx, g.ny, ssim.ivars.nvar, torch.float32,
+                        sstep.method), bw, fp32)
+
     # 7. where a main-path step's time goes
     profile_steps(p, 20, "quad 1024^2 float32")
     profile_steps(shear, 5, "incompressible shear 1024^2 float32")
     profile_steps(fv4, 5, "compressible_fv4 acoustic_pulse 1024^2 float32")
+    profile_steps(swe_quad, 5, "swe quad 1024^2 float32")
 
     kernels = [{
         "name": "ctu_step",
@@ -876,6 +995,20 @@ def main():
             "bound_by": b_by,
             "library_ms": None,
         })
+    ms, p_ms, b_ms, b_by = swe_times
+    kernels.append({
+        "name": "swe_step",
+        "route": "cuda",
+        "source": "pyro2_tpu_torch/csrc/swe_step.cu",
+        "replaces": "pyro2_tpu/solvers/swe/pallas_step.py:75",
+        "launches": n_swe_quad + n_swe_kh,
+        "max_abs_err": swe_err,
+        "ms": ms,
+        "plain_ms": p_ms,
+        "bound_ms": b_ms,
+        "bound_by": b_by,
+        "library_ms": None,
+    })
     log(smi)                            # the card, again, for the record
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -1,11 +1,11 @@
 // euler_common.cuh -- device code shared by the compressible kernels
-// (ctu_step.cu and mol_substep.cu): the parameter block, window tests
-// against the global index, the density floor on the global interior, the
-// Riemann solvers (HLLC, HLLC_lm, CGF on conserved and on primitive
-// states, with the solid-face clamps), the MC slopes, cons <-> prim, the
-// flattening coefficients and the vertex divergence of the artificial
-// viscosity.  Everything sits in an anonymous namespace: each source that
-// includes it compiles its own copy.
+// (ctu_step.cu and mol_substep.cu): the parameter block, the density floor
+// on the global interior, the Riemann solvers (HLLC, HLLC_lm, CGF on
+// conserved and on primitive states, with the solid-face clamps), cons <->
+// prim, the flattening coefficients and the vertex divergence of the
+// artificial viscosity.  Indexing, window tests and the MC slopes come from
+// grid_common.cuh, which swe_step.cu shares.  Everything sits in an
+// anonymous namespace: each source that includes it compiles its own copy.
 //
 // The arithmetic follows the plain PyTorch versions operation by operation
 // (compile with -fmad=false), so the kernels agree with them to the last
@@ -13,11 +13,7 @@
 
 #pragma once
 
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stddef.h>
-
-#define MAXVAR 8
+#include "grid_common.cuh"
 
 namespace {
 
@@ -43,22 +39,6 @@ constexpr double SMALLC = 1.e-10;
 constexpr double SMALLRHO = 1.e-10;
 constexpr double SMALLP = 1.e-10;
 constexpr double PI = 3.141592653589793;
-
-__device__ __forceinline__ size_t at(const Params& p, int n, int i, int j) {
-  return ((size_t)n * p.qx + i) * p.qy + j;
-}
-
-__device__ __forceinline__ int ilo(const Params& p) { return p.ng; }
-__device__ __forceinline__ int ihi(const Params& p) { return p.ng + p.nx - 1; }
-__device__ __forceinline__ int jlo(const Params& p) { return p.ng; }
-__device__ __forceinline__ int jhi(const Params& p) { return p.ng + p.ny - 1; }
-
-// (i, j) inside the window [ilo - bxlo, ihi + bxhi] x [jlo - bylo, jhi + byhi]
-__device__ __forceinline__ bool inwin(const Params& p, int i, int j, int bxlo,
-                                      int bxhi, int bylo, int byhi) {
-  return i >= ilo(p) - bxlo && i <= ihi(p) + bxhi && j >= jlo(p) - bylo &&
-         j <= jhi(p) + byhi;
-}
 
 // the state with the density floor applied on the global interior
 template <typename T>
@@ -382,42 +362,8 @@ __device__ __forceinline__ void riemann(const Params& p, int idir,
 }
 
 // ---------------------------------------------------------------------------
-// slopes and flattening
+// flattening
 // ---------------------------------------------------------------------------
-
-template <typename T>
-__device__ __forceinline__ T mc(T dc, T dl, T dr) {
-  const T d1 = T(2) * (fabs(dl) < fabs(dr) ? dl : dr);
-  const T d = fabs(dc) < fabs(d1) ? dc : d1;
-  return dl * dr > T(0) ? d : T(0);
-}
-
-// 2nd-order MC slope of plane a at (i, j) along idir, zero outside the
-// buf=2 window (the embed of the plain version)
-template <typename T>
-__device__ __forceinline__ T limit2_at(const Params& p, const T* a, int i,
-                                       int j, int di, int dj) {
-  if (!inwin(p, i, j, 2, 2, 2, 2)) return T(0);
-  const T ap = a[(size_t)(i + di) * p.qy + j + dj];
-  const T a0 = a[(size_t)i * p.qy + j];
-  const T am = a[(size_t)(i - di) * p.qy + j - dj];
-  return mc(T(0.5) * (ap - am), ap - a0, a0 - am);
-}
-
-// the limited slope of plane a at a buf=2-window cell (i, j) along idir
-template <typename T>
-__device__ T slope(const Params& p, const T* a, int i, int j, int di,
-                   int dj) {
-  const T ap = a[(size_t)(i + di) * p.qy + j + dj];
-  const T a0 = a[(size_t)i * p.qy + j];
-  const T am = a[(size_t)(i - di) * p.qy + j - dj];
-  if (p.limiter == 0) return T(0.5) * (ap - am);
-  if (p.limiter == 1) return mc(T(0.5) * (ap - am), ap - a0, a0 - am);
-  const T tp = limit2_at(p, a, i + di, j + dj, di, dj);
-  const T tm = limit2_at(p, a, i - di, j - dj, di, dj);
-  const T dc = T(2.0 / 3.0) * (ap - am - T(0.25) * (tp + tm));
-  return mc(dc, ap - a0, a0 - am);
-}
 
 // ---------------------------------------------------------------------------
 // stage kernels
@@ -441,11 +387,6 @@ __device__ __forceinline__ void cons_to_prim(const Params& p, const T* u,
   q[IP] = rho * e * T(p.gamma - 1.0);
   for (int n = 4; n < p.nvar; ++n) q[n] = nz ? u[n] / safe : T(0);
 }
-
-#define CELL_INDEX                                    \
-  const int j = blockIdx.x * blockDim.x + threadIdx.x; \
-  const int i = blockIdx.y * blockDim.y + threadIdx.y; \
-  if (i >= p.qx || j >= p.qy) return;
 
 // stage 1: primitives of the floored state on every cell
 template <typename T>
@@ -588,11 +529,5 @@ __device__ __forceinline__ T sponge_rate(const Params& p, T rho) {
                                         T(p.rho_full - p.rho_begin))));
   return f / T(p.tau);
 }
-
-#define LAUNCH_CHECK                                   \
-  do {                                                 \
-    cudaError_t e = cudaGetLastError();                \
-    if (e != cudaSuccess) return (int)e;               \
-  } while (0)
 
 }  // namespace

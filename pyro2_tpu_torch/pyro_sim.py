@@ -20,7 +20,7 @@ from pyro2_tpu_torch.util import msg
 from pyro2_tpu_torch.util.runparams import RuntimeParameters, _get_val
 
 valid_solvers = ["compressible", "compressible_rk", "compressible_fv4",
-                 "compressible_sdc", "diffusion", "incompressible"]
+                 "compressible_sdc", "diffusion", "incompressible", "swe"]
 
 
 class Pyro:

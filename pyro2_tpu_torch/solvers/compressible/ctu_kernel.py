@@ -29,7 +29,7 @@ __all__ = ["CTUStep", "build", "launches", "work", "FLOPS_PER_ZONE"]
 
 SOURCE = cuda_build.CSRC / "ctu_step.cu"
 
-MAXVAR = 8
+MAXVAR = cuda_build.MAXVAR
 RIEMANN = {"HLLC": 0, "HLLC_lm": 1, "CGF": 2}
 
 # floating-point operations per zone of one step, counted from ctu_step.cu

@@ -16,12 +16,15 @@ import subprocess
 import time
 from pathlib import Path
 
-__all__ = ["BUILD_DIR", "CSRC", "NVCC_FLAGS", "build", "build_many",
-           "library_path", "local_includes"]
+__all__ = ["BUILD_DIR", "CSRC", "MAXVAR", "NVCC_FLAGS", "build",
+           "build_many", "library_path", "local_includes"]
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
+# the most variables a state stack may hold in the kernels (MAXVAR of
+# csrc/grid_common.cuh, the length of their per-cell arrays)
+MAXVAR = 8
 # -fmad=false keeps each multiply and add rounded on its own, as the plain
 # PyTorch versions round them
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -77,6 +77,10 @@ def test_import_pulls_in_no_jax():
         "import pyro2_tpu_torch.solvers.compressible_sdc\n"
         "from pyro2_tpu_torch.solvers.compressible.problems import "
         "acoustic_pulse, test\n"
+        "import pyro2_tpu_torch.solvers.swe\n"
+        "import pyro2_tpu_torch.solvers.swe.swe_kernel\n"
+        "from pyro2_tpu_torch.solvers.swe.problems import acoustic_pulse, "
+        "advect, dam, kh, logo, quad, test\n"
         "for s in ('rk', 'fv4', 'sdc'):\n"
         "    __import__('pyro2_tpu_torch.solvers.compressible_' + s + "
         "'.problems.acoustic_pulse')\n"
@@ -108,7 +112,7 @@ def test_default_device_raises_without_cuda(monkeypatch, tmp_path):
 
 @pytest.mark.parametrize("solver", ["diffusion", "incompressible",
                                     "compressible_rk", "compressible_fv4",
-                                    "compressible_sdc"])
+                                    "compressible_sdc", "swe"])
 def test_multigrid_solvers_raise_without_cuda(monkeypatch, tmp_path, solver):
     from pyro2_tpu_torch import Pyro
 

@@ -6,9 +6,9 @@
 Phases (any failure exits non-zero and prints no result line):
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
   2. build the CUDA sources of pyro2_tpu_torch/csrc (ctu_step.cu,
-     mg_vcycle.cu, mol_substep.cu, swe_step.cu) with nvcc, one process
-     each, started together, and print what ptxas reports (registers,
-     shared memory, spills);
+     mg_vcycle.cu, mol_substep.cu, swe_step.cu, lm_interface.cu) with
+     nvcc, one process each, started together, and print what ptxas
+     reports (registers, shared memory, spills);
   3. the CTU kernel against its plain PyTorch version on the card, one step
      from the same state after 3 kernel steps, for five configurations at a
      ragged 200x136 and at 1024^2, in float64 (max |diff| <= 1e-12 max|U|)
@@ -24,13 +24,23 @@ Phases (any failure exits non-zero and prints no result line):
      200x136 (fv4 rt: 200x600, square cells) and at 1024^2, in float64
      (max |diff| <= 1e-12 of max|F_x|/dx + max|F_y|/dy + max|S|, the terms
      k cancels) and float32 (<= 1e-5 of it), the ghosts of k exactly zero;
-  4. the multigrid kernels (mg_core, mg_down, mg_up) against their plain
-     versions from the same inputs, each entry, one whole V-cycle and one
-     whole solve, at 64^2 (core only) and 1024^2 (core up to 128^2 in
-     float32 and 64^2 in float64, the finer levels peeled), with the
-     Neumann Helmholtz operator of diffusion and the periodic Poisson
-     operator of the projections, in float64 (<= 1e-12 max|v|) and float32
-     (<= 1e-5 max|v|);
+  4. the multigrid kernels against their plain versions from the same
+     inputs, each entry, one whole V-cycle and one whole solve, at 64^2
+     (core only) and 1024^2 (core up to 128^2 in float32 and 64^2 in
+     float64, the finer levels peeled), in float64 (<= 1e-12 max|v|) and
+     float32 (<= 1e-5 max|v|; a residual to the same factors of the terms
+     it cancels), with equal float64 cycle counts: the constant operator
+     (mg_core, mg_down, mg_up) as diffusion's Neumann Helmholtz and the
+     projections' periodic Poisson; the coefficient operators as
+     VarCoeffCCMG2d (the _vc entries) with lm_atm's edges (periodic x,
+     Neumann bottom, Dirichlet top) and on Neumann walls, and GeneralMG2d
+     (the _general entries, alpha 10, beta xy + 1, gamma (1, 1)) with
+     homogeneous Dirichlet edges;
+  4a. the lm_atm interface kernels (lm_mac, lm_rho, lm_states) against
+     their plain versions, on decisively signed random fields at 200x136
+     and 1024^2 and on a bubble state at 1024^2 after 3 kernel steps, in
+     float64 (<= 1e-12 of each stated scale) and float32 (<= 1e-5), the
+     MAC frames zero exactly where the plain version's are;
   5. the main paths through Pyro -> run_sim on CUDA in float32, each with
      every launch count reset just before and read just after:
      compressible quad at 1024^2 for 100 steps and rt at 256x768 for 50
@@ -44,14 +54,23 @@ Phases (any failure exits non-zero and prints no result line):
      1024^2 for 5 steps (9 mol_fv4 a step), with no CTU or multigrid
      launch on those paths; then swe quad (Roe, limiter 2) and kh (HLLC)
      at 1024^2 for 100 steps each, one swe launch a step and no other
-     kernel's; no earlier path makes a swe launch;
+     kernel's; no earlier path makes a swe launch; then lm_atm bubble at
+     1024^2 for 10 steps after one warm-up step (one lm_mac, lm_rho and
+     lm_states a step; per multigrid cycle one mg_core_vc and one
+     mg_down_vc plus one mg_up_vc per peeled level; no other launch, and
+     no lm or coefficient-multigrid launch on an earlier path), and one
+     GeneralMG2d solve at 1024^2 (multigrid/examples'
+     mg_test_general_dirichlet operator, checked against its exact
+     solution);
   6. CUDA-event timing of each kernel and its plain version at the main
-     paths' shapes (quad 1024^2; the 1024^2 solve's levels; the rk quad
-     and fv4 acoustic_pulse 1024^2 increments; the swe quad 1024^2 step),
-     beside each kernel's bound on this card;
+     paths' shapes (quad 1024^2; the 1024^2 solves' levels, constant, vc
+     and general; the rk quad and fv4 acoustic_pulse 1024^2 increments;
+     the swe quad 1024^2 step; the lm_atm stages on the 1024^2 bubble),
+     beside each kernel's bound on this card, and the host time of
+     building lm_atm's VarCoeffCCMG2d at 1024^2;
   7. torch.profiler breakdowns of 20 quad steps, 5 shear steps, 5 fv4
-     acoustic_pulse steps and 5 swe quad steps: device time by kernel and
-     the device's busy share of the wall time.
+     acoustic_pulse steps, 5 swe quad steps and 5 lm_atm bubble steps:
+     device time by kernel and the device's busy share of the wall time.
 
 The line before the last is a JSON object describing every kernel; the last
 line is {"ok": true, "device": {...}}.
@@ -111,14 +130,26 @@ MOL_CONFIGS = (
 MOL_KERNELS = ("mol_rk", "mol_fv4")
 
 
-# multigrid checks: the operator of each BC set, as the solvers use them:
-# diffusion's Crank-Nicolson Helmholtz operator (alpha 1, beta = dt k / 2
-# with dt = 2 dx^2) on Neumann walls, and the projections' Poisson
-# operator (alpha 0, beta -1) on the doubly periodic shear domain
-MG_OPERATORS = (("neumann_helmholtz", "neumann", 1.0, None),
-                ("periodic_poisson", "periodic", 0.0, -1.0))
+# multigrid checks: (name, operator, edges x-lo x-hi y-lo y-hi, whether
+# the right-hand side needs zero mean).  The constant operator as the
+# solvers use it: diffusion's Crank-Nicolson Helmholtz operator (alpha 1,
+# beta = dt k / 2 with dt = 2 dx^2) on Neumann walls, and the projections'
+# Poisson operator (alpha 0, beta -1) on the doubly periodic shear domain;
+# the vc operator with lm_atm's phi edges and a stratified coefficient
+# with a bump (as beta0^2 / rho), and on Neumann walls; the general
+# operator of tests/test_multigrid.py's TestGeneralMG with homogeneous
+# Dirichlet edges
+LM_EDGES = ("periodic", "periodic", "neumann", "dirichlet")
+MG_CASES = (("neumann_helmholtz", "const", ("neumann",) * 4, False),
+            ("periodic_poisson", "const", ("periodic",) * 4, True),
+            ("vc_lm_edges", "vc", LM_EDGES, False),
+            ("vc_neumann", "vc", ("neumann",) * 4, True),
+            ("general_dirichlet", "general", ("dirichlet",) * 4, False))
 
 MG_KERNELS = ("mg_core", "mg_down", "mg_up")
+VC_KERNELS = ("mg_core_vc", "mg_down_vc", "mg_up_vc")
+GENERAL_KERNELS = ("mg_core_general", "mg_down_general", "mg_up_general")
+LM_KERNELS = ("lm_mac", "lm_rho", "lm_states")
 
 # one swe step each: (name, problem, inputs, extra passive scalars); the
 # dam's y extent is widened from 0.05 to 1 so that its cells are not
@@ -268,6 +299,7 @@ def mol_main_path(solver, problem, nx, ny, steps, kernel, per_step,
     seconds = time.perf_counter() - t0
     ctu, mg, _ = read_counts()
     no_swe_launches(solver)
+    no_lm_launches(solver)
     mol = dict(mol_kernel.launches)
     expect = dict.fromkeys(MOL_KERNELS, 0)
     expect[kernel] = per_step * steps
@@ -313,10 +345,11 @@ def main_path(problem, nx, ny, steps):
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     n_launch = ctu_kernel.launches
-    if read_counts()[1] != dict.fromkeys(MG_KERNELS, 0):
+    if any(read_counts()[1].values()):
         raise AssertionError(f"{problem}: multigrid kernels launched")
     no_mol_launches(problem)
     no_swe_launches(problem)
+    no_lm_launches(problem)
 
     sim = p.sim
     g = sim.cc_data.grid
@@ -342,16 +375,15 @@ def reset_counts():
     from pyro2_tpu_torch.multigrid import MG, mg_kernel
     from pyro2_tpu_torch.solvers.compressible import ctu_kernel
     from pyro2_tpu_torch.solvers.compressible_fv4 import mol_kernel
+    from pyro2_tpu_torch.solvers.lm_atm import lm_kernel
     from pyro2_tpu_torch.solvers.swe import swe_kernel
 
     ctu_kernel.launches = 0
     swe_kernel.launches = 0
-    for key in mg_kernel.launches:
-        mg_kernel.launches[key] = 0
-    for key in mol_kernel.launches:
-        mol_kernel.launches[key] = 0
-    for key in MG.stats:
-        MG.stats[key] = 0
+    for counts in (mg_kernel.launches, mol_kernel.launches,
+                   lm_kernel.launches, MG.stats):
+        for key in counts:
+            counts[key] = 0
 
 
 def read_counts():
@@ -368,6 +400,14 @@ def no_mol_launches(what):
     if any(mol_kernel.launches.values()):
         raise AssertionError(f"{what}: MOL kernels launched "
                              f"{mol_kernel.launches}")
+
+
+def no_lm_launches(what):
+    from pyro2_tpu_torch.solvers.lm_atm import lm_kernel
+
+    if any(lm_kernel.launches.values()):
+        raise AssertionError(f"{what}: the lm_atm kernels launched "
+                             f"{lm_kernel.launches}")
 
 
 def no_swe_launches(what):
@@ -401,6 +441,7 @@ def swe_main_path(problem, nx, ny, steps, inputs):
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     ctu, mg, _ = read_counts()
+    no_lm_launches(f"swe {problem}")
     n_swe = swe_kernel.launches
     if (sim.n != steps or n_swe != steps or ctu != 0 or any(mg.values())
             or any(mol_kernel.launches.values())):
@@ -433,6 +474,56 @@ def make_mg(n, bc, alpha, beta, dtype):
                           device="cuda", dtype=dtype)
 
 
+def make_case_mg(n, name, op, edges, dtype):
+    """An n^2 multigrid object of one of MG_CASES on the card."""
+    import numpy as np
+
+    import pyro2_tpu_torch.mesh.boundary as bnd
+    from pyro2_tpu_torch.mesh.grid import Grid2d
+    from pyro2_tpu_torch.multigrid.general_MG import GeneralMG2d
+    from pyro2_tpu_torch.multigrid.variable_coeff_MG import VarCoeffCCMG2d
+
+    if op == "const":
+        return make_mg(n, edges[0], *{"neumann_helmholtz": (1.0, None),
+                                      "periodic_poisson": (0.0, -1.0)}[name],
+                       dtype)
+    kw = dict(xl_BC_type=edges[0], xr_BC_type=edges[1],
+              yl_BC_type=edges[2], yr_BC_type=edges[3], device="cuda",
+              dtype=dtype)
+    g = Grid2d(n, n, ng=1)
+    x, y = g.x2d, g.y2d
+    if op == "vc":
+        if edges == LM_EDGES:
+            eta = np.exp(-2.0 * y) * (1.0 + 0.5 * np.exp(
+                -((x - 0.5) ** 2 + (y - 0.5) ** 2) / 0.01))
+            bc = bnd.BC(xlb="periodic", xrb="periodic", ylb="reflect",
+                        yrb="outflow")
+        else:
+            eta = 2.0 + np.cos(2 * np.pi * x) * np.cos(2 * np.pi * y)
+            bc = bnd.BC(xlb="neumann", xrb="neumann", ylb="neumann",
+                        yrb="neumann")
+        return VarCoeffCCMG2d(n, n, coeffs=eta, coeffs_bc=bc, **kw)
+    return GeneralMG2d(n, n, coeffs=general_coeffs(
+        g, 10.0 + 0 * x, x * y + 1.0, 1.0 + 0 * x, 1.0 + 0 * y, dtype), **kw)
+
+
+def general_coeffs(g, alpha, beta, gamma_x, gamma_y, dtype):
+    """The CellCenterData2d of GeneralMG2d's four coefficients (Neumann
+    ghost fills, as the JAX package's tests and examples use)."""
+    import pyro2_tpu_torch.mesh.boundary as bnd
+    from pyro2_tpu_torch.mesh import patch
+
+    d = patch.CellCenterData2d(g, dtype=dtype, device="cuda")
+    bc = bnd.BC(xlb="neumann", xrb="neumann", ylb="neumann", yrb="neumann")
+    for name in ("alpha", "beta", "gamma_x", "gamma_y"):
+        d.register_var(name, bc)
+    d.create()
+    for name, a in (("alpha", alpha), ("beta", beta), ("gamma_x", gamma_x),
+                    ("gamma_y", gamma_y)):
+        d.set_var(name, a)
+    return d
+
+
 def frame(rng, g, dtype, scale=1.0, zero_mean=False):
     """A random (qx, qy) frame on the card; zero_mean removes the interior
     mean (a periodic Poisson right-hand side must have none)."""
@@ -445,24 +536,38 @@ def frame(rng, g, dtype, scale=1.0, zero_mean=False):
 
 
 def resid_scale(mg, level, v, f):
-    """The size of the terms a residual f - alpha v + beta L v of a level
-    cancels: its roundoff is relative to these, not to the residual."""
+    """The size of the terms a residual of a level cancels: its roundoff is
+    relative to these, not to the residual.  The constant operator's
+    f - alpha v + beta L v sums |alpha| v and 8 |beta| v / dx^2; the
+    coefficient forms sum 8 times their largest edge coefficient (already
+    scaled by 1/dx^2) times v, and the general one alpha v and its two
+    gamma differences."""
+    from pyro2_tpu_torch.multigrid import mg_kernel
+
     vmax, fmax = float(v.abs().max()), float(f.abs().max())
-    return fmax + abs(mg.alpha) * vmax + \
-        8.0 * abs(mg.beta) * vmax / mg.grids[level].dx ** 2
+    op = mg_kernel.flavour(mg)
+    if op == "const":
+        return fmax + abs(mg.alpha) * vmax + \
+            8.0 * abs(mg.beta) * vmax / mg.grids[level].dx ** 2
+    top = mg.planes[level].abs().amax(dim=(1, 2)).tolist()
+    if op == "vc":
+        return fmax + 8.0 * max(top) * vmax
+    alpha, bx, by, gx, gy = top
+    return fmax + (alpha + 8.0 * max(bx, by) + 2.0 * (gx + gy)) * vmax
 
 
-def mg_compare(n, op, dtype, tol, errs):
-    """Each multigrid kernel, one whole cycle and one whole solve against
-    their plain versions from the same inputs; records the worst |diff| of
-    each kernel in errs[kernel]."""
+def mg_compare(n, case, dtype, tol, errs):
+    """Each multigrid kernel of one of MG_CASES, one whole cycle and one
+    whole solve against their plain versions from the same inputs; records
+    the worst |diff| of each kernel in errs[kernel]."""
     import numpy as np
     import torch
 
     from pyro2_tpu_torch.multigrid import mg_kernel
 
-    name, bc, alpha, beta = op
-    mg = make_mg(n, bc, alpha, beta, dtype)
+    name, op, edges, zero_mean = case
+    mg = make_case_mg(n, *case[:3], dtype)
+    sfx = mg_kernel.FLAVOURS[op][0]
     rng = np.random.default_rng(n)
     top, peeled = mg_kernel.split(mg, dtype)
     fine = mg.nlevels - 1
@@ -488,8 +593,8 @@ def mg_compare(n, op, dtype, tol, errs):
         f = frame(rng, g, dtype)
         ref = mg_kernel.core_plain(mg, top, v, f, True)
         got = mg_kernel.launch_core(mg, top, v, f, True)
-        check(f"mg_core v {g.nx}^2", "mg_core", ref[0], got[0])
-        check(f"mg_core r {g.nx}^2", "mg_core", ref[1], got[1],
+        check(f"mg_core v {g.nx}^2", "mg_core" + sfx, ref[0], got[0])
+        check(f"mg_core r {g.nx}^2", "mg_core" + sfx, ref[1], got[1],
               resid_scale(mg, top, ref[0], f))
     for lv in peeled:                            # every peeled level
         g, gc = mg.grids[lv], mg.grids[lv - 1]
@@ -497,20 +602,20 @@ def mg_compare(n, op, dtype, tol, errs):
         for guess in ((v, None) if lv < fine else (v,)):
             ref = mg_kernel.down_plain(mg, lv, guess, f)
             got = mg_kernel.launch_down(mg, lv, guess, f)
-            check(f"mg_down v {g.nx}^2", "mg_down", ref[0], got[0])
-            check(f"mg_down fc {g.nx}^2", "mg_down", ref[1], got[1],
-                  resid_scale(mg, lv, ref[0], f))
+            check(f"mg_down v {g.nx}^2", "mg_down" + sfx, ref[0], got[0])
+            check(f"mg_down fc {g.nx}^2", "mg_down" + sfx, ref[1],
+                  got[1], resid_scale(mg, lv, ref[0], f))
         vc = frame(rng, gc, dtype, 0.1)
         ref = mg_kernel.up_plain(mg, lv, v, f, vc, lv == fine)
         got = mg_kernel.launch_up(mg, lv, v, f, vc, lv == fine)
-        check(f"mg_up v {g.nx}^2", "mg_up", ref[0], got[0])
+        check(f"mg_up v {g.nx}^2", "mg_up" + sfx, ref[0], got[0])
         if lv == fine:
-            check(f"mg_up r {g.nx}^2", "mg_up", ref[1], got[1],
+            check(f"mg_up r {g.nx}^2", "mg_up" + sfx, ref[1], got[1],
                   resid_scale(mg, lv, ref[0], f))
 
     g = mg.soln_grid                             # one whole cycle
     v = frame(rng, g, dtype, 0.1)
-    f = frame(rng, g, dtype, zero_mean=alpha == 0.0)
+    f = frame(rng, g, dtype, zero_mean=zero_mean)
     ref = mg_kernel.core_plain(mg, fine, v, f, True)
     got = mg_kernel.cycle(mg, v, f)
     check("cycle v", None, ref[0], got[0])
@@ -520,7 +625,7 @@ def mg_compare(n, op, dtype, tol, errs):
     # version's, from a zero guess
     solves = []
     for plain in (True, False):
-        m = make_mg(n, bc, alpha, beta, dtype)
+        m = make_case_mg(n, *case[:3], dtype)
         m.init_zeros()
         m.init_RHS(f)
         saved = mg_kernel.cycle
@@ -571,12 +676,14 @@ def mg_main_path(solver, problem, n, steps):
     ctu, launches, stats = read_counts()
     no_mol_launches(solver)
     no_swe_launches(solver)
+    no_lm_launches(solver)
 
     peeled = len(mg_kernel.split(make_mg(n, "periodic", 0.0, -1.0,
                                          torch.float32), torch.float32)[1])
     cycles = stats["cycles"]
-    expect = {"mg_core": cycles, "mg_down": cycles * peeled,
-              "mg_up": cycles * peeled}
+    expect = dict.fromkeys(launches, 0)
+    expect.update({"mg_core": cycles, "mg_down": cycles * peeled,
+                   "mg_up": cycles * peeled})
     if sim.n != steps or ctu != 0 or launches != expect or cycles == 0:
         raise AssertionError(
             f"{solver}: {sim.n} steps, launches {launches} (CTU {ctu}) for "
@@ -616,28 +723,28 @@ def time_pair(name, kern, plain, work, bw, fp32):
     return kern_ms, plain_ms, bound_ms, bound_by
 
 
-def mg_timing(bw, fp32):
-    """CUDA-event times of each multigrid kernel and its plain version as
-    one 1024^2 float32 cycle calls them: the core from a zero guess, and
-    the down and up of every peeled level; returns the core's and the
-    finest level's."""
+def mg_timing(mg, label, bw, fp32):
+    """CUDA-event times of each multigrid kernel of mg's operator and its
+    plain version as one 1024^2 float32 cycle calls them: the core from a
+    zero guess, and the down and up of every peeled level; returns the
+    core's and the finest level's, keyed by entry name."""
     import numpy as np
     import torch
 
     from pyro2_tpu_torch.multigrid import mg_kernel
 
     dtype = torch.float32
-    mg = make_mg(1024, "periodic", 0.0, -1.0, dtype)
+    sfx = mg_kernel.FLAVOURS[mg_kernel.flavour(mg)][0]
     top, peeled = mg_kernel.split(mg, dtype)
     fine = mg.nlevels - 1
     rng = np.random.default_rng(7)
     gt = mg.grids[top]
     ft = frame(rng, gt, dtype)
-    out = {"mg_core": time_pair(
-        f"mg_core ({gt.nx}^2 top, zero guess)",
+    out = {"mg_core" + sfx: time_pair(
+        f"mg_core{sfx} ({label}, {gt.nx}^2 top, zero guess)",
         lambda: mg_kernel.launch_core(mg, top, None, ft, False),
         lambda: mg_kernel.core_plain(mg, top, None, ft, False),
-        mg_kernel.work("mg_core", gt.nx, mg.nsmooth, dtype,
+        mg_kernel.work("mg_core" + sfx, gt.nx, mg.nsmooth, dtype,
                        nsmooth_bottom=mg.nsmooth_bottom, with_guess=False,
                        want_r=False), bw, fp32)}
     for lv in reversed(peeled):
@@ -647,26 +754,310 @@ def mg_timing(bw, fp32):
         guess = v if lv == fine else None           # as the cycle calls it
         want_r = lv == fine
         times = {
-            "mg_down": time_pair(
-                f"mg_down ({g.nx}^2)",
+            "mg_down" + sfx: time_pair(
+                f"mg_down{sfx} ({label}, {g.nx}^2)",
                 lambda: mg_kernel.launch_down(mg, lv, guess, f),
                 lambda: mg_kernel.down_plain(mg, lv, guess, f),
-                mg_kernel.work("mg_down", g.nx, mg.nsmooth, dtype,
+                mg_kernel.work("mg_down" + sfx, g.nx, mg.nsmooth, dtype,
                                with_guess=guess is not None), bw, fp32),
-            "mg_up": time_pair(
-                f"mg_up ({g.nx}^2)",
+            "mg_up" + sfx: time_pair(
+                f"mg_up{sfx} ({label}, {g.nx}^2)",
                 lambda: mg_kernel.launch_up(mg, lv, v, f, vc, want_r),
                 lambda: mg_kernel.up_plain(mg, lv, v, f, vc, want_r),
-                mg_kernel.work("mg_up", g.nx, mg.nsmooth, dtype,
+                mg_kernel.work("mg_up" + sfx, g.nx, mg.nsmooth, dtype,
                                want_r=want_r), bw, fp32)}
         if lv == fine:
             out.update(times)
     v, f = frame(rng, mg.soln_grid, dtype, 0.1), frame(rng, mg.soln_grid,
                                                        dtype)
     cyc = event_ms(lambda: mg_kernel.cycle(mg, v, f), 10)
-    log(f"  one 1024^2 cycle (1 core, {len(peeled)} down, {len(peeled)} up): "
-        f"{cyc:.4f} ms")
+    log(f"  one 1024^2 {label} cycle (1 core, {len(peeled)} down, "
+        f"{len(peeled)} up): {cyc:.4f} ms")
     return out
+
+
+# ---------------------------------------------------------------------------
+# the lm_atm interface kernels and the coefficient multigrid paths
+# ---------------------------------------------------------------------------
+
+class Recorder:
+    """Stands in for a Simulation's LMInterface: passes each call on and
+    keeps its arguments, so the kernels can be checked on a real state."""
+
+    def __init__(self, lm):
+        self.lm = lm
+        self.g = lm.g
+        self.calls = {}
+
+    def mac_vels(self, dt, *planes):
+        self.calls["lm_mac"] = (dt, planes)
+        return self.lm.mac_vels(dt, *planes)
+
+    def rho_increment(self, dt, *planes):
+        self.calls["lm_rho"] = (dt, planes)
+        return self.lm.rho_increment(dt, *planes)
+
+    def advect_terms(self, dt, *planes):
+        self.calls["lm_states"] = (dt, planes)
+        return self.lm.advect_terms(dt, *planes)
+
+
+def lm_random_calls(nx, ny, dtype, seed):
+    """(grid, calls) of the three stages on decisively signed random
+    fields (u > 0, v < 0, as tests/test_lm_pallas.py makes them), the MAC
+    velocities from the plain mac_vels."""
+    import numpy as np
+    import torch
+
+    from pyro2_tpu_torch.mesh.grid import Cartesian2d
+    from pyro2_tpu_torch.solvers.lm_atm import lm_kernel
+
+    g = Cartesian2d(nx, ny, ng=4, xmax=1.0, ymax=ny / nx)
+    rng = np.random.default_rng(seed)
+
+    def mk(lo=-1.0, hi=1.0):
+        return torch.as_tensor(rng.uniform(lo, hi, (g.qx, g.qy)),
+                               dtype=dtype, device="cuda")
+
+    vel = (mk(0.2, 1.2), mk(-1.2, -0.2)) + tuple(mk() for _ in range(7))
+    rho = (mk(0.5, 1.5), mk(), mk())
+    dt = 0.2 * g.dx
+    um, vm = lm_kernel.mac_vels_plain(g, dt, *vel)
+    return g, {"lm_mac": (dt, vel),
+               "lm_rho": (dt, (rho[0], um, vm, rho[1], rho[2])),
+               "lm_states": (dt, vel + (um, vm))}
+
+
+def lm_bubble_calls(n, dtype, steps=3):
+    """(grid, calls) of the three stages as lm_atm bubble's evolve makes
+    them on the card, after `steps` kernel steps."""
+    from pyro2_tpu_torch import Pyro
+
+    p = Pyro("lm_atm", device="cuda", dtype=dtype)
+    p.initialize_problem("bubble", inputs_dict={
+        "mesh.nx": n, "mesh.ny": n, "driver.max_steps": 10 ** 6,
+        "driver.tmax": 1.0e30})
+    for _ in range(steps):
+        p.single_step()
+    rec = Recorder(p.sim.lm)
+    p.sim.lm = rec
+    p.single_step()
+    p.sim.lm = rec.lm
+    return rec.g, rec.calls
+
+
+def lm_scales(g, calls):
+    """The scale each stage's roundoff is held to: max|u_MAC|, |v_MAC| for
+    mac_vels; for the increment and the advective terms, the sizes of the
+    terms their differences cancel: 2 max|state| (max|u_MAC| / dx +
+    max|v_MAC| / dy), times dt for rho, with the plain interface states."""
+    from pyro2_tpu_torch.solvers.lm_atm import LM_atm_interface as lmi
+
+    def amax(*ts):
+        return max(float(t.abs().max()) for t in ts)
+
+    dt, planes = calls["lm_rho"]
+    rho, um, vm = planes[:3]
+    s_rho = amax(*lmi.rho_states(g, g.dx, g.dy, dt, *planes))
+    flow = amax(um) / g.dx + amax(vm) / g.dy
+    dt, planes = calls["lm_states"]
+    s_uv = amax(*lmi.states(g, g.dx, g.dy, dt, *planes))
+    return {"lm_rho": abs(dt) * 2.0 * s_rho * flow,
+            "lm_states": 2.0 * s_uv * flow}
+
+
+def lm_compare(what, g, calls, dtype, tol, errs):
+    """Each lm_atm kernel against its plain version on the recorded
+    arguments; the MAC frames must be zero exactly where the plain
+    version's are."""
+    import torch
+
+    from pyro2_tpu_torch.solvers.lm_atm import lm_kernel
+
+    lm = lm_kernel.LMInterface(g)
+    scales = lm_scales(g, calls)
+    rows = []
+    for name, plain, launch in (
+            ("lm_mac", lm_kernel.mac_vels_plain, lm.launch_mac),
+            ("lm_rho", lm_kernel.rho_increment_plain, lm.launch_rho),
+            ("lm_states", lm_kernel.advect_terms_plain, lm.launch_states)):
+        dt, planes = calls[name]
+        ref = plain(g, dt, *planes)
+        got = launch(dt, *planes)
+        ref = ref if isinstance(ref, tuple) else (ref,)
+        got = got if isinstance(got, tuple) else (got,)
+        err = max(float((a - b).abs().max()) for a, b in zip(ref, got))
+        scale = scales.get(name, max(float(a.abs().max()) for a in ref))
+        ok = err <= tol * scale and all(bool(torch.isfinite(b).all())
+                                        for b in got)
+        if name == "lm_mac":
+            ok = ok and all(torch.equal(a == 0, b == 0)
+                            for a, b in zip(ref, got))
+        rows.append(f"{name} {err:.3e} (tol x {scale:.4g})")
+        errs[name] = max(errs.get(name, 0.0), err)
+        if not ok:
+            raise AssertionError(f"lm_atm kernel disagrees with its plain "
+                                 f"version: {name} {what} {dtype}")
+    torch.cuda.synchronize()
+    log(f"  ok  {what:18s} {g.nx}x{g.ny} {str(dtype)[6:]:8s} "
+        + "; ".join(rows) + "; MAC zeros equal")
+
+
+def lm_main_path(n, steps):
+    """Pyro("lm_atm") bubble -> run_sim on CUDA float32 for `steps` steps
+    after one untimed warm-up step, with every count reset just before and
+    read just after; returns (pyro, launches by kernel, cycles/solve)."""
+    import torch
+
+    from pyro2_tpu_torch import Pyro
+    from pyro2_tpu_torch.multigrid import mg_kernel
+    from pyro2_tpu_torch.solvers.compressible_fv4 import mol_kernel
+    from pyro2_tpu_torch.solvers.lm_atm import lm_kernel
+    from pyro2_tpu_torch.solvers.swe import swe_kernel
+
+    p = Pyro("lm_atm")                  # default device: CUDA, float32
+    p.initialize_problem("bubble", inputs_dict={
+        "mesh.nx": n, "mesh.ny": n, "driver.max_steps": steps + 1,
+        "driver.tmax": 1.0e30})
+    sim = p.sim
+    assert sim.cc_data.data.is_cuda
+    assert sim.cc_data.data.dtype == torch.float32
+    p.single_step()
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    p.run_sim()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    ctu, mg, stats = read_counts()
+    lm = dict(lm_kernel.launches)
+    peeled = len(mg_kernel.split(make_mg(n, "periodic", 0.0, -1.0,
+                                         torch.float32), torch.float32)[1])
+    cycles = stats["cycles"]
+    expect_mg = dict.fromkeys(mg, 0)
+    expect_mg.update({"mg_core_vc": cycles, "mg_down_vc": cycles * peeled,
+                      "mg_up_vc": cycles * peeled})
+    if (sim.n != steps + 1 or lm != dict.fromkeys(LM_KERNELS, steps) or
+            mg != expect_mg or cycles == 0 or stats["solves"] != 2 * steps
+            or ctu or swe_kernel.launches or
+            any(mol_kernel.launches.values())):
+        raise AssertionError(
+            f"lm_atm: {sim.n} steps, lm {lm}, multigrid {mg} for {cycles} "
+            f"cycles in {stats['solves']} solves, CTU {ctu}, swe "
+            f"{swe_kernel.launches}, MOL {mol_kernel.launches}; expected "
+            f"{steps} + 1 steps, each lm kernel once a step, {expect_mg} "
+            "and no other launch")
+    g = sim.cc_data.grid
+    data = interior(sim.cc_data.data, g)
+    dens = interior(sim.cc_data.get_var("density"), g)
+    if not bool(torch.isfinite(data).all()) or float(dens.min()) <= 0.0:
+        raise AssertionError("lm_atm: the state is not finite or the "
+                             "density not positive")
+    vmax = float(interior(sim.cc_data.get_var("y-velocity"), g).abs().max())
+    zps = n * n * steps / seconds
+    log(f"  lm_atm bubble {n}x{n} f32: {steps} steps (after 1) in "
+        f"{seconds:.3f} s, {1e3 * seconds / steps:.3f} ms/step, {zps:.4e} "
+        f"zone-updates/s; {stats['solves']} solves, {cycles} cycles "
+        f"({cycles / stats['solves']:.2f} per solve); launches lm {lm}, "
+        f"mg_core_vc {mg['mg_core_vc']}, mg_down_vc {mg['mg_down_vc']}, "
+        f"mg_up_vc {mg['mg_up_vc']} ({peeled} peeled), no other; t = "
+        f"{sim.cc_data.t:.6g}, min rho {float(dens.min()):.6g}, max|v| "
+        f"{vmax:.6g}")
+    return p, {**lm, **{k: mg[k] for k in VC_KERNELS}}, cycles / stats[
+        "solves"]
+
+
+def general_path(n):
+    """One GeneralMG2d solve on CUDA float32 with the operator of
+    multigrid/examples/mg_test_general_dirichlet.py (alpha 1, beta = 2 +
+    cos 2 pi x cos 2 pi y, gamma = (sin 2 pi x, sin 2 pi y), homogeneous
+    Dirichlet, exact phi = sin 2 pi x sin 2 pi y), counts reset just before
+    and read just after; returns the launches by kernel."""
+    import numpy as np
+    import torch
+
+    from pyro2_tpu_torch.mesh.grid import Grid2d
+    from pyro2_tpu_torch.mesh.indexer import ai
+    from pyro2_tpu_torch.multigrid import mg_kernel
+    from pyro2_tpu_torch.multigrid.general_MG import GeneralMG2d
+
+    g = Grid2d(n, n, ng=1)
+    x, y = g.x2d, g.y2d
+    s2, c2 = np.sin(2 * np.pi * x) * np.sin(2 * np.pi * y), \
+        np.cos(2 * np.pi * x) * np.cos(2 * np.pi * y)
+    d = general_coeffs(g, 1.0 + 0 * x, 2.0 + c2, np.sin(2 * np.pi * x),
+                       np.sin(2 * np.pi * y), torch.float32)
+    rhs = (-16.0 * np.pi ** 2 * c2 + 2.0 * np.pi * np.cos(2 * np.pi * x) +
+           2.0 * np.pi * np.cos(2 * np.pi * y) - 16.0 * np.pi ** 2 + 1.0) * s2
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    mg = GeneralMG2d(n, n, coeffs=d)        # default device: CUDA, float32
+    mg.init_zeros()
+    mg.init_RHS(rhs)
+    mg.solve(rtol=1.e-11)
+    err = float(ai(mg.get_solution() - torch.as_tensor(
+        s2, dtype=torch.float32, device="cuda"), g).norm())
+    seconds = time.perf_counter() - t0
+    ctu, launches, stats = read_counts()
+    peeled = len(mg_kernel.split(mg, torch.float32)[1])
+    cycles = mg.num_cycles
+    expect = dict.fromkeys(launches, 0)
+    expect.update({"mg_core_general": cycles,
+                   "mg_down_general": cycles * peeled,
+                   "mg_up_general": cycles * peeled})
+    no_lm_launches("general multigrid")
+    # the truncation error of this problem falls as dx^2 (the JAX package's
+    # example); at 1024^2 it is far below this bound
+    if launches != expect or cycles == 0 or ctu or not err < 1e-3:
+        raise AssertionError(f"general multigrid: launches {launches} for "
+                             f"{cycles} cycles, CTU {ctu}, error {err}")
+    log(f"  GeneralMG2d {n}^2 f32 (mg_test_general_dirichlet): {cycles} "
+        f"cycles in {seconds:.3f} s, residual {mg.residual_error:.3e}, L2 "
+        f"error from the exact solution {err:.3e}; launches "
+        f"{ {k: launches[k] for k in GENERAL_KERNELS} }, no other")
+    return {k: launches[k] for k in GENERAL_KERNELS}
+
+
+def lm_timing(calls, g, bw, fp32):
+    """CUDA-event times of each lm_atm kernel and its plain version on the
+    recorded bubble arguments, beside each kernel's bound."""
+    import torch
+
+    from pyro2_tpu_torch.solvers.lm_atm import lm_kernel
+
+    lm = lm_kernel.LMInterface(g)
+    out = {}
+    for name, plain, launch in (
+            ("lm_mac", lm_kernel.mac_vels_plain, lm.launch_mac),
+            ("lm_rho", lm_kernel.rho_increment_plain, lm.launch_rho),
+            ("lm_states", lm_kernel.advect_terms_plain, lm.launch_states)):
+        dt, planes = calls[name]
+        out[name] = time_pair(
+            f"{name} (bubble {g.nx}x{g.ny})",
+            lambda: launch(dt, *planes),
+            lambda: plain(g, dt, *planes),
+            lm_kernel.work(name, g.nx, g.ny, torch.float32), bw, fp32)
+    return out
+
+
+def vc_build_ms(sim, reps=5):
+    """Host-clock ms of building one of lm_atm's VarCoeffCCMG2d (the edge
+    coefficients of every level) from the state, ending in a sync."""
+    import torch
+
+    rho = sim.cc_data.get_var("density")
+    coeff2 = (1.0 / rho) * sim._t(sim.base["beta0"].full2d()) ** 2
+    sim._vc_mg("phi", coeff2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        sim._vc_mg("phi", coeff2)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / reps
+    log(f"  VarCoeffCCMG2d build ({sim.cc_data.grid.nx}^2 f32): {ms:.3f} ms "
+        f"per solve object (host clock, {reps} builds)")
+    return ms
 
 
 def profile_steps(p, steps, label):
@@ -691,10 +1082,11 @@ def profile_steps(p, steps, label):
         dev_us = getattr(e, "device_time_total",
                          getattr(e, "cuda_time_total", 0.0))
         if e.device_type == torch.autograd.DeviceType.CUDA and dev_us > 0:
-            m = re.search(r"(k_[a-z0-9_]+)<(float|double)>", e.key)
+            m = re.search(r"(k_[a-z0-9_]+)<(?:(\d), )?(float|double)>",
+                          e.key)
             if m:
                 name = f"{kernel_source(m.group(1))} " \
-                    f"{m.group(1)}<{m.group(2)}>"
+                    f"{m.group(1)}<{OPS.get(m.group(2), '')}{m.group(3)}>"
             else:
                 name = e.key[:72]
             rows.append((dev_us, e.count, name))
@@ -721,9 +1113,11 @@ def ptxas_summary(text):
         if m:
             if name:
                 out.append(f"{name}: {', '.join(info)}")
-            k = re.search(r"(k_[a-z0-9_]+)I([fd])E", m.group(1))
-            kind = "float" if k and k.group(2) == "f" else "double"
-            name = f"{k.group(1)}<{kind}>" if k else m.group(1)[:60]
+            k = re.search(r"(k_[a-z0-9_]+)I(?:Li(\d)E)?([fd])E",
+                          m.group(1))
+            kind = "float" if k and k.group(3) == "f" else "double"
+            name = f"{k.group(1)}<{OPS.get(k.group(2), '')}{kind}>" if k \
+                else m.group(1)[:60]
             info = []
             continue
         for pat in (r"Used (\d+ registers)", r"(\d+ bytes smem)",
@@ -741,10 +1135,16 @@ def ptxas_summary(text):
     return out
 
 
+# the operator template argument of the multigrid kernels (mg_vcycle.cu)
+OPS = {"0": "const, ", "1": "vc, ", "2": "general, "}
+
+
 def kernel_source(kernel):
     """The source file of a device kernel, by its name."""
     if kernel in ("k_core", "k_down", "k_up"):
         return "mg_vcycle.cu"
+    if kernel.startswith("k_lm_"):
+        return "lm_interface.cu"
     if kernel.startswith(("k_rk_", "k_fv4_")):
         return "mol_substep.cu"
     if kernel.startswith("k_swe_"):
@@ -777,6 +1177,7 @@ def main():
     from pyro2_tpu_torch.multigrid import mg_kernel
     from pyro2_tpu_torch.solvers.compressible import ctu_kernel
     from pyro2_tpu_torch.solvers.compressible_fv4 import mol_kernel
+    from pyro2_tpu_torch.solvers.lm_atm import lm_kernel
     from pyro2_tpu_torch.solvers.swe import swe_kernel
     from pyro2_tpu_torch.util import cuda_build
 
@@ -795,12 +1196,11 @@ def main():
     log("[build]")
     t0 = time.perf_counter()
     built = cuda_build.build_many([ctu_kernel.SOURCE, mg_kernel.SOURCE,
-                                   mol_kernel.SOURCE, swe_kernel.SOURCE],
-                                  verbose=True)
-    ctu_kernel._load()
-    mg_kernel._load()
-    mol_kernel._load()
-    swe_kernel._load()
+                                   mol_kernel.SOURCE, swe_kernel.SOURCE,
+                                   lm_kernel.SOURCE], verbose=True)
+    for module in (ctu_kernel, mg_kernel, mol_kernel, swe_kernel,
+                   lm_kernel):
+        module._load()
     log(f"  built in {time.perf_counter() - t0:.1f} s (with load)")
     for so, nvcc_s, ptxas in built:
         log(f"  {os.path.relpath(so, HERE)}: nvcc {nvcc_s:.1f} s")
@@ -854,10 +1254,25 @@ def main():
     mg_err = {}
     for dtype, tol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
         for n in (64, 1024):
-            for op in MG_OPERATORS:
-                mg_compare(n, op, dtype, tol,
+            for case in MG_CASES:
+                mg_compare(n, case, dtype, tol,
                            mg_err if (n, dtype) == (1024, torch.float32)
                            else {})
+        torch.cuda.empty_cache()
+
+    # 4a. the lm_atm interface kernels vs their plain versions on the card
+    log("[lm_interface vs plain stages on the card]")
+    lm_err = {}
+    for dtype, tol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
+        for what, (g, calls) in (
+                ("random", lm_random_calls(200, 136, dtype, 1)),
+                ("random", lm_random_calls(1024, 1024, dtype, 2)),
+                ("bubble, 3 steps", lm_bubble_calls(1024, dtype))):
+            lm_compare(what, g, calls, dtype, tol,
+                       lm_err if (g.nx, dtype) == (1024, torch.float32)
+                       else {})
+            if what != "random" and dtype == torch.float32:
+                bubble_g, bubble_calls = g, calls
         torch.cuda.empty_cache()
 
     # 5. the main paths
@@ -883,6 +1298,8 @@ def main():
         "quad", 1024, 1024, 100, {"swe.riemann": "Roe", "swe.limiter": 2})
     _, n_swe_kh = swe_main_path("kh", 1024, 1024, 100,
                                 {"swe.riemann": "HLLC"})
+    lm, lm_launches, cycles_per_solve = lm_main_path(1024, 10)
+    general_launches = general_path(1024)
 
     # 6. timing at the main paths' shapes
     log("[timing: quad 1024^2 float32, CUDA events]")
@@ -914,8 +1331,15 @@ def main():
         f"{bw:.3g} B/s = {bytes_ms:.4f} ms, {nops} ops "
         f"({ctu_kernel.FLOPS_PER_ZONE}/zone) at {fp32:.3g} op/s = "
         f"{ops_ms:.4f} ms; kernel at {100 * bound_ms / kern_ms:.2f}% of it")
-    log("[timing: the 1024^2 float32 solve's levels, CUDA events]")
-    mg_times = mg_timing(bw, fp32)
+    log("[timing: the 1024^2 float32 solves' levels, CUDA events]")
+    mg_times = mg_timing(make_mg(1024, "periodic", 0.0, -1.0,
+                                 torch.float32), "periodic Poisson", bw,
+                         fp32)
+    for case in MG_CASES:
+        if case[0] in ("vc_lm_edges", "general_dirichlet"):
+            mg_times.update(mg_timing(make_case_mg(1024, *case[:3],
+                                                   torch.float32),
+                                      case[0], bw, fp32))
     log("[timing: the MOL increments at 1024^2 float32, CUDA events]")
     mol_times = {}
     for kname, pp in (("mol_rk", rk_quad), ("mol_fv4", fv4)):
@@ -946,11 +1370,17 @@ def main():
         swe_kernel.work(g.nx, g.ny, ssim.ivars.nvar, torch.float32,
                         sstep.method), bw, fp32)
 
+    log("[timing: the lm_atm stages on the 1024^2 float32 bubble, CUDA "
+        "events; the host's multigrid set-up]")
+    lm_times = lm_timing(bubble_calls, bubble_g, bw, fp32)
+    vc_build_ms(lm.sim)
+
     # 7. where a main-path step's time goes
     profile_steps(p, 20, "quad 1024^2 float32")
     profile_steps(shear, 5, "incompressible shear 1024^2 float32")
     profile_steps(fv4, 5, "compressible_fv4 acoustic_pulse 1024^2 float32")
     profile_steps(swe_quad, 5, "swe quad 1024^2 float32")
+    profile_steps(lm, 5, "lm_atm bubble 1024^2 float32")
 
     kernels = [{
         "name": "ctu_step",
@@ -1009,6 +1439,43 @@ def main():
         "bound_by": b_by,
         "library_ms": None,
     })
+    coef_launches = {**lm_launches, **general_launches}
+    for name, line in (
+            ("mg_core_vc", 150), ("mg_down_vc", 195), ("mg_up_vc", 218),
+            ("mg_core_general", 150), ("mg_down_general", 195),
+            ("mg_up_general", 218)):
+        ms, p_ms, b_ms, b_by = mg_times[name]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "pyro2_tpu_torch/csrc/mg_vcycle.cu",
+            "replaces": f"pyro2_tpu/multigrid/pallas_gen_mg.py:{line}",
+            "launches": coef_launches[name],
+            "max_abs_err": mg_err[name],
+            "ms": ms,
+            "plain_ms": p_ms,
+            "bound_ms": b_ms,
+            "bound_by": b_by,
+            "library_ms": None,
+        })
+    for name, line in (("lm_mac", 200), ("lm_rho", 227),
+                       ("lm_states", 259)):
+        ms, p_ms, b_ms, b_by = lm_times[name]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "pyro2_tpu_torch/csrc/lm_interface.cu",
+            "replaces": f"pyro2_tpu/solvers/lm_atm/pallas_interface.py:{line}",
+            "launches": lm_launches[name],
+            "max_abs_err": lm_err[name],
+            "ms": ms,
+            "plain_ms": p_ms,
+            "bound_ms": b_ms,
+            "bound_by": b_by,
+            "library_ms": None,
+        })
+    log(f"  lm_atm bubble 1024^2: {cycles_per_solve:.2f} multigrid cycles "
+        "per solve")
     log(smi)                            # the card, again, for the record
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -15,9 +15,10 @@ device="cpu":
 
 Ported so far: the compressible CTU solver (Cartesian geometry), the
 constant-coefficient multigrid with diffusion and incompressible, the
-method-of-lines tier (compressible_rk, compressible_fv4, compressible_sdc)
-and the shallow-water solver (swe), with the layers under them; ROADMAP.md
-lists what waits.
+method-of-lines tier (compressible_rk, compressible_fv4, compressible_sdc),
+the shallow-water solver (swe), and the coefficient multigrid with the
+low-Mach atmosphere solver (lm_atm), with the layers under them;
+ROADMAP.md lists what waits.
 """
 
 from pyro2_tpu_torch.mesh.boundary import BC, bc_is_solid, define_bc

@@ -1,28 +1,49 @@
-// mg_vcycle.cu -- the constant-coefficient multigrid V-cycle on Hopper.
+// mg_vcycle.cu -- the multigrid V-cycle on Hopper, for the three operators
+// of pyro2_tpu_torch/multigrid:
 //
-// Replaces the fused Pallas TPU V-cycle of pyro2_tpu/multigrid/pallas_mg.py
-// for (alpha - beta L) phi = f, L the 5-point Laplacian, on a square 2^k
-// grid with one ghost cell and homogeneous standard BCs:
+//   OP_CONST    (alpha - beta L) phi = f, L the 5-point Laplacian
+//               (MG.CellCenterMG2d; the JAX package's pallas_mg.py);
+//   OP_VC       div(eta grad phi) = f with edge coefficients eta_x, eta_y
+//               (variable_coeff_MG.VarCoeffCCMG2d);
+//   OP_GENERAL  alpha phi + div(beta grad phi) + gamma.grad phi = f with
+//               planes alpha, beta_x, beta_y and the 0.5/dx-prescaled
+//               gamma_x, gamma_y (general_MG.GeneralMG2d);
 //
-//   mg_core  <- _make_core_kernel: the whole sub-V-cycle of the coarse
-//               levels 0..top (nsmooth_bottom sweeps on 2x2), plus the
-//               residual when no level is peeled;
-//   mg_down  <- _make_down_kernel and _make_down_banded: nsmooth red-black
-//               Gauss-Seidel sweeps, the residual, and its factor-2
+// the last two replacing pyro2_tpu/multigrid/pallas_gen_mg.py, all on a
+// square 2^k grid with one ghost cell and homogeneous standard BCs.  One
+// template per kernel, instantiated for each operator:
+//
+//   mg_core  <- _make_core_kernel / _make_core_kernel_g: the whole
+//               sub-V-cycle of the coarse levels 0..top (nsmooth_bottom
+//               sweeps on 2x2), plus the residual when no level is peeled;
+//   mg_down  <- _make_down_kernel(_g) and _make_down_banded(_g): nsmooth
+//               red-black Gauss-Seidel sweeps, the residual, and its factor-2
 //               restriction into the coarse f (ghosts zero);
-//   mg_up    <- _make_up_kernel and _make_up_banded: prolong and correct,
-//               a ghost fill, nsmooth sweeps, and the residual on the
-//               finest level.
+//   mg_up    <- _make_up_kernel(_g) and _make_up_banded(_g): prolong and
+//               correct, a ghost fill, nsmooth sweeps, and the residual on
+//               the finest level.
 //
 // The TPU cut levels above 512^2 into 128-row bands with deep halos only
-// because a frame did not fit in VMEM; here one mg_down and one mg_up serve
-// every peeled level, whatever its size.  Restriction and prolongation are
-// plain stencils (the TPU built them as iota matmuls only because Mosaic
-// could not lower strided ops): no tensor cores, no TF32.
+// because a frame did not fit in VMEM (and so could not take periodic x
+// edges there); here one mg_down and one mg_up serve every peeled level,
+// whatever its size and edges.  Restriction and prolongation are plain
+// stencils shared by the operators (the TPU built them as iota matmuls only
+// because Mosaic could not lower strided ops): no tensor cores, no TF32.
+//
+// Coefficient planes.  A VC or GENERAL level carries a device pointer to its
+// (ncoef, q, q) plane stack, built once per solver object in PyTorch.  They
+// stay in device memory, read through the caches, in every kernel: the
+// core's shared memory holds v and f of each core level as for OP_CONST, so
+// the core keeps the same levels (up to 128^2 in float32, 64^2 in float64)
+// for every operator.  The TPU kernel hoisted the shifted coefficients and
+// the denominator out of its sweep loop because Mosaic recomputed them;
+// here each cell update reads its four edge values (and alpha, gamma) and
+// forms the denominator itself, which costs no extra traffic.
 //
 // Arithmetic: each stencil is written in the order of the plain PyTorch
-// version (pyro2_tpu_torch/multigrid/MG.py), and the build uses -fmad=false,
-// so the two agree to a few roundings.
+// version (MG.py, variable_coeff_MG.py, general_MG.py), and the build uses
+// -fmad=false, so the two agree to a few roundings (the coefficient forms,
+// which have no division by a Python scalar, bit for bit).
 //
 // Ghost fills.  A homogeneous fill sets every ghost cell to +-1 times one
 // interior cell: x-lo, x-hi, y-lo, y-hi in that order, so a corner is the
@@ -41,14 +62,15 @@
 // the level, cooperative_groups grid.sync() between phases (one per
 // half-sweep).  The grid is sized to what can be co-resident.  The level
 // frames live in device memory; up to 1026^2 floats (4.2 MB) per frame,
-// they stay in the 50 MB L2 across the sweeps.
+// they (and a level's planes) stay in the 50 MB L2 across the sweeps.
 // mg_core: one block of 1024 threads holding v and f of every level
 // 0..top in shared memory (128^2 float32: 183 KB; 64^2 float64: 96 KB),
 // __syncthreads() between phases.
 //
 // What bounds it on the H100: a level's sweeps are a chain of dependent
-// stencils, ~7 operations per cell update against 2 values in and one out,
-// so a call's least time is the bytes of its frames over the memory rate
+// stencils, 7 (CONST), 13 (VC) or 17 (GENERAL) operations per cell update
+// against 2 values and 2-5 coefficients in and one out, so a call's least
+// time is the bytes of its frames and planes over the memory rate
 // (mg_kernel.work counts them).  This first design is simple instead: it
 // pays one grid-wide barrier per half-sweep (21 per mg_down at nsmooth 10)
 // and reads each cell's neighbours from L2, with stride-2 colour accesses.
@@ -75,20 +97,27 @@ constexpr int CORE_THREADS = 1024;
 // ghost-fill kind of an edge
 enum { COPY = 0, NEGATE = 1, PERIODIC = 2 };
 
+// the operator
+enum { OP_CONST = 0, OP_VC = 1, OP_GENERAL = 2 };
+
 // one level: its size, stencil coefficients and ghost sources
 template <typename T>
 struct Lev {
   int n, q;                  // interior cells per side; frame side n + 2
-  T xc, yc, den;             // beta/dx^2, beta/dy^2, alpha + 2 xc + 2 yc
-  T dx2, dy2;                // dx^2, dy^2 of the residual's Laplacian
+  T xc, yc, den;             // CONST: beta/dx^2, beta/dy^2, alpha+2xc+2yc
+  T dx2, dy2;                // CONST: dx^2, dy^2 of the residual's Laplacian
   int sxl, sxh, syl, syh;    // interior row / column each ghost edge mirrors
   T gxl, gxh, gyl, gyh;      // and its sign
+  const T* c;                // VC / GENERAL: the (ncoef, q, q) plane stack
 };
 
-// coef holds xc, yc, den, dx2, dy2; bc the kinds of x-lo, x-hi, y-lo, y-hi
+// coef holds xc, yc, den, dx2, dy2; bc the kinds of x-lo, x-hi, y-lo, y-hi;
+// planes the level's coefficient stack (nullptr for OP_CONST)
 template <typename T>
-Lev<T> make_level(int n, const double* coef, const int* bc) {
+Lev<T> make_level(int n, const double* coef, const int* bc,
+                  const void* planes) {
   Lev<T> L;
+  L.c = static_cast<const T*>(planes);
   L.n = n;
   L.q = n + 2;
   L.xc = (T)coef[0];
@@ -125,37 +154,73 @@ __device__ __forceinline__ void put(T* v, const Lev<T>& L, int i, int j,
   if (xh && yh) v[(q - 1) * q + q - 1] = L.gyh * (L.gxh * val);
 }
 
-// the Gauss-Seidel update of cell c
-template <typename T>
+// the Gauss-Seidel update of cell c.  VC and GENERAL read their edge
+// coefficients as the plain smoothers' views do: bxp = x-plane at i+1 (the
+// high-x face), bx = at i, byp = y-plane at j+1, by = at j
+template <int OP, typename T>
 __device__ __forceinline__ T gs(const T* v, const T* f, const Lev<T>& L,
                                 int c) {
   const int q = L.q;
-  return (f[c] + L.xc * (v[c + q] + v[c - q]) +
-          L.yc * (v[c + 1] + v[c - 1])) / L.den;
+  if constexpr (OP == OP_CONST) {
+    return (f[c] + L.xc * (v[c + q] + v[c - q]) +
+            L.yc * (v[c + 1] + v[c - 1])) / L.den;
+  } else if constexpr (OP == OP_VC) {
+    const size_t qq = (size_t)q * q;
+    const T *ex = L.c, *ey = L.c + qq;
+    const T bxp = ex[c + q], bx = ex[c], byp = ey[c + 1], by = ey[c];
+    const T den = bxp + bx + byp + by;
+    return (-f[c] + bxp * v[c + q] + bx * v[c - q] + byp * v[c + 1] +
+            by * v[c - 1]) / den;
+  } else {
+    const size_t qq = (size_t)q * q;
+    const T *al = L.c, *ex = L.c + qq, *ey = L.c + 2 * qq;
+    const T *gx = L.c + 3 * qq, *gy = L.c + 4 * qq;
+    const T bxp = ex[c + q], bx = ex[c], byp = ey[c + 1], by = ey[c];
+    const T den = al[c] - bxp - bx - byp - by;
+    return (f[c] - (bxp + gx[c]) * v[c + q] - (bx - gx[c]) * v[c - q] -
+            (byp + gy[c]) * v[c + 1] - (by - gy[c]) * v[c - 1]) / den;
+  }
 }
 
-// r = f - alpha v + beta L v at cell c
-template <typename T>
+// the residual f - (operator) v at cell c (alpha, beta: OP_CONST only)
+template <int OP, typename T>
 __device__ __forceinline__ T resid(const T* v, const T* f, const Lev<T>& L,
                                    T alpha, T beta, int c) {
   const int q = L.q;
-  const T lap = (v[c - q] + v[c + q] - T(2) * v[c]) / L.dx2 +
-                (v[c - 1] + v[c + 1] - T(2) * v[c]) / L.dy2;
-  return f[c] - alpha * v[c] + beta * lap;
+  if constexpr (OP == OP_CONST) {
+    const T lap = (v[c - q] + v[c + q] - T(2) * v[c]) / L.dx2 +
+                  (v[c - 1] + v[c + 1] - T(2) * v[c]) / L.dy2;
+    return f[c] - alpha * v[c] + beta * lap;
+  } else if constexpr (OP == OP_VC) {
+    const size_t qq = (size_t)q * q;
+    const T *ex = L.c, *ey = L.c + qq;
+    const T Lv = ex[c + q] * (v[c + q] - v[c]) - ex[c] * (v[c] - v[c - q]) +
+                 ey[c + 1] * (v[c + 1] - v[c]) - ey[c] * (v[c] - v[c - 1]);
+    return f[c] - Lv;
+  } else {
+    const size_t qq = (size_t)q * q;
+    const T *al = L.c, *ex = L.c + qq, *ey = L.c + 2 * qq;
+    const T *gx = L.c + 3 * qq, *gy = L.c + 4 * qq;
+    const T Lv = al[c] * v[c] + ex[c + q] * (v[c + q] - v[c]) -
+                 ex[c] * (v[c] - v[c - q]) + ey[c + 1] * (v[c + 1] - v[c]) -
+                 ey[c] * (v[c] - v[c - 1]) + gx[c] * (v[c + q] - v[c - q]) +
+                 gy[c] * (v[c + 1] - v[c - 1]);
+    return f[c] - Lv;
+  }
 }
 
 // the factor-2 average of the residual over the four children of coarse
 // frame cell (I, J)
-template <typename T>
+template <int OP, typename T>
 __device__ __forceinline__ T restricted(const T* v, const T* f,
                                         const Lev<T>& L, T alpha, T beta,
                                         int I, int J) {
   const int q = L.q;
   const int c = (2 * I - 1) * q + 2 * J - 1;
-  return T(0.25) * (((resid(v, f, L, alpha, beta, c) +
-                      resid(v, f, L, alpha, beta, c + q)) +
-                     resid(v, f, L, alpha, beta, c + 1)) +
-                    resid(v, f, L, alpha, beta, c + q + 1));
+  return T(0.25) * (((resid<OP>(v, f, L, alpha, beta, c) +
+                      resid<OP>(v, f, L, alpha, beta, c + q)) +
+                     resid<OP>(v, f, L, alpha, beta, c + 1)) +
+                    resid<OP>(v, f, L, alpha, beta, c + q + 1));
 }
 
 // the centred-slope prolongation of coarse frame vc (side qc) at fine
@@ -181,7 +246,7 @@ __device__ __forceinline__ void colored(int k, int n, int color, int& i,
 }
 
 // nsmooth red-black iterations in place; `sync` is the barrier
-template <typename T, typename Sync>
+template <int OP, typename T, typename Sync>
 __device__ void smooth(T* v, const T* f, const Lev<T>& L, int nsmooth,
                        int t0, int nt, Sync sync) {
   const int half = L.n * L.n / 2;
@@ -190,7 +255,7 @@ __device__ void smooth(T* v, const T* f, const Lev<T>& L, int nsmooth,
       for (int k = t0; k < half; k += nt) {
         int i, j;
         colored(k, L.n, color, i, j);
-        put(v, L, i, j, gs(v, f, L, i * L.q + j));
+        put(v, L, i, j, gs<OP>(v, f, L, i * L.q + j));
       }
       sync();
     }
@@ -210,7 +275,7 @@ struct DownArgs {
   int nsmooth;
 };
 
-template <typename T>
+template <int OP, typename T>
 __global__ void __launch_bounds__(THREADS) k_down(DownArgs<T> a) {
   cg::grid_group grid = cg::this_grid();
   auto sync = [&]() { grid.sync(); };
@@ -224,13 +289,13 @@ __global__ void __launch_bounds__(THREADS) k_down(DownArgs<T> a) {
     put(a.vo, L, i, j, a.v ? a.v[i * q + j] : T(0));
   }
   sync();
-  smooth(a.vo, a.f, L, a.nsmooth, t0, nt, sync);
+  smooth<OP>(a.vo, a.f, L, a.nsmooth, t0, nt, sync);
 
   const int nc = n / 2, qc = nc + 2;
   for (int k = t0; k < qc * qc; k += nt) {
     const int I = k / qc, J = k % qc;
     a.fc[k] = (I >= 1 && I <= nc && J >= 1 && J <= nc)
-                  ? restricted(a.vo, a.f, L, a.alpha, a.beta, I, J)
+                  ? restricted<OP>(a.vo, a.f, L, a.alpha, a.beta, I, J)
                   : T(0);
   }
 }
@@ -249,7 +314,7 @@ struct UpArgs {
   int nsmooth;
 };
 
-template <typename T>
+template <int OP, typename T>
 __global__ void __launch_bounds__(THREADS) k_up(UpArgs<T> a) {
   cg::grid_group grid = cg::this_grid();
   auto sync = [&]() { grid.sync(); };
@@ -263,13 +328,13 @@ __global__ void __launch_bounds__(THREADS) k_up(UpArgs<T> a) {
     put(a.vo, L, i, j, a.v[i * q + j] + prolong(a.vc, qc, i, j));
   }
   sync();
-  smooth(a.vo, a.f, L, a.nsmooth, t0, nt, sync);
+  smooth<OP>(a.vo, a.f, L, a.nsmooth, t0, nt, sync);
 
   if (a.r) {
     for (int k = t0; k < q * q; k += nt) {
       const int i = k / q, j = k % q;
       a.r[k] = (i >= 1 && i <= n && j >= 1 && j <= n)
-                   ? resid(a.vo, a.f, L, a.alpha, a.beta, k)
+                   ? resid<OP>(a.vo, a.f, L, a.alpha, a.beta, k)
                    : T(0);
     }
   }
@@ -298,7 +363,7 @@ __host__ __device__ inline size_t core_offset(int level) {
   return off;
 }
 
-template <typename T>
+template <int OP, typename T>
 __global__ void __launch_bounds__(CORE_THREADS) k_core(CoreArgs<T> a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* base = reinterpret_cast<T*>(smem_raw);
@@ -326,20 +391,20 @@ __global__ void __launch_bounds__(CORE_THREADS) k_core(CoreArgs<T> a) {
     T* F = V + L.q * L.q;
     T* Vc = base + core_offset(l - 1);
     T* Fc = Vc + C.q * C.q;
-    smooth(V, F, L, a.nsmooth, tid, nt, sync);
+    smooth<OP>(V, F, L, a.nsmooth, tid, nt, sync);
     for (int k = tid; k < C.q * C.q; k += nt) {
       const int I = k / C.q, J = k % C.q;
       Vc[k] = T(0);
       Fc[k] = (I >= 1 && I <= C.n && J >= 1 && J <= C.n)
-                  ? restricted(V, F, L, a.alpha, a.beta, I, J)
+                  ? restricted<OP>(V, F, L, a.alpha, a.beta, I, J)
                   : T(0);
     }
     sync();
   }
   {
     T* V = base;
-    smooth(V, V + a.lev[0].q * a.lev[0].q, a.lev[0], a.nsmooth_bottom, tid,
-           nt, sync);
+    smooth<OP>(V, V + a.lev[0].q * a.lev[0].q, a.lev[0], a.nsmooth_bottom,
+               tid, nt, sync);
   }
   // ascent: prolong and correct (the ghosts follow), then smooth
   for (int l = 1; l <= top; ++l) {
@@ -352,7 +417,7 @@ __global__ void __launch_bounds__(CORE_THREADS) k_core(CoreArgs<T> a) {
       put(V, L, i, j, V[i * L.q + j] + prolong(Vc, a.lev[l - 1].q, i, j));
     }
     sync();
-    smooth(V, F, L, a.nsmooth, tid, nt, sync);
+    smooth<OP>(V, F, L, a.nsmooth, tid, nt, sync);
   }
   {
     const Lev<T>& L = a.lev[top];
@@ -363,7 +428,7 @@ __global__ void __launch_bounds__(CORE_THREADS) k_core(CoreArgs<T> a) {
       if (a.r) {
         const int i = k / L.q, j = k % L.q;
         a.r[k] = (i >= 1 && i <= L.n && j >= 1 && j <= L.n)
-                     ? resid(V, F, L, a.alpha, a.beta, k)
+                     ? resid<OP>(V, F, L, a.alpha, a.beta, k)
                      : T(0);
       }
     }
@@ -404,49 +469,53 @@ int launch_cooperative(void (*kernel)(Args), int& cached, int items,
 
 bool valid_size(int n) { return n >= 2 && (n & (n - 1)) == 0; }
 
-template <typename T>
+template <int OP, typename T>
 int down(const T* v, const T* f, T* vo, T* fc, int n, int nsmooth,
          const int* bc, const double* coef, const double* ab,
-         cudaStream_t st) {
+         const void* planes, cudaStream_t st) {
   static int cached = -1;
-  if (!valid_size(n) || n < 4 || nsmooth < 0) return (int)cudaErrorInvalidValue;
+  if (!valid_size(n) || n < 4 || nsmooth < 0 || (OP != OP_CONST && !planes))
+    return (int)cudaErrorInvalidValue;
   DownArgs<T> a;
   a.v = v;
   a.f = f;
   a.vo = vo;
   a.fc = fc;
-  a.L = make_level<T>(n, coef, bc);
+  a.L = make_level<T>(n, coef, bc, planes);
   a.alpha = (T)ab[0];
   a.beta = (T)ab[1];
   a.nsmooth = nsmooth;
-  return launch_cooperative(k_down<T>, cached, n * n, a, st);
+  return launch_cooperative(k_down<OP, T>, cached, n * n, a, st);
 }
 
-template <typename T>
+template <int OP, typename T>
 int up(const T* v, const T* f, const T* vc, T* vo, T* r, int n,
        int nsmooth, const int* bc, const double* coef, const double* ab,
-       cudaStream_t st) {
+       const void* planes, cudaStream_t st) {
   static int cached = -1;
-  if (!valid_size(n) || n < 4 || nsmooth < 0) return (int)cudaErrorInvalidValue;
+  if (!valid_size(n) || n < 4 || nsmooth < 0 || (OP != OP_CONST && !planes))
+    return (int)cudaErrorInvalidValue;
   UpArgs<T> a;
   a.v = v;
   a.f = f;
   a.vc = vc;
   a.vo = vo;
   a.r = r;
-  a.L = make_level<T>(n, coef, bc);
+  a.L = make_level<T>(n, coef, bc, planes);
   a.alpha = (T)ab[0];
   a.beta = (T)ab[1];
   a.nsmooth = nsmooth;
-  return launch_cooperative(k_up<T>, cached, (n + 2) * (n + 2), a, st);
+  return launch_cooperative(k_up<OP, T>, cached, (n + 2) * (n + 2), a, st);
 }
 
-template <typename T>
+// planes: one plane-stack pointer per level 0..top (nullptr for OP_CONST)
+template <int OP, typename T>
 int core(const T* v, const T* f, T* vo, T* r, int top, int nsmooth,
          int nsmooth_bottom, const int* bc, const double* coef,
-         const double* ab, cudaStream_t st) {
+         const double* ab, const void* const* planes, cudaStream_t st) {
   static int optin = -1;
-  if (top < 0 || top >= MAXLEV || nsmooth < 0 || nsmooth_bottom < 0)
+  if (top < 0 || top >= MAXLEV || nsmooth < 0 || nsmooth_bottom < 0 ||
+      (OP != OP_CONST && !planes))
     return (int)cudaErrorInvalidValue;
   const size_t smem = core_offset(top + 1) * sizeof(T);
   if (optin < 0) {
@@ -454,7 +523,7 @@ int core(const T* v, const T* f, T* vo, T* r, int top, int nsmooth,
     if (cudaGetDevice(&dev) != cudaSuccess ||
         cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
                                dev) != cudaSuccess ||
-        cudaFuncSetAttribute((const void*)k_core<T>,
+        cudaFuncSetAttribute((const void*)k_core<OP, T>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              optin) != cudaSuccess) {
       optin = -1;
@@ -468,13 +537,14 @@ int core(const T* v, const T* f, T* vo, T* r, int top, int nsmooth,
   a.vo = vo;
   a.r = r;
   for (int l = 0; l <= top; ++l)
-    a.lev[l] = make_level<T>(2 << l, coef + 5 * l, bc);
+    a.lev[l] = make_level<T>(2 << l, coef + 5 * l, bc,
+                             planes ? planes[l] : nullptr);
   a.alpha = (T)ab[0];
   a.beta = (T)ab[1];
   a.top = top;
   a.nsmooth = nsmooth;
   a.nsmooth_bottom = nsmooth_bottom;
-  k_core<T><<<1, CORE_THREADS, smem, st>>>(a);
+  k_core<OP, T><<<1, CORE_THREADS, smem, st>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -485,51 +555,58 @@ extern "C" size_t mg_core_smem(int top, int itemsize) {
   return core_offset(top + 1) * (size_t)itemsize;
 }
 
-extern "C" int mg_core_f32(const float* v, const float* f, float* vo,
-                           float* r, int top, int nsmooth, int nsmooth_bottom,
-                           const int* bc, const double* coef,
-                           const double* ab, void* stream) {
-  return core<float>(v, f, vo, r, top, nsmooth, nsmooth_bottom, bc, coef, ab,
-                     (cudaStream_t)stream);
-}
+// the constant-coefficient entries: mg_core_f32, mg_down_f64, ...
+#define CONST_ENTRIES(T, SFX)                                                 \
+  extern "C" int mg_core_##SFX(const T* v, const T* f, T* vo, T* r, int top,  \
+                               int nsmooth, int nsmooth_bottom,               \
+                               const int* bc, const double* coef,             \
+                               const double* ab, void* stream) {              \
+    return core<OP_CONST, T>(v, f, vo, r, top, nsmooth, nsmooth_bottom, bc,   \
+                             coef, ab, nullptr, (cudaStream_t)stream);        \
+  }                                                                           \
+  extern "C" int mg_down_##SFX(const T* v, const T* f, T* vo, T* fc, int n,   \
+                               int nsmooth, const int* bc,                    \
+                               const double* coef, const double* ab,          \
+                               void* stream) {                                \
+    return down<OP_CONST, T>(v, f, vo, fc, n, nsmooth, bc, coef, ab, nullptr, \
+                             (cudaStream_t)stream);                           \
+  }                                                                           \
+  extern "C" int mg_up_##SFX(const T* v, const T* f, const T* vc, T* vo,      \
+                             T* r, int n, int nsmooth, const int* bc,         \
+                             const double* coef, const double* ab,            \
+                             void* stream) {                                  \
+    return up<OP_CONST, T>(v, f, vc, vo, r, n, nsmooth, bc, coef, ab,         \
+                           nullptr, (cudaStream_t)stream);                    \
+  }
 
-extern "C" int mg_core_f64(const double* v, const double* f, double* vo,
-                           double* r, int top, int nsmooth,
-                           int nsmooth_bottom, const int* bc,
-                           const double* coef, const double* ab,
-                           void* stream) {
-  return core<double>(v, f, vo, r, top, nsmooth, nsmooth_bottom, bc, coef,
-                      ab, (cudaStream_t)stream);
-}
+// the coefficient entries (mg_core_vc_f32, mg_up_general_f64, ...): the
+// same arguments and the level's plane stack (per core level for the core)
+#define COEF_ENTRIES(OP, NAME, T, SFX)                                        \
+  extern "C" int mg_core_##NAME##_##SFX(                                      \
+      const T* v, const T* f, T* vo, T* r, int top, int nsmooth,              \
+      int nsmooth_bottom, const int* bc, const double* coef,                  \
+      const double* ab, const void* const* planes, void* stream) {            \
+    return core<OP, T>(v, f, vo, r, top, nsmooth, nsmooth_bottom, bc, coef,   \
+                       ab, planes, (cudaStream_t)stream);                     \
+  }                                                                           \
+  extern "C" int mg_down_##NAME##_##SFX(                                      \
+      const T* v, const T* f, T* vo, T* fc, int n, int nsmooth,               \
+      const int* bc, const double* coef, const double* ab,                    \
+      const void* planes, void* stream) {                                     \
+    return down<OP, T>(v, f, vo, fc, n, nsmooth, bc, coef, ab, planes,        \
+                       (cudaStream_t)stream);                                 \
+  }                                                                           \
+  extern "C" int mg_up_##NAME##_##SFX(                                        \
+      const T* v, const T* f, const T* vc, T* vo, T* r, int n, int nsmooth,   \
+      const int* bc, const double* coef, const double* ab,                    \
+      const void* planes, void* stream) {                                     \
+    return up<OP, T>(v, f, vc, vo, r, n, nsmooth, bc, coef, ab, planes,       \
+                     (cudaStream_t)stream);                                   \
+  }
 
-extern "C" int mg_down_f32(const float* v, const float* f, float* vo,
-                           float* fc, int n, int nsmooth, const int* bc,
-                           const double* coef, const double* ab,
-                           void* stream) {
-  return down<float>(v, f, vo, fc, n, nsmooth, bc, coef, ab,
-                     (cudaStream_t)stream);
-}
-
-extern "C" int mg_down_f64(const double* v, const double* f, double* vo,
-                           double* fc, int n, int nsmooth, const int* bc,
-                           const double* coef, const double* ab,
-                           void* stream) {
-  return down<double>(v, f, vo, fc, n, nsmooth, bc, coef, ab,
-                      (cudaStream_t)stream);
-}
-
-extern "C" int mg_up_f32(const float* v, const float* f, const float* vc,
-                         float* vo, float* r, int n, int nsmooth,
-                         const int* bc, const double* coef, const double* ab,
-                         void* stream) {
-  return up<float>(v, f, vc, vo, r, n, nsmooth, bc, coef, ab,
-                   (cudaStream_t)stream);
-}
-
-extern "C" int mg_up_f64(const double* v, const double* f, const double* vc,
-                         double* vo, double* r, int n, int nsmooth,
-                         const int* bc, const double* coef, const double* ab,
-                         void* stream) {
-  return up<double>(v, f, vc, vo, r, n, nsmooth, bc, coef, ab,
-                    (cudaStream_t)stream);
-}
+CONST_ENTRIES(float, f32)
+CONST_ENTRIES(double, f64)
+COEF_ENTRIES(OP_VC, vc, float, f32)
+COEF_ENTRIES(OP_VC, vc, double, f64)
+COEF_ENTRIES(OP_GENERAL, general, float, f32)
+COEF_ENTRIES(OP_GENERAL, general, double, f64)

@@ -1,6 +1,9 @@
 """Constant-coefficient cell-centered multigrid for (alpha - beta L) phi = f.
 
-The port of pyro2_tpu/multigrid/MG.py:
+The port of pyro2_tpu/multigrid/MG.py, and the base class of the
+coefficient forms (variable_coeff_MG.py, general_MG.py), which override
+`_smooth_once` and `_residual` and keep their per-level coefficients in
+the `aux` hooks:
 
 * the level list (2x2 ... NxN, each a Grid2d) is fixed at construction and
   cached by configuration on the host, with the red/black colour masks, so
@@ -86,7 +89,8 @@ class CellCenterMG2d:
                  xl_BC=None, xr_BC=None, yl_BC=None, yr_BC=None,
                  alpha=0.0, beta=-1.0,
                  nsmooth=10, nsmooth_bottom=50,
-                 verbose=0, true_function=None, *, device=None, dtype=None):
+                 verbose=0, aux_field=None, aux_bc=None,
+                 true_function=None, *, device=None, dtype=None):
         if nx != ny:
             raise ValueError("ERROR: multigrid currently requires nx = ny")
         if (xmax - xmin) != (ymax - ymin):
@@ -135,6 +139,12 @@ class CellCenterMG2d:
         self.v = [None] * (self.nlevels - 1) + [self._zeros(-1)]
         self.f = [None] * (self.nlevels - 1) + [self._zeros(-1)]
         self.r = [None] * (self.nlevels - 1) + [self._zeros(-1)]
+
+        # aux fields (hooks for the coefficient subclasses): one frame per
+        # level and name, and each name's BC
+        self.aux = {name: [self._zeros(lv) for lv in range(self.nlevels)]
+                    for name in aux_field or []}
+        self.aux_bc = dict(zip(aux_field or [], aux_bc or []))
 
         # solution-mesh conveniences
         soln_grid = self.grids[self.nlevels - 1]

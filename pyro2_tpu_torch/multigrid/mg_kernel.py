@@ -1,9 +1,10 @@
 """The fused multigrid V-cycle on the H100 (pyro2_tpu_torch/csrc/mg_vcycle.cu)
 and its plain PyTorch version.
 
-The counterpart of pyro2_tpu/multigrid/pallas_mg.py.  A cycle of
-CellCenterMG2d runs as `downs -> core -> ups`, the assembly of the JAX
-package's `build_fused_cycle`:
+The counterpart of pyro2_tpu/multigrid/pallas_mg.py (the constant
+operator) and pallas_gen_mg.py (the coefficient operators).  A cycle runs
+as `downs -> core -> ups`, the assembly of the JAX package's
+`build_fused_cycle` and `build_fused_cycle_general`:
 
   * `core` runs the whole sub-V-cycle of levels 0..top in one kernel (one
     thread block, the level frames in shared memory), and writes the
@@ -14,18 +15,24 @@ package's `build_fused_cycle`:
 
 One cycle launches 1 core and 1 down plus 1 up per peeled level, as the
 TPU's did.  Which levels the core holds is a property of the card's shared
-memory, not of the TPU's VMEM: `CORE_MAX` below.  The TPU's row-banded
-kernels for levels above 512^2 have no counterpart: `down` and `up` take a
-level of any size.
+memory, not of the TPU's VMEM: `CORE_MAX` below, the same for every
+operator (the coefficient planes stay in device memory).  The TPU's
+row-banded kernels for levels above 512^2 have no counterpart: `down` and
+`up` take a level of any size, periodic edges included.
 
-For a CUDA tensor each entry launches its kernel, counting the launch in
-`launches`, or raises; for a CPU tensor it runs its plain version
-(`core_plain`, `down_plain`, `up_plain`, composed from CellCenterMG2d's
-smoother and residual and mesh.patch's restrict and prolong).  There is no
-fallback from one to the other.  The kernels take plain CellCenterMG2d with
-ng=1 on a square power-of-2 grid and homogeneous standard BCs; anything
-else raises `Ineligible` (a NotImplementedError) on CUDA, naming its
-ROADMAP item.
+The operator picks the entries (`FLAVOURS`): CellCenterMG2d runs
+mg_core / mg_down / mg_up, VarCoeffCCMG2d the `_vc` entries with its
+(eta_x, eta_y) planes, GeneralMG2d the `_general` entries with its five
+planes; each entry counts its launches under its own name in `launches`.
+
+For a CUDA tensor each entry launches its kernel, counting the launch, or
+raises; for a CPU tensor it runs its plain version (`core_plain`,
+`down_plain`, `up_plain`, composed from the MG object's own smoother and
+residual and mesh.patch's restrict and prolong).  There is no fallback
+from one to the other.  The kernels take those three classes with ng=1 on
+a square power-of-2 grid and homogeneous standard BCs; anything else
+raises `Ineligible` (a NotImplementedError) on CUDA, naming its ROADMAP
+item.
 """
 
 import ctypes
@@ -36,9 +43,9 @@ import pyro2_tpu_torch.mesh.boundary as bnd
 from pyro2_tpu_torch.mesh.patch import prolong_array, restrict_array
 from pyro2_tpu_torch.util import cuda_build
 
-__all__ = ["CORE_MAX", "Ineligible", "build", "check", "core", "core_plain",
-           "cycle", "down", "down_plain", "launches", "split", "up",
-           "up_plain", "work"]
+__all__ = ["CORE_MAX", "FLAVOURS", "Ineligible", "build", "check", "core",
+           "core_plain", "cycle", "down", "down_plain", "flavour",
+           "launches", "split", "up", "up_plain", "work"]
 
 SOURCE = cuda_build.CSRC / "mg_vcycle.cu"
 
@@ -51,13 +58,18 @@ CORE_MAX = {torch.float32: 128, torch.float64: 64}
 BC_KIND = {"outflow": 0, "neumann": 0, "reflect-even": 0,
            "dirichlet": 1, "reflect-odd": 1, "periodic": 2}
 
-# floating-point operations, counted from mg_vcycle.cu (+, -, *, / each one)
-FLOPS_GS = 7          # one Gauss-Seidel cell update
-FLOPS_RESID = 13      # one residual cell
+# the operators: entry-name suffix and coefficient planes per level
+FLAVOURS = {"const": ("", 0), "vc": ("_vc", 2), "general": ("_general", 5)}
+
+# floating-point operations, counted from mg_vcycle.cu (+, -, *, / and a
+# negation each one), by operator
+FLOPS_GS = {"const": 7, "vc": 13, "general": 17}     # one GS cell update
+FLOPS_RESID = {"const": 13, "vc": 12, "general": 20}  # one residual cell
 FLOPS_RESTRICT = 4    # one coarse cell of the average of four residuals
 FLOPS_PROLONG = 9     # one fine cell of prolong and correct
 
-launches = {"mg_core": 0, "mg_down": 0, "mg_up": 0}
+launches = {f"mg_{e}{sfx}": 0 for sfx, _ in FLAVOURS.values()
+            for e in ("core", "down", "up")}
 
 _lib = None
 
@@ -79,19 +91,15 @@ def _load():
         lib = ctypes.CDLL(str(so))
         ptr, i32, dbl = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
         ints, doubles = ctypes.POINTER(i32), ctypes.POINTER(dbl)
-        for t in ("f32", "f64"):
-            fn = getattr(lib, f"mg_core_{t}")
-            fn.argtypes = [ptr] * 4 + [i32] * 3 + [ints, doubles, doubles,
-                                                   ptr]
-            fn.restype = i32
-            fn = getattr(lib, f"mg_down_{t}")
-            fn.argtypes = [ptr] * 4 + [i32] * 2 + [ints, doubles, doubles,
-                                                   ptr]
-            fn.restype = i32
-            fn = getattr(lib, f"mg_up_{t}")
-            fn.argtypes = [ptr] * 5 + [i32] * 2 + [ints, doubles, doubles,
-                                                   ptr]
-            fn.restype = i32
+        for sfx, ncoef in FLAVOURS.values():
+            # bc, coef, ab, then (coefficient entries) the planes, stream
+            tail = [ints, doubles, doubles] + ([ptr] if ncoef else []) + [ptr]
+            for t in ("f32", "f64"):
+                for kind, nptr, nint in (("core", 4, 3), ("down", 4, 2),
+                                         ("up", 5, 2)):
+                    fn = getattr(lib, f"mg_{kind}{sfx}_{t}")
+                    fn.argtypes = [ptr] * nptr + [i32] * nint + tail
+                    fn.restype = i32
         lib.mg_core_smem.argtypes = [i32, i32]
         lib.mg_core_smem.restype = ctypes.c_size_t
         _lib = lib
@@ -102,14 +110,27 @@ def _load():
 # eligibility and the level split
 # ---------------------------------------------------------------------------
 
-def check(mg):
-    """Raise Ineligible unless the kernels cover this MG configuration."""
+def flavour(mg):
+    """The operator of an MG object: "const", "vc" or "general" (exact
+    classes only: a subclass may change the operator)."""
+    from pyro2_tpu_torch.multigrid.general_MG import GeneralMG2d
     from pyro2_tpu_torch.multigrid.MG import CellCenterMG2d
+    from pyro2_tpu_torch.multigrid.variable_coeff_MG import VarCoeffCCMG2d
 
-    if type(mg) is not CellCenterMG2d:
+    kinds = {CellCenterMG2d: "const", VarCoeffCCMG2d: "vc",
+             GeneralMG2d: "general"}
+    if type(mg) not in kinds:
         raise Ineligible(
-            "coefficient multigrid waits for a later slice of the port "
-            "(ROADMAP.md A.10 and B4)")
+            f"{type(mg).__name__} is none of the operators the multigrid "
+            "kernels cover: CellCenterMG2d, VarCoeffCCMG2d and GeneralMG2d "
+            "(ROADMAP.md A.10)")
+    return kinds[type(mg)]
+
+
+def check(mg):
+    """The operator's flavour (see `flavour`); raises Ineligible unless
+    the kernels cover this MG configuration."""
+    op = flavour(mg)
     if mg.ng != 1 or mg.nx != mg.ny or mg.nx & (mg.nx - 1):
         raise Ineligible("the multigrid kernels take ng=1 on a square "
                          "power-of-2 grid")
@@ -125,6 +146,7 @@ def check(mg):
                 raise Ineligible(
                     "inhomogeneous multigrid BC values wait for a later "
                     "slice of the port (ROADMAP.md A.6)")
+    return op
 
 
 def split(mg, dtype):
@@ -144,14 +166,32 @@ def _coef(mg, level):
     return [xc, yc, mg.alpha + 2.0 * xc + 2.0 * yc, g.dx ** 2, g.dy ** 2]
 
 
-def _c_args(mg, levels):
-    """(bc kinds, per-level coefficients, alpha and beta) as C arrays."""
+def _c_args(mg, op, levels):
+    """(bc kinds, per-level coefficients, alpha and beta) as C arrays; the
+    coefficient operators' scalars are unused (zeros)."""
     bc = mg.bc_v[-1]
     kinds = [BC_KIND[getattr(bc, e)] for e in ("xlb", "xrb", "ylb", "yrb")]
-    coef = [c for lv in levels for c in _coef(mg, lv)]
-    return ((ctypes.c_int * 4)(*kinds),
+    if op == "const":
+        coef = [c for lv in levels for c in _coef(mg, lv)]
+    else:
+        coef = [0.0] * (5 * len(levels))
+    return [(ctypes.c_int * 4)(*kinds),
             (ctypes.c_double * len(coef))(*coef),
-            (ctypes.c_double * 2)(mg.alpha, mg.beta))
+            (ctypes.c_double * 2)(mg.alpha, mg.beta)]
+
+
+def _planes(mg, op, level, dtype):
+    """The data pointer of a level's coefficient plane stack, checked."""
+    stack = mg.planes[level]
+    g = mg.grids[level]
+    ncoef = FLAVOURS[op][1]
+    if (stack.device.type != "cuda" or stack.dtype != dtype or
+            tuple(stack.shape) != (ncoef, g.qx, g.qy) or
+            not stack.is_contiguous()):
+        raise ValueError(f"level {level}'s coefficient planes are not a "
+                         f"contiguous CUDA ({ncoef}, {g.qx}, {g.qy}) stack "
+                         f"of {dtype}")
+    return stack.data_ptr()
 
 
 # ---------------------------------------------------------------------------
@@ -217,50 +257,56 @@ def _run(fn, device, *args):
                            f"{err}")
 
 
+def _entry(mg, kind, level_args, dtype, *, levels):
+    """(library function, launch-count key, operator arguments) of a
+    kernel entry for this MG's operator."""
+    op = check(mg)
+    sfx = FLAVOURS[op][0]
+    t = "f32" if dtype == torch.float32 else "f64"
+    fn = getattr(_load(), f"mg_{kind}{sfx}_{t}")
+    args = _c_args(mg, op, levels)
+    if op != "const":
+        ptrs = [_planes(mg, op, lv, dtype) for lv in levels]
+        args.append((ctypes.c_void_p * len(ptrs))(*ptrs)
+                    if kind == "core" else ptrs[0])
+    return fn, f"mg_{kind}{sfx}", level_args + args
+
+
 def launch_core(mg, top, v, f, want_r):
     """The CUDA core kernel: (v, r or None) of levels 0..top."""
-    check(mg)
     _check_tensors(mg, top, v, f)
-    lib = _load()
     vo = torch.empty_like(f)
     r = torch.empty_like(f) if want_r else None
-    fn = lib.mg_core_f32 if f.dtype == torch.float32 else lib.mg_core_f64
-    bc, coef, ab = _c_args(mg, range(top + 1))
-    _run(fn, f.device, _ptr(v), _ptr(f), _ptr(vo), _ptr(r), top,
-         mg.nsmooth, mg.nsmooth_bottom, bc, coef, ab)
-    launches["mg_core"] += 1
+    fn, key, args = _entry(mg, "core", [top, mg.nsmooth, mg.nsmooth_bottom],
+                           f.dtype, levels=list(range(top + 1)))
+    _run(fn, f.device, _ptr(v), _ptr(f), _ptr(vo), _ptr(r), *args)
+    launches[key] += 1
     return vo, r
 
 
 def launch_down(mg, level, v, f):
     """The CUDA down kernel: (smoothed v, coarse f)."""
-    check(mg)
     _check_tensors(mg, level, v, f)
-    lib = _load()
     gc = mg.grids[level - 1]
     vo = torch.empty_like(f)
     fc = torch.empty((gc.qx, gc.qy), dtype=f.dtype, device=f.device)
-    fn = lib.mg_down_f32 if f.dtype == torch.float32 else lib.mg_down_f64
-    bc, coef, ab = _c_args(mg, [level])
-    _run(fn, f.device, _ptr(v), _ptr(f), _ptr(vo), _ptr(fc),
-         mg.grids[level].nx, mg.nsmooth, bc, coef, ab)
-    launches["mg_down"] += 1
+    fn, key, args = _entry(mg, "down", [mg.grids[level].nx, mg.nsmooth],
+                           f.dtype, levels=[level])
+    _run(fn, f.device, _ptr(v), _ptr(f), _ptr(vo), _ptr(fc), *args)
+    launches[key] += 1
     return vo, fc
 
 
 def launch_up(mg, level, v, f, vc, want_r):
     """The CUDA up kernel: (v, r or None)."""
-    check(mg)
     _check_tensors(mg, level, v, f)
     _check_tensors(mg, level - 1, vc)
-    lib = _load()
     vo = torch.empty_like(f)
     r = torch.empty_like(f) if want_r else None
-    fn = lib.mg_up_f32 if f.dtype == torch.float32 else lib.mg_up_f64
-    bc, coef, ab = _c_args(mg, [level])
-    _run(fn, f.device, _ptr(v), _ptr(f), _ptr(vc), _ptr(vo), _ptr(r),
-         mg.grids[level].nx, mg.nsmooth, bc, coef, ab)
-    launches["mg_up"] += 1
+    fn, key, args = _entry(mg, "up", [mg.grids[level].nx, mg.nsmooth],
+                           f.dtype, levels=[level])
+    _run(fn, f.device, _ptr(v), _ptr(f), _ptr(vc), _ptr(vo), _ptr(r), *args)
+    launches[key] += 1
     return vo, r
 
 
@@ -310,28 +356,37 @@ def cycle(mg, v, f):
 def work(entry, n, nsmooth, dtype, *, nsmooth_bottom=50, with_guess=True,
          want_r=True):
     """(bytes, operations) one call must move and do at least, for a level
-    of n^2 interior cells (the core's top level for "mg_core"): each input
-    frame read once and each output frame written once, and the operations
-    of the sweeps, residuals and transfers counted from mg_vcycle.cu."""
+    of n^2 interior cells (the core's top level for a core entry): each
+    input frame and coefficient plane read once and each output frame
+    written once, and the operations of the sweeps, residuals and
+    transfers counted from mg_vcycle.cu.  `entry` is a key of `launches`
+    (mg_down, mg_up_vc, mg_core_general, ...)."""
+    kind, _, sfx = entry.partition("_")[2].partition("_")
+    op = {"": "const", "vc": "vc", "general": "general"}.get(sfx)
+    if not entry.startswith("mg_") or op is None:
+        raise ValueError(f"unknown entry {entry}")
+    ncoef = FLAVOURS[op][1]
+    gs, res = FLOPS_GS[op], FLOPS_RESID[op]
     item = torch.empty((), dtype=dtype).element_size()
     q2 = (n + 2) ** 2
     qc2 = (n // 2 + 2) ** 2
-    if entry == "mg_down":
-        frames = (2 if with_guess else 1) * q2 + q2 + qc2
-        ops = (FLOPS_GS * nsmooth + FLOPS_RESID) * n * n + \
-            FLOPS_RESTRICT * (n // 2) ** 2
-    elif entry == "mg_up":
-        frames = 3 * q2 + qc2 + (q2 if want_r else 0)
-        ops = (FLOPS_PROLONG + FLOPS_GS * nsmooth +
-               (FLOPS_RESID if want_r else 0)) * n * n
-    elif entry == "mg_core":
+    if kind == "down":
+        frames = (2 if with_guess else 1) * q2 + q2 + qc2 + ncoef * q2
+        ops = (gs * nsmooth + res) * n * n + FLOPS_RESTRICT * (n // 2) ** 2
+    elif kind == "up":
+        frames = 3 * q2 + qc2 + (q2 if want_r else 0) + ncoef * q2
+        ops = (FLOPS_PROLONG + gs * nsmooth + (res if want_r else 0)) * n * n
+    elif kind == "core":
         frames = (2 if with_guess else 1) * q2 + q2 + (q2 if want_r else 0)
-        ops = FLOPS_GS * nsmooth_bottom * 4 + (FLOPS_RESID * n * n
-                                               if want_r else 0)
+        ops = gs * nsmooth_bottom * 4 + (res * n * n if want_r else 0)
         m = n
         while m > 2:
-            ops += (2 * FLOPS_GS * nsmooth + FLOPS_RESID + FLOPS_PROLONG) * \
-                m * m + FLOPS_RESTRICT * (m // 2) ** 2
+            ops += (2 * gs * nsmooth + res + FLOPS_PROLONG) * m * m + \
+                FLOPS_RESTRICT * (m // 2) ** 2
+            m //= 2
+        m = n
+        while m >= 2:                          # every core level's planes
+            frames += ncoef * (m + 2) ** 2
             m //= 2
     else:
         raise ValueError(f"unknown entry {entry}")

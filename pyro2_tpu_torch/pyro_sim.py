@@ -20,7 +20,8 @@ from pyro2_tpu_torch.util import msg
 from pyro2_tpu_torch.util.runparams import RuntimeParameters, _get_val
 
 valid_solvers = ["compressible", "compressible_rk", "compressible_fv4",
-                 "compressible_sdc", "diffusion", "incompressible", "swe"]
+                 "compressible_sdc", "diffusion", "incompressible", "lm_atm",
+                 "swe"]
 
 
 class Pyro:

@@ -8,7 +8,9 @@ and dtype, so both packages can be set to identical inputs.
 `carry_simulation` goes one step further and returns a live, initialized
 Simulation of the port holding that state as it stands: the state of a
 4th-order (FV2d) solver is a stack of cell averages, so `preevolve`, which
-converts centers to averages, is not run again.
+converts centers to averages, is not run again.  For lm_atm it also takes
+the base state (`base`: the rho0, p0, beta0 and beta0-edges profiles as
+arrays), which belongs to the run as much as the state does.
 """
 
 import importlib
@@ -33,11 +35,12 @@ def carry(params, state, *, device="cpu", dtype=torch.float64):
 
 
 def carry_simulation(solver_name, problem_name, params, state, *, t=0.0,
-                     n=0, extra_vars=None, device="cpu",
+                     n=0, extra_vars=None, base=None, device="cpu",
                      dtype=torch.float64):
     """An initialized Simulation of `solver_name` whose parameters are
     `params` and whose state is `state` at time t after n steps (the
-    problem's initial conditions are set and then replaced)."""
+    problem's initial conditions are set and then replaced); `base` maps
+    the names of lm_atm's base-state profiles to their arrays."""
     rp, U = carry(params, state, device=device, dtype=dtype)
     solver = importlib.import_module(f"pyro2_tpu_torch.solvers.{solver_name}")
     problem = importlib.import_module(
@@ -53,6 +56,12 @@ def carry_simulation(solver_name, problem_name, params, state, *, t=0.0,
         raise ValueError(f"state shape {tuple(U.shape)} does not fit the "
                          f"simulation's {tuple(sim.cc_data.data.shape)}")
     sim.cc_data.set_vars(U)
+    for name, profile in (base or {}).items():
+        b = sim.base[name]
+        if np.shape(profile) != b.d.shape:
+            raise ValueError(f"base state {name}: shape {np.shape(profile)} "
+                             f"does not fit {b.d.shape}")
+        b.d[:] = np.asarray(profile, dtype=np.float64)
     sim.cc_data.t = t
     sim.n = n
     return sim

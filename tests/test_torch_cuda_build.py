@@ -44,20 +44,22 @@ def test_port_sources_share_the_euler_header():
         heads = cuda_build.local_includes(cuda_build.CSRC / name)
         assert [h.name for h in heads] == ["euler_common.cuh",
                                            "grid_common.cuh"]
-    heads = cuda_build.local_includes(cuda_build.CSRC / "swe_step.cu")
-    assert [h.name for h in heads] == ["grid_common.cuh"]
+    for name in ("swe_step.cu", "lm_interface.cu"):
+        heads = cuda_build.local_includes(cuda_build.CSRC / name)
+        assert [h.name for h in heads] == ["grid_common.cuh"]
     assert cuda_build.local_includes(cuda_build.CSRC / "mg_vcycle.cu") == []
 
 
 def test_grid_header_is_in_every_stencil_build_key(tmp_path, monkeypatch):
     # a copy of the sources: editing the shared grid header renames the
-    # CTU, MOL and swe libraries, and leaves the multigrid one alone
+    # CTU, MOL, swe and lm_atm libraries, and leaves the multigrid one alone
     import shutil
     csrc = tmp_path / "csrc"
     shutil.copytree(cuda_build.CSRC, csrc)
-    names = ("ctu_step.cu", "mol_substep.cu", "swe_step.cu", "mg_vcycle.cu")
+    names = ("ctu_step.cu", "mol_substep.cu", "swe_step.cu",
+             "lm_interface.cu", "mg_vcycle.cu")
     before = [cuda_build.library_path(csrc / n) for n in names]
     grid = csrc / "grid_common.cuh"
     grid.write_text(grid.read_text() + "// edited\n")
     after = [cuda_build.library_path(csrc / n) for n in names]
-    assert [a != b for a, b in zip(after, before)] == [True] * 3 + [False]
+    assert [a != b for a, b in zip(after, before)] == [True] * 4 + [False]

@@ -81,6 +81,12 @@ def test_import_pulls_in_no_jax():
         "import pyro2_tpu_torch.solvers.swe.swe_kernel\n"
         "from pyro2_tpu_torch.solvers.swe.problems import acoustic_pulse, "
         "advect, dam, kh, logo, quad, test\n"
+        "import pyro2_tpu_torch.multigrid.edge_coeffs\n"
+        "import pyro2_tpu_torch.multigrid.variable_coeff_MG\n"
+        "import pyro2_tpu_torch.multigrid.general_MG\n"
+        "import pyro2_tpu_torch.solvers.lm_atm\n"
+        "import pyro2_tpu_torch.solvers.lm_atm.lm_kernel\n"
+        "from pyro2_tpu_torch.solvers.lm_atm.problems import bubble\n"
         "for s in ('rk', 'fv4', 'sdc'):\n"
         "    __import__('pyro2_tpu_torch.solvers.compressible_' + s + "
         "'.problems.acoustic_pulse')\n"
@@ -112,7 +118,7 @@ def test_default_device_raises_without_cuda(monkeypatch, tmp_path):
 
 @pytest.mark.parametrize("solver", ["diffusion", "incompressible",
                                     "compressible_rk", "compressible_fv4",
-                                    "compressible_sdc", "swe"])
+                                    "compressible_sdc", "swe", "lm_atm"])
 def test_multigrid_solvers_raise_without_cuda(monkeypatch, tmp_path, solver):
     from pyro2_tpu_torch import Pyro
 
@@ -122,6 +128,15 @@ def test_multigrid_solvers_raise_without_cuda(monkeypatch, tmp_path, solver):
         Pyro(solver)
     p = Pyro(solver, device="cpu")
     assert p.dtype == torch.float64
+
+
+def test_build_directory_stays_git_ignored():
+    # the libraries nvcc builds at first use are never committed
+    from pyro2_tpu_torch.util import cuda_build
+
+    lines = (ROOT / ".gitignore").read_text().split()
+    assert "pyro2_tpu_torch/_build/" in lines
+    assert cuda_build.BUILD_DIR == PORT / "_build"
 
 
 def test_chip_smoke_refuses_without_cuda(tmp_path):

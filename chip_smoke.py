@@ -14,6 +14,15 @@ Phases (any failure exits non-zero and prints no result line):
      ragged 200x136 and at 1024^2, in float64 (max |diff| <= 1e-12 max|U|)
      and float32 (<= 1e-5 max|U|), the output's ghosts equal to the
      input's;
+  3c. the CTU kernel on spherical grids (advect on r in [0.5, 1] and the
+     Sedov blast on r in [0.05, 1], theta in [pi/4, 3 pi/4], CGF, outflow)
+     the same way, and the padded entries of
+     solvers/compressible/padded_step.py against their plain steps on
+     periodic frames, one step from the same filled frame after 3 kernel
+     steps: ctu_periodic on advect and ctu_padin on kh at 200x136 and
+     1024^2, ctu_ensemble on 3 x 200x136 and 8 x 256^2 acoustic_pulse
+     members, each member also equal to its one-member kernel step bit for
+     bit;
   3a. the swe kernel against its plain step the same way, for five
      configurations (quad Roe limiter 2 outflow, kh HLLC periodic, dam Roe
      limiter 1 with reflecting y walls, advect limiter 0 with grav 0.001,
@@ -61,15 +70,24 @@ Phases (any failure exits non-zero and prints no result line):
      no lm or coefficient-multigrid launch on an earlier path), and one
      GeneralMG2d solve at 1024^2 (multigrid/examples'
      mg_test_general_dirichlet operator, checked against its exact
-     solution);
+     solution); then compressible spherical advect 1024^2 for 100 steps
+     (one CTU launch a step), and the padded entries at full width, fill +
+     step as the JAX package's benchmark chains them: ctu_periodic on
+     periodic advect 1024^2 for 100 steps, ctu_padin on kh 1024^2 for 20
+     steps (the Simulation's fill), ctu_ensemble on 8 acoustic_pulse 256^2
+     members for 20 steps through parallel.ensemble_step, one launch of
+     that entry a step and no other kernel's; no earlier path launches a
+     padded entry;
   6. CUDA-event timing of each kernel and its plain version at the main
      paths' shapes (quad 1024^2; the 1024^2 solves' levels, constant, vc
      and general; the rk quad and fv4 acoustic_pulse 1024^2 increments;
-     the swe quad 1024^2 step; the lm_atm stages on the 1024^2 bubble),
+     the swe quad 1024^2 step; the lm_atm stages on the 1024^2 bubble;
+     the spherical CTU step and each padded entry at its path's shape),
      beside each kernel's bound on this card, and the host time of
      building lm_atm's VarCoeffCCMG2d at 1024^2;
   7. torch.profiler breakdowns of 20 quad steps, 5 shear steps, 5 fv4
-     acoustic_pulse steps, 5 swe quad steps and 5 lm_atm bubble steps:
+     acoustic_pulse steps, 5 swe quad steps, 5 lm_atm bubble steps and 20
+     spherical advect steps:
      device time by kernel and the device's busy share of the wall time.
 
 The line before the last is a JSON object describing every kernel; the last
@@ -106,6 +124,33 @@ CONFIGS = (
         "sponge.sponge_rho_begin": 0.6, "sponge.sponge_rho_full": 0.3},
      ["passive"]),
 )
+
+
+# the CTU kernel on spherical grids (theta in [pi/4, 3 pi/4], CGF, outflow
+# edges): advect on r in [0.5, 1] and the Sedov blast on r in [0.05, 1].
+# Here and on the padded entries' frames below every step takes the CFL dt:
+# the advect and acoustic_pulse inputs fix a dt for 64^2 and 128^2 that is
+# far past the CFL limit at 1024^2
+SPHERICAL = {"mesh.grid_type": "SphericalPolar", "driver.fix_dt": -1.0,
+             "mesh.ymin": 0.7853981633974483, "mesh.ymax": 2.356194490192345,
+             "mesh.xlboundary": "outflow", "mesh.xrboundary": "outflow",
+             "mesh.ylboundary": "outflow", "mesh.yrboundary": "outflow",
+             "compressible.riemann": "CGF"}
+SPH_ADVECT = {**SPHERICAL, "mesh.xmin": 0.5, "mesh.xmax": 1.0}
+SPH_CONFIGS = (
+    ("sph_advect_cgf", "advect", SPH_ADVECT, None),
+    ("sph_sedov_cgf", "sedov", {**SPHERICAL, "mesh.xmin": 0.05,
+                                "mesh.xmax": 1.0, "sedov.r_init": 0.1},
+     None),
+)
+
+# the padded-frame entries (solvers/compressible/padded_step.py) run on
+# doubly periodic frames without a floor, as the JAX package's benchmark
+# sets them up (bench.py)
+PERIODIC = {"mesh.xlboundary": "periodic", "mesh.xrboundary": "periodic",
+            "mesh.ylboundary": "periodic", "mesh.yrboundary": "periodic",
+            "compressible.small_dens": -1.e30, "driver.fix_dt": -1.0}
+PADDED_KERNELS = ("ctu_periodic", "ctu_padin", "ctu_ensemble")
 
 
 # one MOL stage increment each: (name, solver, problem, inputs, extras).
@@ -300,6 +345,7 @@ def mol_main_path(solver, problem, nx, ny, steps, kernel, per_step,
     ctu, mg, _ = read_counts()
     no_swe_launches(solver)
     no_lm_launches(solver)
+    no_padded_launches(solver)
     mol = dict(mol_kernel.launches)
     expect = dict.fromkeys(MOL_KERNELS, 0)
     expect[kernel] = per_step * steps
@@ -325,7 +371,7 @@ def mol_main_path(solver, problem, nx, ny, steps, kernel, per_step,
     return p, mol[kernel]
 
 
-def main_path(problem, nx, ny, steps):
+def main_path(problem, nx, ny, steps, inputs=None):
     """Pyro -> run_sim on CUDA float32; returns (pyro, seconds, launches)."""
     import torch
 
@@ -335,7 +381,7 @@ def main_path(problem, nx, ny, steps):
     p = Pyro("compressible")            # default device: CUDA, float32
     p.initialize_problem(problem, inputs_dict={
         "mesh.nx": nx, "mesh.ny": ny, "driver.max_steps": steps,
-        "driver.tmax": 1.0e30})
+        "driver.tmax": 1.0e30, **(inputs or {})})
     assert p.sim.cc_data.data.is_cuda
     assert p.sim.cc_data.data.dtype == torch.float32
     torch.cuda.synchronize()
@@ -350,6 +396,7 @@ def main_path(problem, nx, ny, steps):
     no_mol_launches(problem)
     no_swe_launches(problem)
     no_lm_launches(problem)
+    no_padded_launches(problem)
 
     sim = p.sim
     g = sim.cc_data.grid
@@ -362,7 +409,8 @@ def main_path(problem, nx, ny, steps):
         if not bool(torch.isfinite(f).all()) or float(f.min()) <= 0.0:
             raise AssertionError(f"{problem}: {name} not finite and positive")
     zps = nx * ny * steps / seconds
-    log(f"  {problem} {nx}x{ny} f32: {steps} steps in {seconds:.3f} s, "
+    grid = "spherical " if getattr(g, "coord_type", 0) else ""
+    log(f"  {grid}{problem} {nx}x{ny} f32: {steps} steps in {seconds:.3f} s, "
         f"{1e3 * seconds / steps:.3f} ms/step, {zps:.4e} zone-updates/s, "
         f"kernel launches {n_launch}, t = {sim.cc_data.t:.6g}, "
         f"min rho {float(dens.min()):.6g}, min p {float(pres.min()):.6g}")
@@ -378,10 +426,12 @@ def reset_counts():
     from pyro2_tpu_torch.solvers.lm_atm import lm_kernel
     from pyro2_tpu_torch.solvers.swe import swe_kernel
 
+    from pyro2_tpu_torch.solvers.compressible import padded_step
+
     ctu_kernel.launches = 0
     swe_kernel.launches = 0
     for counts in (mg_kernel.launches, mol_kernel.launches,
-                   lm_kernel.launches, MG.stats):
+                   lm_kernel.launches, padded_step.launches, MG.stats):
         for key in counts:
             counts[key] = 0
 
@@ -408,6 +458,14 @@ def no_lm_launches(what):
     if any(lm_kernel.launches.values()):
         raise AssertionError(f"{what}: the lm_atm kernels launched "
                              f"{lm_kernel.launches}")
+
+
+def no_padded_launches(what):
+    from pyro2_tpu_torch.solvers.compressible import padded_step
+
+    if any(padded_step.launches.values()):
+        raise AssertionError(f"{what}: the padded CTU entries launched "
+                             f"{padded_step.launches}")
 
 
 def no_swe_launches(what):
@@ -442,6 +500,7 @@ def swe_main_path(problem, nx, ny, steps, inputs):
     seconds = time.perf_counter() - t0
     ctu, mg, _ = read_counts()
     no_lm_launches(f"swe {problem}")
+    no_padded_launches(f"swe {problem}")
     n_swe = swe_kernel.launches
     if (sim.n != steps or n_swe != steps or ctu != 0 or any(mg.values())
             or any(mol_kernel.launches.values())):
@@ -463,6 +522,133 @@ def swe_main_path(problem, nx, ny, steps, inputs):
         f"t = {sim.cc_data.t:.6g}, min h {float(h.min()):.6g}, max h "
         f"{float(h.max()):.6g}")
     return p, n_swe
+
+
+def padded_entry(entry, problem, nx, ny, dtype, n_ens=None):
+    """A padded entry for Pyro(problem)'s periodic state on the card:
+    (sim, step, fill, frame of the initial state, the CFL dt).  Row 3
+    (ctu_padin) is filled by the Simulation's own ghost fill, as its JAX
+    counterpart is; the ensemble's members are the state rolled by 7 m
+    cells in y."""
+    import torch
+
+    from pyro2_tpu_torch.solvers.compressible import padded_step
+
+    sim = make_sim(problem, {"mesh.nx": nx, "mesh.ny": ny, **PERIODIC},
+                   dtype)
+    sim.cc_data.fill_BC_all()
+    sim.compute_timestep()
+    g = sim.cc_data.grid
+    args = (g.nx, g.ny, g.dx, g.dy, sim.rp.get_param("eos.gamma"),
+            sim.rp.params, sim.ivars)
+    U0 = sim.cc_data.data
+    if entry == "ctu_ensemble":
+        to_p, _, fill, step = padded_step.make_ctu_ensemble_step(n_ens,
+                                                                 *args)
+        P = to_p(torch.stack([torch.roll(U0, 7 * m, -1)
+                              for m in range(n_ens)]))
+    elif entry == "ctu_periodic":
+        to_p, _, fill, step = padded_step.make_ctu_step_padded(*args)
+        P = to_p(U0)
+    else:
+        step = padded_step.make_ctu_step(*args)
+        fill = sim.cc_data.fill_bc_stack
+        P = U0.clone()
+    return sim, step, fill, P, sim.dt
+
+
+def padded_compare(entry, problem, nx, ny, dtype, tol, n_ens=None):
+    """A padded entry's kernel vs its plain step, one step from the same
+    filled frame after 3 kernel steps, ghosts equal to the input's; a batch
+    member also equals its one-member (ctu_periodic) kernel step bit for
+    bit.  Returns max |diff|."""
+    import torch
+
+    from pyro2_tpu_torch.solvers.compressible import padded_step
+
+    sim, step, fill, P, dt = padded_entry(entry, problem, nx, ny, dtype,
+                                          n_ens)
+    for _ in range(3):
+        P = step.launch(fill(P), dt)
+    P = fill(P)
+    got = step.launch(P, dt)
+    ref = step.plain(P, dt)
+    torch.cuda.synchronize()
+    g = sim.cc_data.grid
+    a, b = interior(ref, g), interior(got, g)
+    err = float((a - b).abs().max())
+    scale = float(a.abs().max())
+    ghost = torch.ones(P.shape[-2:], dtype=torch.bool, device=P.device)
+    ghost[g.ilo:g.ihi + 1, g.jlo:g.jhi + 1] = False
+    ghosts = torch.equal(got[..., ghost], P[..., ghost])
+    alone = True
+    if n_ens:
+        _, _, _, one = padded_step.make_ctu_step_padded(
+            g.nx, g.ny, g.dx, g.dy, sim.rp.get_param("eos.gamma"),
+            sim.rp.params, sim.ivars)
+        alone = all(torch.equal(got[m], one.launch(P[m].contiguous(), dt))
+                    for m in range(n_ens))
+    ok = bool(torch.isfinite(b).all()) and err <= tol * scale and ghosts \
+        and alone
+    what = f"{n_ens} x {nx}x{ny}" if n_ens else f"{nx}x{ny}"
+    log(f"  {'ok ' if ok else 'BAD'} {entry:12s} {problem:14s} {what:14s} "
+        f"{str(dtype)[6:]:8s} max|diff| = {err:.3e}  (tol {tol:g} x max|U| "
+        f"= {tol * scale:.3e}), ghosts kept: {ghosts}"
+        + (f", each member = its own step: {alone}" if n_ens else ""))
+    if not ok:
+        raise AssertionError(f"{entry} disagrees with its plain step")
+    return err
+
+
+def padded_path(entry, problem, n, steps, n_ens=None):
+    """A padded entry on CUDA float32 at full width: `steps` steps of fill
+    + step from Pyro(problem)'s initial state at its CFL dt, as the JAX
+    package's benchmark chains them (bench.py) -- the ensemble through
+    parallel.ensemble_step --, every count reset just before and read just
+    after.  Returns (sim, step, frame, dt, launches)."""
+    import torch
+
+    from pyro2_tpu_torch.multigrid import mg_kernel
+    from pyro2_tpu_torch.parallel import ensemble_step
+    from pyro2_tpu_torch.solvers.compressible import ctu_kernel, padded_step
+    from pyro2_tpu_torch.solvers.compressible_fv4 import mol_kernel
+    from pyro2_tpu_torch.solvers.swe import swe_kernel
+
+    sim, step, fill, P, dt = padded_entry(entry, problem, n, n,
+                                          torch.float32, n_ens)
+    advance = ensemble_step(step, fill_bc=fill) if n_ens else \
+        (lambda P, dt: step(fill(P), dt))
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        P = advance(P, dt)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(padded_step.launches)
+    expect = dict.fromkeys(PADDED_KERNELS, 0)
+    expect[entry] = steps
+    no_lm_launches(entry)
+    if (launches != expect or ctu_kernel.launches or swe_kernel.launches
+            or any(mg_kernel.launches.values())
+            or any(mol_kernel.launches.values())):
+        raise AssertionError(
+            f"{entry}: launches {launches}, CTU {ctu_kernel.launches}; "
+            f"expected {expect} and no other launch")
+    g = sim.cc_data.grid
+    U = interior(P, g)
+    dens = U[..., sim.ivars.idens, :, :]
+    if not bool(torch.isfinite(U).all()) or float(dens.min()) <= 0.0:
+        raise AssertionError(f"{entry}: the state is not finite or the "
+                             "density not positive")
+    zones = n * n * (n_ens or 1)
+    what = f"{n_ens} x {problem} {n}^2" if n_ens else f"{problem} {n}^2"
+    log(f"  {entry} ({what} f32, periodic): {steps} steps of fill + step in "
+        f"{seconds:.3f} s, {1e3 * seconds / steps:.3f} ms/step, "
+        f"{zones * steps / seconds:.4e} zone-updates/s, {entry} launches "
+        f"{launches[entry]} (1/step), no other; min rho "
+        f"{float(dens.min()):.6g}")
+    return sim, step, P, dt, launches[entry]
 
 
 def make_mg(n, bc, alpha, beta, dtype):
@@ -677,6 +863,7 @@ def mg_main_path(solver, problem, n, steps):
     no_mol_launches(solver)
     no_swe_launches(solver)
     no_lm_launches(solver)
+    no_padded_launches(solver)
 
     peeled = len(mg_kernel.split(make_mg(n, "periodic", 0.0, -1.0,
                                          torch.float32), torch.float32)[1])
@@ -930,6 +1117,7 @@ def lm_main_path(n, steps):
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     ctu, mg, stats = read_counts()
+    no_padded_launches("lm_atm")
     lm = dict(lm_kernel.launches)
     peeled = len(mg_kernel.split(make_mg(n, "periodic", 0.0, -1.0,
                                          torch.float32), torch.float32)[1])
@@ -1007,6 +1195,7 @@ def general_path(n):
                    "mg_down_general": cycles * peeled,
                    "mg_up_general": cycles * peeled})
     no_lm_launches("general multigrid")
+    no_padded_launches("general multigrid")
     # the truncation error of this problem falls as dx^2 (the JAX package's
     # example); at 1024^2 it is far below this bound
     if launches != expect or cycles == 0 or ctu or not err < 1e-3:
@@ -1082,11 +1271,12 @@ def profile_steps(p, steps, label):
         dev_us = getattr(e, "device_time_total",
                          getattr(e, "cuda_time_total", 0.0))
         if e.device_type == torch.autograd.DeviceType.CUDA and dev_us > 0:
-            m = re.search(r"(k_[a-z0-9_]+)<(?:(\d), )?(float|double)>",
-                          e.key)
+            m = re.search(r"(k_[a-z0-9_]+)<(?:(\d), )?(float|double)"
+                          r"(?:, (true|false))?>", e.key)
             if m:
                 name = f"{kernel_source(m.group(1))} " \
-                    f"{m.group(1)}<{OPS.get(m.group(2), '')}{m.group(3)}>"
+                    f"{m.group(1)}<{OPS.get(m.group(2), '')}{m.group(3)}" \
+                    f"{GEOMETRY.get(m.group(4), '')}>"
             else:
                 name = e.key[:72]
             rows.append((dev_us, e.count, name))
@@ -1113,11 +1303,11 @@ def ptxas_summary(text):
         if m:
             if name:
                 out.append(f"{name}: {', '.join(info)}")
-            k = re.search(r"(k_[a-z0-9_]+)I(?:Li(\d)E)?([fd])E",
+            k = re.search(r"(k_[a-z0-9_]+)I(?:Li(\d)E)?([fd])(?:Lb(\d)E)?E",
                           m.group(1))
             kind = "float" if k and k.group(3) == "f" else "double"
-            name = f"{k.group(1)}<{OPS.get(k.group(2), '')}{kind}>" if k \
-                else m.group(1)[:60]
+            name = f"{k.group(1)}<{OPS.get(k.group(2), '')}{kind}" \
+                f"{GEOMETRY.get(k.group(4), '')}>" if k else m.group(1)[:60]
             info = []
             continue
         for pat in (r"Used (\d+ registers)", r"(\d+ bytes smem)",
@@ -1137,6 +1327,8 @@ def ptxas_summary(text):
 
 # the operator template argument of the multigrid kernels (mg_vcycle.cu)
 OPS = {"0": "const, ", "1": "vc, ", "2": "general, "}
+# the geometry template argument of the CTU stages (ctu_step.cu)
+GEOMETRY = {"true": ", spherical", "1": ", spherical"}
 
 
 def kernel_source(kernel):
@@ -1220,6 +1412,33 @@ def main():
                     ctu_err = err
             torch.cuda.empty_cache()
 
+    # 3c. the CTU kernel on spherical grids, and the padded entries, vs
+    # their plain steps on the card
+    log(f"[ctu_step spherical, ctu_periodic, ctu_padin, ctu_ensemble vs "
+        f"plain steps on the card; {smi}]")
+    sph_err, padded_err = None, {}
+    for dtype, tol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
+        for nx, ny in ((200, 136), (1024, 1024)):
+            for name, problem, inputs, extra in SPH_CONFIGS:
+                err = compare(name, problem, inputs, extra, nx, ny, dtype,
+                              tol)
+                if (name == "sph_advect_cgf" and nx == 1024 and
+                        dtype == torch.float32):
+                    sph_err = err
+            for entry, problem in (("ctu_periodic", "advect"),
+                                   ("ctu_padin", "kh")):
+                err = padded_compare(entry, problem, nx, ny, dtype, tol)
+                if nx == 1024 and dtype == torch.float32:
+                    padded_err[entry] = err
+            torch.cuda.empty_cache()
+        padded_compare("ctu_ensemble", "acoustic_pulse", 200, 136, dtype,
+                       tol, n_ens=3)
+        err = padded_compare("ctu_ensemble", "acoustic_pulse", 256, 256,
+                             dtype, tol, n_ens=8)
+        if dtype == torch.float32:
+            padded_err["ctu_ensemble"] = err
+        torch.cuda.empty_cache()
+
     # 3a. the swe kernel vs its plain step on the card
     log("[swe_step vs plain step on the card]")
     swe_err = None
@@ -1300,6 +1519,12 @@ def main():
                                 {"swe.riemann": "HLLC"})
     lm, lm_launches, cycles_per_solve = lm_main_path(1024, 10)
     general_launches = general_path(1024)
+    sph, _, sph_launches = main_path("advect", 1024, 1024, 100, SPH_ADVECT)
+    padded = {
+        "ctu_periodic": padded_path("ctu_periodic", "advect", 1024, 100),
+        "ctu_padin": padded_path("ctu_padin", "kh", 1024, 20),
+        "ctu_ensemble": padded_path("ctu_ensemble", "acoustic_pulse", 256,
+                                    20, n_ens=8)}
 
     # 6. timing at the main paths' shapes
     log("[timing: quad 1024^2 float32, CUDA events]")
@@ -1375,12 +1600,36 @@ def main():
     lm_times = lm_timing(bubble_calls, bubble_g, bw, fp32)
     vc_build_ms(lm.sim)
 
+    log(f"[timing: the spherical CTU step and the padded entries at the "
+        f"new paths' shapes, float32, CUDA events; {smi}]")
+    ssim = sph.sim
+    ssim.cc_data.fill_BC_all()
+    ssim.compute_timestep()
+    sU, st, sdt = ssim.cc_data.data, ssim.cc_data.t, ssim.dt
+    sstep = ssim._step
+    g = ssim.cc_data.grid
+    sph_times = time_pair(
+        f"ctu_step spherical (advect {g.nx}x{g.ny}, CGF)",
+        lambda: sstep.launch(sU, st, sdt), lambda: sstep.plain(sU, st, sdt),
+        ctu_kernel.work(g.nx, g.ny, ssim.ivars.nvar, torch.float32,
+                        with_sources=True, spherical=True), bw, fp32)
+    padded_times = {}
+    for entry, (psim, pstep, P, pdt, _) in padded.items():
+        g = psim.cc_data.grid
+        padded_times[entry] = time_pair(
+            f"{entry} ({psim.problem_name} "
+            f"{pstep.n_members} x {g.nx}x{g.ny})",
+            lambda: pstep.launch(P, pdt), lambda: pstep.plain(P, pdt),
+            ctu_kernel.work(g.nx, g.ny, psim.ivars.nvar, torch.float32,
+                            n_members=pstep.n_members), bw, fp32)
+
     # 7. where a main-path step's time goes
     profile_steps(p, 20, "quad 1024^2 float32")
     profile_steps(shear, 5, "incompressible shear 1024^2 float32")
     profile_steps(fv4, 5, "compressible_fv4 acoustic_pulse 1024^2 float32")
     profile_steps(swe_quad, 5, "swe quad 1024^2 float32")
     profile_steps(lm, 5, "lm_atm bubble 1024^2 float32")
+    profile_steps(sph, 20, "spherical advect 1024^2 float32")
 
     kernels = [{
         "name": "ctu_step",
@@ -1468,6 +1717,37 @@ def main():
             "replaces": f"pyro2_tpu/solvers/lm_atm/pallas_interface.py:{line}",
             "launches": lm_launches[name],
             "max_abs_err": lm_err[name],
+            "ms": ms,
+            "plain_ms": p_ms,
+            "bound_ms": b_ms,
+            "bound_by": b_by,
+            "library_ms": None,
+        })
+    ms, p_ms, b_ms, b_by = sph_times
+    kernels.append({
+        "name": "ctu_step_spherical",
+        "route": "cuda",
+        "source": "pyro2_tpu_torch/csrc/ctu_step.cu",
+        "replaces": "pyro2_tpu/solvers/compressible/pallas_step.py:603",
+        "launches": sph_launches,
+        "max_abs_err": sph_err,
+        "ms": ms,
+        "plain_ms": p_ms,
+        "bound_ms": b_ms,
+        "bound_by": b_by,
+        "library_ms": None,
+    })
+    for name, line in (("ctu_periodic", 375), ("ctu_padin", 281),
+                       ("ctu_ensemble", 478)):
+        ms, p_ms, b_ms, b_by = padded_times[name]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "pyro2_tpu_torch/csrc/ctu_step.cu",
+            "replaces":
+                f"pyro2_tpu/solvers/compressible/pallas_step.py:{line}",
+            "launches": padded[name][4],
+            "max_abs_err": padded_err[name],
             "ms": ms,
             "plain_ms": p_ms,
             "bound_ms": b_ms,

@@ -24,6 +24,11 @@ struct Params {
   int limiter;  // 0 none, 1 2nd-order MC, otherwise 4th-order MC
   int flatten, with_sources, do_sponge, has_floor;
   int solid_xl, solid_xr, solid_yl, solid_yr;
+  int spherical;  // SphericalPolar geometry (the CTU step only)
+  // a batch of independent states (the CTU step's ensemble entry): member
+  // blockIdx.z starts mstride elements into the state stacks and sstride
+  // elements into the scratch; both 0 for a single state
+  size_t mstride, sstride;
   double dx, dy, dt, gamma, z0, z1, delta, cvisc, floor, grav;
   double rho_begin, rho_full, tau;
   // method-of-lines constants, rounded on the host as the plain versions'
@@ -86,10 +91,13 @@ __device__ void cons_flux(const Params& p, int idir, const T* U, T* F) {
   F[p.idens] = rho * vel;
   F[p.ixmom] = U[p.ixmom] * vel;
   F[p.iymom] = U[p.iymom] * vel;
-  if (idir == 1)
-    F[p.ixmom] = F[p.ixmom] + pr;
-  else
-    F[p.iymom] = F[p.iymom] + pr;
+  // pressure joins the normal-momentum flux only in Cartesian geometry
+  if (!p.spherical) {
+    if (idir == 1)
+      F[p.ixmom] = F[p.ixmom] + pr;
+    else
+      F[p.iymom] = F[p.iymom] + pr;
+  }
   F[p.iener] = (U[p.iener] + pr) * vel;
   for (int n = 4; n < p.nvar; ++n) F[n] = U[n] * vel;
 }
@@ -288,10 +296,11 @@ __device__ CGFState<T> cgf_core(const Params& p, const Side<T>& L,
   return s;
 }
 
-// CGF on conserved states: the flux of the interface state
+// CGF on conserved states: the flux of the interface state, which is
+// also handed out through Us_out when that is not null
 template <typename T>
 __device__ void cgf(const Params& p, int idir, const T* Ul, const T* Ur,
-                    bool solid, T* F) {
+                    bool solid, T* F, T* Us_out) {
   const CGFState<T> s =
       cgf_core(p, decompose(p, idir, Ul), decompose(p, idir, Ur), solid);
   const T rho_s = s.rho, un_s = s.un, ut_s = s.ut, ustar = s.ustar;
@@ -312,6 +321,8 @@ __device__ void cgf(const Params& p, int idir, const T* Ul, const T* Ur,
     Us[n] = xn * rho_s;
   }
   cons_flux(p, idir, Us, F);
+  if (Us_out)
+    for (int n = 0; n < p.nvar; ++n) Us_out[n] = Us[n];
 }
 
 // CGF on primitive states (riemann_prim): the primitive interface state,
@@ -351,12 +362,14 @@ __device__ __forceinline__ bool solid_face(const Params& p, int idir, int i,
   return (j == jlo(p) && p.solid_yl) || (j == jhi(p) + 1 && p.solid_yr);
 }
 
+// the flux F through interface (i, j); CGF also hands its interface state
+// out through Us when that is not null (HLLC has none)
 template <typename T>
 __device__ __forceinline__ void riemann(const Params& p, int idir,
                                         const T* Ul, const T* Ur, int i,
-                                        int j, T* F) {
+                                        int j, T* F, T* Us = nullptr) {
   if (p.riemann == 2)
-    cgf(p, idir, Ul, Ur, solid_face(p, idir, i, j), F);
+    cgf(p, idir, Ul, Ur, solid_face(p, idir, i, j), F, Us);
   else
     hllc(p, idir, Ul, Ur, F);  // HLLC ignores solid walls, as in JAX
 }
@@ -392,6 +405,8 @@ __device__ __forceinline__ void cons_to_prim(const Params& p, const T* u,
 template <typename T>
 __global__ void k_prim(const T* __restrict__ U, T* __restrict__ Q, Params p) {
   CELL_INDEX
+  U += blockIdx.z * p.mstride;
+  Q += blockIdx.z * p.sstride;
   T u[MAXVAR], q[MAXVAR];
   for (int n = 0; n < p.nvar; ++n) u[n] = ldU(U, p, n, i, j);
   cons_to_prim(p, u, q);
@@ -403,6 +418,8 @@ template <typename T>
 __global__ void k_flatten(const T* __restrict__ Q, T* __restrict__ XI,
                           Params p) {
   CELL_INDEX
+  Q += blockIdx.z * p.sstride;
+  XI += blockIdx.z * p.sstride;
   const bool w2 = inwin(p, i, j, 2, 2, 2, 2);
   for (int d = 0; d < 2; ++d) {
     T xi = T(1);
@@ -470,7 +487,8 @@ __device__ __forceinline__ T flat_xi(const Params& p, const T* Q, const T* XI,
 }
 
 // the parameter block from the wrappers' int and double arrays (the order
-// of CTUStep and MOLSubstep in Python)
+// of CTUStep and MOLSubstep in Python; the CTU step's ints end with the
+// spherical flag)
 inline Params load_params(const int* ip, const double* dp, bool mol) {
   Params p = {};
   p.nvar = ip[0];
@@ -504,6 +522,7 @@ inline Params load_params(const int* ip, const double* dp, bool mol) {
   p.rho_begin = dp[10];
   p.rho_full = dp[11];
   p.tau = dp[12];
+  if (!mol) p.spherical = ip[18];
   if (mol) {
     p.dx2 = dp[13];
     p.dy2 = dp[14];

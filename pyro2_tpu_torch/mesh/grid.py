@@ -85,6 +85,21 @@ class Grid2d:
         shape = (self.qx, self.qy) if nvar == 1 else (nvar, self.qx, self.qy)
         return torch.zeros(shape, dtype=dtype, device=device)
 
+    def tensor(self, name, like):
+        """The host array `name` (Lx, Ly, Ax, Ay, V, dlogAx, x2d, ...) as
+        a new tensor of `like`'s dtype on its device.  The array is copied
+        to a device once per dtype and device (a copy from pageable host
+        memory stalls the host until the device has caught up); each call
+        returns a clone of that copy, so a caller may write into it."""
+        import torch
+
+        key = (name, like.dtype, like.device)
+        cache = self.__dict__.setdefault("_tensors", {})
+        if key not in cache:
+            cache[key] = torch.as_tensor(getattr(self, name),
+                                         dtype=like.dtype, device=like.device)
+        return cache[key].clone()
+
     # -- refinement relatives ----------------------------------------------
     def coarse_like(self, N):
         """A grid coarsened by an integer factor N, same extents/ghosts."""

@@ -25,6 +25,7 @@ Nothing here writes a tensor the caller handed in.
 import functools
 import math
 
+import numpy as np
 import torch
 
 import pyro2_tpu_torch.mesh.boundary as bnd
@@ -44,22 +45,37 @@ stats = {"solves": 0, "cycles": 0}
 
 @functools.lru_cache(maxsize=32)
 def _level_grids(nlevels, ng, xmin, xmax, ymin, ymax):
-    """The Grid2d of each level, 2x2 first."""
-    return tuple(Grid2d(2 ** (i + 1), 2 ** (i + 1), ng=ng, xmin=xmin,
-                        xmax=xmax, ymin=ymin, ymax=ymax)
-                 for i in range(nlevels))
+    """The Grid2d of each level, 2x2 first.  Every MG of this
+    configuration in the process shares them, so their coordinate arrays
+    are made read-only: an in-place write raises instead of corrupting
+    the later solves."""
+    grids = tuple(Grid2d(2 ** (i + 1), 2 ** (i + 1), ng=ng, xmin=xmin,
+                         xmax=xmax, ymin=ymin, ymax=ymax)
+                  for i in range(nlevels))
+    for g in grids:
+        for a in vars(g).values():
+            if isinstance(a, np.ndarray):
+                a.setflags(write=False)
+    return grids
 
 
 @functools.lru_cache(maxsize=128)
-def _color_masks(g, device):
-    """(red, black) masks of a level: (i-ilo)+(j-jlo) even / odd over the
-    interior only, so ghost cells are never selected."""
+def _shared_color_masks(g, device):
     ii = torch.arange(g.qx, device=device)[:, None] - g.ilo
     jj = torch.arange(g.qy, device=device)[None, :] - g.jlo
     interior = (ii >= 0) & (ii < g.nx) & (jj >= 0) & (jj < g.ny)
     red = ((ii + jj) % 2 == 0) & interior
     black = ((ii + jj) % 2 == 1) & interior
     return red, black
+
+
+def _color_masks(g, device):
+    """(red, black) masks of a level: (i-ilo)+(j-jlo) even / odd over the
+    interior only, so ghost cells are never selected.  Copies of the
+    cached pair: a caller may write into them without touching any other
+    MG's masks."""
+    red, black = _shared_color_masks(g, device)
+    return red.clone(), black.clone()
 
 
 class _MGDataShim:

@@ -1,14 +1,14 @@
 """Characteristic tracing and artificial viscosity on tensors.
 
-The port of pyro2_tpu/solvers/compressible/interface.py (Cartesian
-geometry; the spherical d(log A) source and vertex divergence wait for a
-later slice).  The per-cell 4x4 eigen-system of `states` is unrolled
+The port of pyro2_tpu/solvers/compressible/interface.py, Cartesian and
+spherical geometry.  The per-cell 4x4 eigen-system of `states` is unrolled
 analytically into closed-form tensor expressions.
 
 Variable layout: stacks are (nvar, qx, qy) with primitive ordering
 (rho, u, v, p[, X...]).
 """
 
+import numpy as np
 import torch
 
 from pyro2_tpu_torch.mesh.indexer import ai, embed
@@ -25,13 +25,11 @@ def states(idir, g, dxa, dloga, dt, ivars, gamma, qv, dqv):
 
     Characteristic tracing (Colella 1990): reference states limited by the
     fastest wave toward each face, plus the sum of carried characteristic
-    corrections sum_m beta_m r_m.  dxa is the (scalar) cell width along
-    idir; dloga must be 0 (Cartesian).  Returns (q_l, q_r) full stacks;
-    q_l[i] is the left state at the i-1/2 interface."""
-    if dloga != 0.0:
-        raise NotImplementedError(
-            "spherical geometry waits for a later slice (ROADMAP.md, "
-            "queue B item 1)")
+    corrections sum_m beta_m r_m.  dxa is the cell width along idir, a
+    scalar (Cartesian) or a (qx, qy) tensor (Lx or Ly); dloga is the
+    geometric source, a scalar 0 (Cartesian: skipped) or a (qx, qy) tensor
+    (dlogAx or dlogAy), which only rho and p pick up.  Returns (q_l, q_r)
+    full stacks; q_l[i] is the left state at the i-1/2 interface."""
     irho, iu, iv, ip = ivars.irho, ivars.iu, ivars.iv, ivars.ip
     nq = ivars.nq
 
@@ -39,7 +37,10 @@ def states(idir, g, dxa, dloga, dt, ivars, gamma, qv, dqv):
     q = _win(qv, g, b)          # (nq, win_x, win_y)
     dq = _win(dqv, g, b)
 
-    dtdx = dt / dxa
+    if isinstance(dxa, torch.Tensor):
+        dtdx = dt / _win(dxa, g, b)
+    else:
+        dtdx = dt / dxa
     dtdx4 = 0.25 * dtdx
 
     rho = q[irho]
@@ -104,6 +105,13 @@ def states(idir, g, dxa, dloga, dt, ivars, gamma, qv, dqv):
     q_l_win = q + factor_l[None] * dq + torch.stack(corr_l)
     q_r_win = q - factor_r[None] * dq + torch.stack(corr_r)
 
+    # geometric source (spherical): only rho and p pick it up
+    if isinstance(dloga, torch.Tensor):
+        rho_source = -0.5 * dt * _win(dloga, g, b) * rho * un
+        for qw in (q_l_win, q_r_win):
+            qw[irho] += rho_source
+            qw[ip] += rho_source * cs ** 2
+
     # q_l shifted +1 toward the interface it feeds
     ish, jsh = (1, 0) if idir == 1 else (0, 1)
     return embed(q_l_win, g, b, ish, jsh), embed(q_r_win, g, b)
@@ -112,27 +120,56 @@ def states(idir, g, dxa, dloga, dt, ivars, gamma, qv, dqv):
 def artificial_viscosity(g, cvisc, u, v):
     """Colella-Woodward artificial viscosity coefficients (avisco_x/y).
 
-    Vertex-centered div(U) on the buf=1 window averaged to faces; avisco =
-    cvisc * max(-divU*L, 0) on the plain interior window, zero elsewhere
+    Vertex-centered div(U) on the buf=1 window (Cartesian, or spherical
+    from the r and sin(theta) lines of the grid) averaged to faces; avisco
+    = cvisc * max(-divU*L, 0) on the plain interior window, zero elsewhere
     (no viscosity on the domain's outermost high faces)."""
-    if getattr(g, "coord_type", 0) != 0:
-        raise NotImplementedError(
-            "spherical geometry waits for a later slice (ROADMAP.md, "
-            "queue B item 1)")
     uv = ai(u, g)
     vv = ai(v, g)
+    spherical = getattr(g, "coord_type", 0) == 1
 
     b = 1
     ur = 0.5 * (uv.v(buf=b) + uv.jp(-1, buf=b))
     ul = 0.5 * (uv.ip(-1, buf=b) + uv.ip_jp(-1, -1, buf=b))
     vt = 0.5 * (vv.v(buf=b) + vv.ip(-1, buf=b))
     vb = 0.5 * (vv.jp(-1, buf=b) + vv.ip_jp(-1, -1, buf=b))
-    dv = ai(embed((ur - ul) / g.dx + (vt - vb) / g.dy, g, b), g)
+    if spherical:
+        rc, rr, rl, sinc, sint, sinb = (
+            _win(p, g, b) for p in sph_planes(g, u))
+        ux = (ur * rr ** 2 - ul * rl ** 2) / (rc ** 2 * g.dx)
+        vy_raw = (sint * vt - sinb * vb) / (
+            rc * torch.where(sinc == 0.0, 1.0, sinc) * g.dy)
+        divU_w = ux + torch.where(sinc == 0.0, 0.0, vy_raw)
+    else:
+        divU_w = (ur - ul) / g.dx + (vt - vb) / g.dy
+    dv = ai(embed(divU_w, g, b), g)
 
     divU_x = 0.5 * (dv.v() + dv.jp(1))
     divU_y = 0.5 * (dv.v() + dv.ip(1))
 
-    av_x = cvisc * (-divU_x * g.dx).clamp_min(0.0)
-    av_y = cvisc * (-divU_y * g.dy).clamp_min(0.0)
+    if spherical:
+        Lx = _win(g.tensor("Lx", u), g, 0)
+        Ly = _win(g.tensor("Ly", u), g, 0)
+    else:
+        Lx, Ly = g.dx, g.dy
+    av_x = cvisc * (-divU_x * Lx).clamp_min(0.0)
+    av_y = cvisc * (-divU_y * Ly).clamp_min(0.0)
 
     return embed(av_x, g, 0), embed(av_y, g, 0)
+
+
+def sph_planes(g, like):
+    """The (qx, qy) planes of the spherical vertex divergence, in `like`'s
+    dtype on its device: the node radius r(i-1/2), the centre radii r(i)
+    and r(i) - dr, and sin(theta) at the node, the centre and the centre
+    below (host float64, rounded once)."""
+    def rows(line):
+        return torch.as_tensor(line, dtype=like.dtype,
+                               device=like.device)[:, None].expand(g.qx, g.qy)
+
+    def lanes(line):
+        return torch.as_tensor(line, dtype=like.dtype,
+                               device=like.device)[None, :].expand(g.qx, g.qy)
+
+    return (rows(g.xl), rows(g.x), rows(g.x - g.dx),
+            lanes(np.sin(g.yl)), lanes(np.sin(g.y)), lanes(np.sin(g.y - g.dy)))

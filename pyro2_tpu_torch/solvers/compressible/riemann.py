@@ -415,9 +415,12 @@ SOLVERS = {"HLLC": riemann_hllc,
 
 
 def riemann_flux(idir, U_l, U_r, my_data, rp, ivars,
-                 lower_solid, upper_solid, tc):
+                 lower_solid, upper_solid, tc, return_cons=False):
     """Dispatch on compressible.riemann and assemble the interface flux
-    (CGF gives the interface state, whose flux is taken here)."""
+    (CGF gives the interface state, whose flux is taken here, without the
+    pressure term in spherical geometry).  With return_cons, CGF returns
+    (flux, interface state); the HLLC solvers have no interface state and
+    return the flux alone, as in the JAX package."""
     tm_riem = tc.timer("riemann")
     tm_riem.begin()
 
@@ -431,8 +434,12 @@ def riemann_flux(idir, U_l, U_r, my_data, rp, ivars,
     _u = SOLVERS[riemann_method](idir, myg, ivars,
                                  lower_solid, upper_solid, gamma, U_l, U_r)
 
-    if riemann_method == "CGF":
-        _u = consFlux(idir, 0, gamma, ivars, _u)
+    if riemann_method != "CGF":
+        tm_riem.end()
+        return _u
+    _f = consFlux(idir, getattr(myg, "coord_type", 0), gamma, ivars, _u)
 
     tm_riem.end()
-    return _u
+    if return_cons:
+        return _f, _u
+    return _f

@@ -1,9 +1,10 @@
 """Compressible Euler CTU Simulation.
 
-The port of pyro2_tpu/solvers/compressible/simulation.py for Cartesian
-geometry.  The plain step (`Simulation._make_step`) runs the CTU pipeline
-as tensor code: density floor -> tracing -> sources -> transverse ->
-Riemann -> artificial viscosity -> conservative update ->
+The port of pyro2_tpu/solvers/compressible/simulation.py, Cartesian and
+spherical geometry.  The plain step (`plain_step`, which
+`Simulation._make_step` builds) runs the CTU pipeline as tensor code:
+density floor -> tracing -> sources -> transverse -> Riemann -> artificial
+viscosity -> conservative update -> (spherical pressure gradients) ->
 predictor-corrector sources -> sponge.  `evolve` goes through the CUDA CTU
 kernel's wrapper (ctu_kernel.CTUStep), which launches the kernel for CUDA
 tensors and runs the plain step for CPU tensors.
@@ -23,9 +24,11 @@ from pyro2_tpu_torch.mesh.indexer import ai, aic
 from pyro2_tpu_torch.simulation_null import (NullSimulation, bc_setup,
                                              grid_setup)
 from pyro2_tpu_torch.solvers.compressible import BC, derives, eos, riemann
+from pyro2_tpu_torch.util import msg
 
 __all__ = ["Variables", "cons_to_prim", "prim_to_cons",
-           "get_external_sources", "get_sponge_factor", "Simulation"]
+           "get_external_sources", "get_sponge_factor", "plain_step",
+           "Simulation"]
 
 
 class Variables:
@@ -102,7 +105,7 @@ def prim_to_cons(q, gamma, ivars, myg):
     return torch.stack(rows)
 
 
-CTU_ITEM = "queue B item 1: spherical and problem-source coverage"
+CTU_ITEM = "queue B item 1: problem-source coverage"
 
 
 def _uncovered(what, item=CTU_ITEM):
@@ -112,18 +115,32 @@ def _uncovered(what, item=CTU_ITEM):
 
 def get_external_sources(t, dt, U, ivars, rp, myg, *,
                          U_old=None, problem_source=None):
-    """External sources: gravity in y (Cartesian geometry).  With U_old
-    (U ~ U^{n+1} including a full dt*S_old) the energy source is
+    """External sources: gravity in y (Cartesian geometry), or radial
+    gravity plus the geometric momentum terms ymom^2 / (rho r) and
+    -xmom ymom / rho (spherical geometry, present even with grav = 0).
+    With U_old (U ~ U^{n+1} including a full dt*S_old) the energy source is
     time-centred with the corrected momentum."""
-    if getattr(myg, "coord_type", 0) != 0:
-        raise _uncovered("spherical geometry")
     if problem_source:
         raise _uncovered("problem source terms")
     grav = rp.get_param("compressible.grav")
 
     zero = torch.zeros_like(U[0])
     rows = [zero] * ivars.nvar
-    if U_old is None:
+    if getattr(myg, "coord_type", 0) == 1:
+        x2d = myg.tensor("x2d", U)
+        if U_old is None:
+            S_xmom = U[ivars.idens] * grav
+            rows[ivars.iener] = U[ivars.ixmom] * grav
+        else:
+            S_xmom = U[ivars.idens] * grav
+            S_old_xmom = U_old[ivars.idens] * grav
+            xmom_new = U[ivars.ixmom] + 0.5 * dt * (S_xmom - S_old_xmom)
+            rows[ivars.iener] = xmom_new * grav
+        rows[ivars.ixmom] = S_xmom + U[ivars.iymom] ** 2 / (
+            U[ivars.idens] * x2d)
+        rows[ivars.iymom] = zero - U[ivars.ixmom] * U[ivars.iymom] / \
+            U[ivars.idens]
+    elif U_old is None:
         rows[ivars.iymom] = U[ivars.idens] * grav
         rows[ivars.iener] = U[ivars.iymom] * grav
     else:
@@ -152,6 +169,120 @@ def get_sponge_factor(U, ivars, rp, myg):
     return f / tau
 
 
+def plain_step(my_data, rp, ivars, solid, tc, *, aux=None, small_dens=None,
+               sponge=False):
+    """The plain tensor CTU step(U, t, dt) -> U_new on my_data.grid: density
+    floor -> tracing -> half-dt sources -> transverse -> Riemann ->
+    artificial viscosity -> conservative update -> (spherical pressure
+    gradients) -> predictor-corrector sources -> sponge.  U is not
+    modified, and its ghosts are carried into U_new.
+
+    aux is the source container whose BCs fill the half-dt source stack:
+    None leaves the external sources out altogether, small_dens None the
+    floor, sponge False the sponge (the padded entries' step, which has
+    none of them; padded_step.py)."""
+    myg = my_data.grid
+    gamma = rp.get_param("eos.gamma")
+    spherical = getattr(myg, "coord_type", 0) == 1
+
+    iv_sl = (slice(myg.ilo, myg.ihi + 1), slice(myg.jlo, myg.jhi + 1))
+    all_iv = (slice(None),) + iv_sl
+
+    def step(U, t, dt):
+        U = U.clone()
+        if small_dens is not None:
+            # density floor (clean_state) on the global interior.  The
+            # default sentinel (-1e200) is out of f32 range: clamp it to
+            # the dtype's finfo min, which keeps the floor a no-op
+            floor = max(small_dens, torch.finfo(U.dtype).min)
+            U[(ivars.idens,) + iv_sl] = \
+                U[(ivars.idens,) + iv_sl].clamp_min(floor)
+
+        U_xl, U_xr, U_yl, U_yr = flx.interface_states(
+            U, my_data, rp, ivars, tc, dt)
+
+        if aux is not None:
+            U_xl, U_xr, U_yl, U_yr = flx.apply_source_terms(
+                U_xl, U_xr, U_yl, U_yr, U, t, my_data, aux, rp, ivars, tc,
+                dt)
+
+        U_xl, U_xr, U_yl, U_yr = flx.apply_transverse_flux(
+            U_xl, U_xr, U_yl, U_yr, my_data, rp, ivars, solid, tc, dt)
+
+        if spherical:
+            F_x, U_x = riemann.riemann_flux(1, U_xl, U_xr, my_data, rp,
+                                            ivars, solid.xl, solid.xr, tc,
+                                            return_cons=True)
+            F_y, U_y = riemann.riemann_flux(2, U_yl, U_yr, my_data, rp,
+                                            ivars, solid.yl, solid.yr, tc,
+                                            return_cons=True)
+        else:
+            F_x = riemann.riemann_flux(1, U_xl, U_xr, my_data, rp,
+                                       ivars, solid.xl, solid.xr, tc)
+            F_y = riemann.riemann_flux(2, U_yl, U_yr, my_data, rp,
+                                       ivars, solid.yl, solid.yr, tc)
+
+        q = cons_to_prim(U, gamma, ivars, myg, check=False)
+        F_x, F_y = flx.apply_artificial_viscosity(
+            F_x, F_y, q, U, my_data, rp, ivars)
+
+        U_old = U
+
+        # conservative update, weighted by the face areas and cell volumes
+        if spherical:
+            dtdV = dt / ai(myg.tensor("V", U), myg).v()
+            Ax = ai(myg.tensor("Ax", U), myg)
+            Ay = ai(myg.tensor("Ay", U), myg)
+        else:
+            dtdV = dt / (myg.dx * myg.dy)
+            Ax = aic(myg.dy)
+            Ay = aic(myg.dx)
+        Fx = ai(F_x, myg)
+        Fy = ai(F_y, myg)
+        upd = dtdV * (
+            Fx.v() * Ax.v() - Fx.ip(1) * Ax.ip(1) +
+            Fy.v() * Ay.v() - Fy.jp(1) * Ay.jp(1))
+        U = U_old.clone()
+        U[all_iv] += upd
+
+        if spherical:
+            # non-conservative pressure gradients (momenta) from the
+            # final pair's CGF interface states
+            px = ai(cons_to_prim(U_x, gamma, ivars, myg,
+                                 check=False)[ivars.ip], myg)
+            py = ai(cons_to_prim(U_y, gamma, ivars, myg,
+                                 check=False)[ivars.ip], myg)
+            U[(ivars.ixmom,) + iv_sl] += \
+                -dt * (px.ip(1) - px.v()) / ai(myg.tensor("Lx", U), myg).v()
+            U[(ivars.iymom,) + iv_sl] += \
+                -dt * (py.jp(1) - py.v()) / ai(myg.tensor("Ly", U), myg).v()
+
+        if aux is not None:
+            # predictor-corrector external sources
+            S_old = get_external_sources(t, dt, U_old, ivars, rp, myg)
+            U[all_iv] += dt * S_old[all_iv]
+
+            S_new = get_external_sources(t, dt, U, ivars, rp, myg,
+                                         U_old=U_old)
+            U[all_iv] += 0.5 * dt * (S_new - S_old)[all_iv]
+
+        # implicit sponge damping of the velocity (whole array)
+        if sponge:
+            kappa_f = get_sponge_factor(U, ivars, rp, myg)
+            damp = 1.0 + dt * kappa_f
+            pre_x = U[ivars.ixmom].clone()
+            pre_y = U[ivars.iymom].clone()
+            U[ivars.ixmom] = pre_x / damp
+            U[ivars.iymom] = pre_y / damp
+            dke = 0.5 * ((U[ivars.ixmom] ** 2 + U[ivars.iymom] ** 2) -
+                         (pre_x ** 2 + pre_y ** 2)) / U[ivars.idens]
+            U[ivars.iener] += dke
+
+        return U
+
+    return step
+
+
 class Simulation(NullSimulation):
     """The CTU compressible hydrodynamics solver."""
 
@@ -162,8 +293,19 @@ class Simulation(NullSimulation):
         """Grid (ng=4), the 4 conserved vars (+extras), aux source-term
         container, custom BCs, ICs, and the step."""
         my_grid = grid_setup(self.rp, ng=ng)
-        if getattr(my_grid, "coord_type", 0) != 0:
-            raise _uncovered("spherical geometry", self.UNCOVERED_ITEM)
+        if getattr(my_grid, "coord_type", 0) == 1:
+            riemann_method = self.rp.get_param("compressible.riemann")
+            if riemann_method == "HLLC":
+                msg.fail("ERROR: HLLC Riemann Solver is not supported "
+                         "with SphericalPolar Geometry")
+            if riemann_method != "CGF":
+                # the spherical step reads the Riemann solver's interface
+                # state, which only CGF returns (the JAX package's step
+                # fails unpacking HLLC_lm's flux)
+                raise ValueError(
+                    f"the {riemann_method} Riemann solver has no interface "
+                    "state: SphericalPolar geometry needs "
+                    "compressible.riemann = CGF")
         if self.problem_source is not None:
             raise _uncovered("problem source terms", self.UNCOVERED_ITEM)
         if self.rp.get_param("particles.do_particles") == 1:
@@ -227,12 +369,17 @@ class Simulation(NullSimulation):
         myg = self.cc_data.grid
         gamma = self.rp.get_param("eos.gamma")
         ivars = self.ivars
+        spherical = getattr(myg, "coord_type", 0) == 1
 
         def dt_fn(U):
             q = cons_to_prim(U, gamma, ivars, myg, check=False)
             cs = torch.sqrt(gamma * q[ivars.ip] / q[ivars.irho])
-            xtmp = ai(myg.dx / (q[ivars.iu].abs() + cs), myg).v()
-            ytmp = ai(myg.dy / (q[ivars.iv].abs() + cs), myg).v()
+            if spherical:
+                Lx, Ly = myg.tensor("Lx", U), myg.tensor("Ly", U)
+            else:
+                Lx, Ly = myg.dx, myg.dy
+            xtmp = ai(Lx / (q[ivars.iu].abs() + cs), myg).v()
+            ytmp = ai(Ly / (q[ivars.iv].abs() + cs), myg).v()
             return torch.minimum(xtmp.min(), ytmp.min())
 
         return dt_fn
@@ -240,85 +387,11 @@ class Simulation(NullSimulation):
     def _make_step(self):
         """The plain tensor CTU step(U, t, dt) -> U_new (the CPU oracle
         of the CUDA kernel; U is not modified)."""
-        myg = self.cc_data.grid
         rp = self.rp
-        ivars = self.ivars
-        gamma = rp.get_param("eos.gamma")
-        solid = self.solid
-        tc = self.tc
-        small_dens = rp.get_param("compressible.small_dens")
-        do_sponge = rp.get_param("sponge.do_sponge")
-        my_data = self.cc_data
-        my_aux = self.aux_data
-
-        iv_sl = (slice(myg.ilo, myg.ihi + 1), slice(myg.jlo, myg.jhi + 1))
-        all_iv = (slice(None),) + iv_sl
-
-        def step(U, t, dt):
-            # density floor (clean_state) on the global interior.  The
-            # default sentinel (-1e200) is out of f32 range: clamp it to
-            # the dtype's finfo min, which keeps the floor a no-op
-            floor = max(small_dens, torch.finfo(U.dtype).min)
-            U = U.clone()
-            U[(ivars.idens,) + iv_sl] = \
-                U[(ivars.idens,) + iv_sl].clamp_min(floor)
-
-            U_xl, U_xr, U_yl, U_yr = flx.interface_states(
-                U, my_data, rp, ivars, tc, dt)
-
-            U_xl, U_xr, U_yl, U_yr = flx.apply_source_terms(
-                U_xl, U_xr, U_yl, U_yr, U, t, my_data, my_aux, rp, ivars,
-                tc, dt)
-
-            U_xl, U_xr, U_yl, U_yr = flx.apply_transverse_flux(
-                U_xl, U_xr, U_yl, U_yr, my_data, rp, ivars, solid, tc, dt)
-
-            F_x = riemann.riemann_flux(1, U_xl, U_xr, my_data, rp,
-                                       ivars, solid.xl, solid.xr, tc)
-            F_y = riemann.riemann_flux(2, U_yl, U_yr, my_data, rp,
-                                       ivars, solid.yl, solid.yr, tc)
-
-            q = cons_to_prim(U, gamma, ivars, myg, check=False)
-            F_x, F_y = flx.apply_artificial_viscosity(
-                F_x, F_y, q, U, my_data, rp, ivars)
-
-            U_old = U
-
-            # conservative update (uniform Cartesian geometry)
-            dtdV = dt / (myg.dx * myg.dy)
-            Ax = aic(myg.dy)
-            Ay = aic(myg.dx)
-            Fx = ai(F_x, myg)
-            Fy = ai(F_y, myg)
-            upd = dtdV * (
-                Fx.v() * Ax.v() - Fx.ip(1) * Ax.ip(1) +
-                Fy.v() * Ay.v() - Fy.jp(1) * Ay.jp(1))
-            U = U_old.clone()
-            U[all_iv] += upd
-
-            # predictor-corrector external sources
-            S_old = get_external_sources(t, dt, U_old, ivars, rp, myg)
-            U[all_iv] += dt * S_old[all_iv]
-
-            S_new = get_external_sources(t, dt, U, ivars, rp, myg,
-                                         U_old=U_old)
-            U[all_iv] += 0.5 * dt * (S_new - S_old)[all_iv]
-
-            # implicit sponge damping of the velocity (whole array)
-            if do_sponge:
-                kappa_f = get_sponge_factor(U, ivars, rp, myg)
-                damp = 1.0 + dt * kappa_f
-                pre_x = U[ivars.ixmom].clone()
-                pre_y = U[ivars.iymom].clone()
-                U[ivars.ixmom] = pre_x / damp
-                U[ivars.iymom] = pre_y / damp
-                dke = 0.5 * ((U[ivars.ixmom] ** 2 + U[ivars.iymom] ** 2) -
-                             (pre_x ** 2 + pre_y ** 2)) / U[ivars.idens]
-                U[ivars.iener] += dke
-
-            return U
-
-        return step
+        return plain_step(self.cc_data, rp, self.ivars, self.solid, self.tc,
+                          aux=self.aux_data,
+                          small_dens=rp.get_param("compressible.small_dens"),
+                          sponge=bool(rp.get_param("sponge.do_sponge")))
 
     # -- host-side driver hooks --------------------------------------------
     def method_compute_timestep(self):

@@ -1,11 +1,11 @@
 """The CTU (corner transport upwind) pipeline for compressible flow.
 
 The port of pyro2_tpu/solvers/compressible/unsplit_fluxes.py (Colella 1990
-unsplit Godunov, Cartesian geometry): interface states via characteristic
-tracing, interface-state source increments, transverse Riemann flux
-corrections, and Colella-Woodward artificial viscosity.  The interface
-states and fluxes handed between the stages are fresh tensors of this
-pipeline, so the corrections update them in place on their windows.
+unsplit Godunov, Cartesian and spherical geometry): interface states via
+characteristic tracing, interface-state source increments, transverse
+Riemann flux corrections, and Colella-Woodward artificial viscosity.  The
+interface states and fluxes handed between the stages are fresh tensors of
+this pipeline, so the corrections update them in place on their windows.
 """
 
 import torch
@@ -44,8 +44,19 @@ def interface_states(U, my_data, rp, ivars, tc, dt):
 
     tm_states = tc.timer("interfaceStates")
     tm_states.begin()
-    V_xl, V_xr = ifc.states(1, myg, myg.dx, 0.0, dt, ivars, gamma, q, ldx)
-    V_yl, V_yr = ifc.states(2, myg, myg.dy, 0.0, dt, ivars, gamma, q, ldy)
+    if getattr(myg, "coord_type", 0) == 1:
+        # per-cell widths and the d(log A) geometric sources
+        V_xl, V_xr = ifc.states(1, myg, myg.tensor("Lx", U),
+                                myg.tensor("dlogAx", U), dt, ivars, gamma,
+                                q, ldx)
+        V_yl, V_yr = ifc.states(2, myg, myg.tensor("Ly", U),
+                                myg.tensor("dlogAy", U), dt, ivars, gamma,
+                                q, ldy)
+    else:
+        V_xl, V_xr = ifc.states(1, myg, myg.dx, 0.0, dt, ivars, gamma, q,
+                                ldx)
+        V_yl, V_yr = ifc.states(2, myg, myg.dy, 0.0, dt, ivars, gamma, q,
+                                ldy)
     tm_states.end()
 
     return tuple(comp.prim_to_cons(V, gamma, ivars, myg)
@@ -94,23 +105,46 @@ def source_stack(S, ivars):
 def apply_transverse_flux(U_xl, U_xr, U_yl, U_yr,
                           my_data, rp, ivars, solid, tc, dt):
     """Correct the normal interface states with transverse flux
-    differences, in place on the (2, 1) window (the first Riemann pair)."""
-    myg = my_data.grid
+    differences, in place on the (2, 1) window (the first Riemann pair).
+    In spherical geometry the fluxes are weighted by the face areas and
+    the cell volume, and the momenta also get the non-conservative
+    transverse pressure gradients from the pair's CGF interface states."""
+    from pyro2_tpu_torch.solvers.compressible import simulation as comp
 
-    F_x = riemann.riemann_flux(1, U_xl, U_xr, my_data, rp, ivars,
-                               solid.xl, solid.xr, tc)
-    F_y = riemann.riemann_flux(2, U_yl, U_yr, my_data, rp, ivars,
-                               solid.yl, solid.yr, tc)
+    myg = my_data.grid
+    spherical = getattr(myg, "coord_type", 0) == 1
+
+    if spherical:
+        # CGF (Simulation.initialize refuses the others on this grid)
+        F_x, U_x = riemann.riemann_flux(1, U_xl, U_xr, my_data, rp, ivars,
+                                        solid.xl, solid.xr, tc,
+                                        return_cons=True)
+        F_y, U_y = riemann.riemann_flux(2, U_yl, U_yr, my_data, rp, ivars,
+                                        solid.yl, solid.yr, tc,
+                                        return_cons=True)
+        gamma = rp.get_param("eos.gamma")
+        qx = comp.cons_to_prim(U_x, gamma, ivars, myg, check=False)
+        qy = comp.cons_to_prim(U_y, gamma, ivars, myg, check=False)
+    else:
+        F_x = riemann.riemann_flux(1, U_xl, U_xr, my_data, rp, ivars,
+                                   solid.xl, solid.xr, tc)
+        F_y = riemann.riemann_flux(2, U_yl, U_yr, my_data, rp, ivars,
+                                   solid.yl, solid.yr, tc)
 
     tm_transverse = tc.timer("transverse flux addition")
     tm_transverse.begin()
 
     b = (2, 1)
     hdt = 0.5 * dt
-    # uniform Cartesian geometry: scalar stand-ins
-    V = aic(myg.dx * myg.dy)
-    Ax = aic(myg.dy)
-    Ay = aic(myg.dx)
+    if spherical:
+        V = ai(myg.tensor("V", U_xl), myg)
+        Ax = ai(myg.tensor("Ax", U_xl), myg)
+        Ay = ai(myg.tensor("Ay", U_xl), myg)
+    else:
+        # uniform Cartesian geometry: scalar stand-ins
+        V = aic(myg.dx * myg.dy)
+        Ax = aic(myg.dy)
+        Ay = aic(myg.dx)
     Fx = ai(F_x, myg)
     Fy = ai(F_y, myg)
     hdtV = hdt / V.v(buf=b)
@@ -127,6 +161,23 @@ def apply_transverse_flux(U_xl, U_xr, U_yl, U_yr,
     ai(U_yr, myg).v(buf=b).add_(
         -hdtV * (Fx.ip(1, buf=b) * Ax.ip(1, buf=b) -
                  Fx.v(buf=b) * Ax.v(buf=b)))
+
+    if spherical:
+        # non-conservative transverse pressure gradients (momenta only),
+        # each over the side length of the unshifted cell, as the JAX
+        # package writes them
+        Lx = ai(myg.tensor("Lx", U_xl), myg).v(buf=b)
+        Ly = ai(myg.tensor("Ly", U_xl), myg).v(buf=b)
+        px = ai(qx[ivars.ip], myg)
+        py = ai(qy[ivars.ip], myg)
+        ai(U_xl[ivars.iymom], myg).v(buf=b).add_(
+            -hdt * (py.ip_jp(-1, 1, buf=b) - py.ip(-1, buf=b)) / Ly)
+        ai(U_xr[ivars.iymom], myg).v(buf=b).add_(
+            -hdt * (py.jp(1, buf=b) - py.v(buf=b)) / Ly)
+        ai(U_yl[ivars.ixmom], myg).v(buf=b).add_(
+            -hdt * (px.ip_jp(1, -1, buf=b) - px.jp(-1, buf=b)) / Lx)
+        ai(U_yr[ivars.ixmom], myg).v(buf=b).add_(
+            -hdt * (px.ip(1, buf=b) - px.v(buf=b)) / Lx)
 
     tm_transverse.end()
     return U_xl, U_xr, U_yl, U_yr

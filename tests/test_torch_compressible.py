@@ -305,12 +305,55 @@ def test_kernel_wrapper_checks_inputs():
     assert ctu_kernel.launches == before
 
 
+SPHERICAL = {"mesh.nx": 16, "mesh.ny": 16,
+             "mesh.grid_type": "SphericalPolar",
+             "mesh.xmin": 0.5, "mesh.xmax": 1.0,
+             "mesh.ymin": 0.7853981633974483,
+             "mesh.ymax": 2.356194490192345}
+
+
 def test_uncovered_configurations_raise():
+    """The method-of-lines solvers stay refused on a spherical grid (the
+    shared interface and Riemann modules no longer refuse it), naming A.9;
+    problem source terms stay refused in the CTU solver, naming queue B
+    item 1."""
+    for solver in ("compressible_rk", "compressible_fv4", "compressible_sdc"):
+        pt = Pyro(solver, device="cpu")
+        with pytest.raises(NotImplementedError,
+                           match=r"spherical geometry .*ROADMAP.*item 9"):
+            pt.initialize_problem("acoustic_pulse", inputs_dict={
+                **SPHERICAL, "compressible.riemann": "CGF"})
     pt = Pyro("compressible", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pt.initialize_problem("advect", inputs_dict={
-            "mesh.nx": 16, "mesh.ny": 16,
-            "mesh.grid_type": "SphericalPolar",
-            "mesh.xmin": 0.5, "mesh.xmax": 1.0,
-            "mesh.ymin": 0.7853981633974483,
-            "mesh.ymax": 2.356194490192345})
+    pt.initialize_problem("quad", inputs_dict={"mesh.nx": 16,
+                                                "mesh.ny": 16})
+    sim = tcomp.Simulation("compressible", "quad", quad.init_data, pt.rp,
+                           problem_source_func=lambda *a: 0.0, device="cpu")
+    with pytest.raises(NotImplementedError,
+                       match=r"problem source terms .*queue B item 1"):
+        sim.initialize()
+
+
+@pytest.mark.parametrize("riemann,jax_error,jax_match,error,match", [
+    ("HLLC", RuntimeError, "HLLC Riemann Solver is not supported",
+     RuntimeError, "HLLC Riemann Solver is not supported"),
+    ("HLLC_lm", ValueError, "unpack",
+     ValueError, "needs compressible.riemann = CGF")])
+def test_spherical_needs_cgf(riemann, jax_error, jax_match, error, match,
+                             monkeypatch):
+    """HLLC fails in initialize as the JAX package's msg.fail does;
+    HLLC_lm has no interface state for the spherical pressure gradients
+    (the JAX step fails unpacking its flux), so the port refuses it up
+    front, on any device."""
+    pj = JPyro("compressible")
+    with pytest.raises(jax_error, match=jax_match):
+        pj.initialize_problem("advect", inputs_dict={
+            **SPHERICAL, "compressible.riemann": riemann})
+        pj.single_step()
+    for device in ("cpu", "cuda"):
+        if device == "cuda":
+            # the refusal comes before the device is touched
+            monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+        pt = Pyro("compressible", device=device)
+        with pytest.raises(error, match=match):
+            pt.initialize_problem("advect", inputs_dict={
+                **SPHERICAL, "compressible.riemann": riemann})

@@ -101,6 +101,35 @@ def test_import_pulls_in_no_jax():
     assert res.stdout.strip() == "clean"
 
 
+def test_spherical_and_padded_slice_imports_without_cuda_or_jax():
+    # the modules of the spherical / padded-frame / ensemble slice, and the
+    # problems that came with it, import on a machine with neither CUDA
+    # nor JAX in the process
+    code = (
+        "import sys\n"
+        "import torch\n"
+        "assert not torch.cuda.is_available()\n"
+        "import pyro2_tpu_torch.solvers.compressible.padded_step as ps\n"
+        "import pyro2_tpu_torch.parallel\n"
+        "from pyro2_tpu_torch.parallel import ensemble_states, "
+        "ensemble_step\n"
+        "from pyro2_tpu_torch.solvers.compressible.problems import "
+        "bubble, gresho, hse, logo, ramp, rt2, rt_multimode, sedov\n"
+        "assert set(ps.launches) == {'ctu_periodic', 'ctu_padin', "
+        "'ctu_ensemble'}\n"
+        "assert pyro2_tpu_torch.parallel.__all__ == "
+        "['ensemble_states', 'ensemble_step']\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'pyro2_tpu', 'triton')]\n"
+        "assert not bad, bad\n"
+        "print('clean')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT), CUDA_VISIBLE_DEVICES="")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "clean"
+
+
 def test_default_device_raises_without_cuda(monkeypatch, tmp_path):
     from pyro2_tpu_torch import Pyro
     from pyro2_tpu_torch.defaults import resolve_device

@@ -297,6 +297,34 @@ def test_solve_does_not_write_its_inputs():
     assert not torch.equal(tmg.get_solution(), g0)
 
 
+def test_cached_levels_and_masks_survive_in_place_writes():
+    """The level grids and colour masks are cached by configuration and
+    shared by every MG in the process.  Writing in place into what the
+    caches hand out must change no later solve: the masks come out as
+    copies, and the grids' coordinate arrays refuse writes."""
+    bcs = ["periodic"] * 4
+
+    def solve():
+        _, tmg = _mg_pair(32, bcs, alpha=0.0, beta=-1.0)
+        f, _ = _poisson(tmg.soln_grid)
+        tmg.init_zeros()
+        tmg.init_RHS(f - f.mean())
+        tmg.solve(rtol=1e-10)
+        return tmg, tmg.get_solution().clone()
+
+    tmg, ref = solve()
+    for g in tmg.grids:
+        red, black = MG._color_masks(g, torch.device("cpu"))
+        red.fill_(False)
+        black.fill_(False)
+        with pytest.raises(ValueError, match="read-only"):
+            g.x[:] = 0.0
+        with pytest.raises(ValueError, match="read-only"):
+            g.y2d[0, 0] = 1.0
+    _, got = solve()
+    assert torch.equal(got, ref)
+
+
 def test_solve_counts_cycles():
     _, tmg = _mg_pair(16, BC_SETS["neumann"], alpha=1.0, beta=1e-3)
     before = dict(MG.stats)

@@ -6,9 +6,9 @@
 Phases (any failure exits non-zero and prints no result line):
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
   2. build the CUDA sources of pyro2_tpu_torch/csrc (ctu_step.cu,
-     mg_vcycle.cu, mol_substep.cu, swe_step.cu, lm_interface.cu) with
-     nvcc, one process each, started together, and print what ptxas
-     reports (registers, shared memory, spills);
+     mg_vcycle.cu, mol_substep.cu, swe_step.cu, lm_interface.cu,
+     mg_deep.cu) with nvcc, one process each, started together, and print
+     what ptxas reports (registers, shared memory, spills);
   3. the CTU kernel against its plain PyTorch version on the card, one step
      from the same state after 3 kernel steps, for five configurations at a
      ragged 200x136 and at 1024^2, in float64 (max |diff| <= 1e-12 max|U|)
@@ -50,6 +50,15 @@ Phases (any failure exits non-zero and prints no result line):
      and 1024^2 and on a bubble state at 1024^2 after 3 kernel steps, in
      float64 (<= 1e-12 of each stated scale) and float32 (<= 1e-5), the
      MAC frames zero exactly where the plain version's are;
+  4b. the sharded multigrid's kernels (mg_deep_smooth, mg_correct) against
+     their plain versions, f64 (1e-12) and f32 (1e-5; a residual to those
+     factors of the terms it cancels): on the 1x1 frames of the sharded
+     path's levels (256^2, 512^2, 1024^2, one halo cell, d = 21, 10 sweeps)
+     with every emit, and the correction; at every block of a 2x2 and a 1x4
+     split of 1024^2 (d = 21) with Dirichlet and periodic edges, the frames
+     filled from one global array as the exchange fills them and the flags
+     from parallel.sharded_mg.kernel_flags; Jacobi, Chebyshev and the vc
+     and general operators at 256^2;
   5. the main paths through Pyro -> run_sim on CUDA in float32, each with
      every launch count reset just before and read just after:
      compressible quad at 1024^2 for 100 steps and rt at 256x768 for 50
@@ -77,17 +86,24 @@ Phases (any failure exits non-zero and prints no result line):
      steps (the Simulation's fill), ctu_ensemble on 8 acoustic_pulse 256^2
      members for 20 steps through parallel.ensemble_step, one launch of
      that entry a step and no other kernel's; no earlier path launches a
-     padded entry;
+     padded entry or a sharded-multigrid kernel;
+  5c. parallel.ShardedDiffusion gaussian 1024^2 float32 on the 1x1 mesh of
+     parallel.make_mesh() for 10 steps: per cycle 2 mg_deep_smooth and 1
+     mg_correct per sharded level and 1 mg_core (10 at 1024^2), no
+     mg_down / mg_up, phi against the serial diffusion run of phase 5;
+     and at 256^2 in float64 against the serial diffusion: the same cycles
+     in every solve and phi to 1e-12;
   6. CUDA-event timing of each kernel and its plain version at the main
      paths' shapes (quad 1024^2; the 1024^2 solves' levels, constant, vc
      and general; the rk quad and fv4 acoustic_pulse 1024^2 increments;
      the swe quad 1024^2 step; the lm_atm stages on the 1024^2 bubble;
-     the spherical CTU step and each padded entry at its path's shape),
+     the spherical CTU step and each padded entry at its path's shape;
+     mg_deep_smooth and mg_correct at the sharded path's finest level),
      beside each kernel's bound on this card, and the host time of
      building lm_atm's VarCoeffCCMG2d at 1024^2;
   7. torch.profiler breakdowns of 20 quad steps, 5 shear steps, 5 fv4
-     acoustic_pulse steps, 5 swe quad steps, 5 lm_atm bubble steps and 20
-     spherical advect steps:
+     acoustic_pulse steps, 5 swe quad steps, 5 lm_atm bubble steps, 20
+     spherical advect steps and 5 sharded diffusion steps:
      device time by kernel and the device's busy share of the wall time.
 
 The line before the last is a JSON object describing every kernel; the last
@@ -346,6 +362,7 @@ def mol_main_path(solver, problem, nx, ny, steps, kernel, per_step,
     no_swe_launches(solver)
     no_lm_launches(solver)
     no_padded_launches(solver)
+    no_sharded_launches(solver)
     mol = dict(mol_kernel.launches)
     expect = dict.fromkeys(MOL_KERNELS, 0)
     expect[kernel] = per_step * steps
@@ -397,6 +414,7 @@ def main_path(problem, nx, ny, steps, inputs=None):
     no_swe_launches(problem)
     no_lm_launches(problem)
     no_padded_launches(problem)
+    no_sharded_launches(problem)
 
     sim = p.sim
     g = sim.cc_data.grid
@@ -419,8 +437,9 @@ def main_path(problem, nx, ny, steps, inputs=None):
 
 def reset_counts():
     """Every kernel's launch count, and the multigrid solve and cycle
-    counts, to 0."""
-    from pyro2_tpu_torch.multigrid import MG, mg_kernel
+    counts (serial and sharded), to 0."""
+    from pyro2_tpu_torch.multigrid import MG, mg_kernel, sharded_mg_kernel
+    from pyro2_tpu_torch.parallel import sharded_mg
     from pyro2_tpu_torch.solvers.compressible import ctu_kernel
     from pyro2_tpu_torch.solvers.compressible_fv4 import mol_kernel
     from pyro2_tpu_torch.solvers.lm_atm import lm_kernel
@@ -431,7 +450,8 @@ def reset_counts():
     ctu_kernel.launches = 0
     swe_kernel.launches = 0
     for counts in (mg_kernel.launches, mol_kernel.launches,
-                   lm_kernel.launches, padded_step.launches, MG.stats):
+                   lm_kernel.launches, padded_step.launches, MG.stats,
+                   sharded_mg_kernel.launches, sharded_mg.stats):
         for key in counts:
             counts[key] = 0
 
@@ -468,6 +488,14 @@ def no_padded_launches(what):
                              f"{padded_step.launches}")
 
 
+def no_sharded_launches(what):
+    from pyro2_tpu_torch.multigrid import sharded_mg_kernel
+
+    if any(sharded_mg_kernel.launches.values()):
+        raise AssertionError(f"{what}: the sharded multigrid kernels "
+                             f"launched {sharded_mg_kernel.launches}")
+
+
 def no_swe_launches(what):
     from pyro2_tpu_torch.solvers.swe import swe_kernel
 
@@ -501,6 +529,7 @@ def swe_main_path(problem, nx, ny, steps, inputs):
     ctu, mg, _ = read_counts()
     no_lm_launches(f"swe {problem}")
     no_padded_launches(f"swe {problem}")
+    no_sharded_launches(f"swe {problem}")
     n_swe = swe_kernel.launches
     if (sim.n != steps or n_swe != steps or ctu != 0 or any(mg.values())
             or any(mol_kernel.launches.values())):
@@ -629,6 +658,7 @@ def padded_path(entry, problem, n, steps, n_ens=None):
     expect = dict.fromkeys(PADDED_KERNELS, 0)
     expect[entry] = steps
     no_lm_launches(entry)
+    no_sharded_launches(entry)
     if (launches != expect or ctu_kernel.launches or swe_kernel.launches
             or any(mg_kernel.launches.values())
             or any(mol_kernel.launches.values())):
@@ -840,7 +870,8 @@ def mg_compare(n, case, dtype, tol, errs):
 
 def mg_main_path(solver, problem, n, steps):
     """Pyro(solver) -> run_sim on CUDA float32 with the counts reset just
-    before and read just after; returns (pyro, launches by kernel)."""
+    before and read just after; returns (pyro, launches by kernel,
+    seconds)."""
     import torch
 
     from pyro2_tpu_torch import Pyro
@@ -864,6 +895,7 @@ def mg_main_path(solver, problem, n, steps):
     no_swe_launches(solver)
     no_lm_launches(solver)
     no_padded_launches(solver)
+    no_sharded_launches(solver)
 
     peeled = len(mg_kernel.split(make_mg(n, "periodic", 0.0, -1.0,
                                          torch.float32), torch.float32)[1])
@@ -884,7 +916,7 @@ def mg_main_path(solver, problem, n, steps):
         f"{stats['solves']} solves, {cycles} cycles "
         f"({cycles / stats['solves']:.2f} per solve); launches {launches}; "
         f"t = {sim.cc_data.t:.6g}, max|state| {float(data.abs().max()):.6g}")
-    return p, launches
+    return p, launches, seconds
 
 
 def time_pair(name, kern, plain, work, bw, fp32):
@@ -1118,6 +1150,7 @@ def lm_main_path(n, steps):
     seconds = time.perf_counter() - t0
     ctu, mg, stats = read_counts()
     no_padded_launches("lm_atm")
+    no_sharded_launches("lm_atm")
     lm = dict(lm_kernel.launches)
     peeled = len(mg_kernel.split(make_mg(n, "periodic", 0.0, -1.0,
                                          torch.float32), torch.float32)[1])
@@ -1196,6 +1229,7 @@ def general_path(n):
                    "mg_up_general": cycles * peeled})
     no_lm_launches("general multigrid")
     no_padded_launches("general multigrid")
+    no_sharded_launches("general multigrid")
     # the truncation error of this problem falls as dx^2 (the JAX package's
     # example); at 1024^2 it is far below this bound
     if launches != expect or cycles == 0 or ctu or not err < 1e-3:
@@ -1249,21 +1283,327 @@ def vc_build_ms(sim, reps=5):
     return ms
 
 
-def profile_steps(p, steps, label):
-    """torch.profiler over `steps` main-path steps: device time by kernel
-    and the device's busy share of the wall time."""
+# ---------------------------------------------------------------------------
+# the sharded multigrid (parallel/sharded_mg.py, csrc/mg_deep.cu)
+# ---------------------------------------------------------------------------
+
+SHARDED_KERNELS = ("mg_deep_smooth", "mg_correct")
+# diffusion gaussian's Crank-Nicolson operator at 1024^2 (alpha 1, beta =
+# dt k / 2 with dt = 2 dx^2), as the sharded levels of its solve use it
+DIFF_AB = (1.0, (1.0 / 1024) ** 2)
+
+
+def frame_from_global(A, ix, iy, px, py, dpx, dpy):
+    """Block (ix, iy)'s deep frame of the global interior A on a px x py
+    mesh, as parallel.mesh_comm.deep_pad_exchange(phys=False) fills it: a
+    split axis takes the ring neighbours' strips (around the domain), an
+    unsplit one zeros."""
+    import torch
+
+    nx, ny = A.shape
+    bx, by = nx // px, ny // py
+    rows = torch.arange(ix * bx - dpx, ix * bx + bx + dpx, device=A.device)
+    cols = torch.arange(iy * by - dpy, iy * by + by + dpy, device=A.device)
+    F = A[rows % nx][:, cols % ny].contiguous()
+    if px == 1:
+        F[(rows < 0) | (rows >= nx)] = 0.0
+    if py == 1:
+        F[:, (cols < 0) | (cols >= ny)] = 0.0
+    return F
+
+
+def deep_resid_scale(ab, planes, dx, v, f):
+    """The size of the terms a residual of the deep frame cancels (as
+    resid_scale)."""
+    vmax, fmax = float(v.abs().max()), float(f.abs().max())
+    if planes is None:
+        return fmax + abs(ab[0]) * vmax + 8.0 * abs(ab[1]) * vmax / dx ** 2
+    top = planes.abs().amax(dim=(1, 2)).tolist()
+    if len(top) == 2:
+        return fmax + 8.0 * max(top) * vmax
+    alpha, bx, by, gx, gy = top
+    return fmax + (alpha + 8.0 * max(bx, by) + 2.0 * (gx + gy)) * vmax
+
+
+def sharded_compare(dtype, tol, errs):
+    """mg_deep_smooth and mg_correct against their plain versions from the
+    same inputs: (a) the 1x1 frames of the path (256^2, 512^2, 1024^2, one
+    halo cell, d = 21, 10 sweeps) with each emit, and the correction; (b)
+    every block of a 2x2 and of a 1x4 decomposition of 1024^2 (d = 21),
+    Dirichlet and periodic edges, the frames filled from one global array
+    as the exchange fills them; (c) Jacobi and Chebyshev, and the vc and
+    general operators, at 256^2.  Records the worst |diff| of the path's
+    1024^2 shapes in errs."""
+    import numpy as np
+    import torch
+
+    import pyro2_tpu_torch.mesh.boundary as bnd
+    from pyro2_tpu_torch.multigrid import sharded_mg_kernel as smk
+    from pyro2_tpu_torch.parallel import (ShardedGeneralMG,
+                                          ShardedVarCoeffMG, make_mesh)
+    from pyro2_tpu_torch.parallel.sharded_mg import kernel_flags
+
+    rng = np.random.default_rng(17)
+    rows = []
+
+    def rand(*shape, scale=1.0):
+        return torch.as_tensor(scale * rng.standard_normal(shape),
+                               dtype=dtype, device="cuda")
+
+    def check(what, kernel, ref, got, scale=None, record=False):
+        err = float((ref - got).abs().max())
+        if scale is None:
+            scale = float(ref.abs().max())
+        ok = bool(torch.isfinite(got).all()) and err <= tol * scale
+        rows.append((what, err, scale, ok))
+        if record:
+            errs[kernel] = max(errs.get(kernel, 0.0), err)
+        if not ok:
+            raise AssertionError(f"sharded multigrid kernel disagrees with "
+                                 f"its plain version: {what} {dtype}")
+
+    def compare(what, vd, fd, flags, record=False, **kw):
+        ref = smk.deep_smooth_plain(vd, fd, flags, **kw)
+        got = smk.launch_deep_smooth(vd, fd, flags, **kw)
+        check(f"{what} v", "mg_deep_smooth", ref[0], got[0], record=record)
+        if ref[1] is not None:
+            check(f"{what} {kw['emit']}", "mg_deep_smooth", ref[1], got[1],
+                  deep_resid_scale(kw.get("ab"), kw.get("planes"), kw["dx"],
+                                   ref[0], fd), record=record)
+
+    neumann = bnd.BC(xlb="neumann", xrb="neumann", ylb="neumann",
+                     yrb="neumann")
+    one = kernel_flags(neumann, 1, 1, 0, 0)
+    for n in (256, 512, 1024):                   # (a) the path's frames
+        vd, fd = rand(n + 2, n + 2, scale=0.1), rand(n + 2, n + 2)
+        for emit in smk.EMITS:
+            compare(f"1x1 {n}^2", vd, fd, one, record=n == 1024, dpx=1,
+                    dpy=1, d=21, n_sweeps=10, dx=1.0 / n, dy=1.0 / n,
+                    bc=neumann, px=1, py=1, ab=DIFF_AB, emit=emit)
+        v, vc = rand(n + 2, n + 2), rand(n // 2 + 2, n // 2 + 2, scale=0.1)
+        check(f"mg_correct {n}^2", "mg_correct", smk.correct_plain(v, vc),
+              smk.launch_correct(v, vc), record=n == 1024)
+    n = 1024                                     # (b) the blocks of 1024^2
+    Av, Af = rand(n, n, scale=0.1), rand(n, n)
+    for kinds in (("dirichlet",) * 4, ("periodic",) * 4):
+        bc = bnd.BC(xlb=kinds[0], xrb=kinds[1], ylb=kinds[2], yrb=kinds[3])
+        for px, py in ((2, 2), (1, 4)):
+            bx, by = n // px, n // py
+            d = min([21] + ([bx] if px > 1 else []) + ([by] if py > 1
+                                                       else []))
+            dpx, dpy = (d if px > 1 else 1), (d if py > 1 else 1)
+            for ix in range(px):
+                for iy in range(py):
+                    vd = frame_from_global(Av, ix, iy, px, py, dpx, dpy)
+                    fd = frame_from_global(Af, ix, iy, px, py, dpx, dpy)
+                    for emit in ("v_fc", "v_r"):
+                        compare(f"{px}x{py} block ({ix}, {iy}) {kinds[0]}",
+                                vd, fd, kernel_flags(bc, px, py, ix, iy),
+                                dpx=dpx, dpy=dpy, d=d, n_sweeps=10,
+                                dx=1.0 / n, dy=1.0 / n, bc=bc, px=px, py=py,
+                                ab=DIFF_AB, emit=emit)
+    n = 256                                      # (c) smoothers, operators
+    vd, fd = rand(n + 2, n + 2, scale=0.1), rand(n + 2, n + 2)
+    for smoother in ("jacobi", "chebyshev"):
+        for emit in smk.EMITS:
+            compare(f"{smoother} {n}^2", vd, fd, one, dpx=1, dpy=1, d=21,
+                    n_sweeps=8 if smoother == "jacobi" else 4, dx=1.0 / n,
+                    dy=1.0 / n, bc=neumann, px=1, py=1, ab=(0.0, -1.0),
+                    emit=emit, smoother=smoother)
+    mesh = make_mesh()
+    for case in MG_CASES:
+        name, op, edges, _ = case
+        if op == "const":
+            continue
+        serial = make_case_mg(n, name, op, edges, dtype)
+        kw = dict(xl_BC_type=edges[0], xr_BC_type=edges[1],
+                  yl_BC_type=edges[2], yr_BC_type=edges[3], dtype=dtype)
+        if op == "vc":
+            smg = ShardedVarCoeffMG(n, n, mesh,
+                                    coeffs=serial.aux["coeffs"][-1],
+                                    coeffs_bc=serial.aux_bc["coeffs"], **kw)
+        else:
+            smg = ShardedGeneralMG(n, n, mesh, coeffs=general_coeffs(
+                serial.grids[-1], *(serial.aux[c][-1] for c in
+                                    ("alpha", "beta", "gamma_x",
+                                     "gamma_y")), dtype), **kw)
+        top = smg.nlevels - 1
+        for smoother in smk.SMOOTHERS:
+            for emit in ("v_fc", "v_r"):
+                compare(f"{name} {smoother} {n}^2", vd, fd, one, dpx=1,
+                        dpy=1, d=21, n_sweeps={"rbgs": 10, "jacobi": 8,
+                                               "chebyshev": 4}[smoother],
+                        dx=1.0 / n, dy=1.0 / n, bc=smg.bc, px=1, py=1,
+                        planes=smg._planes[top], emit=emit,
+                        smoother=smoother)
+    torch.cuda.synchronize()
+    worst = max(rows, key=lambda r: r[1] / r[2])
+    log(f"  ok  {str(dtype)[6:]:8s} {len(rows)} checks, worst {worst[0]}: "
+        f"{worst[1]:.3e} (tol {tol:g} x {worst[2]:.3g})")
+
+
+def sharded_path(n, steps, dtype):
+    """ShardedDiffusion gaussian on a 1x1 mesh (parallel.make_mesh() on the
+    card) for `steps` steps with every count reset just before and read
+    just after; returns (the ShardedDiffusion, seconds, launches by kernel,
+    cycles of each solve)."""
+    import torch
+
+    from pyro2_tpu_torch import Pyro
+    from pyro2_tpu_torch.multigrid import mg_kernel, sharded_mg_kernel
+    from pyro2_tpu_torch.parallel import ShardedDiffusion, make_mesh
+    from pyro2_tpu_torch.parallel import sharded_mg
+
+    p = Pyro("diffusion")               # the runtime parameters, on CUDA
+    p.initialize_problem("gaussian", inputs_dict={
+        "mesh.nx": n, "mesh.ny": n, "driver.max_steps": steps,
+        "driver.tmax": 1.0e30})
+    mesh = make_mesh()
+    assert mesh.shape == (1, 1) and mesh.device.type == "cuda"
+    sd = ShardedDiffusion(p.rp, mesh, dtype=dtype)
+    assert sd.phi_int.is_cuda and sd.phi_int.dtype == dtype
+    torch.cuda.synchronize()
+    reset_counts()
+    cycles = []
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        sd.evolve()
+        cycles.append(sd.smg.num_cycles)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    ctu, mg_launches, _ = read_counts()
+    no_mol_launches("sharded diffusion")
+    no_swe_launches("sharded diffusion")
+    no_lm_launches("sharded diffusion")
+    no_padded_launches("sharded diffusion")
+    sharded = dict(sharded_mg_kernel.launches)
+    levels = sd.smg.nlevels - sd.smg.k_cross
+    total = sharded_mg.stats["cycles"]
+    expect_mg = dict.fromkeys(mg_launches, 0)
+    expect_mg["mg_core"] = total
+    expect = {"mg_deep_smooth": 2 * levels * total,
+              "mg_correct": levels * total}
+    if (ctu or mg_launches != expect_mg or sharded != expect or
+            total != sum(cycles) or sharded_mg.stats["solves"] != steps):
+        raise AssertionError(
+            f"sharded diffusion: launches {sharded}, multigrid {mg_launches}"
+            f" (CTU {ctu}) for {total} cycles of {levels} sharded levels, "
+            f"expected {expect} and mg_core {total}")
+    if not bool(torch.isfinite(sd.phi_int).all()):
+        raise AssertionError("sharded diffusion: phi is not finite")
+    zps = n * n * steps / seconds
+    log(f"  ShardedDiffusion gaussian {n}x{n} {str(dtype)[6:]} on a 1x1 mesh:"
+        f" {steps} steps in {seconds:.3f} s, {1e3 * seconds / steps:.3f} "
+        f"ms/step, {zps:.4e} zone-updates/s; {steps} solves, {total} cycles "
+        f"({total / steps:.2f} per solve), {levels} sharded levels above a "
+        f"{2 ** sd.smg.k_cross}^2 core; launches {sharded}, mg_core "
+        f"{mg_launches['mg_core']}, mg_down {mg_launches['mg_down']}, mg_up "
+        f"{mg_launches['mg_up']}")
+    return sd, seconds, {**sharded, "mg_core": mg_launches["mg_core"]}, \
+        cycles
+
+
+def sharded_vs_serial(n, steps, dtype, tol):
+    """ShardedDiffusion on a 1x1 mesh against the serial diffusion (Pyro,
+    CUDA) from the same parameters: the same cycle count in every solve and
+    phi within tol max|phi|."""
+    import torch
+
+    from pyro2_tpu_torch import Pyro
+    from pyro2_tpu_torch.multigrid import MG
+
+    sd, _, _, cycles = sharded_path(n, steps, dtype)
+    p = Pyro("diffusion", dtype=dtype)
+    p.initialize_problem("gaussian", inputs_dict={
+        "mesh.nx": n, "mesh.ny": n, "driver.max_steps": steps,
+        "driver.tmax": 1.0e30})
+    serial = []
+    for _ in range(steps):
+        before = MG.stats["cycles"]
+        p.single_step()
+        serial.append(MG.stats["cycles"] - before)
+    if dtype == torch.float64 and cycles != serial:
+        raise AssertionError(f"ShardedDiffusion {n}^2: cycles per solve "
+                             f"{cycles}, the serial diffusion's {serial}")
+    return sharded_phi_check(sd, p, tol, f"cycles per solve {cycles}, "
+                             f"serial {serial}")
+
+
+def sharded_phi_check(sd, p, tol, note=""):
+    """ShardedDiffusion's phi against the serial diffusion Pyro p after as
+    many steps: max|diff| <= tol max|phi|."""
+    g = p.sim.cc_data.grid
+    ref = p.get_var("phi")[g.ilo:g.ihi + 1, g.jlo:g.jhi + 1]
+    err = float((sd.get_phi() - ref).abs().max())
+    scale = float(ref.abs().max())
+    ok = sd.n == p.sim.n and err <= tol * scale
+    log(f"  {'ok ' if ok else 'BAD'} ShardedDiffusion vs serial diffusion "
+        f"{g.nx}^2 {str(sd.phi_int.dtype)[6:]}, {sd.n} steps: max|diff| "
+        f"{err:.3e} (tol {tol:g} x {scale:.6g}) {note}")
+    if not ok:
+        raise AssertionError("ShardedDiffusion disagrees with the serial "
+                             "diffusion")
+    return err
+
+
+def sharded_timing(sd, bw, fp32):
+    """CUDA-event times of mg_deep_smooth and mg_correct and their plain
+    versions as the finest level of the path's cycle calls them."""
+    import numpy as np
+    import torch
+
+    from pyro2_tpu_torch.multigrid import sharded_mg_kernel as smk
+
+    smg = sd.smg
+    top = smg.nlevels - 1
+    geom = smg._deep_geom[top]
+    lg = smg.local_grids[top]
+    dtype = smg.dtype
+    rng = np.random.default_rng(23)
+    vd = torch.as_tensor(0.1 * rng.standard_normal(
+        (lg.nx + 2 * geom["dpx"], lg.ny + 2 * geom["dpy"])), dtype=dtype,
+        device="cuda")
+    fd = torch.as_tensor(rng.standard_normal(tuple(vd.shape)), dtype=dtype,
+                         device="cuda")
+    kw = dict(dpx=geom["dpx"], dpy=geom["dpy"], d=geom["d"],
+              n_sweeps=geom["sweeps_rb"][0], dx=lg.dx, dy=lg.dy, bc=smg.bc,
+              px=1, py=1, ab=(smg.serial.alpha, smg.serial.beta),
+              emit="v_fc")
+    out = {"mg_deep_smooth": time_pair(
+        f"mg_deep_smooth (1x1 {lg.nx}^2 frame, d {geom['d']}, "
+        f"{kw['n_sweeps']} sweeps, v_fc)",
+        lambda: smk.launch_deep_smooth(vd, fd, smg._flags, **kw),
+        lambda: smk.deep_smooth_plain(vd, fd, smg._flags, **kw),
+        smk.work("mg_deep_smooth", bx=lg.nx, by=lg.ny, dtype=dtype,
+                 dpx=kw["dpx"], dpy=kw["dpy"], d=kw["d"],
+                 n_sweeps=kw["n_sweeps"], flags=smg._flags, emit="v_fc"),
+        bw, fp32)}
+    v = torch.as_tensor(rng.standard_normal((lg.nx + 2, lg.ny + 2)),
+                        dtype=dtype, device="cuda")
+    vc = torch.as_tensor(0.1 * rng.standard_normal(
+        (lg.nx // 2 + 2, lg.ny // 2 + 2)), dtype=dtype, device="cuda")
+    out["mg_correct"] = time_pair(
+        f"mg_correct ({lg.nx}^2)", lambda: smk.launch_correct(v, vc),
+        lambda: smk.correct_plain(v, vc),
+        smk.work("mg_correct", bx=lg.nx, by=lg.ny, dtype=dtype), bw, fp32)
+    return out
+
+
+def profile_steps(step, steps, label):
+    """torch.profiler over `steps` main-path steps (calls of `step`):
+    device time by kernel and the device's busy share of the wall time."""
     import re
 
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    p.single_step()
+    step()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
-            p.single_step()
+            step()
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
     rows = []
@@ -1271,12 +1611,12 @@ def profile_steps(p, steps, label):
         dev_us = getattr(e, "device_time_total",
                          getattr(e, "cuda_time_total", 0.0))
         if e.device_type == torch.autograd.DeviceType.CUDA and dev_us > 0:
-            m = re.search(r"(k_[a-z0-9_]+)<(?:(\d), )?(float|double)"
+            m = re.search(r"(k_[a-z0-9_]+)<((?:\d, )*)(float|double)"
                           r"(?:, (true|false))?>", e.key)
             if m:
                 name = f"{kernel_source(m.group(1))} " \
-                    f"{m.group(1)}<{OPS.get(m.group(2), '')}{m.group(3)}" \
-                    f"{GEOMETRY.get(m.group(4), '')}>"
+                    f"{m.group(1)}<{template_args(m.group(1), m.group(2))}" \
+                    f"{m.group(3)}{GEOMETRY.get(m.group(4), '')}>"
             else:
                 name = e.key[:72]
             rows.append((dev_us, e.count, name))
@@ -1303,10 +1643,11 @@ def ptxas_summary(text):
         if m:
             if name:
                 out.append(f"{name}: {', '.join(info)}")
-            k = re.search(r"(k_[a-z0-9_]+)I(?:Li(\d)E)?([fd])(?:Lb(\d)E)?E",
+            k = re.search(r"(k_[a-z0-9_]+)I((?:Li\d+E)*)([fd])(?:Lb(\d)E)?E",
                           m.group(1))
             kind = "float" if k and k.group(3) == "f" else "double"
-            name = f"{k.group(1)}<{OPS.get(k.group(2), '')}{kind}" \
+            name = f"{k.group(1)}<" \
+                f"{template_args(k.group(1), k.group(2))}{kind}" \
                 f"{GEOMETRY.get(k.group(4), '')}>" if k else m.group(1)[:60]
             info = []
             continue
@@ -1325,16 +1666,33 @@ def ptxas_summary(text):
     return out
 
 
-# the operator template argument of the multigrid kernels (mg_vcycle.cu)
+# the operator template argument of the multigrid kernels (mg_vcycle.cu,
+# mg_deep.cu), and the smoother and emit ones of mg_deep.cu's k_deep
 OPS = {"0": "const, ", "1": "vc, ", "2": "general, "}
+DEEP_SMOOTHERS = ("rbgs, ", "jacobi, ", "chebyshev, ")
+DEEP_EMITS = ("v, ", "v_fc, ", "v_r, ")
 # the geometry template argument of the CTU stages (ctu_step.cu)
 GEOMETRY = {"true": ", spherical", "1": ", spherical"}
+
+
+def template_args(kernel, ints):
+    """The integer template arguments of a kernel, named: "0, 1, " from a
+    profiler key or "Li0ELi1E" from a mangled name."""
+    import re
+
+    vals = re.findall(r"\d+", ints)
+    if kernel == "k_deep" and len(vals) == 3:
+        return (OPS[vals[0]] + DEEP_SMOOTHERS[int(vals[1])] +
+                DEEP_EMITS[int(vals[2])])
+    return "".join(OPS.get(v, v + ", ") for v in vals)
 
 
 def kernel_source(kernel):
     """The source file of a device kernel, by its name."""
     if kernel in ("k_core", "k_down", "k_up"):
         return "mg_vcycle.cu"
+    if kernel in ("k_deep", "k_correct"):
+        return "mg_deep.cu"
     if kernel.startswith("k_lm_"):
         return "lm_interface.cu"
     if kernel.startswith(("k_rk_", "k_fv4_")):
@@ -1366,7 +1724,7 @@ def main():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
     sys.path.insert(0, HERE)
-    from pyro2_tpu_torch.multigrid import mg_kernel
+    from pyro2_tpu_torch.multigrid import mg_kernel, sharded_mg_kernel
     from pyro2_tpu_torch.solvers.compressible import ctu_kernel
     from pyro2_tpu_torch.solvers.compressible_fv4 import mol_kernel
     from pyro2_tpu_torch.solvers.lm_atm import lm_kernel
@@ -1389,9 +1747,10 @@ def main():
     t0 = time.perf_counter()
     built = cuda_build.build_many([ctu_kernel.SOURCE, mg_kernel.SOURCE,
                                    mol_kernel.SOURCE, swe_kernel.SOURCE,
-                                   lm_kernel.SOURCE], verbose=True)
+                                   lm_kernel.SOURCE, sharded_mg_kernel.SOURCE],
+                                  verbose=True)
     for module in (ctu_kernel, mg_kernel, mol_kernel, swe_kernel,
-                   lm_kernel):
+                   lm_kernel, sharded_mg_kernel):
         module._load()
     log(f"  built in {time.perf_counter() - t0:.1f} s (with load)")
     for so, nvcc_s, ptxas in built:
@@ -1494,12 +1853,22 @@ def main():
                 bubble_g, bubble_calls = g, calls
         torch.cuda.empty_cache()
 
+    # 4b. the sharded multigrid kernels vs their plain versions on the card
+    log(f"[mg_deep_smooth, mg_correct vs plain versions on the card; {smi}]")
+    sharded_err = {}
+    for dtype, tol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
+        sharded_compare(dtype, tol,
+                        sharded_err if dtype == torch.float32 else {})
+        torch.cuda.empty_cache()
+
     # 5. the main paths
     log("[main paths: Pyro -> run_sim, CUDA float32]")
     p, _, quad_launches = main_path("quad", 1024, 1024, 100)
     main_path("rt", 256, 768, 50)
-    _, diff_launches = mg_main_path("diffusion", "gaussian", 1024, 10)
-    shear, shear_launches = mg_main_path("incompressible", "shear", 1024, 10)
+    diff, diff_launches, diff_seconds = mg_main_path("diffusion", "gaussian",
+                                                     1024, 10)
+    shear, shear_launches, _ = mg_main_path("incompressible", "shear", 1024,
+                                            10)
     mg_launches = {k: diff_launches[k] + shear_launches[k]
                    for k in MG_KERNELS}
     rk_quad, n_rk_quad = mol_main_path("compressible_rk", "quad", 1024,
@@ -1525,6 +1894,14 @@ def main():
         "ctu_padin": padded_path("ctu_padin", "kh", 1024, 20),
         "ctu_ensemble": padded_path("ctu_ensemble", "acoustic_pulse", 256,
                                     20, n_ens=8)}
+    log("[the sharded multigrid: ShardedDiffusion on a 1x1 mesh, CUDA]")
+    sharded, sh_seconds, sh_launches, _ = sharded_path(1024, 10,
+                                                       torch.float32)
+    log(f"  serial diffusion gaussian 1024x1024 f32 in the same run: "
+        f"{100 * diff_seconds:.3f} ms/step; sharded "
+        f"{100 * sh_seconds:.3f} ms/step")
+    sharded_phi_check(sharded, diff, 1e-5)
+    sharded_vs_serial(256, 5, torch.float64, 1e-12)
 
     # 6. timing at the main paths' shapes
     log("[timing: quad 1024^2 float32, CUDA events]")
@@ -1623,13 +2000,21 @@ def main():
             ctu_kernel.work(g.nx, g.ny, psim.ivars.nvar, torch.float32,
                             n_members=pstep.n_members), bw, fp32)
 
+    log(f"[timing: the sharded multigrid kernels at the 1024^2 path's "
+        f"finest level, float32, CUDA events; {smi}]")
+    sharded_times = sharded_timing(sharded, bw, fp32)
+
     # 7. where a main-path step's time goes
-    profile_steps(p, 20, "quad 1024^2 float32")
-    profile_steps(shear, 5, "incompressible shear 1024^2 float32")
-    profile_steps(fv4, 5, "compressible_fv4 acoustic_pulse 1024^2 float32")
-    profile_steps(swe_quad, 5, "swe quad 1024^2 float32")
-    profile_steps(lm, 5, "lm_atm bubble 1024^2 float32")
-    profile_steps(sph, 20, "spherical advect 1024^2 float32")
+    profile_steps(p.single_step, 20, "quad 1024^2 float32")
+    profile_steps(shear.single_step, 5,
+                  "incompressible shear 1024^2 float32")
+    profile_steps(fv4.single_step, 5,
+                  "compressible_fv4 acoustic_pulse 1024^2 float32")
+    profile_steps(swe_quad.single_step, 5, "swe quad 1024^2 float32")
+    profile_steps(lm.single_step, 5, "lm_atm bubble 1024^2 float32")
+    profile_steps(sph.single_step, 20, "spherical advect 1024^2 float32")
+    profile_steps(sharded.evolve, 5,
+                  "ShardedDiffusion gaussian 1024^2 float32, 1x1 mesh")
 
     kernels = [{
         "name": "ctu_step",
@@ -1748,6 +2133,21 @@ def main():
                 f"pyro2_tpu/solvers/compressible/pallas_step.py:{line}",
             "launches": padded[name][4],
             "max_abs_err": padded_err[name],
+            "ms": ms,
+            "plain_ms": p_ms,
+            "bound_ms": b_ms,
+            "bound_by": b_by,
+            "library_ms": None,
+        })
+    for name, line in (("mg_deep_smooth", 87), ("mg_correct", 307)):
+        ms, p_ms, b_ms, b_by = sharded_times[name]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "pyro2_tpu_torch/csrc/mg_deep.cu",
+            "replaces": f"pyro2_tpu/multigrid/pallas_sharded_mg.py:{line}",
+            "launches": sh_launches[name],
+            "max_abs_err": sharded_err[name],
             "ms": ms,
             "plain_ms": p_ms,
             "bound_ms": b_ms,

@@ -1,0 +1,113 @@
+// mg_ops.cuh -- the multigrid operators' device code, shared by mg_vcycle.cu
+// (the V-cycle of one frame) and mg_deep.cu (the sharded multigrid's deep-halo
+// smoothing round and coarse-grid correction).
+//
+// The three operators of pyro2_tpu_torch/multigrid:
+//
+//   OP_CONST    (alpha - beta L) phi = f, L the 5-point Laplacian
+//               (MG.CellCenterMG2d);
+//   OP_VC       div(eta grad phi) = f with edge coefficients eta_x, eta_y
+//               (variable_coeff_MG.VarCoeffCCMG2d);
+//   OP_GENERAL  alpha phi + div(beta grad phi) + gamma.grad phi = f with
+//               planes alpha, beta_x, beta_y and the 0.5/dx-prescaled
+//               gamma_x, gamma_y (general_MG.GeneralMG2d).
+//
+// Every function reads a frame through a level descriptor `L` of any type
+// that has
+//   q                       the frame's row stride (cells in a row),
+//   qq                      the stride between two coefficient planes,
+//   xc, yc, den, dx2, dy2   OP_CONST: beta/dx^2, beta/dy^2,
+//                           alpha + 2 xc + 2 yc, dx^2, dy^2,
+//   c                       OP_VC / OP_GENERAL: the plane stack, laid out
+//                           like the frame,
+// so one stencil serves the square one-ghost levels of mg_vcycle.cu and the
+// rectangular deep frames of mg_deep.cu.  Each stencil is written in the
+// order of the plain PyTorch version (MG.py, variable_coeff_MG.py,
+// general_MG.py); with -fmad=false the two round alike.
+
+#pragma once
+
+#include <stddef.h>
+
+// the operator
+enum { OP_CONST = 0, OP_VC = 1, OP_GENERAL = 2 };
+
+// the Gauss-Seidel update of cell c.  VC and GENERAL read their edge
+// coefficients as the plain smoothers' views do: bxp = x-plane at i+1 (the
+// high-x face), bx = at i, byp = y-plane at j+1, by = at j
+template <int OP, typename T, typename Level>
+__device__ __forceinline__ T gs(const T* v, const T* f, const Level& L,
+                                int c) {
+  const int q = L.q;
+  if constexpr (OP == OP_CONST) {
+    return (f[c] + L.xc * (v[c + q] + v[c - q]) +
+            L.yc * (v[c + 1] + v[c - 1])) / L.den;
+  } else if constexpr (OP == OP_VC) {
+    const size_t qq = L.qq;
+    const T *ex = L.c, *ey = L.c + qq;
+    const T bxp = ex[c + q], bx = ex[c], byp = ey[c + 1], by = ey[c];
+    const T den = bxp + bx + byp + by;
+    return (-f[c] + bxp * v[c + q] + bx * v[c - q] + byp * v[c + 1] +
+            by * v[c - 1]) / den;
+  } else {
+    const size_t qq = L.qq;
+    const T *al = L.c, *ex = L.c + qq, *ey = L.c + 2 * qq;
+    const T *gx = L.c + 3 * qq, *gy = L.c + 4 * qq;
+    const T bxp = ex[c + q], bx = ex[c], byp = ey[c + 1], by = ey[c];
+    const T den = al[c] - bxp - bx - byp - by;
+    return (f[c] - (bxp + gx[c]) * v[c + q] - (bx - gx[c]) * v[c - q] -
+            (byp + gy[c]) * v[c + 1] - (by - gy[c]) * v[c - 1]) / den;
+  }
+}
+
+// the residual f - (operator) v at cell c (alpha, beta: OP_CONST only)
+template <int OP, typename T, typename Level>
+__device__ __forceinline__ T resid(const T* v, const T* f, const Level& L,
+                                   T alpha, T beta, int c) {
+  const int q = L.q;
+  if constexpr (OP == OP_CONST) {
+    const T lap = (v[c - q] + v[c + q] - T(2) * v[c]) / L.dx2 +
+                  (v[c - 1] + v[c + 1] - T(2) * v[c]) / L.dy2;
+    return f[c] - alpha * v[c] + beta * lap;
+  } else if constexpr (OP == OP_VC) {
+    const size_t qq = L.qq;
+    const T *ex = L.c, *ey = L.c + qq;
+    const T Lv = ex[c + q] * (v[c + q] - v[c]) - ex[c] * (v[c] - v[c - q]) +
+                 ey[c + 1] * (v[c + 1] - v[c]) - ey[c] * (v[c] - v[c - 1]);
+    return f[c] - Lv;
+  } else {
+    const size_t qq = L.qq;
+    const T *al = L.c, *ex = L.c + qq, *ey = L.c + 2 * qq;
+    const T *gx = L.c + 3 * qq, *gy = L.c + 4 * qq;
+    const T Lv = al[c] * v[c] + ex[c + q] * (v[c + q] - v[c]) -
+                 ex[c] * (v[c] - v[c - q]) + ey[c + 1] * (v[c + 1] - v[c]) -
+                 ey[c] * (v[c] - v[c - 1]) + gx[c] * (v[c + q] - v[c - q]) +
+                 gy[c] * (v[c + 1] - v[c - 1]);
+    return f[c] - Lv;
+  }
+}
+
+// the factor-2 average of the residual over four children, c the one with
+// the lowest row and column (mesh.patch.restrict_array's order)
+template <int OP, typename T, typename Level>
+__device__ __forceinline__ T restrict4(const T* v, const T* f, const Level& L,
+                                       T alpha, T beta, int c) {
+  const int q = L.q;
+  return T(0.25) * (((resid<OP>(v, f, L, alpha, beta, c) +
+                      resid<OP>(v, f, L, alpha, beta, c + q)) +
+                     resid<OP>(v, f, L, alpha, beta, c + 1)) +
+                    resid<OP>(v, f, L, alpha, beta, c + q + 1));
+}
+
+// the centred-slope prolongation of the one-ghost coarse frame vc (row
+// stride qc) at cell (i, j) of the one-ghost fine frame
+// (mesh.patch.prolong_array)
+template <typename T>
+__device__ __forceinline__ T prolong(const T* vc, int qc, int i, int j) {
+  const int C = ((i + 1) >> 1) * qc + ((j + 1) >> 1);
+  const T sx = ((i - 1) & 1) ? T(0.25) : T(-0.25);
+  const T sy = ((j - 1) & 1) ? T(0.25) : T(-0.25);
+  const T mx = T(0.5) * (vc[C + qc] - vc[C - qc]);
+  const T my = T(0.5) * (vc[C + 1] - vc[C - 1]);
+  return vc[C] + sx * mx + sy * my;
+}

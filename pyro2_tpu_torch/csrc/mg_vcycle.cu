@@ -1,17 +1,11 @@
 // mg_vcycle.cu -- the multigrid V-cycle on Hopper, for the three operators
-// of pyro2_tpu_torch/multigrid:
-//
-//   OP_CONST    (alpha - beta L) phi = f, L the 5-point Laplacian
-//               (MG.CellCenterMG2d; the JAX package's pallas_mg.py);
-//   OP_VC       div(eta grad phi) = f with edge coefficients eta_x, eta_y
-//               (variable_coeff_MG.VarCoeffCCMG2d);
-//   OP_GENERAL  alpha phi + div(beta grad phi) + gamma.grad phi = f with
-//               planes alpha, beta_x, beta_y and the 0.5/dx-prescaled
-//               gamma_x, gamma_y (general_MG.GeneralMG2d);
-//
-// the last two replacing pyro2_tpu/multigrid/pallas_gen_mg.py, all on a
-// square 2^k grid with one ghost cell and homogeneous standard BCs.  One
-// template per kernel, instantiated for each operator:
+// of pyro2_tpu_torch/multigrid (OP_CONST, OP_VC, OP_GENERAL: MG.CellCenterMG2d,
+// variable_coeff_MG.VarCoeffCCMG2d and general_MG.GeneralMG2d), whose stencils,
+// restriction and prolongation live in mg_ops.cuh, shared with mg_deep.cu.
+// OP_CONST replaces the JAX package's pallas_mg.py, the other two
+// pyro2_tpu/multigrid/pallas_gen_mg.py, all on a square 2^k grid with one
+// ghost cell and homogeneous standard BCs.  One template per kernel,
+// instantiated for each operator:
 //
 //   mg_core  <- _make_core_kernel / _make_core_kernel_g: the whole
 //               sub-V-cycle of the coarse levels 0..top (nsmooth_bottom
@@ -40,10 +34,10 @@
 // here each cell update reads its four edge values (and alpha, gamma) and
 // forms the denominator itself, which costs no extra traffic.
 //
-// Arithmetic: each stencil is written in the order of the plain PyTorch
-// version (MG.py, variable_coeff_MG.py, general_MG.py), and the build uses
-// -fmad=false, so the two agree to a few roundings (the coefficient forms,
-// which have no division by a Python scalar, bit for bit).
+// Arithmetic: each stencil (mg_ops.cuh) is written in the order of the plain
+// PyTorch version (MG.py, variable_coeff_MG.py, general_MG.py), and the build
+// uses -fmad=false, so the two agree to a few roundings (the coefficient
+// forms, which have no division by a Python scalar, bit for bit).
 //
 // Ghost fills.  A homogeneous fill sets every ghost cell to +-1 times one
 // interior cell: x-lo, x-hi, y-lo, y-hi in that order, so a corner is the
@@ -86,6 +80,8 @@
 #include <cuda_runtime.h>
 #include <stddef.h>
 
+#include "mg_ops.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -97,13 +93,11 @@ constexpr int CORE_THREADS = 1024;
 // ghost-fill kind of an edge
 enum { COPY = 0, NEGATE = 1, PERIODIC = 2 };
 
-// the operator
-enum { OP_CONST = 0, OP_VC = 1, OP_GENERAL = 2 };
-
 // one level: its size, stencil coefficients and ghost sources
 template <typename T>
 struct Lev {
   int n, q;                  // interior cells per side; frame side n + 2
+  size_t qq;                 // cells of a frame: the planes' stride
   T xc, yc, den;             // CONST: beta/dx^2, beta/dy^2, alpha+2xc+2yc
   T dx2, dy2;                // CONST: dx^2, dy^2 of the residual's Laplacian
   int sxl, sxh, syl, syh;    // interior row / column each ghost edge mirrors
@@ -120,6 +114,7 @@ Lev<T> make_level(int n, const double* coef, const int* bc,
   L.c = static_cast<const T*>(planes);
   L.n = n;
   L.q = n + 2;
+  L.qq = (size_t)L.q * L.q;
   L.xc = (T)coef[0];
   L.yc = (T)coef[1];
   L.den = (T)coef[2];
@@ -154,85 +149,13 @@ __device__ __forceinline__ void put(T* v, const Lev<T>& L, int i, int j,
   if (xh && yh) v[(q - 1) * q + q - 1] = L.gyh * (L.gxh * val);
 }
 
-// the Gauss-Seidel update of cell c.  VC and GENERAL read their edge
-// coefficients as the plain smoothers' views do: bxp = x-plane at i+1 (the
-// high-x face), bx = at i, byp = y-plane at j+1, by = at j
-template <int OP, typename T>
-__device__ __forceinline__ T gs(const T* v, const T* f, const Lev<T>& L,
-                                int c) {
-  const int q = L.q;
-  if constexpr (OP == OP_CONST) {
-    return (f[c] + L.xc * (v[c + q] + v[c - q]) +
-            L.yc * (v[c + 1] + v[c - 1])) / L.den;
-  } else if constexpr (OP == OP_VC) {
-    const size_t qq = (size_t)q * q;
-    const T *ex = L.c, *ey = L.c + qq;
-    const T bxp = ex[c + q], bx = ex[c], byp = ey[c + 1], by = ey[c];
-    const T den = bxp + bx + byp + by;
-    return (-f[c] + bxp * v[c + q] + bx * v[c - q] + byp * v[c + 1] +
-            by * v[c - 1]) / den;
-  } else {
-    const size_t qq = (size_t)q * q;
-    const T *al = L.c, *ex = L.c + qq, *ey = L.c + 2 * qq;
-    const T *gx = L.c + 3 * qq, *gy = L.c + 4 * qq;
-    const T bxp = ex[c + q], bx = ex[c], byp = ey[c + 1], by = ey[c];
-    const T den = al[c] - bxp - bx - byp - by;
-    return (f[c] - (bxp + gx[c]) * v[c + q] - (bx - gx[c]) * v[c - q] -
-            (byp + gy[c]) * v[c + 1] - (by - gy[c]) * v[c - 1]) / den;
-  }
-}
-
-// the residual f - (operator) v at cell c (alpha, beta: OP_CONST only)
-template <int OP, typename T>
-__device__ __forceinline__ T resid(const T* v, const T* f, const Lev<T>& L,
-                                   T alpha, T beta, int c) {
-  const int q = L.q;
-  if constexpr (OP == OP_CONST) {
-    const T lap = (v[c - q] + v[c + q] - T(2) * v[c]) / L.dx2 +
-                  (v[c - 1] + v[c + 1] - T(2) * v[c]) / L.dy2;
-    return f[c] - alpha * v[c] + beta * lap;
-  } else if constexpr (OP == OP_VC) {
-    const size_t qq = (size_t)q * q;
-    const T *ex = L.c, *ey = L.c + qq;
-    const T Lv = ex[c + q] * (v[c + q] - v[c]) - ex[c] * (v[c] - v[c - q]) +
-                 ey[c + 1] * (v[c + 1] - v[c]) - ey[c] * (v[c] - v[c - 1]);
-    return f[c] - Lv;
-  } else {
-    const size_t qq = (size_t)q * q;
-    const T *al = L.c, *ex = L.c + qq, *ey = L.c + 2 * qq;
-    const T *gx = L.c + 3 * qq, *gy = L.c + 4 * qq;
-    const T Lv = al[c] * v[c] + ex[c + q] * (v[c + q] - v[c]) -
-                 ex[c] * (v[c] - v[c - q]) + ey[c + 1] * (v[c + 1] - v[c]) -
-                 ey[c] * (v[c] - v[c - 1]) + gx[c] * (v[c + q] - v[c - q]) +
-                 gy[c] * (v[c + 1] - v[c - 1]);
-    return f[c] - Lv;
-  }
-}
-
 // the factor-2 average of the residual over the four children of coarse
 // frame cell (I, J)
 template <int OP, typename T>
 __device__ __forceinline__ T restricted(const T* v, const T* f,
                                         const Lev<T>& L, T alpha, T beta,
                                         int I, int J) {
-  const int q = L.q;
-  const int c = (2 * I - 1) * q + 2 * J - 1;
-  return T(0.25) * (((resid<OP>(v, f, L, alpha, beta, c) +
-                      resid<OP>(v, f, L, alpha, beta, c + q)) +
-                     resid<OP>(v, f, L, alpha, beta, c + 1)) +
-                    resid<OP>(v, f, L, alpha, beta, c + q + 1));
-}
-
-// the centred-slope prolongation of coarse frame vc (side qc) at fine
-// frame cell (i, j)
-template <typename T>
-__device__ __forceinline__ T prolong(const T* vc, int qc, int i, int j) {
-  const int C = ((i + 1) >> 1) * qc + ((j + 1) >> 1);
-  const T sx = ((i - 1) & 1) ? T(0.25) : T(-0.25);
-  const T sy = ((j - 1) & 1) ? T(0.25) : T(-0.25);
-  const T mx = T(0.5) * (vc[C + qc] - vc[C - qc]);
-  const T my = T(0.5) * (vc[C + 1] - vc[C - 1]);
-  return vc[C] + sx * mx + sy * my;
+  return restrict4<OP>(v, f, L, alpha, beta, (2 * I - 1) * L.q + 2 * J - 1);
 }
 
 // frame (i, j) of the k-th interior cell of a colour: red (0) has

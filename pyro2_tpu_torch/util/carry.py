@@ -11,6 +11,8 @@ Simulation of the port holding that state as it stands: the state of a
 converts centers to averages, is not run again.  For lm_atm it also takes
 the base state (`base`: the rho0, p0, beta0 and beta0-edges profiles as
 arrays), which belongs to the run as much as the state does.
+`carry_block` hands one rank of a sharded run its block of a global array,
+for example `numpy.asarray` of a JAX array sharded over a ("x", "y") mesh.
 """
 
 import importlib
@@ -20,7 +22,7 @@ import torch
 
 from pyro2_tpu_torch.util.runparams import RuntimeParameters
 
-__all__ = ["carry", "carry_simulation"]
+__all__ = ["carry", "carry_block", "carry_simulation"]
 
 
 def carry(params, state, *, device="cpu", dtype=torch.float64):
@@ -65,3 +67,19 @@ def carry_simulation(solver_name, problem_name, params, state, *, t=0.0,
     sim.cc_data.t = t
     sim.n = n
     return sim
+
+
+def carry_block(array, mesh, *, dtype=torch.float64):
+    """This rank's block of a global (..., nx, ny) array -- the layout of
+    the JAX package's arrays sharded P(..., "x", "y") -- as a contiguous
+    tensor on the mesh's device (parallel.mesh_comm.Mesh)."""
+    a = np.asarray(array, dtype=np.float64)
+    nx, ny = a.shape[-2:]
+    if nx % mesh.px or ny % mesh.py:
+        raise ValueError(f"a ({nx}, {ny}) array does not split over a "
+                         f"{mesh.px} x {mesh.py} mesh")
+    bx, by = nx // mesh.px, ny // mesh.py
+    blk = a[..., mesh.ix * bx:(mesh.ix + 1) * bx,
+            mesh.iy * by:(mesh.iy + 1) * by]
+    return torch.as_tensor(np.ascontiguousarray(blk), dtype=dtype,
+                           device=mesh.device)

@@ -47,7 +47,9 @@ def test_port_sources_share_the_euler_header():
     for name in ("swe_step.cu", "lm_interface.cu"):
         heads = cuda_build.local_includes(cuda_build.CSRC / name)
         assert [h.name for h in heads] == ["grid_common.cuh"]
-    assert cuda_build.local_includes(cuda_build.CSRC / "mg_vcycle.cu") == []
+    for name in ("mg_vcycle.cu", "mg_deep.cu"):
+        heads = cuda_build.local_includes(cuda_build.CSRC / name)
+        assert [h.name for h in heads] == ["mg_ops.cuh"]
 
 
 def test_grid_header_is_in_every_stencil_build_key(tmp_path, monkeypatch):
@@ -57,9 +59,25 @@ def test_grid_header_is_in_every_stencil_build_key(tmp_path, monkeypatch):
     csrc = tmp_path / "csrc"
     shutil.copytree(cuda_build.CSRC, csrc)
     names = ("ctu_step.cu", "mol_substep.cu", "swe_step.cu",
-             "lm_interface.cu", "mg_vcycle.cu")
+             "lm_interface.cu", "mg_vcycle.cu", "mg_deep.cu")
     before = [cuda_build.library_path(csrc / n) for n in names]
     grid = csrc / "grid_common.cuh"
     grid.write_text(grid.read_text() + "// edited\n")
     after = [cuda_build.library_path(csrc / n) for n in names]
-    assert [a != b for a, b in zip(after, before)] == [True] * 4 + [False]
+    assert [a != b for a, b in zip(after, before)] == [True] * 4 + [False] * 2
+
+
+def test_multigrid_header_is_in_both_multigrid_build_keys(tmp_path):
+    # the operators' device code is shared: editing mg_ops.cuh renames the
+    # V-cycle's and the sharded multigrid's libraries, and no other
+    import shutil
+    csrc = tmp_path / "csrc"
+    shutil.copytree(cuda_build.CSRC, csrc)
+    names = sorted(p.name for p in csrc.glob("*.cu"))
+    assert "mg_deep.cu" in names and len(names) == 6
+    before = {n: cuda_build.library_path(csrc / n) for n in names}
+    ops = csrc / "mg_ops.cuh"
+    ops.write_text(ops.read_text() + "// edited\n")
+    changed = sorted(n for n in names
+                     if cuda_build.library_path(csrc / n) != before[n])
+    assert changed == ["mg_deep.cu", "mg_vcycle.cu"]

@@ -117,8 +117,8 @@ def test_spherical_and_padded_slice_imports_without_cuda_or_jax():
         "bubble, gresho, hse, logo, ramp, rt2, rt_multimode, sedov\n"
         "assert set(ps.launches) == {'ctu_periodic', 'ctu_padin', "
         "'ctu_ensemble'}\n"
-        "assert pyro2_tpu_torch.parallel.__all__ == "
-        "['ensemble_states', 'ensemble_step']\n"
+        "assert {'ensemble_states', 'ensemble_step'} <= "
+        "set(pyro2_tpu_torch.parallel.__all__)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'pyro2_tpu', 'triton')]\n"
         "assert not bad, bad\n"
@@ -179,3 +179,52 @@ def test_chip_smoke_refuses_without_cuda(tmp_path):
                          timeout=120)
     assert res.returncode != 0
     assert '"ok"' not in res.stdout
+
+
+def test_sharded_slice_imports_without_cuda_or_jax():
+    # the mesh layer, the launcher, the sharded multigrid with its kernel
+    # wrapper, and ShardedDiffusion import on a machine with neither CUDA
+    # nor JAX in the process, and never initialise torch.distributed
+    code = (
+        "import sys\n"
+        "import torch\n"
+        "import torch.distributed as dist\n"
+        "assert not torch.cuda.is_available()\n"
+        "import pyro2_tpu_torch.parallel as par\n"
+        "from pyro2_tpu_torch.parallel import blocks, launch, mesh_comm, "
+        "sharded_diffusion, sharded_mg\n"
+        "from pyro2_tpu_torch.multigrid import sharded_mg_kernel as smk\n"
+        "from pyro2_tpu_torch.util.carry import carry_block\n"
+        "assert set(par.__all__) == {'Mesh', 'ShardedDiffusion', "
+        "'ShardedGeneralMG', 'ShardedMG', 'ShardedVarCoeffMG', "
+        "'ensemble_states', 'ensemble_step', 'factor_devices', "
+        "'halo_exchange', 'make_mesh', 'make_sharded_mg'}\n"
+        "assert set(smk.launches) == {'mg_deep_smooth', 'mg_correct'}\n"
+        "assert smk.SOURCE.name == 'mg_deep.cu' and smk._lib is None\n"
+        "assert not dist.is_initialized()\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'pyro2_tpu', 'triton')]\n"
+        "assert not bad, bad\n"
+        "print('clean')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT), CUDA_VISIBLE_DEVICES="")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "clean"
+
+
+def test_rank_programs_import_no_jax():
+    # the sharded tests' ranks unpickle their programs by importing this
+    # module: it must not pull JAX into them
+    code = ("import sys\n"
+            "sys.path.insert(0, 'tests')\n"
+            "import torch_rank_programs\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'pyro2_tpu')]\n"
+            "assert not bad, bad\n"
+            "print('clean')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "clean"

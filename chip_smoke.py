@@ -8,19 +8,24 @@ Phases (any failure exits non-zero and prints no result line):
   2. build the CUDA sources of pyro2_tpu_torch/csrc (ctu_step.cu,
      mg_vcycle.cu, mol_substep.cu, swe_step.cu, lm_interface.cu,
      mg_deep.cu) with nvcc, one process each, started together, and print
-     what ptxas reports (registers, shared memory, spills);
-  3. the CTU kernel against its plain PyTorch version on the card, one step
-     from the same state after 3 kernel steps, for five configurations at a
-     ragged 200x136 and at 1024^2, in float64 (max |diff| <= 1e-12 max|U|)
-     and float32 (<= 1e-5 max|U|), the output's ghosts equal to the
+     what ptxas reports (registers, shared memory, stack and spills; the
+     main path's CTU kernel, k_ctu<float, nvar 4, cartesian>, once more);
+  3. the CTU kernel (one fused launch a step) against its plain PyTorch
+     version on the card, one step from the same state after 3 kernel
+     steps, for seven configurations (CGF limiter 2 on sod, HLLC limiters
+     2, 1 and 0 -- the last without flattening -- on quad, HLLC_lm on
+     periodic kh, rt with gravity, and solid walls with a floor, a sponge
+     and a passive scalar) at 200x136 and 1024x1000, whose last tiles are
+     ragged, and at 1024^2, in float64 (max |diff| <= 1e-12 max|U|) and
+     float32 (<= 1e-5 max|U|), every ghost of the output equal to the
      input's;
   3c. the CTU kernel on spherical grids (advect on r in [0.5, 1] and the
      Sedov blast on r in [0.05, 1], theta in [pi/4, 3 pi/4], CGF, outflow)
-     the same way, and the padded entries of
+     the same way, at the same three shapes, and the padded entries of
      solvers/compressible/padded_step.py against their plain steps on
      periodic frames, one step from the same filled frame after 3 kernel
-     steps: ctu_periodic on advect and ctu_padin on kh at 200x136 and
-     1024^2, ctu_ensemble on 3 x 200x136 and 8 x 256^2 acoustic_pulse
+     steps: ctu_periodic on advect and ctu_padin on kh at the same three
+     shapes, ctu_ensemble on 3 x 200x136 and 8 x 256^2 acoustic_pulse
      members, each member also equal to its one-member kernel step bit for
      bit;
   3a. the swe kernel against its plain step the same way, for five
@@ -44,7 +49,9 @@ Phases (any failure exits non-zero and prints no result line):
      VarCoeffCCMG2d (the _vc entries) with lm_atm's edges (periodic x,
      Neumann bottom, Dirichlet top) and on Neumann walls, and GeneralMG2d
      (the _general entries, alpha 10, beta xy + 1, gamma (1, 1)) with
-     homogeneous Dirichlet edges;
+     homogeneous Dirichlet edges; then mg_core of every case at every top
+     it holds (2^2 .. 128^2 in float32, .. 64^2 in float64), from a guess
+     and from a zero guess;
   4a. the lm_atm interface kernels (lm_mac, lm_rho, lm_states) against
      their plain versions, on decisively signed random fields at 200x136
      and 1024^2 and on a bubble state at 1024^2 after 3 kernel steps, in
@@ -100,8 +107,13 @@ Phases (any failure exits non-zero and prints no result line):
      the spherical CTU step and each padded entry at its path's shape;
      mg_deep_smooth and mg_correct at the sharded path's finest level),
      beside each kernel's bound on this card, and the host time of
-     building lm_atm's VarCoeffCCMG2d at 1024^2;
-  7. torch.profiler breakdowns of 20 quad steps, 5 shear steps, 5 fv4
+     building lm_atm's VarCoeffCCMG2d at 1024^2; the CTU step's peak
+     device memory at quad 1024^2; the core's schedule at the 1024^2
+     cycles' 128^2 top with its barriers counted by kind, and its time on
+     the coarse problems one ShardedDiffusion step hands it against random
+     data (the share of subnormal values in each);
+  7. torch.profiler breakdowns of 20 quad steps, 20 ctu_periodic advect
+     steps (fill + step), 5 diffusion steps, 5 shear steps, 5 fv4
      acoustic_pulse steps, 5 swe quad steps, 5 lm_atm bubble steps, 20
      spherical advect steps and 5 sharded diffusion steps:
      device time by kernel and the device's busy share of the wall time.
@@ -130,6 +142,9 @@ CONFIGS = (
     ("sod_cgf_lim1", "sod", {"compressible.riemann": "CGF",
                              "mesh.ymax": 1.0}, None),
     ("quad_hllc", "quad", {}, None),
+    ("quad_lim1", "quad", {"compressible.limiter": 1}, None),
+    ("quad_lim0_noflat", "quad", {"compressible.limiter": 0,
+                                  "compressible.use_flattening": 0}, None),
     ("kh_hllc_lm_periodic", "kh", {"compressible.riemann": "HLLC_lm"}, None),
     ("rt_gravity_hse", "rt", {}, None),
     ("walls_floor_sponge_scalar", "quad", {
@@ -167,6 +182,10 @@ PERIODIC = {"mesh.xlboundary": "periodic", "mesh.xrboundary": "periodic",
             "mesh.ylboundary": "periodic", "mesh.yrboundary": "periodic",
             "compressible.small_dens": -1.e30, "driver.fix_dt": -1.0}
 PADDED_KERNELS = ("ctu_periodic", "ctu_padin", "ctu_ensemble")
+
+# the CTU checks' grids: ragged against every tile shape (200x136, and
+# 1024x1000, whose last tile column is partial), and the main path's
+CTU_SHAPES = ((200, 136), (1024, 1000), (1024, 1024))
 
 
 # one MOL stage increment each: (name, solver, problem, inputs, extras).
@@ -634,7 +653,8 @@ def padded_path(entry, problem, n, steps, n_ens=None):
     + step from Pyro(problem)'s initial state at its CFL dt, as the JAX
     package's benchmark chains them (bench.py) -- the ensemble through
     parallel.ensemble_step --, every count reset just before and read just
-    after.  Returns (sim, step, frame, dt, launches)."""
+    after.  Returns (sim, step, frame, dt, launches, the fill + step
+    function of (frame, dt))."""
     import torch
 
     from pyro2_tpu_torch.multigrid import mg_kernel
@@ -678,7 +698,7 @@ def padded_path(entry, problem, n, steps, n_ens=None):
         f"{zones * steps / seconds:.4e} zone-updates/s, {entry} launches "
         f"{launches[entry]} (1/step), no other; min rho "
         f"{float(dens.min()):.6g}")
-    return sim, step, P, dt, launches[entry]
+    return sim, step, P, dt, launches[entry], advance
 
 
 def make_mg(n, bc, alpha, beta, dtype):
@@ -868,6 +888,46 @@ def mg_compare(n, case, dtype, tol, errs):
         f"{got.residual_error:.3e} / {ref.residual_error:.3e}")
 
 
+def core_tops_compare(case, dtype, tol):
+    """mg_core of one of MG_CASES at every top it holds (2^2 up to
+    mg_kernel.CORE_MAX[dtype]) against core_plain, from a guess and from a
+    zero guess: v to tol max|v|, the residual to tol times the terms it
+    cancels."""
+    import numpy as np
+    import torch
+
+    from pyro2_tpu_torch.multigrid import mg_kernel
+
+    name, op, edges, _ = case
+    mg = make_case_mg(mg_kernel.CORE_MAX[dtype], name, op, edges, dtype)
+    rng = np.random.default_rng(11)
+    worst, checks = (0.0, 1.0, ""), 0
+    for top in range(mg.nlevels):
+        g = mg.grids[top]
+        for guess in (True, False):
+            v = frame(rng, g, dtype, 0.1) if guess else None
+            f = frame(rng, g, dtype)
+            ref = mg_kernel.core_plain(mg, top, v, f, True)
+            got = mg_kernel.launch_core(mg, top, v, f, True)
+            for what, a, b, scale in (
+                    ("v", ref[0], got[0], float(ref[0].abs().max())),
+                    ("r", ref[1], got[1], resid_scale(mg, top, ref[0], f))):
+                err = float((a - b).abs().max())
+                checks += 1
+                if not bool(torch.isfinite(b).all()) or err > tol * scale:
+                    raise AssertionError(
+                        f"mg_core {name} {g.nx}^2 top {str(dtype)[6:]}: "
+                        f"{what} max|diff| {err:.3e} > {tol:g} x {scale:.3g}")
+                if err / scale > worst[0] / worst[1]:
+                    worst = (err, scale, f"{what} {g.nx}^2")
+    torch.cuda.synchronize()
+    log(f"  ok  mg_core{mg_kernel.FLAVOURS[op][0]:8s} {name:17s} "
+        f"{str(dtype)[6:]:8s} tops 2^2..{mg_kernel.CORE_MAX[dtype]}^2 "
+        f"(warps per level {mg_kernel.core_schedule(mg.nlevels - 1)}): "
+        f"{checks} checks, worst {worst[2]}: {worst[0]:.3e} (tol {tol:g} x "
+        f"{worst[1]:.3g})")
+
+
 def mg_main_path(solver, problem, n, steps):
     """Pyro(solver) -> run_sim on CUDA float32 with the counts reset just
     before and read just after; returns (pyro, launches by kernel,
@@ -940,6 +1000,24 @@ def time_pair(name, kern, plain, work, bw, fp32):
         f"{nops} ops = {ops_ms:.4f} ms); kernel at "
         f"{100 * bound_ms / kern_ms:.2f}% of it")
     return kern_ms, plain_ms, bound_ms, bound_by
+
+
+def ctu_peak_memory(step, U, t, dt):
+    """Peak device bytes one CTU step allocates above what is allocated
+    before it (its output state, and nothing else in the fused design)."""
+    import torch
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = step.launch(U, t, dt)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    log(f"  peak device memory of one step: {peak} B above the "
+        f"{base} B allocated before it (the state is "
+        f"{U.numel() * U.element_size()} B)")
+    del out
+    return peak
 
 
 def mg_timing(mg, label, bw, fp32):
@@ -1589,6 +1667,105 @@ def sharded_timing(sd, bw, fp32):
     return out
 
 
+def core_barriers(top, nsmooth, nsmooth_bottom, warps, cluster):
+    """The barriers one core launch passes, by kind, as mg_vcycle.cu's
+    k_core ends its phases: the cluster's (every thread of its CTAs), the
+    block's (__syncthreads), a named barrier of 2..16 warps, or one warp's
+    __syncwarp.  cluster is mg_kernel.core_cluster's (CTAs, first spread
+    level)."""
+    kinds = {"cluster": 0, "block": 0, "named": 0, "warp": 0}
+    first = cluster[1]
+
+    def add(lv, n):
+        w = warps[lv]
+        kind = "cluster" if lv >= first else "warp" if w == 1 else \
+            "block" if w >= warps[top] else "named"
+        kinds[kind] += n
+
+    add(top, 1)                                         # the load
+    for lv in range(top, 0, -1):        # descent: sweeps, ghosts, restrict
+        add(lv, 2 * nsmooth + (1 if lv >= first else 2))
+        if lv >= first:
+            kinds["block"] += 2                         # the halo rows
+    add(0, 2 * nsmooth_bottom + 1)                      # the bottom
+    for lv in range(1, top + 1):        # ascent: prolong, sweeps, ghosts
+        add(lv, 2 * nsmooth + (2 if lv >= first else 3))
+        if lv >= first:
+            kinds["block"] += 2
+    if top >= first:                    # before any CTA of the cluster exits
+        kinds["cluster"] += 1
+    return kinds
+
+
+def core_schedule_log(mg, label):
+    """The core's schedule at the 1024^2 float32 cycle's top: the warps of
+    each level, the cluster, and its barriers by kind against the first
+    design's block-wide ones."""
+    import torch
+
+    from pyro2_tpu_torch.multigrid import mg_kernel
+
+    top, _ = mg_kernel.split(mg, torch.float32)
+    warps = mg_kernel.core_schedule(top)
+    cluster = mg_kernel.core_cluster(top)
+    first = top * (2 * mg.nsmooth + 1) * 2 + 1 + 2 * mg.nsmooth_bottom
+    bars = core_barriers(top, mg.nsmooth, mg.nsmooth_bottom, warps, cluster)
+    log(f"  mg_core{mg_kernel.FLAVOURS[mg_kernel.flavour(mg)][0]} "
+        f"({label}, {2 ** (top + 1)}^2 top): warps {warps}, cluster "
+        f"{cluster}, barriers {bars}; the first design: {first} "
+        "block-wide barriers of 1024 threads")
+
+
+def core_on_sharded_data(sd):
+    """The core's time on the coarse right-hand sides one ShardedDiffusion
+    step hands it, against random data of the same size and of subnormal
+    size, with the share of subnormal values in each: whether the data
+    sets the core's pace."""
+    import numpy as np
+    import torch
+
+    from pyro2_tpu_torch.multigrid import mg_kernel
+
+    seen, core = [], mg_kernel.core
+
+    def spy(mg, top, v, f, want_r):
+        seen.append((mg, top, f.clone()))
+        return core(mg, top, v, f, want_r)
+
+    mg_kernel.core = spy
+    try:
+        sd.evolve()
+    finally:
+        mg_kernel.core = core
+    torch.cuda.synchronize()
+    tiny = torch.finfo(torch.float32).tiny
+    rng = np.random.default_rng(29)
+
+    def sub(a):
+        return float(((a != 0) & (a.abs() < tiny)).float().mean())
+
+    def timed(what, mg, top, f):
+        run = lambda: mg_kernel.launch_core(mg, top, None, f, False)
+        v = run()[0]
+        event_ms(run, 2)
+        ms = event_ms(run, 10)
+        log(f"    {what}: {ms:.4f} ms; max|f| {float(f.abs().max()):.3e}, "
+            f"subnormal share of f {sub(f):.3f}, of the output v "
+            f"{sub(v):.3f}")
+
+    log(f"  mg_core on one ShardedDiffusion step's coarse problems "
+        f"({len(seen)} cycles) and on random data:")
+    for k, (mg, top, f) in enumerate(seen):
+        timed(f"cycle {k + 1} of the solve", mg, top, f)
+    mg, top, f = seen[-1]
+    g = mg.grids[top]
+    rand = frame(rng, g, torch.float32, float(f.abs().max()))
+    timed("random, scaled by the last cycle's max|f|", mg, top, rand)
+    timed("random, max|f| 1", mg, top, frame(rng, g, torch.float32))
+    timed("random, max|f| 1e-36", mg, top,
+          frame(rng, g, torch.float32, 1e-36))
+
+
 def profile_steps(step, steps, label):
     """torch.profiler over `steps` main-path steps (calls of `step`):
     device time by kernel and the device's busy share of the wall time."""
@@ -1611,14 +1788,10 @@ def profile_steps(step, steps, label):
         dev_us = getattr(e, "device_time_total",
                          getattr(e, "cuda_time_total", 0.0))
         if e.device_type == torch.autograd.DeviceType.CUDA and dev_us > 0:
-            m = re.search(r"(k_[a-z0-9_]+)<((?:\d, )*)(float|double)"
-                          r"(?:, (true|false))?>", e.key)
-            if m:
-                name = f"{kernel_source(m.group(1))} " \
-                    f"{m.group(1)}<{template_args(m.group(1), m.group(2))}" \
-                    f"{m.group(3)}{GEOMETRY.get(m.group(4), '')}>"
-            else:
-                name = e.key[:72]
+            m = re.search(r"(k_[a-z0-9_]+)<([^<>]*)>", e.key)
+            name = (f"{kernel_source(m.group(1))} "
+                    f"{kernel_name(m.group(1), m.group(2).split(', '))}"
+                    if m else e.key[:72])
             rows.append((dev_us, e.count, name))
     rows.sort(reverse=True)
     if not rows:
@@ -1643,12 +1816,12 @@ def ptxas_summary(text):
         if m:
             if name:
                 out.append(f"{name}: {', '.join(info)}")
-            k = re.search(r"(k_[a-z0-9_]+)I((?:Li\d+E)*)([fd])(?:Lb(\d)E)?E",
+            k = re.search(r"(k_[a-z0-9_]+)I((?:Li\d+E|Lb\dE|[fd])+)E",
                           m.group(1))
-            kind = "float" if k and k.group(3) == "f" else "double"
-            name = f"{k.group(1)}<" \
-                f"{template_args(k.group(1), k.group(2))}{kind}" \
-                f"{GEOMETRY.get(k.group(4), '')}>" if k else m.group(1)[:60]
+            args = [{"f": "float", "d": "double"}.get(t, t) for t in
+                     re.findall(r"Li(\d+)E|Lb(\d)E|([fd])", k.group(2))
+                     for t in t if t] if k else []
+            name = kernel_name(k.group(1), args) if k else m.group(1)[:60]
             info = []
             continue
         for pat in (r"Used (\d+ registers)", r"(\d+ bytes smem)",
@@ -1671,20 +1844,19 @@ def ptxas_summary(text):
 OPS = {"0": "const, ", "1": "vc, ", "2": "general, "}
 DEEP_SMOOTHERS = ("rbgs, ", "jacobi, ", "chebyshev, ")
 DEEP_EMITS = ("v, ", "v_fc, ", "v_r, ")
-# the geometry template argument of the CTU stages (ctu_step.cu)
-GEOMETRY = {"true": ", spherical", "1": ", spherical"}
 
 
-def template_args(kernel, ints):
-    """The integer template arguments of a kernel, named: "0, 1, " from a
-    profiler key or "Li0ELi1E" from a mangled name."""
-    import re
-
-    vals = re.findall(r"\d+", ints)
-    if kernel == "k_deep" and len(vals) == 3:
-        return (OPS[vals[0]] + DEEP_SMOOTHERS[int(vals[1])] +
-                DEEP_EMITS[int(vals[2])])
-    return "".join(OPS.get(v, v + ", ") for v in vals)
+def kernel_name(kernel, args):
+    """A kernel and its template arguments, named: args as a profiler key
+    or a mangled name gives them ("0", "float", "true" or "1")."""
+    if kernel == "k_ctu":                       # <T, NV, SPH>
+        geometry = "spherical" if args[2] in ("true", "1") else "cartesian"
+        return f"k_ctu<{args[0]}, nvar {args[1]}, {geometry}>"
+    if kernel == "k_deep" and len(args) == 4:
+        return (f"k_deep<{OPS[args[0]]}{DEEP_SMOOTHERS[int(args[1])]}"
+                f"{DEEP_EMITS[int(args[2])]}{args[3]}>")
+    return f"{kernel}<{''.join(OPS.get(a, a + ', ') for a in args[:-1])}" \
+        f"{args[-1]}>"
 
 
 def kernel_source(kernel):
@@ -1753,16 +1925,20 @@ def main():
                    lm_kernel, sharded_mg_kernel):
         module._load()
     log(f"  built in {time.perf_counter() - t0:.1f} s (with load)")
+    ctu_ptxas = None
     for so, nvcc_s, ptxas in built:
         log(f"  {os.path.relpath(so, HERE)}: nvcc {nvcc_s:.1f} s")
         for line in ptxas_summary(ptxas):
             log("    " + line)
+            if line.startswith("k_ctu<float, nvar 4, cartesian>"):
+                ctu_ptxas = line
+    log(f"  the main path's CTU kernel: {ctu_ptxas}")
 
     # 3. the CTU kernel vs its plain step on the card
     log("[ctu_step vs plain step on the card]")
     ctu_err = None
     for dtype, tol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
-        for nx, ny in ((200, 136), (1024, 1024)):
+        for nx, ny in CTU_SHAPES:
             for name, problem, inputs, extra in CONFIGS:
                 err = compare(name, problem, inputs, extra, nx, ny, dtype,
                               tol)
@@ -1777,7 +1953,7 @@ def main():
         f"plain steps on the card; {smi}]")
     sph_err, padded_err = None, {}
     for dtype, tol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
-        for nx, ny in ((200, 136), (1024, 1024)):
+        for nx, ny in CTU_SHAPES:
             for name, problem, inputs, extra in SPH_CONFIGS:
                 err = compare(name, problem, inputs, extra, nx, ny, dtype,
                               tol)
@@ -1836,6 +2012,12 @@ def main():
                 mg_compare(n, case, dtype, tol,
                            mg_err if (n, dtype) == (1024, torch.float32)
                            else {})
+        torch.cuda.empty_cache()
+
+    log("[mg_core at every top it holds, each operator, vs core_plain]")
+    for dtype, tol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
+        for case in MG_CASES:
+            core_tops_compare(case, dtype, tol)
         torch.cuda.empty_cache()
 
     # 4a. the lm_atm interface kernels vs their plain versions on the card
@@ -1933,6 +2115,7 @@ def main():
         f"{bw:.3g} B/s = {bytes_ms:.4f} ms, {nops} ops "
         f"({ctu_kernel.FLOPS_PER_ZONE}/zone) at {fp32:.3g} op/s = "
         f"{ops_ms:.4f} ms; kernel at {100 * bound_ms / kern_ms:.2f}% of it")
+    ctu_peak = ctu_peak_memory(step, U, t, dt)
     log("[timing: the 1024^2 float32 solves' levels, CUDA events]")
     mg_times = mg_timing(make_mg(1024, "periodic", 0.0, -1.0,
                                  torch.float32), "periodic Poisson", bw,
@@ -1991,7 +2174,7 @@ def main():
         ctu_kernel.work(g.nx, g.ny, ssim.ivars.nvar, torch.float32,
                         with_sources=True, spherical=True), bw, fp32)
     padded_times = {}
-    for entry, (psim, pstep, P, pdt, _) in padded.items():
+    for entry, (psim, pstep, P, pdt, _, _) in padded.items():
         g = psim.cc_data.grid
         padded_times[entry] = time_pair(
             f"{entry} ({psim.problem_name} "
@@ -2003,9 +2186,23 @@ def main():
     log(f"[timing: the sharded multigrid kernels at the 1024^2 path's "
         f"finest level, float32, CUDA events; {smi}]")
     sharded_times = sharded_timing(sharded, bw, fp32)
+    log(f"[the core: its schedule and barriers, and its time on the "
+        f"sharded solve's data, float32, CUDA events; {smi}]")
+    core_schedule_log(make_mg(1024, "periodic", 0.0, -1.0, torch.float32),
+                      "periodic Poisson")
+    core_on_sharded_data(sharded)
 
     # 7. where a main-path step's time goes
     profile_steps(p.single_step, 20, "quad 1024^2 float32")
+    _, _, frame_p, pdt, _, advance = padded["ctu_periodic"]
+    held = [frame_p]
+
+    def periodic_step():
+        held[0] = advance(held[0], pdt)
+
+    profile_steps(periodic_step, 20,
+                  "ctu_periodic advect 1024^2 float32 (fill + step)")
+    profile_steps(diff.single_step, 5, "diffusion gaussian 1024^2 float32")
     profile_steps(shear.single_step, 5,
                   "incompressible shear 1024^2 float32")
     profile_steps(fv4.single_step, 5,
@@ -2156,6 +2353,8 @@ def main():
         })
     log(f"  lm_atm bubble 1024^2: {cycles_per_solve:.2f} multigrid cycles "
         "per solve")
+    log(f"  quad 1024^2 float32 CTU step: peak device memory {ctu_peak} B "
+        "above the state")
     log(smi)                            # the card, again, for the record
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -1,5 +1,6 @@
 // ctu_step.cu -- one compressible CTU step on Hopper, Cartesian or
-// spherical geometry, for one state or a batch of independent states.
+// spherical geometry, for one state or a batch of independent states, in
+// one kernel launch.
 //
 // Replaces the fused Pallas TPU kernels of
 // pyro2_tpu/solvers/compressible/pallas_step.py, which share one body,
@@ -12,7 +13,7 @@
 //     gradients), predictor-corrector sources and sponge;
 //   * make_pallas_ctu_step_padded (periodic frame), make_pallas_ctu_step
 //     (pad in, pad out) and make_pallas_ctu_ensemble_step (a batch):
-//     ctu_step_batched_{f32,f64}, the same stages with the floor, the
+//     ctu_step_batched_{f32,f64}, the same pipeline with the floor, the
 //     sources, the sponge and the walls forced off, as _local_step_fn's
 //     defaults force them off there; member m of the batch is blockIdx.z.
 // HLLC, HLLC_lm and CGF (spherical geometry: CGF only); limiter 0/1/2;
@@ -20,13 +21,11 @@
 // up to MAXVAR).
 //
 // Layout: the plain (nvar, nx + 2 ng, ny + 2 ng) state stack, y contiguous,
-// members one after another.  Every kernel is one thread per cell or
-// interface with threadIdx.x along y, so neighbouring threads touch
-// neighbouring addresses.  Ragged edges are masked against the global
-// index, so any nx, ny works.  Windows are compared against the global
-// index too (the floor on the interior, the half-dt sources on the buf=1
-// window, solid walls at ilo / ihi+1 and jlo / jhi+1), which reproduces the
-// windowed semantics of the plain PyTorch step exactly.
+// members one after another.  Windows are compared against the global
+// index (the floor on the interior, the flattening and the traced states on
+// the buf=2 window, the half-dt sources and the first pair on buf=1, solid
+// walls at ilo / ihi+1 and jlo / jhi+1), which reproduces the windowed
+// semantics of the plain PyTorch step exactly.  Any nx, ny works.
 //
 // Spherical geometry (r = x, theta = y).  The geometry is one buffer G in
 // the state's dtype, built once per step object from the grid's float64
@@ -43,24 +42,43 @@
 // pair's, over the side of the unshifted cell; update: the final pair's),
 // the spherical vertex divergence of the artificial viscosity, and the
 // radial gravity and geometric momentum sources, which act with grav = 0
-// too.  The geometry is a template argument of stages 3-6 (SPH), so the
-// Cartesian stages compile without any of these terms.
+// too.  The geometry is a template argument (SPH), so the Cartesian kernel
+// compiles without any of these terms.
 //
-// What bounds it on the H100: the step itself is arithmetic, ~1.1k
-// floating-point operations per zone (many of them divides, square roots
-// and pows) against 2 nvar values read and written per zone, so its bound
-// is the fp32 rate.  This first design is simple instead: it stages its
-// intermediates through device memory -- primitives, flattening
-// coefficients, the four interface-state stacks and two flux pairs, about
-// 28 nvar planes of traffic per zone over the six stages (spherical: four
-// interface-pressure planes and the geometry reads on top) -- and keeps the
-// per-variable arrays (MAXVAR long, indexed by run-time variable indices)
-// in local memory.  chip_smoke.py prints its time beside the bound and a
-// per-stage profile; fusing the stages into shared-memory tiles with 4-cell
-// halos, and compile-time variable indices, are the next steps for speed.
-// The scratch is allocated by the wrapper (torch.empty) and nothing is
-// allocated here.  The stages run in order on the caller's stream; the
-// entry points return the first cudaGetLastError().
+// What bounds it on the H100: the step is arithmetic, ~1.1k floating-point
+// operations per zone (ctu_kernel.FLOPS_PER_ZONE; many of them divides,
+// square roots and pows) against 2 nvar values read and written per zone,
+// so its bound is the fp32 rate.  The design keeps everything between the
+// state's read and its write on the chip: each block owns one output tile
+// (ctu_kernel.plan picks its shape per dtype, lays out the block's shared
+// memory and sizes the grid), loads the tile with its 4-cell halo of the
+// state once, converting it to primitives (and keeping the floored state,
+// the S stack and the geometry planes of the tile and its 1-cell halo), and
+// runs the pipeline out of shared memory and registers:
+//   1. floor and primitives (halo 4; the floored state, S and the
+//      geometry planes, halo 1);
+//   2. the 1-D flattening coefficients (halo 2);
+//   3. the traced interface states of each cell with the half-dt sources
+//      (halo 1: the four faces of every cell the fluxes below read);
+//   4. the first Riemann pair (the faces of the halo-1 cells);
+//   5. the transverse corrections, the final pair and the artificial
+//      viscosity on the tile's faces (written over the states they used);
+//   6. the update with the predictor-corrector sources and the sponge, and
+//      the input's ghosts carried through by the tiles at the frame's edges.
+// __syncthreads() separates the phases.  A float32 tile is 30 x 14 cells,
+// so its traced cells are 32 x 16, one for each of the block's 512
+// threads, and two blocks share an SM (Launch: at most 64 registers a
+// thread); float64 takes 14 x 14 tiles on 256 threads.  Neighbouring blocks
+// recompute the halos (the traced cells are 1.22x the tile's), which the
+// arithmetic bound affords.  The variable count is a template argument
+// (4..MAXVAR) and the conserved indices are fixed (CtuParams), so the
+// per-variable arrays of the tracing and the Riemann solvers are indexed by
+// constants and stay in registers.  Nothing is allocated here and there is
+// no scratch in device memory.
+//
+// Arithmetic: each cell's operations are the plain step's, in its order;
+// only where the intermediates live changed.  The entry points return the
+// launch's cudaGetLastError().
 //
 // Build (see ctu_kernel.py):
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -fmad=false
@@ -73,46 +91,122 @@
 
 namespace {
 
-// the spherical geometry buffer (see the header)
+// the block of each kernel: float32 blocks of 512 threads, two Cartesian
+// ones to an SM (at most 64 registers a thread) and one spherical one;
+// float64 blocks of 256, one to an SM (ctu_kernel.THREADS, with tiles that
+// give each thread one traced cell)
+template <typename T, bool SPH>
+struct Launch {
+  static constexpr int threads = 256, blocks = 1;
+};
+template <>
+struct Launch<float, false> {
+  static constexpr int threads = 512, blocks = 2;
+};
+template <>
+struct Launch<float, true> {
+  static constexpr int threads = 512, blocks = 1;
+};
+
+// the parameter block with the variables fixed at compile time: NV of them,
+// density, energy, x-momentum and y-momentum first (the order in which the
+// compressible solvers register them; the wrappers check it)
+template <int NV>
+struct CtuParams : Params {
+  static constexpr int nvar = NV, idens = 0, iener = 1, ixmom = 2, iymom = 3;
+};
+
+// the launch plan of ctu_kernel.plan: the output tile (tx rows along x, ty
+// columns along y) and the block's threads; the halos of the boxes a block
+// holds (primitives, flattening coefficients, traced cells); where each
+// array of the box starts in the block's shared memory, in elements of T
+// (-1: not held); and the grid of tiles
+struct Plan {
+  int tx, ty, threads;
+  int hq, hx, ht;
+  int q, xi, st, f1, u, dv, s, g, p1, p2;
+  int smem;    // bytes
+  int bx, by;  // blocks along y (columns), along x (rows)
+};
+
+constexpr int PLAN_INTS = 19;
+
+Plan load_plan(const int* t) {
+  return Plan{t[0],  t[1],  t[2],  t[3],  t[4],  t[5],  t[6],
+              t[7],  t[8],  t[9],  t[10], t[11], t[12], t[13],
+              t[14], t[15], t[16], t[17], t[18]};
+}
+
+// a box of frame cells held in shared memory, row-major: rows i0 .. i0 +
+// h - 1, columns j0 .. j0 + w - 1
+struct Box {
+  int i0, j0, h, w;
+  __device__ int cells() const { return h * w; }
+  __device__ int at(int i, int j) const { return (i - i0) * w + (j - j0); }
+};
+
+__device__ __forceinline__ Box around(int i0, int j0, const Plan& t, int h) {
+  return Box{i0 - h, j0 - h, t.tx + 2 * h, t.ty + 2 * h};
+}
+
+// plane k of a stack of planes over a box, seen as a(i, j) in frame indices
+template <typename T>
+struct BoxPlane {
+  const T* a;
+  Box b;
+  __device__ __forceinline__ T operator()(int i, int j) const {
+    return a[b.at(i, j)];
+  }
+};
+
+template <typename T>
+__device__ __forceinline__ BoxPlane<T> plane(const T* a, const Box& b,
+                                             int k) {
+  return BoxPlane<T>{a + k * b.cells(), b};
+}
+
+// the spherical geometry (see the header): the planes Ax, Ay, V, dlogAy of
+// the traced box in shared memory, the lines from the buffer in device
+// memory
 template <typename T>
 struct Geom {
+  const T* pl;
+  Box b;
   const T* g;
   int qx, qy;
-  __device__ size_t plane() const { return (size_t)qx * qy; }
-  __device__ T pl(int k, int i, int j) const {
-    return g[k * plane() + (size_t)i * qy + j];
+  __device__ T pln(int k, int i, int j) const {
+    return pl[k * b.cells() + b.at(i, j)];
   }
-  __device__ T Ax(int i, int j) const { return pl(0, i, j); }
-  __device__ T Ay(int i, int j) const { return pl(1, i, j); }
-  __device__ T V(int i, int j) const { return pl(2, i, j); }
-  __device__ T dlogAy(int i, int j) const { return pl(3, i, j); }
-  __device__ T row(int k, int i) const { return g[4 * plane() + k * qx + i]; }
+  __device__ T Ax(int i, int j) const { return pln(0, i, j); }
+  __device__ T Ay(int i, int j) const { return pln(1, i, j); }
+  __device__ T V(int i, int j) const { return pln(2, i, j); }
+  __device__ T dlogAy(int i, int j) const { return pln(3, i, j); }
+  __device__ T row(int k, int i) const {
+    return g[4 * (size_t)qx * qy + k * qx + i];
+  }
   __device__ T Ly(int i) const { return row(0, i); }
   __device__ T dlogAx(int i) const { return row(1, i); }
   __device__ T r(int i) const { return row(2, i); }
   __device__ T rc(int i) const { return row(3, i); }
   __device__ T rl(int i) const { return row(4, i); }
   __device__ T lane(int k, int j) const {
-    return g[4 * plane() + 5 * (size_t)qx + k * qy + j];
+    return g[4 * (size_t)qx * qy + 5 * (size_t)qx + k * qy + j];
   }
   __device__ T sinc(int j) const { return lane(0, j); }
   __device__ T sint(int j) const { return lane(1, j); }
   __device__ T sinb(int j) const { return lane(2, j); }
 };
 
-template <typename T>
-__device__ __forceinline__ Geom<T> geom(const Params& p, const T* G) {
-  return Geom<T>{G, p.qx, p.qy};
-}
-
-// trace cell-centred primitives q (slopes dq) to its two faces along idir.
-// dtdx and dtdx4 are dt / L and dt / (4 L) for the cell's width L; dloga is
-// the spherical d(log A) of the cell (unused in Cartesian geometry)
-template <typename T, bool SPH>
-__device__ void trace(const Params& p, int idir, const T* q, const T* dq,
-                      T dtdx, T dtdx4, T dloga, T* ql, T* qr) {
-  const int iun = idir == 1 ? IU : IV;
-  const int iut = idir == 1 ? IV : IU;
+// trace cell-centred primitives q (slopes dq) to its two faces along D (1:
+// x, 2: y).  dtdx and dtdx4 are dt / L and dt / (4 L) for the cell's width
+// L; dloga is the spherical d(log A) of the cell (unused in Cartesian
+// geometry)
+template <typename T, bool SPH, int D, typename P>
+__device__ __forceinline__ void trace(const P& p, const T* q, const T* dq,
+                                      T dtdx, T dtdx4, T dloga, T* ql,
+                                      T* qr) {
+  constexpr int iun = D == 1 ? IU : IV;
+  constexpr int iut = D == 1 ? IV : IU;
 
   const T rho = q[IRHO];
   const T cs = sqrt(T(p.gamma) * q[IP] / rho);
@@ -151,10 +245,12 @@ __device__ void trace(const Params& p, int idir, const T* q, const T* dq,
   cr[iut] = br2;
   cl[IP] = cs2 * (bl0 + bl3);
   cr[IP] = cs2 * (br0 + br3);
+#pragma unroll
   for (int n = 4; n < p.nvar; ++n) {
     cl[n] = bl(un, dq[n]);
     cr[n] = br(un, dq[n]);
   }
+#pragma unroll
   for (int n = 0; n < p.nvar; ++n) {
     ql[n] = q[n] + factor_l * dq[n] + cl[n];
     qr[n] = q[n] - factor_r * dq[n] + cr[n];
@@ -169,175 +265,65 @@ __device__ void trace(const Params& p, int idir, const T* q, const T* dq,
   }
 }
 
-
-// store an interface state at (i, j), adding 0.5 dt of the cell (si, sj)'s
-// sources on the buf=1 window
-template <typename T>
-__device__ __forceinline__ void store_state(const Params& p, T* dst,
-                                            const T* Uc, int i, int j,
-                                            const T* __restrict__ S, int si,
-                                            int sj) {
-  if (i < 0 || i >= p.qx || j < 0 || j >= p.qy) return;
-  T v[MAXVAR];
-  for (int n = 0; n < p.nvar; ++n) v[n] = Uc[n];
-  if (p.with_sources && inwin(p, i, j, 1, 1, 1, 1)) {
-    const T hdt = T(0.5 * p.dt);
-    v[p.ixmom] = v[p.ixmom] + hdt * S[at(p, 1, si, sj)];
-    v[p.iymom] = v[p.iymom] + hdt * S[at(p, 2, si, sj)];
-    v[p.iener] = v[p.iener] + hdt * S[at(p, 3, si, sj)];
+// the traced states of cell (a, b) on its two faces along D: lo on the low
+// face (the right state of face (a, b)), hi on the high face (the left
+// state of face (a + 1, b) or (a, b + 1)), both conserved
+template <typename T, bool SPH, int D, typename P, typename QV>
+__device__ __forceinline__ void trace_dir(const P& p, const QV& qv,
+                                          const Geom<T>& g, const T* q, T xi,
+                                          int a, int b, T* lo, T* hi) {
+  constexpr int di = D == 1, dj = D == 2;
+  T dq[MAXVAR], ql[MAXVAR], qr[MAXVAR];
+#pragma unroll
+  for (int n = 0; n < p.nvar; ++n)
+    dq[n] = xi * slope_of<T>(p, qv(n), a, b, di, dj);
+  T dtdx, dtdx4, dloga = T(0);
+  if constexpr (SPH) {
+    // per-cell widths, as the plain step's dt / L: (1 / L) dt
+    dtdx = (T(1) / (D == 1 ? T(p.dx) : g.Ly(a))) * T(p.dt);
+    dtdx4 = T(0.25) * dtdx;
+    dloga = D == 1 ? g.dlogAx(a) : g.dlogAy(a, b);
+  } else {
+    const double w = D == 1 ? p.dx : p.dy;
+    dtdx = T(p.dt / w);
+    dtdx4 = T(0.25 * (p.dt / w));
   }
-  for (int n = 0; n < p.nvar; ++n) dst[at(p, n, i, j)] = v[n];
+  trace<T, SPH, D>(p, q, dq, dtdx, dtdx4, dloga, ql, qr);
+  prim_to_cons(p, ql, hi);
+  prim_to_cons(p, qr, lo);
 }
 
-// the scratch of member blockIdx.z: Q, XI, the four interface-state
-// stacks, the two flux pairs and the four interface-pressure planes
-template <typename T>
-struct Scratch {
-  T *Q, *XI, *UXL, *UXR, *UYL, *UYR, *F1X, *F1Y, *F2X, *F2Y;
-  T *P1X, *P1Y, *P2X, *P2Y;
-};
-
-template <typename T>
-__device__ __host__ Scratch<T> carve(T* base, int nvar, size_t plane) {
-  const size_t stack = (size_t)nvar * plane;
-  Scratch<T> s;
-  s.Q = base;
-  s.XI = s.Q + stack;
-  s.UXL = s.XI + 2 * plane;
-  s.UXR = s.UXL + stack;
-  s.UYL = s.UXR + stack;
-  s.UYR = s.UYL + stack;
-  s.F1X = s.UYR + stack;
-  s.F1Y = s.F1X + stack;
-  s.F2X = s.F1Y + stack;
-  s.F2Y = s.F2X + stack;
-  s.P1X = s.F2Y + stack;
-  s.P1Y = s.P1X + plane;
-  s.P2X = s.P1Y + plane;
-  s.P2Y = s.P2X + plane;
-  return s;
-}
-
-template <typename T>
-__device__ __forceinline__ Scratch<T> member_scratch(T* scratch,
-                                                     const Params& p) {
-  return carve(scratch + blockIdx.z * p.sstride, p.nvar,
-               (size_t)p.qx * p.qy);
-}
-
-// stage 3: interface states.  Cell (i, j) writes U_xr(i, j), U_xl(i+1, j),
-// U_yr(i, j), U_yl(i, j+1): traced states inside the buf=2 window, zero
-// outside it.  Row i = 0 / column j = 0 of U_xl / U_yl are zero.
-template <typename T, bool SPH>
-__global__ void k_states(T* scratch, const T* __restrict__ S,
-                         const T* __restrict__ G, Params p) {
-  CELL_INDEX
-  const Scratch<T> s = member_scratch(scratch, p);
-  const T* __restrict__ Q = s.Q;
-  T* __restrict__ UXL = s.UXL;
-  T* __restrict__ UXR = s.UXR;
-  T* __restrict__ UYL = s.UYL;
-  T* __restrict__ UYR = s.UYR;
-  const size_t plane = (size_t)p.qx * p.qy;
-  const size_t c = (size_t)i * p.qy + j;
-  T ul[MAXVAR], ur[MAXVAR], zero[MAXVAR];
-  for (int n = 0; n < p.nvar; ++n) zero[n] = T(0);
-  if (i == 0)
-    for (int n = 0; n < p.nvar; ++n) UXL[at(p, n, 0, j)] = T(0);
-  if (j == 0)
-    for (int n = 0; n < p.nvar; ++n) UYL[at(p, n, i, 0)] = T(0);
-
-  if (!inwin(p, i, j, 2, 2, 2, 2)) {
-    store_state(p, UXR, zero, i, j, S, i, j);
-    store_state(p, UXL, zero, i + 1, j, S, i, j);
-    store_state(p, UYR, zero, i, j, S, i, j);
-    store_state(p, UYL, zero, i, j + 1, S, i, j);
-    return;
-  }
-
-  const T xi = flat_xi(p, Q, s.XI, i, j);
-
-  T q[MAXVAR], dq[MAXVAR], ql[MAXVAR], qr[MAXVAR];
-  for (int n = 0; n < p.nvar; ++n) q[n] = Q[n * plane + c];
-  for (int d = 1; d <= 2; ++d) {
-    const int di = d == 1, dj = d == 2;
-    for (int n = 0; n < p.nvar; ++n)
-      dq[n] = xi * slope(p, Q + n * plane, i, j, di, dj);
-    T dtdx, dtdx4, dloga = T(0);
-    if constexpr (SPH) {
-      // per-cell widths, as the plain step's dt / L: (1 / L) dt
-      const Geom<T> g = geom(p, G);
-      dtdx = (T(1) / (d == 1 ? T(p.dx) : g.Ly(i))) * T(p.dt);
-      dtdx4 = T(0.25) * dtdx;
-      dloga = d == 1 ? g.dlogAx(i) : g.dlogAy(i, j);
-    } else {
-      const double w = d == 1 ? p.dx : p.dy;
-      dtdx = T(p.dt / w);
-      dtdx4 = T(0.25 * (p.dt / w));
-    }
-    trace<T, SPH>(p, d, q, dq, dtdx, dtdx4, dloga, ql, qr);
-    prim_to_cons(p, ql, ul);
-    prim_to_cons(p, qr, ur);
-    if (d == 1) {
-      store_state(p, UXR, ur, i, j, S, i, j);
-      store_state(p, UXL, ul, i + 1, j, S, i, j);
-    } else {
-      store_state(p, UYR, ur, i, j, S, i, j);
-      store_state(p, UYL, ul, i, j + 1, S, i, j);
-    }
-  }
+// add 0.5 dt of the sources S (xmom, ymom, ener) of the traced cell to a
+// state whose face (i, j) lies on the buf=1 window
+template <typename T, typename P>
+__device__ __forceinline__ void half_sources(const P& p, T* v, int i, int j,
+                                             T s1, T s2, T s3) {
+  if (!inwin(p, i, j, 1, 1, 1, 1)) return;
+  const T hdt = T(0.5 * p.dt);
+  v[p.ixmom] = v[p.ixmom] + hdt * s1;
+  v[p.iymom] = v[p.iymom] + hdt * s2;
+  v[p.iener] = v[p.iener] + hdt * s3;
 }
 
 // the pressure of a conserved interface state (cons_to_prim's)
-template <typename T>
-__device__ __forceinline__ T pressure(const Params& p, const T* u) {
+template <typename T, typename P>
+__device__ __forceinline__ T pressure(const P& p, const T* u) {
   T q[MAXVAR];
   cons_to_prim(p, u, q);
   return q[IP];
 }
 
-// stage 4: the first Riemann pair on the buf=1 window (zero outside); in
-// spherical geometry also the pressures of the pair's CGF interface states
-template <typename T, bool SPH>
-__global__ void k_riemann1(T* scratch, Params p) {
-  CELL_INDEX
-  const Scratch<T> s = member_scratch(scratch, p);
-  T ul[MAXVAR], ur[MAXVAR], f[MAXVAR], us[MAXVAR];
-  const bool w1 = inwin(p, i, j, 1, 1, 1, 1);
-  for (int d = 1; d <= 2; ++d) {
-    const T* L = d == 1 ? s.UXL : s.UYL;
-    const T* R = d == 1 ? s.UXR : s.UYR;
-    T* F = d == 1 ? s.F1X : s.F1Y;
-    T pr = T(0);
-    if (w1) {
-      for (int n = 0; n < p.nvar; ++n) {
-        ul[n] = L[at(p, n, i, j)];
-        ur[n] = R[at(p, n, i, j)];
-      }
-      riemann(p, d, ul, ur, i, j, f, SPH ? us : (T*)nullptr);
-      if constexpr (SPH) pr = pressure(p, us);
-    } else {
-      for (int n = 0; n < p.nvar; ++n) f[n] = T(0);
-    }
-    for (int n = 0; n < p.nvar; ++n) F[at(p, n, i, j)] = f[n];
-    if constexpr (SPH) (d == 1 ? s.P1X : s.P1Y)[at(p, 0, i, j)] = pr;
-  }
-}
-
-// the spherical vertex divergence of (u, v) at the lower-left corner of
-// cell (i, j), zero outside the buf=1 window
-template <typename T>
-__device__ __forceinline__ T sph_vertex_div(const Params& p, const T* Q,
-                                            const Geom<T>& g, int i, int j) {
+// the spherical vertex divergence of the velocity views (u, v) at the
+// lower-left corner of cell (i, j), zero outside the buf=1 window
+template <typename T, typename P, typename A>
+__device__ __forceinline__ T sph_vertex_div(const P& p, const A& u,
+                                            const A& v, const Geom<T>& g,
+                                            int i, int j) {
   if (!inwin(p, i, j, 1, 1, 1, 1)) return T(0);
-  const T* u = Q + (size_t)IU * p.qx * p.qy;
-  const T* v = Q + (size_t)IV * p.qx * p.qy;
-  const size_t c = (size_t)i * p.qy + j;
-  const size_t w = c - p.qy, s = c - 1, sw = c - p.qy - 1;
-  const T ur = T(0.5) * (u[c] + u[s]);
-  const T ul = T(0.5) * (u[w] + u[sw]);
-  const T vt = T(0.5) * (v[c] + v[w]);
-  const T vb = T(0.5) * (v[s] + v[sw]);
+  const T ur = T(0.5) * (u(i, j) + u(i, j - 1));
+  const T ul = T(0.5) * (u(i - 1, j) + u(i - 1, j - 1));
+  const T vt = T(0.5) * (v(i, j) + v(i - 1, j));
+  const T vb = T(0.5) * (v(i, j - 1) + v(i - 1, j - 1));
   const T rr = g.r(i), rl = g.rl(i), rc = g.rc(i);
   const T ux = (ur * (rr * rr) - ul * (rl * rl)) / ((rc * rc) * T(p.dx));
   const T sinc = g.sinc(j);
@@ -346,126 +332,20 @@ __device__ __forceinline__ T sph_vertex_div(const Params& p, const T* Q,
   return ux + (sinc == T(0) ? T(0) : vy);
 }
 
-template <typename T, bool SPH>
-__device__ __forceinline__ T vdiv(const Params& p, const T* Q, const T* G,
-                                  int i, int j) {
+template <typename T, bool SPH, typename P, typename A>
+__device__ __forceinline__ T vdiv(const P& p, const A& u, const A& v,
+                                  const Geom<T>& g, int i, int j) {
   if constexpr (SPH)
-    return sph_vertex_div(p, Q, geom(p, G), i, j);
+    return sph_vertex_div<T>(p, u, v, g, i, j);
   else
-    return vertex_div(p, Q, i, j);
-}
-
-// stage 5: transverse corrections, the final Riemann pair and artificial
-// viscosity on the faces the update reads: x faces i in [ilo, ihi+1],
-// y faces j in [jlo, jhi+1]; in spherical geometry also the pressures of
-// the final pair's CGF interface states
-template <typename T, bool SPH>
-__global__ void k_riemann2(const T* __restrict__ U, T* scratch,
-                           const T* __restrict__ G, Params p) {
-  CELL_INDEX
-  U += blockIdx.z * p.mstride;
-  const Scratch<T> s = member_scratch(scratch, p);
-  const T* __restrict__ Q = s.Q;
-  const T* __restrict__ F1X = s.F1X;
-  const T* __restrict__ F1Y = s.F1Y;
-  const Geom<T> g = geom(p, G);
-  const T hdt = T(0.5 * p.dt);
-  T ul[MAXVAR], ur[MAXVAR], f[MAXVAR], us[MAXVAR];
-
-  if (i >= ilo(p) && i <= ihi(p) + 1 && j >= jlo(p) && j <= jhi(p)) {
-    if constexpr (SPH) {
-      const T mhdtV = -((T(1) / g.V(i, j)) * hdt);
-      for (int n = 0; n < p.nvar; ++n) {
-        ul[n] = s.UXL[at(p, n, i, j)] +
-                mhdtV * (F1Y[at(p, n, i - 1, j + 1)] * g.Ay(i - 1, j + 1) -
-                         F1Y[at(p, n, i - 1, j)] * g.Ay(i - 1, j));
-        ur[n] = s.UXR[at(p, n, i, j)] +
-                mhdtV * (F1Y[at(p, n, i, j + 1)] * g.Ay(i, j + 1) -
-                         F1Y[at(p, n, i, j)] * g.Ay(i, j));
-      }
-      // transverse pressure gradients, over the unshifted cell's side
-      const T* P1Y = s.P1Y;
-      const T Ly = g.Ly(i);
-      ul[p.iymom] = ul[p.iymom] +
-                    (-hdt) * (P1Y[at(p, 0, i - 1, j + 1)] -
-                              P1Y[at(p, 0, i - 1, j)]) / Ly;
-      ur[p.iymom] = ur[p.iymom] +
-                    (-hdt) * (P1Y[at(p, 0, i, j + 1)] -
-                              P1Y[at(p, 0, i, j)]) / Ly;
-    } else {
-      const T mhdtV = T(-(0.5 * p.dt / (p.dx * p.dy)));
-      const T Ay = T(p.dx);
-      for (int n = 0; n < p.nvar; ++n) {
-        ul[n] = s.UXL[at(p, n, i, j)] +
-                mhdtV * (F1Y[at(p, n, i - 1, j + 1)] * Ay -
-                         F1Y[at(p, n, i - 1, j)] * Ay);
-        ur[n] = s.UXR[at(p, n, i, j)] +
-                mhdtV * (F1Y[at(p, n, i, j + 1)] * Ay -
-                         F1Y[at(p, n, i, j)] * Ay);
-      }
-    }
-    riemann(p, 1, ul, ur, i, j, f, SPH ? us : (T*)nullptr);
-    if constexpr (SPH) s.P2X[at(p, 0, i, j)] = pressure(p, us);
-    if (i <= ihi(p)) {
-      const T divU = T(0.5) * (vdiv<T, SPH>(p, Q, G, i, j) +
-                               vdiv<T, SPH>(p, Q, G, i, j + 1));
-      const T av = T(p.cvisc) * fmax(-divU * T(p.dx), T(0));
-      for (int n = 0; n < p.nvar; ++n)
-        f[n] = f[n] + av * (ldU(U, p, n, i - 1, j) - ldU(U, p, n, i, j));
-    }
-    for (int n = 0; n < p.nvar; ++n) s.F2X[at(p, n, i, j)] = f[n];
-  }
-
-  if (i >= ilo(p) && i <= ihi(p) && j >= jlo(p) && j <= jhi(p) + 1) {
-    if constexpr (SPH) {
-      const T mhdtV = -((T(1) / g.V(i, j)) * hdt);
-      for (int n = 0; n < p.nvar; ++n) {
-        ul[n] = s.UYL[at(p, n, i, j)] +
-                mhdtV * (F1X[at(p, n, i + 1, j - 1)] * g.Ax(i + 1, j - 1) -
-                         F1X[at(p, n, i, j - 1)] * g.Ax(i, j - 1));
-        ur[n] = s.UYR[at(p, n, i, j)] +
-                mhdtV * (F1X[at(p, n, i + 1, j)] * g.Ax(i + 1, j) -
-                         F1X[at(p, n, i, j)] * g.Ax(i, j));
-      }
-      const T* P1X = s.P1X;
-      const T Lx = T(p.dx);
-      ul[p.ixmom] = ul[p.ixmom] +
-                    (-hdt) * (P1X[at(p, 0, i + 1, j - 1)] -
-                              P1X[at(p, 0, i, j - 1)]) / Lx;
-      ur[p.ixmom] = ur[p.ixmom] +
-                    (-hdt) * (P1X[at(p, 0, i + 1, j)] -
-                              P1X[at(p, 0, i, j)]) / Lx;
-    } else {
-      const T mhdtV = T(-(0.5 * p.dt / (p.dx * p.dy)));
-      const T Ax = T(p.dy);
-      for (int n = 0; n < p.nvar; ++n) {
-        ul[n] = s.UYL[at(p, n, i, j)] +
-                mhdtV * (F1X[at(p, n, i + 1, j - 1)] * Ax -
-                         F1X[at(p, n, i, j - 1)] * Ax);
-        ur[n] = s.UYR[at(p, n, i, j)] +
-                mhdtV * (F1X[at(p, n, i + 1, j)] * Ax -
-                         F1X[at(p, n, i, j)] * Ax);
-      }
-    }
-    riemann(p, 2, ul, ur, i, j, f, SPH ? us : (T*)nullptr);
-    if constexpr (SPH) s.P2Y[at(p, 0, i, j)] = pressure(p, us);
-    if (j <= jhi(p)) {
-      const T divU = T(0.5) * (vdiv<T, SPH>(p, Q, G, i, j) +
-                               vdiv<T, SPH>(p, Q, G, i + 1, j));
-      const T L = SPH ? g.Ly(i) : T(p.dy);
-      const T av = T(p.cvisc) * fmax(-divU * L, T(0));
-      for (int n = 0; n < p.nvar; ++n)
-        f[n] = f[n] + av * (ldU(U, p, n, i, j - 1) - ldU(U, p, n, i, j));
-    }
-    for (int n = 0; n < p.nvar; ++n) s.F2Y[at(p, n, i, j)] = f[n];
-  }
+    return vertex_div_of<T>(p, u, v, i, j);
 }
 
 // the spherical external sources of a cell's state u at radius r: radial
 // gravity, ymom^2 / (rho r) and -xmom ymom / rho (the plain
 // get_external_sources, predictor form)
-template <typename T>
-__device__ __forceinline__ void sph_sources(const Params& p, const T* u, T r,
+template <typename T, typename P>
+__device__ __forceinline__ void sph_sources(const P& p, const T* u, T r,
                                             T& Sx, T& Sy, T& SE) {
   const T grav = T(p.grav);
   const T rho = u[p.idens], xm = u[p.ixmom], ym = u[p.iymom];
@@ -474,151 +354,440 @@ __device__ __forceinline__ void sph_sources(const Params& p, const T* u, T r,
   SE = xm * grav;
 }
 
-// stage 6: conservative update, (spherical pressure gradients),
-// predictor-corrector sources and sponge on the interior; ghosts are
-// carried through from the input unchanged
-template <typename T, bool SPH>
-__global__ void k_update(const T* __restrict__ U, T* scratch,
-                         const T* __restrict__ G, T* __restrict__ out,
-                         Params p) {
-  CELL_INDEX
+// the faces of the traced states (ST planes f * NV + n)
+enum { LOX = 0, HIX = 1, LOY = 2, HIY = 3 };
+
+// one CTU step of the tile (blockIdx.y, blockIdx.x) of member blockIdx.z
+template <typename T, int NV, bool SPH>
+__global__ void __launch_bounds__(Launch<T, SPH>::threads,
+                                  Launch<T, SPH>::blocks)
+    k_ctu(const T* __restrict__ U, const T* __restrict__ S,
+          const T* __restrict__ G, T* __restrict__ out,
+          const CtuParams<NV> p, const Plan t) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* sm = reinterpret_cast<T*>(smem_raw);
   U += blockIdx.z * p.mstride;
   out += blockIdx.z * p.mstride;
-  if (!inwin(p, i, j, 0, 0, 0, 0)) {
-    for (int n = 0; n < p.nvar; ++n) out[at(p, n, i, j)] = U[at(p, n, i, j)];
-    return;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int i0 = p.ng + blockIdx.y * t.tx, j0 = p.ng + blockIdx.x * t.ty;
+  const Box bq = around(i0, j0, t, t.hq);   // primitives
+  const Box bx = around(i0, j0, t, t.hx);   // 1-D flattening coefficients
+  const Box bt = around(i0, j0, t, t.ht);   // traced cells, their faces
+  const int ct = bt.cells();
+  T* Q = sm + t.q;     // NV planes over bq
+  T* XI = sm + t.xi;   // xi_x, xi_y over bx
+  T* ST = sm + t.st;   // 4 NV planes over bt: each cell's states by face
+  T* F1 = sm + t.f1;   // 2 NV planes over bt: the first pair, x then y
+  T* UB = sm + t.u;    // NV planes over bt: the floored state
+  T* DV = sm + t.dv;   // over bt: the velocity's vertex divergence
+  T* SS = sm + t.s;    // S's xmom, ymom, ener over bt (with sources)
+  T* P1 = sm + t.p1;   // spherical: the first pair's interface pressures
+  T* P2 = sm + t.p2;   // spherical: the final pair's
+  const Geom<T> g{sm + t.g, bt, G, p.qx, p.qy};
+  auto qv = [&](int n) { return plane<T>(Q, bq, n); };
+  auto st = [&](int f, int n, int k) -> T& {
+    return ST[(f * NV + n) * ct + k];
+  };
+  auto f1 = [&](int d, int n, int k) -> T& {
+    return F1[(d * NV + n) * ct + k];
+  };
+  auto ub = [&](int n, int i, int j) { return UB[n * ct + bt.at(i, j)]; };
+
+  // 1. floor and primitives, and the floored state on bt; S and the
+  // geometry planes
+#pragma unroll 4
+  for (int k = tid; k < bq.cells(); k += nt) {
+    const int i = bq.i0 + k / bq.w, j = bq.j0 + k % bq.w;
+    T u[MAXVAR], q[MAXVAR];
+    if (i < p.qx && j < p.qy) {
+#pragma unroll
+      for (int n = 0; n < NV; ++n) u[n] = ldU(U, p, n, i, j);
+      cons_to_prim(p, u, q);
+    } else {
+#pragma unroll
+      for (int n = 0; n < NV; ++n) u[n] = q[n] = T(0);
+    }
+#pragma unroll
+    for (int n = 0; n < NV; ++n) Q[n * bq.cells() + k] = q[n];
+    if (i >= bt.i0 && i < bt.i0 + bt.h && j >= bt.j0 && j < bt.j0 + bt.w) {
+#pragma unroll
+      for (int n = 0; n < NV; ++n) UB[n * ct + bt.at(i, j)] = u[n];
+    }
   }
-  const Scratch<T> s = member_scratch(scratch, p);
-  const T* __restrict__ F2X = s.F2X;
-  const T* __restrict__ F2Y = s.F2Y;
-  T u[MAXVAR];
-  if constexpr (SPH) {
-    const Geom<T> g = geom(p, G);
-    const T dtdV = (T(1) / g.V(i, j)) * T(p.dt);
-    for (int n = 0; n < p.nvar; ++n) {
-      const T upd = dtdV * (F2X[at(p, n, i, j)] * g.Ax(i, j) -
-                            F2X[at(p, n, i + 1, j)] * g.Ax(i + 1, j) +
-                            F2Y[at(p, n, i, j)] * g.Ay(i, j) -
-                            F2Y[at(p, n, i, j + 1)] * g.Ay(i, j + 1));
-      u[n] = ldU(U, p, n, i, j) + upd;
+  if (p.with_sources || SPH) {
+    const size_t fp = (size_t)p.qx * p.qy;
+    for (int k = tid; k < ct; k += nt) {
+      const int i = bt.i0 + k / bt.w, j = bt.j0 + k % bt.w;
+      const bool in = i < p.qx && j < p.qy;
+      const size_t c = (size_t)i * p.qy + j;
+      if (p.with_sources)
+        for (int m = 0; m < 3; ++m)
+          SS[m * ct + k] = in ? S[(m + 1) * fp + c] : T(0);
+      if constexpr (SPH)
+        for (int m = 0; m < 4; ++m)
+          sm[t.g + m * ct + k] = in ? G[m * fp + c] : T(0);
     }
-    // non-conservative pressure gradients from the final pair
-    const T mdt = T(-p.dt);
-    u[p.ixmom] = u[p.ixmom] + mdt * (s.P2X[at(p, 0, i + 1, j)] -
-                                     s.P2X[at(p, 0, i, j)]) / T(p.dx);
-    u[p.iymom] = u[p.iymom] + mdt * (s.P2Y[at(p, 0, i, j + 1)] -
-                                     s.P2Y[at(p, 0, i, j)]) / g.Ly(i);
+  }
+  __syncthreads();
 
-    // predictor-corrector sources (always on: the geometric terms act
-    // with grav = 0 too)
-    const T r = g.r(i);
-    const T dt = T(p.dt), hdt = T(0.5 * p.dt), grav = T(p.grav);
-    T u0[MAXVAR];
-    for (int n = 0; n < p.nvar; ++n) u0[n] = ldU(U, p, n, i, j);
-    T Sx0, Sy0, SE0;
-    sph_sources(p, u0, r, Sx0, Sy0, SE0);
-    u[p.ixmom] = u[p.ixmom] + dt * Sx0;
-    u[p.iymom] = u[p.iymom] + dt * Sy0;
-    u[p.iener] = u[p.iener] + dt * SE0;
-    // the corrector: the energy source time-centred with the corrected
-    // radial momentum
-    const T S_xmom = u[p.idens] * grav;
-    const T S_old_xmom = u0[p.idens] * grav;
-    const T xmom_new = u[p.ixmom] + hdt * (S_xmom - S_old_xmom);
-    const T Sx1 = S_xmom + (u[p.iymom] * u[p.iymom]) / (u[p.idens] * r);
-    const T Sy1 = T(0) - u[p.ixmom] * u[p.iymom] / u[p.idens];
-    const T SE1 = xmom_new * grav;
-    u[p.ixmom] = u[p.ixmom] + hdt * (Sx1 - Sx0);
-    u[p.iymom] = u[p.iymom] + hdt * (Sy1 - Sy0);
-    u[p.iener] = u[p.iener] + hdt * (SE1 - SE0);
-  } else {
-    const T dtdV = T(p.dt / (p.dx * p.dy));
-    const T Ax = T(p.dy), Ay = T(p.dx);
-    for (int n = 0; n < p.nvar; ++n) {
-      const T upd = dtdV * (F2X[at(p, n, i, j)] * Ax -
-                            F2X[at(p, n, i + 1, j)] * Ax +
-                            F2Y[at(p, n, i, j)] * Ay -
-                            F2Y[at(p, n, i, j + 1)] * Ay);
-      u[n] = ldU(U, p, n, i, j) + upd;
+  // 2. the 1-D flattening coefficients (1 outside buf=2)
+  if (p.flatten) {
+    const BoxPlane<T> P = qv(IP);
+    for (int k = tid; k < bx.cells(); k += nt) {
+      const int i = bx.i0 + k / bx.w, j = bx.j0 + k % bx.w;
+      XI[k] = flat1d_of<T>(p, P, qv(IU), i, j, 1, 0);
+      XI[bx.cells() + k] = flat1d_of<T>(p, P, qv(IV), i, j, 0, 1);
     }
+    __syncthreads();
+  }
 
+  // 3. the traced states of every cell of bt (zero outside buf=2), with
+  // 0.5 dt of the cell's sources on the faces of the buf=1 window
+  for (int k = tid; k < ct; k += nt) {
+    const int a = bt.i0 + k / bt.w, b = bt.j0 + k % bt.w;
+    T lx[MAXVAR], hx[MAXVAR], ly[MAXVAR], hy[MAXVAR];
+    if (inwin(p, a, b, 2, 2, 2, 2)) {
+      const T xi = flat_xi_of<T>(p, qv(IP), plane<T>(XI, bx, 0),
+                                 plane<T>(XI, bx, 1), a, b);
+      T q[MAXVAR];
+#pragma unroll
+      for (int n = 0; n < NV; ++n) q[n] = Q[n * bq.cells() + bq.at(a, b)];
+      trace_dir<T, SPH, 1>(p, qv, g, q, xi, a, b, lx, hx);
+      trace_dir<T, SPH, 2>(p, qv, g, q, xi, a, b, ly, hy);
+    } else {
+#pragma unroll
+      for (int n = 0; n < NV; ++n) lx[n] = hx[n] = ly[n] = hy[n] = T(0);
+    }
     if (p.with_sources) {
-      const T grav = T(p.grav);
-      const T dt = T(p.dt), hdt = T(0.5 * p.dt);
-      const T S_old_ymom = ldU(U, p, p.idens, i, j) * grav;
-      const T S_old_E = ldU(U, p, p.iymom, i, j) * grav;
-      u[p.iymom] = u[p.iymom] + dt * S_old_ymom;
-      u[p.iener] = u[p.iener] + dt * S_old_E;
-      const T S_new_ymom = u[p.idens] * grav;
-      const T ymom_new = u[p.iymom] + hdt * (S_new_ymom - S_old_ymom);
-      const T S_new_E = ymom_new * grav;
-      u[p.iymom] = u[p.iymom] + hdt * (S_new_ymom - S_old_ymom);
-      u[p.iener] = u[p.iener] + hdt * (S_new_E - S_old_E);
+      const T s1 = SS[k], s2 = SS[ct + k], s3 = SS[2 * ct + k];
+      half_sources(p, lx, a, b, s1, s2, s3);
+      half_sources(p, hx, a + 1, b, s1, s2, s3);
+      half_sources(p, ly, a, b, s1, s2, s3);
+      half_sources(p, hy, a, b + 1, s1, s2, s3);
+    }
+#pragma unroll
+    for (int n = 0; n < NV; ++n) {
+      st(LOX, n, k) = lx[n];
+      st(HIX, n, k) = hx[n];
+      st(LOY, n, k) = ly[n];
+      st(HIY, n, k) = hy[n];
     }
   }
+  __syncthreads();
 
-  if (p.do_sponge) {
-    const T damp = T(1) + T(p.dt) * sponge_rate(p, u[p.idens]);
-    const T x = u[p.ixmom], y = u[p.iymom];
-    const T nx = x / damp, ny = y / damp;
-    u[p.ixmom] = nx;
-    u[p.iymom] = ny;
-    u[p.iener] = u[p.iener] + T(0.5) * ((nx * nx + ny * ny) - (x * x + y * y)) /
-                                  u[p.idens];
+  // 4. the first Riemann pair on the faces of bt's cells that have their
+  // left neighbour in bt, zero outside buf=1; in spherical geometry also
+  // the pressures of the pair's CGF interface states; and the vertex
+  // divergence at each cell's lower-left corner, which the viscosity of
+  // four faces reads
+  for (int k = tid; k < ct; k += nt) {
+    const int a = bt.i0 + k / bt.w, b = bt.j0 + k % bt.w;
+    const bool w1 = inwin(p, a, b, 1, 1, 1, 1);
+    if (a > bt.i0 && b > bt.j0)
+      DV[k] = vdiv<T, SPH>(p, qv(IU), qv(IV), g, a, b);
+    T ul[MAXVAR], ur[MAXVAR], f[MAXVAR], us[MAXVAR];
+    if (a > bt.i0) {
+      T pr = T(0);
+      if (w1) {
+#pragma unroll
+        for (int n = 0; n < NV; ++n) {
+          ul[n] = st(HIX, n, k - bt.w);
+          ur[n] = st(LOX, n, k);
+        }
+        riemann(p, 1, ul, ur, a, b, f, SPH ? us : (T*)nullptr);
+        if constexpr (SPH) pr = pressure(p, us);
+      } else {
+#pragma unroll
+        for (int n = 0; n < NV; ++n) f[n] = T(0);
+      }
+#pragma unroll
+      for (int n = 0; n < NV; ++n) f1(0, n, k) = f[n];
+      if constexpr (SPH) P1[k] = pr;
+    }
+    if (b > bt.j0) {
+      T pr = T(0);
+      if (w1) {
+#pragma unroll
+        for (int n = 0; n < NV; ++n) {
+          ul[n] = st(HIY, n, k - 1);
+          ur[n] = st(LOY, n, k);
+        }
+        riemann(p, 2, ul, ur, a, b, f, SPH ? us : (T*)nullptr);
+        if constexpr (SPH) pr = pressure(p, us);
+      } else {
+#pragma unroll
+        for (int n = 0; n < NV; ++n) f[n] = T(0);
+      }
+#pragma unroll
+      for (int n = 0; n < NV; ++n) f1(1, n, k) = f[n];
+      if constexpr (SPH) P1[ct + k] = pr;
+    }
   }
-  for (int n = 0; n < p.nvar; ++n) out[at(p, n, i, j)] = u[n];
+  __syncthreads();
+
+  // 5. transverse corrections, the final Riemann pair and artificial
+  // viscosity on the tile's faces that the update reads -- x faces i in
+  // [i0, i0 + tx] within [ilo, ihi+1], y faces j in [j0, j0 + ty] within
+  // [jlo, jhi+1] -- written over the face's right state, which only this
+  // face reads; in spherical geometry also the final pair's interface
+  // pressures
+  {
+    const T hdt = T(0.5 * p.dt);
+    for (int k = tid; k < ct; k += nt) {
+      const int i = bt.i0 + k / bt.w, j = bt.j0 + k % bt.w;
+      T ul[MAXVAR], ur[MAXVAR], f[MAXVAR], us[MAXVAR];
+      const bool in_tile_x = i >= i0 && i <= i0 + t.tx && j >= j0 &&
+                             j < j0 + t.ty;
+      const bool in_tile_y = i >= i0 && i < i0 + t.tx && j >= j0 &&
+                             j <= j0 + t.ty;
+      if (in_tile_x && i <= ihi(p) + 1 && j <= jhi(p)) {
+        const int w0 = k - bt.w, w1 = w0 + 1;     // (i - 1, j), (i - 1, j + 1)
+        if constexpr (SPH) {
+          const T mhdtV = -((T(1) / g.V(i, j)) * hdt);
+#pragma unroll
+          for (int n = 0; n < NV; ++n) {
+            ul[n] = st(HIX, n, w0) +
+                    mhdtV * (f1(1, n, w1) * g.Ay(i - 1, j + 1) -
+                             f1(1, n, w0) * g.Ay(i - 1, j));
+            ur[n] = st(LOX, n, k) +
+                    mhdtV * (f1(1, n, k + 1) * g.Ay(i, j + 1) -
+                             f1(1, n, k) * g.Ay(i, j));
+          }
+          // transverse pressure gradients, over the unshifted cell's side
+          const T Ly = g.Ly(i);
+          const T* P1Y = P1 + ct;
+          ul[p.iymom] = ul[p.iymom] + (-hdt) * (P1Y[w1] - P1Y[w0]) / Ly;
+          ur[p.iymom] = ur[p.iymom] + (-hdt) * (P1Y[k + 1] - P1Y[k]) / Ly;
+        } else {
+          const T mhdtV = T(-(0.5 * p.dt / (p.dx * p.dy)));
+          const T Ay = T(p.dx);
+#pragma unroll
+          for (int n = 0; n < NV; ++n) {
+            ul[n] = st(HIX, n, w0) +
+                    mhdtV * (f1(1, n, w1) * Ay - f1(1, n, w0) * Ay);
+            ur[n] = st(LOX, n, k) +
+                    mhdtV * (f1(1, n, k + 1) * Ay - f1(1, n, k) * Ay);
+          }
+        }
+        riemann(p, 1, ul, ur, i, j, f, SPH ? us : (T*)nullptr);
+        if constexpr (SPH) P2[k] = pressure(p, us);
+        if (i <= ihi(p)) {
+          const T divU = T(0.5) * (DV[k] + DV[k + 1]);
+          const T av = T(p.cvisc) * fmax(-divU * T(p.dx), T(0));
+#pragma unroll
+          for (int n = 0; n < NV; ++n)
+            f[n] = f[n] + av * (ub(n, i - 1, j) - ub(n, i, j));
+        }
+#pragma unroll
+        for (int n = 0; n < NV; ++n) st(LOX, n, k) = f[n];
+      }
+      if (in_tile_y && i <= ihi(p) && j <= jhi(p) + 1) {
+        const int e0 = k + bt.w, e1 = e0 - 1;     // (i + 1, j), (i + 1, j - 1)
+        if constexpr (SPH) {
+          const T mhdtV = -((T(1) / g.V(i, j)) * hdt);
+#pragma unroll
+          for (int n = 0; n < NV; ++n) {
+            ul[n] = st(HIY, n, k - 1) +
+                    mhdtV * (f1(0, n, e1) * g.Ax(i + 1, j - 1) -
+                             f1(0, n, k - 1) * g.Ax(i, j - 1));
+            ur[n] = st(LOY, n, k) +
+                    mhdtV * (f1(0, n, e0) * g.Ax(i + 1, j) -
+                             f1(0, n, k) * g.Ax(i, j));
+          }
+          const T Lx = T(p.dx);
+          ul[p.ixmom] = ul[p.ixmom] + (-hdt) * (P1[e1] - P1[k - 1]) / Lx;
+          ur[p.ixmom] = ur[p.ixmom] + (-hdt) * (P1[e0] - P1[k]) / Lx;
+        } else {
+          const T mhdtV = T(-(0.5 * p.dt / (p.dx * p.dy)));
+          const T Ax = T(p.dy);
+#pragma unroll
+          for (int n = 0; n < NV; ++n) {
+            ul[n] = st(HIY, n, k - 1) +
+                    mhdtV * (f1(0, n, e1) * Ax - f1(0, n, k - 1) * Ax);
+            ur[n] = st(LOY, n, k) +
+                    mhdtV * (f1(0, n, e0) * Ax - f1(0, n, k) * Ax);
+          }
+        }
+        riemann(p, 2, ul, ur, i, j, f, SPH ? us : (T*)nullptr);
+        if constexpr (SPH) P2[ct + k] = pressure(p, us);
+        if (j <= jhi(p)) {
+          const T divU = T(0.5) * (DV[k] + DV[k + bt.w]);
+          const T L = SPH ? g.Ly(i) : T(p.dy);
+          const T av = T(p.cvisc) * fmax(-divU * L, T(0));
+#pragma unroll
+          for (int n = 0; n < NV; ++n)
+            f[n] = f[n] + av * (ub(n, i, j - 1) - ub(n, i, j));
+        }
+#pragma unroll
+        for (int n = 0; n < NV; ++n) st(LOY, n, k) = f[n];
+      }
+    }
+  }
+  __syncthreads();
+
+  // 6. the update on the tile's interior cells, and the input's ghosts
+  // carried through by the tiles at the frame's edges: this block owns
+  // rows [r0, r1) x columns [c0, c1) of the frame
+  const int r0 = blockIdx.y == 0 ? 0 : i0;
+  const int r1 = blockIdx.y == gridDim.y - 1 ? p.qx : i0 + t.tx;
+  const int c0 = blockIdx.x == 0 ? 0 : j0;
+  const int c1 = blockIdx.x == gridDim.x - 1 ? p.qy : j0 + t.ty;
+  const int ow = c1 - c0;
+  for (int k = tid; k < (r1 - r0) * ow; k += nt) {
+    const int i = r0 + k / ow, j = c0 + k % ow;
+    if (!inwin(p, i, j, 0, 0, 0, 0)) {
+#pragma unroll
+      for (int n = 0; n < NV; ++n) out[at(p, n, i, j)] = U[at(p, n, i, j)];
+      continue;
+    }
+    const int c = bt.at(i, j);
+    const int cx = c + bt.w, cy = c + 1;    // faces (i + 1, j), (i, j + 1)
+    T u[MAXVAR];
+    if constexpr (SPH) {
+      const T dtdV = (T(1) / g.V(i, j)) * T(p.dt);
+#pragma unroll
+      for (int n = 0; n < NV; ++n) {
+        const T upd = dtdV * (st(LOX, n, c) * g.Ax(i, j) -
+                              st(LOX, n, cx) * g.Ax(i + 1, j) +
+                              st(LOY, n, c) * g.Ay(i, j) -
+                              st(LOY, n, cy) * g.Ay(i, j + 1));
+        u[n] = ub(n, i, j) + upd;
+      }
+      // non-conservative pressure gradients from the final pair
+      const T mdt = T(-p.dt);
+      u[p.ixmom] = u[p.ixmom] + mdt * (P2[cx] - P2[c]) / T(p.dx);
+      u[p.iymom] = u[p.iymom] + mdt * (P2[ct + cy] - P2[ct + c]) / g.Ly(i);
+
+      // predictor-corrector sources (always on: the geometric terms act
+      // with grav = 0 too)
+      const T r = g.r(i);
+      const T dt = T(p.dt), hdt = T(0.5 * p.dt), grav = T(p.grav);
+      T u0[MAXVAR];
+#pragma unroll
+      for (int n = 0; n < NV; ++n) u0[n] = ub(n, i, j);
+      T Sx0, Sy0, SE0;
+      sph_sources(p, u0, r, Sx0, Sy0, SE0);
+      u[p.ixmom] = u[p.ixmom] + dt * Sx0;
+      u[p.iymom] = u[p.iymom] + dt * Sy0;
+      u[p.iener] = u[p.iener] + dt * SE0;
+      // the corrector: the energy source time-centred with the corrected
+      // radial momentum
+      const T S_xmom = u[p.idens] * grav;
+      const T S_old_xmom = u0[p.idens] * grav;
+      const T xmom_new = u[p.ixmom] + hdt * (S_xmom - S_old_xmom);
+      const T Sx1 = S_xmom + (u[p.iymom] * u[p.iymom]) / (u[p.idens] * r);
+      const T Sy1 = T(0) - u[p.ixmom] * u[p.iymom] / u[p.idens];
+      const T SE1 = xmom_new * grav;
+      u[p.ixmom] = u[p.ixmom] + hdt * (Sx1 - Sx0);
+      u[p.iymom] = u[p.iymom] + hdt * (Sy1 - Sy0);
+      u[p.iener] = u[p.iener] + hdt * (SE1 - SE0);
+    } else {
+      const T dtdV = T(p.dt / (p.dx * p.dy));
+      const T Ax = T(p.dy), Ay = T(p.dx);
+#pragma unroll
+      for (int n = 0; n < NV; ++n) {
+        const T upd = dtdV * (st(LOX, n, c) * Ax - st(LOX, n, cx) * Ax +
+                              st(LOY, n, c) * Ay - st(LOY, n, cy) * Ay);
+        u[n] = ub(n, i, j) + upd;
+      }
+
+      if (p.with_sources) {
+        const T grav = T(p.grav);
+        const T dt = T(p.dt), hdt = T(0.5 * p.dt);
+        const T S_old_ymom = ub(p.idens, i, j) * grav;
+        const T S_old_E = ub(p.iymom, i, j) * grav;
+        u[p.iymom] = u[p.iymom] + dt * S_old_ymom;
+        u[p.iener] = u[p.iener] + dt * S_old_E;
+        const T S_new_ymom = u[p.idens] * grav;
+        const T ymom_new = u[p.iymom] + hdt * (S_new_ymom - S_old_ymom);
+        const T S_new_E = ymom_new * grav;
+        u[p.iymom] = u[p.iymom] + hdt * (S_new_ymom - S_old_ymom);
+        u[p.iener] = u[p.iener] + hdt * (S_new_E - S_old_E);
+      }
+    }
+
+    if (p.do_sponge) {
+      const T damp = T(1) + T(p.dt) * sponge_rate(p, u[p.idens]);
+      const T x = u[p.ixmom], y = u[p.iymom];
+      const T nx = x / damp, ny = y / damp;
+      u[p.ixmom] = nx;
+      u[p.iymom] = ny;
+      u[p.iener] = u[p.iener] +
+                   T(0.5) * ((nx * nx + ny * ny) - (x * x + y * y)) /
+                       u[p.idens];
+    }
+#pragma unroll
+    for (int n = 0; n < NV; ++n) out[at(p, n, i, j)] = u[n];
+  }
 }
 
-// the scratch planes of one member, in the state's dtype: 8 nvar + nvar
-// (Q) + 2 (XI) + 4 (the spherical interface pressures)
-int scratch_planes(int nvar) { return 9 * nvar + 6; }
+// one launch of the NV-variable kernel with the plan's tile and shared
+// memory (the opt-in above 48 KB is set once per kernel and size)
+template <typename T, int NV, bool SPH>
+int launch(const T* U, const T* S, const T* G, T* out, const Params& base,
+           const Plan& t, int n_members, cudaStream_t st) {
+  static int opted = 0;
+  auto kernel = k_ctu<T, NV, SPH>;
+  if (t.smem > opted) {
+    cudaError_t e = cudaFuncSetAttribute(
+        (const void*)kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        t.smem);
+    if (e != cudaSuccess) return (int)e;
+    opted = t.smem;
+  }
+  CtuParams<NV> p;
+  static_cast<Params&>(p) = base;
+  const dim3 grd(t.bx, t.by, n_members);
+  kernel<<<grd, t.threads, t.smem, st>>>(U, S, G, out, p, t);
+  return (int)cudaGetLastError();
+}
 
-// stages 3-6, with the geometry fixed at compile time (the Cartesian
-// stages carry no spherical branch)
 template <typename T, bool SPH>
-int stages(const T* U, const T* S, const T* G, T* out, T* scratch,
-           const Params& p, dim3 grd, dim3 blk, cudaStream_t st) {
-  k_states<T, SPH><<<grd, blk, 0, st>>>(scratch, S, G, p);
-  LAUNCH_CHECK;
-  k_riemann1<T, SPH><<<grd, blk, 0, st>>>(scratch, p);
-  LAUNCH_CHECK;
-  k_riemann2<T, SPH><<<grd, blk, 0, st>>>(U, scratch, G, p);
-  LAUNCH_CHECK;
-  k_update<T, SPH><<<grd, blk, 0, st>>>(U, scratch, G, out, p);
-  LAUNCH_CHECK;
-  return 0;
+int by_nvar(const T* U, const T* S, const T* G, T* out, const Params& p,
+            const Plan& t, int n_members, cudaStream_t st) {
+  switch (p.nvar) {
+    case 4: return launch<T, 4, SPH>(U, S, G, out, p, t, n_members, st);
+    case 5: return launch<T, 5, SPH>(U, S, G, out, p, t, n_members, st);
+    case 6: return launch<T, 6, SPH>(U, S, G, out, p, t, n_members, st);
+    case 7: return launch<T, 7, SPH>(U, S, G, out, p, t, n_members, st);
+    case 8: return launch<T, 8, SPH>(U, S, G, out, p, t, n_members, st);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 template <typename T>
-int run(const T* U, const T* S, const T* G, T* out, T* scratch, Params p,
+int run(const T* U, const T* S, const T* G, T* out, Params p, const int* tp,
         int n_members, cudaStream_t st) {
-  if (p.nvar < 4 || p.nvar > MAXVAR || p.ng < 4 || p.nx < 1 || p.ny < 1 ||
+  static_assert(MAXVAR == 8, "by_nvar instantiates 4..8 variables");
+  const Plan t = load_plan(tp);
+  if (p.nvar < 4 || p.nvar > MAXVAR || p.nx < 1 || p.ny < 1 ||
       n_members < 1 || n_members > 65535)
     return (int)cudaErrorInvalidValue;
-  if (p.with_sources && S == nullptr) return (int)cudaErrorInvalidValue;
-  if (p.spherical && (G == nullptr || p.riemann != 2))
+  if (p.idens != 0 || p.iener != 1 || p.ixmom != 2 || p.iymom != 3)
     return (int)cudaErrorInvalidValue;
-
-  const size_t plane = (size_t)p.qx * p.qy;
-  p.mstride = n_members > 1 ? (size_t)p.nvar * plane : 0;
-  p.sstride = n_members > 1 ? (size_t)scratch_planes(p.nvar) * plane : 0;
-  const Scratch<T> s = carve(scratch, p.nvar, plane);
-
-  const dim3 blk(64, 4);
-  const dim3 grd((p.qy + blk.x - 1) / blk.x, (p.qx + blk.y - 1) / blk.y,
-                 n_members);
-  k_prim<T><<<grd, blk, 0, st>>>(U, s.Q, p);
-  LAUNCH_CHECK;
-  if (p.flatten) {
-    k_flatten<T><<<grd, blk, 0, st>>>(s.Q, s.XI, p);
-    LAUNCH_CHECK;
-  }
-  return p.spherical ? stages<T, true>(U, S, G, out, scratch, p, grd, blk, st)
-                     : stages<T, false>(U, S, G, out, scratch, p, grd, blk,
-                                        st);
+  // the block, the halos the pipeline reads (ctu_kernel.HALO) within the
+  // frame's ghosts, and a grid whose tiles cover the interior once
+  if (t.threads != (p.spherical ? Launch<T, true>::threads
+                                 : Launch<T, false>::threads))
+    return (int)cudaErrorInvalidValue;
+  if (t.tx < 1 || t.ty < 1 || t.ht < 1 || t.hx < t.ht + 1 ||
+      t.hq < t.hx + 2 || t.hq < t.ht + 2 || p.ng < t.hq || t.smem < 1)
+    return (int)cudaErrorInvalidValue;
+  if (t.bx < 1 || t.by < 1 || (t.bx - 1) * t.ty >= p.ny ||
+      t.bx * t.ty < p.ny || (t.by - 1) * t.tx >= p.nx || t.by * t.tx < p.nx)
+    return (int)cudaErrorInvalidValue;
+  if ((p.with_sources && (S == nullptr || t.s < 0)) ||
+      (p.flatten && t.xi < 0))
+    return (int)cudaErrorInvalidValue;
+  if (p.spherical && (G == nullptr || p.riemann != 2 || t.g < 0 ||
+                      t.p1 < 0 || t.p2 < 0))
+    return (int)cudaErrorInvalidValue;
+  p.mstride = n_members > 1 ? (size_t)p.nvar * p.qx * p.qy : 0;
+  return p.spherical ? by_nvar<T, true>(U, S, G, out, p, t, n_members, st)
+                     : by_nvar<T, false>(U, S, G, out, p, t, n_members, st);
 }
 
-// the padded entries' step: no floor, sources, sponge or walls, and
+// the batched entries' step: no floor, sources, sponge or walls, and
 // Cartesian geometry, whatever the parameter arrays say
 inline Params batched_params(const int* ip, const double* dp) {
   Params p = load_params(ip, dp, false);
@@ -630,36 +799,36 @@ inline Params batched_params(const int* ip, const double* dp) {
 
 }  // namespace
 
-extern "C" int ctu_scratch_planes(int nvar) { return scratch_planes(nvar); }
+// the length of the plan array each entry takes (ctu_kernel.plan)
+extern "C" int ctu_plan_ints() { return PLAN_INTS; }
 
 extern "C" int ctu_step_f32(const float* U, const float* S, const float* G,
-                            float* out, float* scratch, const int* ip,
-                            const double* dp, void* stream) {
-  return run<float>(U, S, G, out, scratch, load_params(ip, dp, false), 1,
+                            float* out, const int* ip, const double* dp,
+                            const int* plan, void* stream) {
+  return run<float>(U, S, G, out, load_params(ip, dp, false), plan, 1,
                     (cudaStream_t)stream);
 }
 
 extern "C" int ctu_step_f64(const double* U, const double* S,
-                            const double* G, double* out, double* scratch,
-                            const int* ip, const double* dp, void* stream) {
-  return run<double>(U, S, G, out, scratch, load_params(ip, dp, false), 1,
+                            const double* G, double* out, const int* ip,
+                            const double* dp, const int* plan, void* stream) {
+  return run<double>(U, S, G, out, load_params(ip, dp, false), plan, 1,
                      (cudaStream_t)stream);
 }
 
-// n_members independent states, one after another in U, out and scratch
-// (scratch: n_members x ctu_scratch_planes(nvar) planes)
+// n_members independent states, one after another in U and out
 extern "C" int ctu_step_batched_f32(const float* U, float* out,
-                                    float* scratch, int n_members,
-                                    const int* ip, const double* dp,
+                                    int n_members, const int* ip,
+                                    const double* dp, const int* plan,
                                     void* stream) {
-  return run<float>(U, nullptr, nullptr, out, scratch, batched_params(ip, dp),
+  return run<float>(U, nullptr, nullptr, out, batched_params(ip, dp), plan,
                     n_members, (cudaStream_t)stream);
 }
 
 extern "C" int ctu_step_batched_f64(const double* U, double* out,
-                                    double* scratch, int n_members,
-                                    const int* ip, const double* dp,
+                                    int n_members, const int* ip,
+                                    const double* dp, const int* plan,
                                     void* stream) {
-  return run<double>(U, nullptr, nullptr, out, scratch,
-                     batched_params(ip, dp), n_members, (cudaStream_t)stream);
+  return run<double>(U, nullptr, nullptr, out, batched_params(ip, dp), plan,
+                     n_members, (cudaStream_t)stream);
 }

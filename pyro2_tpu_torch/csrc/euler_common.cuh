@@ -10,6 +10,14 @@
 // The arithmetic follows the plain PyTorch versions operation by operation
 // (compile with -fmad=false), so the kernels agree with them to the last
 // bits the order of operations allows.
+//
+// Every per-cell helper is a template over the parameter block P and reads
+// the variable count and indices as p.nvar, p.idens, ...: mol_substep.cu
+// passes Params, whose fields hold them at run time; ctu_step.cu passes a
+// block that fixes them at compile time, so its per-variable arrays are
+// indexed by constants and stay in registers.  The stencil helpers read
+// their planes through views a(i, j) (FramePlane for a frame in device
+// memory; ctu_step.cu's views of a tile in shared memory).
 
 #pragma once
 
@@ -25,10 +33,10 @@ struct Params {
   int flatten, with_sources, do_sponge, has_floor;
   int solid_xl, solid_xr, solid_yl, solid_yr;
   int spherical;  // SphericalPolar geometry (the CTU step only)
-  // a batch of independent states (the CTU step's ensemble entry): member
-  // blockIdx.z starts mstride elements into the state stacks and sstride
-  // elements into the scratch; both 0 for a single state
-  size_t mstride, sstride;
+  // a batch of independent states (the CTU step's batched entry): member
+  // blockIdx.z starts mstride elements into the state stacks; 0 for a
+  // single state
+  size_t mstride;
   double dx, dy, dt, gamma, z0, z1, delta, cvisc, floor, grav;
   double rho_begin, rho_full, tau;
   // method-of-lines constants, rounded on the host as the plain versions'
@@ -46,8 +54,8 @@ constexpr double SMALLP = 1.e-10;
 constexpr double PI = 3.141592653589793;
 
 // the state with the density floor applied on the global interior
-template <typename T>
-__device__ __forceinline__ T ldU(const T* __restrict__ U, const Params& p,
+template <typename T, typename P>
+__device__ __forceinline__ T ldU(const T* __restrict__ U, const P& p,
                                  int n, int i, int j) {
   T v = U[at(p, n, i, j)];
   if (p.has_floor && n == p.idens && inwin(p, i, j, 0, 0, 0, 0))
@@ -64,8 +72,8 @@ struct Side {
   T rho, un, ut, rhoe, p;
 };
 
-template <typename T>
-__device__ __forceinline__ Side<T> decompose(const Params& p, int idir,
+template <typename T, typename P>
+__device__ __forceinline__ Side<T> decompose(const P& p, int idir,
                                              const T* U) {
   Side<T> s;
   const int in = idir == 1 ? p.ixmom : p.iymom;
@@ -78,8 +86,9 @@ __device__ __forceinline__ Side<T> decompose(const Params& p, int idir,
   return s;
 }
 
-template <typename T>
-__device__ void cons_flux(const Params& p, int idir, const T* U, T* F) {
+template <typename T, typename P>
+__device__ __forceinline__ void cons_flux(const P& p, int idir, const T* U,
+                                          T* F) {
   const T rho = U[p.idens];
   const bool nz = rho != T(0);
   const T safe = nz ? rho : T(1);
@@ -102,9 +111,10 @@ __device__ void cons_flux(const Params& p, int idir, const T* U, T* F) {
   for (int n = 4; n < p.nvar; ++n) F[n] = U[n] * vel;
 }
 
-template <typename T>
-__device__ void wave_speeds(const Params& p, T rho_l, T u_l, T p_l, T c_l,
-                            T rho_r, T u_r, T p_r, T c_r, T& S_l, T& S_r) {
+template <typename T, typename P>
+__device__ __forceinline__ void wave_speeds(const P& p, T rho_l, T u_l,
+                                            T p_l, T c_l, T rho_r, T u_r,
+                                            T p_r, T c_r, T& S_l, T& S_r) {
   const double g = p.gamma;
   const T p_max = fmax(p_l, p_r);
   const T p_min = fmin(p_l, p_r);
@@ -152,11 +162,11 @@ __device__ void wave_speeds(const Params& p, T rho_l, T u_l, T p_l, T c_l,
                                           (pstar / p_r - T(1)));
 }
 
-template <typename T>
-__device__ void hllc(const Params& p, int idir, const T* Ul, const T* Ur,
-                     T* F) {
-  const Side<T> L = decompose(p, idir, Ul);
-  const Side<T> R = decompose(p, idir, Ur);
+template <typename T, typename P>
+__device__ __forceinline__ void hllc(const P& p, int idir, const T* Ul,
+                                     const T* Ur, T* F) {
+  const Side<T> L = decompose<T>(p, idir, Ul);
+  const Side<T> R = decompose<T>(p, idir, Ur);
   const T g = T(p.gamma);
   const T c_l = fmax(T(SMALLC), sqrt(g * L.p / L.rho));
   const T c_r = fmax(T(SMALLC), sqrt(g * R.p / R.rho));
@@ -180,9 +190,12 @@ __device__ void hllc(const Params& p, int idir, const T* Ul, const T* Ur,
   else
     region = 3;
 
+  // the side's state, chosen value by value (a choice between the two
+  // arrays themselves would put both in local memory)
   const bool right = region <= 1;
-  const T* U = right ? Ur : Ul;
-  const Side<T>& s = right ? R : L;
+  T U[MAXVAR];
+  for (int n = 0; n < p.nvar; ++n) U[n] = right ? Ur[n] : Ul[n];
+  const Side<T> s = right ? R : L;
   cons_flux(p, idir, U, F);
   if (region == 0 || region == 3) return;
 
@@ -242,9 +255,10 @@ struct CGFState {
   T rho, un, ut, p, rhoe, ustar;
 };
 
-template <typename T>
-__device__ CGFState<T> cgf_core(const Params& p, const Side<T>& L,
-                                const Side<T>& R, bool solid) {
+template <typename T, typename P>
+__device__ __forceinline__ CGFState<T> cgf_core(const P& p, const Side<T>& L,
+                                                const Side<T>& R,
+                                                bool solid) {
   const T g = T(p.gamma);
 
   const T W_l = fmax(T(SMALLRHO * SMALLC), sqrt(g * L.p * L.rho));
@@ -298,11 +312,12 @@ __device__ CGFState<T> cgf_core(const Params& p, const Side<T>& L,
 
 // CGF on conserved states: the flux of the interface state, which is
 // also handed out through Us_out when that is not null
-template <typename T>
-__device__ void cgf(const Params& p, int idir, const T* Ul, const T* Ur,
-                    bool solid, T* F, T* Us_out) {
-  const CGFState<T> s =
-      cgf_core(p, decompose(p, idir, Ul), decompose(p, idir, Ur), solid);
+template <typename T, typename P>
+__device__ __forceinline__ void cgf(const P& p, int idir, const T* Ul,
+                                    const T* Ur, bool solid, T* F,
+                                    T* Us_out) {
+  const CGFState<T> s = cgf_core<T>(p, decompose<T>(p, idir, Ul),
+                                    decompose<T>(p, idir, Ur), solid);
   const T rho_s = s.rho, un_s = s.un, ut_s = s.ut, ustar = s.ustar;
 
   const int in = idir == 1 ? p.ixmom : p.iymom;
@@ -327,8 +342,8 @@ __device__ void cgf(const Params& p, int idir, const T* Ul, const T* Ur,
 
 // CGF on primitive states (riemann_prim): the primitive interface state,
 // without wall clamps (the 4th-order solver's)
-template <typename T>
-__device__ void cgf_prim(const Params& p, int idir, const T* ql, const T* qr,
+template <typename T, typename P>
+__device__ void cgf_prim(const P& p, int idir, const T* ql, const T* qr,
                          T* out) {
   const int iun = idir == 1 ? IU : IV;
   const int iut = idir == 1 ? IV : IU;
@@ -343,7 +358,7 @@ __device__ void cgf_prim(const Params& p, int idir, const T* ql, const T* qr,
   R.ut = qr[iut];
   R.p = fmax(qr[IP], T(SMALLP));
   R.rhoe = R.p / T(p.gamma - 1.0);
-  const CGFState<T> s = cgf_core(p, L, R, false);
+  const CGFState<T> s = cgf_core<T>(p, L, R, false);
   out[IRHO] = s.rho;
   out[iun] = s.un;
   out[iut] = s.ut;
@@ -355,7 +370,8 @@ __device__ void cgf_prim(const Params& p, int idir, const T* ql, const T* qr,
 }
 
 // interface (i, j) normal to idir: is it a clamped solid wall?
-__device__ __forceinline__ bool solid_face(const Params& p, int idir, int i,
+template <typename P>
+__device__ __forceinline__ bool solid_face(const P& p, int idir, int i,
                                            int j) {
   if (idir == 1)
     return (i == ilo(p) && p.solid_xl) || (i == ihi(p) + 1 && p.solid_xr);
@@ -364,8 +380,8 @@ __device__ __forceinline__ bool solid_face(const Params& p, int idir, int i,
 
 // the flux F through interface (i, j); CGF also hands its interface state
 // out through Us when that is not null (HLLC has none)
-template <typename T>
-__device__ __forceinline__ void riemann(const Params& p, int idir,
+template <typename T, typename P>
+__device__ __forceinline__ void riemann(const P& p, int idir,
                                         const T* Ul, const T* Ur, int i,
                                         int j, T* F, T* Us = nullptr) {
   if (p.riemann == 2)
@@ -375,18 +391,13 @@ __device__ __forceinline__ void riemann(const Params& p, int idir,
 }
 
 // ---------------------------------------------------------------------------
-// flattening
-// ---------------------------------------------------------------------------
-
-// ---------------------------------------------------------------------------
-// stage kernels
+// cons <-> prim, flattening, the vertex divergence; the MOL stage kernels
 // ---------------------------------------------------------------------------
 
 // cons -> prim of one cell's conserved values u (the rho == 0 guard of
 // the plain cons_to_prim)
-template <typename T>
-__device__ __forceinline__ void cons_to_prim(const Params& p, const T* u,
-                                             T* q) {
+template <typename T, typename P>
+__device__ __forceinline__ void cons_to_prim(const P& p, const T* u, T* q) {
   const T rho = u[p.idens];
   const bool nz = rho != T(0);
   const T safe = nz ? rho : T(1);
@@ -405,12 +416,27 @@ __device__ __forceinline__ void cons_to_prim(const Params& p, const T* u,
 template <typename T>
 __global__ void k_prim(const T* __restrict__ U, T* __restrict__ Q, Params p) {
   CELL_INDEX
-  U += blockIdx.z * p.mstride;
-  Q += blockIdx.z * p.sstride;
   T u[MAXVAR], q[MAXVAR];
   for (int n = 0; n < p.nvar; ++n) u[n] = ldU(U, p, n, i, j);
   cons_to_prim(p, u, q);
   for (int n = 0; n < p.nvar; ++n) Q[at(p, n, i, j)] = q[n];
+}
+
+// the 1-D flattening coefficient of a buf=2-window cell (i, j) along
+// (di, dj) from views of the pressure P and the normal velocity un (1
+// outside the window)
+template <typename T, typename P, typename A>
+__device__ __forceinline__ T flat1d_of(const P& p, const A& P_, const A& un,
+                                       int i, int j, int di, int dj) {
+  if (!inwin(p, i, j, 2, 2, 2, 2)) return T(1);
+  const T dp1 = fabs(P_(i + di, j + dj) - P_(i - di, j - dj));
+  const T dp2 = fabs(P_(i + 2 * di, j + 2 * dj) - P_(i - 2 * di, j - 2 * dj));
+  const T z = dp1 / fmax(dp2, T(1.0e-10));
+  const T t2 = dp1 / fmin(P_(i + di, j + dj), P_(i - di, j - dj));
+  const T t1 = un(i - di, j - dj) - un(i + di, j + dj);
+  const T x = fmin(T(1), fmax(T(0), T(1) - (z - T(p.z0)) /
+                                              T(p.z1 - p.z0)));
+  return (t1 > T(0) && t2 > T(p.delta)) ? x : T(1);
 }
 
 // stage 2: 1-D flattening coefficients xi_x, xi_y (1 outside buf=2)
@@ -418,33 +444,18 @@ template <typename T>
 __global__ void k_flatten(const T* __restrict__ Q, T* __restrict__ XI,
                           Params p) {
   CELL_INDEX
-  Q += blockIdx.z * p.sstride;
-  XI += blockIdx.z * p.sstride;
-  const bool w2 = inwin(p, i, j, 2, 2, 2, 2);
-  for (int d = 0; d < 2; ++d) {
-    T xi = T(1);
-    if (w2) {
-      const int di = d == 0, dj = d == 1;
-      const T* P = Q + (size_t)IP * p.qx * p.qy;
-      const T* un = Q + (size_t)(d == 0 ? IU : IV) * p.qx * p.qy;
-      const size_t c = (size_t)i * p.qy + j;
-      const size_t s1 = (size_t)di * p.qy + dj;
-      const T dp1 = fabs(P[c + s1] - P[c - s1]);
-      const T dp2 = fabs(P[c + 2 * s1] - P[c - 2 * s1]);
-      const T z = dp1 / fmax(dp2, T(1.0e-10));
-      const T t2 = dp1 / fmin(P[c + s1], P[c - s1]);
-      const T t1 = un[c - s1] - un[c + s1];
-      const T x = fmin(T(1), fmax(T(0), T(1) - (z - T(p.z0)) /
-                                                  T(p.z1 - p.z0)));
-      xi = (t1 > T(0) && t2 > T(p.delta)) ? x : T(1);
-    }
-    XI[at(p, d, i, j)] = xi;
-  }
+  const size_t plane = (size_t)p.qx * p.qy;
+  const FramePlane<T> P{Q + (size_t)IP * plane, p.qy};
+  XI[at(p, 0, i, j)] =
+      flat1d_of<T>(p, P, FramePlane<T>{Q + (size_t)IU * plane, p.qy}, i, j,
+                   1, 0);
+  XI[at(p, 1, i, j)] =
+      flat1d_of<T>(p, P, FramePlane<T>{Q + (size_t)IV * plane, p.qy}, i, j,
+                   0, 1);
 }
 
-template <typename T>
-__device__ __forceinline__ void prim_to_cons(const Params& p, const T* q,
-                                             T* U) {
+template <typename T, typename P>
+__device__ __forceinline__ void prim_to_cons(const P& p, const T* q, T* U) {
   U[p.idens] = q[IRHO];
   U[p.ixmom] = q[IU] * q[IRHO];
   U[p.iymom] = q[IV] * q[IRHO];
@@ -453,37 +464,50 @@ __device__ __forceinline__ void prim_to_cons(const Params& p, const T* q,
   for (int n = 4; n < p.nvar; ++n) U[n] = q[n] * q[IRHO];
 }
 
-// vertex divergence of (u, v) at the lower-left corner of cell (i, j),
-// zero outside the buf=1 window
-template <typename T>
-__device__ __forceinline__ T vertex_div(const Params& p, const T* Q, int i,
-                                        int j) {
+// vertex divergence of the velocity views (u, v) at the lower-left corner
+// of cell (i, j), zero outside the buf=1 window
+template <typename T, typename P, typename A>
+__device__ __forceinline__ T vertex_div_of(const P& p, const A& u, const A& v,
+                                           int i, int j) {
   if (!inwin(p, i, j, 1, 1, 1, 1)) return T(0);
-  const T* u = Q + (size_t)IU * p.qx * p.qy;
-  const T* v = Q + (size_t)IV * p.qx * p.qy;
-  const size_t c = (size_t)i * p.qy + j;
-  const size_t w = c - p.qy, s = c - 1, sw = c - p.qy - 1;
-  const T ur = T(0.5) * (u[c] + u[s]);
-  const T ul = T(0.5) * (u[w] + u[sw]);
-  const T vt = T(0.5) * (v[c] + v[w]);
-  const T vb = T(0.5) * (v[s] + v[sw]);
+  const T ur = T(0.5) * (u(i, j) + u(i, j - 1));
+  const T ul = T(0.5) * (u(i - 1, j) + u(i - 1, j - 1));
+  const T vt = T(0.5) * (v(i, j) + v(i - 1, j));
+  const T vb = T(0.5) * (v(i, j - 1) + v(i - 1, j - 1));
   return (ur - ul) / T(p.dx) + (vt - vb) / T(p.dy);
 }
 
+// the same on the primitive stack Q of the frame
+template <typename T>
+__device__ __forceinline__ T vertex_div(const Params& p, const T* Q, int i,
+                                        int j) {
+  const size_t plane = (size_t)p.qx * p.qy;
+  return vertex_div_of<T>(p, FramePlane<T>{Q + (size_t)IU * plane, p.qy},
+                          FramePlane<T>{Q + (size_t)IV * plane, p.qy}, i, j);
+}
+
 // the multidimensional flattening coefficient of a buf=2-window cell from
-// the primitives Q and the 1-D coefficients XI (1 without flattening)
+// views of the pressure P and the 1-D coefficients xx, xy
+template <typename T, typename P, typename A, typename B>
+__device__ __forceinline__ T flat_xi_of(const P& p, const A& P_, const B& xx,
+                                        const B& xy, int i, int j) {
+  if (!p.flatten) return T(1);
+  const T px = P_(i + 1, j) - P_(i - 1, j) > T(0) ? xx(i - 1, j)
+                                                  : xx(i + 1, j);
+  const T py = P_(i, j + 1) - P_(i, j - 1) > T(0) ? xy(i, j - 1)
+                                                  : xy(i, j + 1);
+  return fmin(fmin(xx(i, j), px), fmin(xy(i, j), py));
+}
+
+// the same from the frame's primitives Q and 1-D coefficients XI (1
+// without flattening)
 template <typename T>
 __device__ __forceinline__ T flat_xi(const Params& p, const T* Q, const T* XI,
                                      int i, int j) {
-  if (!p.flatten) return T(1);
   const size_t plane = (size_t)p.qx * p.qy;
-  const size_t c = (size_t)i * p.qy + j;
-  const T* P = Q + (size_t)IP * plane;
-  const T* xx = XI;
-  const T* xy = XI + plane;
-  const T px = P[c + p.qy] - P[c - p.qy] > T(0) ? xx[c - p.qy] : xx[c + p.qy];
-  const T py = P[c + 1] - P[c - 1] > T(0) ? xy[c - 1] : xy[c + 1];
-  return fmin(fmin(xx[c], px), fmin(xy[c], py));
+  return flat_xi_of<T>(p, FramePlane<T>{Q + (size_t)IP * plane, p.qy},
+                       FramePlane<T>{XI, p.qy},
+                       FramePlane<T>{XI + plane, p.qy}, i, j);
 }
 
 // the parameter block from the wrappers' int and double arrays (the order
@@ -537,8 +561,8 @@ inline Params load_params(const int* ip, const double* dp, bool mol) {
 }
 
 // the sponge damping rate f / tau of density rho
-template <typename T>
-__device__ __forceinline__ T sponge_rate(const Params& p, T rho) {
+template <typename T, typename P>
+__device__ __forceinline__ T sponge_rate(const P& p, T rho) {
   const T f =
       rho > T(p.rho_begin)
           ? T(0)

@@ -1,8 +1,10 @@
-// grid_common.cuh -- device code shared by every one-thread-per-cell
-// finite-volume kernel (ctu_step.cu and mol_substep.cu through
-// euler_common.cuh, and swe_step.cu): indexing into the (nvar, qx, qy)
-// stack, the interior bounds, window tests against the global index, and
-// the MC-limited slopes of mesh/reconstruction.py.
+// grid_common.cuh -- device code shared by the finite-volume kernels
+// (ctu_step.cu and mol_substep.cu through euler_common.cuh, swe_step.cu
+// and lm_interface.cu): indexing into the (nvar, qx, qy) stack, the
+// interior bounds, window tests against the global index, and the
+// MC-limited slopes of mesh/reconstruction.py, which read a plane through
+// a view a(i, j) (FramePlane for a frame in device memory; the CTU step's
+// views of its tile in shared memory).
 //
 // The helpers are templates over the parameter block P, so each kernel
 // source keeps its own block; they read only its generic fields: nx, ny,
@@ -53,32 +55,50 @@ __device__ __forceinline__ T mc(T dc, T dl, T dr) {
   return dl * dr > T(0) ? d : T(0);
 }
 
-// 2nd-order MC slope of plane a at (i, j) along idir, zero outside the
-// buf=2 window (the embed of the plain version)
-template <typename T, typename P>
-__device__ __forceinline__ T limit2_at(const P& p, const T* a, int i, int j,
+// a plane of the (qx, qy) frame seen as a(i, j): its row stride is qy
+template <typename T>
+struct FramePlane {
+  const T* a;
+  int qy;
+  __device__ __forceinline__ T operator()(int i, int j) const {
+    return a[(size_t)i * qy + j];
+  }
+};
+
+// 2nd-order MC slope of plane a (any a(i, j) view) at (i, j) along idir,
+// zero outside the buf=2 window (the embed of the plain version)
+template <typename T, typename P, typename A>
+__device__ __forceinline__ T limit2_at(const P& p, const A& a, int i, int j,
                                        int di, int dj) {
   if (!inwin(p, i, j, 2, 2, 2, 2)) return T(0);
-  const T ap = a[(size_t)(i + di) * p.qy + j + dj];
-  const T a0 = a[(size_t)i * p.qy + j];
-  const T am = a[(size_t)(i - di) * p.qy + j - dj];
+  const T ap = a(i + di, j + dj);
+  const T a0 = a(i, j);
+  const T am = a(i - di, j - dj);
   return mc(T(0.5) * (ap - am), ap - a0, a0 - am);
 }
 
-// the limited slope of plane a at a buf=2-window cell (i, j) along idir:
-// limiter 0 centred, 1 2nd-order MC, otherwise 4th-order MC over the
-// 2nd-order slopes (computed on the global window, never band-local)
-template <typename T, typename P>
-__device__ T slope(const P& p, const T* a, int i, int j, int di, int dj) {
-  const T ap = a[(size_t)(i + di) * p.qy + j + dj];
-  const T a0 = a[(size_t)i * p.qy + j];
-  const T am = a[(size_t)(i - di) * p.qy + j - dj];
+// the limited slope of plane a (any a(i, j) view) at a buf=2-window cell
+// (i, j) along idir: limiter 0 centred, 1 2nd-order MC, otherwise 4th-order
+// MC over the 2nd-order slopes (computed on the global window, never
+// band-local)
+template <typename T, typename P, typename A>
+__device__ __forceinline__ T slope_of(const P& p, const A& a, int i, int j,
+                                      int di, int dj) {
+  const T ap = a(i + di, j + dj);
+  const T a0 = a(i, j);
+  const T am = a(i - di, j - dj);
   if (p.limiter == 0) return T(0.5) * (ap - am);
   if (p.limiter == 1) return mc(T(0.5) * (ap - am), ap - a0, a0 - am);
-  const T tp = limit2_at(p, a, i + di, j + dj, di, dj);
-  const T tm = limit2_at(p, a, i - di, j - dj, di, dj);
+  const T tp = limit2_at<T>(p, a, i + di, j + dj, di, dj);
+  const T tm = limit2_at<T>(p, a, i - di, j - dj, di, dj);
   const T dc = T(2.0 / 3.0) * (ap - am - T(0.25) * (tp + tm));
   return mc(dc, ap - a0, a0 - am);
+}
+
+// the limited slope of frame plane a (row stride qy)
+template <typename T, typename P>
+__device__ T slope(const P& p, const T* a, int i, int j, int di, int dj) {
+  return slope_of<T>(p, FramePlane<T>{a, p.qy}, i, j, di, dj);
 }
 
 // one thread per frame cell (i, j), threadIdx.x along y

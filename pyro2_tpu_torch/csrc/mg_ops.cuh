@@ -32,32 +32,40 @@
 // the operator
 enum { OP_CONST = 0, OP_VC = 1, OP_GENERAL = 2 };
 
-// the Gauss-Seidel update of cell c.  VC and GENERAL read their edge
-// coefficients as the plain smoothers' views do: bxp = x-plane at i+1 (the
-// high-x face), bx = at i, byp = y-plane at j+1, by = at j
+// the Gauss-Seidel update of cell c from its neighbours' values: xp at
+// (i+1, j), xm at (i-1, j), yp at (i, j+1), ym at (i, j-1).  VC and
+// GENERAL read their edge coefficients as the plain smoothers' views do:
+// bxp = x-plane at i+1 (the high-x face), bx = at i, byp = y-plane at j+1,
+// by = at j
 template <int OP, typename T, typename Level>
-__device__ __forceinline__ T gs(const T* v, const T* f, const Level& L,
-                                int c) {
+__device__ __forceinline__ T gs_of(T xp, T xm, T yp, T ym, const T* f,
+                                   const Level& L, int c) {
   const int q = L.q;
   if constexpr (OP == OP_CONST) {
-    return (f[c] + L.xc * (v[c + q] + v[c - q]) +
-            L.yc * (v[c + 1] + v[c - 1])) / L.den;
+    return (f[c] + L.xc * (xp + xm) + L.yc * (yp + ym)) / L.den;
   } else if constexpr (OP == OP_VC) {
     const size_t qq = L.qq;
     const T *ex = L.c, *ey = L.c + qq;
     const T bxp = ex[c + q], bx = ex[c], byp = ey[c + 1], by = ey[c];
     const T den = bxp + bx + byp + by;
-    return (-f[c] + bxp * v[c + q] + bx * v[c - q] + byp * v[c + 1] +
-            by * v[c - 1]) / den;
+    return (-f[c] + bxp * xp + bx * xm + byp * yp + by * ym) / den;
   } else {
     const size_t qq = L.qq;
     const T *al = L.c, *ex = L.c + qq, *ey = L.c + 2 * qq;
     const T *gx = L.c + 3 * qq, *gy = L.c + 4 * qq;
     const T bxp = ex[c + q], bx = ex[c], byp = ey[c + 1], by = ey[c];
     const T den = al[c] - bxp - bx - byp - by;
-    return (f[c] - (bxp + gx[c]) * v[c + q] - (bx - gx[c]) * v[c - q] -
-            (byp + gy[c]) * v[c + 1] - (by - gy[c]) * v[c - 1]) / den;
+    return (f[c] - (bxp + gx[c]) * xp - (bx - gx[c]) * xm -
+            (byp + gy[c]) * yp - (by - gy[c]) * ym) / den;
   }
+}
+
+// the Gauss-Seidel update of cell c of frame v
+template <int OP, typename T, typename Level>
+__device__ __forceinline__ T gs(const T* v, const T* f, const Level& L,
+                                int c) {
+  const int q = L.q;
+  return gs_of<OP>(v[c + q], v[c - q], v[c + 1], v[c - 1], f, L, c);
 }
 
 // the residual f - (operator) v at cell c (alpha, beta: OP_CONST only)

@@ -57,18 +57,49 @@
 // half-sweep).  The grid is sized to what can be co-resident.  The level
 // frames live in device memory; up to 1026^2 floats (4.2 MB) per frame,
 // they (and a level's planes) stay in the 50 MB L2 across the sweeps.
-// mg_core: one block of 1024 threads holding v and f of every level
-// 0..top in shared memory (128^2 float32: 183 KB; 64^2 float64: 96 KB),
-// __syncthreads() between phases.
+// mg_core: one launch of a thread-block cluster, each block holding v and
+// f of every level 0..top in its shared memory (128^2 float32: 183 KB;
+// 64^2 float64: 96 KB), laid out, scheduled and clustered as the launch's
+// schedule array (mg_kernel.core_plan) says.
 //
 // What bounds it on the H100: a level's sweeps are a chain of dependent
 // stencils, 7 (CONST), 13 (VC) or 17 (GENERAL) operations per cell update
 // against 2 values and 2-5 coefficients in and one out, so a call's least
 // time is the bytes of its frames and planes over the memory rate
-// (mg_kernel.work counts them).  This first design is simple instead: it
-// pays one grid-wide barrier per half-sweep (21 per mg_down at nsmooth 10)
-// and reads each cell's neighbours from L2, with stride-2 colour accesses.
-// Fusing sweeps in shared-memory tiles with halos is the next step.
+// (mg_kernel.work counts them).  mg_down / mg_up, still their first
+// design, pay one grid-wide barrier per half-sweep (21 per mg_down at
+// nsmooth 10) and read each cell's neighbours from L2, with stride-2 colour
+// accesses; fusing sweeps in shared-memory tiles with halos is their next
+// step.  The core cannot approach its byte bound at all: it is a chain of
+// ~400 dependent phases (a top of 128^2 at nsmooth 10 / 50 bottom sweeps),
+// most of them on levels of 4 to 256 cells, and on one block the 128^2
+// level's sweeps are bound by one SM's instruction throughput.  Its design:
+//   * the levels of at least mg_kernel.CLUSTER_N cells a side are spread
+//     by rows over the CORE_CTAS blocks of a cluster, one SM each; a sweep
+//     reads the rows beside a block's own from its neighbours' shared
+//     memory (distributed shared memory), a cluster barrier ends each
+//     half-sweep, the halo rows are copied in once before the
+//     restriction reads them, and a last cluster barrier keeps every
+//     block resident until its neighbours have read its top-level rows;
+//   * the levels below run on block 0 alone, each on the first warps(l)
+//     warps of mg_kernel.core_schedule (enough that each lane updates at
+//     least one cell of a colour), its phases ending in the barrier of just
+//     those warps -- __syncwarp() for one warp (the levels up to 8^2, the
+//     2x2 bottom's 100 half-sweeps among them), a named barrier
+//     (bar.sync id, n) for 2..16 warps, __syncthreads() for the whole
+//     block.  Warps whose level is done wait at their own level's next
+//     barrier, so the groups nest: the descent hands each coarser level
+//     to a prefix of the warps that restricted it, and the ascent takes
+//     them back;
+//   * a sweep writes interior cells only, reading a neighbour across the
+//     edge as the sign times the interior cell its ghost mirrors, and a
+//     level's colour is walked with shifts and masks of its power-of-2
+//     width: no division, and no lane branching to write ghosts, in the
+//     sweep; the ghosts are filled once a level, before the restriction,
+//     the prolongation or the output reads them.
+// Each cell's arithmetic is the first design's, and the cells of a colour
+// do not read each other, so the core's results are the same bits
+// whatever its schedule.
 //
 // Each entry point returns the launch's cudaError_t (0 on success).
 //
@@ -89,6 +120,7 @@ namespace {
 constexpr int MAXLEV = 16;        // levels of the core: 2^1 .. 2^16 per side
 constexpr int THREADS = 256;      // block of mg_down / mg_up
 constexpr int CORE_THREADS = 1024;
+constexpr int CORE_CTAS = 8;      // the cluster of a core with spread levels
 
 // ghost-fill kind of an edge
 enum { COPY = 0, NEGATE = 1, PERIODIC = 2 };
@@ -272,49 +304,255 @@ struct CoreArgs {
   T* vo;
   T* r;        // the residual of level top, or nullptr
   Lev<T> lev[MAXLEV];
+  int warps[MAXLEV];  // the warps that run each level (a power of 2)
+  int off[MAXLEV];    // where v of each level starts in shared memory
   T alpha, beta;
   int top, nsmooth, nsmooth_bottom;
+  int ctas;  // the cluster: levels dist.. top are spread over its CTAs
+  int dist;
 };
 
-// shared-memory layout: v then f of level 0, then of level 1, ...
-__host__ __device__ inline size_t core_offset(int level) {
-  size_t off = 0;
-  for (int l = 0; l < level; ++l) {
-    const size_t q = (size_t(2) << l) + 2;
-    off += 2 * q * q;
+// the barrier of the first `warps` warps of the block: one warp syncs
+// itself, the whole block __syncthreads(), a prefix of 2..16 warps the
+// named barrier log2(warps) (ids 1..4; 0 is __syncthreads')
+__device__ __forceinline__ void group_sync(int warps) {
+  if (warps == 1) {
+    __syncwarp();
+  } else if (32 * warps >= (int)blockDim.x) {
+    __syncthreads();
+  } else {
+#if defined(__CUDA_ARCH__)
+    asm volatile("bar.sync %0, %1;" ::"r"(__ffs(warps) - 1), "r"(32 * warps)
+                 : "memory");
+#endif
   }
-  return off;
+}
+
+// nsmooth red-black iterations of core level l (n = 2^(l+1) cells a side)
+// in place, by the group's threads t0 = 0 .. nt - 1: the k-th cell of a
+// colour is in interior row k >> l (h = 2^l cells of a colour a row), at
+// column 2 (k & (h - 1)) plus the colour's parity of that row.  The sweep
+// writes interior cells only: a neighbour across the edge is read as the
+// ghost holds it, the sign times the interior cell it mirrors (which is
+// the cell itself or one of the other colour, as for `put`), so no lane
+// branches to write ghosts; fill_ghosts brings them up to date before
+// anything reads them
+template <int OP, typename T>
+__device__ void smooth_core(T* v, const T* f, const Lev<T>& L, int l,
+                            int nsmooth, int t0, int nt, int warps) {
+  const int half = 1 << (2 * l + 1);
+  const int hmask = (1 << l) - 1;
+  const int n = L.n, q = L.q;
+  for (int it = 0; it < nsmooth; ++it) {
+    for (int color = 0; color < 2; ++color) {
+      for (int k = t0; k < half; k += nt) {
+        const int ii = k >> l;
+        const int i = ii + 1;
+        const int j = 2 * (k & hmask) + ((ii + color) & 1) + 1;
+        const int c = i * q + j;
+        const T xm = i == 1 ? L.gxl * v[L.sxl * q + j] : v[c - q];
+        const T xp = i == n ? L.gxh * v[L.sxh * q + j] : v[c + q];
+        const T ym = j == 1 ? L.gyl * v[i * q + L.syl] : v[c - 1];
+        const T yp = j == n ? L.gyh * v[i * q + L.syh] : v[c + 1];
+        v[c] = gs_of<OP>(xp, xm, yp, ym, f, L, c);
+      }
+      group_sync(warps);
+    }
+  }
+}
+
+// every ghost of core level l from the interior cell it mirrors, as `put`
+// writes them: the four edges, then the corners from the x-filled rows
+template <typename T>
+__device__ void fill_ghosts(T* v, const Lev<T>& L, int l, int t0, int nt) {
+  const int n = L.n, q = L.q;
+  for (int k = t0; k < 4 * n + 4; k += nt) {
+    const int e = k >> (l + 1), m = (k & (n - 1)) + 1;
+    if (e == 0) v[m] = L.gxl * v[L.sxl * q + m];
+    else if (e == 1) v[(q - 1) * q + m] = L.gxh * v[L.sxh * q + m];
+    else if (e == 2) v[m * q] = L.gyl * v[m * q + L.syl];
+    else if (e == 3) v[m * q + q - 1] = L.gyh * v[m * q + L.syh];
+    else if (k == 4 * n) v[0] = L.gyl * (L.gxl * v[L.sxl * q + L.syl]);
+    else if (k == 4 * n + 1)
+      v[q - 1] = L.gyh * (L.gxl * v[L.sxl * q + L.syh]);
+    else if (k == 4 * n + 2)
+      v[(q - 1) * q] = L.gyl * (L.gxh * v[L.sxh * q + L.syl]);
+    else
+      v[(q - 1) * q + q - 1] = L.gyh * (L.gxh * v[L.sxh * q + L.syh]);
+  }
+}
+
+// a level spread over the cluster: this CTA's interior rows lo .. lo + R - 1
+// and the frames of the CTAs holding the rows beside them (up: lo - 1,
+// down: lo + R) and the interior rows the x ghosts mirror (sl: row sxl,
+// sh: row sxh), own frame where this CTA holds them
+template <typename T>
+struct Slab {
+  int lo, R;
+  const T *up, *down, *sl, *sh;
+  bool first, last;
+};
+
+// nsmooth red-black iterations of a spread level l, all threads of every
+// CTA of the cluster, a cluster barrier after each half-sweep; as
+// smooth_core, with the rows beside the slab read from the CTAs that hold
+// them (distributed shared memory)
+template <int OP, typename T, typename Cluster>
+__device__ void smooth_dist(T* v, const T* f, const Lev<T>& L, int l,
+                            const Slab<T>& s, int nsmooth, int t0, int nt,
+                            Cluster& cl) {
+  const int hmask = (1 << l) - 1;
+  const int n = L.n, q = L.q;
+  const int cells = s.R << l;          // R rows of 2^l cells of a colour
+  for (int it = 0; it < nsmooth; ++it) {
+    for (int color = 0; color < 2; ++color) {
+      for (int k = t0; k < cells; k += nt) {
+        const int i = s.lo + (k >> l);
+        const int j = 2 * (k & hmask) + ((i - 1 + color) & 1) + 1;
+        const int c = i * q + j;
+        T xm, xp;
+        if (i == 1)
+          xm = L.gxl * s.sl[L.sxl * q + j];
+        else if (i == s.lo)
+          xm = s.up[c - q];
+        else
+          xm = v[c - q];
+        if (i == n)
+          xp = L.gxh * s.sh[L.sxh * q + j];
+        else if (i == s.lo + s.R - 1)
+          xp = s.down[c + q];
+        else
+          xp = v[c + q];
+        const T ym = j == 1 ? L.gyl * v[i * q + L.syl] : v[c - 1];
+        const T yp = j == n ? L.gyh * v[i * q + L.syh] : v[c + 1];
+        v[c] = gs_of<OP>(xp, xm, yp, ym, f, L, c);
+      }
+      cl.sync();
+    }
+  }
+}
+
+// the rows of a spread level this CTA reads besides its own, after its
+// sweeps: the halo rows from the CTAs beside it, the x-ghost rows of the
+// frame's edges from the rows they mirror, then the y ghosts of every row
+// it holds (put's rule, corners included)
+template <typename T>
+__device__ void fill_dist(T* v, const Lev<T>& L, const Slab<T>& s, int t0,
+                          int nt) {
+  const int n = L.n, q = L.q;
+  for (int k = t0; k < 2 * n; k += nt) {
+    const int j = (k < n ? k : k - n) + 1;
+    if (k < n) {
+      if (s.first) {
+        v[j] = L.gxl * s.sl[L.sxl * q + j];
+      } else {
+        const int c = (s.lo - 1) * q + j;
+        v[c] = s.up[c];
+      }
+    } else {
+      if (s.last) {
+        v[(q - 1) * q + j] = L.gxh * s.sh[L.sxh * q + j];
+      } else {
+        const int c = (s.lo + s.R) * q + j;
+        v[c] = s.down[c];
+      }
+    }
+  }
+  __syncthreads();
+  const int r0 = s.first ? 0 : s.lo - 1, r1 = s.last ? q - 1 : s.lo + s.R;
+  for (int i = r0 + t0; i <= r1; i += nt) {
+    v[i * q] = L.gyl * v[i * q + L.syl];
+    v[i * q + q - 1] = L.gyh * v[i * q + L.syh];
+  }
+  __syncthreads();
 }
 
 template <int OP, typename T>
 __global__ void __launch_bounds__(CORE_THREADS) k_core(CoreArgs<T> a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* base = reinterpret_cast<T*>(smem_raw);
-  auto sync = []() { __syncthreads(); };
-  const int tid = threadIdx.x, nt = blockDim.x;
+  cg::cluster_group cl = cg::this_cluster();
+  const int rank = (int)cl.block_rank();
+  const int tid = threadIdx.x, nb = blockDim.x;
   const int top = a.top;
+  // the threads of level l's group on CTA 0
+  auto group = [&](int l) { return min(32 * a.warps[l], nb); };
+  // frame p of CTA r: own shared memory, or the cluster's window onto r's
+  auto at = [&](T* p, int r) -> const T* {
+    return r == rank ? p : cl.map_shared_rank(p, r);
+  };
+  // this CTA's rows of spread level l
+  auto slab = [&](int l) {
+    const Lev<T>& L = a.lev[l];
+    T* V = base + a.off[l];
+    const int R = L.n / a.ctas;
+    return Slab<T>{1 + rank * R, R,
+                   at(V, rank > 0 ? rank - 1 : rank),
+                   at(V, rank < a.ctas - 1 ? rank + 1 : rank),
+                   at(V, (L.sxl - 1) / R), at(V, (L.sxh - 1) / R),
+                   rank == 0, rank == a.ctas - 1};
+  };
 
   {
     const Lev<T>& L = a.lev[top];
-    T* V = base + core_offset(top);
+    T* V = base + a.off[top];
     T* F = V + L.q * L.q;
-    for (int k = tid; k < L.n * L.n; k += nt) {
-      const int i = k / L.n + 1, j = k % L.n + 1, c = i * L.q + j;
-      F[c] = a.f[c];
-      put(V, L, i, j, a.v ? a.v[c] : T(0));
+    if (top >= a.dist) {
+      const Slab<T> s = slab(top);
+      for (int k = tid; k < s.R * L.n; k += nb) {
+        const int i = s.lo + (k >> (top + 1)), j = (k & (L.n - 1)) + 1;
+        const int c = i * L.q + j;
+        F[c] = a.f[c];
+        put(V, L, i, j, a.v ? a.v[c] : T(0));
+      }
+      cl.sync();
+    } else if (rank == 0 && tid < group(top)) {
+      for (int k = tid; k < L.n * L.n; k += group(top)) {
+        const int i = (k >> (top + 1)) + 1, j = (k & (L.n - 1)) + 1;
+        const int c = i * L.q + j;
+        F[c] = a.f[c];
+        put(V, L, i, j, a.v ? a.v[c] : T(0));
+      }
+      group_sync(a.warps[top]);
     }
-    sync();
   }
   // descent: smooth, then restrict the residual into the next coarser f,
-  // whose guess is zero (ghosts included)
+  // whose guess is zero (ghosts included).  A spread level restricts its
+  // rows into its own coarse rows, or into CTA 0's frame below the spread
+  // levels; below them CTA 0 runs alone, each level's group a prefix of
+  // the one before
   for (int l = top; l >= 1; --l) {
     const Lev<T>& L = a.lev[l];
     const Lev<T>& C = a.lev[l - 1];
-    T* V = base + core_offset(l);
+    T* V = base + a.off[l];
     T* F = V + L.q * L.q;
-    T* Vc = base + core_offset(l - 1);
+    T* Vc = base + a.off[l - 1];
     T* Fc = Vc + C.q * C.q;
-    smooth<OP>(V, F, L, a.nsmooth, tid, nt, sync);
+    if (l >= a.dist) {
+      const Slab<T> s = slab(l);
+      smooth_dist<OP>(V, F, L, l, s, a.nsmooth, tid, nb, cl);
+      fill_dist(V, L, s, tid, nb);
+      if (l - 1 < a.dist) {
+        Vc = cl.map_shared_rank(Vc, 0);
+        Fc = cl.map_shared_rank(Fc, 0);
+      }
+      const int I0 = s.first ? 0 : (s.lo + 1) / 2;
+      const int I1 = s.last ? C.q : (s.lo + s.R + 1) / 2;
+      for (int k = tid; k < (I1 - I0) * C.q; k += nb) {
+        const int I = I0 + k / C.q, J = k % C.q, c = I * C.q + J;
+        Vc[c] = T(0);
+        Fc[c] = (I >= 1 && I <= C.n && J >= 1 && J <= C.n)
+                    ? restricted<OP>(V, F, L, a.alpha, a.beta, I, J)
+                    : T(0);
+      }
+      cl.sync();
+      continue;
+    }
+    const int nt = group(l);
+    if (rank != 0 || tid >= nt) break;
+    smooth_core<OP>(V, F, L, l, a.nsmooth, tid, nt, a.warps[l]);
+    fill_ghosts(V, L, l, tid, nt);
+    group_sync(a.warps[l]);
     for (int k = tid; k < C.q * C.q; k += nt) {
       const int I = k / C.q, J = k % C.q;
       Vc[k] = T(0);
@@ -322,38 +560,74 @@ __global__ void __launch_bounds__(CORE_THREADS) k_core(CoreArgs<T> a) {
                   ? restricted<OP>(V, F, L, a.alpha, a.beta, I, J)
                   : T(0);
     }
-    sync();
+    group_sync(a.warps[l]);
   }
-  {
+  if (rank == 0 && tid < group(0)) {
     T* V = base;
-    smooth<OP>(V, V + a.lev[0].q * a.lev[0].q, a.lev[0], a.nsmooth_bottom,
-               tid, nt, sync);
+    smooth_core<OP>(V, V + a.lev[0].q * a.lev[0].q, a.lev[0], 0,
+                    a.nsmooth_bottom, tid, group(0), a.warps[0]);
+    fill_ghosts(V, a.lev[0], 0, tid, group(0));
+    group_sync(a.warps[0]);
   }
-  // ascent: prolong and correct (the ghosts follow), then smooth
+  // ascent: once the coarser level is done, prolong and correct (the
+  // ghosts follow), then smooth; a spread level reads the coarse frame of
+  // CTA 0 when the level below is not spread
   for (int l = 1; l <= top; ++l) {
     const Lev<T>& L = a.lev[l];
-    T* V = base + core_offset(l);
+    T* V = base + a.off[l];
     T* F = V + L.q * L.q;
-    const T* Vc = base + core_offset(l - 1);
-    for (int k = tid; k < L.n * L.n; k += nt) {
-      const int i = k / L.n + 1, j = k % L.n + 1;
-      put(V, L, i, j, V[i * L.q + j] + prolong(Vc, a.lev[l - 1].q, i, j));
-    }
-    sync();
-    smooth<OP>(V, F, L, a.nsmooth, tid, nt, sync);
-  }
-  {
-    const Lev<T>& L = a.lev[top];
-    const T* V = base + core_offset(top);
-    const T* F = V + L.q * L.q;
-    for (int k = tid; k < L.q * L.q; k += nt) {
-      a.vo[k] = V[k];
-      if (a.r) {
-        const int i = k / L.q, j = k % L.q;
-        a.r[k] = (i >= 1 && i <= L.n && j >= 1 && j <= L.n)
-                     ? resid<OP>(V, F, L, a.alpha, a.beta, k)
-                     : T(0);
+    T* Vc = base + a.off[l - 1];
+    const int qc = a.lev[l - 1].q;
+    if (l >= a.dist) {
+      const Slab<T> s = slab(l);
+      cl.sync();
+      const T* src = l - 1 < a.dist ? at(Vc, 0) : Vc;
+      for (int k = tid; k < s.R * L.n; k += nb) {
+        const int i = s.lo + (k >> (l + 1)), j = (k & (L.n - 1)) + 1;
+        put(V, L, i, j, V[i * L.q + j] + prolong(src, qc, i, j));
       }
+      cl.sync();
+      smooth_dist<OP>(V, F, L, l, s, a.nsmooth, tid, nb, cl);
+      fill_dist(V, L, s, tid, nb);
+      continue;
+    }
+    const int nt = group(l);
+    if (rank != 0 || tid >= nt) continue;
+    group_sync(a.warps[l]);
+    for (int k = tid; k < L.n * L.n; k += nt) {
+      const int i = (k >> (l + 1)) + 1, j = (k & (L.n - 1)) + 1;
+      put(V, L, i, j, V[i * L.q + j] + prolong(Vc, qc, i, j));
+    }
+    group_sync(a.warps[l]);
+    smooth_core<OP>(V, F, L, l, a.nsmooth, tid, nt, a.warps[l]);
+    fill_ghosts(V, L, l, tid, nt);
+    group_sync(a.warps[l]);
+  }
+  // a spread top's last fill_dist reads the rows beside each slab from the
+  // CTAs that hold them: no CTA may exit before every one has read them
+  if (top >= a.dist) cl.sync();
+  // the output: the frame rows this CTA holds (a spread top's rows, with
+  // the ghost rows at the frame's edges), or all of them on CTA 0
+  const Lev<T>& L = a.lev[top];
+  int r0 = 0, r1 = L.q, nt = group(top);
+  if (top >= a.dist) {
+    const Slab<T> s = slab(top);
+    r0 = s.first ? 0 : s.lo;
+    r1 = s.last ? L.q : s.lo + s.R;
+    nt = nb;
+  } else if (rank != 0) {
+    return;
+  }
+  if (tid >= nt) return;
+  const T* V = base + a.off[top];
+  const T* F = V + L.q * L.q;
+  for (int k = r0 * L.q + tid; k < r1 * L.q; k += nt) {
+    a.vo[k] = V[k];
+    if (a.r) {
+      const int i = k / L.q, j = k % L.q;
+      a.r[k] = (i >= 1 && i <= L.n && j >= 1 && j <= L.n)
+                   ? resid<OP>(V, F, L, a.alpha, a.beta, k)
+                   : T(0);
     }
   }
 }
@@ -431,16 +705,40 @@ int up(const T* v, const T* f, const T* vc, T* vo, T* r, int n,
   return launch_cooperative(k_up<OP, T>, cached, (n + 2) * (n + 2), a, st);
 }
 
-// planes: one plane-stack pointer per level 0..top (nullptr for OP_CONST)
+// planes: one plane-stack pointer per level 0..top (nullptr for OP_CONST);
+// schedule (mg_kernel.core_plan): the warps of each level 0..top, powers
+// of 2 up to the block's, never fewer than the next coarser level's; then
+// the cluster's CTAs (1, or CORE_CTAS) and the first level spread over them
+// (top + 1: none; each spread level at least 2 rows a CTA); then where v of
+// each level 0..top starts in shared memory and where the layout ends, in
+// elements of T (v then f of each one-ghost level frame)
 template <int OP, typename T>
 int core(const T* v, const T* f, T* vo, T* r, int top, int nsmooth,
          int nsmooth_bottom, const int* bc, const double* coef,
-         const double* ab, const void* const* planes, cudaStream_t st) {
+         const double* ab, const int* schedule, const void* const* planes,
+         cudaStream_t st) {
   static int optin = -1;
   if (top < 0 || top >= MAXLEV || nsmooth < 0 || nsmooth_bottom < 0 ||
       (OP != OP_CONST && !planes))
     return (int)cudaErrorInvalidValue;
-  const size_t smem = core_offset(top + 1) * sizeof(T);
+  const int* warps = schedule;
+  const int ctas = schedule[top + 1], dist = schedule[top + 2];
+  const int* off = schedule + top + 3;
+  for (int l = 0; l <= top; ++l) {
+    const int w = warps[l];
+    if (w < 1 || 32 * w > CORE_THREADS || (w & (w - 1)) ||
+        (l > 0 && w < warps[l - 1]))
+      return (int)cudaErrorInvalidValue;
+  }
+  if ((ctas != 1 && ctas != CORE_CTAS) || dist < 1 || dist > top + 1 ||
+      (ctas > 1) != (dist <= top) || (dist <= top && (2 << dist) < 2 * ctas))
+    return (int)cudaErrorInvalidValue;
+  for (int l = 0; l <= top; ++l) {
+    const int q = (2 << l) + 2;
+    if (off[0] != 0 || off[l + 1] < off[l] + 2 * q * q)
+      return (int)cudaErrorInvalidValue;
+  }
+  const size_t smem = (size_t)off[top + 1] * sizeof(T);
   if (optin < 0) {
     int dev = 0;
     if (cudaGetDevice(&dev) != cudaSuccess ||
@@ -459,33 +757,48 @@ int core(const T* v, const T* f, T* vo, T* r, int top, int nsmooth,
   a.f = f;
   a.vo = vo;
   a.r = r;
-  for (int l = 0; l <= top; ++l)
+  for (int l = 0; l <= top; ++l) {
     a.lev[l] = make_level<T>(2 << l, coef + 5 * l, bc,
                              planes ? planes[l] : nullptr);
+    a.warps[l] = warps[l];
+    a.off[l] = off[l];
+  }
+  a.ctas = ctas;
+  a.dist = dist;
   a.alpha = (T)ab[0];
   a.beta = (T)ab[1];
   a.top = top;
   a.nsmooth = nsmooth;
   a.nsmooth_bottom = nsmooth_bottom;
-  k_core<OP, T><<<1, CORE_THREADS, smem, st>>>(a);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(ctas);
+  cfg.blockDim = dim3(32 * warps[top]);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = ctas;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cudaError_t err = cudaLaunchKernelEx(&cfg, k_core<OP, T>, a);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
 }  // namespace
-
-// shared memory the core kernel needs for levels 0..top
-extern "C" size_t mg_core_smem(int top, int itemsize) {
-  return core_offset(top + 1) * (size_t)itemsize;
-}
 
 // the constant-coefficient entries: mg_core_f32, mg_down_f64, ...
 #define CONST_ENTRIES(T, SFX)                                                 \
   extern "C" int mg_core_##SFX(const T* v, const T* f, T* vo, T* r, int top,  \
                                int nsmooth, int nsmooth_bottom,               \
                                const int* bc, const double* coef,             \
-                               const double* ab, void* stream) {              \
+                               const double* ab, const int* schedule,         \
+                               void* stream) {                                \
     return core<OP_CONST, T>(v, f, vo, r, top, nsmooth, nsmooth_bottom, bc,   \
-                             coef, ab, nullptr, (cudaStream_t)stream);        \
+                             coef, ab, schedule, nullptr,                   \
+                             (cudaStream_t)stream);                           \
   }                                                                           \
   extern "C" int mg_down_##SFX(const T* v, const T* f, T* vo, T* fc, int n,   \
                                int nsmooth, const int* bc,                    \
@@ -508,9 +821,10 @@ extern "C" size_t mg_core_smem(int top, int itemsize) {
   extern "C" int mg_core_##NAME##_##SFX(                                      \
       const T* v, const T* f, T* vo, T* r, int top, int nsmooth,              \
       int nsmooth_bottom, const int* bc, const double* coef,                  \
-      const double* ab, const void* const* planes, void* stream) {            \
+      const double* ab, const int* schedule, const void* const* planes,       \
+      void* stream) {                                                         \
     return core<OP, T>(v, f, vo, r, top, nsmooth, nsmooth_bottom, bc, coef,   \
-                       ab, planes, (cudaStream_t)stream);                     \
+                       ab, schedule, planes, (cudaStream_t)stream);           \
   }                                                                           \
   extern "C" int mg_down_##NAME##_##SFX(                                      \
       const T* v, const T* f, T* vo, T* fc, int n, int nsmooth,               \

@@ -7,8 +7,9 @@ as `downs -> core -> ups`, the assembly of the JAX package's
 `build_fused_cycle` and `build_fused_cycle_general`:
 
   * `core` runs the whole sub-V-cycle of levels 0..top in one kernel (one
-    thread block, the level frames in shared memory), and writes the
-    residual when no level is peeled;
+    thread block or a cluster of them, the level frames in shared memory
+    as `core_plan` lays them out; each level on the warps `core_schedule`
+    gives it), and writes the residual when no level is peeled;
   * each finer, peeled level adds one `down` (pre-smooth, residual,
     restrict) and one `up` (prolong and correct, post-smooth, and the
     residual on the finest level), each one cooperative launch.
@@ -44,15 +45,26 @@ from pyro2_tpu_torch.mesh.patch import prolong_array, restrict_array
 from pyro2_tpu_torch.util import cuda_build
 
 __all__ = ["CORE_MAX", "FLAVOURS", "Ineligible", "build", "check", "core",
-           "core_plain", "cycle", "down", "down_plain", "flavour",
-           "launches", "split", "up", "up_plain", "work"]
+           "core_cells", "core_cluster", "core_offsets", "core_plain",
+           "core_plan", "core_schedule", "cycle", "down", "down_plain",
+           "flavour", "launches", "split", "up", "up_plain", "work"]
 
 SOURCE = cuda_build.CSRC / "mg_vcycle.cu"
 
-# finest level run inside the single-block core kernel, by dtype: v and f of
-# every core level must fit in the 227 KB of shared memory a block may use
-# (levels 2^2..128^2 in float32: 183 KB; 2^2..64^2 in float64: 96 KB)
+# finest level run inside the core kernel, by dtype: v and f of every core
+# level must fit in the 227 KB of shared memory a block may use (levels
+# 2^2..128^2 in float32: 183 KB; 2^2..64^2 in float64: 96 KB)
 CORE_MAX = {torch.float32: 128, torch.float64: 64}
+
+# the core's block: at most 32 warps; each level runs on the first
+# core_schedule(...)[level] of them
+CORE_WARPS = 32
+# the levels of CLUSTER_N or more cells a side are spread over a cluster of
+# CORE_CTAS blocks, one SM each, by rows (one SM's instruction throughput
+# sets the pace of the 128^2 level on one block); mg_vcycle.cu takes a
+# cluster of CORE_CTAS blocks or one block
+CORE_CTAS = 8
+CLUSTER_N = 64
 
 # ghost-fill kinds of the kernel (mg_vcycle.cu: COPY, NEGATE, PERIODIC)
 BC_KIND = {"outflow": 0, "neumann": 0, "reflect-even": 0,
@@ -92,16 +104,17 @@ def _load():
         ptr, i32, dbl = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
         ints, doubles = ctypes.POINTER(i32), ctypes.POINTER(dbl)
         for sfx, ncoef in FLAVOURS.values():
-            # bc, coef, ab, then (coefficient entries) the planes, stream
-            tail = [ints, doubles, doubles] + ([ptr] if ncoef else []) + [ptr]
+            # bc, coef, ab, (the core) its core_plan, then
+            # (coefficient entries) the planes, stream
             for t in ("f32", "f64"):
                 for kind, nptr, nint in (("core", 4, 3), ("down", 4, 2),
                                          ("up", 5, 2)):
+                    tail = [ints, doubles, doubles] + \
+                        ([ints] if kind == "core" else []) + \
+                        ([ptr] if ncoef else []) + [ptr]
                     fn = getattr(lib, f"mg_{kind}{sfx}_{t}")
                     fn.argtypes = [ptr] * nptr + [i32] * nint + tail
                     fn.restype = i32
-        lib.mg_core_smem.argtypes = [i32, i32]
-        lib.mg_core_smem.restype = ctypes.c_size_t
         _lib = lib
     return _lib
 
@@ -155,6 +168,60 @@ def split(mg, dtype):
     while 2 ** (top + 1) > CORE_MAX[dtype]:
         top -= 1
     return top, list(range(top + 1, mg.nlevels))
+
+
+def core_cells(level):
+    """Interior cells a side of core level `level` (2x2 at level 0)."""
+    return 2 << level
+
+
+def core_cluster(top):
+    """(CTAs of the core's cluster, first level spread over them): the
+    levels of at least CLUSTER_N cells a side, when the top is one of them
+    (each spread level then has 2 or more rows a CTA); else (1, top + 1),
+    one block and no spread level."""
+    ctas, first = CORE_CTAS, top + 1
+    while first > 0 and core_cells(first - 1) >= max(CLUSTER_N, 2 * ctas):
+        first -= 1
+    return (ctas, first) if first <= top and ctas > 1 else (1, top + 1)
+
+
+def core_schedule(top):
+    """The warps of each core level 0..top: the power of 2 that gives each
+    lane at least one cell of a colour in a half-sweep (a spread level: of
+    its rows on one CTA), from one warp up to the block's 32, and never
+    fewer than the coarser level's, so each level below the spread ones
+    runs on a prefix of its finer neighbour's warps (mg_vcycle.cu's nested
+    barriers).  The block is the top's warps; the spread levels run on all
+    of them."""
+    ctas, first = core_cluster(top)
+    warps = []
+    for level in range(top + 1):
+        colour = core_cells(level) ** 2 // 2
+        if level >= first:
+            colour //= ctas
+        w = warps[-1] if warps else 1
+        while w < CORE_WARPS and 32 * w < colour:
+            w *= 2
+        warps.append(w)
+    return warps
+
+
+def core_offsets(top):
+    """The core's shared-memory layout for levels 0..top, in elements of
+    the dtype: where v of each level starts (its f follows it), coarsest
+    first, then where the layout ends."""
+    off = [0]
+    for level in range(top + 1):
+        off.append(off[-1] + 2 * (core_cells(level) + 2) ** 2)
+    return off
+
+
+def core_plan(top):
+    """The schedule array the core entries take: the warps of each level
+    (core_schedule), the cluster (core_cluster) and the shared-memory
+    layout (core_offsets)."""
+    return core_schedule(top) + list(core_cluster(top)) + core_offsets(top)
 
 
 def _coef(mg, level):
@@ -279,6 +346,8 @@ def launch_core(mg, top, v, f, want_r):
     r = torch.empty_like(f) if want_r else None
     fn, key, args = _entry(mg, "core", [top, mg.nsmooth, mg.nsmooth_bottom],
                            f.dtype, levels=list(range(top + 1)))
+    schedule = core_plan(top)
+    args.insert(6, (ctypes.c_int * len(schedule))(*schedule))
     _run(fn, f.device, _ptr(v), _ptr(f), _ptr(vo), _ptr(r), *args)
     launches[key] += 1
     return vo, r

@@ -6,7 +6,10 @@ make_pallas_ctu_step_padded_general), Cartesian and spherical geometry.
 It is built with nvcc into a shared library under pyro2_tpu_torch/_build/
 at first use (pyro2_tpu_torch.util.cuda_build) and bound with ctypes.  Its
 batched entry, which the padded steps of padded_step.py launch, is bound
-here too (`launch_batched`).
+here too (`launch_batched`).  A step is one launch: each block computes one
+output tile out of shared memory, and `plan` -- the tile, the halos each
+stage reads and the block's shared-memory layout -- is worked out here and
+handed to the kernel, so the CPU tests check it.
 
 `CTUStep(sim)(U, t, dt)` is the step the Simulation evolves with:
 
@@ -23,14 +26,16 @@ dtype on the device.
 """
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
 
 from pyro2_tpu_torch.util import cuda_build
 
-__all__ = ["CTUStep", "build", "geometry", "launch_batched", "launches",
-           "work", "FLOPS_PER_ZONE", "FLOPS_PER_ZONE_SPHERICAL"]
+__all__ = ["CTUStep", "Plan", "build", "geometry", "launch_batched",
+           "launches", "plan", "work", "FLOPS_PER_ZONE",
+           "FLOPS_PER_ZONE_SPHERICAL", "HALO", "TILE"]
 
 SOURCE = cuda_build.CSRC / "ctu_step.cu"
 
@@ -67,6 +72,105 @@ FLOPS_PER_ZONE_SPHERICAL = sum(FLOPS_PER_ZONE_SPHERICAL_BY_STAGE.values())
 
 launches = 0   # kernel launches made through CTUStep (read by chip_smoke.py)
 
+# ---------------------------------------------------------------------------
+# the launch plan
+# ---------------------------------------------------------------------------
+
+# the output tile of a block, (rows along x, columns along y), by dtype:
+# with its 1-cell halo, 32 x 16 traced cells, one for each of float32's 512
+# threads a block, and 16 x 16 for float64's 256 (ctu_step.cu's Launch),
+# whose block fits the shared memory for every configuration (nvar up to
+# MAXVAR, spherical, sources)
+TILE = {torch.float32: (30, 14), torch.float64: (14, 14)}
+THREADS = {torch.float32: 512, torch.float64: 256}
+
+# how far beyond the output tile each box of a block reaches (ctu_step.cu's
+# phases): the traced cells (the states of the faces the tile's fluxes
+# read, and the corners of the viscosity's vertex divergence), the 1-D
+# flattening coefficients (a traced cell reads its neighbours') and the
+# primitives (a coefficient and the 4th-order MC slope read 2 away)
+HALO = {"traced": 1, "flatten": 2, "prim": 4}
+
+
+class Plan:
+    """One launch's tiling: the tile (tx rows, ty columns), the block's
+    threads, the grid of tiles (blocks along y, along x, members) the
+    launch takes, and the block's shared memory: `offsets` of each array
+    in elements of the dtype (-1 when the configuration has none), `smem`
+    in bytes.  `ints()` is the array the kernel takes."""
+
+    ARRAYS = ("q", "xi", "st", "f1", "u", "dv", "s", "g", "p1", "p2")
+
+    def __init__(self, nx, ny, nvar, dtype, *, spherical=False,
+                 with_sources=False, flatten=True, n_members=1):
+        self.nx, self.ny, self.nvar = nx, ny, nvar
+        self.tx, self.ty = TILE[dtype]
+        self.threads = THREADS[dtype]
+        self.halo = dict(HALO)
+        self.grid = (-(-ny // self.ty), -(-nx // self.tx), n_members)
+        item = torch.empty((), dtype=dtype).element_size()
+        traced = self.box("traced")
+        sizes = {
+            "q": nvar * self.box("prim"),
+            "xi": 2 * self.box("flatten") if flatten else 0,
+            "st": 4 * nvar * traced,       # each traced cell's four states
+            "f1": 2 * nvar * traced,       # the first pair, x and y faces
+            "u": nvar * traced,            # the floored state
+            "dv": traced,                  # the vertex divergence
+            "s": 3 * traced if with_sources else 0,
+            "g": 4 * traced if spherical else 0,
+            "p1": 2 * traced if spherical else 0,
+            "p2": 2 * traced if spherical else 0,
+        }
+        self.sizes = sizes
+        self.offsets, end = {}, 0
+        for name in self.ARRAYS:
+            self.offsets[name] = end if sizes[name] else -1
+            end += sizes[name]
+        self.smem = end * item
+
+    def box(self, name):
+        """Cells of a block's box: the tile and its halo."""
+        h = self.halo[name]
+        return (self.tx + 2 * h) * (self.ty + 2 * h)
+
+    def ints(self):
+        h = self.halo
+        return [self.tx, self.ty, self.threads,
+                h["prim"], h["flatten"], h["traced"],
+                *(self.offsets[a] for a in self.ARRAYS), self.smem,
+                *self.grid[:2]]
+
+
+@functools.lru_cache(maxsize=64)
+def plan(nx, ny, nvar, dtype, **kw):
+    """The launch plan of one step (see Plan), made once for each set of
+    arguments."""
+    return Plan(nx, ny, nvar, dtype, **kw)
+
+
+def covered(ivars, ng):
+    """Raise NotImplementedError unless the fused kernel covers this frame:
+    4..MAXVAR variables, the conserved ones first in the order density,
+    energy, x-, y-momentum (the order the compressible solvers register
+    them in), and ghosts as deep as the primitives' halo."""
+    if not 4 <= ivars.nvar <= MAXVAR:
+        raise NotImplementedError(
+            f"the CTU kernel takes 4..{MAXVAR} variables, not {ivars.nvar}"
+            " (ROADMAP.md A.21)")
+    order = (ivars.idens, ivars.iener, ivars.ixmom, ivars.iymom)
+    if order != (0, 1, 2, 3) or ng < HALO["prim"]:
+        raise NotImplementedError(
+            "the CTU kernel takes density, energy, x- and y-momentum at "
+            f"0..3 and {HALO['prim']} or more ghost cells, not {order} and "
+            f"{ng} (ROADMAP.md A.21)")
+
+
+def _c_plan(p):
+    ints = p.ints()
+    return (ctypes.c_int * len(ints))(*ints)
+
+
 _lib = None
 
 
@@ -87,16 +191,18 @@ def _load():
         doubles = ctypes.POINTER(ctypes.c_double)
         for name in ("ctu_step_f32", "ctu_step_f64"):
             fn = getattr(lib, name)
-            fn.argtypes = [ctypes.c_void_p] * 5 + [ints, doubles,
+            fn.argtypes = [ctypes.c_void_p] * 4 + [ints, doubles, ints,
                                                    ctypes.c_void_p]
             fn.restype = ctypes.c_int
         for name in ("ctu_step_batched_f32", "ctu_step_batched_f64"):
             fn = getattr(lib, name)
-            fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ints,
-                                                   doubles, ctypes.c_void_p]
+            fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int, ints,
+                                                   doubles, ints,
+                                                   ctypes.c_void_p]
             fn.restype = ctypes.c_int
-        lib.ctu_scratch_planes.argtypes = [ctypes.c_int]
-        lib.ctu_scratch_planes.restype = ctypes.c_int
+        lib.ctu_plan_ints.restype = ctypes.c_int
+        if lib.ctu_plan_ints() != len(Plan.ARRAYS) + 9:
+            raise RuntimeError("ctu_step.cu takes another plan layout")
         _lib = lib
     return _lib
 
@@ -147,18 +253,17 @@ def launch_batched(P, ints, doubles, n_members):
     if P.device.type != "cuda":
         raise ValueError("the CUDA CTU kernel takes a CUDA tensor")
     lib = _load()
-    nvar, qx, qy = ints[0], ints[1] + 2 * ints[3], ints[2] + 2 * ints[3]
+    tiles = plan(ints[1], ints[2], ints[0], P.dtype,
+                 flatten=bool(ints[10]), n_members=n_members)
     out = torch.empty_like(P)
-    scratch = torch.empty(
-        (n_members * lib.ctu_scratch_planes(nvar), qx, qy), dtype=P.dtype,
-        device=P.device)
     fn = lib.ctu_step_batched_f32 if P.dtype == torch.float32 \
         else lib.ctu_step_batched_f64
     with torch.cuda.device(P.device):
         stream = torch.cuda.current_stream(P.device).cuda_stream
-        err = fn(P.data_ptr(), out.data_ptr(), scratch.data_ptr(), n_members,
+        err = fn(P.data_ptr(), out.data_ptr(), n_members,
                  (ctypes.c_int * len(ints))(*ints),
-                 (ctypes.c_double * len(doubles))(*doubles), stream)
+                 (ctypes.c_double * len(doubles))(*doubles), _c_plan(tiles),
+                 stream)
     if err != 0:
         raise RuntimeError(f"CTU kernel launch failed: CUDA error {err}")
     return out
@@ -175,13 +280,10 @@ class CTUStep:
             raise NotImplementedError(
                 "problem source terms wait for a later slice of the port "
                 "(ROADMAP.md, queue B item 1)")
-        if not 4 <= ivars.nvar <= MAXVAR:
-            raise NotImplementedError(
-                f"the CTU kernel takes 4..{MAXVAR} variables, not "
-                f"{ivars.nvar}")
         method = rp.get_param("compressible.riemann")
         if method not in RIEMANN:
             raise ValueError(f"unknown Riemann solver {method}")
+        covered(ivars, myg.ng)
 
         self.sim = sim
         self.plain = sim._make_step()
@@ -266,7 +368,9 @@ class CTUStep:
         ints, doubles, S = self.kernel_args(U, t, dt)
 
         lib = _load()
-        nvar, qx, qy = self.shape
+        nvar, nx, ny = ints[0], ints[1], ints[2]
+        tiles = plan(nx, ny, nvar, U.dtype, spherical=self.spherical,
+                     with_sources=self.with_sources, flatten=bool(ints[10]))
         G = None
         if self.spherical:
             key = (U.dtype, U.device)
@@ -275,17 +379,15 @@ class CTUStep:
                                                U.dtype, U.device)
             G = self._geometry[key]
         out = torch.empty_like(U)
-        scratch = torch.empty((lib.ctu_scratch_planes(nvar), qx, qy),
-                              dtype=U.dtype, device=U.device)
         fn = lib.ctu_step_f32 if U.dtype == torch.float32 \
             else lib.ctu_step_f64
         with torch.cuda.device(U.device):
             stream = torch.cuda.current_stream(U.device).cuda_stream
             err = fn(U.data_ptr(), None if S is None else S.data_ptr(),
-                     None if G is None else G.data_ptr(),
-                     out.data_ptr(), scratch.data_ptr(),
+                     None if G is None else G.data_ptr(), out.data_ptr(),
                      (ctypes.c_int * len(ints))(*ints),
-                     (ctypes.c_double * len(doubles))(*doubles), stream)
+                     (ctypes.c_double * len(doubles))(*doubles),
+                     _c_plan(tiles), stream)
         if err != 0:
             raise RuntimeError(f"CTU kernel launch failed: CUDA error {err}")
         launches += 1

@@ -72,10 +72,7 @@ class PaddedStep:
         method = rp.get_param("compressible.riemann")
         if method not in ctu_kernel.RIEMANN:
             raise ValueError(f"unknown Riemann solver {method}")
-        if not 4 <= ivars.nvar <= ctu_kernel.MAXVAR:
-            raise NotImplementedError(
-                f"the CTU kernel takes 4..{ctu_kernel.MAXVAR} variables, not "
-                f"{ivars.nvar}")
+        ctu_kernel.covered(ivars, NG)
 
         class _Data:
             grid = Cartesian2d(nx, ny, ng=NG, xmax=nx * dx, ymax=ny * dy)

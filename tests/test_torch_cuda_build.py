@@ -81,3 +81,100 @@ def test_multigrid_header_is_in_both_multigrid_build_keys(tmp_path):
     changed = sorted(n for n in names
                      if cuda_build.library_path(csrc / n) != before[n])
     assert changed == ["mg_deep.cu", "mg_vcycle.cu"]
+
+
+def _extern_params(source):
+    """{entry: number of parameters} of a source's plain `extern "C"`
+    functions (not those its macros expand)."""
+    import re
+    text = (cuda_build.CSRC / source).read_text()
+    found = {}
+    for m in re.finditer(r'^extern "C" [\w\s\*]+?\b(\w+)\(([^)]*)\)', text,
+                         re.MULTILINE):
+        params = [p for p in m.group(2).split(",") if p.strip()]
+        found[m.group(1)] = len(params)
+    return found
+
+
+class _FakeFn:
+    def __init__(self, ret):
+        self.ret = ret
+        self.argtypes = None
+
+    def __call__(self, *args):
+        return self.ret
+
+
+class _FakeLib:
+    """A stand-in for a CDLL: records each entry's argtypes."""
+
+    def __init__(self, returns):
+        self._returns = returns
+        self._fns = {}
+
+    def __getattr__(self, name):
+        if name.startswith("_"):
+            raise AttributeError(name)
+        return self._fns.setdefault(name,
+                                    _FakeFn(self._returns.get(name, 0)))
+
+
+def _bind(module, monkeypatch, returns=None):
+    """Run a kernel module's _load against a fake library."""
+    fake = _FakeLib(returns or {})
+    monkeypatch.setattr(module, "_lib", None)
+    monkeypatch.setattr(module, "build", lambda verbose=False: ("x", 0, ""))
+    monkeypatch.setattr(module.ctypes, "CDLL", lambda path: fake)
+    module._load()
+    return fake._fns
+
+
+def test_ctu_entries_match_their_bindings(monkeypatch):
+    """ctu_step.cu exports one step entry per dtype and one batched entry
+    per dtype, each taking the launch plan, and the plan's length, which
+    is ctu_kernel.plan's; no scratch-size entry is left (the step keeps
+    its intermediates on the chip).  The ctypes bindings give each entry
+    its parameter count."""
+    import re
+
+    import torch
+
+    from pyro2_tpu_torch.solvers.compressible import ctu_kernel
+
+    entries = _extern_params("ctu_step.cu")
+    assert entries == {"ctu_plan_ints": 0, "ctu_step_f32": 8,
+                       "ctu_step_f64": 8, "ctu_step_batched_f32": 7,
+                       "ctu_step_batched_f64": 7}
+    text = (cuda_build.CSRC / "ctu_step.cu").read_text()
+    assert "scratch" not in text.split("namespace {", 1)[1]
+    plan_ints = int(re.search(r"constexpr int PLAN_INTS = (\d+);",
+                              text).group(1))
+    for dtype in (torch.float32, torch.float64):
+        assert len(ctu_kernel.plan(8, 8, 4, dtype).ints()) == plan_ints
+    fns = _bind(ctu_kernel, monkeypatch, {"ctu_plan_ints": plan_ints})
+    for name, n in entries.items():
+        if n:
+            assert len(fns[name].argtypes) == n, name
+    assert "ctu_scratch_planes" not in fns
+
+
+def test_core_entries_take_the_schedule(monkeypatch):
+    """Every multigrid core entry takes its schedule (the warps of each
+    level, the cluster's CTAs and its first spread level) after its alpha
+    and beta; the down and up entries do not; the core's shared-memory
+    layout is Python's (mg_kernel.core_offsets, in the schedule), not an
+    entry."""
+    from pyro2_tpu_torch.multigrid import mg_kernel
+
+    text = (cuda_build.CSRC / "mg_vcycle.cu").read_text()
+    assert "mg_core_smem" not in text
+    # the core template and the two entry macros (constant, coefficient)
+    assert text.count("const double* ab, const int* schedule,") == 3
+    fns = _bind(mg_kernel, monkeypatch)
+    for sfx, ncoef in mg_kernel.FLAVOURS.values():
+        for t in ("f32", "f64"):
+            core = fns[f"mg_core{sfx}_{t}"].argtypes
+            assert len(core) == 4 + 3 + 4 + (1 if ncoef else 0) + 1
+            assert len(fns[f"mg_down{sfx}_{t}"].argtypes) == \
+                4 + 2 + 3 + (1 if ncoef else 0) + 1
+    assert "mg_core_smem" not in fns

@@ -35,9 +35,10 @@ Phases (any failure exits non-zero and prints no result line):
   3b. the MOL stage-increment kernels (mol_rk, mol_fv4) against their plain
      versions on the card, one increment from the same state after 3
      kernel steps, for four rk and three fv4 configurations at a ragged
-     200x136 (fv4 rt: 200x600, square cells) and at 1024^2, in float64
-     (max |diff| <= 1e-12 of max|F_x|/dx + max|F_y|/dy + max|S|, the terms
-     k cancels) and float32 (<= 1e-5 of it), the ghosts of k exactly zero;
+     200x136 (fv4 rt: 200x600, square cells) and at 1024^2, the fv4 ones
+     also at 1024x1000 (a ragged last tile column), in float64 (max |diff|
+     <= 1e-12 of max|F_x|/dx + max|F_y|/dy + max|S|, the terms k cancels)
+     and float32 (<= 1e-5 of it), the ghosts of k exactly zero;
   4. the multigrid kernels against their plain versions from the same
      inputs, each entry, one whole V-cycle and one whole solve, at 64^2
      (core only) and 1024^2 (core up to 128^2 in float32 and 64^2 in
@@ -51,7 +52,10 @@ Phases (any failure exits non-zero and prints no result line):
      (the _general entries, alpha 10, beta xy + 1, gamma (1, 1)) with
      homogeneous Dirichlet edges; then mg_core of every case at every top
      it holds (2^2 .. 128^2 in float32, .. 64^2 in float64), from a guess
-     and from a zero guess;
+     and from a zero guess; and mg_up of every case at every peeled level
+     with nsmooth 50, whose halo no box holds, so the plan splits the
+     sweeps into rounds (mg_kernel.up_plan), v with its ghosts and the
+     finest level's residual against up_plain;
   4a. the lm_atm interface kernels (lm_mac, lm_rho, lm_states) against
      their plain versions, on decisively signed random fields at 200x136
      and 1024^2 and on a bubble state at 1024^2 after 3 kernel steps, in
@@ -106,17 +110,20 @@ Phases (any failure exits non-zero and prints no result line):
      the swe quad 1024^2 step; the lm_atm stages on the 1024^2 bubble;
      the spherical CTU step and each padded entry at its path's shape;
      mg_deep_smooth and mg_correct at the sharded path's finest level),
-     beside each kernel's bound on this card, and the host time of
-     building lm_atm's VarCoeffCCMG2d at 1024^2; the CTU step's peak
-     device memory at quad 1024^2; the core's schedule at the 1024^2
+     beside each kernel's bound on this card, the multigrid ascent and
+     descent at every peeled level with mg_up's plan, and the host time of
+     building lm_atm's VarCoeffCCMG2d at 1024^2; the CTU step's and the
+     fv4 stage's peak device memory at quad and acoustic_pulse 1024^2;
+     the core's schedule at the 1024^2
      cycles' 128^2 top with its barriers counted by kind, and its time on
      the coarse problems one ShardedDiffusion step hands it against random
      data (the share of subnormal values in each);
   7. torch.profiler breakdowns of 20 quad steps, 20 ctu_periodic advect
-     steps (fill + step), 5 diffusion steps, 5 shear steps, 5 fv4
-     acoustic_pulse steps, 5 swe quad steps, 5 lm_atm bubble steps, 20
-     spherical advect steps and 5 sharded diffusion steps:
-     device time by kernel and the device's busy share of the wall time.
+     steps (fill + step), 5 diffusion steps, 5 shear steps, 5 fv4 and 3
+     sdc acoustic_pulse steps, 5 swe quad steps, 5 lm_atm bubble steps, 2
+     GeneralMG2d solves, 20 spherical advect steps and 5 sharded diffusion
+     steps: device time by kernel and the device's busy share of the wall
+     time.
 
 The line before the last is a JSON object describing every kernel; the last
 line is {"ok": true, "device": {...}}.
@@ -928,6 +935,68 @@ def core_tops_compare(case, dtype, tol):
         f"{worst[1]:.3g})")
 
 
+def up_rounds_compare(case, dtype, tol, nsmooth):
+    """mg_up of one of MG_CASES at every peeled level of 1024^2 with
+    `nsmooth` sweeps against up_plain: v with its ghosts to tol max|v|, the
+    finest level's residual to tol times the terms it cancels; the plan
+    must split the finest level's sweeps into rounds."""
+    import numpy as np
+    import torch
+
+    from pyro2_tpu_torch.multigrid import mg_kernel
+
+    name, op, edges, _ = case
+    mg = make_case_mg(1024, name, op, edges, dtype)
+    mg.nsmooth = nsmooth
+    rng = np.random.default_rng(13)
+    fine = mg.nlevels - 1
+    rows = []
+    for lv in mg_kernel.split(mg, dtype)[1]:
+        g, gc = mg.grids[lv], mg.grids[lv - 1]
+        v, f = frame(rng, g, dtype, 0.1), frame(rng, g, dtype)
+        vc = frame(rng, gc, dtype, 0.1)
+        want_r = lv == fine
+        ref = mg_kernel.up_plain(mg, lv, v, f, vc, want_r)
+        got = mg_kernel.launch_up(mg, lv, v, f, vc, want_r)
+        plan = mg_kernel.up_plan(g.nx, nsmooth, dtype)
+        checks = [("v", ref[0], got[0], float(ref[0].abs().max()))]
+        if want_r:
+            checks.append(("r", ref[1], got[1],
+                           resid_scale(mg, lv, ref[0], f)))
+        for what, a, b, scale in checks:
+            err = float((a - b).abs().max())
+            if not bool(torch.isfinite(b).all()) or err > tol * scale:
+                raise AssertionError(
+                    f"mg_up {name} {g.nx}^2 nsmooth {nsmooth} "
+                    f"{str(dtype)[6:]}: {what} max|diff| {err:.3e} > "
+                    f"{tol:g} x {scale:.3g}")
+            rows.append(f"{g.nx}^2 {what} {err:.3e}")
+        rows[-1] += f" ({plan.rounds} rounds of {plan.round_iters()})"
+        if lv == fine and plan.rounds < 2:
+            raise AssertionError(f"nsmooth {nsmooth} took one round")
+    torch.cuda.synchronize()
+    log(f"  ok  mg_up{mg_kernel.FLAVOURS[op][0]:8s} {name:17s} "
+        f"{str(dtype)[6:]:8s} nsmooth {nsmooth}: " + "; ".join(rows))
+
+
+def mol_peak_memory(step, U, t, dt):
+    """Peak device bytes one MOL stage increment allocates above what is
+    allocated before it (its k, and for the staged rk stage its scratch)."""
+    import torch
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    k = step.launch(U, t, dt)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    log(f"  peak device memory of one {step.name} stage: {peak} B above the "
+        f"{base} B allocated before it (k is {k.numel() * k.element_size()} "
+        "B)")
+    del k
+    return peak
+
+
 def mg_main_path(solver, problem, n, steps):
     """Pyro(solver) -> run_sim on CUDA float32 with the counts reset just
     before and read just after; returns (pyro, launches by kernel,
@@ -1023,8 +1092,10 @@ def ctu_peak_memory(step, U, t, dt):
 def mg_timing(mg, label, bw, fp32):
     """CUDA-event times of each multigrid kernel of mg's operator and its
     plain version as one 1024^2 float32 cycle calls them: the core from a
-    zero guess, and the down and up of every peeled level; returns the
-    core's and the finest level's, keyed by entry name."""
+    zero guess, and the down and up of every peeled level (mg_up with
+    mg_kernel.up_plan's tiles, printed beside it); returns the core's and
+    the finest level's, keyed by entry name, and every level's, keyed by
+    (entry name, n)."""
     import numpy as np
     import torch
 
@@ -1050,6 +1121,11 @@ def mg_timing(mg, label, bw, fp32):
         v = frame(rng, g, dtype, 0.1)
         guess = v if lv == fine else None           # as the cycle calls it
         want_r = lv == fine
+        plan = mg_kernel.up_plan(g.nx, mg.nsmooth, dtype)
+        log(f"  mg_up{sfx} {g.nx}^2 plan: {plan.tile}^2 tiles "
+            f"({plan.tiles ** 2} blocks of {plan.threads}), halo "
+            f"{plan.halo}, {plan.rounds} round(s), {plan.smem} B of shared "
+            f"memory")
         times = {
             "mg_down" + sfx: time_pair(
                 f"mg_down{sfx} ({label}, {g.nx}^2)",
@@ -1065,6 +1141,7 @@ def mg_timing(mg, label, bw, fp32):
                                want_r=want_r), bw, fp32)}
         if lv == fine:
             out.update(times)
+        out.update({(k, g.nx): t for k, t in times.items()})
     v, f = frame(rng, mg.soln_grid, dtype, 0.1), frame(rng, mg.soln_grid,
                                                        dtype)
     cyc = event_ms(lambda: mg_kernel.cycle(mg, v, f), 10)
@@ -1317,7 +1394,13 @@ def general_path(n):
         f"cycles in {seconds:.3f} s, residual {mg.residual_error:.3e}, L2 "
         f"error from the exact solution {err:.3e}; launches "
         f"{ {k: launches[k] for k in GENERAL_KERNELS} }, no other")
-    return {k: launches[k] for k in GENERAL_KERNELS}
+
+    def solve():
+        mg.init_zeros()
+        mg.init_RHS(rhs)
+        mg.solve(rtol=1.e-11)
+
+    return {k: launches[k] for k in GENERAL_KERNELS}, solve
 
 
 def lm_timing(calls, g, bw, fp32):
@@ -1867,7 +1950,7 @@ def kernel_source(kernel):
         return "mg_deep.cu"
     if kernel.startswith("k_lm_"):
         return "lm_interface.cu"
-    if kernel.startswith(("k_rk_", "k_fv4_")):
+    if kernel.startswith(("k_rk_", "k_fv4")):
         return "mol_substep.cu"
     if kernel.startswith("k_swe_"):
         return "swe_step.cu"
@@ -1991,8 +2074,10 @@ def main():
     log("[mol_substep vs plain stage increment on the card]")
     mol_err = {}
     for dtype, tol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
-        for nx, ny in ((200, 136), (1024, 1024)):
+        for nx, ny in ((200, 136), (1024, 1000), (1024, 1024)):
             for name, solver, problem, inputs, extra in MOL_CONFIGS:
+                if ny == 1000 and solver != "compressible_fv4":
+                    continue                    # the fused kernel's ragged
                 shape = (nx, ny)
                 if name == "fv4_rt_gravity" and nx == 200:
                     shape = (200, 600)          # square cells, rt's 1 x 3
@@ -2018,6 +2103,12 @@ def main():
     for dtype, tol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
         for case in MG_CASES:
             core_tops_compare(case, dtype, tol)
+        torch.cuda.empty_cache()
+
+    log("[mg_up in rounds (nsmooth 50) at every peeled level vs up_plain]")
+    for dtype, tol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
+        for case in MG_CASES:
+            up_rounds_compare(case, dtype, tol, 50)
         torch.cuda.empty_cache()
 
     # 4a. the lm_atm interface kernels vs their plain versions on the card
@@ -2060,7 +2151,7 @@ def main():
     fv4, n_fv4 = mol_main_path("compressible_fv4", "acoustic_pulse", 1024,
                                1024, 20, "mol_fv4", 4,
                                {"driver.fix_dt": 0.192 / 1024})
-    _, n_sdc = mol_main_path("compressible_sdc", "acoustic_pulse", 1024,
+    sdc, n_sdc = mol_main_path("compressible_sdc", "acoustic_pulse", 1024,
                              1024, 5, "mol_fv4", 9,
                              {"driver.fix_dt": 0.192 / 1024})
     mol_launches = {"mol_rk": n_rk_quad + n_rk_rt, "mol_fv4": n_fv4 + n_sdc}
@@ -2069,7 +2160,7 @@ def main():
     _, n_swe_kh = swe_main_path("kh", 1024, 1024, 100,
                                 {"swe.riemann": "HLLC"})
     lm, lm_launches, cycles_per_solve = lm_main_path(1024, 10)
-    general_launches = general_path(1024)
+    general_launches, general_solve = general_path(1024)
     sph, _, sph_launches = main_path("advect", 1024, 1024, 100, SPH_ADVECT)
     padded = {
         "ctu_periodic": padded_path("ctu_periodic", "advect", 1024, 100),
@@ -2125,8 +2216,15 @@ def main():
             mg_times.update(mg_timing(make_case_mg(1024, *case[:3],
                                                    torch.float32),
                                       case[0], bw, fp32))
+    log(f"[mg_up and mg_down at every peeled level, float32, CUDA events; "
+        f"{smi}]")
+    for key in sorted(k for k in mg_times if isinstance(k, tuple)):
+        ms, p_ms, b_ms, b_by = mg_times[key]
+        log(f"  {key[0]:16s} {key[1]:5d}^2: {ms:.4f} ms, plain {p_ms:.4f} "
+            f"ms, bound {b_ms:.4f} ms ({b_by}), at {100 * b_ms / ms:.2f}% "
+            "of it")
     log("[timing: the MOL increments at 1024^2 float32, CUDA events]")
-    mol_times = {}
+    mol_times, mol_peak = {}, {}
     for kname, pp in (("mol_rk", rk_quad), ("mol_fv4", fv4)):
         msim = pp.sim
         msim.cc_data.fill_BC_all()
@@ -2140,6 +2238,7 @@ def main():
             lambda: mstep.plain(mU, mt, mdt),
             mol_kernel.work(mstep.kind, g.nx, g.ny, msim.ivars.nvar,
                             torch.float32), bw, fp32)
+        mol_peak[kname] = mol_peak_memory(mstep, mU, mt, mdt)
 
     log("[timing: the swe step at quad 1024^2 float32, CUDA events]")
     ssim = swe_quad.sim
@@ -2207,8 +2306,12 @@ def main():
                   "incompressible shear 1024^2 float32")
     profile_steps(fv4.single_step, 5,
                   "compressible_fv4 acoustic_pulse 1024^2 float32")
+    profile_steps(sdc.single_step, 3,
+                  "compressible_sdc acoustic_pulse 1024^2 float32")
     profile_steps(swe_quad.single_step, 5, "swe quad 1024^2 float32")
     profile_steps(lm.single_step, 5, "lm_atm bubble 1024^2 float32")
+    profile_steps(general_solve, 2,
+                  "GeneralMG2d 1024^2 float32, one solve a step")
     profile_steps(sph.single_step, 20, "spherical advect 1024^2 float32")
     profile_steps(sharded.evolve, 5,
                   "ShardedDiffusion gaussian 1024^2 float32, 1x1 mesh")
@@ -2355,6 +2458,8 @@ def main():
         "per solve")
     log(f"  quad 1024^2 float32 CTU step: peak device memory {ctu_peak} B "
         "above the state")
+    log(f"  acoustic_pulse 1024^2 float32 fv4 stage: peak device memory "
+        f"{mol_peak['mol_fv4']} B above the state")
     log(smi)                            # the card, again, for the record
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

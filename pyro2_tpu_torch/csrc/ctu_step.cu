@@ -71,7 +71,7 @@
 // thread); float64 takes 14 x 14 tiles on 256 threads.  Neighbouring blocks
 // recompute the halos (the traced cells are 1.22x the tile's), which the
 // arithmetic bound affords.  The variable count is a template argument
-// (4..MAXVAR) and the conserved indices are fixed (CtuParams), so the
+// (4..MAXVAR) and the conserved indices are fixed (FixedParams), so the
 // per-variable arrays of the tracing and the Riemann solvers are indexed by
 // constants and stay in registers.  Nothing is allocated here and there is
 // no scratch in device memory.
@@ -108,14 +108,6 @@ struct Launch<float, true> {
   static constexpr int threads = 512, blocks = 1;
 };
 
-// the parameter block with the variables fixed at compile time: NV of them,
-// density, energy, x-momentum and y-momentum first (the order in which the
-// compressible solvers register them; the wrappers check it)
-template <int NV>
-struct CtuParams : Params {
-  static constexpr int nvar = NV, idens = 0, iener = 1, ixmom = 2, iymom = 3;
-};
-
 // the launch plan of ctu_kernel.plan: the output tile (tx rows along x, ty
 // columns along y) and the block's threads; the halos of the boxes a block
 // holds (primitives, flattening coefficients, traced cells); where each
@@ -137,32 +129,8 @@ Plan load_plan(const int* t) {
               t[14], t[15], t[16], t[17], t[18]};
 }
 
-// a box of frame cells held in shared memory, row-major: rows i0 .. i0 +
-// h - 1, columns j0 .. j0 + w - 1
-struct Box {
-  int i0, j0, h, w;
-  __device__ int cells() const { return h * w; }
-  __device__ int at(int i, int j) const { return (i - i0) * w + (j - j0); }
-};
-
 __device__ __forceinline__ Box around(int i0, int j0, const Plan& t, int h) {
   return Box{i0 - h, j0 - h, t.tx + 2 * h, t.ty + 2 * h};
-}
-
-// plane k of a stack of planes over a box, seen as a(i, j) in frame indices
-template <typename T>
-struct BoxPlane {
-  const T* a;
-  Box b;
-  __device__ __forceinline__ T operator()(int i, int j) const {
-    return a[b.at(i, j)];
-  }
-};
-
-template <typename T>
-__device__ __forceinline__ BoxPlane<T> plane(const T* a, const Box& b,
-                                             int k) {
-  return BoxPlane<T>{a + k * b.cells(), b};
 }
 
 // the spherical geometry (see the header): the planes Ax, Ay, V, dlogAy of
@@ -363,7 +331,7 @@ __global__ void __launch_bounds__(Launch<T, SPH>::threads,
                                   Launch<T, SPH>::blocks)
     k_ctu(const T* __restrict__ U, const T* __restrict__ S,
           const T* __restrict__ G, T* __restrict__ out,
-          const CtuParams<NV> p, const Plan t) {
+          const FixedParams<NV> p, const Plan t) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sm = reinterpret_cast<T*>(smem_raw);
   U += blockIdx.z * p.mstride;
@@ -735,7 +703,7 @@ int launch(const T* U, const T* S, const T* G, T* out, const Params& base,
     if (e != cudaSuccess) return (int)e;
     opted = t.smem;
   }
-  CtuParams<NV> p;
+  FixedParams<NV> p;
   static_cast<Params&>(p) = base;
   const dim3 grd(t.bx, t.by, n_members);
   kernel<<<grd, t.threads, t.smem, st>>>(U, S, G, out, p, t);

@@ -12,12 +12,13 @@
 // bits the order of operations allows.
 //
 // Every per-cell helper is a template over the parameter block P and reads
-// the variable count and indices as p.nvar, p.idens, ...: mol_substep.cu
-// passes Params, whose fields hold them at run time; ctu_step.cu passes a
-// block that fixes them at compile time, so its per-variable arrays are
-// indexed by constants and stay in registers.  The stencil helpers read
-// their planes through views a(i, j) (FramePlane for a frame in device
-// memory; ctu_step.cu's views of a tile in shared memory).
+// the variable count and indices as p.nvar, p.idens, ...: mol_substep.cu's
+// staged rk kernels pass Params, whose fields hold them at run time; the
+// fused kernels (ctu_step.cu, mol_substep.cu's fv4 kernel) pass
+// FixedParams, which fixes them at compile time, so their per-variable
+// arrays are indexed by constants and stay in registers.  The stencil
+// helpers read their planes through views a(i, j) (FramePlane for a frame
+// in device memory; BoxPlane for a tile's box in shared memory).
 
 #pragma once
 
@@ -44,6 +45,43 @@ struct Params {
   // viscosity's alpha and beta * gamma
   double dx2, dy2, dx2_24, mdx2, alpha, beta_gamma;
 };
+
+// the parameter block with the variables fixed at compile time: NV of them,
+// density, energy, x-momentum and y-momentum first (the order in which the
+// compressible solvers register them; the wrappers check it), so the
+// kernels' per-variable arrays are indexed by constants and stay in
+// registers
+template <int NV>
+struct FixedParams : Params {
+  static constexpr int nvar = NV, idens = 0, iener = 1, ixmom = 2, iymom = 3;
+};
+
+// a box of frame cells held in shared memory, row-major: rows i0 .. i0 +
+// h - 1, columns j0 .. j0 + w - 1
+struct Box {
+  int i0, j0, h, w;
+  __device__ int cells() const { return h * w; }
+  __device__ int at(int i, int j) const { return (i - i0) * w + (j - j0); }
+  __device__ bool has(int i, int j) const {
+    return i >= i0 && i < i0 + h && j >= j0 && j < j0 + w;
+  }
+};
+
+// plane k of a stack of planes over a box, seen as a(i, j) in frame indices
+template <typename T>
+struct BoxPlane {
+  const T* a;
+  Box b;
+  __device__ __forceinline__ T operator()(int i, int j) const {
+    return a[b.at(i, j)];
+  }
+};
+
+template <typename T>
+__device__ __forceinline__ BoxPlane<T> plane(const T* a, const Box& b,
+                                             int k) {
+  return BoxPlane<T>{a + k * b.cells(), b};
+}
 
 // primitive order: rho, u, v, p, then the passive scalars
 constexpr int IRHO = 0, IU = 1, IV = 2, IP = 3;
@@ -343,8 +381,8 @@ __device__ __forceinline__ void cgf(const P& p, int idir, const T* Ul,
 // CGF on primitive states (riemann_prim): the primitive interface state,
 // without wall clamps (the 4th-order solver's)
 template <typename T, typename P>
-__device__ void cgf_prim(const P& p, int idir, const T* ql, const T* qr,
-                         T* out) {
+__device__ __forceinline__ void cgf_prim(const P& p, int idir, const T* ql,
+                                         const T* qr, T* out) {
   const int iun = idir == 1 ? IU : IV;
   const int iut = idir == 1 ? IV : IU;
   Side<T> L, R;

@@ -32,32 +32,39 @@
 // the operator
 enum { OP_CONST = 0, OP_VC = 1, OP_GENERAL = 2 };
 
-// the Gauss-Seidel update of cell c from its neighbours' values: xp at
-// (i+1, j), xm at (i-1, j), yp at (i, j+1), ym at (i, j-1).  VC and
-// GENERAL read their edge coefficients as the plain smoothers' views do:
-// bxp = x-plane at i+1 (the high-x face), bx = at i, byp = y-plane at j+1,
-// by = at j
+// the Gauss-Seidel update of cell c from its neighbours' values -- xp at
+// (i+1, j), xm at (i-1, j), yp at (i, j+1), ym at (i, j-1) -- and its
+// right-hand side fc.  VC and GENERAL read their edge coefficients as the
+// plain smoothers' views do: bxp = x-plane at i+1 (the high-x face), bx =
+// at i, byp = y-plane at j+1, by = at j
 template <int OP, typename T, typename Level>
-__device__ __forceinline__ T gs_of(T xp, T xm, T yp, T ym, const T* f,
-                                   const Level& L, int c) {
+__device__ __forceinline__ T gs_val(T xp, T xm, T yp, T ym, T fc,
+                                    const Level& L, int c) {
   const int q = L.q;
   if constexpr (OP == OP_CONST) {
-    return (f[c] + L.xc * (xp + xm) + L.yc * (yp + ym)) / L.den;
+    return (fc + L.xc * (xp + xm) + L.yc * (yp + ym)) / L.den;
   } else if constexpr (OP == OP_VC) {
     const size_t qq = L.qq;
     const T *ex = L.c, *ey = L.c + qq;
     const T bxp = ex[c + q], bx = ex[c], byp = ey[c + 1], by = ey[c];
     const T den = bxp + bx + byp + by;
-    return (-f[c] + bxp * xp + bx * xm + byp * yp + by * ym) / den;
+    return (-fc + bxp * xp + bx * xm + byp * yp + by * ym) / den;
   } else {
     const size_t qq = L.qq;
     const T *al = L.c, *ex = L.c + qq, *ey = L.c + 2 * qq;
     const T *gx = L.c + 3 * qq, *gy = L.c + 4 * qq;
     const T bxp = ex[c + q], bx = ex[c], byp = ey[c + 1], by = ey[c];
     const T den = al[c] - bxp - bx - byp - by;
-    return (f[c] - (bxp + gx[c]) * xp - (bx - gx[c]) * xm -
+    return (fc - (bxp + gx[c]) * xp - (bx - gx[c]) * xm -
             (byp + gy[c]) * yp - (by - gy[c]) * ym) / den;
   }
+}
+
+// the same with the right-hand side read from frame f
+template <int OP, typename T, typename Level>
+__device__ __forceinline__ T gs_of(T xp, T xm, T yp, T ym, const T* f,
+                                   const Level& L, int c) {
+  return gs_val<OP>(xp, xm, yp, ym, f[c], L, c);
 }
 
 // the Gauss-Seidel update of cell c of frame v
@@ -68,31 +75,42 @@ __device__ __forceinline__ T gs(const T* v, const T* f, const Level& L,
   return gs_of<OP>(v[c + q], v[c - q], v[c + 1], v[c - 1], f, L, c);
 }
 
-// the residual f - (operator) v at cell c (alpha, beta: OP_CONST only)
+// the residual fc - (operator) v at cell c from the cell's value v0, its
+// neighbours' (as for gs_val) and its right-hand side fc (alpha, beta:
+// OP_CONST only)
 template <int OP, typename T, typename Level>
-__device__ __forceinline__ T resid(const T* v, const T* f, const Level& L,
-                                   T alpha, T beta, int c) {
+__device__ __forceinline__ T resid_val(T v0, T xp, T xm, T yp, T ym, T fc,
+                                       const Level& L, T alpha, T beta,
+                                       int c) {
   const int q = L.q;
   if constexpr (OP == OP_CONST) {
-    const T lap = (v[c - q] + v[c + q] - T(2) * v[c]) / L.dx2 +
-                  (v[c - 1] + v[c + 1] - T(2) * v[c]) / L.dy2;
-    return f[c] - alpha * v[c] + beta * lap;
+    const T lap =
+        (xm + xp - T(2) * v0) / L.dx2 + (ym + yp - T(2) * v0) / L.dy2;
+    return fc - alpha * v0 + beta * lap;
   } else if constexpr (OP == OP_VC) {
     const size_t qq = L.qq;
     const T *ex = L.c, *ey = L.c + qq;
-    const T Lv = ex[c + q] * (v[c + q] - v[c]) - ex[c] * (v[c] - v[c - q]) +
-                 ey[c + 1] * (v[c + 1] - v[c]) - ey[c] * (v[c] - v[c - 1]);
-    return f[c] - Lv;
+    const T Lv = ex[c + q] * (xp - v0) - ex[c] * (v0 - xm) +
+                 ey[c + 1] * (yp - v0) - ey[c] * (v0 - ym);
+    return fc - Lv;
   } else {
     const size_t qq = L.qq;
     const T *al = L.c, *ex = L.c + qq, *ey = L.c + 2 * qq;
     const T *gx = L.c + 3 * qq, *gy = L.c + 4 * qq;
-    const T Lv = al[c] * v[c] + ex[c + q] * (v[c + q] - v[c]) -
-                 ex[c] * (v[c] - v[c - q]) + ey[c + 1] * (v[c + 1] - v[c]) -
-                 ey[c] * (v[c] - v[c - 1]) + gx[c] * (v[c + q] - v[c - q]) +
-                 gy[c] * (v[c + 1] - v[c - 1]);
-    return f[c] - Lv;
+    const T Lv = al[c] * v0 + ex[c + q] * (xp - v0) - ex[c] * (v0 - xm) +
+                 ey[c + 1] * (yp - v0) - ey[c] * (v0 - ym) +
+                 gx[c] * (xp - xm) + gy[c] * (yp - ym);
+    return fc - Lv;
   }
+}
+
+// the residual f - (operator) v at cell c of frame v
+template <int OP, typename T, typename Level>
+__device__ __forceinline__ T resid(const T* v, const T* f, const Level& L,
+                                   T alpha, T beta, int c) {
+  const int q = L.q;
+  return resid_val<OP>(v[c], v[c + q], v[c - q], v[c + 1], v[c - 1], f[c],
+                       L, alpha, beta, c);
 }
 
 // the factor-2 average of the residual over four children, c the one with

@@ -15,7 +15,7 @@
 //               restriction into the coarse f (ghosts zero);
 //   mg_up    <- _make_up_kernel(_g) and _make_up_banded(_g): prolong and
 //               correct, a ghost fill, nsmooth sweeps, and the residual on
-//               the finest level.
+//               the finest level, in tiles (below).
 //
 // The TPU cut levels above 512^2 into 128-row bands with deep halos only
 // because a frame did not fit in VMEM (and so could not take periodic x
@@ -52,11 +52,19 @@
 // edges, a cell of the other colour (n is even), which is not updated in
 // the same half-sweep.
 //
-// mg_down / mg_up: one cooperative launch per call, grid-stride loops over
-// the level, cooperative_groups grid.sync() between phases (one per
+// mg_down: one cooperative launch per call, grid-stride loops over the
+// level, cooperative_groups grid.sync() between phases (one per
 // half-sweep).  The grid is sized to what can be co-resident.  The level
 // frames live in device memory; up to 1026^2 floats (4.2 MB) per frame,
 // they (and a level's planes) stay in the 50 MB L2 across the sweeps.
+// mg_up: ordinary launches with no grid-wide barrier, one at the solvers'
+// nsmooth (temporal blocking, as the TPU's banded ascent for levels above
+// 512^2): each block owns a tile of the level and runs every half-sweep on
+// a box of the tile and a halo as deep as the sweeps reach, held in shared
+// memory with f beside it, with block barriers only (tile_smooth, written
+// for k_down to take up next); mg_kernel.up_plan picks the tile per level
+// and splits the sweeps into rounds of separate launches where a halo for
+// all of them would not fit.
 // mg_core: one launch of a thread-block cluster, each block holding v and
 // f of every level 0..top in its shared memory (128^2 float32: 183 KB;
 // 64^2 float64: 96 KB), laid out, scheduled and clustered as the launch's
@@ -66,11 +74,12 @@
 // stencils, 7 (CONST), 13 (VC) or 17 (GENERAL) operations per cell update
 // against 2 values and 2-5 coefficients in and one out, so a call's least
 // time is the bytes of its frames and planes over the memory rate
-// (mg_kernel.work counts them).  mg_down / mg_up, still their first
-// design, pay one grid-wide barrier per half-sweep (21 per mg_down at
-// nsmooth 10) and read each cell's neighbours from L2, with stride-2 colour
-// accesses; fusing sweeps in shared-memory tiles with halos is their next
-// step.  The core cannot approach its byte bound at all: it is a chain of
+// (mg_kernel.work counts them).  mg_down, still its first design, pays one
+// grid-wide barrier per half-sweep (21 at nsmooth 10) and reads each cell's
+// neighbours from L2, with stride-2 colour accesses; mg_up's tiles read
+// them from shared memory, at the price of the halo's recomputation (1.8x
+// the cells at 1024^2) and a 2-way bank conflict of the stride-2 colour
+// walk.  The core cannot approach its byte bound at all: it is a chain of
 // ~400 dependent phases (a top of 128^2 at nsmooth 10 / 50 bottom sweeps),
 // most of them on levels of 4 to 256 cells, and on one block the 128^2
 // level's sweeps are bound by one SM's instruction throughput.  Its design:
@@ -255,42 +264,188 @@ __global__ void __launch_bounds__(THREADS) k_down(DownArgs<T> a) {
   }
 }
 
-// -- mg_up --------------------------------------------------------------------
+// -- mg_up ------------------------------------------------------------------
+//
+// Ordinary launches with no grid-wide barrier: each block owns a tile of
+// the level's interior and runs a round of sweeps on a box of the tile and
+// a halo in shared memory (temporal blocking).  The halo is as deep as the
+// round's sweeps reach, one cell a half-sweep, plus one for the residual;
+// the prolongation reads the coarse frame where each box cell lies, so it
+// needs no halo of its own.  mg_kernel.up_plan picks the tile, the halo and
+// the rounds (several launches when a halo for all nsmooth iterations would
+// not fit the shared memory; one at the solvers' nsmooth).
+
+// the block of mg_up: UP_X threads (threadIdx.x) along a row's cells of a
+// colour, the plan's threads / UP_X (threadIdx.y) over the rows, at most
+// UP_MAX threads
+constexpr int UP_X = 32, UP_MAX = 512;
+
+// the launch plan of mg_kernel.up_plan: the owned tile's side, the halo,
+// the rounds and the iterations of a full round, the block's threads, its
+// shared memory (bytes: the box of v, then the box of f) and the tiles
+// along a side
+struct UpPlan {
+  int tile, halo, rounds, iters, threads, smem, tiles;
+};
+
+constexpr int UP_PLAN_INTS = 7;
+
+// the box of a tile in shared memory, row-major: along each axis the
+// extended interior indices e0 .. e0 + w - 1 (1 .. n the level's interior;
+// beyond it, on a periodic axis, the interior wrapped around, and on any
+// other axis nothing); per axis whether it is periodic
+struct TileBox {
+  int ei, ej, w, n;
+  bool px, py;
+  // the interior index of extended index e on a periodic axis (n is a
+  // power of 2)
+  __device__ int wrap(int e) const { return ((e - 1) & (n - 1)) + 1; }
+  // the first and last extended index of an axis that holds a cell
+  __device__ int lo(int e0, bool per) const { return per ? e0 : max(1, e0); }
+  __device__ int hi(int e0, bool per) const {
+    return per ? e0 + w - 1 : min(n, e0 + w - 1);
+  }
+  // the first and last index of an axis that half-sweep s (1-based)
+  // updates: s cells inside the box's edges, or up to a non-periodic edge
+  // of the level, where a cell's outside neighbour is itself times the
+  // ghost's sign and so never stale
+  __device__ int lo_s(int e0, bool per, int s) const {
+    return !per && e0 <= 1 ? 1 : e0 + s;
+  }
+  __device__ int hi_s(int e0, bool per, int s) const {
+    return !per && e0 + w - 1 >= n ? n : e0 + w - 1 - s;
+  }
+  __device__ int at(int i, int j) const { return (i - ei) * w + (j - ej); }
+};
+
+// the four neighbours of box cell o at extended (i, j): across a
+// non-periodic edge of the level the ghost, which mirrors the cell itself
+// (v0 times the edge's sign), else the box cell beside it
+template <typename T>
+struct Nbrs {
+  T xm, xp, ym, yp;
+};
+
+template <typename T>
+__device__ __forceinline__ Nbrs<T> nbrs(const T* b, const TileBox& t,
+                                        const Lev<T>& L, int o, int i, int j,
+                                        T v0) {
+  Nbrs<T> v;
+  v.xm = !t.px && i == 1 ? L.gxl * v0 : b[o - t.w];
+  v.xp = !t.px && i == t.n ? L.gxh * v0 : b[o + t.w];
+  v.ym = !t.py && j == 1 ? L.gyl * v0 : b[o - 1];
+  v.yp = !t.py && j == t.n ? L.gyh * v0 : b[o + 1];
+  return v;
+}
+
+// `iters` red-black iterations on the box b of a tile in shared memory,
+// with the right-hand side's box fb beside it,
+// by the block's threads (threadIdx.x along a row's cells of the colour,
+// threadIdx.y over rows), a block barrier after each half-sweep.  Half-
+// sweep s updates the cells of its colour that are still exact after it
+// (TileBox::lo_s, hi_s), so after 2 iters half-sweeps the box is exact
+// from halo - 2 iters cells outside the tile inward.  Each cell reads f and
+// the coefficient planes at its frame index, and its neighbours as nbrs
+// gives them; on a periodic axis the wrapped cells of the box are the
+// neighbours the untiled sweep reads through the ghosts (n is even, so a
+// wrapped cell keeps its colour).  The colour's first column in a row is
+// found from the parity of i + j: no division.  Each cell's arithmetic is
+// the untiled sweep's, so the box's exact cells hold its bits.
+template <int OP, typename T>
+__device__ void tile_smooth(T* b, const T* fb, const TileBox& t,
+                            const Lev<T>& L, int iters) {
+  const int q = L.q;
+  for (int s = 1; s <= 2 * iters; ++s) {
+    const int color = (s - 1) & 1;   // red first: (i - 1) + (j - 1) even
+    const int i0 = t.lo_s(t.ei, t.px, s), i1 = t.hi_s(t.ei, t.px, s);
+    const int j0 = t.lo_s(t.ej, t.py, s), j1 = t.hi_s(t.ej, t.py, s);
+    for (int i = i0 + (int)threadIdx.y; i <= i1; i += blockDim.y) {
+      const int it = t.px ? t.wrap(i) : i;
+      const int jf = j0 + ((i + j0 + color) & 1);
+      for (int j = jf + 2 * (int)threadIdx.x; j <= j1; j += 2 * blockDim.x) {
+        const int jt = t.py ? t.wrap(j) : j;
+        const int o = t.at(i, j);
+        const T v0 = b[o];
+        const Nbrs<T> v = nbrs(b, t, L, o, i, j, v0);
+        b[o] = gs_val<OP>(v.xp, v.xm, v.yp, v.ym, fb[o], L, it * q + jt);
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// the ghosts of frame r that mirror interior cell (i, j), set to zero
+template <typename T>
+__device__ __forceinline__ void zero_ghosts(T* r, const Lev<T>& L, int i,
+                                            int j) {
+  const int q = L.q;
+  const bool xl = i == L.sxl, xh = i == L.sxh;
+  const bool yl = j == L.syl, yh = j == L.syh;
+  if (xl) r[j] = T(0);
+  if (xh) r[(q - 1) * q + j] = T(0);
+  if (yl) r[i * q] = T(0);
+  if (yh) r[i * q + q - 1] = T(0);
+  if (xl && yl) r[0] = T(0);
+  if (xl && yh) r[q - 1] = T(0);
+  if (xh && yl) r[(q - 1) * q] = T(0);
+  if (xh && yh) r[(q - 1) * q + q - 1] = T(0);
+}
 
 template <typename T>
 struct UpArgs {
-  const T* v;   // the pre-smoothed guess of this level
+  const T* src;  // the pre-smoothed guess (first round), else the last
+                 // round's output
   const T* f;
-  const T* vc;  // the coarse correction, ghosts filled
-  T* vo;
-  T* r;         // the residual, or nullptr
+  const T* vc;   // the coarse correction, ghosts filled (first round), or
+                 // nullptr
+  T* dst;        // this round's output, ghosts filled
+  T* r;          // the residual (last round, finest level), or nullptr
   Lev<T> L;
   T alpha, beta;
-  int nsmooth;
+  int iters;     // red-black iterations of this round
+  int tile, halo;
+  bool px, py;   // periodic x edges, y edges
 };
 
+// one round on the tile (blockIdx.y, blockIdx.x): load the boxes of v (the
+// guess plus the prolonged correction in the first round) and f, smooth,
+// write the tile's cells with the ghosts that mirror them (`put`) and, in
+// the last round of the finest level, the residual
 template <int OP, typename T>
-__global__ void __launch_bounds__(THREADS) k_up(UpArgs<T> a) {
-  cg::grid_group grid = cg::this_grid();
-  auto sync = [&]() { grid.sync(); };
+__global__ void __launch_bounds__(UP_MAX) k_up(UpArgs<T> a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* b = reinterpret_cast<T*>(smem_raw);
   const Lev<T>& L = a.L;
   const int n = L.n, q = L.q, qc = n / 2 + 2;
-  const int t0 = blockIdx.x * blockDim.x + threadIdx.x;
-  const int nt = gridDim.x * blockDim.x;
-
-  for (int k = t0; k < n * n; k += nt) {
-    const int i = k / n + 1, j = k % n + 1;
-    put(a.vo, L, i, j, a.v[i * q + j] + prolong(a.vc, qc, i, j));
+  const int ti = 1 + blockIdx.y * a.tile, tj = 1 + blockIdx.x * a.tile;
+  const TileBox t{ti - a.halo, tj - a.halo, a.tile + 2 * a.halo, n, a.px,
+                  a.py};
+  T* fb = b + t.w * t.w;
+  const int i1 = t.hi(t.ei, t.px), j1 = t.hi(t.ej, t.py);
+  for (int i = t.lo(t.ei, t.px) + (int)threadIdx.y; i <= i1; i += blockDim.y) {
+    const int it = t.px ? t.wrap(i) : i;
+    for (int j = t.lo(t.ej, t.py) + (int)threadIdx.x; j <= j1;
+         j += blockDim.x) {
+      const int jt = t.py ? t.wrap(j) : j;
+      const int c = it * q + jt, o = t.at(i, j);
+      b[o] = a.vc ? a.src[c] + prolong(a.vc, qc, it, jt) : a.src[c];
+      fb[o] = a.f[c];
+    }
   }
-  sync();
-  smooth<OP>(a.vo, a.f, L, a.nsmooth, t0, nt, sync);
+  __syncthreads();
+  tile_smooth<OP>(b, fb, t, L, a.iters);
 
-  if (a.r) {
-    for (int k = t0; k < q * q; k += nt) {
-      const int i = k / q, j = k % q;
-      a.r[k] = (i >= 1 && i <= n && j >= 1 && j <= n)
-                   ? resid<OP>(a.vo, a.f, L, a.alpha, a.beta, k)
-                   : T(0);
+  for (int i = ti + (int)threadIdx.y; i < ti + a.tile; i += blockDim.y) {
+    for (int j = tj + (int)threadIdx.x; j < tj + a.tile; j += blockDim.x) {
+      const int o = t.at(i, j);
+      const T v0 = b[o];
+      put(a.dst, L, i, j, v0);
+      if (a.r) {
+        const Nbrs<T> v = nbrs(b, t, L, o, i, j, v0);
+        a.r[i * q + j] = resid_val<OP>(v0, v.xp, v.xm, v.yp, v.ym, fb[o], L,
+                                       a.alpha, a.beta, i * q + j);
+        zero_ghosts(a.r, L, i, j);
+      }
     }
   }
 }
@@ -685,24 +840,68 @@ int down(const T* v, const T* f, T* vo, T* fc, int n, int nsmooth,
   return launch_cooperative(k_down<OP, T>, cached, n * n, a, st);
 }
 
+// plan (mg_kernel.up_plan): see UpPlan.  scratch is a second frame for the
+// rounds to alternate with vo (nullptr with one round)
 template <int OP, typename T>
-int up(const T* v, const T* f, const T* vc, T* vo, T* r, int n,
+int up(const T* v, const T* f, const T* vc, T* vo, T* r, T* scratch, int n,
        int nsmooth, const int* bc, const double* coef, const double* ab,
-       const void* planes, cudaStream_t st) {
-  static int cached = -1;
+       const int* plan, const void* planes, cudaStream_t st) {
+  static int opted = 0;
   if (!valid_size(n) || n < 4 || nsmooth < 0 || (OP != OP_CONST && !planes))
     return (int)cudaErrorInvalidValue;
+  // a periodic axis is periodic at both of its edges
+  if ((bc[0] == PERIODIC) != (bc[1] == PERIODIC) ||
+      (bc[2] == PERIODIC) != (bc[3] == PERIODIC))
+    return (int)cudaErrorInvalidValue;
+  const UpPlan t{plan[0], plan[1], plan[2], plan[3],
+                 plan[4], plan[5], plan[6]};
+  // a power-of-2 tile that divides the level; rounds of `iters` iterations
+  // (the last one the rest) that take nsmooth together, a halo as deep as a
+  // round's half-sweeps plus the residual, and a box that fits the plan's
+  // shared memory
+  const int rounds =
+      nsmooth == 0 ? 1 : (nsmooth + t.iters - 1) / max(t.iters, 1);
+  if (t.tile < 1 || (t.tile & (t.tile - 1)) || t.tile > n ||
+      t.tiles * t.tile != n || t.threads < UP_X || t.threads > UP_MAX ||
+      t.threads % UP_X || t.iters < 0 ||
+      (nsmooth > 0 && t.iters < 1) || t.rounds != rounds ||
+      t.halo < 2 * t.iters + 1 || (rounds > 1 && !scratch))
+    return (int)cudaErrorInvalidValue;
+  const size_t w = (size_t)t.tile + 2 * t.halo;
+  if (t.smem < 1 || (size_t)t.smem < 2 * w * w * sizeof(T))
+    return (int)cudaErrorInvalidValue;
+  if (t.smem > opted) {
+    cudaError_t e = cudaFuncSetAttribute(
+        (const void*)k_up<OP, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        t.smem);
+    if (e != cudaSuccess) return (int)e;
+    opted = t.smem;
+  }
   UpArgs<T> a;
-  a.v = v;
   a.f = f;
-  a.vc = vc;
-  a.vo = vo;
-  a.r = r;
   a.L = make_level<T>(n, coef, bc, planes);
   a.alpha = (T)ab[0];
   a.beta = (T)ab[1];
-  a.nsmooth = nsmooth;
-  return launch_cooperative(k_up<OP, T>, cached, (n + 2) * (n + 2), a, st);
+  a.tile = t.tile;
+  a.halo = t.halo;
+  a.px = bc[0] == PERIODIC;
+  a.py = bc[2] == PERIODIC;
+  const T* src = v;
+  for (int k = 0; k < rounds; ++k) {
+    // the rounds alternate between scratch and vo, ending in vo
+    T* dst = ((rounds - 1 - k) & 1) ? scratch : vo;
+    a.src = src;
+    a.vc = k == 0 ? vc : nullptr;
+    a.dst = dst;
+    a.r = k == rounds - 1 ? r : nullptr;
+    a.iters = min(t.iters, nsmooth - k * t.iters);
+    k_up<OP, T><<<dim3(t.tiles, t.tiles), dim3(UP_X, t.threads / UP_X),
+                  t.smem, st>>>(a);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+    src = dst;
+  }
+  return 0;
 }
 
 // planes: one plane-stack pointer per level 0..top (nullptr for OP_CONST);
@@ -808,11 +1007,12 @@ int core(const T* v, const T* f, T* vo, T* r, int top, int nsmooth,
                              (cudaStream_t)stream);                           \
   }                                                                           \
   extern "C" int mg_up_##SFX(const T* v, const T* f, const T* vc, T* vo,      \
-                             T* r, int n, int nsmooth, const int* bc,         \
-                             const double* coef, const double* ab,            \
+                             T* r, T* scratch, int n, int nsmooth,            \
+                             const int* bc, const double* coef,               \
+                             const double* ab, const int* plan,               \
                              void* stream) {                                  \
-    return up<OP_CONST, T>(v, f, vc, vo, r, n, nsmooth, bc, coef, ab,         \
-                           nullptr, (cudaStream_t)stream);                    \
+    return up<OP_CONST, T>(v, f, vc, vo, r, scratch, n, nsmooth, bc, coef,    \
+                           ab, plan, nullptr, (cudaStream_t)stream);          \
   }
 
 // the coefficient entries (mg_core_vc_f32, mg_up_general_f64, ...): the
@@ -834,12 +1034,15 @@ int core(const T* v, const T* f, T* vo, T* r, int top, int nsmooth,
                        (cudaStream_t)stream);                                 \
   }                                                                           \
   extern "C" int mg_up_##NAME##_##SFX(                                        \
-      const T* v, const T* f, const T* vc, T* vo, T* r, int n, int nsmooth,   \
-      const int* bc, const double* coef, const double* ab,                    \
-      const void* planes, void* stream) {                                     \
-    return up<OP, T>(v, f, vc, vo, r, n, nsmooth, bc, coef, ab, planes,       \
-                     (cudaStream_t)stream);                                   \
+      const T* v, const T* f, const T* vc, T* vo, T* r, T* scratch, int n,    \
+      int nsmooth, const int* bc, const double* coef, const double* ab,       \
+      const int* plan, const void* planes, void* stream) {                    \
+    return up<OP, T>(v, f, vc, vo, r, scratch, n, nsmooth, bc, coef, ab,      \
+                     plan, planes, (cudaStream_t)stream);                     \
   }
+
+// the length of the plan array the mg_up entries take (mg_kernel.up_plan)
+extern "C" int mg_up_plan_ints() { return UP_PLAN_INTS; }
 
 CONST_ENTRIES(float, f32)
 CONST_ENTRIES(double, f64)

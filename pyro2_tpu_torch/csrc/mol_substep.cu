@@ -22,27 +22,51 @@
 // take solid walls (rk) and a positive density floor, both gated on the
 // global interior, and any nx, ny.
 //
-// Layout and windows: as in ctu_step.cu, one thread per frame cell (or per
-// interface) with threadIdx.x along y, every window decided by comparing
-// the global index -- the TPU's row bands, 8-row halos, 128-aligned rows
-// and DMA semaphores have no counterpart.  The shared device code (the
-// Riemann solvers, slopes, flattening, cons <-> prim) is euler_common.cuh.
+// Layout and windows: the plain (nvar, qx, qy) stack, y contiguous, every
+// window decided by comparing the global index -- the TPU's row bands,
+// 8-row halos, 128-aligned rows and DMA semaphores have no counterpart.
+// The shared device code (the Riemann solvers, slopes, flattening, cons <->
+// prim) is euler_common.cuh.
 //
-// What bounds it on the H100: ~620 (rk) and ~1580 (fv4) floating-point
+// What bounds it on the H100: ~620 (rk) and ~1200 (fv4) floating-point
 // operations per zone (mol_kernel.FLOPS_PER_ZONE_BY_STAGE), many of them
 // divides and square roots, against 2 nvar values read and written per
 // zone: rk sits at the balance point of the fp32 rate and the memory rate
-// (bytes bound it, barely), fv4 is bound by the fp32 rate.  This first
-// design is simple instead: it stages its intermediates through device
-// memory (rk: primitives, flattening, the four interface-state stacks and
-// two flux stacks; fv4: two primitive stacks, the 4th-order averages, two
-// interface-state stacks and two flux stacks), and the 4th-order face
-// states recompute the limiter of each cell for both faces that read it.
-// Shared-memory tiles with halos and fused stages are later work;
-// chip_smoke.py prints its time beside the bound.
-// The scratch is allocated by the wrapper (torch.empty) and nothing is
-// allocated here.  The stages run in order on the caller's stream; each
-// entry returns the first cudaGetLastError().
+// (bytes bound it, barely), fv4 is bound by the fp32 rate.
+//
+// rk keeps its first design: one thread per frame cell (or interface) with
+// threadIdx.x along y, five staged kernels whose intermediates (primitives,
+// flattening, the four interface-state stacks, two flux stacks) go through
+// scratch planes in device memory, allocated by the wrapper (torch.empty;
+// mol_scratch_planes).
+//
+// fv4 is one launch a stage (k_fv4): each block owns one output tile
+// (mol_kernel.plan picks its shape per dtype, lays out the block's shared
+// memory and sizes the grid), loads the floored state of the tile and a
+// 5-cell halo once, and runs the first design's pipeline out of shared
+// memory and registers, each stage over the box the next one reads:
+//   1. primitives of the averages (halo 5); the centres with the
+//      positivity fallback as primitives (halo 4); the centred sources
+//      (halo 1);
+//   2. the 1-D flattening coefficients (halo 2);
+//   3. the 4th-order averages, in place of the centres (halo 4);
+//   4. per direction, the limited 4th-order states of each cell (halo 1),
+//      computed once and shared by the cell's two faces, blended by its
+//      flattening coefficient; then CGF on the faces the transverse
+//      Laplacians read;
+//   5. the fluxes of the tile's faces, with the face-centre Laplacians and
+//      the artificial viscosity (over the averages and states, done);
+//   6. the divergence with the averaged sources and the sponge on the
+//      tile's cells, and k's zero ghosts from the tiles at the frame's
+//      edges.
+// __syncthreads() separates the stages.  Near the frame's edges the boxes
+// reach past it; the windows make every value read come from inside it.
+// The variable count is a template argument (4..MAXVAR) and the conserved
+// indices are fixed (FixedParams), so the per-variable arrays stay in
+// registers.  Nothing goes to device memory but k, and there is no scratch.
+// Each cell's operations are the first design's, in its order; only where
+// the intermediates live changed.  Each entry returns the first
+// cudaGetLastError().
 //
 // Build (see compressible_fv4/mol_kernel.py):
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -fmad=false
@@ -158,8 +182,8 @@ __global__ void k_rk_flux(const T* __restrict__ U, const T* __restrict__ Q,
 }
 
 // the sponge terms of k at an interior cell, from the floored state
-template <typename T>
-__device__ __forceinline__ void add_sponge(const Params& p,
+template <typename T, typename P>
+__device__ __forceinline__ void add_sponge(const P& p,
                                            const T* __restrict__ U, int i,
                                            int j, T* k) {
   const T rho = ldU(U, p, p.idens, i, j);
@@ -203,73 +227,15 @@ __global__ void k_rk_update(const T* __restrict__ U, const T* __restrict__ FX,
 }
 
 // ---------------------------------------------------------------------------
-// fv4: the McCorquodale-Colella pipeline
+// fv4: the McCorquodale-Colella pipeline, one fused launch
 // ---------------------------------------------------------------------------
 
-// the 5-point Laplacian of a plane at (i, j), in the plain version's order
-template <typename T, typename F>
-__device__ __forceinline__ T lap5(const Params& p, F v, int i, int j) {
+// the 5-point Laplacian of a view v at (i, j), in the plain version's order
+template <typename T, typename P, typename F>
+__device__ __forceinline__ T lap5(const P& p, const F& v, int i, int j) {
   const T c = v(i, j);
   return (v(i - 1, j) - T(2) * c + v(i + 1, j)) / T(p.dx2) +
          (v(i, j - 1) - T(2) * c + v(i, j + 1)) / T(p.dy2);
-}
-
-// fv4 stage 1, every frame cell: the cell-centre state of the floored
-// averages (the buf=ng-1 window converted, the outer ring copied), the
-// centred gravity sources SC of that state, the fallback to the averages
-// where the centre is unphysical, and the primitives Q of the averages and
-// QC of the (fallback) centres
-template <typename T>
-__global__ void k_fv4_prim(const T* __restrict__ U, T* __restrict__ Q,
-                           T* __restrict__ QC, T* __restrict__ SC,
-                           Params p) {
-  CELL_INDEX
-  T ua[MAXVAR], uc[MAXVAR], q[MAXVAR];
-  const bool w = inwin(p, i, j, p.ng - 1, p.ng - 1, p.ng - 1, p.ng - 1);
-  for (int n = 0; n < p.nvar; ++n) {
-    ua[n] = ldU(U, p, n, i, j);
-    uc[n] = ua[n];
-    if (w) {
-      auto v = [&](int a, int b) { return ldU(U, p, n, a, b); };
-      uc[n] = ua[n] - T(p.dx2) * lap5<T>(p, v, i, j) / T(24);
-    }
-  }
-  const T grav = T(p.grav);
-  SC[at(p, 0, i, j)] = uc[p.idens] * grav;
-  SC[at(p, 1, i, j)] = uc[p.iymom] * grav;
-
-  const T rhoe = uc[p.iener] - T(0.5) *
-                                   (uc[p.ixmom] * uc[p.ixmom] +
-                                    uc[p.iymom] * uc[p.iymom]) /
-                                   uc[p.idens];
-  if (uc[p.idens] < T(0) || rhoe < T(0))
-    for (int n = 0; n < p.nvar; ++n) uc[n] = ua[n];
-
-  cons_to_prim(p, ua, q);
-  for (int n = 0; n < p.nvar; ++n) Q[at(p, n, i, j)] = q[n];
-  cons_to_prim(p, uc, q);
-  for (int n = 0; n < p.nvar; ++n) QC[at(p, n, i, j)] = q[n];
-}
-
-// fv4 stage 3: the 4th-order cell-average primitives q_avg = q_cc +
-// dx^2/24 lap(q_bar) on the buf=3 window with the rho / p positivity
-// fallback to q_cc, zero outside the window
-template <typename T>
-__global__ void k_fv4_qavg(const T* __restrict__ Q, const T* __restrict__ QC,
-                           T* __restrict__ QA, Params p) {
-  CELL_INDEX
-  const bool w = inwin(p, i, j, 3, 3, 3, 3);
-  for (int n = 0; n < p.nvar; ++n) {
-    T qa = T(0);
-    if (w) {
-      const T* qb = Q + (size_t)n * p.qx * p.qy;
-      auto v = [&](int a, int b) { return qb[(size_t)a * p.qy + b]; };
-      const T qc = QC[at(p, n, i, j)];
-      qa = qc + T(p.dx2_24) * lap5<T>(p, v, i, j);
-      if (n == IRHO || n == IP) qa = qa > T(0) ? qa : qc;
-    }
-    QA[at(p, n, i, j)] = qa;
-  }
 }
 
 constexpr double C2 = 1.25;
@@ -282,24 +248,23 @@ __device__ __forceinline__ T sgn(T x) {
 }
 
 // The limited 4th-order states of one plane A (q_avg of one primitive,
-// zero outside the buf=3 window) along direction d at a cell (i, j) of the
-// m_W box (along d [lo-1, hi+1], across [lo-1, hi+1]): the right state
-// ar_cell, which is ar at the cell's lower face, or the left state
-// al_cell, which is al at its upper face.  The region masks are those of
-// fourth_order.states: outside them a_int, d2ac and d3a are zero, and d3a
-// reaches hi+3 along x but hi+2 along y.
-template <typename T>
-__device__ T fo_state(const Params& p, const T* __restrict__ A, int i, int j,
-                      int d, bool left) {
-  const int ax = d == 1 ? i : j;             // index along d
-  const int tr = d == 1 ? j : i;             // index across d
-  const int hi_a = d == 1 ? ihi(p) : jhi(p);
-  const int hi_t = d == 1 ? jhi(p) : ihi(p);
+// zero outside the buf=3 window; a view A(i, j)) along direction D at a
+// cell (i, j) of the m_W box (along D [lo-1, hi+1], across [lo-1, hi+1]):
+// the right state ar, which is ar at the cell's lower face, and the left
+// state al, which is al at its upper face, from one evaluation of the
+// limiter.  It reads A 3 cells either way along D.  The region masks are
+// those of fourth_order.states: outside them a_int, d2ac and d3a are zero,
+// and d3a reaches hi+3 along x but hi+2 along y.
+template <typename T, int D, typename P, typename V>
+__device__ __forceinline__ void fo_pair(const P& p, const V& A, int i, int j,
+                                        T& ar, T& al) {
+  const int ax = D == 1 ? i : j;             // index along D
+  const int tr = D == 1 ? j : i;             // index across D
+  const int hi_a = D == 1 ? ihi(p) : jhi(p);
+  const int hi_t = D == 1 ? jhi(p) : ihi(p);
   const int lo = p.ng;
   const bool across = tr >= lo - 1 && tr <= hi_t + 1;
-  const ptrdiff_t s = d == 1 ? (ptrdiff_t)p.qy : 1;
-  const T* a0p = A + (size_t)i * p.qy + j;
-  auto a = [&](int k) { return a0p[k * s]; };
+  auto a = [&](int k) { return D == 1 ? A(i + k, j) : A(i, j + k); };
   auto box = [&](int k, int lo_off, int hi_off) {
     return across && ax + k >= lo + lo_off && ax + k <= hi_a + hi_off;
   };
@@ -311,7 +276,7 @@ __device__ T fo_state(const Params& p, const T* __restrict__ A, int i, int j,
   auto d2ac = [&](int k) {
     return box(k, -3, 3) ? a(k - 1) - T(2) * a(k) + a(k + 1) : T(0);
   };
-  const int d3a_hi = d == 1 ? 3 : 2;
+  constexpr int d3a_hi = D == 1 ? 3 : 2;
   auto d3a = [&](int k) {
     return box(k, -2, d3a_hi) ? d2ac(k) - d2ac(k - 1) : T(0);
   };
@@ -353,76 +318,24 @@ __device__ T fo_state(const Params& p, const T* __restrict__ A, int i, int j,
   const bool case3 =
       !case1 && !case2 && (fabs(dafp) >= T(2) * fabs(dafm));
 
-  if (!left) {
-    // ar_cell: ar defaults to a_int at the cell
-    const T ar_lim = case1   ? a0 - rho * dafm
-                     : case2 ? a0 - T(2) * (T(1) - rho) * dafp - rho * dafm
-                             : ai0;
-    const T ar_ne = fabs(dafm) >= T(2) * fabs(dafp) ? a0 - T(2) * dafp : ai0;
-    return extrema ? (dolim ? ar_lim : ai0) : ar_ne;
-  }
-  // al_cell: al defaults to a_int one cell up (al_up)
+  // ar defaults to a_int at the cell
+  const T ar_lim = case1   ? a0 - rho * dafm
+                   : case2 ? a0 - T(2) * (T(1) - rho) * dafp - rho * dafm
+                           : ai0;
+  const T ar_ne = fabs(dafm) >= T(2) * fabs(dafp) ? a0 - T(2) * dafp : ai0;
+  ar = extrema ? (dolim ? ar_lim : ai0) : ar_ne;
+  // al defaults to a_int one cell up (al_up)
   const T al_lim = case1   ? a0 + rho * dafp
                    : case3 ? a0 + T(2) * (T(1) - rho) * dafm + rho * dafp
                            : ai1;
   const T al_ne = fabs(dafp) >= T(2) * fabs(dafm) ? a0 + T(2) * dafm : ai1;
-  return extrema ? (dolim ? al_lim : ai1) : al_ne;
-}
-
-// is (i, j) in fourth_order.states' box [lo+lo_off, hi+hi_off] along d
-// and [lo-1, hi+1] across it?
-__device__ __forceinline__ bool fo_box(const Params& p, int i, int j, int d,
-                                       int lo_off, int hi_off) {
-  const int ax = d == 1 ? i : j, tr = d == 1 ? j : i;
-  const int hi_a = d == 1 ? ihi(p) : jhi(p);
-  const int hi_t = d == 1 ? jhi(p) : ihi(p);
-  return tr >= p.ng - 1 && tr <= hi_t + 1 && ax >= p.ng + lo_off &&
-         ax <= hi_a + hi_off;
-}
-
-// fv4 stage 4: per face normal to d, the limited 4th-order left and right
-// states of every primitive, blended toward q_avg by the flattening
-// coefficient -- the right state by the face's cell, the left state by the
-// cell below it -- then CGF on primitive states.  x faces i in
-// [ilo, ihi+1], j in [jlo-1, jhi+1]; y faces the transpose.  The
-// transverse Laplacians of stage 5 read exactly these.
-template <typename T>
-__global__ void k_fv4_faces(const T* __restrict__ QA, const T* __restrict__ Q,
-                            const T* __restrict__ XI, T* __restrict__ QIX,
-                            T* __restrict__ QIY, Params p) {
-  CELL_INDEX
-  const size_t plane = (size_t)p.qx * p.qy;
-  T ql[MAXVAR], qr[MAXVAR], qi[MAXVAR];
-  for (int d = 1; d <= 2; ++d) {
-    const bool face =
-        d == 1 ? (i >= ilo(p) && i <= ihi(p) + 1 && j >= jlo(p) - 1 &&
-                  j <= jhi(p) + 1)
-               : (j >= jlo(p) && j <= jhi(p) + 1 && i >= ilo(p) - 1 &&
-                  i <= ihi(p) + 1);
-    if (!face) continue;
-    const int il = d == 1 ? i - 1 : i, jl = d == 1 ? j : j - 1;
-    // the faces lie inside the buf=2 window on both sides, where the
-    // blend applies, and inside the m_W / m_W_up boxes, where the
-    // limited states replace a_int
-    const T xi_r = flat_xi(p, Q, XI, i, j);
-    const T xi_l = flat_xi(p, Q, XI, il, jl);
-    for (int n = 0; n < p.nvar; ++n) {
-      const T* A = QA + n * plane;
-      const T ar = fo_state(p, A, i, j, d, false);
-      const T al = fo_state(p, A, il, jl, d, true);
-      qr[n] = xi_r * ar + (T(1) - xi_r) * A[(size_t)i * p.qy + j];
-      ql[n] = xi_l * al + (T(1) - xi_l) * A[(size_t)il * p.qy + jl];
-    }
-    cgf_prim(p, d, ql, qr, qi);
-    T* QI = d == 1 ? QIX : QIY;
-    for (int n = 0; n < p.nvar; ++n) QI[at(p, n, i, j)] = qi[n];
-  }
+  al = extrema ? (dolim ? al_lim : ai1) : al_ne;
 }
 
 // the analytic conserved flux of a primitive state (flux_cons)
-template <typename T>
-__device__ __forceinline__ void flux_cons(const Params& p, int idir,
-                                          const T* q, T* F) {
+template <typename T, typename P>
+__device__ __forceinline__ void flux_cons(const P& p, int idir, const T* q,
+                                          T* F) {
   const T rho = q[IRHO], u = q[IU], v = q[IV], pr = q[IP];
   const T un = idir == 1 ? u : v;
   F[p.idens] = rho * un;
@@ -435,104 +348,349 @@ __device__ __forceinline__ void flux_cons(const Params& p, int idir,
   }
   F[p.iener] =
       (pr / T(p.gamma - 1.0) + T(0.5) * rho * (u * u + v * v) + pr) * un;
+#pragma unroll
   for (int n = 4; n < p.nvar; ++n) F[n] = rho * q[n] * un;
 }
 
-// fv4 stage 5: per face that the divergence reads (x faces i in [ilo,
+// the most threads a block of the fused kernel takes: 512 in float32 (at
+// most 128 registers a thread), 256 in float64
+template <typename T>
+struct Fv4Launch {
+  static constexpr int threads = 256;
+};
+template <>
+struct Fv4Launch<float> {
+  static constexpr int threads = 512;
+};
+
+// the launch plan of mol_kernel.plan: the output tile (tx rows along x, ty
+// columns along y) and the block's threads; the halos of the boxes a block
+// holds (the primitives of the averages, the centres and then the
+// 4th-order averages, the flattening coefficients, and the centred sources
+// and the cells whose face states are limited); where each array starts in
+// the block's shared memory, in elements of T (xi -1 without flattening);
+// the bytes it takes; and the grid of tiles
+struct Fv4Plan {
+  int tx, ty, threads;
+  int hq, ha, hx, hs;
+  int q, xi, sc, qix, qiy, r;
+  int smem;    // bytes
+  int bx, by;  // blocks along y (columns), along x (rows)
+};
+
+constexpr int FV4_PLAN_INTS = 16;
+
+Fv4Plan load_fv4_plan(const int* t) {
+  return Fv4Plan{t[0], t[1],  t[2],  t[3],  t[4],  t[5],  t[6],  t[7],
+                 t[8], t[9],  t[10], t[11], t[12], t[13], t[14], t[15]};
+}
+
+// the boxes of a tile (the faces' by the cells below them)
+struct Fv4Boxes {
+  Box q, a, x, s;   // halos hq, ha, hx, hs
+  Box ix, iy;       // the face states: x faces i in [i0, i0 + tx], j in
+                    // [j0 - 1, j0 + ty]; y faces the transpose
+  Box fx, fy;       // the fluxes the tile's divergence reads
+};
+
+__device__ __forceinline__ Fv4Boxes fv4_boxes(int i0, int j0,
+                                              const Fv4Plan& t) {
+  auto around = [&](int h) {
+    return Box{i0 - h, j0 - h, t.tx + 2 * h, t.ty + 2 * h};
+  };
+  return Fv4Boxes{around(t.hq),
+                  around(t.ha),
+                  around(t.hx),
+                  around(t.hs),
+                  Box{i0, j0 - 1, t.tx + 1, t.ty + 2},
+                  Box{i0 - 1, j0, t.tx + 2, t.ty + 1},
+                  Box{i0, j0, t.tx + 1, t.ty},
+                  Box{i0, j0, t.tx, t.ty + 1}};
+}
+
+// stage 4 along D: the limited 4th-order states of every cell of box s in
+// the buf=1 window, blended toward q_avg by the cell's flattening
+// coefficient (ST: NV planes of the right state at the cell's lower face,
+// then NV of the left state at its upper face); then CGF on the primitive
+// states of each face normal to D that the transverse Laplacians of stage 5
+// read (x faces i in [ilo, ihi+1], j in [jlo-1, jhi+1]; y faces the
+// transpose) into QI over box ix (iy)
+template <typename T, int NV, int D>
+__device__ __forceinline__ void fv4_faces(const FixedParams<NV>& p,
+                                          const Fv4Boxes& b, const T* Q,
+                                          const T* XI, const T* QA, T* ST,
+                                          T* QI) {
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int cs = b.s.cells();
+  for (int k = tid; k < cs; k += nt) {
+    const int i = b.s.i0 + k / b.s.w, j = b.s.j0 + k % b.s.w;
+    if (!inwin(p, i, j, 1, 1, 1, 1)) continue;
+    const T xi = flat_xi_of<T>(p, plane<T>(Q, b.q, IP), plane<T>(XI, b.x, 0),
+                               plane<T>(XI, b.x, 1), i, j);
+#pragma unroll
+    for (int n = 0; n < NV; ++n) {
+      const BoxPlane<T> A = plane<T>(QA, b.a, n);
+      T ar, al;
+      fo_pair<T, D>(p, A, i, j, ar, al);
+      const T a0 = A(i, j);
+      ST[n * cs + k] = xi * ar + (T(1) - xi) * a0;
+      ST[(NV + n) * cs + k] = xi * al + (T(1) - xi) * a0;
+    }
+  }
+  __syncthreads();
+  const Box& bi = D == 1 ? b.ix : b.iy;
+  const int ci = bi.cells();
+  for (int k = tid; k < ci; k += nt) {
+    const int i = bi.i0 + k / bi.w, j = bi.j0 + k % bi.w;
+    const bool face =
+        D == 1 ? (i >= ilo(p) && i <= ihi(p) + 1 && j >= jlo(p) - 1 &&
+                  j <= jhi(p) + 1)
+               : (j >= jlo(p) && j <= jhi(p) + 1 && i >= ilo(p) - 1 &&
+                  i <= ihi(p) + 1);
+    if (!face) continue;
+    const int c = b.s.at(i, j), cl = D == 1 ? c - b.s.w : c - 1;
+    T ql[NV], qr[NV], qi[NV];
+#pragma unroll
+    for (int n = 0; n < NV; ++n) {
+      ql[n] = ST[(NV + n) * cs + cl];
+      qr[n] = ST[n * cs + c];
+    }
+    cgf_prim(p, D, ql, qr, qi);
+#pragma unroll
+    for (int n = 0; n < NV; ++n) QI[n * ci + k] = qi[n];
+  }
+  __syncthreads();
+}
+
+// stage 5 along D: per face that the divergence reads (x faces i in [ilo,
 // ihi+1], j in [jlo, jhi]; y faces the transpose): face average -> face
 // centre, F = F(q_fc) + lap_perp F(q_avg) / 24, plus the MC Eq. 35-36
-// artificial viscosity
-template <typename T>
-__global__ void k_fv4_flux(const T* __restrict__ U, const T* __restrict__ Q,
-                           const T* __restrict__ QIX,
-                           const T* __restrict__ QIY, T* __restrict__ FX,
-                           T* __restrict__ FY, Params p) {
-  CELL_INDEX
-  const size_t plane = (size_t)p.qx * p.qy;
-  T qm[MAXVAR], q0[MAXVAR], qp[MAXVAR], qfc[MAXVAR];
-  T fm[MAXVAR], f0[MAXVAR], fp[MAXVAR], F[MAXVAR];
+// artificial viscosity, into FO over box fx (fy)
+template <typename T, int NV, int D>
+__device__ __forceinline__ void fv4_flux(const FixedParams<NV>& p,
+                                         const Fv4Boxes& b,
+                                         const T* __restrict__ U, const T* Q,
+                                         const T* QI, T* FO) {
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const Box& bi = D == 1 ? b.ix : b.iy;
+  const Box& bf = D == 1 ? b.fx : b.fy;
+  const int ci = bi.cells();
   const T c24 = T(1.0 / 24.0);
-  for (int d = 1; d <= 2; ++d) {
+  // the transverse neighbours
+  constexpr int ti = D == 1 ? 0 : 1, tj = D == 1 ? 1 : 0;
+  const BoxPlane<T> u = plane<T>(Q, b.q, IU), v = plane<T>(Q, b.q, IV);
+  for (int k = tid; k < bf.cells(); k += nt) {
+    const int i = bf.i0 + k / bf.w, j = bf.j0 + k % bf.w;
     const bool face =
-        d == 1 ? (i >= ilo(p) && i <= ihi(p) + 1 && j >= jlo(p) &&
+        D == 1 ? (i >= ilo(p) && i <= ihi(p) + 1 && j >= jlo(p) &&
                   j <= jhi(p))
                : (j >= jlo(p) && j <= jhi(p) + 1 && i >= ilo(p) &&
                   i <= ihi(p));
     if (!face) continue;
-    const T* QI = d == 1 ? QIX : QIY;
-    // the transverse neighbours
-    const int ti = d == 1 ? 0 : 1, tj = d == 1 ? 1 : 0;
-    for (int n = 0; n < p.nvar; ++n) {
-      qm[n] = QI[at(p, n, i - ti, j - tj)];
-      q0[n] = QI[at(p, n, i, j)];
-      qp[n] = QI[at(p, n, i + ti, j + tj)];
+    const int c0 = bi.at(i, j);
+    const int cm = bi.at(i - ti, j - tj), cp = bi.at(i + ti, j + tj);
+    T qm[NV], q0[NV], qp[NV], qfc[NV];
+    T fm[NV], f0[NV], fp[NV], F[NV];
+#pragma unroll
+    for (int n = 0; n < NV; ++n) {
+      qm[n] = QI[n * ci + cm];
+      q0[n] = QI[n * ci + c0];
+      qp[n] = QI[n * ci + cp];
       qfc[n] = q0[n] - c24 * (qp[n] - 2 * q0[n] + qm[n]);
     }
-    flux_cons(p, d, qfc, F);
-    flux_cons(p, d, qm, fm);
-    flux_cons(p, d, q0, f0);
-    flux_cons(p, d, qp, fp);
+    flux_cons(p, D, qfc, F);
+    flux_cons(p, D, qm, fm);
+    flux_cons(p, D, q0, f0);
+    flux_cons(p, D, qp, fp);
 
     // the artificial viscosity from the average primitives q_bar
-    const T* u = Q + (size_t)IU * plane;
-    const T* v = Q + (size_t)IV * plane;
-    auto at2 = [&](const T* a, int a_i, int a_j) {
-      return a[(size_t)a_i * p.qy + a_j];
-    };
     T lam;
-    if (d == 1)
-      lam = (at2(u, i, j) - at2(u, i - 1, j)) / T(p.dx) +
+    if (D == 1)
+      lam = (u(i, j) - u(i - 1, j)) / T(p.dx) +
             T(0.25) *
-                (at2(v, i, j + 1) - at2(v, i, j - 1) + at2(v, i - 1, j + 1) -
-                 at2(v, i - 1, j - 1)) /
+                (v(i, j + 1) - v(i, j - 1) + v(i - 1, j + 1) -
+                 v(i - 1, j - 1)) /
                 T(p.dy);
     else
-      lam = (at2(v, i, j) - at2(v, i, j - 1)) / T(p.dy) +
+      lam = (v(i, j) - v(i, j - 1)) / T(p.dy) +
             T(0.25) *
-                (at2(u, i + 1, j) - at2(u, i - 1, j) + at2(u, i + 1, j - 1) -
-                 at2(u, i - 1, j - 1)) /
+                (u(i + 1, j) - u(i - 1, j) + u(i + 1, j - 1) -
+                 u(i - 1, j - 1)) /
                 T(p.dx);
     const T dxl = T(p.dx) * lam;
-    const T test = dxl * dxl / (T(p.beta_gamma) * Q[at(p, IP, i, j)] /
-                                Q[at(p, IRHO, i, j)]);
+    const T test = dxl * dxl / (T(p.beta_gamma) * Q[IP * b.q.cells() +
+                                                    b.q.at(i, j)] /
+                                Q[IRHO * b.q.cells() + b.q.at(i, j)]);
     T nu = T(p.dx) * lam * fmin(test, T(1));
     nu = lam >= T(0) ? T(0) : nu;
     const T anu = T(p.alpha) * nu;
 
-    T* FO = d == 1 ? FX : FY;
-    for (int n = 0; n < p.nvar; ++n) {
-      const T du = d == 1 ? ldU(U, p, n, i, j) - ldU(U, p, n, i - 1, j)
+#pragma unroll
+    for (int n = 0; n < NV; ++n) {
+      const T du = D == 1 ? ldU(U, p, n, i, j) - ldU(U, p, n, i - 1, j)
                           : ldU(U, p, n, i, j) - ldU(U, p, n, i, j - 1);
-      FO[at(p, n, i, j)] =
+      FO[n * bf.cells() + k] =
           F[n] + c24 * (fp[n] - 2 * f0[n] + fm[n]) + anu * du;
     }
   }
 }
 
-// fv4 stage 6: k = divergence + sources brought back to averages
-// (S + (-dx^2) lap(S) / 24, S the centred gravity sources) (+ sponge) on
-// the interior, exactly zero on the ghosts
-template <typename T>
-__global__ void k_fv4_update(const T* __restrict__ U, const T* __restrict__ SC,
-                             const T* __restrict__ FX,
-                             const T* __restrict__ FY, T* __restrict__ K,
-                             Params p) {
-  CELL_INDEX
-  T k[MAXVAR];
-  if (!inwin(p, i, j, 0, 0, 0, 0)) {
-    for (int n = 0; n < p.nvar; ++n) K[at(p, n, i, j)] = T(0);
-    return;
+// One fv4 stage increment of the tile (blockIdx.y, blockIdx.x): the
+// pipeline of the first design's six staged kernels, run out of shared
+// memory and registers, each stage over the box the next one reads, with
+// every window decided by the global index as before.  Nothing but k goes
+// to device memory.
+template <typename T, int NV>
+__global__ void __launch_bounds__(Fv4Launch<T>::threads)
+    k_fv4(const T* __restrict__ U, T* __restrict__ K,
+          const FixedParams<NV> p, const Fv4Plan t) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* sm = reinterpret_cast<T*>(smem_raw);
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int i0 = p.ng + blockIdx.y * t.tx, j0 = p.ng + blockIdx.x * t.ty;
+  const Fv4Boxes b = fv4_boxes(i0, j0, t);
+  const int cq = b.q.cells(), ca = b.a.cells(), cs = b.s.cells();
+  T* Q = sm + t.q;      // NV planes over box q: the averages' primitives
+  T* XI = sm + t.xi;    // xi_x, xi_y over box x
+  T* SC = sm + t.sc;    // the centred sources of ymom, ener over box s
+  T* QIX = sm + t.qix;  // NV planes over box ix: the x faces' states
+  T* QIY = sm + t.qiy;  // NV planes over box iy
+  T* QA = sm + t.r;     // NV planes over box a: the centres' primitives,
+                        // then the 4th-order averages
+  T* ST = QA + NV * ca; // 2 NV planes over box s: the limited states;
+  T* UB = ST;           // before them, NV planes over box q: the floored
+                        // state
+  T* FX = sm + t.r;     // after stage 4, over QA and ST: NV planes over
+  T* FY = FX + NV * b.fx.cells();   // box fx, then NV over box fy
+  auto inframe = [&](int i, int j) {
+    return i >= 0 && i < p.qx && j >= 0 && j < p.qy;
+  };
+
+  // 1. the floored state over box q (UB, where the limited states go
+  // later); then the averages' primitives Q over box q; over box a the
+  // cell-centre state (the buf=ng-1 window converted, the outer ring
+  // copied) with the fallback to the averages where it is unphysical, as
+  // primitives; over box s the centred gravity sources of the centre
+  // state before the fallback
+  for (int k = tid; k < cq; k += nt) {
+    const int i = b.q.i0 + k / b.q.w, j = b.q.j0 + k % b.q.w;
+    if (!inframe(i, j)) continue;
+#pragma unroll
+    for (int n = 0; n < NV; ++n) UB[n * cq + k] = ldU(U, p, n, i, j);
   }
-  divergence(p, FX, FY, i, j, k);
-  for (int r = 0; r < 2; ++r) {
-    const T* S = SC + (size_t)r * p.qx * p.qy;
-    auto v = [&](int a, int b) { return S[(size_t)a * p.qy + b]; };
-    const T s_avg = v(i, j) + T(p.mdx2) * lap5<T>(p, v, i, j) / T(24);
-    const int n = r == 0 ? p.iymom : p.iener;
-    k[n] = k[n] + s_avg;
+  __syncthreads();
+  for (int k = tid; k < cq; k += nt) {
+    const int i = b.q.i0 + k / b.q.w, j = b.q.j0 + k % b.q.w;
+    if (!inframe(i, j)) continue;
+    T ua[NV], uc[NV], q[NV];
+#pragma unroll
+    for (int n = 0; n < NV; ++n) ua[n] = UB[n * cq + k];
+    cons_to_prim(p, ua, q);
+#pragma unroll
+    for (int n = 0; n < NV; ++n) Q[n * cq + k] = q[n];
+    if (!b.a.has(i, j)) continue;
+    const bool w = inwin(p, i, j, p.ng - 1, p.ng - 1, p.ng - 1, p.ng - 1);
+#pragma unroll
+    for (int n = 0; n < NV; ++n) {
+      uc[n] = ua[n];
+      if (w)
+        uc[n] = ua[n] - T(p.dx2) * lap5<T>(p, plane<T>(UB, b.q, n), i, j) /
+                            T(24);
+    }
+    if (b.s.has(i, j)) {
+      const T grav = T(p.grav);
+      SC[b.s.at(i, j)] = uc[p.idens] * grav;
+      SC[cs + b.s.at(i, j)] = uc[p.iymom] * grav;
+    }
+    const T rhoe = uc[p.iener] - T(0.5) *
+                                     (uc[p.ixmom] * uc[p.ixmom] +
+                                      uc[p.iymom] * uc[p.iymom]) /
+                                     uc[p.idens];
+    if (uc[p.idens] < T(0) || rhoe < T(0)) {
+#pragma unroll
+      for (int n = 0; n < NV; ++n) uc[n] = ua[n];
+    }
+    cons_to_prim(p, uc, q);
+#pragma unroll
+    for (int n = 0; n < NV; ++n) QA[n * ca + b.a.at(i, j)] = q[n];
   }
-  if (p.do_sponge) add_sponge(p, U, i, j, k);
-  for (int n = 0; n < p.nvar; ++n) K[at(p, n, i, j)] = k[n];
+  __syncthreads();
+
+  // 2. the 1-D flattening coefficients over box x (1 outside buf=2); 3.
+  // the 4th-order averages q_avg = q_cc + dx^2/24 lap(q_bar) over box a on
+  // the buf=3 window, with the rho / p positivity fallback to q_cc, zero
+  // outside it (in place of the centres)
+  if (p.flatten) {
+    const BoxPlane<T> P = plane<T>(Q, b.q, IP);
+    for (int k = tid; k < b.x.cells(); k += nt) {
+      const int i = b.x.i0 + k / b.x.w, j = b.x.j0 + k % b.x.w;
+      if (!inframe(i, j)) continue;
+      XI[k] = flat1d_of<T>(p, P, plane<T>(Q, b.q, IU), i, j, 1, 0);
+      XI[b.x.cells() + k] =
+          flat1d_of<T>(p, P, plane<T>(Q, b.q, IV), i, j, 0, 1);
+    }
+  }
+  for (int k = tid; k < ca; k += nt) {
+    const int i = b.a.i0 + k / b.a.w, j = b.a.j0 + k % b.a.w;
+    if (!inframe(i, j)) continue;
+    const bool w = inwin(p, i, j, 3, 3, 3, 3);
+#pragma unroll
+    for (int n = 0; n < NV; ++n) {
+      T qa = T(0);
+      if (w) {
+        const T qc = QA[n * ca + k];
+        qa = qc + T(p.dx2_24) * lap5<T>(p, plane<T>(Q, b.q, n), i, j);
+        if (n == IRHO || n == IP) qa = qa > T(0) ? qa : qc;
+      }
+      QA[n * ca + k] = qa;
+    }
+  }
+  __syncthreads();
+
+  // 4. the limited face states and CGF, x faces then y faces
+  fv4_faces<T, NV, 1>(p, b, Q, XI, QA, ST, QIX);
+  fv4_faces<T, NV, 2>(p, b, Q, XI, QA, ST, QIY);
+
+  // 5. the fluxes of the tile's faces (over QA and ST, which are done)
+  fv4_flux<T, NV, 1>(p, b, U, Q, QIX, FX);
+  fv4_flux<T, NV, 2>(p, b, U, Q, QIY, FY);
+  __syncthreads();
+
+  // 6. k = divergence + sources brought back to averages (S + (-dx^2)
+  // lap(S) / 24) (+ sponge) on the tile's interior cells, and exactly zero
+  // on the ghosts, which the tiles at the frame's edges write: this block
+  // owns rows [r0, r1) x columns [c0, c1) of the frame
+  const int r0 = blockIdx.y == 0 ? 0 : i0;
+  const int r1 = blockIdx.y == gridDim.y - 1 ? p.qx : i0 + t.tx;
+  const int c0 = blockIdx.x == 0 ? 0 : j0;
+  const int c1 = blockIdx.x == gridDim.x - 1 ? p.qy : j0 + t.ty;
+  const int ow = c1 - c0;
+  const int cfx = b.fx.cells(), cfy = b.fy.cells();
+  for (int k = tid; k < (r1 - r0) * ow; k += nt) {
+    const int i = r0 + k / ow, j = c0 + k % ow;
+    if (!inwin(p, i, j, 0, 0, 0, 0)) {
+#pragma unroll
+      for (int n = 0; n < NV; ++n) K[at(p, n, i, j)] = T(0);
+      continue;
+    }
+    T kk[NV];
+    const int x0 = b.fx.at(i, j), x1 = b.fx.at(i + 1, j);
+    const int y0 = b.fy.at(i, j), y1 = b.fy.at(i, j + 1);
+#pragma unroll
+    for (int n = 0; n < NV; ++n)
+      kk[n] = (FX[n * cfx + x0] - FX[n * cfx + x1]) / T(p.dx) +
+              (FY[n * cfy + y0] - FY[n * cfy + y1]) / T(p.dy);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const BoxPlane<T> S = plane<T>(SC, b.s, r);
+      const T s_avg = S(i, j) + T(p.mdx2) * lap5<T>(p, S, i, j) / T(24);
+      const int n = r == 0 ? p.iymom : p.iener;
+      kk[n] = kk[n] + s_avg;
+    }
+    if (p.do_sponge) add_sponge(p, U, i, j, kk);
+#pragma unroll
+    for (int n = 0; n < NV; ++n) K[at(p, n, i, j)] = kk[n];
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -578,49 +736,93 @@ int run_rk(const T* U, T* K, T* scratch, const int* ip, const double* dp,
   return 0;
 }
 
+// the plan (mol_kernel.plan) against the kernel: its block, the halos the
+// stages read (mol_kernel.HALO), a grid whose tiles cover the interior
+// once, and arrays that lie one after another inside its shared memory
 template <typename T>
-int run_fv4(const T* U, T* K, T* scratch, const int* ip, const double* dp,
-            cudaStream_t st) {
+bool fv4_plan_ok(const Params& p, const Fv4Plan& t) {
+  if (t.threads < 32 || t.threads > Fv4Launch<T>::threads ||
+      t.threads % 32 || t.tx < 1 || t.ty < 1)
+    return false;
+  if (t.hs < 1 || t.hx < t.hs + 1 || t.ha < t.hs + 3 || t.hq < t.ha + 1 ||
+      t.hq < t.hx + 2)
+    return false;
+  if (t.bx < 1 || t.by < 1 || (t.bx - 1) * t.ty >= p.ny ||
+      t.bx * t.ty < p.ny || (t.by - 1) * t.tx >= p.nx || t.by * t.tx < p.nx)
+    return false;
+  auto box = [&](int h) { return (long)(t.tx + 2 * h) * (t.ty + 2 * h); };
+  const long nv = p.nvar;
+  const long after = 2 * nv * box(t.hs) > nv * box(t.hq)
+                         ? 2 * nv * box(t.hs)
+                         : nv * box(t.hq);
+  const long states = nv * box(t.ha) + after;
+  const long fluxes = nv * ((long)(t.tx + 1) * t.ty + (long)t.tx * (t.ty + 1));
+  const struct {
+    int off;
+    long size;
+  } arrays[] = {{t.q, nv * box(t.hq)},
+                {t.xi, p.flatten ? 2 * box(t.hx) : 0},
+                {t.sc, 2 * box(t.hs)},
+                {t.qix, nv * (t.tx + 1) * (long)(t.ty + 2)},
+                {t.qiy, nv * (t.tx + 2) * (long)(t.ty + 1)},
+                {t.r, states > fluxes ? states : fluxes}};
+  long end = 0;
+  for (const auto& a : arrays) {
+    if (a.size == 0) continue;
+    if (a.off < end) return false;
+    end = a.off + a.size;
+  }
+  return end * (long)sizeof(T) <= (long)t.smem;
+}
+
+// one launch of the NV-variable kernel with the plan's tile and shared
+// memory (the opt-in above 48 KB is set once per kernel and size)
+template <typename T, int NV>
+int launch_fv4(const T* U, T* K, const Params& base, const Fv4Plan& t,
+               cudaStream_t st) {
+  static int opted = 0;
+  auto kernel = k_fv4<T, NV>;
+  if (t.smem > opted) {
+    cudaError_t e = cudaFuncSetAttribute(
+        (const void*)kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        t.smem);
+    if (e != cudaSuccess) return (int)e;
+    opted = t.smem;
+  }
+  FixedParams<NV> p;
+  static_cast<Params&>(p) = base;
+  kernel<<<dim3(t.bx, t.by), t.threads, t.smem, st>>>(U, K, p, t);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int run_fv4(const T* U, T* K, const int* ip, const double* dp,
+            const int* tp, cudaStream_t st) {
+  static_assert(MAXVAR == 8, "run_fv4 instantiates 4..8 variables");
   const Params p = load_params(ip, dp, true);
   if (int e = check_params(p)) return e;
-  const size_t plane = (size_t)p.qx * p.qy;
-  const size_t stack = (size_t)p.nvar * plane;
-  T* Q = scratch;
-  T* QC = Q + stack;
-  T* QA = QC + stack;
-  T* QIX = QA + stack;
-  T* QIY = QIX + stack;
-  T* FX = QIY + stack;
-  T* FY = FX + stack;
-  T* XI = FY + stack;
-  T* SC = XI + 2 * plane;
-
-  const dim3 blk(64, 4);
-  const dim3 grd((p.qy + blk.x - 1) / blk.x, (p.qx + blk.y - 1) / blk.y);
-  k_fv4_prim<T><<<grd, blk, 0, st>>>(U, Q, QC, SC, p);
-  LAUNCH_CHECK;
-  if (p.flatten) {
-    k_flatten<T><<<grd, blk, 0, st>>>(Q, XI, p);
-    LAUNCH_CHECK;
+  if (p.idens != 0 || p.iener != 1 || p.ixmom != 2 || p.iymom != 3)
+    return (int)cudaErrorInvalidValue;
+  const Fv4Plan t = load_fv4_plan(tp);
+  if (!fv4_plan_ok<T>(p, t)) return (int)cudaErrorInvalidValue;
+  switch (p.nvar) {
+    case 4: return launch_fv4<T, 4>(U, K, p, t, st);
+    case 5: return launch_fv4<T, 5>(U, K, p, t, st);
+    case 6: return launch_fv4<T, 6>(U, K, p, t, st);
+    case 7: return launch_fv4<T, 7>(U, K, p, t, st);
+    case 8: return launch_fv4<T, 8>(U, K, p, t, st);
   }
-  k_fv4_qavg<T><<<grd, blk, 0, st>>>(Q, QC, QA, p);
-  LAUNCH_CHECK;
-  k_fv4_faces<T><<<grd, blk, 0, st>>>(QA, Q, XI, QIX, QIY, p);
-  LAUNCH_CHECK;
-  k_fv4_flux<T><<<grd, blk, 0, st>>>(U, Q, QIX, QIY, FX, FY, p);
-  LAUNCH_CHECK;
-  k_fv4_update<T><<<grd, blk, 0, st>>>(U, SC, FX, FY, K, p);
-  LAUNCH_CHECK;
-  return 0;
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// scratch planes of (qx, qy) in the state's dtype: kind 0 (rk) 7 nvar + 2,
-// kind 1 (fv4) 7 nvar + 4
-extern "C" int mol_scratch_planes(int kind, int nvar) {
-  return kind == 0 ? 7 * nvar + 2 : 7 * nvar + 4;
-}
+// the rk stage's scratch: planes of (qx, qy) in the state's dtype (the fv4
+// stage has none)
+extern "C" int mol_scratch_planes(int nvar) { return 7 * nvar + 2; }
+
+// the length of the plan array the fv4 entries take (mol_kernel.plan)
+extern "C" int mol_fv4_plan_ints() { return FV4_PLAN_INTS; }
 
 extern "C" int mol_rk_substep_f32(const float* U, float* K, float* scratch,
                                   const int* ip, const double* dp,
@@ -634,14 +836,14 @@ extern "C" int mol_rk_substep_f64(const double* U, double* K,
   return run_rk<double>(U, K, scratch, ip, dp, (cudaStream_t)stream);
 }
 
-extern "C" int mol_fv4_substep_f32(const float* U, float* K, float* scratch,
-                                   const int* ip, const double* dp,
+extern "C" int mol_fv4_substep_f32(const float* U, float* K, const int* ip,
+                                   const double* dp, const int* plan,
                                    void* stream) {
-  return run_fv4<float>(U, K, scratch, ip, dp, (cudaStream_t)stream);
+  return run_fv4<float>(U, K, ip, dp, plan, (cudaStream_t)stream);
 }
 
 extern "C" int mol_fv4_substep_f64(const double* U, double* K,
-                                   double* scratch, const int* ip,
-                                   const double* dp, void* stream) {
-  return run_fv4<double>(U, K, scratch, ip, dp, (cudaStream_t)stream);
+                                   const int* ip, const double* dp,
+                                   const int* plan, void* stream) {
+  return run_fv4<double>(U, K, ip, dp, plan, (cudaStream_t)stream);
 }

@@ -11,8 +11,11 @@ as `downs -> core -> ups`, the assembly of the JAX package's
     as `core_plan` lays them out; each level on the warps `core_schedule`
     gives it), and writes the residual when no level is peeled;
   * each finer, peeled level adds one `down` (pre-smooth, residual,
-    restrict) and one `up` (prolong and correct, post-smooth, and the
-    residual on the finest level), each one cooperative launch.
+    restrict; one cooperative launch) and one `up` (prolong and correct,
+    post-smooth, and the residual on the finest level), which runs its
+    sweeps on tiles with deep halos in shared memory, as `up_plan` lays
+    them out: one ordinary launch at the solvers' nsmooth, several rounds
+    where a halo for all of them would not fit.
 
 One cycle launches 1 core and 1 down plus 1 up per peeled level, as the
 TPU's did.  Which levels the core holds is a property of the card's shared
@@ -37,6 +40,8 @@ item.
 """
 
 import ctypes
+import functools
+import math
 
 import torch
 
@@ -47,7 +52,8 @@ from pyro2_tpu_torch.util import cuda_build
 __all__ = ["CORE_MAX", "FLAVOURS", "Ineligible", "build", "check", "core",
            "core_cells", "core_cluster", "core_offsets", "core_plain",
            "core_plan", "core_schedule", "cycle", "down", "down_plain",
-           "flavour", "launches", "split", "up", "up_plain", "work"]
+           "flavour", "launches", "split", "up", "up_plain", "up_plan",
+           "UpPlan", "work"]
 
 SOURCE = cuda_build.CSRC / "mg_vcycle.cu"
 
@@ -108,13 +114,14 @@ def _load():
             # (coefficient entries) the planes, stream
             for t in ("f32", "f64"):
                 for kind, nptr, nint in (("core", 4, 3), ("down", 4, 2),
-                                         ("up", 5, 2)):
+                                         ("up", 6, 2)):
                     tail = [ints, doubles, doubles] + \
-                        ([ints] if kind == "core" else []) + \
+                        ([ints] if kind in ("core", "up") else []) + \
                         ([ptr] if ncoef else []) + [ptr]
                     fn = getattr(lib, f"mg_{kind}{sfx}_{t}")
                     fn.argtypes = [ptr] * nptr + [i32] * nint + tail
                     fn.restype = i32
+        lib.mg_up_plan_ints.restype = i32
         _lib = lib
     return _lib
 
@@ -222,6 +229,73 @@ def core_plan(top):
     (core_schedule), the cluster (core_cluster) and the shared-memory
     layout (core_offsets)."""
     return core_schedule(top) + list(core_cluster(top)) + core_offsets(top)
+
+
+# ---------------------------------------------------------------------------
+# the plan of mg_up's tiles
+# ---------------------------------------------------------------------------
+
+# mg_up's block: rows of 32 threads (mg_vcycle.cu UP_X), at most UP_MAX
+UP_THREADS = 512
+# the owned tile's side: the largest power of 2 up to UP_TILE_MAX that still
+# gives UP_BLOCKS tiles or more and whose box holds a halo for all nsmooth
+# iterations, and not below UP_TILE_MIN (nor above the level): a larger
+# tile recomputes less of its halo, more tiles fill more SMs
+UP_TILE_MAX, UP_TILE_MIN, UP_BLOCKS = 64, 16, 128
+# the most bytes a tile's boxes (v and f) may take, so that two blocks
+# share an SM
+UP_SMEM = 110 * 1024
+
+
+class UpPlan:
+    """The tiling of one mg_up call on an n^2 level: the owned tile's side,
+    the halo (one cell per half-sweep of a round, and one for the
+    residual), the rounds of sweeps (separate launches, each on the last
+    one's output) and the iterations of a full round, the block's
+    threads, its shared memory (bytes: the boxes of v and f, each the tile
+    and its halo) and the tiles along a side.  `ints()` is the array the
+    kernel takes."""
+
+    FIELDS = ("tile", "halo", "rounds", "iters", "threads", "smem", "tiles")
+
+    def __init__(self, n, nsmooth, dtype):
+        item = torch.empty((), dtype=dtype).element_size()
+        side = math.isqrt(UP_SMEM // (2 * item))  # the widest box that fits
+
+        def most(tile):                 # iterations a round's box holds
+            return (side - tile - 2) // 4         # tile + 2 (2 iters + 1)
+
+        tile = min(n, UP_TILE_MAX)
+        while tile > UP_TILE_MIN and ((n // tile) ** 2 < UP_BLOCKS or
+                                      most(tile) < nsmooth):
+            tile //= 2
+        if nsmooth == 0:
+            rounds, iters = 1, 0
+        else:
+            rounds = -(-nsmooth // min(most(tile), nsmooth))
+            iters = -(-nsmooth // rounds)         # the rounds balanced
+        self.nsmooth = nsmooth
+        self.tile, self.iters, self.rounds = tile, iters, rounds
+        self.halo = 2 * iters + 1
+        self.threads = UP_THREADS
+        self.tiles = n // tile
+        self.smem = 2 * (tile + 2 * self.halo) ** 2 * item
+
+    def round_iters(self):
+        """The iterations of each round: a full round's, the last the
+        rest."""
+        return [min(self.iters, self.nsmooth - k * self.iters)
+                for k in range(self.rounds)]
+
+    def ints(self):
+        return [getattr(self, f) for f in self.FIELDS]
+
+
+@functools.lru_cache(maxsize=128)
+def up_plan(n, nsmooth, dtype):
+    """The plan of one mg_up call (see UpPlan), made once for each set of
+    arguments."""
+    return UpPlan(n, nsmooth, dtype)
 
 
 def _coef(mg, level):
@@ -370,11 +444,19 @@ def launch_up(mg, level, v, f, vc, want_r):
     """The CUDA up kernel: (v, r or None)."""
     _check_tensors(mg, level, v, f)
     _check_tensors(mg, level - 1, vc)
+    if _load().mg_up_plan_ints() != len(UpPlan.FIELDS):
+        raise RuntimeError("mg_vcycle.cu takes another mg_up plan layout")
+    n = mg.grids[level].nx
+    plan = up_plan(n, mg.nsmooth, f.dtype)
     vo = torch.empty_like(f)
     r = torch.empty_like(f) if want_r else None
-    fn, key, args = _entry(mg, "up", [mg.grids[level].nx, mg.nsmooth],
-                           f.dtype, levels=[level])
-    _run(fn, f.device, _ptr(v), _ptr(f), _ptr(vc), _ptr(vo), _ptr(r), *args)
+    scratch = torch.empty_like(f) if plan.rounds > 1 else None
+    fn, key, args = _entry(mg, "up", [n, mg.nsmooth], f.dtype,
+                           levels=[level])
+    ints = plan.ints()
+    args.insert(5, (ctypes.c_int * len(ints))(*ints))
+    _run(fn, f.device, _ptr(v), _ptr(f), _ptr(vc), _ptr(vo), _ptr(r),
+         _ptr(scratch), *args)
     launches[key] += 1
     return vo, r
 

@@ -10,6 +10,12 @@ compressible_fv4, which compressible_sdc inherits.  They are built with
 nvcc into a shared library under pyro2_tpu_torch/_build/ at first use
 (pyro2_tpu_torch.util.cuda_build) and bound with ctypes.
 
+Kind "rk" is five staged launches through scratch planes; kind "fv4" is
+one launch a stage, each block computing one output tile out of shared
+memory, and `plan` -- the tile, the halos each stage reads and the block's
+shared-memory layout -- is worked out here and handed to the kernel, so the
+CPU tests check it.
+
 `MOLSubstep(sim, kind)(U, t, dt)` is the stage increment k the Simulation
 evolves with.  U is the ghost-filled (nvar, qx, qy) stack; k has its shape
 and is exactly zero on every ghost cell.
@@ -22,10 +28,13 @@ and is exactly zero on every ghost cell.
 
 Unlike the TPU kernel, the CUDA entries cover solid walls and a positive
 density floor, gated on the global interior.  Spherical grids, problem
-sources and the well-balanced reconstruction raise NotImplementedError.
+sources and the well-balanced reconstruction raise NotImplementedError, as
+does an fv4 frame whose conserved variables are not in the solvers' order
+(`covered`).
 """
 
 import ctypes
+import functools
 
 import torch
 
@@ -36,8 +45,9 @@ from pyro2_tpu_torch.solvers.compressible_fv4.fluxes import ALPHA, BETA
 from pyro2_tpu_torch.solvers.compressible_rk.simulation import MOL_ITEM
 from pyro2_tpu_torch.util import cuda_build
 
-__all__ = ["MOLSubstep", "build", "launches", "work", "increment_scale",
-           "KINDS", "FLOPS_PER_ZONE_BY_STAGE"]
+__all__ = ["MOLSubstep", "Plan", "build", "covered", "launches", "plan",
+           "work", "increment_scale", "KINDS", "FLOPS_PER_ZONE_BY_STAGE",
+           "HALO", "TILE"]
 
 SOURCE = cuda_build.CSRC / "mol_substep.cu"
 
@@ -64,8 +74,9 @@ FLOPS_PER_ZONE_BY_STAGE = {
                            # cons -> prim, the centred sources
         "flatten": 22,
         "qavg": 44,        # q_avg = q_cc + dx^2/24 lap(q_bar), 11 / var
-        "faces": 1136,     # per face (x, y) and var two limited 4th-order
-                           # states (55 each) and the blend (8); one CGF
+        "faces": 760,      # per cell, direction and var one evaluation
+                           # of the 4th-order limiter giving both its
+                           # states (63) and their blends (8); one CGF
                            # solve on primitives (96) per face
         "flux": 256,       # per face: face centres (20), four flux_cons
                            # (15 each), the transverse Laplacian (20),
@@ -75,6 +86,98 @@ FLOPS_PER_ZONE_BY_STAGE = {
 }
 
 launches = {"mol_rk": 0, "mol_fv4": 0}   # read by chip_smoke.py
+
+# ---------------------------------------------------------------------------
+# the fv4 kernel's launch plan
+# ---------------------------------------------------------------------------
+
+# the output tile of a block, (rows along x, columns along y), and its
+# threads, by dtype: a float32 block of 512 threads whose 4-variable boxes
+# (114,080 B) let two blocks share an SM, 32 warps at the kernel's 64
+# registers (the fastest of the tiles and blocks timed on the H100,
+# PERF.md), and a float64 block of 256 whose 8-variable boxes fit one
+# block's shared memory
+TILE = {torch.float32: (24, 32), torch.float64: (16, 16)}
+THREADS = {torch.float32: 512, torch.float64: 256}
+
+# how far beyond the output tile each box of a block reaches (mol_substep.cu
+# k_fv4's stages): the cells whose limited face states stage 4 computes and
+# the centred sources the averaged sources read ("states"); the flattening
+# coefficients a cell's blend reads ("flatten"); the 4th-order averages,
+# which the limiter reads 3 cells along its direction ("avg"); and the
+# averages' primitives, which the Laplacian of q_avg reads ("prim").  Near
+# the frame's edges the boxes reach past it, where the windows make every
+# value the kernel reads come from inside it.
+HALO = {"states": 1, "flatten": 2, "avg": 4, "prim": 5}
+
+
+class Plan:
+    """One fv4 launch's tiling: the tile (tx rows, ty columns), the block's
+    threads, the grid of tiles (blocks along y, along x), and the block's
+    shared memory: `offsets` of each array in elements of the dtype (-1
+    when the configuration has none), `smem` in bytes.  Array r holds the
+    centres and the 4th-order averages, beside them the floored state and
+    then the limited states, and after stage 4 the fluxes.  `ints()` is the array the kernel takes."""
+
+    ARRAYS = ("q", "xi", "sc", "qix", "qiy", "r")
+
+    def __init__(self, nx, ny, nvar, dtype, *, flatten=True):
+        self.nx, self.ny, self.nvar = nx, ny, nvar
+        self.tx, self.ty = TILE[dtype]
+        self.threads = THREADS[dtype]
+        self.halo = dict(HALO)
+        self.grid = (-(-ny // self.ty), -(-nx // self.tx))
+        item = torch.empty((), dtype=dtype).element_size()
+        tx, ty = self.tx, self.ty
+        # the centres / averages, then the limited states or, before them,
+        # the floored state
+        states = nvar * self.box("avg") + max(2 * nvar * self.box("states"),
+                                              nvar * self.box("prim"))
+        fluxes = nvar * ((tx + 1) * ty + tx * (ty + 1))
+        sizes = {
+            "q": nvar * self.box("prim"),
+            "xi": 2 * self.box("flatten") if flatten else 0,
+            "sc": 2 * self.box("states"),
+            "qix": nvar * (tx + 1) * (ty + 2),
+            "qiy": nvar * (tx + 2) * (ty + 1),
+            "r": max(states, fluxes),
+        }
+        self.sizes = sizes
+        self.offsets, end = {}, 0
+        for name in self.ARRAYS:
+            self.offsets[name] = end if sizes[name] else -1
+            end += sizes[name]
+        self.smem = end * item
+
+    def box(self, name):
+        """Cells of a block's box: the tile and its halo."""
+        h = self.halo[name]
+        return (self.tx + 2 * h) * (self.ty + 2 * h)
+
+    def ints(self):
+        h = self.halo
+        return [self.tx, self.ty, self.threads,
+                h["prim"], h["avg"], h["flatten"], h["states"],
+                *(self.offsets[a] for a in self.ARRAYS), self.smem,
+                *self.grid]
+
+
+@functools.lru_cache(maxsize=64)
+def plan(nx, ny, nvar, dtype, **kw):
+    """The launch plan of one fv4 stage (see Plan), made once for each set
+    of arguments."""
+    return Plan(nx, ny, nvar, dtype, **kw)
+
+
+def covered(ivars):
+    """Raise NotImplementedError unless the fused fv4 kernel takes this
+    frame's variables: density, energy, x- and y-momentum at 0..3 (the
+    order the compressible solvers register them in)."""
+    order = (ivars.idens, ivars.iener, ivars.ixmom, ivars.iymom)
+    if order != (0, 1, 2, 3):
+        raise NotImplementedError(
+            "the fv4 kernel takes density, energy, x- and y-momentum at "
+            f"0..3, not {order} (ROADMAP.md A.22)")
 
 _lib = None
 
@@ -92,15 +195,24 @@ def _load():
     if _lib is None:
         so, _, _ = build()
         lib = ctypes.CDLL(str(so))
-        for kind in KINDS:
-            for dt in ("f32", "f64"):
-                fn = getattr(lib, f"mol_{kind}_substep_{dt}")
-                fn.argtypes = [ctypes.c_void_p] * 3 + [
-                    ctypes.POINTER(ctypes.c_int),
-                    ctypes.POINTER(ctypes.c_double), ctypes.c_void_p]
-                fn.restype = ctypes.c_int
-        lib.mol_scratch_planes.argtypes = [ctypes.c_int, ctypes.c_int]
+        ints = ctypes.POINTER(ctypes.c_int)
+        doubles = ctypes.POINTER(ctypes.c_double)
+        for dt in ("f32", "f64"):
+            # rk: U, k, scratch, ints, doubles, stream
+            fn = getattr(lib, f"mol_rk_substep_{dt}")
+            fn.argtypes = [ctypes.c_void_p] * 3 + [ints, doubles,
+                                                   ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+            # fv4: U, k, ints, doubles, plan, stream
+            fn = getattr(lib, f"mol_fv4_substep_{dt}")
+            fn.argtypes = [ctypes.c_void_p] * 2 + [ints, doubles, ints,
+                                                   ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+        lib.mol_scratch_planes.argtypes = [ctypes.c_int]
         lib.mol_scratch_planes.restype = ctypes.c_int
+        lib.mol_fv4_plan_ints.restype = ctypes.c_int
+        if lib.mol_fv4_plan_ints() != len(Plan.ARRAYS) + 10:
+            raise RuntimeError("mol_substep.cu takes another plan layout")
         _lib = lib
     return _lib
 
@@ -167,6 +279,8 @@ class MOLSubstep:
             raise NotImplementedError(
                 f"the MOL kernels take 4 ghost cells, not {myg.ng}")
         riemann = 2        # fv4 always solves CGF on primitive states
+        if kind == "fv4":
+            covered(ivars)
         if kind == "rk":
             from pyro2_tpu_torch.solvers.compressible_rk.fluxes import \
                 uncovered_well_balanced
@@ -256,16 +370,23 @@ class MOLSubstep:
         lib = _load()
         nvar, qx, qy = self.shape
         k = torch.empty_like(U)
-        scratch = torch.empty(
-            (lib.mol_scratch_planes(KINDS.index(self.kind), nvar), qx, qy),
-            dtype=U.dtype, device=U.device)
         suffix = "f32" if U.dtype == torch.float32 else "f64"
         fn = getattr(lib, f"mol_{self.kind}_substep_{suffix}")
+        c_ints = (ctypes.c_int * len(ints))(*ints)
+        c_doubles = (ctypes.c_double * len(doubles))(*doubles)
+        if self.kind == "rk":
+            scratch = torch.empty((lib.mol_scratch_planes(nvar), qx, qy),
+                                  dtype=U.dtype, device=U.device)
+            args = (U.data_ptr(), k.data_ptr(), scratch.data_ptr(), c_ints,
+                    c_doubles)
+        else:
+            tiles = plan(ints[1], ints[2], nvar, U.dtype,
+                         flatten=bool(ints[10])).ints()
+            args = (U.data_ptr(), k.data_ptr(), c_ints, c_doubles,
+                    (ctypes.c_int * len(tiles))(*tiles))
         with torch.cuda.device(U.device):
             stream = torch.cuda.current_stream(U.device).cuda_stream
-            err = fn(U.data_ptr(), k.data_ptr(), scratch.data_ptr(),
-                     (ctypes.c_int * len(ints))(*ints),
-                     (ctypes.c_double * len(doubles))(*doubles), stream)
+            err = fn(*args, stream)
         if err != 0:
             raise RuntimeError(
                 f"MOL {self.kind} kernel launch failed: CUDA error {err}")

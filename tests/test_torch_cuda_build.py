@@ -178,3 +178,64 @@ def test_core_entries_take_the_schedule(monkeypatch):
             assert len(fns[f"mg_down{sfx}_{t}"].argtypes) == \
                 4 + 2 + 3 + (1 if ncoef else 0) + 1
     assert "mg_core_smem" not in fns
+
+
+def test_mol_entries_match_their_bindings(monkeypatch):
+    """mol_substep.cu's fv4 entries take the launch plan and no scratch, the
+    plan's length is mol_kernel.plan's (FV4_PLAN_INTS), and the scratch-size
+    entry takes only the rk stage's variable count; the rk entries keep
+    their scratch.  The ctypes bindings give each entry its parameter
+    count."""
+    import re
+
+    import torch
+
+    from pyro2_tpu_torch.solvers.compressible_fv4 import mol_kernel
+
+    entries = _extern_params("mol_substep.cu")
+    assert entries == {"mol_scratch_planes": 1, "mol_fv4_plan_ints": 0,
+                       "mol_rk_substep_f32": 6, "mol_rk_substep_f64": 6,
+                       "mol_fv4_substep_f32": 6, "mol_fv4_substep_f64": 6}
+    text = (cuda_build.CSRC / "mol_substep.cu").read_text()
+    for t in ("f32", "f64"):
+        sig = re.search(r"mol_fv4_substep_%s\(([^)]*)\)" % t, text).group(1)
+        assert "scratch" not in sig and "plan" in sig
+    assert re.search(r'mol_scratch_planes\(int nvar\)', text)
+    n_ints = int(re.search(r"constexpr int FV4_PLAN_INTS = (\d+);",
+                           text).group(1))
+    for dtype in (torch.float32, torch.float64):
+        assert len(mol_kernel.plan(8, 8, 4, dtype).ints()) == n_ints
+    fns = _bind(mol_kernel, monkeypatch, {"mol_fv4_plan_ints": n_ints})
+    for name, n in entries.items():
+        if n:
+            assert len(fns[name].argtypes) == n, name
+
+
+def test_up_entries_take_the_plan_and_no_grid_barrier(monkeypatch):
+    """Every mg_up entry takes a scratch frame for its rounds after r and
+    its plan after alpha and beta; k_up is an ordinary launch (no
+    cooperative launch, no grid group), while k_down keeps its cooperative
+    one; the plan's length is mg_kernel.up_plan's (UP_PLAN_INTS)."""
+    import re
+
+    import torch
+
+    from pyro2_tpu_torch.multigrid import mg_kernel
+
+    text = (cuda_build.CSRC / "mg_vcycle.cu").read_text()
+    # the up template and the two entry macros (constant, coefficient)
+    assert len(re.findall(r"T\* r, T\* scratch,", text)) == 3
+    assert text.count("const int* plan,") == 3
+    body = text.split("k_up(UpArgs<T> a) {", 1)[1].split("\n}\n", 1)[0]
+    assert "grid" not in body and "sync()" not in body
+    assert "launch_cooperative(k_up" not in text
+    assert "launch_cooperative(k_down" in text
+    assert re.search(r"k_up<OP, T><<<", text)
+    n_ints = int(re.search(r"constexpr int UP_PLAN_INTS = (\d+);",
+                           text).group(1))
+    assert len(mg_kernel.up_plan(64, 10, torch.float32).ints()) == n_ints
+    fns = _bind(mg_kernel, monkeypatch)
+    for sfx, ncoef in mg_kernel.FLAVOURS.values():
+        for t in ("f32", "f64"):
+            assert len(fns[f"mg_up{sfx}_{t}"].argtypes) == \
+                6 + 2 + 4 + (1 if ncoef else 0) + 1

@@ -1,8 +1,9 @@
 """The launch plans the fused CUDA kernels take from Python: the CTU step's
-tiles, grid, halos and shared-memory layout (ctu_kernel.plan), and the
-multigrid core's level schedule, cluster and shared-memory layout
-(mg_kernel.core_plan).  They run on the CPU: nothing is compiled or
-launched."""
+tiles, grid, halos and shared-memory layout (ctu_kernel.plan), the fv4
+stage increment's (mol_kernel.plan), the multigrid core's level schedule,
+cluster and shared-memory layout (mg_kernel.core_plan), and the multigrid
+ascent's tiles, halo and rounds (mg_kernel.up_plan).  They run on the CPU:
+nothing is compiled or launched."""
 
 import itertools
 
@@ -13,6 +14,7 @@ import torch
 from pyro2_tpu_torch.multigrid import mg_kernel
 from pyro2_tpu_torch.solvers.compressible import ctu_kernel
 from pyro2_tpu_torch.solvers.compressible.simulation import Variables
+from pyro2_tpu_torch.solvers.compressible_fv4 import mol_kernel
 
 DTYPES = (torch.float32, torch.float64)
 NG = 4                 # the ghost cells of the compressible frames
@@ -219,3 +221,307 @@ def test_core_plan_passes_the_kernels_checks(top):
     for level in range(top + 1):
         q = mg_kernel.core_cells(level) + 2
         assert off[level + 1] - off[level] == 2 * q * q
+
+
+# -- the fused fv4 stage increment ----------------------------------------------
+
+def _fv4_grids(dtype):
+    """Ragged grids: 200x136, one cell, and 7 x 5 tiles' worth with a
+    ragged last tile each way."""
+    tx, ty = mol_kernel.TILE[dtype]
+    return ((200, 136), (1, 1), (7 * tx - 3, 5 * ty - 1), (7 * tx, 5 * ty))
+
+
+def _fv4_plan_ok(item, nx, ny, nvar, flatten, plan_ints):
+    """mol_substep.cu's fv4_plan_ok, line by line, on a plan's ints."""
+    (tx, ty, threads, hq, ha, hx, hs, q, xi, sc, qix, qiy, r, smem, bx,
+     by) = plan_ints
+
+    def box(h):
+        return (tx + 2 * h) * (ty + 2 * h)
+
+    if threads < 32 or threads > (512 if item == 4 else 256) or \
+            threads % 32 or tx < 1 or ty < 1:
+        return False
+    if hs < 1 or hx < hs + 1 or ha < hs + 3 or hq < ha + 1 or hq < hx + 2:
+        return False
+    if bx < 1 or by < 1 or (bx - 1) * ty >= ny or bx * ty < ny or \
+            (by - 1) * tx >= nx or by * tx < nx:
+        return False
+    states = nvar * box(ha) + max(2 * nvar * box(hs), nvar * box(hq))
+    fluxes = nvar * ((tx + 1) * ty + tx * (ty + 1))
+    end = 0
+    for off, size in ((q, nvar * box(hq)), (xi, 2 * box(hx) if flatten else 0),
+                      (sc, 2 * box(hs)), (qix, nvar * (tx + 1) * (ty + 2)),
+                      (qiy, nvar * (tx + 2) * (ty + 1)),
+                      (r, max(states, fluxes))):
+        if size == 0:
+            continue
+        if off < end:
+            return False
+        end = off + size
+    return end * item <= smem
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_fv4_tiles_cover_every_cell_once(dtype):
+    """The grid the fv4 kernel launches has a block for each tile, and the
+    tiles, clipped to the frame, cover each interior cell exactly once;
+    the blocks at the frame's edges own its ghost rows and columns, so k's
+    ghosts are written once too."""
+    for nx, ny in _fv4_grids(dtype):
+        p = mol_kernel.plan(nx, ny, 4, dtype)
+        gy, gx = p.grid
+        assert p.ints()[-2:] == [gy, gx]
+        owned = np.zeros((nx + 2 * NG, ny + 2 * NG), dtype=int)
+        for bi in range(gx):
+            for bj in range(gy):
+                i0, j0 = NG + bi * p.tx, NG + bj * p.ty
+                r0 = 0 if bi == 0 else i0
+                r1 = nx + 2 * NG if bi == gx - 1 else i0 + p.tx
+                c0 = 0 if bj == 0 else j0
+                c1 = ny + 2 * NG if bj == gy - 1 else j0 + p.ty
+                owned[r0:r1, c0:c1] += 1
+        assert (owned == 1).all()
+
+
+def _win(ng, nx, ny, b):
+    """(i, j) -> inside the window [ilo - b, ihi + b] x [jlo - b, jhi + b]."""
+    return lambda i, j: (ng - b <= i <= ng + nx - 1 + b and
+                         ng - b <= j <= ng + ny - 1 + b)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("where", ["first", "last", "middle"])
+def test_fv4_stage_boxes_stay_inside_the_ghosts(dtype, where):
+    """Every stage of the fused fv4 kernel, on the tile at the frame's
+    first corner, its last (ragged) corner or inside it: each cell a stage
+    computes reads only cells that a stage before it computed, inside the
+    box that holds them, and every cell read from the state lies in the
+    frame, inside its 4 ghosts, although the boxes reach 5 cells past the
+    tile: the windows decide, by global index, which cells read how far
+    (mol_substep.cu k_fv4)."""
+    p = mol_kernel.plan(37, 29, 4, dtype)
+    nx, ny, ng = p.nx, p.ny, NG
+    qx, qy = nx + 2 * ng, ny + 2 * ng
+    gy, gx = p.grid
+    bi, bj = {"first": (0, 0), "last": (gx - 1, gy - 1),
+              "middle": (gx // 2, gy // 2)}[where]
+    i0, j0 = ng + bi * p.tx, ng + bj * p.ty
+    h = p.halo
+
+    def box(hh, di=(0, 0), dj=(0, 0)):
+        """Cells of a box around the tile, clipped to the frame."""
+        return {(i, j)
+                for i in range(i0 - hh - di[0], i0 + p.tx + hh + di[1])
+                for j in range(j0 - hh - dj[0], j0 + p.ty + hh + dj[1])
+                if 0 <= i < qx and 0 <= j < qy}
+
+    inside = lambda i, j: 0 <= i < qx and 0 <= j < qy
+    w = {b: _win(ng, nx, ny, b) for b in (0, 1, 2, 3)}
+
+    def reads_ok(reads, held):
+        for c in reads:
+            assert inside(*c) and c in held, c
+
+    # 1. the state over box q; Q over box q; the centres over box a, whose
+    # Laplacian inside the buf=ng-1 window reads the state's box; the
+    # sources over box s
+    Qc = box(h["prim"])
+    Ac = box(h["avg"])
+    Sc = box(h["states"])
+    for i, j in Ac:
+        if w[3](i, j):
+            reads_ok([(i + 1, j), (i - 1, j), (i, j + 1), (i, j - 1)], Qc)
+    # 2. the flattening coefficients over box x; 3. the averages over box a
+    Xc = box(h["flatten"])
+    for i, j in Xc:
+        if w[2](i, j):
+            reads_ok([(i + a, j) for a in (-2, -1, 1, 2)] +
+                     [(i, j + a) for a in (-2, -1, 1, 2)], Qc)
+    for i, j in Ac:
+        if w[3](i, j):
+            reads_ok([(i + 1, j), (i - 1, j), (i, j + 1), (i, j - 1)], Qc)
+    # 4. the limited states of box s's cells in the buf=1 window, read 3
+    # cells along each direction, the flattening 1 cell around
+    St = {c for c in Sc if w[1](*c)}
+    for i, j in St:
+        reads_ok([(i + a, j) for a in range(-3, 4)] +
+                 [(i, j + a) for a in range(-3, 4)], Ac)
+        reads_ok([(i + a, j + b) for a in (-1, 0, 1) for b in (-1, 0, 1)
+                  if a == 0 or b == 0], Xc)
+    ilo, ihi, jlo, jhi = ng, ng + nx - 1, ng, ng + ny - 1
+    qix = {(i, j) for i in range(i0, i0 + p.tx + 1)
+           for j in range(j0 - 1, j0 + p.ty + 1)
+           if ilo <= i <= ihi + 1 and jlo - 1 <= j <= jhi + 1}
+    qiy = {(i, j) for i in range(i0 - 1, i0 + p.tx + 1)
+           for j in range(j0, j0 + p.ty + 1)
+           if jlo <= j <= jhi + 1 and ilo - 1 <= i <= ihi + 1}
+    for i, j in qix:
+        reads_ok([(i, j), (i - 1, j)], St)
+    for i, j in qiy:
+        reads_ok([(i, j), (i, j - 1)], St)
+    # 5. the fluxes of the tile's faces
+    fx = {(i, j) for i in range(i0, i0 + p.tx + 1)
+          for j in range(j0, j0 + p.ty)
+          if ilo <= i <= ihi + 1 and jlo <= j <= jhi}
+    fy = {(i, j) for i in range(i0, i0 + p.tx) for j in range(j0, j0 + p.ty + 1)
+          if jlo <= j <= jhi + 1 and ilo <= i <= ihi}
+    for i, j in fx:
+        reads_ok([(i, j - 1), (i, j), (i, j + 1)], qix)
+        reads_ok([(i - a, j + b) for a in (0, 1) for b in (-1, 0, 1)], Qc)
+    for i, j in fy:
+        reads_ok([(i - 1, j), (i, j), (i + 1, j)], qiy)
+        reads_ok([(i + a, j - b) for a in (-1, 0, 1) for b in (0, 1)], Qc)
+    # 6. the tile's interior cells: the divergence and the averaged sources
+    for i in range(i0, i0 + p.tx):
+        for j in range(j0, j0 + p.ty):
+            if w[0](i, j):
+                reads_ok([(i, j), (i + 1, j)], fx)
+                reads_ok([(i, j), (i, j + 1)], fy)
+                reads_ok([(i, j), (i + 1, j), (i - 1, j), (i, j + 1),
+                          (i, j - 1)], Sc)
+    # the halos the plan hands the kernel are these
+    assert p.ints()[3:7] == [h["prim"], h["avg"], h["flatten"],
+                             h["states"]] == [5, 4, 2, 1]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("nvar", range(4, ctu_kernel.MAXVAR + 1))
+def test_fv4_shared_memory_fits(dtype, nvar):
+    """Every variable count and dtype, with and without flattening, fits
+    the 232,448 bytes a block may opt into; the arrays lie one after
+    another, the fluxes over the averages and states once stage 4 is
+    done."""
+    item = torch.empty((), dtype=dtype).element_size()
+    for flatten in (False, True):
+        p = mol_kernel.plan(200, 136, nvar, dtype, flatten=flatten)
+        assert 0 < p.smem <= SMEM_LIMIT
+        end = 0
+        for name in p.ARRAYS:
+            size = p.sizes[name]
+            assert p.offsets[name] == (end if size else -1)
+            end += size
+        assert end * item == p.smem
+        assert (p.offsets["xi"] >= 0) == flatten
+        tx, ty = p.tx, p.ty
+        assert p.sizes["r"] >= nvar * ((tx + 1) * ty + tx * (ty + 1))
+        assert p.sizes["r"] >= nvar * p.box("avg") + nvar * p.box("prim")
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_fv4_plan_passes_the_kernels_checks(dtype):
+    """The plan array each fv4 launch takes has the length mol_substep.cu
+    reads (FV4_PLAN_INTS) and passes its fv4_plan_ok, for every variable
+    count, with and without flattening, on ragged grids."""
+    import re
+
+    from pyro2_tpu_torch.util import cuda_build
+
+    text = (cuda_build.CSRC / "mol_substep.cu").read_text()
+    n_ints = int(re.search(r"constexpr int FV4_PLAN_INTS = (\d+);",
+                           text).group(1))
+    for nx, ny in _fv4_grids(dtype):
+        for nvar in range(4, ctu_kernel.MAXVAR + 1):
+            for flatten in (False, True):
+                p = mol_kernel.plan(nx, ny, nvar, dtype, flatten=flatten)
+                ints = p.ints()
+                assert len(ints) == n_ints
+                item = torch.empty((), dtype=dtype).element_size()
+                assert _fv4_plan_ok(item, nx, ny, nvar, flatten, ints)
+
+
+def test_fv4_uncovered_variable_order_raises():
+    class _Vars:
+        nvar = 4
+        idens, iener, ixmom, iymom = 1, 0, 2, 3
+    with pytest.raises(NotImplementedError, match="A.22"):
+        mol_kernel.covered(_Vars)
+
+
+# -- the multigrid ascent (mg_up) -------------------------------------------------
+
+UP_NSMOOTH = (0, 1, 10, 50)      # 50: more than one round's halo holds
+
+
+def _up_plan_ok(p, n, nsmooth, item, ints):
+    """mg_vcycle.cu up()'s checks, line by line, on the plan's ints."""
+    tile, halo, rounds, iters, threads, smem, tiles = ints
+    want = 1 if nsmooth == 0 else -(-nsmooth // max(iters, 1))
+    if tile < 1 or tile & (tile - 1) or tile > n or tiles * tile != n or \
+            threads < 32 or threads > 512 or threads % 32 or iters < 0 or \
+            (nsmooth > 0 and iters < 1) or rounds != want or \
+            halo < 2 * iters + 1:
+        return False
+    w = tile + 2 * halo
+    return 1 <= smem and 2 * w * w * item <= smem
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("op", sorted(mg_kernel.FLAVOURS))
+def test_up_tiles_cover_every_level_once(dtype, op):
+    """For every level from 4^2 to 1024^2 (every operator takes the same
+    plan: its coefficient planes are read at the frame), the tiles of the
+    launch's grid cover the interior exactly once."""
+    for k in range(2, 11):
+        n = 2 ** k
+        for nsmooth in UP_NSMOOTH:
+            p = mg_kernel.up_plan(n, nsmooth, dtype)
+            assert p.tile & (p.tile - 1) == 0 and p.tiles * p.tile == n
+            cover = np.zeros((n, n), dtype=int)
+            for bi in range(p.tiles):
+                for bj in range(p.tiles):
+                    cover[bi * p.tile:(bi + 1) * p.tile,
+                          bj * p.tile:(bj + 1) * p.tile] += 1
+            assert (cover == 1).all()
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("nsmooth", UP_NSMOOTH)
+def test_up_halo_covers_the_sweeps_reach(dtype, nsmooth):
+    """The halo is as deep as a round's reach: one cell per half-sweep and
+    one for the residual; the rounds take nsmooth iterations together, the
+    last one the rest; the solvers' nsmooth (10) takes one round at every
+    level, and 50 more than one at 1024^2."""
+    for k in range(2, 11):
+        n = 2 ** k
+        p = mg_kernel.up_plan(n, nsmooth, dtype)
+        its = p.round_iters()
+        assert len(its) == p.rounds and sum(its) == nsmooth
+        assert all(0 < i <= p.iters for i in its) or nsmooth == 0
+        assert p.halo >= 2 * max(its) + 1
+        if nsmooth <= 10:
+            assert p.rounds == 1
+    assert mg_kernel.up_plan(1024, 50, dtype).rounds > 1
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_up_shared_memory_fits(dtype):
+    """The boxes of v and f of every plan fit a block's opt-in limit, and
+    the budget that lets two blocks share an SM."""
+    item = torch.empty((), dtype=dtype).element_size()
+    for k in range(2, 11):
+        for nsmooth in UP_NSMOOTH:
+            p = mg_kernel.up_plan(2 ** k, nsmooth, dtype)
+            assert p.smem == 2 * (p.tile + 2 * p.halo) ** 2 * item
+            assert p.smem <= mg_kernel.UP_SMEM <= SMEM_LIMIT // 2
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_up_plan_passes_the_kernels_checks(dtype):
+    """The plan array each mg_up launch takes has the length mg_vcycle.cu
+    reads (UP_PLAN_INTS) and passes its checks at every level and
+    nsmooth."""
+    import re
+
+    from pyro2_tpu_torch.util import cuda_build
+
+    text = (cuda_build.CSRC / "mg_vcycle.cu").read_text()
+    n_ints = int(re.search(r"constexpr int UP_PLAN_INTS = (\d+);",
+                           text).group(1))
+    item = torch.empty((), dtype=dtype).element_size()
+    for k in range(2, 11):
+        for nsmooth in UP_NSMOOTH:
+            p = mg_kernel.up_plan(2 ** k, nsmooth, dtype)
+            assert len(p.ints()) == n_ints
+            assert _up_plan_ok(p, 2 ** k, nsmooth, item, p.ints())

@@ -9,7 +9,8 @@ Phases (any failure exits non-zero and prints no result line):
      mg_vcycle.cu, mol_substep.cu, swe_step.cu, lm_interface.cu,
      mg_deep.cu) with nvcc, one process each, started together, and print
      what ptxas reports (registers, shared memory, stack and spills; the
-     main path's CTU kernel, k_ctu<float, nvar 4, cartesian>, once more);
+     main path's CTU kernel, k_ctu<float, nvar 4, cartesian>, the swe
+     kernel k_swe<float, 4> and the descent k_down once more);
   3. the CTU kernel (one fused launch a step) against its plain PyTorch
      version on the card, one step from the same state after 3 kernel
      steps, for seven configurations (CGF limiter 2 on sod, HLLC limiters
@@ -28,10 +29,11 @@ Phases (any failure exits non-zero and prints no result line):
      shapes, ctu_ensemble on 3 x 200x136 and 8 x 256^2 acoustic_pulse
      members, each member also equal to its one-member kernel step bit for
      bit;
-  3a. the swe kernel against its plain step the same way, for five
-     configurations (quad Roe limiter 2 outflow, kh HLLC periodic, dam Roe
-     limiter 1 with reflecting y walls, advect limiter 0 with grav 0.001,
-     quad HLLC with a passive scalar);
+  3a. the swe kernel (one fused launch a step) against its plain step the
+     same way, for five configurations (quad Roe limiter 2 outflow, kh
+     HLLC periodic, dam Roe limiter 1 with reflecting y walls, advect
+     limiter 0 with grav 0.001, quad HLLC with a passive scalar) at
+     200x136, 1024x1000 (a ragged last tile column) and 1024^2;
   3b. the MOL stage-increment kernels (mol_rk, mol_fv4) against their plain
      versions on the card, one increment from the same state after 3
      kernel steps, for four rk and three fv4 configurations at a ragged
@@ -52,10 +54,11 @@ Phases (any failure exits non-zero and prints no result line):
      (the _general entries, alpha 10, beta xy + 1, gamma (1, 1)) with
      homogeneous Dirichlet edges; then mg_core of every case at every top
      it holds (2^2 .. 128^2 in float32, .. 64^2 in float64), from a guess
-     and from a zero guess; and mg_up of every case at every peeled level
-     with nsmooth 50, whose halo no box holds, so the plan splits the
-     sweeps into rounds (mg_kernel.up_plan), v with its ghosts and the
-     finest level's residual against up_plain;
+     and from a zero guess; and mg_down and mg_up of every case at every
+     peeled level with nsmooth 50, whose halo no box holds, so the plan
+     splits the sweeps into rounds (mg_kernel.tile_plan), v with its
+     ghosts, the restricted residual and the finest level's residual
+     against down_plain and up_plain;
   4a. the lm_atm interface kernels (lm_mac, lm_rho, lm_states) against
      their plain versions, on decisively signed random fields at 200x136
      and 1024^2 and on a bubble state at 1024^2 after 3 kernel steps, in
@@ -111,14 +114,21 @@ Phases (any failure exits non-zero and prints no result line):
      the spherical CTU step and each padded entry at its path's shape;
      mg_deep_smooth and mg_correct at the sharded path's finest level),
      beside each kernel's bound on this card, the multigrid ascent and
-     descent at every peeled level with mg_up's plan, and the host time of
-     building lm_atm's VarCoeffCCMG2d at 1024^2; the CTU step's and the
-     fv4 stage's peak device memory at quad and acoustic_pulse 1024^2;
+     descent at every peeled level with their plan, the swe step with
+     other tiles, and the host time of building lm_atm's VarCoeffCCMG2d at
+     1024^2; the CTU step's, the fv4 stage's and the swe step's peak
+     device memory at quad, acoustic_pulse and quad 1024^2;
      the core's schedule at the 1024^2
      cycles' 128^2 top with its barriers counted by kind, and its time on
      the coarse problems one ShardedDiffusion step hands it against random
      data (the share of subnormal values in each);
-  7. torch.profiler breakdowns of 20 quad steps, 20 ctu_periodic advect
+  7. under the profiler, after every CUDA-event timing: the kernels one
+     swe step launches (k_swe, once), the k_down launches of a cycle (one
+     a peeled level) and of a call split into rounds (one a round), the
+     device time of k_down and k_up a call at every peeled level of the
+     three operators' 1024^2 cycles, and mg_down with tiles of other
+     sizes; then torch.profiler breakdowns of 20 quad steps, 20
+     ctu_periodic advect
      steps (fill + step), 5 diffusion steps, 5 shear steps, 5 fv4 and 3
      sdc acoustic_pulse steps, 5 swe quad steps, 5 lm_atm bubble steps, 2
      GeneralMG2d solves, 20 spherical advect steps and 5 sharded diffusion
@@ -935,11 +945,14 @@ def core_tops_compare(case, dtype, tol):
         f"{worst[1]:.3g})")
 
 
-def up_rounds_compare(case, dtype, tol, nsmooth):
-    """mg_up of one of MG_CASES at every peeled level of 1024^2 with
-    `nsmooth` sweeps against up_plain: v with its ghosts to tol max|v|, the
-    finest level's residual to tol times the terms it cancels; the plan
-    must split the finest level's sweeps into rounds."""
+def rounds_compare(kernel, case, dtype, tol, nsmooth):
+    """mg_down or mg_up (`kernel`) of one of MG_CASES at every peeled level
+    of 1024^2 with `nsmooth` sweeps against down_plain / up_plain: v with
+    its ghosts to tol max|v|, the restricted residual (mg_down, from a
+    guess on the finest level and from a zero guess below it, as the cycle
+    calls it) and the finest level's residual (mg_up) to tol times the
+    terms they cancel; the plan must split the finest level's sweeps into
+    rounds."""
     import numpy as np
     import torch
 
@@ -954,20 +967,27 @@ def up_rounds_compare(case, dtype, tol, nsmooth):
     for lv in mg_kernel.split(mg, dtype)[1]:
         g, gc = mg.grids[lv], mg.grids[lv - 1]
         v, f = frame(rng, g, dtype, 0.1), frame(rng, g, dtype)
-        vc = frame(rng, gc, dtype, 0.1)
-        want_r = lv == fine
-        ref = mg_kernel.up_plain(mg, lv, v, f, vc, want_r)
-        got = mg_kernel.launch_up(mg, lv, v, f, vc, want_r)
-        plan = mg_kernel.up_plan(g.nx, nsmooth, dtype)
-        checks = [("v", ref[0], got[0], float(ref[0].abs().max()))]
-        if want_r:
-            checks.append(("r", ref[1], got[1],
-                           resid_scale(mg, lv, ref[0], f)))
+        plan = mg_kernel.tile_plan(g.nx, nsmooth, dtype)
+        if kernel == "mg_down":
+            guess = v if lv == fine else None
+            ref = mg_kernel.down_plain(mg, lv, guess, f)
+            got = mg_kernel.launch_down(mg, lv, guess, f)
+            checks = [("v", ref[0], got[0], float(ref[0].abs().max())),
+                      ("fc", ref[1], got[1], resid_scale(mg, lv, ref[0], f))]
+        else:
+            vc = frame(rng, gc, dtype, 0.1)
+            want_r = lv == fine
+            ref = mg_kernel.up_plain(mg, lv, v, f, vc, want_r)
+            got = mg_kernel.launch_up(mg, lv, v, f, vc, want_r)
+            checks = [("v", ref[0], got[0], float(ref[0].abs().max()))]
+            if want_r:
+                checks.append(("r", ref[1], got[1],
+                               resid_scale(mg, lv, ref[0], f)))
         for what, a, b, scale in checks:
             err = float((a - b).abs().max())
             if not bool(torch.isfinite(b).all()) or err > tol * scale:
                 raise AssertionError(
-                    f"mg_up {name} {g.nx}^2 nsmooth {nsmooth} "
+                    f"{kernel} {name} {g.nx}^2 nsmooth {nsmooth} "
                     f"{str(dtype)[6:]}: {what} max|diff| {err:.3e} > "
                     f"{tol:g} x {scale:.3g}")
             rows.append(f"{g.nx}^2 {what} {err:.3e}")
@@ -975,7 +995,7 @@ def up_rounds_compare(case, dtype, tol, nsmooth):
         if lv == fine and plan.rounds < 2:
             raise AssertionError(f"nsmooth {nsmooth} took one round")
     torch.cuda.synchronize()
-    log(f"  ok  mg_up{mg_kernel.FLAVOURS[op][0]:8s} {name:17s} "
+    log(f"  ok  {kernel}{mg_kernel.FLAVOURS[op][0]:8s} {name:17s} "
         f"{str(dtype)[6:]:8s} nsmooth {nsmooth}: " + "; ".join(rows))
 
 
@@ -1071,9 +1091,10 @@ def time_pair(name, kern, plain, work, bw, fp32):
     return kern_ms, plain_ms, bound_ms, bound_by
 
 
-def ctu_peak_memory(step, U, t, dt):
-    """Peak device bytes one CTU step allocates above what is allocated
-    before it (its output state, and nothing else in the fused design)."""
+def step_peak_memory(step, U, t, dt):
+    """Peak device bytes one CTU or swe step allocates above what is
+    allocated before it (its output state, and nothing else in the fused
+    designs)."""
     import torch
 
     torch.cuda.synchronize()
@@ -1089,11 +1110,179 @@ def ctu_peak_memory(step, U, t, dt):
     return peak
 
 
+def swe_one_launch(step, U, t, dt, steps=5):
+    """Under the profiler, `steps` swe steps launch k_swe once each and no
+    other device kernel."""
+    rows = device_kernels(lambda: step.launch(U, t, dt), steps)
+    names = [(key, n) for key, n, _ in rows]
+    if len(rows) != 1 or "k_swe<" not in rows[0][0] or rows[0][1] != steps:
+        raise AssertionError(f"{steps} swe steps launched {names}, not "
+                             f"{steps} k_swe")
+    log(f"  under the profiler: {steps} steps launch k_swe {rows[0][1]} "
+        f"times ({rows[0][2] / steps:.2f} us each) and no other kernel")
+
+
+def swe_tiles(step, U, t, dt, work, bw, fp32):
+    """CUDA-event ms of the swe step with other tiles of the same block
+    (512 threads in float32), beside the plan's tile."""
+    from pyro2_tpu_torch.solvers.swe import swe_kernel
+
+    g = step.sim.cc_data.grid
+    for tile in ((30, 14), (14, 30), (62, 6), (22, 22), (46, 14), (30, 30)):
+        p = swe_kernel.plan(g.nx, g.ny, step.shape[0], U.dtype, tile)
+        event_ms(lambda: step.launch(U, t, dt, tile), 3)
+        ms = event_ms(lambda: step.launch(U, t, dt, tile), 20)
+        bound_ms = max(1e3 * work[0] / bw, 1e3 * work[1] / fp32)
+        log(f"  swe_step {tile[0]} x {tile[1]} tiles ({p.box('traced')} "
+            f"traced cells, {p.smem} B): {ms:.4f} ms, "
+            f"{100 * bound_ms / ms:.2f}% of the bound")
+
+
+def down_launches(mg):
+    """Under the profiler: one cycle of mg at the solvers' nsmooth launches
+    k_down once a peeled level (one round each), and an mg_down call at
+    nsmooth 50 on the finest level once a round of its plan."""
+    import numpy as np
+    import torch
+
+    from pyro2_tpu_torch.multigrid import mg_kernel
+
+    rng = np.random.default_rng(9)
+    dtype = torch.float32
+    peeled = mg_kernel.split(mg, dtype)[1]
+    fine = mg.nlevels - 1
+    v = frame(rng, mg.soln_grid, dtype, 0.1)
+    f = frame(rng, mg.soln_grid, dtype, zero_mean=True)
+
+    def count(fn):
+        return sum(n for key, n, _ in device_kernels(fn, 1)
+                   if "k_down<" in key)
+
+    n_cycle = count(lambda: mg_kernel.cycle(mg, v, f))
+    rounds = [mg_kernel.tile_plan(mg.grids[lv].nx, mg.nsmooth, dtype).rounds
+              for lv in peeled]
+    if n_cycle != sum(rounds) or rounds != [1] * len(peeled):
+        raise AssertionError(f"a cycle launched k_down {n_cycle} times for "
+                             f"{len(peeled)} peeled levels")
+    saved = mg.nsmooth
+    mg.nsmooth = 50
+    try:
+        plan = mg_kernel.tile_plan(mg.grids[fine].nx, 50, dtype)
+        n_50 = count(lambda: mg_kernel.launch_down(mg, fine, v, f))
+    finally:
+        mg.nsmooth = saved
+    if n_50 != plan.rounds or plan.rounds < 2:
+        raise AssertionError(f"mg_down at nsmooth 50 launched k_down {n_50} "
+                             f"times for {plan.rounds} rounds")
+    log(f"  one cycle: k_down launched {n_cycle} times for {len(peeled)} "
+        f"peeled levels (one round each); mg_down at nsmooth 50 on "
+        f"{mg.grids[fine].nx}^2: {n_50} launches for {plan.rounds} rounds")
+
+
+def down_tiles(mg, label):
+    """CUDA-event ms and the profiler's device us of mg_down at every
+    peeled level with the tiles of plans that keep at least 128, 64, 32,
+    16 and 4 tiles (tile_plan keeps mg_kernel.TILE_BLOCKS)."""
+    import numpy as np
+    import torch
+
+    from pyro2_tpu_torch.multigrid import mg_kernel
+
+    dtype = torch.float32
+    rng = np.random.default_rng(8)
+    fine = mg.nlevels - 1
+    for lv in reversed(mg_kernel.split(mg, dtype)[1]):
+        g = mg.grids[lv]
+        f, v = frame(rng, g, dtype), frame(rng, g, dtype, 0.1)
+        guess = v if lv == fine else None
+        seen = set()
+        for blocks in (128, 64, 32, 16, 4):
+            plan = mg_kernel.TilePlan(g.nx, mg.nsmooth, dtype, blocks)
+            if plan.tile in seen:
+                continue
+            seen.add(plan.tile)
+            call = lambda: mg_kernel.launch_down(mg, lv, guess, f, plan)
+            event_ms(call, 3)
+            ms = event_ms(call, 20)
+            us = kernel_device_us(call, 20, "k_down")
+            log(f"  mg_down ({label}, {g.nx}^2) {plan.tile}^2 tiles "
+                f"({plan.tiles ** 2} blocks): {ms:.4f} ms, under the "
+                f"profiler {us:.2f} us")
+
+
+def mg_level_kernels(mg, label):
+    """The profiler's device us of k_down and k_up a call at every peeled
+    level of mg's 1024^2 float32 cycle, called as the cycle calls them
+    (CUDA events around a level below ~0.05 ms time the host's enqueue
+    too)."""
+    import numpy as np
+    import torch
+
+    from pyro2_tpu_torch.multigrid import mg_kernel
+
+    dtype = torch.float32
+    sfx = mg_kernel.FLAVOURS[mg_kernel.flavour(mg)][0]
+    fine = mg.nlevels - 1
+    rng = np.random.default_rng(7)
+    for lv in reversed(mg_kernel.split(mg, dtype)[1]):
+        g, gc = mg.grids[lv], mg.grids[lv - 1]
+        f, vc = frame(rng, g, dtype), frame(rng, gc, dtype, 0.1)
+        v = frame(rng, g, dtype, 0.1)
+        guess = v if lv == fine else None
+        down = kernel_device_us(
+            lambda: mg_kernel.launch_down(mg, lv, guess, f), 20, "k_down")
+        up = kernel_device_us(
+            lambda: mg_kernel.launch_up(mg, lv, v, f, vc, lv == fine), 20,
+            "k_up")
+        log(f"  {label} {g.nx}^2 under the profiler: k_down{sfx} "
+            f"{down:.2f} us, k_up{sfx} {up:.2f} us a call")
+
+
+def tile_plan_text(plan):
+    """A TilePlan of mg_down or mg_up, in words."""
+    return (f"{plan.tile}^2 tiles ({plan.tiles ** 2} blocks of "
+            f"{plan.threads}), halo {plan.halo}, {plan.rounds} round(s) of "
+            f"{plan.round_iters()}, {plan.smem} B of shared memory")
+
+
+def device_kernels(fn, reps):
+    """torch.profiler over `reps` calls of fn (after one unprofiled call):
+    [(kernel name, launches, device us)] of every device kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    rows = []
+    for e in prof.key_averages():
+        dev_us = getattr(e, "device_time_total",
+                         getattr(e, "cuda_time_total", 0.0))
+        if e.device_type == torch.autograd.DeviceType.CUDA and dev_us > 0:
+            rows.append((e.key, e.count, dev_us))
+    if not rows:
+        raise AssertionError("the profiler recorded no device time")
+    return rows
+
+
+def kernel_device_us(fn, reps, kernel):
+    """Device us a call of fn spends in `kernel` (k_down, k_up, ...) under
+    the profiler."""
+    import re
+
+    return sum(us for key, _, us in device_kernels(fn, reps)
+               if re.search(rf"\b{kernel}<", key)) / reps
+
+
 def mg_timing(mg, label, bw, fp32):
     """CUDA-event times of each multigrid kernel of mg's operator and its
     plain version as one 1024^2 float32 cycle calls them: the core from a
     zero guess, and the down and up of every peeled level (mg_up with
-    mg_kernel.up_plan's tiles, printed beside it); returns the core's and
+    mg_kernel.tile_plan's tiles, printed beside it); returns the core's and
     the finest level's, keyed by entry name, and every level's, keyed by
     (entry name, n)."""
     import numpy as np
@@ -1121,11 +1310,9 @@ def mg_timing(mg, label, bw, fp32):
         v = frame(rng, g, dtype, 0.1)
         guess = v if lv == fine else None           # as the cycle calls it
         want_r = lv == fine
-        plan = mg_kernel.up_plan(g.nx, mg.nsmooth, dtype)
-        log(f"  mg_up{sfx} {g.nx}^2 plan: {plan.tile}^2 tiles "
-            f"({plan.tiles ** 2} blocks of {plan.threads}), halo "
-            f"{plan.halo}, {plan.rounds} round(s), {plan.smem} B of shared "
-            f"memory")
+        plan = mg_kernel.tile_plan(g.nx, mg.nsmooth, dtype)
+        log(f"  mg_down{sfx} and mg_up{sfx} {g.nx}^2 plan: "
+            f"{tile_plan_text(plan)}")
         times = {
             "mg_down" + sfx: time_pair(
                 f"mg_down{sfx} ({label}, {g.nx}^2)",
@@ -1952,7 +2139,7 @@ def kernel_source(kernel):
         return "lm_interface.cu"
     if kernel.startswith(("k_rk_", "k_fv4")):
         return "mol_substep.cu"
-    if kernel.startswith("k_swe_"):
+    if kernel.startswith("k_swe"):
         return "swe_step.cu"
     if kernel in ("k_prim", "k_flatten"):
         return "euler_common.cuh"
@@ -2008,14 +2195,18 @@ def main():
                    lm_kernel, sharded_mg_kernel):
         module._load()
     log(f"  built in {time.perf_counter() - t0:.1f} s (with load)")
-    ctu_ptxas = None
+    main_ptxas = {}
     for so, nvcc_s, ptxas in built:
         log(f"  {os.path.relpath(so, HERE)}: nvcc {nvcc_s:.1f} s")
         for line in ptxas_summary(ptxas):
             log("    " + line)
-            if line.startswith("k_ctu<float, nvar 4, cartesian>"):
-                ctu_ptxas = line
-    log(f"  the main path's CTU kernel: {ctu_ptxas}")
+            for head in ("k_ctu<float, nvar 4, cartesian>", "k_swe<float, 4>",
+                         "k_down<const, float>", "k_down<vc, float>",
+                         "k_down<general, float>"):
+                if line.startswith(head + ":"):
+                    main_ptxas[head] = line
+    for head, line in main_ptxas.items():
+        log(f"  a main path's kernel: {line}")
 
     # 3. the CTU kernel vs its plain step on the card
     log("[ctu_step vs plain step on the card]")
@@ -2061,7 +2252,7 @@ def main():
     log("[swe_step vs plain step on the card]")
     swe_err = None
     for dtype, tol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
-        for nx, ny in ((200, 136), (1024, 1024)):
+        for nx, ny in CTU_SHAPES:
             for name, problem, inputs, extra in SWE_CONFIGS:
                 err = compare(name, problem, inputs, extra, nx, ny, dtype,
                               tol, solver="swe")
@@ -2105,10 +2296,12 @@ def main():
             core_tops_compare(case, dtype, tol)
         torch.cuda.empty_cache()
 
-    log("[mg_up in rounds (nsmooth 50) at every peeled level vs up_plain]")
+    log("[mg_down and mg_up in rounds (nsmooth 50) at every peeled level vs "
+        "down_plain and up_plain]")
     for dtype, tol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
         for case in MG_CASES:
-            up_rounds_compare(case, dtype, tol, 50)
+            for kernel in ("mg_down", "mg_up"):
+                rounds_compare(kernel, case, dtype, tol, 50)
         torch.cuda.empty_cache()
 
     # 4a. the lm_atm interface kernels vs their plain versions on the card
@@ -2206,7 +2399,7 @@ def main():
         f"{bw:.3g} B/s = {bytes_ms:.4f} ms, {nops} ops "
         f"({ctu_kernel.FLOPS_PER_ZONE}/zone) at {fp32:.3g} op/s = "
         f"{ops_ms:.4f} ms; kernel at {100 * bound_ms / kern_ms:.2f}% of it")
-    ctu_peak = ctu_peak_memory(step, U, t, dt)
+    ctu_peak = step_peak_memory(step, U, t, dt)
     log("[timing: the 1024^2 float32 solves' levels, CUDA events]")
     mg_times = mg_timing(make_mg(1024, "periodic", 0.0, -1.0,
                                  torch.float32), "periodic Poisson", bw,
@@ -2247,12 +2440,18 @@ def main():
     sU, st, sdt = ssim.cc_data.data, ssim.cc_data.t, ssim.dt
     sstep = ssim._step
     g = ssim.cc_data.grid
+    swe_work = swe_kernel.work(g.nx, g.ny, ssim.ivars.nvar, torch.float32,
+                               sstep.method)
+    swe_plan = swe_kernel.plan(g.nx, g.ny, ssim.ivars.nvar, torch.float32)
+    log(f"  plan: {swe_plan.tx} x {swe_plan.ty} tiles, {swe_plan.threads} "
+        f"threads, grid {swe_plan.grid}, {swe_plan.smem} B of shared memory")
     swe_times = time_pair(
         f"swe_step (quad {g.nx}x{g.ny}, {sstep.method})",
         lambda: sstep.launch(sU, st, sdt),
-        lambda: sstep.plain(sU, st, sdt),
-        swe_kernel.work(g.nx, g.ny, ssim.ivars.nvar, torch.float32,
-                        sstep.method), bw, fp32)
+        lambda: sstep.plain(sU, st, sdt), swe_work, bw, fp32)
+    swe_peak = step_peak_memory(sstep, sU, st, sdt)
+    swe_call = (sstep, sU, st, sdt)
+    swe_tiles(sstep, sU, st, sdt, swe_work, bw, fp32)
 
     log("[timing: the lm_atm stages on the 1024^2 float32 bubble, CUDA "
         "events; the host's multigrid set-up]")
@@ -2291,7 +2490,24 @@ def main():
                       "periodic Poisson")
     core_on_sharded_data(sharded)
 
-    # 7. where a main-path step's time goes
+    # 7. where a main-path step's time goes: the kernels' launches and
+    # device times under the profiler, after every CUDA-event timing, and
+    # the main paths' breakdowns
+    log(f"[the swe step, mg_down's launches, the multigrid kernels by level "
+        f"and mg_down with other tiles under the profiler, float32; {smi}]")
+    swe_one_launch(*swe_call)
+    down_launches(make_mg(1024, "periodic", 0.0, -1.0, torch.float32))
+    mg_level_kernels(make_mg(1024, "periodic", 0.0, -1.0, torch.float32),
+                     "periodic Poisson")
+    for case in MG_CASES:
+        if case[0] in ("vc_lm_edges", "general_dirichlet"):
+            mg_level_kernels(make_case_mg(1024, *case[:3], torch.float32),
+                             case[0])
+    for case in MG_CASES:
+        if case[0] in ("neumann_helmholtz", "vc_lm_edges",
+                       "general_dirichlet"):
+            down_tiles(make_case_mg(1024, *case[:3], torch.float32),
+                       case[0])
     profile_steps(p.single_step, 20, "quad 1024^2 float32")
     _, _, frame_p, pdt, _, advance = padded["ctu_periodic"]
     held = [frame_p]
@@ -2457,6 +2673,8 @@ def main():
     log(f"  lm_atm bubble 1024^2: {cycles_per_solve:.2f} multigrid cycles "
         "per solve")
     log(f"  quad 1024^2 float32 CTU step: peak device memory {ctu_peak} B "
+        "above the state")
+    log(f"  swe quad 1024^2 float32 step: peak device memory {swe_peak} B "
         "above the state")
     log(f"  acoustic_pulse 1024^2 float32 fv4 stage: peak device memory "
         f"{mol_peak['mol_fv4']} B above the state")

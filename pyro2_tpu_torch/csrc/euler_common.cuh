@@ -3,9 +3,10 @@
 // on the global interior, the Riemann solvers (HLLC, HLLC_lm, CGF on
 // conserved and on primitive states, with the solid-face clamps), cons <->
 // prim, the flattening coefficients and the vertex divergence of the
-// artificial viscosity.  Indexing, window tests and the MC slopes come from
-// grid_common.cuh, which swe_step.cu shares.  Everything sits in an
-// anonymous namespace: each source that includes it compiles its own copy.
+// artificial viscosity.  Indexing, window tests, the boxes of a tile in
+// shared memory and the MC slopes come from grid_common.cuh, which
+// swe_step.cu shares.  Everything sits in an anonymous namespace: each
+// source that includes it compiles its own copy.
 //
 // The arithmetic follows the plain PyTorch versions operation by operation
 // (compile with -fmad=false), so the kernels agree with them to the last
@@ -17,8 +18,9 @@
 // fused kernels (ctu_step.cu, mol_substep.cu's fv4 kernel) pass
 // FixedParams, which fixes them at compile time, so their per-variable
 // arrays are indexed by constants and stay in registers.  The stencil
-// helpers read their planes through views a(i, j) (FramePlane for a frame
-// in device memory; BoxPlane for a tile's box in shared memory).
+// helpers read their planes through views a(i, j) (grid_common.cuh's
+// FramePlane for a frame in device memory, BoxPlane for a tile's box in
+// shared memory).
 
 #pragma once
 
@@ -55,33 +57,6 @@ template <int NV>
 struct FixedParams : Params {
   static constexpr int nvar = NV, idens = 0, iener = 1, ixmom = 2, iymom = 3;
 };
-
-// a box of frame cells held in shared memory, row-major: rows i0 .. i0 +
-// h - 1, columns j0 .. j0 + w - 1
-struct Box {
-  int i0, j0, h, w;
-  __device__ int cells() const { return h * w; }
-  __device__ int at(int i, int j) const { return (i - i0) * w + (j - j0); }
-  __device__ bool has(int i, int j) const {
-    return i >= i0 && i < i0 + h && j >= j0 && j < j0 + w;
-  }
-};
-
-// plane k of a stack of planes over a box, seen as a(i, j) in frame indices
-template <typename T>
-struct BoxPlane {
-  const T* a;
-  Box b;
-  __device__ __forceinline__ T operator()(int i, int j) const {
-    return a[b.at(i, j)];
-  }
-};
-
-template <typename T>
-__device__ __forceinline__ BoxPlane<T> plane(const T* a, const Box& b,
-                                             int k) {
-  return BoxPlane<T>{a + k * b.cells(), b};
-}
 
 // primitive order: rho, u, v, p, then the passive scalars
 constexpr int IRHO = 0, IU = 1, IV = 2, IP = 3;

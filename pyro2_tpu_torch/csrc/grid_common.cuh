@@ -3,8 +3,8 @@
 // and lm_interface.cu): indexing into the (nvar, qx, qy) stack, the
 // interior bounds, window tests against the global index, and the
 // MC-limited slopes of mesh/reconstruction.py, which read a plane through
-// a view a(i, j) (FramePlane for a frame in device memory; the CTU step's
-// views of its tile in shared memory).
+// a view a(i, j) (FramePlane for a frame in device memory; BoxPlane for
+// the fused kernels' boxes of a tile in shared memory).
 //
 // The helpers are templates over the parameter block P, so each kernel
 // source keeps its own block; they read only its generic fields: nx, ny,
@@ -42,6 +42,33 @@ __device__ __forceinline__ bool inwin(const P& p, int i, int j, int bxlo,
                                       int bxhi, int bylo, int byhi) {
   return i >= ilo(p) - bxlo && i <= ihi(p) + bxhi && j >= jlo(p) - bylo &&
          j <= jhi(p) + byhi;
+}
+
+// a box of frame cells held in shared memory, row-major: rows i0 .. i0 +
+// h - 1, columns j0 .. j0 + w - 1
+struct Box {
+  int i0, j0, h, w;
+  __device__ int cells() const { return h * w; }
+  __device__ int at(int i, int j) const { return (i - i0) * w + (j - j0); }
+  __device__ bool has(int i, int j) const {
+    return i >= i0 && i < i0 + h && j >= j0 && j < j0 + w;
+  }
+};
+
+// plane k of a stack of planes over a box, seen as a(i, j) in frame indices
+template <typename T>
+struct BoxPlane {
+  const T* a;
+  Box b;
+  __device__ __forceinline__ T operator()(int i, int j) const {
+    return a[b.at(i, j)];
+  }
+};
+
+template <typename T>
+__device__ __forceinline__ BoxPlane<T> plane(const T* a, const Box& b,
+                                             int k) {
+  return BoxPlane<T>{a + k * b.cells(), b};
 }
 
 // ---------------------------------------------------------------------------

@@ -12,7 +12,8 @@
 //               sweeps on 2x2), plus the residual when no level is peeled;
 //   mg_down  <- _make_down_kernel(_g) and _make_down_banded(_g): nsmooth
 //               red-black Gauss-Seidel sweeps, the residual, and its factor-2
-//               restriction into the coarse f (ghosts zero);
+//               restriction into the coarse f (ghosts zero), in tiles
+//               (below);
 //   mg_up    <- _make_up_kernel(_g) and _make_up_banded(_g): prolong and
 //               correct, a ghost fill, nsmooth sweeps, and the residual on
 //               the finest level, in tiles (below).
@@ -52,19 +53,17 @@
 // edges, a cell of the other colour (n is even), which is not updated in
 // the same half-sweep.
 //
-// mg_down: one cooperative launch per call, grid-stride loops over the
-// level, cooperative_groups grid.sync() between phases (one per
-// half-sweep).  The grid is sized to what can be co-resident.  The level
-// frames live in device memory; up to 1026^2 floats (4.2 MB) per frame,
-// they (and a level's planes) stay in the 50 MB L2 across the sweeps.
-// mg_up: ordinary launches with no grid-wide barrier, one at the solvers'
-// nsmooth (temporal blocking, as the TPU's banded ascent for levels above
-// 512^2): each block owns a tile of the level and runs every half-sweep on
-// a box of the tile and a halo as deep as the sweeps reach, held in shared
-// memory with f beside it, with block barriers only (tile_smooth, written
-// for k_down to take up next); mg_kernel.up_plan picks the tile per level
-// and splits the sweeps into rounds of separate launches where a halo for
-// all of them would not fit.
+// mg_down and mg_up: ordinary launches with no grid-wide barrier, one at
+// the solvers' nsmooth (temporal blocking, as the TPU's banded kernels for
+// levels above 512^2): each block owns a tile of the level and runs every
+// half-sweep on a box of the tile and a halo as deep as the sweeps reach,
+// held in shared memory with f beside it, with block barriers only
+// (tile_smooth); the descent's last round restricts the residual of its
+// tile's cells from the box (a tile starts at an odd index and is even, so
+// it holds the four children of each of its coarse cells).
+// mg_kernel.tile_plan picks the tile per level and split the
+// sweeps into rounds of separate launches where a halo for all of them
+// would not fit.
 // mg_core: one launch of a thread-block cluster, each block holding v and
 // f of every level 0..top in its shared memory (128^2 float32: 183 KB;
 // 64^2 float64: 96 KB), laid out, scheduled and clustered as the launch's
@@ -74,15 +73,15 @@
 // stencils, 7 (CONST), 13 (VC) or 17 (GENERAL) operations per cell update
 // against 2 values and 2-5 coefficients in and one out, so a call's least
 // time is the bytes of its frames and planes over the memory rate
-// (mg_kernel.work counts them).  mg_down, still its first design, pays one
-// grid-wide barrier per half-sweep (21 at nsmooth 10) and reads each cell's
-// neighbours from L2, with stride-2 colour accesses; mg_up's tiles read
-// them from shared memory, at the price of the halo's recomputation (1.8x
-// the cells at 1024^2) and a 2-way bank conflict of the stride-2 colour
-// walk.  The core cannot approach its byte bound at all: it is a chain of
-// ~400 dependent phases (a top of 128^2 at nsmooth 10 / 50 bottom sweeps),
-// most of them on levels of 4 to 256 cells, and on one block the 128^2
-// level's sweeps are bound by one SM's instruction throughput.  Its design:
+// (mg_kernel.work counts them).  mg_down and mg_up read each cell's
+// neighbours from shared memory, at the price of the halo's recomputation
+// (1.8x the cells at 1024^2 with 64^2 tiles, more with smaller tiles), the
+// block barrier of each half-sweep and a 2-way bank conflict of the
+// stride-2 colour walk.  The core cannot approach its byte bound at all: it
+// is a chain of ~400 dependent phases (a top of 128^2 at nsmooth 10 / 50
+// bottom sweeps), most of them on levels of 4 to 256 cells, and on one
+// block the 128^2 level's sweeps are bound by one SM's instruction
+// throughput.  Its design:
 //   * the levels of at least mg_kernel.CLUSTER_N cells a side are spread
 //     by rows over the CORE_CTAS blocks of a cluster, one SM each; a sweep
 //     reads the rows beside a block's own from its neighbours' shared
@@ -127,7 +126,6 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int MAXLEV = 16;        // levels of the core: 2^1 .. 2^16 per side
-constexpr int THREADS = 256;      // block of mg_down / mg_up
 constexpr int CORE_THREADS = 1024;
 constexpr int CORE_CTAS = 8;      // the cluster of a core with spread levels
 
@@ -199,96 +197,32 @@ __device__ __forceinline__ T restricted(const T* v, const T* f,
   return restrict4<OP>(v, f, L, alpha, beta, (2 * I - 1) * L.q + 2 * J - 1);
 }
 
-// frame (i, j) of the k-th interior cell of a colour: red (0) has
-// (i - 1) + (j - 1) even
-__device__ __forceinline__ void colored(int k, int n, int color, int& i,
-                                        int& j) {
-  const int h = n >> 1;
-  const int ii = k / h;
-  i = ii + 1;
-  j = 2 * (k - ii * h) + ((ii + color) & 1) + 1;
-}
-
-// nsmooth red-black iterations in place; `sync` is the barrier
-template <int OP, typename T, typename Sync>
-__device__ void smooth(T* v, const T* f, const Lev<T>& L, int nsmooth,
-                       int t0, int nt, Sync sync) {
-  const int half = L.n * L.n / 2;
-  for (int it = 0; it < nsmooth; ++it) {
-    for (int color = 0; color < 2; ++color) {
-      for (int k = t0; k < half; k += nt) {
-        int i, j;
-        colored(k, L.n, color, i, j);
-        put(v, L, i, j, gs<OP>(v, f, L, i * L.q + j));
-      }
-      sync();
-    }
-  }
-}
-
-// -- mg_down ------------------------------------------------------------------
-
-template <typename T>
-struct DownArgs {
-  const T* v;  // the guess, or nullptr for zero
-  const T* f;
-  T* vo;       // the smoothed guess, ghosts filled
-  T* fc;       // the restricted residual, on the coarse frame
-  Lev<T> L;
-  T alpha, beta;
-  int nsmooth;
-};
-
-template <int OP, typename T>
-__global__ void __launch_bounds__(THREADS) k_down(DownArgs<T> a) {
-  cg::grid_group grid = cg::this_grid();
-  auto sync = [&]() { grid.sync(); };
-  const Lev<T>& L = a.L;
-  const int n = L.n, q = L.q;
-  const int t0 = blockIdx.x * blockDim.x + threadIdx.x;
-  const int nt = gridDim.x * blockDim.x;
-
-  for (int k = t0; k < n * n; k += nt) {
-    const int i = k / n + 1, j = k % n + 1;
-    put(a.vo, L, i, j, a.v ? a.v[i * q + j] : T(0));
-  }
-  sync();
-  smooth<OP>(a.vo, a.f, L, a.nsmooth, t0, nt, sync);
-
-  const int nc = n / 2, qc = nc + 2;
-  for (int k = t0; k < qc * qc; k += nt) {
-    const int I = k / qc, J = k % qc;
-    a.fc[k] = (I >= 1 && I <= nc && J >= 1 && J <= nc)
-                  ? restricted<OP>(a.vo, a.f, L, a.alpha, a.beta, I, J)
-                  : T(0);
-  }
-}
-
-// -- mg_up ------------------------------------------------------------------
+// -- mg_down and mg_up: tiles with deep halos ---------------------------------
 //
 // Ordinary launches with no grid-wide barrier: each block owns a tile of
 // the level's interior and runs a round of sweeps on a box of the tile and
 // a halo in shared memory (temporal blocking).  The halo is as deep as the
 // round's sweeps reach, one cell a half-sweep, plus one for the residual;
 // the prolongation reads the coarse frame where each box cell lies, so it
-// needs no halo of its own.  mg_kernel.up_plan picks the tile, the halo and
-// the rounds (several launches when a halo for all nsmooth iterations would
-// not fit the shared memory; one at the solvers' nsmooth).
+// needs no halo of its own.  mg_kernel.tile_plan picks the tile,
+// the halo and the rounds (several launches when a halo for all nsmooth
+// iterations would not fit the shared memory; one at the solvers'
+// nsmooth).
 
-// the block of mg_up: UP_X threads (threadIdx.x) along a row's cells of a
-// colour, the plan's threads / UP_X (threadIdx.y) over the rows, at most
-// UP_MAX threads
-constexpr int UP_X = 32, UP_MAX = 512;
+// the block of the tiled kernels: TILE_X threads (threadIdx.x) along a
+// row's cells of a colour, the plan's threads / TILE_X (threadIdx.y) over
+// the rows, at most TILE_THREADS threads
+constexpr int TILE_X = 32, TILE_THREADS = 512;
 
-// the launch plan of mg_kernel.up_plan: the owned tile's side, the halo,
+// the launch plan of mg_kernel.tile_plan: the owned tile's side, the halo,
 // the rounds and the iterations of a full round, the block's threads, its
 // shared memory (bytes: the box of v, then the box of f) and the tiles
 // along a side
-struct UpPlan {
+struct TilePlan {
   int tile, halo, rounds, iters, threads, smem, tiles;
 };
 
-constexpr int UP_PLAN_INTS = 7;
+constexpr int TILE_PLAN_INTS = 7;
 
 // the box of a tile in shared memory, row-major: along each axis the
 // extended interior indices e0 .. e0 + w - 1 (1 .. n the level's interior;
@@ -391,36 +325,15 @@ __device__ __forceinline__ void zero_ghosts(T* r, const Lev<T>& L, int i,
   if (xh && yh) r[(q - 1) * q + q - 1] = T(0);
 }
 
-template <typename T>
-struct UpArgs {
-  const T* src;  // the pre-smoothed guess (first round), else the last
-                 // round's output
-  const T* f;
-  const T* vc;   // the coarse correction, ghosts filled (first round), or
-                 // nullptr
-  T* dst;        // this round's output, ghosts filled
-  T* r;          // the residual (last round, finest level), or nullptr
-  Lev<T> L;
-  T alpha, beta;
-  int iters;     // red-black iterations of this round
-  int tile, halo;
-  bool px, py;   // periodic x edges, y edges
-};
-
-// one round on the tile (blockIdx.y, blockIdx.x): load the boxes of v (the
-// guess plus the prolonged correction in the first round) and f, smooth,
-// write the tile's cells with the ghosts that mirror them (`put`) and, in
-// the last round of the finest level, the residual
-template <int OP, typename T>
-__global__ void __launch_bounds__(UP_MAX) k_up(UpArgs<T> a) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* b = reinterpret_cast<T*>(smem_raw);
-  const Lev<T>& L = a.L;
-  const int n = L.n, q = L.q, qc = n / 2 + 2;
-  const int ti = 1 + blockIdx.y * a.tile, tj = 1 + blockIdx.x * a.tile;
-  const TileBox t{ti - a.halo, tj - a.halo, a.tile + 2 * a.halo, n, a.px,
-                  a.py};
-  T* fb = b + t.w * t.w;
+// load the boxes of v and f of tile box t by the block's threads: at each
+// cell of the level that the box holds (the wrapped interior across a
+// periodic edge), v's value is val(frame index, interior row, interior
+// column) and f's is read at the frame index; a block barrier follows
+template <typename T, typename V>
+__device__ __forceinline__ void load_box(T* b, T* fb, const TileBox& t,
+                                         const Lev<T>& L, const T* f,
+                                         V val) {
+  const int q = L.q;
   const int i1 = t.hi(t.ei, t.px), j1 = t.hi(t.ej, t.py);
   for (int i = t.lo(t.ei, t.px) + (int)threadIdx.y; i <= i1; i += blockDim.y) {
     const int it = t.px ? t.wrap(i) : i;
@@ -428,13 +341,113 @@ __global__ void __launch_bounds__(UP_MAX) k_up(UpArgs<T> a) {
          j += blockDim.x) {
       const int jt = t.py ? t.wrap(j) : j;
       const int c = it * q + jt, o = t.at(i, j);
-      b[o] = a.vc ? a.src[c] + prolong(a.vc, qc, it, jt) : a.src[c];
-      fb[o] = a.f[c];
+      b[o] = val(c, it, jt);
+      fb[o] = f[c];
     }
   }
   __syncthreads();
+}
+
+// the arguments of one round of a tiled kernel
+template <typename T>
+struct TileArgs {
+  const T* src;  // the round's input v: the caller's (first round; for
+                 // mg_down nullptr is a zero guess), else the last round's
+                 // output
+  const T* f;
+  const T* vc;   // mg_up: the coarse correction, ghosts filled (first
+                 // round), or nullptr
+  T* dst;        // this round's output, ghosts filled
+  T* r;          // mg_up: the residual (last round, finest level); mg_down:
+                 // the restricted residual on the coarse frame (last
+                 // round); or nullptr
+  Lev<T> L;
+  T alpha, beta;
+  int iters;     // red-black iterations of this round
+  int tile, halo;
+  bool px, py;   // periodic x edges, y edges
+};
+
+// the box of the block's tile (blockIdx.y, blockIdx.x) and its halo
+template <typename T>
+__device__ __forceinline__ TileBox tile_box(const TileArgs<T>& a) {
+  return TileBox{1 + (int)blockIdx.y * a.tile - a.halo,
+                 1 + (int)blockIdx.x * a.tile - a.halo,
+                 a.tile + 2 * a.halo, a.L.n, a.px, a.py};
+}
+
+// one round of mg_down on the tile (blockIdx.y, blockIdx.x): load the
+// boxes of v (zero for a zero guess) and f, smooth, write the tile's cells
+// with the ghosts that mirror them (`put`) and, in the last round, the
+// residual of the tile's cells restricted to its tile / 2 coarse cells a
+// side (the four children in restrict4's order) with the coarse frame's
+// zero ghosts beside them on the level's edge.  A tile starts at an odd
+// index and is even, so its coarse cells' children are its own cells, and
+// the halo leaves the ring around them exact for the residual
+template <int OP, typename T>
+__global__ void __launch_bounds__(TILE_THREADS) k_down(TileArgs<T> a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* b = reinterpret_cast<T*>(smem_raw);
+  const Lev<T>& L = a.L;
+  const TileBox t = tile_box(a);
+  T* fb = b + t.w * t.w;
+  load_box(b, fb, t, L, a.f,
+           [&](int c, int, int) { return a.src ? a.src[c] : T(0); });
   tile_smooth<OP>(b, fb, t, L, a.iters);
 
+  const int ti = t.ei + a.halo, tj = t.ej + a.halo;
+  for (int i = ti + (int)threadIdx.y; i < ti + a.tile; i += blockDim.y)
+    for (int j = tj + (int)threadIdx.x; j < tj + a.tile; j += blockDim.x)
+      put(a.dst, L, i, j, b[t.at(i, j)]);
+  if (!a.r) return;
+
+  // the residual of tile cell (i, j) from the box
+  auto res = [&](int i, int j) {
+    const int o = t.at(i, j);
+    const T v0 = b[o];
+    const Nbrs<T> v = nbrs(b, t, L, o, i, j, v0);
+    return resid_val<OP>(v0, v.xp, v.xm, v.yp, v.ym, fb[o], L, a.alpha,
+                         a.beta, i * L.q + j);
+  };
+  // this block's rows and columns of the coarse frame: its tile's coarse
+  // cells, and the ghosts beside them on the level's edge
+  const int nc = L.n / 2, qc = nc + 2, h = a.tile / 2;
+  const int I0 = (ti + 1) / 2, J0 = (tj + 1) / 2;
+  const int R0 = blockIdx.y == 0 ? 0 : I0;
+  const int R1 = blockIdx.y == gridDim.y - 1 ? qc : I0 + h;
+  const int C0 = blockIdx.x == 0 ? 0 : J0;
+  const int C1 = blockIdx.x == gridDim.x - 1 ? qc : J0 + h;
+  for (int I = R0 + (int)threadIdx.y; I < R1; I += blockDim.y) {
+    for (int J = C0 + (int)threadIdx.x; J < C1; J += blockDim.x) {
+      T val = T(0);
+      if (I >= 1 && I <= nc && J >= 1 && J <= nc) {
+        const int i = 2 * I - 1, j = 2 * J - 1;
+        val = T(0.25) * (((res(i, j) + res(i + 1, j)) + res(i, j + 1)) +
+                         res(i + 1, j + 1));
+      }
+      a.r[I * qc + J] = val;
+    }
+  }
+}
+
+// one round of mg_up on the tile (blockIdx.y, blockIdx.x): load the boxes
+// of v (the guess plus the prolonged correction in the first round) and f,
+// smooth, write the tile's cells with the ghosts that mirror them (`put`)
+// and, in the last round of the finest level, the residual
+template <int OP, typename T>
+__global__ void __launch_bounds__(TILE_THREADS) k_up(TileArgs<T> a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* b = reinterpret_cast<T*>(smem_raw);
+  const Lev<T>& L = a.L;
+  const int q = L.q, qc = L.n / 2 + 2;
+  const TileBox t = tile_box(a);
+  T* fb = b + t.w * t.w;
+  load_box(b, fb, t, L, a.f, [&](int c, int it, int jt) {
+    return a.vc ? a.src[c] + prolong(a.vc, qc, it, jt) : a.src[c];
+  });
+  tile_smooth<OP>(b, fb, t, L, a.iters);
+
+  const int ti = t.ei + a.halo, tj = t.ej + a.halo;
   for (int i = ti + (int)threadIdx.y; i < ti + a.tile; i += blockDim.y) {
     for (int j = tj + (int)threadIdx.x; j < tj + a.tile; j += blockDim.x) {
       const int o = t.at(i, j);
@@ -789,81 +802,36 @@ __global__ void __launch_bounds__(CORE_THREADS) k_core(CoreArgs<T> a) {
 
 // -- launches -------------------------------------------------------------------
 
-// blocks of a cooperative launch over `items` cells: no more than can be
-// co-resident on the card (queried once per kernel)
-int coop_blocks(const void* kernel, int& cached, int items) {
-  if (cached < 0) {
-    int dev = 0, sms = 0, per_sm = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
-            cudaSuccess ||
-        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                      THREADS, 0) !=
-            cudaSuccess)
-      return 0;
-    cached = per_sm * sms;
-  }
-  const int want = (items + THREADS - 1) / THREADS;
-  return want < cached ? want : cached;
-}
-
-template <typename Args>
-int launch_cooperative(void (*kernel)(Args), int& cached, int items,
-                       Args a, cudaStream_t st) {
-  const int blocks = coop_blocks((const void*)kernel, cached, items);
-  if (blocks < 1) return (int)cudaErrorLaunchOutOfResources;
-  void* params[] = {&a};
-  cudaError_t err = cudaLaunchCooperativeKernel(
-      (const void*)kernel, dim3(blocks), dim3(THREADS), params, 0, st);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
-}
-
 bool valid_size(int n) { return n >= 2 && (n & (n - 1)) == 0; }
 
-template <int OP, typename T>
-int down(const T* v, const T* f, T* vo, T* fc, int n, int nsmooth,
-         const int* bc, const double* coef, const double* ab,
-         const void* planes, cudaStream_t st) {
-  static int cached = -1;
-  if (!valid_size(n) || n < 4 || nsmooth < 0 || (OP != OP_CONST && !planes))
-    return (int)cudaErrorInvalidValue;
-  DownArgs<T> a;
-  a.v = v;
-  a.f = f;
-  a.vo = vo;
-  a.fc = fc;
-  a.L = make_level<T>(n, coef, bc, planes);
-  a.alpha = (T)ab[0];
-  a.beta = (T)ab[1];
-  a.nsmooth = nsmooth;
-  return launch_cooperative(k_down<OP, T>, cached, n * n, a, st);
-}
-
-// plan (mg_kernel.up_plan): see UpPlan.  scratch is a second frame for the
-// rounds to alternate with vo (nullptr with one round)
-template <int OP, typename T>
-int up(const T* v, const T* f, const T* vc, T* vo, T* r, T* scratch, int n,
-       int nsmooth, const int* bc, const double* coef, const double* ab,
-       const int* plan, const void* planes, cudaStream_t st) {
-  static int opted = 0;
-  if (!valid_size(n) || n < 4 || nsmooth < 0 || (OP != OP_CONST && !planes))
+// the rounds of one mg_down or mg_up call on an n^2 level with
+// plan (mg_kernel.tile_plan; see TilePlan) by `kernel`, whose
+// shared-memory opt-in so far is `opted`: round k reads src (v in the first
+// round, else the last round's output) and writes dst, the rounds
+// alternating between scratch and vo so that the last one ends in vo; vc
+// goes to the first round, r to the last.  scratch may be nullptr with one
+// round.  The plan must hold a power-of-2 even tile that divides the
+// level, rounds of `iters` iterations (the last one the rest) that take
+// nsmooth together, a halo as deep as a round's half-sweeps plus the
+// residual, and a box that fits its shared memory
+template <typename T>
+int tiled(void (*kernel)(TileArgs<T>), int& opted, const T* v, const T* f,
+          const T* vc, T* vo, T* r, T* scratch, int n, int nsmooth,
+          const int* bc, const double* coef, const double* ab,
+          const int* plan, const void* planes, cudaStream_t st) {
+  if (!valid_size(n) || n < 4 || nsmooth < 0)
     return (int)cudaErrorInvalidValue;
   // a periodic axis is periodic at both of its edges
   if ((bc[0] == PERIODIC) != (bc[1] == PERIODIC) ||
       (bc[2] == PERIODIC) != (bc[3] == PERIODIC))
     return (int)cudaErrorInvalidValue;
-  const UpPlan t{plan[0], plan[1], plan[2], plan[3],
-                 plan[4], plan[5], plan[6]};
-  // a power-of-2 tile that divides the level; rounds of `iters` iterations
-  // (the last one the rest) that take nsmooth together, a halo as deep as a
-  // round's half-sweeps plus the residual, and a box that fits the plan's
-  // shared memory
+  const TilePlan t{plan[0], plan[1], plan[2], plan[3],
+                   plan[4], plan[5], plan[6]};
   const int rounds =
       nsmooth == 0 ? 1 : (nsmooth + t.iters - 1) / max(t.iters, 1);
-  if (t.tile < 1 || (t.tile & (t.tile - 1)) || t.tile > n ||
-      t.tiles * t.tile != n || t.threads < UP_X || t.threads > UP_MAX ||
-      t.threads % UP_X || t.iters < 0 ||
+  if (t.tile < 2 || (t.tile & (t.tile - 1)) || t.tile > n ||
+      t.tiles * t.tile != n || t.threads < TILE_X ||
+      t.threads > TILE_THREADS || t.threads % TILE_X || t.iters < 0 ||
       (nsmooth > 0 && t.iters < 1) || t.rounds != rounds ||
       t.halo < 2 * t.iters + 1 || (rounds > 1 && !scratch))
     return (int)cudaErrorInvalidValue;
@@ -872,12 +840,12 @@ int up(const T* v, const T* f, const T* vc, T* vo, T* r, T* scratch, int n,
     return (int)cudaErrorInvalidValue;
   if (t.smem > opted) {
     cudaError_t e = cudaFuncSetAttribute(
-        (const void*)k_up<OP, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (const void*)kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         t.smem);
     if (e != cudaSuccess) return (int)e;
     opted = t.smem;
   }
-  UpArgs<T> a;
+  TileArgs<T> a;
   a.f = f;
   a.L = make_level<T>(n, coef, bc, planes);
   a.alpha = (T)ab[0];
@@ -888,20 +856,42 @@ int up(const T* v, const T* f, const T* vc, T* vo, T* r, T* scratch, int n,
   a.py = bc[2] == PERIODIC;
   const T* src = v;
   for (int k = 0; k < rounds; ++k) {
-    // the rounds alternate between scratch and vo, ending in vo
     T* dst = ((rounds - 1 - k) & 1) ? scratch : vo;
     a.src = src;
     a.vc = k == 0 ? vc : nullptr;
     a.dst = dst;
     a.r = k == rounds - 1 ? r : nullptr;
     a.iters = min(t.iters, nsmooth - k * t.iters);
-    k_up<OP, T><<<dim3(t.tiles, t.tiles), dim3(UP_X, t.threads / UP_X),
-                  t.smem, st>>>(a);
+    kernel<<<dim3(t.tiles, t.tiles), dim3(TILE_X, t.threads / TILE_X),
+             t.smem, st>>>(a);
     const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
     src = dst;
   }
   return 0;
+}
+
+// mg_down: v nullptr is a zero guess; fc the coarse frame the last round
+// restricts the residual into
+template <int OP, typename T>
+int down(const T* v, const T* f, T* vo, T* fc, T* scratch, int n,
+         int nsmooth, const int* bc, const double* coef, const double* ab,
+         const int* plan, const void* planes, cudaStream_t st) {
+  static int opted = 0;
+  if (OP != OP_CONST && !planes) return (int)cudaErrorInvalidValue;
+  return tiled<T>(k_down<OP, T>, opted, v, f, nullptr, vo, fc, scratch, n,
+                  nsmooth, bc, coef, ab, plan, planes, st);
+}
+
+// mg_up: vc the coarse correction; r the residual (nullptr: none)
+template <int OP, typename T>
+int up(const T* v, const T* f, const T* vc, T* vo, T* r, T* scratch, int n,
+       int nsmooth, const int* bc, const double* coef, const double* ab,
+       const int* plan, const void* planes, cudaStream_t st) {
+  static int opted = 0;
+  if (OP != OP_CONST && !planes) return (int)cudaErrorInvalidValue;
+  return tiled<T>(k_up<OP, T>, opted, v, f, vc, vo, r, scratch, n, nsmooth,
+                  bc, coef, ab, plan, planes, st);
 }
 
 // planes: one plane-stack pointer per level 0..top (nullptr for OP_CONST);
@@ -999,12 +989,13 @@ int core(const T* v, const T* f, T* vo, T* r, int top, int nsmooth,
                              coef, ab, schedule, nullptr,                   \
                              (cudaStream_t)stream);                           \
   }                                                                           \
-  extern "C" int mg_down_##SFX(const T* v, const T* f, T* vo, T* fc, int n,   \
-                               int nsmooth, const int* bc,                    \
-                               const double* coef, const double* ab,          \
+  extern "C" int mg_down_##SFX(const T* v, const T* f, T* vo, T* fc,         \
+                               T* scratch, int n, int nsmooth,                \
+                               const int* bc, const double* coef,             \
+                               const double* ab, const int* plan,             \
                                void* stream) {                                \
-    return down<OP_CONST, T>(v, f, vo, fc, n, nsmooth, bc, coef, ab, nullptr, \
-                             (cudaStream_t)stream);                           \
+    return down<OP_CONST, T>(v, f, vo, fc, scratch, n, nsmooth, bc, coef, ab, \
+                             plan, nullptr, (cudaStream_t)stream);            \
   }                                                                           \
   extern "C" int mg_up_##SFX(const T* v, const T* f, const T* vc, T* vo,      \
                              T* r, T* scratch, int n, int nsmooth,            \
@@ -1027,11 +1018,11 @@ int core(const T* v, const T* f, T* vo, T* r, int top, int nsmooth,
                        ab, schedule, planes, (cudaStream_t)stream);           \
   }                                                                           \
   extern "C" int mg_down_##NAME##_##SFX(                                      \
-      const T* v, const T* f, T* vo, T* fc, int n, int nsmooth,               \
-      const int* bc, const double* coef, const double* ab,                    \
+      const T* v, const T* f, T* vo, T* fc, T* scratch, int n, int nsmooth,   \
+      const int* bc, const double* coef, const double* ab, const int* plan,   \
       const void* planes, void* stream) {                                     \
-    return down<OP, T>(v, f, vo, fc, n, nsmooth, bc, coef, ab, planes,        \
-                       (cudaStream_t)stream);                                 \
+    return down<OP, T>(v, f, vo, fc, scratch, n, nsmooth, bc, coef, ab, plan, \
+                       planes, (cudaStream_t)stream);                         \
   }                                                                           \
   extern "C" int mg_up_##NAME##_##SFX(                                        \
       const T* v, const T* f, const T* vc, T* vo, T* r, T* scratch, int n,    \
@@ -1041,8 +1032,9 @@ int core(const T* v, const T* f, T* vo, T* r, int top, int nsmooth,
                      plan, planes, (cudaStream_t)stream);                     \
   }
 
-// the length of the plan array the mg_up entries take (mg_kernel.up_plan)
-extern "C" int mg_up_plan_ints() { return UP_PLAN_INTS; }
+// the length of the plan array the mg_down and mg_up entries take
+// (mg_kernel.tile_plan)
+extern "C" int mg_tile_plan_ints() { return TILE_PLAN_INTS; }
 
 CONST_ENTRIES(float, f32)
 CONST_ENTRIES(double, f64)

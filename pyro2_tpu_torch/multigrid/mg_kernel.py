@@ -11,11 +11,11 @@ as `downs -> core -> ups`, the assembly of the JAX package's
     as `core_plan` lays them out; each level on the warps `core_schedule`
     gives it), and writes the residual when no level is peeled;
   * each finer, peeled level adds one `down` (pre-smooth, residual,
-    restrict; one cooperative launch) and one `up` (prolong and correct,
-    post-smooth, and the residual on the finest level), which runs its
-    sweeps on tiles with deep halos in shared memory, as `up_plan` lays
-    them out: one ordinary launch at the solvers' nsmooth, several rounds
-    where a halo for all of them would not fit.
+    restrict) and one `up` (prolong and correct, post-smooth, and the
+    residual on the finest level), which run their sweeps on tiles with
+    deep halos in shared memory, as `tile_plan` lays them out: one
+    ordinary launch at the solvers' nsmooth, several rounds where a halo
+    for all of them would not fit.
 
 One cycle launches 1 core and 1 down plus 1 up per peeled level, as the
 TPU's did.  Which levels the core holds is a property of the card's shared
@@ -52,8 +52,8 @@ from pyro2_tpu_torch.util import cuda_build
 __all__ = ["CORE_MAX", "FLAVOURS", "Ineligible", "build", "check", "core",
            "core_cells", "core_cluster", "core_offsets", "core_plain",
            "core_plan", "core_schedule", "cycle", "down", "down_plain",
-           "flavour", "launches", "split", "up", "up_plain", "up_plan",
-           "UpPlan", "work"]
+           "flavour", "launches", "split", "tile_plan", "up", "up_plain",
+           "TilePlan", "work"]
 
 SOURCE = cuda_build.CSRC / "mg_vcycle.cu"
 
@@ -110,18 +110,17 @@ def _load():
         ptr, i32, dbl = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
         ints, doubles = ctypes.POINTER(i32), ctypes.POINTER(dbl)
         for sfx, ncoef in FLAVOURS.values():
-            # bc, coef, ab, (the core) its core_plan, then
-            # (coefficient entries) the planes, stream
+            # bc, coef, ab, the core_plan or tile plan, then (coefficient
+            # entries) the planes, stream
             for t in ("f32", "f64"):
-                for kind, nptr, nint in (("core", 4, 3), ("down", 4, 2),
+                for kind, nptr, nint in (("core", 4, 3), ("down", 5, 2),
                                          ("up", 6, 2)):
-                    tail = [ints, doubles, doubles] + \
-                        ([ints] if kind in ("core", "up") else []) + \
+                    tail = [ints, doubles, doubles, ints] + \
                         ([ptr] if ncoef else []) + [ptr]
                     fn = getattr(lib, f"mg_{kind}{sfx}_{t}")
                     fn.argtypes = [ptr] * nptr + [i32] * nint + tail
                     fn.restype = i32
-        lib.mg_up_plan_ints.restype = i32
+        lib.mg_tile_plan_ints.restype = i32
         _lib = lib
     return _lib
 
@@ -232,42 +231,46 @@ def core_plan(top):
 
 
 # ---------------------------------------------------------------------------
-# the plan of mg_up's tiles
+# the plans of mg_down's and mg_up's tiles
 # ---------------------------------------------------------------------------
 
-# mg_up's block: rows of 32 threads (mg_vcycle.cu UP_X), at most UP_MAX
-UP_THREADS = 512
-# the owned tile's side: the largest power of 2 up to UP_TILE_MAX that still
-# gives UP_BLOCKS tiles or more and whose box holds a halo for all nsmooth
-# iterations, and not below UP_TILE_MIN (nor above the level): a larger
-# tile recomputes less of its halo, more tiles fill more SMs
-UP_TILE_MAX, UP_TILE_MIN, UP_BLOCKS = 64, 16, 128
+# the tiled kernels' block: rows of 32 threads (mg_vcycle.cu TILE_X), at
+# most TILE_THREADS
+TILE_THREADS = 512
+# the owned tile's side: the largest power of 2 up to TILE_MAX that still
+# gives TILE_BLOCKS tiles or more and whose box holds a halo for all
+# nsmooth iterations, and not below TILE_MIN (nor above the level): a
+# larger tile recomputes less of its halo, more tiles fill more SMs.  The
+# descent and the ascent take the same tiles: fewer, larger ones were no
+# faster at any level on the card (chip_smoke.py times mg_down with them)
+TILE_MAX, TILE_MIN, TILE_BLOCKS = 64, 16, 128
 # the most bytes a tile's boxes (v and f) may take, so that two blocks
 # share an SM
-UP_SMEM = 110 * 1024
+TILE_SMEM = 110 * 1024
 
 
-class UpPlan:
-    """The tiling of one mg_up call on an n^2 level: the owned tile's side,
-    the halo (one cell per half-sweep of a round, and one for the
-    residual), the rounds of sweeps (separate launches, each on the last
-    one's output) and the iterations of a full round, the block's
+class TilePlan:
+    """The tiling of one mg_down or mg_up call on an n^2 level: the owned
+    tile's side, the halo (one cell per half-sweep of a round, and one for
+    the residual), the rounds of sweeps (separate launches, each on the
+    last one's output) and the iterations of a full round, the block's
     threads, its shared memory (bytes: the boxes of v and f, each the tile
-    and its halo) and the tiles along a side.  `ints()` is the array the
-    kernel takes."""
+    and its halo) and the tiles along a side.  `blocks` is the least count
+    of tiles the tile side keeps while it can (TILE_BLOCKS; others for
+    measuring other tiles).  `ints()` is the array the kernels take."""
 
     FIELDS = ("tile", "halo", "rounds", "iters", "threads", "smem", "tiles")
 
-    def __init__(self, n, nsmooth, dtype):
+    def __init__(self, n, nsmooth, dtype, blocks=TILE_BLOCKS):
         item = torch.empty((), dtype=dtype).element_size()
-        side = math.isqrt(UP_SMEM // (2 * item))  # the widest box that fits
+        side = math.isqrt(TILE_SMEM // (2 * item))  # the widest box that fits
 
         def most(tile):                 # iterations a round's box holds
             return (side - tile - 2) // 4         # tile + 2 (2 iters + 1)
 
-        tile = min(n, UP_TILE_MAX)
-        while tile > UP_TILE_MIN and ((n // tile) ** 2 < UP_BLOCKS or
-                                      most(tile) < nsmooth):
+        tile = min(n, TILE_MAX)
+        while tile > TILE_MIN and ((n // tile) ** 2 < blocks or
+                                   most(tile) < nsmooth):
             tile //= 2
         if nsmooth == 0:
             rounds, iters = 1, 0
@@ -277,7 +280,7 @@ class UpPlan:
         self.nsmooth = nsmooth
         self.tile, self.iters, self.rounds = tile, iters, rounds
         self.halo = 2 * iters + 1
-        self.threads = UP_THREADS
+        self.threads = TILE_THREADS
         self.tiles = n // tile
         self.smem = 2 * (tile + 2 * self.halo) ** 2 * item
 
@@ -292,10 +295,10 @@ class UpPlan:
 
 
 @functools.lru_cache(maxsize=128)
-def up_plan(n, nsmooth, dtype):
-    """The plan of one mg_up call (see UpPlan), made once for each set of
-    arguments."""
-    return UpPlan(n, nsmooth, dtype)
+def tile_plan(n, nsmooth, dtype):
+    """The plan of one mg_down or mg_up call (see TilePlan), made once for
+    each set of arguments."""
+    return TilePlan(n, nsmooth, dtype)
 
 
 def _coef(mg, level):
@@ -389,6 +392,14 @@ def _ptr(a):
     return None if a is None else a.data_ptr()
 
 
+def _c_plan(plan):
+    """A TilePlan's ints as the C array the tiled entries take."""
+    if _load().mg_tile_plan_ints() != len(TilePlan.FIELDS):
+        raise RuntimeError("mg_vcycle.cu takes another tile plan layout")
+    ints = plan.ints()
+    return (ctypes.c_int * len(ints))(*ints)
+
+
 def _run(fn, device, *args):
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
@@ -427,15 +438,21 @@ def launch_core(mg, top, v, f, want_r):
     return vo, r
 
 
-def launch_down(mg, level, v, f):
-    """The CUDA down kernel: (smoothed v, coarse f)."""
+def launch_down(mg, level, v, f, plan=None):
+    """The CUDA down kernel: (smoothed v, coarse f), with tile_plan's tiles
+    unless another TilePlan is given (for measuring other tiles)."""
     _check_tensors(mg, level, v, f)
     gc = mg.grids[level - 1]
+    n = mg.grids[level].nx
+    plan = plan or tile_plan(n, mg.nsmooth, f.dtype)
     vo = torch.empty_like(f)
     fc = torch.empty((gc.qx, gc.qy), dtype=f.dtype, device=f.device)
-    fn, key, args = _entry(mg, "down", [mg.grids[level].nx, mg.nsmooth],
-                           f.dtype, levels=[level])
-    _run(fn, f.device, _ptr(v), _ptr(f), _ptr(vo), _ptr(fc), *args)
+    scratch = torch.empty_like(f) if plan.rounds > 1 else None
+    fn, key, args = _entry(mg, "down", [n, mg.nsmooth], f.dtype,
+                           levels=[level])
+    args.insert(5, _c_plan(plan))
+    _run(fn, f.device, _ptr(v), _ptr(f), _ptr(vo), _ptr(fc), _ptr(scratch),
+         *args)
     launches[key] += 1
     return vo, fc
 
@@ -444,17 +461,14 @@ def launch_up(mg, level, v, f, vc, want_r):
     """The CUDA up kernel: (v, r or None)."""
     _check_tensors(mg, level, v, f)
     _check_tensors(mg, level - 1, vc)
-    if _load().mg_up_plan_ints() != len(UpPlan.FIELDS):
-        raise RuntimeError("mg_vcycle.cu takes another mg_up plan layout")
     n = mg.grids[level].nx
-    plan = up_plan(n, mg.nsmooth, f.dtype)
+    plan = tile_plan(n, mg.nsmooth, f.dtype)
     vo = torch.empty_like(f)
     r = torch.empty_like(f) if want_r else None
     scratch = torch.empty_like(f) if plan.rounds > 1 else None
     fn, key, args = _entry(mg, "up", [n, mg.nsmooth], f.dtype,
                            levels=[level])
-    ints = plan.ints()
-    args.insert(5, (ctypes.c_int * len(ints))(*ints))
+    args.insert(5, _c_plan(plan))
     _run(fn, f.device, _ptr(v), _ptr(f), _ptr(vc), _ptr(vo), _ptr(r),
          _ptr(scratch), *args)
     launches[key] += 1

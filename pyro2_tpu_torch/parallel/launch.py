@@ -4,9 +4,11 @@ The port's counterpart of calling a `shard_map` program from one process:
 `run(fn, (px, py), *args)` starts px*py processes (the spawn start
 method), joins them into one process group through a `FileStore` in a
 temporary directory (no ports, no network), builds each rank's `Mesh`
-(parallel.mesh_comm.make_mesh) and calls `fn(mesh, *args)` there.  CPU
-ranks talk over gloo and set torch to one thread (the ranks share the
-host's cores); CUDA ranks over NCCL, one card each.  Each rank's result
+(parallel.mesh_comm.make_mesh) and calls `fn(mesh, *args)` there.  The
+ranks run on CUDA unless the caller passes device="cpu" (with no GPU and
+no device given, `run` raises before it starts any rank): CUDA ranks talk
+over NCCL, one card each; CPU ranks over gloo, and set torch to one thread
+(the ranks share the host's cores).  Each rank's result
 comes back with every tensor in it turned into a numpy array, in rank
 order (rank r holds block (r // py, r % py)).
 
@@ -27,6 +29,7 @@ import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
+from pyro2_tpu_torch.defaults import resolve_device
 from pyro2_tpu_torch.parallel.mesh_comm import make_mesh
 
 __all__ = ["run", "to_host"]
@@ -64,9 +67,11 @@ def _rank_main(rank, world, shape, store_path, device, timeout, fn, args,
             dist.destroy_process_group()
 
 
-def run(fn, shape, *args, device="cpu", timeout=300.0):
+def run(fn, shape, *args, device=None, timeout=300.0):
     """[fn(mesh, *args) of rank 0, of rank 1, ...] on a `shape` mesh of
-    ranks on `device` ("cpu": gloo; "cuda": NCCL, one card per rank)."""
+    ranks on `device` (CUDA by default: NCCL, one card per rank; "cpu":
+    gloo)."""
+    device = resolve_device(device).type
     px, py = shape
     world = px * py
     ctx = mp.get_context("spawn")

@@ -3,7 +3,11 @@
 The kernel is the counterpart of the JAX package's fused Pallas step
 (pyro2_tpu/solvers/swe/pallas_step.py::make_pallas_swe_step_padded).  It is
 built with nvcc into a shared library under pyro2_tpu_torch/_build/ at
-first use (pyro2_tpu_torch.util.cuda_build) and bound with ctypes.
+first use (pyro2_tpu_torch.util.cuda_build) and bound with ctypes.  A step
+is one launch: each block computes one output tile out of shared memory,
+and `plan` -- the tile, the halos each phase reads and the block's
+shared-memory layout -- is worked out here and handed to the kernel, so the
+CPU tests check it.
 
 `SWEStep(sim)(U, t, dt)` is the step the Simulation evolves with:
 
@@ -18,6 +22,7 @@ Pallas kernel.
 """
 
 import ctypes
+import functools
 
 import torch
 
@@ -25,7 +30,8 @@ from pyro2_tpu_torch.solvers.swe.unsplit_fluxes import (SWE_ITEM,
                                                         check_flattening)
 from pyro2_tpu_torch.util import cuda_build
 
-__all__ = ["SWEStep", "build", "launches", "work", "flops_per_zone"]
+__all__ = ["SWEStep", "Plan", "build", "covered", "launches", "plan", "work",
+           "flops_per_zone", "HALO", "TILES"]
 
 SOURCE = cuda_build.CSRC / "swe_step.cu"
 
@@ -55,6 +61,109 @@ def flops_per_zone(riemann):
 
 launches = 0   # kernel launches made through SWEStep (read by chip_smoke.py)
 
+# ---------------------------------------------------------------------------
+# the launch plan
+# ---------------------------------------------------------------------------
+
+# the output tile of a block, (rows along x, columns along y), by dtype:
+# the first of these whose block leaves room in an SM's shared memory for
+# BLOCKS of them.  In float32 a 30 x 30 tile (32 x 32 traced cells, two for
+# each of the block's 512 threads) up to 4 variables, else 14 x 30 (16 x
+# 32, one a thread); in float64 14 x 14 on 256 threads (swe_step.cu's
+# SweLaunch).  The larger tile recomputes fewer halo cells, and was the
+# fastest on the card (chip_smoke.py times the step with other tiles)
+TILES = {torch.float32: ((30, 30), (14, 30)), torch.float64: ((14, 14),)}
+THREADS = {torch.float32: 512, torch.float64: 256}
+BLOCKS = {torch.float32: 2, torch.float64: 1}
+
+# how far beyond the output tile each box of a block reaches (swe_step.cu's
+# phases): the traced cells (the states of the faces whose first-pass
+# fluxes the tile's transverse corrections read) and the primitives (the
+# 4th-order MC slope of a traced cell reads two cells along each axis)
+HALO = {"traced": 1, "prim": 3}
+
+# the shared memory one block may opt into on the H100, and an SM's, which
+# its blocks share
+SMEM_LIMIT = 232448
+SMEM_SM = 233472
+
+
+class Plan:
+    """One launch's tiling: the tile (tx rows, ty columns), the block's
+    threads, the grid of tiles (blocks along y, along x) the launch takes,
+    and the block's shared memory: `offsets` of each array in elements of
+    the dtype, `smem` in bytes.  The first Riemann pair ("f1") lies over the
+    primitives ("q"), which no phase reads once the states are traced.
+    `ints()` is the array the kernel takes.  `tile` replaces the choice from
+    TILES (for measuring other tiles)."""
+
+    ARRAYS = ("q", "st", "f1")
+
+    def __init__(self, nx, ny, nvar, dtype, tile=None):
+        self.nx, self.ny, self.nvar = nx, ny, nvar
+        self.threads = THREADS[dtype]
+        for self.tx, self.ty in [tile] if tile else TILES[dtype]:
+            self._layout(nvar, dtype)
+            if BLOCKS[dtype] * self.smem <= SMEM_SM:
+                break
+
+    def _layout(self, nvar, dtype):
+        """The grid and the shared memory of the tile (tx, ty)."""
+        self.halo = dict(HALO)
+        self.grid = (-(-self.ny // self.ty), -(-self.nx // self.tx))
+        item = torch.empty((), dtype=dtype).element_size()
+        traced = self.box("traced")
+        self.sizes = {
+            "q": nvar * self.box("prim"),   # the primitives
+            "st": 4 * nvar * traced,        # each traced cell's four states
+            "f1": 2 * nvar * traced,        # the first pair, x and y faces
+        }
+        self.offsets = {"st": 0, "q": self.sizes["st"], "f1": self.sizes["st"]}
+        self.smem = (self.sizes["st"] + max(self.sizes["q"],
+                                            self.sizes["f1"])) * item
+
+    def box(self, name):
+        """Cells of a block's box: the tile and its halo."""
+        h = self.halo[name]
+        return (self.tx + 2 * h) * (self.ty + 2 * h)
+
+    def ints(self):
+        h = self.halo
+        return [self.tx, self.ty, self.threads, h["prim"], h["traced"],
+                *(self.offsets[a] for a in self.ARRAYS), self.smem,
+                *self.grid]
+
+
+@functools.lru_cache(maxsize=64)
+def plan(nx, ny, nvar, dtype, tile=None):
+    """The launch plan of one step (see Plan), made once for each set of
+    arguments."""
+    return Plan(nx, ny, nvar, dtype, tile)
+
+
+def covered(nvar, ng, dtype):
+    """Raise NotImplementedError unless the fused kernel takes this frame:
+    4..MAXVAR variables, ghosts as deep as the primitives' halo, and a
+    block whose boxes fit the shared memory a block may opt into."""
+    if not 4 <= nvar <= MAXVAR:
+        raise NotImplementedError(
+            f"the swe kernel takes 4..{MAXVAR} variables, not {nvar} "
+            "(ROADMAP.md A.23)")
+    if ng < HALO["prim"]:
+        raise NotImplementedError(
+            f"the swe kernel takes {HALO['prim']} or more ghost cells, not "
+            f"{ng} (ROADMAP.md A.23)")
+    smem = plan(1, 1, nvar, dtype).smem
+    if smem > SMEM_LIMIT:
+        raise NotImplementedError(
+            f"the swe kernel's boxes take {smem} B of shared memory, more "
+            f"than a block's {SMEM_LIMIT} (ROADMAP.md A.23)")
+
+
+def _c_ints(values):
+    return (ctypes.c_int * len(values))(*values)
+
+
 _lib = None
 
 
@@ -71,14 +180,15 @@ def _load():
     if _lib is None:
         so, _, _ = build()
         lib = ctypes.CDLL(str(so))
+        ints = ctypes.POINTER(ctypes.c_int)
         for name in ("swe_step_f32", "swe_step_f64"):
             fn = getattr(lib, name)
-            fn.argtypes = [ctypes.c_void_p] * 3 + [
-                ctypes.POINTER(ctypes.c_int),
-                ctypes.POINTER(ctypes.c_double), ctypes.c_void_p]
+            fn.argtypes = [ctypes.c_void_p] * 2 + [
+                ints, ctypes.POINTER(ctypes.c_double), ints, ctypes.c_void_p]
             fn.restype = ctypes.c_int
-        lib.swe_scratch_planes.argtypes = [ctypes.c_int]
-        lib.swe_scratch_planes.restype = ctypes.c_int
+        lib.swe_plan_ints.restype = ctypes.c_int
+        if lib.swe_plan_ints() != len(Plan.ARRAYS) + 8:
+            raise RuntimeError("swe_step.cu takes another plan layout")
         _lib = lib
     return _lib
 
@@ -137,28 +247,29 @@ class SWEStep:
             return self.plain(U, t, dt)
         return self.launch(U, t, dt)
 
-    def launch(self, U, t, dt):
-        """Launch the CUDA kernel on U's device and current stream."""
+    def launch(self, U, t, dt, tile=None):
+        """Launch the CUDA kernel on U's device and current stream (with
+        another tile than the plan's if one is given)."""
         global launches
         del t   # no time-dependent terms in swe
         self.check(U)
         if U.device.type != "cuda":
             raise ValueError("the CUDA swe kernel takes a CUDA tensor")
+        nvar = self.shape[0]
+        covered(nvar, self._ints[3], U.dtype)
         doubles = list(self._doubles)
         doubles[2] = float(dt)
 
         lib = _load()
-        nvar, qx, qy = self.shape
+        tiles = plan(self._ints[1], self._ints[2], nvar, U.dtype, tile)
         out = torch.empty_like(U)
-        scratch = torch.empty((lib.swe_scratch_planes(nvar), qx, qy),
-                              dtype=U.dtype, device=U.device)
         fn = lib.swe_step_f32 if U.dtype == torch.float32 \
             else lib.swe_step_f64
         with torch.cuda.device(U.device):
             stream = torch.cuda.current_stream(U.device).cuda_stream
-            err = fn(U.data_ptr(), out.data_ptr(), scratch.data_ptr(),
-                     (ctypes.c_int * len(self._ints))(*self._ints),
-                     (ctypes.c_double * len(doubles))(*doubles), stream)
+            err = fn(U.data_ptr(), out.data_ptr(), _c_ints(self._ints),
+                     (ctypes.c_double * len(doubles))(*doubles),
+                     _c_ints(tiles.ints()), stream)
         if err != 0:
             raise RuntimeError(f"swe kernel launch failed: CUDA error {err}")
         launches += 1

@@ -161,9 +161,9 @@ def test_ctu_entries_match_their_bindings(monkeypatch):
 def test_core_entries_take_the_schedule(monkeypatch):
     """Every multigrid core entry takes its schedule (the warps of each
     level, the cluster's CTAs and its first spread level) after its alpha
-    and beta; the down and up entries do not; the core's shared-memory
-    layout is Python's (mg_kernel.core_offsets, in the schedule), not an
-    entry."""
+    and beta; the down and up entries take a tile plan there instead; the
+    core's shared-memory layout is Python's (mg_kernel.core_offsets, in the
+    schedule), not an entry."""
     from pyro2_tpu_torch.multigrid import mg_kernel
 
     text = (cuda_build.CSRC / "mg_vcycle.cu").read_text()
@@ -176,7 +176,7 @@ def test_core_entries_take_the_schedule(monkeypatch):
             core = fns[f"mg_core{sfx}_{t}"].argtypes
             assert len(core) == 4 + 3 + 4 + (1 if ncoef else 0) + 1
             assert len(fns[f"mg_down{sfx}_{t}"].argtypes) == \
-                4 + 2 + 3 + (1 if ncoef else 0) + 1
+                5 + 2 + 4 + (1 if ncoef else 0) + 1
     assert "mg_core_smem" not in fns
 
 
@@ -214,8 +214,8 @@ def test_mol_entries_match_their_bindings(monkeypatch):
 def test_up_entries_take_the_plan_and_no_grid_barrier(monkeypatch):
     """Every mg_up entry takes a scratch frame for its rounds after r and
     its plan after alpha and beta; k_up is an ordinary launch (no
-    cooperative launch, no grid group), while k_down keeps its cooperative
-    one; the plan's length is mg_kernel.up_plan's (UP_PLAN_INTS)."""
+    cooperative launch, no grid group), as every kernel of the file is;
+    the plan's length is mg_kernel.tile_plan's (TILE_PLAN_INTS)."""
     import re
 
     import torch
@@ -224,18 +224,85 @@ def test_up_entries_take_the_plan_and_no_grid_barrier(monkeypatch):
 
     text = (cuda_build.CSRC / "mg_vcycle.cu").read_text()
     # the up template and the two entry macros (constant, coefficient)
-    assert len(re.findall(r"T\* r, T\* scratch,", text)) == 3
-    assert text.count("const int* plan,") == 3
-    body = text.split("k_up(UpArgs<T> a) {", 1)[1].split("\n}\n", 1)[0]
+    assert len(re.findall(r"int up\(.*T\* r, T\* scratch,", text)) == 1
+    assert len(re.findall(r"mg_up_##[\w#]*\([^)]*T\* r, T\* scratch,", text,
+                          re.DOTALL)) == 2
+    body = text.split("k_up(TileArgs<T> a) {", 1)[1].split("\n}\n", 1)[0]
     assert "grid" not in body and "sync()" not in body
-    assert "launch_cooperative(k_up" not in text
-    assert "launch_cooperative(k_down" in text
-    assert re.search(r"k_up<OP, T><<<", text)
-    n_ints = int(re.search(r"constexpr int UP_PLAN_INTS = (\d+);",
+    for gone in ("cudaLaunchCooperativeKernel", "launch_cooperative",
+                 "grid_group", "this_grid", "grid.sync"):
+        assert gone not in text, gone
+    assert "tiled<T>(k_up<OP, T>," in text
+    n_ints = int(re.search(r"constexpr int TILE_PLAN_INTS = (\d+);",
                            text).group(1))
-    assert len(mg_kernel.up_plan(64, 10, torch.float32).ints()) == n_ints
-    fns = _bind(mg_kernel, monkeypatch)
+    assert len(mg_kernel.tile_plan(64, 10, torch.float32).ints()) == n_ints
+    fns = _bind(mg_kernel, monkeypatch, {"mg_tile_plan_ints": n_ints})
     for sfx, ncoef in mg_kernel.FLAVOURS.values():
         for t in ("f32", "f64"):
             assert len(fns[f"mg_up{sfx}_{t}"].argtypes) == \
                 6 + 2 + 4 + (1 if ncoef else 0) + 1
+
+
+def test_down_entries_take_the_plan_and_no_grid_barrier(monkeypatch):
+    """Every mg_down entry takes a scratch frame for its rounds after fc
+    and its tile plan after alpha and beta (the plan's length is
+    mg_kernel.tile_plan's); k_down is an ordinary launch, one per round,
+    with block barriers only; the cooperative first design's helpers are
+    gone, and cooperative_groups stays for the core's cluster alone."""
+    import re
+
+    import torch
+
+    from pyro2_tpu_torch.multigrid import mg_kernel
+
+    text = (cuda_build.CSRC / "mg_vcycle.cu").read_text()
+    assert re.search(r"int down\(const T\* v, const T\* f, T\* vo, T\* fc, "
+                     r"T\* scratch, int n,", text)
+    assert len(re.findall(r"mg_down_##[\w#]*\([^)]*T\* fc,[\s\\]*T\* scratch, "
+                          r"int n, int nsmooth,[^)]*const int\* plan,", text,
+                          re.DOTALL)) == 2
+    body = text.split("k_down(TileArgs<T> a) {", 1)[1].split("\n}\n", 1)[0]
+    assert "grid" not in body.replace("gridDim", "") and "sync()" not in body
+    assert "tile_smooth<OP>(b, fb, t, L, a.iters);" in body
+    assert "tiled<T>(k_down<OP, T>," in text
+    for gone in ("colored(", "coop_blocks", "void smooth("):
+        assert gone not in text, gone
+    assert "cg::this_cluster()" in text
+    plan = mg_kernel.tile_plan(1024, 10, torch.float32)
+    assert len(plan.ints()) == len(mg_kernel.TilePlan.FIELDS)
+    fns = _bind(mg_kernel, monkeypatch, {"mg_tile_plan_ints": 7})
+    for sfx, ncoef in mg_kernel.FLAVOURS.values():
+        for t in ("f32", "f64"):
+            assert len(fns[f"mg_down{sfx}_{t}"].argtypes) == \
+                5 + 2 + 4 + (1 if ncoef else 0) + 1
+
+
+def test_swe_entries_take_the_plan_and_no_scratch(monkeypatch):
+    """swe_step.cu exports one step entry per dtype, each taking the
+    launch plan and no scratch, and the plan's length, which is
+    swe_kernel.plan's; no scratch-size entry is left (the step keeps its
+    intermediates on the chip), and one kernel (k_swe) is launched a
+    step."""
+    import re
+
+    import torch
+
+    from pyro2_tpu_torch.solvers.swe import swe_kernel
+
+    entries = _extern_params("swe_step.cu")
+    assert entries == {"swe_plan_ints": 0, "swe_step_f32": 6,
+                       "swe_step_f64": 6}
+    text = (cuda_build.CSRC / "swe_step.cu").read_text()
+    body = text.split("namespace {", 1)[1]
+    assert "scratch" not in body
+    assert len(re.findall(r"<<<", body)) == 1 and "kernel<<<" in body
+    assert len(re.findall(r"__global__", body)) == 1
+    plan_ints = int(re.search(r"constexpr int PLAN_INTS = (\d+);",
+                              text).group(1))
+    for dtype in (torch.float32, torch.float64):
+        assert len(swe_kernel.plan(8, 8, 4, dtype).ints()) == plan_ints
+    fns = _bind(swe_kernel, monkeypatch, {"swe_plan_ints": plan_ints})
+    for name, n in entries.items():
+        if n:
+            assert len(fns[name].argtypes) == n, name
+    assert "swe_scratch_planes" not in fns

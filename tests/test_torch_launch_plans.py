@@ -1,9 +1,10 @@
 """The launch plans the fused CUDA kernels take from Python: the CTU step's
 tiles, grid, halos and shared-memory layout (ctu_kernel.plan), the fv4
-stage increment's (mol_kernel.plan), the multigrid core's level schedule,
-cluster and shared-memory layout (mg_kernel.core_plan), and the multigrid
-ascent's tiles, halo and rounds (mg_kernel.up_plan).  They run on the CPU:
-nothing is compiled or launched."""
+stage increment's (mol_kernel.plan), the swe step's (swe_kernel.plan), the
+multigrid core's level schedule, cluster and shared-memory layout
+(mg_kernel.core_plan), and the multigrid descent's and ascent's tiles, halo
+and rounds (mg_kernel.tile_plan).  They run on the CPU: nothing is
+compiled or launched."""
 
 import itertools
 
@@ -15,10 +16,12 @@ from pyro2_tpu_torch.multigrid import mg_kernel
 from pyro2_tpu_torch.solvers.compressible import ctu_kernel
 from pyro2_tpu_torch.solvers.compressible.simulation import Variables
 from pyro2_tpu_torch.solvers.compressible_fv4 import mol_kernel
+from pyro2_tpu_torch.solvers.swe import swe_kernel
 
 DTYPES = (torch.float32, torch.float64)
 NG = 4                 # the ghost cells of the compressible frames
 SMEM_LIMIT = 232448    # shared memory one block may opt into on the H100
+SMEM_SM = 233472       # shared memory of one SM that its blocks may share
 
 
 def _grids(dtype):
@@ -444,11 +447,11 @@ def test_fv4_uncovered_variable_order_raises():
 UP_NSMOOTH = (0, 1, 10, 50)      # 50: more than one round's halo holds
 
 
-def _up_plan_ok(p, n, nsmooth, item, ints):
-    """mg_vcycle.cu up()'s checks, line by line, on the plan's ints."""
+def _tile_plan_ok(p, n, nsmooth, item, ints):
+    """mg_vcycle.cu tiled()'s checks, line by line, on the plan's ints."""
     tile, halo, rounds, iters, threads, smem, tiles = ints
     want = 1 if nsmooth == 0 else -(-nsmooth // max(iters, 1))
-    if tile < 1 or tile & (tile - 1) or tile > n or tiles * tile != n or \
+    if tile < 2 or tile & (tile - 1) or tile > n or tiles * tile != n or \
             threads < 32 or threads > 512 or threads % 32 or iters < 0 or \
             (nsmooth > 0 and iters < 1) or rounds != want or \
             halo < 2 * iters + 1:
@@ -466,7 +469,7 @@ def test_up_tiles_cover_every_level_once(dtype, op):
     for k in range(2, 11):
         n = 2 ** k
         for nsmooth in UP_NSMOOTH:
-            p = mg_kernel.up_plan(n, nsmooth, dtype)
+            p = mg_kernel.tile_plan(n, nsmooth, dtype)
             assert p.tile & (p.tile - 1) == 0 and p.tiles * p.tile == n
             cover = np.zeros((n, n), dtype=int)
             for bi in range(p.tiles):
@@ -485,14 +488,14 @@ def test_up_halo_covers_the_sweeps_reach(dtype, nsmooth):
     level, and 50 more than one at 1024^2."""
     for k in range(2, 11):
         n = 2 ** k
-        p = mg_kernel.up_plan(n, nsmooth, dtype)
+        p = mg_kernel.tile_plan(n, nsmooth, dtype)
         its = p.round_iters()
         assert len(its) == p.rounds and sum(its) == nsmooth
         assert all(0 < i <= p.iters for i in its) or nsmooth == 0
         assert p.halo >= 2 * max(its) + 1
         if nsmooth <= 10:
             assert p.rounds == 1
-    assert mg_kernel.up_plan(1024, 50, dtype).rounds > 1
+    assert mg_kernel.tile_plan(1024, 50, dtype).rounds > 1
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -502,26 +505,299 @@ def test_up_shared_memory_fits(dtype):
     item = torch.empty((), dtype=dtype).element_size()
     for k in range(2, 11):
         for nsmooth in UP_NSMOOTH:
-            p = mg_kernel.up_plan(2 ** k, nsmooth, dtype)
+            p = mg_kernel.tile_plan(2 ** k, nsmooth, dtype)
             assert p.smem == 2 * (p.tile + 2 * p.halo) ** 2 * item
-            assert p.smem <= mg_kernel.UP_SMEM <= SMEM_LIMIT // 2
+            assert p.smem <= mg_kernel.TILE_SMEM <= SMEM_LIMIT // 2
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_up_plan_passes_the_kernels_checks(dtype):
     """The plan array each mg_up launch takes has the length mg_vcycle.cu
-    reads (UP_PLAN_INTS) and passes its checks at every level and
+    reads (TILE_PLAN_INTS) and passes its checks at every level and
     nsmooth."""
     import re
 
     from pyro2_tpu_torch.util import cuda_build
 
     text = (cuda_build.CSRC / "mg_vcycle.cu").read_text()
-    n_ints = int(re.search(r"constexpr int UP_PLAN_INTS = (\d+);",
+    n_ints = int(re.search(r"constexpr int TILE_PLAN_INTS = (\d+);",
                            text).group(1))
     item = torch.empty((), dtype=dtype).element_size()
     for k in range(2, 11):
         for nsmooth in UP_NSMOOTH:
-            p = mg_kernel.up_plan(2 ** k, nsmooth, dtype)
+            p = mg_kernel.tile_plan(2 ** k, nsmooth, dtype)
             assert len(p.ints()) == n_ints
-            assert _up_plan_ok(p, 2 ** k, nsmooth, item, p.ints())
+            assert _tile_plan_ok(p, 2 ** k, nsmooth, item, p.ints())
+
+
+# -- the multigrid descent (mg_down) ------------------------------------------
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_down_tiles_cover_every_level_once(dtype):
+    """For every level from 4^2 to 1024^2 (every operator takes the same
+    plan), the tiles of the launch's grid cover the interior exactly once; each tile is even and starts at an odd index, so
+    it holds the four children of each of its coarse cells, and the coarse
+    cells of the tiles cover the coarse level exactly once."""
+    for k in range(2, 11):
+        n = 2 ** k
+        for nsmooth in UP_NSMOOTH:
+            p = mg_kernel.tile_plan(n, nsmooth, dtype)
+            assert p.tile & (p.tile - 1) == 0 and p.tiles * p.tile == n
+            assert p.tile >= 2 and p.tile % 2 == 0
+            cover = np.zeros((n + 2, n + 2), dtype=int)
+            coarse = np.zeros((n // 2 + 2, n // 2 + 2), dtype=int)
+            for bi in range(p.tiles):
+                for bj in range(p.tiles):
+                    ti, tj = 1 + bi * p.tile, 1 + bj * p.tile
+                    assert ti % 2 == 1 and tj % 2 == 1
+                    cover[ti:ti + p.tile, tj:tj + p.tile] += 1
+                    I0, J0 = (ti + 1) // 2, (tj + 1) // 2
+                    coarse[I0:I0 + p.tile // 2, J0:J0 + p.tile // 2] += 1
+            assert (cover[1:-1, 1:-1] == 1).all() and cover.sum() == n * n
+            assert (coarse[1:-1, 1:-1] == 1).all()
+            assert coarse.sum() == (n // 2) ** 2
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("nsmooth", UP_NSMOOTH)
+def test_down_halo_covers_the_sweeps_reach(dtype, nsmooth):
+    """The halo is the sweeps' reach plus one: one cell per half-sweep of a
+    round and one for the residual the restriction reads; the rounds take
+    nsmooth iterations together; the solvers' nsmooth (10) takes one round
+    at every level, and 50 more than one at 1024^2."""
+    for k in range(2, 11):
+        p = mg_kernel.tile_plan(2 ** k, nsmooth, dtype)
+        its = p.round_iters()
+        assert len(its) == p.rounds and sum(its) == nsmooth
+        assert all(0 < i <= p.iters for i in its) or nsmooth == 0
+        assert p.halo == 2 * p.iters + 1 >= 2 * max(its) + 1
+        if nsmooth <= 10:
+            assert p.rounds == 1
+    assert mg_kernel.tile_plan(1024, 50, dtype).rounds > 1
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_down_shared_memory_fits(dtype):
+    """The boxes of v and f of every descent plan fit a block's opt-in
+    limit, and two blocks share an SM; each plan passes the checks of
+    mg_vcycle.cu's tiled(), which the descent and the ascent share."""
+    item = torch.empty((), dtype=dtype).element_size()
+    for k in range(2, 11):
+        for nsmooth in UP_NSMOOTH:
+            p = mg_kernel.tile_plan(2 ** k, nsmooth, dtype)
+            assert p.smem == 2 * (p.tile + 2 * p.halo) ** 2 * item
+            assert p.smem <= mg_kernel.TILE_SMEM and 2 * p.smem <= SMEM_SM
+            assert p.threads == mg_kernel.TILE_THREADS
+            assert _tile_plan_ok(p, 2 ** k, nsmooth, item, p.ints())
+
+
+# -- the swe step --------------------------------------------------------------
+
+def _swe_grids(dtype):
+    """Ragged grids: 200x136, one cell, 1024x1000, and 7 x 5 tiles' worth
+    with a ragged last tile each way."""
+    p = swe_kernel.plan(1, 1, 4, dtype)
+    tx, ty = p.tx, p.ty
+    return ((200, 136), (1, 1), (1024, 1000), (7 * tx - 3, 5 * ty - 1),
+            (7 * tx, 5 * ty))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_swe_tiles_cover_every_cell_once(dtype):
+    """The grid the swe kernel launches (the plan's ints) has a block for
+    each tile, and the tiles, clipped to the frame, cover each interior
+    cell exactly once; the blocks at the frame's edges own its ghost rows
+    and columns, so every cell of the output is written once."""
+    for nx, ny in _swe_grids(dtype):
+        p = swe_kernel.plan(nx, ny, 4, dtype)
+        gy, gx = p.grid
+        assert p.ints()[-2:] == [gy, gx]
+        assert (gx - 1) * p.tx < nx <= gx * p.tx
+        assert (gy - 1) * p.ty < ny <= gy * p.ty
+        owned = np.zeros((nx + 2 * NG, ny + 2 * NG), dtype=int)
+        interior = np.zeros_like(owned)
+        for bi in range(gx):
+            for bj in range(gy):
+                i0, j0 = NG + bi * p.tx, NG + bj * p.ty
+                r0 = 0 if bi == 0 else i0
+                r1 = nx + 2 * NG if bi == gx - 1 else i0 + p.tx
+                c0 = 0 if bj == 0 else j0
+                c1 = ny + 2 * NG if bj == gy - 1 else j0 + p.ty
+                owned[r0:r1, c0:c1] += 1
+                interior[i0:min(i0 + p.tx, NG + nx),
+                         j0:min(j0 + p.ty, NG + ny)] += 1
+        assert (owned == 1).all()
+        assert (interior[NG:NG + nx, NG:NG + ny] == 1).all()
+        assert interior.sum() == nx * ny
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("where", ["first", "last", "middle"])
+@pytest.mark.parametrize("limiter", [0, 1, 2])
+def test_swe_phase_reads_stay_inside_the_frame(dtype, where, limiter):
+    """Every phase of the fused swe kernel, on the tile at the frame's
+    first corner, its last (ragged) corner or inside it: each value a phase
+    reads was computed by a phase before it (a traced state inside the
+    buf=2 window, a first-pass flux inside buf=1, a second-pass flux of the
+    tile), inside the box that holds it, and every primitive read lies in
+    the frame and in the box of the plan's halo (swe_step.cu k_swe)."""
+    p = swe_kernel.plan(67, 45, 4, dtype)
+    nx, ny, ng = p.nx, p.ny, NG
+    qx, qy = nx + 2 * ng, ny + 2 * ng
+    gy, gx = p.grid
+    bi, bj = {"first": (0, 0), "last": (gx - 1, gy - 1),
+              "middle": (gx // 2, gy // 2)}[where]
+    i0, j0 = ng + bi * p.tx, ng + bj * p.ty
+    h = p.halo
+
+    def box(hh):
+        return {(i, j) for i in range(i0 - hh, i0 + p.tx + hh)
+                for j in range(j0 - hh, j0 + p.ty + hh)}
+
+    w = {b: _win(ng, nx, ny, b) for b in (0, 1, 2)}
+    ilo, ihi, jlo, jhi = ng, ng + nx - 1, ng, ng + ny - 1
+    # 1. the primitives over box q, where it lies in the frame
+    Q = {(i, j) for i, j in box(h["prim"]) if 0 <= i < qx and 0 <= j < qy}
+    # 2. the traced cells of box t in the buf=2 window; their slopes read
+    # the primitives 1 (limiters 0, 1) or 2 (limiter 2) cells along each
+    # axis, a 2nd-order slope only inside buf=2
+    bt = box(h["traced"])
+    traced = {c for c in bt if w[2](*c)}
+    for i, j in traced:
+        reads = [(i + a, j) for a in (-1, 0, 1)] + \
+            [(i, j + a) for a in (-1, 1)]
+        if limiter == 2:
+            for di, dj in ((1, 0), (0, 1)):
+                for s in (-1, 1):
+                    a, b = i + s * di, j + s * dj
+                    if w[2](a, b):
+                        reads += [(a + di, b + dj), (a - di, b - dj)]
+        for c in reads:
+            assert c in Q, (c, "primitive")
+    # 3. the first pair on the faces of the box's cells with their left
+    # neighbour in the box, inside buf=1: both states traced
+    f1x = {(a, b) for a, b in bt if (a - 1, b) in bt and w[1](a, b)}
+    f1y = {(a, b) for a, b in bt if (a, b - 1) in bt and w[1](a, b)}
+    for a, b in f1x:
+        assert (a - 1, b) in traced and (a, b) in traced
+    for a, b in f1y:
+        assert (a, b - 1) in traced and (a, b) in traced
+    # 4. the second pair on the tile's faces the update reads
+    fx = {(i, j) for i in range(i0, i0 + p.tx + 1)
+          for j in range(j0, j0 + p.ty)
+          if ilo <= i <= ihi + 1 and jlo <= j <= jhi}
+    fy = {(i, j) for i in range(i0, i0 + p.tx)
+          for j in range(j0, j0 + p.ty + 1)
+          if ilo <= i <= ihi and jlo <= j <= jhi + 1}
+    for i, j in fx:
+        assert (i - 1, j) in traced and (i, j) in traced
+        for c in ((i - 1, j + 1), (i - 1, j), (i, j + 1), (i, j)):
+            assert c in f1y, (c, "first-pass y flux")
+    for i, j in fy:
+        assert (i, j - 1) in traced and (i, j) in traced
+        for c in ((i + 1, j - 1), (i, j - 1), (i + 1, j), (i, j)):
+            assert c in f1x, (c, "first-pass x flux")
+    # 5. the update of the tile's interior cells
+    for i in range(i0, i0 + p.tx):
+        for j in range(j0, j0 + p.ty):
+            if w[0](i, j):
+                assert {(i, j), (i + 1, j)} <= fx
+                assert {(i, j), (i, j + 1)} <= fy
+    # the halos the plan hands the kernel are these, inside the ghosts
+    assert p.ints()[3:5] == [h["prim"], h["traced"]] == [3, 1]
+    assert h["prim"] == h["traced"] + 2 <= NG
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("nvar", range(4, swe_kernel.MAXVAR + 1))
+def test_swe_shared_memory_fits(dtype, nvar):
+    """Every variable count fits the 232,448 bytes a block may opt into,
+    two float32 blocks share an SM, and the arrays lie where the kernel's
+    checks want them: the states apart from the primitives and the first
+    pair, which may share their room."""
+    item = torch.empty((), dtype=dtype).element_size()
+    p = swe_kernel.plan(200, 136, nvar, dtype)
+    assert 0 < p.smem <= SMEM_LIMIT
+    if dtype == torch.float32:
+        assert 2 * p.smem <= SMEM_SM
+    assert _swe_plan_ok(item, 200, 136, nvar, p.ints())
+    assert p.sizes["q"] == nvar * (p.tx + 6) * (p.ty + 6)
+    assert p.sizes["st"] == 4 * nvar * (p.tx + 2) * (p.ty + 2)
+    assert p.sizes["f1"] == 2 * nvar * (p.tx + 2) * (p.ty + 2)
+
+
+def _swe_plan_ok(item, nx, ny, nvar, ints):
+    """swe_step.cu run()'s checks, line by line, on a plan's ints."""
+    tx, ty, threads, hq, ht, q, st, f1, smem, bx, by = ints
+    if threads != (512 if item == 4 else 256) or tx < 1 or ty < 1 or \
+            ht < 1 or hq < ht + 2 or NG < hq:
+        return False
+    if bx < 1 or by < 1 or (bx - 1) * ty >= ny or bx * ty < ny or \
+            (by - 1) * tx >= nx or by * tx < nx:
+        return False
+    cq = (tx + 2 * hq) * (ty + 2 * hq)
+    ct = (tx + 2 * ht) * (ty + 2 * ht)
+    nq, nst, nf1 = nvar * cq, 4 * nvar * ct, 2 * nvar * ct
+    end = smem // item
+
+    def apart(a, na, b, nb):
+        return a + na <= b or b + nb <= a
+
+    return (min(q, st, f1) >= 0 and q + nq <= end and st + nst <= end and
+            f1 + nf1 <= end and apart(st, nst, q, nq) and
+            apart(st, nst, f1, nf1))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_swe_plan_passes_the_kernels_checks(dtype):
+    """The plan array each swe launch takes has the length swe_step.cu
+    reads (PLAN_INTS) and passes its run()'s checks for every variable
+    count on ragged grids, and with other tiles."""
+    import re
+
+    from pyro2_tpu_torch.util import cuda_build
+
+    text = (cuda_build.CSRC / "swe_step.cu").read_text()
+    n_ints = int(re.search(r"constexpr int PLAN_INTS = (\d+);",
+                           text).group(1))
+    item = torch.empty((), dtype=dtype).element_size()
+    for nx, ny in _swe_grids(dtype):
+        for nvar in range(4, swe_kernel.MAXVAR + 1):
+            for tile in (None, (5, 7), (62, 6)):
+                p = swe_kernel.plan(nx, ny, nvar, dtype, tile)
+                assert len(p.ints()) == n_ints
+                assert _swe_plan_ok(item, nx, ny, nvar, p.ints())
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("nvar", range(4, swe_kernel.MAXVAR + 1))
+def test_swe_traced_cells_fill_the_block(dtype, nvar):
+    """A block's threads take the same number of traced cells each in the
+    phases that trace and solve (the tile and its 1-cell halo): two in
+    float32 up to 4 variables (the larger tile), else one; and the block
+    leaves room for BLOCKS of them in an SM's shared memory."""
+    p = swe_kernel.plan(1024, 1024, nvar, dtype)
+    assert p.threads == swe_kernel.THREADS[dtype]
+    each = 2 if dtype == torch.float32 and nvar <= 4 else 1
+    assert p.box("traced") == each * p.threads
+    assert swe_kernel.BLOCKS[dtype] * p.smem <= SMEM_SM
+
+
+@pytest.mark.parametrize("nvar,ng", [(3, 4), (9, 4), (4, 2)])
+def test_swe_uncovered_frames_raise(nvar, ng):
+    with pytest.raises(NotImplementedError, match="A.23"):
+        swe_kernel.covered(nvar, ng, torch.float32)
+
+
+def test_swe_solver_frame_is_covered():
+    """The swe solver's frame (4 ghosts, height and momenta at 0..2) is
+    what the kernel takes, with passive scalars up to MAXVAR."""
+    from pyro2_tpu_torch import Pyro
+
+    p = Pyro("swe", device="cpu")
+    p.initialize_problem("quad", inputs_dict={"mesh.nx": 8, "mesh.ny": 8})
+    iv = p.sim.ivars
+    assert (iv.ih, iv.ixmom, iv.iymom) == (0, 1, 2)
+    for dtype in DTYPES:
+        for nvar in range(iv.nvar, swe_kernel.MAXVAR + 1):
+            swe_kernel.covered(nvar, p.sim.cc_data.grid.ng, dtype)

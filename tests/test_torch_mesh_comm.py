@@ -91,7 +91,8 @@ def ranks(request):
     rp, _ = _shear_params(RuntimeParameters)
     jobs = [("exchanges", (_interior(), cases, deep)),
             ("blockwise_init", (rp.params, "shear"))]
-    return shape, launch.run(trp.several, shape, jobs, timeout=240)
+    return shape, launch.run(trp.several, shape, jobs, device="cpu",
+                             timeout=240)
 
 
 def _jbc(kinds):
@@ -262,10 +263,23 @@ def test_blockwise_init_matches_jax(ranks):
 def test_launch_raises_when_a_rank_never_sends():
     t0 = time.monotonic()
     with pytest.raises(TimeoutError, match="did not finish never_sends"):
-        launch.run(trp.never_sends, (1, 2), timeout=8)
+        launch.run(trp.never_sends, (1, 2), device="cpu", timeout=8)
     assert time.monotonic() - t0 < 40
 
 
 def test_launch_raises_a_rank_error():
     with pytest.raises(RuntimeError, match=r"(?s)rank 1 failed.*on purpose"):
-        launch.run(trp.raises, (1, 2), timeout=120)
+        launch.run(trp.raises, (1, 2), device="cpu", timeout=120)
+
+
+def test_launch_runs_on_the_card_unless_asked_for_the_cpu(monkeypatch):
+    """The launcher's ranks run on CUDA by default: with no GPU and no
+    device given it raises before it starts a rank, instead of running
+    them on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    started = []
+    monkeypatch.setattr(launch.mp, "get_context",
+                        lambda *a: started.append(a) or None)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        launch.run(trp.several, (1, 2), [], timeout=8)
+    assert started == []

@@ -6,7 +6,8 @@ rounds' half-sweeps of the plain red-black stencil run on it while the cells
 that are still exact shrink, and the tile's cells, the ghosts that mirror
 them and the residual must equal `mg_kernel.up_plain` bit for bit.  A halo
 one cell too shallow, a wrong colour across a wrapped edge or a mirror with
-the wrong sign shows here without a card."""
+the wrong sign shows here without a card.  `make_mg` and `tile_round` serve
+the descent's schedule too (tests/test_torch_mg_down_tiles.py)."""
 
 import numpy as np
 import pytest
@@ -21,13 +22,18 @@ from pyro2_tpu_torch.multigrid.general_MG import GeneralMG2d
 from pyro2_tpu_torch.multigrid.MG import CellCenterMG2d
 from pyro2_tpu_torch.multigrid.variable_coeff_MG import VarCoeffCCMG2d
 
-EDGES = {"neumann": "neumann", "periodic": "periodic",
-         "dirichlet": "dirichlet"}
+# the edge sets: x-lo, x-hi, y-lo, y-hi (lm_atm's phi edges last)
+EDGES = {"neumann": ("neumann",) * 4, "periodic": ("periodic",) * 4,
+         "dirichlet": ("dirichlet",) * 4,
+         "lm_atm": ("periodic", "periodic", "neumann", "dirichlet")}
 
 
-def _mg(op, n, edge, dtype):
-    kw = dict(xl_BC_type=edge, xr_BC_type=edge, yl_BC_type=edge,
-              yr_BC_type=edge, device="cpu", dtype=dtype)
+def make_mg(op, n, edge, dtype):
+    """An n^2 multigrid object of operator op with one of EDGES on the
+    CPU."""
+    xl, xr, yl, yr = EDGES[edge]
+    kw = dict(xl_BC_type=xl, xr_BC_type=xr, yl_BC_type=yl, yr_BC_type=yr,
+              device="cpu", dtype=dtype)
     if op == "const":
         beta = -1.0 if edge == "periodic" else 0.3 / n ** 2
         return CellCenterMG2d(n, n, alpha=1.0, beta=beta, **kw)
@@ -99,88 +105,97 @@ def _shift(a, di, dj):
     return b
 
 
+def tile_round(mg, op, level, cur, f, ti, tj, tile, iters, halo=None):
+    """One round of a tiled kernel on the tile whose first interior cell is
+    (ti, tj): a box of `halo` (2 iters + 1 unless given) around it, loaded
+    from frame cur, its 2 iters half-sweeps on the cells whose neighbours
+    are still exact.  Asserts that the tile and the ring around it are
+    exact after them ("the halo does not reach" otherwise), as the
+    residual needs; returns (the tile's values, the residual of the
+    tile's cells)."""
+    g = mg.grids[level]
+    n = g.nx
+    halo = 2 * iters + 1 if halo is None else halo
+    bc = mg.bc_v[level]
+    per = (bc.xlb == "periodic", bc.ylb == "periodic")
+    sign = [[-1.0 if mg_kernel.BC_KIND[getattr(bc, e)] == 1 else 1.0
+             for e in es] for es in (("xlb", "xrb"), ("ylb", "yrb"))]
+    cf = _coefs(mg, op, level)
+    # the box's extended indices, their interior cells, whether a box cell
+    # holds one
+    ext = [torch.arange(t0 - halo, t0 + tile + halo) for t0 in (ti, tj)]
+    true = [((e - 1) % n) + 1 if p else e.clamp(1, n)
+            for e, p in zip(ext, per)]
+    held = [torch.ones_like(e, dtype=torch.bool) if p else
+            (e >= 1) & (e <= n) for e, p in zip(ext, per)]
+    I, J = true[0][:, None], true[1][None, :]
+    valid = held[0][:, None] & held[1][None, :]
+    B = torch.where(valid, cur[I, J],
+                    torch.tensor(float("nan"), dtype=f.dtype))
+    F = f[I, J]
+    c = {}
+    for name, a in cf.items():
+        c[name] = a[I, J]
+    if "ex" in cf:
+        c["ex1"] = cf["ex"][I + 1, J]
+        c["ey1"] = cf["ey"][I, J + 1]
+    Ei, Ej = ext[0][:, None], ext[1][None, :]
+    lo = [(~torch.tensor(p)) & (e == 1) for e, p in
+          ((Ei, per[0]), (Ej, per[1]))]
+    hi = [(~torch.tensor(p)) & (e == n) for e, p in
+          ((Ei, per[0]), (Ej, per[1]))]
+
+    def nbrs(B):
+        return (torch.where(hi[0], sign[0][1] * B, _shift(B, 1, 0)),
+                torch.where(lo[0], sign[0][0] * B, _shift(B, -1, 0)),
+                torch.where(hi[1], sign[1][1] * B, _shift(B, 0, 1)),
+                torch.where(lo[1], sign[1][0] * B, _shift(B, 0, -1)))
+
+    def nbrs_exact(X):
+        Xf = X.to(torch.float64)
+        ok = [torch.where(h, Xf, _shift(Xf, di, dj)) == 1.0
+              for h, di, dj in ((hi[0], 1, 0), (lo[0], -1, 0),
+                                (hi[1], 0, 1), (lo[1], 0, -1))]
+        return ok[0] & ok[1] & ok[2] & ok[3]
+
+    exact = valid.clone()
+    red = ((Ei + Ej) % 2) == 0
+    for s in range(2 * iters):
+        colour = red if s % 2 == 0 else ~red
+        can = valid & colour & nbrs_exact(exact)
+        B = torch.where(can, _gs(mg, op, g, F, *nbrs(B), c), B)
+        exact = exact & (~colour | can)
+    sl = (slice(halo, halo + tile), slice(halo, halo + tile))
+    ring = (slice(halo - 1, halo + tile + 1),
+            slice(halo - 1, halo + tile + 1))
+    assert bool(exact[ring][valid[ring]].all()), "the halo does not reach"
+    r = _resid(mg, op, g, F, B, *nbrs(B), c)
+    return B[sl], r[sl]
+
+
 def _tile_schedule(mg, op, level, v, f, vc, want_r, tile, rounds):
     """mg_up's result computed tile by tile as k_up computes it: per round
     a box of halo 2 iters + 1 around each tile, its half-sweeps on the
     cells whose neighbours are still exact."""
     g = mg.grids[level]
     n = g.nx
-    bc = mg.bc_v[level]
-    per = (bc.xlb == "periodic", bc.ylb == "periodic")
-    sign = [[-1.0 if mg_kernel.BC_KIND[getattr(bc, e)] == 1 else 1.0
-             for e in es] for es in (("xlb", "xrb"), ("ylb", "yrb"))]
-    cf = _coefs(mg, op, level)
     cur = v + prolong_array(vc, mg.grids[level - 1], g)
     r_out = torch.zeros_like(f)
     for k, iters in enumerate(rounds):
-        halo = 2 * iters + 1
         new = cur.clone()
         for ti in range(1, n + 1, tile):
             for tj in range(1, n + 1, tile):
-                # the box's extended indices, their interior cells, whether
-                # a box cell holds one
-                ext = [torch.arange(t0 - halo, t0 + tile + halo)
-                       for t0 in (ti, tj)]
-                true = [((e - 1) % n) + 1 if p else e.clamp(1, n)
-                        for e, p in zip(ext, per)]
-                held = [torch.ones_like(e, dtype=torch.bool) if p else
-                        (e >= 1) & (e <= n) for e, p in zip(ext, per)]
-                I, J = true[0][:, None], true[1][None, :]
-                valid = held[0][:, None] & held[1][None, :]
-                B = torch.where(valid, cur[I, J],
-                                torch.tensor(float("nan"), dtype=f.dtype))
-                F = f[I, J]
-                c = {}
-                for name, a in cf.items():
-                    c[name] = a[I, J]
-                if "ex" in cf:
-                    c["ex1"] = cf["ex"][I + 1, J]
-                    c["ey1"] = cf["ey"][I, J + 1]
-                Ei, Ej = ext[0][:, None], ext[1][None, :]
-                lo = [(~torch.tensor(p)) & (e == 1) for e, p in
-                      ((Ei, per[0]), (Ej, per[1]))]
-                hi = [(~torch.tensor(p)) & (e == n) for e, p in
-                      ((Ei, per[0]), (Ej, per[1]))]
-
-                def nbrs(B):
-                    return (torch.where(hi[0], sign[0][1] * B,
-                                        _shift(B, 1, 0)),
-                            torch.where(lo[0], sign[0][0] * B,
-                                        _shift(B, -1, 0)),
-                            torch.where(hi[1], sign[1][1] * B,
-                                        _shift(B, 0, 1)),
-                            torch.where(lo[1], sign[1][0] * B,
-                                        _shift(B, 0, -1)))
-
-                def nbrs_exact(X):
-                    Xf = X.to(torch.float64)
-                    ok = [torch.where(h, Xf, _shift(Xf, di, dj)) == 1.0
-                          for h, di, dj in ((hi[0], 1, 0), (lo[0], -1, 0),
-                                            (hi[1], 0, 1), (lo[1], 0, -1))]
-                    return ok[0] & ok[1] & ok[2] & ok[3]
-
-                exact = valid.clone()
-                red = ((Ei + Ej) % 2) == 0
-                for s in range(2 * iters):
-                    colour = red if s % 2 == 0 else ~red
-                    can = valid & colour & nbrs_exact(exact)
-                    B = torch.where(can, _gs(mg, op, g, F, *nbrs(B), c), B)
-                    exact = exact & (~colour | can)
-                sl = (slice(halo, halo + tile), slice(halo, halo + tile))
-                ring = (slice(halo - 1, halo + tile + 1),
-                        slice(halo - 1, halo + tile + 1))
-                assert bool(exact[ring][valid[ring]].all()), \
-                    "the halo does not reach"
-                new[ti:ti + tile, tj:tj + tile] = B[sl]
+                B, r = tile_round(mg, op, level, cur, f, ti, tj, tile, iters)
+                new[ti:ti + tile, tj:tj + tile] = B
                 if want_r and k == len(rounds) - 1:
-                    r = _resid(mg, op, g, F, B, *nbrs(B), c)
-                    r_out[ti:ti + tile, tj:tj + tile] = r[sl]
+                    r_out[ti:ti + tile, tj:tj + tile] = r
         cur = new
     return mg._fill_v(level, cur), (r_out if want_r else None)
 
 
 CASES = [(op, edge, dtype) for op in ("const", "vc", "general")
-         for edge in EDGES for dtype in (torch.float64, torch.float32)]
+         for edge in ("neumann", "periodic", "dirichlet")
+         for dtype in (torch.float64, torch.float32)]
 
 
 @pytest.mark.parametrize("op,edge,dtype", CASES)
@@ -188,12 +203,12 @@ def test_up_tiles_match_the_plain_ascent(op, edge, dtype):
     """32^2 in 8^2 tiles at nsmooth 10 (one round, halo 21: the box holds
     the level several times over on a periodic axis), and 64^2 in 16^2
     tiles at nsmooth 5 in rounds of 2, 2 and 1, with the residual; and the
-    plan up_plan makes for each, its tile and halo as the kernel takes
+    plan tile_plan makes for each, its tile and halo as the kernel takes
     them."""
     rng = np.random.default_rng(7)
     for n, nsmooth, tile, rounds in ((32, 10, 8, [10]),
                                      (64, 5, 16, [2, 2, 1])):
-        mg = _mg(op, n, EDGES[edge], dtype)
+        mg = make_mg(op, n, edge, dtype)
         mg.nsmooth = nsmooth
         level = mg.nlevels - 1
         g, gc = mg.grids[level], mg.grids[level - 1]
@@ -203,7 +218,7 @@ def test_up_tiles_match_the_plain_ascent(op, edge, dtype):
         vc = torch.as_tensor(0.1 * rng.standard_normal((gc.qx, gc.qy)),
                              dtype=dtype)
         ref_v, ref_r = mg_kernel.up_plain(mg, level, v, f, vc, True)
-        plan = mg_kernel.up_plan(n, nsmooth, dtype)
+        plan = mg_kernel.tile_plan(n, nsmooth, dtype)
         for t, rs in ((tile, rounds), (plan.tile, plan.round_iters())):
             got_v, got_r = _tile_schedule(mg, op, level, v, f, vc, True, t,
                                           rs)

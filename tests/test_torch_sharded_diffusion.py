@@ -99,7 +99,7 @@ def test_one_block_matches_jax_and_serial(serial):
 def test_2x2_mesh_matches_jax_and_serial(serial):
     ref, cycles = serial
     out = launch.run(trp.diffusion, (2, 2), _rp(RuntimeParameters).params,
-                     STEPS, timeout=240)
+                     STEPS, device="cpu", timeout=240)
     phi = out[0]["gathered"]
     for r, res in enumerate(out):
         assert res["cycles"] == cycles

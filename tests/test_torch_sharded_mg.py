@@ -168,7 +168,7 @@ def ranks(request):
     jobs = [("mg_solves", (cases,)),
             ("deep_ghosts", (empty, N.bit_length() - 2)),
             ("gradient", (_case("const"), _gradient_field()))]
-    out = launch.run(trp.several, shape, jobs, timeout=300)
+    out = launch.run(trp.several, shape, jobs, device="cpu", timeout=300)
     solves = {}
     for i, key in enumerate(SOLVES + [("const", "sweep"), ("vc", "sweep")]):
         solves[key] = [res[0][i] for res in out]

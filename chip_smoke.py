@@ -10,7 +10,8 @@ Phases (any failure exits non-zero and prints no result line):
      mg_deep.cu) with nvcc, one process each, started together, and print
      what ptxas reports (registers, shared memory, stack and spills; the
      main path's CTU kernel, k_ctu<float, nvar 4, cartesian>, the swe
-     kernel k_swe<float, 4> and the descent k_down once more);
+     kernel k_swe<float, 4>, the descent k_down, the rk stage k_rk<float,
+     4> and the deep smoother k_deep<const, rbgs, v_fc, float> once more);
   3. the CTU kernel (one fused launch a step) against its plain PyTorch
      version on the card, one step from the same state after 3 kernel
      steps, for seven configurations (CGF limiter 2 on sod, HLLC limiters
@@ -37,8 +38,8 @@ Phases (any failure exits non-zero and prints no result line):
   3b. the MOL stage-increment kernels (mol_rk, mol_fv4) against their plain
      versions on the card, one increment from the same state after 3
      kernel steps, for four rk and three fv4 configurations at a ragged
-     200x136 (fv4 rt: 200x600, square cells) and at 1024^2, the fv4 ones
-     also at 1024x1000 (a ragged last tile column), in float64 (max |diff|
+     200x136 (fv4 rt: 200x600, square cells), at 1024x1000 (a ragged last
+     tile column) and at 1024^2, in float64 (max |diff|
      <= 1e-12 of max|F_x|/dx + max|F_y|/dy + max|S|, the terms k cancels)
      and float32 (<= 1e-5 of it), the ghosts of k exactly zero;
   4. the multigrid kernels against their plain versions from the same
@@ -72,7 +73,10 @@ Phases (any failure exits non-zero and prints no result line):
      split of 1024^2 (d = 21) with Dirichlet and periodic edges, the frames
      filled from one global array as the exchange fills them and the flags
      from parallel.sharded_mg.kernel_flags; Jacobi, Chebyshev and the vc
-     and general operators at 256^2;
+     and general operators at 256^2; and every smoother at 50 sweeps,
+     whose halo no box holds, so the plan splits the round into sub-rounds
+     (sharded_mg_kernel.deep_plan), on the 1x1 1024^2 frame and on a block
+     of a 2x2 split of 1024^2 as deep as the sweeps reach;
   5. the main paths through Pyro -> run_sim on CUDA in float32, each with
      every launch count reset just before and read just after:
      compressible quad at 1024^2 for 100 steps and rt at 256x768 for 50
@@ -112,28 +116,35 @@ Phases (any failure exits non-zero and prints no result line):
      and general; the rk quad and fv4 acoustic_pulse 1024^2 increments;
      the swe quad 1024^2 step; the lm_atm stages on the 1024^2 bubble;
      the spherical CTU step and each padded entry at its path's shape;
-     mg_deep_smooth and mg_correct at the sharded path's finest level),
+     mg_deep_smooth and mg_correct at the sharded path's finest level, and
+     mg_deep_smooth on a block of a 2x2 split of 1024^2, d 21),
      beside each kernel's bound on this card, the multigrid ascent and
      descent at every peeled level with their plan, the swe step with
      other tiles, and the host time of building lm_atm's VarCoeffCCMG2d at
-     1024^2; the CTU step's, the fv4 stage's and the swe step's peak
-     device memory at quad, acoustic_pulse and quad 1024^2;
+     1024^2; the CTU step's, the rk and fv4 stages' and the swe step's
+     peak device memory at quad, quad, acoustic_pulse and quad 1024^2;
      the core's schedule at the 1024^2
      cycles' 128^2 top with its barriers counted by kind, and its time on
      the coarse problems one ShardedDiffusion step hands it against random
      data (the share of subnormal values in each);
   7. under the profiler, after every CUDA-event timing: the kernels one
-     swe step launches (k_swe, once), the k_down launches of a cycle (one
+     swe step launches (k_swe, once), one rk stage (k_rk, once) and one
+     mg_deep_smooth call at the solvers' 10 sweeps (k_deep, once) with
+     their device time a launch, the k_down launches of a cycle (one
      a peeled level) and of a call split into rounds (one a round), the
      device time of k_down and k_up a call at every peeled level of the
      three operators' 1024^2 cycles, and mg_down with tiles of other
      sizes; then torch.profiler breakdowns of 20 quad steps, 20
      ctu_periodic advect
-     steps (fill + step), 5 diffusion steps, 5 shear steps, 5 fv4 and 3
+     steps (fill + step), 5 diffusion steps, 5 shear steps, 5 rk quad
+     steps, 5 fv4 and 3
      sdc acoustic_pulse steps, 5 swe quad steps, 5 lm_atm bubble steps, 2
      GeneralMG2d solves, 20 spherical advect steps and 5 sharded diffusion
      steps: device time by kernel and the device's busy share of the wall
-     time.
+     time. Each profiler session idles 20 ms on each side of its calls and
+     is made up to three times; if none records a device kernel, the
+     wrappers' counts count the launches, CUDA events time them, and the
+     log says so.
 
 The line before the last is a JSON object describing every kernel; the last
 line is {"ok": true, "device": {...}}.
@@ -1001,7 +1012,7 @@ def rounds_compare(kernel, case, dtype, tol, nsmooth):
 
 def mol_peak_memory(step, U, t, dt):
     """Peak device bytes one MOL stage increment allocates above what is
-    allocated before it (its k, and for the staged rk stage its scratch)."""
+    allocated before it (its k alone in the fused designs)."""
     import torch
 
     torch.cuda.synchronize()
@@ -1110,16 +1121,50 @@ def step_peak_memory(step, U, t, dt):
     return peak
 
 
-def swe_one_launch(step, U, t, dt, steps=5):
-    """Under the profiler, `steps` swe steps launch k_swe once each and no
-    other device kernel."""
-    rows = device_kernels(lambda: step.launch(U, t, dt), steps)
+def one_launch_each(fn, calls, kernel, what, entry):
+    """Under the profiler, `calls` calls of fn launch `kernel` once each
+    and no other device kernel; returns its device us a launch. If the
+    profiler recorded no device kernel, the wrapper's count of `entry`
+    counts the launches and CUDA events time them."""
+    import torch
+
+    rows = device_kernels(fn, calls)
+    if not rows:
+        reset_counts()
+        ms = event_ms(fn, calls)
+        torch.cuda.synchronize()
+        n = launch_count(entry)
+        if n != calls:
+            raise AssertionError(f"{calls} {what} counted {n} {entry} "
+                                 "launches")
+        log(f"  by the wrappers' counts: {calls} {what} launch {kernel} "
+            f"{n} times ({1e3 * ms:.2f} us each by CUDA events); the "
+            "profiler recorded nothing, so other kernels were not observed")
+        return 1e3 * ms
     names = [(key, n) for key, n, _ in rows]
-    if len(rows) != 1 or "k_swe<" not in rows[0][0] or rows[0][1] != steps:
-        raise AssertionError(f"{steps} swe steps launched {names}, not "
-                             f"{steps} k_swe")
-    log(f"  under the profiler: {steps} steps launch k_swe {rows[0][1]} "
-        f"times ({rows[0][2] / steps:.2f} us each) and no other kernel")
+    if len(rows) != 1 or f"{kernel}<" not in rows[0][0] or \
+            rows[0][1] != calls:
+        raise AssertionError(f"{calls} {what} launched {names}, not "
+                             f"{calls} {kernel}")
+    log(f"  under the profiler: {calls} {what} launch {kernel} "
+        f"{rows[0][1]} times ({rows[0][2] / calls:.2f} us each) and no "
+        "other kernel")
+    return rows[0][2] / calls
+
+
+def launch_count(entry):
+    """The launch count of a kernel wrapper, by its entry name."""
+    from pyro2_tpu_torch.multigrid import mg_kernel, sharded_mg_kernel
+    from pyro2_tpu_torch.solvers.compressible_fv4 import mol_kernel
+    from pyro2_tpu_torch.solvers.swe import swe_kernel
+
+    if entry == "swe_step":
+        return swe_kernel.launches
+    for counts in (mg_kernel.launches, mol_kernel.launches,
+                   sharded_mg_kernel.launches):
+        if entry in counts:
+            return counts[entry]
+    raise KeyError(entry)
 
 
 def swe_tiles(step, U, t, dt, work, bw, fp32):
@@ -1155,10 +1200,19 @@ def down_launches(mg):
     f = frame(rng, mg.soln_grid, dtype, zero_mean=True)
 
     def count(fn):
-        return sum(n for key, n, _ in device_kernels(fn, 1)
-                   if "k_down<" in key)
+        """k_down's launches under the profiler, or None if it recorded
+        no device kernel."""
+        rows = device_kernels(fn, 1)
+        return sum(n for key, n, _ in rows if "k_down<" in key) \
+            if rows else None
 
     n_cycle = count(lambda: mg_kernel.cycle(mg, v, f))
+    how = "launched"
+    if n_cycle is None:             # one mg_down call a peeled level
+        reset_counts()
+        mg_kernel.cycle(mg, v, f)
+        torch.cuda.synchronize()
+        n_cycle, how = launch_count("mg_down"), "was called"
     rounds = [mg_kernel.tile_plan(mg.grids[lv].nx, mg.nsmooth, dtype).rounds
               for lv in peeled]
     if n_cycle != sum(rounds) or rounds != [1] * len(peeled):
@@ -1171,12 +1225,15 @@ def down_launches(mg):
         n_50 = count(lambda: mg_kernel.launch_down(mg, fine, v, f))
     finally:
         mg.nsmooth = saved
-    if n_50 != plan.rounds or plan.rounds < 2:
+    if plan.rounds < 2 or n_50 not in (None, plan.rounds):
         raise AssertionError(f"mg_down at nsmooth 50 launched k_down {n_50} "
                              f"times for {plan.rounds} rounds")
-    log(f"  one cycle: k_down launched {n_cycle} times for {len(peeled)} "
+    log(f"  one cycle: k_down {how} {n_cycle} times for {len(peeled)} "
         f"peeled levels (one round each); mg_down at nsmooth 50 on "
-        f"{mg.grids[fine].nx}^2: {n_50} launches for {plan.rounds} rounds")
+        f"{mg.grids[fine].nx}^2: "
+        + (f"{n_50} launches for {plan.rounds} rounds" if n_50 is not None
+           else f"{plan.rounds} rounds, launches not observed (the "
+           "profiler recorded nothing)"))
 
 
 def down_tiles(mg, label):
@@ -1204,10 +1261,10 @@ def down_tiles(mg, label):
             call = lambda: mg_kernel.launch_down(mg, lv, guess, f, plan)
             event_ms(call, 3)
             ms = event_ms(call, 20)
-            us = kernel_device_us(call, 20, "k_down")
+            us, how = kernel_device_us(call, 20, "k_down")
             log(f"  mg_down ({label}, {g.nx}^2) {plan.tile}^2 tiles "
-                f"({plan.tiles ** 2} blocks): {ms:.4f} ms, under the "
-                f"profiler {us:.2f} us")
+                f"({plan.tiles ** 2} blocks): {ms:.4f} ms, {how} "
+                f"{us:.2f} us")
 
 
 def mg_level_kernels(mg, label):
@@ -1229,13 +1286,13 @@ def mg_level_kernels(mg, label):
         f, vc = frame(rng, g, dtype), frame(rng, gc, dtype, 0.1)
         v = frame(rng, g, dtype, 0.1)
         guess = v if lv == fine else None
-        down = kernel_device_us(
+        down, how_down = kernel_device_us(
             lambda: mg_kernel.launch_down(mg, lv, guess, f), 20, "k_down")
-        up = kernel_device_us(
+        up, how_up = kernel_device_us(
             lambda: mg_kernel.launch_up(mg, lv, v, f, vc, lv == fine), 20,
             "k_up")
-        log(f"  {label} {g.nx}^2 under the profiler: k_down{sfx} "
-            f"{down:.2f} us, k_up{sfx} {up:.2f} us a call")
+        log(f"  {label} {g.nx}^2: k_down{sfx} {down:.2f} us ({how_down}), "
+            f"k_up{sfx} {up:.2f} us ({how_up}) a call")
 
 
 def tile_plan_text(plan):
@@ -1245,37 +1302,65 @@ def tile_plan_text(plan):
             f"{plan.round_iters()}, {plan.smem} B of shared memory")
 
 
-def device_kernels(fn, reps):
+# a profiler session idles this long on each side of its calls, so that a
+# kernel whose device timestamps the tracer places a little outside the
+# host's window of the session still falls inside it; a session that
+# recorded no device kernel at all is made again, up to PROFILER_TRIES
+PROFILER_PAD_S = 0.02
+PROFILER_TRIES = 3
+
+
+def profiled(fn, reps):
     """torch.profiler over `reps` calls of fn (after one unprofiled call):
-    [(kernel name, launches, device us)] of every device kernel."""
+    ([(kernel name, launches, device us)] of every device kernel, wall us
+    of the calls); the list is empty if no session recorded one."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    rows = []
-    for e in prof.key_averages():
-        dev_us = getattr(e, "device_time_total",
-                         getattr(e, "cuda_time_total", 0.0))
-        if e.device_type == torch.autograd.DeviceType.CUDA and dev_us > 0:
-            rows.append((e.key, e.count, dev_us))
-    if not rows:
-        raise AssertionError("the profiler recorded no device time")
-    return rows
+    for attempt in range(1, PROFILER_TRIES + 1):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            time.sleep(PROFILER_PAD_S)
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            wall_us = 1e6 * (time.perf_counter() - t0)
+            time.sleep(PROFILER_PAD_S)
+        rows = []
+        for e in prof.key_averages():
+            dev_us = getattr(e, "device_time_total",
+                             getattr(e, "cuda_time_total", 0.0))
+            if e.device_type == torch.autograd.DeviceType.CUDA and \
+                    dev_us > 0:
+                rows.append((e.key, e.count, dev_us))
+        if rows:
+            return rows, wall_us
+        log(f"  the profiler recorded no device kernel (session {attempt} "
+            f"of {PROFILER_TRIES})")
+    return [], wall_us
+
+
+def device_kernels(fn, reps):
+    """[(kernel name, launches, device us)] of every device kernel of
+    `reps` calls of fn under the profiler; empty if it recorded none."""
+    return profiled(fn, reps)[0]
 
 
 def kernel_device_us(fn, reps, kernel):
     """Device us a call of fn spends in `kernel` (k_down, k_up, ...) under
-    the profiler."""
+    the profiler, and how it was taken: the CUDA-event time of a call
+    instead if the profiler recorded no device kernel."""
     import re
 
-    return sum(us for key, _, us in device_kernels(fn, reps)
-               if re.search(rf"\b{kernel}<", key)) / reps
+    rows = device_kernels(fn, reps)
+    if not rows:
+        return 1e3 * event_ms(fn, reps), "by CUDA events"
+    return sum(us for key, _, us in rows
+               if re.search(rf"\b{kernel}<", key)) / reps, \
+        "under the profiler"
 
 
 def mg_timing(mg, label, bw, fp32):
@@ -1784,10 +1869,34 @@ def sharded_compare(dtype, tol, errs):
                         dx=1.0 / n, dy=1.0 / n, bc=smg.bc, px=1, py=1,
                         planes=smg._planes[top], emit=emit,
                         smoother=smoother)
+    n = 1024                                     # (d) sub-rounds
+    dirichlet = bnd.BC(xlb="dirichlet", xrb="dirichlet", ylb="dirichlet",
+                       yrb="dirichlet")
+    for smoother in smk.SMOOTHERS:
+        for px, bc in ((1, neumann), (2, dirichlet)):
+            d = 21 if px == 1 else 2 * smk.REACH[smoother] * 25 + 1
+            dp = 1 if px == 1 else d
+            ix = px - 1
+            vd = frame_from_global(Av, ix, 0, px, px, dp, dp)
+            fd = frame_from_global(Af, ix, 0, px, px, dp, dp)
+            plan = smk.deep_plan(n // px, n // px, dp, dp, 50, smoother,
+                                 dtype)
+            for emit in ("v_fc", "v_r"):
+                compare(f"{px}x{px} block ({ix}, 0) {smoother} 50 sweeps "
+                        f"in {plan.rounds} launches", vd, fd,
+                        kernel_flags(bc, px, px, ix, 0), dpx=dp, dpy=dp, d=d,
+                        n_sweeps=50, dx=1.0 / n, dy=1.0 / n, bc=bc, px=px,
+                        py=px, ab=DIFF_AB, emit=emit, smoother=smoother)
+            if plan.rounds < 2:
+                raise AssertionError(f"{smoother} at 50 sweeps took one "
+                                     "launch")
     torch.cuda.synchronize()
     worst = max(rows, key=lambda r: r[1] / r[2])
     log(f"  ok  {str(dtype)[6:]:8s} {len(rows)} checks, worst {worst[0]}: "
         f"{worst[1]:.3e} (tol {tol:g} x {worst[2]:.3g})")
+    for what, err, scale, _ in rows:
+        if "50 sweeps" in what:
+            log(f"      {what}: max|diff| {err:.3e} (scale {scale:.3g})")
 
 
 def sharded_path(n, steps, dtype):
@@ -1896,11 +2005,15 @@ def sharded_phi_check(sd, p, tol, note=""):
 
 def sharded_timing(sd, bw, fp32):
     """CUDA-event times of mg_deep_smooth and mg_correct and their plain
-    versions as the finest level of the path's cycle calls them."""
+    versions as the finest level of the path's cycle calls them, and of
+    mg_deep_smooth on a block of a 2x2 split of that level (d 21 toward its
+    seams), each with its plan; returns (the times by entry, the two
+    mg_deep_smooth calls by frame)."""
     import numpy as np
     import torch
 
     from pyro2_tpu_torch.multigrid import sharded_mg_kernel as smk
+    from pyro2_tpu_torch.parallel.sharded_mg import kernel_flags
 
     smg = sd.smg
     top = smg.nlevels - 1
@@ -1917,15 +2030,38 @@ def sharded_timing(sd, bw, fp32):
               n_sweeps=geom["sweeps_rb"][0], dx=lg.dx, dy=lg.dy, bc=smg.bc,
               px=1, py=1, ab=(smg.serial.alpha, smg.serial.beta),
               emit="v_fc")
-    out = {"mg_deep_smooth": time_pair(
-        f"mg_deep_smooth (1x1 {lg.nx}^2 frame, d {geom['d']}, "
-        f"{kw['n_sweeps']} sweeps, v_fc)",
-        lambda: smk.launch_deep_smooth(vd, fd, smg._flags, **kw),
-        lambda: smk.deep_smooth_plain(vd, fd, smg._flags, **kw),
-        smk.work("mg_deep_smooth", bx=lg.nx, by=lg.ny, dtype=dtype,
-                 dpx=kw["dpx"], dpy=kw["dpy"], d=kw["d"],
-                 n_sweeps=kw["n_sweeps"], flags=smg._flags, emit="v_fc"),
-        bw, fp32)}
+    calls = {}
+    out = {}
+    b2, d2 = lg.nx // 2, 21
+    flags2 = kernel_flags(smg.bc, 2, 2, 0, 0)
+    vd2 = torch.as_tensor(0.1 * rng.standard_normal(
+        (b2 + 2 * d2, b2 + 2 * d2)), dtype=dtype, device="cuda")
+    fd2 = torch.as_tensor(rng.standard_normal(tuple(vd2.shape)),
+                          dtype=dtype, device="cuda")
+    kw2 = dict(kw, dpx=d2, dpy=d2, d=d2, px=2, py=2)
+    for key, label, (v_, f_, fl, k_, b_) in (
+            ("mg_deep_smooth", f"1x1 {lg.nx}^2 frame",
+             (vd, fd, smg._flags, kw, lg.nx)),
+            ("mg_deep_smooth 2x2", f"block (0, 0) of a 2x2 split, "
+             f"{b2}^2 + d {d2}", (vd2, fd2, flags2, kw2, b2))):
+        plan = smk.deep_plan(b_, b_, k_["dpx"], k_["dpy"], k_["n_sweeps"],
+                             "rbgs", dtype)
+        log(f"  mg_deep_smooth {label} plan: {plan.tx}^2 tiles "
+            f"({plan.gx * plan.gy} blocks of {plan.threads}), halo "
+            f"{plan.halo}, {plan.rounds} launch(es) of "
+            f"{plan.round_iters()} sweeps, boxes {plan.bh} x {plan.bw}, "
+            f"{plan.smem} B of shared memory")
+        calls[label] = (lambda v_=v_, f_=f_, fl=fl, k_=k_:
+                        smk.launch_deep_smooth(v_, f_, fl, **k_))
+        out[key] = time_pair(
+            f"mg_deep_smooth ({label}, d {k_['d']}, {k_['n_sweeps']} "
+            "sweeps, v_fc)", calls[label],
+            lambda v_=v_, f_=f_, fl=fl, k_=k_:
+                smk.deep_smooth_plain(v_, f_, fl, **k_),
+            smk.work("mg_deep_smooth", bx=b_, by=b_, dtype=dtype,
+                     dpx=k_["dpx"], dpy=k_["dpy"], d=k_["d"],
+                     n_sweeps=k_["n_sweeps"], flags=fl, emit="v_fc"),
+            bw, fp32)
     v = torch.as_tensor(rng.standard_normal((lg.nx + 2, lg.ny + 2)),
                         dtype=dtype, device="cuda")
     vc = torch.as_tensor(0.1 * rng.standard_normal(
@@ -1934,7 +2070,7 @@ def sharded_timing(sd, bw, fp32):
         f"mg_correct ({lg.nx}^2)", lambda: smk.launch_correct(v, vc),
         lambda: smk.correct_plain(v, vc),
         smk.work("mg_correct", bx=lg.nx, by=lg.ny, dtype=dtype), bw, fp32)
-    return out
+    return out, calls
 
 
 def core_barriers(top, nsmooth, nsmooth_bottom, warps, cluster):
@@ -2041,31 +2177,20 @@ def profile_steps(step, steps, label):
     device time by kernel and the device's busy share of the wall time."""
     import re
 
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    step()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            step()
-        torch.cuda.synchronize()
-        wall_us = 1e6 * (time.perf_counter() - t0)
+    found, wall_us = profiled(step, steps)
+    if not found:
+        log(f"[profile: {steps} main-path steps, {label}]")
+        log(f"  wall {wall_us / steps:.1f} us/step; device time not "
+            "measured (the profiler recorded no device kernel)")
+        return
     rows = []
-    for e in prof.key_averages():
-        dev_us = getattr(e, "device_time_total",
-                         getattr(e, "cuda_time_total", 0.0))
-        if e.device_type == torch.autograd.DeviceType.CUDA and dev_us > 0:
-            m = re.search(r"(k_[a-z0-9_]+)<([^<>]*)>", e.key)
-            name = (f"{kernel_source(m.group(1))} "
-                    f"{kernel_name(m.group(1), m.group(2).split(', '))}"
-                    if m else e.key[:72])
-            rows.append((dev_us, e.count, name))
+    for key, count, dev_us in found:
+        m = re.search(r"(k_[a-z0-9_]+)<([^<>]*)>", key)
+        name = (f"{kernel_source(m.group(1))} "
+                f"{kernel_name(m.group(1), m.group(2).split(', '))}"
+                if m else key[:72])
+        rows.append((dev_us, count, name))
     rows.sort(reverse=True)
-    if not rows:
-        raise AssertionError("the profiler recorded no device time")
     busy_us = sum(r[0] for r in rows)
     log(f"[profile: {steps} main-path steps, {label}]")
     log(f"  wall {wall_us / steps:.1f} us/step, device busy "
@@ -2137,12 +2262,10 @@ def kernel_source(kernel):
         return "mg_deep.cu"
     if kernel.startswith("k_lm_"):
         return "lm_interface.cu"
-    if kernel.startswith(("k_rk_", "k_fv4")):
+    if kernel in ("k_rk", "k_fv4"):
         return "mol_substep.cu"
     if kernel.startswith("k_swe"):
         return "swe_step.cu"
-    if kernel in ("k_prim", "k_flatten"):
-        return "euler_common.cuh"
     return "ctu_step.cu"
 
 
@@ -2202,7 +2325,10 @@ def main():
             log("    " + line)
             for head in ("k_ctu<float, nvar 4, cartesian>", "k_swe<float, 4>",
                          "k_down<const, float>", "k_down<vc, float>",
-                         "k_down<general, float>"):
+                         "k_down<general, float>", "k_rk<float, 4>",
+                         "k_rk<double, 4>",
+                         "k_deep<const, rbgs, v_fc, float>",
+                         "k_deep<const, rbgs, v_r, float>"):
                 if line.startswith(head + ":"):
                     main_ptxas[head] = line
     for head, line in main_ptxas.items():
@@ -2267,8 +2393,6 @@ def main():
     for dtype, tol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
         for nx, ny in ((200, 136), (1024, 1000), (1024, 1024)):
             for name, solver, problem, inputs, extra in MOL_CONFIGS:
-                if ny == 1000 and solver != "compressible_fv4":
-                    continue                    # the fused kernel's ragged
                 shape = (nx, ny)
                 if name == "fv4_rt_gravity" and nx == 200:
                     shape = (200, 600)          # square cells, rt's 1 x 3
@@ -2417,7 +2541,7 @@ def main():
             f"ms, bound {b_ms:.4f} ms ({b_by}), at {100 * b_ms / ms:.2f}% "
             "of it")
     log("[timing: the MOL increments at 1024^2 float32, CUDA events]")
-    mol_times, mol_peak = {}, {}
+    mol_times, mol_peak, mol_calls = {}, {}, {}
     for kname, pp in (("mol_rk", rk_quad), ("mol_fv4", fv4)):
         msim = pp.sim
         msim.cc_data.fill_BC_all()
@@ -2432,6 +2556,7 @@ def main():
             mol_kernel.work(mstep.kind, g.nx, g.ny, msim.ivars.nvar,
                             torch.float32), bw, fp32)
         mol_peak[kname] = mol_peak_memory(mstep, mU, mt, mdt)
+        mol_calls[kname] = (mstep, mU, mt, mdt)
 
     log("[timing: the swe step at quad 1024^2 float32, CUDA events]")
     ssim = swe_quad.sim
@@ -2483,7 +2608,7 @@ def main():
 
     log(f"[timing: the sharded multigrid kernels at the 1024^2 path's "
         f"finest level, float32, CUDA events; {smi}]")
-    sharded_times = sharded_timing(sharded, bw, fp32)
+    sharded_times, deep_calls = sharded_timing(sharded, bw, fp32)
     log(f"[the core: its schedule and barriers, and its time on the "
         f"sharded solve's data, float32, CUDA events; {smi}]")
     core_schedule_log(make_mg(1024, "periodic", 0.0, -1.0, torch.float32),
@@ -2495,7 +2620,15 @@ def main():
     # the main paths' breakdowns
     log(f"[the swe step, mg_down's launches, the multigrid kernels by level "
         f"and mg_down with other tiles under the profiler, float32; {smi}]")
-    swe_one_launch(*swe_call)
+    sstep, sU, st, sdt = swe_call
+    one_launch_each(lambda: sstep.launch(sU, st, sdt), 5, "k_swe",
+                    "swe steps (quad 1024^2)", "swe_step")
+    mstep, mU, mt, mdt = mol_calls["mol_rk"]
+    one_launch_each(lambda: mstep.launch(mU, mt, mdt), 5, "k_rk",
+                    "rk stages (quad 1024^2)", "mol_rk")
+    for label, call in deep_calls.items():
+        one_launch_each(call, 5, "k_deep", f"mg_deep_smooth calls ({label})",
+                        "mg_deep_smooth")
     down_launches(make_mg(1024, "periodic", 0.0, -1.0, torch.float32))
     mg_level_kernels(make_mg(1024, "periodic", 0.0, -1.0, torch.float32),
                      "periodic Poisson")
@@ -2520,6 +2653,8 @@ def main():
     profile_steps(diff.single_step, 5, "diffusion gaussian 1024^2 float32")
     profile_steps(shear.single_step, 5,
                   "incompressible shear 1024^2 float32")
+    profile_steps(rk_quad.single_step, 5,
+                  "compressible_rk quad 1024^2 float32")
     profile_steps(fv4.single_step, 5,
                   "compressible_fv4 acoustic_pulse 1024^2 float32")
     profile_steps(sdc.single_step, 3,
@@ -2676,6 +2811,8 @@ def main():
         "above the state")
     log(f"  swe quad 1024^2 float32 step: peak device memory {swe_peak} B "
         "above the state")
+    log(f"  quad 1024^2 float32 rk stage: peak device memory "
+        f"{mol_peak['mol_rk']} B above the state")
     log(f"  acoustic_pulse 1024^2 float32 fv4 stage: peak device memory "
         f"{mol_peak['mol_fv4']} B above the state")
     log(smi)                            # the card, again, for the record

@@ -13,14 +13,12 @@
 // bits the order of operations allows.
 //
 // Every per-cell helper is a template over the parameter block P and reads
-// the variable count and indices as p.nvar, p.idens, ...: mol_substep.cu's
-// staged rk kernels pass Params, whose fields hold them at run time; the
-// fused kernels (ctu_step.cu, mol_substep.cu's fv4 kernel) pass
-// FixedParams, which fixes them at compile time, so their per-variable
-// arrays are indexed by constants and stay in registers.  The stencil
-// helpers read their planes through views a(i, j) (grid_common.cuh's
-// FramePlane for a frame in device memory, BoxPlane for a tile's box in
-// shared memory).
+// the variable count and indices as p.nvar, p.idens, ...: the fused kernels
+// (ctu_step.cu, mol_substep.cu's rk and fv4 kernels) pass FixedParams,
+// which fixes them at compile time, so their per-variable arrays are
+// indexed by constants and stay in registers.  The stencil helpers read
+// their planes through views a(i, j) (grid_common.cuh's BoxPlane for a
+// tile's box in shared memory).
 
 #pragma once
 
@@ -404,7 +402,7 @@ __device__ __forceinline__ void riemann(const P& p, int idir,
 }
 
 // ---------------------------------------------------------------------------
-// cons <-> prim, flattening, the vertex divergence; the MOL stage kernels
+// cons <-> prim, flattening, the vertex divergence
 // ---------------------------------------------------------------------------
 
 // cons -> prim of one cell's conserved values u (the rho == 0 guard of
@@ -425,16 +423,6 @@ __device__ __forceinline__ void cons_to_prim(const P& p, const T* u, T* q) {
   for (int n = 4; n < p.nvar; ++n) q[n] = nz ? u[n] / safe : T(0);
 }
 
-// stage 1: primitives of the floored state on every cell
-template <typename T>
-__global__ void k_prim(const T* __restrict__ U, T* __restrict__ Q, Params p) {
-  CELL_INDEX
-  T u[MAXVAR], q[MAXVAR];
-  for (int n = 0; n < p.nvar; ++n) u[n] = ldU(U, p, n, i, j);
-  cons_to_prim(p, u, q);
-  for (int n = 0; n < p.nvar; ++n) Q[at(p, n, i, j)] = q[n];
-}
-
 // the 1-D flattening coefficient of a buf=2-window cell (i, j) along
 // (di, dj) from views of the pressure P and the normal velocity un (1
 // outside the window)
@@ -450,21 +438,6 @@ __device__ __forceinline__ T flat1d_of(const P& p, const A& P_, const A& un,
   const T x = fmin(T(1), fmax(T(0), T(1) - (z - T(p.z0)) /
                                               T(p.z1 - p.z0)));
   return (t1 > T(0) && t2 > T(p.delta)) ? x : T(1);
-}
-
-// stage 2: 1-D flattening coefficients xi_x, xi_y (1 outside buf=2)
-template <typename T>
-__global__ void k_flatten(const T* __restrict__ Q, T* __restrict__ XI,
-                          Params p) {
-  CELL_INDEX
-  const size_t plane = (size_t)p.qx * p.qy;
-  const FramePlane<T> P{Q + (size_t)IP * plane, p.qy};
-  XI[at(p, 0, i, j)] =
-      flat1d_of<T>(p, P, FramePlane<T>{Q + (size_t)IU * plane, p.qy}, i, j,
-                   1, 0);
-  XI[at(p, 1, i, j)] =
-      flat1d_of<T>(p, P, FramePlane<T>{Q + (size_t)IV * plane, p.qy}, i, j,
-                   0, 1);
 }
 
 template <typename T, typename P>
@@ -490,15 +463,6 @@ __device__ __forceinline__ T vertex_div_of(const P& p, const A& u, const A& v,
   return (ur - ul) / T(p.dx) + (vt - vb) / T(p.dy);
 }
 
-// the same on the primitive stack Q of the frame
-template <typename T>
-__device__ __forceinline__ T vertex_div(const Params& p, const T* Q, int i,
-                                        int j) {
-  const size_t plane = (size_t)p.qx * p.qy;
-  return vertex_div_of<T>(p, FramePlane<T>{Q + (size_t)IU * plane, p.qy},
-                          FramePlane<T>{Q + (size_t)IV * plane, p.qy}, i, j);
-}
-
 // the multidimensional flattening coefficient of a buf=2-window cell from
 // views of the pressure P and the 1-D coefficients xx, xy
 template <typename T, typename P, typename A, typename B>
@@ -510,17 +474,6 @@ __device__ __forceinline__ T flat_xi_of(const P& p, const A& P_, const B& xx,
   const T py = P_(i, j + 1) - P_(i, j - 1) > T(0) ? xy(i, j - 1)
                                                   : xy(i, j + 1);
   return fmin(fmin(xx(i, j), px), fmin(xy(i, j), py));
-}
-
-// the same from the frame's primitives Q and 1-D coefficients XI (1
-// without flattening)
-template <typename T>
-__device__ __forceinline__ T flat_xi(const Params& p, const T* Q, const T* XI,
-                                     int i, int j) {
-  const size_t plane = (size_t)p.qx * p.qy;
-  return flat_xi_of<T>(p, FramePlane<T>{Q + (size_t)IP * plane, p.qy},
-                       FramePlane<T>{XI, p.qy},
-                       FramePlane<T>{XI + plane, p.qy}, i, j);
 }
 
 // the parameter block from the wrappers' int and double arrays (the order

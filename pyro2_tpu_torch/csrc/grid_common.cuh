@@ -3,8 +3,8 @@
 // and lm_interface.cu): indexing into the (nvar, qx, qy) stack, the
 // interior bounds, window tests against the global index, and the
 // MC-limited slopes of mesh/reconstruction.py, which read a plane through
-// a view a(i, j) (FramePlane for a frame in device memory; BoxPlane for
-// the fused kernels' boxes of a tile in shared memory).
+// a view a(i, j) (BoxPlane for the fused kernels' boxes of a tile in
+// shared memory).
 //
 // The helpers are templates over the parameter block P, so each kernel
 // source keeps its own block; they read only its generic fields: nx, ny,
@@ -82,16 +82,6 @@ __device__ __forceinline__ T mc(T dc, T dl, T dr) {
   return dl * dr > T(0) ? d : T(0);
 }
 
-// a plane of the (qx, qy) frame seen as a(i, j): its row stride is qy
-template <typename T>
-struct FramePlane {
-  const T* a;
-  int qy;
-  __device__ __forceinline__ T operator()(int i, int j) const {
-    return a[(size_t)i * qy + j];
-  }
-};
-
 // 2nd-order MC slope of plane a (any a(i, j) view) at (i, j) along idir,
 // zero outside the buf=2 window (the embed of the plain version)
 template <typename T, typename P, typename A>
@@ -120,12 +110,6 @@ __device__ __forceinline__ T slope_of(const P& p, const A& a, int i, int j,
   const T tm = limit2_at<T>(p, a, i - di, j - dj, di, dj);
   const T dc = T(2.0 / 3.0) * (ap - am - T(0.25) * (tp + tm));
   return mc(dc, ap - a0, a0 - am);
-}
-
-// the limited slope of frame plane a (row stride qy)
-template <typename T, typename P>
-__device__ T slope(const P& p, const T* a, int i, int j, int di, int dj) {
-  return slope_of<T>(p, FramePlane<T>{a, p.qy}, i, j, di, dj);
 }
 
 // one thread per frame cell (i, j), threadIdx.x along y

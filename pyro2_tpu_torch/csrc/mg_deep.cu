@@ -28,54 +28,77 @@
 // be valid to depth lim+1 may update a cell only if its excess is <= lim on
 // each seam side and 0 on each other side: red-black sweep s updates red at
 // lim = d - (2s+1) and black at lim - 1, Jacobi and Chebyshev step s at
-// d - (s+1).  The ghosts of the other sides are refreshed after every step.
+// d - (s+1).  So the cells a step may update are a rectangle of the frame
+// (`eligible`).  The ghosts of the other sides are refreshed after every
+// step.
 //
 // The refresh.  Each edge of the plan (`plan`: 0 none, 1 when the block owns
 // that domain edge (flags 4..7), 2 always, an unsplit periodic axis) sets
 // its ghost row or column to +-1 times one source row or column, x-lo, x-hi,
 // y-lo, y-hi in that order over full rows, so a corner is the y rule applied
-// to the x-filled row.  The entry refresh is a pass of its own (the input's
-// ghosts are whatever the exchange left); after it, as in mg_vcycle.cu, the
-// thread that writes a source cell also writes the ghosts that mirror it
-// (`put`), which is race-free for the same reason: a ghost is read only by
-// its own source cell or, across a periodic wrap, by a cell of the other
-// colour.
+// to the x-filled row.  A ghost thus always holds its sign times its source
+// cell's current value, from the entry refresh on.
 //
 // The smoothers.  Red-black Gauss-Seidel updates in place (a colour reads
 // only the other colour).  Damped Jacobi (omega 0.8) and Chebyshev read only
-// the old iterate, so they step between two buffers, the output and `w`; the
-// wrapper picks the one to start in so that the last step lands in the
-// output.  Chebyshev carries its step in `dk`.  theta, delta, sigma, rho are
-// computed in the working type in the JAX package's order.
+// the old iterate, so they step between two buffers.  Chebyshev carries its
+// step dk.  theta, delta, sigma, rho are computed in the working type in the
+// JAX package's order.
 //
-// One cooperative launch per round: grid-stride loops over the frame,
-// cooperative_groups grid.sync() between phases (two for the entry refresh,
-// one per half-sweep or step).  A 1024^2 float32 frame is 4.3 MB, far above
-// the 227 KB of shared memory a block may use, so the frame stays in device
-// memory and L2 (the TPU held it in VMEM).  What bounds it on the H100:
-// 7-17 operations per cell update against 2 values and 2-5 coefficient
-// planes, so the bytes of the frames over the memory rate
-// (sharded_mg_kernel.work); this first design pays a grid barrier per
-// half-sweep instead and reads neighbours from L2.  Tiles of several sweeps
-// in shared memory are the next step.
+// The design: ordinary launches of tiles with deep halos in shared memory
+// (mg_tiles.cuh, the boxes of mg_vcycle.cu's k_down and k_up), one launch a
+// round at the solvers' sweeps.  The block grid tiles the owned block
+// (sharded_mg_kernel.deep_plan picks the tile); the tiles at the frame's
+// edges own its halo and ghosts too, unless the halo is deeper than their
+// boxes' halo, when it has tiles of its own.  A block loads v and f over
+// its cells and a halo of one cell per half-sweep (red-black) or step
+// (Jacobi, Chebyshev) plus one for the residual, clipped to the frame, into
+// shared memory -- on an unsplit periodic axis the box wraps, holding the
+// cells
+// its ghosts mirror, as k_up's does -- and runs every sweep there with
+// block barriers only, updating a cell when it is eligible by its frame
+// index and still exact in the box.  A refreshed ghost beside its source
+// cell is never read from the box: a sweep reads it as its mirror (sign
+// times the cell, nbrs), and the write-out gives each ghost its sign times
+// its source cell's final value, which is what the entry refresh and every
+// later refresh give it.  Jacobi's second iterate and Chebyshev's dk live
+// in shared memory.  The block then writes its cells and the emit:
+// EMIT_V_FC the restricted residual of its coarse cells (the tile is even
+// and starts at an even excess, so it holds their children) and, from the
+// tiles on the frame's edge, the coarse frame's zero ghosts, as k_down
+// does; EMIT_V_R the residual of its owned cells, zero on its other cells.
+// Where a halo for all the round's sweeps would not fit, the plan splits the
+// round into sub-rounds of separate launches, each carrying its first
+// sweep's index (lim and Chebyshev's scalars depend on it), alternating
+// between the output and the scratch frame w (and Chebyshev's dk between
+// two frames of dk) so that the last one ends in the output.
 //
-// Each entry point returns the launch's cudaError_t (0 on success).
+// What bounds it on the H100: 7-17 operations per cell update against 2
+// values and 2-5 coefficient planes, so the bytes of the frames over the
+// memory rate (sharded_mg_kernel.work).  The tiles read each neighbour from
+// shared memory at the price of recomputing the halo (1.8x the cells of a
+// 1024^2 frame with 64^2 tiles) and a block barrier a half-sweep.
+//
+// Each cell's arithmetic is the first design's, in its order, and the
+// cells of a colour (or of a Jacobi step) do not read each other, so the
+// results are the first design's bits whatever the tiling.  Each entry
+// point returns the launch's cudaError_t (0 on success).
 //
 // Build (see sharded_mg_kernel.py and util/cuda_build.py):
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -fmad=false
 //        -shared -Xcompiler -fPIC -o libmg_deep.so mg_deep.cu
 
-#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
 
-#include "mg_ops.cuh"
-
-namespace cg = cooperative_groups;
+#include "mg_tiles.cuh"
 
 namespace {
 
-constexpr int THREADS = 256;
+constexpr int THREADS = 256;       // k_correct's block
+// k_deep's block: TILE_X threads (threadIdx.x) along a row, the plan's
+// threads / TILE_X (threadIdx.y) over the rows, at most DEEP_THREADS
+constexpr int TILE_X = 32, DEEP_THREADS = 512;
 
 // ghost-fill kind of an edge (as mg_vcycle.cu)
 enum { COPY = 0, NEGATE = 1, PERIODIC = 2 };
@@ -96,154 +119,251 @@ struct Frame {
   bool on[4];            // the edge is refreshed
   int ghost[4], src[4];  // its ghost row / column and the one it mirrors
   T sgn[4];
+  bool wx, wy;           // an unsplit periodic axis: the box wraps
 };
 
-// the excess-distance test: may cell (i, j) take an update at depth lim?
-template <typename T>
-__device__ __forceinline__ bool elig(const Frame<T>& F, int i, int j,
-                                     int lim) {
-  const int exl = max(F.dpx - i, 0), exr = max(i - (F.dpx + F.bx - 1), 0);
-  const int eyl = max(F.dpy - j, 0), eyr = max(j - (F.dpy + F.by - 1), 0);
-  return exl <= (F.lim0[0] ? lim : 0) && exr <= (F.lim0[1] ? lim : 0) &&
-         eyl <= (F.lim0[2] ? lim : 0) && eyr <= (F.lim0[3] ? lim : 0);
-}
+// the launch plan of sharded_mg_kernel.deep_plan: the tile (tx rows, ty
+// columns; even), the halo, the sub-rounds and the sweeps of a full one,
+// the block's threads, its shared memory (bytes), the grid (tiles along y,
+// along x), the largest box (bh rows, bw columns) and the arrays of that
+// size the block holds (v, f; Jacobi v's second iterate; Chebyshev dk)
+struct DeepPlan {
+  int tx, ty, halo, rounds, iters, threads, smem, gx, gy, bh, bw, arrays;
+};
 
-template <typename T>
-__device__ __forceinline__ bool is_ghost(const Frame<T>& F, int i, int j) {
-  return (F.on[0] && i == F.ghost[0]) || (F.on[1] && i == F.ghost[1]) ||
-         (F.on[2] && j == F.ghost[2]) || (F.on[3] && j == F.ghost[3]);
-}
+constexpr int DEEP_PLAN_INTS = 12;
 
-// write cell (i, j) and every refreshed ghost that mirrors it
-template <typename T>
-__device__ __forceinline__ void put(T* v, const Frame<T>& F, int i, int j,
-                                    T val) {
-  const int q = F.q;
-  v[i * q + j] = val;
-  const bool xl = F.on[0] && i == F.src[0], xh = F.on[1] && i == F.src[1];
-  const bool yl = F.on[2] && j == F.src[2], yh = F.on[3] && j == F.src[3];
-  const T vxl = F.sgn[0] * val, vxh = F.sgn[1] * val;
-  if (xl) v[F.ghost[0] * q + j] = vxl;
-  if (xh) v[F.ghost[1] * q + j] = vxh;
-  if (yl) v[i * q + F.ghost[2]] = F.sgn[2] * val;
-  if (yh) v[i * q + F.ghost[3]] = F.sgn[3] * val;
-  if (xl && yl) v[F.ghost[0] * q + F.ghost[2]] = F.sgn[2] * vxl;
-  if (xl && yh) v[F.ghost[0] * q + F.ghost[3]] = F.sgn[3] * vxl;
-  if (xh && yl) v[F.ghost[1] * q + F.ghost[2]] = F.sgn[2] * vxh;
-  if (xh && yh) v[F.ghost[1] * q + F.ghost[3]] = F.sgn[3] * vxh;
-}
-
+// the arguments of one sub-round
 template <typename T>
 struct DeepArgs {
-  const T* vd;   // the exchanged frame (its physical ghosts are refreshed)
-  const T* fd;   // the right-hand side on the frame
-  T* vo;         // the smoothed frame
-  T* ex;         // EMIT_V_FC: the coarse frame; EMIT_V_R: the residual frame
-  T* w;          // JACOBI / CHEBYSHEV: the second iterate
-  T* dk;         // CHEBYSHEV: its step
+  const T* src;    // the sub-round's input frame (the caller's vd first)
+  const T* fd;     // the right-hand side on the frame
+  T* dst;          // its output frame
+  T* ex;           // the last sub-round: EMIT_V_FC the coarse frame,
+                   // EMIT_V_R the residual frame; else nullptr
+  const T* dk_in;  // CHEBYSHEV after the first sub-round: its dk
+  T* dk_out;       // CHEBYSHEV before the last sub-round: this one's dk
   Frame<T> F;
   T alpha, beta;
-  int d, nsweeps;
+  int d, s0, iters;  // the round's sweeps s0 .. s0 + iters - 1
+  DeepPlan t;
 };
 
-template <int OP, int SM, int EMIT, typename T>
-__global__ void __launch_bounds__(THREADS) k_deep(DeepArgs<T> a) {
-  cg::grid_group grid = cg::this_grid();
-  const Frame<T>& F = a.F;
-  const int Fy = F.Fy, nf = F.Fx * F.Fy;
-  const int t0 = blockIdx.x * blockDim.x + threadIdx.x;
-  const int nt = gridDim.x * blockDim.x;
+// the frame cells along one axis that a step at depth lim may update:
+// excess <= lim toward a seam, 0 elsewhere; every cell on a wrapping axis
+// (its cells are all owned)
+__device__ __forceinline__ void eligible_span(int dp, int b, int seam_lo,
+                                              int seam_hi, int lim,
+                                              bool wrap, int& lo, int& hi) {
+  lo = wrap ? INT_MIN : dp - (seam_lo ? lim : 0);
+  hi = wrap ? INT_MAX : dp + b - 1 + (seam_hi ? lim : 0);
+}
 
-  // the buffer the iterate starts in: the last step must land in vo
-  T* cur = (SM == RBGS || a.nsweeps % 2 == 0) ? a.vo : a.w;
-  T* nxt = cur == a.vo ? a.w : a.vo;
+template <typename T>
+__device__ __forceinline__ Rect eligible(const Frame<T>& F, int lim) {
+  if (lim < 0 && (F.lim0[0] | F.lim0[1] | F.lim0[2] | F.lim0[3]))
+    return Rect{0, -1, 0, -1};      // a seam side takes no cell at all
+  Rect r;
+  eligible_span(F.dpx, F.bx, F.lim0[0], F.lim0[1], lim, F.wx, r.i0, r.i1);
+  eligible_span(F.dpy, F.by, F.lim0[2], F.lim0[3], lim, F.wy, r.j0, r.j1);
+  return r;
+}
 
-  // entry refresh: the x ghost rows gathered from the input, then the y
-  // ghost columns over full rows
-  for (int k = t0; k < nf; k += nt) {
-    const int i = k / Fy, j = k - (k / Fy) * Fy;
-    T val = a.vd[k];
-    if (F.on[0] && i == F.ghost[0]) val = F.sgn[0] * a.vd[F.src[0] * Fy + j];
-    if (F.on[1] && i == F.ghost[1]) val = F.sgn[1] * a.vd[F.src[1] * Fy + j];
-    cur[k] = val;
-  }
-  grid.sync();
-  for (int k = t0; k < nf; k += nt) {
-    const int i = k / Fy, j = k - (k / Fy) * Fy;
-    if (F.on[2] && j == F.ghost[2]) cur[k] = F.sgn[2] * cur[i * Fy + F.src[2]];
-    if (F.on[3] && j == F.ghost[3]) cur[k] = F.sgn[3] * cur[i * Fy + F.src[3]];
-  }
-  grid.sync();
+// the tiles of the halo on each side of the owned block along an axis:
+// none when the owned block's edge tiles can take it (it is no deeper than
+// their boxes' halo h), else enough tiles of its own to cover it
+__device__ __host__ inline int halo_tiles(int dp, int tile, int h) {
+  return dp <= h ? 0 : (dp + tile - 1) / tile;
+}
 
-  if constexpr (SM == RBGS) {
-    // the cells of one colour: Fy is even, so every row holds Fy/2 of each
-    const int h = Fy >> 1;
-    for (int s = 0; s < a.nsweeps; ++s) {
-      const int lim = a.d - (2 * s + 1);
-      for (int color = 0; color < 2; ++color) {
-        for (int k = t0; k < nf / 2; k += nt) {
-          const int i = k / h;
-          const int j = 2 * (k - i * h) + ((color + i + F.dpx + F.dpy) & 1);
-          if (elig(F, i, j, lim - color))
-            put(cur, F, i, j, gs<OP>(cur, a.fd, F, i * Fy + j));
-        }
-        grid.sync();
-      }
-    }
+// the frame cells [o0, o1) along one axis that tile k of `tiles` writes:
+// a tile of the halo below the owned block (the first one ragged), a share
+// of the owned block (its edge tiles with the halo beside them when the
+// halo has no tiles), or a tile of the halo above it (the last ragged)
+__device__ __host__ inline void owned_span(int k, int tiles, int tile,
+                                           int dp, int b, int h, int& o0,
+                                           int& o1) {
+  const int nl = halo_tiles(dp, tile, h), nb = tiles - 2 * nl;
+  const int F = b + 2 * dp;
+  if (k < nl) {
+    o1 = dp - (nl - 1 - k) * tile;
+    o0 = o1 - tile < 0 ? 0 : o1 - tile;
+  } else if (k >= nl + nb) {
+    o0 = dp + b + (k - nl - nb) * tile;
+    o1 = o0 + tile > F ? F : o0 + tile;
   } else {
+    const int m = k - nl;
+    o0 = m == 0 && nl == 0 ? 0 : dp + m * tile;
+    o1 = m == nb - 1 ? (nl == 0 ? F : dp + b) : dp + (m + 1) * tile;
+  }
+}
+
+// the box of the owned span [o0, o1) and halo h along one axis: clipped to
+// the frame, or wrapped around an unsplit periodic axis (whose owned cells
+// are 1 .. b); the ghosts of refreshed edges mirror their source cells
+__device__ __host__ inline BoxAxis deep_axis(int o0, int o1, int h, int F,
+                                             int b, bool wrap, bool on_lo,
+                                             bool on_hi, int src_lo,
+                                             int src_hi) {
+  if (wrap) return BoxAxis{o0 - h, o1 - o0 + 2 * h, 1, b, INT_MIN, INT_MAX,
+                           b, true};
+  const int e0 = o0 - h < 0 ? 0 : o0 - h;
+  const int e1 = o1 + h > F ? F : o1 + h;
+  return BoxAxis{e0, e1 - e0, 0, F - 1, on_lo ? src_lo : INT_MIN,
+                 on_hi ? src_hi : INT_MAX, 0, false};
+}
+
+template <int OP, int SM, int EMIT, typename T>
+__global__ void __launch_bounds__(DEEP_THREADS) k_deep(DeepArgs<T> a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const Frame<T>& F = a.F;
+  const DeepPlan& p = a.t;
+  const int q = F.q;
+  int r0, r1, c0, c1;   // the frame rows and columns this block writes
+  owned_span((int)blockIdx.y, p.gy, p.tx, F.dpx, F.bx, p.halo, r0, r1);
+  owned_span((int)blockIdx.x, p.gx, p.ty, F.dpy, F.by, p.halo, c0, c1);
+  const FrameBox t{
+      deep_axis(r0, r1, p.halo, F.Fx, F.bx, F.wx, F.on[0], F.on[1],
+                F.src[0], F.src[1]),
+      deep_axis(c0, c1, p.halo, F.Fy, F.by, F.wy, F.on[2], F.on[3],
+                F.src[2], F.src[3])};
+  const int cells = p.bh * p.bw;
+  T* b = reinterpret_cast<T*>(smem_raw);
+  T* fb = b + cells;
+  T* b2 = fb + cells;     // JACOBI, CHEBYSHEV: the second iterate
+  T* dk = b2 + cells;     // CHEBYSHEV: its step
+  load_box(b, fb, t, q, a.fd, [&](int c, int, int) { return a.src[c]; });
+
+  T* cur = b;   // the box of the current iterate
+  if constexpr (SM == RBGS) {
+    // half-sweep s: sweep s0 + (s - 1) / 2, red (colour 0) then black,
+    // red the cells whose excess distances from the owned block's first
+    // row and column sum to an even number
+    tile_smooth<OP>(b, fb, t, F, 2 * a.iters, (F.dpx + F.dpy) & 1,
+                    [&](int s) {
+                      const int sweep = a.s0 + (s - 1) / 2;
+                      return eligible(F, a.d - (2 * sweep + 1) -
+                                             ((s - 1) & 1));
+                    });
+  } else {
+    if (SM == CHEBYSHEV && a.s0 > 0) {
+      const int i1 = t.x.hi(), j1 = t.y.hi();
+      for (int i = t.x.lo() + (int)threadIdx.y; i <= i1; i += blockDim.y) {
+        const int it = t.x.wrap(i);
+        for (int j = t.y.lo() + (int)threadIdx.x; j <= j1; j += blockDim.x)
+          dk[t.at(i, j)] = a.dk_in[it * q + t.y.wrap(j)];
+      }
+      __syncthreads();
+    }
     const T omega = T(0.8);
     const T theta = T(1.25), delta = T(0.75);
     const T sigma = theta / delta;
     T rho = T(1) / sigma;
-    for (int s = 0; s < a.nsweeps; ++s) {
-      const int lim = a.d - (s + 1);
+    for (int s = 1; s < a.s0; ++s) rho = T(1) / (T(2) * sigma - rho);
+    T* nxt = b2;
+    for (int k = 1; k <= a.iters; ++k) {
+      const int s = a.s0 + k - 1;        // the step of the round
       T c1 = T(0), c2 = T(0), rho_new = T(0);
       if (SM == CHEBYSHEV && s > 0) {
         rho_new = T(1) / (T(2) * sigma - rho);
         c1 = rho_new * rho;
         c2 = T(2) * rho_new / delta;
       }
-      for (int k = t0; k < nf; k += nt) {
-        const int i = k / Fy, j = k - (k / Fy) * Fy;
-        if (is_ghost(F, i, j)) continue;    // written by its source's put
-        const bool e = elig(F, i, j, lim);
-        const T x = cur[k];
-        T val = x;
-        if constexpr (SM == JACOBI) {
-          if (e) val = x + omega * (gs<OP>(cur, a.fd, F, k) - x);
-        } else {
-          const T z = e ? gs<OP>(cur, a.fd, F, k) - x : T(0);
-          const T step = s == 0 ? z / theta : c1 * a.dk[k] + c2 * z;
-          a.dk[k] = step;
-          if (e) val = x + step;
+      const Rect e = eligible(F, a.d - (s + 1));
+      const int i0 = t.x.lo_s(k), i1 = t.x.hi_s(k);
+      const int j0 = t.y.lo_s(k), j1 = t.y.hi_s(k);
+      for (int i = i0 + (int)threadIdx.y; i <= i1; i += blockDim.y) {
+        const int it = t.x.wrap(i);
+        const bool ei = i >= e.i0 && i <= e.i1;
+        for (int j = j0 + (int)threadIdx.x; j <= j1; j += blockDim.x) {
+          const int o = t.at(i, j);
+          const bool el = ei && j >= e.j0 && j <= e.j1;
+          const T x = cur[o];
+          T gsv = T(0);
+          if (el) {
+            const Nbrs<T> v = t.nbrs(cur, F, o, i, j, x);
+            gsv = gs_val<OP>(v.xp, v.xm, v.yp, v.ym, fb[o], F,
+                             it * q + t.y.wrap(j));
+          }
+          T val = x;
+          if constexpr (SM == JACOBI) {
+            if (el) val = x + omega * (gsv - x);
+          } else {
+            const T z = el ? gsv - x : T(0);
+            const T step = s == 0 ? z / theta : c1 * dk[o] + c2 * z;
+            dk[o] = step;
+            if (el) val = x + step;
+          }
+          nxt[o] = val;
         }
-        put(nxt, F, i, j, val);
       }
-      grid.sync();
-      T* t = cur;
+      __syncthreads();
+      T* sw = cur;
       cur = nxt;
-      nxt = t;
+      nxt = sw;
       if (SM == CHEBYSHEV && s > 0) rho = rho_new;
     }
   }
 
-  if constexpr (EMIT == EMIT_V_FC) {
-    const int ncx = F.bx / 2, ncy = F.by / 2, qc = ncy + 2;
-    for (int k = t0; k < (ncx + 2) * qc; k += nt) {
-      const int I = k / qc, J = k - (k / qc) * qc;
-      a.ex[k] = (I >= 1 && I <= ncx && J >= 1 && J <= ncy)
-                    ? restrict4<OP>(cur, a.fd, F, a.alpha, a.beta,
-                                    (F.dpx + 2 * I - 2) * Fy + F.dpy + 2 * J -
-                                        2)
-                    : T(0);
+  // the block's cells: a refreshed ghost its sign times its source cell
+  // (x's rule, then y's over the x-filled row), every other cell its own
+  for (int i = r0 + (int)threadIdx.y; i < r1; i += blockDim.y) {
+    const bool gxl = !F.wx && F.on[0] && i == F.ghost[0];
+    const bool gxh = !F.wx && F.on[1] && i == F.ghost[1];
+    const int si = gxl ? F.src[0] : gxh ? F.src[1] : i;
+    for (int j = c0 + (int)threadIdx.x; j < c1; j += blockDim.x) {
+      const bool gyl = !F.wy && F.on[2] && j == F.ghost[2];
+      const bool gyh = !F.wy && F.on[3] && j == F.ghost[3];
+      T val = cur[t.at(si, gyl ? F.src[2] : gyh ? F.src[3] : j)];
+      if (gxl) val = F.sgn[0] * val;
+      if (gxh) val = F.sgn[1] * val;
+      if (gyl) val = F.sgn[2] * val;
+      if (gyh) val = F.sgn[3] * val;
+      a.dst[i * q + j] = val;
+      if (SM == CHEBYSHEV && a.dk_out) a.dk_out[i * q + j] = dk[t.at(i, j)];
     }
-  } else if constexpr (EMIT == EMIT_V_R) {
-    for (int k = t0; k < nf; k += nt) {
-      const int i = k / Fy, j = k - (k / Fy) * Fy;
-      a.ex[k] = (i >= F.dpx && i < F.dpx + F.bx && j >= F.dpy &&
-                 j < F.dpy + F.by)
-                    ? resid<OP>(cur, a.fd, F, a.alpha, a.beta, k)
-                    : T(0);
+  }
+  if (EMIT == EMIT_V || !a.ex) return;
+
+  // the residual of owned cell (i, j) from the box
+  auto res = [&](int i, int j) {
+    const int o = t.at(i, j);
+    const T v0 = cur[o];
+    const Nbrs<T> v = t.nbrs(cur, F, o, i, j, v0);
+    return resid_val<OP>(v0, v.xp, v.xm, v.yp, v.ym, fb[o], F, a.alpha,
+                         a.beta, i * q + j);
+  };
+  if constexpr (EMIT == EMIT_V_R) {
+    for (int i = r0 + (int)threadIdx.y; i < r1; i += blockDim.y) {
+      const bool oi = i >= F.dpx && i < F.dpx + F.bx;
+      for (int j = c0 + (int)threadIdx.x; j < c1; j += blockDim.x)
+        a.ex[i * q + j] = oi && j >= F.dpy && j < F.dpy + F.by ? res(i, j)
+                                                               : T(0);
+    }
+  } else {
+    // this block's rows and columns of the coarse frame: its tile's coarse
+    // cells, and the ghosts beside them on the frame's edge (a tile of the
+    // halo has none)
+    const int ncx = F.bx / 2, ncy = F.by / 2, qc = ncy + 2;
+    const int mx = (int)blockIdx.y - halo_tiles(F.dpx, p.tx, p.halo);
+    const int my = (int)blockIdx.x - halo_tiles(F.dpy, p.ty, p.halo);
+    const int nbx = (F.bx + p.tx - 1) / p.tx, nby = (F.by + p.ty - 1) / p.ty;
+    if (mx < 0 || mx >= nbx || my < 0 || my >= nby) return;
+    const int I0 = 1 + mx * (p.tx / 2), J0 = 1 + my * (p.ty / 2);
+    const int R0 = mx == 0 ? 0 : I0;
+    const int R1 = mx == nbx - 1 ? ncx + 2 : I0 + p.tx / 2;
+    const int C0 = my == 0 ? 0 : J0;
+    const int C1 = my == nby - 1 ? ncy + 2 : J0 + p.ty / 2;
+    for (int I = R0 + (int)threadIdx.y; I < R1; I += blockDim.y) {
+      for (int J = C0 + (int)threadIdx.x; J < C1; J += blockDim.x) {
+        T val = T(0);
+        if (I >= 1 && I <= ncx && J >= 1 && J <= ncy) {
+          const int i = F.dpx + 2 * I - 2, j = F.dpy + 2 * J - 2;
+          val = T(0.25) * (((res(i, j) + res(i + 1, j)) + res(i, j + 1)) +
+                           res(i + 1, j + 1));
+        }
+        a.ex[I * qc + J] = val;
+      }
     }
   }
 }
@@ -264,68 +384,126 @@ __global__ void __launch_bounds__(THREADS) k_correct(const T* v, const T* vc,
 
 // -- launches -------------------------------------------------------------------
 
-// blocks of a cooperative launch over `items` cells: no more than can be
-// co-resident on the card (queried once per kernel)
-int coop_blocks(const void* kernel, int& cached, int items) {
-  if (cached < 0) {
-    int dev = 0, sms = 0, per_sm = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
-            cudaSuccess ||
-        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                      THREADS, 0) !=
-            cudaSuccess)
-      return 0;
-    cached = per_sm * sms;
+// the largest box along one axis of the plan's tiles
+int widest_box(int tiles, int tile, int h, int dp, int b, bool wrap) {
+  int most = 0;
+  for (int k = 0; k < tiles; ++k) {
+    int o0, o1;
+    owned_span(k, tiles, tile, dp, b, h, o0, o1);
+    const BoxAxis x =
+        deep_axis(o0, o1, h, b + 2 * dp, b, wrap, false, false, 0, 0);
+    most = x.w > most ? x.w : most;
   }
-  const int want = (items + THREADS - 1) / THREADS;
-  return want < cached ? want : cached;
+  return most;
+}
+
+// the tiles along an axis of b owned cells tile a side, dp deep: the
+// owned block's, and the halo's on each side
+bool tiles_ok(int tiles, int tile, int dp, int b, int h) {
+  const int nb = tiles - 2 * halo_tiles(dp, tile, h);
+  return tile >= 2 && tile % 2 == 0 && nb >= 1 && (nb - 1) * tile < b &&
+         nb * tile >= b;
+}
+
+// the plan (sharded_mg_kernel.deep_plan) against the kernel: even tiles
+// whose grid covers the owned block once and the halo beside it, a halo
+// as deep as a sub-round's reach plus the residual's ring, sub-rounds that
+// take n_sweeps together, its block, and boxes that fit its arrays and
+// shared memory
+template <typename T>
+bool deep_plan_ok(const Frame<T>& F, const DeepPlan& t, int sm, int nsweeps) {
+  const int reach = sm == RBGS ? 2 : 1;
+  const int arrays = sm == RBGS ? 2 : sm == JACOBI ? 3 : 4;
+  const int rounds =
+      nsweeps == 0 ? 1 : (nsweeps + t.iters - 1) / (t.iters > 0 ? t.iters : 1);
+  if (!tiles_ok(t.gy, t.tx, F.dpx, F.bx, t.halo) ||
+      !tiles_ok(t.gx, t.ty, F.dpy, F.by, t.halo))
+    return false;
+  if (t.iters < 0 || (nsweeps > 0 && t.iters < 1) || t.rounds != rounds ||
+      t.halo < reach * t.iters + 1 || t.threads < TILE_X ||
+      t.threads > DEEP_THREADS || t.threads % TILE_X || t.arrays != arrays)
+    return false;
+  if (t.bh < widest_box(t.gy, t.tx, t.halo, F.dpx, F.bx, F.wx) ||
+      t.bw < widest_box(t.gx, t.ty, t.halo, F.dpy, F.by, F.wy))
+    return false;
+  return (long)t.smem >= (long)arrays * t.bh * t.bw * (long)sizeof(T);
 }
 
 template <int OP, int SM, int EMIT, typename T>
-int launch_deep(const DeepArgs<T>& a, cudaStream_t st) {
-  static int cached = -1;
+int launch_deep(const DeepArgs<T>& base, const T* vd, T* vo, T* ex, T* w,
+                T* dk, int nsweeps, cudaStream_t st) {
+  static int opted = 0;
   auto kernel = k_deep<OP, SM, EMIT, T>;
-  const int blocks =
-      coop_blocks((const void*)kernel, cached, a.F.Fx * a.F.Fy);
-  if (blocks < 1) return (int)cudaErrorLaunchOutOfResources;
-  DeepArgs<T> args = a;
-  void* params[] = {&args};
-  cudaError_t err = cudaLaunchCooperativeKernel(
-      (const void*)kernel, dim3(blocks), dim3(THREADS), params, 0, st);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  const DeepPlan& t = base.t;
+  if (t.smem > opted) {
+    cudaError_t e = cudaFuncSetAttribute(
+        (const void*)kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        t.smem);
+    if (e != cudaSuccess) return (int)e;
+    opted = t.smem;
+  }
+  DeepArgs<T> a = base;
+  const size_t nf = (size_t)base.F.Fx * base.F.Fy;
+  const T* src = vd;
+  for (int k = 0; k < t.rounds; ++k) {
+    const bool last = k == t.rounds - 1;
+    a.src = src;
+    a.dst = round_dst(k, t.rounds, vo, w);
+    a.ex = last ? ex : nullptr;
+    a.s0 = k * t.iters;
+    a.iters = min(t.iters, nsweeps - a.s0);
+    a.dk_in = SM == CHEBYSHEV && k > 0 ? dk + ((k - 1) & 1) * nf : nullptr;
+    a.dk_out = SM == CHEBYSHEV && !last ? dk + (k & 1) * nf : nullptr;
+    kernel<<<dim3(t.gx, t.gy), dim3(TILE_X, t.threads / TILE_X), t.smem,
+             st>>>(a);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+    src = a.dst;
+  }
+  return 0;
 }
 
 template <int OP, int SM, typename T>
-int by_emit(int emit, const DeepArgs<T>& a, cudaStream_t st) {
+int by_emit(int emit, const DeepArgs<T>& a, const T* vd, T* vo, T* ex, T* w,
+            T* dk, int nsweeps, cudaStream_t st) {
   switch (emit) {
-    case EMIT_V: return launch_deep<OP, SM, EMIT_V>(a, st);
-    case EMIT_V_FC: return launch_deep<OP, SM, EMIT_V_FC>(a, st);
-    case EMIT_V_R: return launch_deep<OP, SM, EMIT_V_R>(a, st);
+    case EMIT_V:
+      return launch_deep<OP, SM, EMIT_V>(a, vd, vo, ex, w, dk, nsweeps, st);
+    case EMIT_V_FC:
+      return launch_deep<OP, SM, EMIT_V_FC>(a, vd, vo, ex, w, dk, nsweeps,
+                                            st);
+    case EMIT_V_R:
+      return launch_deep<OP, SM, EMIT_V_R>(a, vd, vo, ex, w, dk, nsweeps,
+                                           st);
   }
   return (int)cudaErrorInvalidValue;
 }
 
 template <int OP, typename T>
-int by_smoother(int smoother, int emit, const DeepArgs<T>& a,
-                cudaStream_t st) {
+int by_smoother(int smoother, int emit, const DeepArgs<T>& a, const T* vd,
+                T* vo, T* ex, T* w, T* dk, int nsweeps, cudaStream_t st) {
   switch (smoother) {
-    case RBGS: return by_emit<OP, RBGS>(emit, a, st);
-    case JACOBI: return by_emit<OP, JACOBI>(emit, a, st);
-    case CHEBYSHEV: return by_emit<OP, CHEBYSHEV>(emit, a, st);
+    case RBGS:
+      return by_emit<OP, RBGS>(emit, a, vd, vo, ex, w, dk, nsweeps, st);
+    case JACOBI:
+      return by_emit<OP, JACOBI>(emit, a, vd, vo, ex, w, dk, nsweeps, st);
+    case CHEBYSHEV:
+      return by_emit<OP, CHEBYSHEV>(emit, a, vd, vo, ex, w, dk, nsweeps, st);
   }
   return (int)cudaErrorInvalidValue;
 }
 
 // geom: bx, by, dpx, dpy, d, n_sweeps; flags: seam x-lo, x-hi, y-lo, y-hi,
 // own x-lo, ..., y-hi; plan, kinds: per edge; coef: xc, yc, den, dx2, dy2;
-// ab: alpha, beta
+// ab: alpha, beta; tiles: the launch plan (DeepPlan); w: the scratch frame
+// of the sub-rounds (more than one); dk: Chebyshev's two frames of dk
+// (more than one sub-round)
 template <typename T>
 int deep_smooth(const T* vd, const T* fd, const void* planes, T* vo, T* ex,
                 T* w, T* dk, const int* geom, int op, int smoother, int emit,
                 const int* flags, const int* plan, const int* kinds,
-                const double* coef, const double* ab, cudaStream_t st) {
+                const double* coef, const double* ab, const int* tiles,
+                cudaStream_t st) {
   DeepArgs<T> a;
   Frame<T>& F = a.F;
   F.bx = geom[0];
@@ -333,13 +511,12 @@ int deep_smooth(const T* vd, const T* fd, const void* planes, T* vo, T* ex,
   F.dpx = geom[2];
   F.dpy = geom[3];
   a.d = geom[4];
-  a.nsweeps = geom[5];
+  const int nsweeps = geom[5];
   F.Fx = F.bx + 2 * F.dpx;
   F.Fy = F.by + 2 * F.dpy;
   if (F.bx < 2 || F.by < 2 || F.bx % 2 || F.by % 2 || F.dpx < 1 ||
-      F.dpy < 1 || a.nsweeps < 0 || (op != OP_CONST && !planes) ||
-      (emit != EMIT_V && !ex) || (smoother != RBGS && !w) ||
-      (smoother == CHEBYSHEV && !dk))
+      F.dpy < 1 || nsweeps < 0 || (op != OP_CONST && !planes) ||
+      (emit != EMIT_V && !ex) || smoother < RBGS || smoother > CHEBYSHEV)
     return (int)cudaErrorInvalidValue;
   F.q = F.Fy;
   F.qq = (size_t)F.Fx * F.Fy;
@@ -361,18 +538,36 @@ int deep_smooth(const T* vd, const T* fd, const void* planes, T* vo, T* ex,
       F.src[e] = hi ? dp[axis] + b[axis] - 1 : dp[axis];
     F.sgn[e] = kinds[e] == NEGATE ? T(-1) : T(1);
   }
-  a.vd = vd;
+  // an axis whose ghosts mirror the opposite side wraps: one cell of halo,
+  // no seam, and a power-of-2 block (BoxAxis::wrap masks)
+  for (int axis = 0; axis < 2; ++axis) {
+    const int lo = 2 * axis, hi = lo + 1;
+    const bool wrap = F.on[lo] && kinds[lo] == PERIODIC;
+    if (wrap != (F.on[hi] && kinds[hi] == PERIODIC) ||
+        (wrap && (dp[axis] != 1 || F.lim0[lo] || F.lim0[hi] ||
+                  (b[axis] & (b[axis] - 1)))))
+      return (int)cudaErrorInvalidValue;
+    (axis == 0 ? F.wx : F.wy) = wrap;
+  }
+  a.t = DeepPlan{tiles[0], tiles[1], tiles[2],  tiles[3],
+                 tiles[4], tiles[5], tiles[6],  tiles[7],
+                 tiles[8], tiles[9], tiles[10], tiles[11]};
+  if (!deep_plan_ok(F, a.t, smoother, nsweeps) || (a.t.rounds > 1 && !w) ||
+      (smoother == CHEBYSHEV && a.t.rounds > 1 && !dk))
+    return (int)cudaErrorInvalidValue;
   a.fd = fd;
-  a.vo = vo;
-  a.ex = ex;
-  a.w = w;
-  a.dk = dk;
   a.alpha = (T)ab[0];
   a.beta = (T)ab[1];
   switch (op) {
-    case OP_CONST: return by_smoother<OP_CONST>(smoother, emit, a, st);
-    case OP_VC: return by_smoother<OP_VC>(smoother, emit, a, st);
-    case OP_GENERAL: return by_smoother<OP_GENERAL>(smoother, emit, a, st);
+    case OP_CONST:
+      return by_smoother<OP_CONST>(smoother, emit, a, vd, vo, ex, w, dk,
+                                   nsweeps, st);
+    case OP_VC:
+      return by_smoother<OP_VC>(smoother, emit, a, vd, vo, ex, w, dk,
+                                nsweeps, st);
+    case OP_GENERAL:
+      return by_smoother<OP_GENERAL>(smoother, emit, a, vd, vo, ex, w, dk,
+                                     nsweeps, st);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -394,15 +589,20 @@ int correct(const T* v, const T* vc, T* vo, int bx, int by, cudaStream_t st) {
       const T* vd, const T* fd, const void* planes, T* vo, T* ex, T* w,       \
       T* dk, const int* geom, int op, int smoother, int emit,                 \
       const int* flags, const int* plan, const int* kinds,                    \
-      const double* coef, const double* ab, void* stream) {                   \
+      const double* coef, const double* ab, const int* tiles,                 \
+      void* stream) {                                                         \
     return deep_smooth<T>(vd, fd, planes, vo, ex, w, dk, geom, op, smoother,  \
-                          emit, flags, plan, kinds, coef, ab,                 \
+                          emit, flags, plan, kinds, coef, ab, tiles,          \
                           (cudaStream_t)stream);                              \
   }                                                                           \
   extern "C" int mg_correct_##SFX(const T* v, const T* vc, T* vo, int bx,     \
                                   int by, void* stream) {                     \
     return correct<T>(v, vc, vo, bx, by, (cudaStream_t)stream);               \
   }
+
+// the length of the plan array the mg_deep_smooth entries take
+// (sharded_mg_kernel.deep_plan)
+extern "C" int mg_deep_plan_ints() { return DEEP_PLAN_INTS; }
 
 ENTRIES(float, f32)
 ENTRIES(double, f64)

@@ -119,7 +119,7 @@
 #include <cuda_runtime.h>
 #include <stddef.h>
 
-#include "mg_ops.cuh"
+#include "mg_tiles.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -224,90 +224,6 @@ struct TilePlan {
 
 constexpr int TILE_PLAN_INTS = 7;
 
-// the box of a tile in shared memory, row-major: along each axis the
-// extended interior indices e0 .. e0 + w - 1 (1 .. n the level's interior;
-// beyond it, on a periodic axis, the interior wrapped around, and on any
-// other axis nothing); per axis whether it is periodic
-struct TileBox {
-  int ei, ej, w, n;
-  bool px, py;
-  // the interior index of extended index e on a periodic axis (n is a
-  // power of 2)
-  __device__ int wrap(int e) const { return ((e - 1) & (n - 1)) + 1; }
-  // the first and last extended index of an axis that holds a cell
-  __device__ int lo(int e0, bool per) const { return per ? e0 : max(1, e0); }
-  __device__ int hi(int e0, bool per) const {
-    return per ? e0 + w - 1 : min(n, e0 + w - 1);
-  }
-  // the first and last index of an axis that half-sweep s (1-based)
-  // updates: s cells inside the box's edges, or up to a non-periodic edge
-  // of the level, where a cell's outside neighbour is itself times the
-  // ghost's sign and so never stale
-  __device__ int lo_s(int e0, bool per, int s) const {
-    return !per && e0 <= 1 ? 1 : e0 + s;
-  }
-  __device__ int hi_s(int e0, bool per, int s) const {
-    return !per && e0 + w - 1 >= n ? n : e0 + w - 1 - s;
-  }
-  __device__ int at(int i, int j) const { return (i - ei) * w + (j - ej); }
-};
-
-// the four neighbours of box cell o at extended (i, j): across a
-// non-periodic edge of the level the ghost, which mirrors the cell itself
-// (v0 times the edge's sign), else the box cell beside it
-template <typename T>
-struct Nbrs {
-  T xm, xp, ym, yp;
-};
-
-template <typename T>
-__device__ __forceinline__ Nbrs<T> nbrs(const T* b, const TileBox& t,
-                                        const Lev<T>& L, int o, int i, int j,
-                                        T v0) {
-  Nbrs<T> v;
-  v.xm = !t.px && i == 1 ? L.gxl * v0 : b[o - t.w];
-  v.xp = !t.px && i == t.n ? L.gxh * v0 : b[o + t.w];
-  v.ym = !t.py && j == 1 ? L.gyl * v0 : b[o - 1];
-  v.yp = !t.py && j == t.n ? L.gyh * v0 : b[o + 1];
-  return v;
-}
-
-// `iters` red-black iterations on the box b of a tile in shared memory,
-// with the right-hand side's box fb beside it,
-// by the block's threads (threadIdx.x along a row's cells of the colour,
-// threadIdx.y over rows), a block barrier after each half-sweep.  Half-
-// sweep s updates the cells of its colour that are still exact after it
-// (TileBox::lo_s, hi_s), so after 2 iters half-sweeps the box is exact
-// from halo - 2 iters cells outside the tile inward.  Each cell reads f and
-// the coefficient planes at its frame index, and its neighbours as nbrs
-// gives them; on a periodic axis the wrapped cells of the box are the
-// neighbours the untiled sweep reads through the ghosts (n is even, so a
-// wrapped cell keeps its colour).  The colour's first column in a row is
-// found from the parity of i + j: no division.  Each cell's arithmetic is
-// the untiled sweep's, so the box's exact cells hold its bits.
-template <int OP, typename T>
-__device__ void tile_smooth(T* b, const T* fb, const TileBox& t,
-                            const Lev<T>& L, int iters) {
-  const int q = L.q;
-  for (int s = 1; s <= 2 * iters; ++s) {
-    const int color = (s - 1) & 1;   // red first: (i - 1) + (j - 1) even
-    const int i0 = t.lo_s(t.ei, t.px, s), i1 = t.hi_s(t.ei, t.px, s);
-    const int j0 = t.lo_s(t.ej, t.py, s), j1 = t.hi_s(t.ej, t.py, s);
-    for (int i = i0 + (int)threadIdx.y; i <= i1; i += blockDim.y) {
-      const int it = t.px ? t.wrap(i) : i;
-      const int jf = j0 + ((i + j0 + color) & 1);
-      for (int j = jf + 2 * (int)threadIdx.x; j <= j1; j += 2 * blockDim.x) {
-        const int jt = t.py ? t.wrap(j) : j;
-        const int o = t.at(i, j);
-        const T v0 = b[o];
-        const Nbrs<T> v = nbrs(b, t, L, o, i, j, v0);
-        b[o] = gs_val<OP>(v.xp, v.xm, v.yp, v.ym, fb[o], L, it * q + jt);
-      }
-    }
-    __syncthreads();
-  }
-}
-
 // the ghosts of frame r that mirror interior cell (i, j), set to zero
 template <typename T>
 __device__ __forceinline__ void zero_ghosts(T* r, const Lev<T>& L, int i,
@@ -323,29 +239,6 @@ __device__ __forceinline__ void zero_ghosts(T* r, const Lev<T>& L, int i,
   if (xl && yh) r[q - 1] = T(0);
   if (xh && yl) r[(q - 1) * q] = T(0);
   if (xh && yh) r[(q - 1) * q + q - 1] = T(0);
-}
-
-// load the boxes of v and f of tile box t by the block's threads: at each
-// cell of the level that the box holds (the wrapped interior across a
-// periodic edge), v's value is val(frame index, interior row, interior
-// column) and f's is read at the frame index; a block barrier follows
-template <typename T, typename V>
-__device__ __forceinline__ void load_box(T* b, T* fb, const TileBox& t,
-                                         const Lev<T>& L, const T* f,
-                                         V val) {
-  const int q = L.q;
-  const int i1 = t.hi(t.ei, t.px), j1 = t.hi(t.ej, t.py);
-  for (int i = t.lo(t.ei, t.px) + (int)threadIdx.y; i <= i1; i += blockDim.y) {
-    const int it = t.px ? t.wrap(i) : i;
-    for (int j = t.lo(t.ej, t.py) + (int)threadIdx.x; j <= j1;
-         j += blockDim.x) {
-      const int jt = t.py ? t.wrap(j) : j;
-      const int c = it * q + jt, o = t.at(i, j);
-      b[o] = val(c, it, jt);
-      fb[o] = f[c];
-    }
-  }
-  __syncthreads();
 }
 
 // the arguments of one round of a tiled kernel
@@ -370,10 +263,10 @@ struct TileArgs {
 
 // the box of the block's tile (blockIdx.y, blockIdx.x) and its halo
 template <typename T>
-__device__ __forceinline__ TileBox tile_box(const TileArgs<T>& a) {
-  return TileBox{1 + (int)blockIdx.y * a.tile - a.halo,
-                 1 + (int)blockIdx.x * a.tile - a.halo,
-                 a.tile + 2 * a.halo, a.L.n, a.px, a.py};
+__device__ __forceinline__ LevelBox tile_box(const TileArgs<T>& a) {
+  return LevelBox{1 + (int)blockIdx.y * a.tile - a.halo,
+                  1 + (int)blockIdx.x * a.tile - a.halo,
+                  a.tile + 2 * a.halo, a.L.n, a.px, a.py};
 }
 
 // one round of mg_down on the tile (blockIdx.y, blockIdx.x): load the
@@ -389,11 +282,11 @@ __global__ void __launch_bounds__(TILE_THREADS) k_down(TileArgs<T> a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* b = reinterpret_cast<T*>(smem_raw);
   const Lev<T>& L = a.L;
-  const TileBox t = tile_box(a);
+  const LevelBox t = tile_box(a);
   T* fb = b + t.w * t.w;
-  load_box(b, fb, t, L, a.f,
+  load_box(b, fb, t, L.q, a.f,
            [&](int c, int, int) { return a.src ? a.src[c] : T(0); });
-  tile_smooth<OP>(b, fb, t, L, a.iters);
+  tile_smooth<OP>(b, fb, t, L, 2 * a.iters, 0, AllCells{});
 
   const int ti = t.ei + a.halo, tj = t.ej + a.halo;
   for (int i = ti + (int)threadIdx.y; i < ti + a.tile; i += blockDim.y)
@@ -405,7 +298,7 @@ __global__ void __launch_bounds__(TILE_THREADS) k_down(TileArgs<T> a) {
   auto res = [&](int i, int j) {
     const int o = t.at(i, j);
     const T v0 = b[o];
-    const Nbrs<T> v = nbrs(b, t, L, o, i, j, v0);
+    const Nbrs<T> v = t.nbrs(b, L, o, i, j, v0);
     return resid_val<OP>(v0, v.xp, v.xm, v.yp, v.ym, fb[o], L, a.alpha,
                          a.beta, i * L.q + j);
   };
@@ -440,12 +333,12 @@ __global__ void __launch_bounds__(TILE_THREADS) k_up(TileArgs<T> a) {
   T* b = reinterpret_cast<T*>(smem_raw);
   const Lev<T>& L = a.L;
   const int q = L.q, qc = L.n / 2 + 2;
-  const TileBox t = tile_box(a);
+  const LevelBox t = tile_box(a);
   T* fb = b + t.w * t.w;
-  load_box(b, fb, t, L, a.f, [&](int c, int it, int jt) {
+  load_box(b, fb, t, q, a.f, [&](int c, int it, int jt) {
     return a.vc ? a.src[c] + prolong(a.vc, qc, it, jt) : a.src[c];
   });
-  tile_smooth<OP>(b, fb, t, L, a.iters);
+  tile_smooth<OP>(b, fb, t, L, 2 * a.iters, 0, AllCells{});
 
   const int ti = t.ei + a.halo, tj = t.ej + a.halo;
   for (int i = ti + (int)threadIdx.y; i < ti + a.tile; i += blockDim.y) {
@@ -454,7 +347,7 @@ __global__ void __launch_bounds__(TILE_THREADS) k_up(TileArgs<T> a) {
       const T v0 = b[o];
       put(a.dst, L, i, j, v0);
       if (a.r) {
-        const Nbrs<T> v = nbrs(b, t, L, o, i, j, v0);
+        const Nbrs<T> v = t.nbrs(b, L, o, i, j, v0);
         a.r[i * q + j] = resid_val<OP>(v0, v.xp, v.xm, v.yp, v.ym, fb[o], L,
                                        a.alpha, a.beta, i * q + j);
         zero_ghosts(a.r, L, i, j);
@@ -856,7 +749,7 @@ int tiled(void (*kernel)(TileArgs<T>), int& opted, const T* v, const T* f,
   a.py = bc[2] == PERIODIC;
   const T* src = v;
   for (int k = 0; k < rounds; ++k) {
-    T* dst = ((rounds - 1 - k) & 1) ? scratch : vo;
+    T* dst = round_dst(k, rounds, vo, scratch);
     a.src = src;
     a.vc = k == 0 ? vc : nullptr;
     a.dst = dst;

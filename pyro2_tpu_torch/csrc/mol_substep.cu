@@ -34,12 +34,28 @@
 // zone: rk sits at the balance point of the fp32 rate and the memory rate
 // (bytes bound it, barely), fv4 is bound by the fp32 rate.
 //
-// rk keeps its first design: one thread per frame cell (or interface) with
-// threadIdx.x along y, five staged kernels whose intermediates (primitives,
-// flattening, the four interface-state stacks, two flux stacks) go through
-// scratch planes in device memory, allocated by the wrapper (torch.empty;
-// mol_scratch_planes).
-//
+// rk is one launch a stage (k_rk): each block owns one output tile
+// (mol_kernel.rk_plan picks its shape per dtype, lays out the block's shared
+// memory and sizes the grid) and runs the first design's five staged
+// kernels out of shared memory and registers, each stage over the box the
+// next one reads:
+//   1. the primitives of the floored state (halo 4: the flattening
+//      coefficients read the pressure 2 cells out);
+//   2. the 1-D flattening coefficients (halo 2: a state cell's
+//      multidimensional coefficient reads them 1 cell out);
+//   3. along x, the PLM states q -+ dq/2 of the cells the tile's x faces
+//      take (1 cell beyond the tile along x), as conserved states;
+//   4. the HLLC / HLLC_lm / CGF flux of each x face of the tile with the
+//      artificial viscosity (the primitives' vertex divergence, the
+//      floored state read through the caches); 3-4 again along y, the y
+//      states over the x states;
+//   5. the divergence with the gravity sources and the sponge on the
+//      tile's cells, and k's zero ghosts from the tiles at the frame's
+//      edges.
+// __syncthreads() separates the stages.  Nothing goes to device memory but
+// k, and there is no scratch; as for fv4, each cell's operations are the
+// first design's, in its order.
+
 // fv4 is one launch a stage (k_fv4): each block owns one output tile
 // (mol_kernel.plan picks its shape per dtype, lays out the block's shared
 // memory and sizes the grid), loads the floored state of the tile and a
@@ -79,108 +95,6 @@
 
 namespace {
 
-// ---------------------------------------------------------------------------
-// rk: PLM states, one Riemann pass, divergence
-// ---------------------------------------------------------------------------
-
-// store an interface state at (i, j) when it lies in the frame
-template <typename T>
-__device__ __forceinline__ void store(const Params& p, T* dst, const T* v,
-                                      int i, int j) {
-  if (i < 0 || i >= p.qx || j < 0 || j >= p.qy) return;
-  for (int n = 0; n < p.nvar; ++n) dst[at(p, n, i, j)] = v[n];
-}
-
-// rk stage 3: cell (i, j) writes U_xr(i, j), U_xl(i+1, j), U_yr(i, j),
-// U_yl(i, j+1): q -+ dq/2 inside the buf=2 window, zero outside it.  Row
-// i = 0 / column j = 0 of U_xl / U_yl are zero.
-template <typename T>
-__global__ void k_rk_states(const T* __restrict__ Q, const T* __restrict__ XI,
-                            T* __restrict__ UXL, T* __restrict__ UXR,
-                            T* __restrict__ UYL, T* __restrict__ UYR,
-                            Params p) {
-  CELL_INDEX
-  const size_t plane = (size_t)p.qx * p.qy;
-  const size_t c = (size_t)i * p.qy + j;
-  T ul[MAXVAR], ur[MAXVAR], zero[MAXVAR];
-  for (int n = 0; n < p.nvar; ++n) zero[n] = T(0);
-  if (i == 0) store(p, UXL, zero, 0, j);
-  if (j == 0) store(p, UYL, zero, i, 0);
-
-  if (!inwin(p, i, j, 2, 2, 2, 2)) {
-    store(p, UXR, zero, i, j);
-    store(p, UXL, zero, i + 1, j);
-    store(p, UYR, zero, i, j);
-    store(p, UYL, zero, i, j + 1);
-    return;
-  }
-
-  const T xi = flat_xi(p, Q, XI, i, j);
-  T q[MAXVAR], ql[MAXVAR], qr[MAXVAR];
-  for (int n = 0; n < p.nvar; ++n) q[n] = Q[n * plane + c];
-  for (int d = 1; d <= 2; ++d) {
-    const int di = d == 1, dj = d == 2;
-    for (int n = 0; n < p.nvar; ++n) {
-      const T dq = xi * slope(p, Q + n * plane, i, j, di, dj);
-      ql[n] = q[n] + T(0.5) * dq;
-      qr[n] = q[n] - T(0.5) * dq;
-    }
-    prim_to_cons(p, ql, ul);
-    prim_to_cons(p, qr, ur);
-    if (d == 1) {
-      store(p, UXR, ur, i, j);
-      store(p, UXL, ul, i + 1, j);
-    } else {
-      store(p, UYR, ur, i, j);
-      store(p, UYL, ul, i, j + 1);
-    }
-  }
-}
-
-// rk stage 4: the Riemann pair and the artificial viscosity on the faces
-// the divergence reads: x faces i in [ilo, ihi+1], j in [jlo, jhi]; y faces
-// i in [ilo, ihi], j in [jlo, jhi+1]
-template <typename T>
-__global__ void k_rk_flux(const T* __restrict__ U, const T* __restrict__ Q,
-                          const T* __restrict__ UXL,
-                          const T* __restrict__ UXR,
-                          const T* __restrict__ UYL,
-                          const T* __restrict__ UYR, T* __restrict__ FX,
-                          T* __restrict__ FY, Params p) {
-  CELL_INDEX
-  T ul[MAXVAR], ur[MAXVAR], f[MAXVAR];
-  if (i >= ilo(p) && i <= ihi(p) + 1 && j >= jlo(p) && j <= jhi(p)) {
-    for (int n = 0; n < p.nvar; ++n) {
-      ul[n] = UXL[at(p, n, i, j)];
-      ur[n] = UXR[at(p, n, i, j)];
-    }
-    riemann(p, 1, ul, ur, i, j, f);
-    if (i <= ihi(p)) {
-      const T divU = T(0.5) * (vertex_div(p, Q, i, j) +
-                               vertex_div(p, Q, i, j + 1));
-      const T av = T(p.cvisc) * fmax(-divU * T(p.dx), T(0));
-      for (int n = 0; n < p.nvar; ++n)
-        f[n] = f[n] + av * (ldU(U, p, n, i - 1, j) - ldU(U, p, n, i, j));
-    }
-    for (int n = 0; n < p.nvar; ++n) FX[at(p, n, i, j)] = f[n];
-  }
-  if (i >= ilo(p) && i <= ihi(p) && j >= jlo(p) && j <= jhi(p) + 1) {
-    for (int n = 0; n < p.nvar; ++n) {
-      ul[n] = UYL[at(p, n, i, j)];
-      ur[n] = UYR[at(p, n, i, j)];
-    }
-    riemann(p, 2, ul, ur, i, j, f);
-    if (j <= jhi(p)) {
-      const T divU = T(0.5) * (vertex_div(p, Q, i, j) +
-                               vertex_div(p, Q, i + 1, j));
-      const T av = T(p.cvisc) * fmax(-divU * T(p.dy), T(0));
-      for (int n = 0; n < p.nvar; ++n)
-        f[n] = f[n] + av * (ldU(U, p, n, i, j - 1) - ldU(U, p, n, i, j));
-    }
-    for (int n = 0; n < p.nvar; ++n) FY[at(p, n, i, j)] = f[n];
-  }
-}
-
 // the sponge terms of k at an interior cell, from the floored state
 template <typename T, typename P>
 __device__ __forceinline__ void add_sponge(const P& p,
@@ -193,37 +107,6 @@ __device__ __forceinline__ void add_sponge(const P& p,
   k[p.ixmom] = k[p.ixmom] + -kf * mx;
   k[p.iymom] = k[p.iymom] + -kf * my;
   k[p.iener] = k[p.iener] + -kf * (mx * mx / rho + my * my / rho);
-}
-
-// the flux divergence of an interior cell
-template <typename T>
-__device__ __forceinline__ void divergence(const Params& p,
-                                           const T* __restrict__ FX,
-                                           const T* __restrict__ FY, int i,
-                                           int j, T* k) {
-  for (int n = 0; n < p.nvar; ++n)
-    k[n] = (FX[at(p, n, i, j)] - FX[at(p, n, i + 1, j)]) / T(p.dx) +
-           (FY[at(p, n, i, j)] - FY[at(p, n, i, j + 1)]) / T(p.dy);
-}
-
-// rk stage 5: k = divergence + gravity sources (+ sponge) on the
-// interior, exactly zero on the ghosts
-template <typename T>
-__global__ void k_rk_update(const T* __restrict__ U, const T* __restrict__ FX,
-                            const T* __restrict__ FY, T* __restrict__ K,
-                            Params p) {
-  CELL_INDEX
-  T k[MAXVAR];
-  if (!inwin(p, i, j, 0, 0, 0, 0)) {
-    for (int n = 0; n < p.nvar; ++n) K[at(p, n, i, j)] = T(0);
-    return;
-  }
-  divergence(p, FX, FY, i, j, k);
-  const T grav = T(p.grav);
-  k[p.iymom] = k[p.iymom] + ldU(U, p, p.idens, i, j) * grav;
-  k[p.iener] = k[p.iener] + ldU(U, p, p.iymom, i, j) * grav;
-  if (p.do_sponge) add_sponge(p, U, i, j, k);
-  for (int n = 0; n < p.nvar; ++n) K[at(p, n, i, j)] = k[n];
 }
 
 // ---------------------------------------------------------------------------
@@ -694,6 +577,250 @@ __global__ void __launch_bounds__(Fv4Launch<T>::threads)
 }
 
 // ---------------------------------------------------------------------------
+// rk: PLM states, one Riemann pass, divergence; one fused launch
+// ---------------------------------------------------------------------------
+
+// the most threads a block of the fused rk kernel takes, and the blocks an
+// SM holds: 512 in float32, two an SM (at most 64 registers a thread), 256
+// in float64
+template <typename T>
+struct RkLaunch {
+  static constexpr int threads = 256, blocks = 1;
+};
+template <>
+struct RkLaunch<float> {
+  static constexpr int threads = 512, blocks = 2;
+};
+
+// the launch plan of mol_kernel.rk_plan: the output tile (tx rows along x,
+// ty columns along y) and the block's threads; the halos of the boxes of
+// the primitives and of the flattening coefficients; where each array
+// starts in the block's shared memory, in elements of T (xi -1 without
+// flattening); the bytes it takes; and the grid of tiles
+struct RkPlan {
+  int tx, ty, threads;
+  int hq, hx;
+  int q, xi, s, fx, fy;
+  int smem;    // bytes
+  int bx, by;  // blocks along y (columns), along x (rows)
+};
+
+constexpr int RK_PLAN_INTS = 13;
+
+RkPlan load_rk_plan(const int* t) {
+  return RkPlan{t[0], t[1], t[2], t[3],  t[4],  t[5], t[6],
+                t[7], t[8], t[9], t[10], t[11], t[12]};
+}
+
+// the boxes of a tile (the faces' by the cells above them)
+struct RkBoxes {
+  Box q, x;     // the primitives, the flattening coefficients: halos hq, hx
+  Box sx, sy;   // the cells whose x (y) interface states the tile's x (y)
+                // faces take: rows [i0 - 1, i0 + tx] x columns [j0, j0 +
+                // ty); y the transpose
+  Box fx, fy;   // the fluxes the tile's divergence reads
+};
+
+__device__ __forceinline__ RkBoxes rk_boxes(int i0, int j0, const RkPlan& t) {
+  auto around = [&](int h) {
+    return Box{i0 - h, j0 - h, t.tx + 2 * h, t.ty + 2 * h};
+  };
+  return RkBoxes{around(t.hq),
+                 around(t.hx),
+                 Box{i0 - 1, j0, t.tx + 2, t.ty},
+                 Box{i0, j0 - 1, t.tx, t.ty + 2},
+                 Box{i0, j0, t.tx + 1, t.ty},
+                 Box{i0, j0, t.tx, t.ty + 1}};
+}
+
+// stage 3 along D: the MC-limited PLM states of every cell of box sx (sy)
+// in the frame, q -+ dq/2 with dq the flattened slope along D, as conserved
+// states into ST (NV planes of the right state at the cell's lower face,
+// then NV of the left state at its upper face); zero outside the buf=2
+// window
+template <typename T, int NV, int D>
+__device__ __forceinline__ void rk_states(const FixedParams<NV>& p,
+                                          const RkBoxes& b, const T* Q,
+                                          const T* XI, T* ST) {
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const Box& bs = D == 1 ? b.sx : b.sy;
+  const int cs = bs.cells();
+  constexpr int di = D == 1, dj = D == 2;
+  for (int k = tid; k < cs; k += nt) {
+    const int i = bs.i0 + k / bs.w, j = bs.j0 + k % bs.w;
+    if (i >= p.qx || j >= p.qy) continue;
+    T ul[NV], ur[NV];
+    if (!inwin(p, i, j, 2, 2, 2, 2)) {
+#pragma unroll
+      for (int n = 0; n < NV; ++n) ul[n] = ur[n] = T(0);
+    } else {
+      const T xi = flat_xi_of<T>(p, plane<T>(Q, b.q, IP),
+                                 plane<T>(XI, b.x, 0), plane<T>(XI, b.x, 1),
+                                 i, j);
+      T ql[NV], qr[NV];
+#pragma unroll
+      for (int n = 0; n < NV; ++n) {
+        const BoxPlane<T> A = plane<T>(Q, b.q, n);
+        const T q = A(i, j);
+        const T dq = xi * slope_of<T>(p, A, i, j, di, dj);
+        ql[n] = q + T(0.5) * dq;
+        qr[n] = q - T(0.5) * dq;
+      }
+      prim_to_cons(p, ql, ul);
+      prim_to_cons(p, qr, ur);
+    }
+#pragma unroll
+    for (int n = 0; n < NV; ++n) {
+      ST[n * cs + k] = ur[n];
+      ST[(NV + n) * cs + k] = ul[n];
+    }
+  }
+  __syncthreads();
+}
+
+// stage 4 along D: the Riemann flux of each face of box fx (fy) that the
+// divergence reads (x faces i in [ilo, ihi+1], j in [jlo, jhi]; y faces the
+// transpose) from the states of the cells on either side, plus the
+// Colella-Woodward artificial viscosity from the primitives' vertex
+// divergence and the floored state (not on the last face), into FO
+template <typename T, int NV, int D>
+__device__ __forceinline__ void rk_flux(const FixedParams<NV>& p,
+                                        const RkBoxes& b,
+                                        const T* __restrict__ U, const T* Q,
+                                        const T* ST, T* FO) {
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const Box& bs = D == 1 ? b.sx : b.sy;
+  const Box& bf = D == 1 ? b.fx : b.fy;
+  const int cs = bs.cells(), cf = bf.cells();
+  const BoxPlane<T> u = plane<T>(Q, b.q, IU), v = plane<T>(Q, b.q, IV);
+  for (int k = tid; k < cf; k += nt) {
+    const int i = bf.i0 + k / bf.w, j = bf.j0 + k % bf.w;
+    const bool face =
+        D == 1 ? (i >= ilo(p) && i <= ihi(p) + 1 && j >= jlo(p) &&
+                  j <= jhi(p))
+               : (j >= jlo(p) && j <= jhi(p) + 1 && i >= ilo(p) &&
+                  i <= ihi(p));
+    if (!face) continue;
+    const int cr = bs.at(i, j), cl = D == 1 ? cr - bs.w : cr - 1;
+    T ul[NV], ur[NV], f[NV];
+#pragma unroll
+    for (int n = 0; n < NV; ++n) {
+      ul[n] = ST[(NV + n) * cs + cl];
+      ur[n] = ST[n * cs + cr];
+    }
+    riemann(p, D, ul, ur, i, j, f);
+    if (D == 1 ? i <= ihi(p) : j <= jhi(p)) {
+      const T divU =
+          D == 1 ? T(0.5) * (vertex_div_of<T>(p, u, v, i, j) +
+                             vertex_div_of<T>(p, u, v, i, j + 1))
+                 : T(0.5) * (vertex_div_of<T>(p, u, v, i, j) +
+                             vertex_div_of<T>(p, u, v, i + 1, j));
+      const T av = T(p.cvisc) * fmax(-divU * T(D == 1 ? p.dx : p.dy), T(0));
+#pragma unroll
+      for (int n = 0; n < NV; ++n)
+        f[n] = f[n] + av * (D == 1 ? ldU(U, p, n, i - 1, j) -
+                                         ldU(U, p, n, i, j)
+                                   : ldU(U, p, n, i, j - 1) -
+                                         ldU(U, p, n, i, j));
+    }
+#pragma unroll
+    for (int n = 0; n < NV; ++n) FO[n * cf + k] = f[n];
+  }
+  __syncthreads();
+}
+
+// One rk stage increment of the tile (blockIdx.y, blockIdx.x): the
+// pipeline of the first design's staged kernels, run out of shared memory
+// and registers, each stage over the box the next one reads, with every
+// window decided by the global index as before.  Nothing but k goes to
+// device memory.
+template <typename T, int NV>
+__global__ void __launch_bounds__(RkLaunch<T>::threads, RkLaunch<T>::blocks)
+    k_rk(const T* __restrict__ U, T* __restrict__ K,
+         const FixedParams<NV> p, const RkPlan t) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* sm = reinterpret_cast<T*>(smem_raw);
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int i0 = p.ng + blockIdx.y * t.tx, j0 = p.ng + blockIdx.x * t.ty;
+  const RkBoxes b = rk_boxes(i0, j0, t);
+  T* Q = sm + t.q;     // NV planes over box q: the floored state's
+                       // primitives
+  T* XI = sm + t.xi;   // xi_x, xi_y over box x
+  T* ST = sm + t.s;    // 2 NV planes over box sx, then over box sy: the
+                       // interface states
+  T* FX = sm + t.fx;   // NV planes over box fx
+  T* FY = sm + t.fy;   // NV planes over box fy
+  auto inframe = [&](int i, int j) {
+    return i >= 0 && i < p.qx && j >= 0 && j < p.qy;
+  };
+
+  // 1. the primitives of the floored state over box q
+  const int cq = b.q.cells();
+  for (int k = tid; k < cq; k += nt) {
+    const int i = b.q.i0 + k / b.q.w, j = b.q.j0 + k % b.q.w;
+    if (!inframe(i, j)) continue;
+    T u[NV], q[NV];
+#pragma unroll
+    for (int n = 0; n < NV; ++n) u[n] = ldU(U, p, n, i, j);
+    cons_to_prim(p, u, q);
+#pragma unroll
+    for (int n = 0; n < NV; ++n) Q[n * cq + k] = q[n];
+  }
+  __syncthreads();
+
+  // 2. the 1-D flattening coefficients over box x (1 outside buf=2)
+  if (p.flatten) {
+    const BoxPlane<T> P = plane<T>(Q, b.q, IP);
+    const int cx = b.x.cells();
+    for (int k = tid; k < cx; k += nt) {
+      const int i = b.x.i0 + k / b.x.w, j = b.x.j0 + k % b.x.w;
+      if (!inframe(i, j)) continue;
+      XI[k] = flat1d_of<T>(p, P, plane<T>(Q, b.q, IU), i, j, 1, 0);
+      XI[cx + k] = flat1d_of<T>(p, P, plane<T>(Q, b.q, IV), i, j, 0, 1);
+    }
+    __syncthreads();
+  }
+
+  // 3-4. the states and fluxes of the x faces, then of the y faces (their
+  // states over the x faces')
+  rk_states<T, NV, 1>(p, b, Q, XI, ST);
+  rk_flux<T, NV, 1>(p, b, U, Q, ST, FX);
+  rk_states<T, NV, 2>(p, b, Q, XI, ST);
+  rk_flux<T, NV, 2>(p, b, U, Q, ST, FY);
+
+  // 5. k = divergence + gravity sources (+ sponge) on the tile's interior
+  // cells, and exactly zero on the ghosts, which the tiles at the frame's
+  // edges write: this block owns rows [r0, r1) x columns [c0, c1)
+  const int r0 = blockIdx.y == 0 ? 0 : i0;
+  const int r1 = blockIdx.y == gridDim.y - 1 ? p.qx : i0 + t.tx;
+  const int c0 = blockIdx.x == 0 ? 0 : j0;
+  const int c1 = blockIdx.x == gridDim.x - 1 ? p.qy : j0 + t.ty;
+  const int ow = c1 - c0;
+  const int cfx = b.fx.cells(), cfy = b.fy.cells();
+  for (int k = tid; k < (r1 - r0) * ow; k += nt) {
+    const int i = r0 + k / ow, j = c0 + k % ow;
+    if (!inwin(p, i, j, 0, 0, 0, 0)) {
+#pragma unroll
+      for (int n = 0; n < NV; ++n) K[at(p, n, i, j)] = T(0);
+      continue;
+    }
+    T kk[NV];
+    const int x0 = b.fx.at(i, j), x1 = b.fx.at(i + 1, j);
+    const int y0 = b.fy.at(i, j), y1 = b.fy.at(i, j + 1);
+#pragma unroll
+    for (int n = 0; n < NV; ++n)
+      kk[n] = (FX[n * cfx + x0] - FX[n * cfx + x1]) / T(p.dx) +
+              (FY[n * cfy + y0] - FY[n * cfy + y1]) / T(p.dy);
+    const T grav = T(p.grav);
+    kk[p.iymom] = kk[p.iymom] + ldU(U, p, p.idens, i, j) * grav;
+    kk[p.iener] = kk[p.iener] + ldU(U, p, p.iymom, i, j) * grav;
+    if (p.do_sponge) add_sponge(p, U, i, j, kk);
+#pragma unroll
+    for (int n = 0; n < NV; ++n) K[at(p, n, i, j)] = kk[n];
+  }
+}
+
+// ---------------------------------------------------------------------------
 // entries
 // ---------------------------------------------------------------------------
 
@@ -703,37 +830,77 @@ int check_params(const Params& p) {
   return 0;
 }
 
+// the rk plan (mol_kernel.rk_plan) against the kernel: its block, halos
+// that hold the stages' reads (mol_kernel.RK_HALO), a grid whose tiles
+// cover the interior once, and arrays that lie one after another inside
+// its shared memory
 template <typename T>
-int run_rk(const T* U, T* K, T* scratch, const int* ip, const double* dp,
+bool rk_plan_ok(const Params& p, const RkPlan& t) {
+  if (t.threads < 32 || t.threads > RkLaunch<T>::threads ||
+      t.threads % 32 || t.tx < 1 || t.ty < 1)
+    return false;
+  if (t.hx < 2 || t.hq < t.hx + 2) return false;
+  if (t.bx < 1 || t.by < 1 || (t.bx - 1) * t.ty >= p.ny ||
+      t.bx * t.ty < p.ny || (t.by - 1) * t.tx >= p.nx || t.by * t.tx < p.nx)
+    return false;
+  auto box = [&](int h) { return (long)(t.tx + 2 * h) * (t.ty + 2 * h); };
+  const long nv = p.nvar;
+  const long sx = (long)(t.tx + 2) * t.ty, sy = (long)t.tx * (t.ty + 2);
+  const struct {
+    int off;
+    long size;
+  } arrays[] = {{t.q, nv * box(t.hq)},
+                {t.xi, p.flatten ? 2 * box(t.hx) : 0},
+                {t.s, 2 * nv * (sx > sy ? sx : sy)},
+                {t.fx, nv * (t.tx + 1) * (long)t.ty},
+                {t.fy, nv * t.tx * (long)(t.ty + 1)}};
+  long end = 0;
+  for (const auto& a : arrays) {
+    if (a.size == 0) continue;
+    if (a.off < end) return false;
+    end = a.off + a.size;
+  }
+  return end * (long)sizeof(T) <= (long)t.smem;
+}
+
+// one launch of the NV-variable rk kernel with the plan's tile and shared
+// memory (the opt-in above 48 KB is set once per kernel and size)
+template <typename T, int NV>
+int launch_rk(const T* U, T* K, const Params& base, const RkPlan& t,
+              cudaStream_t st) {
+  static int opted = 0;
+  auto kernel = k_rk<T, NV>;
+  if (t.smem > opted) {
+    cudaError_t e = cudaFuncSetAttribute(
+        (const void*)kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        t.smem);
+    if (e != cudaSuccess) return (int)e;
+    opted = t.smem;
+  }
+  FixedParams<NV> p;
+  static_cast<Params&>(p) = base;
+  kernel<<<dim3(t.bx, t.by), t.threads, t.smem, st>>>(U, K, p, t);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int run_rk(const T* U, T* K, const int* ip, const double* dp, const int* tp,
            cudaStream_t st) {
+  static_assert(MAXVAR == 8, "run_rk instantiates 4..8 variables");
   const Params p = load_params(ip, dp, true);
   if (int e = check_params(p)) return e;
-  const size_t plane = (size_t)p.qx * p.qy;
-  const size_t stack = (size_t)p.nvar * plane;
-  T* Q = scratch;
-  T* XI = Q + stack;
-  T* UXL = XI + 2 * plane;
-  T* UXR = UXL + stack;
-  T* UYL = UXR + stack;
-  T* UYR = UYL + stack;
-  T* FX = UYR + stack;
-  T* FY = FX + stack;
-
-  const dim3 blk(64, 4);
-  const dim3 grd((p.qy + blk.x - 1) / blk.x, (p.qx + blk.y - 1) / blk.y);
-  k_prim<T><<<grd, blk, 0, st>>>(U, Q, p);
-  LAUNCH_CHECK;
-  if (p.flatten) {
-    k_flatten<T><<<grd, blk, 0, st>>>(Q, XI, p);
-    LAUNCH_CHECK;
+  if (p.idens != 0 || p.iener != 1 || p.ixmom != 2 || p.iymom != 3)
+    return (int)cudaErrorInvalidValue;
+  const RkPlan t = load_rk_plan(tp);
+  if (!rk_plan_ok<T>(p, t)) return (int)cudaErrorInvalidValue;
+  switch (p.nvar) {
+    case 4: return launch_rk<T, 4>(U, K, p, t, st);
+    case 5: return launch_rk<T, 5>(U, K, p, t, st);
+    case 6: return launch_rk<T, 6>(U, K, p, t, st);
+    case 7: return launch_rk<T, 7>(U, K, p, t, st);
+    case 8: return launch_rk<T, 8>(U, K, p, t, st);
   }
-  k_rk_states<T><<<grd, blk, 0, st>>>(Q, XI, UXL, UXR, UYL, UYR, p);
-  LAUNCH_CHECK;
-  k_rk_flux<T><<<grd, blk, 0, st>>>(U, Q, UXL, UXR, UYL, UYR, FX, FY, p);
-  LAUNCH_CHECK;
-  k_rk_update<T><<<grd, blk, 0, st>>>(U, FX, FY, K, p);
-  LAUNCH_CHECK;
-  return 0;
+  return (int)cudaErrorInvalidValue;
 }
 
 // the plan (mol_kernel.plan) against the kernel: its block, the halos the
@@ -817,23 +984,21 @@ int run_fv4(const T* U, T* K, const int* ip, const double* dp,
 
 }  // namespace
 
-// the rk stage's scratch: planes of (qx, qy) in the state's dtype (the fv4
-// stage has none)
-extern "C" int mol_scratch_planes(int nvar) { return 7 * nvar + 2; }
-
-// the length of the plan array the fv4 entries take (mol_kernel.plan)
+// the lengths of the plan arrays the rk and fv4 entries take
+// (mol_kernel.rk_plan, mol_kernel.plan)
+extern "C" int mol_rk_plan_ints() { return RK_PLAN_INTS; }
 extern "C" int mol_fv4_plan_ints() { return FV4_PLAN_INTS; }
 
-extern "C" int mol_rk_substep_f32(const float* U, float* K, float* scratch,
-                                  const int* ip, const double* dp,
+extern "C" int mol_rk_substep_f32(const float* U, float* K, const int* ip,
+                                  const double* dp, const int* plan,
                                   void* stream) {
-  return run_rk<float>(U, K, scratch, ip, dp, (cudaStream_t)stream);
+  return run_rk<float>(U, K, ip, dp, plan, (cudaStream_t)stream);
 }
 
 extern "C" int mol_rk_substep_f64(const double* U, double* K,
-                                  double* scratch, const int* ip,
-                                  const double* dp, void* stream) {
-  return run_rk<double>(U, K, scratch, ip, dp, (cudaStream_t)stream);
+                                  const int* ip, const double* dp,
+                                  const int* plan, void* stream) {
+  return run_rk<double>(U, K, ip, dp, plan, (cudaStream_t)stream);
 }
 
 extern "C" int mol_fv4_substep_f32(const float* U, float* K, const int* ip,

@@ -44,9 +44,9 @@ from pyro2_tpu_torch.mesh.patch import prolong_array, restrict_array
 from pyro2_tpu_torch.multigrid import mg_kernel
 from pyro2_tpu_torch.util import cuda_build
 
-__all__ = ["EMITS", "SMOOTHERS", "SUPPORTED_BCS", "build", "correct",
-           "correct_plain", "deep_smooth", "deep_smooth_plain", "edge_plan",
-           "launches", "work"]
+__all__ = ["DeepPlan", "EMITS", "SMOOTHERS", "SUPPORTED_BCS", "build",
+           "correct", "correct_plain", "covered", "deep_plan", "deep_smooth",
+           "deep_smooth_plain", "edge_plan", "launches", "work"]
 
 SOURCE = cuda_build.CSRC / "mg_deep.cu"
 
@@ -83,11 +83,14 @@ def _load():
         for t in ("f32", "f64"):
             fn = getattr(lib, f"mg_deep_smooth_{t}")
             fn.argtypes = [ptr] * 7 + [ints, i32, i32, i32, ints, ints, ints,
-                                       doubles, doubles, ptr]
+                                       doubles, doubles, ints, ptr]
             fn.restype = i32
             fn = getattr(lib, f"mg_correct_{t}")
             fn.argtypes = [ptr] * 3 + [i32, i32, ptr]
             fn.restype = i32
+        lib.mg_deep_plan_ints.restype = i32
+        if lib.mg_deep_plan_ints() != len(DeepPlan.FIELDS):
+            raise RuntimeError("mg_deep.cu takes another deep plan layout")
         _lib = lib
     return _lib
 
@@ -104,6 +107,154 @@ def edge_plan(bc, px, py):
         else:
             plan += [1, 1]
     return plan
+
+
+# ---------------------------------------------------------------------------
+# the deep kernel's launch plan
+# ---------------------------------------------------------------------------
+
+# k_deep's block: rows of 32 threads (mg_deep.cu TILE_X), DEEP_THREADS in
+# all.  The tile is square and even: the largest power of 2 up to
+# mg_kernel.TILE_MAX that still gives mg_kernel.TILE_BLOCKS tiles or more
+# and whose boxes hold a halo for all the round's sweeps, and not below
+# TILE_MIN; the boxes of a block (v and f, Jacobi's second iterate,
+# Chebyshev's dk) take at most mg_kernel.TILE_SMEM bytes, so that two
+# blocks share an SM, as mg_down's and mg_up's tiles do
+DEEP_THREADS = 512
+# the halo cells a red-black sweep or a Jacobi / Chebyshev step reaches
+REACH = {"rbgs": 2, "jacobi": 1, "chebyshev": 1}
+# the arrays of a block's box: v, f; the second iterate; dk
+ARRAYS = {"rbgs": 2, "jacobi": 3, "chebyshev": 4}
+
+
+def _halo_tiles(dp, tile, halo):
+    """The tiles of the deep halo on each side of the owned block along an
+    axis: none when the block's edge tiles can take it (it is no deeper
+    than their boxes' halo), else enough to cover it."""
+    return 0 if dp <= halo else -(-dp // tile)
+
+
+def _owned(k, tiles, tile, dp, b, halo):
+    """The frame cells [o0, o1) along an axis that tile k writes: a tile of
+    the halo below the owned block (the first ragged), a share of the owned
+    block (its edge tiles with the halo beside them when the halo has no
+    tiles), or a tile of the halo above it (the last ragged)."""
+    nl = _halo_tiles(dp, tile, halo)
+    nb, F = tiles - 2 * nl, b + 2 * dp
+    if k < nl:
+        o1 = dp - (nl - 1 - k) * tile
+        return max(0, o1 - tile), o1
+    if k >= nl + nb:
+        o0 = dp + b + (k - nl - nb) * tile
+        return o0, min(F, o0 + tile)
+    m = k - nl
+    return (0 if m == 0 and nl == 0 else dp + m * tile,
+            (F if nl == 0 else dp + b) if m == nb - 1 else
+            dp + (m + 1) * tile)
+
+
+def _box(o0, o1, halo, F, wrap):
+    """The box's extent along an axis: the owned span and the halo, clipped
+    to the frame, or wrapped around an unsplit periodic axis."""
+    if wrap:
+        return o1 - o0 + 2 * halo
+    return min(F, o1 + halo) - max(0, o0 - halo)
+
+
+def _widest(tiles, tile, halo, dp, b, wrap):
+    return max(_box(*_owned(k, tiles, tile, dp, b, halo), halo, b + 2 * dp,
+                    wrap) for k in range(tiles))
+
+
+class DeepPlan:
+    """The tiling of one mg_deep_smooth call on a (bx + 2 dpx) x (by + 2
+    dpy) frame: the tile (tx rows, ty columns), the halo (REACH per sweep of
+    a sub-round, and one for the residual), the sub-rounds (separate
+    launches) and the sweeps of a full one, the block's threads, its shared
+    memory (bytes), the grid of tiles over the owned block (along y, along
+    x), the widest box along x and along y, and the arrays of that size a
+    block holds.  `wrap` says which axes are unsplit and periodic (their
+    boxes wrap around).  `ints()` is the array the kernel takes."""
+
+    FIELDS = ("tx", "ty", "halo", "rounds", "iters", "threads", "smem", "gx",
+              "gy", "bh", "bw", "arrays")
+
+    def __init__(self, bx, by, dpx, dpy, n_sweeps, smoother, dtype,
+                 wrap=(False, False)):
+        item = torch.empty((), dtype=dtype).element_size()
+        reach, arrays = REACH[smoother], ARRAYS[smoother]
+        Fx, Fy = bx + 2 * dpx, by + 2 * dpy
+
+        def grid(tile, iters):
+            halo = reach * iters + 1
+            return (-(-by // tile) + 2 * _halo_tiles(dpy, tile, halo),
+                    -(-bx // tile) + 2 * _halo_tiles(dpx, tile, halo))
+
+        def boxes(tile, iters):
+            gx, gy = grid(tile, iters)
+            halo = reach * iters + 1
+            return (_widest(gy, tile, halo, dpx, bx, wrap[0]),
+                    _widest(gx, tile, halo, dpy, by, wrap[1]))
+
+        def most(tile):                 # sweeps a sub-round's boxes hold
+            for iters in range(n_sweeps, -1, -1):
+                bh, bw = boxes(tile, iters)
+                if arrays * bh * bw * item <= mg_kernel.TILE_SMEM:
+                    return iters
+            return -1
+
+        tile = mg_kernel.TILE_MAX
+        while tile > mg_kernel.TILE_MIN and (
+                -(-bx // tile) * -(-by // tile) < mg_kernel.TILE_BLOCKS or
+                most(tile) < n_sweeps):
+            tile //= 2
+        if n_sweeps == 0:
+            rounds, iters = 1, 0
+        else:
+            if most(tile) < 1:
+                raise ValueError(f"no tile of a ({Fx}, {Fy}) frame holds a "
+                                 f"sweep of {smoother}")
+            rounds = -(-n_sweeps // most(tile))
+            iters = -(-n_sweeps // rounds)          # the rounds balanced
+        self.n_sweeps, self.smoother = n_sweeps, smoother
+        self.tx = self.ty = tile
+        self.rounds, self.iters = rounds, iters
+        self.halo = reach * iters + 1
+        self.threads = DEEP_THREADS
+        self.gx, self.gy = grid(tile, iters)
+        self.bh, self.bw = boxes(tile, iters)
+        self.arrays = arrays
+        self.smem = arrays * self.bh * self.bw * item
+
+    def round_iters(self):
+        """The sweeps of each sub-round: a full one's, the last the
+        rest."""
+        return [min(self.iters, self.n_sweeps - k * self.iters)
+                for k in range(self.rounds)]
+
+    def ints(self):
+        return [getattr(self, f) for f in self.FIELDS]
+
+
+@functools.lru_cache(maxsize=128)
+def deep_plan(bx, by, dpx, dpy, n_sweeps, smoother, dtype,
+              wrap=(False, False)):
+    """The plan of one mg_deep_smooth call (see DeepPlan), made once for
+    each set of arguments."""
+    return DeepPlan(bx, by, dpx, dpy, n_sweeps, smoother, dtype, wrap)
+
+
+def covered(bx, by, dpx, dpy, edges):
+    """Raise NotImplementedError unless the tiled kernel takes this frame:
+    an axis whose ghosts wrap around (edge_plan 2: unsplit and periodic)
+    has one cell of halo and a power-of-2 block, as the sharded levels'
+    blocks are."""
+    for b, dp, p in ((bx, dpx, edges[0]), (by, dpy, edges[2])):
+        if p == 2 and (dp != 1 or b & (b - 1)):
+            raise NotImplementedError(
+                f"the tiled deep smoother wraps an unsplit periodic axis of "
+                f"a power-of-2 block with one halo cell, not {b} cells with "
+                f"{dp} (ROADMAP.md A.24)")
 
 
 @functools.lru_cache(maxsize=64)
@@ -338,14 +489,20 @@ def launch_deep_smooth(vd, fd, flags, *, dpx, dpy, d, n_sweeps, dx, dy, bc,
                                                          "fd")]
     ptrs.append(None if planes is None else _frame_ok(
         planes, (ncoef,) + shape, dtype, "planes"))
+    edges = edge_plan(bc, px, py)
+    covered(bx, by, dpx, dpy, edges)
+    tiles = deep_plan(bx, by, dpx, dpy, n_sweeps, smoother, dtype,
+                      (edges[0] == 2, edges[2] == 2))
     vo = torch.empty_like(vd)
     extra = None
     if emit == "v_fc":
         extra = vd.new_empty((bx // 2 + 2, by // 2 + 2))
     elif emit == "v_r":
         extra = torch.empty_like(vd)
-    w = torch.empty_like(vd) if smoother != "rbgs" else None
-    dk = torch.empty_like(vd) if smoother == "chebyshev" else None
+    # the sub-rounds' scratch frame, and Chebyshev's dk between them
+    w = torch.empty_like(vd) if tiles.rounds > 1 else None
+    dk = vd.new_empty((2,) + shape) if (smoother == "chebyshev" and
+                                        tiles.rounds > 1) else None
     if ncoef == 0:
         alpha, beta = (float(c) for c in ab)
         xc, yc = beta / dx ** 2, beta / dy ** 2
@@ -361,9 +518,10 @@ def launch_deep_smooth(vd, fd, flags, *, dpx, dpy, d, n_sweeps, dx, dy, bc,
          None if dk is None else dk.data_ptr(),
          (ints * 6)(bx, by, dpx, dpy, d, n_sweeps),
          _OPERATORS[ncoef][1], SMOOTHERS.index(smoother), EMITS.index(emit),
-         (ints * 8)(*(int(f) for f in flags)),
-         (ints * 4)(*edge_plan(bc, px, py)), (ints * 4)(*kinds),
-         (ctypes.c_double * 5)(*coef), (ctypes.c_double * 2)(alpha, beta))
+         (ints * 8)(*(int(f) for f in flags)), (ints * 4)(*edges),
+         (ints * 4)(*kinds), (ctypes.c_double * 5)(*coef),
+         (ctypes.c_double * 2)(alpha, beta),
+         (ints * len(DeepPlan.FIELDS))(*tiles.ints()))
     launches["mg_deep_smooth"] += 1
     return vo, extra
 

@@ -21,7 +21,8 @@ class Simulation(NullSimulation):
         """Grid (ng=4), x/y-velocity variables, ICs, the step."""
         if self.rp.get_param("particles.do_particles") == 1:
             raise NotImplementedError(
-                "particles wait for a later slice of the port (ROADMAP.md)")
+                "particles wait for a later slice of the port (ROADMAP.md "
+                "A.17)")
         my_grid = grid_setup(self.rp, ng=4)
         my_data = self.data_class(my_grid)
 
@@ -104,4 +105,4 @@ class Simulation(NullSimulation):
     def dovis(self):
         raise NotImplementedError(
             "runtime visualization waits for a later slice of the port "
-            "(ROADMAP.md); run with vis.dovis=0")
+            "(ROADMAP.md A.13); run with vis.dovis=0")

@@ -279,7 +279,7 @@ class CTUStep:
         if sim.problem_source is not None:
             raise NotImplementedError(
                 "problem source terms wait for a later slice of the port "
-                "(ROADMAP.md, queue B item 1)")
+                "(ROADMAP.md B1)")
         method = rp.get_param("compressible.riemann")
         if method not in RIEMANN:
             raise ValueError(f"unknown Riemann solver {method}")

@@ -105,7 +105,7 @@ def prim_to_cons(q, gamma, ivars, myg):
     return torch.stack(rows)
 
 
-CTU_ITEM = "queue B item 1: problem-source coverage"
+CTU_ITEM = "B1: problem-source coverage"
 
 
 def _uncovered(what, item=CTU_ITEM):
@@ -310,7 +310,8 @@ class Simulation(NullSimulation):
             raise _uncovered("problem source terms", self.UNCOVERED_ITEM)
         if self.rp.get_param("particles.do_particles") == 1:
             raise NotImplementedError(
-                "particles wait for a later slice of the port (ROADMAP.md)")
+                "particles wait for a later slice of the port (ROADMAP.md "
+                "A.17)")
         my_data = self.data_class(my_grid)
 
         bnd.define_bc("hse", BC.user, is_solid=False)
@@ -425,7 +426,7 @@ class Simulation(NullSimulation):
     def dovis(self):
         raise NotImplementedError(
             "runtime visualization waits for a later slice of the port "
-            "(ROADMAP.md); run with vis.dovis=0")
+            "(ROADMAP.md A.13); run with vis.dovis=0")
 
     def write_extras(self, f):
         """Record the custom-BC names (restart support)."""

@@ -10,11 +10,10 @@ compressible_fv4, which compressible_sdc inherits.  They are built with
 nvcc into a shared library under pyro2_tpu_torch/_build/ at first use
 (pyro2_tpu_torch.util.cuda_build) and bound with ctypes.
 
-Kind "rk" is five staged launches through scratch planes; kind "fv4" is
-one launch a stage, each block computing one output tile out of shared
-memory, and `plan` -- the tile, the halos each stage reads and the block's
-shared-memory layout -- is worked out here and handed to the kernel, so the
-CPU tests check it.
+Each kind is one launch a stage, each block computing one output tile out
+of shared memory; `rk_plan` and `plan` -- the tile, the halos each stage
+reads and the block's shared-memory layout -- are worked out here and
+handed to the kernel, so the CPU tests check them.
 
 `MOLSubstep(sim, kind)(U, t, dt)` is the stage increment k the Simulation
 evolves with.  U is the ghost-filled (nvar, qx, qy) stack; k has its shape
@@ -29,7 +28,7 @@ and is exactly zero on every ghost cell.
 Unlike the TPU kernel, the CUDA entries cover solid walls and a positive
 density floor, gated on the global interior.  Spherical grids, problem
 sources and the well-balanced reconstruction raise NotImplementedError, as
-does an fv4 frame whose conserved variables are not in the solvers' order
+does a frame whose conserved variables are not in the solvers' order
 (`covered`).
 """
 
@@ -45,9 +44,9 @@ from pyro2_tpu_torch.solvers.compressible_fv4.fluxes import ALPHA, BETA
 from pyro2_tpu_torch.solvers.compressible_rk.simulation import MOL_ITEM
 from pyro2_tpu_torch.util import cuda_build
 
-__all__ = ["MOLSubstep", "Plan", "build", "covered", "launches", "plan",
-           "work", "increment_scale", "KINDS", "FLOPS_PER_ZONE_BY_STAGE",
-           "HALO", "TILE"]
+__all__ = ["MOLSubstep", "Plan", "RkPlan", "build", "covered", "launches",
+           "plan", "rk_plan", "work", "increment_scale", "KINDS",
+           "FLOPS_PER_ZONE_BY_STAGE", "HALO", "RK_HALO", "RK_TILE", "TILE"]
 
 SOURCE = cuda_build.CSRC / "mol_substep.cu"
 
@@ -111,6 +110,18 @@ THREADS = {torch.float32: 512, torch.float64: 256}
 HALO = {"states": 1, "flatten": 2, "avg": 4, "prim": 5}
 
 
+def _lay_out(plan, sizes, item):
+    """Set a plan's `sizes`, `offsets` (each array after the one before it,
+    in the order of plan.ARRAYS; -1 for an array the configuration does
+    not have) and `smem` (bytes)."""
+    plan.sizes = sizes
+    plan.offsets, end = {}, 0
+    for name in plan.ARRAYS:
+        plan.offsets[name] = end if sizes[name] else -1
+        end += sizes[name]
+    plan.smem = end * item
+
+
 class Plan:
     """One fv4 launch's tiling: the tile (tx rows, ty columns), the block's
     threads, the grid of tiles (blocks along y, along x), and the block's
@@ -134,20 +145,14 @@ class Plan:
         states = nvar * self.box("avg") + max(2 * nvar * self.box("states"),
                                               nvar * self.box("prim"))
         fluxes = nvar * ((tx + 1) * ty + tx * (ty + 1))
-        sizes = {
+        _lay_out(self, {
             "q": nvar * self.box("prim"),
             "xi": 2 * self.box("flatten") if flatten else 0,
             "sc": 2 * self.box("states"),
             "qix": nvar * (tx + 1) * (ty + 2),
             "qiy": nvar * (tx + 2) * (ty + 1),
             "r": max(states, fluxes),
-        }
-        self.sizes = sizes
-        self.offsets, end = {}, 0
-        for name in self.ARRAYS:
-            self.offsets[name] = end if sizes[name] else -1
-            end += sizes[name]
-        self.smem = end * item
+        }, item)
 
     def box(self, name):
         """Cells of a block's box: the tile and its halo."""
@@ -169,14 +174,82 @@ def plan(nx, ny, nvar, dtype, **kw):
     return Plan(nx, ny, nvar, dtype, **kw)
 
 
+# ---------------------------------------------------------------------------
+# the rk kernel's launch plan
+# ---------------------------------------------------------------------------
+
+# the output tile of a block, (rows along x, columns along y), and its
+# threads, by dtype: a float32 block of 512 threads whose 4-variable boxes
+# (104,576 B) let two blocks share an SM, at the kernel's 64 registers,
+# and a float64 block of 256 whose 8-variable boxes fit one block's shared
+# memory
+RK_TILE = {torch.float32: (32, 32), torch.float64: (16, 16)}
+RK_THREADS = {torch.float32: 512, torch.float64: 256}
+
+# how far beyond the output tile each box of a block reaches (mol_substep.cu
+# k_rk's stages): the 1-D flattening coefficients, which the
+# multidimensional coefficient of a state cell 1 cell beyond the tile reads
+# 1 cell out ("flatten"); and the primitives, which the flattening
+# coefficients read 2 cells out (and the states' slopes 2) ("prim").  The
+# interface states cover the cells on either side of the tile's faces.
+# Near the frame's edges the boxes reach past it, where the windows make
+# every value the kernel reads come from inside it.
+RK_HALO = {"flatten": 2, "prim": 4}
+
+
+class RkPlan:
+    """One rk launch's tiling: the tile (tx rows, ty columns), the block's
+    threads, the grid of tiles (blocks along y, along x), and the block's
+    shared memory: `offsets` of each array in elements of the dtype (-1
+    when the configuration has none), `smem` in bytes.  Array s holds the
+    x faces' interface states, then the y faces'.  `ints()` is the array
+    the kernel takes."""
+
+    ARRAYS = ("q", "xi", "s", "fx", "fy")
+
+    def __init__(self, nx, ny, nvar, dtype, *, flatten=True):
+        self.nx, self.ny, self.nvar = nx, ny, nvar
+        self.tx, self.ty = RK_TILE[dtype]
+        self.threads = RK_THREADS[dtype]
+        self.halo = dict(RK_HALO)
+        self.grid = (-(-ny // self.ty), -(-nx // self.tx))
+        item = torch.empty((), dtype=dtype).element_size()
+        tx, ty = self.tx, self.ty
+        _lay_out(self, {
+            "q": nvar * self.box("prim"),
+            "xi": 2 * self.box("flatten") if flatten else 0,
+            "s": 2 * nvar * max((tx + 2) * ty, tx * (ty + 2)),
+            "fx": nvar * (tx + 1) * ty,
+            "fy": nvar * tx * (ty + 1),
+        }, item)
+
+    def box(self, name):
+        """Cells of a block's box: the tile and its halo."""
+        h = self.halo[name]
+        return (self.tx + 2 * h) * (self.ty + 2 * h)
+
+    def ints(self):
+        return [self.tx, self.ty, self.threads, self.halo["prim"],
+                self.halo["flatten"],
+                *(self.offsets[a] for a in self.ARRAYS), self.smem,
+                *self.grid]
+
+
+@functools.lru_cache(maxsize=64)
+def rk_plan(nx, ny, nvar, dtype, **kw):
+    """The launch plan of one rk stage (see RkPlan), made once for each set
+    of arguments."""
+    return RkPlan(nx, ny, nvar, dtype, **kw)
+
+
 def covered(ivars):
-    """Raise NotImplementedError unless the fused fv4 kernel takes this
-    frame's variables: density, energy, x- and y-momentum at 0..3 (the
-    order the compressible solvers register them in)."""
+    """Raise NotImplementedError unless the fused kernels take this frame's
+    variables: density, energy, x- and y-momentum at 0..3 (the order the
+    compressible solvers register them in)."""
     order = (ivars.idens, ivars.iener, ivars.ixmom, ivars.iymom)
     if order != (0, 1, 2, 3):
         raise NotImplementedError(
-            "the fv4 kernel takes density, energy, x- and y-momentum at "
+            "the MOL kernels take density, energy, x- and y-momentum at "
             f"0..3, not {order} (ROADMAP.md A.22)")
 
 _lib = None
@@ -197,21 +270,17 @@ def _load():
         lib = ctypes.CDLL(str(so))
         ints = ctypes.POINTER(ctypes.c_int)
         doubles = ctypes.POINTER(ctypes.c_double)
-        for dt in ("f32", "f64"):
-            # rk: U, k, scratch, ints, doubles, stream
-            fn = getattr(lib, f"mol_rk_substep_{dt}")
-            fn.argtypes = [ctypes.c_void_p] * 3 + [ints, doubles,
-                                                   ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-            # fv4: U, k, ints, doubles, plan, stream
-            fn = getattr(lib, f"mol_fv4_substep_{dt}")
-            fn.argtypes = [ctypes.c_void_p] * 2 + [ints, doubles, ints,
-                                                   ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-        lib.mol_scratch_planes.argtypes = [ctypes.c_int]
-        lib.mol_scratch_planes.restype = ctypes.c_int
+        for kind in KINDS:
+            for dt in ("f32", "f64"):
+                # U, k, ints, doubles, plan, stream
+                fn = getattr(lib, f"mol_{kind}_substep_{dt}")
+                fn.argtypes = [ctypes.c_void_p] * 2 + [ints, doubles, ints,
+                                                       ctypes.c_void_p]
+                fn.restype = ctypes.c_int
+        lib.mol_rk_plan_ints.restype = ctypes.c_int
         lib.mol_fv4_plan_ints.restype = ctypes.c_int
-        if lib.mol_fv4_plan_ints() != len(Plan.ARRAYS) + 10:
+        if (lib.mol_rk_plan_ints() != len(RkPlan.ARRAYS) + 8 or
+                lib.mol_fv4_plan_ints() != len(Plan.ARRAYS) + 10):
             raise RuntimeError("mol_substep.cu takes another plan layout")
         _lib = lib
     return _lib
@@ -279,8 +348,7 @@ class MOLSubstep:
             raise NotImplementedError(
                 f"the MOL kernels take 4 ghost cells, not {myg.ng}")
         riemann = 2        # fv4 always solves CGF on primitive states
-        if kind == "fv4":
-            covered(ivars)
+        covered(ivars)
         if kind == "rk":
             from pyro2_tpu_torch.solvers.compressible_rk.fluxes import \
                 uncovered_well_balanced
@@ -368,22 +436,16 @@ class MOLSubstep:
         ints, doubles = self.kernel_args(U, dt)
 
         lib = _load()
-        nvar, qx, qy = self.shape
         k = torch.empty_like(U)
         suffix = "f32" if U.dtype == torch.float32 else "f64"
         fn = getattr(lib, f"mol_{self.kind}_substep_{suffix}")
         c_ints = (ctypes.c_int * len(ints))(*ints)
         c_doubles = (ctypes.c_double * len(doubles))(*doubles)
-        if self.kind == "rk":
-            scratch = torch.empty((lib.mol_scratch_planes(nvar), qx, qy),
-                                  dtype=U.dtype, device=U.device)
-            args = (U.data_ptr(), k.data_ptr(), scratch.data_ptr(), c_ints,
-                    c_doubles)
-        else:
-            tiles = plan(ints[1], ints[2], nvar, U.dtype,
-                         flatten=bool(ints[10])).ints()
-            args = (U.data_ptr(), k.data_ptr(), c_ints, c_doubles,
-                    (ctypes.c_int * len(tiles))(*tiles))
+        make = rk_plan if self.kind == "rk" else plan
+        tiles = make(ints[1], ints[2], self.shape[0], U.dtype,
+                     flatten=bool(ints[10])).ints()
+        args = (U.data_ptr(), k.data_ptr(), c_ints, c_doubles,
+                (ctypes.c_int * len(tiles))(*tiles))
         with torch.cuda.device(U.device):
             stream = torch.cuda.current_stream(U.device).cuda_stream
             err = fn(*args, stream)

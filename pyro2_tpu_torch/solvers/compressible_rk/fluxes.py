@@ -3,7 +3,7 @@ characteristic tracing), a single Riemann pass and artificial viscosity.
 
 The port of pyro2_tpu/solvers/compressible_rk/fluxes.py.  The
 well-balanced hydrostatic reconstruction (`compressible.well_balanced`)
-waits for `reconstruction.well_balance` (ROADMAP.md, queue A item 9) and
+waits for `reconstruction.well_balance` (ROADMAP.md A.9) and
 raises.
 """
 
@@ -20,7 +20,7 @@ __all__ = ["fluxes", "uncovered_well_balanced"]
 def uncovered_well_balanced():
     return NotImplementedError(
         "compressible.well_balanced waits for reconstruction.well_balance "
-        "(ROADMAP.md, queue A item 9)")
+        "(ROADMAP.md A.9)")
 
 
 def fluxes(U, my_data, rp, ivars, solid, tc):

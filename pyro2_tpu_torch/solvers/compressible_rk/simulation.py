@@ -19,7 +19,7 @@ from pyro2_tpu_torch.solvers.compressible import eos
 
 __all__ = ["build_substep", "Simulation", "MOL_ITEM"]
 
-MOL_ITEM = ("queue A item 9 and queue B item 5: spherical and "
+MOL_ITEM = ("A.9 and B5: spherical and "
             "problem-source coverage of the method-of-lines tier")
 
 

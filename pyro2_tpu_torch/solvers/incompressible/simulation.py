@@ -23,7 +23,8 @@ class Simulation(burgers_simulation):
         """Grid (ng=4), velocities + projection fields, ICs."""
         if self.rp.get_param("particles.do_particles") == 1:
             raise NotImplementedError(
-                "particles wait for a later slice of the port (ROADMAP.md)")
+                "particles wait for a later slice of the port (ROADMAP.md "
+                "A.17)")
         my_grid = grid_setup(self.rp, ng=4)
         my_data = self.data_class(my_grid)
 
@@ -271,4 +272,4 @@ class Simulation(burgers_simulation):
     def dovis(self):
         raise NotImplementedError(
             "runtime visualization waits for a later slice of the port "
-            "(ROADMAP.md); run with vis.dovis=0")
+            "(ROADMAP.md A.13); run with vis.dovis=0")

@@ -417,7 +417,7 @@ class Simulation(NullSimulation):
     def dovis(self):
         raise NotImplementedError(
             "runtime visualization waits for a later slice of the port "
-            "(ROADMAP.md); run with vis.dovis=0")
+            "(ROADMAP.md A.13); run with vis.dovis=0")
 
     def write_extras(self, f):
         """Store the base-state profiles."""

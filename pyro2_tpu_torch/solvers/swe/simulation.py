@@ -77,8 +77,8 @@ class Simulation(NullSimulation):
         """Grid (ng=4), (height, momenta, fuel) variables, ICs, the step."""
         if self.rp.get_param("particles.do_particles") == 1:
             raise NotImplementedError(
-                "particles wait for a later slice of the port (ROADMAP.md, "
-                "queue A item 13)")
+                "particles wait for a later slice of the port (ROADMAP.md "
+                "A.17)")
         my_grid = grid_setup(self.rp, ng=ng)
         my_data = self.data_class(my_grid)
 
@@ -183,4 +183,4 @@ class Simulation(NullSimulation):
     def dovis(self):
         raise NotImplementedError(
             "runtime visualization waits for a later slice of the port "
-            "(ROADMAP.md); run with vis.dovis=0")
+            "(ROADMAP.md A.13); run with vis.dovis=0")

@@ -17,7 +17,7 @@ from pyro2_tpu_torch.util import msg
 __all__ = ["unsplit_fluxes", "transverse_corrections", "check_flattening",
            "SWE_ITEM"]
 
-SWE_ITEM = "queue A item 8: swe"
+SWE_ITEM = "A.8: swe"
 
 
 def check_flattening(rp):

@@ -315,12 +315,11 @@ SPHERICAL = {"mesh.nx": 16, "mesh.ny": 16,
 def test_uncovered_configurations_raise():
     """The method-of-lines solvers stay refused on a spherical grid (the
     shared interface and Riemann modules no longer refuse it), naming A.9;
-    problem source terms stay refused in the CTU solver, naming queue B
-    item 1."""
+    problem source terms stay refused in the CTU solver, naming B1."""
     for solver in ("compressible_rk", "compressible_fv4", "compressible_sdc"):
         pt = Pyro(solver, device="cpu")
         with pytest.raises(NotImplementedError,
-                           match=r"spherical geometry .*ROADMAP.*item 9"):
+                           match=r"spherical geometry .*ROADMAP.*A\.9"):
             pt.initialize_problem("acoustic_pulse", inputs_dict={
                 **SPHERICAL, "compressible.riemann": "CGF"})
     pt = Pyro("compressible", device="cpu")
@@ -329,7 +328,7 @@ def test_uncovered_configurations_raise():
     sim = tcomp.Simulation("compressible", "quad", quad.init_data, pt.rp,
                            problem_source_func=lambda *a: 0.0, device="cpu")
     with pytest.raises(NotImplementedError,
-                       match=r"problem source terms .*queue B item 1"):
+                       match=r"problem source terms .*ROADMAP.*B1"):
         sim.initialize()
 
 

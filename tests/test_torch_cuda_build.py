@@ -49,7 +49,7 @@ def test_port_sources_share_the_euler_header():
         assert [h.name for h in heads] == ["grid_common.cuh"]
     for name in ("mg_vcycle.cu", "mg_deep.cu"):
         heads = cuda_build.local_includes(cuda_build.CSRC / name)
-        assert [h.name for h in heads] == ["mg_ops.cuh"]
+        assert [h.name for h in heads] == ["mg_tiles.cuh", "mg_ops.cuh"]
 
 
 def test_grid_header_is_in_every_stencil_build_key(tmp_path, monkeypatch):
@@ -68,19 +68,21 @@ def test_grid_header_is_in_every_stencil_build_key(tmp_path, monkeypatch):
 
 
 def test_multigrid_header_is_in_both_multigrid_build_keys(tmp_path):
-    # the operators' device code is shared: editing mg_ops.cuh renames the
-    # V-cycle's and the sharded multigrid's libraries, and no other
+    # the operators' and the tiles' device code is shared: editing
+    # mg_ops.cuh or mg_tiles.cuh renames the V-cycle's and the sharded
+    # multigrid's libraries, and no other
     import shutil
     csrc = tmp_path / "csrc"
     shutil.copytree(cuda_build.CSRC, csrc)
     names = sorted(p.name for p in csrc.glob("*.cu"))
     assert "mg_deep.cu" in names and len(names) == 6
-    before = {n: cuda_build.library_path(csrc / n) for n in names}
-    ops = csrc / "mg_ops.cuh"
-    ops.write_text(ops.read_text() + "// edited\n")
-    changed = sorted(n for n in names
-                     if cuda_build.library_path(csrc / n) != before[n])
-    assert changed == ["mg_deep.cu", "mg_vcycle.cu"]
+    for header in ("mg_ops.cuh", "mg_tiles.cuh"):
+        before = {n: cuda_build.library_path(csrc / n) for n in names}
+        head = csrc / header
+        head.write_text(head.read_text() + "// edited\n")
+        changed = sorted(n for n in names
+                         if cuda_build.library_path(csrc / n) != before[n])
+        assert changed == ["mg_deep.cu", "mg_vcycle.cu"], header
 
 
 def _extern_params(source):
@@ -181,11 +183,11 @@ def test_core_entries_take_the_schedule(monkeypatch):
 
 
 def test_mol_entries_match_their_bindings(monkeypatch):
-    """mol_substep.cu's fv4 entries take the launch plan and no scratch, the
-    plan's length is mol_kernel.plan's (FV4_PLAN_INTS), and the scratch-size
-    entry takes only the rk stage's variable count; the rk entries keep
-    their scratch.  The ctypes bindings give each entry its parameter
-    count."""
+    """mol_substep.cu's rk and fv4 entries take their launch plans and no
+    scratch, and the plans' lengths are mol_kernel.rk_plan's and plan's
+    (RK_PLAN_INTS, FV4_PLAN_INTS); the scratch-size entry is gone, and each
+    entry launches one kernel (k_rk, k_fv4).  The ctypes bindings give each
+    entry its parameter count."""
     import re
 
     import torch
@@ -193,22 +195,33 @@ def test_mol_entries_match_their_bindings(monkeypatch):
     from pyro2_tpu_torch.solvers.compressible_fv4 import mol_kernel
 
     entries = _extern_params("mol_substep.cu")
-    assert entries == {"mol_scratch_planes": 1, "mol_fv4_plan_ints": 0,
+    assert entries == {"mol_rk_plan_ints": 0, "mol_fv4_plan_ints": 0,
                        "mol_rk_substep_f32": 6, "mol_rk_substep_f64": 6,
                        "mol_fv4_substep_f32": 6, "mol_fv4_substep_f64": 6}
     text = (cuda_build.CSRC / "mol_substep.cu").read_text()
-    for t in ("f32", "f64"):
-        sig = re.search(r"mol_fv4_substep_%s\(([^)]*)\)" % t, text).group(1)
-        assert "scratch" not in sig and "plan" in sig
-    assert re.search(r'mol_scratch_planes\(int nvar\)', text)
-    n_ints = int(re.search(r"constexpr int FV4_PLAN_INTS = (\d+);",
-                           text).group(1))
+    for kind in ("rk", "fv4"):
+        for t in ("f32", "f64"):
+            sig = re.search(r"mol_%s_substep_%s\(([^)]*)\)" % (kind, t),
+                            text).group(1)
+            assert "scratch" not in sig and "plan" in sig
+    body = text.split("namespace {", 1)[1]
+    assert "scratch" not in body.replace("there is no scratch", "")
+    assert "mol_scratch_planes" not in text
+    assert sorted(re.findall(r"(\w+)<<<", body)) == ["kernel", "kernel"]
+    assert re.findall(r"__global__.*?\b(k_\w+)\(", body, re.DOTALL) == \
+        ["k_fv4", "k_rk"]
+    n_ints = {kind: int(re.search(r"constexpr int %s_PLAN_INTS = (\d+);" %
+                                  kind.upper(), text).group(1))
+              for kind in ("rk", "fv4")}
     for dtype in (torch.float32, torch.float64):
-        assert len(mol_kernel.plan(8, 8, 4, dtype).ints()) == n_ints
-    fns = _bind(mol_kernel, monkeypatch, {"mol_fv4_plan_ints": n_ints})
+        assert len(mol_kernel.rk_plan(8, 8, 4, dtype).ints()) == n_ints["rk"]
+        assert len(mol_kernel.plan(8, 8, 4, dtype).ints()) == n_ints["fv4"]
+    fns = _bind(mol_kernel, monkeypatch,
+                {f"mol_{k}_plan_ints": n for k, n in n_ints.items()})
     for name, n in entries.items():
         if n:
             assert len(fns[name].argtypes) == n, name
+    assert "mol_scratch_planes" not in fns
 
 
 def test_up_entries_take_the_plan_and_no_grid_barrier(monkeypatch):
@@ -263,7 +276,7 @@ def test_down_entries_take_the_plan_and_no_grid_barrier(monkeypatch):
                           re.DOTALL)) == 2
     body = text.split("k_down(TileArgs<T> a) {", 1)[1].split("\n}\n", 1)[0]
     assert "grid" not in body.replace("gridDim", "") and "sync()" not in body
-    assert "tile_smooth<OP>(b, fb, t, L, a.iters);" in body
+    assert "tile_smooth<OP>(b, fb, t, L, 2 * a.iters, 0, AllCells{});" in body
     assert "tiled<T>(k_down<OP, T>," in text
     for gone in ("colored(", "coop_blocks", "void smooth("):
         assert gone not in text, gone
@@ -306,3 +319,42 @@ def test_swe_entries_take_the_plan_and_no_scratch(monkeypatch):
         if n:
             assert len(fns[name].argtypes) == n, name
     assert "swe_scratch_planes" not in fns
+
+
+def test_deep_entries_take_the_plan_and_no_grid_barrier(monkeypatch):
+    """mg_deep.cu's smoothing entries take the tile plan after alpha and
+    beta (its length is sharded_mg_kernel.deep_plan's, DEEP_PLAN_INTS);
+    k_deep is ordinary launches with block barriers only -- no cooperative
+    launch, grid group or grid barrier is left -- and takes its boxes,
+    load, sweeps and neighbours from mg_tiles.cuh, as mg_vcycle.cu's k_down
+    and k_up do: the tile code is defined there alone."""
+    import re
+
+    import torch
+
+    from pyro2_tpu_torch.multigrid import sharded_mg_kernel as smk
+
+    text = (cuda_build.CSRC / "mg_deep.cu").read_text()
+    for gone in ("cudaLaunchCooperativeKernel", "cooperative_groups",
+                 "grid_group", "this_grid", "sync()", "coop_blocks"):
+        assert gone not in text, gone
+    assert re.search(r"const double\* coef, const double\* ab, "
+                     r"const int\* tiles,", text)
+    n_ints = int(re.search(r"constexpr int DEEP_PLAN_INTS = (\d+);",
+                           text).group(1))
+    for smoother in smk.SMOOTHERS:
+        plan = smk.deep_plan(64, 32, 1, 21, 10, smoother, torch.float32)
+        assert len(plan.ints()) == n_ints
+    tiles = (cuda_build.CSRC / "mg_tiles.cuh").read_text()
+    vcycle = (cuda_build.CSRC / "mg_vcycle.cu").read_text()
+    for name in ("struct BoxAxis", "struct LevelBox", "struct FrameBox",
+                 "struct Nbrs", "void load_box(", "void tile_smooth(",
+                 "T* round_dst("):
+        assert name in tiles and name not in text and name not in vcycle
+    for source in (text, vcycle):
+        assert "tile_smooth<OP>(" in source and "load_box(" in source
+    fns = _bind(smk, monkeypatch, {"mg_deep_plan_ints": n_ints})
+    for t in ("f32", "f64"):
+        assert len(fns[f"mg_deep_smooth_{t}"].argtypes) == \
+            7 + 1 + 3 + 3 + 2 + 1 + 1
+        assert len(fns[f"mg_correct_{t}"].argtypes) == 3 + 2 + 1

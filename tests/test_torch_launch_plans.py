@@ -1,10 +1,12 @@
 """The launch plans the fused CUDA kernels take from Python: the CTU step's
-tiles, grid, halos and shared-memory layout (ctu_kernel.plan), the fv4
-stage increment's (mol_kernel.plan), the swe step's (swe_kernel.plan), the
-multigrid core's level schedule, cluster and shared-memory layout
-(mg_kernel.core_plan), and the multigrid descent's and ascent's tiles, halo
-and rounds (mg_kernel.tile_plan).  They run on the CPU: nothing is
-compiled or launched."""
+tiles, grid, halos and shared-memory layout (ctu_kernel.plan), the rk and
+fv4 stage increments' (mol_kernel.rk_plan, mol_kernel.plan), the swe
+step's (swe_kernel.plan), the multigrid core's level schedule, cluster and
+shared-memory layout (mg_kernel.core_plan), the multigrid descent's and
+ascent's tiles, halo and rounds (mg_kernel.tile_plan), and the sharded
+multigrid's deep smoothing round's tiles, halo, sub-rounds and boxes
+(sharded_mg_kernel.deep_plan).  They run on the CPU: nothing is compiled
+or launched."""
 
 import itertools
 
@@ -13,6 +15,7 @@ import pytest
 import torch
 
 from pyro2_tpu_torch.multigrid import mg_kernel
+from pyro2_tpu_torch.multigrid import sharded_mg_kernel as smk
 from pyro2_tpu_torch.solvers.compressible import ctu_kernel
 from pyro2_tpu_torch.solvers.compressible.simulation import Variables
 from pyro2_tpu_torch.solvers.compressible_fv4 import mol_kernel
@@ -801,3 +804,381 @@ def test_swe_solver_frame_is_covered():
     for dtype in DTYPES:
         for nvar in range(iv.nvar, swe_kernel.MAXVAR + 1):
             swe_kernel.covered(nvar, p.sim.cc_data.grid.ng, dtype)
+
+
+# -- the fused rk stage increment ---------------------------------------------
+
+def _rk_grids(dtype):
+    """Ragged grids: 200x136, one cell, 1024x1000, and 7 x 5 tiles' worth
+    with a ragged last tile each way."""
+    tx, ty = mol_kernel.RK_TILE[dtype]
+    return ((200, 136), (1, 1), (1024, 1000), (7 * tx - 3, 5 * ty - 1),
+            (7 * tx, 5 * ty))
+
+
+def _rk_plan_ok(item, nx, ny, nvar, flatten, plan_ints):
+    """mol_substep.cu's rk_plan_ok, line by line, on a plan's ints."""
+    (tx, ty, threads, hq, hx, q, xi, s, fx, fy, smem, bx, by) = plan_ints
+
+    def box(h):
+        return (tx + 2 * h) * (ty + 2 * h)
+
+    if threads < 32 or threads > (512 if item == 4 else 256) or \
+            threads % 32 or tx < 1 or ty < 1:
+        return False
+    if hx < 2 or hq < hx + 2:
+        return False
+    if bx < 1 or by < 1 or (bx - 1) * ty >= ny or bx * ty < ny or \
+            (by - 1) * tx >= nx or by * tx < nx:
+        return False
+    end = 0
+    for off, size in ((q, nvar * box(hq)), (xi, 2 * box(hx) if flatten else 0),
+                      (s, 2 * nvar * max((tx + 2) * ty, tx * (ty + 2))),
+                      (fx, nvar * (tx + 1) * ty), (fy, nvar * tx * (ty + 1))):
+        if size == 0:
+            continue
+        if off < end:
+            return False
+        end = off + size
+    return end * item <= smem
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_rk_tiles_cover_every_cell_once(dtype):
+    """The grid the rk kernel launches has a block for each tile, and the
+    tiles, clipped to the frame, cover each interior cell exactly once;
+    the blocks at the frame's edges own its ghost rows and columns, so k's
+    ghosts are written once too."""
+    for nx, ny in _rk_grids(dtype):
+        p = mol_kernel.rk_plan(nx, ny, 4, dtype)
+        gy, gx = p.grid
+        assert p.ints()[-2:] == [gy, gx]
+        owned = np.zeros((nx + 2 * NG, ny + 2 * NG), dtype=int)
+        for bi in range(gx):
+            for bj in range(gy):
+                i0, j0 = NG + bi * p.tx, NG + bj * p.ty
+                r0 = 0 if bi == 0 else i0
+                r1 = nx + 2 * NG if bi == gx - 1 else i0 + p.tx
+                c0 = 0 if bj == 0 else j0
+                c1 = ny + 2 * NG if bj == gy - 1 else j0 + p.ty
+                owned[r0:r1, c0:c1] += 1
+        assert (owned == 1).all()
+
+
+@pytest.mark.parametrize("flatten", [True, False])
+@pytest.mark.parametrize("limiter", [0, 1, 2])
+@pytest.mark.parametrize("where", ["first", "last", "middle"])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_rk_stage_boxes_stay_inside_the_ghosts(dtype, where, limiter,
+                                                flatten):
+    """Every stage of the fused rk kernel, on the tile at the frame's first
+    corner, its last (ragged) corner or inside it: each cell a stage
+    computes reads only cells that a stage before it computed, inside the
+    box that holds them, and every cell read from the state lies in the
+    frame, inside its 4 ghosts, although the primitives' box reaches 4
+    cells past the tile: the windows decide, by global index, which cells
+    read how far (mol_substep.cu k_rk)."""
+    p = mol_kernel.rk_plan(37, 45, 4, dtype, flatten=flatten)
+    nx, ny, ng = p.nx, p.ny, NG
+    qx, qy = nx + 2 * ng, ny + 2 * ng
+    gy, gx = p.grid
+    bi, bj = {"first": (0, 0), "last": (gx - 1, gy - 1),
+              "middle": (gx // 2, gy // 2)}[where]
+    i0, j0 = ng + bi * p.tx, ng + bj * p.ty
+    h = p.halo
+    inside = lambda i, j: 0 <= i < qx and 0 <= j < qy
+    w = {b: _win(ng, nx, ny, b) for b in (0, 1, 2)}
+
+    def box(rows, cols):
+        return {(i, j) for i in rows for j in cols if inside(i, j)}
+
+    def around(hh):
+        return box(range(i0 - hh, i0 + p.tx + hh),
+                   range(j0 - hh, j0 + p.ty + hh))
+
+    def reads_ok(reads, held):
+        for c in reads:
+            assert inside(*c) and c in held, c
+
+    def line(i, j, di, dj, reach):
+        return [(i + a * di, j + a * dj) for a in range(-reach, reach + 1)]
+
+    # 1. the primitives over box q, from the state at each cell
+    Qc = around(h["prim"])
+    # 2. the flattening coefficients over box x, reading the pressure 2 and
+    # the velocities 1 cell along each direction inside buf=2
+    Xc = around(h["flatten"]) if flatten else set()
+    for i, j in Xc:
+        if w[2](i, j):
+            reads_ok(line(i, j, 1, 0, 2) + line(i, j, 0, 1, 2), Qc)
+    # 3. the states of the cells the faces take: the flattened slope of
+    # each primitive along the direction (the 4th-order MC slope reads the
+    # 2nd-order slopes of the cells beside it, 2 cells out, only inside
+    # buf=2), the multidimensional coefficient from the pressure and the
+    # 1-D coefficients 1 cell around
+    Sx = box(range(i0 - 1, i0 + p.tx + 1), range(j0, j0 + p.ty))
+    Sy = box(range(i0, i0 + p.tx), range(j0 - 1, j0 + p.ty + 1))
+    for cells, di, dj in ((Sx, 1, 0), (Sy, 0, 1)):
+        for i, j in cells:
+            if not w[2](i, j):
+                continue
+            reads = line(i, j, di, dj, 1)
+            if limiter == 2:
+                for a in (-1, 1):
+                    if w[2](i + a * di, j + a * dj):
+                        reads += line(i + a * di, j + a * dj, di, dj, 1)
+            if flatten:
+                reads += line(i, j, 1, 0, 1) + line(i, j, 0, 1, 1)
+                reads_ok(line(i, j, 1, 0, 1) + line(i, j, 0, 1, 1), Xc)
+            reads_ok(reads, Qc)
+    ilo, ihi, jlo, jhi = ng, ng + nx - 1, ng, ng + ny - 1
+    # 4. the faces of the tile: the states of the cells on either side,
+    # and (not on the last face) the vertex divergences at the face's two
+    # corners, inside buf=1, and the state on either side
+    fx = {(i, j) for i in range(i0, i0 + p.tx + 1)
+          for j in range(j0, j0 + p.ty)
+          if ilo <= i <= ihi + 1 and jlo <= j <= jhi}
+    fy = {(i, j) for i in range(i0, i0 + p.tx)
+          for j in range(j0, j0 + p.ty + 1)
+          if jlo <= j <= jhi + 1 and ilo <= i <= ihi}
+
+    def vdiv(i, j):
+        return ([(i - a, j - b) for a in (0, 1) for b in (0, 1)]
+                if w[1](i, j) else [])
+
+    for i, j in fx:
+        reads_ok([(i - 1, j), (i, j)], {c for c in Sx if w[2](*c)})
+        if i <= ihi:
+            reads_ok(vdiv(i, j) + vdiv(i, j + 1), Qc)
+            assert inside(i - 1, j)
+    for i, j in fy:
+        reads_ok([(i, j - 1), (i, j)], {c for c in Sy if w[2](*c)})
+        if j <= jhi:
+            reads_ok(vdiv(i, j) + vdiv(i + 1, j), Qc)
+            assert inside(i, j - 1)
+    # 5. the tile's interior cells: the divergence
+    for i in range(i0, i0 + p.tx):
+        for j in range(j0, j0 + p.ty):
+            if w[0](i, j):
+                reads_ok([(i, j), (i + 1, j)], fx)
+                reads_ok([(i, j), (i, j + 1)], fy)
+    # the halos the plan hands the kernel are these
+    assert p.ints()[3:5] == [h["prim"], h["flatten"]] == [4, 2]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("nvar", range(4, ctu_kernel.MAXVAR + 1))
+def test_rk_shared_memory_fits(dtype, nvar):
+    """Every variable count and dtype, with and without flattening, fits
+    the 232,448 bytes a block may opt into; the arrays lie one after
+    another; two float32 blocks of the solvers' 4 variables share an
+    SM."""
+    item = torch.empty((), dtype=dtype).element_size()
+    for flatten in (False, True):
+        p = mol_kernel.rk_plan(200, 136, nvar, dtype, flatten=flatten)
+        assert 0 < p.smem <= SMEM_LIMIT
+        end = 0
+        for name in p.ARRAYS:
+            size = p.sizes[name]
+            assert p.offsets[name] == (end if size else -1)
+            end += size
+        assert end * item == p.smem
+        assert (p.offsets["xi"] >= 0) == flatten
+        if dtype == torch.float32 and nvar == 4:
+            assert 2 * p.smem <= SMEM_SM and p.threads == 512
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_rk_plan_passes_the_kernels_checks(dtype):
+    """The plan array each rk launch takes has the length mol_substep.cu
+    reads (RK_PLAN_INTS) and passes its rk_plan_ok, for every variable
+    count, with and without flattening, on ragged grids."""
+    import re
+
+    from pyro2_tpu_torch.util import cuda_build
+
+    text = (cuda_build.CSRC / "mol_substep.cu").read_text()
+    n_ints = int(re.search(r"constexpr int RK_PLAN_INTS = (\d+);",
+                           text).group(1))
+    item = torch.empty((), dtype=dtype).element_size()
+    for nx, ny in _rk_grids(dtype):
+        for nvar in range(4, ctu_kernel.MAXVAR + 1):
+            for flatten in (False, True):
+                p = mol_kernel.rk_plan(nx, ny, nvar, dtype, flatten=flatten)
+                ints = p.ints()
+                assert len(ints) == n_ints
+                assert _rk_plan_ok(item, nx, ny, nvar, flatten, ints)
+
+
+def test_rk_uncovered_variable_order_raises():
+    """The rk stage refuses a frame whose conserved variables are out of
+    the solvers' order, as the fv4 stage does (A.22)."""
+    import copy
+
+    from pyro2_tpu_torch import Pyro
+
+    p = Pyro("compressible_rk", device="cpu")
+    p.initialize_problem("quad", inputs_dict={"mesh.nx": 8, "mesh.ny": 8})
+    sim = copy.copy(p.sim)
+    sim.ivars = copy.copy(sim.ivars)
+    sim.ivars.idens, sim.ivars.iener = sim.ivars.iener, sim.ivars.idens
+    with pytest.raises(NotImplementedError, match="A.22"):
+        mol_kernel.MOLSubstep(sim, "rk")
+    assert mol_kernel.MOLSubstep(p.sim, "rk").kind == "rk"
+
+
+# -- the deep smoothing round (mg_deep_smooth) --------------------------------
+
+# deep frames (bx, by, dpx, dpy, wrap): the 1x1 frames of the 1024^2 path
+# (Neumann, and periodic: its boxes wrap), a 2x2 and a 1x4 block of 1024^2
+# (d 21), and ragged rectangular ones
+DEEP_FRAMES = ((1024, 1024, 1, 1, (False, False)),
+               (1024, 1024, 1, 1, (True, True)),
+               (512, 512, 21, 21, (False, False)),
+               (512, 512, 101, 101, (False, False)),
+               (1024, 256, 1, 21, (True, False)),
+               (96, 40, 5, 1, (False, False)),
+               (40, 96, 1, 7, (False, False)), (6, 10, 3, 3, (False, False)))
+DEEP_SWEEPS = (0, 1, 10, 50)
+
+
+def _deep_plan_ok(bx, by, dpx, dpy, wrap, smoother, n_sweeps, item, ints):
+    """mg_deep.cu deep_plan_ok, line by line, on the plan's ints."""
+    (tx, ty, halo, rounds, iters, threads, smem, gx, gy, bh, bw,
+     arrays) = ints
+    reach = 2 if smoother == "rbgs" else 1
+    want_arrays = {"rbgs": 2, "jacobi": 3, "chebyshev": 4}[smoother]
+    want = 1 if n_sweeps == 0 else -(-n_sweeps // max(iters, 1))
+    for tiles, tile, dp, b in ((gy, tx, dpx, bx), (gx, ty, dpy, by)):
+        nb = tiles - 2 * smk._halo_tiles(dp, tile, halo)
+        if tile < 2 or tile % 2 or nb < 1 or (nb - 1) * tile >= b or \
+                nb * tile < b:
+            return False
+    if iters < 0 or (n_sweeps > 0 and iters < 1) or rounds != want or \
+            halo < reach * iters + 1 or threads < 32 or threads > 512 or \
+            threads % 32 or arrays != want_arrays:
+        return False
+
+    def widest(tiles, tile, dp, b, wr):
+        F = b + 2 * dp
+        most = 0
+        for k in range(tiles):
+            o0, o1 = smk._owned(k, tiles, tile, dp, b, halo)
+            most = max(most, o1 - o0 + 2 * halo if wr else
+                       min(F, o1 + halo) - max(0, o0 - halo))
+        return most
+
+    if bh < widest(gy, tx, dpx, bx, wrap[0]) or \
+            bw < widest(gx, ty, dpy, by, wrap[1]):
+        return False
+    return smem >= arrays * bh * bw * item
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_deep_tiles_cover_every_cell_once(dtype):
+    """The tiles of the grid the deep kernel launches are even and cover
+    the owned block once; with the frame's halo and ghosts, which the tiles
+    at its edges own, they cover every frame cell once; and the coarse
+    cells of the tiles (the four children of each in one tile) with the
+    coarse ghosts of the edge tiles cover the coarse frame once."""
+    for bx, by, dpx, dpy, wrap in DEEP_FRAMES:
+        for smoother in smk.SMOOTHERS:
+            p = smk.deep_plan(bx, by, dpx, dpy, 10, smoother, dtype, wrap)
+            assert p.tx % 2 == 0 and p.ty % 2 == 0
+            Fx, Fy = bx + 2 * dpx, by + 2 * dpy
+            cover = np.zeros((Fx, Fy), dtype=int)
+            coarse = np.zeros((bx // 2 + 2, by // 2 + 2), dtype=int)
+            nlx = smk._halo_tiles(dpx, p.tx, p.halo)
+            nly = smk._halo_tiles(dpy, p.ty, p.halo)
+            nbx, nby = p.gy - 2 * nlx, p.gx - 2 * nly
+            assert nbx == -(-bx // p.tx) and nby == -(-by // p.ty)
+            for ti in range(p.gy):
+                for tj in range(p.gx):
+                    r0, r1 = smk._owned(ti, p.gy, p.tx, dpx, bx, p.halo)
+                    c0, c1 = smk._owned(tj, p.gx, p.ty, dpy, by, p.halo)
+                    assert 0 < r1 - r0 and 0 < c1 - c0
+                    cover[r0:r1, c0:c1] += 1
+                    mx, my = ti - nlx, tj - nly
+                    if not (0 <= mx < nbx and 0 <= my < nby):
+                        continue            # a tile of the halo
+                    I0, J0 = 1 + mx * p.tx // 2, 1 + my * p.ty // 2
+                    R0 = 0 if mx == 0 else I0
+                    R1 = bx // 2 + 2 if mx == nbx - 1 else I0 + p.tx // 2
+                    C0 = 0 if my == 0 else J0
+                    C1 = by // 2 + 2 if my == nby - 1 else J0 + p.ty // 2
+                    coarse[R0:R1, C0:C1] += 1
+                    # the children of the tile's coarse cells are its own
+                    for I in range(max(R0, 1), min(R1, bx // 2 + 1)):
+                        assert r0 <= dpx + 2 * I - 2 and \
+                            dpx + 2 * I - 1 < r1
+            assert (cover == 1).all() and (coarse == 1).all()
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("smoother", smk.SMOOTHERS)
+@pytest.mark.parametrize("n_sweeps", DEEP_SWEEPS)
+def test_deep_halo_covers_a_rounds_reach(n_sweeps, smoother, dtype):
+    """The halo is a sub-round's reach (2 cells a red-black sweep, 1 a
+    Jacobi or Chebyshev step) and one for the residual; the sub-rounds take
+    n_sweeps together, the last the rest; the solvers' 10 red-black sweeps
+    take one launch on the 1x1 and 2x2 frames of 1024^2, and 50 more than
+    one."""
+    for bx, by, dpx, dpy, wrap in DEEP_FRAMES:
+        p = smk.deep_plan(bx, by, dpx, dpy, n_sweeps, smoother, dtype, wrap)
+        its = p.round_iters()
+        assert len(its) == p.rounds and sum(its) == n_sweeps
+        assert all(0 < i <= p.iters for i in its) or n_sweeps == 0
+        assert p.halo == smk.REACH[smoother] * p.iters + 1
+    for bx, dp in ((1024, 1), (512, 21)):
+        p = smk.deep_plan(bx, bx, dp, dp, 10, "rbgs", dtype)
+        assert p.rounds == 1 and p.halo == 21
+    if n_sweeps == 50:
+        assert smk.deep_plan(1024, 1024, 1, 1, 50, smoother, dtype).rounds > 1
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("smoother", smk.SMOOTHERS)
+def test_deep_shared_memory_fits(smoother, dtype):
+    """A block's boxes (v, f, Jacobi's second iterate, Chebyshev's dk, each
+    the widest box of the plan's tiles) fit the budget that lets two blocks
+    share an SM, at every frame and sweep count; the frames of the 1024^2
+    path take enough tiles to fill the card."""
+    item = torch.empty((), dtype=dtype).element_size()
+    for bx, by, dpx, dpy, wrap in DEEP_FRAMES:
+        for n_sweeps in DEEP_SWEEPS:
+            p = smk.deep_plan(bx, by, dpx, dpy, n_sweeps, smoother, dtype,
+                              wrap)
+            assert p.smem == p.arrays * p.bh * p.bw * item
+            assert p.smem <= mg_kernel.TILE_SMEM and 2 * p.smem <= SMEM_SM
+            assert p.threads == smk.DEEP_THREADS
+            if bx >= 512:
+                assert p.gx * p.gy >= mg_kernel.TILE_BLOCKS
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_deep_plan_passes_the_kernels_checks(dtype):
+    """The plan array each deep launch takes has the length mg_deep.cu
+    reads (DEEP_PLAN_INTS) and passes its deep_plan_ok at every frame,
+    smoother and sweep count; a frame that wraps an axis of a block that is
+    not a power of 2, or with more than one halo cell, is refused (A.24)."""
+    import re
+
+    from pyro2_tpu_torch.util import cuda_build
+
+    text = (cuda_build.CSRC / "mg_deep.cu").read_text()
+    n_ints = int(re.search(r"constexpr int DEEP_PLAN_INTS = (\d+);",
+                           text).group(1))
+    item = torch.empty((), dtype=dtype).element_size()
+    for bx, by, dpx, dpy, wrap in DEEP_FRAMES:
+        for smoother in smk.SMOOTHERS:
+            for n_sweeps in DEEP_SWEEPS:
+                ints = smk.deep_plan(bx, by, dpx, dpy, n_sweeps, smoother,
+                                     dtype, wrap).ints()
+                assert len(ints) == n_ints
+                assert _deep_plan_ok(bx, by, dpx, dpy, wrap, smoother,
+                                     n_sweeps, item, ints)
+    smk.covered(64, 40, 1, 3, [2, 2, 1, 1])
+    for args in ((48, 40, 1, 3, [2, 2, 1, 1]), (64, 40, 2, 1, [2, 2, 1, 1]),
+                 (64, 24, 1, 1, [1, 1, 2, 2])):
+        with pytest.raises(NotImplementedError, match="A.24"):
+            smk.covered(*args)

@@ -11,7 +11,8 @@ Phases (any failure exits non-zero and prints no result line):
      what ptxas reports (registers, shared memory, stack and spills; the
      main path's CTU kernel, k_ctu<float, nvar 4, cartesian>, the swe
      kernel k_swe<float, 4>, the descent k_down, the rk stage k_rk<float,
-     4> and the deep smoother k_deep<const, rbgs, v_fc, float> once more);
+     4>, the deep smoother k_deep<const, rbgs, v_fc, float> and the lm_atm
+     stages k_lm_mac, k_lm_rho and k_lm_states<float> once more);
   3. the CTU kernel (one fused launch a step) against its plain PyTorch
      version on the card, one step from the same state after 3 kernel
      steps, for seven configurations (CGF limiter 2 on sod, HLLC limiters
@@ -60,9 +61,11 @@ Phases (any failure exits non-zero and prints no result line):
      splits the sweeps into rounds (mg_kernel.tile_plan), v with its
      ghosts, the restricted residual and the finest level's residual
      against down_plain and up_plain;
-  4a. the lm_atm interface kernels (lm_mac, lm_rho, lm_states) against
-     their plain versions, on decisively signed random fields at 200x136
-     and 1024^2 and on a bubble state at 1024^2 after 3 kernel steps, in
+  4a. the lm_atm interface kernels (lm_mac, lm_rho, lm_states; one launch
+     a call, tiles in shared memory) against their plain versions, on
+     decisively signed random fields at 200x136, 1024x1000 (a ragged last
+     tile column) and 1024^2 and on a bubble state at 1024^2 after 3
+     kernel steps, in
      float64 (<= 1e-12 of each stated scale) and float32 (<= 1e-5), the
      MAC frames zero exactly where the plain version's are;
   4b. the sharded multigrid's kernels (mg_deep_smooth, mg_correct) against
@@ -122,15 +125,20 @@ Phases (any failure exits non-zero and prints no result line):
      descent at every peeled level with their plan, the swe step with
      other tiles, and the host time of building lm_atm's VarCoeffCCMG2d at
      1024^2; the CTU step's, the rk and fv4 stages' and the swe step's
-     peak device memory at quad, quad, acoustic_pulse and quad 1024^2;
+     peak device memory at quad, quad, acoustic_pulse and quad 1024^2,
+     and the bytes each lm_atm stage allocates on the bubble (its outputs
+     alone);
      the core's schedule at the 1024^2
      cycles' 128^2 top with its barriers counted by kind, and its time on
      the coarse problems one ShardedDiffusion step hands it against random
      data (the share of subnormal values in each);
   7. under the profiler, after every CUDA-event timing: the kernels one
-     swe step launches (k_swe, once), one rk stage (k_rk, once) and one
-     mg_deep_smooth call at the solvers' 10 sweeps (k_deep, once) with
-     their device time a launch, the k_down launches of a cycle (one
+     swe step launches (k_swe, once), one rk stage (k_rk, once), one
+     mg_deep_smooth call at the solvers' 10 sweeps (k_deep, once), one
+     call of each lm_atm stage on the 1024^2 bubble (k_lm_mac, k_lm_rho,
+     k_lm_states, once each) and one mg_correct at 1024^2, 512^2 and 256^2
+     (k_correct, once) with their device time a launch, the k_down
+     launches of a cycle (one
      a peeled level) and of a call split into rounds (one a round), the
      device time of k_down and k_up a call at every peeled level of the
      three operators' 1024^2 cycles, and mg_down with tiles of other
@@ -1156,12 +1164,13 @@ def launch_count(entry):
     """The launch count of a kernel wrapper, by its entry name."""
     from pyro2_tpu_torch.multigrid import mg_kernel, sharded_mg_kernel
     from pyro2_tpu_torch.solvers.compressible_fv4 import mol_kernel
+    from pyro2_tpu_torch.solvers.lm_atm import lm_kernel
     from pyro2_tpu_torch.solvers.swe import swe_kernel
 
     if entry == "swe_step":
         return swe_kernel.launches
     for counts in (mg_kernel.launches, mol_kernel.launches,
-                   sharded_mg_kernel.launches):
+                   sharded_mg_kernel.launches, lm_kernel.launches):
         if entry in counts:
             return counts[entry]
     raise KeyError(entry)
@@ -1689,11 +1698,102 @@ def lm_timing(calls, g, bw, fp32):
             ("lm_rho", lm_kernel.rho_increment_plain, lm.launch_rho),
             ("lm_states", lm_kernel.advect_terms_plain, lm.launch_states)):
         dt, planes = calls[name]
+        t = lm_kernel.plan(name, g.nx, g.ny, g.ng, torch.float32)
+        log(f"  {name} plan: {t.tx} x {t.ty} tiles ({t.gx * t.gy} blocks "
+            f"of {t.threads}), halo {t.lo} below and {t.hi} above, "
+            f"{t.smem} B of shared memory")
         out[name] = time_pair(
             f"{name} (bubble {g.nx}x{g.ny})",
             lambda: launch(dt, *planes),
             lambda: plain(g, dt, *planes),
             lm_kernel.work(name, g.nx, g.ny, torch.float32), bw, fp32)
+    return out
+
+
+def lm_peak_memory(calls, g):
+    """The device bytes each lm_atm stage allocates in a call, which must
+    be what allocating its outputs alone takes: a call allocates no
+    scratch.  Counted by the allocator's running total of bytes allocated,
+    which a free during the call (the garbage collector's) cannot hide,
+    beside the peak above what was allocated before the call."""
+    import gc
+
+    import torch
+
+    from pyro2_tpu_torch.solvers.lm_atm import lm_kernel
+
+    lm = lm_kernel.LMInterface(g)
+    f32 = torch.float32
+
+    def allocates(fn):
+        gc.collect()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        total = torch.cuda.memory_stats()["allocated_bytes.all.allocated"]
+        torch.cuda.reset_peak_memory_stats()
+        out = fn()
+        torch.cuda.synchronize()
+        total = torch.cuda.memory_stats()[
+            "allocated_bytes.all.allocated"] - total
+        del out
+        return total, torch.cuda.max_memory_allocated() - base
+
+    out = {}
+    for name, launch, shapes in (
+            ("lm_mac", lm.launch_mac, [(g.qx, g.qy)] * 2),
+            ("lm_rho", lm.launch_rho, [(g.nx, g.ny)]),
+            ("lm_states", lm.launch_states, [(g.nx, g.ny)] * 2)):
+        dt, planes = calls[name]
+        total, peak = allocates(lambda: launch(dt, *planes))
+        alone, _ = allocates(lambda: [torch.empty(s, dtype=f32, device="cuda")
+                                      for s in shapes])
+        log(f"  {name}: a call allocates {total} B (peak {peak} B above "
+            f"what was allocated before it); its outputs alone {alone} B")
+        if total != alone:
+            raise AssertionError(f"{name} allocates {total} B, not its "
+                                 f"outputs' {alone} B")
+        out[name] = total
+    return out
+
+
+def lm_correct_device_us(calls, g, bw):
+    """Under the profiler: one call of each lm_atm stage on the recorded
+    bubble arguments and one mg_correct at 1024^2, 512^2 and 256^2 each
+    launch their one kernel once; their device us a launch, beside the
+    bound."""
+    import numpy as np
+    import torch
+
+    from pyro2_tpu_torch.multigrid import sharded_mg_kernel as smk
+    from pyro2_tpu_torch.solvers.lm_atm import lm_kernel
+
+    lm = lm_kernel.LMInterface(g)
+    out = {}
+    for name, launch in (("lm_mac", lm.launch_mac),
+                         ("lm_rho", lm.launch_rho),
+                         ("lm_states", lm.launch_states)):
+        dt, planes = calls[name]
+        out[name] = one_launch_each(
+            lambda: launch(dt, *planes), 20, f"k_{name}",
+            f"{name} calls (bubble {g.nx}x{g.ny})", name)
+    rng = np.random.default_rng(29)
+    for n in (1024, 512, 256):
+        v = torch.as_tensor(rng.standard_normal((n + 2, n + 2)),
+                            dtype=torch.float32, device="cuda")
+        vc = torch.as_tensor(0.1 * rng.standard_normal(
+            (n // 2 + 2, n // 2 + 2)), dtype=torch.float32, device="cuda")
+        out[f"mg_correct {n}"] = one_launch_each(
+            lambda: smk.launch_correct(v, vc), 20, "k_correct",
+            f"mg_correct calls ({n}^2)", "mg_correct")
+    for key, us in out.items():
+        name, n = (key.split() + ["1024"])[:2]
+        nbytes = (lm_kernel.work(name, g.nx, g.ny, torch.float32)[0]
+                  if name.startswith("lm_") else
+                  smk.work("mg_correct", bx=int(n), by=int(n),
+                           dtype=torch.float32)[0])
+        bound_us = 1e6 * nbytes / bw
+        log(f"  {key}: {us:.3f} us a launch, bound {bound_us:.3f} us "
+            f"(bytes), at {100 * bound_us / us:.1f}% of it")
     return out
 
 
@@ -2328,7 +2428,9 @@ def main():
                          "k_down<general, float>", "k_rk<float, 4>",
                          "k_rk<double, 4>",
                          "k_deep<const, rbgs, v_fc, float>",
-                         "k_deep<const, rbgs, v_r, float>"):
+                         "k_deep<const, rbgs, v_r, float>",
+                         "k_lm_mac<float>", "k_lm_rho<float>",
+                         "k_lm_states<float>"):
                 if line.startswith(head + ":"):
                     main_ptxas[head] = line
     for head, line in main_ptxas.items():
@@ -2435,10 +2537,11 @@ def main():
         for what, (g, calls) in (
                 ("random", lm_random_calls(200, 136, dtype, 1)),
                 ("random", lm_random_calls(1024, 1024, dtype, 2)),
+                ("random", lm_random_calls(1024, 1000, dtype, 3)),
                 ("bubble, 3 steps", lm_bubble_calls(1024, dtype))):
             lm_compare(what, g, calls, dtype, tol,
-                       lm_err if (g.nx, dtype) == (1024, torch.float32)
-                       else {})
+                       lm_err if (g.nx, g.ny, dtype) ==
+                       (1024, 1024, torch.float32) else {})
             if what != "random" and dtype == torch.float32:
                 bubble_g, bubble_calls = g, calls
         torch.cuda.empty_cache()
@@ -2581,6 +2684,7 @@ def main():
     log("[timing: the lm_atm stages on the 1024^2 float32 bubble, CUDA "
         "events; the host's multigrid set-up]")
     lm_times = lm_timing(bubble_calls, bubble_g, bw, fp32)
+    lm_peak_memory(bubble_calls, bubble_g)
     vc_build_ms(lm.sim)
 
     log(f"[timing: the spherical CTU step and the padded entries at the "
@@ -2629,6 +2733,9 @@ def main():
     for label, call in deep_calls.items():
         one_launch_each(call, 5, "k_deep", f"mg_deep_smooth calls ({label})",
                         "mg_deep_smooth")
+    log(f"[the lm_atm stages and mg_correct under the profiler, float32; "
+        f"{smi}]")
+    lm_correct_device_us(bubble_calls, bubble_g, bw)
     down_launches(make_mg(1024, "periodic", 0.0, -1.0, torch.float32))
     mg_level_kernels(make_mg(1024, "periodic", 0.0, -1.0, torch.float32),
                      "periodic Poisson")

@@ -112,16 +112,4 @@ __device__ __forceinline__ T slope_of(const P& p, const A& a, int i, int j,
   return mc(dc, ap - a0, a0 - am);
 }
 
-// one thread per frame cell (i, j), threadIdx.x along y
-#define CELL_INDEX                                    \
-  const int j = blockIdx.x * blockDim.x + threadIdx.x; \
-  const int i = blockIdx.y * blockDim.y + threadIdx.y; \
-  if (i >= p.qx || j >= p.qy) return;
-
-#define LAUNCH_CHECK                                   \
-  do {                                                 \
-    cudaError_t e = cudaGetLastError();                \
-    if (e != cudaSuccess) return (int)e;               \
-  } while (0)
-
 }  // namespace

@@ -12,16 +12,19 @@ signatures and output layouts of the JAX package's:
   * `advect_terms(dt, u, v, lux, ..., src, u_MAC, v_MAC)` -> the (nx, ny)
     interior advective terms of u and v.
 
-For a CUDA tensor each entry launches its kernel chain, counting the call
-once in `launches` (lm_mac, lm_rho, lm_states), or raises; for a CPU tensor
-it runs its plain version (`mac_vels_plain`, ...), the expressions of the
-JAX package's jnp path (lm_atm/simulation.py) over LM_atm_interface.  There
-is no fallback from one to the other.  The kernels take Cartesian grids
-with ng >= 4 (lm_atm's is 4) of any nx, ny.  The MC slopes come in as
-planes, computed globally by mesh/reconstruction.limit.
+For a CUDA tensor each entry launches its kernel, one launch a call
+counted in `launches` (lm_mac, lm_rho, lm_states), with the tiling of
+`plan`, or raises; for a CPU tensor it runs its plain version
+(`mac_vels_plain`, ...), the expressions of the JAX package's jnp path
+(lm_atm/simulation.py) over LM_atm_interface.  There is no fallback from
+one to the other.  The kernels take Cartesian grids with ng >= 4
+(lm_atm's is 4) of any nx, ny.  The MC slopes come in as planes, computed
+globally by mesh/reconstruction.limit.  A call allocates its outputs and
+nothing else.
 """
 
 import ctypes
+import functools
 
 import torch
 
@@ -29,21 +32,128 @@ from pyro2_tpu_torch.mesh.indexer import ai
 from pyro2_tpu_torch.solvers.lm_atm import LM_atm_interface as lm_interface
 from pyro2_tpu_torch.util import cuda_build
 
-__all__ = ["LMInterface", "advect_terms_plain", "build", "launches",
-           "mac_vels_plain", "rho_increment_plain", "work"]
+__all__ = ["ENTRIES", "LMInterface", "LmPlan", "advect_terms_plain",
+           "build", "covered", "launches", "mac_vels_plain", "plan",
+           "rho_increment_plain", "work"]
 
 SOURCE = cuda_build.CSRC / "lm_interface.cu"
 
-launches = {"lm_mac": 0, "lm_rho": 0, "lm_states": 0}
+ENTRIES = ("lm_mac", "lm_rho", "lm_states")
+launches = dict.fromkeys(ENTRIES, 0)
 
 # floating-point operations, counted from lm_interface.cu (+, -, *, / each
-# one): per cell of the (lo-1, hi+2) window for the first stage of each
-# chain, per cell of that window (mac) or of the interior (rho, states)
-# for the second
-FLOPS = {"hat": 42, "mac": 58, "rho_hat": 20, "rho": 130, "states": 242}
+# one): per cell of the (lo-1, hi+2) window, the first pass of the
+# velocity stages ("hat") and of rho ("rho_hat"); per cell of that window,
+# mac's two corrected faces ("mac"); per face, the final states of u and v
+# ("face") or of rho ("rho_face"); per interior cell, the differences of
+# the advective terms ("states") and of the increment ("rho")
+FLOPS = {"hat": 42, "mac": 58, "rho_hat": 20, "face": 56, "rho_face": 30,
+         "states": 18, "rho": 10}
 
-# scratch planes of each chain (the first-pass interface values)
-SCRATCH = {"lm_mac": 6, "lm_rho": 2, "lm_states": 6}
+# ---------------------------------------------------------------------------
+# the launch plan
+# ---------------------------------------------------------------------------
+
+# the output tile of a block of each entry (rows along x, columns along
+# y), the one lm_interface.cu compiles the entry's kernel for (LmTile):
+# the fastest of the tiles and blocks timed on the H100 at bubble 1024^2
+# in float32; its threads (LmLaunch), and the fewest blocks an SM holds,
+# which bounds the registers a thread takes
+TILES = {"lm_mac": (16, 32), "lm_rho": (16, 64), "lm_states": (8, 64)}
+THREADS = 256
+BLOCKS = {("lm_states", torch.float32): 4}
+
+# what a block of each entry holds in shared memory: the input planes over
+# the tile and its halo, the first-pass planes over the tile and a ring of
+# RING cells (uhat, vhat and the four upwinded states; rho's two), and the
+# face planes over the tile and one more row and column (the final u and
+# v states on x and y faces; rho's)
+PLANES = {"lm_mac": 9, "lm_rho": 5, "lm_states": 11}
+FIRST = {"lm_mac": 6, "lm_rho": 2, "lm_states": 6}
+FACES = {"lm_mac": 0, "lm_rho": 2, "lm_states": 4}
+
+# how far the input boxes reach beyond the tile: a cell reads the first-pass
+# values of the ring around it, and a first-pass value the inputs at (a-1,
+# b), (a, b-1) and (a, b), so 2 cells below the tile and 1 above; rho's
+# divergence corrections read the MAC velocity of the next face up, so 2
+# above for rho
+HALO = {"lo": 2, "hi": {"lm_mac": 1, "lm_rho": 2, "lm_states": 1}}
+RING = 1
+# the fewest ghost cells the kernels take: the input halo below the
+# (lo-1, hi+2) window lies in the frame
+NG_MIN = HALO["lo"] + 1
+
+# the shared memory one block may opt into on the H100
+SMEM_LIMIT = 232448
+
+
+class LmPlan:
+    """One launch's tiling for `entry` on an nx x ny grid with ng ghosts:
+    the tile (tx rows, ty columns), the block's threads, the input halo
+    below and above the tile (lo, hi), the offsets of the input, first-pass
+    and face planes in the block's shared memory in elements of the dtype
+    (in, fp, fc), its bytes (smem), and the grid of tiles (gx blocks along
+    y, gy along x) over the outputs: the whole frame for lm_mac, the
+    interior otherwise; `blocks` is how many the kernel is compiled to fit
+    on an SM.  `ints()` is the array the kernel takes."""
+
+    FIELDS = ("tx", "ty", "threads", "lo", "hi", "in", "fp", "fc", "smem",
+              "gx", "gy")
+
+    def __init__(self, entry, nx, ny, ng, dtype):
+        item = torch.empty((), dtype=dtype).element_size()
+        self.entry = entry
+        self.threads = THREADS
+        self.blocks = BLOCKS.get((entry, dtype), 2)
+        self.lo, self.hi = HALO["lo"], HALO["hi"][entry]
+        self.tx, self.ty = TILES[entry]
+        self.sizes = {
+            "in": PLANES[entry] * self.box("in"),
+            "fp": FIRST[entry] * self.box("fp"),
+            "fc": FACES[entry] * self.box("fc"),
+        }
+        self.offsets = {"in": 0, "fp": self.sizes["in"],
+                        "fc": self.sizes["in"] + self.sizes["fp"]}
+        self.smem = sum(self.sizes.values()) * item
+        rows, cols = (nx + 2 * ng, ny + 2 * ng) if entry == "lm_mac" \
+            else (nx, ny)
+        self.origin = 0 if entry == "lm_mac" else ng
+        self.gx, self.gy = -(-cols // self.ty), -(-rows // self.tx)
+
+    def box(self, name):
+        """Cells of a block's box: the inputs ("in"), the first pass
+        ("fp") or the faces ("fc")."""
+        extra = {"in": (self.lo + self.hi,) * 2, "fp": (2 * RING,) * 2,
+                 "fc": (1, 1)}[name]
+        return (self.tx + extra[0]) * (self.ty + extra[1])
+
+    def ints(self):
+        return [self.tx, self.ty, self.threads, self.lo, self.hi,
+                self.offsets["in"], self.offsets["fp"], self.offsets["fc"],
+                self.smem, self.gx, self.gy]
+
+
+@functools.lru_cache(maxsize=64)
+def plan(entry, nx, ny, ng, dtype):
+    """The launch plan of one call (see LmPlan), made once for each set of
+    arguments."""
+    return LmPlan(entry, nx, ny, ng, dtype)
+
+
+def covered(ng, dtype):
+    """Raise NotImplementedError unless the tiled kernels take this frame:
+    at least NG_MIN ghosts, and boxes that fit the shared memory a block
+    may opt into."""
+    if ng < NG_MIN:
+        raise NotImplementedError(
+            f"the lm_atm interface kernels take {NG_MIN} or more ghost "
+            f"cells, not {ng} (ROADMAP.md A.25)")
+    smem = max(plan(e, 1, 1, ng, dtype).smem for e in ENTRIES)
+    if smem > SMEM_LIMIT:
+        raise NotImplementedError(
+            f"the lm_atm interface kernels' boxes take {smem} B of shared "
+            f"memory, more than a block's {SMEM_LIMIT} (ROADMAP.md A.25)")
+
 
 _lib = None
 
@@ -60,14 +170,17 @@ def _load():
         so, _, _ = build()
         lib = ctypes.CDLL(str(so))
         ptr = ctypes.c_void_p
-        tail = [ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_double),
-                ptr]
+        ints = ctypes.POINTER(ctypes.c_int)
+        tail = [ints, ctypes.POINTER(ctypes.c_double), ints, ptr]
         for t in ("f32", "f64"):
-            getattr(lib, f"lm_mac_{t}").argtypes = [ptr] * 4 + tail
-            getattr(lib, f"lm_states_{t}").argtypes = [ptr] * 4 + tail
-            getattr(lib, f"lm_rho_{t}").argtypes = [ptr] * 3 + tail
-            for name in ("mac", "states", "rho"):
-                getattr(lib, f"lm_{name}_{t}").restype = ctypes.c_int
+            getattr(lib, f"lm_mac_{t}").argtypes = [ptr] * 3 + tail
+            getattr(lib, f"lm_states_{t}").argtypes = [ptr] * 3 + tail
+            getattr(lib, f"lm_rho_{t}").argtypes = [ptr] * 2 + tail
+            for name in ENTRIES:
+                getattr(lib, f"{name}_{t}").restype = ctypes.c_int
+        lib.lm_plan_ints.restype = ctypes.c_int
+        if lib.lm_plan_ints() != len(LmPlan.FIELDS):
+            raise RuntimeError("lm_interface.cu takes another plan layout")
         _lib = lib
     return _lib
 
@@ -148,14 +261,15 @@ class LMInterface:
         return dev
 
     def _launch(self, name, dt, planes, outs):
-        """Launch one chain on the planes' device and current stream."""
+        """Launch entry `name`'s kernel on the planes' device and current
+        stream."""
         if self._check(planes).type != "cuda":
             raise ValueError("the lm_atm kernels take CUDA tensors")
         g = self.g
         planes = [a.contiguous() for a in planes]
         f = planes[0]
-        scratch = torch.empty((SCRATCH[name], g.qx, g.qy), dtype=f.dtype,
-                              device=f.device)
+        covered(g.ng, f.dtype)
+        tiles = plan(name, g.nx, g.ny, g.ng, f.dtype)
         t = "f32" if f.dtype == torch.float32 else "f64"
         fn = getattr(_load(), f"{name}_{t}")
         ptrs = (ctypes.c_void_p * len(planes))(*[a.data_ptr()
@@ -164,8 +278,9 @@ class LMInterface:
         dbl = (ctypes.c_double * 3)(float(dt), g.dx, g.dy)
         with torch.cuda.device(f.device):
             stream = torch.cuda.current_stream(f.device).cuda_stream
-            err = fn(ptrs, *[o.data_ptr() for o in outs],
-                     scratch.data_ptr(), ints, dbl, stream)
+            err = fn(ptrs, *[o.data_ptr() for o in outs], ints, dbl,
+                     (ctypes.c_int * len(LmPlan.FIELDS))(*tiles.ints()),
+                     stream)
         if err != 0:
             raise RuntimeError(f"{name} kernel launch failed: CUDA error "
                                f"{err}")
@@ -219,21 +334,25 @@ class LMInterface:
 def work(entry, nx, ny, dtype, ng=4):
     """(bytes, operations) one call must move and do at least on an
     nx x ny grid: each input plane read once and each output written once,
-    and the operations counted from lm_interface.cu (first stage over the
-    (lo-1, hi+2) window, second over that window for lm_mac and over the
-    interior otherwise)."""
+    and the operations counted from lm_interface.cu (the first pass over
+    the (lo-1, hi+2) window; lm_mac's faces over that window; rho's and
+    the states' x and y faces of the interior cells, each once, and their
+    differences over the interior)."""
     item = torch.empty((), dtype=dtype).element_size()
     frame = (nx + 2 * ng) * (ny + 2 * ng)
     w12, inner = (nx + 3) * (ny + 3), nx * ny
+    faces = (nx + 1) * ny + nx * (ny + 1)
     if entry == "lm_mac":
         nbytes = (9 + 2) * frame
         ops = (FLOPS["hat"] + FLOPS["mac"]) * w12
     elif entry == "lm_rho":
         nbytes = 5 * frame + inner
-        ops = FLOPS["rho_hat"] * w12 + FLOPS["rho"] * inner
+        ops = (FLOPS["rho_hat"] * w12 + FLOPS["rho_face"] * faces +
+               FLOPS["rho"] * inner)
     elif entry == "lm_states":
         nbytes = 11 * frame + 2 * inner
-        ops = FLOPS["hat"] * w12 + FLOPS["states"] * inner
+        ops = (FLOPS["hat"] * w12 + FLOPS["face"] * faces +
+               FLOPS["states"] * inner)
     else:
         raise ValueError(f"unknown entry {entry}")
     return nbytes * item, ops

@@ -4,7 +4,10 @@ This system has no weights: a run is its runtime parameters plus its state
 stack.  `carry` takes both as plain Python/numpy values -- for example a
 JAX simulation's `rp.params` and `numpy.asarray(sim.cc_data.data)` -- and
 returns the port's RuntimeParameters and a state tensor on the given device
-and dtype, so both packages can be set to identical inputs.
+and dtype, so both packages can be set to identical inputs.  As every entry
+point, they run on CUDA unless the caller passes ``device="cpu"``, and the
+dtype defaults to float32 on CUDA and float64 on the CPU
+(pyro2_tpu_torch.defaults).
 `carry_simulation` goes one step further and returns a live, initialized
 Simulation of the port holding that state as it stands: the state of a
 4th-order (FV2d) solver is a stack of cell averages, so `preevolve`, which
@@ -20,14 +23,18 @@ import importlib
 import numpy as np
 import torch
 
+from pyro2_tpu_torch import defaults
 from pyro2_tpu_torch.util.runparams import RuntimeParameters
 
 __all__ = ["carry", "carry_block", "carry_simulation"]
 
 
-def carry(params, state, *, device="cpu", dtype=torch.float64):
+def carry(params, state, *, device=None, dtype=None):
     """(RuntimeParameters, state tensor) from a parameter dict and a
-    (nvar, qx, qy) array."""
+    (nvar, qx, qy) array, on `device` (CUDA by default, raising without a
+    GPU) in `dtype` (defaults.dtype)."""
+    device = defaults.resolve_device(device)
+    dtype = defaults.dtype(device, dtype)
     rp = RuntimeParameters()
     rp.params = dict(params)
     rp.param_comments = {k: "" for k in rp.params}
@@ -37,12 +44,14 @@ def carry(params, state, *, device="cpu", dtype=torch.float64):
 
 
 def carry_simulation(solver_name, problem_name, params, state, *, t=0.0,
-                     n=0, extra_vars=None, base=None, device="cpu",
-                     dtype=torch.float64):
+                     n=0, extra_vars=None, base=None, device=None,
+                     dtype=None):
     """An initialized Simulation of `solver_name` whose parameters are
     `params` and whose state is `state` at time t after n steps (the
     problem's initial conditions are set and then replaced); `base` maps
     the names of lm_atm's base-state profiles to their arrays."""
+    device = defaults.resolve_device(device)
+    dtype = defaults.dtype(device, dtype)
     rp, U = carry(params, state, device=device, dtype=dtype)
     solver = importlib.import_module(f"pyro2_tpu_torch.solvers.{solver_name}")
     problem = importlib.import_module(

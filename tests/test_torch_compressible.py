@@ -187,7 +187,7 @@ def _jax_sim(problem, inputs, extra_vars=None):
 
 def _torch_sim(jsim, dtype=torch.float64):
     rp, U = carry(jsim.rp.params, np.asarray(jsim.cc_data.data),
-                  dtype=dtype)
+                  device="cpu", dtype=dtype)
     problem = PROBLEMS[jsim.problem_name]
     sim = tcomp.Simulation("compressible", jsim.problem_name,
                            problem.init_data, rp, device="cpu", dtype=dtype)

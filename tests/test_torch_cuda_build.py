@@ -358,3 +358,48 @@ def test_deep_entries_take_the_plan_and_no_grid_barrier(monkeypatch):
         assert len(fns[f"mg_deep_smooth_{t}"].argtypes) == \
             7 + 1 + 3 + 3 + 2 + 1 + 1
         assert len(fns[f"mg_correct_{t}"].argtypes) == 3 + 2 + 1
+
+
+def test_lm_entries_take_the_plan_and_no_scratch(monkeypatch):
+    """lm_interface.cu's entries (lm_mac, lm_states, lm_rho for each dtype,
+    from its ENTRIES macro) take the launch plan and no scratch, and the
+    plan's length is lm_kernel.plan's (LM_PLAN_INTS); each entry launches
+    one kernel (k_lm_mac, k_lm_states, k_lm_rho) and the first design's
+    first-pass kernels (k_lm_hat, k_lm_rho_hat) are gone.  The ctypes
+    bindings give each entry its parameter count."""
+    import re
+
+    import torch
+
+    from pyro2_tpu_torch.solvers.lm_atm import lm_kernel
+
+    assert _extern_params("lm_interface.cu") == {"lm_plan_ints": 0}
+    text = (cuda_build.CSRC / "lm_interface.cu").read_text()
+    params = {}
+    for name in ("mac", "states", "rho"):
+        sig = re.search(r"lm_%s_##SFX\(([^)]*)\)" % name, text).group(1)
+        params[name] = [p.strip() for p in sig.replace("\\", "").split(",")]
+        assert not any("scratch" in p for p in params[name])
+        assert params[name][-2:] == ["const int* plan", "void* stream"]
+    assert {n: len(p) for n, p in params.items()} == \
+        {"mac": 7, "states": 7, "rho": 6}
+    body = text.split("namespace {", 1)[1]
+    assert "scratch" not in body
+    # one launch site, which each entry hands its one kernel
+    assert len(re.findall(r"<<<", body)) == 1 and "kernel<<<" in body
+    for name in ("k_lm_mac", "k_lm_states", "k_lm_rho"):
+        assert len(re.findall(r"plan, %s<T>, st," % name, body)) == 1, name
+    assert sorted(re.findall(r"__global__.*?\b(k_\w+)\(", body,
+                             re.DOTALL)) == \
+        ["k_lm_mac", "k_lm_rho", "k_lm_states"]
+    assert "k_lm_hat" not in text and "k_lm_rho_hat" not in text
+    n_ints = int(re.search(r"constexpr int LM_PLAN_INTS = (\d+);",
+                           text).group(1))
+    for dtype in (torch.float32, torch.float64):
+        for entry in lm_kernel.ENTRIES:
+            assert len(lm_kernel.plan(entry, 8, 8, 4, dtype).ints()) == \
+                n_ints
+    fns = _bind(lm_kernel, monkeypatch, {"lm_plan_ints": n_ints})
+    for t in ("f32", "f64"):
+        for name, n in params.items():
+            assert len(fns[f"lm_{name}_{t}"].argtypes) == len(n), name

@@ -159,6 +159,34 @@ def test_multigrid_solvers_raise_without_cuda(monkeypatch, tmp_path, solver):
     assert p.dtype == torch.float64
 
 
+def test_carry_runs_on_the_card_unless_asked_for_the_cpu(monkeypatch,
+                                                        tmp_path):
+    # carry and carry_simulation resolve their device as every entry point
+    # does: CUDA by default, raising without a GPU; on the CPU, float64
+    import numpy as np
+
+    from pyro2_tpu_torch.util.carry import carry, carry_simulation
+
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    params = {"mesh.nx": 8, "mesh.ny": 8}
+    state = np.zeros((4, 12, 12))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        carry(params, state)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        carry_simulation("compressible", "sod", params, state)
+    _, U = carry(params, state, device="cpu")
+    assert U.dtype == torch.float64 and U.device.type == "cpu"
+    from pyro2_tpu_torch import Pyro
+
+    p = Pyro("compressible", device="cpu")
+    p.initialize_problem("sod", inputs_dict={"mesh.nx": 8, "mesh.ny": 8})
+    sim = carry_simulation("compressible", "sod", p.rp.params,
+                           p.sim.cc_data.data.numpy(), device="cpu")
+    assert sim.cc_data.data.dtype == torch.float64
+    assert torch.equal(sim.cc_data.data, p.sim.cc_data.data)
+
+
 def test_build_directory_stays_git_ignored():
     # the libraries nvcc builds at first use are never committed
     from pyro2_tpu_torch.util import cuda_build

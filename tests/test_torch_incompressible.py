@@ -92,7 +92,8 @@ def test_burgers_step_matches_jax():
     pj.initialize_problem("tophat", inputs_dict={"mesh.nx": 24,
                                                  "mesh.ny": 24})
     jsim = pj.sim
-    rp, U = carry(jsim.rp.params, np.asarray(jsim.cc_data.data))
+    rp, U = carry(jsim.rp.params, np.asarray(jsim.cc_data.data),
+                  device="cpu")
     tsim = TBurgers("burgers", "tophat", lambda d, rp: None, rp,
                     device="cpu")
     tsim.initialize()

@@ -5,8 +5,9 @@ step's (swe_kernel.plan), the multigrid core's level schedule, cluster and
 shared-memory layout (mg_kernel.core_plan), the multigrid descent's and
 ascent's tiles, halo and rounds (mg_kernel.tile_plan), and the sharded
 multigrid's deep smoothing round's tiles, halo, sub-rounds and boxes
-(sharded_mg_kernel.deep_plan).  They run on the CPU: nothing is compiled
-or launched."""
+(sharded_mg_kernel.deep_plan), and the lm_atm interface stages' tiles,
+halos and shared-memory layout (lm_kernel.plan).  They run on the CPU:
+nothing is compiled or launched."""
 
 import itertools
 
@@ -19,6 +20,7 @@ from pyro2_tpu_torch.multigrid import sharded_mg_kernel as smk
 from pyro2_tpu_torch.solvers.compressible import ctu_kernel
 from pyro2_tpu_torch.solvers.compressible.simulation import Variables
 from pyro2_tpu_torch.solvers.compressible_fv4 import mol_kernel
+from pyro2_tpu_torch.solvers.lm_atm import lm_kernel
 from pyro2_tpu_torch.solvers.swe import swe_kernel
 
 DTYPES = (torch.float32, torch.float64)
@@ -229,7 +231,7 @@ def test_core_plan_passes_the_kernels_checks(top):
         assert off[level + 1] - off[level] == 2 * q * q
 
 
-# -- the fused fv4 stage increment ----------------------------------------------
+# -- the fused fv4 stage increment --------------------------------------------
 
 def _fv4_grids(dtype):
     """Ragged grids: 200x136, one cell, and 7 x 5 tiles' worth with a
@@ -445,7 +447,7 @@ def test_fv4_uncovered_variable_order_raises():
         mol_kernel.covered(_Vars)
 
 
-# -- the multigrid ascent (mg_up) -------------------------------------------------
+# -- the multigrid ascent (mg_up) ---------------------------------------------
 
 UP_NSMOOTH = (0, 1, 10, 50)      # 50: more than one round's halo holds
 
@@ -594,7 +596,7 @@ def test_down_shared_memory_fits(dtype):
             assert _tile_plan_ok(p, 2 ** k, nsmooth, item, p.ints())
 
 
-# -- the swe step --------------------------------------------------------------
+# -- the swe step -------------------------------------------------------------
 
 def _swe_grids(dtype):
     """Ragged grids: 200x136, one cell, 1024x1000, and 7 x 5 tiles' worth
@@ -1182,3 +1184,240 @@ def test_deep_plan_passes_the_kernels_checks(dtype):
                  (64, 24, 1, 1, [1, 1, 2, 2])):
         with pytest.raises(NotImplementedError, match="A.24"):
             smk.covered(*args)
+
+
+# -- the lm_atm interface stages ----------------------------------------------
+
+def _lm_grids(dtype):
+    """Ragged grids: 200x136, one cell, 1024x1000, and 7 x 5 tiles' worth
+    with a ragged last tile each way (as the f32 and f64 tiles make them)."""
+    p = lm_kernel.plan("lm_states", 1, 1, NG, dtype)
+    tx, ty = p.tx, p.ty
+    return ((200, 136), (1, 1), (1024, 1000), (7 * tx - 3, 5 * ty - 1),
+            (7 * tx, 5 * ty))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("entry", lm_kernel.ENTRIES)
+def test_lm_tiles_cover_the_outputs_once(dtype, entry):
+    """The grid each lm kernel launches (the plan's ints) has a block for
+    each tile, and the tiles cover each output cell exactly once: the
+    whole frame for lm_mac (the edge tiles own its zero rows and columns),
+    the interior for lm_rho and lm_states."""
+    for nx, ny in _lm_grids(dtype):
+        p = lm_kernel.plan(entry, nx, ny, NG, dtype)
+        assert p.ints()[-2:] == [p.gx, p.gy]
+        rows, cols = (nx + 2 * NG, ny + 2 * NG) if entry == "lm_mac" \
+            else (nx, ny)
+        assert (p.gy - 1) * p.tx < rows <= p.gy * p.tx
+        assert (p.gx - 1) * p.ty < cols <= p.gx * p.ty
+        owned = np.zeros((nx + 2 * NG, ny + 2 * NG), dtype=int)
+        for by in range(p.gy):
+            for bx in range(p.gx):
+                i0, j0 = p.origin + by * p.tx, p.origin + bx * p.ty
+                owned[i0:min(i0 + p.tx, p.origin + rows),
+                      j0:min(j0 + p.ty, p.origin + cols)] += 1
+        if entry == "lm_mac":
+            assert (owned == 1).all()
+        else:
+            assert (owned[NG:NG + nx, NG:NG + ny] == 1).all()
+            assert owned.sum() == nx * ny
+
+
+def _lm_reads(entry, p, nx, ny, i0, j0):
+    """The cells each phase of the lm kernel reads on the tile at (i0, j0):
+    {"in": input cells, "fp": first-pass cells, "fc": face cells}, and the
+    cells the first pass and the faces compute, by the windows of
+    lm_interface.cu (a read under a false window test is not made)."""
+    ng = NG
+    w = {b: _win(ng, nx, ny, b) for b in (1, 2)}
+
+    def w12(i, j):
+        return ng - 1 <= i <= ng + nx + 1 and ng - 1 <= j <= ng + ny + 1
+
+    reads = {"in": set(), "fp": set(), "fc": set()}
+
+    def hats(i, j):
+        for c in ((i - 1, j), (i, j - 1), (i, j)):
+            if w[2](*c):
+                reads["in"].add(c)
+                if entry == "lm_rho":
+                    reads["in"].add((i, j))     # the face's MAC velocity
+
+    def corr(i, j, kind):
+        # du_x, dv_x: (i, j), (i, j+1); dv_y, du_y: (i, j), (i+1, j); rho's
+        # dx_corr, dy_corr on buf=2 read the MAC velocities one further
+        if not w[2 if entry == "lm_rho" else 1](i, j):
+            return
+        nb = (i, j + 1) if kind == "y" else (i + 1, j)
+        reads["fp"] |= {(i, j), nb}
+        reads["in"] |= {(i, j), nb} if entry == "lm_rho" else {(i, j)}
+        if entry == "lm_rho":
+            reads["in"] |= {(i + 1, j), (i, j + 1)}
+
+    ring = {(a, b) for a in range(i0 - 1, i0 + p.tx + 1)
+            for b in range(j0 - 1, j0 + p.ty + 1)}
+    for a, b in ring:
+        if w12(a, b):
+            hats(a, b)
+    if entry == "lm_mac":
+        for i in range(i0, i0 + p.tx):
+            for j in range(j0, j0 + p.ty):
+                if w12(i, j):
+                    hats(i, j)
+                    corr(i - 1, j, "y")
+                    corr(i, j, "y")
+                    corr(i, j - 1, "x")
+                    corr(i, j, "x")
+        return reads, ring, set()
+    xf = {(a, b) for a in range(i0, i0 + p.tx + 1)
+          for b in range(j0, j0 + p.ty)}
+    yf = {(a, b) for a in range(i0, i0 + p.tx)
+          for b in range(j0, j0 + p.ty + 1)}
+    for a, b in xf | yf:
+        hats(a, b)
+    for a, b in xf:
+        corr(a - 1, b, "y")
+        corr(a, b, "y")
+        if w12(a, b):
+            reads["in"].add((a, b))
+    for a, b in yf:
+        corr(a, b - 1, "x")
+        corr(a, b, "x")
+        if w12(a, b):
+            reads["in"].add((a, b))
+    for i in range(i0, i0 + p.tx):
+        for j in range(j0, j0 + p.ty):
+            if ng <= i < ng + nx and ng <= j < ng + ny:
+                reads["fc"] |= {(i, j), (i + 1, j), (i, j + 1)}
+                reads["in"] |= {(i, j), (i + 1, j), (i, j + 1)}
+    return reads, ring, xf | yf
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("entry", lm_kernel.ENTRIES)
+@pytest.mark.parametrize("where", ["first", "middle", "last"])
+def test_lm_phase_reads_stay_inside_the_boxes(dtype, entry, where):
+    """Every phase of an lm kernel, on the tile at the first corner of its
+    outputs, inside them or at their last (ragged) corner: the inputs it
+    reads lie in the frame and in the box of the plan's halos (2 below the
+    tile, 1 above; 2 for rho), the first-pass values in the tile's ring,
+    and the face values among the faces the block computed
+    (lm_interface.cu: a read under a false window test is not made)."""
+    nx, ny = 67, 145
+    p = lm_kernel.plan(entry, nx, ny, NG, dtype)
+    assert p.gx >= 3 and p.gy >= 3
+    by, bx = {"first": (0, 0), "middle": (p.gy // 2, p.gx // 2),
+              "last": (p.gy - 1, p.gx - 1)}[where]
+    i0, j0 = p.origin + by * p.tx, p.origin + bx * p.ty
+    reads, ring, faces = _lm_reads(entry, p, nx, ny, i0, j0)
+    qx, qy = nx + 2 * NG, ny + 2 * NG
+    lo, hi = p.lo, p.hi
+    for i, j in reads["in"]:
+        assert 0 <= i < qx and 0 <= j < qy, (i, j)
+        assert i0 - lo <= i < i0 + p.tx + hi, (i, j, "rows")
+        assert j0 - lo <= j < j0 + p.ty + hi, (i, j, "columns")
+    assert reads["fp"] <= ring
+    assert reads["fc"] <= faces
+    # the halos are as deep as the reads need, and no deeper
+    rows = [i for i, _ in reads["in"]]
+    if where == "middle":
+        assert min(rows) == i0 - lo and max(rows) == i0 + p.tx + hi - 1
+    assert p.ints()[3:5] == [2, 2 if entry == "lm_rho" else 1]
+    assert lm_kernel.NG_MIN == lo + 1 <= NG
+
+
+def _lm_plan_ok(item, entry, nx, ny, ng, ints):
+    """lm_interface.cu lm_plan_ok, line by line, on a plan's ints."""
+    tx, ty, threads, lo, hi, in_, fp, fc, smem, gx, gy = ints
+    e = lm_kernel.ENTRIES.index(entry)
+    n_in, n_first, n_faces = (9, 5, 11)[e], (6, 2, 6)[e], (0, 2, 4)[e]
+    if nx < 1 or ny < 1 or threads != 256 or \
+            (tx, ty) != lm_kernel.TILES[entry] or lo != 2 or \
+            hi != (2 if entry == "lm_rho" else 1) or ng < 3:
+        return False
+    rows, cols = (nx + 2 * ng, ny + 2 * ng) if entry == "lm_mac" \
+        else (nx, ny)
+    if gx < 1 or gy < 1 or (gx - 1) * ty >= cols or gx * ty < cols or \
+            (gy - 1) * tx >= rows or gy * tx < rows:
+        return False
+    nin = n_in * (tx + lo + hi) * (ty + lo + hi)
+    nfp = n_first * (tx + 2) * (ty + 2)
+    nfc = n_faces * (tx + 1) * (ty + 1)
+    return (in_ == 0 and fp == nin and fc == nin + nfp and
+            smem >= (nin + nfp + nfc) * item)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_lm_shared_memory_fits(dtype):
+    """Each entry's boxes fit the 232,448 bytes a block may opt into and as
+    many blocks share an SM as the kernel is compiled for (four float32
+    lm_states blocks, else two), with the planes where the kernel's checks
+    want them; the tiles are those lm_interface.cu compiles (LmTile)."""
+    import re
+
+    from pyro2_tpu_torch.util import cuda_build
+
+    text = (cuda_build.CSRC / "lm_interface.cu").read_text()
+    assert "tx = E == STATES ? 8 : 16;" in text
+    assert "ty = E == MAC ? 32 : 64;" in text
+    assert re.search(r"threads = 256;\s+static constexpr int blocks = E == "
+                     r"STATES && sizeof\(T\) == 4 \? 4 : 2;", text)
+    item = torch.empty((), dtype=dtype).element_size()
+    tiles = {"lm_mac": (16, 32), "lm_rho": (16, 64), "lm_states": (8, 64)}
+    for entry in lm_kernel.ENTRIES:
+        p = lm_kernel.plan(entry, 1024, 1024, NG, dtype)
+        assert (p.tx, p.ty) == lm_kernel.TILES[entry] == tiles[entry]
+        assert 0 < p.smem <= SMEM_LIMIT
+        assert p.blocks == (4 if (entry, dtype) == ("lm_states",
+                                                    torch.float32) else 2)
+        assert p.blocks * p.smem <= SMEM_SM
+        assert p.threads == lm_kernel.THREADS == 256
+        hi = 2 if entry == "lm_rho" else 1
+        assert p.sizes == {
+            "in": lm_kernel.PLANES[entry] * (p.tx + 2 + hi) * (p.ty + 2 + hi),
+            "fp": lm_kernel.FIRST[entry] * (p.tx + 2) * (p.ty + 2),
+            "fc": lm_kernel.FACES[entry] * (p.tx + 1) * (p.ty + 1)}
+        assert p.smem == item * sum(p.sizes.values())
+        assert _lm_plan_ok(item, entry, 1024, 1024, NG, p.ints())
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_lm_plan_passes_the_kernels_checks(dtype):
+    """The plan array each lm launch takes has the length lm_interface.cu
+    reads (LM_PLAN_INTS) and passes its lm_plan_ok for every entry on
+    ragged grids; another tile, a halo one cell short or long, a grid one
+    tile short, another block's threads or another layout of the shared
+    memory fail it."""
+    import re
+
+    from pyro2_tpu_torch.util import cuda_build
+
+    text = (cuda_build.CSRC / "lm_interface.cu").read_text()
+    n_ints = int(re.search(r"constexpr int LM_PLAN_INTS = (\d+);",
+                           text).group(1))
+    item = torch.empty((), dtype=dtype).element_size()
+    for nx, ny in _lm_grids(dtype):
+        for entry in lm_kernel.ENTRIES:
+            ints = lm_kernel.plan(entry, nx, ny, NG, dtype).ints()
+            assert len(ints) == n_ints
+            assert _lm_plan_ok(item, entry, nx, ny, NG, ints)
+            for k, d in ((0, -1), (1, 1), (3, -1), (4, -1), (3, 1), (4, 1),
+                         (9, -1), (10, -1), (2, 1), (6, 1), (7, -1),
+                         (8, -item)):
+                bad = list(ints)
+                bad[k] += d
+                assert not _lm_plan_ok(item, entry, nx, ny, NG, bad)
+    assert not _lm_plan_ok(item, "lm_mac", 8, 8, 2, lm_kernel.plan(
+        "lm_mac", 8, 8, 2, dtype).ints())
+
+
+@pytest.mark.parametrize("ng", [0, 1, 2])
+def test_lm_uncovered_frames_raise(ng):
+    """A frame with fewer ghosts than the input halo below the (lo-1,
+    hi+2) window needs raises, naming ROADMAP A.25; lm_atm's frame (4
+    ghosts) is covered in both dtypes."""
+    with pytest.raises(NotImplementedError, match="A.25"):
+        lm_kernel.covered(ng, torch.float32)
+    for dtype in DTYPES:
+        lm_kernel.covered(4, dtype)

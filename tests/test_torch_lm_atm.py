@@ -313,7 +313,8 @@ def test_work_counts_planes_and_operations():
     assert b == (5 * frame + inner) * 4
     b, ops = lm_kernel.work("lm_states", 1024, 1024, torch.float64)
     assert b == (11 * frame + 2 * inner) * 8
-    assert ops == 42 * 1027 * 1027 + 242 * inner
+    faces = 1025 * 1024 * 2          # the x and y faces, each once
+    assert ops == 42 * 1027 * 1027 + 56 * faces + 18 * inner
     with pytest.raises(ValueError):
         lm_kernel.work("lm_other", 8, 8, torch.float32)
 
@@ -407,7 +408,8 @@ def test_a_carried_mid_run_state_steps_as_jax_does(jax_run):
     base = {name: b.d.copy() for name, b in jsim.base.items()}
     sim = carry_simulation("lm_atm", "bubble", jsim.rp.params,
                            np.asarray(jsim.cc_data.data),
-                           t=jsim.cc_data.t, n=jsim.n, base=base)
+                           t=jsim.cc_data.t, n=jsim.n, base=base,
+                           device="cpu")
     for name in base:
         assert np.array_equal(sim.base[name].d, base[name])
     sim.dt_old = jsim.dt_old        # the time loop's history, not state
@@ -420,7 +422,7 @@ def test_a_carried_mid_run_state_steps_as_jax_does(jax_run):
     with pytest.raises(ValueError, match="base state"):
         carry_simulation("lm_atm", "bubble", jsim.rp.params,
                          np.asarray(jsim.cc_data.data),
-                         base={"rho0": np.zeros(5)})
+                         base={"rho0": np.zeros(5)}, device="cpu")
 
 
 def test_proj_type_1_matches_jax(jax_run):

@@ -128,7 +128,7 @@ def _jax_sim(solver, problem, inputs, extra_vars=None, seed=0):
 def _torch_sim(jsim, extra_vars=None):
     return carry_simulation(jsim.solver_name, jsim.problem_name,
                             jsim.rp.params, np.asarray(jsim.cc_data.data),
-                            extra_vars=extra_vars)
+                            extra_vars=extra_vars, device="cpu")
 
 
 def _ghost_mask(g):
@@ -348,7 +348,7 @@ def test_f32_plain_fv4_substep_matches_pallas_interpret():
         U0, 0.0, jnp.asarray(dt, jnp.float32)))
     tsim = carry_simulation("compressible_fv4", "acoustic_pulse",
                             jsim.rp.params, np.asarray(U0),
-                            dtype=torch.float32)
+                            device="cpu", dtype=torch.float32)
     U = tsim.cc_data.data
     assert U.dtype == torch.float32
     k_t = tsim._make_substep()(U, 0.0, dt)
@@ -369,7 +369,7 @@ def test_density_floor_sentinel_is_clamped(small_dens):
                      "compressible.small_dens": small_dens})
     tsim = carry_simulation("compressible_rk", "quad", jsim.rp.params,
                             np.asarray(jsim.cc_data.data),
-                            dtype=torch.float32)
+                            device="cpu", dtype=torch.float32)
     U = tsim.cc_data.data
     ints, doubles = tsim._step.kernel_args(U, 1e-3)
     f32_min = float(torch.finfo(torch.float32).min)

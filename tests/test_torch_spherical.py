@@ -213,7 +213,7 @@ def _torch_sim(jsim, dtype=torch.float64):
     from pyro2_tpu_torch.util.carry import carry
 
     rp, U = carry(jsim.rp.params, np.asarray(jsim.cc_data.data),
-                  dtype=dtype)
+                  device="cpu", dtype=dtype)
     sim = tcomp.Simulation("compressible", "advect", advect.init_data, rp,
                            device="cpu", dtype=dtype)
     sim.initialize()

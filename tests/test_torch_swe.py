@@ -339,7 +339,7 @@ def _carry(jsim, extra_vars=None):
     return carry_simulation("swe", jsim.problem_name, jsim.rp.params,
                             np.asarray(jsim.cc_data.data),
                             t=float(jsim.cc_data.t), n=jsim.n,
-                            extra_vars=extra_vars)
+                            extra_vars=extra_vars, device="cpu")
 
 
 @pytest.mark.parametrize("case", list(STEP_CASES))

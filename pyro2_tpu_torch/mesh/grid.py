@@ -72,16 +72,21 @@ class Grid2d:
         self.xr2d, self.yr2d = np.meshgrid(self.xr, self.yr, indexing="ij")
 
     # -- allocation ---------------------------------------------------------
-    def scratch_array(self, *, nvar=1, dtype=None, device="cpu"):
+    def scratch_array(self, *, nvar=1, dtype=None, device=None):
         """A zeroed tensor with this grid's padded shape.
 
         (qx, qy) for nvar == 1, else (nvar, qx, qy) -- variables major so
         each field is a contiguous plane with y the fastest-varying dim.
+        `device` defaults to CUDA and raises when there is none; `dtype`
+        defaults to the device's working dtype.
         """
         import torch
 
-        if dtype is None:
-            dtype = torch.float64
+        from pyro2_tpu_torch.defaults import dtype as working_dtype
+        from pyro2_tpu_torch.defaults import resolve_device
+
+        device = resolve_device(device)
+        dtype = working_dtype(device, dtype)
         shape = (self.qx, self.qy) if nvar == 1 else (nvar, self.qx, self.qy)
         return torch.zeros(shape, dtype=dtype, device=device)
 

@@ -11,6 +11,8 @@ copies the state, because the port writes state tensors in place.
 import torch
 
 import pyro2_tpu_torch.mesh.boundary as bnd
+from pyro2_tpu_torch.defaults import dtype as working_dtype
+from pyro2_tpu_torch.defaults import resolve_device
 from pyro2_tpu_torch.mesh.indexer import ai, fill_ghost
 
 __all__ = ["CellCenterData2d", "cell_center_data_clone", "restrict_array",
@@ -63,12 +65,14 @@ class CellCenterData2d:
     """Multi-variable cell-centered state on a ghost-cell grid.
 
     Register variables (each with its BC), set aux scalars, then `create()`
-    to allocate the (nvar, qx, qy) tensor."""
+    to allocate the (nvar, qx, qy) tensor.  `device` defaults to CUDA and
+    raises when there is none; `dtype` defaults to the device's working
+    dtype (see pyro2_tpu_torch.defaults)."""
 
-    def __init__(self, grid, *, dtype=torch.float64, device="cpu"):
+    def __init__(self, grid, *, dtype=None, device=None):
         self.grid = grid
-        self.dtype = dtype
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
+        self.dtype = working_dtype(self.device, dtype)
         self.data = None
 
         self.names = []

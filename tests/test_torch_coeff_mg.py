@@ -111,7 +111,8 @@ def _general_pair(n, edges="dirichlet", ng_coeff=1):
             "gamma_x": 1.0 + 0.2 * np.sin(2 * np.pi * tg.y2d),
             "gamma_y": np.ones((tg.qx, tg.qy))}
     jbc, tbc = _bc_pair(("neumann",) * 4)
-    jd, td = jpatch.CellCenterData2d(jg), patch.CellCenterData2d(tg)
+    jd = jpatch.CellCenterData2d(jg)
+    td = patch.CellCenterData2d(tg, device="cpu")
     for name in vals:
         jd.register_var(name, jbc)
         td.register_var(name, tbc)
@@ -409,7 +410,7 @@ def test_flavour_dispatch_and_what_raises():
         mg_kernel.check(sub)
     # inhomogeneous BC values run on the plain path only
     g = Grid2d(16, 16, ng=1)
-    d = patch.CellCenterData2d(g)
+    d = patch.CellCenterData2d(g, device="cpu")
     for name in ("alpha", "beta", "gamma_x", "gamma_y"):
         d.register_var(name, bnd.BC(xlb="neumann", xrb="neumann",
                                     ylb="neumann", yrb="neumann"))

@@ -215,7 +215,7 @@ def test_flux_cons_matches_jax(idir):
 def _containers(nx, ny, U):
     jg, tg = _grids(nx, ny)
     jd = jpatch.CellCenterData2d(jg)
-    td = tpatch.CellCenterData2d(tg)
+    td = tpatch.CellCenterData2d(tg, device="cpu")
     for name in ("a", "b"):
         jd.register_var(name, JBC(xlb="periodic", xrb="periodic",
                                   ylb="periodic", yrb="periodic"))

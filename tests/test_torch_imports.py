@@ -187,6 +187,34 @@ def test_carry_runs_on_the_card_unless_asked_for_the_cpu(monkeypatch,
     assert torch.equal(sim.cc_data.data, p.sim.cc_data.data)
 
 
+def test_state_containers_run_on_the_card_unless_asked_for_the_cpu(
+        monkeypatch):
+    # CellCenterData2d and Grid2d.scratch_array resolve their device as
+    # every entry point does: CUDA by default, raising without a GPU; on
+    # the CPU, float64
+    from pyro2_tpu_torch import CellCenterData2d, Grid2d
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    g = Grid2d(8, 8, ng=2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        CellCenterData2d(g)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        g.scratch_array()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        g.scratch_array(nvar=3, dtype=torch.float32)
+    d = CellCenterData2d(g, device="cpu")
+    assert d.device.type == "cpu" and d.dtype == torch.float64
+    d.register_var("a", None)
+    d.create()
+    assert d.data.dtype == torch.float64 and d.data.device.type == "cpu"
+    a = g.scratch_array(device="cpu")
+    assert a.shape == (12, 12) and a.dtype == torch.float64
+    b = g.scratch_array(nvar=3, dtype=torch.float32, device="cpu")
+    assert b.shape == (3, 12, 12) and b.dtype == torch.float32
+    assert CellCenterData2d(g, dtype=torch.float32,
+                            device="cpu").dtype == torch.float32
+
+
 def test_build_directory_stays_git_ignored():
     # the libraries nvcc builds at first use are never committed
     from pyro2_tpu_torch.util import cuda_build

@@ -113,7 +113,7 @@ def test_prolong_matches_jax():
 def test_clone_copies_the_state():
     import pyro2_tpu_torch.mesh.boundary as bnd
 
-    d = patch.CellCenterData2d(Grid2d(8, 8, ng=2))
+    d = patch.CellCenterData2d(Grid2d(8, 8, ng=2), device="cpu")
     d.register_var("a", bnd.BC(xlb="periodic", xrb="periodic",
                                ylb="periodic", yrb="periodic"))
     d.create()

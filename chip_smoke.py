@@ -49,8 +49,12 @@ Phases (any failure exits non-zero and prints no result line):
      float64, the finer levels peeled), in float64 (<= 1e-12 max|v|) and
      float32 (<= 1e-5 max|v|; a residual to the same factors of the terms
      it cancels), with equal float64 cycle counts: the constant operator
-     (mg_core, mg_down, mg_up) as diffusion's Neumann Helmholtz and the
-     projections' periodic Poisson; the coefficient operators as
+     (mg_core, mg_down, mg_up) as diffusion's Neumann Helmholtz, the
+     projections' periodic Poisson, the cavity's Crank-Nicolson Helmholtz
+     on Dirichlet walls under the moving lid (the kernels' ZERO edge, every
+     top ghost of every frame +0.0 bit for bit, as the plain fill writes
+     it) and burgers_viscous tophat's on periodic edges; the coefficient
+     operators as
      VarCoeffCCMG2d (the _vc entries) with lm_atm's edges (periodic x,
      Neumann bottom, Dirichlet top) and on Neumann walls, and GeneralMG2d
      (the _general entries, alpha 10, beta xy + 1, gamma (1, 1)) with
@@ -114,6 +118,16 @@ Phases (any failure exits non-zero and prints no result line):
      mg_down / mg_up, phi against the serial diffusion run of phase 5;
      and at 256^2 in float64 against the serial diffusion: the same cycles
      in every solve and phi to 1e-12;
+  5d. the multigrid's last consumers through Pyro -> run_sim, CUDA float32,
+     the counts reset just before and read just after each: burgers tophat
+     1024^2 for 100 steps (no kernel launched: Burgers has no TPU kernel),
+     burgers_viscous tophat 1024^2 for 10 steps (2 solves a step) and
+     incompressible_viscous cavity 1024^2 for 10 steps (4 solves a step),
+     per cycle one mg_core and one mg_down plus one mg_up per peeled level
+     and no other launch; then the cavity at 128^2 in float64 for 5 steps
+     on the card against the port's own CPU run of the same inputs: equal
+     cycle counts in every solve, u and v within 1e-10 max|U| after each
+     step;
   6. CUDA-event timing of each kernel and its plain version at the main
      paths' shapes (quad 1024^2; the 1024^2 solves' levels, constant, vc
      and general; the rk quad and fv4 acoustic_pulse 1024^2 increments;
@@ -127,7 +141,8 @@ Phases (any failure exits non-zero and prints no result line):
      1024^2; the CTU step's, the rk and fv4 stages' and the swe step's
      peak device memory at quad, quad, acoustic_pulse and quad 1024^2,
      and the bytes each lm_atm stage allocates on the bubble (its outputs
-     alone);
+     alone); the constant kernels on the cavity's operator with its ZERO
+     edge beside the same operator on Neumann walls;
      the core's schedule at the 1024^2
      cycles' 128^2 top with its barriers counted by kind, and its time on
      the coarse problems one ShardedDiffusion step hands it against random
@@ -141,16 +156,18 @@ Phases (any failure exits non-zero and prints no result line):
      launches of a cycle (one
      a peeled level) and of a call split into rounds (one a round), the
      device time of k_down and k_up a call at every peeled level of the
-     three operators' 1024^2 cycles, and mg_down with tiles of other
+     three operators' 1024^2 cycles (and of the cavity's, beside Neumann
+     walls'), and mg_down with tiles of other
      sizes; then torch.profiler breakdowns of 20 quad steps, 20
      ctu_periodic advect
      steps (fill + step), 5 diffusion steps, 5 shear steps, 5 rk quad
      steps, 5 fv4 and 3
      sdc acoustic_pulse steps, 5 swe quad steps, 5 lm_atm bubble steps, 2
-     GeneralMG2d solves, 20 spherical advect steps and 5 sharded diffusion
-     steps: device time by kernel and the device's busy share of the wall
-     time. Each profiler session idles 20 ms on each side of its calls and
-     is made up to three times; if none records a device kernel, the
+     GeneralMG2d solves, 20 spherical advect steps, 5 sharded diffusion
+     steps, 20 burgers, 5 burgers_viscous and 5 cavity steps: device time
+     by kernel and the device's busy share of the wall time. Each profiler
+     session idles 20 ms on each side of its calls and is made up to
+     three times; if none records a device kernel, the
      wrappers' counts count the launches, CUDA events time them, and the
      log says so.
 
@@ -254,13 +271,26 @@ MOL_KERNELS = ("mol_rk", "mol_fv4")
 # the vc operator with lm_atm's phi edges and a stratified coefficient
 # with a bump (as beta0^2 / rho), and on Neumann walls; the general
 # operator of tests/test_multigrid.py's TestGeneralMG with homogeneous
-# Dirichlet edges
+# Dirichlet edges; then the Crank-Nicolson Helmholtz operators of the
+# viscous solvers: incompressible_viscous's cavity (alpha 1, beta = dt nu /
+# 2 with nu = 0.0025 from inputs.cavity and dt = 0.8 dx, the CFL dt of a
+# unit lid at 1024^2) on Dirichlet walls under the moving lid, whose ghosts
+# are +0.0 at multigrid level (mg_kernel.ZERO), and burgers_viscous
+# tophat's (beta = dt eps / 2, eps = 0.005, dt = 0.8 dx) on periodic edges
 LM_EDGES = ("periodic", "periodic", "neumann", "dirichlet")
+CAVITY_EDGES = ("dirichlet", "dirichlet", "dirichlet", "moving_lid")
+CAVITY_BETA = 0.5 * (0.8 / 1024) * 0.0025
+BURGERS_BETA = 0.5 * (0.8 / 1024) * 0.005
 MG_CASES = (("neumann_helmholtz", "const", ("neumann",) * 4, False),
             ("periodic_poisson", "const", ("periodic",) * 4, True),
             ("vc_lm_edges", "vc", LM_EDGES, False),
             ("vc_neumann", "vc", ("neumann",) * 4, True),
-            ("general_dirichlet", "general", ("dirichlet",) * 4, False))
+            ("general_dirichlet", "general", ("dirichlet",) * 4, False),
+            ("cavity_cn", "const", CAVITY_EDGES, False),
+            ("periodic_helmholtz", "const", ("periodic",) * 4, False))
+# the cases before these two are the parent's: their worst errors are
+# logged apart, to be held against its runs
+NEW_MG_CASES = ("cavity_cn", "periodic_helmholtz")
 
 MG_KERNELS = ("mg_core", "mg_down", "mg_up")
 VC_KERNELS = ("mg_core_vc", "mg_down_vc", "mg_up_vc")
@@ -755,10 +785,21 @@ def make_case_mg(n, name, op, edges, dtype):
     from pyro2_tpu_torch.multigrid.general_MG import GeneralMG2d
     from pyro2_tpu_torch.multigrid.variable_coeff_MG import VarCoeffCCMG2d
 
+    if name == "cavity_cn":
+        from pyro2_tpu_torch.multigrid.MG import CellCenterMG2d
+        from pyro2_tpu_torch.solvers.incompressible_viscous import BC
+
+        # as the solver registers it (incompressible_viscous.simulation)
+        bnd.define_bc("moving_lid", BC.user, is_solid=False)
+        return CellCenterMG2d(n, n, xl_BC_type=edges[0],
+                              xr_BC_type=edges[1], yl_BC_type=edges[2],
+                              yr_BC_type=edges[3], alpha=1.0,
+                              beta=CAVITY_BETA, device="cuda", dtype=dtype)
     if op == "const":
-        return make_mg(n, edges[0], *{"neumann_helmholtz": (1.0, None),
-                                      "periodic_poisson": (0.0, -1.0)}[name],
-                       dtype)
+        return make_mg(n, edges[0], *{
+            "neumann_helmholtz": (1.0, None),
+            "periodic_poisson": (0.0, -1.0),
+            "periodic_helmholtz": (1.0, BURGERS_BETA)}[name], dtype)
     kw = dict(xl_BC_type=edges[0], xr_BC_type=edges[1],
               yl_BC_type=edges[2], yr_BC_type=edges[3], device="cuda",
               dtype=dtype)
@@ -828,6 +869,27 @@ def resid_scale(mg, level, v, f):
     return fmax + (alpha + 8.0 * max(bx, by) + 2.0 * (gx + gy)) * vmax
 
 
+def zero_top_ghosts(mg, what, *frames):
+    """For a case whose top edge is ZERO (the moving lid): every cell of
+    each frame's top ghost row, corners included, must be +0.0 bit for bit,
+    as the plain fill writes it (a ghost written as 0 times a negative
+    value would be -0.0, equal in value but not in bits).  Returns the
+    frames checked (0 for other cases)."""
+    import torch
+
+    from pyro2_tpu_torch.multigrid import mg_kernel
+
+    if mg_kernel.edge_kinds(mg.bc_v[-1])[3] != mg_kernel.ZERO:
+        return 0
+    for a in frames:
+        ints = torch.int32 if a.dtype == torch.float32 else torch.int64
+        bits = a[:, -1].contiguous().view(ints)
+        if bool((bits != 0).any()):
+            raise AssertionError(f"{what}: a top ghost is not +0.0 by bits "
+                                 f"({int((bits != 0).sum())} cells)")
+    return len(frames)
+
+
 def mg_compare(n, case, dtype, tol, errs):
     """Each multigrid kernel of one of MG_CASES, one whole cycle and one
     whole solve against their plain versions from the same inputs; records
@@ -844,10 +906,13 @@ def mg_compare(n, case, dtype, tol, errs):
     top, peeled = mg_kernel.split(mg, dtype)
     fine = mg.nlevels - 1
     rows = []
+    ghosts = [0]
 
     def check(what, kernel, ref, got, scale=None):
         """|diff| <= tol max|ref|, or tol times the size of the terms a
-        residual cancels (scale) for a residual."""
+        residual cancels (scale) for a residual; the top ghosts of a ZERO
+        edge +0.0 by bits in both."""
+        ghosts[0] += zero_top_ghosts(mg, f"{what} {n}^2 {name}", ref, got)
         err = float((ref - got).abs().max())
         if scale is None:
             scale = float(ref.abs().max())
@@ -914,14 +979,18 @@ def mg_compare(n, case, dtype, tol, errs):
     if dtype == torch.float64 and got.num_cycles != ref.num_cycles:
         raise AssertionError(f"solve: {got.num_cycles} kernel cycles, "
                              f"{ref.num_cycles} plain")
+    ghosts[0] += zero_top_ghosts(mg, f"solve {n}^2 {name}",
+                                 ref.get_solution(), got.get_solution())
     torch.cuda.synchronize()
     worst = max(rows, key=lambda r: r[1] / r[2])
+    zero = (f"; top ghosts +0.0 by bits in {ghosts[0]} frames"
+            if ghosts[0] else "")
     log(f"  ok  {n:5d}^2 {name:17s} {str(dtype)[6:]:8s} core top "
         f"{2 ** (top + 1)}^2, {len(peeled)} peeled; {len(rows)} checks, "
         f"worst {worst[0]}: {worst[1]:.3e} (tol {tol:g} x "
         f"{worst[2]:.3g}); solve cycles kernel "
         f"{got.num_cycles} plain {ref.num_cycles}, residual "
-        f"{got.residual_error:.3e} / {ref.residual_error:.3e}")
+        f"{got.residual_error:.3e} / {ref.residual_error:.3e}{zero}")
 
 
 def core_tops_compare(case, dtype, tol):
@@ -937,7 +1006,7 @@ def core_tops_compare(case, dtype, tol):
     name, op, edges, _ = case
     mg = make_case_mg(mg_kernel.CORE_MAX[dtype], name, op, edges, dtype)
     rng = np.random.default_rng(11)
-    worst, checks = (0.0, 1.0, ""), 0
+    worst, checks, ghosts = (0.0, 1.0, ""), 0, 0
     for top in range(mg.nlevels):
         g = mg.grids[top]
         for guess in (True, False):
@@ -945,6 +1014,8 @@ def core_tops_compare(case, dtype, tol):
             f = frame(rng, g, dtype)
             ref = mg_kernel.core_plain(mg, top, v, f, True)
             got = mg_kernel.launch_core(mg, top, v, f, True)
+            ghosts += zero_top_ghosts(mg, f"mg_core {name} {g.nx}^2 top",
+                                      ref[0], got[0], ref[1], got[1])
             for what, a, b, scale in (
                     ("v", ref[0], got[0], float(ref[0].abs().max())),
                     ("r", ref[1], got[1], resid_scale(mg, top, ref[0], f))):
@@ -957,11 +1028,12 @@ def core_tops_compare(case, dtype, tol):
                 if err / scale > worst[0] / worst[1]:
                     worst = (err, scale, f"{what} {g.nx}^2")
     torch.cuda.synchronize()
+    zero = f"; top ghosts +0.0 by bits in {ghosts} frames" if ghosts else ""
     log(f"  ok  mg_core{mg_kernel.FLAVOURS[op][0]:8s} {name:17s} "
         f"{str(dtype)[6:]:8s} tops 2^2..{mg_kernel.CORE_MAX[dtype]}^2 "
         f"(warps per level {mg_kernel.core_schedule(mg.nlevels - 1)}): "
         f"{checks} checks, worst {worst[2]}: {worst[0]:.3e} (tol {tol:g} x "
-        f"{worst[1]:.3g})")
+        f"{worst[1]:.3g}){zero}")
 
 
 def rounds_compare(kernel, case, dtype, tol, nsmooth):
@@ -982,7 +1054,7 @@ def rounds_compare(kernel, case, dtype, tol, nsmooth):
     mg.nsmooth = nsmooth
     rng = np.random.default_rng(13)
     fine = mg.nlevels - 1
-    rows = []
+    rows, ghosts = [], 0
     for lv in mg_kernel.split(mg, dtype)[1]:
         g, gc = mg.grids[lv], mg.grids[lv - 1]
         v, f = frame(rng, g, dtype, 0.1), frame(rng, g, dtype)
@@ -993,12 +1065,16 @@ def rounds_compare(kernel, case, dtype, tol, nsmooth):
             got = mg_kernel.launch_down(mg, lv, guess, f)
             checks = [("v", ref[0], got[0], float(ref[0].abs().max())),
                       ("fc", ref[1], got[1], resid_scale(mg, lv, ref[0], f))]
+            ghosts += zero_top_ghosts(mg, f"{kernel} {name} {g.nx}^2",
+                                      ref[0], got[0], ref[1], got[1])
         else:
             vc = frame(rng, gc, dtype, 0.1)
             want_r = lv == fine
             ref = mg_kernel.up_plain(mg, lv, v, f, vc, want_r)
             got = mg_kernel.launch_up(mg, lv, v, f, vc, want_r)
             checks = [("v", ref[0], got[0], float(ref[0].abs().max()))]
+            ghosts += zero_top_ghosts(mg, f"{kernel} {name} {g.nx}^2",
+                                      ref[0], got[0])
             if want_r:
                 checks.append(("r", ref[1], got[1],
                                resid_scale(mg, lv, ref[0], f)))
@@ -1014,6 +1090,8 @@ def rounds_compare(kernel, case, dtype, tol, nsmooth):
         if lv == fine and plan.rounds < 2:
             raise AssertionError(f"nsmooth {nsmooth} took one round")
     torch.cuda.synchronize()
+    if ghosts:
+        rows.append(f"top ghosts +0.0 by bits in {ghosts} frames")
     log(f"  ok  {kernel}{mg_kernel.FLAVOURS[op][0]:8s} {name:17s} "
         f"{str(dtype)[6:]:8s} nsmooth {nsmooth}: " + "; ".join(rows))
 
@@ -1036,10 +1114,10 @@ def mol_peak_memory(step, U, t, dt):
     return peak
 
 
-def mg_main_path(solver, problem, n, steps):
+def mg_main_path(solver, problem, n, steps, solves_per_step=None):
     """Pyro(solver) -> run_sim on CUDA float32 with the counts reset just
-    before and read just after; returns (pyro, launches by kernel,
-    seconds)."""
+    before and read just after (and, if given, the multigrid solves a step
+    checked); returns (pyro, launches by kernel, seconds)."""
     import torch
 
     from pyro2_tpu_torch import Pyro
@@ -1075,6 +1153,9 @@ def mg_main_path(solver, problem, n, steps):
         raise AssertionError(
             f"{solver}: {sim.n} steps, launches {launches} (CTU {ctu}) for "
             f"{cycles} cycles, expected {expect}")
+    if solves_per_step and stats["solves"] != solves_per_step * steps:
+        raise AssertionError(f"{solver}: {stats['solves']} solves in {steps} "
+                             f"steps, expected {solves_per_step} a step")
     data = sim.cc_data.data
     if not bool(torch.isfinite(data).all()):
         raise AssertionError(f"{solver}: the state is not finite")
@@ -1085,6 +1166,118 @@ def mg_main_path(solver, problem, n, steps):
         f"({cycles / stats['solves']:.2f} per solve); launches {launches}; "
         f"t = {sim.cc_data.t:.6g}, max|state| {float(data.abs().max()):.6g}")
     return p, launches, seconds
+
+
+def burgers_path(n, steps):
+    """Pyro("burgers") tophat -> run_sim on CUDA float32, the counts reset
+    just before and read just after: Burgers has no TPU kernel, so its
+    plain tensor step runs on the card and no kernel of the port is
+    launched; returns the pyro."""
+    import torch
+
+    from pyro2_tpu_torch import Pyro
+
+    p = Pyro("burgers")                 # default device: CUDA, float32
+    p.initialize_problem("tophat", inputs_dict={
+        "mesh.nx": n, "mesh.ny": n, "driver.max_steps": steps,
+        "driver.tmax": 1.0e30})
+    sim = p.sim
+    assert sim.cc_data.data.is_cuda
+    assert sim.cc_data.data.dtype == torch.float32
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    p.run_sim()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    ctu, launches, stats = read_counts()
+    no_mol_launches("burgers")
+    no_swe_launches("burgers")
+    no_lm_launches("burgers")
+    no_padded_launches("burgers")
+    no_sharded_launches("burgers")
+    if sim.n != steps or ctu or any(launches.values()) or stats["solves"]:
+        raise AssertionError(f"burgers: {sim.n} steps, CTU {ctu}, "
+                             f"multigrid {launches}, {stats}")
+    data = sim.cc_data.data
+    if not bool(torch.isfinite(data).all()):
+        raise AssertionError("burgers: the state is not finite")
+    log(f"  burgers tophat {n}x{n} f32: {steps} steps in {seconds:.3f} s, "
+        f"{1e3 * seconds / steps:.3f} ms/step, "
+        f"{n * n * steps / seconds:.4e} zone-updates/s; no kernel launched; "
+        f"t = {sim.cc_data.t:.6g}, max|state| {float(data.abs().max()):.6g}")
+    return p
+
+
+def record_cycles():
+    """(list, undo): from now on each CellCenterMG2d solve appends its
+    cycle count to the list, until undo() is called."""
+    from pyro2_tpu_torch.multigrid import MG
+
+    counts = []
+    orig = MG.CellCenterMG2d.solve
+
+    def solve(self, rtol=1.e-11):
+        orig(self, rtol)
+        counts.append(self.num_cycles)
+
+    MG.CellCenterMG2d.solve = solve
+
+    def undo():
+        MG.CellCenterMG2d.solve = orig
+
+    return counts, undo
+
+
+def cavity_card_vs_cpu(n, steps, tol):
+    """incompressible_viscous cavity n^2, float64, `steps` steps through
+    Pyro on the card (the kernels' ZERO edge in every C-N solve) and on
+    the CPU (the plain cycle and MG._fill_v): equal cycle counts in every
+    solve, and after each step u and v within tol max|U| of the CPU run's;
+    returns the largest |diff| / max|U| over the steps."""
+    import torch
+
+    from pyro2_tpu_torch import Pyro
+    from pyro2_tpu_torch.multigrid import mg_kernel
+
+    runs = {}
+    for device in ("cpu", "cuda"):
+        p = Pyro("incompressible_viscous", device=device,
+                 dtype=torch.float64)
+        counts, undo = record_cycles()
+        try:
+            p.initialize_problem("cavity", inputs_dict={
+                "mesh.nx": n, "mesh.ny": n, "driver.max_steps": steps,
+                "driver.tmax": 1.0e30})
+            before = dict(mg_kernel.launches)
+            states = []
+            for _ in range(steps):
+                p.single_step()
+                states.append(p.sim.cc_data.data[:2].cpu().clone())
+        finally:
+            undo()
+        launched = {k: mg_kernel.launches[k] - before[k] for k in MG_KERNELS}
+        runs[device] = (counts, states, launched)
+    (c_cpu, s_cpu, l_cpu), (c_gpu, s_gpu, l_gpu) = runs["cpu"], runs["cuda"]
+    if c_cpu != c_gpu:
+        raise AssertionError(f"cavity {n}^2 f64: cycles per solve on the "
+                             f"card {c_gpu}, on the CPU {c_cpu}")
+    if any(l_cpu.values()) or not all(l_gpu.values()):
+        raise AssertionError(f"cavity {n}^2 f64: launches card {l_gpu}, "
+                             f"CPU {l_cpu}")
+    worst = 0.0
+    for k, (a, b) in enumerate(zip(s_cpu, s_gpu)):
+        scale = float(a.abs().max())
+        err = float((a - b).abs().max())
+        worst = max(worst, err / scale)
+        if not bool(torch.isfinite(b).all()) or err > tol * scale:
+            raise AssertionError(f"cavity {n}^2 f64 step {k + 1}: u, v "
+                                 f"max|diff| {err:.3e} > {tol:g} x "
+                                 f"{scale:.3g}")
+    log(f"  ok  cavity {n}^2 f64, {steps} steps, card against CPU: cycles "
+        f"per solve {c_gpu} (equal); u, v worst max|diff| / max|U| "
+        f"{worst:.3e} (tol {tol:g}); card launches {l_gpu}")
+    return worst
 
 
 def time_pair(name, kern, plain, work, bw, fp32):
@@ -2507,14 +2700,20 @@ def main():
 
     # 4. the multigrid kernels vs their plain versions on the card
     log("[multigrid kernels vs plain versions on the card]")
-    mg_err = {}
+    mg_err, mg_err_new = {}, {}
     for dtype, tol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
         for n in (64, 1024):
             for case in MG_CASES:
+                errs = mg_err_new if case[0] in NEW_MG_CASES else mg_err
                 mg_compare(n, case, dtype, tol,
-                           mg_err if (n, dtype) == (1024, torch.float32)
+                           errs if (n, dtype) == (1024, torch.float32)
                            else {})
         torch.cuda.empty_cache()
+    log(f"  1024^2 float32 worst |diff| of the parent's cases "
+        f"{ {k: mg_err[k] for k in MG_KERNELS} }, of "
+        f"{', '.join(NEW_MG_CASES)} {mg_err_new}")
+    for k, err in mg_err_new.items():
+        mg_err[k] = max(mg_err[k], err)
 
     log("[mg_core at every top it holds, each operator, vs core_plain]")
     for dtype, tol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
@@ -2595,6 +2794,20 @@ def main():
         f"{100 * sh_seconds:.3f} ms/step")
     sharded_phi_check(sharded, diff, 1e-5)
     sharded_vs_serial(256, 5, torch.float64, 1e-12)
+    log(f"[the multigrid's last consumers: burgers, burgers_viscous, "
+        f"incompressible_viscous cavity, CUDA float32; {smi}]")
+    burgers = burgers_path(1024, 100)
+    bv, bv_launches, _ = mg_main_path("burgers_viscous", "tophat", 1024, 10,
+                                      solves_per_step=2)
+    cavity, cavity_launches, _ = mg_main_path(
+        "incompressible_viscous", "cavity", 1024, 10, solves_per_step=4)
+    total = {k: mg_launches[k] + bv_launches[k] + cavity_launches[k]
+             for k in MG_KERNELS}
+    log(f"  multigrid launches of diffusion + shear {mg_launches}; with "
+        f"burgers_viscous and the cavity {total}")
+    mg_launches = total
+    log("[the cavity 128^2 float64 on the card against the CPU]")
+    cavity_card_vs_cpu(128, 5, 1e-10)
 
     # 6. timing at the main paths' shapes
     log("[timing: quad 1024^2 float32, CUDA events]")
@@ -2636,6 +2849,15 @@ def main():
             mg_times.update(mg_timing(make_case_mg(1024, *case[:3],
                                                    torch.float32),
                                       case[0], bw, fp32))
+    log(f"[timing: the cavity's ZERO edge beside Neumann walls, the same "
+        f"Crank-Nicolson operator, 1024^2 float32, CUDA events; {smi}]")
+    lid = {label: mg_timing(make_case_mg(1024, "cavity_cn", "const", edges,
+                                         torch.float32), label, bw, fp32)
+           for label, edges in (("cavity", CAVITY_EDGES),
+                                ("Neumann walls", ("neumann",) * 4))}
+    log("  " + "; ".join(f"{k}: cavity {lid['cavity'][k][0]:.4f} ms, "
+                         f"Neumann walls {lid['Neumann walls'][k][0]:.4f} ms"
+                         for k in MG_KERNELS))
     log(f"[mg_up and mg_down at every peeled level, float32, CUDA events; "
         f"{smi}]")
     for key in sorted(k for k in mg_times if isinstance(k, tuple)):
@@ -2743,6 +2965,10 @@ def main():
         if case[0] in ("vc_lm_edges", "general_dirichlet"):
             mg_level_kernels(make_case_mg(1024, *case[:3], torch.float32),
                              case[0])
+    for label, edges in (("cavity_cn", CAVITY_EDGES),
+                         ("cavity_cn on Neumann walls", ("neumann",) * 4)):
+        mg_level_kernels(make_case_mg(1024, "cavity_cn", "const", edges,
+                                      torch.float32), label)
     for case in MG_CASES:
         if case[0] in ("neumann_helmholtz", "vc_lm_edges",
                        "general_dirichlet"):
@@ -2773,6 +2999,11 @@ def main():
     profile_steps(sph.single_step, 20, "spherical advect 1024^2 float32")
     profile_steps(sharded.evolve, 5,
                   "ShardedDiffusion gaussian 1024^2 float32, 1x1 mesh")
+    profile_steps(burgers.single_step, 20, "burgers tophat 1024^2 float32")
+    profile_steps(bv.single_step, 5,
+                  "burgers_viscous tophat 1024^2 float32")
+    profile_steps(cavity.single_step, 5,
+                  "incompressible_viscous cavity 1024^2 float32")
 
     kernels = [{
         "name": "ctu_step",

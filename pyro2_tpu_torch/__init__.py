@@ -13,12 +13,15 @@ device="cpu":
     p.run_sim()
     dens = p.get_var("density")
 
-Ported so far: the compressible CTU solver (Cartesian geometry), the
-constant-coefficient multigrid with diffusion and incompressible, the
-method-of-lines tier (compressible_rk, compressible_fv4, compressible_sdc),
-the shallow-water solver (swe), and the coefficient multigrid with the
-low-Mach atmosphere solver (lm_atm), with the layers under them;
-ROADMAP.md lists what waits.
+Ported so far: the compressible CTU solver (Cartesian and spherical
+geometry), the constant-coefficient multigrid with its consumers
+(diffusion, incompressible, burgers, burgers_viscous and
+incompressible_viscous), the method-of-lines tier (compressible_rk,
+compressible_fv4, compressible_sdc), the shallow-water solver (swe), and
+the coefficient multigrid with the low-Mach atmosphere solver (lm_atm),
+with the layers under them; ROADMAP.md lists what waits.  A state
+container built by hand (CellCenterData2d, Grid2d.scratch_array) also
+lands on CUDA unless given device="cpu".
 """
 
 from pyro2_tpu_torch.mesh.boundary import BC, bc_is_solid, define_bc

@@ -43,6 +43,10 @@
 // Ghost fills.  A homogeneous fill sets every ghost cell to +-1 times one
 // interior cell: x-lo, x-hi, y-lo, y-hi in that order, so a corner is the
 // y-edge rule applied to the x-filled row, i.e. sx * sy * v[src_x, src_y].
+// A ZERO edge (the cavity's moving lid, whose fill at multigrid level
+// writes 0.0) has the sign 0, and the constant operator's kernels write
+// its ghosts, corners included, as +0, as the plain fill leaves them
+// (`mirror`); the coefficient operators take no ZERO edge.
 // Periodic in a one-ghost frame reads ghost_lo <- a[q-2], ghost_hi <- a[1].
 // Since a ghost depends on exactly one interior cell, the thread that
 // writes an interior cell also writes the ghosts that mirror it (`put`).
@@ -129,8 +133,11 @@ constexpr int MAXLEV = 16;        // levels of the core: 2^1 .. 2^16 per side
 constexpr int CORE_THREADS = 1024;
 constexpr int CORE_CTAS = 8;      // the cluster of a core with spread levels
 
-// ghost-fill kind of an edge
-enum { COPY = 0, NEGATE = 1, PERIODIC = 2 };
+// ghost-fill kind of an edge (mg_kernel.BC_KIND and mg_kernel.ZERO): a
+// ghost is the interior cell it mirrors (COPY), its negative (NEGATE), the
+// cell across the level (PERIODIC), or +0 (ZERO: the lid-driven cavity's
+// moving lid at multigrid level)
+enum { COPY = 0, NEGATE = 1, PERIODIC = 2, ZERO = 3 };
 
 // one level: its size, stencil coefficients and ghost sources
 template <typename T>
@@ -140,9 +147,15 @@ struct Lev {
   T xc, yc, den;             // CONST: beta/dx^2, beta/dy^2, alpha+2xc+2yc
   T dx2, dy2;                // CONST: dx^2, dy^2 of the residual's Laplacian
   int sxl, sxh, syl, syh;    // interior row / column each ghost edge mirrors
-  T gxl, gxh, gyl, gyh;      // and its sign
+  T gxl, gxh, gyl, gyh;      // and its sign (0 on a ZERO edge)
   const T* c;                // VC / GENERAL: the (ncoef, q, q) plane stack
 };
+
+// the sign of an edge's ghosts: -1 NEGATE, 0 ZERO, else 1
+template <typename T>
+T sign_of(int kind) {
+  return kind == NEGATE ? T(-1) : kind == ZERO ? T(0) : T(1);
+}
 
 // coef holds xc, yc, den, dx2, dy2; bc the kinds of x-lo, x-hi, y-lo, y-hi;
 // planes the level's coefficient stack (nullptr for OP_CONST)
@@ -163,29 +176,48 @@ Lev<T> make_level(int n, const double* coef, const int* bc,
   L.sxh = bc[1] == PERIODIC ? 1 : L.q - 2;
   L.syl = bc[2] == PERIODIC ? L.q - 2 : 1;
   L.syh = bc[3] == PERIODIC ? 1 : L.q - 2;
-  L.gxl = bc[0] == NEGATE ? T(-1) : T(1);
-  L.gxh = bc[1] == NEGATE ? T(-1) : T(1);
-  L.gyl = bc[2] == NEGATE ? T(-1) : T(1);
-  L.gyh = bc[3] == NEGATE ? T(-1) : T(1);
+  L.gxl = sign_of<T>(bc[0]);
+  L.gxh = sign_of<T>(bc[1]);
+  L.gyl = sign_of<T>(bc[2]);
+  L.gyh = sign_of<T>(bc[3]);
   return L;
 }
 
+// the ghost that mirrors a cell of value val across an edge of sign g, as
+// the kernels write it: g * val, and for the constant operator +0 on a
+// ZERO edge (g = 0), where the product would be -0 for a negative val.
+// The coefficient operators take no ZERO edge (mg_kernel.check), and
+// their ghosts stay the bare product: the select changed the register
+// allocation of k_up<general> and cost it 14% on the H100.  A sweep reads
+// a neighbour across an edge as the product alone: a -0 there can only
+// flip the sign of an exactly-zero update, and a select on every cell's
+// read cost the sweeps 5-20%
+template <int OP, typename T>
+__device__ __forceinline__ T mirror(T g, T val) {
+  if constexpr (OP == OP_CONST) {
+    return g == T(0) ? T(0) : g * val;
+  } else {
+    return g * val;
+  }
+}
+
 // write interior cell (i, j) and every ghost cell that mirrors it
-template <typename T>
+template <int OP, typename T>
 __device__ __forceinline__ void put(T* v, const Lev<T>& L, int i, int j,
                                     T val) {
   const int q = L.q;
   v[i * q + j] = val;
   const bool xl = i == L.sxl, xh = i == L.sxh;
   const bool yl = j == L.syl, yh = j == L.syh;
-  if (xl) v[j] = L.gxl * val;
-  if (xh) v[(q - 1) * q + j] = L.gxh * val;
-  if (yl) v[i * q] = L.gyl * val;
-  if (yh) v[i * q + q - 1] = L.gyh * val;
-  if (xl && yl) v[0] = L.gyl * (L.gxl * val);
-  if (xl && yh) v[q - 1] = L.gyh * (L.gxl * val);
-  if (xh && yl) v[(q - 1) * q] = L.gyl * (L.gxh * val);
-  if (xh && yh) v[(q - 1) * q + q - 1] = L.gyh * (L.gxh * val);
+  auto gh = [](T g, T x) { return mirror<OP>(g, x); };
+  if (xl) v[j] = gh(L.gxl, val);
+  if (xh) v[(q - 1) * q + j] = gh(L.gxh, val);
+  if (yl) v[i * q] = gh(L.gyl, val);
+  if (yh) v[i * q + q - 1] = gh(L.gyh, val);
+  if (xl && yl) v[0] = gh(L.gyl, gh(L.gxl, val));
+  if (xl && yh) v[q - 1] = gh(L.gyh, gh(L.gxl, val));
+  if (xh && yl) v[(q - 1) * q] = gh(L.gyl, gh(L.gxh, val));
+  if (xh && yh) v[(q - 1) * q + q - 1] = gh(L.gyh, gh(L.gxh, val));
 }
 
 // the factor-2 average of the residual over the four children of coarse
@@ -291,7 +323,7 @@ __global__ void __launch_bounds__(TILE_THREADS) k_down(TileArgs<T> a) {
   const int ti = t.ei + a.halo, tj = t.ej + a.halo;
   for (int i = ti + (int)threadIdx.y; i < ti + a.tile; i += blockDim.y)
     for (int j = tj + (int)threadIdx.x; j < tj + a.tile; j += blockDim.x)
-      put(a.dst, L, i, j, b[t.at(i, j)]);
+      put<OP>(a.dst, L, i, j, b[t.at(i, j)]);
   if (!a.r) return;
 
   // the residual of tile cell (i, j) from the box
@@ -345,7 +377,7 @@ __global__ void __launch_bounds__(TILE_THREADS) k_up(TileArgs<T> a) {
     for (int j = tj + (int)threadIdx.x; j < tj + a.tile; j += blockDim.x) {
       const int o = t.at(i, j);
       const T v0 = b[o];
-      put(a.dst, L, i, j, v0);
+      put<OP>(a.dst, L, i, j, v0);
       if (a.r) {
         const Nbrs<T> v = t.nbrs(b, L, o, i, j, v0);
         a.r[i * q + j] = resid_val<OP>(v0, v.xp, v.xm, v.yp, v.ym, fb[o], L,
@@ -424,22 +456,23 @@ __device__ void smooth_core(T* v, const T* f, const Lev<T>& L, int l,
 
 // every ghost of core level l from the interior cell it mirrors, as `put`
 // writes them: the four edges, then the corners from the x-filled rows
-template <typename T>
+template <int OP, typename T>
 __device__ void fill_ghosts(T* v, const Lev<T>& L, int l, int t0, int nt) {
   const int n = L.n, q = L.q;
+  auto gh = [](T g, T x) { return mirror<OP>(g, x); };
   for (int k = t0; k < 4 * n + 4; k += nt) {
     const int e = k >> (l + 1), m = (k & (n - 1)) + 1;
-    if (e == 0) v[m] = L.gxl * v[L.sxl * q + m];
-    else if (e == 1) v[(q - 1) * q + m] = L.gxh * v[L.sxh * q + m];
-    else if (e == 2) v[m * q] = L.gyl * v[m * q + L.syl];
-    else if (e == 3) v[m * q + q - 1] = L.gyh * v[m * q + L.syh];
-    else if (k == 4 * n) v[0] = L.gyl * (L.gxl * v[L.sxl * q + L.syl]);
+    if (e == 0) v[m] = gh(L.gxl, v[L.sxl * q + m]);
+    else if (e == 1) v[(q - 1) * q + m] = gh(L.gxh, v[L.sxh * q + m]);
+    else if (e == 2) v[m * q] = gh(L.gyl, v[m * q + L.syl]);
+    else if (e == 3) v[m * q + q - 1] = gh(L.gyh, v[m * q + L.syh]);
+    else if (k == 4 * n) v[0] = gh(L.gyl, gh(L.gxl, v[L.sxl * q + L.syl]));
     else if (k == 4 * n + 1)
-      v[q - 1] = L.gyh * (L.gxl * v[L.sxl * q + L.syh]);
+      v[q - 1] = gh(L.gyh, gh(L.gxl, v[L.sxl * q + L.syh]));
     else if (k == 4 * n + 2)
-      v[(q - 1) * q] = L.gyl * (L.gxh * v[L.sxh * q + L.syl]);
+      v[(q - 1) * q] = gh(L.gyl, gh(L.gxh, v[L.sxh * q + L.syl]));
     else
-      v[(q - 1) * q + q - 1] = L.gyh * (L.gxh * v[L.sxh * q + L.syh]);
+      v[(q - 1) * q + q - 1] = gh(L.gyh, gh(L.gxh, v[L.sxh * q + L.syh]));
   }
 }
 
@@ -497,7 +530,7 @@ __device__ void smooth_dist(T* v, const T* f, const Lev<T>& L, int l,
 // sweeps: the halo rows from the CTAs beside it, the x-ghost rows of the
 // frame's edges from the rows they mirror, then the y ghosts of every row
 // it holds (put's rule, corners included)
-template <typename T>
+template <int OP, typename T>
 __device__ void fill_dist(T* v, const Lev<T>& L, const Slab<T>& s, int t0,
                           int nt) {
   const int n = L.n, q = L.q;
@@ -505,14 +538,14 @@ __device__ void fill_dist(T* v, const Lev<T>& L, const Slab<T>& s, int t0,
     const int j = (k < n ? k : k - n) + 1;
     if (k < n) {
       if (s.first) {
-        v[j] = L.gxl * s.sl[L.sxl * q + j];
+        v[j] = mirror<OP>(L.gxl, s.sl[L.sxl * q + j]);
       } else {
         const int c = (s.lo - 1) * q + j;
         v[c] = s.up[c];
       }
     } else {
       if (s.last) {
-        v[(q - 1) * q + j] = L.gxh * s.sh[L.sxh * q + j];
+        v[(q - 1) * q + j] = mirror<OP>(L.gxh, s.sh[L.sxh * q + j]);
       } else {
         const int c = (s.lo + s.R) * q + j;
         v[c] = s.down[c];
@@ -522,8 +555,8 @@ __device__ void fill_dist(T* v, const Lev<T>& L, const Slab<T>& s, int t0,
   __syncthreads();
   const int r0 = s.first ? 0 : s.lo - 1, r1 = s.last ? q - 1 : s.lo + s.R;
   for (int i = r0 + t0; i <= r1; i += nt) {
-    v[i * q] = L.gyl * v[i * q + L.syl];
-    v[i * q + q - 1] = L.gyh * v[i * q + L.syh];
+    v[i * q] = mirror<OP>(L.gyl, v[i * q + L.syl]);
+    v[i * q + q - 1] = mirror<OP>(L.gyh, v[i * q + L.syh]);
   }
   __syncthreads();
 }
@@ -564,7 +597,7 @@ __global__ void __launch_bounds__(CORE_THREADS) k_core(CoreArgs<T> a) {
         const int i = s.lo + (k >> (top + 1)), j = (k & (L.n - 1)) + 1;
         const int c = i * L.q + j;
         F[c] = a.f[c];
-        put(V, L, i, j, a.v ? a.v[c] : T(0));
+        put<OP>(V, L, i, j, a.v ? a.v[c] : T(0));
       }
       cl.sync();
     } else if (rank == 0 && tid < group(top)) {
@@ -572,7 +605,7 @@ __global__ void __launch_bounds__(CORE_THREADS) k_core(CoreArgs<T> a) {
         const int i = (k >> (top + 1)) + 1, j = (k & (L.n - 1)) + 1;
         const int c = i * L.q + j;
         F[c] = a.f[c];
-        put(V, L, i, j, a.v ? a.v[c] : T(0));
+        put<OP>(V, L, i, j, a.v ? a.v[c] : T(0));
       }
       group_sync(a.warps[top]);
     }
@@ -592,7 +625,7 @@ __global__ void __launch_bounds__(CORE_THREADS) k_core(CoreArgs<T> a) {
     if (l >= a.dist) {
       const Slab<T> s = slab(l);
       smooth_dist<OP>(V, F, L, l, s, a.nsmooth, tid, nb, cl);
-      fill_dist(V, L, s, tid, nb);
+      fill_dist<OP>(V, L, s, tid, nb);
       if (l - 1 < a.dist) {
         Vc = cl.map_shared_rank(Vc, 0);
         Fc = cl.map_shared_rank(Fc, 0);
@@ -612,7 +645,7 @@ __global__ void __launch_bounds__(CORE_THREADS) k_core(CoreArgs<T> a) {
     const int nt = group(l);
     if (rank != 0 || tid >= nt) break;
     smooth_core<OP>(V, F, L, l, a.nsmooth, tid, nt, a.warps[l]);
-    fill_ghosts(V, L, l, tid, nt);
+    fill_ghosts<OP>(V, L, l, tid, nt);
     group_sync(a.warps[l]);
     for (int k = tid; k < C.q * C.q; k += nt) {
       const int I = k / C.q, J = k % C.q;
@@ -627,7 +660,7 @@ __global__ void __launch_bounds__(CORE_THREADS) k_core(CoreArgs<T> a) {
     T* V = base;
     smooth_core<OP>(V, V + a.lev[0].q * a.lev[0].q, a.lev[0], 0,
                     a.nsmooth_bottom, tid, group(0), a.warps[0]);
-    fill_ghosts(V, a.lev[0], 0, tid, group(0));
+    fill_ghosts<OP>(V, a.lev[0], 0, tid, group(0));
     group_sync(a.warps[0]);
   }
   // ascent: once the coarser level is done, prolong and correct (the
@@ -645,11 +678,11 @@ __global__ void __launch_bounds__(CORE_THREADS) k_core(CoreArgs<T> a) {
       const T* src = l - 1 < a.dist ? at(Vc, 0) : Vc;
       for (int k = tid; k < s.R * L.n; k += nb) {
         const int i = s.lo + (k >> (l + 1)), j = (k & (L.n - 1)) + 1;
-        put(V, L, i, j, V[i * L.q + j] + prolong(src, qc, i, j));
+        put<OP>(V, L, i, j, V[i * L.q + j] + prolong(src, qc, i, j));
       }
       cl.sync();
       smooth_dist<OP>(V, F, L, l, s, a.nsmooth, tid, nb, cl);
-      fill_dist(V, L, s, tid, nb);
+      fill_dist<OP>(V, L, s, tid, nb);
       continue;
     }
     const int nt = group(l);
@@ -657,11 +690,11 @@ __global__ void __launch_bounds__(CORE_THREADS) k_core(CoreArgs<T> a) {
     group_sync(a.warps[l]);
     for (int k = tid; k < L.n * L.n; k += nt) {
       const int i = (k >> (l + 1)) + 1, j = (k & (L.n - 1)) + 1;
-      put(V, L, i, j, V[i * L.q + j] + prolong(Vc, qc, i, j));
+      put<OP>(V, L, i, j, V[i * L.q + j] + prolong(Vc, qc, i, j));
     }
     group_sync(a.warps[l]);
     smooth_core<OP>(V, F, L, l, a.nsmooth, tid, nt, a.warps[l]);
-    fill_ghosts(V, L, l, tid, nt);
+    fill_ghosts<OP>(V, L, l, tid, nt);
     group_sync(a.warps[l]);
   }
   // a spread top's last fill_dist reads the rows beside each slab from the

@@ -34,9 +34,10 @@ raises; for a CPU tensor it runs its plain version (`core_plain`,
 `down_plain`, `up_plain`, composed from the MG object's own smoother and
 residual and mesh.patch's restrict and prolong).  There is no fallback
 from one to the other.  The kernels take those three classes with ng=1 on
-a square power-of-2 grid and homogeneous standard BCs; anything else
-raises `Ineligible` (a NotImplementedError) on CUDA, naming its ROADMAP
-item.
+a square power-of-2 grid and homogeneous standard BCs, and one extended
+BC, the lid-driven cavity's moving lid on the top edge (`edge_kinds`);
+anything else raises `Ineligible` (a NotImplementedError) on CUDA, naming
+its ROADMAP item.
 """
 
 import ctypes
@@ -49,11 +50,11 @@ import pyro2_tpu_torch.mesh.boundary as bnd
 from pyro2_tpu_torch.mesh.patch import prolong_array, restrict_array
 from pyro2_tpu_torch.util import cuda_build
 
-__all__ = ["CORE_MAX", "FLAVOURS", "Ineligible", "build", "check", "core",
-           "core_cells", "core_cluster", "core_offsets", "core_plain",
-           "core_plan", "core_schedule", "cycle", "down", "down_plain",
-           "flavour", "launches", "split", "tile_plan", "up", "up_plain",
-           "TilePlan", "work"]
+__all__ = ["CORE_MAX", "FLAVOURS", "Ineligible", "ZERO", "build", "check",
+           "core", "core_cells", "core_cluster", "core_offsets",
+           "core_plain", "core_plan", "core_schedule", "cycle", "down",
+           "down_plain", "edge_kinds", "flavour", "launches",
+           "split", "tile_plan", "up", "up_plain", "TilePlan", "work"]
 
 SOURCE = cuda_build.CSRC / "mg_vcycle.cu"
 
@@ -75,6 +76,15 @@ CLUSTER_N = 64
 # ghost-fill kinds of the kernel (mg_vcycle.cu: COPY, NEGATE, PERIODIC)
 BC_KIND = {"outflow": 0, "neumann": 0, "reflect-even": 0,
            "dirichlet": 1, "reflect-odd": 1, "periodic": 2}
+# and its fourth kind, ZERO: every ghost of the edge +0.0.  That is what
+# the moving lid's fill writes at multigrid level, where MG._fill_v hands
+# the registered function a stack whose one variable is "v", so its
+# y-velocity branch writes 0.0 into the top ghosts for the u solve as for
+# the v solve (solvers/incompressible_viscous/BC.py).  The constant
+# operator's entries take it (the cavity's Crank-Nicolson solves); it is
+# kept out of BC_KIND, which the sharded kernels take their kinds from:
+# `edge_kinds` alone maps it
+ZERO = 3
 
 # the operators: entry-name suffix and coefficient planes per level
 FLAVOURS = {"const": ("", 0), "vc": ("_vc", 2), "general": ("_general", 5)}
@@ -146,6 +156,31 @@ def flavour(mg):
     return kinds[type(mg)]
 
 
+def edge_kinds(bc):
+    """The kernels' ghost kinds of a level BC's edges x-lo, x-hi, y-lo,
+    y-hi.  An extended kind is taken only as the moving lid on the top
+    edge filled by the port's own incompressible_viscous.BC.user (the
+    registry is a module-level dict that any caller may fill), as ZERO;
+    anything else raises Ineligible."""
+    from pyro2_tpu_torch.solvers.incompressible_viscous import BC
+
+    kinds = []
+    for edge in ("xlb", "xrb", "ylb", "yrb"):
+        kind = getattr(bc, edge)
+        if kind in BC_KIND and kind not in bnd.ext_bcs:
+            kinds.append(BC_KIND[kind])
+        elif (kind == "moving_lid" and edge == "yrb" and
+              bnd.ext_bcs.get(kind) is BC.user):
+            kinds.append(ZERO)
+        else:
+            raise Ineligible(
+                f"the extended multigrid BC '{kind}' on {edge} waits for a "
+                "later slice of the port (ROADMAP.md A.26): the kernels "
+                "take the moving lid of incompressible_viscous.BC on yrb "
+                "only")
+    return kinds
+
+
 def check(mg):
     """The operator's flavour (see `flavour`); raises Ineligible unless
     the kernels cover this MG configuration."""
@@ -154,12 +189,10 @@ def check(mg):
         raise Ineligible("the multigrid kernels take ng=1 on a square "
                          "power-of-2 grid")
     for bc in mg.bc_v:
-        for edge in ("xlb", "xrb", "ylb", "yrb"):
-            kind = getattr(bc, edge)
-            if kind in bnd.ext_bcs or kind not in BC_KIND:
-                raise Ineligible(
-                    f"multigrid BC '{kind}' waits for a later slice of the "
-                    "port (ROADMAP.md A.7, incompressible_viscous)")
+        if ZERO in edge_kinds(bc) and op != "const":
+            raise Ineligible(
+                "the moving lid's ZERO edge is taken by the constant "
+                "operator's kernels only (ROADMAP.md A.26)")
         for val in (bc.xl_value, bc.xr_value, bc.yl_value, bc.yr_value):
             if val is not None:
                 raise Ineligible(
@@ -313,8 +346,7 @@ def _coef(mg, level):
 def _c_args(mg, op, levels):
     """(bc kinds, per-level coefficients, alpha and beta) as C arrays; the
     coefficient operators' scalars are unused (zeros)."""
-    bc = mg.bc_v[-1]
-    kinds = [BC_KIND[getattr(bc, e)] for e in ("xlb", "xrb", "ylb", "yrb")]
+    kinds = edge_kinds(mg.bc_v[-1])
     if op == "const":
         coef = [c for lv in levels for c in _coef(mg, lv)]
     else:

@@ -19,9 +19,10 @@ from pyro2_tpu_torch.defaults import resolve_device
 from pyro2_tpu_torch.util import msg
 from pyro2_tpu_torch.util.runparams import RuntimeParameters, _get_val
 
-valid_solvers = ["compressible", "compressible_rk", "compressible_fv4",
-                 "compressible_sdc", "diffusion", "incompressible", "lm_atm",
-                 "swe"]
+valid_solvers = ["burgers", "burgers_viscous", "compressible",
+                 "compressible_rk", "compressible_fv4", "compressible_sdc",
+                 "diffusion", "incompressible", "incompressible_viscous",
+                 "lm_atm", "swe"]
 
 
 class Pyro:

@@ -1,5 +1,6 @@
-"""Inviscid Burgers solver (port of pyro2_tpu.solvers.burgers), the base of
-the incompressible solver.  Pyro("burgers") and its problems wait for a
-later slice (ROADMAP.md A.12)."""
+"""Inviscid Burgers solver: CTU velocity self-advection (port of
+pyro2_tpu.solvers.burgers), also the base of the incompressible and
+viscous Burgers solvers.  It has no Pallas kernel, so its plain tensor
+step runs on CUDA as on the CPU."""
 
 from pyro2_tpu_torch.solvers.burgers.simulation import Simulation

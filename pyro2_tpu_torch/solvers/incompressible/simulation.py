@@ -19,14 +19,18 @@ from pyro2_tpu_torch.solvers.incompressible import incomp_interface
 
 class Simulation(burgers_simulation):
 
-    def initialize(self, *, aux_vars=()):
-        """Grid (ng=4), velocities + projection fields, ICs."""
+    def initialize(self, *, other_bc=False, aux_vars=()):
+        """Grid (ng=4), velocities + projection fields, ICs; `other_bc`
+        registers a subclass's extended BCs first (define_other_bc)."""
         if self.rp.get_param("particles.do_particles") == 1:
             raise NotImplementedError(
                 "particles wait for a later slice of the port (ROADMAP.md "
                 "A.17)")
         my_grid = grid_setup(self.rp, ng=4)
         my_data = self.data_class(my_grid)
+
+        if other_bc:
+            self.define_other_bc()
 
         bc, bc_xodd, bc_yodd = bc_setup(self.rp)
 

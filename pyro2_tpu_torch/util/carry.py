@@ -9,7 +9,8 @@ point, they run on CUDA unless the caller passes ``device="cpu"``, and the
 dtype defaults to float32 on CUDA and float64 on the CPU
 (pyro2_tpu_torch.defaults).
 `carry_simulation` goes one step further and returns a live, initialized
-Simulation of the port holding that state as it stands: the state of a
+Simulation of the port (any solver of pyro_sim.valid_solvers) holding that
+state as it stands: the state of a
 4th-order (FV2d) solver is a stack of cell averages, so `preevolve`, which
 converts centers to averages, is not run again.  For lm_atm it also takes
 the base state (`base`: the rho0, p0, beta0 and beta0-edges profiles as

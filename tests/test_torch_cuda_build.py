@@ -403,3 +403,28 @@ def test_lm_entries_take_the_plan_and_no_scratch(monkeypatch):
     for t in ("f32", "f64"):
         for name, n in params.items():
             assert len(fns[f"lm_{name}_{t}"].argtypes) == len(n), name
+
+
+def test_edge_kinds_match_the_kernels():
+    """mg_vcycle.cu's edge kinds are mg_kernel's (BC_KIND's values and
+    ZERO), a ZERO edge's sign is 0, and every ghost the kernels write goes
+    through `mirror`, which for the constant operator writes +0.0 on a
+    ZERO edge (mg_tiles.cuh's sweeps read across an edge as the product,
+    unchanged)."""
+    import re
+
+    from pyro2_tpu_torch.multigrid import mg_kernel
+
+    text = (cuda_build.CSRC / "mg_vcycle.cu").read_text()
+    enum = re.search(r"enum \{([^}]*)\};", text).group(1)
+    kinds = {k: int(v) for k, v in re.findall(r"(\w+) = (\d+)", enum)}
+    assert kinds == {"COPY": 0, "NEGATE": 1, "PERIODIC": 2,
+                     "ZERO": mg_kernel.ZERO}
+    assert set(mg_kernel.BC_KIND.values()) == {0, 1, 2}
+    assert "kind == NEGATE ? T(-1) : kind == ZERO ? T(0) : T(1)" in text
+    assert "if constexpr (OP == OP_CONST) {" in text
+    assert "return g == T(0) ? T(0) : g * val;" in text
+    # every store into a ghost row or column of a frame
+    stores = re.findall(r"v\[[^\]]*\] =\s*([^;]*L\.g[xy][lh][^;]*);", text)
+    assert len(stores) == 20
+    assert all(x.startswith(("gh(", "mirror<OP>(")) for x in stores), stores

@@ -6,8 +6,9 @@ shared-memory layout (mg_kernel.core_plan), the multigrid descent's and
 ascent's tiles, halo and rounds (mg_kernel.tile_plan), and the sharded
 multigrid's deep smoothing round's tiles, halo, sub-rounds and boxes
 (sharded_mg_kernel.deep_plan), and the lm_atm interface stages' tiles,
-halos and shared-memory layout (lm_kernel.plan).  They run on the CPU:
-nothing is compiled or launched."""
+halos and shared-memory layout (lm_kernel.plan); and that the cavity's
+moving lid leaves the multigrid's launches and plans as they are.  They
+run on the CPU: nothing is compiled or launched."""
 
 import itertools
 
@@ -594,6 +595,71 @@ def test_down_shared_memory_fits(dtype):
             assert p.smem <= mg_kernel.TILE_SMEM and 2 * p.smem <= SMEM_SM
             assert p.threads == mg_kernel.TILE_THREADS
             assert _tile_plan_ok(p, 2 ** k, nsmooth, item, p.ints())
+
+
+# -- the cavity's moving lid: the same launches, one edge kind apart ----------
+
+def _recorded_cycle(mg, dtype, monkeypatch):
+    """The entries one V-cycle of `mg` calls on a CUDA-like (meta) frame
+    and every argument each takes, with the library stubbed to record
+    them: [(entry, [ints, array contents, ...]), ...]."""
+    calls = []
+
+    def value(a):
+        if isinstance(a, mg_kernel.ctypes.Array):
+            return ("array", list(a))
+        return ("int", a) if isinstance(a, int) else ("ptr", None)
+
+    class Lib:
+        def __getattr__(self, name):
+            def fn(*args):
+                calls.append((name, [value(a) for a in args]))
+                return 0
+            return fn
+
+        def mg_tile_plan_ints(self):
+            return len(mg_kernel.TilePlan.FIELDS)
+
+    monkeypatch.setattr(mg_kernel, "_load", lambda: Lib())
+    monkeypatch.setattr(mg_kernel, "_check_tensors", lambda *a: None)
+    monkeypatch.setattr(mg_kernel, "_run",
+                        lambda fn, device, *args: fn(*args, None))
+    g = mg.soln_grid
+    mg_kernel.cycle(mg, None, torch.zeros((g.qx, g.qy), dtype=dtype,
+                                          device="meta"))
+    return calls
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_cavity_plans_equal_the_neumann_case(dtype, monkeypatch):
+    """The moving lid's ZERO edge adds no launch and changes no plan: a
+    1024^2 cycle of the cavity's Crank-Nicolson operator calls the same
+    entries with the same core schedule, tile plans, sizes and
+    coefficients as on Neumann walls; only the edge kinds differ, at the
+    lid and at its three Dirichlet walls."""
+    import pyro2_tpu_torch.mesh.boundary as bnd
+    from pyro2_tpu_torch.multigrid.MG import CellCenterMG2d
+    from pyro2_tpu_torch.solvers.incompressible_viscous import BC
+
+    bnd.define_bc("moving_lid", BC.user, is_solid=False)
+    kw = dict(alpha=1.0, beta=0.5 * (0.8 / 1024) * 0.0025, device="cpu",
+              dtype=dtype)
+    cavity = CellCenterMG2d(1024, 1024, xl_BC_type="dirichlet",
+                            xr_BC_type="dirichlet", yl_BC_type="dirichlet",
+                            yr_BC_type="moving_lid", **kw)
+    neumann = CellCenterMG2d(1024, 1024, xl_BC_type="neumann",
+                             xr_BC_type="neumann", yl_BC_type="neumann",
+                             yr_BC_type="neumann", **kw)
+    got = _recorded_cycle(cavity, dtype, monkeypatch)
+    ref = _recorded_cycle(neumann, dtype, monkeypatch)
+    peeled = len(mg_kernel.split(cavity, dtype)[1])
+    assert [n for n, _ in got] == [n for n, _ in ref]
+    assert len(got) == 1 + 2 * peeled and peeled > 0
+    for (name, a), (_, b) in zip(got, ref):
+        kinds = [i for i, (x, y) in enumerate(zip(a, b)) if x != y]
+        assert len(kinds) == 1, name           # the kinds array alone
+        assert a[kinds[0]] == ("array", [1, 1, 1, mg_kernel.ZERO])
+        assert b[kinds[0]] == ("array", [0, 0, 0, 0])
 
 
 # -- the swe step -------------------------------------------------------------

@@ -364,7 +364,7 @@ def test_split_follows_the_shared_memory_limit():
 
 @pytest.mark.parametrize("case,match", [
     ("inhomogeneous", "A.6"),
-    ("extended_bc", "A.7"),
+    ("extended_bc", "A.26"),
     ("subclass", "A.10"),
 ])
 def test_uncovered_configurations_raise(case, match, monkeypatch):

@@ -36,7 +36,8 @@ def test_every_cited_label_is_defined():
     source cites an item by its position in a queue ("queue A item 9"),
     which moves when the queue is reordered."""
     defined = _defined()
-    assert {"A.13", "A.17", "A.20", "A.22", "B1", "B5"} <= defined
+    assert {"A.13", "A.15", "A.17", "A.20", "A.22", "A.26", "B1",
+            "B5"} <= defined
     cited = {}
     for path in _sources():
         text = path.read_text()
@@ -65,10 +66,13 @@ def test_every_roadmap_citation_names_a_label():
 
 # the solvers whose initialize refuses particles, and a problem of each
 PARTICLES = [("compressible", "quad"), ("compressible_rk", "quad"),
-             ("swe", "quad"), ("incompressible", "shear")]
+             ("swe", "quad"), ("incompressible", "shear"),
+             ("burgers", "tophat"), ("burgers_viscous", "tophat"),
+             ("incompressible_viscous", "cavity")]
 # the solvers whose dovis refuses runtime visualisation
 DOVIS = ["compressible", "diffusion", "incompressible", "swe", "lm_atm",
-         "compressible_rk"]
+         "compressible_rk", "burgers", "burgers_viscous",
+         "incompressible_viscous"]
 
 
 @pytest.mark.parametrize("solver,problem", PARTICLES)
@@ -90,8 +94,8 @@ def test_dovis_refusal_names_a13(solver):
 
 
 def test_burgers_base_refusals_name_their_labels():
-    """The Burgers base class (its solver waits for A.12) refuses
-    particles and dovis the same way."""
+    """The Burgers base class, under burgers, burgers_viscous and the
+    incompressible solvers, refuses particles and dovis the same way."""
     from pyro2_tpu_torch.solvers.burgers.simulation import Simulation
 
     with pytest.raises(NotImplementedError, match=r"ROADMAP\.md A\.13"):

@@ -98,7 +98,8 @@ def _containers(bcname_x, bcname_y, nx=20, ny=36, t=0.0):
         bc = bnd.BC(**kw)
         bc_x = bnd.BC(odd_reflect_dir="x", **kw)
         bc_y = bnd.BC(odd_reflect_dir="y", **kw)
-        d = data(g) if data is JData else data(g, dtype=torch.float64)
+        d = data(g) if data is JData else data(g, dtype=torch.float64,
+                                                device="cpu")
         d.register_var("density", bc)
         d.register_var("energy", bc)
         d.register_var("x-momentum", bc_x)

@@ -128,6 +128,24 @@ Phases (any failure exits non-zero and prints no result line):
      on the card against the port's own CPU run of the same inputs: equal
      cycle counts in every solve, u and v within 1e-10 max|U| after each
      step;
+  5e. the five advection solvers through Pyro -> run_sim on CUDA float32
+     at 1024^2, the counts reset just before and read just after each:
+     advection smooth and advection_nonuniform slotted for 100 steps,
+     advection_rk, advection_fv4 and advection_weno smooth for 20 RK4
+     steps, no kernel launched (the advection family has no TPU kernel);
+     the five at 128^2 in float64 for 10 steps on the card against the
+     port's own CPU run (max |diff| <= 1e-12 max|a| and equal dt after
+     each step); the regression driver's 16 runs (pyro2_tpu_torch/test.py,
+     through PyroBenchmark) on the card in float64 against the port's
+     golden copies, compare returning 0 at rtol 1e-12, each run with its
+     seconds, its max abs and rel error and its launches, which must be
+     the kernels of its solver (CTU in compressible, mol_rk in
+     compressible_rk, mol_fv4 in fv4 and sdc, the constant multigrid in
+     diffusion, shear and the cavity, the lm stages and mg_core_vc in
+     lm_atm, swe_step in dam, none in the advection runs and burgers);
+     then write -> io_pyro.read on the card of the quad 1024^2 float32
+     state and a cavity 64^2 float64 state, equal by bits, the dtype and
+     device kept, the read cavity's top edge the kernels' ZERO kind;
   6. CUDA-event timing of each kernel and its plain version at the main
      paths' shapes (quad 1024^2; the 1024^2 solves' levels, constant, vc
      and general; the rk quad and fv4 acoustic_pulse 1024^2 increments;
@@ -164,7 +182,8 @@ Phases (any failure exits non-zero and prints no result line):
      steps, 5 fv4 and 3
      sdc acoustic_pulse steps, 5 swe quad steps, 5 lm_atm bubble steps, 2
      GeneralMG2d solves, 20 spherical advect steps, 5 sharded diffusion
-     steps, 20 burgers, 5 burgers_viscous and 5 cavity steps: device time
+     steps, 20 burgers, 5 burgers_viscous and 5 cavity steps, 20
+     advection and 5 advection_weno smooth steps: device time
      by kernel and the device's busy share of the wall time. Each profiler
      session idles 20 ms on each side of its calls and is made up to
      three times; if none records a device kernel, the
@@ -1278,6 +1297,256 @@ def cavity_card_vs_cpu(n, steps, tol):
         f"per solve {c_gpu} (equal); u, v worst max|diff| / max|U| "
         f"{worst:.3e} (tol {tol:g}); card launches {l_gpu}")
     return worst
+
+
+# ---------------------------------------------------------------------------
+# phase 5e: the advection solvers, the regression driver and checkpoints
+# ---------------------------------------------------------------------------
+
+# the advection paths at 1024^2: (solver, problem, steps); the two CTU-type
+# solvers take 100 steps, the three RK4 ones 20
+ADVECTION_PATHS = (("advection", "smooth", 100),
+                   ("advection_nonuniform", "slotted", 100),
+                   ("advection_rk", "smooth", 20),
+                   ("advection_fv4", "smooth", 20),
+                   ("advection_weno", "smooth", 20))
+
+# the kernels each regression run must launch (and the ones it may):
+# every kernel of the port covers the driver's f64 grids, so a run that
+# launched none where one is expected has routed around it
+_MG_CONST = {"mg_core", "mg_down", "mg_up"}
+REGRESSION_KERNELS = {
+    "advection": (set(), set()),
+    "advection_nonuniform": (set(), set()),
+    "advection_rk": (set(), set()),
+    "advection_fv4": (set(), set()),
+    "burgers": (set(), set()),
+    "compressible": ({"ctu_step"}, {"ctu_step"}),
+    "compressible_rk": ({"mol_rk"}, {"mol_rk"}),
+    "compressible_fv4": ({"mol_fv4"}, {"mol_fv4"}),
+    "compressible_sdc": ({"mol_fv4"}, {"mol_fv4"}),
+    # gaussian is 128^2: the f64 core holds 64^2, one level is peeled
+    "diffusion": (_MG_CONST, _MG_CONST),
+    "incompressible": ({"mg_core"}, _MG_CONST),
+    "incompressible_viscous": ({"mg_core"}, _MG_CONST),
+    "lm_atm": ({"lm_mac", "lm_rho", "lm_states", "mg_core_vc"},
+               {"lm_mac", "lm_rho", "lm_states", "mg_core_vc", "mg_down_vc",
+                "mg_up_vc"}),
+    "swe": ({"swe_step"}, {"swe_step"}),
+}
+
+
+def all_counts():
+    """Every kernel wrapper's launch count, by kernel name."""
+    from pyro2_tpu_torch.multigrid import mg_kernel, sharded_mg_kernel
+    from pyro2_tpu_torch.solvers.compressible import ctu_kernel, padded_step
+    from pyro2_tpu_torch.solvers.compressible_fv4 import mol_kernel
+    from pyro2_tpu_torch.solvers.lm_atm import lm_kernel
+    from pyro2_tpu_torch.solvers.swe import swe_kernel
+
+    counts = {"ctu_step": ctu_kernel.launches,
+              "swe_step": swe_kernel.launches}
+    for table in (mg_kernel.launches, mol_kernel.launches,
+                  lm_kernel.launches, padded_step.launches,
+                  sharded_mg_kernel.launches):
+        counts.update(table)
+    return counts
+
+
+def advection_path(solver, problem, n, steps):
+    """Pyro(solver) -> run_sim on CUDA float32 at n^2, the counts reset
+    just before and read just after: the advection solvers have no TPU
+    kernel, so their plain tensor steps run on the card and no kernel of
+    the port is launched; returns the pyro."""
+    import torch
+
+    from pyro2_tpu_torch import Pyro
+
+    p = Pyro(solver)                    # default device: CUDA, float32
+    p.initialize_problem(problem, inputs_dict={
+        "mesh.nx": n, "mesh.ny": n, "driver.max_steps": steps,
+        "driver.tmax": 1.0e30})
+    sim = p.sim
+    assert sim.cc_data.data.is_cuda
+    assert sim.cc_data.data.dtype == torch.float32
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    p.run_sim()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launched = {k: v for k, v in all_counts().items() if v}
+    if sim.n != steps or launched:
+        raise AssertionError(f"{solver} {problem}: {sim.n} steps, "
+                             f"launches {launched}")
+    dens = sim.cc_data.get_var("density")
+    if not bool(torch.isfinite(sim.cc_data.data).all()):
+        raise AssertionError(f"{solver} {problem}: the state is not finite")
+    log(f"  {solver} {problem} {n}x{n} f32: {steps} steps in "
+        f"{seconds:.3f} s, {1e3 * seconds / steps:.3f} ms/step, "
+        f"{n * n * steps / seconds:.4e} zone-updates/s; no kernel launched; "
+        f"t = {sim.cc_data.t:.6g}, density in "
+        f"[{float(dens.min()):.6g}, {float(dens.max()):.6g}]")
+    return p
+
+
+def advection_card_vs_cpu(solver, problem, n, steps, tol):
+    """`solver` on `problem` at n^2 in float64 through Pyro on the card and
+    on the CPU: after each step the state within tol max|a| of the CPU
+    run's, and equal dt; returns the largest |diff| / max|a|."""
+    import torch
+
+    from pyro2_tpu_torch import Pyro
+
+    pyros = []
+    for device in ("cpu", "cuda"):
+        p = Pyro(solver, device=device, dtype=torch.float64)
+        p.initialize_problem(problem, inputs_dict={
+            "mesh.nx": n, "mesh.ny": n, "driver.max_steps": steps,
+            "driver.tmax": 1.0e30})
+        pyros.append(p)
+    cpu, card = pyros
+    worst = 0.0
+    for k in range(steps):
+        cpu.single_step()
+        card.single_step()
+        a = cpu.sim.cc_data.data
+        b = card.sim.cc_data.data.cpu()
+        scale = float(a.abs().max())
+        err = float((a - b).abs().max())
+        worst = max(worst, err / scale)
+        if (not bool(torch.isfinite(b).all()) or err > tol * scale or
+                abs(card.sim.dt - cpu.sim.dt) > tol * cpu.sim.dt):
+            raise AssertionError(
+                f"{solver} {problem} {n}^2 f64 step {k + 1}: max|diff| "
+                f"{err:.3e} > {tol:g} x {scale:.3g}, or dt {card.sim.dt!r} "
+                f"against {cpu.sim.dt!r}")
+    log(f"  ok  {solver} {problem} {n}^2 f64, {steps} steps, card against "
+        f"CPU: worst max|diff| / max|a| {worst:.3e} (tol {tol:g})")
+    return worst
+
+
+def regression_on_card(rtol):
+    """The regression driver's 16 runs (pyro2_tpu_torch/test.py), each
+    through driver.run_test -> PyroBenchmark on the card in float64
+    against the port's golden copy, the counts reset just before and read
+    just after: compare must return 0 at rtol, and the run must launch the
+    kernels REGRESSION_KERNELS names.  Returns {run: seconds}."""
+    import contextlib
+    import io
+
+    import torch
+
+    from pyro2_tpu_torch import test as driver
+    from pyro2_tpu_torch.util import compare
+
+    seen = []
+    orig = compare.compare
+
+    def recording(data1, data2, rtol=1.e-12):
+        seen.append((data1, data2))
+        return orig(data1, data2, rtol)
+
+    compare.compare = recording
+    seconds = {}
+    failed = []
+    try:
+        for t in driver.get_test_list():
+            seen.clear()
+            out = io.StringIO()
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                name, err = driver.run_test(t, False, False, rtol,
+                                            device="cuda")
+            torch.cuda.synchronize()
+            seconds[name] = time.perf_counter() - t0
+            launched = {k: v for k, v in all_counts().items() if v}
+            required, allowed = REGRESSION_KERNELS[t.solver]
+            run, bench = seen[0]
+            assert run.data.is_cuda and bench.data.is_cuda
+            assert run.dtype == bench.dtype == torch.float64
+            g = run.grid
+            valid = (slice(g.ilo, g.ihi + 1), slice(g.jlo, g.jhi + 1))
+            abs_err = rel_err = 0.0
+            for var in run.names:
+                d1 = run.get_var(var)[valid]
+                d2 = bench.get_var(var)[valid]
+                diff = (d1 - d2).abs()
+                abs_err = max(abs_err, float(diff.max()))
+                nz = d2 != 0
+                if bool(nz.any()):
+                    rel_err = max(rel_err,
+                                  float((diff[nz] / d2[nz].abs()).max()))
+            ok = (err == 0 and required <= set(launched) and
+                  set(launched) <= allowed)
+            log(f"  {'ok ' if ok else 'BAD'} {name:34s} {seconds[name]:7.3f} "
+                f"s; max abs err {abs_err:.3e}, max rel err {rel_err:.3e} "
+                f"(nonzero golden zones); compare {err!r}; launches "
+                f"{launched}")
+            if not ok:
+                log(out.getvalue())
+                failed.append(name)
+    finally:
+        compare.compare = orig
+    if failed:
+        raise AssertionError(f"regression runs failed on the card: {failed}")
+    return seconds
+
+
+def checkpoint_on_card(quad):
+    """write -> io_pyro.read on the card: the quad 1024^2 float32 state of
+    the main path and a cavity 64^2 float64 state, read back with
+    device="cuda" equal by bits, their dtype and device kept; the read
+    cavity's top edge maps to the kernels' ZERO kind."""
+    import torch
+
+    import pyro2_tpu_torch.mesh.boundary as bnd
+    from pyro2_tpu_torch import Pyro
+    from pyro2_tpu_torch.multigrid import mg_kernel
+    from pyro2_tpu_torch.solvers.incompressible_viscous import BC
+    from pyro2_tpu_torch.util import io_pyro
+
+    cavity = Pyro("incompressible_viscous", dtype=torch.float64)
+    cavity.initialize_problem("cavity", inputs_dict={
+        "mesh.nx": 64, "mesh.ny": 64, "driver.max_steps": 3})
+    cavity.run_sim()
+    out = os.path.join(HERE, "test_outputs", "chip_smoke_checkpoints")
+    os.makedirs(out, exist_ok=True)
+    try:
+        for label, sim in (("quad 1024^2 f32", quad.sim),
+                           ("cavity 64^2 f64", cavity.sim)):
+            fn = os.path.join(out, label.split()[0])
+            t0 = time.perf_counter()
+            sim.write(fn)
+            t1 = time.perf_counter()
+            back = io_pyro.read(fn, device="cuda", dtype=sim.dtype)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            d, r = sim.cc_data, back.cc_data
+            g = d.grid
+            valid = (slice(g.ilo, g.ihi + 1), slice(g.jlo, g.jhi + 1))
+            assert r.data.is_cuda and r.dtype == d.dtype == sim.dtype
+            assert back.n == sim.n and r.t == d.t and r.grid == g
+            assert sorted(r.names) == sorted(d.names)
+            for var in d.names:
+                if not torch.equal(r.get_var(var)[valid],
+                                   d.get_var(var)[valid]):
+                    raise AssertionError(f"{label}: {var} read back differs")
+            log(f"  ok  {label} write -> read on the card: equal by bits, "
+                f"{r.dtype} on {r.data.device}; write {t1 - t0:.3f} s, "
+                f"read {t2 - t1:.3f} s, "
+                f"{os.path.getsize(fn + '.h5')} B")
+        kinds = mg_kernel.edge_kinds(back.cc_data.BCs["x-velocity"])
+        if kinds[3] != mg_kernel.ZERO or \
+                bnd.ext_bcs["moving_lid"] is not BC.user:
+            raise AssertionError(f"read cavity: edge kinds {kinds}")
+        log(f"  ok  the read cavity's edge kinds {kinds}: yrb is ZERO")
+    finally:
+        for name in os.listdir(out):
+            os.remove(os.path.join(out, name))
+        os.rmdir(out)
 
 
 def time_pair(name, kern, plain, work, bw, fp32):
@@ -2809,6 +3078,21 @@ def main():
     log("[the cavity 128^2 float64 on the card against the CPU]")
     cavity_card_vs_cpu(128, 5, 1e-10)
 
+    # 5e. the advection solvers, the regression driver and checkpoints
+    log(f"[the advection solvers, CUDA float32; {smi}]")
+    advect = {solver: advection_path(solver, problem, 1024, steps)
+              for solver, problem, steps in ADVECTION_PATHS}
+    log("[the advection solvers 128^2 float64 on the card against the CPU]")
+    for solver, problem, _ in ADVECTION_PATHS:
+        advection_card_vs_cpu(solver, problem, 128, 10, 1e-12)
+    log(f"[the regression driver's 16 runs on the card, float64, against "
+        f"the golden copies at rtol 1e-12; {smi}]")
+    t0 = time.perf_counter()
+    regression_on_card(1e-12)
+    log(f"  16 runs passed in {time.perf_counter() - t0:.1f} s")
+    log("[write -> io_pyro.read on the card]")
+    checkpoint_on_card(p)
+
     # 6. timing at the main paths' shapes
     log("[timing: quad 1024^2 float32, CUDA events]")
     sim = p.sim
@@ -3004,6 +3288,10 @@ def main():
                   "burgers_viscous tophat 1024^2 float32")
     profile_steps(cavity.single_step, 5,
                   "incompressible_viscous cavity 1024^2 float32")
+    profile_steps(advect["advection"].single_step, 20,
+                  "advection smooth 1024^2 float32")
+    profile_steps(advect["advection_weno"].single_step, 5,
+                  "advection_weno smooth 1024^2 float32")
 
     kernels = [{
         "name": "ctu_step",

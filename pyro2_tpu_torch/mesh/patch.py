@@ -14,6 +14,7 @@ import pyro2_tpu_torch.mesh.boundary as bnd
 from pyro2_tpu_torch.defaults import dtype as working_dtype
 from pyro2_tpu_torch.defaults import resolve_device
 from pyro2_tpu_torch.mesh.indexer import ai, fill_ghost
+from pyro2_tpu_torch.util import hdf5
 
 __all__ = ["CellCenterData2d", "cell_center_data_clone", "restrict_array",
            "prolong_array"]
@@ -213,12 +214,11 @@ class CellCenterData2d:
 
     # -- I/O ----------------------------------------------------------------
     def write(self, filename):
-        """Write grid + state to an HDF5 file (the JAX package's layout)."""
-        import h5py
-
+        """Write grid + state to an HDF5 file (the JAX package's layout,
+        through util/hdf5.py)."""
         if not filename.endswith(".h5"):
             filename += ".h5"
-        with h5py.File(filename, "w") as f:
+        with hdf5.File(filename, "w") as f:
             self.write_data(f)
 
     def write_data(self, f):

@@ -1,7 +1,7 @@
 """Slope limiters and shock flattening on tensors.
 
-The port of pyro2_tpu/mesh/reconstruction.py (WENO and well_balance are not
-ported yet).  Functions take full (qx, qy) padded tensors (or (nvar, qx,
+The port of pyro2_tpu/mesh/reconstruction.py (well_balance is not ported
+yet).  The limiter functions take full (qx, qy) padded tensors (or (nvar, qx,
 qy) stacks) and return full padded tensors whose buf=2 window holds the
 result; cells outside that window are zero (flattening: one), so
 downstream windowed reads agree exactly with the JAX package.
@@ -12,7 +12,7 @@ import torch
 from pyro2_tpu_torch.mesh.indexer import ai, embed
 
 __all__ = ["limit", "nolimit", "limit2", "limit4", "flatten",
-           "flatten_multid"]
+           "flatten_multid", "weno_upwind", "weno"]
 
 
 def _mc(dc, dl, dr):
@@ -105,3 +105,90 @@ def flatten_multid(g, q, xi_x, xi_y, ivars):
     v = torch.minimum(torch.minimum(xx.v(buf=2), px),
                       torch.minimum(xy.v(buf=2), py))
     return embed(v, g, 2)
+
+
+# ---------------------------------------------------------------------------
+# WENO reconstruction
+# ---------------------------------------------------------------------------
+
+C_all = {2: [1 / 3, 2 / 3],
+         3: [1 / 10, 6 / 10, 3 / 10]}
+
+a_all = {2: [[3 / 2, -1 / 2], [1 / 2, 1 / 2]],
+         3: [[11 / 6, -7 / 6, 2 / 6], [2 / 6, 5 / 6, -1 / 6],
+             [-1 / 6, 5 / 6, 2 / 6]]}
+
+sigma_all = {
+    2: [[[1, 0], [-2, 1]],
+        [[1, 0], [-2, 1]]],
+    3: [[[40 / 12, 0, 0], [-124 / 12, 100 / 12, 0],
+         [44 / 12, -76 / 12, 16 / 12]],
+        [[16 / 12, 0, 0], [-52 / 12, 52 / 12, 0],
+         [20 / 12, -52 / 12, 16 / 12]],
+        [[16 / 12, 0, 0], [-76 / 12, 100 / 12, 0],
+         [44 / 12, -124 / 12, 40 / 12]]],
+}
+
+
+def _weno_combine(get, order):
+    """WENO combination given get(o) -> q shifted by o zones (tensors).
+
+    The coefficients are the JAX package's numpy tables as Python floats
+    (the same doubles), applied in its order of operations."""
+    a_t = a_all[order]
+    C = C_all[order]
+    sigma = sigma_all[order]
+    epsilon = 1e-16
+
+    alphas = []
+    stencils = []
+    for k in range(order):
+        beta = 0.0
+        for l in range(order):
+            for m in range(l + 1):
+                if sigma[k][l][m] != 0.0:
+                    beta = beta + sigma[k][l][m] * get(k - l) * get(k - m)
+        # a tensor numerator: a Python float over a tensor would be
+        # reciprocal-then-multiply in torch, two roundings
+        den = epsilon + beta ** 2
+        alphas.append(torch.full_like(den, C[k]) / den)
+        st = 0.0
+        for l in range(order):
+            st = st + a_t[k][l] * get(k - l)
+        stencils.append(st)
+
+    alpha_sum = sum(alphas)
+    out = 0.0
+    for k in range(order):
+        out = out + (alphas[k] / alpha_sum) * stencils[k]
+    return out
+
+
+def weno_upwind(q, order):
+    """Left-biased WENO reconstruction of one (2*order-1)-point stencil."""
+    q = torch.as_tensor(q)
+
+    def get(o):
+        return q[order - 1 + o]
+    return _weno_combine(get, order)
+
+
+def weno(q, order, axis=-1):
+    """WENO reconstruction along `axis` of an N-d tensor.
+
+    Returns (q_minus, q_plus): left/right biased face values at each cell,
+    valid for indices [order, n-order) along axis and zero outside.  The
+    shifts wrap around the array as the JAX package's jnp.roll does."""
+    n = q.shape[axis]
+
+    def shifted(o):
+        return torch.roll(q, -o, dims=axis)
+
+    q_plus = _weno_combine(shifted, order)
+    q_minus = _weno_combine(lambda o: shifted(-o), order)
+
+    idx = torch.arange(n, device=q.device)
+    shape = [1] * q.ndim
+    shape[axis] = n
+    valid = ((idx >= order) & (idx < n - order)).reshape(shape)
+    return torch.where(valid, q_minus, 0.0), torch.where(valid, q_plus, 0.0)

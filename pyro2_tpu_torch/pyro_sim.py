@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
 """The Pyro driver: solver/problem registry, param layering, run loop.
 
-The port of pyro2_tpu/pyro_sim.py (Pyro and the CLI main; PyroBenchmark
-is not ported yet), for the solvers in `valid_solvers`.  Runs on CUDA
-unless the caller passes a device::
+The port of pyro2_tpu/pyro_sim.py (Pyro, PyroBenchmark and the CLI main),
+for the solvers in `valid_solvers`.  Runs on CUDA unless the caller passes
+a device::
 
     python -m pyro2_tpu_torch.pyro_sim compressible quad inputs.quad \
         io.do_io=0
+    python -m pyro2_tpu_torch.pyro_sim --device cpu --compare_benchmark \
+        advection smooth inputs.smooth io.do_io=0 io.force_final_output=1
 """
 
 import argparse
@@ -16,13 +18,15 @@ import os
 import pyro2_tpu_torch.util.profile_pyro as profile
 from pyro2_tpu_torch.defaults import dtype as working_dtype
 from pyro2_tpu_torch.defaults import resolve_device
-from pyro2_tpu_torch.util import msg
+from pyro2_tpu_torch.util import compare, msg
 from pyro2_tpu_torch.util.runparams import RuntimeParameters, _get_val
 
-valid_solvers = ["burgers", "burgers_viscous", "compressible",
-                 "compressible_rk", "compressible_fv4", "compressible_sdc",
-                 "diffusion", "incompressible", "incompressible_viscous",
-                 "lm_atm", "swe"]
+valid_solvers = ["advection", "advection_nonuniform", "advection_rk",
+                 "advection_fv4", "advection_weno", "burgers",
+                 "burgers_viscous", "compressible", "compressible_rk",
+                 "compressible_fv4", "compressible_sdc", "diffusion",
+                 "incompressible", "incompressible_viscous", "lm_atm",
+                 "swe"]
 
 
 class Pyro:
@@ -217,10 +221,74 @@ class Pyro:
         return self.sim
 
 
+class PyroBenchmark(Pyro):
+    """Pyro with golden-file benchmarking (regression testing) hooks.
+
+    The golden of a run is `solvers/<solver>/tests/<basename><n>.h5` under
+    the package; it is read on the run's own device and dtype."""
+
+    def __init__(self, solver_name, *, comp_bench=False,
+                 reset_bench_on_fail=False, make_bench=False, device=None,
+                 dtype=None):
+        super().__init__(solver_name, device=device, dtype=dtype)
+        self.comp_bench = comp_bench
+        self.reset_bench_on_fail = reset_bench_on_fail
+        self.make_bench = make_bench
+
+    def run_sim(self, rtol=1.e-12):
+        """Run; with comp_bench return compare's result (0 on a match),
+        else the Simulation."""
+        super().run_sim()
+
+        result = 0
+        if self.comp_bench:
+            result = self.compare_to_benchmark(rtol)
+        if self.make_bench or (result != 0 and self.reset_bench_on_fail):
+            self.store_as_benchmark()
+        if self.comp_bench:
+            return result
+        return self.sim
+
+    def benchmark_file(self):
+        """The golden's path (without .h5) for the run's step count."""
+        basename = self.rp.get_param("io.basename")
+        return (f"{self.pyro_home}solvers/{self.solver_name}/tests/"
+                f"{basename}{self.sim.n:04d}")
+
+    def compare_to_benchmark(self, rtol):
+        import pyro2_tpu_torch.util.io_pyro as io
+        compare_file = self.benchmark_file()
+        msg.warning(f"comparing to: {compare_file} ")
+        try:
+            sim_bench = io.read(compare_file, device=self.device,
+                                dtype=self.dtype)
+        except OSError:
+            msg.warning("ERROR opening compare file")
+            return "ERROR opening compare file"
+
+        result = compare.compare(self.sim.cc_data, sim_bench.cc_data, rtol)
+        if result == 0:
+            msg.success(f"results match benchmark to within relative "
+                        f"tolerance of {rtol}\n")
+        else:
+            msg.warning("ERROR: " + compare.errors[result] + "\n")
+        return result
+
+    def store_as_benchmark(self):
+        bench_file = self.benchmark_file()
+        os.makedirs(os.path.dirname(bench_file), exist_ok=True)
+        msg.warning(f"storing new benchmark: {bench_file}\n")
+        self.sim.write(bench_file)
+
+
 def parse_args(argv=None):
     p = argparse.ArgumentParser()
     p.add_argument("--device", default=None,
                    help="torch device to run on (default: cuda)")
+    p.add_argument("--make_benchmark", action="store_true",
+                   help="create a new benchmark file for regression testing")
+    p.add_argument("--compare_benchmark", action="store_true",
+                   help="compare the end result to the stored benchmark")
     p.add_argument("solver", metavar="solver-name", type=str, nargs=1,
                    help="name of the solver to use", choices=valid_solvers)
     p.add_argument("problem", metavar="problem-name", type=str, nargs=1,
@@ -236,7 +304,14 @@ def parse_args(argv=None):
 def main(argv=None):
     args = parse_args(argv)
 
-    pyro = Pyro(args.solver[0], from_commandline=True, device=args.device)
+    if args.compare_benchmark or args.make_benchmark:
+        pyro = PyroBenchmark(args.solver[0],
+                             comp_bench=args.compare_benchmark,
+                             make_bench=args.make_benchmark,
+                             device=args.device)
+    else:
+        pyro = Pyro(args.solver[0], from_commandline=True,
+                    device=args.device)
 
     other = {}
     for param_string in args.other:
@@ -246,7 +321,7 @@ def main(argv=None):
     pyro.initialize_problem(problem_name=args.problem[0],
                             inputs_file=args.param[0],
                             inputs_dict=other)
-    pyro.run_sim()
+    return pyro.run_sim()
 
 
 if __name__ == "__main__":

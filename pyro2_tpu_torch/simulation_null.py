@@ -14,7 +14,7 @@ from pyro2_tpu_torch.defaults import dtype as _working_dtype
 from pyro2_tpu_torch.defaults import resolve_device
 from pyro2_tpu_torch.mesh import patch
 from pyro2_tpu_torch.mesh.grid import Cartesian2d, SphericalPolar
-from pyro2_tpu_torch.util import msg
+from pyro2_tpu_torch.util import hdf5, msg
 
 __all__ = ["NullSimulation", "grid_setup", "bc_setup"]
 
@@ -197,14 +197,11 @@ class NullSimulation:
             self.problem_finalize()
 
     def write(self, filename):
-        """Write the full simulation state to HDF5 (h5py is imported here,
-        so a run without output needs no h5py)."""
-        import h5py
-
+        """Write the full simulation state to HDF5 (util/hdf5.py)."""
         if not filename.endswith(".h5"):
             filename += ".h5"
 
-        with h5py.File(filename, "w") as f:
+        with hdf5.File(filename, "w") as f:
             f.attrs["solver"] = self.solver_name
             f.attrs["problem"] = self.problem_name
             f.attrs["time"] = self.cc_data.t
@@ -216,3 +213,6 @@ class NullSimulation:
 
     def write_extras(self, f):
         """Write any solver-specific extras (subclass hook)."""
+
+    def read_extras(self, f):
+        """Read any solver-specific extras (subclass hook)."""

@@ -6,18 +6,19 @@ pyro2_tpu/solvers/burgers/problems/verify.py).
 The test problem sets up a diagonal shock with (u, v) = (2, 2) ahead of
 (0, 0); the reference uses ``sqrt(8)`` as the theoretical speed of the |U|
 front.  `front_speed` locates the front (where the diagonal-averaged |U|
-first drops below 0.9 S) in each of two in-memory CellCenterData2d states
-and returns the measured front speed beside the theoretical one.
+first drops below 0.9 S) in each of two CellCenterData2d states and
+returns the measured front speed beside the theoretical one; `verify`
+reads the two states from output files with util/io_pyro.read.
 
-The command line reads two .h5 outputs, which needs the port of
-util/io_pyro.py's `read` (ROADMAP.md A.15); until then it raises:
-
-usage: python -m pyro2_tpu_torch.solvers.burgers.problems.verify file1 file2
+usage: python -m pyro2_tpu_torch.solvers.burgers.problems.verify \
+           [--device D] file1 file2
 """
 
-import sys
+import argparse
 
 import numpy as np
+
+import pyro2_tpu_torch.util.io_pyro as io
 
 
 def _diag_profile(myd):
@@ -78,19 +79,24 @@ def front_speed(d1, d2, *, verbose=True):
     return shock_speed, shock_speed_theo
 
 
-def verify(file1, file2):
-    """The front speed between two output files (needs util/io_pyro)."""
-    raise NotImplementedError(
-        f"reading {file1} and {file2} needs util/io_pyro.read, which waits "
-        "for a later slice of the port (ROADMAP.md A.15); call front_speed "
-        "on two in-memory states")
+def verify(file1, file2, *, device=None):
+    """The front speed between two output files of the test problem (read
+    onto `device`, CUDA by default)."""
+    d1 = io.read(file1, device=device).cc_data
+    d2 = io.read(file2, device=device).cc_data
+    return front_speed(d1, d2)
 
 
 def main(argv=None):
-    argv = sys.argv[1:] if argv is None else argv
-    if len(argv) != 2:
-        sys.exit(__doc__)
-    return verify(argv[0], argv[1])
+    p = argparse.ArgumentParser(
+        description="shock speed of the burgers test problem between two "
+                    "output files")
+    p.add_argument("--device", default=None,
+                   help="torch device to read onto (default: cuda)")
+    p.add_argument("file1")
+    p.add_argument("file2")
+    args = p.parse_args(argv)
+    return verify(args.file1, args.file2, device=args.device)
 
 
 if __name__ == "__main__":

@@ -137,9 +137,23 @@ def test_front_measure_matches_jax():
         verify.front_speed(states[1], states[0], verbose=False)
 
 
-def test_verify_command_line_waits_for_a15():
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md A\.15"):
-        verify.main(["a.h5", "b.h5"])
+def test_verify_command_line_waits_for_a15(tmp_path):
+    """A.15 is done: the command line reads two output files through
+    util/io_pyro.read (tests/test_torch_io.py holds its output to the JAX
+    verify's); a missing file fails as an open does."""
+    p = Pyro("burgers", device="cpu")
+    p.initialize_problem("test", inputs_dict={"mesh.nx": 32,
+                                              "mesh.ny": 32})
+    files = []
+    for k in range(12):
+        p.single_step()
+        if k in (3, 11):
+            files.append(str(tmp_path / f"test_{k:04d}"))
+            p.sim.write(files[-1])
+    speed, theo = verify.main(["--device", "cpu", *files])
+    assert theo == np.sqrt(8.0) and np.isfinite(speed)
+    with pytest.raises(FileNotFoundError):
+        verify.main(["--device", "cpu", "a.h5", "b.h5"])
 
 
 def test_test_problem_matches_golden():

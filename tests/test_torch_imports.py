@@ -284,3 +284,79 @@ def test_rank_programs_import_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == "clean"
+
+
+def test_advection_and_regression_layer_import_no_jax_and_no_h5py():
+    # the advection solvers, the HDF5 module, io_pyro, compare and the
+    # regression driver import without JAX, pyro2_tpu, triton or h5py
+    # (the card's machine has no h5py: the port reads and writes its own)
+    code = (
+        "import sys\n"
+        "import torch\n"
+        "assert not torch.cuda.is_available()\n"
+        "for s in ('advection', 'advection_nonuniform', 'advection_rk', "
+        "'advection_fv4', 'advection_weno'):\n"
+        "    __import__('pyro2_tpu_torch.solvers.' + s)\n"
+        "from pyro2_tpu_torch.solvers.advection.problems import smooth, "
+        "test, tophat\n"
+        "from pyro2_tpu_torch.solvers.advection_nonuniform.problems import "
+        "slotted\n"
+        "from pyro2_tpu_torch.solvers.advection_weno.problems import "
+        "smooth\n"
+        "from pyro2_tpu_torch.solvers.advection_weno import fluxes\n"
+        "from pyro2_tpu_torch.solvers.advection_fv4 import fluxes\n"
+        "from pyro2_tpu_torch.solvers.advection_nonuniform import "
+        "advective_fluxes\n"
+        "from pyro2_tpu_torch.mesh.reconstruction import weno, weno_upwind\n"
+        "from pyro2_tpu_torch.util import compare, hdf5, io_pyro\n"
+        "from pyro2_tpu_torch.solvers.burgers.problems import verify\n"
+        "import pyro2_tpu_torch.test as driver\n"
+        "from pyro2_tpu_torch.pyro_sim import PyroBenchmark\n"
+        "assert len(driver.get_test_list()) == 16\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'pyro2_tpu', 'triton', 'h5py')]\n"
+        "assert not bad, bad\n"
+        "print('clean')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT), CUDA_VISIBLE_DEVICES="")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "clean"
+
+
+def test_advection_read_and_benchmark_run_on_the_card(monkeypatch, tmp_path):
+    # Pyro("advection"), io_pyro.read and PyroBenchmark resolve their
+    # device as every entry point does: CUDA by default, raising without a
+    # GPU; on the CPU, float64
+    from pyro2_tpu_torch import Pyro
+    from pyro2_tpu_torch.pyro_sim import PyroBenchmark
+    from pyro2_tpu_torch.util import io_pyro
+
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    golden = PORT / "solvers/advection/tests/smooth_0040.h5"
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Pyro("advection")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        io_pyro.read(golden)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        PyroBenchmark("advection", comp_bench=True)
+    assert Pyro("advection", device="cpu").dtype == torch.float64
+    sim = io_pyro.read(golden, device="cpu")
+    assert sim.cc_data.data.dtype == torch.float64
+    assert sim.cc_data.data.device.type == "cpu"
+    p = PyroBenchmark("advection", comp_bench=True, device="cpu")
+    assert p.dtype == torch.float64 and p.device.type == "cpu"
+
+
+def test_golden_copies_equal_the_jax_packages_files():
+    # the regression driver's goldens: the port's copies under its own
+    # solvers/<solver>/tests/, byte for byte the JAX package's files
+    ref = sorted(p.relative_to(ROOT / "pyro2_tpu")
+                 for p in (ROOT / "pyro2_tpu").glob("solvers/*/tests/*.h5"))
+    ours = sorted(p.relative_to(PORT)
+                  for p in PORT.glob("solvers/*/tests/*.h5"))
+    assert ours == ref and len(ref) == 16
+    for rel in ref:
+        assert (PORT / rel).read_bytes() == \
+            (ROOT / "pyro2_tpu" / rel).read_bytes(), rel

@@ -68,11 +68,14 @@ def test_every_roadmap_citation_names_a_label():
 PARTICLES = [("compressible", "quad"), ("compressible_rk", "quad"),
              ("swe", "quad"), ("incompressible", "shear"),
              ("burgers", "tophat"), ("burgers_viscous", "tophat"),
-             ("incompressible_viscous", "cavity")]
+             ("incompressible_viscous", "cavity"), ("advection", "smooth"),
+             ("advection_nonuniform", "slotted"), ("advection_rk", "smooth"),
+             ("advection_fv4", "smooth"), ("advection_weno", "smooth")]
 # the solvers whose dovis refuses runtime visualisation
 DOVIS = ["compressible", "diffusion", "incompressible", "swe", "lm_atm",
          "compressible_rk", "burgers", "burgers_viscous",
-         "incompressible_viscous"]
+         "incompressible_viscous", "advection", "advection_nonuniform",
+         "advection_rk", "advection_fv4", "advection_weno"]
 
 
 @pytest.mark.parametrize("solver,problem", PARTICLES)

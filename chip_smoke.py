@@ -146,6 +146,27 @@ Phases (any failure exits non-zero and prints no result line):
      then write -> io_pyro.read on the card of the quad 1024^2 float32
      state and a cavity 64^2 float64 state, equal by bits, the dtype and
      device kept, the read cavity's top edge the kernels' ZERO kind;
+  5f. the compressible family's problem sources, spherical and
+     well-balanced MOL stages and compressible_react: the CTU kernel with
+     the heating, convection and plume sources (its weight plane) and
+     compressible_react's flame and rt (nvar 6) against the plain step,
+     and the MOL kernels' extended instantiation (rk heating, rk spherical
+     Sedov with CGF and with HLLC_lm, rk hse with well_balanced = 1 and
+     limiter 1, fv4 convection, fv4 spherical Sedov) against the plain
+     stage increment, as in phases 3 and 3b, at 200x136, 1024x1000 and
+     1024^2 (fv4's domains sized to square cells, convection's heated
+     layer at y 0.3 inside them); whole runs in float64 at the published
+     grids for 10 steps on the card against the port's CPU run (interiors
+     within 1e-10 max|a| and equal dt after each step, the kernel of the
+     solver launched once a step or stage and no other); then the paths
+     through Pyro -> run_sim on CUDA float32, the counts reset just
+     before and read just after each: heating 1024^2, convection
+     512x1536, plume 512x1024, compressible_react rt 256x768 and flame
+     1024^2 for 50 steps (one CTU launch a step), compressible_rk heating
+     1024^2, spherical Sedov 1024^2 (r in [0.05, 1], CGF) and hse
+     576x1728 with well_balanced = 1 for 10 steps (4 mol_rk a step),
+     compressible_fv4 convection 512x1536 for 10 steps (4 mol_fv4 a step)
+     and compressible_sdc convection 512x1536 for 3 steps (9 a step);
   6. CUDA-event timing of each kernel and its plain version at the main
      paths' shapes (quad 1024^2; the 1024^2 solves' levels, constant, vc
      and general; the rk quad and fv4 acoustic_pulse 1024^2 increments;
@@ -164,7 +185,9 @@ Phases (any failure exits non-zero and prints no result line):
      the core's schedule at the 1024^2
      cycles' 128^2 top with its barriers counted by kind, and its time on
      the coarse problems one ShardedDiffusion step hands it against random
-     data (the share of subnormal values in each);
+     data (the share of subnormal values in each); and phase 5f's
+     configurations at their paths' shapes, each beside its bound from
+     work() with the weight plane and the spherical lines counted;
   7. under the profiler, after every CUDA-event timing: the kernels one
      swe step launches (k_swe, once), one rk stage (k_rk, once), one
      mg_deep_smooth call at the solvers' 10 sweeps (k_deep, once), one
@@ -183,7 +206,8 @@ Phases (any failure exits non-zero and prints no result line):
      sdc acoustic_pulse steps, 5 swe quad steps, 5 lm_atm bubble steps, 2
      GeneralMG2d solves, 20 spherical advect steps, 5 sharded diffusion
      steps, 20 burgers, 5 burgers_viscous and 5 cavity steps, 20
-     advection and 5 advection_weno smooth steps: device time
+     advection and 5 advection_weno smooth steps, and phase 5f's paths
+     (10 CTU steps each, 3 rk and fv4 steps, 2 sdc steps): device time
      by kernel and the device's busy share of the wall time. Each profiler
      session idles 20 ms on each side of its calls and is made up to
      three times; if none records a device kernel, the
@@ -280,6 +304,63 @@ MOL_CONFIGS = (
 )
 
 MOL_KERNELS = ("mol_rk", "mol_fv4")
+
+
+# phase 5f: the compressible family's problem sources, spherical and
+# well-balanced MOL stages, and compressible_react.  The CTU kernel's
+# configurations, one step each: (name, solver, problem, inputs)
+SRC_CONFIGS = (
+    ("heating", "compressible", "heating", {}),
+    ("convection", "compressible", "convection", {}),
+    ("plume", "compressible", "plume", {}),
+    ("react_flame", "compressible_react", "flame", {}),
+    ("react_rt_nvar6", "compressible_react", "rt", {}),
+)
+# the Sedov blast on a SphericalPolar grid for the MOL stages, r in
+# [0.05, 1] (theta as SPHERICAL's; fv4's square cells narrow it)
+SPH_MOL = {k: v for k, v in SPHERICAL.items() if k != "compressible.riemann"}
+SPH_MOL.update({"mesh.xmin": 0.05, "mesh.xmax": 1.0, "sedov.r_init": 0.1})
+WELL_BALANCED = {"compressible.well_balanced": 1, "compressible.limiter": 1}
+# one stage increment each: (name, solver, problem, inputs).  fv4's
+# domains are sized to the grid (mol_sim): convection's heated layer is
+# put at y 0.3, inside the shallow domain
+MOL_SRC_CONFIGS = (
+    ("rk_heating", "compressible_rk", "heating", {}),
+    ("rk_sph_sedov_cgf", "compressible_rk", "sedov",
+     {**SPH_MOL, "compressible.riemann": "CGF"}),
+    ("rk_sph_sedov_hllc_lm", "compressible_rk", "sedov",
+     {**SPH_MOL, "compressible.riemann": "HLLC_lm"}),
+    ("rk_hse_well_balanced", "compressible_rk", "hse", WELL_BALANCED),
+    ("fv4_convection", "compressible_fv4", "convection",
+     {"convection.y_height": 0.3}),
+    ("fv4_sph_sedov", "compressible_fv4", "sedov", SPH_MOL),
+)
+# whole runs in float64 on the card against the CPU at the published
+# grids (the spherical Sedov runs on 128^2, fv4's theta from 128 dr):
+# (solver, problem, inputs, kernel, launches a step)
+CARD_VS_CPU_RUNS = (
+    ("compressible", "heating", {}, "ctu_step", 1),
+    ("compressible", "convection", {}, "ctu_step", 1),
+    ("compressible", "plume", {}, "ctu_step", 1),
+    ("compressible_react", "flame", {}, "ctu_step", 1),
+    ("compressible_react", "rt", {}, "ctu_step", 1),
+    ("compressible_rk", "heating", {}, "mol_rk", 4),
+    ("compressible_rk", "sedov", {**SPH_MOL, "mesh.nx": 128,
+                                  "mesh.ny": 128,
+                                  "compressible.riemann": "CGF"},
+     "mol_rk", 4),
+    ("compressible_rk", "sedov", {**SPH_MOL, "mesh.nx": 128,
+                                  "mesh.ny": 128,
+                                  "compressible.riemann": "HLLC_lm"},
+     "mol_rk", 4),
+    ("compressible_rk", "hse", WELL_BALANCED, "mol_rk", 4),
+    ("compressible_fv4", "heating", {}, "mol_fv4", 4),
+    ("compressible_fv4", "convection", {}, "mol_fv4", 4),
+    ("compressible_fv4", "sedov", {
+        **SPH_MOL, "mesh.nx": 128, "mesh.ny": 128,
+        "mesh.ymax": SPH_MOL["mesh.ymin"] + 0.95}, "mol_fv4", 4),
+    ("compressible_sdc", "convection", {}, "mol_fv4", 9),
+)
 
 
 # multigrid checks: (name, operator, edges x-lo x-hi y-lo y-hi, whether
@@ -396,11 +477,22 @@ def compare(name, problem, inputs, extra, nx, ny, dtype, tol,
 
 def mol_sim(solver, problem, inputs, extra, nx, ny, dtype):
     """A MOL simulation on the card, stepping at the CFL dt (the
-    acoustic_pulse inputs fix dt for 128^2); fv4 grids get square cells."""
+    acoustic_pulse inputs fix dt for 128^2); fv4 grids get square cells
+    (SphericalPolar ones: dtheta = dr, theta from its ymin)."""
     inputs = {"mesh.nx": nx, "mesh.ny": ny, "driver.fix_dt": -1.0, **inputs}
     if solver != "compressible_rk":
-        inputs.update({"mesh.xmax": 1.0, "mesh.ymax": ny / nx})
+        inputs.update(square_cells(inputs, nx, ny))
     return make_sim(problem, inputs, dtype, extra, solver=solver)
+
+
+def square_cells(inputs, nx, ny):
+    """The domain bounds that make a grid's cells square: x in [0, 1] and
+    y in [0, ny / nx]; on a SphericalPolar grid theta from ymin over ny
+    times dr."""
+    if inputs.get("mesh.grid_type") == "SphericalPolar":
+        dr = (inputs["mesh.xmax"] - inputs["mesh.xmin"]) / nx
+        return {"mesh.ymax": inputs["mesh.ymin"] + ny * dr}
+    return {"mesh.xmax": 1.0, "mesh.ymax": ny / nx}
 
 
 def mol_compare(name, solver, problem, inputs, extra, nx, ny, dtype, tol):
@@ -492,14 +584,63 @@ def mol_main_path(solver, problem, nx, ny, steps, kernel, per_step,
     return p, mol[kernel]
 
 
-def main_path(problem, nx, ny, steps, inputs=None):
-    """Pyro -> run_sim on CUDA float32; returns (pyro, seconds, launches)."""
+def card_vs_cpu_run(solver, problem, inputs, steps, tol, kernel, per_step):
+    """`solver` on `problem` with its published inputs (plus `inputs`) in
+    float64 through Pyro on the card and on the CPU for `steps` steps: the
+    card's run launches `kernel` per_step times a step and no other
+    kernel (the counts reset just before it and read just after), and
+    after each step its interior is within tol max|a| of the CPU run's
+    and its dt equal to rtol tol; returns the worst |diff| / max|a|."""
+    import torch
+
+    from pyro2_tpu_torch import Pyro
+
+    pyros = []
+    for device in ("cpu", "cuda"):
+        p = Pyro(solver, device=device, dtype=torch.float64)
+        p.initialize_problem(problem, inputs_dict={
+            "driver.max_steps": steps, "driver.tmax": 1.0e30, **inputs})
+        pyros.append(p)
+    cpu, card = pyros
+    g = card.sim.cc_data.grid
+    worst = 0.0
+    torch.cuda.synchronize()
+    reset_counts()
+    for k in range(steps):
+        cpu.single_step()
+        card.single_step()
+        a = interior(cpu.sim.cc_data.data, g)
+        b = interior(card.sim.cc_data.data, g).cpu()
+        scale = float(a.abs().max())
+        err = float((a - b).abs().max())
+        worst = max(worst, err / scale)
+        if (not bool(torch.isfinite(b).all()) or err > tol * scale or
+                abs(card.sim.dt - cpu.sim.dt) > tol * cpu.sim.dt):
+            raise AssertionError(
+                f"{solver} {problem} f64 step {k + 1}: max|diff| {err:.3e} "
+                f"> {tol:g} x {scale:.3g}, or dt {card.sim.dt!r} against "
+                f"{cpu.sim.dt!r}")
+    launched = {k: v for k, v in all_counts().items() if v}
+    if launched != {kernel: per_step * steps}:
+        raise AssertionError(f"{solver} {problem} f64 on the card: launches "
+                             f"{launched}, expected {kernel} "
+                             f"{per_step * steps} and no other")
+    grid = "spherical " if getattr(g, "coord_type", 0) else ""
+    log(f"  ok  {solver} {grid}{problem} {g.nx}x{g.ny} f64, {steps} steps, "
+        f"card against CPU: worst max|diff| / max|a| {worst:.3e} (tol "
+        f"{tol:g}); {kernel} launches {launched[kernel]}")
+    return worst
+
+
+def main_path(problem, nx, ny, steps, inputs=None, solver="compressible"):
+    """Pyro(solver) -> run_sim on CUDA float32 (a CTU solver: compressible
+    or compressible_react); returns (pyro, seconds, launches)."""
     import torch
 
     from pyro2_tpu_torch import Pyro
     from pyro2_tpu_torch.solvers.compressible import ctu_kernel
 
-    p = Pyro("compressible")            # default device: CUDA, float32
+    p = Pyro(solver)                    # default device: CUDA, float32
     p.initialize_problem(problem, inputs_dict={
         "mesh.nx": nx, "mesh.ny": ny, "driver.max_steps": steps,
         "driver.tmax": 1.0e30, **(inputs or {})})
@@ -532,6 +673,8 @@ def main_path(problem, nx, ny, steps, inputs=None):
             raise AssertionError(f"{problem}: {name} not finite and positive")
     zps = nx * ny * steps / seconds
     grid = "spherical " if getattr(g, "coord_type", 0) else ""
+    if solver != "compressible":
+        grid = f"{solver} {grid}"
     log(f"  {grid}{problem} {nx}x{ny} f32: {steps} steps in {seconds:.3f} s, "
         f"{1e3 * seconds / steps:.3f} ms/step, {zps:.4e} zone-updates/s, "
         f"kernel launches {n_launch}, t = {sim.cc_data.t:.6g}, "
@@ -2809,6 +2952,10 @@ def kernel_name(kernel, args):
     if kernel == "k_ctu":                       # <T, NV, SPH>
         geometry = "spherical" if args[2] in ("true", "1") else "cartesian"
         return f"k_ctu<{args[0]}, nvar {args[1]}, {geometry}>"
+    if kernel in ("k_rk", "k_fv4") and len(args) == 3:   # <T, NV, X>
+        if args[2] in ("true", "1"):
+            return f"{kernel}<{args[0]}, {args[1]}, extended>"
+        return f"{kernel}<{args[0]}, {args[1]}>"
     if kernel == "k_deep" and len(args) == 4:
         return (f"k_deep<{OPS[args[0]]}{DEEP_SMOOTHERS[int(args[1])]}"
                 f"{DEEP_EMITS[int(args[2])]}{args[3]}>")
@@ -3093,6 +3240,59 @@ def main():
     log("[write -> io_pyro.read on the card]")
     checkpoint_on_card(p)
 
+    # 5f. the compressible family's problem sources, spherical and
+    # well-balanced MOL stages, and compressible_react
+    log(f"[ctu_step with problem sources, and compressible_react (nvar 6), "
+        f"vs plain step on the card; {smi}]")
+    src_err = {}
+    for dtype, tol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
+        for nx, ny in CTU_SHAPES:
+            for name, solver, problem, inputs in SRC_CONFIGS:
+                err = compare(name, problem, inputs, None, nx, ny, dtype,
+                              tol, solver=solver)
+                if (nx, ny, dtype) == (1024, 1024, torch.float32):
+                    src_err[name] = err
+            torch.cuda.empty_cache()
+    log(f"[mol_substep's extended instantiation (problem sources, spherical "
+        f"grids, well-balanced) vs plain stage increment on the card; "
+        f"{smi}]")
+    mol_src_err = {}
+    for dtype, tol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
+        for nx, ny in CTU_SHAPES:
+            for name, solver, problem, inputs in MOL_SRC_CONFIGS:
+                err = mol_compare(name, solver, problem, inputs, None, nx,
+                                  ny, dtype, tol)
+                if (nx, ny, dtype) == (1024, 1024, torch.float32):
+                    mol_src_err[name] = err
+            torch.cuda.empty_cache()
+    log(f"[whole runs at the published grids, float64, 10 steps, card "
+        f"against CPU; {smi}]")
+    for solver, problem, inputs, kernel, per_step in CARD_VS_CPU_RUNS:
+        card_vs_cpu_run(solver, problem, inputs, 10, 1e-10, kernel,
+                        per_step)
+    log(f"[phase 5f paths: Pyro -> run_sim, CUDA float32; {smi}]")
+    src_paths = {
+        "heating": main_path("heating", 1024, 1024, 50),
+        "convection": main_path("convection", 512, 1536, 50),
+        "plume": main_path("plume", 512, 1024, 50),
+        "react_rt": main_path("rt", 256, 768, 50,
+                              solver="compressible_react"),
+        "react_flame": main_path("flame", 1024, 1024, 50,
+                                 solver="compressible_react")}
+    mol_src_paths = {
+        "rk_heating": mol_main_path("compressible_rk", "heating", 1024,
+                                    1024, 10, "mol_rk", 4),
+        "fv4_convection": mol_main_path("compressible_fv4", "convection",
+                                        512, 1536, 10, "mol_fv4", 4),
+        "sdc_convection": mol_main_path("compressible_sdc", "convection",
+                                        512, 1536, 3, "mol_fv4", 9),
+        "rk_sph_sedov": mol_main_path(
+            "compressible_rk", "sedov", 1024, 1024, 10, "mol_rk", 4,
+            {**SPH_MOL, "compressible.riemann": "CGF"}),
+        "rk_hse_well_balanced": mol_main_path(
+            "compressible_rk", "hse", 576, 1728, 10, "mol_rk", 4,
+            WELL_BALANCED)}
+
     # 6. timing at the main paths' shapes
     log("[timing: quad 1024^2 float32, CUDA events]")
     sim = p.sim
@@ -3166,6 +3366,42 @@ def main():
                             torch.float32), bw, fp32)
         mol_peak[kname] = mol_peak_memory(mstep, mU, mt, mdt)
         mol_calls[kname] = (mstep, mU, mt, mdt)
+
+    log(f"[timing: phase 5f's configurations at their paths' shapes, "
+        f"float32, CUDA events; {smi}]")
+    src_times = {}
+    for label, (pp, _, _) in src_paths.items():
+        tsim = pp.sim
+        tsim.cc_data.fill_BC_all()
+        tsim.compute_timestep()
+        tU, tt, tdt = tsim.cc_data.data, tsim.cc_data.t, tsim.dt
+        tstep = tsim._step
+        g = tsim.cc_data.grid
+        src_times[label] = time_pair(
+            f"ctu_step ({label} {g.nx}x{g.ny}, nvar {tsim.ivars.nvar})",
+            lambda: tstep.launch(tU, tt, tdt),
+            lambda: tstep.plain(tU, tt, tdt),
+            ctu_kernel.work(g.nx, g.ny, tsim.ivars.nvar, torch.float32,
+                            with_sources=tstep.with_sources,
+                            problem=tstep.problem), bw, fp32)
+    mol_src_times = {}
+    for label, (pp, _) in mol_src_paths.items():
+        if label == "sdc_convection":
+            continue                    # fv4_convection's kernel and shape
+        msim = pp.sim
+        msim.cc_data.fill_BC_all()
+        msim.compute_timestep()
+        mU, mt, mdt = msim.cc_data.data, msim.cc_data.t, msim.dt
+        mstep = msim._step
+        g = msim.cc_data.grid
+        mol_src_times[label] = time_pair(
+            f"{mstep.name} extended ({label} {g.nx}x{g.ny})",
+            lambda: mstep.launch(mU, mt, mdt),
+            lambda: mstep.plain(mU, mt, mdt),
+            mol_kernel.work(mstep.kind, g.nx, g.ny, msim.ivars.nvar,
+                            torch.float32, spherical=mstep.spherical,
+                            problem=mstep.problem,
+                            well_balanced=mstep.well_balanced), bw, fp32)
 
     log("[timing: the swe step at quad 1024^2 float32, CUDA events]")
     ssim = swe_quad.sim
@@ -3292,6 +3528,16 @@ def main():
                   "advection smooth 1024^2 float32")
     profile_steps(advect["advection_weno"].single_step, 5,
                   "advection_weno smooth 1024^2 float32")
+    for label, (pp, _, _) in src_paths.items():
+        g = pp.sim.cc_data.grid
+        profile_steps(pp.single_step, 10,
+                      f"{pp.solver_name} {pp.problem_name} {g.nx}x{g.ny} "
+                      "float32")
+    for label, (pp, _) in mol_src_paths.items():
+        g = pp.sim.cc_data.grid
+        profile_steps(pp.single_step, 2 if label.startswith("sdc") else 3,
+                      f"{pp.solver_name} {pp.problem_name} {g.nx}x{g.ny} "
+                      f"float32 ({label})")
 
     kernels = [{
         "name": "ctu_step",
@@ -3425,6 +3671,41 @@ def main():
             "replaces": f"pyro2_tpu/multigrid/pallas_sharded_mg.py:{line}",
             "launches": sh_launches[name],
             "max_abs_err": sharded_err[name],
+            "ms": ms,
+            "plain_ms": p_ms,
+            "bound_ms": b_ms,
+            "bound_by": b_by,
+            "library_ms": None,
+        })
+    # each new configuration's entry: the times and the 1024^2 float32
+    # check of the configuration it names, the launches of its paths
+    ms, p_ms, b_ms, b_by = src_times["heating"]
+    kernels.append({
+        "name": "ctu_step_problem_source",
+        "route": "cuda",
+        "source": "pyro2_tpu_torch/csrc/ctu_step.cu",
+        "replaces": "pyro2_tpu/solvers/compressible/pallas_step.py:603",
+        "launches": sum(n for _, _, n in src_paths.values()),
+        "max_abs_err": src_err["heating"],
+        "ms": ms,
+        "plain_ms": p_ms,
+        "bound_ms": b_ms,
+        "bound_by": b_by,
+        "library_ms": None,
+    })
+    for name, label, check, keys in (
+            ("mol_rk_extended", "rk_sph_sedov", "rk_sph_sedov_cgf",
+             ("rk_heating", "rk_sph_sedov", "rk_hse_well_balanced")),
+            ("mol_fv4_extended", "fv4_convection", "fv4_convection",
+             ("fv4_convection", "sdc_convection"))):
+        ms, p_ms, b_ms, b_by = mol_src_times[label]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "pyro2_tpu_torch/csrc/mol_substep.cu",
+            "replaces": "pyro2_tpu/solvers/compressible_fv4/pallas_step.py:92",
+            "launches": sum(mol_src_paths[k][1] for k in keys),
+            "max_abs_err": mol_src_err[check],
             "ms": ms,
             "plain_ms": p_ms,
             "bound_ms": b_ms,

@@ -10,7 +10,8 @@
 //     flattening, limited slopes, characteristic tracing), half-dt sources,
 //     first Riemann pair + transverse corrections, final Riemann pair,
 //     artificial viscosity, conservative update, (spherical pressure
-//     gradients), predictor-corrector sources and sponge;
+//     gradients), predictor-corrector sources (with a problem's energy
+//     source, which the TPU kernel refuses) and sponge;
 //   * make_pallas_ctu_step_padded (periodic frame), make_pallas_ctu_step
 //     (pad in, pad out) and make_pallas_ctu_ensemble_step (a batch):
 //     ctu_step_batched_{f32,f64}, the same pipeline with the floor, the
@@ -53,10 +54,11 @@
 // (ctu_kernel.plan picks its shape per dtype, lays out the block's shared
 // memory and sizes the grid), loads the tile with its 4-cell halo of the
 // state once, converting it to primitives (and keeping the floored state,
-// the S stack and the geometry planes of the tile and its 1-cell halo), and
-// runs the pipeline out of shared memory and registers:
-//   1. floor and primitives (halo 4; the floored state, S and the
-//      geometry planes, halo 1);
+// the S stack, a problem source's weight plane and the geometry planes of
+// the tile and its 1-cell halo), and runs the pipeline out of shared memory
+// and registers:
+//   1. floor and primitives (halo 4; the floored state, S, the weight and
+//      the geometry planes, halo 1);
 //   2. the 1-D flattening coefficients (halo 2);
 //   3. the traced interface states of each cell with the half-dt sources
 //      (halo 1: the four faces of every cell the fluxes below read);
@@ -75,6 +77,14 @@
 // per-variable arrays of the tracing and the Riemann solvers are indexed by
 // constants and stay in registers.  Nothing is allocated here and there is
 // no scratch in device memory.
+//
+// Problem sources.  A problem's source terms reach the step as the energy
+// rate rho e_rate w(x, y) (the heating, convection and plume problems; the
+// wrapper refuses any other form): the half-dt interface sources read it in
+// S, which the wrapper fills with it, and the predictor-corrector adds
+// (rho e_rate) w to S_old's and S_new's energy rows, with rho of U^n and of
+// U^{n+1}, from the weight plane W (one plane of the state's dtype, made
+// once on the device) and e_rate.
 //
 // Arithmetic: each cell's operations are the plain step's, in its order;
 // only where the intermediates live changed.  The entry points return the
@@ -281,25 +291,6 @@ __device__ __forceinline__ T pressure(const P& p, const T* u) {
   return q[IP];
 }
 
-// the spherical vertex divergence of the velocity views (u, v) at the
-// lower-left corner of cell (i, j), zero outside the buf=1 window
-template <typename T, typename P, typename A>
-__device__ __forceinline__ T sph_vertex_div(const P& p, const A& u,
-                                            const A& v, const Geom<T>& g,
-                                            int i, int j) {
-  if (!inwin(p, i, j, 1, 1, 1, 1)) return T(0);
-  const T ur = T(0.5) * (u(i, j) + u(i, j - 1));
-  const T ul = T(0.5) * (u(i - 1, j) + u(i - 1, j - 1));
-  const T vt = T(0.5) * (v(i, j) + v(i - 1, j));
-  const T vb = T(0.5) * (v(i, j - 1) + v(i - 1, j - 1));
-  const T rr = g.r(i), rl = g.rl(i), rc = g.rc(i);
-  const T ux = (ur * (rr * rr) - ul * (rl * rl)) / ((rc * rc) * T(p.dx));
-  const T sinc = g.sinc(j);
-  const T vy = (g.sint(j) * vt - g.sinb(j) * vb) /
-               (rc * (sinc == T(0) ? T(1) : sinc) * T(p.dy));
-  return ux + (sinc == T(0) ? T(0) : vy);
-}
-
 template <typename T, bool SPH, typename P, typename A>
 __device__ __forceinline__ T vdiv(const P& p, const A& u, const A& v,
                                   const Geom<T>& g, int i, int j) {
@@ -307,19 +298,6 @@ __device__ __forceinline__ T vdiv(const P& p, const A& u, const A& v,
     return sph_vertex_div<T>(p, u, v, g, i, j);
   else
     return vertex_div_of<T>(p, u, v, i, j);
-}
-
-// the spherical external sources of a cell's state u at radius r: radial
-// gravity, ymom^2 / (rho r) and -xmom ymom / rho (the plain
-// get_external_sources, predictor form)
-template <typename T, typename P>
-__device__ __forceinline__ void sph_sources(const P& p, const T* u, T r,
-                                            T& Sx, T& Sy, T& SE) {
-  const T grav = T(p.grav);
-  const T rho = u[p.idens], xm = u[p.ixmom], ym = u[p.iymom];
-  Sx = rho * grav + (ym * ym) / (rho * r);
-  Sy = T(0) - xm * ym / rho;
-  SE = xm * grav;
 }
 
 // the faces of the traced states (ST planes f * NV + n)
@@ -330,8 +308,8 @@ template <typename T, int NV, bool SPH>
 __global__ void __launch_bounds__(Launch<T, SPH>::threads,
                                   Launch<T, SPH>::blocks)
     k_ctu(const T* __restrict__ U, const T* __restrict__ S,
-          const T* __restrict__ G, T* __restrict__ out,
-          const FixedParams<NV> p, const Plan t) {
+          const T* __restrict__ G, const T* __restrict__ W,
+          T* __restrict__ out, const FixedParams<NV> p, const Plan t) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sm = reinterpret_cast<T*>(smem_raw);
   U += blockIdx.z * p.mstride;
@@ -348,7 +326,8 @@ __global__ void __launch_bounds__(Launch<T, SPH>::threads,
   T* F1 = sm + t.f1;   // 2 NV planes over bt: the first pair, x then y
   T* UB = sm + t.u;    // NV planes over bt: the floored state
   T* DV = sm + t.dv;   // over bt: the velocity's vertex divergence
-  T* SS = sm + t.s;    // S's xmom, ymom, ener over bt (with sources)
+  T* SS = sm + t.s;    // S's xmom, ymom, ener over bt (with sources),
+                       // then the weight plane (with a problem source)
   T* P1 = sm + t.p1;   // spherical: the first pair's interface pressures
   T* P2 = sm + t.p2;   // spherical: the final pair's
   const Geom<T> g{sm + t.g, bt, G, p.qx, p.qy};
@@ -361,8 +340,8 @@ __global__ void __launch_bounds__(Launch<T, SPH>::threads,
   };
   auto ub = [&](int n, int i, int j) { return UB[n * ct + bt.at(i, j)]; };
 
-  // 1. floor and primitives, and the floored state on bt; S and the
-  // geometry planes
+  // 1. floor and primitives, and the floored state on bt; S, the weight
+  // and the geometry planes
 #pragma unroll 4
   for (int k = tid; k < bq.cells(); k += nt) {
     const int i = bq.i0 + k / bq.w, j = bq.j0 + k % bq.w;
@@ -391,6 +370,7 @@ __global__ void __launch_bounds__(Launch<T, SPH>::threads,
       if (p.with_sources)
         for (int m = 0; m < 3; ++m)
           SS[m * ct + k] = in ? S[(m + 1) * fp + c] : T(0);
+      if (p.problem) SS[3 * ct + k] = in ? W[c] : T(0);
       if constexpr (SPH)
         for (int m = 0; m < 4; ++m)
           sm[t.g + m * ct + k] = in ? G[m * fp + c] : T(0);
@@ -635,6 +615,8 @@ __global__ void __launch_bounds__(Launch<T, SPH>::threads,
       for (int n = 0; n < NV; ++n) u0[n] = ub(n, i, j);
       T Sx0, Sy0, SE0;
       sph_sources(p, u0, r, Sx0, Sy0, SE0);
+      const T w = p.problem ? SS[3 * ct + c] : T(0);
+      if (p.problem) SE0 = SE0 + (u0[p.idens] * T(p.e_rate)) * w;
       u[p.ixmom] = u[p.ixmom] + dt * Sx0;
       u[p.iymom] = u[p.iymom] + dt * Sy0;
       u[p.iener] = u[p.iener] + dt * SE0;
@@ -645,7 +627,8 @@ __global__ void __launch_bounds__(Launch<T, SPH>::threads,
       const T xmom_new = u[p.ixmom] + hdt * (S_xmom - S_old_xmom);
       const T Sx1 = S_xmom + (u[p.iymom] * u[p.iymom]) / (u[p.idens] * r);
       const T Sy1 = T(0) - u[p.ixmom] * u[p.iymom] / u[p.idens];
-      const T SE1 = xmom_new * grav;
+      T SE1 = xmom_new * grav;
+      if (p.problem) SE1 = SE1 + (u[p.idens] * T(p.e_rate)) * w;
       u[p.ixmom] = u[p.ixmom] + hdt * (Sx1 - Sx0);
       u[p.iymom] = u[p.iymom] + hdt * (Sy1 - Sy0);
       u[p.iener] = u[p.iener] + hdt * (SE1 - SE0);
@@ -660,15 +643,21 @@ __global__ void __launch_bounds__(Launch<T, SPH>::threads,
       }
 
       if (p.with_sources) {
+        // gravity, and a problem's energy source (rho e_rate) w added to
+        // each energy row, as the plain step adds its stack
         const T grav = T(p.grav);
         const T dt = T(p.dt), hdt = T(0.5 * p.dt);
+        const T w = p.problem ? SS[3 * ct + c] : T(0);
         const T S_old_ymom = ub(p.idens, i, j) * grav;
-        const T S_old_E = ub(p.iymom, i, j) * grav;
+        T S_old_E = ub(p.iymom, i, j) * grav;
+        if (p.problem)
+          S_old_E = S_old_E + (ub(p.idens, i, j) * T(p.e_rate)) * w;
         u[p.iymom] = u[p.iymom] + dt * S_old_ymom;
         u[p.iener] = u[p.iener] + dt * S_old_E;
         const T S_new_ymom = u[p.idens] * grav;
         const T ymom_new = u[p.iymom] + hdt * (S_new_ymom - S_old_ymom);
-        const T S_new_E = ymom_new * grav;
+        T S_new_E = ymom_new * grav;
+        if (p.problem) S_new_E = S_new_E + (u[p.idens] * T(p.e_rate)) * w;
         u[p.iymom] = u[p.iymom] + hdt * (S_new_ymom - S_old_ymom);
         u[p.iener] = u[p.iener] + hdt * (S_new_E - S_old_E);
       }
@@ -692,8 +681,9 @@ __global__ void __launch_bounds__(Launch<T, SPH>::threads,
 // one launch of the NV-variable kernel with the plan's tile and shared
 // memory (the opt-in above 48 KB is set once per kernel and size)
 template <typename T, int NV, bool SPH>
-int launch(const T* U, const T* S, const T* G, T* out, const Params& base,
-           const Plan& t, int n_members, cudaStream_t st) {
+int launch(const T* U, const T* S, const T* G, const T* W, T* out,
+           const Params& base, const Plan& t, int n_members,
+           cudaStream_t st) {
   static int opted = 0;
   auto kernel = k_ctu<T, NV, SPH>;
   if (t.smem > opted) {
@@ -706,26 +696,26 @@ int launch(const T* U, const T* S, const T* G, T* out, const Params& base,
   FixedParams<NV> p;
   static_cast<Params&>(p) = base;
   const dim3 grd(t.bx, t.by, n_members);
-  kernel<<<grd, t.threads, t.smem, st>>>(U, S, G, out, p, t);
+  kernel<<<grd, t.threads, t.smem, st>>>(U, S, G, W, out, p, t);
   return (int)cudaGetLastError();
 }
 
 template <typename T, bool SPH>
-int by_nvar(const T* U, const T* S, const T* G, T* out, const Params& p,
-            const Plan& t, int n_members, cudaStream_t st) {
+int by_nvar(const T* U, const T* S, const T* G, const T* W, T* out,
+            const Params& p, const Plan& t, int n_members, cudaStream_t st) {
   switch (p.nvar) {
-    case 4: return launch<T, 4, SPH>(U, S, G, out, p, t, n_members, st);
-    case 5: return launch<T, 5, SPH>(U, S, G, out, p, t, n_members, st);
-    case 6: return launch<T, 6, SPH>(U, S, G, out, p, t, n_members, st);
-    case 7: return launch<T, 7, SPH>(U, S, G, out, p, t, n_members, st);
-    case 8: return launch<T, 8, SPH>(U, S, G, out, p, t, n_members, st);
+    case 4: return launch<T, 4, SPH>(U, S, G, W, out, p, t, n_members, st);
+    case 5: return launch<T, 5, SPH>(U, S, G, W, out, p, t, n_members, st);
+    case 6: return launch<T, 6, SPH>(U, S, G, W, out, p, t, n_members, st);
+    case 7: return launch<T, 7, SPH>(U, S, G, W, out, p, t, n_members, st);
+    case 8: return launch<T, 8, SPH>(U, S, G, W, out, p, t, n_members, st);
   }
   return (int)cudaErrorInvalidValue;
 }
 
 template <typename T>
-int run(const T* U, const T* S, const T* G, T* out, Params p, const int* tp,
-        int n_members, cudaStream_t st) {
+int run(const T* U, const T* S, const T* G, const T* W, T* out, Params p,
+        const int* tp, int n_members, cudaStream_t st) {
   static_assert(MAXVAR == 8, "by_nvar instantiates 4..8 variables");
   const Plan t = load_plan(tp);
   if (p.nvar < 4 || p.nvar > MAXVAR || p.nx < 1 || p.ny < 1 ||
@@ -745,21 +735,23 @@ int run(const T* U, const T* S, const T* G, T* out, Params p, const int* tp,
       t.bx * t.ty < p.ny || (t.by - 1) * t.tx >= p.nx || t.by * t.tx < p.nx)
     return (int)cudaErrorInvalidValue;
   if ((p.with_sources && (S == nullptr || t.s < 0)) ||
-      (p.flatten && t.xi < 0))
+      (p.flatten && t.xi < 0) ||
+      (p.problem && (W == nullptr || !p.with_sources)))
     return (int)cudaErrorInvalidValue;
   if (p.spherical && (G == nullptr || p.riemann != 2 || t.g < 0 ||
                       t.p1 < 0 || t.p2 < 0))
     return (int)cudaErrorInvalidValue;
   p.mstride = n_members > 1 ? (size_t)p.nvar * p.qx * p.qy : 0;
-  return p.spherical ? by_nvar<T, true>(U, S, G, out, p, t, n_members, st)
-                     : by_nvar<T, false>(U, S, G, out, p, t, n_members, st);
+  return p.spherical
+             ? by_nvar<T, true>(U, S, G, W, out, p, t, n_members, st)
+             : by_nvar<T, false>(U, S, G, W, out, p, t, n_members, st);
 }
 
 // the batched entries' step: no floor, sources, sponge or walls, and
 // Cartesian geometry, whatever the parameter arrays say
 inline Params batched_params(const int* ip, const double* dp) {
   Params p = load_params(ip, dp, false);
-  p.with_sources = p.do_sponge = p.has_floor = 0;
+  p.with_sources = p.do_sponge = p.has_floor = p.problem = 0;
   p.solid_xl = p.solid_xr = p.solid_yl = p.solid_yr = 0;
   p.spherical = 0;
   return p;
@@ -771,16 +763,17 @@ inline Params batched_params(const int* ip, const double* dp) {
 extern "C" int ctu_plan_ints() { return PLAN_INTS; }
 
 extern "C" int ctu_step_f32(const float* U, const float* S, const float* G,
-                            float* out, const int* ip, const double* dp,
-                            const int* plan, void* stream) {
-  return run<float>(U, S, G, out, load_params(ip, dp, false), plan, 1,
+                            const float* W, float* out, const int* ip,
+                            const double* dp, const int* plan, void* stream) {
+  return run<float>(U, S, G, W, out, load_params(ip, dp, false), plan, 1,
                     (cudaStream_t)stream);
 }
 
 extern "C" int ctu_step_f64(const double* U, const double* S,
-                            const double* G, double* out, const int* ip,
-                            const double* dp, const int* plan, void* stream) {
-  return run<double>(U, S, G, out, load_params(ip, dp, false), plan, 1,
+                            const double* G, const double* W, double* out,
+                            const int* ip, const double* dp, const int* plan,
+                            void* stream) {
+  return run<double>(U, S, G, W, out, load_params(ip, dp, false), plan, 1,
                      (cudaStream_t)stream);
 }
 
@@ -789,14 +782,16 @@ extern "C" int ctu_step_batched_f32(const float* U, float* out,
                                     int n_members, const int* ip,
                                     const double* dp, const int* plan,
                                     void* stream) {
-  return run<float>(U, nullptr, nullptr, out, batched_params(ip, dp), plan,
-                    n_members, (cudaStream_t)stream);
+  return run<float>(U, nullptr, nullptr, nullptr, out,
+                    batched_params(ip, dp), plan, n_members,
+                    (cudaStream_t)stream);
 }
 
 extern "C" int ctu_step_batched_f64(const double* U, double* out,
                                     int n_members, const int* ip,
                                     const double* dp, const int* plan,
                                     void* stream) {
-  return run<double>(U, nullptr, nullptr, out, batched_params(ip, dp), plan,
-                     n_members, (cudaStream_t)stream);
+  return run<double>(U, nullptr, nullptr, nullptr, out,
+                     batched_params(ip, dp), plan, n_members,
+                     (cudaStream_t)stream);
 }

@@ -33,13 +33,20 @@ struct Params {
   int limiter;  // 0 none, 1 2nd-order MC, otherwise 4th-order MC
   int flatten, with_sources, do_sponge, has_floor;
   int solid_xl, solid_xr, solid_yl, solid_yr;
-  int spherical;  // SphericalPolar geometry (the CTU step only)
+  int spherical;  // SphericalPolar geometry
+  // a problem's energy source rho e_rate w(x, y), w a plane in device
+  // memory (every entry but the batched one)
+  int problem;
+  // the hydrostatic-subtracted y slope of the pressure (the rk
+  // stage increment only)
+  int well_balanced;
   // a batch of independent states (the CTU step's batched entry): member
   // blockIdx.z starts mstride elements into the state stacks; 0 for a
   // single state
   size_t mstride;
   double dx, dy, dt, gamma, z0, z1, delta, cvisc, floor, grav;
   double rho_begin, rho_full, tau;
+  double e_rate;
   // method-of-lines constants, rounded on the host as the plain versions'
   // Python floats are: dx^2, dy^2, dx^2/24, -dx^2, and the fv4 artificial
   // viscosity's alpha and beta * gamma
@@ -97,9 +104,12 @@ __device__ __forceinline__ Side<T> decompose(const P& p, int idir,
   return s;
 }
 
+// the flux of a conserved state; without the pressure term in the normal
+// momentum when sph is set (CGF's interface state in spherical geometry;
+// the HLLC solvers always take the Cartesian flux, as in JAX)
 template <typename T, typename P>
 __device__ __forceinline__ void cons_flux(const P& p, int idir, const T* U,
-                                          T* F) {
+                                          T* F, bool sph) {
   const T rho = U[p.idens];
   const bool nz = rho != T(0);
   const T safe = nz ? rho : T(1);
@@ -112,7 +122,7 @@ __device__ __forceinline__ void cons_flux(const P& p, int idir, const T* U,
   F[p.ixmom] = U[p.ixmom] * vel;
   F[p.iymom] = U[p.iymom] * vel;
   // pressure joins the normal-momentum flux only in Cartesian geometry
-  if (!p.spherical) {
+  if (!sph) {
     if (idir == 1)
       F[p.ixmom] = F[p.ixmom] + pr;
     else
@@ -207,7 +217,7 @@ __device__ __forceinline__ void hllc(const P& p, int idir, const T* Ul,
   T U[MAXVAR];
   for (int n = 0; n < p.nvar; ++n) U[n] = right ? Ur[n] : Ul[n];
   const Side<T> s = right ? R : L;
-  cons_flux(p, idir, U, F);
+  cons_flux(p, idir, U, F, false);
   if (region == 0 || region == 3) return;
 
   const T S = right ? S_r : S_l;
@@ -346,7 +356,7 @@ __device__ __forceinline__ void cgf(const P& p, int idir, const T* Ul,
                                 : T(0.5) * (xn_l + xn_r);
     Us[n] = xn * rho_s;
   }
-  cons_flux(p, idir, Us, F);
+  cons_flux(p, idir, Us, F, p.spherical != 0);
   if (Us_out)
     for (int n = 0; n < p.nvar; ++n) Us_out[n] = Us[n];
 }
@@ -463,6 +473,40 @@ __device__ __forceinline__ T vertex_div_of(const P& p, const A& u, const A& v,
   return (ur - ul) / T(p.dx) + (vt - vb) / T(p.dy);
 }
 
+// the spherical vertex divergence of the velocity views (u, v) at the
+// lower-left corner of cell (i, j), zero outside the buf=1 window; g gives
+// the lines r (cell centre), rc (node), rl (r - dr) over i and sin(theta)
+// at the node, the centre and the centre below over j
+template <typename T, typename P, typename A, typename G>
+__device__ __forceinline__ T sph_vertex_div(const P& p, const A& u,
+                                            const A& v, const G& g, int i,
+                                            int j) {
+  if (!inwin(p, i, j, 1, 1, 1, 1)) return T(0);
+  const T ur = T(0.5) * (u(i, j) + u(i, j - 1));
+  const T ul = T(0.5) * (u(i - 1, j) + u(i - 1, j - 1));
+  const T vt = T(0.5) * (v(i, j) + v(i - 1, j));
+  const T vb = T(0.5) * (v(i, j - 1) + v(i - 1, j - 1));
+  const T rr = g.r(i), rl = g.rl(i), rc = g.rc(i);
+  const T ux = (ur * (rr * rr) - ul * (rl * rl)) / ((rc * rc) * T(p.dx));
+  const T sinc = g.sinc(j);
+  const T vy = (g.sint(j) * vt - g.sinb(j) * vb) /
+               (rc * (sinc == T(0) ? T(1) : sinc) * T(p.dy));
+  return ux + (sinc == T(0) ? T(0) : vy);
+}
+
+// the spherical external sources of a cell's state u at radius r: radial
+// gravity, ymom^2 / (rho r) and -xmom ymom / rho (the plain
+// get_external_sources, predictor form)
+template <typename T, typename P>
+__device__ __forceinline__ void sph_sources(const P& p, const T* u, T r,
+                                            T& Sx, T& Sy, T& SE) {
+  const T grav = T(p.grav);
+  const T rho = u[p.idens], xm = u[p.ixmom], ym = u[p.iymom];
+  Sx = rho * grav + (ym * ym) / (rho * r);
+  Sy = T(0) - xm * ym / rho;
+  SE = xm * grav;
+}
+
 // the multidimensional flattening coefficient of a buf=2-window cell from
 // views of the pressure P and the 1-D coefficients xx, xy
 template <typename T, typename P, typename A, typename B>
@@ -477,8 +521,9 @@ __device__ __forceinline__ T flat_xi_of(const P& p, const A& P_, const B& xx,
 }
 
 // the parameter block from the wrappers' int and double arrays (the order
-// of CTUStep and MOLSubstep in Python; the CTU step's ints end with the
-// spherical flag)
+// of CTUStep and MOLSubstep in Python: the ints end with the spherical and
+// problem flags, and the MOL ones with the well-balanced flag; the doubles
+// with e_rate, after the MOL constants)
 inline Params load_params(const int* ip, const double* dp, bool mol) {
   Params p = {};
   p.nvar = ip[0];
@@ -512,14 +557,19 @@ inline Params load_params(const int* ip, const double* dp, bool mol) {
   p.rho_begin = dp[10];
   p.rho_full = dp[11];
   p.tau = dp[12];
-  if (!mol) p.spherical = ip[18];
+  p.spherical = ip[18];
+  p.problem = ip[19];
   if (mol) {
+    p.well_balanced = ip[20];
     p.dx2 = dp[13];
     p.dy2 = dp[14];
     p.dx2_24 = dp[15];
     p.mdx2 = dp[16];
     p.alpha = dp[17];
     p.beta_gamma = dp[18];
+    p.e_rate = dp[19];
+  } else {
+    p.e_rate = dp[13];
   }
   p.qx = p.nx + 2 * p.ng;
   p.qy = p.ny + 2 * p.ng;

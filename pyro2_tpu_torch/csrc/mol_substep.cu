@@ -20,7 +20,24 @@
 // U is the ghost-filled (nvar, qx, qy) state stack; k has its shape and is
 // exactly zero on every ghost cell.  Unlike the TPU kernel these entries
 // take solid walls (rk) and a positive density floor, both gated on the
-// global interior, and any nx, ny.
+// global interior, and any nx, ny; and, in their extended instantiation
+// (the template flag X), what the TPU kernel refuses: SphericalPolar grids,
+// a problem's energy source and (rk) the well-balanced reconstruction.
+//
+// The extended instantiation.  On a SphericalPolar grid the sources are
+// the spherical ones (radial gravity, ymom^2 / (rho r), 0 - xmom ymom /
+// rho, xmom grav, with r of the cell's row from the lines buffer G), CGF's
+// flux leaves the pressure out of the normal momentum (the HLLC solvers'
+// does not), rk's artificial viscosity takes the spherical vertex
+// divergence and Ly = r dtheta across the y faces, and the flux divergence
+// stays the Cartesian one over dx and dy, as the JAX package's MOL stage
+// has it.  A problem's energy source adds (rho e_rate) w to the energy row
+// of the sources, w the plane W (rk: of the floored state; fv4: of the
+// centres, before the sources go back to averages).  With
+// compressible.well_balanced (rk, limiter 1) the y faces take the
+// hydrostatic-subtracted MC slope of the pressure, which replaces the
+// flattened one, and the pressures p -+ 0.5 dy rho grav -+ dp/2.  The
+// Cartesian configuration without these keeps the plain instantiation.
 //
 // Layout and windows: the plain (nvar, qx, qy) stack, y contiguous, every
 // window decided by comparing the global index -- the TPU's row bands,
@@ -94,6 +111,40 @@
 #include "euler_common.cuh"
 
 namespace {
+
+// the lines of a SphericalPolar grid (mol_kernel.lines): over i the cell
+// width Ly = r dtheta, the centre radius r, the node radius rc and r - dr;
+// over j sin(theta) at the node, the centre and the centre below
+template <typename T>
+struct Lines {
+  const T* g;
+  int qx, qy;
+  __device__ T Ly(int i) const { return g[i]; }
+  __device__ T r(int i) const { return g[qx + i]; }
+  __device__ T rc(int i) const { return g[2 * qx + i]; }
+  __device__ T rl(int i) const { return g[3 * qx + i]; }
+  __device__ T sinc(int j) const { return g[4 * qx + j]; }
+  __device__ T sint(int j) const { return g[4 * qx + qy + j]; }
+  __device__ T sinb(int j) const { return g[4 * qx + 2 * qy + j]; }
+};
+
+// the sources of the extended instantiation from a cell's state u at row i
+// (the plain get_external_sources, predictor form, plus a problem's energy
+// source): the xmom, ymom and ener rows; w is the cell's weight
+template <typename T, typename P>
+__device__ __forceinline__ void ext_sources(const P& p, const T* u,
+                                            const Lines<T>& g, int i, T w,
+                                            T& Sx, T& Sy, T& SE) {
+  if (p.spherical) {
+    sph_sources(p, u, g.r(i), Sx, Sy, SE);
+  } else {
+    const T grav = T(p.grav);
+    Sx = T(0);
+    Sy = u[p.idens] * grav;
+    SE = u[p.iymom] * grav;
+  }
+  if (p.problem) SE = SE + (u[p.idens] * T(p.e_rate)) * w;
+}
 
 // the sponge terms of k at an interior cell, from the floored state
 template <typename T, typename P>
@@ -423,9 +474,10 @@ __device__ __forceinline__ void fv4_flux(const FixedParams<NV>& p,
 // memory and registers, each stage over the box the next one reads, with
 // every window decided by the global index as before.  Nothing but k goes
 // to device memory.
-template <typename T, int NV>
+template <typename T, int NV, bool X>
 __global__ void __launch_bounds__(Fv4Launch<T>::threads)
-    k_fv4(const T* __restrict__ U, T* __restrict__ K,
+    k_fv4(const T* __restrict__ U, const T* __restrict__ G,
+          const T* __restrict__ W, T* __restrict__ K,
           const FixedParams<NV> p, const Fv4Plan t) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sm = reinterpret_cast<T*>(smem_raw);
@@ -436,6 +488,7 @@ __global__ void __launch_bounds__(Fv4Launch<T>::threads)
   T* Q = sm + t.q;      // NV planes over box q: the averages' primitives
   T* XI = sm + t.xi;    // xi_x, xi_y over box x
   T* SC = sm + t.sc;    // the centred sources of ymom, ener over box s
+                        // (X: of xmom, ymom, ener)
   T* QIX = sm + t.qix;  // NV planes over box ix: the x faces' states
   T* QIY = sm + t.qiy;  // NV planes over box iy
   T* QA = sm + t.r;     // NV planes over box a: the centres' primitives,
@@ -445,6 +498,7 @@ __global__ void __launch_bounds__(Fv4Launch<T>::threads)
                         // state
   T* FX = sm + t.r;     // after stage 4, over QA and ST: NV planes over
   T* FY = FX + NV * b.fx.cells();   // box fx, then NV over box fy
+  const Lines<T> lines{G, p.qx, p.qy};
   auto inframe = [&](int i, int j) {
     return i >= 0 && i < p.qx && j >= 0 && j < p.qy;
   };
@@ -481,9 +535,18 @@ __global__ void __launch_bounds__(Fv4Launch<T>::threads)
                             T(24);
     }
     if (b.s.has(i, j)) {
-      const T grav = T(p.grav);
-      SC[b.s.at(i, j)] = uc[p.idens] * grav;
-      SC[cs + b.s.at(i, j)] = uc[p.iymom] * grav;
+      if constexpr (X) {
+        T Sx, Sy, SE;
+        const T w = p.problem ? W[(size_t)i * p.qy + j] : T(0);
+        ext_sources(p, uc, lines, i, w, Sx, Sy, SE);
+        SC[b.s.at(i, j)] = Sx;
+        SC[cs + b.s.at(i, j)] = Sy;
+        SC[2 * cs + b.s.at(i, j)] = SE;
+      } else {
+        const T grav = T(p.grav);
+        SC[b.s.at(i, j)] = uc[p.idens] * grav;
+        SC[cs + b.s.at(i, j)] = uc[p.iymom] * grav;
+      }
     }
     const T rhoe = uc[p.iener] - T(0.5) *
                                      (uc[p.ixmom] * uc[p.ixmom] +
@@ -563,11 +626,13 @@ __global__ void __launch_bounds__(Fv4Launch<T>::threads)
     for (int n = 0; n < NV; ++n)
       kk[n] = (FX[n * cfx + x0] - FX[n * cfx + x1]) / T(p.dx) +
               (FY[n * cfy + y0] - FY[n * cfy + y1]) / T(p.dy);
+    constexpr int ns = X ? 3 : 2;   // the source rows: [xmom,] ymom, ener
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
+    for (int r = 0; r < ns; ++r) {
       const BoxPlane<T> S = plane<T>(SC, b.s, r);
       const T s_avg = S(i, j) + T(p.mdx2) * lap5<T>(p, S, i, j) / T(24);
-      const int n = r == 0 ? p.iymom : p.iener;
+      const int m = r + 3 - ns;
+      const int n = m == 0 ? p.ixmom : (m == 1 ? p.iymom : p.iener);
       kk[n] = kk[n] + s_avg;
     }
     if (p.do_sponge) add_sponge(p, U, i, j, kk);
@@ -637,8 +702,10 @@ __device__ __forceinline__ RkBoxes rk_boxes(int i0, int j0, const RkPlan& t) {
 // in the frame, q -+ dq/2 with dq the flattened slope along D, as conserved
 // states into ST (NV planes of the right state at the cell's lower face,
 // then NV of the left state at its upper face); zero outside the buf=2
-// window
-template <typename T, int NV, int D>
+// window.  Well-balanced (X, along y): the pressure's states are p -+ p0
+// -+ dp/2, p0 = 0.5 dy rho grav, dp the MC slope of the deviations from
+// the hydrostatic extrapolation, not flattened
+template <typename T, int NV, int D, bool X>
 __device__ __forceinline__ void rk_states(const FixedParams<NV>& p,
                                           const RkBoxes& b, const T* Q,
                                           const T* XI, T* ST) {
@@ -666,6 +733,20 @@ __device__ __forceinline__ void rk_states(const FixedParams<NV>& p,
         ql[n] = q + T(0.5) * dq;
         qr[n] = q - T(0.5) * dq;
       }
+      if constexpr (X && D == 2) {
+        if (p.well_balanced) {
+          const BoxPlane<T> P_ = plane<T>(Q, b.q, IP);
+          const BoxPlane<T> R = plane<T>(Q, b.q, IRHO);
+          const T hdy = T(0.5 * p.dy), grav = T(p.grav);
+          const T p0 = P_(i, j), r0 = R(i, j);
+          const T p1u = P_(i, j + 1) - (p0 + hdy * (r0 + R(i, j + 1)) * grav);
+          const T p1d = P_(i, j - 1) - (p0 - hdy * (r0 + R(i, j - 1)) * grav);
+          const T dp = mc(T(0.5) * (p1u - p1d), p1u, -p1d);
+          const T incr = hdy * r0 * grav;
+          ql[IP] = p0 + incr + T(0.5) * dp;
+          qr[IP] = p0 - incr - T(0.5) * dp;
+        }
+      }
       prim_to_cons(p, ql, ul);
       prim_to_cons(p, qr, ur);
     }
@@ -682,12 +763,15 @@ __device__ __forceinline__ void rk_states(const FixedParams<NV>& p,
 // divergence reads (x faces i in [ilo, ihi+1], j in [jlo, jhi]; y faces the
 // transpose) from the states of the cells on either side, plus the
 // Colella-Woodward artificial viscosity from the primitives' vertex
-// divergence and the floored state (not on the last face), into FO
-template <typename T, int NV, int D>
+// divergence and the floored state (not on the last face), into FO; on a
+// SphericalPolar grid (X) the spherical vertex divergence, and Ly across
+// the y faces
+template <typename T, int NV, int D, bool X>
 __device__ __forceinline__ void rk_flux(const FixedParams<NV>& p,
                                         const RkBoxes& b,
                                         const T* __restrict__ U, const T* Q,
-                                        const T* ST, T* FO) {
+                                        const T* ST, T* FO,
+                                        const Lines<T>& g) {
   const int tid = threadIdx.x, nt = blockDim.x;
   const Box& bs = D == 1 ? b.sx : b.sy;
   const Box& bf = D == 1 ? b.fx : b.fy;
@@ -710,12 +794,19 @@ __device__ __forceinline__ void rk_flux(const FixedParams<NV>& p,
     }
     riemann(p, D, ul, ur, i, j, f);
     if (D == 1 ? i <= ihi(p) : j <= jhi(p)) {
-      const T divU =
-          D == 1 ? T(0.5) * (vertex_div_of<T>(p, u, v, i, j) +
-                             vertex_div_of<T>(p, u, v, i, j + 1))
-                 : T(0.5) * (vertex_div_of<T>(p, u, v, i, j) +
-                             vertex_div_of<T>(p, u, v, i + 1, j));
-      const T av = T(p.cvisc) * fmax(-divU * T(D == 1 ? p.dx : p.dy), T(0));
+      auto vdiv = [&](int a, int c) -> T {
+        if constexpr (X) {
+          if (p.spherical) return sph_vertex_div<T>(p, u, v, g, a, c);
+        }
+        return vertex_div_of<T>(p, u, v, a, c);
+      };
+      const T divU = D == 1 ? T(0.5) * (vdiv(i, j) + vdiv(i, j + 1))
+                            : T(0.5) * (vdiv(i, j) + vdiv(i + 1, j));
+      T L = T(D == 1 ? p.dx : p.dy);
+      if constexpr (X && D == 2) {
+        if (p.spherical) L = g.Ly(i);
+      }
+      const T av = T(p.cvisc) * fmax(-divU * L, T(0));
 #pragma unroll
       for (int n = 0; n < NV; ++n)
         f[n] = f[n] + av * (D == 1 ? ldU(U, p, n, i - 1, j) -
@@ -734,9 +825,10 @@ __device__ __forceinline__ void rk_flux(const FixedParams<NV>& p,
 // and registers, each stage over the box the next one reads, with every
 // window decided by the global index as before.  Nothing but k goes to
 // device memory.
-template <typename T, int NV>
+template <typename T, int NV, bool X>
 __global__ void __launch_bounds__(RkLaunch<T>::threads, RkLaunch<T>::blocks)
-    k_rk(const T* __restrict__ U, T* __restrict__ K,
+    k_rk(const T* __restrict__ U, const T* __restrict__ G,
+         const T* __restrict__ W, T* __restrict__ K,
          const FixedParams<NV> p, const RkPlan t) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sm = reinterpret_cast<T*>(smem_raw);
@@ -750,6 +842,7 @@ __global__ void __launch_bounds__(RkLaunch<T>::threads, RkLaunch<T>::blocks)
                        // interface states
   T* FX = sm + t.fx;   // NV planes over box fx
   T* FY = sm + t.fy;   // NV planes over box fy
+  const Lines<T> lines{G, p.qx, p.qy};
   auto inframe = [&](int i, int j) {
     return i >= 0 && i < p.qx && j >= 0 && j < p.qy;
   };
@@ -783,10 +876,10 @@ __global__ void __launch_bounds__(RkLaunch<T>::threads, RkLaunch<T>::blocks)
 
   // 3-4. the states and fluxes of the x faces, then of the y faces (their
   // states over the x faces')
-  rk_states<T, NV, 1>(p, b, Q, XI, ST);
-  rk_flux<T, NV, 1>(p, b, U, Q, ST, FX);
-  rk_states<T, NV, 2>(p, b, Q, XI, ST);
-  rk_flux<T, NV, 2>(p, b, U, Q, ST, FY);
+  rk_states<T, NV, 1, X>(p, b, Q, XI, ST);
+  rk_flux<T, NV, 1, X>(p, b, U, Q, ST, FX, lines);
+  rk_states<T, NV, 2, X>(p, b, Q, XI, ST);
+  rk_flux<T, NV, 2, X>(p, b, U, Q, ST, FY, lines);
 
   // 5. k = divergence + gravity sources (+ sponge) on the tile's interior
   // cells, and exactly zero on the ghosts, which the tiles at the frame's
@@ -811,9 +904,20 @@ __global__ void __launch_bounds__(RkLaunch<T>::threads, RkLaunch<T>::blocks)
     for (int n = 0; n < NV; ++n)
       kk[n] = (FX[n * cfx + x0] - FX[n * cfx + x1]) / T(p.dx) +
               (FY[n * cfy + y0] - FY[n * cfy + y1]) / T(p.dy);
-    const T grav = T(p.grav);
-    kk[p.iymom] = kk[p.iymom] + ldU(U, p, p.idens, i, j) * grav;
-    kk[p.iener] = kk[p.iener] + ldU(U, p, p.iymom, i, j) * grav;
+    if constexpr (X) {
+      T u[NV], Sx, Sy, SE;
+#pragma unroll
+      for (int n = 0; n < NV; ++n) u[n] = ldU(U, p, n, i, j);
+      const T w = p.problem ? W[(size_t)i * p.qy + j] : T(0);
+      ext_sources(p, u, lines, i, w, Sx, Sy, SE);
+      kk[p.ixmom] = kk[p.ixmom] + Sx;
+      kk[p.iymom] = kk[p.iymom] + Sy;
+      kk[p.iener] = kk[p.iener] + SE;
+    } else {
+      const T grav = T(p.grav);
+      kk[p.iymom] = kk[p.iymom] + ldU(U, p, p.idens, i, j) * grav;
+      kk[p.iener] = kk[p.iener] + ldU(U, p, p.iymom, i, j) * grav;
+    }
     if (p.do_sponge) add_sponge(p, U, i, j, kk);
 #pragma unroll
     for (int n = 0; n < NV; ++n) K[at(p, n, i, j)] = kk[n];
@@ -828,6 +932,16 @@ int check_params(const Params& p) {
   if (p.nvar < 4 || p.nvar > MAXVAR || p.ng != 4 || p.nx < 1 || p.ny < 1)
     return (int)cudaErrorInvalidValue;
   return 0;
+}
+
+// the extended instantiation's configurations, and the buffers they read
+bool extended(const Params& p) {
+  return p.spherical || p.problem || p.well_balanced;
+}
+
+template <typename T>
+bool buffers_ok(const Params& p, const T* G, const T* W) {
+  return (!p.spherical || G != nullptr) && (!p.problem || W != nullptr);
 }
 
 // the rk plan (mol_kernel.rk_plan) against the kernel: its block, halos
@@ -865,11 +979,11 @@ bool rk_plan_ok(const Params& p, const RkPlan& t) {
 
 // one launch of the NV-variable rk kernel with the plan's tile and shared
 // memory (the opt-in above 48 KB is set once per kernel and size)
-template <typename T, int NV>
-int launch_rk(const T* U, T* K, const Params& base, const RkPlan& t,
-              cudaStream_t st) {
+template <typename T, int NV, bool X>
+int launch_rk(const T* U, const T* G, const T* W, T* K, const Params& base,
+              const RkPlan& t, cudaStream_t st) {
   static int opted = 0;
-  auto kernel = k_rk<T, NV>;
+  auto kernel = k_rk<T, NV, X>;
   if (t.smem > opted) {
     cudaError_t e = cudaFuncSetAttribute(
         (const void*)kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -879,28 +993,37 @@ int launch_rk(const T* U, T* K, const Params& base, const RkPlan& t,
   }
   FixedParams<NV> p;
   static_cast<Params&>(p) = base;
-  kernel<<<dim3(t.bx, t.by), t.threads, t.smem, st>>>(U, K, p, t);
+  kernel<<<dim3(t.bx, t.by), t.threads, t.smem, st>>>(U, G, W, K, p, t);
   return (int)cudaGetLastError();
 }
 
+template <typename T, bool X>
+int rk_by_nvar(const T* U, const T* G, const T* W, T* K, const Params& p,
+               const RkPlan& t, cudaStream_t st) {
+  switch (p.nvar) {
+    case 4: return launch_rk<T, 4, X>(U, G, W, K, p, t, st);
+    case 5: return launch_rk<T, 5, X>(U, G, W, K, p, t, st);
+    case 6: return launch_rk<T, 6, X>(U, G, W, K, p, t, st);
+    case 7: return launch_rk<T, 7, X>(U, G, W, K, p, t, st);
+    case 8: return launch_rk<T, 8, X>(U, G, W, K, p, t, st);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
 template <typename T>
-int run_rk(const T* U, T* K, const int* ip, const double* dp, const int* tp,
-           cudaStream_t st) {
+int run_rk(const T* U, const T* G, const T* W, T* K, const int* ip,
+           const double* dp, const int* tp, cudaStream_t st) {
   static_assert(MAXVAR == 8, "run_rk instantiates 4..8 variables");
   const Params p = load_params(ip, dp, true);
   if (int e = check_params(p)) return e;
   if (p.idens != 0 || p.iener != 1 || p.ixmom != 2 || p.iymom != 3)
     return (int)cudaErrorInvalidValue;
   const RkPlan t = load_rk_plan(tp);
-  if (!rk_plan_ok<T>(p, t)) return (int)cudaErrorInvalidValue;
-  switch (p.nvar) {
-    case 4: return launch_rk<T, 4>(U, K, p, t, st);
-    case 5: return launch_rk<T, 5>(U, K, p, t, st);
-    case 6: return launch_rk<T, 6>(U, K, p, t, st);
-    case 7: return launch_rk<T, 7>(U, K, p, t, st);
-    case 8: return launch_rk<T, 8>(U, K, p, t, st);
-  }
-  return (int)cudaErrorInvalidValue;
+  if (!rk_plan_ok<T>(p, t) || !buffers_ok(p, G, W) ||
+      (p.well_balanced && p.limiter != 1))
+    return (int)cudaErrorInvalidValue;
+  return extended(p) ? rk_by_nvar<T, true>(U, G, W, K, p, t, st)
+                     : rk_by_nvar<T, false>(U, G, W, K, p, t, st);
 }
 
 // the plan (mol_kernel.plan) against the kernel: its block, the halos the
@@ -908,6 +1031,7 @@ int run_rk(const T* U, T* K, const int* ip, const double* dp, const int* tp,
 // once, and arrays that lie one after another inside its shared memory
 template <typename T>
 bool fv4_plan_ok(const Params& p, const Fv4Plan& t) {
+  const long nsrc = extended(p) ? 3 : 2;   // the centred sources' planes
   if (t.threads < 32 || t.threads > Fv4Launch<T>::threads ||
       t.threads % 32 || t.tx < 1 || t.ty < 1)
     return false;
@@ -929,7 +1053,7 @@ bool fv4_plan_ok(const Params& p, const Fv4Plan& t) {
     long size;
   } arrays[] = {{t.q, nv * box(t.hq)},
                 {t.xi, p.flatten ? 2 * box(t.hx) : 0},
-                {t.sc, 2 * box(t.hs)},
+                {t.sc, nsrc * box(t.hs)},
                 {t.qix, nv * (t.tx + 1) * (long)(t.ty + 2)},
                 {t.qiy, nv * (t.tx + 2) * (long)(t.ty + 1)},
                 {t.r, states > fluxes ? states : fluxes}};
@@ -944,11 +1068,11 @@ bool fv4_plan_ok(const Params& p, const Fv4Plan& t) {
 
 // one launch of the NV-variable kernel with the plan's tile and shared
 // memory (the opt-in above 48 KB is set once per kernel and size)
-template <typename T, int NV>
-int launch_fv4(const T* U, T* K, const Params& base, const Fv4Plan& t,
-               cudaStream_t st) {
+template <typename T, int NV, bool X>
+int launch_fv4(const T* U, const T* G, const T* W, T* K, const Params& base,
+               const Fv4Plan& t, cudaStream_t st) {
   static int opted = 0;
-  auto kernel = k_fv4<T, NV>;
+  auto kernel = k_fv4<T, NV, X>;
   if (t.smem > opted) {
     cudaError_t e = cudaFuncSetAttribute(
         (const void*)kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -958,28 +1082,38 @@ int launch_fv4(const T* U, T* K, const Params& base, const Fv4Plan& t,
   }
   FixedParams<NV> p;
   static_cast<Params&>(p) = base;
-  kernel<<<dim3(t.bx, t.by), t.threads, t.smem, st>>>(U, K, p, t);
+  kernel<<<dim3(t.bx, t.by), t.threads, t.smem, st>>>(U, G, W, K, p, t);
   return (int)cudaGetLastError();
 }
 
+template <typename T, bool X>
+int fv4_by_nvar(const T* U, const T* G, const T* W, T* K, const Params& p,
+                const Fv4Plan& t, cudaStream_t st) {
+  switch (p.nvar) {
+    case 4: return launch_fv4<T, 4, X>(U, G, W, K, p, t, st);
+    case 5: return launch_fv4<T, 5, X>(U, G, W, K, p, t, st);
+    case 6: return launch_fv4<T, 6, X>(U, G, W, K, p, t, st);
+    case 7: return launch_fv4<T, 7, X>(U, G, W, K, p, t, st);
+    case 8: return launch_fv4<T, 8, X>(U, G, W, K, p, t, st);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
 template <typename T>
-int run_fv4(const T* U, T* K, const int* ip, const double* dp,
-            const int* tp, cudaStream_t st) {
+int run_fv4(const T* U, const T* G, const T* W, T* K, const int* ip,
+            const double* dp, const int* tp, cudaStream_t st) {
   static_assert(MAXVAR == 8, "run_fv4 instantiates 4..8 variables");
   const Params p = load_params(ip, dp, true);
   if (int e = check_params(p)) return e;
   if (p.idens != 0 || p.iener != 1 || p.ixmom != 2 || p.iymom != 3)
     return (int)cudaErrorInvalidValue;
   const Fv4Plan t = load_fv4_plan(tp);
-  if (!fv4_plan_ok<T>(p, t)) return (int)cudaErrorInvalidValue;
-  switch (p.nvar) {
-    case 4: return launch_fv4<T, 4>(U, K, p, t, st);
-    case 5: return launch_fv4<T, 5>(U, K, p, t, st);
-    case 6: return launch_fv4<T, 6>(U, K, p, t, st);
-    case 7: return launch_fv4<T, 7>(U, K, p, t, st);
-    case 8: return launch_fv4<T, 8>(U, K, p, t, st);
-  }
-  return (int)cudaErrorInvalidValue;
+  // the fv4 pipeline has no well-balanced reconstruction (the plain
+  // version reads no such parameter)
+  if (!fv4_plan_ok<T>(p, t) || !buffers_ok(p, G, W) || p.well_balanced)
+    return (int)cudaErrorInvalidValue;
+  return extended(p) ? fv4_by_nvar<T, true>(U, G, W, K, p, t, st)
+                     : fv4_by_nvar<T, false>(U, G, W, K, p, t, st);
 }
 
 }  // namespace
@@ -989,26 +1123,32 @@ int run_fv4(const T* U, T* K, const int* ip, const double* dp,
 extern "C" int mol_rk_plan_ints() { return RK_PLAN_INTS; }
 extern "C" int mol_fv4_plan_ints() { return FV4_PLAN_INTS; }
 
-extern "C" int mol_rk_substep_f32(const float* U, float* K, const int* ip,
+// U, the spherical lines G and the weight plane W (null when the
+// configuration has none), k, the parameters, the plan and the stream
+extern "C" int mol_rk_substep_f32(const float* U, const float* G,
+                                  const float* W, float* K, const int* ip,
                                   const double* dp, const int* plan,
                                   void* stream) {
-  return run_rk<float>(U, K, ip, dp, plan, (cudaStream_t)stream);
+  return run_rk<float>(U, G, W, K, ip, dp, plan, (cudaStream_t)stream);
 }
 
-extern "C" int mol_rk_substep_f64(const double* U, double* K,
-                                  const int* ip, const double* dp,
-                                  const int* plan, void* stream) {
-  return run_rk<double>(U, K, ip, dp, plan, (cudaStream_t)stream);
+extern "C" int mol_rk_substep_f64(const double* U, const double* G,
+                                  const double* W, double* K, const int* ip,
+                                  const double* dp, const int* plan,
+                                  void* stream) {
+  return run_rk<double>(U, G, W, K, ip, dp, plan, (cudaStream_t)stream);
 }
 
-extern "C" int mol_fv4_substep_f32(const float* U, float* K, const int* ip,
+extern "C" int mol_fv4_substep_f32(const float* U, const float* G,
+                                   const float* W, float* K, const int* ip,
                                    const double* dp, const int* plan,
                                    void* stream) {
-  return run_fv4<float>(U, K, ip, dp, plan, (cudaStream_t)stream);
+  return run_fv4<float>(U, G, W, K, ip, dp, plan, (cudaStream_t)stream);
 }
 
-extern "C" int mol_fv4_substep_f64(const double* U, double* K,
-                                   const int* ip, const double* dp,
-                                   const int* plan, void* stream) {
-  return run_fv4<double>(U, K, ip, dp, plan, (cudaStream_t)stream);
+extern "C" int mol_fv4_substep_f64(const double* U, const double* G,
+                                   const double* W, double* K, const int* ip,
+                                   const double* dp, const int* plan,
+                                   void* stream) {
+  return run_fv4<double>(U, G, W, K, ip, dp, plan, (cudaStream_t)stream);
 }

@@ -1,7 +1,6 @@
 """Slope limiters and shock flattening on tensors.
 
-The port of pyro2_tpu/mesh/reconstruction.py (well_balance is not ported
-yet).  The limiter functions take full (qx, qy) padded tensors (or (nvar, qx,
+The port of pyro2_tpu/mesh/reconstruction.py.  The limiter functions take full (qx, qy) padded tensors (or (nvar, qx,
 qy) stacks) and return full padded tensors whose buf=2 window holds the
 result; cells outside that window are zero (flattening: one), so
 downstream windowed reads agree exactly with the JAX package.
@@ -11,8 +10,8 @@ import torch
 
 from pyro2_tpu_torch.mesh.indexer import ai, embed
 
-__all__ = ["limit", "nolimit", "limit2", "limit4", "flatten",
-           "flatten_multid", "weno_upwind", "weno"]
+__all__ = ["limit", "nolimit", "limit2", "limit4", "well_balance",
+           "flatten", "flatten_multid", "weno_upwind", "weno"]
 
 
 def _mc(dc, dl, dr):
@@ -56,6 +55,28 @@ def limit4(a, g, idir):
     p, c, m = _diffs(ai(a, g), idir)
     dc = (2.0 / 3.0) * (p - m - 0.25 * (tp + tm))
     return embed(_mc(dc, p - c, c - m), g, 2)
+
+
+def well_balance(q, g, limiter, iv, grav):
+    """The MC-limited y slope of the pressure with hydrostatic equilibrium
+    subtracted, on the buf=2 window (zero outside it).  q is the primitive
+    stack; only limiter 1 is supported."""
+    if limiter != 1:
+        raise ValueError("well-balanced only works for limiter == 1")
+
+    p = ai(q[iv.ip], g)
+    rho = ai(q[iv.irho], g)
+
+    # the neighbours' deviations from the hydrostatic extrapolation of the
+    # cell's pressure (the cell's own deviation is zero)
+    p1_jp1 = (p.jp(1, buf=2) -
+              (p.v(buf=2) + 0.5 * g.dy *
+               (rho.v(buf=2) + rho.jp(1, buf=2)) * grav))
+    p1_jm1 = (p.jp(-1, buf=2) -
+              (p.v(buf=2) - 0.5 * g.dy *
+               (rho.v(buf=2) + rho.jp(-1, buf=2)) * grav))
+
+    return embed(_mc(0.5 * (p1_jp1 - p1_jm1), p1_jp1, -p1_jm1), g, 2)
 
 
 def flatten(g, q, idir, ivars, rp):

@@ -24,7 +24,8 @@ from pyro2_tpu_torch.util.runparams import RuntimeParameters, _get_val
 valid_solvers = ["advection", "advection_nonuniform", "advection_rk",
                  "advection_fv4", "advection_weno", "burgers",
                  "burgers_viscous", "compressible", "compressible_rk",
-                 "compressible_fv4", "compressible_sdc", "diffusion",
+                 "compressible_fv4", "compressible_sdc",
+                 "compressible_react", "diffusion",
                  "incompressible", "incompressible_viscous", "lm_atm",
                  "swe"]
 

@@ -22,7 +22,11 @@ unchanged; `fill_BC_all` refills them before the next step.  Ghost fills,
 the external-source stack S and the CFL timestep stay plain PyTorch, as they
 were plain JAX outside the Pallas kernel.  In spherical geometry the kernel
 also reads the geometry buffer (`geometry`), built once per step object and
-dtype on the device.
+dtype on the device.  A problem source reaches the kernel as its energy
+rate rho e_rate w(x, y): e_rate and the weight plane w of the problem
+module's `source_weight` (simulation.weight_plane, made once on the
+device); a problem source of another form raises on CUDA, naming ROADMAP.md
+A.27.
 """
 
 import ctypes
@@ -35,7 +39,8 @@ from pyro2_tpu_torch.util import cuda_build
 
 __all__ = ["CTUStep", "Plan", "build", "geometry", "launch_batched",
            "launches", "plan", "work", "FLOPS_PER_ZONE",
-           "FLOPS_PER_ZONE_SPHERICAL", "HALO", "TILE"]
+           "FLOPS_PER_ZONE_PROBLEM", "FLOPS_PER_ZONE_SPHERICAL", "HALO",
+           "TILE"]
 
 SOURCE = cuda_build.CSRC / "ctu_step.cu"
 
@@ -69,6 +74,9 @@ FLOPS_PER_ZONE_SPHERICAL_BY_STAGE = {
     "update": 83,      # area/volume update, pressure gradients, sources
 }
 FLOPS_PER_ZONE_SPHERICAL = sum(FLOPS_PER_ZONE_SPHERICAL_BY_STAGE.values())
+# a problem's energy source in the predictor-corrector: (rho e_rate) w and
+# its sum into S_old's and S_new's energy rows
+FLOPS_PER_ZONE_PROBLEM = 6
 
 launches = 0   # kernel launches made through CTUStep (read by chip_smoke.py)
 
@@ -102,7 +110,8 @@ class Plan:
     ARRAYS = ("q", "xi", "st", "f1", "u", "dv", "s", "g", "p1", "p2")
 
     def __init__(self, nx, ny, nvar, dtype, *, spherical=False,
-                 with_sources=False, flatten=True, n_members=1):
+                 with_sources=False, flatten=True, n_members=1,
+                 problem=False):
         self.nx, self.ny, self.nvar = nx, ny, nvar
         self.tx, self.ty = TILE[dtype]
         self.threads = THREADS[dtype]
@@ -117,7 +126,8 @@ class Plan:
             "f1": 2 * nvar * traced,       # the first pair, x and y faces
             "u": nvar * traced,            # the floored state
             "dv": traced,                  # the vertex divergence
-            "s": 3 * traced if with_sources else 0,
+            # S's xmom, ymom and ener rows, and a problem's weight plane
+            "s": (4 if problem else 3) * traced if with_sources else 0,
             "g": 4 * traced if spherical else 0,
             "p1": 2 * traced if spherical else 0,
             "p2": 2 * traced if spherical else 0,
@@ -190,8 +200,9 @@ def _load():
         ints = ctypes.POINTER(ctypes.c_int)
         doubles = ctypes.POINTER(ctypes.c_double)
         for name in ("ctu_step_f32", "ctu_step_f64"):
+            # U, S, G, W, out, ints, doubles, plan, stream
             fn = getattr(lib, name)
-            fn.argtypes = [ctypes.c_void_p] * 4 + [ints, doubles, ints,
+            fn.argtypes = [ctypes.c_void_p] * 5 + [ints, doubles, ints,
                                                    ctypes.c_void_p]
             fn.restype = ctypes.c_int
         for name in ("ctu_step_batched_f32", "ctu_step_batched_f64"):
@@ -208,16 +219,20 @@ def _load():
 
 
 def work(nx, ny, nvar, dtype, with_sources=False, spherical=False,
-         n_members=1):
+         n_members=1, problem=False):
     """(bytes, operations) one step of n_members states must move and do at
     least: each state read once and written once (plus the S stack when
-    there are sources, and in spherical geometry the geometry buffer), and
-    FLOPS_PER_ZONE (spherical: FLOPS_PER_ZONE_SPHERICAL) per interior
-    zone."""
+    there are sources, a problem source's weight plane, and in spherical
+    geometry the geometry buffer), and FLOPS_PER_ZONE (spherical:
+    FLOPS_PER_ZONE_SPHERICAL; with a problem source FLOPS_PER_ZONE_PROBLEM
+    more) per interior zone."""
     item = torch.empty((), dtype=dtype).element_size()
     qx, qy = nx + 8, ny + 8
-    values = (2 * nvar + (4 if with_sources else 0)) * qx * qy
+    values = (2 * nvar + (4 if with_sources else 0) +
+              (1 if problem else 0)) * qx * qy
     flops = FLOPS_PER_ZONE_SPHERICAL if spherical else FLOPS_PER_ZONE
+    if problem:
+        flops += FLOPS_PER_ZONE_PROBLEM
     if spherical:
         values += GEOMETRY_PLANES * qx * qy + GEOMETRY_ROWS * qx + \
             GEOMETRY_LANES * qy
@@ -273,13 +288,12 @@ class CTUStep:
     """step(U, t, dt) -> U_new for a live compressible Simulation."""
 
     def __init__(self, sim):
+        from pyro2_tpu_torch.solvers.compressible.simulation import \
+            source_weight_of
+
         rp = sim.rp
         myg = sim.cc_data.grid
         ivars = sim.ivars
-        if sim.problem_source is not None:
-            raise NotImplementedError(
-                "problem source terms wait for a later slice of the port "
-                "(ROADMAP.md B1)")
         method = rp.get_param("compressible.riemann")
         if method not in RIEMANN:
             raise ValueError(f"unknown Riemann solver {method}")
@@ -290,9 +304,13 @@ class CTUStep:
         self.shape = (ivars.nvar, myg.qx, myg.qy)
         self.small_dens = rp.get_param("compressible.small_dens")
         self.spherical = getattr(myg, "coord_type", 0) == 1
-        # the geometric source terms act with grav = 0 too
+        self.problem = sim.problem_source is not None
+        self.source_weight = source_weight_of(sim.problem_source) \
+            if self.problem else None
+        # the geometric source terms act with grav = 0 too, and so does a
+        # problem's source
         self.with_sources = (rp.get_param("compressible.grav") != 0.0 or
-                             self.spherical)
+                             self.spherical or self.problem)
         solid = sim.solid
         self._ints = [ivars.nvar, myg.nx, myg.ny, myg.ng,
                       ivars.idens, ivars.ixmom, ivars.iymom, ivars.iener,
@@ -302,7 +320,7 @@ class CTUStep:
                       int(bool(rp.get_param("sponge.do_sponge"))),
                       0,  # has_floor, set per dtype
                       solid.xl, solid.xr, solid.yl, solid.yr,
-                      int(self.spherical)]
+                      int(self.spherical), int(self.problem)]
         self._geometry = {}     # the spherical geometry buffer by dtype
         self._doubles = [myg.dx, myg.dy, 0.0,  # dt, set per call
                          rp.get_param("eos.gamma"),
@@ -314,7 +332,18 @@ class CTUStep:
                          rp.get_param("compressible.grav"),
                          rp.get_param("sponge.sponge_rho_begin"),
                          rp.get_param("sponge.sponge_rho_full"),
-                         rp.get_param("sponge.sponge_timescale")]
+                         rp.get_param("sponge.sponge_timescale"),
+                         0.0]   # e_rate, set with the weight plane
+
+    def covered(self):
+        """Raise NotImplementedError unless the kernel takes this
+        configuration's problem source: an energy rate rho e_rate w(x, y)
+        (the problem module's source_weight)."""
+        if self.problem and self.source_weight is None:
+            raise NotImplementedError(
+                "a problem source other than the energy rate rho e_rate "
+                "w(x, y) waits for a later slice of the port (ROADMAP.md "
+                "A.27)")
 
     def check(self, U):
         """Raise on anything the kernel and its plain version do not take."""
@@ -339,7 +368,9 @@ class CTUStep:
     def kernel_args(self, U, t, dt):
         """(int parameters, double parameters, S stack or None) of one
         kernel call on U.  S is the ghost-filled external-source stack of
-        the floored state, built in PyTorch on U's device."""
+        the floored state, the problem's source included, built in PyTorch
+        on U's device; with a problem source the doubles end with its
+        e_rate (`weight` gives its plane)."""
         sim = self.sim
         floor_min = torch.finfo(U.dtype).min
         ints = list(self._ints)
@@ -355,22 +386,38 @@ class CTUStep:
                 source_stack
             Uf = sim.clean_state(U) if ints[13] else U
             S = source_stack(simulation.get_external_sources(
-                t, dt, Uf, sim.ivars, sim.rp, sim.cc_data.grid), sim.ivars)
+                t, dt, Uf, sim.ivars, sim.rp, sim.cc_data.grid,
+                problem_source=sim.problem_source), sim.ivars)
             S = sim.aux_data.fill_bc_stack(S, t=t)
+        if self.problem:
+            doubles[13] = self.weight(U)[0]
         return ints, doubles, S
+
+    def weight(self, U):
+        """(e_rate, weight plane) of the problem source in U's dtype on its
+        device (made once; simulation.weight_plane), or (0.0, None)."""
+        if not self.problem:
+            return 0.0, None
+        from pyro2_tpu_torch.solvers.compressible.simulation import \
+            weight_plane
+        return weight_plane(self.sim.cc_data.grid, self.sim.rp,
+                            self.source_weight, U)
 
     def launch(self, U, t, dt):
         """Launch the CUDA kernel on U's device and current stream."""
         global launches
         self.check(U)
+        self.covered()
         if U.device.type != "cuda":
             raise ValueError("the CUDA CTU kernel takes a CUDA tensor")
         ints, doubles, S = self.kernel_args(U, t, dt)
+        W = self.weight(U)[1]
 
         lib = _load()
         nvar, nx, ny = ints[0], ints[1], ints[2]
         tiles = plan(nx, ny, nvar, U.dtype, spherical=self.spherical,
-                     with_sources=self.with_sources, flatten=bool(ints[10]))
+                     with_sources=self.with_sources, flatten=bool(ints[10]),
+                     problem=self.problem)
         G = None
         if self.spherical:
             key = (U.dtype, U.device)
@@ -384,7 +431,8 @@ class CTUStep:
         with torch.cuda.device(U.device):
             stream = torch.cuda.current_stream(U.device).cuda_stream
             err = fn(U.data_ptr(), None if S is None else S.data_ptr(),
-                     None if G is None else G.data_ptr(), out.data_ptr(),
+                     None if G is None else G.data_ptr(),
+                     None if W is None else W.data_ptr(), out.data_ptr(),
                      (ctypes.c_int * len(ints))(*ints),
                      (ctypes.c_double * len(doubles))(*doubles),
                      _c_plan(tiles), stream)

@@ -92,14 +92,15 @@ class PaddedStep:
                       int(bool(rp.get_param("compressible.use_flattening"))),
                       0, 0, 0,        # sources, sponge, floor: off
                       0, 0, 0, 0,     # solid walls: none
-                      0]              # Cartesian
+                      0, 0]           # Cartesian, no problem source
         self._doubles = [g.dx, g.dy, 0.0,  # dt, set per call
                          rp.get_param("eos.gamma"),
                          rp.get_param("compressible.z0"),
                          rp.get_param("compressible.z1"),
                          rp.get_param("compressible.delta"),
                          rp.get_param("compressible.cvisc"),
-                         0.0, 0.0, 0.0, 0.0, 0.0]  # floor, grav, sponge
+                         0.0, 0.0, 0.0, 0.0, 0.0,  # floor, grav, sponge
+                         0.0]                      # e_rate
 
     def check(self, P):
         if not isinstance(P, torch.Tensor):

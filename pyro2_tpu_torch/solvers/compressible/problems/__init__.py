@@ -1,3 +1,3 @@
-__all__ = ["acoustic_pulse", "advect", "bubble", "gresho", "hse", "kh",
-           "logo", "quad", "ramp", "rt", "rt2", "rt_multimode", "sedov",
-           "sod", "test"]
+__all__ = ["acoustic_pulse", "advect", "bubble", "convection", "gresho",
+           "heating", "hse", "kh", "logo", "plume", "quad", "ramp", "rt",
+           "rt2", "rt_multimode", "sedov", "sod", "test"]

@@ -15,6 +15,7 @@ X...]).
 """
 
 import math
+import sys
 
 import torch
 
@@ -27,8 +28,8 @@ from pyro2_tpu_torch.solvers.compressible import BC, derives, eos, riemann
 from pyro2_tpu_torch.util import msg
 
 __all__ = ["Variables", "cons_to_prim", "prim_to_cons",
-           "get_external_sources", "get_sponge_factor", "plain_step",
-           "Simulation"]
+           "get_external_sources", "get_sponge_factor", "energy_source",
+           "weight_plane", "source_weight_of", "plain_step", "Simulation"]
 
 
 class Variables:
@@ -105,23 +106,46 @@ def prim_to_cons(q, gamma, ivars, myg):
     return torch.stack(rows)
 
 
-CTU_ITEM = "B1: problem-source coverage"
+def weight_plane(myg, rp, source_weight, like):
+    """(e_rate, w) of a problem's source_weight(myg, rp), with the float64
+    weight plane w rounded once to a tensor of `like`'s dtype on its
+    device.  Both are made once per grid, function, dtype and device: a
+    per-step copy from pageable host memory would stall the host."""
+    key = (source_weight, like.dtype, like.device)
+    cache = myg.__dict__.setdefault("_source_weights", {})
+    if key not in cache:
+        e_rate, w = source_weight(myg, rp)
+        cache[key] = (e_rate, torch.as_tensor(w, dtype=like.dtype,
+                                              device=like.device))
+    return cache[key]
 
 
-def _uncovered(what, item=CTU_ITEM):
-    return NotImplementedError(
-        f"{what} waits for a later slice of the port (ROADMAP.md, {item})")
+def source_weight_of(problem_source):
+    """The `source_weight` of the problem module that defines
+    problem_source, or None.  A module that has one writes its
+    source_terms as energy_source of it, so the two cannot disagree."""
+    module = sys.modules.get(getattr(problem_source, "__module__", None))
+    return getattr(module, "source_weight", None)
+
+
+def energy_source(myg, U, ivars, rp, source_weight):
+    """The source stack of a problem whose one source is the energy rate
+    rho * e_rate * w(x, y), source_weight(myg, rp) -> (e_rate, w): zero
+    but for the energy row, (rho * e_rate) * w."""
+    e_rate, w = weight_plane(myg, rp, source_weight, U)
+    S = torch.zeros_like(U)
+    S[ivars.iener] = U[ivars.idens] * e_rate * w
+    return S
 
 
 def get_external_sources(t, dt, U, ivars, rp, myg, *,
                          U_old=None, problem_source=None):
     """External sources: gravity in y (Cartesian geometry), or radial
     gravity plus the geometric momentum terms ymom^2 / (rho r) and
-    -xmom ymom / rho (spherical geometry, present even with grav = 0).
-    With U_old (U ~ U^{n+1} including a full dt*S_old) the energy source is
-    time-centred with the corrected momentum."""
-    if problem_source:
-        raise _uncovered("problem source terms")
+    -xmom ymom / rho (spherical geometry, present even with grav = 0),
+    plus the problem's own source terms of U.  With U_old (U ~ U^{n+1}
+    including a full dt*S_old) the energy source is time-centred with the
+    corrected momentum."""
     grav = rp.get_param("compressible.grav")
 
     zero = torch.zeros_like(U[0])
@@ -149,7 +173,10 @@ def get_external_sources(t, dt, U, ivars, rp, myg, *,
         ymom_new = U[ivars.iymom] + 0.5 * dt * (S_ymom - S_old_ymom)
         rows[ivars.iymom] = S_ymom
         rows[ivars.iener] = ymom_new * grav
-    return torch.stack(rows)
+    S = torch.stack(rows)
+    if problem_source:
+        S = S + problem_source(myg, U, ivars, rp)
+    return S
 
 
 def get_sponge_factor(U, ivars, rp, myg):
@@ -170,7 +197,7 @@ def get_sponge_factor(U, ivars, rp, myg):
 
 
 def plain_step(my_data, rp, ivars, solid, tc, *, aux=None, small_dens=None,
-               sponge=False):
+               sponge=False, problem_source=None):
     """The plain tensor CTU step(U, t, dt) -> U_new on my_data.grid: density
     floor -> tracing -> half-dt sources -> transverse -> Riemann ->
     artificial viscosity -> conservative update -> (spherical pressure
@@ -180,7 +207,8 @@ def plain_step(my_data, rp, ivars, solid, tc, *, aux=None, small_dens=None,
     aux is the source container whose BCs fill the half-dt source stack:
     None leaves the external sources out altogether, small_dens None the
     floor, sponge False the sponge (the padded entries' step, which has
-    none of them; padded_step.py)."""
+    none of them; padded_step.py).  problem_source(myg, U, ivars, rp) is
+    the problem's own source, added to the external sources."""
     myg = my_data.grid
     gamma = rp.get_param("eos.gamma")
     spherical = getattr(myg, "coord_type", 0) == 1
@@ -204,7 +232,7 @@ def plain_step(my_data, rp, ivars, solid, tc, *, aux=None, small_dens=None,
         if aux is not None:
             U_xl, U_xr, U_yl, U_yr = flx.apply_source_terms(
                 U_xl, U_xr, U_yl, U_yr, U, t, my_data, aux, rp, ivars, tc,
-                dt)
+                dt, problem_source=problem_source)
 
         U_xl, U_xr, U_yl, U_yr = flx.apply_transverse_flux(
             U_xl, U_xr, U_yl, U_yr, my_data, rp, ivars, solid, tc, dt)
@@ -259,11 +287,13 @@ def plain_step(my_data, rp, ivars, solid, tc, *, aux=None, small_dens=None,
 
         if aux is not None:
             # predictor-corrector external sources
-            S_old = get_external_sources(t, dt, U_old, ivars, rp, myg)
+            S_old = get_external_sources(t, dt, U_old, ivars, rp, myg,
+                                         problem_source=problem_source)
             U[all_iv] += dt * S_old[all_iv]
 
             S_new = get_external_sources(t, dt, U, ivars, rp, myg,
-                                         U_old=U_old)
+                                         U_old=U_old,
+                                         problem_source=problem_source)
             U[all_iv] += 0.5 * dt * (S_new - S_old)[all_iv]
 
         # implicit sponge damping of the velocity (whole array)
@@ -286,8 +316,9 @@ def plain_step(my_data, rp, ivars, solid, tc, *, aux=None, small_dens=None,
 class Simulation(NullSimulation):
     """The CTU compressible hydrodynamics solver."""
 
-    # the ROADMAP item that uncovered configurations of this solver name
-    UNCOVERED_ITEM = CTU_ITEM
+    # the stage increment kind of the method-of-lines solvers (None: the
+    # CTU step)
+    MOL_KIND = None
 
     def initialize(self, *, extra_vars=None, ng=4):
         """Grid (ng=4), the 4 conserved vars (+extras), aux source-term
@@ -298,16 +329,15 @@ class Simulation(NullSimulation):
             if riemann_method == "HLLC":
                 msg.fail("ERROR: HLLC Riemann Solver is not supported "
                          "with SphericalPolar Geometry")
-            if riemann_method != "CGF":
-                # the spherical step reads the Riemann solver's interface
-                # state, which only CGF returns (the JAX package's step
-                # fails unpacking HLLC_lm's flux)
+            if riemann_method != "CGF" and self.MOL_KIND is None:
+                # the spherical CTU step reads the Riemann solver's
+                # interface state, which only CGF returns (the JAX
+                # package's step fails unpacking HLLC_lm's flux); the
+                # method-of-lines stages read the flux alone
                 raise ValueError(
                     f"the {riemann_method} Riemann solver has no interface "
-                    "state: SphericalPolar geometry needs "
+                    "state: the SphericalPolar CTU step needs "
                     "compressible.riemann = CGF")
-        if self.problem_source is not None:
-            raise _uncovered("problem source terms", self.UNCOVERED_ITEM)
         if self.rp.get_param("particles.do_particles") == 1:
             raise NotImplementedError(
                 "particles wait for a later slice of the port (ROADMAP.md "
@@ -392,7 +422,8 @@ class Simulation(NullSimulation):
         return plain_step(self.cc_data, rp, self.ivars, self.solid, self.tc,
                           aux=self.aux_data,
                           small_dens=rp.get_param("compressible.small_dens"),
-                          sponge=bool(rp.get_param("sponge.do_sponge")))
+                          sponge=bool(rp.get_param("sponge.do_sponge")),
+                          problem_source=self.problem_source)
 
     # -- host-side driver hooks --------------------------------------------
     def method_compute_timestep(self):

@@ -64,19 +64,21 @@ def interface_states(U, my_data, rp, ivars, tc, dt):
 
 
 def apply_source_terms(U_xl, U_xr, U_yl, U_yr, U, t,
-                       my_data, my_aux, rp, ivars, tc, dt):
-    """Add 0.5*dt of the (ghost-filled) external sources to the interface
-    states on the buf=1 window, in place.  Deeper ghosts get nothing: an
-    increment there would leak into the interior through the transverse
-    corrections."""
+                       my_data, my_aux, rp, ivars, tc, dt, *,
+                       problem_source=None):
+    """Add 0.5*dt of the (ghost-filled) external sources, the problem's
+    own included, to the interface states on the buf=1 window, in place.
+    Deeper ghosts get nothing: an increment there would leak into the
+    interior through the transverse corrections.  The stack's density row
+    is filled but added to no state."""
     from pyro2_tpu_torch.solvers.compressible import simulation as comp
 
     tm_source = tc.timer("sourceTerms")
     tm_source.begin()
 
     myg = my_data.grid
-    src_stack = source_stack(comp.get_external_sources(t, dt, U, ivars, rp,
-                                                       myg), ivars)
+    src_stack = source_stack(comp.get_external_sources(
+        t, dt, U, ivars, rp, myg, problem_source=problem_source), ivars)
     src_stack = my_aux.fill_bc_stack(src_stack, t=t)
 
     b = 1

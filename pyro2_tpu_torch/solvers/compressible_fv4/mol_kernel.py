@@ -26,27 +26,31 @@ and is exactly zero on every ghost cell.
     compressible_fv4.build_substep).
 
 Unlike the TPU kernel, the CUDA entries cover solid walls and a positive
-density floor, gated on the global interior.  Spherical grids, problem
-sources and the well-balanced reconstruction raise NotImplementedError, as
-does a frame whose conserved variables are not in the solvers' order
-(`covered`).
+density floor, gated on the global interior, and, in the kernels' extended
+instantiation, SphericalPolar grids (their lines, `lines`, made once on the
+device), a problem's energy source rho e_rate w(x, y) (the problem module's
+`source_weight`; a problem source of another form raises
+NotImplementedError naming ROADMAP.md A.27) and rk's well-balanced
+reconstruction.  A frame whose conserved variables are not in the solvers'
+order raises NotImplementedError (`covered`).
 """
 
 import ctypes
 import functools
 
+import numpy as np
 import torch
 
-from pyro2_tpu_torch.mesh.grid import Cartesian2d
 from pyro2_tpu_torch.solvers.compressible.ctu_kernel import MAXVAR, RIEMANN
-from pyro2_tpu_torch.solvers.compressible.simulation import _uncovered
+from pyro2_tpu_torch.solvers.compressible.simulation import (
+    source_weight_of, weight_plane)
 from pyro2_tpu_torch.solvers.compressible_fv4.fluxes import ALPHA, BETA
-from pyro2_tpu_torch.solvers.compressible_rk.simulation import MOL_ITEM
 from pyro2_tpu_torch.util import cuda_build
 
 __all__ = ["MOLSubstep", "Plan", "RkPlan", "build", "covered", "launches",
-           "plan", "rk_plan", "work", "increment_scale", "KINDS",
-           "FLOPS_PER_ZONE_BY_STAGE", "HALO", "RK_HALO", "RK_TILE", "TILE"]
+           "lines", "plan", "rk_plan", "work", "increment_scale", "KINDS",
+           "FLOPS_PER_ZONE_BY_STAGE", "FLOPS_PER_ZONE_EXTENDED", "HALO",
+           "RK_HALO", "RK_TILE", "TILE"]
 
 SOURCE = cuda_build.CSRC / "mol_substep.cu"
 
@@ -82,6 +86,16 @@ FLOPS_PER_ZONE_BY_STAGE = {
                            # the avisc (28)
         "update": 46,      # divergence (20) and the averaged sources (26)
     },
+}
+
+# the operations the extended instantiation adds per interior zone, by what
+# it covers: the spherical sources (rk: and the spherical vertex
+# divergence of two faces' viscosity, 2 x 2 x 16 more than the Cartesian
+# one), a problem's energy source and (rk) the well-balanced pressure
+# states; fv4 takes the Laplacian and average of one more source plane
+FLOPS_PER_ZONE_EXTENDED = {
+    "rk": {"spherical": 9 + 64, "problem": 3, "well_balanced": 20},
+    "fv4": {"spherical": 9 + 11, "problem": 3, "well_balanced": 0},
 }
 
 launches = {"mol_rk": 0, "mol_fv4": 0}   # read by chip_smoke.py
@@ -132,7 +146,8 @@ class Plan:
 
     ARRAYS = ("q", "xi", "sc", "qix", "qiy", "r")
 
-    def __init__(self, nx, ny, nvar, dtype, *, flatten=True):
+    def __init__(self, nx, ny, nvar, dtype, *, flatten=True,
+                 extended=False):
         self.nx, self.ny, self.nvar = nx, ny, nvar
         self.tx, self.ty = TILE[dtype]
         self.threads = THREADS[dtype]
@@ -148,7 +163,9 @@ class Plan:
         _lay_out(self, {
             "q": nvar * self.box("prim"),
             "xi": 2 * self.box("flatten") if flatten else 0,
-            "sc": 2 * self.box("states"),
+            # the centred sources of ymom and ener; in the extended
+            # instantiation of xmom, ymom and ener
+            "sc": (3 if extended else 2) * self.box("states"),
             "qix": nvar * (tx + 1) * (ty + 2),
             "qiy": nvar * (tx + 2) * (ty + 1),
             "r": max(states, fluxes),
@@ -272,9 +289,9 @@ def _load():
         doubles = ctypes.POINTER(ctypes.c_double)
         for kind in KINDS:
             for dt in ("f32", "f64"):
-                # U, k, ints, doubles, plan, stream
+                # U, lines, weight, k, ints, doubles, plan, stream
                 fn = getattr(lib, f"mol_{kind}_substep_{dt}")
-                fn.argtypes = [ctypes.c_void_p] * 2 + [ints, doubles, ints,
+                fn.argtypes = [ctypes.c_void_p] * 4 + [ints, doubles, ints,
                                                        ctypes.c_void_p]
                 fn.restype = ctypes.c_int
         lib.mol_rk_plan_ints.restype = ctypes.c_int
@@ -286,13 +303,44 @@ def _load():
     return _lib
 
 
-def work(kind, nx, ny, nvar, dtype):
+def work(kind, nx, ny, nvar, dtype, *, spherical=False, problem=False,
+         well_balanced=False):
     """(bytes, operations) one stage increment must move and do at least:
-    the state read once and k written once, and the operations counted
-    from the source per interior zone."""
+    the state read once and k written once (and a problem source's weight
+    plane, and on a SphericalPolar grid its lines), and the operations
+    counted from the source per interior zone (FLOPS_PER_ZONE_BY_STAGE,
+    plus FLOPS_PER_ZONE_EXTENDED for what the configuration covers)."""
     item = torch.empty((), dtype=dtype).element_size()
+    qx, qy = nx + 8, ny + 8
     flops = sum(FLOPS_PER_ZONE_BY_STAGE[kind].values())
-    return 2 * nvar * (nx + 8) * (ny + 8) * item, flops * nx * ny
+    values = 2 * nvar * qx * qy
+    extra = FLOPS_PER_ZONE_EXTENDED[kind]
+    if spherical:
+        flops += extra["spherical"]
+        values += LINES_ROWS * qx + LINES_LANES * qy
+    if problem:
+        flops += extra["problem"]
+        values += qx * qy
+    if well_balanced:
+        flops += extra["well_balanced"]
+    return values * item, flops * nx * ny
+
+
+# the lines of a SphericalPolar grid (mol_substep.cu's Lines): over i the
+# cell width Ly = r dtheta, the centre radius r, the node radius and r - dr;
+# over j sin(theta) at the node, the centre and the centre below
+LINES_ROWS, LINES_LANES = 4, 3
+
+
+def lines(myg, dtype, device):
+    """The lines buffer of SphericalPolar grid myg: the grid's float64 host
+    arrays, laid out as mol_substep.cu reads them and rounded once to
+    dtype."""
+    parts = [myg.Ly[:, 0], myg.x, myg.xl, myg.x - myg.dx,
+             np.sin(myg.yl), np.sin(myg.y), np.sin(myg.y - myg.dy)]
+    host = np.concatenate([np.ascontiguousarray(a, dtype=np.float64).ravel()
+                           for a in parts])
+    return torch.as_tensor(host, dtype=dtype, device=device)
 
 
 def increment_scale(sim, kind, U, t, dt):
@@ -307,6 +355,7 @@ def increment_scale(sim, kind, U, t, dt):
     myg = sim.cc_data.grid
     rp, ivars = sim.rp, sim.ivars
     U = _floored(U, rp.get_param("compressible.small_dens"), ivars, myg)
+    ps = sim.problem_source
 
     class _Data:
         grid = myg
@@ -314,13 +363,13 @@ def increment_scale(sim, kind, U, t, dt):
     if kind == "rk":
         from pyro2_tpu_torch.solvers.compressible_rk import fluxes
         F_x, F_y = fluxes.fluxes(U, _Data(), rp, ivars, sim.solid, sim.tc)
-        S = get_external_sources(t, dt, U, ivars, rp, myg)
+        S = get_external_sources(t, dt, U, ivars, rp, myg, problem_source=ps)
     else:
         from pyro2_tpu_torch.mesh.fv import to_centers_array
         from pyro2_tpu_torch.solvers.compressible_fv4 import fluxes
         F_x, F_y = fluxes.fluxes(U, _Data(), rp, ivars)
         S = get_external_sources(t, dt, to_centers_array(U, myg), ivars, rp,
-                                 myg)
+                                 myg, problem_source=ps)
     return (float(ai(F_x, myg).v(buf=(0, 1, 0, 0)).abs().max()) / myg.dx +
             float(ai(F_y, myg).v(buf=(0, 0, 0, 1)).abs().max()) / myg.dy +
             float(ai(S, myg).v(buf=1).abs().max()))
@@ -336,10 +385,6 @@ class MOLSubstep:
         rp = sim.rp
         myg = sim.cc_data.grid
         ivars = sim.ivars
-        if not isinstance(myg, Cartesian2d):
-            raise _uncovered("spherical geometry", MOL_ITEM)
-        if sim.problem_source is not None:
-            raise _uncovered("problem source terms", MOL_ITEM)
         if not 4 <= ivars.nvar <= MAXVAR:
             raise NotImplementedError(
                 f"the MOL kernels take 4..{MAXVAR} variables, not "
@@ -349,11 +394,10 @@ class MOLSubstep:
                 f"the MOL kernels take 4 ghost cells, not {myg.ng}")
         riemann = 2        # fv4 always solves CGF on primitive states
         covered(ivars)
+        # fv4 has no well-balanced reconstruction
+        well_balanced = kind == "rk" and \
+            bool(rp.get_param("compressible.well_balanced"))
         if kind == "rk":
-            from pyro2_tpu_torch.solvers.compressible_rk.fluxes import \
-                uncovered_well_balanced
-            if rp.get_param("compressible.well_balanced"):
-                raise uncovered_well_balanced()
             method = rp.get_param("compressible.riemann")
             if method not in RIEMANN:
                 raise ValueError(f"unknown Riemann solver {method}")
@@ -364,6 +408,13 @@ class MOLSubstep:
         self.plain = sim._make_substep()
         self.shape = (ivars.nvar, myg.qx, myg.qy)
         self.small_dens = rp.get_param("compressible.small_dens")
+        self.spherical = getattr(myg, "coord_type", 0) == 1
+        self.problem = sim.problem_source is not None
+        self.source_weight = source_weight_of(sim.problem_source) \
+            if self.problem else None
+        self.well_balanced = well_balanced
+        self.extended = self.spherical or self.problem or well_balanced
+        self._lines = {}     # the spherical lines buffer by dtype, device
         s = sim.solid
         # the fv4 pipeline clamps no walls (riemann_prim with solid 0, 0)
         walls = [s.xl, s.xr, s.yl, s.yr] if kind == "rk" else [0, 0, 0, 0]
@@ -376,7 +427,9 @@ class MOLSubstep:
                           # version adds its (zero when grav = 0) S stack
                       int(bool(rp.get_param("sponge.do_sponge"))),
                       0,  # has_floor, set per dtype
-                      *walls]
+                      *walls,
+                      int(self.spherical), int(self.problem),
+                      int(well_balanced)]
         # the host-side constants are rounded in double, as the plain
         # version's Python floats are
         self._doubles = [myg.dx, myg.dy, 0.0,  # dt, set per call
@@ -391,11 +444,25 @@ class MOLSubstep:
                          rp.get_param("sponge.sponge_rho_full"),
                          rp.get_param("sponge.sponge_timescale"),
                          myg.dx ** 2, myg.dy ** 2, myg.dx ** 2 / 24.0,
-                         -myg.dx ** 2, ALPHA, BETA * gamma]
+                         -myg.dx ** 2, ALPHA, BETA * gamma,
+                         0.0]   # e_rate, set with the weight plane
 
     @property
     def name(self):
         return f"mol_{self.kind}"
+
+    def covered(self):
+        """Raise unless the kernel takes this configuration: a problem
+        source must be an energy rate rho e_rate w(x, y) (the problem
+        module's source_weight), and the well-balanced reconstruction
+        takes limiter 1 alone (ValueError, as the plain version's)."""
+        if self.problem and self.source_weight is None:
+            raise NotImplementedError(
+                "a problem source other than the energy rate rho e_rate "
+                "w(x, y) waits for a later slice of the port (ROADMAP.md "
+                "A.27)")
+        if self.well_balanced and self._ints[9] != 1:
+            raise ValueError("well-balanced only works for limiter == 1")
 
     def check(self, U):
         """Raise on anything the kernel and its plain version do not take."""
@@ -418,22 +485,44 @@ class MOLSubstep:
         return self.launch(U, t, dt)
 
     def kernel_args(self, U, dt):
-        """(int parameters, double parameters) of one kernel call on U."""
+        """(int parameters, double parameters) of one kernel call on U;
+        with a problem source the doubles end with its e_rate (`buffers`
+        gives its plane)."""
         floor_min = torch.finfo(U.dtype).min
         ints = list(self._ints)
         doubles = list(self._doubles)
         ints[13] = int(self.small_dens > floor_min)
         doubles[2] = float(dt)
         doubles[8] = max(self.small_dens, floor_min)
+        if self.problem:
+            doubles[19] = weight_plane(self.sim.cc_data.grid, self.sim.rp,
+                                       self.source_weight, U)[0]
         return ints, doubles
+
+    def buffers(self, U):
+        """(spherical lines, weight plane) in U's dtype on its device, each
+        None where the configuration has none; each made once."""
+        G = W = None
+        if self.spherical:
+            key = (U.dtype, U.device)
+            if key not in self._lines:
+                self._lines[key] = lines(self.sim.cc_data.grid, U.dtype,
+                                         U.device)
+            G = self._lines[key]
+        if self.problem:
+            W = weight_plane(self.sim.cc_data.grid, self.sim.rp,
+                             self.source_weight, U)[1]
+        return G, W
 
     def launch(self, U, t, dt):
         """Launch the CUDA kernel on U's device and current stream.  The
         gravity source does not depend on t, so t is not passed."""
         self.check(U)
+        self.covered()
         if U.device.type != "cuda":
             raise ValueError("the CUDA MOL kernel takes a CUDA tensor")
         ints, doubles = self.kernel_args(U, dt)
+        G, W = self.buffers(U)
 
         lib = _load()
         k = torch.empty_like(U)
@@ -441,11 +530,18 @@ class MOLSubstep:
         fn = getattr(lib, f"mol_{self.kind}_substep_{suffix}")
         c_ints = (ctypes.c_int * len(ints))(*ints)
         c_doubles = (ctypes.c_double * len(doubles))(*doubles)
-        make = rk_plan if self.kind == "rk" else plan
-        tiles = make(ints[1], ints[2], self.shape[0], U.dtype,
-                     flatten=bool(ints[10])).ints()
-        args = (U.data_ptr(), k.data_ptr(), c_ints, c_doubles,
-                (ctypes.c_int * len(tiles))(*tiles))
+        if self.kind == "rk":
+            # the extended instantiation reads its sources' inputs from
+            # device memory and holds nothing more in shared memory
+            tiles = rk_plan(ints[1], ints[2], self.shape[0], U.dtype,
+                            flatten=bool(ints[10])).ints()
+        else:
+            tiles = plan(ints[1], ints[2], self.shape[0], U.dtype,
+                         flatten=bool(ints[10]),
+                         extended=self.extended).ints()
+        args = (U.data_ptr(), None if G is None else G.data_ptr(),
+                None if W is None else W.data_ptr(), k.data_ptr(), c_ints,
+                c_doubles, (ctypes.c_int * len(tiles))(*tiles))
         with torch.cuda.device(U.device):
             stream = torch.cuda.current_stream(U.device).cuda_stream
             err = fn(*args, stream)

@@ -1,10 +1,9 @@
 """MOL fluxes for compressible flow: plain PLM interface states (no
-characteristic tracing), a single Riemann pass and artificial viscosity.
+characteristic tracing), a single Riemann pass, artificial viscosity, and
+the optional well-balanced hydrostatic pressure reconstruction
+(`compressible.well_balanced`).
 
-The port of pyro2_tpu/solvers/compressible_rk/fluxes.py.  The
-well-balanced hydrostatic reconstruction (`compressible.well_balanced`)
-waits for `reconstruction.well_balance` (ROADMAP.md A.9) and
-raises.
+The port of pyro2_tpu/solvers/compressible_rk/fluxes.py.
 """
 
 import torch
@@ -14,21 +13,12 @@ from pyro2_tpu_torch.mesh import reconstruction
 from pyro2_tpu_torch.mesh.indexer import ai, embed
 from pyro2_tpu_torch.solvers.compressible import riemann
 
-__all__ = ["fluxes", "uncovered_well_balanced"]
-
-
-def uncovered_well_balanced():
-    return NotImplementedError(
-        "compressible.well_balanced waits for reconstruction.well_balance "
-        "(ROADMAP.md A.9)")
+__all__ = ["fluxes"]
 
 
 def fluxes(U, my_data, rp, ivars, solid, tc):
     """(F_x, F_y) through all interfaces from one unsplit reconstruction."""
     from pyro2_tpu_torch.solvers.compressible import simulation as comp
-
-    if rp.get_param("compressible.well_balanced"):
-        raise uncovered_well_balanced()
 
     tm_flux = tc.timer("unsplitFluxes")
     tm_flux.begin()
@@ -51,6 +41,14 @@ def fluxes(U, my_data, rp, ivars, solid, tc):
     ldy = torch.stack([xi * reconstruction.limit(q[n], myg, 2, limiter)
                        for n in range(ivars.nq)])
 
+    well_balanced = rp.get_param("compressible.well_balanced")
+    grav = rp.get_param("compressible.grav")
+    if well_balanced:
+        # the hydrostatic-subtracted y slope of the pressure replaces the
+        # flattened one (xi does not multiply it)
+        ldy[ivars.ip] = reconstruction.well_balance(q, myg, limiter, ivars,
+                                                    grav)
+
     b = 2
     qw = ai(q, myg).v(buf=b)
     ldx_w = ai(ldx, myg).v(buf=b)
@@ -58,8 +56,15 @@ def fluxes(U, my_data, rp, ivars, solid, tc):
 
     V_xl = embed(qw + 0.5 * ldx_w, myg, buf=b, ishift=1)
     V_xr = embed(qw - 0.5 * ldx_w, myg, buf=b)
-    V_yl = embed(qw + 0.5 * ldy_w, myg, buf=b, jshift=1)
-    V_yr = embed(qw - 0.5 * ldy_w, myg, buf=b)
+    V_yl_w = qw + 0.5 * ldy_w
+    V_yr_w = qw - 0.5 * ldy_w
+    if well_balanced:
+        # p0 + p1 on the y faces: the hydrostatic p0 part added back
+        p0_incr = 0.5 * myg.dy * qw[ivars.irho] * grav
+        V_yl_w[ivars.ip] = qw[ivars.ip] + p0_incr + 0.5 * ldy_w[ivars.ip]
+        V_yr_w[ivars.ip] = qw[ivars.ip] - p0_incr - 0.5 * ldy_w[ivars.ip]
+    V_yl = embed(V_yl_w, myg, buf=b, jshift=1)
+    V_yr = embed(V_yr_w, myg, buf=b)
 
     U_xl = comp.prim_to_cons(V_xl, gamma, ivars, myg)
     U_xr = comp.prim_to_cons(V_xr, gamma, ivars, myg)

@@ -17,10 +17,7 @@ from pyro2_tpu_torch.mesh.indexer import ai, embed
 from pyro2_tpu_torch.solvers import compressible
 from pyro2_tpu_torch.solvers.compressible import eos
 
-__all__ = ["build_substep", "Simulation", "MOL_ITEM"]
-
-MOL_ITEM = ("A.9 and B5: spherical and "
-            "problem-source coverage of the method-of-lines tier")
+__all__ = ["build_substep", "Simulation"]
 
 
 def _floored(U, small_dens, ivars, myg):
@@ -48,7 +45,9 @@ def _sponge(k_v, U, ivars, rp, myg):
 
 def build_substep(myg, rp, ivars, solid, tc, problem_source=None):
     """The plain MOL stage increment substep(U, t, dt) -> k on a grid:
-    k is zero on the ghosts, and U is not modified."""
+    k is zero on the ghosts, and U is not modified.  On a SphericalPolar
+    grid the sources are spherical but the flux divergence stays the
+    Cartesian one over dx and dy, as in the JAX package."""
     small_dens = rp.get_param("compressible.small_dens")
     do_sponge = rp.get_param("sponge.do_sponge")
 
@@ -81,7 +80,6 @@ def build_substep(myg, rp, ivars, solid, tc, problem_source=None):
 class Simulation(compressible.Simulation):
     """The MOL compressible hydrodynamics solver."""
 
-    UNCOVERED_ITEM = MOL_ITEM
     MOL_KIND = "rk"
 
     def _make_kernel_step(self):

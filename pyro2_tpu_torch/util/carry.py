@@ -57,9 +57,11 @@ def carry_simulation(solver_name, problem_name, params, state, *, t=0.0,
     solver = importlib.import_module(f"pyro2_tpu_torch.solvers.{solver_name}")
     problem = importlib.import_module(
         f"pyro2_tpu_torch.solvers.{solver_name}.problems.{problem_name}")
-    sim = solver.Simulation(solver_name, problem_name, problem.init_data, rp,
-                            problem_finalize_func=problem.finalize,
-                            device=device, dtype=dtype)
+    sim = solver.Simulation(
+        solver_name, problem_name, problem.init_data, rp,
+        problem_finalize_func=problem.finalize,
+        problem_source_func=getattr(problem, "source_terms", None),
+        device=device, dtype=dtype)
     if extra_vars:
         sim.initialize(extra_vars=extra_vars)
     else:

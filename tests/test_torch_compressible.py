@@ -313,23 +313,30 @@ SPHERICAL = {"mesh.nx": 16, "mesh.ny": 16,
 
 
 def test_uncovered_configurations_raise():
-    """The method-of-lines solvers stay refused on a spherical grid (the
-    shared interface and Riemann modules no longer refuse it), naming A.9;
-    problem source terms stay refused in the CTU solver, naming B1."""
+    """The method-of-lines solvers run on a spherical grid (their stages
+    read no interface state), through the kernels' extended
+    instantiation.  A problem source that is not an energy rate rho e_rate
+    w(x, y) (its module has no source_weight) initializes and steps on the
+    CPU, and the CTU kernel's launch refuses it naming A.27 before it
+    looks at the device, so the refusal shows without a card."""
     for solver in ("compressible_rk", "compressible_fv4", "compressible_sdc"):
         pt = Pyro(solver, device="cpu")
-        with pytest.raises(NotImplementedError,
-                           match=r"spherical geometry .*ROADMAP.*A\.9"):
-            pt.initialize_problem("acoustic_pulse", inputs_dict={
-                **SPHERICAL, "compressible.riemann": "CGF"})
+        # square cells (dr = dtheta), which fv4's averages need
+        pt.initialize_problem("acoustic_pulse", inputs_dict={
+            **SPHERICAL, "mesh.ymax": SPHERICAL["mesh.ymin"] + 0.5,
+            "compressible.riemann": "CGF"})
+        assert pt.sim._step.spherical and pt.sim._step.extended
     pt = Pyro("compressible", device="cpu")
     pt.initialize_problem("quad", inputs_dict={"mesh.nx": 16,
                                                 "mesh.ny": 16})
     sim = tcomp.Simulation("compressible", "quad", quad.init_data, pt.rp,
                            problem_source_func=lambda *a: 0.0, device="cpu")
+    sim.initialize()
+    U = sim.cc_data.data
+    assert sim._step(U, 0.0, 1e-4).shape == U.shape    # the plain step
     with pytest.raises(NotImplementedError,
-                       match=r"problem source terms .*ROADMAP.*B1"):
-        sim.initialize()
+                       match=r"problem source .*ROADMAP\.md A\.27"):
+        sim._step.launch(U, 0.0, 1e-4)
 
 
 @pytest.mark.parametrize("riemann,jax_error,jax_match,error,match", [

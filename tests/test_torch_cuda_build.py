@@ -144,8 +144,8 @@ def test_ctu_entries_match_their_bindings(monkeypatch):
     from pyro2_tpu_torch.solvers.compressible import ctu_kernel
 
     entries = _extern_params("ctu_step.cu")
-    assert entries == {"ctu_plan_ints": 0, "ctu_step_f32": 8,
-                       "ctu_step_f64": 8, "ctu_step_batched_f32": 7,
+    assert entries == {"ctu_plan_ints": 0, "ctu_step_f32": 9,
+                       "ctu_step_f64": 9, "ctu_step_batched_f32": 7,
                        "ctu_step_batched_f64": 7}
     text = (cuda_build.CSRC / "ctu_step.cu").read_text()
     assert "scratch" not in text.split("namespace {", 1)[1]
@@ -196,8 +196,8 @@ def test_mol_entries_match_their_bindings(monkeypatch):
 
     entries = _extern_params("mol_substep.cu")
     assert entries == {"mol_rk_plan_ints": 0, "mol_fv4_plan_ints": 0,
-                       "mol_rk_substep_f32": 6, "mol_rk_substep_f64": 6,
-                       "mol_fv4_substep_f32": 6, "mol_fv4_substep_f64": 6}
+                       "mol_rk_substep_f32": 8, "mol_rk_substep_f64": 8,
+                       "mol_fv4_substep_f32": 8, "mol_fv4_substep_f64": 8}
     text = (cuda_build.CSRC / "mol_substep.cu").read_text()
     for kind in ("rk", "fv4"):
         for t in ("f32", "f64"):

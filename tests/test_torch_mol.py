@@ -306,31 +306,49 @@ def test_launch_refuses_cpu_tensors():
 @pytest.mark.parametrize("solver", ["compressible_rk", "compressible_fv4",
                                     "compressible_sdc"])
 def test_uncovered_configurations_raise(solver):
-    """Spherical grids stay refused in the MOL tier, naming its ROADMAP
-    item, with the one Riemann solver the CTU solver takes there (with
-    compressible_rk's default HLLC, initialize fails first, as the JAX
-    package's does)."""
+    """Spherical grids run in the MOL tier with the one Riemann solver the
+    CTU solver takes there (with compressible_rk's default HLLC, initialize
+    fails first, as the JAX package's does).  A problem source that is not
+    an energy rate rho e_rate w(x, y) steps on the CPU and the kernel's
+    launch refuses it naming A.27; the well-balanced reconstruction with a
+    limiter other than 1 fails as the JAX package's does, in the plain
+    stage and in the launch (both before the device is looked at)."""
     spherical = {"mesh.nx": 16, "mesh.ny": 16,
                  "mesh.grid_type": "SphericalPolar",
                  "mesh.xmin": 0.5, "mesh.xmax": 1.0,
                  "mesh.ymin": 0.7853981633974483,
-                 "mesh.ymax": 2.356194490192345}
+                 "mesh.ymax": 0.7853981633974483 + 0.5}
     pt = Pyro(solver, device="cpu")
-    with pytest.raises(NotImplementedError, match=r"ROADMAP.md, A\.9"):
-        pt.initialize_problem("advect", inputs_dict={
-            **spherical, "compressible.riemann": "CGF"})
+    pt.initialize_problem("advect", inputs_dict={
+        **spherical, "compressible.riemann": "CGF"})
+    pt.single_step()
+    assert pt.sim._step.spherical
     if solver == "compressible_rk":
         pt = Pyro(solver, device="cpu")
         with pytest.raises(RuntimeError, match="HLLC Riemann Solver is not "
                            "supported with SphericalPolar"):
             pt.initialize_problem("advect", inputs_dict=spherical)
+    pt = Pyro(solver, device="cpu")
+    pt.initialize_problem("acoustic_pulse", inputs_dict={"mesh.nx": 16,
+                                                          "mesh.ny": 16})
+    sim = type(pt.sim)(solver, "acoustic_pulse", pt.problem_func, pt.rp,
+                       problem_source_func=lambda *a: 0.0, device="cpu")
+    sim.initialize()
+    U = sim.cc_data.data
+    assert sim._step(U, 0.0, 1e-4).shape == U.shape    # the plain stage
+    with pytest.raises(NotImplementedError,
+                       match=r"problem source .*ROADMAP\.md A\.27"):
+        sim._step.launch(U, 0.0, 1e-4)
     if solver == "compressible_rk":
         pt = Pyro(solver, device="cpu")
-        with pytest.raises(NotImplementedError,
-                           match=r"well_balance .*ROADMAP.md A\.9"):
-            pt.initialize_problem("rt", inputs_dict={
-                "mesh.nx": 16, "mesh.ny": 48,
-                "compressible.well_balanced": 1})
+        pt.initialize_problem("rt", inputs_dict={
+            "mesh.nx": 16, "mesh.ny": 48,
+            "compressible.well_balanced": 1})
+        U = pt.sim.cc_data.data
+        with pytest.raises(ValueError, match="limiter == 1"):
+            pt.sim._step(U, 0.0, 1e-4)
+        with pytest.raises(ValueError, match="limiter == 1"):
+            pt.sim._step.launch(U, 0.0, 1e-4)
 
 
 def test_f32_plain_fv4_substep_matches_pallas_interpret():

@@ -155,7 +155,9 @@ Phases (any failure exits non-zero and prints no result line):
      limiter 1, fv4 convection, fv4 spherical Sedov) against the plain
      stage increment, as in phases 3 and 3b, at 200x136, 1024x1000 and
      1024^2 (fv4's domains sized to square cells, convection's heated
-     layer at y 0.3 inside them); whole runs in float64 at the published
+     layer at y 0.3 inside them), and each of both kernels' configurations
+     again at the grid and inputs of each path below, in float64 (1e-12)
+     and float32 (1e-5); whole runs in float64 at the published
      grids for 10 steps on the card against the port's CPU run (interiors
      within 1e-10 max|a| and equal dt after each step, the kernel of the
      solver launched once a step or stage and no other); then the paths
@@ -335,6 +337,30 @@ MOL_SRC_CONFIGS = (
      {"convection.y_height": 0.3}),
     ("fv4_sph_sedov", "compressible_fv4", "sedov", SPH_MOL),
 )
+# phase 5f's full-width paths, each with its problem's published inputs
+# and only the grid and the step count changed: (label, solver, problem,
+# nx, ny, steps, inputs); the MOL ones also name their kernel and its
+# launches a step.  Each kernel configuration is also held against its
+# plain version at its path's grid and inputs
+SRC_PATHS = (
+    ("heating", "compressible", "heating", 1024, 1024, 50, {}),
+    ("convection", "compressible", "convection", 512, 1536, 50, {}),
+    ("plume", "compressible", "plume", 512, 1024, 50, {}),
+    ("react_rt", "compressible_react", "rt", 256, 768, 50, {}),
+    ("react_flame", "compressible_react", "flame", 1024, 1024, 50, {}),
+)
+MOL_SRC_PATHS = (
+    ("rk_heating", "compressible_rk", "heating", 1024, 1024, 10, "mol_rk", 4,
+     {}),
+    ("fv4_convection", "compressible_fv4", "convection", 512, 1536, 10,
+     "mol_fv4", 4, {}),
+    ("sdc_convection", "compressible_sdc", "convection", 512, 1536, 3,
+     "mol_fv4", 9, {}),
+    ("rk_sph_sedov", "compressible_rk", "sedov", 1024, 1024, 10, "mol_rk", 4,
+     {**SPH_MOL, "compressible.riemann": "CGF"}),
+    ("rk_hse_well_balanced", "compressible_rk", "hse", 576, 1728, 10,
+     "mol_rk", 4, WELL_BALANCED),
+)
 # whole runs in float64 on the card against the CPU at the published
 # grids (the spherical Sedov runs on 128^2, fv4's theta from 128 dr):
 # (solver, problem, inputs, kernel, launches a step)
@@ -445,10 +471,17 @@ def interior(U, g):
 def compare(name, problem, inputs, extra, nx, ny, dtype, tol,
             solver="compressible"):
     """Kernel vs plain step from the same state after 3 kernel steps."""
-    import torch
-
     sim = make_sim(problem, {"mesh.nx": nx, "mesh.ny": ny, **inputs},
                    dtype, extra, solver=solver)
+    return ctu_check(name, sim, tol)
+
+
+def ctu_check(name, sim, tol):
+    """The CTU kernel vs its plain step on a live simulation on the card,
+    one step from the same state after 3 kernel steps; returns
+    max |diff|."""
+    import torch
+
     for _ in range(3):
         sim.cc_data.fill_BC_all()
         sim.compute_timestep()
@@ -467,8 +500,8 @@ def compare(name, problem, inputs, extra, nx, ny, dtype, tol,
     ghost[g.ilo:g.ihi + 1, g.jlo:g.jhi + 1] = False
     ghosts = torch.equal(got[:, ghost], U[:, ghost])
     ok = bool(torch.isfinite(b).all()) and err <= tol * scale and ghosts
-    log(f"  {'ok ' if ok else 'BAD'} {name:27s} {nx}x{ny} "
-        f"{str(dtype)[6:]:8s} max|diff| = {err:.3e}  "
+    log(f"  {'ok ' if ok else 'BAD'} {name:27s} {g.nx}x{g.ny} "
+        f"{str(U.dtype)[6:]:8s} max|diff| = {err:.3e}  "
         f"(tol {tol:g} x max|U| = {tol * scale:.3e}), ghosts kept: {ghosts}")
     if not ok:
         raise AssertionError(f"kernel disagrees with the plain step: {name}")
@@ -498,11 +531,18 @@ def square_cells(inputs, nx, ny):
 def mol_compare(name, solver, problem, inputs, extra, nx, ny, dtype, tol):
     """A MOL kernel vs its plain version, one stage increment from the
     same state after 3 kernel steps; returns max |diff|."""
+    return mol_check(name, mol_sim(solver, problem, inputs, extra, nx, ny,
+                                   dtype), tol)
+
+
+def mol_check(name, sim, tol):
+    """A MOL kernel vs its plain version on a live simulation on the card,
+    one stage increment from the same state after 3 kernel steps; returns
+    max |diff|."""
     import torch
 
     from pyro2_tpu_torch.solvers.compressible_fv4 import mol_kernel
 
-    sim = mol_sim(solver, problem, inputs, extra, nx, ny, dtype)
     for _ in range(3):
         sim.cc_data.fill_BC_all()
         sim.compute_timestep()
@@ -522,7 +562,7 @@ def mol_compare(name, solver, problem, inputs, extra, nx, ny, dtype, tol):
     zero = not bool(got[:, ghost].any())
     ok = bool(torch.isfinite(got).all()) and err <= tol * scale and zero
     log(f"  {'ok ' if ok else 'BAD'} {name:29s} {g.nx}x{g.ny} "
-        f"{str(dtype)[6:]:8s} max|diff| = {err:.3e}  (tol {tol:g} x "
+        f"{str(U.dtype)[6:]:8s} max|diff| = {err:.3e}  (tol {tol:g} x "
         f"{scale:.4g} = {tol * scale:.3e}), ghosts of k zero: {zero}")
     if not ok:
         raise AssertionError(f"MOL kernel disagrees with its plain "
@@ -3244,26 +3284,42 @@ def main():
     # well-balanced MOL stages, and compressible_react
     log(f"[ctu_step with problem sources, and compressible_react (nvar 6), "
         f"vs plain step on the card; {smi}]")
-    src_err = {}
     for dtype, tol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
         for nx, ny in CTU_SHAPES:
             for name, solver, problem, inputs in SRC_CONFIGS:
-                err = compare(name, problem, inputs, None, nx, ny, dtype,
-                              tol, solver=solver)
-                if (nx, ny, dtype) == (1024, 1024, torch.float32):
-                    src_err[name] = err
+                compare(name, problem, inputs, None, nx, ny, dtype, tol,
+                        solver=solver)
+            torch.cuda.empty_cache()
+    log(f"[ctu_step with problem sources and nvar 6 vs plain step at the "
+        f"phase 5f paths' grids and inputs; {smi}]")
+    src_err = {}
+    for dtype, tol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
+        for label, solver, problem, nx, ny, _, inputs in SRC_PATHS:
+            err = ctu_check(label, make_sim(problem, {
+                "mesh.nx": nx, "mesh.ny": ny, **inputs}, dtype,
+                solver=solver), tol)
+            if dtype == torch.float32:
+                src_err[label] = err
             torch.cuda.empty_cache()
     log(f"[mol_substep's extended instantiation (problem sources, spherical "
         f"grids, well-balanced) vs plain stage increment on the card; "
         f"{smi}]")
-    mol_src_err = {}
     for dtype, tol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
         for nx, ny in CTU_SHAPES:
             for name, solver, problem, inputs in MOL_SRC_CONFIGS:
-                err = mol_compare(name, solver, problem, inputs, None, nx,
-                                  ny, dtype, tol)
-                if (nx, ny, dtype) == (1024, 1024, torch.float32):
-                    mol_src_err[name] = err
+                mol_compare(name, solver, problem, inputs, None, nx, ny,
+                            dtype, tol)
+            torch.cuda.empty_cache()
+    log(f"[mol_substep's extended instantiation vs plain stage increment at "
+        f"the phase 5f paths' grids and inputs; {smi}]")
+    mol_src_err = {}
+    for dtype, tol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
+        for label, solver, problem, nx, ny, *_, inputs in MOL_SRC_PATHS:
+            err = mol_check(label, make_sim(problem, {
+                "mesh.nx": nx, "mesh.ny": ny, **inputs}, dtype,
+                solver=solver), tol)
+            if dtype == torch.float32:
+                mol_src_err[label] = err
             torch.cuda.empty_cache()
     log(f"[whole runs at the published grids, float64, 10 steps, card "
         f"against CPU; {smi}]")
@@ -3272,26 +3328,13 @@ def main():
                         per_step)
     log(f"[phase 5f paths: Pyro -> run_sim, CUDA float32; {smi}]")
     src_paths = {
-        "heating": main_path("heating", 1024, 1024, 50),
-        "convection": main_path("convection", 512, 1536, 50),
-        "plume": main_path("plume", 512, 1024, 50),
-        "react_rt": main_path("rt", 256, 768, 50,
-                              solver="compressible_react"),
-        "react_flame": main_path("flame", 1024, 1024, 50,
-                                 solver="compressible_react")}
+        label: main_path(problem, nx, ny, steps, inputs, solver=solver)
+        for label, solver, problem, nx, ny, steps, inputs in SRC_PATHS}
     mol_src_paths = {
-        "rk_heating": mol_main_path("compressible_rk", "heating", 1024,
-                                    1024, 10, "mol_rk", 4),
-        "fv4_convection": mol_main_path("compressible_fv4", "convection",
-                                        512, 1536, 10, "mol_fv4", 4),
-        "sdc_convection": mol_main_path("compressible_sdc", "convection",
-                                        512, 1536, 3, "mol_fv4", 9),
-        "rk_sph_sedov": mol_main_path(
-            "compressible_rk", "sedov", 1024, 1024, 10, "mol_rk", 4,
-            {**SPH_MOL, "compressible.riemann": "CGF"}),
-        "rk_hse_well_balanced": mol_main_path(
-            "compressible_rk", "hse", 576, 1728, 10, "mol_rk", 4,
-            WELL_BALANCED)}
+        label: mol_main_path(solver, problem, nx, ny, steps, kernel,
+                             per_step, inputs)
+        for (label, solver, problem, nx, ny, steps, kernel, per_step,
+             inputs) in MOL_SRC_PATHS}
 
     # 6. timing at the main paths' shapes
     log("[timing: quad 1024^2 float32, CUDA events]")
@@ -3677,26 +3720,31 @@ def main():
             "bound_by": b_by,
             "library_ms": None,
         })
-    # each new configuration's entry: the times and the 1024^2 float32
-    # check of the configuration it names, the launches of its paths
-    ms, p_ms, b_ms, b_by = src_times["heating"]
-    kernels.append({
-        "name": "ctu_step_problem_source",
-        "route": "cuda",
-        "source": "pyro2_tpu_torch/csrc/ctu_step.cu",
-        "replaces": "pyro2_tpu/solvers/compressible/pallas_step.py:603",
-        "launches": sum(n for _, _, n in src_paths.values()),
-        "max_abs_err": src_err["heating"],
-        "ms": ms,
-        "plain_ms": p_ms,
-        "bound_ms": b_ms,
-        "bound_by": b_by,
-        "library_ms": None,
-    })
-    for name, label, check, keys in (
-            ("mol_rk_extended", "rk_sph_sedov", "rk_sph_sedov_cgf",
+    # each new configuration's entry: the time and the float32 check of
+    # one path (its grid and inputs), the launches of the paths that run
+    # the configuration
+    for name, label, keys in (
+            ("ctu_step_problem_source", "heating",
+             ("heating", "convection", "plume")),
+            ("ctu_step_nvar6", "react_flame", ("react_rt", "react_flame"))):
+        ms, p_ms, b_ms, b_by = src_times[label]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "pyro2_tpu_torch/csrc/ctu_step.cu",
+            "replaces": "pyro2_tpu/solvers/compressible/pallas_step.py:603",
+            "launches": sum(src_paths[k][2] for k in keys),
+            "max_abs_err": src_err[label],
+            "ms": ms,
+            "plain_ms": p_ms,
+            "bound_ms": b_ms,
+            "bound_by": b_by,
+            "library_ms": None,
+        })
+    for name, label, keys in (
+            ("mol_rk_extended", "rk_sph_sedov",
              ("rk_heating", "rk_sph_sedov", "rk_hse_well_balanced")),
-            ("mol_fv4_extended", "fv4_convection", "fv4_convection",
+            ("mol_fv4_extended", "fv4_convection",
              ("fv4_convection", "sdc_convection"))):
         ms, p_ms, b_ms, b_by = mol_src_times[label]
         kernels.append({
@@ -3705,7 +3753,7 @@ def main():
             "source": "pyro2_tpu_torch/csrc/mol_substep.cu",
             "replaces": "pyro2_tpu/solvers/compressible_fv4/pallas_step.py:92",
             "launches": sum(mol_src_paths[k][1] for k in keys),
-            "max_abs_err": mol_src_err[check],
+            "max_abs_err": mol_src_err[label],
             "ms": ms,
             "plain_ms": p_ms,
             "bound_ms": b_ms,

@@ -58,6 +58,7 @@ class Pyro:
         self.problem_name = None
         self.problem_func = None
         self.problem_source = None
+        self.problem_source_weight = None
         self.problem_params = None
         self.problem_finalize = None
 
@@ -87,6 +88,7 @@ class Pyro:
                 self.custom_problems[problem_name]
             self.problem_finalize = None
             self.problem_source = None
+            self.problem_source_weight = None
         else:
             problem = importlib.import_module(
                 f"pyro2_tpu_torch.solvers.{self.solver_name}.problems."
@@ -96,6 +98,8 @@ class Pyro:
             self.problem_params = getattr(problem, "PROBLEM_PARAMS", {})
             self.problem_finalize = problem.finalize
             self.problem_source = getattr(problem, "source_terms", None)
+            self.problem_source_weight = getattr(problem, "source_weight",
+                                                 None)
 
             if inputs_file is None:
                 inputs_file = problem.DEFAULT_INPUTS
@@ -130,6 +134,7 @@ class Pyro:
             self.solver_name, self.problem_name, self.problem_func, self.rp,
             problem_finalize_func=self.problem_finalize,
             problem_source_func=self.problem_source,
+            problem_source_weight_func=self.problem_source_weight,
             timers=self.tc, device=self.device, dtype=self.dtype)
 
         self.sim.initialize()

@@ -92,7 +92,8 @@ class NullSimulation:
 
     def __init__(self, solver_name, problem_name, problem_func, rp, *,
                  problem_finalize_func=None, problem_source_func=None,
-                 timers=None, device=None, dtype=None):
+                 problem_source_weight_func=None, timers=None, device=None,
+                 dtype=None):
         self.n = 0
         self.dt = -1.e33
         self.dt_old = -1.e33
@@ -120,6 +121,9 @@ class NullSimulation:
         self.problem_func = problem_func
         self.problem_finalize = problem_finalize_func
         self.problem_source = problem_source_func
+        # (e_rate, w) of a source_terms that is the energy rate
+        # rho e_rate w(x, y): what the compressible kernels take of it
+        self.problem_source_weight = problem_source_weight_func
 
         self.tc = timers if timers is not None else profile.TimerCollection()
 

@@ -24,7 +24,7 @@ were plain JAX outside the Pallas kernel.  In spherical geometry the kernel
 also reads the geometry buffer (`geometry`), built once per step object and
 dtype on the device.  A problem source reaches the kernel as its energy
 rate rho e_rate w(x, y): e_rate and the weight plane w of the problem
-module's `source_weight` (simulation.weight_plane, made once on the
+module's `source_weight` (simulation.energy_rate, made once on the
 device); a problem source of another form raises on CUDA, naming ROADMAP.md
 A.27.
 """
@@ -288,9 +288,6 @@ class CTUStep:
     """step(U, t, dt) -> U_new for a live compressible Simulation."""
 
     def __init__(self, sim):
-        from pyro2_tpu_torch.solvers.compressible.simulation import \
-            source_weight_of
-
         rp = sim.rp
         myg = sim.cc_data.grid
         ivars = sim.ivars
@@ -305,8 +302,6 @@ class CTUStep:
         self.small_dens = rp.get_param("compressible.small_dens")
         self.spherical = getattr(myg, "coord_type", 0) == 1
         self.problem = sim.problem_source is not None
-        self.source_weight = source_weight_of(sim.problem_source) \
-            if self.problem else None
         # the geometric source terms act with grav = 0 too, and so does a
         # problem's source
         self.with_sources = (rp.get_param("compressible.grav") != 0.0 or
@@ -333,17 +328,7 @@ class CTUStep:
                          rp.get_param("sponge.sponge_rho_begin"),
                          rp.get_param("sponge.sponge_rho_full"),
                          rp.get_param("sponge.sponge_timescale"),
-                         0.0]   # e_rate, set with the weight plane
-
-    def covered(self):
-        """Raise NotImplementedError unless the kernel takes this
-        configuration's problem source: an energy rate rho e_rate w(x, y)
-        (the problem module's source_weight)."""
-        if self.problem and self.source_weight is None:
-            raise NotImplementedError(
-                "a problem source other than the energy rate rho e_rate "
-                "w(x, y) waits for a later slice of the port (ROADMAP.md "
-                "A.27)")
+                         0.0]   # e_rate, set per call
 
     def check(self, U):
         """Raise on anything the kernel and its plain version do not take."""
@@ -365,12 +350,12 @@ class CTUStep:
             return self.plain(U, t, dt)
         return self.launch(U, t, dt)
 
-    def kernel_args(self, U, t, dt):
+    def kernel_args(self, U, t, dt, e_rate=0.0):
         """(int parameters, double parameters, S stack or None) of one
         kernel call on U.  S is the ghost-filled external-source stack of
         the floored state, the problem's source included, built in PyTorch
-        on U's device; with a problem source the doubles end with its
-        e_rate (`weight` gives its plane)."""
+        on U's device; the doubles end with the problem source's e_rate
+        (simulation.energy_rate)."""
         sim = self.sim
         floor_min = torch.finfo(U.dtype).min
         ints = list(self._ints)
@@ -378,6 +363,7 @@ class CTUStep:
         ints[13] = int(self.small_dens > floor_min)
         doubles[2] = float(dt)
         doubles[8] = max(self.small_dens, floor_min)
+        doubles[13] = e_rate
 
         S = None
         if self.with_sources:
@@ -389,29 +375,19 @@ class CTUStep:
                 t, dt, Uf, sim.ivars, sim.rp, sim.cc_data.grid,
                 problem_source=sim.problem_source), sim.ivars)
             S = sim.aux_data.fill_bc_stack(S, t=t)
-        if self.problem:
-            doubles[13] = self.weight(U)[0]
         return ints, doubles, S
-
-    def weight(self, U):
-        """(e_rate, weight plane) of the problem source in U's dtype on its
-        device (made once; simulation.weight_plane), or (0.0, None)."""
-        if not self.problem:
-            return 0.0, None
-        from pyro2_tpu_torch.solvers.compressible.simulation import \
-            weight_plane
-        return weight_plane(self.sim.cc_data.grid, self.sim.rp,
-                            self.source_weight, U)
 
     def launch(self, U, t, dt):
         """Launch the CUDA kernel on U's device and current stream."""
+        from pyro2_tpu_torch.solvers.compressible.simulation import \
+            energy_rate
+
         global launches
         self.check(U)
-        self.covered()
+        e_rate, W = energy_rate(self.sim, U)
         if U.device.type != "cuda":
             raise ValueError("the CUDA CTU kernel takes a CUDA tensor")
-        ints, doubles, S = self.kernel_args(U, t, dt)
-        W = self.weight(U)[1]
+        ints, doubles, S = self.kernel_args(U, t, dt, e_rate)
 
         lib = _load()
         nvar, nx, ny = ints[0], ints[1], ints[2]

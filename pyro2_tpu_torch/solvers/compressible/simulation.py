@@ -15,7 +15,6 @@ X...]).
 """
 
 import math
-import sys
 
 import torch
 
@@ -29,7 +28,7 @@ from pyro2_tpu_torch.util import msg
 
 __all__ = ["Variables", "cons_to_prim", "prim_to_cons",
            "get_external_sources", "get_sponge_factor", "energy_source",
-           "weight_plane", "source_weight_of", "plain_step", "Simulation"]
+           "weight_plane", "energy_rate", "plain_step", "Simulation"]
 
 
 class Variables:
@@ -120,12 +119,20 @@ def weight_plane(myg, rp, source_weight, like):
     return cache[key]
 
 
-def source_weight_of(problem_source):
-    """The `source_weight` of the problem module that defines
-    problem_source, or None.  A module that has one writes its
-    source_terms as energy_source of it, so the two cannot disagree."""
-    module = sys.modules.get(getattr(problem_source, "__module__", None))
-    return getattr(module, "source_weight", None)
+def energy_rate(sim, like):
+    """(e_rate, w) of sim's problem source as the CUDA kernels take it, w
+    in `like`'s dtype on its device (weight_plane), or (0.0, None) with no
+    problem source.  The kernels take a problem source that is the energy
+    rate rho e_rate w(x, y), given by the problem's source_weight; any
+    other raises NotImplementedError."""
+    if sim.problem_source is None:
+        return 0.0, None
+    if sim.problem_source_weight is None:
+        raise NotImplementedError(
+            "a problem source other than the energy rate rho e_rate w(x, y) "
+            "waits for a later slice of the port (ROADMAP.md A.27)")
+    return weight_plane(sim.cc_data.grid, sim.rp, sim.problem_source_weight,
+                        like)
 
 
 def energy_source(myg, U, ivars, rp, source_weight):

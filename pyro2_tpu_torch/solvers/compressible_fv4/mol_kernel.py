@@ -42,8 +42,7 @@ import numpy as np
 import torch
 
 from pyro2_tpu_torch.solvers.compressible.ctu_kernel import MAXVAR, RIEMANN
-from pyro2_tpu_torch.solvers.compressible.simulation import (
-    source_weight_of, weight_plane)
+from pyro2_tpu_torch.solvers.compressible.simulation import energy_rate
 from pyro2_tpu_torch.solvers.compressible_fv4.fluxes import ALPHA, BETA
 from pyro2_tpu_torch.util import cuda_build
 
@@ -410,8 +409,6 @@ class MOLSubstep:
         self.small_dens = rp.get_param("compressible.small_dens")
         self.spherical = getattr(myg, "coord_type", 0) == 1
         self.problem = sim.problem_source is not None
-        self.source_weight = source_weight_of(sim.problem_source) \
-            if self.problem else None
         self.well_balanced = well_balanced
         self.extended = self.spherical or self.problem or well_balanced
         self._lines = {}     # the spherical lines buffer by dtype, device
@@ -445,24 +442,11 @@ class MOLSubstep:
                          rp.get_param("sponge.sponge_timescale"),
                          myg.dx ** 2, myg.dy ** 2, myg.dx ** 2 / 24.0,
                          -myg.dx ** 2, ALPHA, BETA * gamma,
-                         0.0]   # e_rate, set with the weight plane
+                         0.0]   # e_rate, set per call
 
     @property
     def name(self):
         return f"mol_{self.kind}"
-
-    def covered(self):
-        """Raise unless the kernel takes this configuration: a problem
-        source must be an energy rate rho e_rate w(x, y) (the problem
-        module's source_weight), and the well-balanced reconstruction
-        takes limiter 1 alone (ValueError, as the plain version's)."""
-        if self.problem and self.source_weight is None:
-            raise NotImplementedError(
-                "a problem source other than the energy rate rho e_rate "
-                "w(x, y) waits for a later slice of the port (ROADMAP.md "
-                "A.27)")
-        if self.well_balanced and self._ints[9] != 1:
-            raise ValueError("well-balanced only works for limiter == 1")
 
     def check(self, U):
         """Raise on anything the kernel and its plain version do not take."""
@@ -484,45 +468,42 @@ class MOLSubstep:
             return self.plain(U, t, dt)
         return self.launch(U, t, dt)
 
-    def kernel_args(self, U, dt):
+    def kernel_args(self, U, dt, e_rate=0.0):
         """(int parameters, double parameters) of one kernel call on U;
-        with a problem source the doubles end with its e_rate (`buffers`
-        gives its plane)."""
+        the doubles end with the problem source's e_rate
+        (simulation.energy_rate)."""
         floor_min = torch.finfo(U.dtype).min
         ints = list(self._ints)
         doubles = list(self._doubles)
         ints[13] = int(self.small_dens > floor_min)
         doubles[2] = float(dt)
         doubles[8] = max(self.small_dens, floor_min)
-        if self.problem:
-            doubles[19] = weight_plane(self.sim.cc_data.grid, self.sim.rp,
-                                       self.source_weight, U)[0]
+        doubles[19] = e_rate
         return ints, doubles
 
-    def buffers(self, U):
-        """(spherical lines, weight plane) in U's dtype on its device, each
-        None where the configuration has none; each made once."""
-        G = W = None
-        if self.spherical:
-            key = (U.dtype, U.device)
-            if key not in self._lines:
-                self._lines[key] = lines(self.sim.cc_data.grid, U.dtype,
-                                         U.device)
-            G = self._lines[key]
-        if self.problem:
-            W = weight_plane(self.sim.cc_data.grid, self.sim.rp,
-                             self.source_weight, U)[1]
-        return G, W
+    def spherical_lines(self, U):
+        """The spherical lines in U's dtype on its device (made once), or
+        None on a Cartesian grid."""
+        if not self.spherical:
+            return None
+        key = (U.dtype, U.device)
+        if key not in self._lines:
+            self._lines[key] = lines(self.sim.cc_data.grid, U.dtype,
+                                     U.device)
+        return self._lines[key]
 
     def launch(self, U, t, dt):
         """Launch the CUDA kernel on U's device and current stream.  The
         gravity source does not depend on t, so t is not passed."""
         self.check(U)
-        self.covered()
+        e_rate, W = energy_rate(self.sim, U)
+        if self.well_balanced and self._ints[9] != 1:
+            # as the plain version's
+            raise ValueError("well-balanced only works for limiter == 1")
         if U.device.type != "cuda":
             raise ValueError("the CUDA MOL kernel takes a CUDA tensor")
-        ints, doubles = self.kernel_args(U, dt)
-        G, W = self.buffers(U)
+        ints, doubles = self.kernel_args(U, dt, e_rate)
+        G = self.spherical_lines(U)
 
         lib = _load()
         k = torch.empty_like(U)

@@ -59,11 +59,14 @@ class Simulation(NullSimulation):
 
     def __init__(self, solver_name, problem_name, problem_func, rp, *,
                  problem_finalize_func=None, problem_source_func=None,
-                 timers=None, device=None, dtype=None):
-        super().__init__(solver_name, problem_name, problem_func, rp,
-                         problem_finalize_func=problem_finalize_func,
-                         problem_source_func=problem_source_func,
-                         timers=timers, device=device, dtype=dtype)
+                 problem_source_weight_func=None, timers=None, device=None,
+                 dtype=None):
+        super().__init__(
+            solver_name, problem_name, problem_func, rp,
+            problem_finalize_func=problem_finalize_func,
+            problem_source_func=problem_source_func,
+            problem_source_weight_func=problem_source_weight_func,
+            timers=timers, device=device, dtype=dtype)
         self.base = {}
         self.aux_data = None
         self.in_preevolve = False

@@ -61,6 +61,7 @@ def carry_simulation(solver_name, problem_name, params, state, *, t=0.0,
         solver_name, problem_name, problem.init_data, rp,
         problem_finalize_func=problem.finalize,
         problem_source_func=getattr(problem, "source_terms", None),
+        problem_source_weight_func=getattr(problem, "source_weight", None),
         device=device, dtype=dtype)
     if extra_vars:
         sim.initialize(extra_vars=extra_vars)

@@ -16,6 +16,7 @@ import torch
 
 from pyro2_tpu_torch import Pyro
 from pyro2_tpu_torch.solvers.compressible import ctu_kernel
+from pyro2_tpu_torch.solvers.compressible.simulation import energy_rate
 from pyro2_tpu_torch.solvers.compressible_fv4 import mol_kernel
 from pyro2_tpu_torch.util import cuda_build
 
@@ -85,17 +86,22 @@ def test_parameter_arrays_match_the_sources_offsets():
     assert _read_at("euler_common.cuh", "well_balanced") == [20]
     assert _read_at("euler_common.cuh", "e_rate") == [19, 13]
     sim = _sim("compressible", "heating")
-    ints, doubles, S = sim._step.kernel_args(sim.cc_data.data, 0.0, 1e-4)
+    U = sim.cc_data.data
+    ints, doubles, S = sim._step.kernel_args(U, 0.0, 1e-4,
+                                             energy_rate(sim, U)[0])
     assert len(ints) == 20 and len(doubles) == 14
     assert ints[11] == 1 and ints[18] == 0 and ints[19] == 1
+    assert doubles[13] == 0.1
     for solver, kind in (("compressible_rk", "rk"),
                          ("compressible_fv4", "fv4")):
         msim = _sim(solver, "heating")
-        ints, doubles = msim._step.kernel_args(msim.cc_data.data, 1e-4)
+        U = msim.cc_data.data
+        e_rate, W = energy_rate(msim, U)
+        ints, doubles = msim._step.kernel_args(U, 1e-4, e_rate)
         assert len(ints) == 21 and len(doubles) == 20, kind
         assert ints[18:] == [0, 1, 0] and doubles[19] == 0.1
-        G, W = msim._step.buffers(msim.cc_data.data)
-        assert G is None and W.shape == msim.cc_data.data.shape[1:]
+        assert msim._step.spherical_lines(U) is None
+        assert W.shape == U.shape[1:]
 
 
 def test_ctu_args_carry_the_problem_source():
@@ -107,20 +113,18 @@ def test_ctu_args_carry_the_problem_source():
     step = sim._step
     assert step.problem and step.with_sources and step.spherical is False
     U = sim.cc_data.data
-    ints, doubles, S = step.kernel_args(U, 0.0, 1e-4)
-    e_rate, w = sim.problem_source.__globals__["source_weight"](
-        sim.cc_data.grid, sim.rp)
+    e_rate, W = energy_rate(sim, U)
+    ints, doubles, S = step.kernel_args(U, 0.0, 1e-4, e_rate)
+    e_rate, w = sim.problem_source_weight(sim.cc_data.grid, sim.rp)
     assert doubles[13] == e_rate == 0.1
-    W = step.weight(U)[1]
     assert torch.equal(W, torch.as_tensor(w))
-    assert W is step.weight(U)[1]
+    assert W is energy_rate(sim, U)[1]
     src = sim.problem_source(sim.cc_data.grid, U, sim.ivars, sim.rp)
     g = sim.cc_data.grid
     sl = (slice(g.ilo, g.ihi + 1), slice(g.jlo, g.jhi + 1))
     assert torch.equal(S[3][sl], src[sim.ivars.iener][sl])
     assert not S[0].any()
-    step.covered()
-    step.source_weight = None
+    sim.problem_source_weight = None
     with pytest.raises(NotImplementedError, match=r"ROADMAP\.md A\.27"):
         step.launch(U, 0.0, 1e-4)
 
@@ -174,15 +178,15 @@ def test_mol_spherical_lines(solver):
     assert step.spherical and step.extended and not step.problem
     U = sim.cc_data.data
     ints, doubles = step.kernel_args(U, 1e-4)
-    G, W = step.buffers(U)
-    assert ints[18:] == [1, 0, 0] and W is None
+    G = step.spherical_lines(U)
+    assert ints[18:] == [1, 0, 0] and energy_rate(sim, U) == (0.0, None)
     qx, qy = g.qx, g.qy
     want = np.concatenate([g.Ly[:, 0], g.x, g.xl, g.x - g.dx, np.sin(g.yl),
                            np.sin(g.y), np.sin(g.y - g.dy)])
     assert G.shape == (4 * qx + 3 * qy,)
     assert np.array_equal(G.numpy(), want)
-    assert step.buffers(U)[0] is G
-    assert step.buffers(U.float())[0].dtype == torch.float32
+    assert step.spherical_lines(U) is G
+    assert step.spherical_lines(U.float()).dtype == torch.float32
 
 
 def test_rk_well_balanced_flag():
@@ -191,6 +195,6 @@ def test_rk_well_balanced_flag():
         "compressible.limiter": 1})
     step = sim._step
     ints, _ = step.kernel_args(sim.cc_data.data, 1e-4)
-    assert ints[18:] == [0, 0, 1] and step.buffers(sim.cc_data.data) == (
-        None, None)
+    assert ints[18:] == [0, 0, 1]
+    assert step.spherical_lines(sim.cc_data.data) is None
     assert step.extended

@@ -169,6 +169,27 @@ Phases (any failure exits non-zero and prints no result line):
      576x1728 with well_balanced = 1 for 10 steps (4 mol_rk a step),
      compressible_fv4 convection 512x1536 for 10 steps (4 mol_fv4 a step)
      and compressible_sdc convection 512x1536 for 3 steps (9 a step);
+  5g. tracer particles and the on-device chunked loop: the CTU kernel's
+     device-dt entry (dt read from device memory) against its host-dt
+     entry with the same dt (bits) and the plain step (1e-12 / 1e-5 of
+     max|U|) on quad, heating and spherical advect at 1024^2, f64 and f32;
+     kh 1024^2 f32 through Pyro -> run_sim for 50 steps without and with
+     1024^2 grid particles (ms/step, one CTU launch a step, the particles
+     finite, inside or inactive, moved); kh 128^2 f64 with 4096 random
+     particles on the card against the CPU (positions within 1e-12 of the
+     domain, `active` equal, after each of 10 steps), and so swe quad,
+     compressible_rk quad, compressible_fv4 acoustic_pulse and
+     incompressible shear (the kernels of rows 5, 6a, 6b and 8-12 under
+     particles); incompressible shear
+     512^2 with 256^2 particles for 5 steps (the constant multigrid's
+     launches per cycle); driver_loop.run_sim_fast (one CUDA graph a
+     chunk of 64 bodies) against run_sim on quad 1024^2 for 200 steps in
+     f64 (states, output files' too, equal by bits) and f32 (1e-5 of the
+     scale), and advection smooth 1024^2 with 256^2 particles for 100
+     steps (f32), the same n and output steps; each loop's host-clock
+     ms/step, the graph's replays and frozen tail, the launches of a timed
+     fast run (a replay's times the replays); the device-dt entry's
+     CUDA-event time;
   6. CUDA-event timing of each kernel and its plain version at the main
      paths' shapes (quad 1024^2; the 1024^2 solves' levels, constant, vc
      and general; the rk quad and fv4 acoustic_pulse 1024^2 increments;
@@ -210,7 +231,10 @@ Phases (any failure exits non-zero and prints no result line):
      steps, 20 burgers, 5 burgers_viscous and 5 cavity steps, 20
      advection and 5 advection_weno smooth steps, and phase 5f's paths
      (10 CTU steps each, 3 rk and fv4 steps, 2 sdc steps): device time
-     by kernel and the device's busy share of the wall time. Each profiler
+     by kernel and the device's busy share of the wall time; phase 5g's
+     device kernels a kh step with and without particles, and one whole
+     run of each loop (host and on-device) with its device-busy us/step
+     and idle share. Each profiler
      session idles 20 ms on each side of its calls and is made up to
      three times; if none records a device kernel, the
      wrappers' counts count the launches, CUDA events time them, and the
@@ -1316,10 +1340,12 @@ def mol_peak_memory(step, U, t, dt):
     return peak
 
 
-def mg_main_path(solver, problem, n, steps, solves_per_step=None):
+def mg_main_path(solver, problem, n, steps, solves_per_step=None,
+                 inputs=None):
     """Pyro(solver) -> run_sim on CUDA float32 with the counts reset just
     before and read just after (and, if given, the multigrid solves a step
-    checked); returns (pyro, launches by kernel, seconds)."""
+    checked; `inputs` are added to the run's); returns (pyro, launches by
+    kernel, seconds)."""
     import torch
 
     from pyro2_tpu_torch import Pyro
@@ -1328,7 +1354,7 @@ def mg_main_path(solver, problem, n, steps, solves_per_step=None):
     p = Pyro(solver)                    # default device: CUDA, float32
     p.initialize_problem(problem, inputs_dict={
         "mesh.nx": n, "mesh.ny": n, "driver.max_steps": steps,
-        "driver.tmax": 1.0e30})
+        "driver.tmax": 1.0e30, **(inputs or {})})
     sim = p.sim
     assert sim.cc_data.data.is_cuda
     assert sim.cc_data.data.dtype == torch.float32
@@ -1730,6 +1756,396 @@ def checkpoint_on_card(quad):
         for name in os.listdir(out):
             os.remove(os.path.join(out, name))
         os.rmdir(out)
+
+
+# ---------------------------------------------------------------------------
+# phase 5g: tracer particles, and the on-device chunked loop
+# (driver_loop.run_sim_fast, one CUDA graph a chunk) over k_ctu's device-dt
+# entry
+# ---------------------------------------------------------------------------
+
+# k_ctu's device-dt entry against its host-dt entry (bits) and the plain
+# step: (name, problem, inputs) at 1024^2; the quad main path's, a problem
+# source's and the spherical instantiation's
+DEVDT_CONFIGS = (("quad", "quad", {}), ("heating", "heating", {}),
+                 ("sph_advect_cgf", "advect", SPH_ADVECT))
+# grid particles, 1024^2 of them, on kh at 1024^2
+PARTICLES_GRID = {"particles.do_particles": 1,
+                  "particles.particle_generator": "grid"}
+
+
+def devdt_check(name, sim, tol):
+    """k_ctu's device-dt entry on a live simulation, one step from the
+    same state after 3 kernel steps: its output equal by bits to the
+    host-dt entry's with the same dt (the dt rounded to the state's dtype,
+    as the on-device loop carries it), and within tol max|U| of the plain
+    step, every ghost the input's; returns max |diff|."""
+    import torch
+
+    for _ in range(3):
+        sim.cc_data.fill_BC_all()
+        sim.compute_timestep()
+        sim.evolve()
+    sim.cc_data.fill_BC_all()
+    sim.compute_timestep()
+    U, t = sim.cc_data.data, sim.cc_data.t
+    dt_dev = torch.tensor(sim.dt, dtype=U.dtype, device=U.device)
+    dt = float(dt_dev)
+    host = sim._step.launch(U, t, dt)
+    dev = sim._step.launch(U, t, dt_dev)
+    ref = sim._step.plain(U, t, dt)
+    torch.cuda.synchronize()
+    bits = torch.equal(host, dev)
+    g = sim.cc_data.grid
+    a, b = interior(ref, g), interior(dev, g)
+    err = float((a - b).abs().max())
+    scale = float(a.abs().max())
+    ghost = torch.ones(U.shape[1:], dtype=torch.bool, device=U.device)
+    ghost[g.ilo:g.ihi + 1, g.jlo:g.jhi + 1] = False
+    ghosts = torch.equal(dev[:, ghost], U[:, ghost])
+    ok = bits and bool(torch.isfinite(b).all()) and err <= tol * scale \
+        and ghosts
+    log(f"  {'ok ' if ok else 'BAD'} {name:16s} {g.nx}x{g.ny} "
+        f"{str(U.dtype)[6:]:8s} device dt: host-dt entry's bits {bits}; "
+        f"max|diff| to the plain step {err:.3e} (tol {tol:g} x max|U| = "
+        f"{tol * scale:.3e}), ghosts kept: {ghosts}")
+    if not ok:
+        raise AssertionError(f"the device-dt entry disagrees: {name}")
+    return err
+
+
+def particles_path(problem, n, steps, inputs):
+    """Pyro("compressible") -> run_sim on CUDA float32 at n^2 for `steps`
+    steps after one untimed warm-up step, the counts reset just before and
+    read just after: one CTU launch a step and no other kernel; returns
+    (pyro, seconds, CTU launches)."""
+    import torch
+
+    from pyro2_tpu_torch import Pyro
+    from pyro2_tpu_torch.solvers.compressible import ctu_kernel
+
+    p = Pyro("compressible")            # default device: CUDA, float32
+    p.initialize_problem(problem, inputs_dict={
+        "mesh.nx": n, "mesh.ny": n, "driver.max_steps": steps + 1,
+        "driver.tmax": 1.0e30, **inputs})
+    p.single_step()
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    p.run_sim()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launched = {k: v for k, v in all_counts().items() if v}
+    if launched != {"ctu_step": steps} or p.sim.n != steps + 1:
+        raise AssertionError(f"{problem} {n}^2: {p.sim.n} steps, launches "
+                             f"{launched}; expected ctu_step {steps}")
+    return p, seconds, ctu_kernel.launches
+
+
+def check_particles(what, parts, myg, n_expected):
+    """The particles' positions finite and inside the domain (or inactive),
+    and moved; returns the number active."""
+    import torch
+
+    pos, act = parts.positions, parts.active
+    inside = ((pos[:, 0] >= myg.xmin) & (pos[:, 0] <= myg.xmax) &
+              (pos[:, 1] >= myg.ymin) & (pos[:, 1] <= myg.ymax))
+    moved = float((pos - parts.init_positions).abs().max())
+    n_active = int(act.sum())
+    if (pos.shape != (n_expected, 2) or not bool(torch.isfinite(pos).all())
+            or not bool((inside | ~act).all()) or moved <= 0.0):
+        raise AssertionError(f"{what}: particles {tuple(pos.shape)}, finite "
+                             f"{bool(torch.isfinite(pos).all())}, moved "
+                             f"{moved}")
+    return n_active, moved
+
+
+def kernels_a_step(fn, steps):
+    """(device kernels a step, device-busy us a step, wall us a step) of
+    `steps` calls of fn under the profiler, or None if it recorded no
+    device kernel."""
+    rows, wall_us = profiled(fn, steps)
+    if not rows:
+        return None
+    return (sum(c for _, c, _ in rows) / steps,
+            sum(us for *_, us in rows) / steps, wall_us / steps)
+
+
+def particles_on_card():
+    """kh 1024^2 f32 with and without 1024^2 grid particles (50 steps
+    each): ms/step and the CTU launches; returns ({"without", "with":
+    pyro}, the CTU launches of both runs)."""
+    n, steps = 1024, 50
+    runs = {}
+    for label, inputs in (("without", {}),
+                          ("with", {**PARTICLES_GRID,
+                                    "particles.n_particles": n * n})):
+        p, seconds, launches = particles_path("kh", n, steps, inputs)
+        runs[label] = (p, seconds, launches)
+        note = ""
+        if label == "with":
+            active, moved = check_particles("kh 1024^2", p.sim.particles,
+                                            p.sim.cc_data.grid, n * n)
+            note = (f", {n * n} particles, {active} active, moved up to "
+                    f"{moved:.4g}")
+        log(f"  kh {n}x{n} f32 {label} particles: {steps} steps (after 1) "
+            f"in {seconds:.3f} s, {1e3 * seconds / steps:.3f} ms/step, "
+            f"ctu_step launches {launches}{note}")
+    return ({label: p for label, (p, _, _) in runs.items()},
+            sum(launches for _, _, launches in runs.values()))
+
+
+def particles_profile(pyros, smi):
+    """The device kernels a kh step launches with and without particles
+    under the profiler (10 steps each), and the extra ones a step."""
+    prof = {label: kernels_a_step(p.single_step, 10)
+            for label, p in pyros.items()}
+    if not all(prof.values()):
+        log("  device kernels a step: not measured (the profiler recorded "
+            "no device kernel)")
+        return
+    (k0, b0, w0), (k1, b1, w1) = prof["without"], prof["with"]
+    log(f"  kh 1024^2 f32, 10 steps each: {k0:.1f} device kernels a step "
+        f"without particles, {k1:.1f} with, {k1 - k0:.1f} extra a step (the "
+        f"advance: gathers, midpoint, edges); device busy {b0:.1f} / "
+        f"{b1:.1f} us/step ({100 - 100 * b0 / w0:.1f}% / "
+        f"{100 - 100 * b1 / w1:.1f}% idle); {smi}")
+
+
+# the particle runs in float64 on the card against the CPU: (solver,
+# problem), one a kernel row the particles now ride on (rows 1, 5, 6a, 6b
+# and the constant multigrid's 8-12)
+PARTICLE_RUNS = (("compressible", "kh"), ("swe", "quad"),
+                 ("compressible_rk", "quad"),
+                 ("compressible_fv4", "acoustic_pulse"),
+                 ("incompressible", "shear"))
+
+
+def particles_card_vs_cpu(solver, problem, n, steps, tol):
+    """`solver` on `problem` with 4096 random particles (one numpy seed)
+    in float64 on the card and on the CPU for `steps` steps: after each
+    step the positions within tol of the domain's width, `active` equal;
+    returns the worst |diff|."""
+    import numpy as np
+    import torch
+
+    from pyro2_tpu_torch import Pyro
+
+    pyros = []
+    for device in ("cpu", "cuda"):
+        np.random.seed(16)
+        p = Pyro(solver, device=device, dtype=torch.float64)
+        p.initialize_problem(problem, inputs_dict={
+            "mesh.nx": n, "mesh.ny": n, "driver.max_steps": steps,
+            "driver.tmax": 1.0e30, "particles.do_particles": 1,
+            "particles.particle_generator": "random",
+            "particles.n_particles": 4096})
+        pyros.append(p)
+    cpu, card = pyros
+    g = card.sim.cc_data.grid
+    width = max(g.xmax - g.xmin, g.ymax - g.ymin)
+    worst = 0.0
+    for k in range(steps):
+        cpu.single_step()
+        card.single_step()
+        a, b = cpu.sim.particles, card.sim.particles
+        err = float((a.positions - b.positions.cpu()).abs().max())
+        same = torch.equal(a.active, b.active.cpu())
+        worst = max(worst, err)
+        if err > tol * width or not same:
+            raise AssertionError(f"{solver} {problem} particles f64 step "
+                                 f"{k + 1}: max|diff| {err:.3e}, active "
+                                 f"equal {same}")
+    log(f"  ok  {solver} {problem} {n}x{n} f64, 4096 random particles, "
+        f"{steps} steps, card against CPU: worst max|diff| {worst:.3e} (tol "
+        f"{tol:g} x "
+        f"{width:g}), active equal ({int(card.sim.particles.active.sum())} "
+        "active)")
+    return worst
+
+
+def restorer(sim):
+    """A function that puts sim back at its state now: data, t = 0,
+    n = 0, and its particles'."""
+    U0 = sim.cc_data.data.clone()
+    parts = sim.particles
+    P0 = None if parts is None else (parts.positions.clone(),
+                                     parts.active.clone())
+
+    def restore():
+        sim.cc_data.data = U0.clone()
+        sim.cc_data.t = 0.0
+        sim.n = 0
+        sim.dt_old = -1.e33
+        sim.n_num_out = 0
+        if P0 is not None:
+            parts.positions, parts.active = P0[0].clone(), P0[1].clone()
+    return restore
+
+
+def launch_name(module, key):
+    """The all_counts name of a chunk runner's launch key."""
+    if key is not None:
+        return key
+    return {"ctu_kernel": "ctu_step",
+            "swe_kernel": "swe_step"}[module.__name__.rsplit(".", 1)[-1]]
+
+
+def fast_vs_host(solver, problem, n, steps, dtype, tol, inputs=None,
+                 chunk=64):
+    """run_sim_fast(chunk_steps=chunk) against run_sim on `problem` at n^2
+    for `steps` steps, output every steps / 2 (and by no dt_out: an f32
+    t crosses a dt_out multiple a step apart from the host loop's double)
+    into a temporary directory:
+    the same n and output steps; the states (and particles) equal by bits
+    in float64 (the run stops at max_steps, so the tmax clamp never acts),
+    within tol of the scale in float32, the files' states too; returns
+    max |diff| / scale."""
+    import glob
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from pyro2_tpu_torch import Pyro
+    from pyro2_tpu_torch.driver_loop import run_sim_fast
+    from pyro2_tpu_torch.util import io_pyro
+
+    cwd = os.getcwd()
+    runs = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for fast in (False, True):
+            d = os.path.join(tmp, "fast" if fast else "host")
+            os.mkdir(d)
+            os.chdir(d)
+            try:
+                np.random.seed(16)
+                p = Pyro(solver, dtype=dtype)
+                p.initialize_problem(problem, inputs_dict={
+                    "mesh.nx": n, "mesh.ny": n, "driver.max_steps": steps,
+                    "driver.tmax": 1.0e30, "io.n_out": steps // 2,
+                    "io.dt_out": 1.0e30, "io.basename": "fast_",
+                    **(inputs or {})})
+                p.rp.set_param("io.do_io", 1)
+                if fast:
+                    run_sim_fast(p, chunk_steps=chunk)
+                else:
+                    p.run_sim()
+                torch.cuda.synchronize()
+            finally:
+                os.chdir(cwd)
+            files = sorted(os.path.basename(f)
+                           for f in glob.glob(os.path.join(d, "*.h5")))
+            states = [io_pyro.read(os.path.join(d, f), dtype=dtype)
+                      .cc_data.data for f in files]
+            runs.append((p, files, states))
+    (ph, fh, sh), (pf, ff, sf) = runs
+    g = ph.sim.cc_data.grid
+    scale = float(interior(ph.sim.cc_data.data, g).abs().max())
+    err = max(float((a - b).abs().max()) for a, b in
+              zip(sh + [ph.sim.cc_data.data], sf + [pf.sim.cc_data.data]))
+    bits = all(torch.equal(a, b) for a, b in
+               zip(sh + [ph.sim.cc_data.data], sf + [pf.sim.cc_data.data]))
+    parts = ""
+    if ph.sim.particles is not None:
+        a, b = ph.sim.particles, pf.sim.particles
+        perr = float((a.positions - b.positions).abs().max())
+        same = torch.equal(a.active, b.active)
+        bits = bits and perr == 0.0
+        parts = f", particles max|diff| {perr:.3e}, active equal {same}"
+        if not same or perr > tol * (g.xmax - g.xmin):
+            raise AssertionError(f"{problem}: the fast loop's particles "
+                                 f"differ ({perr:.3e}, active {same})")
+    f64 = dtype == torch.float64
+    ok = (ph.sim.n == pf.sim.n == steps and fh == ff and len(fh) >= 3 and
+          (bits if f64 else err <= tol * scale))
+    log(f"  {'ok ' if ok else 'BAD'} {solver} {problem} {n}x{n} "
+        f"{str(dtype)[6:]}: fast loop (chunk {chunk}) against the host loop,"
+        f" n {pf.sim.n} / {ph.sim.n}, output steps {ff} / {fh}, bits "
+        f"{bits}, max|diff| {err:.3e} (scale {scale:.4g}){parts}")
+    if not ok:
+        raise AssertionError(f"{problem}: the fast loop differs")
+    return err / scale
+
+
+def fast_loop_timing(solver, problem, n, steps, dtype, smi, inputs=None,
+                     chunk=64):
+    """Host-clock ms/step of run_sim and of run_sim_fast on `problem` at
+    n^2 (steps steps, no output, each after a first run: the kernels'
+    loads, the graph's capture), the capture run's seconds, the replays,
+    the kernel launches of the timed fast run (counts reset just before,
+    read just after: a replay's launches times the replays, the frozen
+    tail included), and each loop's device-busy us/step and idle share
+    under the profiler (one whole run, by the returned function, which
+    section 7 calls); returns (ctu_step launches, (host ms, fast ms,
+    replays, frozen), the profiling function)."""
+    import numpy as np
+    import torch
+
+    from pyro2_tpu_torch import Pyro
+    from pyro2_tpu_torch.driver_loop import make_chunk_runner, run_sim_fast
+
+    def fresh():
+        np.random.seed(16)
+        p = Pyro(solver, dtype=dtype)
+        p.initialize_problem(problem, inputs_dict={
+            "mesh.nx": n, "mesh.ny": n, "driver.max_steps": steps,
+            "driver.tmax": 1.0e30, **(inputs or {})})
+        return p
+
+    def host_run():
+        host.run_sim()
+
+    def fast_run():
+        run_sim_fast(fast, chunk_steps=chunk)
+
+    host, fast = fresh(), fresh()
+    restore = {"host": restorer(host.sim), "fast": restorer(fast.sim)}
+    seconds = {}
+    for label, run in (("host", host_run), ("fast", fast_run)):
+        for k in range(2):
+            restore[label]()
+            torch.cuda.synchronize()
+            if k == 1 and label == "fast":
+                runner = make_chunk_runner(fast.sim, chunk)
+                replays0 = runner.replays
+                reset_counts()
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            seconds[label, k] = time.perf_counter() - t0
+    launched = {k: v for k, v in all_counts().items() if v}
+    replays = runner.replays - replays0
+    frozen = replays * chunk - fast.sim.n
+    per_chunk = {launch_name(m, k): v for (m, k), v in
+                 runner.launches.items()}
+    expect = {name: v * replays for name, v in per_chunk.items()}
+    if fast.sim.n != steps or launched != expect:
+        raise AssertionError(f"{problem} fast loop: {fast.sim.n} steps, "
+                             f"launches {launched}, expected {expect}")
+    host_ms = 1e3 * seconds["host", 1] / steps
+    fast_ms = 1e3 * seconds["fast", 1] / steps
+    log(f"  {solver} {problem} {n}x{n} {str(dtype)[6:]}: host loop "
+        f"{host_ms:.4f} ms/step; fast loop {fast_ms:.4f} ms/step ({steps} "
+        f"steps, {replays} replays of a {chunk}-body graph, {frozen} frozen "
+        f"bodies in the tail); the first runs {seconds['host', 0]:.3f} s, "
+        f"{seconds['fast', 0]:.3f} s (the capture); launches {launched} "
+        f"({per_chunk} a replay)")
+    def profile():
+        for label, run in (("host", host_run), ("fast", fast_run)):
+            found = kernels_a_step(lambda: (restore[label](), run()), 1)
+            if found is None:
+                log(f"  {label} loop: device time not measured (the "
+                    "profiler recorded no device kernel)")
+                continue
+            k, busy, wall = found
+            log(f"  {solver} {problem} {n}x{n} {str(dtype)[6:]}, {label} "
+                f"loop, one run of {steps} steps: device busy "
+                f"{busy / steps:.1f} us/step, "
+                f"{100 - 100 * busy / wall:.1f}% idle, {k / steps:.1f} "
+                f"device kernels a step; {smi}")
+    return launched.get("ctu_step", 0), (host_ms, fast_ms, replays,
+                                         frozen), profile
 
 
 def time_pair(name, kern, plain, work, bw, fp32):
@@ -2989,9 +3405,10 @@ DEEP_EMITS = ("v, ", "v_fc, ", "v_r, ")
 def kernel_name(kernel, args):
     """A kernel and its template arguments, named: args as a profiler key
     or a mangled name gives them ("0", "float", "true" or "1")."""
-    if kernel == "k_ctu":                       # <T, NV, SPH>
+    if kernel == "k_ctu":                       # <T, NV, SPH, DEVDT>
         geometry = "spherical" if args[2] in ("true", "1") else "cartesian"
-        return f"k_ctu<{args[0]}, nvar {args[1]}, {geometry}>"
+        devdt = ", device dt" if args[3:4] in (["true"], ["1"]) else ""
+        return f"k_ctu<{args[0]}, nvar {args[1]}, {geometry}{devdt}>"
     if kernel in ("k_rk", "k_fv4") and len(args) == 3:   # <T, NV, X>
         if args[2] in ("true", "1"):
             return f"{kernel}<{args[0]}, {args[1]}, extended>"
@@ -3336,6 +3753,69 @@ def main():
         for (label, solver, problem, nx, ny, steps, kernel, per_step,
              inputs) in MOL_SRC_PATHS}
 
+    # 5g. tracer particles, and the on-device chunked loop over k_ctu's
+    # device-dt entry
+    log(f"[ctu_step's device-dt entry vs its host-dt entry (bits) and the "
+        f"plain step at 1024^2; {smi}]")
+    devdt_err = {}
+    for dtype, tol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
+        for name, problem, inputs in DEVDT_CONFIGS:
+            err = devdt_check(name, make_sim(problem, {
+                "mesh.nx": 1024, "mesh.ny": 1024, **inputs}, dtype), tol)
+            if dtype == torch.float32:
+                devdt_err[name] = err
+            torch.cuda.empty_cache()
+    log(f"[particles: kh 1024^2 float32, without and with 1024^2 grid "
+        f"particles, Pyro -> run_sim; {smi}]")
+    kh_pyros, _ = particles_on_card()
+    log("[particles: 128^2 float64 on the card against the CPU]")
+    for solver, problem in PARTICLE_RUNS:
+        particles_card_vs_cpu(solver, problem, 128, 10, 1e-12)
+    log(f"[particles: incompressible shear 512^2 float32 with 256^2 grid "
+        f"particles, Pyro -> run_sim; {smi}]")
+    shear_p, _, _ = mg_main_path("incompressible", "shear", 512, 5, inputs={
+        **PARTICLES_GRID, "particles.n_particles": 256 * 256})
+    active, moved = check_particles("shear 512^2", shear_p.sim.particles,
+                                    shear_p.sim.cc_data.grid, 256 * 256)
+    log(f"  shear particles: {active} active, moved up to {moved:.4g}")
+    del shear_p
+    log(f"[the on-device loop: run_sim_fast (a CUDA graph a chunk of 64) "
+        f"against run_sim; {smi}]")
+    advect_particles = {**PARTICLES_GRID, "particles.n_particles": 256 * 256}
+    for dtype, tol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
+        fast_vs_host("compressible", "quad", 1024, 200, dtype, tol)
+        torch.cuda.empty_cache()
+    fast_vs_host("advection", "smooth", 1024, 100, torch.float32, 1e-5,
+                 inputs=advect_particles)
+    log(f"[the on-device loop against the host loop: host-clock ms/step, "
+        f"replays, launches; {smi}]")
+    devdt_launches, loop_profiles = 0, []
+    for solver, problem, steps, dtype, inputs in (
+            ("compressible", "quad", 200, torch.float32, None),
+            ("compressible", "quad", 200, torch.float64, None),
+            ("advection", "smooth", 100, torch.float32, advect_particles)):
+        launches, _, prof = fast_loop_timing(solver, problem, 1024, steps,
+                                             dtype, smi, inputs=inputs)
+        devdt_launches += launches
+        loop_profiles.append(prof)
+    torch.cuda.empty_cache()
+    log(f"[timing: ctu_step's device-dt entry at quad 1024^2 float32, CUDA "
+        f"events; {smi}]")
+    dsim = make_sim("quad", {"mesh.nx": 1024, "mesh.ny": 1024},
+                    torch.float32)
+    dsim.cc_data.fill_BC_all()
+    dsim.compute_timestep()
+    dU = dsim.cc_data.data
+    d_dt = torch.tensor(dsim.dt, dtype=dU.dtype, device=dU.device)
+    dstep = dsim._step
+    g = dsim.cc_data.grid
+    devdt_times = time_pair(
+        f"ctu_step device dt (quad {g.nx}x{g.ny})",
+        lambda: dstep.launch(dU, 0.0, d_dt),
+        lambda: dstep.plain(dU, 0.0, float(d_dt)),
+        ctu_kernel.work(g.nx, g.ny, dsim.ivars.nvar, torch.float32,
+                        dstep.with_sources), bw, fp32)
+
     # 6. timing at the main paths' shapes
     log("[timing: quad 1024^2 float32, CUDA events]")
     sim = p.sim
@@ -3581,6 +4061,11 @@ def main():
         profile_steps(pp.single_step, 2 if label.startswith("sdc") else 3,
                       f"{pp.solver_name} {pp.problem_name} {g.nx}x{g.ny} "
                       f"float32 ({label})")
+    log(f"[phase 5g under the profiler: the kernels a particle advance "
+        f"adds, and the host and on-device loops' device-busy share; {smi}]")
+    particles_profile(kh_pyros, smi)
+    for prof in loop_profiles:
+        prof()
 
     kernels = [{
         "name": "ctu_step",
@@ -3760,6 +4245,20 @@ def main():
             "bound_by": b_by,
             "library_ms": None,
         })
+    ms, p_ms, b_ms, b_by = devdt_times
+    kernels.append({
+        "name": "ctu_step_device_dt",
+        "route": "cuda",
+        "source": "pyro2_tpu_torch/csrc/ctu_step.cu",
+        "replaces": "pyro2_tpu/solvers/compressible/pallas_step.py:603",
+        "launches": devdt_launches,
+        "max_abs_err": devdt_err["quad"],
+        "ms": ms,
+        "plain_ms": p_ms,
+        "bound_ms": b_ms,
+        "bound_by": b_by,
+        "library_ms": None,
+    })
     log(f"  lm_atm bubble 1024^2: {cycles_per_solve:.2f} multigrid cycles "
         "per solve")
     log(f"  quad 1024^2 float32 CTU step: peak device memory {ctu_peak} B "

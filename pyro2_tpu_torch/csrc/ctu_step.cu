@@ -90,6 +90,17 @@
 // only where the intermediates live changed.  The entry points return the
 // launch's cudaGetLastError().
 //
+// The device-dt entries ctu_step_dev_{f32,f64} take dt as a pointer to one
+// value of the state's dtype in device memory, which the kernel reads into
+// its parameter block before anything else (DEVDT), so a launch reads no
+// value from the host and can be captured into a CUDA graph whose replays
+// each take the dt the graph computed (driver_loop.py).  For the same dt
+// they give the host-dt entries' bits: the kernel converts the value to
+// double, as the wrapper's float(dt) does, and the arithmetic is the same.
+// They take nvar 4 (Cartesian or spherical), the compressible solver's
+// state; the host-dt entries keep their own instantiations (DEVDT
+// false).
+//
 // Build (see ctu_kernel.py):
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -fmad=false
 //        -shared -Xcompiler -fPIC -o libctu_step.so ctu_step.cu
@@ -303,13 +314,18 @@ __device__ __forceinline__ T vdiv(const P& p, const A& u, const A& v,
 // the faces of the traced states (ST planes f * NV + n)
 enum { LOX = 0, HIX = 1, LOY = 2, HIY = 3 };
 
-// one CTU step of the tile (blockIdx.y, blockIdx.x) of member blockIdx.z
-template <typename T, int NV, bool SPH>
+// one CTU step of the tile (blockIdx.y, blockIdx.x) of member blockIdx.z;
+// with DEVDT the step's dt is *dtp, in place of the parameter block's
+template <typename T, int NV, bool SPH, bool DEVDT>
 __global__ void __launch_bounds__(Launch<T, SPH>::threads,
                                   Launch<T, SPH>::blocks)
     k_ctu(const T* __restrict__ U, const T* __restrict__ S,
           const T* __restrict__ G, const T* __restrict__ W,
-          T* __restrict__ out, const FixedParams<NV> p, const Plan t) {
+          T* __restrict__ out, const FixedParams<NV> pin, const Plan t,
+          const T* __restrict__ dtp) {
+  FixedParams<NV> pdev = pin;
+  if constexpr (DEVDT) pdev.dt = double(*dtp);
+  const FixedParams<NV>& p = DEVDT ? pdev : pin;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sm = reinterpret_cast<T*>(smem_raw);
   U += blockIdx.z * p.mstride;
@@ -680,12 +696,12 @@ __global__ void __launch_bounds__(Launch<T, SPH>::threads,
 
 // one launch of the NV-variable kernel with the plan's tile and shared
 // memory (the opt-in above 48 KB is set once per kernel and size)
-template <typename T, int NV, bool SPH>
+template <typename T, int NV, bool SPH, bool DEVDT>
 int launch(const T* U, const T* S, const T* G, const T* W, T* out,
-           const Params& base, const Plan& t, int n_members,
+           const Params& base, const Plan& t, int n_members, const T* dtp,
            cudaStream_t st) {
   static int opted = 0;
-  auto kernel = k_ctu<T, NV, SPH>;
+  auto kernel = k_ctu<T, NV, SPH, DEVDT>;
   if (t.smem > opted) {
     cudaError_t e = cudaFuncSetAttribute(
         (const void*)kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -696,26 +712,57 @@ int launch(const T* U, const T* S, const T* G, const T* W, T* out,
   FixedParams<NV> p;
   static_cast<Params&>(p) = base;
   const dim3 grd(t.bx, t.by, n_members);
-  kernel<<<grd, t.threads, t.smem, st>>>(U, S, G, W, out, p, t);
+  kernel<<<grd, t.threads, t.smem, st>>>(U, S, G, W, out, p, t, dtp);
   return (int)cudaGetLastError();
 }
 
 template <typename T, bool SPH>
 int by_nvar(const T* U, const T* S, const T* G, const T* W, T* out,
             const Params& p, const Plan& t, int n_members, cudaStream_t st) {
+  const T* host_dt = nullptr;
   switch (p.nvar) {
-    case 4: return launch<T, 4, SPH>(U, S, G, W, out, p, t, n_members, st);
-    case 5: return launch<T, 5, SPH>(U, S, G, W, out, p, t, n_members, st);
-    case 6: return launch<T, 6, SPH>(U, S, G, W, out, p, t, n_members, st);
-    case 7: return launch<T, 7, SPH>(U, S, G, W, out, p, t, n_members, st);
-    case 8: return launch<T, 8, SPH>(U, S, G, W, out, p, t, n_members, st);
+    case 4:
+      return launch<T, 4, SPH, false>(U, S, G, W, out, p, t, n_members,
+                                      host_dt, st);
+    case 5:
+      return launch<T, 5, SPH, false>(U, S, G, W, out, p, t, n_members,
+                                      host_dt, st);
+    case 6:
+      return launch<T, 6, SPH, false>(U, S, G, W, out, p, t, n_members,
+                                      host_dt, st);
+    case 7:
+      return launch<T, 7, SPH, false>(U, S, G, W, out, p, t, n_members,
+                                      host_dt, st);
+    case 8:
+      return launch<T, 8, SPH, false>(U, S, G, W, out, p, t, n_members,
+                                      host_dt, st);
   }
   return (int)cudaErrorInvalidValue;
 }
 
+// the geometry and where dt comes from, as template arguments; the
+// device-dt step is instantiated for the compressible solver's four
+// variables alone (the on-device loop's, driver_loop.py)
+template <typename T>
+int by_kind(const T* U, const T* S, const T* G, const T* W, T* out,
+            const Params& p, const Plan& t, int n_members, const T* dtp,
+            cudaStream_t st) {
+  if (dtp != nullptr) {
+    if (p.nvar != 4) return (int)cudaErrorInvalidValue;
+    return p.spherical
+               ? launch<T, 4, true, true>(U, S, G, W, out, p, t, n_members,
+                                          dtp, st)
+               : launch<T, 4, false, true>(U, S, G, W, out, p, t,
+                                           n_members, dtp, st);
+  }
+  return p.spherical
+             ? by_nvar<T, true>(U, S, G, W, out, p, t, n_members, st)
+             : by_nvar<T, false>(U, S, G, W, out, p, t, n_members, st);
+}
+
 template <typename T>
 int run(const T* U, const T* S, const T* G, const T* W, T* out, Params p,
-        const int* tp, int n_members, cudaStream_t st) {
+        const int* tp, int n_members, const T* dtp, cudaStream_t st) {
   static_assert(MAXVAR == 8, "by_nvar instantiates 4..8 variables");
   const Plan t = load_plan(tp);
   if (p.nvar < 4 || p.nvar > MAXVAR || p.nx < 1 || p.ny < 1 ||
@@ -742,9 +789,7 @@ int run(const T* U, const T* S, const T* G, const T* W, T* out, Params p,
                       t.p1 < 0 || t.p2 < 0))
     return (int)cudaErrorInvalidValue;
   p.mstride = n_members > 1 ? (size_t)p.nvar * p.qx * p.qy : 0;
-  return p.spherical
-             ? by_nvar<T, true>(U, S, G, W, out, p, t, n_members, st)
-             : by_nvar<T, false>(U, S, G, W, out, p, t, n_members, st);
+  return by_kind<T>(U, S, G, W, out, p, t, n_members, dtp, st);
 }
 
 // the batched entries' step: no floor, sources, sponge or walls, and
@@ -766,7 +811,7 @@ extern "C" int ctu_step_f32(const float* U, const float* S, const float* G,
                             const float* W, float* out, const int* ip,
                             const double* dp, const int* plan, void* stream) {
   return run<float>(U, S, G, W, out, load_params(ip, dp, false), plan, 1,
-                    (cudaStream_t)stream);
+                    nullptr, (cudaStream_t)stream);
 }
 
 extern "C" int ctu_step_f64(const double* U, const double* S,
@@ -774,7 +819,29 @@ extern "C" int ctu_step_f64(const double* U, const double* S,
                             const int* ip, const double* dp, const int* plan,
                             void* stream) {
   return run<double>(U, S, G, W, out, load_params(ip, dp, false), plan, 1,
-                     (cudaStream_t)stream);
+                     nullptr, (cudaStream_t)stream);
+}
+
+// the same step with dt read from device memory (dt: one value of the
+// state's dtype; the dt in dp is not read)
+extern "C" int ctu_step_dev_f32(const float* U, const float* S,
+                                const float* G, const float* W, float* out,
+                                const int* ip, const double* dp,
+                                const int* plan, const float* dt,
+                                void* stream) {
+  if (dt == nullptr) return (int)cudaErrorInvalidValue;
+  return run<float>(U, S, G, W, out, load_params(ip, dp, false), plan, 1, dt,
+                    (cudaStream_t)stream);
+}
+
+extern "C" int ctu_step_dev_f64(const double* U, const double* S,
+                                const double* G, const double* W,
+                                double* out, const int* ip, const double* dp,
+                                const int* plan, const double* dt,
+                                void* stream) {
+  if (dt == nullptr) return (int)cudaErrorInvalidValue;
+  return run<double>(U, S, G, W, out, load_params(ip, dp, false), plan, 1,
+                     dt, (cudaStream_t)stream);
 }
 
 // n_members independent states, one after another in U and out
@@ -783,7 +850,7 @@ extern "C" int ctu_step_batched_f32(const float* U, float* out,
                                     const double* dp, const int* plan,
                                     void* stream) {
   return run<float>(U, nullptr, nullptr, nullptr, out,
-                    batched_params(ip, dp), plan, n_members,
+                    batched_params(ip, dp), plan, n_members, nullptr,
                     (cudaStream_t)stream);
 }
 
@@ -792,6 +859,6 @@ extern "C" int ctu_step_batched_f64(const double* U, double* out,
                                     const double* dp, const int* plan,
                                     void* stream) {
   return run<double>(U, nullptr, nullptr, nullptr, out,
-                     batched_params(ip, dp), plan, n_members,
+                     batched_params(ip, dp), plan, n_members, nullptr,
                      (cudaStream_t)stream);
 }

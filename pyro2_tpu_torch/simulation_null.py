@@ -134,6 +134,16 @@ class NullSimulation:
 
         self.n_num_out = 0
 
+    def init_particles(self, bc):
+        """Build the tracer particles on cc_data when
+        particles.do_particles is 1 (the generator and count from
+        particles.*)."""
+        if self.rp.get_param("particles.do_particles") == 1:
+            from pyro2_tpu_torch.particles import Particles
+            self.particles = Particles(
+                self.cc_data, bc, self.rp.get_param("particles.n_particles"),
+                self.rp.get_param("particles.particle_generator"))
+
     def data_class(self, grid):
         """A cell-centered container on this simulation's device/dtype."""
         return patch.CellCenterData2d(grid, dtype=self.dtype,
@@ -212,6 +222,8 @@ class NullSimulation:
             f.attrs["nsteps"] = self.n
 
             self.cc_data.write_data(f)
+            if self.particles is not None:
+                self.particles.write_particles(f)
             self.rp.write_params(f)
             self.write_extras(f)
 

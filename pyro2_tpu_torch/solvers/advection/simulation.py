@@ -3,20 +3,17 @@
 The port of pyro2_tpu/solvers/advection/simulation.py: ghost fill -> CTU
 fluxes -> conservative update of the single "density" variable, as plain
 tensor code on the simulation's device.  The update writes the interior
-of a clone of the density.
+of a clone of the density.  `_contract_step` and `_dt_fn` are the
+stack-shaped step and the raw pre-CFL dt the on-device loop
+(driver_loop.py) runs.
 """
+
+import torch
 
 from pyro2_tpu_torch.mesh.indexer import ai, fill_ghost
 from pyro2_tpu_torch.simulation_null import (NullSimulation, bc_setup,
                                              grid_setup)
 from pyro2_tpu_torch.solvers.advection import advective_fluxes as flx
-
-
-def refuse_particles(rp):
-    """Particles are not ported: do_particles = 1 raises."""
-    if rp.get_param("particles.do_particles") == 1:
-        raise NotImplementedError(
-            "particles wait for a later slice of the port (ROADMAP.md A.17)")
 
 
 def conservative_update(a, fx, fy, g, dt):
@@ -35,7 +32,6 @@ class Simulation(NullSimulation):
 
     def initialize(self):
         """Grid (ng=4), the single "density" variable, ICs, the step."""
-        refuse_particles(self.rp)
         my_grid = grid_setup(self.rp, ng=4)
 
         my_data = self.data_class(my_grid)
@@ -43,9 +39,44 @@ class Simulation(NullSimulation):
         my_data.register_var("density", bc)
         my_data.create()
         self.cc_data = my_data
+        self.init_particles(bc)
 
         self.problem_func(self.cc_data, self.rp)
         self._step = self._build_step()
+
+    def _contract_step(self, U, t, dt):
+        """The step on the (1, qx, qy) state stack: row 0 advanced by dt
+        (a float or a 0-d tensor)."""
+        new = U.clone()
+        new[0] = self._step(U[0], dt)
+        return new
+
+    def _raw_dt(self):
+        """The pre-CFL dt, min(dx/|u|, dy/|v|), a host float."""
+        g = self.cc_data.grid
+        u = self.rp.get_param("advection.u")
+        v = self.rp.get_param("advection.v")
+        return min(g.dx / max(abs(u), self.SMALL),
+                   g.dy / max(abs(v), self.SMALL))
+
+    def _dt_fn(self, U):
+        """The raw pre-CFL dt as a 0-d tensor of U's dtype on its device
+        (made by a fill, no host copy)."""
+        return torch.full((), self._raw_dt(), dtype=U.dtype,
+                          device=U.device)
+
+    def particle_velocity(self, U=None):
+        """(u, v): the advection velocity as two (qx, qy) planes in the
+        state's dtype on its device, which the particles advance with
+        (made once; nothing writes them)."""
+        if "_velocity_planes" not in self.__dict__:
+            g = self.cc_data.grid
+            like = {"dtype": self.cc_data.dtype,
+                    "device": self.cc_data.device}
+            self._velocity_planes = tuple(
+                torch.full((g.qx, g.qy), self.rp.get_param(f"advection.{c}"),
+                           **like) for c in "uv")
+        return self._velocity_planes
 
     def _build_step(self):
         """step(a, dt) -> the density after one CTU update; `a` is not
@@ -65,18 +96,16 @@ class Simulation(NullSimulation):
 
     def method_compute_timestep(self):
         """CFL constraint: dt = cfl * min(dx/|u|, dy/|v|), on the host."""
-        cfl = self.rp.get_param("driver.cfl")
-        u = self.rp.get_param("advection.u")
-        v = self.rp.get_param("advection.v")
-
-        xtmp = self.cc_data.grid.dx / max(abs(u), self.SMALL)
-        ytmp = self.cc_data.grid.dy / max(abs(v), self.SMALL)
-        self.dt = cfl * min(xtmp, ytmp)
+        self.dt = self.rp.get_param("driver.cfl") * self._raw_dt()
 
     def evolve(self):
         """Advance density through one timestep."""
         dens = self.cc_data.get_var("density")
         self.cc_data.set_var("density", self._step(dens, self.dt))
+
+        if self.particles is not None:
+            self.particles.update_particles(self.dt,
+                                            *self.particle_velocity())
 
         self.cc_data.t += self.dt
         self.n += 1

@@ -5,7 +5,6 @@ and the RK evolve of advection_rk."""
 from pyro2_tpu_torch.mesh import fv
 from pyro2_tpu_torch.simulation_null import bc_setup, grid_setup
 from pyro2_tpu_torch.solvers import advection_rk
-from pyro2_tpu_torch.solvers.advection.simulation import refuse_particles
 from pyro2_tpu_torch.solvers.advection_fv4 import fluxes as flx
 
 
@@ -13,13 +12,13 @@ class Simulation(advection_rk.Simulation):
 
     def initialize(self):
         """FV2d data (cell averages), ng=4."""
-        refuse_particles(self.rp)
         my_grid = grid_setup(self.rp, ng=4)
         my_data = fv.FV2d(my_grid, dtype=self.dtype, device=self.device)
         bc = bc_setup(self.rp)[0]
         my_data.register_var("density", bc)
         my_data.create()
         self.cc_data = my_data
+        self.init_particles(bc)
 
         self.problem_func(self.cc_data, self.rp)
 

@@ -8,8 +8,8 @@ import torch
 import pyro2_tpu_torch.solvers.advection_nonuniform.advective_fluxes as flx
 from pyro2_tpu_torch.simulation_null import (NullSimulation, bc_setup,
                                              grid_setup)
-from pyro2_tpu_torch.solvers.advection.simulation import (
-    conservative_update, refuse_particles)
+from pyro2_tpu_torch.solvers.advection.simulation import \
+    conservative_update
 
 
 def _shift(velocity):
@@ -21,7 +21,6 @@ class Simulation(NullSimulation):
 
     def initialize(self):
         """Grid (ng=4); velocity, shift-mask, and density variables."""
-        refuse_particles(self.rp)
         my_grid = grid_setup(self.rp, ng=4)
         bc, bc_xodd, bc_yodd = bc_setup(self.rp)
 
@@ -33,6 +32,7 @@ class Simulation(NullSimulation):
         my_data.register_var("density", bc)
         my_data.create()
         self.cc_data = my_data
+        self.init_particles(bc)
 
         self.problem_func(self.cc_data, self.rp)
         self.cc_data.set_var("x-shift",
@@ -71,6 +71,11 @@ class Simulation(NullSimulation):
                            d.get_var("y-velocity"), d.get_var("x-shift"),
                            d.get_var("y-shift"), self.dt)
         d.set_var("density", a_new)
+
+        if self.particles is not None:
+            self.particles.update_particles(self.dt,
+                                            d.get_var("x-velocity"),
+                                            d.get_var("y-velocity"))
 
         d.t += self.dt
         self.n += 1

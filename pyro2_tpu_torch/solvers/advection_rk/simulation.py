@@ -55,6 +55,10 @@ class Simulation(advection.Simulation):
 
         rk.compute_final_update()
 
+        if self.particles is not None:
+            self.particles.update_particles(self.dt,
+                                            *self.particle_velocity())
+
         myd.t += self.dt
         self.n += 1
         tm_evolve.end()

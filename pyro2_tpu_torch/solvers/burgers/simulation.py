@@ -19,10 +19,6 @@ class Simulation(NullSimulation):
 
     def initialize(self):
         """Grid (ng=4), x/y-velocity variables, ICs, the step."""
-        if self.rp.get_param("particles.do_particles") == 1:
-            raise NotImplementedError(
-                "particles wait for a later slice of the port (ROADMAP.md "
-                "A.17)")
         my_grid = grid_setup(self.rp, ng=4)
         my_data = self.data_class(my_grid)
 
@@ -31,6 +27,7 @@ class Simulation(NullSimulation):
         my_data.register_var("y-velocity", bc)
         my_data.create()
         self.cc_data = my_data
+        self.init_particles(bc)
 
         self.problem_func(self.cc_data, self.rp)
         self._step = self._make_step()
@@ -98,6 +95,9 @@ class Simulation(NullSimulation):
         u_new, v_new = self._step(u, v, self.dt)
         self.cc_data.set_var("x-velocity", u_new)
         self.cc_data.set_var("y-velocity", v_new)
+
+        if self.particles is not None:
+            self.particles.update_particles(self.dt, u_new, v_new)
 
         self.cc_data.t += self.dt
         self.n += 1

@@ -68,5 +68,10 @@ class Simulation(burgers_sim):
             interface.diffuse(self.cc_data, self.rp, self.dt,
                               "y-velocity", A_v))
 
+        if self.particles is not None:
+            self.particles.update_particles(
+                self.dt, self.cc_data.get_var("x-velocity"),
+                self.cc_data.get_var("y-velocity"))
+
         self.cc_data.t += self.dt
         self.n += 1

@@ -14,8 +14,13 @@ handed to the kernel, so the CPU tests check it.
 `CTUStep(sim)(U, t, dt)` is the step the Simulation evolves with:
 
   * for a CUDA tensor it launches the kernel (or raises: there is no
-    fallback), counting the launch in the module-level `launches`;
-  * for a CPU tensor it runs the plain PyTorch step, `sim._make_step()`.
+    fallback), counting the launch in the module-level `launches`; a
+    float dt goes to the kernel by value (`ctu_step_*`), a 0-d tensor dt
+    stays on the device, where the device-dt entry (`ctu_step_dev_*`)
+    reads it, so the launch reads nothing from the host and can be
+    captured into a CUDA graph (driver_loop.py);
+  * for a CPU tensor it runs the plain PyTorch step, `sim._make_step()`,
+    with either kind of dt.
 
 The kernel updates the interior and carries the input's ghost cells through
 unchanged; `fill_BC_all` refills them before the next step.  Ghost fills,
@@ -205,6 +210,13 @@ def _load():
             fn.argtypes = [ctypes.c_void_p] * 5 + [ints, doubles, ints,
                                                    ctypes.c_void_p]
             fn.restype = ctypes.c_int
+        for name in ("ctu_step_dev_f32", "ctu_step_dev_f64"):
+            # U, S, G, W, out, ints, doubles, plan, dt, stream
+            fn = getattr(lib, name)
+            fn.argtypes = [ctypes.c_void_p] * 5 + [ints, doubles, ints,
+                                                   ctypes.c_void_p,
+                                                   ctypes.c_void_p]
+            fn.restype = ctypes.c_int
         for name in ("ctu_step_batched_f32", "ctu_step_batched_f64"):
             fn = getattr(lib, name)
             fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int, ints,
@@ -355,13 +367,16 @@ class CTUStep:
         kernel call on U.  S is the ghost-filled external-source stack of
         the floored state, the problem's source included, built in PyTorch
         on U's device; the doubles end with the problem source's e_rate
-        (simulation.energy_rate)."""
+        (simulation.energy_rate).  A tensor dt is left on the device (the
+        doubles' dt is then 0.0, which the device-dt entry does not
+        read)."""
         sim = self.sim
         floor_min = torch.finfo(U.dtype).min
         ints = list(self._ints)
         doubles = list(self._doubles)
         ints[13] = int(self.small_dens > floor_min)
-        doubles[2] = float(dt)
+        if not isinstance(dt, torch.Tensor):
+            doubles[2] = float(dt)
         doubles[8] = max(self.small_dens, floor_min)
         doubles[13] = e_rate
 
@@ -378,7 +393,9 @@ class CTUStep:
         return ints, doubles, S
 
     def launch(self, U, t, dt):
-        """Launch the CUDA kernel on U's device and current stream."""
+        """Launch the CUDA kernel on U's device and current stream: the
+        host-dt entry for a float dt, the device-dt entry for a 0-d tensor
+        of U's dtype on its device."""
         from pyro2_tpu_torch.solvers.compressible.simulation import \
             energy_rate
 
@@ -387,6 +404,16 @@ class CTUStep:
         e_rate, W = energy_rate(self.sim, U)
         if U.device.type != "cuda":
             raise ValueError("the CUDA CTU kernel takes a CUDA tensor")
+        on_device = isinstance(dt, torch.Tensor)
+        if on_device and (dt.shape != () or dt.dtype != U.dtype or
+                          dt.device != U.device):
+            raise ValueError("a device dt is a 0-d tensor of the state's "
+                             "dtype on its device")
+        if on_device and U.shape[0] != 4:
+            raise NotImplementedError(
+                "the device-dt CTU entry takes the compressible solver's 4 "
+                "variables; passive scalars wait for a later slice of the "
+                "port (ROADMAP.md A.28)")
         ints, doubles, S = self.kernel_args(U, t, dt, e_rate)
 
         lib = _load()
@@ -402,16 +429,19 @@ class CTUStep:
                                                U.dtype, U.device)
             G = self._geometry[key]
         out = torch.empty_like(U)
-        fn = lib.ctu_step_f32 if U.dtype == torch.float32 \
-            else lib.ctu_step_f64
+        sfx = "f32" if U.dtype == torch.float32 else "f64"
+        args = (U.data_ptr(), None if S is None else S.data_ptr(),
+                None if G is None else G.data_ptr(),
+                None if W is None else W.data_ptr(), out.data_ptr(),
+                (ctypes.c_int * len(ints))(*ints),
+                (ctypes.c_double * len(doubles))(*doubles), _c_plan(tiles))
         with torch.cuda.device(U.device):
             stream = torch.cuda.current_stream(U.device).cuda_stream
-            err = fn(U.data_ptr(), None if S is None else S.data_ptr(),
-                     None if G is None else G.data_ptr(),
-                     None if W is None else W.data_ptr(), out.data_ptr(),
-                     (ctypes.c_int * len(ints))(*ints),
-                     (ctypes.c_double * len(doubles))(*doubles),
-                     _c_plan(tiles), stream)
+            if on_device:
+                err = getattr(lib, f"ctu_step_dev_{sfx}")(
+                    *args, dt.data_ptr(), stream)
+            else:
+                err = getattr(lib, f"ctu_step_{sfx}")(*args, stream)
         if err != 0:
             raise RuntimeError(f"CTU kernel launch failed: CUDA error {err}")
         launches += 1

@@ -345,10 +345,6 @@ class Simulation(NullSimulation):
                     f"the {riemann_method} Riemann solver has no interface "
                     "state: the SphericalPolar CTU step needs "
                     "compressible.riemann = CGF")
-        if self.rp.get_param("particles.do_particles") == 1:
-            raise NotImplementedError(
-                "particles wait for a later slice of the port (ROADMAP.md "
-                "A.17)")
         my_data = self.data_class(my_grid)
 
         bnd.define_bc("hse", BC.user, is_solid=False)
@@ -371,6 +367,7 @@ class Simulation(NullSimulation):
 
         my_data.create()
         self.cc_data = my_data
+        self.init_particles(bc)
 
         # source terms needing their own ghost fill
         aux_data = self.data_class(my_grid)
@@ -446,9 +443,19 @@ class Simulation(NullSimulation):
         U = self._step(self.cc_data.data, self.cc_data.t, self.dt)
         self.cc_data.set_vars(U)
 
+        if self.particles is not None:
+            self.particles.update_particles(self.dt,
+                                            *self.particle_velocity(U))
+
         self.cc_data.t += self.dt
         self.n += 1
         tm_evolve.end(sync=self.cc_data.data)
+
+    def particle_velocity(self, U):
+        """(u, v) of a stack: the momenta over the density, the derived
+        velocity the particles advance with (no host read)."""
+        iv = self.ivars
+        return U[iv.ixmom] / U[iv.idens], U[iv.iymom] / U[iv.idens]
 
     def clean_state(self, U):
         """Enforce the density floor on a stack (returns a new tensor)."""

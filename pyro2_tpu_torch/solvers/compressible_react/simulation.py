@@ -4,8 +4,8 @@ The port of pyro2_tpu/solvers/compressible_react/simulation.py: the CTU
 compressible solver with the advected species "fuel" and "ash" (nvar 6),
 in a Strang-split scaffold whose burn and diffuse are stubs, as in the
 JAX package.  `evolve` steps through the CUDA CTU kernel's wrapper, which
-takes passive scalars; particles raise naming ROADMAP.md A.17 and `dovis`
-naming A.13, as in the base solver.
+takes passive scalars; `dovis` raises naming ROADMAP.md A.13, as in the
+base solver.
 """
 
 from pyro2_tpu_torch.solvers import compressible
@@ -33,7 +33,18 @@ class Simulation(compressible.Simulation):
         self.burn(self.dt / 2)
         self.diffuse(self.dt / 2)
 
+        # half a step before the hydro step and half after it, around the
+        # whole step the base evolve moves them: 2 dt a step, as in the
+        # JAX package; section C.4 of ROADMAP.md records it
+        if self.particles is not None:
+            self.particles.update_particles(
+                self.dt / 2, *self.particle_velocity(self.cc_data.data))
+
         super().evolve()
+
+        if self.particles is not None:
+            self.particles.update_particles(
+                self.dt / 2, *self.particle_velocity(self.cc_data.data))
 
         self.diffuse(self.dt / 2)
         self.burn(self.dt / 2)

@@ -143,6 +143,10 @@ class Simulation(compressible.Simulation):
 
         rk.compute_final_update()
 
+        if self.particles is not None:
+            self.particles.update_particles(
+                self.dt, *self.particle_velocity(myd.data))
+
         myd.t += self.dt
         self.n += 1
         tm_evolve.end(sync=myd.data)

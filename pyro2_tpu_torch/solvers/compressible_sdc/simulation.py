@@ -73,6 +73,10 @@ class Simulation(compressible_fv4.Simulation):
 
         myd.set_vars(U_knew[-1].data)
 
+        if self.particles is not None:
+            self.particles.update_particles(
+                self.dt, *self.particle_velocity(myd.data))
+
         myd.t += self.dt
         self.n += 1
         tm_evolve.end(sync=myd.data)

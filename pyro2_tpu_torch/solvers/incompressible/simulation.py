@@ -22,10 +22,6 @@ class Simulation(burgers_simulation):
     def initialize(self, *, other_bc=False, aux_vars=()):
         """Grid (ng=4), velocities + projection fields, ICs; `other_bc`
         registers a subclass's extended BCs first (define_other_bc)."""
-        if self.rp.get_param("particles.do_particles") == 1:
-            raise NotImplementedError(
-                "particles wait for a later slice of the port (ROADMAP.md "
-                "A.17)")
         my_grid = grid_setup(self.rp, ng=4)
         my_data = self.data_class(my_grid)
 
@@ -55,6 +51,7 @@ class Simulation(burgers_simulation):
 
         my_data.create()
         self.cc_data = my_data
+        self.init_particles(bc)
 
         self.in_preevolve = False
         self.problem_func(self.cc_data, self.rp)
@@ -268,6 +265,16 @@ class Simulation(burgers_simulation):
 
         self.cc_data.fill_BC("x-velocity")
         self.cc_data.fill_BC("y-velocity")
+
+        # the JAX package asks its data for a derived "velocity", which
+        # the incompressible data lacks (a KeyError); the port advances
+        # with the projected cell-centred velocities, and not in the
+        # pre-evolution's throwaway step; section C.4 of ROADMAP.md
+        # records it
+        if self.particles is not None and not self.in_preevolve:
+            self.particles.update_particles(
+                self.dt, self.cc_data.get_var("x-velocity"),
+                self.cc_data.get_var("y-velocity"))
 
         if not self.in_preevolve:
             self.cc_data.t += self.dt

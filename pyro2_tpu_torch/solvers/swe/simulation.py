@@ -75,10 +75,6 @@ class Simulation(NullSimulation):
 
     def initialize(self, *, extra_vars=None, ng=4):
         """Grid (ng=4), (height, momenta, fuel) variables, ICs, the step."""
-        if self.rp.get_param("particles.do_particles") == 1:
-            raise NotImplementedError(
-                "particles wait for a later slice of the port (ROADMAP.md "
-                "A.17)")
         my_grid = grid_setup(self.rp, ng=ng)
         my_data = self.data_class(my_grid)
 
@@ -96,6 +92,7 @@ class Simulation(NullSimulation):
         my_data.set_aux("g", self.rp.get_param("swe.grav"))
         my_data.create()
         self.cc_data = my_data
+        self.init_particles(bc)
 
         aux_data = self.data_class(my_grid)
         aux_data.register_var("ymom_src", bc_yodd)
@@ -175,6 +172,9 @@ class Simulation(NullSimulation):
 
         U = self._step(self.cc_data.data, self.cc_data.t, self.dt)
         self.cc_data.set_vars(U)
+
+        if self.particles is not None:
+            self.particles.update_particles(self.dt)
 
         self.cc_data.t += self.dt
         self.n += 1

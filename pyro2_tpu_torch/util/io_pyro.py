@@ -5,8 +5,8 @@ regression-comparison format: `read` re-registers the custom BCs from the
 port's own solver BC modules, rebuilds the grid (Cartesian2d or
 SphericalPolar from coord_type), the state and its aux data on the given
 device and dtype, and a Simulation built without runtime parameters (it
-holds the state, n, t, the solver's extras and the derived variables, and
-cannot step, as in the JAX package).  Files are read with the port's own
+holds the state, n, t, the particles, the solver's extras and the derived
+variables, and cannot step, as in the JAX package).  Files are read with the port's own
 HDF5 module (util/hdf5.py), so no h5py is needed.
 """
 
@@ -53,11 +53,6 @@ def read(filename, *, device=None, dtype=None):
         except KeyError:
             solver_name = None
 
-        if "particles" in f:
-            raise NotImplementedError(
-                f"{filename} holds particles, which wait for a later slice "
-                "of the port (ROADMAP.md A.17)")
-
         grid = f["grid"].attrs
         coord_type = grid.get("coord_type", 0)
         grid_class = SphericalPolar if coord_type == 1 else Cartesian2d
@@ -101,6 +96,15 @@ def read(filename, *, device=None, dtype=None):
             myd.data[(i, *valid)] = torch.as_tensor(
                 gs[name]["data"][...], dtype=dtype).to(device)
 
+        # particles: an "array" set with no boundary conditions
+        my_particles = None
+        if "particles" in f:
+            from pyro2_tpu_torch.particles import Particles
+            gp = f["particles"]
+            pos = gp["particle_positions"][...]
+            my_particles = Particles(myd, None, len(pos), "array", pos,
+                                     gp["init_particle_positions"][...])
+
         if solver_name is None:
             return myd
 
@@ -111,6 +115,7 @@ def read(filename, *, device=None, dtype=None):
         sim.n = int(n)
         sim.cc_data = myd
         sim.cc_data.t = float(t)
+        sim.particles = my_particles
         sim.read_extras(f)
 
         # walk the MRO to find the solver family's derives module

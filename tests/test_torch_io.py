@@ -222,13 +222,26 @@ def test_read_derives_variables_through_the_mro():
 
 
 def test_a_file_with_particles_waits_for_a17(tmp_path):
+    """A file with a particles group reads (A.17 is done; the name is the
+    test's from before): a golden with two particles added by h5py reads
+    back in both packages as an "array" Particles with no boundary
+    conditions, positions equal by bits."""
     fn = tmp_path / "p.h5"
     shutil.copy(ROOT / "pyro2_tpu/solvers/advection/tests/smooth_0040.h5",
                 fn)
+    pos = np.array([[0.25, 0.5], [0.75, 0.125]])
+    init = np.array([[0.2, 0.4], [0.7, 0.1]])
     with h5py.File(fn, "a") as f:
-        f.create_group("particles")
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md A\.17"):
-        io_pyro.read(fn, device="cpu")
+        g = f.create_group("particles")
+        g.create_dataset("particle_positions", data=pos)
+        g.create_dataset("init_particle_positions", data=init)
+    s = io_pyro.read(fn, device="cpu")
+    j = jio.read(str(fn))
+    for got, ref in ((s.particles.positions.numpy(), pos),
+                     (s.particles.init_positions.numpy(), init),
+                     (np.asarray(j.particles.positions), pos)):
+        assert np.array_equal(got, ref)
+    assert s.particles.bc is None and bool(s.particles.active.all())
 
 
 def _written(tmp_path, solver, problem, inputs, steps):

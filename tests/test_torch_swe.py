@@ -488,7 +488,6 @@ def test_kernel_wrapper_checks_inputs():
 @pytest.mark.parametrize("inputs,extra,error", [
     ({"swe.use_flattening": 1}, None, NotImplementedError),
     ({}, ["s1", "s2", "s3", "s4", "s5"], NotImplementedError),
-    ({"particles.do_particles": 1}, None, NotImplementedError),
     ({"swe.riemann": "CGF"}, None, ValueError),
 ])
 def test_uncovered_configurations_raise(inputs, extra, error):
@@ -500,6 +499,31 @@ def test_uncovered_configurations_raise(inputs, extra, error):
                           device="cpu")
     with pytest.raises(error, match="ROADMAP|Riemann"):
         sim.initialize(extra_vars=extra)
+
+
+def test_particles_match_jax():
+    """Random particles on quad 16x16 (one numpy seed for both packages)
+    advance with the derived velocity after each step: positions at rtol
+    1e-12 and `active` equal to the JAX package's after 5 steps (the
+    particles case of test_uncovered_configurations_raise, which raised
+    before particles were ported)."""
+    inputs = {"mesh.nx": 16, "mesh.ny": 16, "particles.do_particles": 1,
+              "particles.particle_generator": "random",
+              "particles.n_particles": 50}
+    runs = []
+    for P, kw in ((Pyro, {"device": "cpu"}), (JPyro, {})):
+        np.random.seed(2)
+        p = P("swe", **kw)
+        p.initialize_problem("quad", inputs_dict=dict(inputs))
+        for _ in range(5):
+            p.single_step()
+        runs.append(p.sim.particles)
+    tp, jp = runs
+    np.testing.assert_allclose(tp.positions.numpy(),
+                               np.asarray(jp.positions), rtol=1e-12)
+    assert np.array_equal(tp.active.numpy(), np.asarray(jp.active))
+    assert not np.array_equal(tp.positions.numpy(),
+                              tp.init_positions.numpy())
 
 
 def test_work_counts_state_bytes_and_operations():

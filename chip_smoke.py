@@ -187,9 +187,9 @@ Phases (any failure exits non-zero and prints no result line):
      f64 (states, output files' too, equal by bits) and f32 (1e-5 of the
      scale), and advection smooth 1024^2 with 256^2 particles for 100
      steps (f32), the same n and output steps; each loop's host-clock
-     ms/step, the graph's replays and frozen tail, the launches of a timed
-     fast run (a replay's times the replays); the device-dt entry's
-     CUDA-event time;
+     ms/step, the graph's replays and frozen tail, the wrapper's count
+     over the capturing run (a warm-up body and the chunk's bodies); the
+     device-dt entry's CUDA-event time;
   6. CUDA-event timing of each kernel and its plain version at the main
      paths' shapes (quad 1024^2; the 1024^2 solves' levels, constant, vc
      and general; the rk quad and fv4 acoustic_pulse 1024^2 increments;
@@ -234,7 +234,10 @@ Phases (any failure exits non-zero and prints no result line):
      by kernel and the device's busy share of the wall time; phase 5g's
      device kernels a kh step with and without particles, and one whole
      run of each loop (host and on-device) with its device-busy us/step
-     and idle share. Each profiler
+     and idle share, and the device-dt k_ctu launches of the on-device
+     run as the profiler counts them (the replays times the chunk's
+     bodies, frozen ones included: the kernels line's launches of
+     ctu_step_device_dt). Each profiler
      session idles 20 ms on each side of its calls and is made up to
      three times; if none records a device kernel, the
      wrappers' counts count the launches, CUDA events time them, and the
@@ -1983,14 +1986,6 @@ def restorer(sim):
     return restore
 
 
-def launch_name(module, key):
-    """The all_counts name of a chunk runner's launch key."""
-    if key is not None:
-        return key
-    return {"ctu_kernel": "ctu_step",
-            "swe_kernel": "swe_step"}[module.__name__.rsplit(".", 1)[-1]]
-
-
 def fast_vs_host(solver, problem, n, steps, dtype, tol, inputs=None,
                  chunk=64):
     """run_sim_fast(chunk_steps=chunk) against run_sim on `problem` at n^2
@@ -2072,18 +2067,26 @@ def fast_loop_timing(solver, problem, n, steps, dtype, smi, inputs=None,
                      chunk=64):
     """Host-clock ms/step of run_sim and of run_sim_fast on `problem` at
     n^2 (steps steps, no output, each after a first run: the kernels'
-    loads, the graph's capture), the capture run's seconds, the replays,
-    the kernel launches of the timed fast run (counts reset just before,
-    read just after: a replay's launches times the replays, the frozen
-    tail included), and each loop's device-busy us/step and idle share
-    under the profiler (one whole run, by the returned function, which
-    section 7 calls); returns (ctu_step launches, (host ms, fast ms,
-    replays, frozen), the profiling function)."""
+    loads, the graph's capture), the capture run's seconds, the replays
+    and the frozen tail; the wrappers' counts over the capturing run
+    (reset just before, read just after): one warm-up body and the
+    chunk's bodies launch ctu_step where the solver's step is the CTU
+    kernel, and nothing else launches.  The returned function (section 7
+    calls it) profiles one whole run of each loop: device-busy us/step
+    and idle share, and for the on-device loop the launches of k_ctu's
+    device-dt entry as the profiler counts them, which must be the
+    profiled run's replays times the chunk's bodies (none of the host-dt
+    entry); it returns that count.  Returns (host ms, fast ms, replays,
+    frozen) and the profiling function."""
+    import re
+
     import numpy as np
     import torch
 
     from pyro2_tpu_torch import Pyro
     from pyro2_tpu_torch.driver_loop import make_chunk_runner, run_sim_fast
+
+    ctu_per_body = 1 if solver == "compressible" else 0
 
     def fresh():
         np.random.seed(16)
@@ -2106,46 +2109,80 @@ def fast_loop_timing(solver, problem, n, steps, dtype, smi, inputs=None,
         for k in range(2):
             restore[label]()
             torch.cuda.synchronize()
+            if k == 0 and label == "fast":
+                reset_counts()
             if k == 1 and label == "fast":
                 runner = make_chunk_runner(fast.sim, chunk)
                 replays0 = runner.replays
-                reset_counts()
             t0 = time.perf_counter()
             run()
             torch.cuda.synchronize()
             seconds[label, k] = time.perf_counter() - t0
-    launched = {k: v for k, v in all_counts().items() if v}
+            if k == 0 and label == "fast":
+                captured = {k: v for k, v in all_counts().items() if v}
     replays = runner.replays - replays0
     frozen = replays * chunk - fast.sim.n
-    per_chunk = {launch_name(m, k): v for (m, k), v in
-                 runner.launches.items()}
-    expect = {name: v * replays for name, v in per_chunk.items()}
-    if fast.sim.n != steps or launched != expect:
+    expect = {"ctu_step": chunk + 1} if ctu_per_body else {}
+    if fast.sim.n != steps or captured != expect:
         raise AssertionError(f"{problem} fast loop: {fast.sim.n} steps, "
-                             f"launches {launched}, expected {expect}")
+                             f"the capturing run's wrapper counts "
+                             f"{captured}, expected {expect}")
     host_ms = 1e3 * seconds["host", 1] / steps
     fast_ms = 1e3 * seconds["fast", 1] / steps
     log(f"  {solver} {problem} {n}x{n} {str(dtype)[6:]}: host loop "
         f"{host_ms:.4f} ms/step; fast loop {fast_ms:.4f} ms/step ({steps} "
         f"steps, {replays} replays of a {chunk}-body graph, {frozen} frozen "
         f"bodies in the tail); the first runs {seconds['host', 0]:.3f} s, "
-        f"{seconds['fast', 0]:.3f} s (the capture); launches {launched} "
-        f"({per_chunk} a replay)")
+        f"{seconds['fast', 0]:.3f} s (the capture); wrapper counts over "
+        f"the capturing run {captured}")
+
     def profile():
-        for label, run in (("host", host_run), ("fast", fast_run)):
-            found = kernels_a_step(lambda: (restore[label](), run()), 1)
-            if found is None:
+        last = {}
+
+        def fast_once():
+            restore["fast"]()
+            before = runner.replays
+            fast_run()
+            last["replays"] = runner.replays - before
+
+        devdt = None
+        for label, fn in (("host", lambda: (restore["host"](), host_run())),
+                          ("fast", fast_once)):
+            rows, wall = profiled(fn, 1)
+            if not rows:
                 log(f"  {label} loop: device time not measured (the "
                     "profiler recorded no device kernel)")
                 continue
-            k, busy, wall = found
+            busy = sum(us for *_, us in rows)
             log(f"  {solver} {problem} {n}x{n} {str(dtype)[6:]}, {label} "
                 f"loop, one run of {steps} steps: device busy "
                 f"{busy / steps:.1f} us/step, "
-                f"{100 - 100 * busy / wall:.1f}% idle, {k / steps:.1f} "
-                f"device kernels a step; {smi}")
-    return launched.get("ctu_step", 0), (host_ms, fast_ms, replays,
-                                         frozen), profile
+                f"{100 - 100 * busy / wall:.1f}% idle, "
+                f"{sum(c for _, c, _ in rows) / steps:.1f} device kernels "
+                f"a step; {smi}")
+            if label == "fast":
+                ctu = {}
+                for key, count, _ in rows:
+                    m = re.search(r"(k_ctu)<([^<>]*)>", key)
+                    if m:
+                        name = kernel_name(m.group(1), m.group(2).split(", "))
+                        ctu[name] = ctu.get(name, 0) + count
+                devdt = sum(c for k, c in ctu.items() if "device dt" in k)
+                want = last["replays"] * chunk * ctu_per_body
+                log(f"  the on-device run's k_ctu launches (profiler): "
+                    f"{ctu}; {last['replays']} replays x {chunk} bodies x "
+                    f"{ctu_per_body} = {want}")
+                if devdt != want or sum(ctu.values()) != devdt:
+                    raise AssertionError(
+                        f"{problem} fast loop: k_ctu launches {ctu}, "
+                        f"expected {want} of the device-dt entry alone")
+        if devdt is None:
+            raise AssertionError(f"{problem} fast loop: the profiler "
+                                 "recorded no device kernel; the device-dt "
+                                 "launches are not measured")
+        return devdt
+
+    return (host_ms, fast_ms, replays, frozen), profile
 
 
 def time_pair(name, kern, plain, work, bw, fp32):
@@ -3789,14 +3826,13 @@ def main():
                  inputs=advect_particles)
     log(f"[the on-device loop against the host loop: host-clock ms/step, "
         f"replays, launches; {smi}]")
-    devdt_launches, loop_profiles = 0, []
+    loop_profiles = []
     for solver, problem, steps, dtype, inputs in (
             ("compressible", "quad", 200, torch.float32, None),
             ("compressible", "quad", 200, torch.float64, None),
             ("advection", "smooth", 100, torch.float32, advect_particles)):
-        launches, _, prof = fast_loop_timing(solver, problem, 1024, steps,
-                                             dtype, smi, inputs=inputs)
-        devdt_launches += launches
+        _, prof = fast_loop_timing(solver, problem, 1024, steps, dtype, smi,
+                                   inputs=inputs)
         loop_profiles.append(prof)
     torch.cuda.empty_cache()
     log(f"[timing: ctu_step's device-dt entry at quad 1024^2 float32, CUDA "
@@ -4064,8 +4100,9 @@ def main():
     log(f"[phase 5g under the profiler: the kernels a particle advance "
         f"adds, and the host and on-device loops' device-busy share; {smi}]")
     particles_profile(kh_pyros, smi)
-    for prof in loop_profiles:
-        prof()
+    # the kernels line's launches: the f32 quad on-device run's, from the
+    # profiler
+    devdt_launches = [prof() for prof in loop_profiles][0]
 
     kernels = [{
         "name": "ctu_step",

@@ -21,29 +21,30 @@ On the CPU the same bodies run eagerly in a Python loop.
 Output cadence is exact (simulation_null.do_output): a body freezes --
 leaves the whole carry as it found it, by selection on the device --
 once t >= tmax, n >= max_steps, or an output is due, so the host writes
-the same files at the same steps as the host loop.  The tmax clamp is
+the same files at the same steps as the host loop.  These predicates
+(`ChunkRunner.status`) are evaluated on the carry, in its dtype, by the
+bodies and by the host between chunks: in float32, t and the tmax and
+dt_out it is compared with are float32 values on both sides, so the
+host never waits for a step that the device has frozen.  The tmax clamp is
 min(dt, tmax - t), as in the JAX package's loop, where the host loop sets
 dt = tmax - t when t + dt > tmax: the two can differ by an ulp on the last
 step.  t and dt are carried in the state's dtype, so an f32 run's dt is
 an f32 value where the host loop's is a double.
 
-Covered: the compressible CTU solver and advection, whose `evolve` is
-their step.  A solver without `_dt_fn` raises TypeError, as in the JAX
-package; the subclasses whose `evolve` is not that step (the RK, fv4,
-SDC, react and WENO solvers), swe, and a problem whose ghost fill reads t
-on the host raise NotImplementedError naming ROADMAP.md A.28.
+Covered: the solvers that declare `device_loop` (the compressible CTU
+solver and advection, whose `evolve` is their step).  A solver without
+`_dt_fn` raises TypeError, as in the JAX package; the others (the RK,
+fv4, SDC, react and WENO subclasses, swe) and a problem whose ghost fill
+reads t on the host (a BC registered with reads_host_time) raise
+NotImplementedError naming ROADMAP.md A.28.
 """
-
-import sys
 
 import torch
 
+from pyro2_tpu_torch.mesh import boundary as bnd
 from pyro2_tpu_torch.util import msg
 
 __all__ = ["dt_control", "make_chunk_runner", "run_sim_fast"]
-
-# the ghost fills that read t on the host (compressible/BC.py's ramp)
-HOST_TIME_BCS = ("ramp",)
 
 
 def dt_control(dt_raw, t, n, dt_old, *, cfl, init_tstep_factor,
@@ -75,9 +76,6 @@ def _particle_velocity_fn(sim):
 
 def _covered(sim):
     """Raise unless the on-device loop computes what sim's evolve does."""
-    from pyro2_tpu_torch.solvers.advection import simulation as adv
-    from pyro2_tpu_torch.solvers.compressible import simulation as comp
-
     name = type(sim).__name__
     module = type(sim).__module__
     step = getattr(sim, "_contract_step", None) or getattr(sim, "_step",
@@ -86,8 +84,7 @@ def _covered(sim):
         raise TypeError(
             f"{module}.{name} does not expose the kernel contract "
             "(_step/_dt_fn) needed by the on-device loop")
-    if type(sim).evolve not in (comp.Simulation.evolve,
-                                adv.Simulation.evolve):
+    if not sim.device_loop:
         raise NotImplementedError(
             f"the on-device loop of {module}.{name}, whose evolve is not "
             "its step, waits for a later slice of the port (ROADMAP.md "
@@ -95,7 +92,7 @@ def _covered(sim):
     datas = [sim.cc_data] + [getattr(sim, "aux_data", None)]
     for d in filter(None, datas):
         for bc in d.BCs.values():
-            if {bc.xlb, bc.xrb, bc.ylb, bc.yrb} & set(HOST_TIME_BCS):
+            if {bc.xlb, bc.xrb, bc.ylb, bc.yrb} & bnd.host_time_bcs:
                 raise NotImplementedError(
                     "the on-device loop of a ghost fill that reads t on "
                     "the host waits for a later slice of the port "
@@ -103,35 +100,12 @@ def _covered(sim):
     return step
 
 
-def _counts():
-    """{(module, key): launches} of the loaded kernel modules of the port
-    that count their launches (an int, key None, or a dict by entry)."""
-    out = {}
-    for name, m in list(sys.modules.items()):
-        c = getattr(m, "launches", None) if name.startswith(
-            "pyro2_tpu_torch.") else None
-        if isinstance(c, int):
-            out[m, None] = c
-        elif isinstance(c, dict):
-            out.update(((m, k), v) for k, v in c.items())
-    return out
-
-
-def _add_counts(counts, sign=1):
-    """Add (or with sign -1 take away) {(module, key): launches}."""
-    for (m, k), v in counts.items():
-        if k is None:
-            m.launches += sign * v
-        else:
-            m.launches[k] += sign * v
-
-
 class ChunkRunner:
     """carry -> carry, up to chunk_steps steps; see make_chunk_runner.
 
-    `replays` counts the chunks run; on CUDA `graph` is the captured chunk
-    and `launches` the kernel launches one replay makes, {(module, entry
-    or None): n}, which each replay adds to the module's count."""
+    `replays` counts the chunks run; on CUDA `graph` is the captured chunk.
+    The kernel wrappers count their launches at the capture (the warm-up
+    body's and the chunk's), not at the replays."""
 
     def __init__(self, sim, chunk_steps):
         step = _covered(sim)
@@ -152,17 +126,26 @@ class ChunkRunner:
         dt_out = rp.get_param("io.dt_out")
         n_out = rp.get_param("io.n_out")
         do_io = rp.get_param("io.do_io") == 1
+        never = torch.zeros((), dtype=torch.bool,
+                            device=sim.cc_data.data.device)
+
+        def status(carry):
+            """(done, output due) at the carry's (t, n), as 0-d bool
+            tensors: finished()'s and do_output()'s predicates in the
+            carry's dtype; last_out_n keeps the n_out branch from firing
+            again at the step the host just wrote."""
+            _, t, n, _, _, _, n_num_out, last_out_n = carry
+            done = (t >= tmax) | (n >= max_steps)
+            if not do_io:
+                return done, never
+            due = ((t >= (n_num_out + 1).to(t.dtype) * dt_out) |
+                   ((n % n_out == 0) & (n > 0) & (n != last_out_n)))
+            return done, due
 
         def body(carry):
-            U, t, n, dt_old, pos, act, n_num_out, last_out_n = carry
-            # do_output's predicate at the (t, n) the last body left;
-            # last_out_n keeps the n_out branch from freezing again at the
-            # step the host just wrote
-            frozen = (t >= tmax) | (n >= max_steps)
-            if do_io:
-                frozen = frozen | (t >= (n_num_out + 1).to(t.dtype) * dt_out)
-                frozen = frozen | ((n % n_out == 0) & (n > 0) &
-                                   (n != last_out_n))
+            U, t, n, dt_old, pos, act = carry[:6]
+            done, due = status(carry)
+            frozen = done | due if do_io else done
             Uf = fill(U.clone(), t)
             dt, new_old = dt_control(dt_fn(Uf), t, n, dt_old, **ladder)
             U1 = step(Uf, t, dt)
@@ -174,10 +157,10 @@ class ChunkRunner:
             for old, value in zip(carry, new):
                 torch.where(frozen, old, value, out=old)
 
+        self.status = status
         self.body = body
         self.replays = 0
         self.graph = None
-        self.launches = {}
         self.carry = None
 
     def _chunk(self, carry):
@@ -195,17 +178,9 @@ class ChunkRunner:
         torch.cuda.current_stream().wait_stream(side)
         torch.cuda.synchronize()
 
-        before = _counts()
         graph = torch.cuda.CUDAGraph()
-        try:
-            with torch.cuda.graph(graph):
-                self._chunk(carry)
-        finally:
-            # a capture records the launches; only replays make them
-            self.launches = {key: v - before.get(key, 0)
-                             for key, v in _counts().items()
-                             if v != before.get(key, 0)}
-            _add_counts(self.launches, -1)
+        with torch.cuda.graph(graph):
+            self._chunk(carry)
         self.graph = graph
 
     def __call__(self, carry):
@@ -225,7 +200,6 @@ class ChunkRunner:
                 static.copy_(value)
         self.graph.replay()
         self.replays += 1
-        _add_counts(self.launches)
         return self.carry
 
 
@@ -280,7 +254,9 @@ def run_sim_fast(pyro, *, chunk_steps=64):
              torch.tensor(sim.n_num_out, **as_int),
              torch.tensor(-1, **as_int)]
 
-    while not sim.finished():
+    # the device's predicates decide for the host (see the module's doc)
+    done = bool(run_chunk.status(carry)[0])
+    while not done:
         carry = run_chunk(carry)
         U, t, n, dt_old, pos, act = carry[:6]
         sim.cc_data.data = U.clone()
@@ -293,7 +269,9 @@ def run_sim_fast(pyro, *, chunk_steps=64):
         if pyro.verbose > 0:
             print(f"{sim.n:5d} {sim.cc_data.t:10.5f}  (chunk of "
                   f"{chunk_steps})")
-        if sim.do_output():
+        done, due = (bool(x) for x in run_chunk.status(carry))
+        if due:
+            sim.n_num_out += 1
             sim.write(f"{basename}{sim.n:04d}")
             carry[6].fill_(sim.n_num_out)
             carry[7].fill_(sim.n)

@@ -18,7 +18,8 @@ names, aux, ivars, and time.
 
 import numpy as np
 
-__all__ = ["BC", "BCProp", "bc_is_solid", "define_bc", "bc_solid", "ext_bcs"]
+__all__ = ["BC", "BCProp", "bc_is_solid", "define_bc", "bc_solid", "ext_bcs",
+           "host_time_bcs"]
 
 # is the boundary a solid wall (no flux) for Riemann-solver purposes?
 bc_solid = {
@@ -34,11 +35,19 @@ bc_solid = {
 # user-extended BC types: name -> pure fill function
 ext_bcs = {}
 
+# the user-extended BC types whose fill reads ccdata.t on the host
+host_time_bcs = set()
 
-def define_bc(bc_type, function, is_solid=False):
-    """Register a new named BC type with its (pure) fill function."""
+
+def define_bc(bc_type, function, is_solid=False, reads_host_time=False):
+    """Register a new named BC type with its (pure) fill function;
+    reads_host_time marks a fill that reads the time on the host."""
     bc_solid[bc_type] = is_solid
     ext_bcs[bc_type] = function
+    if reads_host_time:
+        host_time_bcs.add(bc_type)
+    else:
+        host_time_bcs.discard(bc_type)
 
 
 def _set_reflect(odd_reflect_dir, dir_string):

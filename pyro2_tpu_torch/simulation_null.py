@@ -90,6 +90,10 @@ class NullSimulation:
     defaults to the device's working dtype (see pyro2_tpu_torch.defaults).
     """
 
+    # does driver_loop.run_sim_fast compute what evolve does?  (True where
+    # evolve is one fill -> dt -> step, then the particle advance)
+    device_loop = False
+
     def __init__(self, solver_name, problem_name, problem_func, rp, *,
                  problem_finalize_func=None, problem_source_func=None,
                  problem_source_weight_func=None, timers=None, device=None,

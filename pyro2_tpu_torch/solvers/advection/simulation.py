@@ -30,6 +30,9 @@ def conservative_update(a, fx, fy, g, dt):
 
 class Simulation(NullSimulation):
 
+    # evolve is fill -> step -> particle advance, the on-device loop's body
+    device_loop = True
+
     def initialize(self):
         """Grid (ng=4), the single "density" variable, ICs, the step."""
         my_grid = grid_setup(self.rp, ng=4)

@@ -11,6 +11,9 @@ from pyro2_tpu_torch.solvers import advection
 
 class Simulation(advection.Simulation):
 
+    # evolve is the RK stages, not the one-step update (ROADMAP.md A.28)
+    device_loop = False
+
     def _build_step(self):
         return None
 

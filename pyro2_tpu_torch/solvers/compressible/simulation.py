@@ -327,6 +327,9 @@ class Simulation(NullSimulation):
     # CTU step)
     MOL_KIND = None
 
+    # evolve is fill -> _step -> particle advance, the on-device loop's body
+    device_loop = True
+
     def initialize(self, *, extra_vars=None, ng=4):
         """Grid (ng=4), the 4 conserved vars (+extras), aux source-term
         container, custom BCs, ICs, and the step."""
@@ -349,7 +352,8 @@ class Simulation(NullSimulation):
 
         bnd.define_bc("hse", BC.user, is_solid=False)
         bnd.define_bc("ambient", BC.user, is_solid=False)
-        bnd.define_bc("ramp", BC.user, is_solid=False)
+        bnd.define_bc("ramp", BC.user, is_solid=False,
+                      reads_host_time=True)
 
         bc, bc_xodd, bc_yodd = bc_setup(self.rp)
         self.solid = bnd.bc_is_solid(bc)

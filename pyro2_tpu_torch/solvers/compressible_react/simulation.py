@@ -16,6 +16,9 @@ __all__ = ["Simulation"]
 class Simulation(compressible.Simulation):
     """The compressible solver with fuel and ash species."""
 
+    # evolve wraps the step in burn and diffuse (ROADMAP.md A.28)
+    device_loop = False
+
     def initialize(self, *, extra_vars=None, ng=4):
         """Same as compressible, plus the fuel and ash species."""
         super().initialize(extra_vars=["fuel", "ash"] + (extra_vars or []),

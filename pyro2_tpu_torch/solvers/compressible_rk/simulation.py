@@ -82,6 +82,9 @@ class Simulation(compressible.Simulation):
 
     MOL_KIND = "rk"
 
+    # evolve is the MOL stages, not the CTU step (ROADMAP.md A.28)
+    device_loop = False
+
     def _make_kernel_step(self):
         """The stage increment k(U, t, dt) through the MOL kernel's
         wrapper (no CTU step)."""

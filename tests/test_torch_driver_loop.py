@@ -223,6 +223,68 @@ def test_tmax_clamp_differs_by_an_ulp_on_the_last_step():
                           pf.sim.particles.positions.numpy())
 
 
+def _f32_pulse(tmp_path, monkeypatch, sub, chunk_steps, tmax, dt_out):
+    """compressible acoustic_pulse 8^2 in float32 at fix_dt 2^-9 (every t
+    short of the tmax clamp is exact in float32 and in double), output
+    every dt_out; returns (n, output steps).  The fast loop's chunks are
+    capped, so a loop that stops advancing fails instead of hanging."""
+    from pyro2_tpu_torch.driver_loop import ChunkRunner
+
+    call = ChunkRunner.__call__
+    chunks = []
+
+    def capped(self, carry):
+        chunks.append(1)
+        assert len(chunks) < 100, "the fast loop stopped advancing"
+        return call(self, carry)
+
+    monkeypatch.setattr(ChunkRunner, "__call__", capped)
+    d = tmp_path / sub
+    d.mkdir()
+    monkeypatch.chdir(d)
+    p = Pyro("compressible", device="cpu", dtype=torch.float32)
+    p.initialize_problem("acoustic_pulse", inputs_dict={
+        "mesh.nx": 8, "mesh.ny": 8, "driver.tmax": tmax,
+        "driver.fix_dt": 2.0 ** -9, "io.dt_out": dt_out,
+        "io.basename": "pulse_"})
+    p.rp.set_param("io.do_io", 1)
+    if chunk_steps is None:
+        p.run_sim()
+    else:
+        run_sim_fast(p, chunk_steps=chunk_steps)
+    files = sorted(glob.glob(str(d / "pulse_*.h5")))
+    return p.sim.n, [int(os.path.basename(f)[6:10]) for f in files]
+
+
+@pytest.mark.parametrize("chunk_steps", [16, 64])
+def test_float32_tmax_that_rounds_down_ends_the_fast_loop(
+        tmp_path, monkeypatch, chunk_steps):
+    """float32, tmax 0.24 (whose float32 value is below 0.24): the last
+    step lands t on float32(0.24), where the device's predicate says
+    done; the host follows it, so the run ends, with the host loop's n
+    and output steps (dt_out 0.03)."""
+    host = _f32_pulse(tmp_path, monkeypatch, "host", None, 0.24, 0.03)
+    fast = _f32_pulse(tmp_path, monkeypatch, "fast", chunk_steps, 0.24,
+                      0.03)
+    assert float(np.float32(0.24)) < 0.24
+    assert fast == host
+    assert host == (123, [0, 16, 31, 47, 62, 77, 93, 108, 123])
+
+
+def test_float32_output_cadence_is_the_devices(tmp_path, monkeypatch):
+    """float32, dt_out 0.0625 + 1e-10, whose float32 value is 0.0625: at
+    t = 0.0625 (step 32) the device's predicate says an output is due
+    where the host's double says not yet.  The host writes where the
+    device froze -- steps 32, 64, 96 -- and the run goes on to the host
+    loop's n; the host loop writes a step later."""
+    dt_out = 0.0625 + 1e-10
+    assert float(np.float32(dt_out)) == 0.0625
+    fast = _f32_pulse(tmp_path, monkeypatch, "fast", 16, 0.25, dt_out)
+    host = _f32_pulse(tmp_path, monkeypatch, "host", None, 0.25, dt_out)
+    assert fast == (128, [0, 32, 64, 96, 128])
+    assert host == (128, [0, 33, 65, 97, 128])
+
+
 def _carry(sim):
     U = sim.cc_data.data
     i32 = {"dtype": torch.int32}

@@ -190,6 +190,27 @@ Phases (any failure exits non-zero and prints no result line):
      ms/step, the graph's replays and frozen tail, the wrapper's count
      over the capturing run (a warm-up body and the chunk's bodies); the
      device-dt entry's CUDA-event time;
+  5h. inhomogeneous multigrid BC values, the analytic solves and
+     iterative refinement: mg_test_general_inhomogeneous's operator and
+     Dirichlet values, and a constant Helmholtz operator with Neumann
+     values on all four edges, each entry at every peeled level (the core
+     when it holds the finest level: 128^2 in float32, 64^2 in float64),
+     one whole cycle and one whole solve at those sizes and 1024^2, the
+     kernels fed mg_kernel.lifted_rhs on the finest level against the
+     plain versions filling the values in the cycle (interiors and
+     residuals; the cycle's and the solve's ghosts after the refill;
+     float64 1e-12 with equal solve cycles, float32 1e-5), with the lifted
+     cycle's CUDA-event time at 1024^2; the regression driver's four
+     analytic solves (MG_EXPECTED) at 256^2 in float64 within 10% of their
+     L2 errors, each launching its operator's three entries and no other
+     kernel, and at 64^2 on the card against the CPU (equal cycles, L2
+     errors within 1e-10); solve_ir in float32 on mg_test_simple's
+     problem at 128^2 and 1024^2 and solve_ir_sharded on the 1 x 1 mesh
+     at 1024^2 (the direct float32 solve's residual, the refined one and
+     its passes, wall times and launches: the refined residual below 1e-4
+     of the direct one, hi + lo within 1e-8 of a float64 card solve at
+     rtol 1e-11; the sharded solve launching mg_deep_smooth, mg_correct
+     and mg_core alone);
   6. CUDA-event timing of each kernel and its plain version at the main
      paths' shapes (quad 1024^2; the 1024^2 solves' levels, constant, vc
      and general; the rk quad and fv4 acoustic_pulse 1024^2 increments;
@@ -1196,8 +1217,8 @@ def mg_compare(n, case, dtype, tol, errs):
         m.init_RHS(f)
         saved = mg_kernel.cycle
         if plain:
-            mg_kernel.cycle = lambda mm, vv, ff: mg_kernel.core_plain(
-                mm, mm.nlevels - 1, vv, ff, True)
+            mg_kernel.cycle = lambda mm, vv, ff, f_h=None: \
+                mg_kernel.core_plain(mm, mm.nlevels - 1, vv, ff, True)
         try:
             m.solve(rtol=1.e-11)
         finally:
@@ -2183,6 +2204,381 @@ def fast_loop_timing(solver, problem, n, steps, dtype, smi, inputs=None,
         return devdt
 
     return (host_ms, fast_ms, replays, frozen), profile
+
+
+# ---------------------------------------------------------------------------
+# phase 5h: inhomogeneous multigrid BC values (the kernels take them lifted
+# into the finest level's right-hand side), the regression driver's
+# analytic solves, and double-f32 iterative refinement
+# ---------------------------------------------------------------------------
+
+# the lifted configurations: mg_test_general_inhomogeneous's operator and
+# Dirichlet values, and a constant Helmholtz operator with Neumann values
+# on all four edges (both signs of the -/+ dx value offset)
+LIFTED_CASES = ("general_inhomogeneous", "neumann_values")
+
+
+def make_lifted_mg(n, name, dtype, device="cuda"):
+    """An n^2 MG of one of LIFTED_CASES."""
+    import numpy as np
+
+    from pyro2_tpu_torch.mesh.grid import Grid2d
+    from pyro2_tpu_torch.multigrid.general_MG import GeneralMG2d
+    from pyro2_tpu_torch.multigrid.MG import CellCenterMG2d
+
+    if name == "general_inhomogeneous":
+        g = Grid2d(n, n, ng=1)
+        x, y = g.x2d, g.y2d
+        return GeneralMG2d(
+            n, n, xl_BC_type="dirichlet", xr_BC_type="dirichlet",
+            yl_BC_type="dirichlet", yr_BC_type="dirichlet",
+            xl_BC=lambda y: np.cos(np.pi * y / 2.0),
+            yl_BC=lambda x: np.cos(np.pi * x / 2.0),
+            coeffs=general_coeffs(g, 10.0 + 0 * x, x * y + 1.0, 1.0 + 0 * x,
+                                  1.0 + 0 * y, dtype),
+            device=device, dtype=dtype)
+    return CellCenterMG2d(
+        n, n, xl_BC_type="neumann", xr_BC_type="neumann",
+        yl_BC_type="neumann", yr_BC_type="neumann",
+        xl_BC=lambda y: np.cos(np.pi * y), xr_BC=lambda y: 1.0 + y,
+        yl_BC=lambda x: x ** 2, yr_BC=lambda x: -np.sin(3.0 * x),
+        alpha=1.0, beta=(1.0 / n) ** 2, device=device, dtype=dtype)
+
+
+def lifted_compare(n, name, dtype, tol, errs):
+    """Each multigrid kernel of one of LIFTED_CASES at every peeled level
+    (or the core, when it holds the finest level), one whole cycle and one
+    whole solve against their plain versions from the same inputs.  On the
+    finest level the kernel takes the lifted right-hand side
+    (mg_kernel.lifted_rhs) and the plain version f with the values filled
+    in the cycle: their interiors and residuals are compared (the
+    kernel's ghosts are the homogeneous fill); the whole cycle's output,
+    ghosts included, after cycle's refill.  Records the worst |diff| of
+    each kernel in errs[kernel]."""
+    import numpy as np
+    import torch
+
+    from pyro2_tpu_torch.mesh.indexer import ai
+    from pyro2_tpu_torch.multigrid import mg_kernel
+
+    mg = make_lifted_mg(n, name, dtype)
+    op = mg_kernel.check(mg)
+    sfx = mg_kernel.FLAVOURS[op][0]
+    rng = np.random.default_rng(n + 17)
+    top, peeled = mg_kernel.split(mg, dtype)
+    fine = mg.nlevels - 1
+    rows = []
+
+    def check(what, kernel, level, ref, got, scale=None):
+        """|diff| <= tol max|ref| (tol times the terms a residual cancels
+        for one); on the finest level, the interiors alone."""
+        if level == fine and kernel:
+            g = mg.grids[level]
+            ref, got = ai(ref, g).v(), ai(got, g).v()
+        err = float((ref - got).abs().max())
+        if scale is None:
+            scale = float(ref.abs().max())
+        rows.append((what, err, scale))
+        if kernel:
+            errs[kernel] = max(errs.get(kernel, 0.0), err)
+        if not bool(torch.isfinite(got).all()) or err > tol * scale:
+            raise AssertionError(f"lifted {name} {n}^2 {dtype}: {what} "
+                                 f"max|diff| {err:.3e} > {tol:g} x "
+                                 f"{scale:.3g}")
+
+    g = mg.grids[top]                            # the core
+    for guess in (True, False):
+        v = frame(rng, g, dtype, 0.1) if guess else None
+        f = frame(rng, g, dtype)
+        f_k = mg_kernel.lifted_rhs(mg, f) if top == fine else f
+        ref = mg_kernel.core_plain(mg, top, v, f, True)
+        got = mg_kernel.launch_core(mg, top, v, f_k, True)
+        check(f"mg_core v {g.nx}^2", "mg_core" + sfx, top, ref[0], got[0])
+        check(f"mg_core r {g.nx}^2", "mg_core" + sfx, top, ref[1], got[1],
+              resid_scale(mg, top, ref[0], f_k))
+    for lv in peeled:                            # every peeled level
+        g, gc = mg.grids[lv], mg.grids[lv - 1]
+        v, f = frame(rng, g, dtype, 0.1), frame(rng, g, dtype)
+        f_k = mg_kernel.lifted_rhs(mg, f) if lv == fine else f
+        for guess in ((v, None) if lv < fine else (v,)):
+            ref = mg_kernel.down_plain(mg, lv, guess, f)
+            got = mg_kernel.launch_down(mg, lv, guess, f_k)
+            check(f"mg_down v {g.nx}^2", "mg_down" + sfx, lv, ref[0], got[0])
+            check(f"mg_down fc {g.nx}^2", "mg_down" + sfx, lv - 1, ref[1],
+                  got[1], resid_scale(mg, lv, ref[0], f_k))
+        vc = frame(rng, gc, dtype, 0.1)
+        ref = mg_kernel.up_plain(mg, lv, v, f, vc, lv == fine)
+        got = mg_kernel.launch_up(mg, lv, v, f_k, vc, lv == fine)
+        check(f"mg_up v {g.nx}^2", "mg_up" + sfx, lv, ref[0], got[0])
+        if lv == fine:
+            check(f"mg_up r {g.nx}^2", "mg_up" + sfx, lv, ref[1], got[1],
+                  resid_scale(mg, lv, ref[0], f_k))
+
+    g = mg.soln_grid                             # one whole cycle
+    v = frame(rng, g, dtype, 0.1)
+    f = frame(rng, g, dtype)
+    scale = resid_scale(mg, fine, v, mg_kernel.lifted_rhs(mg, f))
+    ref = mg_kernel.core_plain(mg, fine, v, f, True)
+    got = mg_kernel.cycle(mg, v, f)
+    check("cycle v (ghosts refilled)", None, fine, ref[0], got[0])
+    check("cycle r", None, fine, ref[1], got[1], scale)
+
+    solves = []                                  # one whole solve
+    for plain in (True, False):
+        m = make_lifted_mg(n, name, dtype)
+        m.init_zeros()
+        m.init_RHS(f)
+        saved = mg_kernel.cycle
+        if plain:
+            mg_kernel.cycle = lambda mm, vv, ff, f_h=None: \
+                mg_kernel.core_plain(mm, mm.nlevels - 1, vv, ff, True)
+        try:
+            m.solve(rtol=1.e-11)
+        finally:
+            mg_kernel.cycle = saved
+        solves.append(m)
+    ref, got = solves
+    check("solve v (ghosts filled)", None, fine, ref.get_solution(),
+          got.get_solution())
+    if dtype == torch.float64 and got.num_cycles != ref.num_cycles:
+        raise AssertionError(f"lifted {name} {n}^2 solve: {got.num_cycles} "
+                             f"kernel cycles, {ref.num_cycles} plain")
+    if got.source_norm != ref.source_norm or got.f[-1] is not ref.f[-1]:
+        raise AssertionError(f"lifted {name} {n}^2: the solve changed f or "
+                             "its norm")
+    torch.cuda.synchronize()
+    worst = max(rows, key=lambda r: r[1] / r[2])
+    log(f"  ok  {n:5d}^2 {name:21s} {str(dtype)[6:]:8s} core top "
+        f"{2 ** (top + 1)}^2, {len(peeled)} peeled; {len(rows)} checks, "
+        f"worst {worst[0]}: {worst[1]:.3e} (tol {tol:g} x {worst[2]:.3g}); "
+        f"solve cycles kernel {got.num_cycles} plain {ref.num_cycles}, "
+        f"residual {got.residual_error:.3e} / {ref.residual_error:.3e}")
+
+
+def lifted_cycle_timing(n, name, smi):
+    """CUDA-event ms of one float32 cycle of a LIFTED_CASES operator: the
+    kernels with the lift (lifted_rhs and the refill each call), the same
+    cycle given f_h (a solve's cycles), lifted_rhs alone, and the plain
+    cycle."""
+    import numpy as np
+    import torch
+
+    from pyro2_tpu_torch.multigrid import mg_kernel
+
+    mg = make_lifted_mg(n, name, torch.float32)
+    rng = np.random.default_rng(5)
+    g = mg.soln_grid
+    v, f = frame(rng, g, torch.float32, 0.1), frame(rng, g, torch.float32)
+    f_h = mg_kernel.lifted_rhs(mg, f)
+    runs = (("lifted cycle", lambda: mg_kernel.cycle(mg, v, f), 10),
+            ("cycle given f_h", lambda: mg_kernel.cycle(mg, v, f, f_h), 10),
+            ("lifted_rhs", lambda: mg_kernel.lifted_rhs(mg, f), 10),
+            ("plain cycle", lambda: mg_kernel.core_plain(
+                mg, mg.nlevels - 1, v, f, True), 2))
+    times = {}
+    for what, fn, reps in runs:
+        event_ms(fn, 1)                               # warm up
+        times[what] = event_ms(fn, reps)
+    log(f"  {name} {n}^2 float32: " + "; ".join(
+        f"{k} {t:.4f} ms" for k, t in times.items()) + f" [{smi}]")
+    return times
+
+
+def analytic_on_card():
+    """The regression driver's four analytic solves (MG_EXPECTED) at their
+    published 256^2 in float64 on the card, the counts set to 0 just
+    before each and read just after: each within 10% of its expected L2
+    error, launching its operator's three entries and no other kernel.
+    Returns {name: (L2 error, cycles, seconds, launches)}."""
+    import torch
+
+    from pyro2_tpu_torch import test as regression
+
+    entries = {"mg_poisson_dirichlet": MG_KERNELS,
+               "mg_vc_poisson_dirichlet": VC_KERNELS,
+               "mg_vc_poisson_periodic": VC_KERNELS,
+               "mg_general_poisson_inhomogeneous": GENERAL_KERNELS}
+    out = {}
+    for name, (n, fn, expected) in regression.MG_EXPECTED.items():
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        err = fn(n, device="cuda", dtype=torch.float64)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        _, _, stats = read_counts()
+        launched = {k: c for k, c in all_counts().items() if c}
+        if abs(err - expected) / expected >= 0.1:
+            raise AssertionError(f"{name}: L2 error {err:g}, expected "
+                                 f"{expected:g} within 10%")
+        if set(launched) != set(entries[name]):
+            raise AssertionError(f"{name}: launched {launched}, expected "
+                                 f"{entries[name]} alone")
+        out[name] = (err, stats["cycles"], seconds, launched)
+        log(f"  ok  {name:33s} {n}^2 float64: L2 error {err:.6g} (expected "
+            f"{expected:g}), {stats['cycles']} cycles, {seconds:.3f} s, "
+            f"launches {launched}")
+    return out
+
+
+def analytic_card_vs_cpu(n, tol):
+    """The four analytic solves at n^2 in float64 on the card and on the
+    CPU: equal cycles, L2 errors within tol relative."""
+    import torch
+
+    from pyro2_tpu_torch import test as regression
+    from pyro2_tpu_torch.multigrid import MG
+
+    for name, (_, fn, _) in regression.MG_EXPECTED.items():
+        got = []
+        for device in ("cuda", "cpu"):
+            MG.stats["cycles"] = 0
+            err = fn(n, device=device, dtype=torch.float64)
+            got.append((err, MG.stats["cycles"]))
+        (card, c_card), (cpu, c_cpu) = got
+        if c_card != c_cpu or abs(card - cpu) > tol * cpu:
+            raise AssertionError(f"{name} {n}^2: card {card:.12g} in "
+                                 f"{c_card} cycles, CPU {cpu:.12g} in "
+                                 f"{c_cpu}")
+        log(f"  ok  {name:33s} {n}^2: {c_card} cycles on both, L2 error "
+            f"card {card:.12g} CPU {cpu:.12g} (|diff| "
+            f"{abs(card - cpu):.3e}, tol {tol:g} relative)")
+
+
+def simple_rhs(g):
+    """mg_test_simple's right-hand side on grid g (numpy)."""
+    from pyro2_tpu_torch.multigrid.examples import mg_test_simple
+
+    return mg_test_simple.f(g.x2d, g.y2d)
+
+
+def f64_solution(n, f):
+    """The interior of a float64 card solve of the constant Dirichlet
+    Poisson problem at rtol 1e-11, and its seconds."""
+    import torch
+
+    from pyro2_tpu_torch.multigrid.MG import CellCenterMG2d
+
+    mg = CellCenterMG2d(n, n, device="cuda", dtype=torch.float64)
+    mg.init_zeros()
+    mg.init_RHS(f)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mg.solve(rtol=1e-11)
+    torch.cuda.synchronize()
+    g = mg.soln_grid
+    return (mg.get_solution()[g.ilo:g.ihi + 1, g.jlo:g.jhi + 1],
+            time.perf_counter() - t0, mg.num_cycles)
+
+
+def refine_check(what, direct, res, passes, v, ref):
+    """solve_ir's bounds: the refined residual below 1e-4 of the direct
+    float32 solve's, hi + lo within 1e-8 of the float64 solve."""
+    d = float((v - ref).abs().max())
+    if not res < 1e-4 * direct or not d < 1e-8:
+        raise AssertionError(f"{what}: refined residual {res:.3e} after "
+                             f"{passes} passes (direct {direct:.3e}), "
+                             f"|hi + lo - f64| {d:.3e}")
+    return d
+
+
+def refine_on_card(n, smi):
+    """solve_ir in float32 on the constant Dirichlet Poisson operator with
+    mg_test_simple's right-hand side: the direct float32 solve's stalled
+    residual, the refined residual and passes, each one's wall time and
+    launches (the counts set to 0 just before and read just after), and
+    hi + lo against a float64 card solve at rtol 1e-11."""
+    import torch
+
+    from pyro2_tpu_torch.multigrid import mg_kernel
+    from pyro2_tpu_torch.multigrid.MG import CellCenterMG2d
+    from pyro2_tpu_torch.multigrid.refine import solve_ir
+
+    mg = CellCenterMG2d(n, n, device="cuda", dtype=torch.float32)
+    g = mg.soln_grid
+    f = simple_rhs(g)
+    interior = (slice(g.ilo, g.ihi + 1), slice(g.jlo, g.jhi + 1))
+    row = {}
+    for what in ("warm-up", "direct", "refined"):
+        mg.init_zeros()
+        mg.init_RHS(f)
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if what == "refined":
+            solve_ir(mg, rtol=1e-10)
+        else:
+            mg.solve(rtol=1e-10)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        row[what] = (mg.residual_error, mg.num_cycles, seconds,
+                     {k: c for k, c in all_counts().items() if c},
+                     read_counts()[2]["cycles"])
+    # the float64 solve of the float32 right-hand side
+    ref, s64, c64 = f64_solution(n, f.astype("float32"))
+    v = mg.get_solution()[interior].double() + mg.v_lo[interior].double()
+    direct, refined = row["direct"], row["refined"]
+    d = refine_check(f"solve_ir {n}^2", direct[0], refined[0], refined[1],
+                     v, ref)
+    # the core alone where it holds the finest level
+    want = set(MG_KERNELS) if mg_kernel.split(mg, torch.float32)[1] \
+        else {"mg_core"}
+    for what, (_, _, _, launched, _) in (("direct", direct),
+                                         ("refined", refined)):
+        if set(launched) != want:
+            raise AssertionError(f"solve_ir {n}^2 {what}: launched "
+                                 f"{launched}, expected {want} alone")
+    log(f"  ok  solve_ir {n}^2 float32: direct residual {direct[0]:.3e} "
+        f"({direct[1]} cycles, {1e3 * direct[2]:.3f} ms, launches "
+        f"{direct[3]}); refined {refined[0]:.3e} in {refined[1]} passes "
+        f"({refined[4]} cycles, {1e3 * refined[2]:.3f} ms, launches "
+        f"{refined[3]}); float64 solve {c64} cycles, {1e3 * s64:.3f} ms; "
+        f"|hi + lo - f64| {d:.3e} [{smi}]")
+    return row, s64
+
+
+def refine_sharded_on_card(n, smi):
+    """solve_ir_sharded in float32 on the 1 x 1 mesh of
+    parallel.make_mesh(): the bounds of refine_on_card, launching
+    mg_deep_smooth, mg_correct and mg_core and no mg_down or mg_up."""
+    import torch
+
+    from pyro2_tpu_torch.multigrid.refine import solve_ir_sharded
+    from pyro2_tpu_torch.parallel import make_mesh
+    from pyro2_tpu_torch.parallel.sharded_mg import ShardedMG
+
+    smg = ShardedMG(n, n, make_mesh(), dtype=torch.float32)
+    f = simple_rhs(smg.soln_grid)
+    row = {}
+    for what in ("warm-up", "direct", "refined"):
+        smg.init_zeros()
+        smg.init_RHS(f)
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if what == "refined":
+            solve_ir_sharded(smg, rtol=1e-10)
+        else:
+            smg.solve(rtol=1e-10)
+        torch.cuda.synchronize()
+        row[what] = (smg.residual_error, smg.num_cycles,
+                     time.perf_counter() - t0,
+                     {k: c for k, c in all_counts().items() if c})
+    ref, _, _ = f64_solution(n, f.astype("float32"))
+    v = smg.v_int.double() + smg.v_lo.double()
+    direct, refined = row["direct"], row["refined"]
+    d = refine_check(f"solve_ir_sharded {n}^2", direct[0], refined[0],
+                     refined[1], v, ref)
+    want = {"mg_deep_smooth", "mg_correct", "mg_core"}
+    if set(refined[3]) != want or set(direct[3]) != want:
+        raise AssertionError(f"solve_ir_sharded {n}^2: launched "
+                             f"{refined[3]} / {direct[3]}, expected {want}")
+    log(f"  ok  solve_ir_sharded {n}^2 float32 (1 x 1 mesh): direct "
+        f"residual {direct[0]:.3e} ({direct[1]} cycles, "
+        f"{1e3 * direct[2]:.3f} ms, launches {direct[3]}); refined "
+        f"{refined[0]:.3e} in {refined[1]} passes ({1e3 * refined[2]:.3f} "
+        f"ms, launches {refined[3]}); |hi + lo - f64| {d:.3e} [{smi}]")
+    return row
 
 
 def time_pair(name, kern, plain, work, bw, fp32):
@@ -3851,6 +4247,37 @@ def main():
         lambda: dstep.plain(dU, 0.0, float(d_dt)),
         ctu_kernel.work(g.nx, g.ny, dsim.ivars.nvar, torch.float32,
                         dstep.with_sources), bw, fp32)
+
+    # 5h. inhomogeneous multigrid BC values, the analytic solves and
+    # iterative refinement
+    t5h = time.perf_counter()
+    log(f"[phase 5h: the multigrid kernels with BC values lifted into the "
+        f"right-hand side vs the plain in-cycle fill; {smi}]")
+    lifted_err = {}
+    for dtype, tol, sizes in ((torch.float64, 1e-12, (64, 1024)),
+                              (torch.float32, 1e-5, (128, 1024))):
+        for n in sizes:
+            for name in LIFTED_CASES:
+                lifted_compare(n, name, dtype, tol,
+                               lifted_err if (n, dtype) ==
+                               (1024, torch.float32) else {})
+        torch.cuda.empty_cache()
+    log(f"  1024^2 float32 worst |diff| of {', '.join(LIFTED_CASES)} "
+        f"{lifted_err} (apart from the kernels line's, which holds the "
+        f"parent's cases)")
+    for name in LIFTED_CASES:
+        lifted_cycle_timing(1024, name, smi)
+    log(f"[phase 5h: the regression driver's analytic solves, float64 on "
+        f"the card; {smi}]")
+    analytic_on_card()
+    analytic_card_vs_cpu(64, 1e-10)
+    log(f"[phase 5h: solve_ir and solve_ir_sharded, float32 on the card; "
+        f"{smi}]")
+    for n in (128, 1024):
+        refine_on_card(n, smi)
+    refine_sharded_on_card(1024, smi)
+    torch.cuda.empty_cache()
+    log(f"  phase 5h in {time.perf_counter() - t5h:.1f} s")
 
     # 6. timing at the main paths' shapes
     log("[timing: quad 1024^2 float32, CUDA events]")

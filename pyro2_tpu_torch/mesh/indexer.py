@@ -8,6 +8,7 @@ fills the four ghost strips of a (..., qx, qy) tensor IN PLACE, in the
 order x-lo, x-hi, y-lo, y-hi, so corner ghosts match the JAX package.
 """
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -109,6 +110,26 @@ class ai:
         """Grid-weighted L2 norm over the valid region (a 0-d tensor)."""
         g = self.g
         return torch.sqrt(g.dx * g.dy * torch.sum(self.v() ** 2))
+
+    def pretty_print(self, fmt=None):
+        """Print the array with j increasing upward, ghost cells in red
+        (the JAX package's ai.pretty_print)."""
+        a = self.a.detach().cpu().numpy()
+        if a.ndim != 2:
+            raise ValueError("pretty_print expects a single 2-d component")
+        if fmt is None:
+            fmt = "%4d" if np.issubdtype(a.dtype, np.integer) else "%10.5g"
+        g = self.g
+        bold = "\033[31m"
+        reset = "\033[0m"
+        for j in reversed(range(g.qy)):
+            row = []
+            for i in range(g.qx):
+                cell = fmt % a[i, j]
+                interior = (g.ilo <= i <= g.ihi) and (g.jlo <= j <= g.jhi)
+                row.append(cell if interior else bold + cell + reset)
+            print(" ".join(row))
+        print("\n         ^ y\n         |\n         +---> x\n")
 
 
 # ---------------------------------------------------------------------------

@@ -212,6 +212,10 @@ class CellCenterData2d:
         fgrid = self.grid.fine_like(2)
         return prolong_array(self.get_var(varname), self.grid, fgrid)
 
+    def pretty_print(self, varname, fmt=None):
+        """Print one variable with ghost cells marked."""
+        ai(self.get_var(varname), self.grid).pretty_print(fmt=fmt)
+
     # -- I/O ----------------------------------------------------------------
     def write(self, filename):
         """Write grid + state to an HDF5 file (the JAX package's layout,

@@ -17,7 +17,12 @@ the `aux` hooks:
   for CPU tensors;
 * `solve` is a host loop that reads the residual norm and the relative
   change once per cycle (one device sync), with the JAX package's
-  convergence and stall rules.
+  convergence and stall rules.  Under BC values on CUDA it lifts them
+  into the right-hand side once (`mg_kernel.kernel_rhs`) for all its
+  cycles; the source norm, f and the residual it reports are the
+  original f's;
+* `multigrid.refine.solve_ir` drives `solve` for its corrections and
+  leaves the low half of its double-f32 solution on `v_lo`.
 
 Nothing here writes a tensor the caller handed in.
 """
@@ -174,6 +179,8 @@ class CellCenterMG2d:
         self.num_cycles = 0
         self.residual_error = 1.e33
         self.relative_error = 1.e33
+        # the low half of solve_ir's solution v[-1] + v_lo
+        self.v_lo = None
 
     def _zeros(self, level):
         return self.grids[level].scratch_array(dtype=self.dtype,
@@ -335,13 +342,14 @@ class CellCenterMG2d:
 
         g = self.soln_grid
         v, f = self.v[-1], self.f[-1]
+        f_h = mg_kernel.kernel_rhs(self, f)
 
         residual_error = 1.e33
         relative_error = 1.e33
         cycle = 1
         n_stalled = 0
         while residual_error > rtol and cycle <= self.max_cycles:
-            v_new, r = mg_kernel.cycle(self, v, f)
+            v_new, r = mg_kernel.cycle(self, v, f, f_h)
             # the one device read of the cycle: residual norm and change
             rnorm, relative_error = torch.stack([
                 ai(r, g).norm(),

@@ -3,8 +3,8 @@ r"""General-form multigrid: alpha phi + div(beta grad phi) + gamma.grad(phi) = f
 The port of pyro2_tpu/multigrid/general_MG.py: cell-centered alpha, beta,
 gamma_x, gamma_y are restricted down the hierarchy once; beta is
 edge-averaged (pre-scaled 1/dx^2).  Inhomogeneous solution BCs (the xl_BC
-... functions) run on the plain path; the CUDA kernels take homogeneous BCs
-only and raise for them (mg_kernel.check).
+... functions) are filled inside the plain cycle on the CPU and lifted
+into the right-hand side of the CUDA kernels (mg_kernel.lifted_rhs).
 
 Each level's operator is one contiguous (5, q, q) stack, `planes[level]`:
 alpha, beta_x, beta_y and the 0.5/dx- and 0.5/dy-prescaled gamma_x,

@@ -34,12 +34,20 @@ raises; for a CPU tensor it runs its plain version (`core_plain`,
 `down_plain`, `up_plain`, composed from the MG object's own smoother and
 residual and mesh.patch's restrict and prolong).  There is no fallback
 from one to the other.  The kernels take those three classes with ng=1 on
-a square power-of-2 grid and homogeneous standard BCs, and one extended
-BC, the lid-driven cavity's moving lid on the top edge (`edge_kinds`);
-anything else raises `Ineligible` (a NotImplementedError) on CUDA, naming
-its ROADMAP item.
+a square power-of-2 grid and standard BCs, and one extended BC, the
+lid-driven cavity's moving lid on the top edge (`edge_kinds`); anything
+else raises `Ineligible` (a NotImplementedError) on CUDA, naming its
+ROADMAP item.
+
+The kernels fill every ghost homogeneously.  BC values (the finest
+level's alone: the coarse levels hold corrections) reach them through the
+right-hand side: `cycle` hands them `kernel_rhs(mg, f)` on the finest
+level and refills its ghosts with the values after.  On the CPU the plain
+entries fill the values inside the cycle, as the JAX package's cycle
+does.
 """
 
+import copy
 import ctypes
 import functools
 import math
@@ -47,14 +55,16 @@ import math
 import torch
 
 import pyro2_tpu_torch.mesh.boundary as bnd
+from pyro2_tpu_torch.mesh.indexer import fill_ghost
 from pyro2_tpu_torch.mesh.patch import prolong_array, restrict_array
 from pyro2_tpu_torch.util import cuda_build
 
 __all__ = ["CORE_MAX", "FLAVOURS", "Ineligible", "ZERO", "build", "check",
            "core", "core_cells", "core_cluster", "core_offsets",
            "core_plain", "core_plan", "core_schedule", "cycle", "down",
-           "down_plain", "edge_kinds", "flavour", "launches",
-           "split", "tile_plan", "up", "up_plain", "TilePlan", "work"]
+           "down_plain", "edge_kinds", "flavour", "has_values",
+           "kernel_rhs", "launches", "lifted_rhs", "split", "tile_plan",
+           "up", "up_plain", "TilePlan", "work"]
 
 SOURCE = cuda_build.CSRC / "mg_vcycle.cu"
 
@@ -193,11 +203,6 @@ def check(mg):
             raise Ineligible(
                 "the moving lid's ZERO edge is taken by the constant "
                 "operator's kernels only (ROADMAP.md A.26)")
-        for val in (bc.xl_value, bc.xr_value, bc.yl_value, bc.yr_value):
-            if val is not None:
-                raise Ineligible(
-                    "inhomogeneous multigrid BC values wait for a later "
-                    "slice of the port (ROADMAP.md A.6)")
     return op
 
 
@@ -529,8 +534,65 @@ def up(mg, level, v, f, vc, want_r):
     return launch_up(mg, level, v, f, vc, want_r)
 
 
-def cycle(mg, v, f):
-    """One V-cycle of the finest level: (v, r), downs -> core -> ups."""
+def has_values(bc):
+    """Whether a BC carries inhomogeneous edge values."""
+    return any(val is not None for val in (bc.xl_value, bc.xr_value,
+                                           bc.yl_value, bc.yr_value))
+
+
+def lifted_rhs(mg, f):
+    """The finest level's right-hand side under homogeneous ghost fills
+    that gives the solve of f under the BC values of mg.bc_v[-1].
+
+    Each fill that reads a value is affine, ghost = s (mirrored interior
+    cell) + o, with s the sign of the homogeneous fill of the same kind
+    (dirichlet and reflect-odd: s = -1, o = 2 value; outflow and neumann:
+    s = +1, o = -/+ dx value).  The operator is linear, so with g the frame
+    of zero interior and ghosts o, A(v) = A_h(v) + A(g), and the solve of
+    A(v) = f is the homogeneous solve of A_h(v) = f - A(g).  The fill of a
+    zero frame is g, and the MG's own residual of g against a zero f is
+    -A(g)."""
+    fine = mg.nlevels - 1
+    zero = torch.zeros_like(f)
+    g = fill_ghost(zero.clone(), mg.grids[fine], mg.bc_v[-1])
+    return f + mg._residual(fine, g, zero)
+
+
+def _homogeneous(mg):
+    """A shallow copy of mg whose finest level fills its ghosts without
+    the BC values (the BC of the coarse levels)."""
+    m = copy.copy(mg)
+    m.bc_v = mg.bc_v[:-1] + [mg.bc]
+    return m
+
+
+def kernel_rhs(mg, f):
+    """The right-hand side `cycle` hands the finest level's entries in
+    place of f: lifted_rhs(mg, f) under BC values on CUDA, else None (f
+    itself)."""
+    if f.device.type == "cpu" or not has_values(mg.bc_v[-1]):
+        return None
+    return lifted_rhs(mg, f)
+
+
+def cycle(mg, v, f, f_h=None):
+    """One V-cycle of the finest level: (v, r), downs -> core -> ups.
+
+    Under BC values on CUDA the entries take the lifted right-hand side
+    f_h (`kernel_rhs`, computed here unless the caller passes it, as a
+    solve does once for all its cycles) with homogeneous fills, and the
+    finest level's ghosts are refilled with the values after.  A CPU
+    caller that passes f_h runs the same formulation on the plain
+    versions; without it the CPU cycle fills the values in place."""
+    if f_h is None:
+        f_h = kernel_rhs(mg, f)
+    if f_h is None:
+        return _cycle(mg, v, f)
+    v, r = _cycle(_homogeneous(mg), v, f_h)
+    return mg._fill_v(mg.nlevels - 1, v), r
+
+
+def _cycle(mg, v, f):
     top, peeled = split(mg, f.dtype)
     fine = mg.nlevels - 1
     stack = []

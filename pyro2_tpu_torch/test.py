@@ -1,16 +1,19 @@
 #!/usr/bin/env python3
 """Regression-test driver: run the solver/problem suite against the stored
-golden HDF5 benchmarks (the port of pyro2_tpu/test.py, without its
-multigrid analytic solves, which wait for ROADMAP.md A.6).
+golden HDF5 benchmarks, plus the standalone multigrid analytic solves (the
+port of pyro2_tpu/test.py).
 
 The goldens are float64, so every run is float64, on the card by default
 or on the CPU with --device cpu; each final state is compared zone by
 zone at rtol (default 1e-12) with util/compare.py.  The goldens live under
 each solver's tests/ directory of this package (--store_all_benchmarks
-rewrites them)::
+rewrites them).  The four analytic multigrid solves (MG_EXPECTED) run
+after the 16 runs, or alone with --multigrid_only, in float64 on the same
+device, and pass within 10% of their expected L2 error::
 
     python -m pyro2_tpu_torch.test --device cpu
     python -m pyro2_tpu_torch.test --device cpu --single advection-smooth
+    python -m pyro2_tpu_torch.test --device cpu --multigrid_only
 """
 
 import argparse
@@ -22,6 +25,9 @@ from pathlib import Path
 import torch
 
 import pyro2_tpu_torch.pyro_sim as pyro
+from pyro2_tpu_torch.multigrid.examples import (
+    mg_test_general_inhomogeneous, mg_test_simple, mg_test_vc_dirichlet,
+    mg_test_vc_periodic)
 
 
 class PyroTest:
@@ -33,6 +39,22 @@ class PyroTest:
 
     def __str__(self):
         return f"{self.solver}-{self.problem}"
+
+
+# expected L2 errors of the MG analytic solves (2nd-order truncation;
+# the constant-coefficient values match the reference's
+# multigrid/tests/mg_convergence.txt)
+MG_EXPECTED = {
+    "mg_poisson_dirichlet": (256, mg_test_simple.test_poisson_dirichlet,
+                             1.60e-6),
+    "mg_vc_poisson_dirichlet": (
+        256, mg_test_vc_dirichlet.test_vc_poisson_dirichlet, 2.438e-5),
+    "mg_vc_poisson_periodic": (
+        256, mg_test_vc_periodic.test_vc_poisson_periodic, 2.438e-5),
+    "mg_general_poisson_inhomogeneous": (
+        256, mg_test_general_inhomogeneous.test_general_poisson_inhomogeneous,
+        4.180e-6),
+}
 
 
 def run_test(t, reset_fails, store_all_benchmarks, rtol, device=None):
@@ -109,25 +131,29 @@ def do_tests(out_file, reset_fails=False, store_all_benchmarks=False,
              multigrid_only=False, single=None, solver=None, rtol=1e-12,
              device=None):
     """Run the selected tests; returns the number that failed."""
-    if multigrid_only:
-        raise NotImplementedError(
-            "the multigrid analytic solves wait for a later slice of the "
-            "port (ROADMAP.md A.6)")
     results = {}
     tests = get_test_list()
 
-    if single is not None:
-        tests_to_run = [q for q in tests if str(q) == single]
-    elif solver is not None:
-        tests_to_run = [q for q in tests if q.solver == solver]
-    else:
-        tests_to_run = tests
+    if not multigrid_only:
+        if single is not None:
+            tests_to_run = [q for q in tests if str(q) == single]
+        elif solver is not None:
+            tests_to_run = [q for q in tests if q.solver == solver]
+        else:
+            tests_to_run = tests
 
-    for t in tests_to_run:
-        print(f"running {t} ...")
-        name, err = run_test(t, reset_fails, store_all_benchmarks, rtol,
-                             device=device)
-        results[name] = err
+        for t in tests_to_run:
+            print(f"running {t} ...")
+            name, err = run_test(t, reset_fails, store_all_benchmarks, rtol,
+                                 device=device)
+            results[name] = err
+
+    if (single is None and solver is None) or multigrid_only:
+        for name, (N, fn, expected) in MG_EXPECTED.items():
+            err = fn(N, verbose=0, device=device, dtype=torch.float64)
+            # pass if within 10% of the expected truncation error
+            results[name] = 0 if abs(err - expected) / expected < 0.1 \
+                else f"L2 error {err:g} != expected {expected:g}"
 
     failed = sum(1 for r in results.values() if r != 0)
     out = [sys.stdout]

@@ -408,7 +408,8 @@ def test_flavour_dispatch_and_what_raises():
               device="cpu")
     with pytest.raises(mg_kernel.Ineligible, match="A.10"):
         mg_kernel.check(sub)
-    # inhomogeneous BC values run on the plain path only
+    # inhomogeneous BC values: the kernels take them, lifted into the
+    # right-hand side
     g = Grid2d(16, 16, ng=1)
     d = patch.CellCenterData2d(g, device="cpu")
     for name in ("alpha", "beta", "gamma_x", "gamma_y"):
@@ -418,8 +419,8 @@ def test_flavour_dispatch_and_what_raises():
     d.set_var("beta", np.ones((18, 18)))
     inhom = GeneralMG2d(16, 16, coeffs=d, xl_BC=lambda y: np.cos(y),
                         device="cpu")
-    with pytest.raises(NotImplementedError, match="A.6"):
-        mg_kernel.check(inhom)
+    assert mg_kernel.has_values(inhom.bc_v[-1])
+    assert mg_kernel.check(inhom) == "general"
 
 
 def test_work_counts_planes_and_operations():

@@ -363,7 +363,6 @@ def test_split_follows_the_shared_memory_limit():
 
 
 @pytest.mark.parametrize("case,match", [
-    ("inhomogeneous", "A.6"),
     ("extended_bc", "A.26"),
     ("subclass", "A.10"),
 ])
@@ -372,9 +371,7 @@ def test_uncovered_configurations_raise(case, match, monkeypatch):
 
     kw = dict(xl_BC_type="dirichlet", xr_BC_type="dirichlet",
               yl_BC_type="dirichlet", yr_BC_type="dirichlet", device="cpu")
-    if case == "inhomogeneous":
-        mg = MG.CellCenterMG2d(16, 16, xl_BC=lambda y: 1.0 + 0 * y, **kw)
-    elif case == "extended_bc":
+    if case == "extended_bc":
         monkeypatch.setitem(bnd.bc_solid, "lid", True)
         monkeypatch.setitem(bnd.ext_bcs, "lid", lambda *a: a[-1])
         kw["yr_BC_type"] = "lid"
@@ -386,6 +383,40 @@ def test_uncovered_configurations_raise(case, match, monkeypatch):
     with pytest.raises(NotImplementedError, match=match):
         mg_kernel.check(mg)
     assert issubclass(mg_kernel.Ineligible, NotImplementedError)
+
+
+@pytest.mark.parametrize("op", ["const", "vc", "general"])
+def test_check_accepts_bc_values(op):
+    """Inhomogeneous values on the finest level: the kernels take them
+    through the lifted right-hand side (mg_kernel.lifted_rhs), under every
+    operator, and the coarse levels stay homogeneous."""
+    import pyro2_tpu_torch.mesh.boundary as bnd
+    from pyro2_tpu_torch.multigrid.general_MG import GeneralMG2d
+    from pyro2_tpu_torch.multigrid.variable_coeff_MG import VarCoeffCCMG2d
+
+    kw = dict(xl_BC_type="neumann", xr_BC_type="dirichlet",
+              yl_BC_type="dirichlet", yr_BC_type="neumann", device="cpu")
+    values = dict(xl_BC=lambda y: 1.0 + 0 * y, yr_BC=lambda x: x)
+    if op == "const":
+        mg = MG.CellCenterMG2d(16, 16, **values, **kw)
+    elif op == "vc":
+        mg = VarCoeffCCMG2d(16, 16, coeffs=np.ones((18, 18)),
+                            coeffs_bc=bnd.BC(), **kw)
+        mg.bc_v[-1] = bnd.BC(xlb="neumann", xrb="dirichlet",
+                             ylb="dirichlet", yrb="neumann",
+                             xl_func=values["xl_BC"],
+                             yr_func=values["yr_BC"], grid=mg.grids[-1])
+    else:
+        d = patch.CellCenterData2d(Grid2d(16, 16, ng=1), device="cpu")
+        for name in ("alpha", "beta", "gamma_x", "gamma_y"):
+            d.register_var(name, bnd.BC())
+        d.create()
+        d.set_var("beta", np.ones((18, 18)))
+        mg = GeneralMG2d(16, 16, coeffs=d, **values, **kw)
+    assert mg_kernel.has_values(mg.bc_v[-1])
+    assert not any(mg_kernel.has_values(b) for b in mg.bc_v[:-1])
+    assert mg_kernel.check(mg) == op
+    assert mg_kernel.edge_kinds(mg.bc_v[-1]) == [0, 1, 1, 0]
 
 
 def test_check_accepts_every_standard_kind():

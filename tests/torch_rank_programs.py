@@ -199,3 +199,22 @@ def raises(mesh):
     if mesh.index("y") == 1:
         raise ValueError("rank 1 fails on purpose")
     return mesh.index("y")
+
+
+def refined_solve(mesh, n, f):
+    """A float32 ShardedMG's direct solve at rtol 1e-10 and then its
+    solve_ir_sharded from a zero guess: the residual errors, the passes,
+    and this rank's hi and lo blocks."""
+    from pyro2_tpu_torch.multigrid.refine import solve_ir_sharded
+
+    smg = sharded_mg.ShardedMG(n, n, mesh, dtype=torch.float32)
+    smg.init_zeros()
+    smg.init_RHS(f)
+    smg.solve(rtol=1e-10)
+    direct = smg.residual_error
+    smg.init_zeros()
+    smg.init_RHS(f)
+    res, passes = solve_ir_sharded(smg, rtol=1e-10)
+    return {"direct": direct, "refined": res, "passes": passes,
+            "hi": smg.v_int, "lo": smg.v_lo,
+            "source_norm": smg.source_norm, "f": smg.f_int}

@@ -398,10 +398,15 @@ def test_driver_main_exits_with_the_failure_count(tmp_path, monkeypatch):
         driver.main(["--device", "cpu", "--single", "advection-smooth",
                      "--rtol", "1e-12"])
     assert exc.value.code == 0
-    # the four multigrid analytic solves alone, all passing
+    # the multigrid analytic solves alone, at 16^2: one within 10% of
+    # JAX's L2 error, one held to twice it, which fails
+    fn = driver.MG_EXPECTED["mg_poisson_dirichlet"][1]
+    jfn = jtest.MG_EXPECTED["mg_poisson_dirichlet"][1]
+    monkeypatch.setattr(driver, "MG_EXPECTED", {
+        "right": (16, fn, jfn(16)), "wrong": (16, fn, 2.0 * jfn(16))})
     with pytest.raises(SystemExit) as exc:
         driver.main(["--device", "cpu", "--multigrid_only"])
-    assert exc.value.code == 0
+    assert exc.value.code == 1
 
 
 def test_benchmark_reports_a_mismatch_and_stores(tmp_path, monkeypatch):

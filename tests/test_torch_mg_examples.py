@@ -15,8 +15,8 @@ pyro2_tpu, on the CPU in float64.
   fills the values in place: one cycle within 1e-12 (v with its ghosts,
   and r to 1e-12 of the terms it cancels) and a solve with equal cycles,
   for Dirichlet and Neumann values under the three operators;
-* `python -m pyro2_tpu_torch.test --multigrid_only` at the published
-  N = 256 passes its four solves within 10% of MG_EXPECTED.
+* the driver's MG_EXPECTED is JAX's, and `--multigrid_only` runs the
+  four solves and passes them (at 64^2, against JAX's L2 errors there).
 """
 
 import importlib
@@ -273,13 +273,23 @@ def test_lifted_rhs_equals_in_cycle_fill(op, kind, monkeypatch):
         1e-12 * float(sol.abs().max())
 
 
-def test_multigrid_only_driver_passes(capsys):
+def test_multigrid_only_driver_passes(capsys, monkeypatch):
+    """The driver's table is JAX's (published N = 256, expected L2
+    errors), and --multigrid_only runs the four solves and passes them.
+    At 256^2 the four plain solves take ~5 s alone here but minutes among
+    the tier-1 run's workers, so the driver runs them at 64^2 against
+    JAX's L2 errors at 64^2."""
     assert set(ttest.MG_EXPECTED) == set(jtest.MG_EXPECTED)
-    for name, (n, _, expected) in jtest.MG_EXPECTED.items():
-        assert ttest.MG_EXPECTED[name][0] == n
-        assert ttest.MG_EXPECTED[name][2] == expected
+    small = {}
+    for name, (n, jfn, expected) in jtest.MG_EXPECTED.items():
+        tn, fn, texpected = ttest.MG_EXPECTED[name]
+        assert (tn, texpected) == (n, expected)
+        assert fn.__name__ == jfn.__name__
+        small[name] = (64, fn, jfn(64))
+    capsys.readouterr()
+    monkeypatch.setattr(ttest, "MG_EXPECTED", small)
     assert ttest.do_tests(None, multigrid_only=True, device="cpu") == 0
     out = capsys.readouterr().out
     for name in ttest.MG_EXPECTED:
         assert re.search(rf"{name}\s+passed", out), out
-    assert "0 test(s) failed" in out
+    assert "0 test(s) failed" in out and "running" not in out

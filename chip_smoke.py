@@ -211,9 +211,35 @@ Phases (any failure exits non-zero and prints no result line):
      of the direct one, hi + lo within 1e-8 of a float64 card solve at
      rtol 1e-11; the sharded solve launching mg_deep_smooth, mg_correct
      and mg_core alone);
+  5i. the sharded hyperbolic tier (parallel/sharded.py,
+     sharded_hyperbolic.py, sharded_particles.py): k_ctu at every block of
+     a 2x2 and a 1x4 split of quad 1024^2 (HLLC, outflow), rt 1024^2
+     (gravity, periodic x, hse y), sod 1024^2 with reflecting walls on
+     both axes (the solid clamp gated by block), spherical Sedov 1024^2
+     (CGF, outflow) and the ramp at 1024x256 (at t > 0), and k_swe the
+     same way on swe quad (Roe, outflow) and dam (Roe, reflecting y
+     walls), in float64 and float32, after 3 serial kernel steps: each
+     block set up as parallel.sharded sets up that rank (its solid and
+     domain-edge flags, its window of the spherical geometry, its gated
+     source fill), its frame the window of the serial filled frame (what
+     the halo exchange and the extended fills leave there), its kernel
+     launched alone; the reassembled interiors equal to the serial kernel
+     step by bits, each block's kernel within 1e-12 / 1e-5 of max|U| of
+     its plain step with the same flags; then the tier on
+     parallel.make_mesh()'s 1x1 mesh in float32, every count reset just
+     before and read just after each run: ShardedCompressible quad 1024^2
+     for 100 steps (one k_ctu a step, no other kernel) and ShardedSWE
+     quad 1024^2 for 100 steps (one k_swe a step), at the sharded CFL dt;
+     ShardedAdvection smooth and ShardedBurgers tophat 1024^2 for 100
+     steps (no kernel launched); ShardedCompressible advect 1024^2 with
+     10^4 grid particles for 20 steps (one k_ctu a step); each run's
+     state (and positions and `active`) equal by bits to the serial
+     Simulation's stepped with the same dts, with its ms/step;
   6. CUDA-event timing of each kernel and its plain version at the main
-     paths' shapes (quad 1024^2; the 1024^2 solves' levels, constant, vc
-     and general; the rk quad and fv4 acoustic_pulse 1024^2 increments;
+     paths' shapes (quad 1024^2; the sharded quad path's block step on
+     the 1x1 mesh and a 2x2 block with its seam flags; the 1024^2
+     solves' levels, constant, vc and general; the rk quad and fv4
+     acoustic_pulse 1024^2 increments;
      the swe quad 1024^2 step; the lm_atm stages on the 1024^2 bubble;
      the spherical CTU step and each padded entry at its path's shape;
      mg_deep_smooth and mg_correct at the sharded path's finest level, and
@@ -249,7 +275,9 @@ Phases (any failure exits non-zero and prints no result line):
      steps, 5 fv4 and 3
      sdc acoustic_pulse steps, 5 swe quad steps, 5 lm_atm bubble steps, 2
      GeneralMG2d solves, 20 spherical advect steps, 5 sharded diffusion
-     steps, 20 burgers, 5 burgers_viscous and 5 cavity steps, 20
+     steps, 20 burgers, 5 burgers_viscous and 5 cavity steps, 10 steps
+     of each phase 5i class on the 1x1 mesh (quad, swe quad, advection,
+     burgers), 20
      advection and 5 advection_weno smooth steps, and phase 5f's paths
      (10 CTU steps each, 3 rk and fv4 steps, 2 sdc steps): device time
      by kernel and the device's busy share of the wall time; phase 5g's
@@ -2581,6 +2609,218 @@ def refine_sharded_on_card(n, smi):
     return row
 
 
+# ---------------------------------------------------------------------------
+# phase 5i: the sharded hyperbolic tier (parallel/sharded.py,
+# sharded_hyperbolic.py, sharded_particles.py): the block steps k_ctu, with
+# the block's solid and domain-edge flags, and k_swe
+# ---------------------------------------------------------------------------
+
+# the seam checks' configurations, one step at every block of each split:
+# (name, solver, problem, nx, ny, inputs)
+SEAM_CASES = (
+    ("quad_hllc_outflow", "compressible", "quad", 1024, 1024, {}),
+    ("rt_gravity_hse", "compressible", "rt", 1024, 1024, {}),
+    ("sod_reflect_walls", "compressible", "sod", 1024, 1024,
+     {**WALLS, "mesh.ymax": 1.0}),
+    ("sph_sedov_cgf", "compressible", "sedov", 1024, 1024,
+     {**SPHERICAL, "mesh.xmin": 0.05, "mesh.xmax": 1.0,
+      "sedov.r_init": 0.1}),
+    ("ramp", "compressible", "ramp", 1024, 256, {}),
+    ("swe_quad_roe_outflow", "swe", "quad", 1024, 1024,
+     {"swe.riemann": "Roe", "swe.limiter": 2}),
+    ("swe_dam_roe_reflect_y", "swe", "dam", 1024, 1024,
+     {"swe.riemann": "Roe", "mesh.ymax": 1.0,
+      "mesh.ylboundary": "reflect", "mesh.yrboundary": "reflect"}),
+)
+SEAM_SPLITS = ((2, 2), (1, 4))
+
+
+def seam_check(name, solver, problem, nx, ny, inputs, dtype, tol):
+    """The block step at every block of a 2x2 and a 1x4 split of a serial
+    state on the card, after 3 serial kernel steps (t > 0).  Each block is
+    set up as parallel.sharded sets up that rank (a Mesh of the split's
+    shape at the block's coordinates: its solid and domain-edge flags, its
+    window of the spherical geometry, its gated source fill), its frame is
+    the window of the serial filled frame (what the halo exchange and the
+    extended fills leave in it), and its kernel (k_ctu or k_swe) is
+    launched alone.  The reassembled interiors must equal the serial
+    kernel step by bits, and each block's kernel its plain step with the
+    same flags within tol x max|U|.  Returns the worst block |diff|."""
+    import torch
+
+    from pyro2_tpu_torch.parallel import ShardedCompressible, ShardedSWE
+    from pyro2_tpu_torch.parallel.mesh_comm import Mesh
+
+    sim = make_sim(problem, {"mesh.nx": nx, "mesh.ny": ny, **inputs}, dtype,
+                   solver=solver)
+    for _ in range(3):
+        sim.cc_data.fill_BC_all()
+        sim.compute_timestep()
+        sim.evolve()
+    sim.cc_data.fill_BC_all()
+    sim.compute_timestep()
+    U, t, dt = sim.cc_data.data, sim.cc_data.t, sim.dt
+    g = sim.cc_data.grid
+    serial = interior(sim._step.launch(U, t, dt), g)
+    cls = ShardedCompressible if solver == "compressible" else ShardedSWE
+    worst = 0.0
+    for px, py in SEAM_SPLITS:
+        bx, by = nx // px, ny // py
+        got = torch.empty_like(serial)
+        rel = 0.0
+        for ix in range(px):
+            for iy in range(py):
+                sh = cls(sim.rp, Mesh((px, py), "cuda", (ix, iy)),
+                         problem=problem, dtype=dtype)
+                frame = U[:, ix * bx:(ix + 1) * bx + 2 * g.ng,
+                          iy * by:(iy + 1) * by + 2 * g.ng].contiguous()
+                step, lg = sh._block_step, sh.local_grid
+                k = interior(step.launch(frame, t, dt), lg)
+                p = interior(step.plain(frame, t, dt), lg)
+                got[:, ix * bx:(ix + 1) * bx, iy * by:(iy + 1) * by] = k
+                err = float((k - p).abs().max())
+                scale = float(p.abs().max())
+                if not bool(torch.isfinite(k).all()) or err > tol * scale:
+                    raise AssertionError(
+                        f"{name} {px}x{py} block ({ix}, {iy}): the kernel "
+                        f"is {err:.3e} off its plain step (tol {tol:g} x "
+                        f"{scale:.3e})")
+                worst = max(worst, err)
+                rel = max(rel, err / scale)
+                flags = (sh.local_sim.solid.__dict__,
+                         getattr(sh.local_sim, "domain_edges", None))
+        torch.cuda.synchronize()
+        bits = torch.equal(got, serial)
+        log(f"  {'ok ' if bits else 'BAD'} {name:24s} {nx}x{ny} "
+            f"{str(U.dtype)[6:]:8s} {px}x{py}: blocks equal to the serial "
+            f"kernel step by bits: {bits}; worst block kernel against its "
+            f"plain step {rel:.3e} x max|U| (tol {tol:g}); t = {t:.6g}; "
+            f"last block's solid {flags[0]}, edges "
+            f"{None if flags[1] is None else flags[1].flags()}")
+        if not bits:
+            raise AssertionError(f"{name} {px}x{py}: the blocks' kernel "
+                                 "steps differ from the serial step")
+    return worst
+
+
+def hyperbolic_path(cls_name, solver, problem, n, steps, inputs=None,
+                    n_particles=0, *, smi):
+    """parallel.<cls_name> on make_mesh()'s 1 x 1 mesh, CUDA float32, for
+    `steps` steps, every launch count reset just before and read just
+    after; then the serial Simulation (Pyro's) stepped with the same dts,
+    whose state (and particles) it must equal by bits.  The CTU and swe
+    tiers step at the sharded CFL dt (Mesh.pmin), advection at its serial
+    CFL dt, burgers at the serial CFL dt of its initial state.  Returns
+    (sharded object, seconds, launches by kernel, a one-step function)."""
+    import torch
+
+    from pyro2_tpu_torch import Pyro, parallel
+
+    extra = {"particles.do_particles": 1, "particles.n_particles":
+             n_particles, "particles.particle_generator": "grid"} \
+        if n_particles else {}
+    p = Pyro(solver)                    # default device: CUDA, float32
+    p.initialize_problem(problem, inputs_dict={
+        "mesh.nx": n, "mesh.ny": n, "driver.max_steps": steps,
+        "driver.tmax": 1.0e30, **(inputs or {}), **extra})
+    sim = p.sim
+    g = sim.cc_data.grid
+    sh = getattr(parallel, cls_name)(sim.rp, parallel.make_mesh(),
+                                     problem=problem, dtype=sim.dtype)
+    U = sh.init_interior()
+    if U.dtype != torch.float32 or not U.is_cuda or \
+            not torch.equal(U, interior(sim.cc_data.data, g)):
+        raise AssertionError(f"{cls_name} {problem}: the blockwise initial "
+                             "state is not the serial one on the card")
+    if hasattr(sh, "compute_dt"):
+        dt_of = sh.compute_dt
+    else:
+        sim.cc_data.fill_BC_all()
+        sim.method_compute_timestep()
+        fixed = sim.dt
+
+        def dt_of(_):
+            return fixed
+    parts = sim.particles
+    carry = [U, 0.0]
+    if parts is not None:
+        advance = sh.build_step_with_particles(parts)
+        carry += [parts.positions.clone(), parts.active.clone()]
+
+    def one_step():
+        U, t = carry[0], carry[1]
+        dt = dt_of(U)
+        if parts is not None:
+            carry[0], carry[2], carry[3] = advance(U, carry[2], carry[3],
+                                                   t, dt)
+        else:
+            carry[0] = sh.step(U, t, dt)
+        carry[1] = t + dt
+        return dt
+
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    dts = [one_step() for _ in range(steps)]
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launched = {k: v for k, v in all_counts().items() if v}
+
+    sim.cc_data.t = 0.0
+    for dt in dts:
+        sim.cc_data.fill_BC_all()
+        sim.dt = dt
+        sim.evolve()
+    U = carry[0]
+    same = torch.equal(U, interior(sim.cc_data.data, g))
+    if parts is not None:
+        same = (same and torch.equal(carry[2], parts.positions) and
+                torch.equal(carry[3], parts.active))
+    finite = bool(torch.isfinite(U).all())
+    log(f"  {'ok ' if same and finite else 'BAD'} {cls_name} {problem} "
+        f"{n}x{n} f32, 1x1 mesh"
+        f"{f', {parts.n_particles} particles' if parts else ''}: {steps} "
+        f"steps in {seconds:.3f} s, {1e3 * seconds / steps:.3f} ms/step, "
+        f"launches {launched}; equal to the serial run with the same dts "
+        f"by bits{' (positions and active too)' if parts else ''}: {same}; "
+        f"t = {carry[1]:.6g} [{smi}]")
+    if not same or not finite:
+        raise AssertionError(f"{cls_name} {problem}: the sharded run is not "
+                             "the serial run")
+    return sh, seconds, launched, one_step
+
+
+def hyper_block_timing(sh, bw, fp32):
+    """CUDA-event ms of the sharded quad path's block step (k_ctu through
+    the block's CTUStep; on the 1x1 mesh every edge is a domain edge)
+    against its plain step, beside its bound; then block (0, 0) of a 2x2
+    split of the same frame, whose high edges are seams (xr = yr = 0).
+    Returns the 1x1 block's (ms, plain ms, bound ms, bound by)."""
+    import torch
+
+    from pyro2_tpu_torch.parallel import ShardedCompressible
+    from pyro2_tpu_torch.parallel.mesh_comm import Mesh
+    from pyro2_tpu_torch.solvers.compressible import ctu_kernel
+
+    U_int = sh.init_interior()
+    dt = sh.compute_dt(U_int)
+    frame = sh._step_input(U_int, 0.0)
+    out = None
+    for blk in (sh, ShardedCompressible(sh.rp, Mesh((2, 2), "cuda", (0, 0)),
+                                        problem=sh.problem)):
+        g, step = blk.local_grid, blk._block_step
+        f = frame[:, :g.qx, :g.qy].contiguous()
+        times = time_pair(
+            f"ctu_step sharded block (quad {g.nx}x{g.ny} of a "
+            f"{blk.px}x{blk.py} mesh, edges "
+            f"{blk.local_sim.domain_edges.flags()})",
+            lambda: step.launch(f, 0.0, dt), lambda: step.plain(f, 0.0, dt),
+            ctu_kernel.work(g.nx, g.ny, blk.nvar, torch.float32,
+                            step.with_sources), bw, fp32)
+        out = out or times
+    return out
+
+
 def time_pair(name, kern, plain, work, bw, fp32):
     """CUDA-event ms of a kernel and its plain version (plain, kernel,
     kernel, plain), beside the kernel's bound; returns (ms, plain ms,
@@ -4061,7 +4301,7 @@ def main():
 
     # 5. the main paths
     log("[main paths: Pyro -> run_sim, CUDA float32]")
-    p, _, quad_launches = main_path("quad", 1024, 1024, 100)
+    p, quad_seconds, quad_launches = main_path("quad", 1024, 1024, 100)
     main_path("rt", 256, 768, 50)
     diff, diff_launches, diff_seconds = mg_main_path("diffusion", "gaussian",
                                                      1024, 10)
@@ -4279,7 +4519,52 @@ def main():
     torch.cuda.empty_cache()
     log(f"  phase 5h in {time.perf_counter() - t5h:.1f} s")
 
+    # 5i. the sharded hyperbolic tier: the block steps at every block of a
+    # split, and the tier's classes on the 1x1 mesh
+    t5i = time.perf_counter()
+    log(f"[phase 5i: k_ctu and k_swe at every block of a 2x2 and a 1x4 "
+        f"split, each block's frame from one global array and its flags "
+        f"set, against the serial kernel step (bits) and the plain block "
+        f"step; {smi}]")
+    seam_err = {}
+    for dtype, tol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
+        for case in SEAM_CASES:
+            err = seam_check(*case, dtype, tol)
+            if dtype == torch.float32:
+                seam_err[case[0]] = err
+        torch.cuda.empty_cache()
+    log(f"[phase 5i: the sharded tier on make_mesh()'s 1x1 mesh, CUDA "
+        f"float32; {smi}]")
+    hyper = {}
+    for label, args, want in (
+            ("quad", ("ShardedCompressible", "compressible", "quad", 1024,
+                      100), {"ctu_step": 100}),
+            ("swe_quad", ("ShardedSWE", "swe", "quad", 1024, 100,
+                          {"swe.riemann": "Roe", "swe.limiter": 2}),
+             {"swe_step": 100}),
+            ("advection", ("ShardedAdvection", "advection", "smooth", 1024,
+                           100), {}),
+            ("burgers", ("ShardedBurgers", "burgers", "tophat", 1024, 100),
+             {}),
+            ("particles", ("ShardedCompressible", "compressible", "advect",
+                           1024, 20, None, 10000),
+             {"ctu_step": 20})):
+        hyper[label] = hyperbolic_path(*args, smi=smi)
+        if hyper[label][2] != want:
+            raise AssertionError(f"sharded {label}: launched "
+                                 f"{hyper[label][2]}, expected {want}")
+    log(f"  serial quad 1024^2 f32 in phase 5: "
+        f"{1e3 * quad_seconds / 100:.3f} ms/step (Pyro -> run_sim); the "
+        f"sharded 1x1 run {1e3 * hyper['quad'][1] / 100:.3f} ms/step "
+        f"[{smi}]")
+    torch.cuda.empty_cache()
+    log(f"  phase 5i in {time.perf_counter() - t5i:.1f} s")
+
     # 6. timing at the main paths' shapes
+    log(f"[timing: the sharded block step, quad 1024^2 float32 on the 1x1 "
+        f"mesh and a 2x2 block with its seam flags, CUDA events; {smi}]")
+    hyper_times = hyper_block_timing(hyper["quad"][0], bw, fp32)
+
     log("[timing: quad 1024^2 float32, CUDA events]")
     sim = p.sim
     sim.cc_data.fill_BC_all()
@@ -4512,6 +4797,12 @@ def main():
                   "incompressible_viscous cavity 1024^2 float32")
     profile_steps(advect["advection"].single_step, 20,
                   "advection smooth 1024^2 float32")
+    for label, what in (("quad", "ShardedCompressible quad"),
+                        ("swe_quad", "ShardedSWE quad"),
+                        ("advection", "ShardedAdvection smooth"),
+                        ("burgers", "ShardedBurgers tophat")):
+        profile_steps(hyper[label][3], 10,
+                      f"{what} 1024^2 float32, 1x1 mesh [{smi}]")
     profile_steps(advect["advection_weno"].single_step, 5,
                   "advection_weno smooth 1024^2 float32")
     for label, (pp, _, _) in src_paths.items():
@@ -4709,6 +5000,20 @@ def main():
             "bound_by": b_by,
             "library_ms": None,
         })
+    ms, p_ms, b_ms, b_by = hyper_times
+    kernels.append({
+        "name": "ctu_step_sharded",
+        "route": "cuda",
+        "source": "pyro2_tpu_torch/csrc/ctu_step.cu",
+        "replaces": "pyro2_tpu/solvers/compressible/pallas_step.py:603",
+        "launches": hyper["quad"][2]["ctu_step"],
+        "max_abs_err": seam_err["quad_hllc_outflow"],
+        "ms": ms,
+        "plain_ms": p_ms,
+        "bound_ms": b_ms,
+        "bound_by": b_by,
+        "library_ms": None,
+    })
     ms, p_ms, b_ms, b_by = devdt_times
     kernels.append({
         "name": "ctu_step_device_dt",

@@ -28,6 +28,15 @@
 // walls at ilo / ihi+1 and jlo / jhi+1), which reproduces the windowed
 // semantics of the plain PyTorch step exactly.  Any nx, ny works.
 //
+// The frame may be one block of a sharded run (parallel/sharded.py), its
+// ghosts filled by the halo exchange.  Its solid-wall flags are then 0 on
+// the seams, and the single-state entries take four domain-edge flags
+// (Params::edge_*, runtime ints, CTUStep's ints 20..23): where the high
+// edge is a seam (flag 0) the artificial viscosity also acts on face
+// ihi+1 / jhi+1, from the halo, as it does on that face of the serial
+// grid.  With every flag 1 (a serial grid, and the batched entries) the
+// step is unchanged.
+//
 // Spherical geometry (r = x, theta = y).  The geometry is one buffer G in
 // the state's dtype, built once per step object from the grid's float64
 // host arrays (ctu_kernel.geometry).  Where a quantity is separable it is a
@@ -535,7 +544,7 @@ __global__ void __launch_bounds__(Launch<T, SPH>::threads,
         }
         riemann(p, 1, ul, ur, i, j, f, SPH ? us : (T*)nullptr);
         if constexpr (SPH) P2[k] = pressure(p, us);
-        if (i <= ihi(p)) {
+        if (i <= ihi(p) || !p.edge_xr) {
           const T divU = T(0.5) * (DV[k] + DV[k + 1]);
           const T av = T(p.cvisc) * fmax(-divU * T(p.dx), T(0));
 #pragma unroll
@@ -574,7 +583,7 @@ __global__ void __launch_bounds__(Launch<T, SPH>::threads,
         }
         riemann(p, 2, ul, ur, i, j, f, SPH ? us : (T*)nullptr);
         if constexpr (SPH) P2[ct + k] = pressure(p, us);
-        if (j <= jhi(p)) {
+        if (j <= jhi(p) || !p.edge_yr) {
           const T divU = T(0.5) * (DV[k] + DV[k + bt.w]);
           const T L = SPH ? g.Ly(i) : T(p.dy);
           const T av = T(p.cvisc) * fmax(-divU * L, T(0));
@@ -792,6 +801,17 @@ int run(const T* U, const T* S, const T* G, const T* W, T* out, Params p,
   return by_kind<T>(U, S, G, W, out, p, t, n_members, dtp, st);
 }
 
+// the single-state entries' parameter block: the shared layout, then the
+// four domain-edge flags (CTUStep's ints 20..23)
+inline Params step_params(const int* ip, const double* dp) {
+  Params p = load_params(ip, dp, false);
+  p.edge_xl = ip[20];
+  p.edge_xr = ip[21];
+  p.edge_yl = ip[22];
+  p.edge_yr = ip[23];
+  return p;
+}
+
 // the batched entries' step: no floor, sources, sponge or walls, and
 // Cartesian geometry, whatever the parameter arrays say
 inline Params batched_params(const int* ip, const double* dp) {
@@ -810,7 +830,7 @@ extern "C" int ctu_plan_ints() { return PLAN_INTS; }
 extern "C" int ctu_step_f32(const float* U, const float* S, const float* G,
                             const float* W, float* out, const int* ip,
                             const double* dp, const int* plan, void* stream) {
-  return run<float>(U, S, G, W, out, load_params(ip, dp, false), plan, 1,
+  return run<float>(U, S, G, W, out, step_params(ip, dp), plan, 1,
                     nullptr, (cudaStream_t)stream);
 }
 
@@ -818,7 +838,7 @@ extern "C" int ctu_step_f64(const double* U, const double* S,
                             const double* G, const double* W, double* out,
                             const int* ip, const double* dp, const int* plan,
                             void* stream) {
-  return run<double>(U, S, G, W, out, load_params(ip, dp, false), plan, 1,
+  return run<double>(U, S, G, W, out, step_params(ip, dp), plan, 1,
                      nullptr, (cudaStream_t)stream);
 }
 
@@ -830,7 +850,7 @@ extern "C" int ctu_step_dev_f32(const float* U, const float* S,
                                 const int* plan, const float* dt,
                                 void* stream) {
   if (dt == nullptr) return (int)cudaErrorInvalidValue;
-  return run<float>(U, S, G, W, out, load_params(ip, dp, false), plan, 1, dt,
+  return run<float>(U, S, G, W, out, step_params(ip, dp), plan, 1, dt,
                     (cudaStream_t)stream);
 }
 
@@ -840,7 +860,7 @@ extern "C" int ctu_step_dev_f64(const double* U, const double* S,
                                 const int* plan, const double* dt,
                                 void* stream) {
   if (dt == nullptr) return (int)cudaErrorInvalidValue;
-  return run<double>(U, S, G, W, out, load_params(ip, dp, false), plan, 1,
+  return run<double>(U, S, G, W, out, step_params(ip, dp), plan, 1,
                      dt, (cudaStream_t)stream);
 }
 

@@ -195,6 +195,12 @@ class SphericalPolar(Grid2d):
         self.Ay = np.abs(np.pi * np.sin(self.yl2d) *
                          (self.xr2d ** 2 - self.xl2d ** 2))
 
+        # sin(theta) at the lower edge, the centre and the centre below,
+        # for the vertex divergence of the artificial viscosity
+        self.sin_yl = np.sin(self.yl)
+        self.sin_y = np.sin(self.y)
+        self.sin_yb = np.sin(self.y - self.dy)
+
         # d log(A)/dr = 2/r ; d log(A)/(r dtheta) = cot(theta)/r
         self.dlogAx = 2.0 / self.x2d
         self.dlogAy = 1.0 / (np.tan(self.y2d) * self.x2d)

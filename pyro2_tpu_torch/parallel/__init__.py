@@ -8,22 +8,35 @@
   per-block initialization (`blocks`), the block-partitioned multigrid
   (`ShardedMG`, `ShardedVarCoeffMG`, `ShardedGeneralMG`) and its first
   consumer, `ShardedDiffusion`.
+* The sharded hyperbolic tier: `ShardedCompressible` and `ShardedSWE`
+  (`sharded.py`, the CTU and swe kernels as block steps),
+  `ShardedAdvection` and `ShardedBurgers` (`sharded_hyperbolic.py`), and
+  the replicated tracer particles (`make_sharded_particle_advance`).
 
 The rest of the JAX package's parallel/ waits for later slices (ROADMAP.md,
-A.14): sharded_incompressible first, then sharded.py (ShardedCompressible,
-ShardedSWE) with sharded_hyperbolic, sharded_mol, sharded_lm_atm,
-sharded_burgers_viscous, sharded_particles, accounting and overlap.
+A.14), in this order: sharded_incompressible, sharded_mol, sharded_lm_atm,
+sharded_burgers_viscous, accounting and overlap.
 """
 
 from pyro2_tpu_torch.parallel.ensemble import ensemble_states, ensemble_step
 from pyro2_tpu_torch.parallel.mesh_comm import (Mesh, factor_devices,
                                                 halo_exchange, make_mesh)
+from pyro2_tpu_torch.parallel.sharded import (ShardedCompressible,
+                                              ShardedSim, ShardedSWE,
+                                              make_sharded_compressible_step)
 from pyro2_tpu_torch.parallel.sharded_diffusion import ShardedDiffusion
+from pyro2_tpu_torch.parallel.sharded_hyperbolic import (ShardedAdvection,
+                                                         ShardedBurgers)
 from pyro2_tpu_torch.parallel.sharded_mg import (ShardedGeneralMG,
                                                  ShardedMG,
                                                  ShardedVarCoeffMG,
                                                  make_sharded_mg)
+from pyro2_tpu_torch.parallel.sharded_particles import \
+    make_sharded_particle_advance
 
-__all__ = ["Mesh", "ShardedDiffusion", "ShardedGeneralMG", "ShardedMG",
-           "ShardedVarCoeffMG", "ensemble_states", "ensemble_step",
-           "factor_devices", "halo_exchange", "make_mesh", "make_sharded_mg"]
+__all__ = ["Mesh", "ShardedAdvection", "ShardedBurgers",
+           "ShardedCompressible", "ShardedDiffusion", "ShardedGeneralMG",
+           "ShardedMG", "ShardedSWE", "ShardedSim", "ShardedVarCoeffMG",
+           "ensemble_states", "ensemble_step", "factor_devices",
+           "halo_exchange", "make_mesh", "make_sharded_compressible_step",
+           "make_sharded_mg", "make_sharded_particle_advance"]

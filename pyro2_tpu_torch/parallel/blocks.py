@@ -12,7 +12,8 @@ import torch
 
 from pyro2_tpu_torch.defaults import dtype as working_dtype
 
-__all__ = ["block_grid", "blockwise_init_interior"]
+__all__ = ["adopt_block_grid", "block_grid", "blockwise_init_interior",
+           "gather_interior"]
 
 
 def block_grid(global_grid, px, py, ix, iy):
@@ -60,6 +61,34 @@ class _BlockData:
                                     device=self.data.device).clone()
 
 
+def _rank_block_grid(grid_type, ng, rp, mesh):
+    """This rank's block grid, from the runtime parameters' extents and
+    global shape alone (no global-extent coordinate array is built)."""
+    nx, ny = rp.get_param("mesh.nx"), rp.get_param("mesh.ny")
+    bx, by = nx // mesh.px, ny // mesh.py
+    return grid_type(bx, by, ng=ng,
+                     xmin=rp.get_param("mesh.xmin"),
+                     xmax=rp.get_param("mesh.xmax"),
+                     ymin=rp.get_param("mesh.ymin"),
+                     ymax=rp.get_param("mesh.ymax"),
+                     _coord_shift=(mesh.ix * bx, mesh.iy * by),
+                     _domain_n=(nx, ny))
+
+
+def adopt_block_grid(grid, rp, mesh):
+    """Make a block-sized grid (a block-local Simulation's) this rank's
+    block grid, in place: the global extents, the global dx and dy and the
+    bitwise-global coordinates and geometry of the block's window.  A grid
+    built from the block's own extents can have a dx an ulp off the
+    global one."""
+    bg = _rank_block_grid(type(grid), grid.ng, rp, mesh)
+    if (bg.nx, bg.ny) != (grid.nx, grid.ny):
+        raise ValueError("the grid is not this rank's block")
+    grid.__dict__.pop("_tensors", None)
+    grid.__dict__.update(bg.__dict__)
+    return grid
+
+
 def blockwise_init_interior(contract_data, problem_init, rp, mesh, *,
                             dtype=None):
     """This rank's (nvar, bx, by) block of the initial interior:
@@ -70,20 +99,17 @@ def blockwise_init_interior(contract_data, problem_init, rp, mesh, *,
     only the grid type and ng (the shape comes from rp's mesh.nx / ny and
     the mesh)."""
     gg = contract_data.grid
-    nx, ny = rp.get_param("mesh.nx"), rp.get_param("mesh.ny")
-    bx, by = nx // mesh.px, ny // mesh.py
-    # the block grid straight from scalars: no global-extent coordinate
-    # array is ever built
-    bg = type(gg)(bx, by, ng=gg.ng,
-                  xmin=rp.get_param("mesh.xmin"),
-                  xmax=rp.get_param("mesh.xmax"),
-                  ymin=rp.get_param("mesh.ymin"),
-                  ymax=rp.get_param("mesh.ymax"),
-                  _coord_shift=(mesh.ix * bx, mesh.iy * by),
-                  _domain_n=(nx, ny))
+    bg = _rank_block_grid(type(gg), gg.ng, rp, mesh)
     d = _BlockData(bg, contract_data.names, contract_data.aux,
                    getattr(contract_data, "ivars", None),
                    dtype=working_dtype(mesh.device, dtype),
                    device=mesh.device)
     problem_init(d, rp)
     return d.data[:, bg.ilo:bg.ihi + 1, bg.jlo:bg.jhi + 1].contiguous()
+
+
+def gather_interior(U, mesh):
+    """The (..., nx, ny) global interior from every rank's (..., bx, by)
+    block, on every rank (collective)."""
+    return mesh.all_gather("y", mesh.all_gather("x", U, U.ndim - 2),
+                           U.ndim - 1)

@@ -12,7 +12,10 @@ with `dist.new_group`, in the same order.  The JAX primitives map as:
     name the partners);
   * a tiled `all_gather`: `all_gather_into_tensor` in the subgroup
     (`Mesh.all_gather`);
-  * `psum` over x then y: `all_reduce` in each subgroup (`Mesh.psum`).
+  * `psum` over x then y: `all_reduce` in each subgroup (`Mesh.psum`);
+  * `pmin` over x then y: a MIN `all_reduce` in each subgroup
+    (`Mesh.pmin`), exact, so a sharded CFL dt is the serial global
+    minimum.
 
 An axis with one block does no communication, as the JAX functions skip
 it.  `make_mesh()` without a process group returns a 1 x 1 mesh on the
@@ -35,8 +38,8 @@ from pyro2_tpu_torch.defaults import resolve_device
 from pyro2_tpu_torch.mesh.indexer import _edge_fill
 
 __all__ = ["Mesh", "factor_devices", "make_mesh", "halo_exchange",
-           "gated_physical_fill", "seam_exchange", "deep_pad_exchange",
-           "deep_phys_refresh"]
+           "halo_exchange_stack", "gated_physical_fill", "seam_exchange",
+           "deep_pad_exchange", "deep_phys_refresh"]
 
 
 def factor_devices(n):
@@ -108,10 +111,17 @@ class Mesh:
 
     def psum(self, t):
         """The sum of t over every block: over x, then over y."""
+        return self._reduce(t, dist.ReduceOp.SUM)
+
+    def pmin(self, t):
+        """The minimum of t over every block: over x, then over y."""
+        return self._reduce(t, dist.ReduceOp.MIN)
+
+    def _reduce(self, t, op):
         t = t.clone()
         for axis in ("x", "y"):
             if self.size(axis) > 1:
-                dist.all_reduce(t, group=self._groups[axis][0])
+                dist.all_reduce(t, op=op, group=self._groups[axis][0])
         return t
 
 
@@ -169,6 +179,25 @@ def _exchange(a, mesh, axis, depth):
     return a
 
 
+def _physical(a, g, bc, mesh, axis):
+    """The physical fills of one axis's domain edges, in place, on the
+    blocks that own them.  Periodic ghosts come from the ring, except on an
+    unsplit axis, where the exchange is a no-op and the local periodic
+    copy applies.  Extended BC kinds (bnd.ext_bcs) are left alone here:
+    _edge_fill fills none of them."""
+    if axis == "x":
+        edges = ((0, bc.xlb, bc.xl_value, mesh.ix == 0),
+                 (1, bc.xrb, bc.xr_value, mesh.ix == mesh.px - 1))
+        dim, n, dxy = -2, mesh.px, g.dx
+    else:
+        edges = ((0, bc.ylb, bc.yl_value, mesh.iy == 0),
+                 (1, bc.yrb, bc.yr_value, mesh.iy == mesh.py - 1))
+        dim, n, dxy = -1, mesh.py, g.dy
+    for side, kind, value, own in edges:
+        if (kind != "periodic" or n == 1) and own:
+            _edge_fill(a, g, dim, side, kind, value, dxy)
+
+
 def halo_exchange(padded, local_grid, bc, mesh):
     """Fill the ghost cells of a local padded (..., qx, qy) block.
 
@@ -177,19 +206,26 @@ def halo_exchange(padded, local_grid, bc, mesh):
     for non-periodic BCs the blocks owning a domain edge overwrite their
     ghosts with the physical fill.  x strips go before y, so corner ghosts
     take the single-block fill's x-then-y order."""
-    g = local_grid
-    a = _exchange(padded.clone(), mesh, "x", g.ng)
-    # periodic ghosts come from the ring, except on an unsplit axis, where
-    # the exchange is a no-op and the local periodic copy applies
-    if (bc.xlb != "periodic" or mesh.px == 1) and mesh.ix == 0:
-        _edge_fill(a, g, -2, 0, bc.xlb, bc.xl_value, g.dx)
-    if (bc.xrb != "periodic" or mesh.px == 1) and mesh.ix == mesh.px - 1:
-        _edge_fill(a, g, -2, 1, bc.xrb, bc.xr_value, g.dx)
-    a = _exchange(a, mesh, "y", g.ng)
-    if (bc.ylb != "periodic" or mesh.py == 1) and mesh.iy == 0:
-        _edge_fill(a, g, -1, 0, bc.ylb, bc.yl_value, g.dy)
-    if (bc.yrb != "periodic" or mesh.py == 1) and mesh.iy == mesh.py - 1:
-        _edge_fill(a, g, -1, 1, bc.yrb, bc.yr_value, g.dy)
+    a = padded.clone()
+    return _fill(a, local_grid, [(a, bc)], mesh)
+
+
+def halo_exchange_stack(padded, local_grid, bcs, mesh):
+    """halo_exchange of an (nvar, qx, qy) stack whose variable n has its
+    own BC, bcs[n]: one exchange of the whole stack a side, then each
+    variable's physical fills, which gives halo_exchange's values variable
+    by variable in 2 messages a split axis instead of 2 nvar."""
+    a = padded.clone()
+    return _fill(a, local_grid, list(zip(a, bcs, strict=True)), mesh)
+
+
+def _fill(a, g, planes, mesh):
+    """The exchange of a (in place), x then y, each axis followed by the
+    physical fills of each (plane of a, BC) pair."""
+    for axis in ("x", "y"):
+        _exchange(a, mesh, axis, g.ng)
+        for plane, bc in planes:
+            _physical(plane, g, bc, mesh, axis)
     return a
 
 

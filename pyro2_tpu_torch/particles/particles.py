@@ -129,10 +129,16 @@ class Particles:
         myg = self.sim_data.grid
         u_b = ai(u, myg).v(buf=1)
         v_b = ai(v, myg).v(buf=1)
+        return self.midpoint_advance(
+            pos, active, lambda p: self._interp(u_b, v_b, p), dt)
 
-        u0, v0 = self._interp(u_b, v_b, pos)
+    def midpoint_advance(self, pos, active, interp, dt):
+        """advance_pure with the velocity at the positions given by
+        interp(pos) -> (u, v): the sharded advance passes an owner-gathered
+        interpolation (parallel/sharded_particles.py)."""
+        u0, v0 = interp(pos)
         mid = pos + 0.5 * dt * torch.stack([u0, v0], dim=1)
-        u1, v1 = self._interp(u_b, v_b, mid)
+        u1, v1 = interp(mid)
         new_pos = pos + dt * torch.stack([u1, v1], dim=1)
 
         pos = torch.where(active[:, None], new_pos, pos)

@@ -81,9 +81,11 @@ class Simulation(NullSimulation):
                            **like) for c in "uv")
         return self._velocity_planes
 
-    def _build_step(self):
+    def _build_step(self, fill_ghosts=True):
         """step(a, dt) -> the density after one CTU update; `a` is not
-        written."""
+        written.  fill_ghosts=False skips the entry ghost fill: the
+        sharded step exchanges halos itself
+        (parallel/sharded_hyperbolic.py)."""
         g = self.cc_data.grid
         bc = self.cc_data.BCs["density"]
         u = self.rp.get_param("advection.u")
@@ -91,7 +93,8 @@ class Simulation(NullSimulation):
         limiter = self.rp.get_param("advection.limiter")
 
         def step(a, dt):
-            a = fill_ghost(a.clone(), g, bc)
+            if fill_ghosts:
+                a = fill_ghost(a.clone(), g, bc)
             flux_x, flux_y = flx.unsplit_fluxes(a, g, u, v, limiter, dt)
             return conservative_update(a, flux_x, flux_y, g, dt)
 

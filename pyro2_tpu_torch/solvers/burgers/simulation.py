@@ -32,17 +32,20 @@ class Simulation(NullSimulation):
         self.problem_func(self.cc_data, self.rp)
         self._step = self._make_step()
 
-    def _make_step(self):
+    def _make_step(self, fill_ghosts=True):
         """step(u, v, dt) -> (u, v): one Burgers update; the inputs are
-        not written."""
+        not written.  fill_ghosts=False skips the entry ghost fills: the
+        sharded step exchanges halos itself
+        (parallel/sharded_hyperbolic.py)."""
         g = self.cc_data.grid
         bc_u = self.cc_data.BCs["x-velocity"]
         bc_v = self.cc_data.BCs["y-velocity"]
         limiter = self.rp.get_param("advection.limiter")
 
         def step(u, v, dt):
-            u = fill_ghost(u.clone(), g, bc_u)
-            v = fill_ghost(v.clone(), g, bc_v)
+            if fill_ghosts:
+                u = fill_ghost(u.clone(), g, bc_u)
+                v = fill_ghost(v.clone(), g, bc_v)
 
             ldelta_ux = reconstruction.limit(u, g, 1, limiter)
             ldelta_uy = reconstruction.limit(u, g, 2, limiter)

@@ -266,7 +266,7 @@ def geometry(myg, dtype, device):
         raise ValueError("the CTU kernel takes Lx = dx everywhere")
     parts = [myg.Ax, myg.Ay, myg.V, myg.dlogAy,
              myg.Ly[:, 0], myg.dlogAx[:, 0], myg.x, myg.xl, myg.x - myg.dx,
-             np.sin(myg.yl), np.sin(myg.y), np.sin(myg.y - myg.dy)]
+             myg.sin_yl, myg.sin_y, myg.sin_yb]
     host = np.concatenate([np.ascontiguousarray(a, dtype=np.float64).ravel()
                            for a in parts])
     return torch.as_tensor(host, dtype=dtype, device=device)
@@ -327,7 +327,10 @@ class CTUStep:
                       int(bool(rp.get_param("sponge.do_sponge"))),
                       0,  # has_floor, set per dtype
                       solid.xl, solid.xr, solid.yl, solid.yr,
-                      int(self.spherical), int(self.problem)]
+                      int(self.spherical), int(self.problem),
+                      # the domain-edge flags of the artificial viscosity
+                      # (0 on a sharded block's seams)
+                      *(int(e) for e in sim.domain_edges.flags())]
         self._geometry = {}     # the spherical geometry buffer by dtype
         self._doubles = [myg.dx, myg.dy, 0.0,  # dt, set per call
                          rp.get_param("eos.gamma"),

@@ -8,7 +8,6 @@ Variable layout: stacks are (nvar, qx, qy) with primitive ordering
 (rho, u, v, p[, X...]).
 """
 
-import numpy as np
 import torch
 
 from pyro2_tpu_torch.mesh.indexer import ai, embed
@@ -117,18 +116,28 @@ def states(idir, g, dxa, dloga, dt, ivars, gamma, qv, dqv):
     return embed(q_l_win, g, b, ish, jsh), embed(q_r_win, g, b)
 
 
-def artificial_viscosity(g, cvisc, u, v):
+def artificial_viscosity(g, cvisc, u, v, edges=(1, 1, 1, 1)):
     """Colella-Woodward artificial viscosity coefficients (avisco_x/y).
 
-    Vertex-centered div(U) on the buf=1 window (Cartesian, or spherical
-    from the r and sin(theta) lines of the grid) averaged to faces; avisco
-    = cvisc * max(-divU*L, 0) on the plain interior window, zero elsewhere
-    (no viscosity on the domain's outermost high faces)."""
+    Vertex-centered div(U) (Cartesian, or spherical from the r and
+    sin(theta) lines of the grid) averaged to faces; avisco = cvisc *
+    max(-divU*L, 0).
+
+    `edges` holds the domain-edge flags (xl, xr, yl, yr): 1 where this
+    grid's edge is the domain's boundary.  With all four 1 (a serial
+    grid) the coefficients are those of the plain interior window, zero
+    elsewhere: no viscosity on the domain's outermost high faces.  A block
+    of a sharded run has 0 on the edges that are seams: the divergence is
+    then taken on the buf=2 window, the coefficients on the (2, 1) window
+    the fluxes read them on, and zeroed only outside the global interior
+    window, so a seam's high face gets its viscosity from the halo, as the
+    same face of the serial grid does (the JAX package's edges)."""
     uv = ai(u, g)
     vv = ai(v, g)
     spherical = getattr(g, "coord_type", 0) == 1
+    serial = all(e == 1 for e in edges)
 
-    b = 1
+    b = 1 if serial else 2
     ur = 0.5 * (uv.v(buf=b) + uv.jp(-1, buf=b))
     ul = 0.5 * (uv.ip(-1, buf=b) + uv.ip_jp(-1, -1, buf=b))
     vt = 0.5 * (vv.v(buf=b) + vv.ip(-1, buf=b))
@@ -144,18 +153,28 @@ def artificial_viscosity(g, cvisc, u, v):
         divU_w = (ur - ul) / g.dx + (vt - vb) / g.dy
     dv = ai(embed(divU_w, g, b), g)
 
-    divU_x = 0.5 * (dv.v() + dv.jp(1))
-    divU_y = 0.5 * (dv.v() + dv.ip(1))
+    ba = 0 if serial else (2, 1)
+    divU_x = 0.5 * (dv.v(buf=ba) + dv.jp(1, buf=ba))
+    divU_y = 0.5 * (dv.v(buf=ba) + dv.ip(1, buf=ba))
 
     if spherical:
-        Lx = _win(g.tensor("Lx", u), g, 0)
-        Ly = _win(g.tensor("Ly", u), g, 0)
+        Lx = _win(g.tensor("Lx", u), g, ba)
+        Ly = _win(g.tensor("Ly", u), g, ba)
     else:
         Lx, Ly = g.dx, g.dy
-    av_x = cvisc * (-divU_x * Lx).clamp_min(0.0)
-    av_y = cvisc * (-divU_y * Ly).clamp_min(0.0)
+    av_x = embed(cvisc * (-divU_x * Lx).clamp_min(0.0), g, ba)
+    av_y = embed(cvisc * (-divU_y * Ly).clamp_min(0.0), g, ba)
+    if serial:
+        return av_x, av_y
 
-    return embed(av_x, g, 0), embed(av_y, g, 0)
+    # zero outside the global interior window: a side is clipped only
+    # where this grid's edge is the domain's boundary
+    xl, xr, yl, yr = edges
+    ii = torch.arange(g.qx, device=u.device)[:, None]
+    jj = torch.arange(g.qy, device=u.device)[None, :]
+    keep = (((ii >= g.ilo) | (xl == 0)) & ((ii <= g.ihi) | (xr == 0)) &
+            ((jj >= g.jlo) | (yl == 0)) & ((jj <= g.jhi) | (yr == 0)))
+    return torch.where(keep, av_x, 0.0), torch.where(keep, av_y, 0.0)
 
 
 def sph_planes(g, like):
@@ -172,4 +191,4 @@ def sph_planes(g, like):
                                device=like.device)[None, :].expand(g.qx, g.qy)
 
     return (rows(g.xl), rows(g.x), rows(g.x - g.dx),
-            lanes(np.sin(g.yl)), lanes(np.sin(g.y)), lanes(np.sin(g.y - g.dy)))
+            lanes(g.sin_yl), lanes(g.sin_y), lanes(g.sin_yb))

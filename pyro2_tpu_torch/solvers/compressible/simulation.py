@@ -26,7 +26,7 @@ from pyro2_tpu_torch.simulation_null import (NullSimulation, bc_setup,
 from pyro2_tpu_torch.solvers.compressible import BC, derives, eos, riemann
 from pyro2_tpu_torch.util import msg
 
-__all__ = ["Variables", "cons_to_prim", "prim_to_cons",
+__all__ = ["Variables", "DomainEdges", "cons_to_prim", "prim_to_cons",
            "get_external_sources", "get_sponge_factor", "energy_source",
            "weight_plane", "energy_rate", "plain_step", "Simulation"]
 
@@ -52,6 +52,19 @@ class Variables:
         self.iv = 2
         self.ip = 3
         self.ix = 4 if self.naux > 0 else -1
+
+
+class DomainEdges:
+    """Domain-edge flags (xl, xr, yl, yr): 1 where this grid's edge is the
+    physical domain's boundary.  All 1 on a serial grid; a block of a
+    sharded run (parallel/sharded.py) has 0 where its edge is a seam, so
+    the artificial viscosity follows the global domain's window."""
+
+    def __init__(self, xl=1, xr=1, yl=1, yr=1):
+        self.xl, self.xr, self.yl, self.yr = xl, xr, yl, yr
+
+    def flags(self):
+        return (self.xl, self.xr, self.yl, self.yr)
 
 
 def cons_to_prim(U, gamma, ivars, myg, *, check=True):
@@ -204,7 +217,7 @@ def get_sponge_factor(U, ivars, rp, myg):
 
 
 def plain_step(my_data, rp, ivars, solid, tc, *, aux=None, small_dens=None,
-               sponge=False, problem_source=None):
+               sponge=False, problem_source=None, edges=(1, 1, 1, 1)):
     """The plain tensor CTU step(U, t, dt) -> U_new on my_data.grid: density
     floor -> tracing -> half-dt sources -> transverse -> Riemann ->
     artificial viscosity -> conservative update -> (spherical pressure
@@ -215,7 +228,9 @@ def plain_step(my_data, rp, ivars, solid, tc, *, aux=None, small_dens=None,
     None leaves the external sources out altogether, small_dens None the
     floor, sponge False the sponge (the padded entries' step, which has
     none of them; padded_step.py).  problem_source(myg, U, ivars, rp) is
-    the problem's own source, added to the external sources."""
+    the problem's own source, added to the external sources.  edges are
+    the domain-edge flags (DomainEdges.flags) of the artificial
+    viscosity."""
     myg = my_data.grid
     gamma = rp.get_param("eos.gamma")
     spherical = getattr(myg, "coord_type", 0) == 1
@@ -259,7 +274,7 @@ def plain_step(my_data, rp, ivars, solid, tc, *, aux=None, small_dens=None,
 
         q = cons_to_prim(U, gamma, ivars, myg, check=False)
         F_x, F_y = flx.apply_artificial_viscosity(
-            F_x, F_y, q, U, my_data, rp, ivars)
+            F_x, F_y, q, U, my_data, rp, ivars, edges=edges)
 
         U_old = U
 
@@ -357,6 +372,7 @@ class Simulation(NullSimulation):
 
         bc, bc_xodd, bc_yodd = bc_setup(self.rp)
         self.solid = bnd.bc_is_solid(bc)
+        self.domain_edges = DomainEdges()
 
         my_data.register_var("density", bc)
         my_data.register_var("energy", bc)
@@ -431,7 +447,8 @@ class Simulation(NullSimulation):
                           aux=self.aux_data,
                           small_dens=rp.get_param("compressible.small_dens"),
                           sponge=bool(rp.get_param("sponge.do_sponge")),
-                          problem_source=self.problem_source)
+                          problem_source=self.problem_source,
+                          edges=self.domain_edges.flags())
 
     # -- host-side driver hooks --------------------------------------------
     def method_compute_timestep(self):

@@ -185,14 +185,16 @@ def apply_transverse_flux(U_xl, U_xr, U_yl, U_yr,
     return U_xl, U_xr, U_yl, U_yr
 
 
-def apply_artificial_viscosity(F_x, F_y, q, U, my_data, rp, ivars):
+def apply_artificial_viscosity(F_x, F_y, q, U, my_data, rp, ivars,
+                               edges=(1, 1, 1, 1)):
     """Add Colella-Woodward artificial viscosity to the fluxes, in place
-    on the (2, 1) window."""
+    on the (2, 1) window.  `edges` are the domain-edge flags (xl, xr, yl,
+    yr) of interface.artificial_viscosity."""
     cvisc = rp.get_param("compressible.cvisc")
     myg = my_data.grid
 
     avisco_x, avisco_y = ifc.artificial_viscosity(
-        myg, cvisc, q[ivars.iu], q[ivars.iv])
+        myg, cvisc, q[ivars.iu], q[ivars.iv], edges=edges)
 
     b = (2, 1)
     avx = ai(avisco_x, myg)

@@ -239,8 +239,9 @@ def test_chip_smoke_refuses_without_cuda(tmp_path):
 
 def test_sharded_slice_imports_without_cuda_or_jax():
     # the mesh layer, the launcher, the sharded multigrid with its kernel
-    # wrapper, and ShardedDiffusion import on a machine with neither CUDA
-    # nor JAX in the process, and never initialise torch.distributed
+    # wrapper, ShardedDiffusion and the sharded hyperbolic tier import on a
+    # machine with neither CUDA nor JAX in the process, and never
+    # initialise torch.distributed
     code = (
         "import sys\n"
         "import torch\n"
@@ -248,13 +249,17 @@ def test_sharded_slice_imports_without_cuda_or_jax():
         "assert not torch.cuda.is_available()\n"
         "import pyro2_tpu_torch.parallel as par\n"
         "from pyro2_tpu_torch.parallel import blocks, launch, mesh_comm, "
-        "sharded_diffusion, sharded_mg\n"
+        "sharded, sharded_diffusion, sharded_hyperbolic, sharded_mg, "
+        "sharded_particles\n"
         "from pyro2_tpu_torch.multigrid import sharded_mg_kernel as smk\n"
         "from pyro2_tpu_torch.util.carry import carry_block\n"
-        "assert set(par.__all__) == {'Mesh', 'ShardedDiffusion', "
-        "'ShardedGeneralMG', 'ShardedMG', 'ShardedVarCoeffMG', "
-        "'ensemble_states', 'ensemble_step', 'factor_devices', "
-        "'halo_exchange', 'make_mesh', 'make_sharded_mg'}\n"
+        "assert set(par.__all__) == {'Mesh', 'ShardedAdvection', "
+        "'ShardedBurgers', 'ShardedCompressible', 'ShardedDiffusion', "
+        "'ShardedGeneralMG', 'ShardedMG', 'ShardedSWE', 'ShardedSim', "
+        "'ShardedVarCoeffMG', 'ensemble_states', 'ensemble_step', "
+        "'factor_devices', 'halo_exchange', 'make_mesh', "
+        "'make_sharded_compressible_step', 'make_sharded_mg', "
+        "'make_sharded_particle_advance'}\n"
         "assert set(smk.launches) == {'mg_deep_smooth', 'mg_correct'}\n"
         "assert smk.SOURCE.name == 'mg_deep.cu' and smk._lib is None\n"
         "assert not dist.is_initialized()\n"

@@ -78,19 +78,23 @@ def _read_at(source, field):
 
 
 def test_parameter_arrays_match_the_sources_offsets():
-    """The CTU step's ints end with the spherical and problem flags and its
-    doubles with e_rate; the MOL ones add the well-balanced flag, and
-    e_rate after their own constants (euler_common.cuh's load_params)."""
+    """The CTU step's ints hold the spherical and problem flags, then the
+    four domain-edge flags (ctu_step.cu's step_params), and its doubles
+    end with e_rate; the MOL ones add the well-balanced flag, and e_rate
+    after their own constants (euler_common.cuh's load_params)."""
     assert _read_at("euler_common.cuh", "spherical") == [18]
     assert _read_at("euler_common.cuh", "problem") == [19]
     assert _read_at("euler_common.cuh", "well_balanced") == [20]
     assert _read_at("euler_common.cuh", "e_rate") == [19, 13]
+    for k, edge in enumerate(("xl", "xr", "yl", "yr")):
+        assert _read_at("ctu_step.cu", f"edge_{edge}") == [20 + k]
     sim = _sim("compressible", "heating")
     U = sim.cc_data.data
     ints, doubles, S = sim._step.kernel_args(U, 0.0, 1e-4,
                                              energy_rate(sim, U)[0])
-    assert len(ints) == 20 and len(doubles) == 14
+    assert len(ints) == 24 and len(doubles) == 14
     assert ints[11] == 1 and ints[18] == 0 and ints[19] == 1
+    assert ints[20:] == [1, 1, 1, 1]
     assert doubles[13] == 0.1
     for solver, kind in (("compressible_rk", "rk"),
                          ("compressible_fv4", "fv4")):

@@ -178,6 +178,42 @@ def diffusion(mesh, params, steps):
             "gathered": gathered if mesh.ix == mesh.iy == 0 else None}
 
 
+def sharded_hyperbolic(mesh, cases):
+    """Each case of the sharded hyperbolic tier run on this mesh: {"cls"
+    (a class of pyro2_tpu_torch.parallel), "problem", "params", "steps",
+    "dt" (None: the sharded CFL dt), "t0", "particles", "U0" (the global
+    initial interior, numpy: each rank starts from its block)}.  Every
+    rank returns, gathered: the blockwise initial state ("blockwise"),
+    the final state ("U"), the dts taken, and with particles the final
+    positions and `active`."""
+    from pyro2_tpu_torch import parallel
+
+    out = []
+    for case in cases:
+        sh = getattr(parallel, case["cls"])(_rp(case["params"]), mesh,
+                                            problem=case["problem"])
+        res = {"blockwise": sh.gather(sh.init_interior())}
+        U = carry_block(case["U0"], mesh, dtype=sh.dtype)
+        if case.get("particles"):
+            parts = sh.global_sim.particles
+            pos, active = parts.positions, parts.active
+            with_p = sh.build_step_with_particles(parts)
+        t, dts = case.get("t0", 0.0), []
+        for _ in range(case["steps"]):
+            dt = case["dt"] if case["dt"] is not None else sh.compute_dt(U)
+            if case.get("particles"):
+                U, pos, active = with_p(U, pos, active, t, dt)
+            else:
+                U = sh.step(U, t, dt)
+            t += dt
+            dts.append(dt)
+        res.update(U=sh.gather(U), dts=dts)
+        if case.get("particles"):
+            res.update(pos=pos, active=active)
+        out.append(res)
+    return out
+
+
 def several(mesh, jobs):
     """[program(mesh, *args) for each (name of a program here, args)]: one
     launch for many programs."""

@@ -235,9 +235,39 @@ Phases (any failure exits non-zero and prints no result line):
      10^4 grid particles for 20 steps (one k_ctu a step); each run's
      state (and positions and `active`) equal by bits to the serial
      Simulation's stepped with the same dts, with its ms/step;
+  5j. the sharded MOL tier and the solvers with inline sharded solves
+     (parallel/sharded_mol.py, sharded_incompressible.py,
+     sharded_burgers_viscous.py): k_rk, with each block's domain-edge
+     flags (ints 21..24), at every block of a 2x2 and a 1x4 split of rk
+     quad 1024^2 (HLLC, outflow, cvisc 0.1) and rk kh 1024^2 (periodic),
+     and k_fv4 the same way on acoustic_pulse 1024^2, in float64 and
+     float32, after 3 serial kernel steps: each block set up as that rank
+     is, its frame the window of the serial filled frame, its kernel
+     launched alone; the reassembled increments equal to the serial
+     kernel increment by bits, each block's kernel within 1e-12 / 1e-5 of
+     its plain stage with the same flags (of the increment scale, as
+     mol_check); then on parallel.make_mesh()'s 1x1 mesh in float32, every
+     count reset just before and read just after each run:
+     ShardedCompressibleRK quad 1024^2 for 20 steps (4 k_rk a step, no
+     other kernel), ShardedCompressibleFV4 acoustic_pulse 1024^2 for 20
+     (4 k_fv4 a step) and ShardedCompressibleSDC for 5 (9 a step), from
+     preevolve_interior (equal to the serial preevolve by bits), each
+     equal by bits to the serial Simulation stepped with the same dts;
+     ShardedIncompressible shear 1024^2 (preevolve + 10 steps),
+     ShardedIncompressibleViscous shear 1024^2 (preevolve + 5) and
+     ShardedBurgersViscous tophat 1024^2 (10 steps), launching
+     mg_deep_smooth, mg_correct and mg_core alone in the numbers
+     sharded_mg.stats' solves and cycles imply (2 and 1 per sharded level
+     a cycle, 1), against the serial float32 run with the same dts within
+     1e-3 of max(1, max|U|), and the same three at 256^2 in float64 for 3
+     steps against the serial float64 card run within 1e-11 (the serial
+     CFL dt before each step within 1e-11 of the sharded one); each run's
+     ms/step beside the serial run's;
   6. CUDA-event timing of each kernel and its plain version at the main
      paths' shapes (quad 1024^2; the sharded quad path's block step on
-     the 1x1 mesh and a 2x2 block with its seam flags; the 1024^2
+     the 1x1 mesh and a 2x2 block with its seam flags; the sharded rk
+     quad path's k_rk block step the same way (a 2x2 block is 512^2,
+     ints 22 and 24 zero); the 1024^2
      solves' levels, constant, vc and general; the rk quad and fv4
      acoustic_pulse 1024^2 increments;
      the swe quad 1024^2 step; the lm_atm stages on the 1024^2 bubble;
@@ -277,7 +307,8 @@ Phases (any failure exits non-zero and prints no result line):
      GeneralMG2d solves, 20 spherical advect steps, 5 sharded diffusion
      steps, 20 burgers, 5 burgers_viscous and 5 cavity steps, 10 steps
      of each phase 5i class on the 1x1 mesh (quad, swe quad, advection,
-     burgers), 20
+     burgers), 5 steps of each phase 5j class on the 1x1 mesh and, for
+     the three multigrid ones, 5 serial steps beside them, 20
      advection and 5 advection_weno smooth steps, and phase 5f's paths
      (10 CTU steps each, 3 rk and fv4 steps, 2 sdc steps): device time
      by kernel and the device's busy share of the wall time; phase 5g's
@@ -2821,6 +2852,301 @@ def hyper_block_timing(sh, bw, fp32):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 5j: the sharded MOL tier (parallel/sharded_mol.py: k_rk with the
+# block's domain-edge flags, k_fv4) and the solvers with inline sharded
+# multigrid solves (sharded_incompressible.py, sharded_burgers_viscous.py)
+# ---------------------------------------------------------------------------
+
+# the MOL seam checks' configurations, one stage increment at every block
+# of each split: (name, solver, problem, inputs)
+MOL_SEAM_CASES = (
+    ("rk_quad_hllc_outflow", "compressible_rk", "quad",
+     {"compressible.riemann": "HLLC", "compressible.cvisc": 0.1,
+      "mesh.xlboundary": "outflow", "mesh.xrboundary": "outflow",
+      "mesh.ylboundary": "outflow", "mesh.yrboundary": "outflow"}),
+    ("rk_kh_periodic", "compressible_rk", "kh", {}),
+    ("fv4_acoustic_pulse", "compressible_fv4", "acoustic_pulse", {}),
+)
+MOL_SHARDED = {"compressible_rk": "ShardedCompressibleRK",
+               "compressible_fv4": "ShardedCompressibleFV4",
+               "compressible_sdc": "ShardedCompressibleSDC"}
+
+
+def mol_seam_check(name, solver, problem, inputs, n, dtype, tol):
+    """The MOL stage increment at every block of a 2x2 and a 1x4 split of a
+    serial state on the card after 3 serial kernel steps (t > 0): each
+    block set up as parallel.sharded_mol sets up that rank (its solid and
+    domain-edge flags), its frame the window of the serial filled frame
+    (what the halo exchange leaves in it), its kernel (k_rk or k_fv4)
+    launched alone.  The reassembled increments must equal the serial
+    kernel increment by bits, and each block's kernel its plain stage with
+    the same flags within tol x the block's increment scale
+    (mol_kernel.increment_scale, max|F_x|/dx + max|F_y|/dy + max|S|: the
+    terms k cancels, the yardstick of mol_check; max|k| itself is what is
+    left after the cancellation, 0.3 against fluxes / dx of ~1e3 on kh).
+    Returns the worst block |diff|."""
+    import torch
+
+    from pyro2_tpu_torch import parallel
+    from pyro2_tpu_torch.parallel.mesh_comm import Mesh
+    from pyro2_tpu_torch.solvers.compressible_fv4 import mol_kernel
+
+    sim = mol_sim(solver, problem, inputs, None, n, n, dtype)
+    for _ in range(3):
+        sim.cc_data.fill_BC_all()
+        sim.compute_timestep()
+        sim.evolve()
+    sim.cc_data.fill_BC_all()
+    sim.compute_timestep()
+    U, t, dt = sim.cc_data.data, sim.cc_data.t, sim.dt
+    g = sim.cc_data.grid
+    serial = interior(sim._step.launch(U, t, dt), g)
+    cls = getattr(parallel, MOL_SHARDED[solver])
+    worst = 0.0
+    for px, py in SEAM_SPLITS:
+        bx, by = n // px, n // py
+        got = torch.empty_like(serial)
+        rel = 0.0
+        for ix in range(px):
+            for iy in range(py):
+                sh = cls(sim.rp, Mesh((px, py), "cuda", (ix, iy)),
+                         problem=problem, dtype=dtype)
+                frame = U[:, ix * bx:(ix + 1) * bx + 2 * g.ng,
+                          iy * by:(iy + 1) * by + 2 * g.ng].contiguous()
+                step, lg = sh._block_step, sh.local_grid
+                k = interior(step.launch(frame, t, dt), lg)
+                p = interior(step.plain(frame, t, dt), lg)
+                got[:, ix * bx:(ix + 1) * bx, iy * by:(iy + 1) * by] = k
+                err = float((k - p).abs().max())
+                scale = mol_kernel.increment_scale(sh.local_sim, step.kind,
+                                                   frame, t, dt)
+                if not bool(torch.isfinite(k).all()) or err > tol * scale:
+                    raise AssertionError(
+                        f"{name} {px}x{py} block ({ix}, {iy}): the kernel "
+                        f"is {err:.3e} off its plain stage (tol {tol:g} x "
+                        f"{scale:.3e})")
+                worst = max(worst, err)
+                rel = max(rel, err / scale)
+                edges = sh.local_sim.domain_edges.flags()
+        torch.cuda.synchronize()
+        bits = torch.equal(got, serial)
+        log(f"  {'ok ' if bits else 'BAD'} {name:22s} {n}x{n} "
+            f"{str(U.dtype)[6:]:8s} {px}x{py}: block increments equal to "
+            f"the serial kernel increment by bits: {bits}; worst block "
+            f"kernel against its plain stage {rel:.3e} x the increment "
+            f"scale (tol "
+            f"{tol:g}); t = {t:.6g}; last block's edges {edges}, kernel "
+            f"ints 21..24 {step.kernel_args(frame, dt)[0][21:]}")
+        if not bits:
+            raise AssertionError(f"{name} {px}x{py}: the blocks' stage "
+                                 "increments differ from the serial one")
+    return worst
+
+
+def mol_sharded_path(solver, problem, n, steps, kernel, per_step, smi,
+                     inputs=None):
+    """parallel.ShardedCompressible{RK,FV4,SDC} on make_mesh()'s 1 x 1 mesh,
+    CUDA float32, for `steps` steps at the sharded CFL dt (Mesh.pmin), every
+    launch count reset just before and read just after: `per_step`
+    launches of `kernel` a step and no other.  fv4 and sdc start from
+    preevolve_interior, which must equal the serial preevolve by bits.
+    Then the serial Simulation (Pyro's) stepped with the same dts, whose
+    state it must equal by bits, and its ms/step.  Returns (sharded
+    object, seconds, launches, a one-step function, serial seconds,
+    pyro)."""
+    import torch
+
+    from pyro2_tpu_torch import Pyro, parallel
+
+    p = Pyro(solver)                    # default device: CUDA, float32
+    p.initialize_problem(problem, inputs_dict={
+        "mesh.nx": n, "mesh.ny": n, "driver.max_steps": steps,
+        "driver.tmax": 1.0e30, **(inputs or {})})
+    sim = p.sim
+    g = sim.cc_data.grid
+    sh = getattr(parallel, MOL_SHARDED[solver])(
+        sim.rp, parallel.make_mesh(), problem=problem, dtype=sim.dtype)
+    U = sh.init_interior()
+    if hasattr(sh, "preevolve_interior"):
+        U = sh.preevolve_interior(U)
+    if U.dtype != torch.float32 or not U.is_cuda or \
+            not torch.equal(U, interior(sim.cc_data.data, g)):
+        raise AssertionError(f"{solver} {problem}: the sharded initial "
+                             "state is not the serial one on the card")
+    carry = [U, 0.0]
+
+    def one_step():
+        dt = sh.compute_dt(carry[0])
+        carry[0] = sh.step(carry[0], carry[1], dt)
+        carry[1] += dt
+        return dt
+
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    dts = [one_step() for _ in range(steps)]
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launched = {k: v for k, v in all_counts().items() if v}
+    if launched != {kernel: per_step * steps}:
+        raise AssertionError(f"sharded {solver} {problem}: launched "
+                             f"{launched}, expected {per_step * steps} "
+                             f"{kernel}")
+    sim.cc_data.t = 0.0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for dt in dts:
+        sim.cc_data.fill_BC_all()
+        sim.dt = dt
+        sim.evolve()
+    torch.cuda.synchronize()
+    serial_s = time.perf_counter() - t0
+    same = torch.equal(carry[0], interior(sim.cc_data.data, g))
+    finite = bool(torch.isfinite(carry[0]).all())
+    log(f"  {'ok ' if same and finite else 'BAD'} {MOL_SHARDED[solver]} "
+        f"{problem} {n}x{n} f32, 1x1 mesh: {steps} steps in {seconds:.3f} "
+        f"s, {1e3 * seconds / steps:.3f} ms/step (the serial run with the "
+        f"same dts {1e3 * serial_s / steps:.3f} ms/step), launches "
+        f"{launched}; equal to the serial run by bits: {same}; t = "
+        f"{carry[1]:.6g} [{smi}]")
+    if not same or not finite:
+        raise AssertionError(f"sharded {solver} {problem}: the sharded run "
+                             "is not the serial run")
+    return sh, seconds, launched, one_step, serial_s, p
+
+
+# the solvers with inline sharded solves: (class, solver, problem, the
+# multigrid solves of the preevolve, and of a step)
+MG_SHARDED = (
+    ("ShardedIncompressible", "incompressible", "shear", 3, 2),
+    ("ShardedIncompressibleViscous", "incompressible_viscous", "shear", 5,
+     4),
+    ("ShardedBurgersViscous", "burgers_viscous", "tophat", 0, 2),
+)
+
+
+def mg_sharded_path(cls_name, solver, problem, pre_solves, step_solves, n,
+                    steps, dtype, tol, smi):
+    """parallel.<cls_name> on make_mesh()'s 1 x 1 mesh on the card in
+    `dtype`: its preevolve (where the solver has one) and `steps` steps at
+    its CFL dt (Mesh.pmax), every count reset just before and read just
+    after: mg_deep_smooth, mg_correct and mg_core alone, in the numbers
+    sharded_mg.stats' solves and cycles imply.  Then the serial Simulation
+    (Pyro's, preevolved at its initialization) stepped with the same dts:
+    the states within tol x max(1, max|U|), and the serial CFL dt before
+    each step within tol of the sharded one.  Returns (sharded object,
+    seconds, launches, a one-step function, serial seconds, pyro, the
+    |diff| / scale)."""
+    import torch
+
+    from pyro2_tpu_torch import Pyro, parallel
+    from pyro2_tpu_torch.parallel import sharded_mg
+
+    p = Pyro(solver, dtype=dtype)       # default device: CUDA
+    p.initialize_problem(problem, inputs_dict={
+        "mesh.nx": n, "mesh.ny": n, "driver.max_steps": steps,
+        "driver.tmax": 1.0e30})
+    sim = p.sim
+    g = sim.cc_data.grid
+    sh = getattr(parallel, cls_name)(sim.rp, parallel.make_mesh(),
+                                     problem=problem, dtype=dtype)
+    if sh.U_int.dtype != dtype or not sh.U_int.is_cuda:
+        raise AssertionError(f"{cls_name}: the state is not {dtype} on the "
+                             "card")
+
+    def one_step():
+        sh.method_compute_timestep()
+        sh.evolve()
+        return sh.dt
+
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    if pre_solves:
+        sh.preevolve()
+    dts = [one_step() for _ in range(steps)]
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launched = {k: v for k, v in all_counts().items() if v}
+    stats = dict(sharded_mg.stats)
+    levels = sh.smg.nlevels - sh.smg.k_cross
+    cycles = stats["cycles"]
+    expect = {"mg_deep_smooth": 2 * levels * cycles,
+              "mg_correct": levels * cycles, "mg_core": cycles}
+    solves = pre_solves + step_solves * steps
+    if launched != expect or stats["solves"] != solves:
+        raise AssertionError(
+            f"{cls_name}: launched {launched} in {stats['solves']} solves "
+            f"and {cycles} cycles of {levels} sharded levels; expected "
+            f"{expect} in {solves} solves")
+    sim.cc_data.t = 0.0
+    worst_dt = 0.0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for dt in dts:
+        sim.cc_data.fill_BC_all()
+        sim.method_compute_timestep()
+        worst_dt = max(worst_dt, abs(sim.dt - dt) / dt)
+        sim.dt = dt
+        sim.evolve()
+    torch.cuda.synchronize()
+    serial_s = time.perf_counter() - t0
+    ref = interior(sim.cc_data.data, g)
+    scale = max(1.0, float(ref.abs().max()))
+    err = float((sh.U_int - ref).abs().max()) / scale
+    finite = bool(torch.isfinite(sh.U_int).all())
+    ok = finite and err <= tol and worst_dt <= tol
+    log(f"  {'ok ' if ok else 'BAD'} {cls_name} {problem} {n}x{n} "
+        f"{str(dtype)[6:]}, 1x1 mesh: {'preevolve + ' if pre_solves else ''}"
+        f"{steps} steps in {seconds:.3f} s, {1e3 * seconds / steps:.3f} "
+        f"ms/step{' with the preevolve' if pre_solves else ''} (the serial "
+        f"run's steps "
+        f"{1e3 * serial_s / steps:.3f} ms/step); {stats['solves']} solves, "
+        f"{cycles} cycles ({cycles / stats['solves']:.2f} per solve), "
+        f"{levels} sharded levels above a {2 ** sh.smg.k_cross}^2 core; "
+        f"launches {launched}; against the serial run with the same dts: "
+        f"|diff| {err:.3e} x max(1, max|U|) (tol {tol:g}), serial CFL dt "
+        f"within {worst_dt:.3e} of the sharded one [{smi}]")
+    if not ok:
+        raise AssertionError(f"{cls_name}: the sharded run is not the "
+                             "serial run")
+    return sh, seconds, launched, one_step, serial_s, p, err
+
+
+def mol_block_timing(sh, bw, fp32):
+    """CUDA-event ms of the sharded rk quad path's block step (k_rk through
+    the block's MOLSubstep; on the 1x1 mesh every edge is a domain edge)
+    against its plain stage, beside its bound; then block (0, 0) of a 2x2
+    split of the same frame, whose high edges are seams (k_rk's ints 22
+    and 24 are 0).  Returns the 1x1 block's (ms, plain ms, bound ms, bound
+    by)."""
+    import torch
+
+    from pyro2_tpu_torch.parallel import ShardedCompressibleRK
+    from pyro2_tpu_torch.parallel.mesh_comm import Mesh
+    from pyro2_tpu_torch.solvers.compressible_fv4 import mol_kernel
+
+    U_int = sh.init_interior()
+    dt = sh.compute_dt(U_int)
+    frame = sh._padded(U_int, 0.0)
+    out = None
+    for blk in (sh, ShardedCompressibleRK(sh.rp, Mesh((2, 2), "cuda",
+                                                      (0, 0)),
+                                          problem=sh.problem)):
+        g, step = blk.local_grid, blk._block_step
+        f = frame[:, :g.qx, :g.qy].contiguous()
+        times = time_pair(
+            f"mol_rk sharded block (quad {g.nx}x{g.ny} of a "
+            f"{blk.px}x{blk.py} mesh, edges "
+            f"{blk.local_sim.domain_edges.flags()})",
+            lambda: step.launch(f, 0.0, dt), lambda: step.plain(f, 0.0, dt),
+            mol_kernel.work("rk", g.nx, g.ny, blk.nvar, torch.float32), bw,
+            fp32)
+        out = out or times
+    return out
+
+
 def time_pair(name, kern, plain, work, bw, fp32):
     """CUDA-event ms of a kernel and its plain version (plain, kernel,
     kernel, plain), beside the kernel's bound; returns (ms, plain ms,
@@ -4560,10 +4886,58 @@ def main():
     torch.cuda.empty_cache()
     log(f"  phase 5i in {time.perf_counter() - t5i:.1f} s")
 
+    # 5j. the sharded MOL tier and the solvers with inline sharded solves:
+    # the stage increments at every block of a split, and the classes on
+    # the 1x1 mesh
+    t5j = time.perf_counter()
+    log(f"[phase 5j: k_rk (with the blocks' domain-edge flags) and k_fv4 at "
+        f"every block of a 2x2 and a 1x4 split, each block's frame from one "
+        f"global array, against the serial kernel increment (bits) and the "
+        f"plain block stage; {smi}]")
+    mol_seam_err = {}
+    for dtype, tol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
+        for name, solver, problem, inputs in MOL_SEAM_CASES:
+            err = mol_seam_check(name, solver, problem, inputs, 1024, dtype,
+                                 tol)
+            if dtype == torch.float32:
+                mol_seam_err[name] = err
+        torch.cuda.empty_cache()
+    log(f"[phase 5j: the sharded MOL tier on make_mesh()'s 1x1 mesh, CUDA "
+        f"float32; {smi}]")
+    mol_sh = {}
+    for label, args in (
+            ("rk", ("compressible_rk", "quad", 1024, 20, "mol_rk", 4, smi,
+                    MOL_SEAM_CASES[0][3])),
+            ("fv4", ("compressible_fv4", "acoustic_pulse", 1024, 20,
+                     "mol_fv4", 4, smi)),
+            ("sdc", ("compressible_sdc", "acoustic_pulse", 1024, 5,
+                     "mol_fv4", 9, smi))):
+        mol_sh[label] = mol_sharded_path(*args)
+    torch.cuda.empty_cache()
+    log(f"[phase 5j: the solvers with inline sharded solves on the 1x1 "
+        f"mesh: f32 at 1024^2 against the serial f32 run, f64 at 256^2 "
+        f"against the serial f64 card run; {smi}]")
+    mg_sh = {}
+    for (cls_name, solver, problem, pre, per_step), steps in zip(
+            MG_SHARDED, (10, 5, 10)):
+        mg_sh[cls_name] = mg_sharded_path(cls_name, solver, problem, pre,
+                                          per_step, 1024, steps,
+                                          torch.float32, 1e-3, smi)
+        torch.cuda.empty_cache()
+    for cls_name, solver, problem, pre, per_step in MG_SHARDED:
+        mg_sharded_path(cls_name, solver, problem, pre, per_step, 256, 3,
+                        torch.float64, 1e-11, smi)
+    torch.cuda.empty_cache()
+    log(f"  phase 5j in {time.perf_counter() - t5j:.1f} s")
+
     # 6. timing at the main paths' shapes
     log(f"[timing: the sharded block step, quad 1024^2 float32 on the 1x1 "
         f"mesh and a 2x2 block with its seam flags, CUDA events; {smi}]")
     hyper_times = hyper_block_timing(hyper["quad"][0], bw, fp32)
+    log(f"[timing: the sharded rk block step, quad 1024^2 float32 on the 1x1 "
+        f"mesh and a 2x2 block (512^2) with its seam flags, CUDA events; "
+        f"{smi}]")
+    mol_sh_times = mol_block_timing(mol_sh["rk"][0], bw, fp32)
 
     log("[timing: quad 1024^2 float32, CUDA events]")
     sim = p.sim
@@ -4805,6 +5179,18 @@ def main():
                       f"{what} 1024^2 float32, 1x1 mesh [{smi}]")
     profile_steps(advect["advection_weno"].single_step, 5,
                   "advection_weno smooth 1024^2 float32")
+    for label, what in (("rk", "ShardedCompressibleRK quad"),
+                        ("fv4", "ShardedCompressibleFV4 acoustic_pulse"),
+                        ("sdc", "ShardedCompressibleSDC acoustic_pulse")):
+        profile_steps(mol_sh[label][3], 5,
+                      f"{what} 1024^2 float32, 1x1 mesh [{smi}]")
+    for cls_name, solver, problem, _, _ in MG_SHARDED:
+        profile_steps(mg_sh[cls_name][3], 5,
+                      f"{cls_name} {problem} 1024^2 float32, 1x1 mesh "
+                      f"[{smi}]")
+        profile_steps(mg_sh[cls_name][5].single_step, 5,
+                      f"{solver} {problem} 1024^2 float32, serial "
+                      f"(Pyro.single_step) [{smi}]")
     for label, (pp, _, _) in src_paths.items():
         g = pp.sim.cc_data.grid
         profile_steps(pp.single_step, 10,
@@ -5008,6 +5394,20 @@ def main():
         "replaces": "pyro2_tpu/solvers/compressible/pallas_step.py:603",
         "launches": hyper["quad"][2]["ctu_step"],
         "max_abs_err": seam_err["quad_hllc_outflow"],
+        "ms": ms,
+        "plain_ms": p_ms,
+        "bound_ms": b_ms,
+        "bound_by": b_by,
+        "library_ms": None,
+    })
+    ms, p_ms, b_ms, b_by = mol_sh_times
+    kernels.append({
+        "name": "mol_rk_sharded",
+        "route": "cuda",
+        "source": "pyro2_tpu_torch/csrc/mol_substep.cu",
+        "replaces": "pyro2_tpu/solvers/compressible_fv4/pallas_step.py:92",
+        "launches": mol_sh["rk"][2]["mol_rk"],
+        "max_abs_err": mol_seam_err["rk_quad_hllc_outflow"],
         "ms": ms,
         "plain_ms": p_ms,
         "bound_ms": b_ms,

@@ -33,9 +33,10 @@ struct Params {
   int limiter;  // 0 none, 1 2nd-order MC, otherwise 4th-order MC
   int flatten, with_sources, do_sponge, has_floor;
   int solid_xl, solid_xr, solid_yl, solid_yr;
-  // the domain-edge flags of the CTU step's artificial viscosity: 1 where
-  // the frame's edge is the domain's boundary (no viscosity on its high
-  // face), 0 on a sharded block's seam (the face takes it from the halo)
+  // the domain-edge flags of the CTU step's and the rk stage's artificial
+  // viscosity: 1 where the frame's edge is the domain's boundary (no
+  // viscosity on its high face), 0 on a sharded block's seam (the face
+  // takes it from the halo)
   int edge_xl, edge_xr, edge_yl, edge_yr;
   int spherical;  // SphericalPolar geometry
   // a problem's energy source rho e_rate w(x, y), w a plane in device
@@ -548,8 +549,9 @@ inline Params load_params(const int* ip, const double* dp, bool mol) {
   p.solid_xr = ip[15];
   p.solid_yl = ip[16];
   p.solid_yr = ip[17];
-  // every edge a domain edge; the CTU step's single-state entries read
-  // the flags (ctu_step.cu step_params)
+  // every edge a domain edge; the CTU step's single-state entries and the
+  // rk entries read the flags (ctu_step.cu step_params, mol_substep.cu
+  // rk_params)
   p.edge_xl = p.edge_xr = p.edge_yl = p.edge_yr = 1;
   p.dx = dp[0];
   p.dy = dp[1];

@@ -763,9 +763,10 @@ __device__ __forceinline__ void rk_states(const FixedParams<NV>& p,
 // divergence reads (x faces i in [ilo, ihi+1], j in [jlo, jhi]; y faces the
 // transpose) from the states of the cells on either side, plus the
 // Colella-Woodward artificial viscosity from the primitives' vertex
-// divergence and the floored state (not on the last face), into FO; on a
-// SphericalPolar grid (X) the spherical vertex divergence, and Ly across
-// the y faces
+// divergence and the floored state (not on the last face where it is the
+// domain's edge; a seam's last face, edge flag 0, takes it from the halo),
+// into FO; on a SphericalPolar grid (X) the spherical vertex divergence,
+// and Ly across the y faces
 template <typename T, int NV, int D, bool X>
 __device__ __forceinline__ void rk_flux(const FixedParams<NV>& p,
                                         const RkBoxes& b,
@@ -793,7 +794,7 @@ __device__ __forceinline__ void rk_flux(const FixedParams<NV>& p,
       ur[n] = ST[n * cs + cr];
     }
     riemann(p, D, ul, ur, i, j, f);
-    if (D == 1 ? i <= ihi(p) : j <= jhi(p)) {
+    if (D == 1 ? i <= ihi(p) || !p.edge_xr : j <= jhi(p) || !p.edge_yr) {
       auto vdiv = [&](int a, int c) -> T {
         if constexpr (X) {
           if (p.spherical) return sph_vertex_div<T>(p, u, v, g, a, c);
@@ -1010,11 +1011,22 @@ int rk_by_nvar(const T* U, const T* G, const T* W, T* K, const Params& p,
   return (int)cudaErrorInvalidValue;
 }
 
+// the rk entries' parameter block: the shared layout, then the four
+// domain-edge flags of the artificial viscosity (MOLSubstep's ints 21..24)
+inline Params rk_params(const int* ip, const double* dp) {
+  Params p = load_params(ip, dp, true);
+  p.edge_xl = ip[21];
+  p.edge_xr = ip[22];
+  p.edge_yl = ip[23];
+  p.edge_yr = ip[24];
+  return p;
+}
+
 template <typename T>
 int run_rk(const T* U, const T* G, const T* W, T* K, const int* ip,
            const double* dp, const int* tp, cudaStream_t st) {
   static_assert(MAXVAR == 8, "run_rk instantiates 4..8 variables");
-  const Params p = load_params(ip, dp, true);
+  const Params p = rk_params(ip, dp);
   if (int e = check_params(p)) return e;
   if (p.idens != 0 || p.iener != 1 || p.ixmom != 2 || p.iymom != 3)
     return (int)cudaErrorInvalidValue;

@@ -13,9 +13,9 @@ with `dist.new_group`, in the same order.  The JAX primitives map as:
   * a tiled `all_gather`: `all_gather_into_tensor` in the subgroup
     (`Mesh.all_gather`);
   * `psum` over x then y: `all_reduce` in each subgroup (`Mesh.psum`);
-  * `pmin` over x then y: a MIN `all_reduce` in each subgroup
-    (`Mesh.pmin`), exact, so a sharded CFL dt is the serial global
-    minimum.
+  * `pmin` / `pmax` over x then y: a MIN / MAX `all_reduce` in each
+    subgroup (`Mesh.pmin`, `Mesh.pmax`), exact, so a sharded CFL dt is
+    the serial global one.
 
 An axis with one block does no communication, as the JAX functions skip
 it.  `make_mesh()` without a process group returns a 1 x 1 mesh on the
@@ -116,6 +116,10 @@ class Mesh:
     def pmin(self, t):
         """The minimum of t over every block: over x, then over y."""
         return self._reduce(t, dist.ReduceOp.MIN)
+
+    def pmax(self, t):
+        """The maximum of t over every block: over x, then over y."""
+        return self._reduce(t, dist.ReduceOp.MAX)
 
     def _reduce(self, t, op):
         t = t.clone()

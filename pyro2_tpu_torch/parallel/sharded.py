@@ -46,7 +46,10 @@ kernel's geometry buffer (ctu_kernel.geometry of the block grid).
 The block step on CUDA is the block-local Simulation's kernel wrapper:
 `CTUStep` (`k_ctu`, with the block's solid and edge flags, row 1 of
 PERF.md section 6) or `SWEStep` (`k_swe`, row 5), one launch a rank a
-step through the host-dt entry.  It launches or raises.  Two JAX routes
+step through the host-dt entry; for the method-of-lines solvers, whose
+stage loops sharded_mol.py runs on this class, it is the stage increment
+`MOLSubstep` (`k_rk` with the block's solid and edge flags, or `k_fv4`;
+rows 6a and 6b).  It launches or raises.  Two JAX routes
 are not carried over: the TPU `try`/`except` that falls back to the jnp
 block step when the fused kernel fails to build (a CUDA failure here
 raises), and `_build_fused`, the second route through the periodic-frame
@@ -109,7 +112,8 @@ class ShardedSim:
     exchange replaces the serial ghost fill.  States are this rank's
     (nvar, bx, by) block of the interior."""
 
-    _SOLVERS = ("compressible", "swe")
+    _SOLVERS = ("compressible", "swe", "compressible_rk",
+                "compressible_fv4", "compressible_sdc")
 
     def __init__(self, solver, rp, mesh, *, problem="test", ng=4,
                  overlap=False, dtype=None):
@@ -133,31 +137,13 @@ class ShardedSim:
 
         self.mesh = mesh
         self.px, self.py = mesh.px, mesh.py
-        nx = rp.get_param("mesh.nx")
-        ny = rp.get_param("mesh.ny")
-        if nx % self.px != 0 or ny % self.py != 0:
-            raise ValueError("grid must divide evenly over the device mesh")
-        self.nx, self.ny = nx, ny
-        bx, by = nx // self.px, ny // self.py
+        self.nx, self.ny = rp.get_param("mesh.nx"), rp.get_param("mesh.ny")
 
         # the block-local simulation whose step runs on each block.  Its
         # problem init is a no-op (the initial state is made block by
-        # block), and its grid becomes this rank's block grid below.  It
-        # builds no particles: the global ones are replicated
-        # (build_step_with_particles), and a random set would draw from
-        # numpy's global generator
-        local_rp = _clone_rp(rp)
-        local_rp.set_param("mesh.nx", bx)
-        local_rp.set_param("mesh.ny", by)
-        xmin = rp.get_param("mesh.xmin")
-        xmax = rp.get_param("mesh.xmax")
-        ymin = rp.get_param("mesh.ymin")
-        ymax = rp.get_param("mesh.ymax")
-        local_rp.set_param("mesh.xmax", xmin + (xmax - xmin) * bx / nx)
-        local_rp.set_param("mesh.ymax", ymin + (ymax - ymin) * by / ny)
-        local_rp.set_param("particles.do_particles", 0, no_new=False)
+        # block), and its grid becomes this rank's block grid below
         self.local_sim = self._solver_mod.Simulation(
-            solver, problem, lambda d, r: None, local_rp,
+            solver, problem, lambda d, r: None, block_params(rp, mesh),
             device=mesh.device, dtype=dtype)
         self.local_sim.initialize(ng=ng)
         self.dtype = self.local_sim.dtype
@@ -225,12 +211,14 @@ class ShardedSim:
         self._floor_mask = self._seam_floor_mask()
 
         # the block step, built with the block's flags and geometry: the
-        # kernel wrapper, which runs the plain step for CPU tensors
-        if solver == "compressible":
-            self._block_step = self.local_sim._make_kernel_step()
-        else:
+        # kernel wrapper (CTUStep, or MOLSubstep's stage increment for the
+        # method-of-lines solvers), which runs the plain step for CPU
+        # tensors
+        if solver == "swe":
             from pyro2_tpu_torch.solvers.swe.swe_kernel import SWEStep
             self._block_step = SWEStep(self.local_sim)
+        else:
+            self._block_step = self.local_sim._make_kernel_step()
         self.local_sim._step = self._block_step
         self._dt_fn = self.local_sim._make_dt()
         self._global_sim = None
@@ -301,7 +289,7 @@ class ShardedSim:
         global interior, seam halos included (the serial grid floors them
         as interior cells; the block step floors its own interior), or
         None without a positive floor."""
-        if self.solver != "compressible":
+        if self.solver == "swe":
             return None
         small_dens = self.rp.get_param("compressible.small_dens")
         if not small_dens > torch.finfo(self.dtype).min:
@@ -320,15 +308,21 @@ class ShardedSim:
 
     def _step_input(self, U_int, t):
         """The padded block the block step takes: filled, and with the
-        density floor on the seam halos (in place; the step floors its
-        interior again, which changes nothing)."""
-        U = self._padded(U_int, t)
-        if self._floor_mask is not None:
-            iv = self.local_sim.ivars
-            floor = self.rp.get_param("compressible.small_dens")
-            U[iv.idens] = torch.where(self._floor_mask,
-                                      U[iv.idens].clamp_min(floor),
-                                      U[iv.idens])
+        density floor on the seam halos."""
+        return self._floor_seams(self._padded(U_int, t))
+
+    def _floor_seams(self, U):
+        """A filled padded block with the density floor on the seam halos
+        (a copy; U itself without a positive floor).  The block step
+        floors its interior again, which changes nothing."""
+        if self._floor_mask is None:
+            return U
+        iv = self.local_sim.ivars
+        floor = self.rp.get_param("compressible.small_dens")
+        U = U.clone()
+        U[iv.idens] = torch.where(self._floor_mask,
+                                  U[iv.idens].clamp_min(floor),
+                                  U[iv.idens])
         return U
 
     def _interior(self, U):
@@ -424,11 +418,28 @@ class ShardedSWE(ShardedSim):
                          overlap=overlap, dtype=dtype)
 
 
-def _clone_rp(rp):
-    new = RuntimeParameters()
-    new.params = dict(rp.params)
-    new.param_comments = dict(rp.param_comments)
-    return new
+def block_params(rp, mesh):
+    """The runtime parameters of this rank's block-local Simulation: a copy
+    of rp with the block's shape, the domain's low corner and the block's
+    extent from it (adopt_block_grid then gives the block grid the global
+    spacing and coordinates), and no particles (the global ones are
+    replicated; a random set would draw from numpy's global generator).
+    Raises ValueError if the grid does not divide over the mesh."""
+    nx, ny = rp.get_param("mesh.nx"), rp.get_param("mesh.ny")
+    if nx % mesh.px != 0 or ny % mesh.py != 0:
+        raise ValueError("grid must divide evenly over the device mesh")
+    bx, by = nx // mesh.px, ny // mesh.py
+    local_rp = RuntimeParameters()
+    local_rp.params = dict(rp.params)
+    local_rp.param_comments = dict(rp.param_comments)
+    local_rp.set_param("mesh.nx", bx)
+    local_rp.set_param("mesh.ny", by)
+    xmin, xmax = rp.get_param("mesh.xmin"), rp.get_param("mesh.xmax")
+    ymin, ymax = rp.get_param("mesh.ymin"), rp.get_param("mesh.ymax")
+    local_rp.set_param("mesh.xmax", xmin + (xmax - xmin) * bx / nx)
+    local_rp.set_param("mesh.ymax", ymin + (ymax - ymin) * by / ny)
+    local_rp.set_param("particles.do_particles", 0, no_new=False)
+    return local_rp
 
 
 def make_sharded_compressible_step(rp, mesh, *, problem="test", ng=4,

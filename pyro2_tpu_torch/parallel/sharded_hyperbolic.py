@@ -20,7 +20,7 @@ from pyro2_tpu_torch.parallel.blocks import (adopt_block_grid,
                                              blockwise_init_interior,
                                              gather_interior)
 from pyro2_tpu_torch.parallel.mesh_comm import halo_exchange_stack
-from pyro2_tpu_torch.parallel.sharded import _clone_rp
+from pyro2_tpu_torch.parallel.sharded import block_params
 
 __all__ = ["ShardedAdvection", "ShardedBurgers"]
 
@@ -36,12 +36,7 @@ class _ShardedScalar:
         self.mesh = mesh
         self.px, self.py = mesh.px, mesh.py
         self.rp = rp
-        nx = rp.get_param("mesh.nx")
-        ny = rp.get_param("mesh.ny")
-        if nx % self.px != 0 or ny % self.py != 0:
-            raise ValueError("grid must divide evenly over the device mesh")
-        self.nx, self.ny = nx, ny
-        bx, by = nx // self.px, ny // self.py
+        self.nx, self.ny = rp.get_param("mesh.nx"), rp.get_param("mesh.ny")
 
         solver_mod = importlib.import_module(
             f"pyro2_tpu_torch.solvers.{self._SOLVER}")
@@ -52,18 +47,8 @@ class _ShardedScalar:
             if k not in rp.params:
                 rp.set_param(k, v, no_new=False)
 
-        local_rp = _clone_rp(rp)
-        local_rp.set_param("mesh.nx", bx)
-        local_rp.set_param("mesh.ny", by)
-        xmin = rp.get_param("mesh.xmin")
-        xmax = rp.get_param("mesh.xmax")
-        ymin = rp.get_param("mesh.ymin")
-        ymax = rp.get_param("mesh.ymax")
-        local_rp.set_param("mesh.xmax", xmin + (xmax - xmin) * bx / nx)
-        local_rp.set_param("mesh.ymax", ymin + (ymax - ymin) * by / ny)
-        local_rp.set_param("particles.do_particles", 0, no_new=False)
         self.local_sim = solver_mod.Simulation(
-            self._SOLVER, problem, lambda d, r: None, local_rp,
+            self._SOLVER, problem, lambda d, r: None, block_params(rp, mesh),
             device=mesh.device, dtype=dtype)
         self.local_sim.initialize()
         self.dtype = self.local_sim.dtype

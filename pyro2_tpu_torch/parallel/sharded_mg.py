@@ -70,8 +70,9 @@ _SUPPORTED_BCS = frozenset(
     ["outflow", "neumann", "dirichlet", "reflect-odd", "reflect-even",
      "periodic"])
 
-# solves and V-cycles run since the counts were last reset (read by
-# chip_smoke.py beside the kernels' launch counts)
+# solves (solve_local calls, `solve`'s and the solver tiers' inline ones)
+# and V-cycles run since the counts were last reset (read by chip_smoke.py
+# beside the kernels' launch counts)
 stats = {"solves": 0, "cycles": 0}
 
 _A20 = ("the plain sharded multigrid cycle on CUDA waits for a later slice "
@@ -615,6 +616,8 @@ class ShardedMG:
                       f"residual err = {new}")
             v, r, res = v2, r2, new
             cycle += 1
+        stats["solves"] += 1
+        stats["cycles"] += cycle - 1
         return v, r, res, rel, cycle - 1
 
     def solve(self, rtol=1.e-11):
@@ -628,8 +631,6 @@ class ShardedMG:
         self.num_cycles = ncyc
         self.residual_error = res
         self.relative_error = rel
-        stats["solves"] += 1
-        stats["cycles"] += ncyc
 
 
 def make_sharded_mg(*args, **kwargs):

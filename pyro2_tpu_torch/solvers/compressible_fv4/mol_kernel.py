@@ -361,7 +361,8 @@ def increment_scale(sim, kind, U, t, dt):
 
     if kind == "rk":
         from pyro2_tpu_torch.solvers.compressible_rk import fluxes
-        F_x, F_y = fluxes.fluxes(U, _Data(), rp, ivars, sim.solid, sim.tc)
+        F_x, F_y = fluxes.fluxes(U, _Data(), rp, ivars, sim.solid, sim.tc,
+                                 sim.domain_edges.flags())
         S = get_external_sources(t, dt, U, ivars, rp, myg, problem_source=ps)
     else:
         from pyro2_tpu_torch.mesh.fv import to_centers_array
@@ -426,7 +427,12 @@ class MOLSubstep:
                       0,  # has_floor, set per dtype
                       *walls,
                       int(self.spherical), int(self.problem),
-                      int(well_balanced)]
+                      int(well_balanced),
+                      # rk's viscosity: the domain-edge flags (all 1 on a
+                      # serial grid, 0 on a sharded block's seams); the fv4
+                      # pipeline reads none
+                      *((int(e) for e in sim.domain_edges.flags())
+                        if kind == "rk" else (0, 0, 0, 0))]
         # the host-side constants are rounded in double, as the plain
         # version's Python floats are
         self._doubles = [myg.dx, myg.dy, 0.0,  # dt, set per call

@@ -16,8 +16,11 @@ from pyro2_tpu_torch.solvers.compressible import riemann
 __all__ = ["fluxes"]
 
 
-def fluxes(U, my_data, rp, ivars, solid, tc):
-    """(F_x, F_y) through all interfaces from one unsplit reconstruction."""
+def fluxes(U, my_data, rp, ivars, solid, tc, edges=(1, 1, 1, 1)):
+    """(F_x, F_y) through all interfaces from one unsplit reconstruction.
+    `edges` are the grid's domain-edge flags (xl, xr, yl, yr) of the
+    artificial viscosity (compressible/simulation.py DomainEdges): all 1
+    on a serial grid, 0 on a sharded block's seams."""
     from pyro2_tpu_torch.solvers.compressible import simulation as comp
 
     tm_flux = tc.timer("unsplitFluxes")
@@ -77,6 +80,7 @@ def fluxes(U, my_data, rp, ivars, solid, tc):
                                solid.yl, solid.yr, tc)
 
     F_x, F_y = ctu_flx.apply_artificial_viscosity(F_x, F_y, q, U,
-                                                  my_data, rp, ivars)
+                                                  my_data, rp, ivars,
+                                                  edges=edges)
     tm_flux.end()
     return F_x, F_y

@@ -43,11 +43,15 @@ def _sponge(k_v, U, ivars, rp, myg):
     return k_v
 
 
-def build_substep(myg, rp, ivars, solid, tc, problem_source=None):
+def build_substep(myg, rp, ivars, solid, tc, problem_source=None,
+                  edges=(1, 1, 1, 1)):
     """The plain MOL stage increment substep(U, t, dt) -> k on a grid:
     k is zero on the ghosts, and U is not modified.  On a SphericalPolar
     grid the sources are spherical but the flux divergence stays the
-    Cartesian one over dx and dy, as in the JAX package."""
+    Cartesian one over dx and dy, as in the JAX package.  `edges` are the
+    viscosity's domain-edge flags (fluxes.fluxes): a sharded block passes
+    its own, where the JAX package's sharded rk passes none (section C.4
+    of ROADMAP.md records the gap that leaves there)."""
     small_dens = rp.get_param("compressible.small_dens")
     do_sponge = rp.get_param("sponge.do_sponge")
 
@@ -62,7 +66,7 @@ def build_substep(myg, rp, ivars, solid, tc, problem_source=None):
         S = compressible.get_external_sources(
             t, dt, U, ivars, rp, myg, problem_source=problem_source)
 
-        F_x, F_y = flx.fluxes(U, my_data, rp, ivars, solid, tc)
+        F_x, F_y = flx.fluxes(U, my_data, rp, ivars, solid, tc, edges)
         Fx = ai(F_x, myg)
         Fy = ai(F_y, myg)
         k_v = ((Fx.v() - Fx.ip(1)) / myg.dx +
@@ -96,7 +100,8 @@ class Simulation(compressible.Simulation):
         """The plain stage-increment closure (the kernel's CPU twin)."""
         return build_substep(self.cc_data.grid, self.rp, self.ivars,
                              self.solid, self.tc,
-                             problem_source=self.problem_source)
+                             problem_source=self.problem_source,
+                             edges=self.domain_edges.flags())
 
     def substep(self, myd):
         """The RK increment for the stage state myd."""

@@ -1,4 +1,4 @@
-"""Device time of the lm_atm interface stages and mg_correct on one GPU.
+"""Device time of kernels and serial solver steps on one GPU.
 
     python3 pyro2_tpu_torch/util/kernel_profile.py [--root DIR] [--reps N]
 
@@ -9,7 +9,12 @@ one card:
   * lm_mac, lm_rho and lm_states on the arguments lm_atm bubble 1024^2
     hands them after 3 steps;
   * mg_correct on random one-ghost blocks of 1024^2, 512^2 and 256^2 (the
-    sharded diffusion's levels on a 1 x 1 mesh).
+    sharded diffusion's levels on a 1 x 1 mesh);
+  * the rk stage increment (k_rk) of quad 1024^2 and the fv4 one (k_fv4)
+    of acoustic_pulse 1024^2, each after 3 steps;
+  * whole serial steps (Pyro.single_step) at 1024^2: compressible_rk quad,
+    compressible_fv4 and compressible_sdc acoustic_pulse, incompressible
+    and incompressible_viscous shear, burgers_viscous tophat.
 
 For each call: the device kernels torch.profiler records (name and count a
 call) and their device us a call, the CUDA-event ms a call, and the peak
@@ -135,6 +140,31 @@ def bubble_calls(n, steps=3):
     return lm, calls
 
 
+# the serial steps timed: (solver, problem, steps a measured call)
+SERIAL_STEPS = (("compressible_rk", "quad", 5),
+                ("compressible_fv4", "acoustic_pulse", 5),
+                ("compressible_sdc", "acoustic_pulse", 2),
+                ("incompressible", "shear", 3),
+                ("incompressible_viscous", "shear", 2),
+                ("burgers_viscous", "tophat", 3))
+
+
+def serial_pyro(solver, problem, n, steps=3):
+    """Pyro(solver) on problem at n^2, CUDA float32, after `steps`
+    steps."""
+    import torch
+
+    from pyro2_tpu_torch import Pyro
+
+    p = Pyro(solver, device="cuda", dtype=torch.float32)
+    p.initialize_problem(problem, inputs_dict={
+        "mesh.nx": n, "mesh.ny": n, "driver.max_steps": 10 ** 6,
+        "driver.tmax": 1.0e30})
+    for _ in range(steps):
+        p.single_step()
+    return p
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(
@@ -148,12 +178,14 @@ def main(argv=None):
         print("kernel_profile: CUDA is not available", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.abspath(args.root))
+    from pyro2_tpu_torch.multigrid import mg_kernel
     from pyro2_tpu_torch.multigrid import sharded_mg_kernel as smk
+    from pyro2_tpu_torch.solvers.compressible_fv4 import mol_kernel
     from pyro2_tpu_torch.solvers.lm_atm import lm_kernel
 
     print(f"kernel_profile of {os.path.abspath(args.root)} on "
           f"{torch.cuda.get_device_name(0)}", flush=True)
-    for module in (lm_kernel, smk):
+    for module in (lm_kernel, smk, mol_kernel, mg_kernel):
         module.build()
         module._load()
     out = {}
@@ -173,6 +205,20 @@ def main(argv=None):
         out[f"mg_correct {n}"] = measure(
             f"mg_correct {n}^2", lambda: smk.launch_correct(v, vc),
             args.reps)
+    for solver, problem in (("compressible_rk", "quad"),
+                            ("compressible_fv4", "acoustic_pulse")):
+        sim = serial_pyro(solver, problem, 1024).sim
+        sim.cc_data.fill_BC_all()
+        sim.compute_timestep()
+        U, t, dt, step = sim.cc_data.data, sim.cc_data.t, sim.dt, sim._step
+        out[f"{step.name} {problem} 1024"] = measure(
+            f"{step.name} {problem} 1024^2", lambda: step.launch(U, t, dt),
+            args.reps)
+    for solver, problem, steps in SERIAL_STEPS:
+        p = serial_pyro(solver, problem, 1024, 1)
+        out[f"{solver} {problem} 1024 step"] = measure(
+            f"{solver} {problem} 1024^2, one serial step", p.single_step,
+            steps)
     print(json.dumps({"root": os.path.abspath(args.root),
                       "device": torch.cuda.get_device_name(0),
                       "kernels": out}))

@@ -239,9 +239,10 @@ def test_chip_smoke_refuses_without_cuda(tmp_path):
 
 def test_sharded_slice_imports_without_cuda_or_jax():
     # the mesh layer, the launcher, the sharded multigrid with its kernel
-    # wrapper, ShardedDiffusion and the sharded hyperbolic tier import on a
-    # machine with neither CUDA nor JAX in the process, and never
-    # initialise torch.distributed
+    # wrapper, ShardedDiffusion, the sharded hyperbolic and MOL tiers and
+    # the solvers with inline sharded solves import on a machine with
+    # neither CUDA nor JAX in the process, and never initialise
+    # torch.distributed
     code = (
         "import sys\n"
         "import torch\n"
@@ -249,13 +250,18 @@ def test_sharded_slice_imports_without_cuda_or_jax():
         "assert not torch.cuda.is_available()\n"
         "import pyro2_tpu_torch.parallel as par\n"
         "from pyro2_tpu_torch.parallel import blocks, launch, mesh_comm, "
-        "sharded, sharded_diffusion, sharded_hyperbolic, sharded_mg, "
-        "sharded_particles\n"
+        "sharded, sharded_burgers_viscous, sharded_diffusion, "
+        "sharded_hyperbolic, sharded_incompressible, sharded_mg, "
+        "sharded_mol, sharded_particles\n"
         "from pyro2_tpu_torch.multigrid import sharded_mg_kernel as smk\n"
         "from pyro2_tpu_torch.util.carry import carry_block\n"
         "assert set(par.__all__) == {'Mesh', 'ShardedAdvection', "
-        "'ShardedBurgers', 'ShardedCompressible', 'ShardedDiffusion', "
-        "'ShardedGeneralMG', 'ShardedMG', 'ShardedSWE', 'ShardedSim', "
+        "'ShardedBurgers', 'ShardedBurgersViscous', 'ShardedCompressible', "
+        "'ShardedCompressibleFV4', 'ShardedCompressibleRK', "
+        "'ShardedCompressibleSDC', 'ShardedDiffusion', "
+        "'ShardedGeneralMG', 'ShardedIncompressible', "
+        "'ShardedIncompressibleViscous', 'ShardedMG', 'ShardedSWE', "
+        "'ShardedSim', "
         "'ShardedVarCoeffMG', 'ensemble_states', 'ensemble_step', "
         "'factor_devices', 'halo_exchange', 'make_mesh', "
         "'make_sharded_compressible_step', 'make_sharded_mg', "

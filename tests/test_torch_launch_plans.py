@@ -1095,6 +1095,42 @@ def test_rk_uncovered_variable_order_raises():
     assert mol_kernel.MOLSubstep(p.sim, "rk").kind == "rk"
 
 
+@pytest.mark.parametrize("solver", ["compressible_rk", "compressible_fv4",
+                                    "compressible_sdc"])
+def test_mol_kernel_args_carry_the_edge_flags(solver):
+    """The MOL stages' int array ends with the four domain-edge flags of
+    rk's viscosity (ints 21..24, which mol_substep.cu rk_params reads):
+    all 1 on a serial grid, 0 on a sharded block's seams; fv4 and sdc,
+    whose pipeline reads none, carry zeros.  The plain stage takes the
+    same flags."""
+    import re
+
+    from pyro2_tpu_torch import Pyro
+    from pyro2_tpu_torch.parallel import ShardedSim
+    from pyro2_tpu_torch.parallel.mesh_comm import Mesh
+    from pyro2_tpu_torch.util import cuda_build
+
+    text = (cuda_build.CSRC / "mol_substep.cu").read_text()
+    body = text[text.index("inline Params rk_params"):]
+    body = body[:body.index("}")]
+    assert re.findall(r"p\.edge_(\w+) = ip\[(\d+)\];", body) == [
+        ("xl", "21"), ("xr", "22"), ("yl", "23"), ("yr", "24")]
+    p = Pyro(solver, device="cpu")
+    p.initialize_problem("quad", inputs_dict={"mesh.nx": 16, "mesh.ny": 16})
+    U = p.sim.cc_data.data
+    ints, _ = p.sim._step.kernel_args(U, 1e-3)
+    rk = solver == "compressible_rk"
+    assert len(ints) == 25
+    assert ints[21:] == ([1, 1, 1, 1] if rk else [0, 0, 0, 0])
+    for coords, want in (((0, 0), [1, 0, 1, 0]), ((1, 1), [0, 1, 0, 1])):
+        sh = ShardedSim(solver, p.sim.rp, Mesh((2, 2), "cpu", coords),
+                        problem="quad")
+        frame = torch.zeros(sh._block_step.shape, dtype=U.dtype)
+        ints, _ = sh._block_step.kernel_args(frame, 1e-3)
+        assert ints[21:] == (want if rk else [0, 0, 0, 0])
+        assert list(sh.local_sim.domain_edges.flags()) == want
+
+
 # -- the deep smoothing round (mg_deep_smooth) --------------------------------
 
 # deep frames (bx, by, dpx, dpy, wrap): the 1x1 frames of the 1024^2 path

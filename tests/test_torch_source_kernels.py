@@ -80,14 +80,17 @@ def _read_at(source, field):
 def test_parameter_arrays_match_the_sources_offsets():
     """The CTU step's ints hold the spherical and problem flags, then the
     four domain-edge flags (ctu_step.cu's step_params), and its doubles
-    end with e_rate; the MOL ones add the well-balanced flag, and e_rate
-    after their own constants (euler_common.cuh's load_params)."""
+    end with e_rate; the MOL ones add the well-balanced flag, then rk's
+    four domain-edge flags (mol_substep.cu's rk_params; zeros for fv4),
+    and e_rate after their own constants (euler_common.cuh's
+    load_params)."""
     assert _read_at("euler_common.cuh", "spherical") == [18]
     assert _read_at("euler_common.cuh", "problem") == [19]
     assert _read_at("euler_common.cuh", "well_balanced") == [20]
     assert _read_at("euler_common.cuh", "e_rate") == [19, 13]
     for k, edge in enumerate(("xl", "xr", "yl", "yr")):
         assert _read_at("ctu_step.cu", f"edge_{edge}") == [20 + k]
+        assert _read_at("mol_substep.cu", f"edge_{edge}") == [21 + k]
     sim = _sim("compressible", "heating")
     U = sim.cc_data.data
     ints, doubles, S = sim._step.kernel_args(U, 0.0, 1e-4,
@@ -102,8 +105,9 @@ def test_parameter_arrays_match_the_sources_offsets():
         U = msim.cc_data.data
         e_rate, W = energy_rate(msim, U)
         ints, doubles = msim._step.kernel_args(U, 1e-4, e_rate)
-        assert len(ints) == 21 and len(doubles) == 20, kind
-        assert ints[18:] == [0, 1, 0] and doubles[19] == 0.1
+        edges = [1, 1, 1, 1] if kind == "rk" else [0, 0, 0, 0]
+        assert len(ints) == 25 and len(doubles) == 20, kind
+        assert ints[18:] == [0, 1, 0, *edges] and doubles[19] == 0.1
         assert msim._step.spherical_lines(U) is None
         assert W.shape == U.shape[1:]
 
@@ -183,7 +187,9 @@ def test_mol_spherical_lines(solver):
     U = sim.cc_data.data
     ints, doubles = step.kernel_args(U, 1e-4)
     G = step.spherical_lines(U)
-    assert ints[18:] == [1, 0, 0] and energy_rate(sim, U) == (0.0, None)
+    edges = [1, 1, 1, 1] if solver == "compressible_rk" else [0, 0, 0, 0]
+    assert ints[18:] == [1, 0, 0, *edges]
+    assert energy_rate(sim, U) == (0.0, None)
     qx, qy = g.qx, g.qy
     want = np.concatenate([g.Ly[:, 0], g.x, g.xl, g.x - g.dx, np.sin(g.yl),
                            np.sin(g.y), np.sin(g.y - g.dy)])
@@ -199,6 +205,6 @@ def test_rk_well_balanced_flag():
         "compressible.limiter": 1})
     step = sim._step
     ints, _ = step.kernel_args(sim.cc_data.data, 1e-4)
-    assert ints[18:] == [0, 0, 1]
+    assert ints[18:] == [0, 0, 1, 1, 1, 1, 1]
     assert step.spherical_lines(sim.cc_data.data) is None
     assert step.extended

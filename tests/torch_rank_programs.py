@@ -214,6 +214,51 @@ def sharded_hyperbolic(mesh, cases):
     return out
 
 
+def sharded_solvers(mesh, cases):
+    """Each case of the sharded MOL and multigrid tiers run on this mesh
+    in float64: {"cls" (a class of pyro2_tpu_torch.parallel), "problem",
+    "params", "steps", "dt" (None: the sharded CFL dt), "pre" (the fv4
+    preevolve_interior, or the incompressible preevolve)}.  Every run
+    starts from its blockwise initial state; every rank returns, gathered,
+    that state ("U0"), the final state ("U") and the dts taken."""
+    from pyro2_tpu_torch import parallel
+
+    out = []
+    for case in cases:
+        sh = getattr(parallel, case["cls"])(_rp(case["params"]), mesh,
+                                            problem=case["problem"],
+                                            dtype=F64)
+        dts = []
+        if isinstance(sh, parallel.ShardedSim):
+            U = sh.init_interior()
+            res = {"U0": sh.gather(U)}
+            if case.get("pre"):
+                U = sh.preevolve_interior(U)
+            t = 0.0
+            for _ in range(case["steps"]):
+                dt = case["dt"] if case["dt"] is not None else \
+                    sh.compute_dt(U)
+                U = sh.step(U, t, dt)
+                t += dt
+                dts.append(dt)
+            res["U"] = sh.gather(U)
+        else:
+            res = {"U0": sh.gather()}
+            if case.get("pre"):
+                sh.preevolve()
+            for _ in range(case["steps"]):
+                if case["dt"] is None:
+                    sh.method_compute_timestep()
+                else:
+                    sh.dt = case["dt"]
+                dts.append(sh.dt)
+                sh.evolve()
+            res["U"] = sh.gather()
+        res["dts"] = dts
+        out.append(res)
+    return out
+
+
 def several(mesh, jobs):
     """[program(mesh, *args) for each (name of a program here, args)]: one
     launch for many programs."""

@@ -3027,17 +3027,19 @@ MG_SHARDED = (
 
 
 def mg_sharded_path(cls_name, solver, problem, pre_solves, step_solves, n,
-                    steps, dtype, tol, smi):
+                    steps, dtype, tol, smi, core="mg_core", per_step=None):
     """parallel.<cls_name> on make_mesh()'s 1 x 1 mesh on the card in
-    `dtype`: its preevolve (where the solver has one) and `steps` steps at
-    its CFL dt (Mesh.pmax), every count reset just before and read just
-    after: mg_deep_smooth, mg_correct and mg_core alone, in the numbers
-    sharded_mg.stats' solves and cycles imply.  Then the serial Simulation
-    (Pyro's, preevolved at its initialization) stepped with the same dts:
-    the states within tol x max(1, max|U|), and the serial CFL dt before
-    each step within tol of the sharded one.  Returns (sharded object,
-    seconds, launches, a one-step function, serial seconds, pyro, the
-    |diff| / scale)."""
+    `dtype`: its preevolve (where the solver has one; timed on its own)
+    and `steps` steps at its CFL dt (Mesh.pmax; timed alone, as the serial
+    steps are), every count reset just before and read just after: mg_deep_smooth, mg_correct and `core` alone, in the numbers
+    sharded_mg.stats' solves and cycles imply, and the kernels of
+    `per_step` (name -> launches) each step, the preevolve's throwaway
+    step included.  Then the serial Simulation (Pyro's, preevolved at its
+    initialization) stepped with the same dts: the states within tol x
+    max(1, max|U|), and the serial CFL dt before each step within tol of
+    the sharded one.  Returns (sharded object, the steps' seconds,
+    launches, a one-step function, the serial steps' seconds, pyro, the
+    |diff| / scale, the preevolve's seconds)."""
     import torch
 
     from pyro2_tpu_torch import Pyro, parallel
@@ -3065,6 +3067,9 @@ def mg_sharded_path(cls_name, solver, problem, pre_solves, step_solves, n,
     t0 = time.perf_counter()
     if pre_solves:
         sh.preevolve()
+        torch.cuda.synchronize()
+    pre_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
     dts = [one_step() for _ in range(steps)]
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
@@ -3073,7 +3078,9 @@ def mg_sharded_path(cls_name, solver, problem, pre_solves, step_solves, n,
     levels = sh.smg.nlevels - sh.smg.k_cross
     cycles = stats["cycles"]
     expect = {"mg_deep_smooth": 2 * levels * cycles,
-              "mg_correct": levels * cycles, "mg_core": cycles}
+              "mg_correct": levels * cycles, core: cycles}
+    evolves = steps + (1 if pre_solves else 0)
+    expect.update({k: v * evolves for k, v in (per_step or {}).items()})
     solves = pre_solves + step_solves * steps
     if launched != expect or stats["solves"] != solves:
         raise AssertionError(
@@ -3098,10 +3105,10 @@ def mg_sharded_path(cls_name, solver, problem, pre_solves, step_solves, n,
     finite = bool(torch.isfinite(sh.U_int).all())
     ok = finite and err <= tol and worst_dt <= tol
     log(f"  {'ok ' if ok else 'BAD'} {cls_name} {problem} {n}x{n} "
-        f"{str(dtype)[6:]}, 1x1 mesh: {'preevolve + ' if pre_solves else ''}"
-        f"{steps} steps in {seconds:.3f} s, {1e3 * seconds / steps:.3f} "
-        f"ms/step{' with the preevolve' if pre_solves else ''} (the serial "
-        f"run's steps "
+        f"{str(dtype)[6:]}, 1x1 mesh: "
+        + (f"preevolve in {pre_s:.3f} s, then " if pre_solves else "")
+        + f"{steps} steps in {seconds:.3f} s, {1e3 * seconds / steps:.3f} "
+        f"ms/step (the serial run's steps "
         f"{1e3 * serial_s / steps:.3f} ms/step); {stats['solves']} solves, "
         f"{cycles} cycles ({cycles / stats['solves']:.2f} per solve), "
         f"{levels} sharded levels above a {2 ** sh.smg.k_cross}^2 core; "
@@ -3111,7 +3118,365 @@ def mg_sharded_path(cls_name, solver, problem, pre_solves, step_solves, n,
     if not ok:
         raise AssertionError(f"{cls_name}: the sharded run is not the "
                              "serial run")
-    return sh, seconds, launched, one_step, serial_s, p, err
+    return sh, seconds, launched, one_step, serial_s, p, err, pre_s
+
+
+# ---------------------------------------------------------------------------
+# phase 5k: the sharded lm_atm (parallel/sharded_lm_atm.py: the lm stages on
+# blocks, a coefficient hierarchy installed a projection on the sharded vc
+# multigrid) and the overlapped step (parallel/overlap.py: k_ctu and k_swe
+# as a core and four band steps)
+# ---------------------------------------------------------------------------
+
+def lm_block_check(dtype, tol, errs):
+    """The lm stages at every block of a 2x2 and a 1x4 split of a serial
+    bubble 1024^2 state on the card after 3 serial kernel steps: each
+    block's frames the windows of the serial step's frames (what the halo
+    and seam exchanges leave in them), its kernel launched alone on its
+    block grid (the global dx and dy).  Every block's MAC faces of its own
+    cells and the high face beyond them (a seam face where a neighbour
+    follows; the ghost faces further out the seam exchange replaces), and
+    its reassembled rho increments and advective terms must equal the
+    serial kernel's by bits,
+    and each block's kernel its plain stage within tol x the stage's scale
+    (lm_scales).  Returns the worst block |diff| by stage."""
+    import torch
+
+    from pyro2_tpu_torch.parallel.blocks import block_grid
+    from pyro2_tpu_torch.solvers.lm_atm import lm_kernel
+
+    g, calls = lm_bubble_calls(1024, dtype)
+    ng = g.ng
+    lm = lm_kernel.LMInterface(g)
+    serial = {"lm_mac": lm.launch_mac(*((calls["lm_mac"][0],) +
+                                        calls["lm_mac"][1])),
+              "lm_rho": (lm.launch_rho(calls["lm_rho"][0],
+                                       *calls["lm_rho"][1]),),
+              "lm_states": lm.launch_states(calls["lm_states"][0],
+                                            *calls["lm_states"][1])}
+    plains = {"lm_mac": lm_kernel.mac_vels_plain,
+              "lm_rho": lm_kernel.rho_increment_plain,
+              "lm_states": lm_kernel.advect_terms_plain}
+    for px, py in SEAM_SPLITS:
+        bx, by = g.nx // px, g.ny // py
+        got = {k: [torch.empty_like(a) for a in serial[k]]
+               for k in ("lm_rho", "lm_states")}
+        window = True
+        rel = dict.fromkeys(plains, 0.0)
+        for ix in range(px):
+            for iy in range(py):
+                bg = block_grid(g, px, py, ix, iy)
+                blm = lm_kernel.LMInterface(bg)
+                r0, c0 = ix * bx, iy * by
+                win = (slice(r0, r0 + bx + 2 * ng),
+                       slice(c0, c0 + by + 2 * ng))
+                inner = (slice(r0, r0 + bx), slice(c0, c0 + by))
+                bcalls = {name: (dt, tuple(a[win].contiguous()
+                                           for a in planes))
+                          for name, (dt, planes) in calls.items()}
+                scales = lm_scales(bg, bcalls)
+                for name, launch in (("lm_mac", blm.launch_mac),
+                                     ("lm_rho", blm.launch_rho),
+                                     ("lm_states", blm.launch_states)):
+                    dt, bp = bcalls[name]
+                    k = launch(dt, *bp)
+                    k = k if isinstance(k, tuple) else (k,)
+                    ref = plains[name](bg, dt, *bp)
+                    ref = ref if isinstance(ref, tuple) else (ref,)
+                    err = max(float((a - b).abs().max())
+                              for a, b in zip(k, ref))
+                    scale = scales.get(
+                        name, max(float(a.abs().max()) for a in ref))
+                    if err > tol * scale or not all(
+                            bool(torch.isfinite(a).all()) for a in k):
+                        raise AssertionError(
+                            f"{name} {px}x{py} block ({ix}, {iy}): the "
+                            f"kernel is {err:.3e} off its plain stage "
+                            f"(tol {tol:g} x {scale:.3e})")
+                    errs[name] = max(errs.get(name, 0.0), err)
+                    rel[name] = max(rel[name], err / scale)
+                    if name == "lm_mac":
+                        # u on the x faces lo..hi+1, v on the y faces
+                        for a, b, ex, ey in zip(k, serial["lm_mac"],
+                                                (1, 0), (0, 1)):
+                            box = (slice(ng, ng + bx + ex),
+                                   slice(ng, ng + by + ey))
+                            sbox = (slice(r0 + ng, r0 + ng + bx + ex),
+                                    slice(c0 + ng, c0 + ng + by + ey))
+                            window = window and torch.equal(a[box], b[sbox])
+                    else:
+                        for a, b in zip(got[name], k):
+                            a[inner] = b
+        torch.cuda.synchronize()
+        bits = {k: all(torch.equal(a, b) for a, b in zip(got[k], serial[k]))
+                for k in got}
+        ok = window and all(bits.values())
+        log(f"  {'ok ' if ok else 'BAD'} lm stages bubble 1024x1024 "
+            f"{str(dtype)[6:]:8s} {px}x{py}: every block's MAC faces (lo to "
+            f"hi+1 along the normal, seam faces included) equal to the "
+            f"serial kernel's by bits: {window}; reassembled rho and states "
+            f"equal "
+            f"by bits: {bits}; worst block kernel against its plain stage "
+            + ", ".join(f"{k} {v:.3e}" for k, v in rel.items())
+            + f" x its scale (tol {tol:g})")
+        if not ok:
+            raise AssertionError(f"lm stages {px}x{py}: the blocks' kernel "
+                                 "outputs differ from the serial ones")
+    return errs
+
+
+def install_ms(sh, reps=5):
+    """Host-clock ms of one coefficient install of a ShardedLMAtm (gather
+    the density, beta0^2 / rho, ShardedVarCoeffMG.install_coefficients),
+    ending in a sync."""
+    import torch
+
+    rho = sh.U_int[sh.irho]
+    sh._install(rho)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        sh._install(rho)
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / reps
+
+
+def lm_block_timing(bw, fp32):
+    """CUDA-event ms of each lm stage on block (0, 0) of a 2x2 split of the
+    1024^2 f32 bubble (a 512^2 block frame, its seams on the high sides)
+    against its plain stage, beside its bound."""
+    import torch
+
+    from pyro2_tpu_torch.parallel.blocks import block_grid
+    from pyro2_tpu_torch.solvers.lm_atm import lm_kernel
+
+    g, calls = lm_bubble_calls(1024, torch.float32)
+    bg = block_grid(g, 2, 2, 0, 0)
+    win = (slice(0, bg.qx), slice(0, bg.qy))
+    blm = lm_kernel.LMInterface(bg)
+    out = {}
+    for name, launch, plain in (
+            ("lm_mac", blm.launch_mac, lm_kernel.mac_vels_plain),
+            ("lm_rho", blm.launch_rho, lm_kernel.rho_increment_plain),
+            ("lm_states", blm.launch_states, lm_kernel.advect_terms_plain)):
+        dt, planes = calls[name]
+        bp = tuple(a[win].contiguous() for a in planes)
+        out[name] = time_pair(
+            f"{name} sharded block (bubble 512x512 of a 2x2 mesh)",
+            lambda: launch(dt, *bp), lambda: plain(bg, dt, *bp),
+            lm_kernel.work(name, bg.nx, bg.ny, torch.float32), bw, fp32)
+    return out
+
+
+# the overlapped paths: (label, class, solver, problem, inputs, kernel)
+OVERLAP_CASES = (
+    ("quad", "ShardedCompressible", "compressible", "quad", {}, "ctu_step"),
+    ("swe_quad", "ShardedSWE", "swe", "quad",
+     {"swe.riemann": "Roe", "swe.limiter": 2}, "swe_step"),
+)
+
+
+def overlap_frames(ov, U_pad, U_fill):
+    """The five (block step, frame) pairs of one overlapped step: the core
+    on the unfilled padded block, the bands on the filled one."""
+    return [(ov.ss._block_step, U_pad)] + [
+        (band, U_fill[src].contiguous()) for src, band, _, _ in ov._bands]
+
+
+def overlap_assembled(ov, pairs, t, dt, how):
+    """The overlapped step's interior from the five frames, each block step
+    called through `how` ("launch" or "plain")."""
+    (core, U_pad), bands = pairs[0], pairs[1:]
+    out = ov.ss._interior(getattr(core, how)(U_pad, t, dt))
+    for (src, _, rim, cells), (band, frame) in zip(ov._bands, bands):
+        out[rim] = getattr(band, how)(frame, t, dt)[cells]
+    return out
+
+
+def overlap_block_check(label, cls_name, solver, problem, inputs, n, dtype):
+    """Every block of a 2x2 split of a serial state on the card after 3
+    serial kernel steps: the overlapped step's core from the block's
+    unfilled window (its interior, zero ghosts) and its bands from the
+    filled window (the serial filled frame's, with the seam floor) must
+    equal the plain block step (the kernel on the filled window) by bits,
+    and the blocks reassembled the serial kernel step.  Returns the worst
+    |diff| of the overlapped kernels against their plain steps."""
+    import torch
+    import torch.nn.functional as F
+
+    from pyro2_tpu_torch import parallel
+    from pyro2_tpu_torch.parallel.mesh_comm import Mesh
+
+    sim = make_sim(problem, {"mesh.nx": n, "mesh.ny": n, **inputs}, dtype,
+                   solver=solver)
+    for _ in range(3):
+        sim.cc_data.fill_BC_all()
+        sim.compute_timestep()
+        sim.evolve()
+    sim.cc_data.fill_BC_all()
+    sim.compute_timestep()
+    U, t, dt = sim.cc_data.data, sim.cc_data.t, sim.dt
+    g = sim.cc_data.grid
+    ng = g.ng
+    serial = interior(sim._step.launch(U, t, dt), g)
+    got = torch.empty_like(serial)
+    same, worst = True, 0.0
+    bx, by = n // 2, n // 2
+    for ix in range(2):
+        for iy in range(2):
+            sh = getattr(parallel, cls_name)(
+                sim.rp, Mesh((2, 2), "cuda", (ix, iy)), problem=problem,
+                overlap=True, dtype=dtype)
+            win = (slice(None), slice(ix * bx, ix * bx + bx + 2 * ng),
+                   slice(iy * by, iy * by + by + 2 * ng))
+            U_fill = sh._floor_seams(U[win].contiguous())
+            U_pad = F.pad(interior(U_fill, sh.local_grid), (ng,) * 4)
+            ov = sh._overlapped
+            pairs = overlap_frames(ov, U_pad, U_fill)
+            k = overlap_assembled(ov, pairs, t, dt, "launch")
+            p = overlap_assembled(ov, pairs, t, dt, "plain")
+            plain_blk = interior(sh._block_step.launch(U_fill, t, dt),
+                                 sh.local_grid)
+            same = same and torch.equal(k, plain_blk)
+            worst = max(worst, float((k - p).abs().max()))
+            got[:, ix * bx:(ix + 1) * bx, iy * by:(iy + 1) * by] = k
+    torch.cuda.synchronize()
+    bits = torch.equal(got, serial)
+    ok = same and bits
+    log(f"  {'ok ' if ok else 'BAD'} overlap {label:9s} {n}x{n} "
+        f"{str(dtype)[6:]:8s} 2x2: every block's core (unfilled window) + "
+        f"4 bands (filled window) equal to the plain block step by bits: "
+        f"{same}; reassembled equal to the serial kernel step: {bits}; the "
+        f"overlapped kernels against their plain steps {worst:.3e}; t = "
+        f"{t:.6g}")
+    if not ok:
+        raise AssertionError(f"overlap {label}: the overlapped block steps "
+                             "differ from the plain ones")
+    return worst
+
+
+def overlap_path(label, cls_name, solver, problem, inputs, kernel, n, steps,
+                 smi):
+    """parallel.<cls_name> plain and with overlap=True on make_mesh()'s 1x1
+    mesh, CUDA float32: `steps` plain steps at the sharded CFL dt, then
+    the overlapped run with the same dts, the counts reset just before
+    each: 1 and 5 launches of `kernel` a step and no other, equal final
+    states by bits; then both timed with those dts in turns (plain,
+    overlap, overlap, plain).  Returns (overlapped object, launches,
+    plain ms/step, overlapped ms/step)."""
+    import torch
+
+    from pyro2_tpu_torch import Pyro, parallel
+
+    p = Pyro(solver)                    # default device: CUDA, float32
+    p.initialize_problem(problem, inputs_dict={
+        "mesh.nx": n, "mesh.ny": n, "driver.max_steps": steps,
+        "driver.tmax": 1.0e30, **inputs})
+    rp = p.sim.rp
+    cls = getattr(parallel, cls_name)
+    plain = cls(rp, parallel.make_mesh(), problem=problem,
+                dtype=torch.float32)
+    over = cls(rp, parallel.make_mesh(), problem=problem, overlap=True,
+               dtype=torch.float32)
+    U0 = plain.init_interior()
+
+    def run(sh, dts):
+        U, t = U0, 0.0
+        for dt in dts:
+            U = sh.step(U, t, dt)
+            t += dt
+        return U
+
+    torch.cuda.synchronize()
+    reset_counts()
+    U, t, dts = U0, 0.0, []
+    for _ in range(steps):
+        dts.append(plain.compute_dt(U))
+        U = plain.step(U, t, dts[-1])
+        t += dts[-1]
+    torch.cuda.synchronize()
+    n_plain = {k: v for k, v in all_counts().items() if v}
+    reset_counts()
+    V = run(over, dts)
+    torch.cuda.synchronize()
+    n_over = {k: v for k, v in all_counts().items() if v}
+    same = torch.equal(U, V) and bool(torch.isfinite(V).all())
+    times = {}
+    for name, sh in (("plain", plain), ("overlap", over), ("overlap", over),
+                     ("plain", plain)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(sh, dts)
+        torch.cuda.synchronize()
+        times.setdefault(name, []).append(
+            1e3 * (time.perf_counter() - t0) / steps)
+    ms = {k: 0.5 * sum(v) for k, v in times.items()}
+    ok = same and n_plain == {kernel: steps} and \
+        n_over == {kernel: 5 * steps}
+    log(f"  {'ok ' if ok else 'BAD'} {cls_name} {problem} {n}x{n} f32, "
+        f"1x1 mesh, {steps} steps: overlapped equal to plain by bits: "
+        f"{same}; launches plain {n_plain}, overlapped {n_over}; host clock "
+        f"plain {ms['plain']:.3f} ms/step ({times['plain'][0]:.3f}, "
+        f"{times['plain'][1]:.3f}), overlapped {ms['overlap']:.3f} "
+        f"({times['overlap'][0]:.3f}, {times['overlap'][1]:.3f}) [{smi}]")
+    if not ok:
+        raise AssertionError(f"overlap {label}: the overlapped run is not "
+                             "the plain run")
+    return over, n_over[kernel], ms["plain"], ms["overlap"]
+
+
+def overlap_timing(over, kernel, bw, fp32):
+    """CUDA-event ms of one overlapped step's five block steps (core + 4
+    bands, k_ctu or k_swe) on the 1x1 quad 1024^2 f32 block against their
+    plain steps, beside the five calls' summed bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from pyro2_tpu_torch.solvers.compressible import ctu_kernel
+    from pyro2_tpu_torch.solvers.swe import swe_kernel
+
+    sh = over
+    U_int = sh.init_interior()
+    dt = sh.compute_dt(U_int)
+    U_fill = sh._step_input(U_int, 0.0)
+    U_pad = F.pad(U_int, (sh.ng,) * 4)
+    pairs = overlap_frames(sh._overlapped, U_pad, U_fill)
+    nbytes = nops = 0
+    for step, frame in pairs:
+        g = step.sim.cc_data.grid
+        if kernel == "ctu_step":
+            w = ctu_kernel.work(g.nx, g.ny, sh.nvar, torch.float32,
+                                step.with_sources)
+        else:
+            w = swe_kernel.work(g.nx, g.ny, sh.nvar, torch.float32,
+                                step.method)
+        nbytes, nops = nbytes + w[0], nops + w[1]
+    g = sh.local_grid
+    return time_pair(
+        f"{kernel} overlapped (core {g.nx}x{g.ny} + 4 bands of 8 x "
+        f"{g.ny} / {g.nx} x 8, one step's five launches)",
+        lambda: [s.launch(f, 0.0, dt) for s, f in pairs],
+        lambda: [s.plain(f, 0.0, dt) for s, f in pairs],
+        (nbytes, nops), bw, fp32)
+
+
+def halo_stats_lines(n):
+    """parallel.halo_stats of quad n^2 blocks on a 2x2 and a 1x4 split, in
+    float32 (computed from the block geometry: one card holds one
+    rank)."""
+    import torch
+
+    from pyro2_tpu_torch import Pyro
+    from pyro2_tpu_torch.parallel import ShardedCompressible, halo_stats
+    from pyro2_tpu_torch.parallel.mesh_comm import Mesh
+
+    p = Pyro("compressible")
+    p.initialize_problem("quad", inputs_dict={"mesh.nx": n, "mesh.ny": n})
+    for shape in SEAM_SPLITS:
+        sh = ShardedCompressible(p.sim.rp, Mesh(shape, "cuda", (0, 0)),
+                                 problem="quad", dtype=torch.float32)
+        log(f"  halo_stats quad {n}x{n} f32 {shape[0]}x{shape[1]} (computed, "
+            f"not measured): {json.dumps(halo_stats(sh))}")
 
 
 def mol_block_timing(sh, bw, fp32):
@@ -3191,12 +3556,12 @@ def step_peak_memory(step, U, t, dt):
 
 def one_launch_each(fn, calls, kernel, what, entry):
     """Under the profiler, `calls` calls of fn launch `kernel` once each
-    and no other device kernel; returns its device us a launch. If the
-    profiler recorded no device kernel, the wrapper's count of `entry`
-    counts the launches and CUDA events time them."""
+    and no other device kernel; returns its device us a launch. If no
+    profiler session recorded every launch the wrapper of `entry` counted,
+    the wrapper's count counts the launches and CUDA events time them."""
     import torch
 
-    rows = device_kernels(fn, calls)
+    rows = device_kernels(fn, calls, (kernel, entry))
     if not rows:
         reset_counts()
         ms = event_ms(fn, calls)
@@ -3206,8 +3571,9 @@ def one_launch_each(fn, calls, kernel, what, entry):
             raise AssertionError(f"{calls} {what} counted {n} {entry} "
                                  "launches")
         log(f"  by the wrappers' counts: {calls} {what} launch {kernel} "
-            f"{n} times ({1e3 * ms:.2f} us each by CUDA events); the "
-            "profiler recorded nothing, so other kernels were not observed")
+            f"{n} times ({1e3 * ms:.2f} us each by CUDA events); no "
+            "profiler session was whole, so other kernels were not "
+            "observed")
         return 1e3 * ms
     names = [(key, n) for key, n, _ in rows]
     if len(rows) != 1 or f"{kernel}<" not in rows[0][0] or \
@@ -3374,30 +3740,41 @@ def tile_plan_text(plan):
 # a profiler session idles this long on each side of its calls, so that a
 # kernel whose device timestamps the tracer places a little outside the
 # host's window of the session still falls inside it; a session that
-# recorded no device kernel at all is made again, up to PROFILER_TRIES
+# recorded no device kernel at all, or fewer launches of a kernel than its
+# wrapper counted in the session, is made again, up to PROFILER_TRIES, with
+# the longer pad PROFILER_RETRY_PAD_S (after many sessions, a 20 ms pad has
+# recorded every launch call and none of their kernels, where a 0.5 s pad
+# recorded all five in one run and three in another: profiler_records)
 PROFILER_PAD_S = 0.02
+PROFILER_RETRY_PAD_S = 0.5
 PROFILER_TRIES = 3
 
 
-def profiled(fn, reps):
+def profiled(fn, reps, whole=None):
     """torch.profiler over `reps` calls of fn (after one unprofiled call):
     ([(kernel name, launches, device us)] of every device kernel, wall us
-    of the calls); the list is empty if no session recorded one."""
+    of the calls); the list is empty if no session recorded one.  With
+    `whole` = (kernel, wrapper entry), a session must also record every
+    launch the wrapper counted in it (the counts are reset before each
+    session); the list is empty if none did."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     for attempt in range(1, PROFILER_TRIES + 1):
+        if whole:
+            reset_counts()
+        pad = PROFILER_PAD_S if attempt == 1 else PROFILER_RETRY_PAD_S
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            time.sleep(PROFILER_PAD_S)
+            time.sleep(pad)
             t0 = time.perf_counter()
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
             wall_us = 1e6 * (time.perf_counter() - t0)
-            time.sleep(PROFILER_PAD_S)
+            time.sleep(pad)
         rows = []
         for e in prof.key_averages():
             dev_us = getattr(e, "device_time_total",
@@ -3405,6 +3782,15 @@ def profiled(fn, reps):
             if e.device_type == torch.autograd.DeviceType.CUDA and \
                     dev_us > 0:
                 rows.append((e.key, e.count, dev_us))
+        if rows and whole:
+            kernel, entry = whole
+            seen = sum(n for key, n, _ in rows if f"{kernel}<" in key)
+            counted = launch_count(entry)
+            if seen < counted:
+                log(f"  the profiler recorded {seen} of the {counted} "
+                    f"{kernel} launches its wrapper counted (session "
+                    f"{attempt} of {PROFILER_TRIES})")
+                continue
         if rows:
             return rows, wall_us
         log(f"  the profiler recorded no device kernel (session {attempt} "
@@ -3412,10 +3798,11 @@ def profiled(fn, reps):
     return [], wall_us
 
 
-def device_kernels(fn, reps):
+def device_kernels(fn, reps, whole=None):
     """[(kernel name, launches, device us)] of every device kernel of
-    `reps` calls of fn under the profiler; empty if it recorded none."""
-    return profiled(fn, reps)[0]
+    `reps` calls of fn under the profiler; empty if it recorded none (or,
+    with `whole`, none whole: see profiled)."""
+    return profiled(fn, reps, whole)[0]
 
 
 def kernel_device_us(fn, reps, kernel):
@@ -4332,6 +4719,56 @@ def core_on_sharded_data(sd):
           frame(rng, g, torch.float32, 1e-36))
 
 
+def profiler_records(swe_call, smi):
+    """An open question (PERF.md section 7): after phase 7's profiles, a
+    torch.profiler session of five k_swe launches has recorded fewer than
+    five.  Logs, per session, the launches the wrapper counted, the launch
+    calls and k_swe kernels the profiler recorded and their starts (us
+    after the first launch call, to place a missing one): with the 20 ms
+    pad of `profiled`, its retries' 0.5 s pad, and the CUDA activity
+    alone; then `profiled` with its retries.  Checks nothing: the checks
+    that need whole sessions retry them (profiled)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    sstep, sU, st, sdt = swe_call
+    cpu, cuda = ProfilerActivity.CPU, ProfilerActivity.CUDA
+    log(f"[profiler records after phase 7's profiles: sessions of 5 k_swe "
+        f"launches (swe quad 1024^2 float32); {smi}]")
+    for label, pad, acts in (("20 ms pad", PROFILER_PAD_S, (cpu, cuda)),
+                             ("20 ms pad", PROFILER_PAD_S, (cpu, cuda)),
+                             ("0.5 s pad", PROFILER_RETRY_PAD_S,
+                              (cpu, cuda)),
+                             ("CUDA activity alone", PROFILER_PAD_S,
+                              (cuda,))):
+        sstep.launch(sU, st, sdt)
+        torch.cuda.synchronize()
+        reset_counts()
+        with profile(activities=list(acts)) as prof:
+            time.sleep(pad)
+            for _ in range(5):
+                sstep.launch(sU, st, sdt)
+            torch.cuda.synchronize()
+            time.sleep(pad)
+        events = prof.events()
+        dev = sorted(e.time_range.start for e in events
+                     if e.device_type == torch.autograd.DeviceType.CUDA
+                     and "k_swe<" in e.name)
+        calls = sorted(e.time_range.start for e in events
+                       if "LaunchKernel" in e.name and
+                       e.device_type != torch.autograd.DeviceType.CUDA)
+        t0 = (calls or dev or [0.0])[0]
+        log(f"  {label}: the wrapper counted {launch_count('swe_step')}, "
+            f"the profiler recorded {len(calls)} launch calls at "
+            f"{[round(c - t0, 1) for c in calls]} us and {len(dev)} k_swe "
+            f"at {[round(d - t0, 1) for d in dev]} us")
+    rows = device_kernels(lambda: sstep.launch(sU, st, sdt), 5,
+                          ("k_swe", "swe_step"))
+    log("  profiled, with its retries: " +
+        (f"{sum(n for key, n, _ in rows if 'k_swe<' in key)} k_swe of 5"
+         if rows else "no session whole"))
+
+
 def profile_steps(step, steps, label):
     """torch.profiler over `steps` main-path steps (calls of `step`):
     device time by kernel and the device's busy share of the wall time."""
@@ -4930,6 +5367,58 @@ def main():
     torch.cuda.empty_cache()
     log(f"  phase 5j in {time.perf_counter() - t5j:.1f} s")
 
+    # 5k. the sharded lm_atm and the overlapped step: the lm stages at
+    # every block of a split, ShardedLMAtm on the 1x1 mesh, the overlapped
+    # step on the 1x1 mesh and at every block of a 2x2 split, halo_stats
+    t5k = time.perf_counter()
+    log(f"[phase 5k: k_lm_mac, k_lm_rho and k_lm_states at every block of a "
+        f"2x2 and a 1x4 split of the bubble 1024^2, each block's frames "
+        f"from the serial step's, against the serial kernel outputs (bits) "
+        f"and the plain block stages; {smi}]")
+    lm_seam_err = {}
+    for dtype, tol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
+        lm_block_check(dtype, tol, lm_seam_err if dtype == torch.float32
+                       else {})
+        torch.cuda.empty_cache()
+    log(f"[phase 5k: ShardedLMAtm on make_mesh()'s 1x1 mesh: bubble 1024^2 "
+        f"f32 against the serial f32 run, 256^2 f64 against the serial f64 "
+        f"card run; {smi}]")
+    lm_per_step = dict.fromkeys(LM_KERNELS, 1)
+    lm_sh = mg_sharded_path("ShardedLMAtm", "lm_atm", "bubble", 3, 2, 1024,
+                            10, torch.float32, 1e-3, smi, core="mg_core_vc",
+                            per_step=lm_per_step)
+    torch.cuda.empty_cache()
+    mg_sharded_path("ShardedLMAtm", "lm_atm", "bubble", 3, 2, 256, 3,
+                    torch.float64, 1e-11, smi, core="mg_core_vc",
+                    per_step=lm_per_step)
+    log(f"  ShardedLMAtm bubble 1024^2 f32: {lm_sh[0].n} steps, "
+        f"{1e3 * lm_sh[1] / 10:.3f} ms/step against the serial "
+        f"{1e3 * lm_sh[4] / 10:.3f} (steps alone; the preevolve "
+        f"{1e3 * lm_sh[7]:.3f} ms); one coefficient install (gather, "
+        f"beta0^2 / rho, install_coefficients) {install_ms(lm_sh[0]):.3f} "
+        f"ms, host clock [{smi}]")
+    torch.cuda.empty_cache()
+    log(f"[phase 5k: the overlapped step at every block of a 2x2 split "
+        f"(core from the unfilled window, bands from the filled one), "
+        f"against the plain block step and the serial step (bits); {smi}]")
+    overlap_err = {}
+    for dtype in (torch.float64, torch.float32):
+        for label, cls_name, solver, problem, inputs, _ in OVERLAP_CASES:
+            err = overlap_block_check(label, cls_name, solver, problem,
+                                      inputs, 1024, dtype)
+            if dtype == torch.float32:
+                overlap_err[label] = err
+        torch.cuda.empty_cache()
+    log(f"[phase 5k: the overlapped step on make_mesh()'s 1x1 mesh against "
+        f"the plain sharded step, CUDA float32; {smi}]")
+    overlap = {label: overlap_path(label, cls_name, solver, problem, inputs,
+                                   kernel, 1024, 20, smi)
+               for label, cls_name, solver, problem, inputs, kernel
+               in OVERLAP_CASES}
+    halo_stats_lines(1024)
+    torch.cuda.empty_cache()
+    log(f"  phase 5k in {time.perf_counter() - t5k:.1f} s")
+
     # 6. timing at the main paths' shapes
     log(f"[timing: the sharded block step, quad 1024^2 float32 on the 1x1 "
         f"mesh and a 2x2 block with its seam flags, CUDA events; {smi}]")
@@ -4938,6 +5427,13 @@ def main():
         f"mesh and a 2x2 block (512^2) with its seam flags, CUDA events; "
         f"{smi}]")
     mol_sh_times = mol_block_timing(mol_sh["rk"][0], bw, fp32)
+    log(f"[timing: the lm stages on a 2x2 block of the 1024^2 f32 bubble, "
+        f"and one overlapped step's five block steps (quad and swe quad "
+        f"1024^2 f32, 1x1 mesh), CUDA events; {smi}]")
+    lm_sh_times = lm_block_timing(bw, fp32)
+    overlap_times = {label: overlap_timing(overlap[label][0], kernel, bw,
+                                           fp32)
+                     for label, _, _, _, _, kernel in OVERLAP_CASES}
 
     log("[timing: quad 1024^2 float32, CUDA events]")
     sim = p.sim
@@ -5191,6 +5687,8 @@ def main():
         profile_steps(mg_sh[cls_name][5].single_step, 5,
                       f"{solver} {problem} 1024^2 float32, serial "
                       f"(Pyro.single_step) [{smi}]")
+    profile_steps(lm_sh[3], 5, f"ShardedLMAtm bubble 1024^2 float32, 1x1 "
+                  f"mesh (phase 5k) [{smi}]")
     for label, (pp, _, _) in src_paths.items():
         g = pp.sim.cc_data.grid
         profile_steps(pp.single_step, 10,
@@ -5207,6 +5705,7 @@ def main():
     # the kernels line's launches: the f32 quad on-device run's, from the
     # profiler
     devdt_launches = [prof() for prof in loop_profiles][0]
+    profiler_records(swe_call, smi)
 
     kernels = [{
         "name": "ctu_step",
@@ -5414,6 +5913,42 @@ def main():
         "bound_by": b_by,
         "library_ms": None,
     })
+    for name, line in (("lm_mac", 200), ("lm_rho", 227),
+                       ("lm_states", 259)):
+        ms, p_ms, b_ms, b_by = lm_sh_times[name]
+        kernels.append({
+            "name": name + "_sharded",
+            "route": "cuda",
+            "source": "pyro2_tpu_torch/csrc/lm_interface.cu",
+            "replaces": f"pyro2_tpu/solvers/lm_atm/pallas_interface.py:{line}",
+            "launches": lm_sh[2][name],
+            "max_abs_err": lm_seam_err[name],
+            "ms": ms,
+            "plain_ms": p_ms,
+            "bound_ms": b_ms,
+            "bound_by": b_by,
+            "library_ms": None,
+        })
+    for label, name, source, replaces in (
+            ("quad", "ctu_step_overlap", "pyro2_tpu_torch/csrc/ctu_step.cu",
+             "pyro2_tpu/solvers/compressible/pallas_step.py:603"),
+            ("swe_quad", "swe_step_overlap",
+             "pyro2_tpu_torch/csrc/swe_step.cu",
+             "pyro2_tpu/solvers/swe/pallas_step.py:75")):
+        ms, p_ms, b_ms, b_by = overlap_times[label]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": source,
+            "replaces": replaces,
+            "launches": overlap[label][1],
+            "max_abs_err": overlap_err[label],
+            "ms": ms,
+            "plain_ms": p_ms,
+            "bound_ms": b_ms,
+            "bound_by": b_by,
+            "library_ms": None,
+        })
     ms, p_ms, b_ms, b_by = devdt_times
     kernels.append({
         "name": "ctu_step_device_dt",

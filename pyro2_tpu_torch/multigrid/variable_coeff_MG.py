@@ -63,7 +63,13 @@ class VarCoeffCCMG2d(MG.CellCenterMG2d):
                          true_function=true_function, device=device,
                          dtype=dtype)
 
-        # install the fine-level coefficients and restrict down once
+        self.set_coefficients(coeffs, coeffs_bc)
+
+    def set_coefficients(self, coeffs, coeffs_bc):
+        """Install the fine-level coefficients and restrict them down: the
+        cell-centred chain (aux "coeffs"), and each level's edge planes,
+        new tensors (ShardedVarCoeffMG.install_coefficients calls it before
+        each of lm_atm's sharded solves)."""
         fine = self.nlevels - 1
         c = self.aux["coeffs"]
         c[fine] = fill_ghost(_fine_coefficients(self, coeffs),

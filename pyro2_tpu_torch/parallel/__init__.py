@@ -17,16 +17,22 @@
   `ShardedCompressibleSDC`, the rk and fv4 kernels as stage increments.
 * The solvers with inline sharded multigrid solves:
   `ShardedIncompressible` and `ShardedIncompressibleViscous`
-  (`sharded_incompressible.py`) and `ShardedBurgersViscous`
-  (`sharded_burgers_viscous.py`).
+  (`sharded_incompressible.py`), `ShardedBurgersViscous`
+  (`sharded_burgers_viscous.py`) and `ShardedLMAtm`
+  (`sharded_lm_atm.py`: a coefficient hierarchy installed a projection).
+* The overlapped compressible and swe step (`build_overlapped_step`,
+  `overlap=True`), and the communication accounting: `collective_stats`
+  (the collectives one run of a program makes) and `halo_stats` (a step's
+  halo bytes and overlap window, from the block geometry).
 
-The rest of the JAX package's parallel/ waits for later slices (ROADMAP.md,
-A.14), in this order: sharded_lm_atm, accounting and overlap.
+Every module of the JAX package's parallel/ has its counterpart here.
 """
 
+from pyro2_tpu_torch.parallel.accounting import collective_stats
 from pyro2_tpu_torch.parallel.ensemble import ensemble_states, ensemble_step
 from pyro2_tpu_torch.parallel.mesh_comm import (Mesh, factor_devices,
                                                 halo_exchange, make_mesh)
+from pyro2_tpu_torch.parallel.overlap import build_overlapped_step, halo_stats
 from pyro2_tpu_torch.parallel.sharded import (ShardedCompressible,
                                               ShardedSim, ShardedSWE,
                                               make_sharded_compressible_step)
@@ -37,6 +43,7 @@ from pyro2_tpu_torch.parallel.sharded_hyperbolic import (ShardedAdvection,
                                                          ShardedBurgers)
 from pyro2_tpu_torch.parallel.sharded_incompressible import (
     ShardedIncompressible, ShardedIncompressibleViscous)
+from pyro2_tpu_torch.parallel.sharded_lm_atm import ShardedLMAtm
 from pyro2_tpu_torch.parallel.sharded_mg import (ShardedGeneralMG,
                                                  ShardedMG,
                                                  ShardedVarCoeffMG,
@@ -52,7 +59,9 @@ __all__ = ["Mesh", "ShardedAdvection", "ShardedBurgers",
            "ShardedCompressibleFV4", "ShardedCompressibleRK",
            "ShardedCompressibleSDC", "ShardedDiffusion", "ShardedGeneralMG",
            "ShardedIncompressible", "ShardedIncompressibleViscous",
-           "ShardedMG", "ShardedSWE", "ShardedSim", "ShardedVarCoeffMG",
+           "ShardedLMAtm", "ShardedMG", "ShardedSWE", "ShardedSim",
+           "ShardedVarCoeffMG", "build_overlapped_step", "collective_stats",
            "ensemble_states", "ensemble_step", "factor_devices",
-           "halo_exchange", "make_mesh", "make_sharded_compressible_step",
-           "make_sharded_mg", "make_sharded_particle_advance"]
+           "halo_exchange", "halo_stats", "make_mesh",
+           "make_sharded_compressible_step", "make_sharded_mg",
+           "make_sharded_particle_advance"]

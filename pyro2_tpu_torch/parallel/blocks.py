@@ -12,8 +12,8 @@ import torch
 
 from pyro2_tpu_torch.defaults import dtype as working_dtype
 
-__all__ = ["adopt_block_grid", "block_grid", "blockwise_init_interior",
-           "gather_interior"]
+__all__ = ["adopt_block_grid", "adopt_window_grid", "block_grid",
+           "blockwise_init_interior", "gather_interior"]
 
 
 def block_grid(global_grid, px, py, ix, iy):
@@ -61,32 +61,49 @@ class _BlockData:
                                     device=self.data.device).clone()
 
 
-def _rank_block_grid(grid_type, ng, rp, mesh):
-    """This rank's block grid, from the runtime parameters' extents and
-    global shape alone (no global-extent coordinate array is built)."""
-    nx, ny = rp.get_param("mesh.nx"), rp.get_param("mesh.ny")
-    bx, by = nx // mesh.px, ny // mesh.py
-    return grid_type(bx, by, ng=ng,
+def _window_grid(grid_type, ng, rp, shape, shift):
+    """The grid of the (shape) window of the global grid whose first
+    interior cell is global cell `shift`, from the runtime parameters'
+    extents and global shape alone (no global-extent coordinate array is
+    built)."""
+    return grid_type(shape[0], shape[1], ng=ng,
                      xmin=rp.get_param("mesh.xmin"),
                      xmax=rp.get_param("mesh.xmax"),
                      ymin=rp.get_param("mesh.ymin"),
                      ymax=rp.get_param("mesh.ymax"),
-                     _coord_shift=(mesh.ix * bx, mesh.iy * by),
-                     _domain_n=(nx, ny))
+                     _coord_shift=shift,
+                     _domain_n=(rp.get_param("mesh.nx"),
+                                rp.get_param("mesh.ny")))
+
+
+def _rank_block_grid(grid_type, ng, rp, mesh):
+    """This rank's block grid."""
+    nx, ny = rp.get_param("mesh.nx"), rp.get_param("mesh.ny")
+    bx, by = nx // mesh.px, ny // mesh.py
+    return _window_grid(grid_type, ng, rp, (bx, by),
+                        (mesh.ix * bx, mesh.iy * by))
+
+
+def adopt_window_grid(grid, rp, shift):
+    """Make a grid the window grid of its own shape at global cell
+    `shift`, in place: the global extents, the global dx and dy and the
+    bitwise-global coordinates and geometry of the window.  A grid built
+    from the window's own extents can have a dx an ulp off the global
+    one."""
+    bg = _window_grid(type(grid), grid.ng, rp, (grid.nx, grid.ny), shift)
+    grid.__dict__.pop("_tensors", None)
+    grid.__dict__.update(bg.__dict__)
+    return grid
 
 
 def adopt_block_grid(grid, rp, mesh):
     """Make a block-sized grid (a block-local Simulation's) this rank's
-    block grid, in place: the global extents, the global dx and dy and the
-    bitwise-global coordinates and geometry of the block's window.  A grid
-    built from the block's own extents can have a dx an ulp off the
-    global one."""
-    bg = _rank_block_grid(type(grid), grid.ng, rp, mesh)
-    if (bg.nx, bg.ny) != (grid.nx, grid.ny):
+    block grid, in place (adopt_window_grid at the block's corner)."""
+    nx, ny = rp.get_param("mesh.nx"), rp.get_param("mesh.ny")
+    bx, by = nx // mesh.px, ny // mesh.py
+    if (bx, by) != (grid.nx, grid.ny):
         raise ValueError("the grid is not this rank's block")
-    grid.__dict__.pop("_tensors", None)
-    grid.__dict__.update(bg.__dict__)
-    return grid
+    return adopt_window_grid(grid, rp, (mesh.ix * bx, mesh.iy * by))
 
 
 def blockwise_init_interior(contract_data, problem_init, rp, mesh, *,

@@ -27,7 +27,21 @@ Each rank's block is padded with ghost cells filled from the neighbouring
 blocks; the blocks that own a domain edge then overwrite their ghosts with
 the physical fill.  Every function returns a new tensor and leaves its
 input as it was.
+
+The exchange of an axis can be split: `Mesh.ppermute_start` posts the
+pair's messages and `Pending.wait` takes them, so `halo_exchange_stack_start`
+returns a `PendingFill` whose `finish()` completes the fill, and work
+launched between the two overlaps the first split axis's messages
+(parallel/overlap.py).  The blocking calls are the two halves back to back.
+
+While `record_collectives()` is open, every collective a Mesh makes is
+tallied under the JAX primitive it stands for, with its per-rank payload
+bytes (parallel/accounting.py): a ppermute pair counts as two ppermutes,
+an axis of one block counts nothing, and a collective made inside a
+`dynamic_loop()` (the multigrid solve loop) marks the tally dynamic.
 """
+
+import contextlib
 
 import numpy as np
 import torch
@@ -37,9 +51,74 @@ import torch.nn.functional as F
 from pyro2_tpu_torch.defaults import resolve_device
 from pyro2_tpu_torch.mesh.indexer import _edge_fill
 
-__all__ = ["Mesh", "factor_devices", "make_mesh", "halo_exchange",
-           "halo_exchange_stack", "gated_physical_fill", "seam_exchange",
-           "deep_pad_exchange", "deep_phys_refresh"]
+__all__ = ["Mesh", "Pending", "PendingFill", "factor_devices", "make_mesh",
+           "halo_exchange", "halo_exchange_stack",
+           "halo_exchange_stack_start", "gated_physical_fill",
+           "seam_exchange", "deep_pad_exchange", "deep_phys_refresh",
+           "record_collectives", "dynamic_loop"]
+
+
+# the open recorders, and how deep the calling code is in marked loops
+_recorders = []
+_loop_depth = [0]
+
+
+class CollectiveRecord:
+    """The tally of one `record_collectives()`: {primitive: {"count",
+    "bytes"}} and whether a collective ran inside a `dynamic_loop()`."""
+
+    def __init__(self):
+        self.stats = {}
+        self.dynamic = False
+
+
+@contextlib.contextmanager
+def record_collectives():
+    """Tally every collective a Mesh makes while the context is open."""
+    rec = CollectiveRecord()
+    _recorders.append(rec)
+    try:
+        yield rec
+    finally:
+        _recorders.remove(rec)
+
+
+@contextlib.contextmanager
+def dynamic_loop():
+    """Mark a loop whose trip count depends on the data: a collective made
+    inside it marks the open recorders' tallies dynamic."""
+    _loop_depth[0] += 1
+    try:
+        yield
+    finally:
+        _loop_depth[0] -= 1
+
+
+def _record(primitive, count, *tensors):
+    if not _recorders:
+        return
+    nbytes = sum(t.numel() * t.element_size() for t in tensors)
+    for rec in _recorders:
+        ent = rec.stats.setdefault(primitive, {"count": 0, "bytes": 0})
+        ent["count"] += count
+        ent["bytes"] += nbytes
+        if _loop_depth[0]:
+            rec.dynamic = True
+
+
+class Pending:
+    """A posted ppermute pair: `wait()` returns (from_left, from_right)."""
+
+    def __init__(self, works, from_left, from_right, sent):
+        self._works = works
+        self._out = (from_left, from_right)
+        self._sent = sent            # the sources stay alive until the wait
+
+    def wait(self):
+        for work in self._works:
+            work.wait()
+        self._works, self._sent = (), ()
+        return self._out
 
 
 def factor_devices(n):
@@ -72,6 +151,13 @@ class Mesh:
         # axis -> (subgroup, global ranks along the axis in coordinate order)
         self._groups = groups or {}
 
+    @property
+    def owned_edges(self):
+        """(xl, xr, yl, yr): whether this rank's block owns each domain
+        edge (both edges of an axis: the axis is not split)."""
+        return (self.ix == 0, self.ix == self.px - 1, self.iy == 0,
+                self.iy == self.py - 1)
+
     def size(self, axis):
         return self.px if axis == "x" else self.py
 
@@ -82,11 +168,17 @@ class Mesh:
         """(from_left, from_right): the left neighbour's hi_src and the right
         neighbour's lo_src around the axis ring -- the JAX package's
         ppermute over `_ring_perm` and over `_ring_perm_rev`."""
+        return self.ppermute_start(axis, hi_src, lo_src).wait()
+
+    def ppermute_start(self, axis, hi_src, lo_src):
+        """Post ppermute_pair's messages; the returned Pending's `wait()`
+        gives its result."""
         n, idx = self.size(axis), self.index(axis)
         group, ring = self._groups[axis]
         right = ring[_ring_perm(n)[idx][1]]
         left = ring[_ring_perm_rev(n)[idx][1]]
         hi_src, lo_src = hi_src.contiguous(), lo_src.contiguous()
+        _record("ppermute", 2, hi_src, lo_src)
         from_left = torch.empty_like(hi_src)
         from_right = torch.empty_like(lo_src)
         # the tags keep the two messages apart when left == right (n == 2)
@@ -94,9 +186,8 @@ class Mesh:
                dist.P2POp(dist.irecv, from_left, left, group, tag=0),
                dist.P2POp(dist.isend, lo_src, left, group, tag=1),
                dist.P2POp(dist.irecv, from_right, right, group, tag=1)]
-        for work in dist.batch_isend_irecv(ops):
-            work.wait()
-        return from_left, from_right
+        return Pending(dist.batch_isend_irecv(ops), from_left, from_right,
+                       (hi_src, lo_src))
 
     def all_gather(self, axis, t, dim):
         """The blocks of the axis concatenated along `dim` in coordinate
@@ -105,6 +196,7 @@ class Mesh:
         if n == 1:
             return t
         t = t.contiguous()
+        _record("all_gather", 1, t)
         parts = [torch.empty_like(t) for _ in range(n)]
         dist.all_gather(parts, t, group=self._groups[axis][0])
         return torch.cat(parts, dim)
@@ -125,8 +217,13 @@ class Mesh:
         t = t.clone()
         for axis in ("x", "y"):
             if self.size(axis) > 1:
+                _record(_REDUCE_NAMES[op], 1, t)
                 dist.all_reduce(t, op=op, group=self._groups[axis][0])
         return t
+
+
+_REDUCE_NAMES = {dist.ReduceOp.SUM: "psum", dist.ReduceOp.MIN: "pmin",
+                 dist.ReduceOp.MAX: "pmax"}
 
 
 def make_mesh(n_devices=None, shape=None, *, device=None):
@@ -169,17 +266,31 @@ def make_mesh(n_devices=None, shape=None, *, device=None):
     return Mesh(shape, dev, divmod(rank, py), groups)
 
 
-def _exchange(a, mesh, axis, depth):
-    """Fill the depth-deep halos of one axis with the ring neighbours'
-    adjacent interior strips (in place)."""
+def _exchange_start(a, mesh, axis, depth):
+    """Post the exchange of one axis's depth-deep halos (None on an axis of
+    one block): (dim, depth, Pending)."""
     if mesh.size(axis) == 1:
-        return a
+        return None
     dim = a.ndim - 2 if axis == "x" else a.ndim - 1
     hi_src = a.narrow(dim, a.shape[dim] - 2 * depth, depth)
     lo_src = a.narrow(dim, depth, depth)
-    from_left, from_right = mesh.ppermute_pair(axis, hi_src, lo_src)
+    return dim, depth, mesh.ppermute_start(axis, hi_src, lo_src)
+
+
+def _exchange_finish(a, posted):
+    """Copy a posted exchange's strips into a's halos (in place)."""
+    dim, depth, pending = posted
+    from_left, from_right = pending.wait()
     a.narrow(dim, 0, depth).copy_(from_left)
     a.narrow(dim, a.shape[dim] - depth, depth).copy_(from_right)
+
+
+def _exchange(a, mesh, axis, depth):
+    """Fill the depth-deep halos of one axis with the ring neighbours'
+    adjacent interior strips (in place)."""
+    posted = _exchange_start(a, mesh, axis, depth)
+    if posted is not None:
+        _exchange_finish(a, posted)
     return a
 
 
@@ -219,36 +330,72 @@ def halo_exchange_stack(padded, local_grid, bcs, mesh):
     own BC, bcs[n]: one exchange of the whole stack a side, then each
     variable's physical fills, which gives halo_exchange's values variable
     by variable in 2 messages a split axis instead of 2 nvar."""
+    return halo_exchange_stack_start(padded, local_grid, bcs, mesh).finish()
+
+
+class PendingFill:
+    """A halo fill whose first split axis's messages are posted; `finish()`
+    waits for them and completes the fill (the same values as the blocking
+    fill), returning the filled copy."""
+
+    def __init__(self, steps, a):
+        self._steps = steps
+        self._a = a
+
+    def finish(self):
+        for _ in self._steps:
+            pass
+        return self._a
+
+
+def halo_exchange_stack_start(padded, local_grid, bcs, mesh):
+    """halo_exchange_stack up to its first message: the fills that need no
+    message run, the first split axis's strips are posted, and the
+    returned PendingFill completes the rest."""
     a = padded.clone()
-    return _fill(a, local_grid, list(zip(a, bcs, strict=True)), mesh)
+    steps = _fill_steps(a, local_grid, list(zip(a, bcs, strict=True)), mesh)
+    next(steps, None)
+    return PendingFill(steps, a)
 
 
 def _fill(a, g, planes, mesh):
     """The exchange of a (in place), x then y, each axis followed by the
     physical fills of each (plane of a, BC) pair."""
-    for axis in ("x", "y"):
-        _exchange(a, mesh, axis, g.ng)
-        for plane, bc in planes:
-            _physical(plane, g, bc, mesh, axis)
+    for _ in _fill_steps(a, g, planes, mesh):
+        pass
     return a
 
 
-def gated_physical_fill(a, local_grid, bc, mesh):
-    """Physical-BC ghost fill on the blocks that own a domain edge, with NO
-    halo exchange: for fields whose seam ghosts already hold their
-    pointwise values.  Periodic ghosts are likewise left, except on an
-    unsplit axis, where the local copy applies."""
+def _fill_steps(a, g, planes, mesh):
+    """_fill as a generator that stops once after posting each split axis's
+    messages (the x strips go before y, so corner ghosts take the
+    single-block fill's x-then-y order)."""
+    for axis in ("x", "y"):
+        posted = _exchange_start(a, mesh, axis, g.ng)
+        if posted is not None:
+            yield
+            _exchange_finish(a, posted)
+        for plane, bc in planes:
+            _physical(plane, g, bc, mesh, axis)
+
+
+def gated_physical_fill(a, local_grid, bc, owns):
+    """Physical-BC ghost fill on the edges in `owns` (xl, xr, yl, yr; a
+    Mesh's owned_edges, or an overlap band's), with NO halo exchange: for
+    fields whose seam ghosts already hold their pointwise values.
+    Periodic ghosts are likewise left, except on an axis whose two edges
+    are both owned (not split), where the local copy applies."""
     g = local_grid
     a = a.clone()
-    for edge, axis, side, nb, own in (
-            ("xlb", -2, 0, mesh.px, mesh.ix == 0),
-            ("xrb", -2, 1, mesh.px, mesh.ix == mesh.px - 1),
-            ("ylb", -1, 0, mesh.py, mesh.iy == 0),
-            ("yrb", -1, 1, mesh.py, mesh.iy == mesh.py - 1)):
+    for edge, axis, side, own, unsplit in (
+            ("xlb", -2, 0, owns[0], owns[0] and owns[1]),
+            ("xrb", -2, 1, owns[1], owns[0] and owns[1]),
+            ("ylb", -1, 0, owns[2], owns[2] and owns[3]),
+            ("yrb", -1, 1, owns[3], owns[2] and owns[3])):
         btype = getattr(bc, edge)
         dxy = g.dx if axis == -2 else g.dy
         if btype == "periodic":
-            if nb == 1:
+            if unsplit:
                 _edge_fill(a, g, axis, side, btype, None, dxy)
             continue
         if own:

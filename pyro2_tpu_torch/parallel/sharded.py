@@ -57,11 +57,16 @@ kernel (row 2), which covers only a subset of configurations, where row 1
 with its flags covers every one.  On the CPU the block step is the plain
 step with the same flags.
 
+`overlap=True` (compressible and swe) steps through
+overlap.build_overlapped_step: the block step on the unfilled padded block
+while the first split axis's halo messages are in flight, then four band
+steps on the filled block's rims; it equals the plain sharded step bit
+for bit.
+
 Refused, as in JAX: a grid that does not divide over the mesh, BCs other
 than the standard kinds and the registered extended ones, problems with
-`source_terms`, extended BCs or spherical geometry with `overlap`, and
-extended BCs on a spherical grid.  `overlap=True` otherwise raises
-NotImplementedError: the overlapped step (overlap.py) comes last in A.14.
+`source_terms`, extended BCs or spherical geometry with `overlap`, blocks
+narrower than 4 ng with `overlap`, and extended BCs on a spherical grid.
 """
 
 import importlib
@@ -166,62 +171,57 @@ class ShardedSim:
                     f"boundary '{b}' is not supported by the sharded "
                     "path (it would silently mis-fill block seams)")
         self._has_ext = ext_used
-        if ext_used and overlap:
-            raise ValueError(
-                "extended BCs are not supported by the overlapped step "
-                "variant yet; use overlap=False")
         if getattr(self._problem_mod, "source_terms", None) is not None:
             raise ValueError(
                 "problems with source_terms (global-coordinate heating) "
                 "have no sharded step")
         self._spherical = getattr(self.local_grid, "coord_type", 0) == 1
-        if self._spherical:
-            if overlap:
-                raise ValueError("overlap is not supported with "
-                                 "spherical geometry")
-            if ext_used:
-                raise ValueError("extended BCs are not supported with "
-                                 "spherical geometry in the sharded path")
-        if overlap:
-            raise NotImplementedError(
-                "the overlapped (halo-hiding) sharded step waits for a later "
-                "slice of the port (ROADMAP.md A.14: overlap.py comes last); "
-                "use overlap=False")
+        if self._spherical and ext_used:
+            raise ValueError("extended BCs are not supported with "
+                             "spherical geometry in the sharded path")
 
         # the block grid: the global dx and dy, bitwise-global coordinates
         # (for the extended fills too) and geometry
         adopt_block_grid(self.local_grid, rp, mesh)
         if self._spherical:
             self._window_geometry()
-        # the edges this rank's block owns: solid walls clamp and the
-        # viscosity stops only there
-        own = {"xl": mesh.ix == 0, "xr": mesh.ix == self.px - 1,
-               "yl": mesh.iy == 0, "yr": mesh.iy == self.py - 1}
-        self._owns = {e + "b": own[e] for e in _EDGES}
-        base = self.local_sim.solid
-        self.local_sim.solid = bnd.BCProp(
-            *(getattr(base, e) if own[e] else 0 for e in _EDGES))
-        if hasattr(self.local_sim, "domain_edges"):
-            self.local_sim.domain_edges = type(self.local_sim.domain_edges)(
-                *(int(own[e]) for e in _EDGES))
-        if hasattr(self.local_sim, "aux_data"):
-            # the in-step source ghost fill: gated, no exchange
-            self.local_sim.aux_data.fill_bc_stack = \
-                self._gated_stack_fill(self.local_sim.aux_data)
+        self._owns = {e + "b": o for e, o in zip(_EDGES, mesh.owned_edges)}
+        self._base_solid = self.local_sim.solid
         self._floor_mask = self._seam_floor_mask()
-
-        # the block step, built with the block's flags and geometry: the
-        # kernel wrapper (CTUStep, or MOLSubstep's stage increment for the
-        # method-of-lines solvers), which runs the plain step for CPU
-        # tensors
-        if solver == "swe":
-            from pyro2_tpu_torch.solvers.swe.swe_kernel import SWEStep
-            self._block_step = SWEStep(self.local_sim)
-        else:
-            self._block_step = self.local_sim._make_kernel_step()
+        # the block step, built with the block's flags and geometry
+        self._block_step = self.local_step(self.local_sim, mesh.owned_edges)
         self.local_sim._step = self._block_step
         self._dt_fn = self.local_sim._make_dt()
         self._global_sim = None
+        self._overlapped = None
+        if overlap:
+            from pyro2_tpu_torch.parallel.overlap import build_overlapped_step
+            self._overlapped = build_overlapped_step(self)
+
+    def local_step(self, sim, owns):
+        """The step of a block-local Simulation `sim` (this rank's block,
+        or an overlap band of it) with the solid and domain-edge flags of
+        the domain edges in `owns` (xl, xr, yl, yr: the Mesh's
+        owned_edges, or a band's): solid walls clamp and the viscosity
+        stops only there, and the in-step source ghost fill is gated the
+        same way,
+        with no exchange.  The kernel wrapper (CTUStep or SWEStep, or
+        MOLSubstep's stage increment for the method-of-lines solvers),
+        which runs the plain step for CPU tensors."""
+        own = dict(zip(_EDGES, owns))
+        base = self._base_solid
+        sim.solid = bnd.BCProp(
+            *(getattr(base, e) if own[e] else 0 for e in _EDGES))
+        if hasattr(sim, "domain_edges"):
+            sim.domain_edges = type(sim.domain_edges)(
+                *(int(own[e]) for e in _EDGES))
+        if hasattr(sim, "aux_data"):
+            sim.aux_data.fill_bc_stack = self._gated_stack_fill(
+                sim.aux_data, sim.cc_data.grid, owns)
+        if self.solver == "swe":
+            from pyro2_tpu_torch.solvers.swe.swe_kernel import SWEStep
+            return SWEStep(sim)
+        return sim._make_kernel_step()
 
     # -- the block's geometry, fills and floor ------------------------------
     def _window_geometry(self):
@@ -256,18 +256,17 @@ class ShardedSim:
                     U = bnd.ext_bcs[btype](btype, edge, name, data, U)
         return U
 
-    def _gated_stack_fill(self, aux_cc):
+    def _gated_stack_fill(self, aux_cc, g, owns):
         """A fill_bc_stack for a source stack whose ghosts are pointwise
         functions of the exchanged state: seam ghosts keep their pointwise
         values (what the serial fill leaves there) and only the blocks
-        that own a domain edge apply the physical and extended fills."""
-        g = self.local_grid
+        that own a domain edge (in `owns`) apply the physical and extended
+        fills."""
         names = list(aux_cc.names)
         bcs = [aux_cc.BCs[n] for n in names]
 
         def fill(stack, t=None):
-            stack = torch.stack([gated_physical_fill(stack[n], g, bc,
-                                                     self.mesh)
+            stack = torch.stack([gated_physical_fill(stack[n], g, bc, owns)
                                  for n, bc in enumerate(bcs)])
             if self._has_ext:
                 stack = self._apply_ext_fills(aux_cc, bcs, names, stack, t)
@@ -372,7 +371,9 @@ class ShardedSim:
 
     def step(self, U_int, t, dt):
         """One sharded step of this rank's (nvar, bx, by) interior block
-        (t, dt: host floats)."""
+        (t, dt: host floats); with `overlap`, the overlapped step."""
+        if self._overlapped is not None:
+            return self._overlapped(U_int, t, dt)
         return self._interior(self._block_step(self._step_input(U_int, t),
                                                t, dt))
 

@@ -97,13 +97,16 @@ def mg_for(bc, rp, mesh, dtype, **kw):
         yr_BC_type=kinds[3], dtype=dtype, **kw)
 
 
-def solve_inline(smg, v0, f, rtol, alpha, beta):
+def solve_inline(smg, v0, f, rtol, alpha=None, beta=None):
     """One sharded solve of (alpha - beta L) phi = f on this rank's
     (bx+2, by+2) blocks: the guess v0 and the right-hand side f (its ghost
-    ring unread).  The source norm is global, as the serial init_RHS's.
-    Returns the (bx+2, by+2) solution with depth-1 valid ghosts."""
-    smg.serial.alpha = alpha
-    smg.serial.beta = beta
+    ring unread); alpha and beta are set on the serial object first (None
+    for a coefficient operator, whose own planes hold it).  The source
+    norm is global, as the serial init_RHS's.  Returns the (bx+2, by+2)
+    solution with depth-1 valid ghosts."""
+    if alpha is not None:
+        smg.serial.alpha = alpha
+        smg.serial.beta = beta
     g = smg.soln_grid
     ss = smg.mesh.psum(torch.sum(f[1:-1, 1:-1] ** 2))
     sn = float(torch.sqrt(g.dx * g.dy * ss))

@@ -60,7 +60,7 @@ from pyro2_tpu_torch.multigrid.general_MG import GeneralMG2d
 from pyro2_tpu_torch.multigrid.MG import CellCenterMG2d
 from pyro2_tpu_torch.multigrid.variable_coeff_MG import VarCoeffCCMG2d
 from pyro2_tpu_torch.parallel.mesh_comm import (deep_pad_exchange,
-                                                halo_exchange)
+                                                dynamic_loop, halo_exchange)
 from pyro2_tpu_torch.util import msg
 
 __all__ = ["ShardedMG", "ShardedVarCoeffMG", "ShardedGeneralMG",
@@ -603,19 +603,21 @@ class ShardedMG:
         res = rel = 1.e33
         r = torch.zeros_like(v[1:-1, 1:-1])
         cycle, stall = 1, 0
-        while res > rtol and cycle <= self.max_cycles and stall < 2:
-            v2, r2 = self._cycle_local(v, f)
-            diff = ((v2 - v) / (v2 + small))[1:-1, 1:-1]
-            ss = self.mesh.psum(torch.stack([torch.sum(r2 ** 2),
-                                             torch.sum(diff ** 2)]))
-            rnorm, rel = torch.sqrt(g.dx * g.dy * ss).tolist()
-            new = rnorm / denom
-            stall = stall + 1 if new > 0.95 * res else 0
-            if self.verbose and self.mesh.ix == 0 and self.mesh.iy == 0:
-                print(f"sharded cycle {cycle}: relative err = {rel}, "
-                      f"residual err = {new}")
-            v, r, res = v2, r2, new
-            cycle += 1
+        # the trip count depends on the data (parallel/accounting.py)
+        with dynamic_loop():
+            while res > rtol and cycle <= self.max_cycles and stall < 2:
+                v2, r2 = self._cycle_local(v, f)
+                diff = ((v2 - v) / (v2 + small))[1:-1, 1:-1]
+                ss = self.mesh.psum(torch.stack([torch.sum(r2 ** 2),
+                                                 torch.sum(diff ** 2)]))
+                rnorm, rel = torch.sqrt(g.dx * g.dy * ss).tolist()
+                new = rnorm / denom
+                stall = stall + 1 if new > 0.95 * res else 0
+                if self.verbose and self.mesh.ix == 0 and self.mesh.iy == 0:
+                    print(f"sharded cycle {cycle}: relative err = {rel}, "
+                          f"residual err = {new}")
+                v, r, res = v2, r2, new
+                cycle += 1
         stats["solves"] += 1
         stats["cycles"] += cycle - 1
         return v, r, res, rel, cycle - 1
@@ -646,8 +648,10 @@ class ShardedVarCoeffMG(ShardedMG):
 
     The sharded twin of VarCoeffCCMG2d: the serial instance computes the
     coefficient hierarchy (cell-centred eta restricted down, averaged onto
-    edges pre-scaled by 1/dx^2) once; every sharded level's edge planes
-    are then laid out on this block's frame at that level's halo depth."""
+    edges pre-scaled by 1/dx^2); every sharded level's edge planes are
+    then laid out on this block's frame at that level's halo depth.
+    `install_coefficients` replaces the hierarchy before a solve (lm_atm's
+    projections: the coefficient changes with the density every step)."""
 
     def __init__(self, nx, ny, mesh, *,
                  xmin=0.0, xmax=1.0, ymin=0.0, ymax=1.0,
@@ -666,9 +670,27 @@ class ShardedVarCoeffMG(ShardedMG):
             nsmooth=nsmooth, nsmooth_bottom=nsmooth_bottom,
             coeffs=coeffs, coeffs_bc=coeffs_bc, verbose=0,
             device=mesh.device, dtype=dtype)
+        self.coeffs_bc = coeffs_bc
         self._setup_mesh(serial, mesh, verbose, comm_mode=comm_mode,
                          smoother=smoother, nsmooth_speed=nsmooth_speed,
                          use_pallas=use_pallas)
+
+    def install_coefficients(self, coeffs):
+        """Replace the coefficient hierarchy by that of eta = `coeffs` (the
+        global cell-centred eta: the (nx, ny) interior, or a padded frame
+        of which the interior is read), on every rank alike: its ghosts
+        filled with `coeffs_bc`, restricted down and averaged onto edges
+        by the serial construction's arithmetic
+        (VarCoeffCCMG2d.set_coefficients), the replicated levels left in
+        the serial object (which the coarse core reads at every call), the
+        sharded levels laid out on this block's frames, and the plain
+        operator's one-ghost views rebuilt.  The result equals a fresh
+        construction with that eta, bit for bit."""
+        self.serial.set_coefficients(coeffs, self.coeffs_bc)
+        self._planes = {k: self._coeff_layout(self.serial.planes[k], k)
+                        for k in range(self.k_cross, self.nlevels)}
+        self._ops = _LocalMGOps(self.serial, self.local_grids,
+                                self._ng1_view(), self.mesh)
 
 
 class ShardedGeneralMG(ShardedMG):

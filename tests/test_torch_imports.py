@@ -239,8 +239,9 @@ def test_chip_smoke_refuses_without_cuda(tmp_path):
 
 def test_sharded_slice_imports_without_cuda_or_jax():
     # the mesh layer, the launcher, the sharded multigrid with its kernel
-    # wrapper, ShardedDiffusion, the sharded hyperbolic and MOL tiers and
-    # the solvers with inline sharded solves import on a machine with
+    # wrapper, ShardedDiffusion, the sharded hyperbolic and MOL tiers, the
+    # solvers with inline sharded solves (lm_atm's too), the overlapped
+    # step and the accounting import on a machine with
     # neither CUDA nor JAX in the process, and never initialise
     # torch.distributed
     code = (
@@ -249,10 +250,10 @@ def test_sharded_slice_imports_without_cuda_or_jax():
         "import torch.distributed as dist\n"
         "assert not torch.cuda.is_available()\n"
         "import pyro2_tpu_torch.parallel as par\n"
-        "from pyro2_tpu_torch.parallel import blocks, launch, mesh_comm, "
-        "sharded, sharded_burgers_viscous, sharded_diffusion, "
-        "sharded_hyperbolic, sharded_incompressible, sharded_mg, "
-        "sharded_mol, sharded_particles\n"
+        "from pyro2_tpu_torch.parallel import accounting, blocks, launch, "
+        "mesh_comm, overlap, sharded, sharded_burgers_viscous, "
+        "sharded_diffusion, sharded_hyperbolic, sharded_incompressible, "
+        "sharded_lm_atm, sharded_mg, sharded_mol, sharded_particles\n"
         "from pyro2_tpu_torch.multigrid import sharded_mg_kernel as smk\n"
         "from pyro2_tpu_torch.util.carry import carry_block\n"
         "assert set(par.__all__) == {'Mesh', 'ShardedAdvection', "
@@ -260,10 +261,11 @@ def test_sharded_slice_imports_without_cuda_or_jax():
         "'ShardedCompressibleFV4', 'ShardedCompressibleRK', "
         "'ShardedCompressibleSDC', 'ShardedDiffusion', "
         "'ShardedGeneralMG', 'ShardedIncompressible', "
-        "'ShardedIncompressibleViscous', 'ShardedMG', 'ShardedSWE', "
-        "'ShardedSim', "
-        "'ShardedVarCoeffMG', 'ensemble_states', 'ensemble_step', "
-        "'factor_devices', 'halo_exchange', 'make_mesh', "
+        "'ShardedIncompressibleViscous', 'ShardedLMAtm', 'ShardedMG', "
+        "'ShardedSWE', 'ShardedSim', "
+        "'ShardedVarCoeffMG', 'build_overlapped_step', 'collective_stats', "
+        "'ensemble_states', 'ensemble_step', "
+        "'factor_devices', 'halo_exchange', 'halo_stats', 'make_mesh', "
         "'make_sharded_compressible_step', 'make_sharded_mg', "
         "'make_sharded_particle_advance'}\n"
         "assert set(smk.launches) == {'mg_deep_smooth', 'mg_correct'}\n"

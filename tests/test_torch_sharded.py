@@ -324,10 +324,12 @@ class TestShardedSelfSufficiency:
                                 problem="heating")
 
     def test_overlap_names_a14(self):
+        """The overlapped step that A.14 owed now builds (its bits are
+        tests/test_torch_overlap.py's); spherical grids stay refused."""
         rp = _params("pyro2_tpu_torch", CASES["advect"])
-        with pytest.raises(NotImplementedError, match=r"A\.14"):
-            ShardedCompressible(rp, make_mesh(device="cpu"),
-                                problem="advect", overlap=True)
+        sc = ShardedCompressible(rp, make_mesh(device="cpu"),
+                                 problem="advect", overlap=True)
+        assert len(sc._overlapped.bands) == 4
         with pytest.raises(ValueError, match="spherical"):
             ShardedCompressible(
                 _params("pyro2_tpu_torch", CASES["sph_outflow"]),

@@ -52,8 +52,8 @@ def exchanges(mesh, interior, cases, deep_cases):
         filled[:ng] += 7.0
         filled[-ng:] -= 3.0
         filled[:, :ng] += 5.0
-        out["gated_" + name] = mesh_comm.gated_physical_fill(filled, lg, bc,
-                                                             mesh)
+        out["gated_" + name] = mesh_comm.gated_physical_fill(
+            filled, lg, bc, mesh.owned_edges)
         out["seam_" + name] = mesh_comm.seam_exchange(filled, lg, mesh)
     for name, kinds, dpx, dpy in deep_cases:
         bc = _bc(kinds)
@@ -256,6 +256,82 @@ def sharded_solvers(mesh, cases):
             res["U"] = sh.gather()
         res["dts"] = dts
         out.append(res)
+    return out
+
+
+def sharded_lm_atm(mesh, params, steps):
+    """ShardedLMAtm bubble in float64: the preevolve and `steps` steps at
+    the sharded dt; every rank returns, gathered, the state after the
+    preevolve ("U_pre") and the final state ("U"), with the dts, t and
+    n."""
+    from pyro2_tpu_torch.parallel import ShardedLMAtm
+
+    s = ShardedLMAtm(_rp(params), mesh, problem="bubble", dtype=F64)
+    s.preevolve()
+    res = {"U_pre": s.gather()}
+    dts = []
+    for _ in range(steps):
+        s.method_compute_timestep()
+        dts.append(s.dt)
+        s.evolve()
+    res.update(U=s.gather(), dts=dts, t=s.t, n=s.n)
+    return res
+
+
+def overlapped(mesh, cases):
+    """Each case stepped by the plain and the overlapped sharded step from
+    this rank's blockwise initial state: {"cls", "problem", "params",
+    "steps", "dt"}; every rank returns both final states, gathered, and
+    the block-step launches a step of each (the wrappers' counts, which
+    only CUDA tensors advance, so 0 here)."""
+    from pyro2_tpu_torch import parallel
+
+    out = []
+    for case in cases:
+        cls = getattr(parallel, case["cls"])
+        plain = cls(_rp(case["params"]), mesh, problem=case["problem"],
+                    dtype=F64)
+        over = cls(_rp(case["params"]), mesh, problem=case["problem"],
+                   overlap=True, dtype=F64)
+        res = {}
+        for name, sh in (("plain", plain), ("overlap", over)):
+            U, t = sh.init_interior(), 0.0
+            for _ in range(case["steps"]):
+                U = sh.step(U, t, case["dt"])
+                t += case["dt"]
+            res[name] = sh.gather(U)
+        out.append(res)
+    return out
+
+
+def accounting(mesh, params, problem, n_mg, f):
+    """collective_stats of this rank's programs: a compressible step of
+    `problem` and its CFL dt ({"step", "dt"}), the overlapped step
+    ("overlap"), one cycle of an n_mg^2 ShardedMG with comm_mode "deep"
+    and "sweep" on the right-hand side f ("deep", "sweep"), a whole solve
+    ("solve"), and halo_stats of the compressible block ("halo")."""
+    from pyro2_tpu_torch.parallel import (ShardedCompressible,
+                                          collective_stats, halo_stats)
+
+    sc = ShardedCompressible(_rp(params), mesh, problem=problem, dtype=F64)
+    so = ShardedCompressible(_rp(params), mesh, problem=problem, dtype=F64,
+                             overlap=True)
+    U = sc.init_interior()
+    out = {"step": collective_stats(sc.step, U, 0.0, 0.002),
+           "dt": collective_stats(sc.compute_dt, U),
+           "overlap": collective_stats(so.step, U, 0.0, 0.002),
+           "halo": halo_stats(sc)}
+    for mode in ("deep", "sweep"):
+        mg = sharded_mg.ShardedMG(n_mg, n_mg, mesh, comm_mode=mode,
+                                  use_pallas=False)
+        mg.init_zeros()
+        mg.init_RHS(f)
+        pad = torch.nn.functional.pad
+        out[mode] = collective_stats(mg._cycle_local,
+                                     pad(mg.v_int, (1, 1, 1, 1)),
+                                     pad(mg.f_int, (1, 1, 1, 1)))
+        if mode == "deep":
+            out["solve"] = collective_stats(mg.solve, 1e-11)
     return out
 
 

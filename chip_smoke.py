@@ -189,7 +189,16 @@ Phases (any failure exits non-zero and prints no result line):
      steps (f32), the same n and output steps; each loop's host-clock
      ms/step, the graph's replays and frozen tail, the wrapper's count
      over the capturing run (a warm-up body and the chunk's bodies); the
-     device-dt entry's CUDA-event time;
+     device-dt entry's CUDA-event time.  Then the swe kernel's
+     device-dt entry against its host-dt entry (bits) and the plain step
+     on swe quad 1024^2, f64 (1e-12) and f32 (1e-5), its ptxas lines
+     beside the host-dt entry's; run_sim_fast against run_sim on swe quad
+     1024^2 and the ramp at its published 1024x256 for 200 steps, f64 by
+     bits and f32 to 1e-5 of the scale (the ramp: its mean |diff| to 1e-4
+     of its mean |U|), and swe dam 1024^2 with 256^2 grid particles
+     (f32); both loops' ms/step, replays and wrapper counts
+     on swe quad and the ramp (f32), and the swe device-dt entry's
+     CUDA-event time;
   5h. inhomogeneous multigrid BC values, the analytic solves and
      iterative refinement: mg_test_general_inhomogeneous's operator and
      Dirichlet values, and a constant Helmholtz operator with Neumann
@@ -314,10 +323,10 @@ Phases (any failure exits non-zero and prints no result line):
      by kernel and the device's busy share of the wall time; phase 5g's
      device kernels a kh step with and without particles, and one whole
      run of each loop (host and on-device) with its device-busy us/step
-     and idle share, and the device-dt k_ctu launches of the on-device
-     run as the profiler counts them (the replays times the chunk's
-     bodies, frozen ones included: the kernels line's launches of
-     ctu_step_device_dt). Each profiler
+     and idle share, and the device-dt k_ctu (k_swe on swe) launches of
+     the on-device run as the profiler counts them (the replays times the
+     chunk's bodies, frozen ones included: the kernels line's launches of
+     ctu_step_device_dt and swe_step_dev). Each profiler
      session idles 20 ms on each side of its calls and is made up to
      three times; if none records a device kernel, the
      wrappers' counts count the launches, CUDA events time them, and the
@@ -1852,13 +1861,20 @@ def checkpoint_on_card(quad):
 # source's and the spherical instantiation's
 DEVDT_CONFIGS = (("quad", "quad", {}), ("heating", "heating", {}),
                  ("sph_advect_cgf", "advect", SPH_ADVECT))
+# k_swe's device-dt entry the same way: (name, problem, inputs) at 1024^2
+SWE_DEVDT_CONFIGS = (("swe_quad", "quad", {}),)
+# the on-device loop's step kernel by solver: its wrapper's count and its
+# device kernel, one launch a body (advection's step launches none)
+LOOP_KERNELS = {"compressible": ("ctu_step", "k_ctu"),
+                "swe": ("swe_step", "k_swe")}
 # grid particles, 1024^2 of them, on kh at 1024^2
 PARTICLES_GRID = {"particles.do_particles": 1,
                   "particles.particle_generator": "grid"}
 
 
 def devdt_check(name, sim, tol):
-    """k_ctu's device-dt entry on a live simulation, one step from the
+    """k_ctu's (or k_swe's) device-dt entry on a live simulation, one
+    step from the
     same state after 3 kernel steps: its output equal by bits to the
     host-dt entry's with the same dt (the dt rounded to the state's dtype,
     as the on-device loop carries it), and within tol max|U| of the plain
@@ -2067,15 +2083,22 @@ def restorer(sim):
 
 
 def fast_vs_host(solver, problem, n, steps, dtype, tol, inputs=None,
-                 chunk=64):
+                 chunk=64, ny=None, f32_norm="max"):
     """run_sim_fast(chunk_steps=chunk) against run_sim on `problem` at n^2
-    for `steps` steps, output every steps / 2 (and by no dt_out: an f32
-    t crosses a dt_out multiple a step apart from the host loop's double)
-    into a temporary directory:
+    (n x ny with ny) for `steps` steps, output every steps / 2 (and by no
+    dt_out: an f32 t crosses a dt_out multiple a step apart from the host
+    loop's double) into a temporary directory:
     the same n and output steps; the states (and particles) equal by bits
     in float64 (the run stops at max_steps, so the tmax clamp never acts),
     within tol of the scale in float32, the files' states too; returns
-    max |diff| / scale."""
+    max |diff| / scale.  With f32_norm="mean" the float32 states are held
+    by their mean |diff| over the mean |U| instead (both are logged, and
+    the count of values beyond 1e-5 of the scale): where a shock is strong
+    (the ramp's Mach 10) or a fill is a step function of t (the ramp's top
+    ghosts: a quadrature point on one side of the front or the other), the
+    two loops' float32 rounding of dt and t moves the cells a shock or
+    front crosses by far more than the rounding, and the mean by little
+    (PERF.md)."""
     import glob
     import tempfile
 
@@ -2097,7 +2120,8 @@ def fast_vs_host(solver, problem, n, steps, dtype, tol, inputs=None,
                 np.random.seed(16)
                 p = Pyro(solver, dtype=dtype)
                 p.initialize_problem(problem, inputs_dict={
-                    "mesh.nx": n, "mesh.ny": n, "driver.max_steps": steps,
+                    "mesh.nx": n, "mesh.ny": ny or n,
+                    "driver.max_steps": steps,
                     "driver.tmax": 1.0e30, "io.n_out": steps // 2,
                     "io.dt_out": 1.0e30, "io.basename": "fast_",
                     **(inputs or {})})
@@ -2121,6 +2145,9 @@ def fast_vs_host(solver, problem, n, steps, dtype, tol, inputs=None,
               zip(sh + [ph.sim.cc_data.data], sf + [pf.sim.cc_data.data]))
     bits = all(torch.equal(a, b) for a, b in
                zip(sh + [ph.sim.cc_data.data], sf + [pf.sim.cc_data.data]))
+    mean = max(float((interior(a, g) - interior(b, g)).abs().mean() /
+                     interior(a, g).abs().mean()) for a, b in
+               zip(sh + [ph.sim.cc_data.data], sf + [pf.sim.cc_data.data]))
     parts = ""
     if ph.sim.particles is not None:
         a, b = ph.sim.particles, pf.sim.particles
@@ -2132,32 +2159,38 @@ def fast_vs_host(solver, problem, n, steps, dtype, tol, inputs=None,
             raise AssertionError(f"{problem}: the fast loop's particles "
                                  f"differ ({perr:.3e}, active {same})")
     f64 = dtype == torch.float64
+    close = mean <= tol if f32_norm == "mean" else err <= tol * scale
+    beyond = sum(int(((a - b).abs() > 1e-5 * scale).sum()) for a, b in
+                 zip(sh + [ph.sim.cc_data.data], sf + [pf.sim.cc_data.data]))
     ok = (ph.sim.n == pf.sim.n == steps and fh == ff and len(fh) >= 3 and
-          (bits if f64 else err <= tol * scale))
-    log(f"  {'ok ' if ok else 'BAD'} {solver} {problem} {n}x{n} "
+          (bits if f64 else close))
+    log(f"  {'ok ' if ok else 'BAD'} {solver} {problem} {n}x{ny or n} "
         f"{str(dtype)[6:]}: fast loop (chunk {chunk}) against the host loop,"
         f" n {pf.sim.n} / {ph.sim.n}, output steps {ff} / {fh}, bits "
-        f"{bits}, max|diff| {err:.3e} (scale {scale:.4g}){parts}")
+        f"{bits}, max|diff| {err:.3e} (scale {scale:.4g}), mean|diff| / "
+        f"mean|U| {mean:.3e} (held by the {f32_norm if not f64 else 'bits'}"
+        f"), {beyond} values beyond 1e-5 x scale{parts}")
     if not ok:
         raise AssertionError(f"{problem}: the fast loop differs")
     return err / scale
 
 
 def fast_loop_timing(solver, problem, n, steps, dtype, smi, inputs=None,
-                     chunk=64):
+                     chunk=64, ny=None):
     """Host-clock ms/step of run_sim and of run_sim_fast on `problem` at
-    n^2 (steps steps, no output, each after a first run: the kernels'
-    loads, the graph's capture), the capture run's seconds, the replays
+    n^2 (n x ny with ny; steps steps, no output, each after a first run:
+    the kernels' loads, the graph's capture), the capture run's seconds,
+    the replays
     and the frozen tail; the wrappers' counts over the capturing run
     (reset just before, read just after): one warm-up body and the
-    chunk's bodies launch ctu_step where the solver's step is the CTU
-    kernel, and nothing else launches.  The returned function (section 7
-    calls it) profiles one whole run of each loop: device-busy us/step
-    and idle share, and for the on-device loop the launches of k_ctu's
-    device-dt entry as the profiler counts them, which must be the
-    profiled run's replays times the chunk's bodies (none of the host-dt
-    entry); it returns that count.  Returns (host ms, fast ms, replays,
-    frozen) and the profiling function."""
+    chunk's bodies launch the solver's step kernel (LOOP_KERNELS: ctu_step
+    or swe_step), and nothing else launches.  The returned function
+    (section 7 calls it) profiles one whole run of each loop: device-busy
+    us/step and idle share, and for the on-device loop the launches of the
+    step kernel's device-dt entry as the profiler counts them, which must
+    be the profiled run's replays times the chunk's bodies (none of a
+    host-dt entry); it returns that count.  Returns (host ms, fast ms,
+    replays, frozen) and the profiling function."""
     import re
 
     import numpy as np
@@ -2166,13 +2199,15 @@ def fast_loop_timing(solver, problem, n, steps, dtype, smi, inputs=None,
     from pyro2_tpu_torch import Pyro
     from pyro2_tpu_torch.driver_loop import make_chunk_runner, run_sim_fast
 
-    ctu_per_body = 1 if solver == "compressible" else 0
+    entry, kern = LOOP_KERNELS.get(solver, (None, None))
+    per_body = 1 if entry else 0
+    what = f"{solver} {problem} {n}x{ny or n} {str(dtype)[6:]}"
 
     def fresh():
         np.random.seed(16)
         p = Pyro(solver, dtype=dtype)
         p.initialize_problem(problem, inputs_dict={
-            "mesh.nx": n, "mesh.ny": n, "driver.max_steps": steps,
+            "mesh.nx": n, "mesh.ny": ny or n, "driver.max_steps": steps,
             "driver.tmax": 1.0e30, **(inputs or {})})
         return p
 
@@ -2202,14 +2237,14 @@ def fast_loop_timing(solver, problem, n, steps, dtype, smi, inputs=None,
                 captured = {k: v for k, v in all_counts().items() if v}
     replays = runner.replays - replays0
     frozen = replays * chunk - fast.sim.n
-    expect = {"ctu_step": chunk + 1} if ctu_per_body else {}
+    expect = {entry: chunk + 1} if per_body else {}
     if fast.sim.n != steps or captured != expect:
         raise AssertionError(f"{problem} fast loop: {fast.sim.n} steps, "
                              f"the capturing run's wrapper counts "
                              f"{captured}, expected {expect}")
     host_ms = 1e3 * seconds["host", 1] / steps
     fast_ms = 1e3 * seconds["fast", 1] / steps
-    log(f"  {solver} {problem} {n}x{n} {str(dtype)[6:]}: host loop "
+    log(f"  {what}: host loop "
         f"{host_ms:.4f} ms/step; fast loop {fast_ms:.4f} ms/step ({steps} "
         f"steps, {replays} replays of a {chunk}-body graph, {frozen} frozen "
         f"bodies in the tail); the first runs {seconds['host', 0]:.3f} s, "
@@ -2226,36 +2261,38 @@ def fast_loop_timing(solver, problem, n, steps, dtype, smi, inputs=None,
             last["replays"] = runner.replays - before
 
         devdt = None
-        for label, fn in (("host", lambda: (restore["host"](), host_run())),
-                          ("fast", fast_once)):
+        for loop, fn in (("host", lambda: (restore["host"](), host_run())),
+                         ("fast", fast_once)):
             rows, wall = profiled(fn, 1)
             if not rows:
-                log(f"  {label} loop: device time not measured (the "
+                log(f"  {loop} loop: device time not measured (the "
                     "profiler recorded no device kernel)")
                 continue
             busy = sum(us for *_, us in rows)
-            log(f"  {solver} {problem} {n}x{n} {str(dtype)[6:]}, {label} "
+            log(f"  {what}, {loop} "
                 f"loop, one run of {steps} steps: device busy "
                 f"{busy / steps:.1f} us/step, "
                 f"{100 - 100 * busy / wall:.1f}% idle, "
                 f"{sum(c for _, c, _ in rows) / steps:.1f} device kernels "
                 f"a step; {smi}")
-            if label == "fast":
-                ctu = {}
+            if loop == "fast":
+                steps_k = {}
                 for key, count, _ in rows:
-                    m = re.search(r"(k_ctu)<([^<>]*)>", key)
+                    m = re.search(r"(k_ctu|k_swe)<([^<>]*)>", key)
                     if m:
-                        name = kernel_name(m.group(1), m.group(2).split(", "))
-                        ctu[name] = ctu.get(name, 0) + count
-                devdt = sum(c for k, c in ctu.items() if "device dt" in k)
-                want = last["replays"] * chunk * ctu_per_body
-                log(f"  the on-device run's k_ctu launches (profiler): "
-                    f"{ctu}; {last['replays']} replays x {chunk} bodies x "
-                    f"{ctu_per_body} = {want}")
-                if devdt != want or sum(ctu.values()) != devdt:
+                        k = kernel_name(m.group(1), m.group(2).split(", "))
+                        steps_k[k] = steps_k.get(k, 0) + count
+                devdt = sum(c for k, c in steps_k.items() if kern and
+                            k.startswith(kern) and "device dt" in k)
+                want = last["replays"] * chunk * per_body
+                log(f"  the on-device run's step-kernel launches "
+                    f"(profiler): {steps_k}; {last['replays']} replays x "
+                    f"{chunk} bodies x {per_body} = {want}")
+                if devdt != want or sum(steps_k.values()) != devdt:
                     raise AssertionError(
-                        f"{problem} fast loop: k_ctu launches {ctu}, "
-                        f"expected {want} of the device-dt entry alone")
+                        f"{problem} fast loop: step-kernel launches "
+                        f"{steps_k}, expected {want} of the {kern} "
+                        "device-dt entry alone")
         if devdt is None:
             raise AssertionError(f"{problem} fast loop: the profiler "
                                  "recorded no device kernel; the device-dt "
@@ -4845,6 +4882,9 @@ def kernel_name(kernel, args):
         geometry = "spherical" if args[2] in ("true", "1") else "cartesian"
         devdt = ", device dt" if args[3:4] in (["true"], ["1"]) else ""
         return f"k_ctu<{args[0]}, nvar {args[1]}, {geometry}{devdt}>"
+    if kernel == "k_swe" and len(args) == 3:   # <T, NV, DEVDT>
+        devdt = ", device dt" if args[2] in ("true", "1") else ""
+        return f"k_swe<{args[0]}, {args[1]}{devdt}>"
     if kernel in ("k_rk", "k_fv4") and len(args) == 3:   # <T, NV, X>
         if args[2] in ("true", "1"):
             return f"{kernel}<{args[0]}, {args[1]}, extended>"
@@ -4926,6 +4966,8 @@ def main():
         for line in ptxas_summary(ptxas):
             log("    " + line)
             for head in ("k_ctu<float, nvar 4, cartesian>", "k_swe<float, 4>",
+                         "k_swe<float, 4, device dt>", "k_swe<double, 4>",
+                         "k_swe<double, 4, device dt>",
                          "k_down<const, float>", "k_down<vc, float>",
                          "k_down<general, float>", "k_rk<float, 4>",
                          "k_rk<double, 4>",
@@ -5201,6 +5243,16 @@ def main():
             if dtype == torch.float32:
                 devdt_err[name] = err
             torch.cuda.empty_cache()
+    log(f"[swe_step's device-dt entry vs its host-dt entry (bits) and the "
+        f"plain step at 1024^2; {smi}]")
+    for dtype, tol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
+        for name, problem, inputs in SWE_DEVDT_CONFIGS:
+            err = devdt_check(name, make_sim(problem, {
+                "mesh.nx": 1024, "mesh.ny": 1024, **inputs}, dtype,
+                solver="swe"), tol)
+            if dtype == torch.float32:
+                devdt_err[name] = err
+            torch.cuda.empty_cache()
     log(f"[particles: kh 1024^2 float32, without and with 1024^2 grid "
         f"particles, Pyro -> run_sim; {smi}]")
     kh_pyros, _ = particles_on_card()
@@ -5223,16 +5275,36 @@ def main():
         torch.cuda.empty_cache()
     fast_vs_host("advection", "smooth", 1024, 100, torch.float32, 1e-5,
                  inputs=advect_particles)
+    log(f"[the on-device loop on swe and the ramp's moving front: "
+        f"run_sim_fast against run_sim; {smi}]")
+    for dtype, tol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
+        fast_vs_host("swe", "quad", 1024, 200, dtype, tol)
+        torch.cuda.empty_cache()
+        # float32: the mean norm at 1e-4 (fast_vs_host): a front frozen at
+        # t = 0 moves it by ~0.2 (256 x 64 on the CPU), the loops' rounding
+        # by ~5e-6
+        fast_vs_host("compressible", "ramp", 1024, 200, dtype,
+                     tol if dtype == torch.float64 else 1e-4, ny=256,
+                     f32_norm="mean")
+        torch.cuda.empty_cache()
+    fast_vs_host("swe", "dam", 1024, 200, torch.float32, 1e-5,
+                 inputs={**PARTICLES_GRID, "particles.n_particles": 256 * 256,
+                         "mesh.ymax": 1.0})
+    torch.cuda.empty_cache()
     log(f"[the on-device loop against the host loop: host-clock ms/step, "
         f"replays, launches; {smi}]")
     loop_profiles = []
-    for solver, problem, steps, dtype, inputs in (
-            ("compressible", "quad", 200, torch.float32, None),
-            ("compressible", "quad", 200, torch.float64, None),
-            ("advection", "smooth", 100, torch.float32, advect_particles)):
+    for solver, problem, steps, dtype, inputs, ny in (
+            ("compressible", "quad", 200, torch.float32, None, None),
+            ("compressible", "quad", 200, torch.float64, None, None),
+            ("advection", "smooth", 100, torch.float32, advect_particles,
+             None),
+            ("swe", "quad", 200, torch.float32, None, None),
+            ("compressible", "ramp", 200, torch.float32, None, 256)):
         _, prof = fast_loop_timing(solver, problem, 1024, steps, dtype, smi,
-                                   inputs=inputs)
+                                   inputs=inputs, ny=ny)
         loop_profiles.append(prof)
+        torch.cuda.empty_cache()
     torch.cuda.empty_cache()
     log(f"[timing: ctu_step's device-dt entry at quad 1024^2 float32, CUDA "
         f"events; {smi}]")
@@ -5250,6 +5322,27 @@ def main():
         lambda: dstep.plain(dU, 0.0, float(d_dt)),
         ctu_kernel.work(g.nx, g.ny, dsim.ivars.nvar, torch.float32,
                         dstep.with_sources), bw, fp32)
+    log(f"[timing: swe_step's device-dt entry at swe quad 1024^2 float32, "
+        f"CUDA events, beside its host-dt entry; {smi}]")
+    wsim = make_sim("quad", {"mesh.nx": 1024, "mesh.ny": 1024},
+                    torch.float32, solver="swe")
+    wsim.cc_data.fill_BC_all()
+    wsim.compute_timestep()
+    wU = wsim.cc_data.data
+    w_dt = torch.tensor(wsim.dt, dtype=wU.dtype, device=wU.device)
+    w_host = float(w_dt)         # read once: a read a call would time it
+    wstep = wsim._step
+    g = wsim.cc_data.grid
+    w_work = swe_kernel.work(g.nx, g.ny, wsim.ivars.nvar, torch.float32,
+                             wstep.method)
+    swe_devdt_times = time_pair(
+        f"swe_step device dt (quad {g.nx}x{g.ny}, {wstep.method})",
+        lambda: wstep.launch(wU, 0.0, w_dt),
+        lambda: wstep.plain(wU, 0.0, w_host), w_work, bw, fp32)
+    time_pair(f"swe_step host dt, the same call (quad {g.nx}x{g.ny})",
+              lambda: wstep.launch(wU, 0.0, w_host),
+              lambda: wstep.plain(wU, 0.0, w_host), w_work, bw, fp32)
+    del wsim, wU, wstep
 
     # 5h. inhomogeneous multigrid BC values, the analytic solves and
     # iterative refinement
@@ -5704,7 +5797,8 @@ def main():
     particles_profile(kh_pyros, smi)
     # the kernels line's launches: the f32 quad on-device run's, from the
     # profiler
-    devdt_launches = [prof() for prof in loop_profiles][0]
+    loop_launches = [prof() for prof in loop_profiles]
+    devdt_launches, swe_devdt_launches = loop_launches[0], loop_launches[3]
     profiler_records(swe_call, smi)
 
     kernels = [{
@@ -5957,6 +6051,20 @@ def main():
         "replaces": "pyro2_tpu/solvers/compressible/pallas_step.py:603",
         "launches": devdt_launches,
         "max_abs_err": devdt_err["quad"],
+        "ms": ms,
+        "plain_ms": p_ms,
+        "bound_ms": b_ms,
+        "bound_by": b_by,
+        "library_ms": None,
+    })
+    ms, p_ms, b_ms, b_by = swe_devdt_times
+    kernels.append({
+        "name": "swe_step_dev",
+        "route": "cuda",
+        "source": "pyro2_tpu_torch/csrc/swe_step.cu",
+        "replaces": "pyro2_tpu/solvers/swe/pallas_step.py:75",
+        "launches": swe_devdt_launches,
+        "max_abs_err": devdt_err["swe_quad"],
         "ms": ms,
         "plain_ms": p_ms,
         "bound_ms": b_ms,

@@ -56,6 +56,17 @@
 // only where the intermediates live changed.  The entry points return the
 // launch's cudaGetLastError().
 //
+// The device-dt entries swe_step_dev_{f32,f64} take dt as a pointer to one
+// value of the state's dtype in device memory, which the kernel reads into
+// its parameter block before anything else (DEVDT), so a launch reads no
+// value from the host and can be captured into a CUDA graph whose replays
+// each take the dt the graph computed (driver_loop.py).  For the same dt
+// they give the host-dt entries' bits: the kernel converts the value to
+// double, as the wrapper's float(dt) does, and the arithmetic is the same.
+// They take the host-dt entries' 4..MAXVAR variables, Riemann solvers and
+// limiters; the host-dt entries keep their own instantiations (DEVDT
+// false).
+//
 // Build (see swe_kernel.py and util/cuda_build.py):
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -fmad=false
 //        -shared -Xcompiler -fPIC -o libswe_step.so swe_step.cu
@@ -372,12 +383,16 @@ Plan load_plan(const int* t) {
 // the faces of the traced states (ST planes f * NV + n)
 enum { LOX = 0, HIX = 1, LOY = 2, HIY = 3 };
 
-// one step of the tile (blockIdx.y, blockIdx.x)
-template <typename T, int NV>
+// one step of the tile (blockIdx.y, blockIdx.x); with DEVDT the step's dt
+// is *dtp, in place of the parameter block's
+template <typename T, int NV, bool DEVDT>
 __global__ void __launch_bounds__(SweLaunch<T>::threads,
                                   SweLaunch<T>::blocks)
-    k_swe(const T* __restrict__ U, T* __restrict__ out, const SweFixed<NV> p,
-          const Plan t) {
+    k_swe(const T* __restrict__ U, T* __restrict__ out,
+          const SweFixed<NV> pin, const Plan t, const T* __restrict__ dtp) {
+  SweFixed<NV> pdev = pin;
+  if constexpr (DEVDT) pdev.dt = double(*dtp);
+  const SweFixed<NV>& p = DEVDT ? pdev : pin;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sm = reinterpret_cast<T*>(smem_raw);
   const int tid = threadIdx.x, nt = blockDim.x;
@@ -572,12 +587,14 @@ bool apart(long a, long na, long b, long nb) {
 }
 
 // one launch of the NV-variable kernel with the plan's tile and shared
-// memory (the opt-in above 48 KB is set once per kernel and size)
-template <typename T, int NV>
+// memory (the opt-in above 48 KB is set once per kernel and size: the
+// on-device loop's warm-up body sets the device-dt instance's before its
+// capture)
+template <typename T, int NV, bool DEVDT>
 int launch(const T* U, T* out, const SweParams& base, const Plan& t,
-           cudaStream_t st) {
+           const T* dtp, cudaStream_t st) {
   static int opted = 0;
-  auto kernel = k_swe<T, NV>;
+  auto kernel = k_swe<T, NV, DEVDT>;
   if (t.smem > opted) {
     cudaError_t e = cudaFuncSetAttribute(
         (const void*)kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -587,14 +604,29 @@ int launch(const T* U, T* out, const SweParams& base, const Plan& t,
   }
   SweFixed<NV> p;
   static_cast<SweParams&>(p) = base;
-  kernel<<<dim3(t.bx, t.by), t.threads, t.smem, st>>>(U, out, p, t);
+  kernel<<<dim3(t.bx, t.by), t.threads, t.smem, st>>>(U, out, p, t, dtp);
   return (int)cudaGetLastError();
 }
 
+// the variable count and where dt comes from, as template arguments
+template <typename T, bool DEVDT>
+int by_nvar(const T* U, T* out, const SweParams& p, const Plan& t,
+            const T* dtp, cudaStream_t st) {
+  switch (p.nvar) {
+    case 4: return launch<T, 4, DEVDT>(U, out, p, t, dtp, st);
+    case 5: return launch<T, 5, DEVDT>(U, out, p, t, dtp, st);
+    case 6: return launch<T, 6, DEVDT>(U, out, p, t, dtp, st);
+    case 7: return launch<T, 7, DEVDT>(U, out, p, t, dtp, st);
+    case 8: return launch<T, 8, DEVDT>(U, out, p, t, dtp, st);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// dtp: the device dt of the device-dt entries, nullptr for the host dt
 template <typename T>
 int run(const T* U, T* out, const int* ip, const double* dp, const int* tp,
-        cudaStream_t st) {
-  static_assert(MAXVAR == 8, "run instantiates 4..8 variables");
+        const T* dtp, cudaStream_t st) {
+  static_assert(MAXVAR == 8, "by_nvar instantiates 4..8 variables");
   const SweParams p = load_params(ip, dp);
   const Plan t = load_plan(tp);
   if (p.nvar < 4 || p.nvar > MAXVAR || p.nx < 1 || p.ny < 1 ||
@@ -617,14 +649,8 @@ int run(const T* U, T* out, const int* ip, const double* dp, const int* tp,
       t.st + nst > end || t.f1 + nf1 > end || !apart(t.st, nst, t.q, nq) ||
       !apart(t.st, nst, t.f1, nf1))
     return (int)cudaErrorInvalidValue;
-  switch (p.nvar) {
-    case 4: return launch<T, 4>(U, out, p, t, st);
-    case 5: return launch<T, 5>(U, out, p, t, st);
-    case 6: return launch<T, 6>(U, out, p, t, st);
-    case 7: return launch<T, 7>(U, out, p, t, st);
-    case 8: return launch<T, 8>(U, out, p, t, st);
-  }
-  return (int)cudaErrorInvalidValue;
+  return dtp != nullptr ? by_nvar<T, true>(U, out, p, t, dtp, st)
+                        : by_nvar<T, false>(U, out, p, t, nullptr, st);
 }
 
 }  // namespace
@@ -634,10 +660,26 @@ extern "C" int swe_plan_ints() { return PLAN_INTS; }
 
 extern "C" int swe_step_f32(const float* U, float* out, const int* ip,
                             const double* dp, const int* plan, void* stream) {
-  return run<float>(U, out, ip, dp, plan, (cudaStream_t)stream);
+  return run<float>(U, out, ip, dp, plan, nullptr, (cudaStream_t)stream);
 }
 
 extern "C" int swe_step_f64(const double* U, double* out, const int* ip,
                             const double* dp, const int* plan, void* stream) {
-  return run<double>(U, out, ip, dp, plan, (cudaStream_t)stream);
+  return run<double>(U, out, ip, dp, plan, nullptr, (cudaStream_t)stream);
+}
+
+// the same step with dt read from device memory (dt: one value of the
+// state's dtype; the dt in dp is not read)
+extern "C" int swe_step_dev_f32(const float* U, float* out, const int* ip,
+                                const double* dp, const int* plan,
+                                const float* dt, void* stream) {
+  if (dt == nullptr) return (int)cudaErrorInvalidValue;
+  return run<float>(U, out, ip, dp, plan, dt, (cudaStream_t)stream);
+}
+
+extern "C" int swe_step_dev_f64(const double* U, double* out, const int* ip,
+                                const double* dp, const int* plan,
+                                const double* dt, void* stream) {
+  if (dt == nullptr) return (int)cudaErrorInvalidValue;
+  return run<double>(U, out, ip, dp, plan, dt, (cudaStream_t)stream);
 }

@@ -10,13 +10,16 @@ finished check.
 
 On CUDA a chunk is one `torch.cuda.CUDAGraph`, captured once per
 (simulation, chunk_steps) and replayed: the carry lives in static buffers
-that each body copies its results into, and the CTU step reads its dt
-from device memory (`CTUStep` with a tensor dt launches `k_ctu`'s
-device-dt entry).  Before the capture one body runs on a copy of the
-carry, so the kernels build and the caches (the weight plane, the
-geometry buffer, the advection velocity planes) fill outside the graph.
-A failed capture raises; there is no fallback to the step-by-step loop.
-On the CPU the same bodies run eagerly in a Python loop.
+that each body copies its results into, and the step reads its dt from
+device memory (`CTUStep` with a tensor dt launches `k_ctu`'s device-dt
+entry, `SWEStep` `k_swe`'s).  Before the capture one body runs on a copy
+of the carry, so the kernels build, each device-dt kernel opts into its
+shared memory, and the caches (the weight plane, the geometry buffer, the
+advection velocity planes, the ramp's front geometry) fill outside the
+graph; the cyclic garbage collector runs before the capture and is held
+off during it.  A failed capture raises; there is no fallback to the
+step-by-step loop.  On the CPU the same bodies run eagerly in a Python
+loop.
 
 Output cadence is exact (simulation_null.do_output): a body freezes --
 leaves the whole carry as it found it, by selection on the device --
@@ -32,12 +35,16 @@ step.  t and dt are carried in the state's dtype, so an f32 run's dt is
 an f32 value where the host loop's is a double.
 
 Covered: the solvers that declare `device_loop` (the compressible CTU
-solver and advection, whose `evolve` is their step).  A solver without
-`_dt_fn` raises TypeError, as in the JAX package; the others (the RK,
-fv4, SDC, react and WENO subclasses, swe) and a problem whose ghost fill
-reads t on the host (a BC registered with reads_host_time) raise
-NotImplementedError naming ROADMAP.md A.28.
+solver, advection and swe, whose `evolve` is their step, particles
+included), with every problem of theirs: the ramp's moving shock front is
+computed on the device from the carried t (compressible/BC.py).  A solver
+without `_dt_fn` raises TypeError, as in the JAX package; the others (the
+RK, fv4, SDC, react and WENO subclasses) and a problem whose ghost fill
+reads t on the host (a BC registered with reads_host_time; none of the
+port's is) raise NotImplementedError naming ROADMAP.md A.28.
 """
+
+import gc
 
 import torch
 
@@ -178,9 +185,20 @@ class ChunkRunner:
         torch.cuda.current_stream().wait_stream(side)
         torch.cuda.synchronize()
 
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            self._chunk(carry)
+        # an earlier runner's graph that the cyclic collector destroys
+        # inside the capture frees its memory there, which invalidates the
+        # capture (torch.cuda.graph no longer collects first): collect
+        # before, and not during
+        gc.collect()
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                self._chunk(carry)
+        finally:
+            if collecting:
+                gc.enable()
         self.graph = graph
 
     def __call__(self, carry):

@@ -196,8 +196,9 @@ def check(mg):
     the kernels cover this MG configuration."""
     op = flavour(mg)
     if mg.ng != 1 or mg.nx != mg.ny or mg.nx & (mg.nx - 1):
-        raise Ineligible("the multigrid kernels take ng=1 on a square "
-                         "power-of-2 grid")
+        raise Ineligible(
+            f"the multigrid kernels take ng=1 on a square power-of-2 grid, "
+            f"not ng={mg.ng} on {mg.nx}x{mg.ny} (ROADMAP.md A.30)")
     for bc in mg.bc_v:
         if ZERO in edge_kinds(bc) and op != "const":
             raise Ineligible(

@@ -8,6 +8,15 @@ for the double Mach reflection problem).
 Contract (see pyro2_tpu_torch.mesh.boundary.define_bc): the function fills
 the ghosts of one variable of the full state stack in place and returns
 the stack.
+
+The ramp's fills run on the device alone: its shock front is computed from
+the container's t -- a float on the host loop, the 0-d tensor that
+fill_bc_stack(U, t) is given on the on-device loop -- in the state's dtype,
+over geometry copied to the device once per grid, dtype and device
+(`ramp_geometry`), so a fill reads nothing from the host and a captured
+CUDA graph replays it with the t it carries.  In float64 the two give the
+same bits, which are those of the numpy arithmetic the JAX package's fill
+does on the host.
 """
 
 import math
@@ -45,6 +54,49 @@ def _hse_energy(stack, ccdata, v, j_base, sign):
         else:
             pres_k = pres_base + k * grav * dens_base * myg.dy
         v[:, j_base + sign * k] = eos.rhoe(gamma, pres_k) + ke_base
+
+
+# the shock's angle and the speed of its front along the top edge
+_TAN60 = math.tan(math.pi / 3.0)
+_FRONT_SPEED = 10.0 / math.sin(math.pi / 3.0)
+
+
+def ramp_geometry(myg, like):
+    """(cx, offset, inflow) of the ramp's fills on `like`'s device in its
+    dtype, made once per grid, dtype and device: cx (2, qx), the two
+    abscissae of each cell's 4-point quadrature; offset (ng, 2), the front's
+    abscissa at t = 0 at the lower and upper quadrature ordinate of each
+    top ghost row (the front at t is offset + _FRONT_SPEED * t, evaluated
+    in that order as the host's double arithmetic does); inflow (qx,),
+    x < 1/6, where the bottom edge takes the post-shock state."""
+    key = (like.dtype, like.device)
+    cache = myg.__dict__.setdefault("_ramp_geometry", {})
+    if key not in cache:
+        half_x = 0.5 * myg.dx * math.sqrt(3)
+        half_y = 0.5 * myg.dy * math.sqrt(3)
+        cx = np.stack([myg.x - half_x, myg.x + half_x])
+        offset = np.asarray(
+            [[1.0 / 6.0 + (myg.y[j] - half_y) / _TAN60,
+              1.0 / 6.0 + (myg.y[j] + half_y) / _TAN60]
+             for j in range(myg.jhi + 1, myg.jhi + myg.ng + 1)])
+        as_like = {"dtype": like.dtype, "device": like.device}
+        cache[key] = (torch.as_tensor(cx, **as_like),
+                      torch.as_tensor(offset, **as_like),
+                      torch.as_tensor(myg.x < 1.0 / 6.0, device=like.device))
+    return cache[key]
+
+
+def ramp_top_rows(myg, t, post, pre, like):
+    """The top ghost rows (qx, ng) of one variable under the moving front
+    at t (a float or a 0-d tensor): each cell blends the post- and
+    pre-shock values by the 4-point (2 front positions x 2 cell extents)
+    quadrature, summed in the host's order."""
+    cx, offset, _ = ramp_geometry(myg, like)
+    sf = offset + _FRONT_SPEED * t                             # (ng, 2)
+    below = cx[None, None, :, :] < sf[:, :, None, None]   # (ng, 2, 2, qx)
+    w = torch.where(below, like.new_full((), 0.25 * post), 0.25 * pre)
+    rows = ((w[:, 0, 0] + w[:, 0, 1]) + w[:, 1, 0]) + w[:, 1, 1]
+    return rows.T
 
 
 def user(bc_name, bc_edge, variable, ccdata, stack):
@@ -109,7 +161,7 @@ def user(bc_name, bc_edge, variable, ccdata, stack):
 
         elif bc_edge == "ylb":
             post = inflow_post_bc(variable, gamma)
-            xcen_l = torch.as_tensor(myg.x < 1.0 / 6.0, device=v.device)
+            xcen_l = ramp_geometry(myg, v)[2]
             sgn = -1.0 if variable == "y-momentum" else 1.0
             for k in range(myg.ng):
                 refl = sgn * v[:, myg.jlo + k]
@@ -117,28 +169,10 @@ def user(bc_name, bc_edge, variable, ccdata, stack):
 
         elif bc_edge == "yrb":
             # the Mach-10 oblique shock front sweeps along the top
-            # boundary; each ghost cell blends pre/post-shock states by
-            # the 4-point (2 front positions x 2 cell extents) quadrature
-            post = inflow_post_bc(variable, gamma)
-            pre = inflow_pre_bc(variable, gamma)
-            t = ccdata.t
-            cx = np.stack([myg.x - 0.5 * myg.dx * math.sqrt(3),
-                           myg.x + 0.5 * myg.dx * math.sqrt(3)])  # (2, qx)
-            for j in range(myg.jhi + 1, myg.jhi + myg.ng + 1):
-                sf_up = (1.0 / 6.0 +
-                         (myg.y[j] + 0.5 * myg.dy * math.sqrt(3)) /
-                         math.tan(math.pi / 3.0) +
-                         (10.0 / math.sin(math.pi / 3.0)) * t)
-                sf_down = (1.0 / 6.0 +
-                           (myg.y[j] - 0.5 * myg.dy * math.sqrt(3)) /
-                           math.tan(math.pi / 3.0) +
-                           (10.0 / math.sin(math.pi / 3.0)) * t)
-                sf = np.asarray([sf_down, sf_up])
-                below = cx[None, :, :] < sf[:, None, None]
-                row = np.sum(np.where(below, 0.25 * post, 0.25 * pre),
-                             axis=(0, 1))
-                v[:, j] = torch.as_tensor(row, dtype=v.dtype,
-                                          device=v.device)
+            # boundary
+            v[:, myg.jhi + 1:myg.jhi + myg.ng + 1] = ramp_top_rows(
+                myg, ccdata.t, inflow_post_bc(variable, gamma),
+                inflow_pre_bc(variable, gamma), v)
     else:
         msg.fail(f"error: bc type {bc_name} not supported")
 

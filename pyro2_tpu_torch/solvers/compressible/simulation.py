@@ -367,8 +367,7 @@ class Simulation(NullSimulation):
 
         bnd.define_bc("hse", BC.user, is_solid=False)
         bnd.define_bc("ambient", BC.user, is_solid=False)
-        bnd.define_bc("ramp", BC.user, is_solid=False,
-                      reads_host_time=True)
+        bnd.define_bc("ramp", BC.user, is_solid=False)
 
         bc, bc_xodd, bc_yodd = bc_setup(self.rp)
         self.solid = bnd.bc_is_solid(bc)

@@ -388,10 +388,11 @@ class MOLSubstep:
         if not 4 <= ivars.nvar <= MAXVAR:
             raise NotImplementedError(
                 f"the MOL kernels take 4..{MAXVAR} variables, not "
-                f"{ivars.nvar}")
+                f"{ivars.nvar} (ROADMAP.md A.22)")
         if myg.ng != 4:
             raise NotImplementedError(
-                f"the MOL kernels take 4 ghost cells, not {myg.ng}")
+                f"the MOL kernels take 4 ghost cells, not {myg.ng} "
+                "(ROADMAP.md A.22)")
         riemann = 2        # fv4 always solves CGF on primitive states
         covered(ivars)
         # fv4 has no well-balanced reconstruction

@@ -6,7 +6,9 @@ The plain step (`Simulation._make_step`) runs the swe CTU pipeline as
 tensor code: tracing -> first Riemann pass -> transverse corrections ->
 second Riemann pass -> conservative update on the interior.  `evolve` goes
 through the CUDA swe kernel's wrapper (swe_kernel.SWEStep), which launches
-the kernel for CUDA tensors and runs the plain step for CPU tensors.
+the kernel for CUDA tensors and runs the plain step for CPU tensors.  The
+evolve is the step, so the on-device loop (driver_loop.run_sim_fast) runs
+swe, its particles included, with SWEStep's device-dt entry.
 """
 
 import torch
@@ -72,6 +74,10 @@ def prim_to_cons(q, ivars, myg):
 
 class Simulation(NullSimulation):
     """The CTU shallow-water solver."""
+
+    # evolve is _step (and the particle advance): the on-device loop
+    # computes it (driver_loop.py)
+    device_loop = True
 
     def initialize(self, *, extra_vars=None, ng=4):
         """Grid (ng=4), (height, momenta, fuel) variables, ICs, the step."""
@@ -174,11 +180,19 @@ class Simulation(NullSimulation):
         self.cc_data.set_vars(U)
 
         if self.particles is not None:
-            self.particles.update_particles(self.dt)
+            self.particles.update_particles(self.dt,
+                                            *self.particle_velocity(U))
 
         self.cc_data.t += self.dt
         self.n += 1
         tm_evolve.end(sync=self.cc_data.data)
+
+    def particle_velocity(self, U):
+        """(u, v) of a stack: the momenta over the height, the derived
+        "velocity" (derives.derive_primitives) the particles advance with
+        (no host read)."""
+        iv = self.ivars
+        return U[iv.ixmom] / U[iv.ih], U[iv.iymom] / U[iv.ih]
 
     def dovis(self):
         raise NotImplementedError(

@@ -12,7 +12,11 @@ CPU tests check it.
 `SWEStep(sim)(U, t, dt)` is the step the Simulation evolves with:
 
   * for a CUDA tensor it launches the kernel (or raises: there is no
-    fallback), counting the launch in the module-level `launches`;
+    fallback), counting the launch in the module-level `launches`: the
+    host-dt entry `swe_step_*` for a float dt, the device-dt entry
+    `swe_step_dev_*` for a 0-d tensor dt of the state's dtype on its device
+    (the on-device loop's, driver_loop.py: a CUDA graph replays it with the
+    dt it computed);
   * for a CPU tensor it runs the plain PyTorch step, `sim._make_step()`.
 
 The kernel updates the interior and carries the input's ghost cells through
@@ -186,6 +190,12 @@ def _load():
             fn.argtypes = [ctypes.c_void_p] * 2 + [
                 ints, ctypes.POINTER(ctypes.c_double), ints, ctypes.c_void_p]
             fn.restype = ctypes.c_int
+        for name in ("swe_step_dev_f32", "swe_step_dev_f64"):
+            fn = getattr(lib, name)
+            fn.argtypes = [ctypes.c_void_p] * 2 + [
+                ints, ctypes.POINTER(ctypes.c_double), ints,
+                ctypes.c_void_p, ctypes.c_void_p]
+            fn.restype = ctypes.c_int
         lib.swe_plan_ints.restype = ctypes.c_int
         if lib.swe_plan_ints() != len(Plan.ARRAYS) + 8:
             raise RuntimeError("swe_step.cu takes another plan layout")
@@ -249,27 +259,39 @@ class SWEStep:
 
     def launch(self, U, t, dt, tile=None):
         """Launch the CUDA kernel on U's device and current stream (with
-        another tile than the plan's if one is given)."""
+        another tile than the plan's if one is given): the host-dt entry
+        for a float dt, the device-dt entry for a 0-d tensor of U's dtype
+        on its device."""
         global launches
         del t   # no time-dependent terms in swe
         self.check(U)
         if U.device.type != "cuda":
             raise ValueError("the CUDA swe kernel takes a CUDA tensor")
+        on_device = isinstance(dt, torch.Tensor)
+        if on_device and (dt.shape != () or dt.dtype != U.dtype or
+                          dt.device != U.device):
+            raise ValueError("a device dt is a 0-d tensor of the state's "
+                             "dtype on its device")
         nvar = self.shape[0]
         covered(nvar, self._ints[3], U.dtype)
         doubles = list(self._doubles)
-        doubles[2] = float(dt)
+        if not on_device:
+            doubles[2] = float(dt)
 
         lib = _load()
         tiles = plan(self._ints[1], self._ints[2], nvar, U.dtype, tile)
         out = torch.empty_like(U)
-        fn = lib.swe_step_f32 if U.dtype == torch.float32 \
-            else lib.swe_step_f64
+        sfx = "f32" if U.dtype == torch.float32 else "f64"
+        args = (U.data_ptr(), out.data_ptr(), _c_ints(self._ints),
+                (ctypes.c_double * len(doubles))(*doubles),
+                _c_ints(tiles.ints()))
         with torch.cuda.device(U.device):
             stream = torch.cuda.current_stream(U.device).cuda_stream
-            err = fn(U.data_ptr(), out.data_ptr(), _c_ints(self._ints),
-                     (ctypes.c_double * len(doubles))(*doubles),
-                     _c_ints(tiles.ints()), stream)
+            if on_device:
+                err = getattr(lib, f"swe_step_dev_{sfx}")(
+                    *args, dt.data_ptr(), stream)
+            else:
+                err = getattr(lib, f"swe_step_{sfx}")(*args, stream)
         if err != 0:
             raise RuntimeError(f"swe kernel launch failed: CUDA error {err}")
         launches += 1

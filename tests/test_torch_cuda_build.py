@@ -293,8 +293,9 @@ def test_down_entries_take_the_plan_and_no_grid_barrier(monkeypatch):
 
 
 def test_swe_entries_take_the_plan_and_no_scratch(monkeypatch):
-    """swe_step.cu exports one step entry per dtype, each taking the
-    launch plan and no scratch, and the plan's length, which is
+    """swe_step.cu exports a host-dt and a device-dt step entry per
+    dtype (the latter with dt's device pointer before the stream), each
+    taking the launch plan and no scratch, and the plan's length, which is
     swe_kernel.plan's; no scratch-size entry is left (the step keeps its
     intermediates on the chip), and one kernel (k_swe) is launched a
     step."""
@@ -306,7 +307,8 @@ def test_swe_entries_take_the_plan_and_no_scratch(monkeypatch):
 
     entries = _extern_params("swe_step.cu")
     assert entries == {"swe_plan_ints": 0, "swe_step_f32": 6,
-                       "swe_step_f64": 6}
+                       "swe_step_f64": 6, "swe_step_dev_f32": 7,
+                       "swe_step_dev_f64": 7}
     text = (cuda_build.CSRC / "swe_step.cu").read_text()
     body = text.split("namespace {", 1)[1]
     assert "scratch" not in body

@@ -3,10 +3,13 @@
 It holds the port's fast loop to its own host loop (Pyro.run_sim) -- the
 three tests of tests/test_driver_loop.py at their tolerances, and by bits
 in float64 where the tmax clamp allows -- and to the JAX package's
-run_sim_fast at rtol 1e-12 with equal step counts and output steps.  The
-refusals name their ROADMAP.md labels.  On the CPU a chunk runs eagerly;
-the CUDA graph of a chunk is checked on the card (chip_smoke.py phase
-5g)."""
+run_sim_fast at rtol 1e-12 with equal step counts and output steps, on the
+compressible CTU solver (the ramp's moving shock front included),
+advection and swe.  JAX's loop cannot carry swe's particles (it reads a
+density index swe lacks), so swe with particles is held to the port's host
+loop alone.  The refusals name their ROADMAP.md labels.  On the CPU a
+chunk runs eagerly; the CUDA graph of a chunk is checked on the card
+(chip_smoke.py phase 5g)."""
 
 import glob
 import os
@@ -18,6 +21,7 @@ import torch
 from pyro2_tpu_torch import Pyro
 from pyro2_tpu_torch.driver_loop import (dt_control, make_chunk_runner,
                                          run_sim_fast)
+from pyro2_tpu_torch.mesh import boundary as bnd
 from pyro2_tpu_torch.util import io_pyro
 
 SOD = {"mesh.nx": 32, "mesh.ny": 8, "driver.tmax": 0.05,
@@ -25,11 +29,22 @@ SOD = {"mesh.nx": 32, "mesh.ny": 8, "driver.tmax": 0.05,
 TOPHAT = {"mesh.nx": 16, "mesh.ny": 16, "driver.tmax": 0.3,
           "particles.do_particles": 1, "particles.n_particles": 25,
           "particles.particle_generator": "grid"}
+SWE_QUAD = {"mesh.nx": 16, "mesh.ny": 16, "driver.max_steps": 10,
+            "particles.do_particles": 0}
+# the dam breaks of the published inputs files, their grids, 12 steps
+DAM = {"driver.max_steps": 12, "particles.do_particles": 0}
+# the double Mach reflection at 24x8: the front sweeps the top ghosts
+RAMP = {"mesh.nx": 24, "mesh.ny": 8, "driver.max_steps": 10,
+        "particles.do_particles": 0}
 
 
 def _run(solver, problem, inputs, chunk_steps=None, P=Pyro, **kw):
+    """A run of `problem`, or of (problem, inputs file)."""
     p = P(solver, **kw)
-    p.initialize_problem(problem, inputs_dict=dict(inputs))
+    problem, inputs_file = problem if isinstance(problem, tuple) \
+        else (problem, None)
+    p.initialize_problem(problem, inputs_file=inputs_file,
+                         inputs_dict=dict(inputs))
     if chunk_steps is None:
         p.run_sim()
     elif P is Pyro:
@@ -159,6 +174,10 @@ def test_fast_loop_matches_jax_output_steps(tmp_path, monkeypatch):
                               "particles.do_particles": 1,
                               "particles.particle_generator": "random",
                               "particles.n_particles": 30}, 5),
+    ("swe", "quad", SWE_QUAD, 4),
+    ("swe", ("dam", "inputs.dam.x"), DAM, 5),
+    ("swe", ("dam", "inputs.dam.y"), DAM, 5),
+    ("compressible", "ramp", RAMP, 4),
 ])
 def test_fast_loop_matches_jax(solver, problem, inputs, chunk_steps):
     """n equal, state and particles at rtol 1e-12 against the JAX fast
@@ -196,6 +215,55 @@ def test_fast_and_host_loops_agree_by_bits(chunk_steps):
     assert np.array_equal(_state(pf), _state(ph))
     assert np.array_equal(pf.sim.particles.positions.numpy(),
                           ph.sim.particles.positions.numpy())
+
+
+@pytest.mark.parametrize("solver,problem,inputs,chunk_steps", [
+    ("swe", "quad", SWE_QUAD, 4), ("swe", "quad", SWE_QUAD, 64),
+    ("compressible", "ramp", RAMP, 3)])
+def test_fast_and_host_loops_agree_by_bits_on_swe_and_the_ramp(
+        solver, problem, inputs, chunk_steps):
+    """float64: swe quad and the ramp, whose top ghosts the fast loop
+    fills from the t it carries, give the host loop's n, t and state
+    bits."""
+    ph = _host(solver, problem, inputs)
+    pf = _fast(solver, problem, inputs, chunk_steps)
+    assert pf.sim.n == ph.sim.n == inputs["driver.max_steps"]
+    assert pf.sim.cc_data.t == ph.sim.cc_data.t
+    assert np.array_equal(_state(pf), _state(ph))
+
+
+@pytest.mark.parametrize("generator,problem", [
+    ("grid", "quad"), ("random", "quad"),
+    ("grid", ("dam", "inputs.dam.x"))])
+def test_swe_particles_fast_loop_matches_host(generator, problem):
+    """float64: swe's particles ride in the carry, advanced with the
+    momenta over the height after the step, as evolve advances them: the
+    fast loop's positions, `active` and state are the host loop's bits
+    (JAX's loop cannot carry swe's particles; ROADMAP.md C.4)."""
+    inputs = {"driver.max_steps": 8, "particles.do_particles": 1,
+              "particles.particle_generator": generator,
+              "particles.n_particles": 36}
+    if problem == "quad":
+        inputs.update({"mesh.nx": 16, "mesh.ny": 16})
+    else:
+        # the break's waves reach the particles near the dam
+        inputs.update({"driver.max_steps": 30, "particles.n_particles": 100})
+    np.random.seed(7)
+    ph = _host("swe", problem, inputs)
+    np.random.seed(7)
+    pf = _fast("swe", problem, inputs, 7)
+    assert pf.sim.n == ph.sim.n == inputs["driver.max_steps"]
+    assert pf.sim.cc_data.t == ph.sim.cc_data.t
+    assert np.array_equal(_state(pf), _state(ph))
+    assert np.array_equal(pf.sim.particles.positions.numpy(),
+                          ph.sim.particles.positions.numpy())
+    assert np.array_equal(pf.sim.particles.active.numpy(),
+                          ph.sim.particles.active.numpy())
+    np.random.seed(7)
+    p0 = _run("swe", problem, {**inputs, "driver.max_steps": 0},
+              device="cpu")
+    assert not np.array_equal(pf.sim.particles.positions.numpy(),
+                              p0.sim.particles.positions.numpy())
 
 
 def test_tmax_clamp_differs_by_an_ulp_on_the_last_step():
@@ -289,21 +357,30 @@ def _carry(sim):
     U = sim.cc_data.data
     i32 = {"dtype": torch.int32}
     parts = sim.particles
+    if parts is None:
+        pos, act = torch.zeros((0, 2), dtype=U.dtype), \
+            torch.zeros((0,), dtype=torch.bool)
+    else:
+        pos, act = parts.positions.clone(), parts.active.clone()
     return [U.clone(), torch.tensor(sim.cc_data.t, dtype=U.dtype),
             torch.tensor(sim.n, **i32), torch.tensor(-1.e33, dtype=U.dtype),
-            parts.positions.clone(), parts.active.clone(),
-            torch.tensor(0, **i32), torch.tensor(-1, **i32)]
+            pos, act, torch.tensor(0, **i32), torch.tensor(-1, **i32)]
 
 
 @pytest.mark.parametrize("solver,problem", [("compressible", "kh"),
-                                            ("advection", "smooth")])
+                                            ("advection", "smooth"),
+                                            ("swe", "quad"),
+                                            ("compressible", "ramp")])
 def test_a_chunk_reads_nothing_from_the_host(solver, problem, monkeypatch):
     """A chunk (the bodies the CUDA graph captures) converts no tensor to
     a Python value: with float(), int(), bool() and item() on tensors
-    raising, a chunk still runs and advances n."""
+    raising, a chunk still runs and advances n.  The ramp's fill computes
+    its shock front from the carried t (its edges take no particles)."""
+    ramp = problem == "ramp"
     p = Pyro(solver, device="cpu")
     p.initialize_problem(problem, inputs_dict={
-        "mesh.nx": 16, "mesh.ny": 16, "particles.do_particles": 1,
+        "mesh.nx": 24 if ramp else 16, "mesh.ny": 8 if ramp else 16,
+        "particles.do_particles": int(not ramp),
         "particles.n_particles": 16, "particles.particle_generator": "grid"})
     runner = make_chunk_runner(p.sim, 3)
     carry = _carry(p.sim)
@@ -380,14 +457,44 @@ def test_solvers_without_the_contract_raise_type_error(solver, problem):
     ("compressible_sdc", "acoustic_pulse", {}),
     ("compressible_react", "flame", {}),
     ("advection_rk", "smooth", {}), ("advection_fv4", "smooth", {}),
-    ("advection_weno", "smooth", {}), ("swe", "dam", {}),
-    ("compressible", "ramp", {"mesh.nx": 24, "mesh.ny": 8})])
+    ("advection_weno", "smooth", {})])
 def test_uncovered_solvers_name_a28(solver, problem, inputs):
-    """The subclasses whose evolve is not their step, swe and a ghost fill
-    that reads t on the host (ramp) name ROADMAP.md A.28."""
+    """The subclasses whose evolve is not their step name ROADMAP.md
+    A.28."""
     p = Pyro(solver, device="cpu")
     p.initialize_problem(problem, inputs_dict={"mesh.nx": 16,
                                                "mesh.ny": 16, **inputs})
     with pytest.raises(NotImplementedError, match=r"ROADMAP\.md A\.28"):
         run_sim_fast(p)
     assert p.sim.n == 0
+
+
+def test_a_fill_that_reads_t_on_the_host_names_a28(monkeypatch):
+    """A ghost fill registered with reads_host_time (none of the port's
+    is, since the ramp's front moved to the device) is refused, naming
+    ROADMAP.md A.28."""
+    p = Pyro("compressible", device="cpu")
+    p.initialize_problem("sod", inputs_dict=SOD)
+    assert not bnd.host_time_bcs
+    monkeypatch.setattr(bnd, "host_time_bcs", {"outflow"})
+    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md A\.28"):
+        run_sim_fast(p)
+    assert p.sim.n == 0
+
+
+def test_swe_step_takes_a_tensor_dt():
+    """SWEStep with a 0-d tensor dt runs the plain step on the CPU with
+    the float dt's bits; its CUDA launch refuses a CPU tensor."""
+    p = Pyro("swe", device="cpu")
+    p.initialize_problem("quad", inputs_dict={"mesh.nx": 16, "mesh.ny": 16})
+    sim = p.sim
+    sim.cc_data.fill_BC_all()
+    sim.compute_timestep()
+    U = sim.cc_data.data
+    a = sim._step(U, 0.0, sim.dt)
+    b = sim._step(U, torch.tensor(0.0, dtype=U.dtype),
+                  torch.tensor(sim.dt, dtype=U.dtype))
+    assert np.array_equal(a.numpy(), b.numpy())
+    assert not np.array_equal(a.numpy(), U.numpy())
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        sim._step.launch(U, 0.0, torch.tensor(sim.dt, dtype=U.dtype))

@@ -90,6 +90,13 @@ def test_import_pulls_in_no_jax():
         "for s in ('rk', 'fv4', 'sdc'):\n"
         "    __import__('pyro2_tpu_torch.solvers.compressible_' + s + "
         "'.problems.acoustic_pulse')\n"
+        "import pyro2_tpu_torch.analysis\n"
+        "for m in ('exact_riemann', 'convergence', 'smooth_error', "
+        "'sod_compare', 'dam_compare', 'sedov_compare', "
+        "'gauss_diffusion_compare', 'incomp_converge_error', "
+        "'incomp_viscous_converge_error', 'convergence_plot', 'plotvar', "
+        "'plotcompact', 'plot_thumbnail'):\n"
+        "    __import__('pyro2_tpu_torch.analysis.' + m)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'pyro2_tpu')]\n"
         "assert not bad, bad\n"

@@ -272,6 +272,28 @@ Phases (any failure exits non-zero and prints no result line):
      steps against the serial float64 card run within 1e-11 (the serial
      CFL dt before each step within 1e-11 of the sharded one); each run's
      ms/step beside the serial run's;
+  5l. the plain structure of the sharded multigrid on the card
+     (use_pallas=False and comm_mode="sweep"): the half-sweep kernel
+     mg_sweep (k_sweep: one colour pass between refreshes of the physical
+     ghosts, or the residual and its restriction) against sweep_plain at
+     every block of a 2x2 and a 1x4 split of 1024^2 (the one-ghost frames
+     from one global array as the exchange fills them, the blocks' flags)
+     with Dirichlet, Neumann and periodic edges and the constant, vc and
+     general operators, each colour and residual emit, and on the 1x1
+     frame of every level of a 1024^2 solve down to 2x2, f64 (1e-12
+     max|v|) and f32 (1e-5; a residual to those factors of the terms it
+     cancels); mg_kernel.coarse_cycle (the serial kernels' cycle from a
+     level above CORE_MAX: one core, a down and an up a level above it)
+     against serial._v_cycle, three operators, f64 and f32; ShardedMG,
+     ShardedVarCoeffMG and ShardedGeneralMG with use_pallas=False and with
+     comm_mode="sweep" on make_mesh()'s 1x1 mesh, every count reset just
+     before and read just after each solve and every multigrid plain
+     version made to raise on a CUDA tensor (plain_guard): at 256^2 f64
+     the CPU plain structure's cycles and its solution to 1e-12 max|v|,
+     at 1024^2 f32 the kernel structure's solution to 1e-5 max|v|, deep
+     and sweep equal by bits on the card, launches a cycle equal to
+     sharded_mg.structure's plan, and ms a solve of each beside the
+     kernel structure's;
   6. CUDA-event timing of each kernel and its plain version at the main
      paths' shapes (quad 1024^2; the sharded quad path's block step on
      the 1x1 mesh and a 2x2 block with its seam flags; the sharded rk
@@ -282,7 +304,9 @@ Phases (any failure exits non-zero and prints no result line):
      the swe quad 1024^2 step; the lm_atm stages on the 1024^2 bubble;
      the spherical CTU step and each padded entry at its path's shape;
      mg_deep_smooth and mg_correct at the sharded path's finest level, and
-     mg_deep_smooth on a block of a 2x2 split of 1024^2, d 21),
+     mg_deep_smooth on a block of a 2x2 split of 1024^2, d 21; mg_sweep,
+     a red pass and the restricted residual, on the 1x1 1024^2 frame and a
+     256^2 block of a 4x4 split),
      beside each kernel's bound on this card, the multigrid ascent and
      descent at every peeled level with their plan, the swe step with
      other tiles, and the host time of building lm_atm's VarCoeffCCMG2d at
@@ -299,7 +323,8 @@ Phases (any failure exits non-zero and prints no result line):
      work() with the weight plane and the spherical lines counted;
   7. under the profiler, after every CUDA-event timing: the kernels one
      swe step launches (k_swe, once), one rk stage (k_rk, once), one
-     mg_deep_smooth call at the solvers' 10 sweeps (k_deep, once), one
+     mg_deep_smooth call at the solvers' 10 sweeps (k_deep, once), each
+     timed mg_sweep call (k_sweep, once), one
      call of each lm_atm stage on the 1024^2 bubble (k_lm_mac, k_lm_rho,
      k_lm_states, once each) and one mg_correct at 1024^2, 512^2 and 256^2
      (k_correct, once) with their device time a launch, the k_down
@@ -4517,7 +4542,7 @@ def sharded_path(n, steps, dtype):
     no_swe_launches("sharded diffusion")
     no_lm_launches("sharded diffusion")
     no_padded_launches("sharded diffusion")
-    sharded = dict(sharded_mg_kernel.launches)
+    sharded = {k: n for k, n in sharded_mg_kernel.launches.items() if n}
     levels = sd.smg.nlevels - sd.smg.k_cross
     total = sharded_mg.stats["cycles"]
     expect_mg = dict.fromkeys(mg_launches, 0)
@@ -4756,6 +4781,381 @@ def core_on_sharded_data(sd):
           frame(rng, g, torch.float32, 1e-36))
 
 
+# ---------------------------------------------------------------------------
+# phase 5l: the plain structure of the sharded multigrid on the card
+# (use_pallas=False and comm_mode="sweep"), through the half-sweep kernel
+# mg_sweep, k_deep, k_correct and the serial kernels' replicated coarse
+# cycle
+# ---------------------------------------------------------------------------
+
+# the operators of the phase: (operator, MG_CASES name, edges), one edge
+# kind each of Neumann, periodic (with lm_atm's Neumann / Dirichlet y) and
+# Dirichlet
+A20_CASES = (("const", "neumann_helmholtz", ("neumann",) * 4),
+             ("vc", "vc_lm_edges", LM_EDGES),
+             ("general", "general_dirichlet", ("dirichlet",) * 4))
+# the plain structure's two schedules
+A20_STRUCTURES = (("plain deep", {"use_pallas": False}),
+                  ("sweep", {"comm_mode": "sweep"}))
+
+
+def a20_mg(op, name, edges, n, dtype, device="cuda", **kw):
+    """A ShardedMG, ShardedVarCoeffMG or ShardedGeneralMG of one of
+    A20_CASES (the operator of make_case_mg's serial object) on the 1x1
+    mesh of make_mesh(device=...)."""
+    from pyro2_tpu_torch.parallel import (ShardedGeneralMG, ShardedMG,
+                                          ShardedVarCoeffMG, make_mesh)
+
+    serial = make_case_mg(n, name, op, edges, dtype)
+    mesh = make_mesh(device=device)
+    kw = dict(xl_BC_type=edges[0], xr_BC_type=edges[1],
+              yl_BC_type=edges[2], yr_BC_type=edges[3], dtype=dtype, **kw)
+    if op == "const":
+        return ShardedMG(n, n, mesh, alpha=serial.alpha, beta=serial.beta,
+                         **kw)
+    if op == "vc":
+        return ShardedVarCoeffMG(n, n, mesh, coeffs=serial.aux["coeffs"][-1],
+                                 coeffs_bc=serial.aux_bc["coeffs"], **kw)
+    return ShardedGeneralMG(n, n, mesh, coeffs=general_coeffs(
+        serial.grids[-1], *(serial.aux[c][-1] for c in
+                            ("alpha", "beta", "gamma_x", "gamma_y")), dtype),
+        **kw)
+
+
+def a20_rhs(n, dtype, device="cuda"):
+    """A random interior right-hand side from a seed."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(41)
+    return torch.as_tensor(rng.standard_normal((n, n)), dtype=dtype,
+                           device=device)
+
+
+class plain_guard:
+    """While open, every plain version of the multigrid (the sharded
+    kernels', the serial kernels' and the serial classes' smoothers,
+    residuals and cycle) raises on a CUDA tensor."""
+
+    def __enter__(self):
+        import torch
+
+        from pyro2_tpu_torch.multigrid import mg_kernel
+        from pyro2_tpu_torch.multigrid import sharded_mg_kernel as smk
+        from pyro2_tpu_torch.multigrid.general_MG import GeneralMG2d
+        from pyro2_tpu_torch.multigrid.MG import CellCenterMG2d
+        from pyro2_tpu_torch.multigrid.variable_coeff_MG import \
+            VarCoeffCCMG2d
+
+        def guarded(fn, what):
+            def g(*args, **kw):
+                for a in list(args) + list(kw.values()):
+                    if isinstance(a, torch.Tensor) and a.is_cuda:
+                        raise AssertionError(f"the plain version {what} "
+                                             "ran on a CUDA tensor")
+                return fn(*args, **kw)
+            return g
+
+        self.saved = []
+        targets = [(smk, n) for n in ("deep_smooth_plain", "correct_plain",
+                                      "sweep_plain")]
+        targets += [(mg_kernel, n) for n in ("core_plain", "down_plain",
+                                             "up_plain")]
+        for cls in (CellCenterMG2d, VarCoeffCCMG2d, GeneralMG2d):
+            targets += [(cls, n) for n in ("_smooth_once", "_smooth_n",
+                                           "_residual", "_v_cycle")
+                        if n in vars(cls)]
+        for owner, n in targets:
+            fn = getattr(owner, n)
+            self.saved.append((owner, n, fn))
+            setattr(owner, n, guarded(fn, f"{getattr(owner, '__name__')}."
+                                          f"{n}"))
+        return self
+
+    def __exit__(self, *exc):
+        for owner, n, fn in reversed(self.saved):
+            setattr(owner, n, fn)
+        return False
+
+
+def sweep_compare(dtype, tol, errs):
+    """mg_sweep against sweep_plain from the same inputs: every block of a
+    2x2 and a 1x4 split of 1024^2, the one-ghost frames from one global
+    array as the exchange fills them (a split axis's ghosts the ring
+    neighbours' strips, an unsplit one's zeros, which the kernel's refresh
+    fills), with Dirichlet, Neumann and periodic edges, the constant, vc
+    and general operators (random planes of each block's frame), each
+    colour pass and each residual emit; then the 1x1 frames of every level
+    of a 1024^2 solve, 1024^2 down to 2x2, Neumann.  Frames to tol
+    max|v|, residuals to tol of the terms they cancel.  Records the worst
+    |diff| in errs and returns (checks, checks equal by bits)."""
+    import numpy as np
+    import torch
+
+    import pyro2_tpu_torch.mesh.boundary as bnd
+    from pyro2_tpu_torch.multigrid import sharded_mg_kernel as smk
+    from pyro2_tpu_torch.parallel.sharded_mg import kernel_flags
+
+    rng = np.random.default_rng(43)
+    rows = []
+
+    def rand(*shape, scale=1.0):
+        return torch.as_tensor(scale * rng.standard_normal(shape),
+                               dtype=dtype, device="cuda")
+
+    def planes_of(ncoef, shape):
+        if ncoef == 0:
+            return None
+        p = torch.as_tensor(rng.uniform(1.0, 3.0, (ncoef,) + shape),
+                            dtype=dtype, device="cuda")
+        if ncoef == 5:
+            p[0] *= -1.0
+            p[3:] = torch.as_tensor(rng.uniform(-0.5, 0.5, (2,) + shape),
+                                    dtype=dtype, device="cuda")
+        return p
+
+    def compare(what, v, f, flags, **kw):
+        ref = smk.sweep_plain(v, f, flags, **kw)
+        got = smk.launch_sweep(v, f, flags, **kw)
+        pairs = [("v", ref[0], got[0], float(ref[0].abs().max()))]
+        if ref[1] is not None:
+            pairs.append((kw["emit"], ref[1], got[1], deep_resid_scale(
+                kw.get("ab"), kw.get("planes"), kw["dx"], ref[0], f)))
+        for part, a, b, scale in pairs:
+            err = float((a - b).abs().max())
+            ok = bool(torch.isfinite(b).all()) and err <= tol * scale
+            rows.append((f"{what} {part}", err, scale, ok,
+                         bool(torch.equal(a, b))))
+            errs["mg_sweep"] = max(errs.get("mg_sweep", 0.0), err)
+            if not ok:
+                raise AssertionError(f"mg_sweep disagrees with its plain "
+                                     f"version: {what} {part} {dtype}")
+
+    calls = ((0, "v"), (1, "v"), (None, "v_fc"), (None, "v_r"))
+    n = 1024
+    Av, Af = rand(n, n, scale=0.1), rand(n, n)
+    for kinds in (("dirichlet",) * 4, ("neumann",) * 4, ("periodic",) * 4):
+        bc = bnd.BC(xlb=kinds[0], xrb=kinds[1], ylb=kinds[2], yrb=kinds[3])
+        for px, py in ((2, 2), (1, 4)):
+            bx, by = n // px, n // py
+            for ix in range(px):
+                for iy in range(py):
+                    v = frame_from_global(Av, ix, iy, px, py, 1, 1)
+                    f = frame_from_global(Af, ix, iy, px, py, 1, 1)
+                    flags = kernel_flags(bc, px, py, ix, iy)
+                    for ncoef in (0, 2, 5):
+                        planes = planes_of(ncoef, (bx + 2, by + 2))
+                        for colour, emit in calls:
+                            compare(f"{px}x{py} block ({ix}, {iy}) "
+                                    f"{kinds[0]} ncoef {ncoef} colour "
+                                    f"{colour}", v, f, flags, colour=colour,
+                                    dx=1.0 / n, dy=1.0 / n, bc=bc, px=px,
+                                    py=py, ab=DIFF_AB if ncoef == 0 else
+                                    None, planes=planes, emit=emit)
+    neumann = bnd.BC(xlb="neumann", xrb="neumann", ylb="neumann",
+                     yrb="neumann")
+    one = kernel_flags(neumann, 1, 1, 0, 0)
+    m = n
+    while m >= 2:                               # every level to 2x2
+        v, f = rand(m + 2, m + 2, scale=0.1), rand(m + 2, m + 2)
+        for colour, emit in calls:
+            compare(f"1x1 {m}^2 colour {colour}", v, f, one, colour=colour,
+                    dx=1.0 / m, dy=1.0 / m, bc=neumann, px=1, py=1,
+                    ab=(1.0, (1.0 / m) ** 2), emit=emit)
+        m //= 2
+    torch.cuda.synchronize()
+    worst = max(rows, key=lambda r: r[1] / r[2])
+    bits = sum(r[4] for r in rows)
+    log(f"  ok  {str(dtype)[6:]:8s} {len(rows)} checks, {bits} equal by "
+        f"bits, worst {worst[0]}: {worst[1]:.3e} (tol {tol:g} x "
+        f"{worst[2]:.3g})")
+    return len(rows), bits
+
+
+def a20_solve(mg, f):
+    """One solve of mg from a zero guess with every count reset just before
+    and read just after: (seconds, sharded kernel launches, serial kernel
+    launches); the launches must be the plan's per cycle times the cycles,
+    and no other kernel may launch."""
+    import torch
+
+    from pyro2_tpu_torch.multigrid import mg_kernel, sharded_mg_kernel
+    from pyro2_tpu_torch.parallel import sharded_mg
+
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    mg.init_zeros()
+    mg.init_RHS(f)
+    mg.solve(rtol=1e-11)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    ctu, serial, _ = read_counts()
+    sharded = {k: n for k, n in sharded_mg_kernel.launches.items() if n}
+    serial = {k: n for k, n in serial.items() if n}
+    want = {k: n * mg.num_cycles for k, n in mg.plan.launches.items()}
+    if ({**sharded, **serial} != want or ctu or
+            sharded_mg.stats["cycles"] != mg.num_cycles):
+        raise AssertionError(f"plain sharded solve: launched {sharded}, "
+                             f"{serial} (CTU {ctu}) in {mg.num_cycles} "
+                             f"cycles, the plan {mg.plan.launches} a cycle")
+    no_mol_launches("plain sharded solve")
+    no_swe_launches("plain sharded solve")
+    no_lm_launches("plain sharded solve")
+    no_padded_launches("plain sharded solve")
+    if not bool(torch.isfinite(mg.v_int).all()):
+        raise AssertionError("plain sharded solve: v is not finite")
+    return seconds, sharded, serial
+
+
+def a20_solves(smi):
+    """The three operators' plain structures on make_mesh()'s 1x1 mesh:
+    256^2 float64 (the CPU plain structure's cycles, the solution to 1e-12
+    max|v|), 1024^2 float32 (to 1e-5 max|v| of the kernel structure's
+    solution), deep against sweep by bits, launches a cycle equal to the
+    plan; every plain version guarded.  Returns ({operator: (ms a solve
+    plain deep, sweep, kernel structure, cycles)} at 1024^2 f32, the
+    mg_sweep launches of the 1024^2 f32 solves)."""
+    import torch
+
+    out, sweep_launches = {}, 0
+    for n, dtype, tol in ((256, torch.float64, 1e-12),
+                          (1024, torch.float32, 1e-5)):
+        for op, name, edges in A20_CASES:
+            f = a20_rhs(n, dtype)
+            if dtype == torch.float64:
+                cpu = a20_mg(op, name, edges, n, dtype, device="cpu",
+                             use_pallas=False)
+                t0 = time.perf_counter()
+                cpu.init_zeros()
+                cpu.init_RHS(f.cpu())
+                cpu.solve(rtol=1e-11)
+                cpu_s = time.perf_counter() - t0
+                ref, ref_cycles = cpu.v_int.to("cuda"), cpu.num_cycles
+                ref_what = f"the CPU plain structure ({cpu_s:.2f} s)"
+            else:
+                kern = a20_mg(op, name, edges, n, dtype, use_pallas=True)
+                with plain_guard():
+                    k_s = a20_solve(kern, f)[0]
+                ref, ref_cycles = kern.v_int, kern.num_cycles
+                ref_what = "the kernel structure"
+            sols = {}
+            with plain_guard():
+                for label, kw in A20_STRUCTURES:
+                    mg = a20_mg(op, name, edges, n, dtype, **kw)
+                    a20_solve(mg, f)                 # warm-up
+                    s, sharded, serial = a20_solve(mg, f)
+                    sols[label] = (mg.v_int, mg.num_cycles, s)
+                    if dtype == torch.float32:
+                        sweep_launches += sharded.get("mg_sweep", 0)
+                    scale = float(ref.abs().max())
+                    err = float((mg.v_int - ref).abs().max())
+                    ok = err <= tol * scale and (
+                        dtype == torch.float32 or
+                        mg.num_cycles == ref_cycles)
+                    log(f"  {'ok ' if ok else 'BAD'} {type(mg).__name__} "
+                        f"{label} {n}^2 {str(dtype)[6:]} ({name}): "
+                        f"{mg.num_cycles} cycles ({ref_cycles} in "
+                        f"{ref_what}), max|diff| {err:.3e} (tol {tol:g} x "
+                        f"{scale:.6g}); {1e3 * s:.2f} ms a solve, host "
+                        f"clock; launches {sharded} {serial} [{smi}]")
+                    if not ok:
+                        raise AssertionError(
+                            f"the plain sharded structure disagrees: {op} "
+                            f"{label} {n}^2 {dtype}")
+            (vd, cd, sd), (vs, cs, ss) = sols["plain deep"], sols["sweep"]
+            if cd != cs or not torch.equal(vd, vs):
+                raise AssertionError(f"deep and sweep schedules differ on "
+                                     f"the card: {op} {n}^2 {dtype}")
+            log(f"  deep equals sweep by bits on the card: {op} {n}^2 "
+                f"{str(dtype)[6:]}, {cd} cycles")
+            if dtype == torch.float32:
+                out[op] = (1e3 * sd, 1e3 * ss, 1e3 * k_s, cd, ref_cycles)
+            torch.cuda.empty_cache()
+    return out, sweep_launches
+
+
+def coarse_cycle_check(dtype, tol):
+    """mg_kernel.coarse_cycle from each level above CORE_MAX of the three
+    operators' 1024^2 serial objects against serial._v_cycle from the
+    same level (a zero guess): to tol max|v|, launching one core and a
+    down and an up a level above it."""
+    import numpy as np
+    import torch
+
+    from pyro2_tpu_torch.multigrid import mg_kernel
+
+    rng = np.random.default_rng(47)
+    for op, name, edges in A20_CASES:
+        serial = make_case_mg(1024, name, op, edges, dtype)
+        top = mg_kernel.split(serial, dtype)[0]
+        for kc in range(top + 1, serial.nlevels, 2):
+            g = serial.grids[kc]
+            f = frame(rng, g, dtype)
+            f[0], f[-1], f[:, 0], f[:, -1] = 0.0, 0.0, 0.0, 0.0
+            ref = serial._v_cycle(kc, torch.zeros_like(f), f)
+            reset_counts()
+            with plain_guard():
+                got = mg_kernel.coarse_cycle(serial, kc, f)
+            torch.cuda.synchronize()
+            launched = {k: n for k, n in mg_kernel.launches.items() if n}
+            sfx = mg_kernel.FLAVOURS[op][0]
+            want = {f"mg_core{sfx}": 1, f"mg_down{sfx}": kc - top,
+                    f"mg_up{sfx}": kc - top}
+            err = float((got - ref).abs().max())
+            scale = float(ref.abs().max())
+            ok = launched == want and err <= tol * scale
+            log(f"  {'ok ' if ok else 'BAD'} coarse_cycle {op} from "
+                f"{g.nx}^2 (core top {2 ** (top + 1)}^2) "
+                f"{str(dtype)[6:]}: max|diff| {err:.3e} (tol {tol:g} x "
+                f"{scale:.6g}), equal by bits: "
+                f"{bool(torch.equal(got, ref))}; launches {launched}")
+            if not ok:
+                raise AssertionError(f"coarse_cycle disagrees with "
+                                     f"_v_cycle: {op} {g.nx}^2 {dtype}")
+        torch.cuda.empty_cache()
+
+
+def sweep_timing(bw, fp32):
+    """CUDA-event times of mg_sweep and sweep_plain (one red pass; the
+    residual restriction) on the 1x1 frame of a 1024^2 level and on a
+    256^2 block of a 4x4 split (its seam flags), constant operator,
+    float32; returns (the 1024^2 colour pass's times, the calls by label
+    for the profiler)."""
+    import numpy as np
+    import torch
+
+    import pyro2_tpu_torch.mesh.boundary as bnd
+    from pyro2_tpu_torch.multigrid import sharded_mg_kernel as smk
+    from pyro2_tpu_torch.parallel.sharded_mg import kernel_flags
+
+    rng = np.random.default_rng(53)
+    bc = bnd.BC(xlb="neumann", xrb="neumann", ylb="neumann", yrb="neumann")
+    out, calls = {}, {}
+    for label, b, p, ix in (("1x1 1024^2 frame", 1024, 1, 0),
+                            ("256^2 block (1, 1) of a 4x4 split", 256, 4,
+                             1)):
+        v = torch.as_tensor(0.1 * rng.standard_normal((b + 2, b + 2)),
+                            dtype=torch.float32, device="cuda")
+        f = torch.as_tensor(rng.standard_normal((b + 2, b + 2)),
+                            dtype=torch.float32, device="cuda")
+        flags = kernel_flags(bc, p, p, ix, ix)
+        for colour, emit in ((0, "v"), (None, "v_fc")):
+            kw = dict(colour=colour, dx=1.0 / 1024, dy=1.0 / 1024, bc=bc,
+                      px=p, py=p, ab=DIFF_AB, emit=emit)
+            what = f"{label}, {'red pass' if colour == 0 else emit}"
+            call = (lambda v=v, f=f, fl=flags, kw=kw:
+                    smk.launch_sweep(v, f, fl, **kw))
+            calls[what] = call
+            out[what] = time_pair(
+                f"mg_sweep ({what})", call,
+                lambda v=v, f=f, fl=flags, kw=kw:
+                    smk.sweep_plain(v, f, fl, **kw),
+                smk.work("mg_sweep", bx=b, by=b, dtype=torch.float32,
+                         flags=flags, emit=emit, colour=colour), bw, fp32)
+    return out["1x1 1024^2 frame, red pass"], calls
+
+
 def profiler_records(swe_call, smi):
     """An open question (PERF.md section 7): after phase 7's profiles, a
     torch.profiler session of five k_swe launches has recorded fewer than
@@ -4892,6 +5292,8 @@ def kernel_name(kernel, args):
     if kernel == "k_deep" and len(args) == 4:
         return (f"k_deep<{OPS[args[0]]}{DEEP_SMOOTHERS[int(args[1])]}"
                 f"{DEEP_EMITS[int(args[2])]}{args[3]}>")
+    if kernel == "k_sweep" and len(args) == 3:
+        return f"k_sweep<{OPS[args[0]]}{DEEP_EMITS[int(args[1])]}{args[2]}>"
     return f"{kernel}<{''.join(OPS.get(a, a + ', ') for a in args[:-1])}" \
         f"{args[-1]}>"
 
@@ -4900,7 +5302,7 @@ def kernel_source(kernel):
     """The source file of a device kernel, by its name."""
     if kernel in ("k_core", "k_down", "k_up"):
         return "mg_vcycle.cu"
-    if kernel in ("k_deep", "k_correct"):
+    if kernel in ("k_deep", "k_correct", "k_sweep"):
         return "mg_deep.cu"
     if kernel.startswith("k_lm_"):
         return "lm_interface.cu"
@@ -4973,6 +5375,7 @@ def main():
                          "k_rk<double, 4>",
                          "k_deep<const, rbgs, v_fc, float>",
                          "k_deep<const, rbgs, v_r, float>",
+                         "k_sweep<const, v, float>",
                          "k_lm_mac<float>", "k_lm_rho<float>",
                          "k_lm_states<float>"):
                 if line.startswith(head + ":"):
@@ -5512,6 +5915,38 @@ def main():
     torch.cuda.empty_cache()
     log(f"  phase 5k in {time.perf_counter() - t5k:.1f} s")
 
+    # 5l. the plain structure of the sharded multigrid on the card: the
+    # half-sweep kernel against its plain version, the replicated coarse
+    # cycle above CORE_MAX, and the three operators' solves
+    t5l = time.perf_counter()
+    log(f"[phase 5l: mg_sweep at every block of a 2x2 and a 1x4 split of "
+        f"1024^2 and at every level of a 1024^2 solve, against sweep_plain; "
+        f"{smi}]")
+    a20_err = {}
+    for dtype, tol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
+        sweep_compare(dtype, tol, a20_err if dtype == torch.float32 else {})
+        torch.cuda.empty_cache()
+    log(f"[phase 5l: mg_kernel.coarse_cycle from the levels above CORE_MAX "
+        f"against serial._v_cycle; {smi}]")
+    for dtype, tol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
+        coarse_cycle_check(dtype, tol)
+    log(f"[phase 5l: ShardedMG, ShardedVarCoeffMG and ShardedGeneralMG with "
+        f"use_pallas=False and with comm_mode='sweep' on make_mesh()'s 1x1 "
+        f"mesh, every plain version guarded; {smi}]")
+    a20_ms, a20_launches = a20_solves(smi)
+    from pyro2_tpu_torch.parallel import sharded_mg as smg_mod
+    for label, kw in A20_STRUCTURES + (("kernel", {}),):
+        st = smg_mod.structure(1024, 1024, 1, 1, dtype=torch.float32,
+                               **kw)
+        log(f"  {label} structure, 1024^2 float32, 1x1 mesh: launches a "
+            f"cycle {st.launches} ({sum(st.launches.values())})")
+    for op, (d_ms, s_ms, k_ms, cyc, k_cyc) in a20_ms.items():
+        log(f"  {op} 1024^2 float32, ms a solve (host clock, after a "
+            f"warm-up solve): plain deep {d_ms:.2f}, sweep {s_ms:.2f} "
+            f"({cyc} cycles), kernel structure {k_ms:.2f} ({k_cyc} "
+            f"cycles) [{smi}]")
+    log(f"  phase 5l in {time.perf_counter() - t5l:.1f} s")
+
     # 6. timing at the main paths' shapes
     log(f"[timing: the sharded block step, quad 1024^2 float32 on the 1x1 "
         f"mesh and a 2x2 block with its seam flags, CUDA events; {smi}]")
@@ -5689,6 +6124,10 @@ def main():
     log(f"[timing: the sharded multigrid kernels at the 1024^2 path's "
         f"finest level, float32, CUDA events; {smi}]")
     sharded_times, deep_calls = sharded_timing(sharded, bw, fp32)
+    log(f"[timing: mg_sweep, a colour pass and the residual restriction, "
+        f"on a 1024^2 frame and a 256^2 block, float32, CUDA events; "
+        f"{smi}]")
+    sweep_times, sweep_calls = sweep_timing(bw, fp32)
     log(f"[the core: its schedule and barriers, and its time on the "
         f"sharded solve's data, float32, CUDA events; {smi}]")
     core_schedule_log(make_mg(1024, "periodic", 0.0, -1.0, torch.float32),
@@ -5709,6 +6148,9 @@ def main():
     for label, call in deep_calls.items():
         one_launch_each(call, 5, "k_deep", f"mg_deep_smooth calls ({label})",
                         "mg_deep_smooth")
+    for label, call in sweep_calls.items():
+        one_launch_each(call, 5, "k_sweep", f"mg_sweep calls ({label})",
+                        "mg_sweep")
     log(f"[the lm_atm stages and mg_correct under the profiler, float32; "
         f"{smi}]")
     lm_correct_device_us(bubble_calls, bubble_g, bw)
@@ -6065,6 +6507,20 @@ def main():
         "replaces": "pyro2_tpu/solvers/swe/pallas_step.py:75",
         "launches": swe_devdt_launches,
         "max_abs_err": devdt_err["swe_quad"],
+        "ms": ms,
+        "plain_ms": p_ms,
+        "bound_ms": b_ms,
+        "bound_by": b_by,
+        "library_ms": None,
+    })
+    ms, p_ms, b_ms, b_by = sweep_times
+    kernels.append({
+        "name": "mg_sweep",
+        "route": "cuda",
+        "source": "pyro2_tpu_torch/csrc/mg_deep.cu",
+        "replaces": "pyro2_tpu/parallel/sharded_mg.py:855",
+        "launches": a20_launches,
+        "max_abs_err": a20_err["mg_sweep"],
         "ms": ms,
         "plain_ms": p_ms,
         "bound_ms": b_ms,

@@ -14,7 +14,18 @@
 //                      residual on the frame, zero outside the interior
 //                      (EMIT_V_R);
 //   mg_correct      <- build_correct_kernel: v + prolong(vc) on the interior
-//                      of a one-ghost block, the ghosts copied.
+//                      of a one-ghost block, the ghosts copied;
+//   mg_sweep        the card's form of the JAX package's jnp sweep smoother
+//                      (no TPU kernel): on a block's one-ghost frame the
+//                      refresh of the physical ghosts, one colour pass of
+//                      red-black Gauss-Seidel (or none) and the refresh
+//                      again, then by `emit` the frame alone (EMIT_V) or,
+//                      after no pass, with the factor-2 restricted residual
+//                      (EMIT_V_FC) or the residual on the frame, zero in
+//                      the ghosts (EMIT_V_R).  The plain structure of the
+//                      sharded multigrid runs its exchange-per-half-sweep
+//                      smoothing and its unfused residual through it, one
+//                      launch a colour pass with the seam exchange between.
 //
 // The operators, the restriction and the prolongation are mg_ops.cuh's, as
 // mg_vcycle.cu uses them: the TPU built the transfers as iota matmuls on the
@@ -83,6 +94,14 @@
 // cells of a colour (or of a Jacobi step) do not read each other, so the
 // results are the first design's bits whatever the tiling.  Each entry
 // point returns the launch's cudaError_t (0 on success).
+//
+// k_sweep is a strided loop of one thread a frame cell, with no shared
+// memory: the refresh is a function of the input (a refreshed ghost is its
+// sign times its source cell, x's rule then y's, as k_deep's write-out), so
+// a thread computes the entry value of any cell it reads, the colour's
+// update of a cell it writes or mirrors, and a residual from the entry
+// values.  Its colours are the block's local parity, which is the global
+// one because the sharded levels' block offsets are even.
 //
 // Build (see sharded_mg_kernel.py and util/cuda_build.py):
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -fmad=false
@@ -382,6 +401,90 @@ __global__ void __launch_bounds__(THREADS) k_correct(const T* v, const T* vc,
   }
 }
 
+// the frame cell that cell (i, j) of a one-ghost frame mirrors after the
+// physical refresh, x's rule then y's, and the product of the signs
+template <typename T>
+__device__ __forceinline__ int mirror(const Frame<T>& F, int i, int j,
+                                      T& s) {
+  if (F.on[0] && i == F.ghost[0]) {
+    i = F.src[0];
+    s = s * F.sgn[0];
+  } else if (F.on[1] && i == F.ghost[1]) {
+    i = F.src[1];
+    s = s * F.sgn[1];
+  }
+  if (F.on[2] && j == F.ghost[2]) {
+    j = F.src[2];
+    s = s * F.sgn[2];
+  } else if (F.on[3] && j == F.ghost[3]) {
+    j = F.src[3];
+    s = s * F.sgn[3];
+  }
+  return i * F.q + j;
+}
+
+// one colour pass (colour 0 red, 1 black, -1 none) on the one-ghost frame v
+// of a bx x by block, and the emit (after no pass only)
+template <int OP, int EMIT, typename T>
+__global__ void __launch_bounds__(THREADS) k_sweep(const T* v, const T* f,
+                                                   T* vo, T* ex, Frame<T> F,
+                                                   T alpha, T beta,
+                                                   int colour) {
+  const int q = F.q, n = F.Fx * q;
+  const int stride = gridDim.x * blockDim.x;
+  const int k0 = blockIdx.x * blockDim.x + threadIdx.x;
+  // the refreshed input at cell (i, j)
+  auto entry = [&](int i, int j) {
+    T s = T(1);
+    const int c = mirror(F, i, j, s);
+    return s * v[c];
+  };
+  auto inside = [&](int i, int j) {
+    return i >= 1 && i <= F.bx && j >= 1 && j <= F.by;
+  };
+  // the value of cell (i, j) after the pass, before the second refresh
+  auto swept = [&](int i, int j) {
+    const int c = i * q + j;
+    if (colour >= 0 && inside(i, j) && ((i + j) & 1) == colour)
+      return gs_val<OP>(entry(i + 1, j), entry(i - 1, j), entry(i, j + 1),
+                        entry(i, j - 1), f[c], F, c);
+    return inside(i, j) ? v[c] : entry(i, j);
+  };
+  for (int k = k0; k < n; k += stride) {
+    const int i = k / q, j = k - (k / q) * q;
+    T s = T(1);
+    const int c = mirror(F, i, j, s);
+    const int si = c / q, sj = c - (c / q) * q;
+    vo[k] = s * swept(si, sj);
+  }
+  if constexpr (EMIT == EMIT_V) return;
+  // the residual of interior cell (i, j) of the refreshed frame
+  auto res = [&](int i, int j) {
+    const int c = i * q + j;
+    return resid_val<OP>(v[c], entry(i + 1, j), entry(i - 1, j),
+                         entry(i, j + 1), entry(i, j - 1), f[c], F, alpha,
+                         beta, c);
+  };
+  if constexpr (EMIT == EMIT_V_R) {
+    for (int k = k0; k < n; k += stride) {
+      const int i = k / q, j = k - (k / q) * q;
+      ex[k] = inside(i, j) ? res(i, j) : T(0);
+    }
+  } else {
+    const int qc = F.by / 2 + 2, nc = (F.bx / 2 + 2) * qc;
+    for (int k = k0; k < nc; k += stride) {
+      const int I = k / qc, J = k - (k / qc) * qc;
+      T val = T(0);
+      if (I >= 1 && I <= F.bx / 2 && J >= 1 && J <= F.by / 2) {
+        const int i = 2 * I - 1, j = 2 * J - 1;
+        val = T(0.25) * (((res(i, j) + res(i + 1, j)) + res(i, j + 1)) +
+                         res(i + 1, j + 1));
+      }
+      ex[k] = val;
+    }
+  }
+}
+
 // -- launches -------------------------------------------------------------------
 
 // the largest box along one axis of the plan's tiles
@@ -493,6 +596,39 @@ int by_smoother(int smoother, int emit, const DeepArgs<T>& a, const T* vd,
   return (int)cudaErrorInvalidValue;
 }
 
+// the refresh of each edge of frame F (its geometry set) from the block's
+// flags and the edges' plan and kinds; false if an axis would wrap that is
+// split, deeper than one cell or (pow2: k_deep's boxes, whose
+// BoxAxis::wrap masks) not a power of 2
+template <typename T>
+bool frame_edges(Frame<T>& F, const int* flags, const int* plan,
+                 const int* kinds, bool pow2) {
+  const int dp[2] = {F.dpx, F.dpy}, b[2] = {F.bx, F.by};
+  for (int e = 0; e < 4; ++e) {
+    const int axis = e / 2, hi = e % 2;
+    F.lim0[e] = flags[e] != 0;
+    F.on[e] = plan[e] == 2 || (plan[e] == 1 && flags[4 + e] != 0);
+    F.ghost[e] = hi ? dp[axis] + b[axis] : dp[axis] - 1;
+    if (kinds[e] == PERIODIC)      // an unsplit axis: dp = 1
+      F.src[e] = hi ? 1 : b[axis];
+    else
+      F.src[e] = hi ? dp[axis] + b[axis] - 1 : dp[axis];
+    F.sgn[e] = kinds[e] == NEGATE ? T(-1) : T(1);
+  }
+  // an axis whose ghosts mirror the opposite side wraps: one cell of halo,
+  // no seam, and a power-of-2 block
+  for (int axis = 0; axis < 2; ++axis) {
+    const int lo = 2 * axis, hi = lo + 1;
+    const bool wrap = F.on[lo] && kinds[lo] == PERIODIC;
+    if (wrap != (F.on[hi] && kinds[hi] == PERIODIC) ||
+        (wrap && (dp[axis] != 1 || F.lim0[lo] || F.lim0[hi] ||
+                  (pow2 && (b[axis] & (b[axis] - 1))))))
+      return false;
+    (axis == 0 ? F.wx : F.wy) = wrap;
+  }
+  return true;
+}
+
 // geom: bx, by, dpx, dpy, d, n_sweeps; flags: seam x-lo, x-hi, y-lo, y-hi,
 // own x-lo, ..., y-hi; plan, kinds: per edge; coef: xc, yc, den, dx2, dy2;
 // ab: alpha, beta; tiles: the launch plan (DeepPlan); w: the scratch frame
@@ -526,29 +662,8 @@ int deep_smooth(const T* vd, const T* fd, const void* planes, T* vo, T* ex,
   F.dx2 = (T)coef[3];
   F.dy2 = (T)coef[4];
   F.c = static_cast<const T*>(planes);
-  const int dp[2] = {F.dpx, F.dpy}, b[2] = {F.bx, F.by};
-  for (int e = 0; e < 4; ++e) {
-    const int axis = e / 2, hi = e % 2;
-    F.lim0[e] = flags[e] != 0;
-    F.on[e] = plan[e] == 2 || (plan[e] == 1 && flags[4 + e] != 0);
-    F.ghost[e] = hi ? dp[axis] + b[axis] : dp[axis] - 1;
-    if (kinds[e] == PERIODIC)      // an unsplit axis: dp = 1
-      F.src[e] = hi ? 1 : b[axis];
-    else
-      F.src[e] = hi ? dp[axis] + b[axis] - 1 : dp[axis];
-    F.sgn[e] = kinds[e] == NEGATE ? T(-1) : T(1);
-  }
-  // an axis whose ghosts mirror the opposite side wraps: one cell of halo,
-  // no seam, and a power-of-2 block (BoxAxis::wrap masks)
-  for (int axis = 0; axis < 2; ++axis) {
-    const int lo = 2 * axis, hi = lo + 1;
-    const bool wrap = F.on[lo] && kinds[lo] == PERIODIC;
-    if (wrap != (F.on[hi] && kinds[hi] == PERIODIC) ||
-        (wrap && (dp[axis] != 1 || F.lim0[lo] || F.lim0[hi] ||
-                  (b[axis] & (b[axis] - 1)))))
-      return (int)cudaErrorInvalidValue;
-    (axis == 0 ? F.wx : F.wy) = wrap;
-  }
+  if (!frame_edges(F, flags, plan, kinds, true))
+    return (int)cudaErrorInvalidValue;
   a.t = DeepPlan{tiles[0], tiles[1], tiles[2],  tiles[3],
                  tiles[4], tiles[5], tiles[6],  tiles[7],
                  tiles[8], tiles[9], tiles[10], tiles[11]};
@@ -582,6 +697,74 @@ int correct(const T* v, const T* vc, T* vo, int bx, int by, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
+template <int OP, typename T>
+int launch_sweep(int emit, const T* v, const T* f, T* vo, T* ex,
+                 const Frame<T>& F, T alpha, T beta, int colour,
+                 cudaStream_t st) {
+  const int n = F.Fx * F.Fy;
+  int blocks = (n + THREADS - 1) / THREADS;
+  if (blocks > 4096) blocks = 4096;
+  switch (emit) {
+    case EMIT_V:
+      k_sweep<OP, EMIT_V, T><<<blocks, THREADS, 0, st>>>(v, f, vo, ex, F,
+                                                          alpha, beta, colour);
+      break;
+    case EMIT_V_FC:
+      k_sweep<OP, EMIT_V_FC, T><<<blocks, THREADS, 0, st>>>(
+          v, f, vo, ex, F, alpha, beta, colour);
+      break;
+    case EMIT_V_R:
+      k_sweep<OP, EMIT_V_R, T><<<blocks, THREADS, 0, st>>>(
+          v, f, vo, ex, F, alpha, beta, colour);
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+// geom: bx, by; colour: 0 red, 1 black, -1 no pass (the only one an emit
+// other than EMIT_V takes); flags, plan, kinds, coef, ab: as deep_smooth's
+template <typename T>
+int sweep(const T* v, const T* f, const void* planes, T* vo, T* ex,
+          const int* geom, int op, int colour, int emit, const int* flags,
+          const int* plan, const int* kinds, const double* coef,
+          const double* ab, cudaStream_t st) {
+  Frame<T> F;
+  F.bx = geom[0];
+  F.by = geom[1];
+  F.dpx = F.dpy = 1;
+  F.Fx = F.bx + 2;
+  F.Fy = F.by + 2;
+  if (F.bx < 2 || F.by < 2 || F.bx % 2 || F.by % 2 || colour < -1 ||
+      colour > 1 || (op != OP_CONST && !planes) ||
+      (emit != EMIT_V && (!ex || colour >= 0)))
+    return (int)cudaErrorInvalidValue;
+  F.q = F.Fy;
+  F.qq = (size_t)F.Fx * F.Fy;
+  F.xc = (T)coef[0];
+  F.yc = (T)coef[1];
+  F.den = (T)coef[2];
+  F.dx2 = (T)coef[3];
+  F.dy2 = (T)coef[4];
+  F.c = static_cast<const T*>(planes);
+  if (!frame_edges(F, flags, plan, kinds, false))
+    return (int)cudaErrorInvalidValue;
+  const T alpha = (T)ab[0], beta = (T)ab[1];
+  switch (op) {
+    case OP_CONST:
+      return launch_sweep<OP_CONST>(emit, v, f, vo, ex, F, alpha, beta,
+                                    colour, st);
+    case OP_VC:
+      return launch_sweep<OP_VC>(emit, v, f, vo, ex, F, alpha, beta, colour,
+                                 st);
+    case OP_GENERAL:
+      return launch_sweep<OP_GENERAL>(emit, v, f, vo, ex, F, alpha, beta,
+                                      colour, st);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 #define ENTRIES(T, SFX)                                                       \
@@ -598,6 +781,14 @@ int correct(const T* v, const T* vc, T* vo, int bx, int by, cudaStream_t st) {
   extern "C" int mg_correct_##SFX(const T* v, const T* vc, T* vo, int bx,     \
                                   int by, void* stream) {                     \
     return correct<T>(v, vc, vo, bx, by, (cudaStream_t)stream);               \
+  }                                                                           \
+  extern "C" int mg_sweep_##SFX(                                              \
+      const T* v, const T* f, const void* planes, T* vo, T* ex,               \
+      const int* geom, int op, int colour, int emit, const int* flags,        \
+      const int* plan, const int* kinds, const double* coef,                  \
+      const double* ab, void* stream) {                                       \
+    return sweep<T>(v, f, planes, vo, ex, geom, op, colour, emit, flags,      \
+                    plan, kinds, coef, ab, (cudaStream_t)stream);             \
   }
 
 // the length of the plan array the mg_deep_smooth entries take

@@ -6,13 +6,15 @@ copy); `aic` is its constant stand-in for uniform Cartesian geometry;
 `embed` places a windowed block into a zero-padded frame.  `fill_ghost`
 fills the four ghost strips of a (..., qx, qy) tensor IN PLACE, in the
 order x-lo, x-hi, y-lo, y-hi, so corner ghosts match the JAX package.
+`aifc` and `fill_ghost_fc` are their face-centred twins, for data with one
+extra point along its direction idir (mesh.patch.FaceCenterData2d).
 """
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-__all__ = ["ai", "aic", "embed", "fill_ghost"]
+__all__ = ["ai", "aic", "aifc", "embed", "fill_ghost", "fill_ghost_fc"]
 
 
 class aic:
@@ -132,6 +134,35 @@ class ai:
         print("\n         ^ y\n         |\n         +---> x\n")
 
 
+class aifc(ai):
+    """Face-centred variant of `ai`: one extra point in direction `idir`
+    (1 = x, 2 = y), so v() covers the faces ilo .. ihi + 1 along it."""
+
+    __slots__ = ("idir",)
+
+    def __init__(self, a, g, idir):
+        super().__init__(a, g)
+        self.idir = idir
+
+    def _win(self, ishift, jshift, buf, s):
+        g = self.g
+        bxlo, bxhi, bylo, byhi = _buf_split(buf)
+        xhi_extra = 1 if self.idir == 1 else 0
+        yhi_extra = 1 if self.idir == 2 else 0
+        isl = slice(g.ilo - bxlo + ishift,
+                    g.ihi + 1 + xhi_extra + bxhi + ishift, s)
+        jsl = slice(g.jlo - bylo + jshift,
+                    g.jhi + 1 + yhi_extra + byhi + jshift, s)
+        return self.a[..., isl, jsl]
+
+    def lap(self, buf=0):
+        raise NotImplementedError("lap not defined for face-centered data")
+
+    def norm(self):
+        g = self.g
+        return torch.sqrt(g.dx * g.dy * torch.sum(self.v() ** 2))
+
+
 # ---------------------------------------------------------------------------
 # ghost-cell filling
 # ---------------------------------------------------------------------------
@@ -201,4 +232,47 @@ def fill_ghost(a, g, bc):
     _edge_fill(a, g, -2, 1, bc.xrb, bc.xr_value, g.dx)
     _edge_fill(a, g, -1, 0, bc.ylb, bc.yl_value, g.dy)
     _edge_fill(a, g, -1, 1, bc.yrb, bc.yr_value, g.dy)
+    return a
+
+
+def _edge_fill_fc(a, g, axis, side, kind, idir):
+    """Periodic ghost fill of one boundary of face-centred data, in place.
+
+    Face-centred tensors have qx+1 (idir=1) or qy+1 (idir=2) points on the
+    face axis; along it the two domain-boundary faces are the same face
+    under periodicity."""
+    if kind != "periodic":
+        raise NotImplementedError(
+            f"BC '{kind}' not implemented for face-centered data")
+    ng = g.ng
+    on_face_axis = (axis == -2 and idir == 1) or (axis == -1 and idir == 2)
+    n_tot = a.shape[axis]
+    n_int = n_tot - 2 * ng  # nx+1 on the face axis, nx otherwise
+
+    def take(sl):
+        idx = [slice(None)] * a.ndim
+        idx[axis] = sl
+        return tuple(idx)
+
+    if side == 0:
+        # ghosts 0..ng-1 <- the interior wrapped (either kind of axis)
+        src_lo = n_int - 1 if on_face_axis else n_int
+        a[take(slice(0, ng))] = a[take(slice(src_lo, src_lo + ng))].clone()
+    elif on_face_axis:
+        # ghosts hi+2..end <- ng+1..2ng; the hi+1 face IS the lo face
+        a[take(slice(n_tot - ng, n_tot))] = \
+            a[take(slice(ng + 1, 2 * ng + 1))].clone()
+    else:
+        a[take(slice(n_tot - ng, n_tot))] = \
+            a[take(slice(ng, 2 * ng))].clone()
+    return a
+
+
+def fill_ghost_fc(a, g, bc, idir):
+    """Ghost fill of face-centred data (periodic only, as in the JAX
+    package), in place, x before y; returns `a`."""
+    _edge_fill_fc(a, g, -2, 0, bc.xlb, idir)
+    _edge_fill_fc(a, g, -2, 1, bc.xrb, idir)
+    _edge_fill_fc(a, g, -1, 0, bc.ylb, idir)
+    _edge_fill_fc(a, g, -1, 1, bc.yrb, idir)
     return a

@@ -6,6 +6,8 @@ with y the fastest-varying dim, on an explicit device and dtype.  Ghost
 fills update that tensor in place.  `restrict_array` / `prolong_array` are
 the factor-2 (and 4) transfers multigrid uses; `cell_center_data_clone`
 copies the state, because the port writes state tensors in place.
+`FaceCenterData2d` holds face-centred state (one extra point along its
+direction), with periodic ghost fills only.
 """
 
 import torch
@@ -13,11 +15,11 @@ import torch
 import pyro2_tpu_torch.mesh.boundary as bnd
 from pyro2_tpu_torch.defaults import dtype as working_dtype
 from pyro2_tpu_torch.defaults import resolve_device
-from pyro2_tpu_torch.mesh.indexer import ai, fill_ghost
+from pyro2_tpu_torch.mesh.indexer import ai, aifc, fill_ghost, fill_ghost_fc
 from pyro2_tpu_torch.util import hdf5
 
-__all__ = ["CellCenterData2d", "cell_center_data_clone", "restrict_array",
-           "prolong_array"]
+__all__ = ["CellCenterData2d", "FaceCenterData2d", "cell_center_data_clone",
+           "restrict_array", "prolong_array"]
 
 
 # ---------------------------------------------------------------------------
@@ -258,6 +260,59 @@ class CellCenterData2d:
             s += (f"{' ':>16s}  BCs: -x: {b.xlb:12s} +x: {b.xrb:12s}"
                   f" -y: {b.ylb:12s} +y: {b.yrb:12s}\n")
         return s
+
+
+class FaceCenterData2d(CellCenterData2d):
+    """Face-centred state: one extra point in the idir direction (1 = x,
+    2 = y).  Its tensors are made on the data's device."""
+
+    def __init__(self, grid, idir, *, dtype=None, device=None):
+        super().__init__(grid, dtype=dtype, device=device)
+        self.idir = idir
+
+    def add_derived(self, func):
+        raise NotImplementedError(
+            "derived variables not supported for face-centered data")
+
+    def create(self):
+        if self.initialized == 1:
+            raise RuntimeError("ERROR: grid already initialized")
+        if self.idir == 1:
+            shape = (self.nvar, self.grid.qx + 1, self.grid.qy)
+        else:
+            shape = (self.nvar, self.grid.qx, self.grid.qy + 1)
+        self.data = torch.zeros(shape, dtype=self.dtype, device=self.device)
+        self.initialized = 1
+
+    def get_ai(self, name):
+        return aifc(self.get_var(name), self.grid, self.idir)
+
+    def fill_BC(self, name):
+        n = self.names.index(name)
+        bc = self.BCs[name]
+        for edge in ("xlb", "xrb", "ylb", "yrb"):
+            if getattr(bc, edge) in bnd.ext_bcs:
+                raise NotImplementedError(
+                    "custom BCs not supported for face-centered data")
+        fill_ghost_fc(self.data[n], self.grid, bc, self.idir)
+
+    def restrict(self, varname, N=2):
+        raise NotImplementedError(
+            "restriction not implemented for FaceCenterData2d")
+
+    def prolong(self, varname):
+        raise NotImplementedError(
+            "prolongation not implemented for FaceCenterData2d")
+
+    def write_data(self, f):
+        gstate = f.create_group("face-centered-state")
+        for n, name in enumerate(self.names):
+            gvar = gstate.create_group(name)
+            gvar.create_dataset(
+                "data", data=aifc(self.data[n], self.grid,
+                                  self.idir).v().cpu().numpy())
+            for edge in ("xlb", "xrb", "ylb", "yrb"):
+                gvar.attrs[edge[:2] + "b"] = getattr(self.BCs[name], edge)
 
 
 def cell_center_data_clone(old):

@@ -60,11 +60,11 @@ from pyro2_tpu_torch.mesh.patch import prolong_array, restrict_array
 from pyro2_tpu_torch.util import cuda_build
 
 __all__ = ["CORE_MAX", "FLAVOURS", "Ineligible", "ZERO", "build", "check",
-           "core", "core_cells", "core_cluster", "core_offsets",
-           "core_plain", "core_plan", "core_schedule", "cycle", "down",
-           "down_plain", "edge_kinds", "flavour", "has_values",
-           "kernel_rhs", "launches", "lifted_rhs", "split", "tile_plan",
-           "up", "up_plain", "TilePlan", "work"]
+           "coarse_cycle", "core", "core_cells", "core_cluster",
+           "core_offsets", "core_plain", "core_plan", "core_schedule",
+           "cycle", "down", "down_plain", "edge_kinds", "flavour",
+           "has_values", "kernel_rhs", "launches", "lifted_rhs", "split",
+           "tile_plan", "up", "up_plain", "TilePlan", "work"]
 
 SOURCE = cuda_build.CSRC / "mg_vcycle.cu"
 
@@ -593,20 +593,33 @@ def cycle(mg, v, f, f_h=None):
     return mg._fill_v(mg.nlevels - 1, v), r
 
 
-def _cycle(mg, v, f):
+def _cycle(mg, v, f, level=None):
+    """(v, r) of one V-cycle of levels 0..level: the finest level (r its
+    residual) unless `level` is given (r None)."""
+    fine = mg.nlevels - 1 if level is None else level
+    want_r = level is None
     top, peeled = split(mg, f.dtype)
-    fine = mg.nlevels - 1
+    top = min(top, fine)
     stack = []
-    for lv in reversed(peeled):                  # fine -> coarse
+    for lv in reversed([p for p in peeled if p <= fine]):  # fine -> coarse
         v, fc = down(mg, lv, v, f)
         stack.append((lv, v, f))
         v, f = None, fc                          # zero coarse guess
-    v, r = core(mg, top, v, f, want_r=not peeled)
+    v, r = core(mg, top, v, f, want_r=want_r and not stack)
     for lv, v_lv, f_lv in reversed(stack):       # coarse -> fine
-        v, r_lv = up(mg, lv, v_lv, f_lv, v, want_r=lv == fine)
-        if lv == fine:
+        v, r_lv = up(mg, lv, v_lv, f_lv, v, want_r=want_r and lv == fine)
+        if want_r and lv == fine:
             r = r_lv
     return v, r
+
+
+def coarse_cycle(mg, level, f):
+    """The V-cycle of levels 0..level of the serial multigrid mg from a
+    zero guess, with homogeneous fills: `mg._v_cycle(level, 0, f)`, run as
+    the finest cycle is, one core for the levels it holds and a down and
+    an up for each level above them (CORE_MAX).  The sharded multigrid's
+    replicated coarse solve."""
+    return _cycle(mg, None, f, level)[0]
 
 
 # ---------------------------------------------------------------------------

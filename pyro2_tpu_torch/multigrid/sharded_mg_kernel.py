@@ -12,18 +12,28 @@ The counterpart of pyro2_tpu/multigrid/pallas_sharded_mg.py:
     or the frame and the residual on the frame, zero outside the interior
     ("v_r");
   * `correct` (build_correct_kernel): v + prolong(vc) on the interior of a
-    one-ghost block.
+    one-ghost block;
+  * `sweep` (no TPU kernel: the card's form of the JAX package's jnp sweep
+    smoother, which the plain structure of parallel/sharded_mg.py runs):
+    on a block's one-ghost frame the refresh of the physical ghosts, one
+    colour pass of red-black Gauss-Seidel (colour 0 red, 1 black, None no
+    pass) and the refresh again, then by `emit` the frame ("v") or, after
+    no pass, the frame and the factor-2 restricted residual ("v_fc") or
+    the residual on the frame, zero in the ghosts ("v_r").
 
-The replicated coarse solve reuses the serial core (`mg_kernel.core`,
-rows 8 and 13 of the kernel table), as build_core_kernel and
-build_core_kernel_general did.
+The replicated coarse solve reuses the serial kernels
+(`mg_kernel.coarse_cycle`: the core, rows 8 and 13 of the kernel table,
+as build_core_kernel and build_core_kernel_general did, and a down and an
+up a level above the core's).
 
-The plain versions (`deep_smooth_plain`, `correct_plain`) are the JAX jnp
-path's arithmetic: sharded_mg's `_deep_smooth` with `_deep_gs_update`,
-then the serial `_residual` and `restrict_array`; `prolong_array` and an
-add.  For a CPU tensor each entry runs its plain version; for a CUDA
-tensor it launches its kernel, counting the launch in `launches`, or
-raises.  There is no fallback from one to the other.
+The plain versions (`deep_smooth_plain`, `correct_plain`, `sweep_plain`)
+are the JAX jnp path's arithmetic: sharded_mg's `_deep_smooth` with
+`_deep_gs_update`, then the serial `_residual` and `restrict_array`;
+`prolong_array` and an add; one colour pass of the serial `_smooth_once`
+between two ghost fills, then `_residual` and `restrict_array`.  For a
+CPU tensor each entry runs its plain version; for a CUDA tensor it
+launches its kernel, counting the launch in `launches`, or raises.  There
+is no fallback from one to the other.
 
 The operator is the constant one (ncoef 0: alpha, beta given as `ab`) or
 a plane stack on the frame (`planes`: ncoef 2, the vc edge coefficients
@@ -46,7 +56,8 @@ from pyro2_tpu_torch.util import cuda_build
 
 __all__ = ["DeepPlan", "EMITS", "SMOOTHERS", "SUPPORTED_BCS", "build",
            "correct", "correct_plain", "covered", "deep_plan", "deep_smooth",
-           "deep_smooth_plain", "edge_plan", "launches", "work"]
+           "deep_smooth_plain", "edge_plan", "launches", "sweep",
+           "sweep_plain", "work"]
 
 SOURCE = cuda_build.CSRC / "mg_deep.cu"
 
@@ -61,7 +72,7 @@ _NEGATE = ("dirichlet", "reflect-odd")
 # damped move (3); Chebyshev's z, step and move (5)
 _STEP_EXTRA = {"rbgs": 0, "jacobi": 3, "chebyshev": 5}
 
-launches = {"mg_deep_smooth": 0, "mg_correct": 0}
+launches = {"mg_deep_smooth": 0, "mg_correct": 0, "mg_sweep": 0}
 
 _lib = None
 
@@ -87,6 +98,10 @@ def _load():
             fn.restype = i32
             fn = getattr(lib, f"mg_correct_{t}")
             fn.argtypes = [ptr] * 3 + [i32, i32, ptr]
+            fn.restype = i32
+            fn = getattr(lib, f"mg_sweep_{t}")
+            fn.argtypes = [ptr] * 5 + [ints, i32, i32, i32, ints, ints, ints,
+                                       doubles, doubles, ptr]
             fn.restype = i32
         lib.mg_deep_plan_ints.restype = i32
         if lib.mg_deep_plan_ints() != len(DeepPlan.FIELDS):
@@ -364,26 +379,14 @@ def _frame_masks(Fx, Fy, dpx, dpy, bx, by, device):
     return ex, red
 
 
-def deep_smooth_plain(vd, fd, flags, *, dpx, dpy, d, n_sweeps, dx, dy, bc,
-                      px, py, ab=None, planes=None, emit="v",
-                      smoother="rbgs"):
-    """(frame, restricted residual / residual frame / None): the plain
-    version of one smoothing round (see the module docstring)."""
-    ncoef = _check(smoother, emit, planes, ab, bc)
-    bx, by = _geometry(vd, dpx, dpy)
-    Fx, Fy = vd.shape
-    (exl, exr, eyl, eyr), red = _frame_masks(Fx, Fy, dpx, dpy, bx, by,
-                                             vd.device)
-    seam = [int(s) != 0 for s in flags[:4]]
+def _refresher(flags, bc, px, py, dpx, dpy, bx, by):
+    """The refresh of a block frame's physical ghosts: a function that
+    returns a copy of its frame with each edge the plan refreshes (flags
+    4..7 own it, or an unsplit periodic axis) set to its sign times its
+    source row or column, x-lo, x-hi, y-lo, y-hi over full rows, as
+    fill_ghost orders them."""
     plan = edge_plan(bc, px, py)
     kinds = (bc.xlb, bc.xrb, bc.ylb, bc.yrb)
-    update, residual = _operator(ncoef, ab, planes, dx, dy)
-
-    def elig(lim):
-        return ((exl <= (lim if seam[0] else 0)) &
-                (exr <= (lim if seam[1] else 0)) &
-                (eyl <= (lim if seam[2] else 0)) &
-                (eyr <= (lim if seam[3] else 0)))
 
     def refresh(a):
         a = a.clone()
@@ -400,6 +403,29 @@ def deep_smooth_plain(vd, fd, flags, *, dpx, dpy, d, n_sweeps, dx, dy, bc,
             row = a.select(dim, src)
             a.select(dim, ghost).copy_(-row if kinds[e] in _NEGATE else row)
         return a
+
+    return refresh
+
+
+def deep_smooth_plain(vd, fd, flags, *, dpx, dpy, d, n_sweeps, dx, dy, bc,
+                      px, py, ab=None, planes=None, emit="v",
+                      smoother="rbgs"):
+    """(frame, restricted residual / residual frame / None): the plain
+    version of one smoothing round (see the module docstring)."""
+    ncoef = _check(smoother, emit, planes, ab, bc)
+    bx, by = _geometry(vd, dpx, dpy)
+    Fx, Fy = vd.shape
+    (exl, exr, eyl, eyr), red = _frame_masks(Fx, Fy, dpx, dpy, bx, by,
+                                             vd.device)
+    seam = [int(s) != 0 for s in flags[:4]]
+    update, residual = _operator(ncoef, ab, planes, dx, dy)
+    refresh = _refresher(flags, bc, px, py, dpx, dpy, bx, by)
+
+    def elig(lim):
+        return ((exl <= (lim if seam[0] else 0)) &
+                (exr <= (lim if seam[1] else 0)) &
+                (eyl <= (lim if seam[2] else 0)) &
+                (eyr <= (lim if seam[3] else 0)))
 
     v = refresh(vd)
     if smoother == "rbgs":
@@ -439,6 +465,53 @@ def deep_smooth_plain(vd, fd, flags, *, dpx, dpy, d, n_sweeps, dx, dy, bc,
     fine, coarse = _block_grids(bx, by)
     return v, restrict_array(r[dpx - 1:dpx + bx + 1, dpy - 1:dpy + by + 1],
                              fine, coarse)
+
+
+def _sweep_geometry(v, colour, emit):
+    """(bx, by) of a one-ghost frame the half-sweep takes; raises
+    NotImplementedError for a block whose local parity could not be the
+    global one, ValueError for a call it does not make."""
+    bx, by = v.shape[-2] - 2, v.shape[-1] - 2
+    if bx < 2 or by < 2 or bx % 2 or by % 2:
+        raise NotImplementedError(
+            f"the half-sweep kernel takes even blocks of 2 or more cells a "
+            f"side, whose local red-black parity is the global one, not "
+            f"{bx} x {by} (ROADMAP.md A.31)")
+    if colour not in (None, 0, 1):
+        raise ValueError(f"colour {colour!r}: 0 (red), 1 (black) or None")
+    if emit not in EMITS:
+        raise ValueError(f"unknown emit '{emit}'")
+    if emit != "v" and colour is not None:
+        raise ValueError("a residual is emitted after no colour pass only: "
+                         "the seam ghosts of a pass are stale until the "
+                         "exchange")
+    return bx, by
+
+
+def sweep_plain(v, f, flags, *, colour, dx, dy, bc, px, py, ab=None,
+                planes=None, emit="v"):
+    """(frame, restricted residual / residual frame / None): the plain
+    version of one half-sweep call (see the module docstring): the serial
+    `_smooth_once`'s pass of one colour between two fills of the physical
+    ghosts, or no pass, then `_residual` and `restrict_array`."""
+    ncoef = _check("rbgs", emit, planes, ab, bc)
+    bx, by = _sweep_geometry(v, colour, emit)
+    refresh = _refresher(flags, bc, px, py, 1, 1, bx, by)
+    update, residual = _operator(ncoef, ab, planes, dx, dy)
+    (exl, exr, eyl, eyr), red = _frame_masks(bx + 2, by + 2, 1, 1, bx, by,
+                                             v.device)
+    inside = (exl == 0) & (exr == 0) & (eyl == 0) & (eyr == 0)
+    v = refresh(v)
+    if colour is not None:
+        mask = inside & (red if colour == 0 else ~red)
+        v = refresh(torch.where(mask, update(v, f), v))
+    if emit == "v":
+        return v, None
+    r = torch.where(inside, residual(v, f), 0.0)
+    if emit == "v_r":
+        return v, r
+    fine, coarse = _block_grids(bx, by)
+    return v, restrict_array(r, fine, coarse)
 
 
 def correct_plain(v, vc):
@@ -541,6 +614,40 @@ def launch_correct(v, vc):
     return out
 
 
+def launch_sweep(v, f, flags, *, colour, dx, dy, bc, px, py, ab=None,
+                 planes=None, emit="v"):
+    """The CUDA kernel of one half-sweep call: (frame, extra or None)."""
+    ncoef = _check("rbgs", emit, planes, ab, bc)
+    bx, by = _sweep_geometry(v, colour, emit)
+    shape, dtype = tuple(v.shape), v.dtype
+    ptrs = [_frame_ok(v, shape, dtype, "v"), _frame_ok(f, shape, dtype, "f"),
+            None if planes is None else _frame_ok(
+                planes, (ncoef,) + shape, dtype, "planes")]
+    vo = torch.empty_like(v)
+    extra = None
+    if emit == "v_fc":
+        extra = v.new_empty((bx // 2 + 2, by // 2 + 2))
+    elif emit == "v_r":
+        extra = torch.empty_like(v)
+    if ncoef == 0:
+        alpha, beta = (float(c) for c in ab)
+        xc, yc = beta / dx ** 2, beta / dy ** 2
+        coef = [xc, yc, alpha + 2.0 * xc + 2.0 * yc, dx ** 2, dy ** 2]
+    else:
+        alpha, beta, coef = 0.0, 0.0, [0.0] * 5
+    kinds = [mg_kernel.BC_KIND[k] for k in (bc.xlb, bc.xrb, bc.ylb, bc.yrb)]
+    ints = ctypes.c_int
+    t = "f32" if dtype == torch.float32 else "f64"
+    _run(getattr(_load(), f"mg_sweep_{t}"), v.device, *ptrs, vo.data_ptr(),
+         None if extra is None else extra.data_ptr(), (ints * 2)(bx, by),
+         _OPERATORS[ncoef][1], -1 if colour is None else colour,
+         EMITS.index(emit), (ints * 8)(*(int(x) for x in flags)),
+         (ints * 4)(*edge_plan(bc, px, py)), (ints * 4)(*kinds),
+         (ctypes.c_double * 5)(*coef), (ctypes.c_double * 2)(alpha, beta))
+    launches["mg_sweep"] += 1
+    return vo, extra
+
+
 # ---------------------------------------------------------------------------
 # the entries: the kernel for CUDA tensors, the plain version on the CPU
 # ---------------------------------------------------------------------------
@@ -555,6 +662,12 @@ def correct(v, vc):
     if v.device.type == "cpu":
         return correct_plain(v, vc)
     return launch_correct(v, vc)
+
+
+def sweep(v, f, flags, **kw):
+    if v.device.type == "cpu":
+        return sweep_plain(v, f, flags, **kw)
+    return launch_sweep(v, f, flags, **kw)
 
 
 # ---------------------------------------------------------------------------
@@ -577,25 +690,30 @@ def _eligible(bx, by, dpx, dpy, seam, lim, color=None):
 
 def work(entry, *, bx, by, dtype, dpx=1, dpy=1, d=1, n_sweeps=0,
          flags=(0, 0, 0, 0, 1, 1, 1, 1), smoother="rbgs", emit="v",
-         ncoef=0):
+         ncoef=0, colour=None):
     """(bytes, operations) one call must move and do at least: each input
     frame and plane read once, each output written once, and the
-    operations of the cell updates this call's flags and depth allow
-    (counted from mg_deep.cu as mg_kernel counts them).  `entry` is
-    "mg_deep_smooth" or "mg_correct"."""
+    operations of the cell updates this call's flags and depth allow, or
+    (mg_sweep) of its colour's cells (counted from mg_deep.cu as mg_kernel
+    counts them).  `entry` is "mg_deep_smooth", "mg_correct" or
+    "mg_sweep"."""
     item = torch.empty((), dtype=dtype).element_size()
     qc = (bx // 2 + 2) * (by // 2 + 2)
     if entry == "mg_correct":
         return (2 * (bx + 2) * (by + 2) + qc) * item, \
             mg_kernel.FLOPS_PROLONG * bx * by
-    if entry != "mg_deep_smooth":
+    if entry not in ("mg_deep_smooth", "mg_sweep"):
         raise ValueError(f"unknown entry {entry}")
     op = _OPERATORS[ncoef][0]
+    if entry == "mg_sweep":
+        dpx = dpy = 1
     nf = (bx + 2 * dpx) * (by + 2 * dpy)
     frames = (3 + ncoef) * nf + {"v": 0, "v_fc": qc, "v_r": nf}[emit]
     seam = [int(s) != 0 for s in flags[:4]]
     cells = 0
-    for s in range(n_sweeps):
+    if entry == "mg_sweep" and colour is not None:
+        cells = bx * by // 2                 # an even block: half a colour
+    for s in range(n_sweeps if entry == "mg_deep_smooth" else 0):
         if smoother == "rbgs":
             lim = d - (2 * s + 1)
             cells += (_eligible(bx, by, dpx, dpy, seam, lim, 0) +

@@ -54,8 +54,8 @@ from pyro2_tpu_torch.mesh.indexer import _edge_fill
 __all__ = ["Mesh", "Pending", "PendingFill", "factor_devices", "make_mesh",
            "halo_exchange", "halo_exchange_stack",
            "halo_exchange_stack_start", "gated_physical_fill",
-           "seam_exchange", "deep_pad_exchange", "deep_phys_refresh",
-           "record_collectives", "dynamic_loop"]
+           "seam_exchange", "seam_fill", "deep_pad_exchange",
+           "deep_phys_refresh", "record_collectives", "dynamic_loop"]
 
 
 # the open recorders, and how deep the calling code is in marked loops
@@ -468,6 +468,33 @@ def deep_pad_exchange(interior, bc, mesh, dpx, dpy, *, phys=True):
     a = _exchange(a, mesh, "y", dpy)
     if phys:
         a = deep_phys_refresh(a, bc, mesh, dpx, dpy)
+    return a
+
+
+def seam_fill(a, bc, mesh):
+    """The one-ghost halos of a padded (..., bx+2, by+2) block across its
+    seams, and nothing else: each side with a neighbouring block (around
+    the ring on a periodic axis) takes that block's adjacent interior
+    strip, x before y (so a corner takes the x-filled strip of its y
+    neighbour), and a domain edge of a non-periodic axis keeps the ghosts
+    it has.  The sharded multigrid's half-sweep kernel fills the physical
+    ghosts itself; this fills the rest.  Returns a new tensor, or `a`
+    itself when no axis is split."""
+    if mesh.px == 1 and mesh.py == 1:
+        return a
+    a = a.clone()
+    for axis, periodic in (("x", bc.xlb == "periodic"),
+                           ("y", bc.ylb == "periodic")):
+        posted = _exchange_start(a, mesh, axis, 1)
+        if posted is None:
+            continue
+        dim, depth, pending = posted
+        from_left, from_right = pending.wait()
+        n, idx = mesh.size(axis), mesh.index(axis)
+        if periodic or idx != 0:
+            a.narrow(dim, 0, 1).copy_(from_left)
+        if periodic or idx != n - 1:
+            a.narrow(dim, a.shape[dim] - 1, 1).copy_(from_right)
     return a
 
 

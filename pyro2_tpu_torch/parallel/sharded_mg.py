@@ -19,13 +19,20 @@ Python, and the mesh's collectives replace ppermute, all_gather and psum.
 * Below the crossover the residual blocks are gathered into a replicated
   global coarse problem, solved identically on every rank by the serial
   V-cycle, and each rank slices its own block of the correction back out.
-* The operator math is not duplicated: `_LocalMGOps` runs the serial
-  class's `_smooth_once` / `_smooth_n` / `_residual` on block-local grids
-  with the halo exchange as ghost fill, and one deep-smoothing round is
-  `multigrid.sharded_mg_kernel.deep_smooth`.
+* The operator math is not duplicated: a smoothing round is one
+  `multigrid.sharded_mg_kernel.deep_smooth`; the exchange-per-half-sweep
+  schedule is `sharded_mg_kernel.sweep` (one colour pass of the serial
+  `_smooth_once` between fills of the physical ghosts, or the serial
+  `_residual` and `restrict_array`) with a seam exchange between calls;
+  the replicated coarse cycle is the serial multigrid's
+  (`mg_kernel.coarse_cycle`).
 
 Two structures, chosen by `use_pallas` (the JAX package's keyword; None
-picks the kernel structure on a CUDA mesh and the plain one on the CPU):
+picks the kernel structure on a CUDA mesh with comm_mode "deep", else the
+plain one),
+each a kernel a numerical step on a CUDA mesh and its plain version on the
+CPU (`structure` says which entries a cycle launches, from the sizes
+alone):
 
 * the kernel structure (`use_pallas=True`): each smoothing round is one
   `mg_deep_smooth` (the last pre-smoothing round also restricts the
@@ -35,11 +42,19 @@ picks the kernel structure on a CUDA mesh and the plain one on the CPU):
   level up to `mg_kernel.CORE_MAX[dtype]` on a 1 x 1 mesh and 64^2
   otherwise.  On a 1 x 1 mesh at 1024^2 in float32 the levels 256^2,
   512^2 and 1024^2 are sharded, so a cycle launches 3 x 3 + 1 kernels.
-  On the CPU the same structure runs the kernels' plain versions;
+  A sharded level too thin for a deep round smooths as the plain
+  structure's sweep levels do;
 * the plain structure (`use_pallas=False`, or `comm_mode="sweep"`): the
-  JAX package's jnp cycle, on the CPU only; on a CUDA mesh it raises
-  NotImplementedError (ROADMAP.md A.20).  There is no fallback from one
-  structure to the other.
+  JAX package's jnp cycle with the plain crossover: deep rounds
+  (`mg_deep_smooth`, frame only) or, with `comm_mode="sweep"` and on
+  levels too thin for a round, `mg_sweep` a colour pass with the seam
+  exchange between; the residual and its restriction one `mg_sweep`, the
+  correction one `mg_correct`, and the replicated coarse cycle the serial
+  kernels' (`mg_kernel.coarse_cycle`: the core, and a down and an up for
+  each level above CORE_MAX).
+
+There is no fallback from one structure to the other, nor from a kernel
+to its plain version.
 
 Supported BCs: the standard homogeneous kinds (dirichlet / neumann /
 outflow / reflect-* / periodic); anything else raises.  The global
@@ -47,6 +62,7 @@ reductions (the source norm, the residual norm, the relative change) are
 summed over every rank.
 """
 
+import math
 import types
 
 import torch
@@ -54,17 +70,17 @@ import torch.nn.functional as F
 
 from pyro2_tpu_torch.mesh.grid import Grid2d
 from pyro2_tpu_torch.mesh.indexer import ai
-from pyro2_tpu_torch.mesh.patch import prolong_array, restrict_array
 from pyro2_tpu_torch.multigrid import mg_kernel, sharded_mg_kernel
 from pyro2_tpu_torch.multigrid.general_MG import GeneralMG2d
 from pyro2_tpu_torch.multigrid.MG import CellCenterMG2d
 from pyro2_tpu_torch.multigrid.variable_coeff_MG import VarCoeffCCMG2d
 from pyro2_tpu_torch.parallel.mesh_comm import (deep_pad_exchange,
-                                                dynamic_loop, halo_exchange)
+                                                dynamic_loop, halo_exchange,
+                                                seam_fill)
 from pyro2_tpu_torch.util import msg
 
 __all__ = ["ShardedMG", "ShardedVarCoeffMG", "ShardedGeneralMG",
-           "kernel_flags", "make_sharded_mg", "stats"]
+           "kernel_flags", "make_sharded_mg", "stats", "structure"]
 
 _SUPPORTED_BCS = frozenset(
     ["outflow", "neumann", "dirichlet", "reflect-odd", "reflect-even",
@@ -75,8 +91,9 @@ _SUPPORTED_BCS = frozenset(
 # beside the kernels' launch counts)
 stats = {"solves": 0, "cycles": 0}
 
-_A20 = ("the plain sharded multigrid cycle on CUDA waits for a later slice "
-        "of the port (ROADMAP.md A.20)")
+# deep mode prefers replicating levels whose split-axis blocks are smaller
+# than this (one exchange then buys >= 7 sweeps)
+DEEP_CROSSOVER = 16
 
 
 def _check_bcs(*bc_types):
@@ -86,12 +103,147 @@ def _check_bcs(*bc_types):
                 f"BC '{t}' is not supported by the sharded MG path")
 
 
-def _check_structure(mesh, comm_mode, use_pallas):
-    """Refuse the plain structure on a CUDA mesh, before anything is
-    built on the card."""
-    if mesh.device.type == "cuda" and (use_pallas is False or
-                                       comm_mode != "deep"):
-        raise NotImplementedError(_A20)
+def structure(nx, ny, px, py, *, dtype, op="const", comm_mode="deep",
+              smoother="rbgs", use_pallas=None, cuda=True, nsmooth=10,
+              nsmooth_bottom=50, nsmooth_speed=None):
+    """The structure of a sharded solve of an nx x ny grid (a power of 2,
+    square) on a px x py mesh, from the sizes alone (nothing is
+    allocated): a namespace of `use_pallas` (None: the kernel structure
+    when `cuda` and comm_mode is "deep", else the plain one),
+    `nsmooth_speed`, `k_cross` (the coarsest sharded level), `deep_geom`
+    ({sharded level: its deep-halo geometry, or None where the level
+    smooths by sweeps}), `entries` ({level: {kernel entry: launches} of
+    one V-cycle's visit; the replicated coarse level under k_cross - 1})
+    and `launches` (their sum a cycle).  The entries are the kernels a
+    CUDA mesh launches; the CPU runs their plain versions in the same
+    places.  `op` ("const", "vc", "general") names the coarse entries."""
+    if comm_mode not in ("deep", "sweep"):
+        raise ValueError(f"unknown comm_mode '{comm_mode}'")
+    if smoother not in sharded_mg_kernel.SMOOTHERS:
+        raise ValueError(f"unknown smoother '{smoother}'")
+    if smoother != "rbgs" and comm_mode != "deep":
+        raise ValueError("speed smoothers require comm_mode='deep'")
+    if use_pallas is None:
+        # comm_mode "sweep" is the plain structure's schedule
+        use_pallas = cuda and comm_mode == "deep"
+    if use_pallas and comm_mode != "deep":
+        raise ValueError("use_pallas requires comm_mode='deep'")
+    if nx % px != 0 or ny % py != 0:
+        raise ValueError("grid must divide evenly over the mesh")
+    # Chebyshev of degree ~4 matches 10 RB-GS sweeps' smoothing power;
+    # damped Jacobi needs a few more
+    if nsmooth_speed is None:
+        nsmooth_speed = 4 if smoother == "chebyshev" else 8
+    nlevels = int(math.log(nx) / math.log(2.0))     # as CellCenterMG2d's
+    sizes = [2 ** (k + 1) for k in range(nlevels)]   # cells a side
+
+    # crossover: the coarsest block-partitioned level.  Blocks stay even
+    # powers of 2 above it, so local red-black parity == global parity and
+    # the local factor-2 restriction is exact.  Deep mode prefers
+    # split-axis blocks >= DEEP_CROSSOVER cells (one exchange buys >= 7
+    # sweeps): tiny sharded levels cost more in halo latency than
+    # replicated compute
+    def coarsest(min_seam_block):
+        for k, n in enumerate(sizes):
+            if n % px != 0 or n % py != 0:
+                continue
+            bx, by = n // px, n // py
+            if bx < 2 or by < 2:
+                continue
+            seam = ([bx] if px > 1 else []) + ([by] if py > 1 else [])
+            if not seam or min(seam) >= min_seam_block:
+                return k
+        return None
+
+    if comm_mode == "deep":
+        k_cross = coarsest(DEEP_CROSSOVER)
+        if k_cross is None:
+            k_cross = coarsest(4)
+    else:
+        k_cross = coarsest(2)
+    if k_cross is None:
+        k_cross = coarsest(2)
+    if k_cross is None:
+        raise ValueError(
+            f"no level of a {nx}x{ny} grid gives >=2x2 blocks on a "
+            f"{px}x{py} mesh -- use the serial solver")
+    if use_pallas:
+        # one core kernel solves the gathered coarse problem: replicate
+        # every level it holds (on a 1x1 mesh the cycle is then the serial
+        # one's shape), 64^2 when blocks exchange halos
+        repl_max = mg_kernel.CORE_MAX[dtype]
+        if px * py > 1:
+            repl_max = min(repl_max, 64)
+        while k_cross < nlevels - 1 and sizes[k_cross] <= repl_max:
+            k_cross += 1
+
+    # deep-halo geometry per sharded level: halo depth d (bounded by
+    # 2*nsmooth+1 -- a full RB sweep consumes 2 halo cells -- and by the
+    # block extent along each split axis, since the exchange carries the
+    # neighbour's interior), and the per-round sweep schedule.  None: the
+    # exchange-per-half-sweep schedule
+    def schedule(n, per_round):
+        full, rem = divmod(n, per_round)
+        return [per_round] * full + ([rem] if rem else [])
+
+    deep_geom = {}
+    for k in range(k_cross, nlevels):
+        bx, by = sizes[k] // px, sizes[k] // py
+        seam = ([bx] if px > 1 else []) + ([by] if py > 1 else [])
+        d = min([2 * nsmooth + 1] + seam)
+        if comm_mode != "deep" or d < 3:
+            deep_geom[k] = None
+            continue
+        deep_geom[k] = {
+            "d": d,
+            "dpx": d if px > 1 else 1,
+            "dpy": d if py > 1 else 1,
+            # rbgs: 2 halo cells per sweep; jacobi/cheb: 1 per step
+            "sweeps_rb": schedule(nsmooth, (d - 1) // 2),
+            "sweeps_j": schedule(nsmooth_speed, d - 1),
+        }
+
+    # the kernel entries of each level's visit in one cycle
+    def sweeps(n):            # the colour passes of n iterations (or the
+        return 2 * n or 1     # one refresh of none)
+
+    entries = {}
+    for k in range(k_cross, nlevels):
+        geom = deep_geom[k]
+        if k == 0:            # a 1x1 mesh's bottom: smoothing alone
+            entries[k] = {"mg_sweep": sweeps(nsmooth_bottom)}
+            continue
+        fused = geom is not None and use_pallas
+        if geom is None:
+            e = {"mg_sweep": 2 * sweeps(nsmooth) + 1}
+        else:
+            rounds = len(geom["sweeps_rb" if smoother == "rbgs"
+                              else "sweeps_j"] or [0])
+            e = {"mg_deep_smooth": 2 * rounds}
+            if not fused:
+                e["mg_sweep"] = 1         # the residual and restriction
+        e["mg_correct"] = 1
+        if k == nlevels - 1 and not fused:
+            e["mg_sweep"] = e.get("mg_sweep", 0) + 1   # the top residual
+        entries[k] = e
+    if k_cross > 0:
+        kc, sfx = k_cross - 1, mg_kernel.FLAVOURS[op][0]
+        top = nlevels - 1
+        while 2 ** (top + 1) > mg_kernel.CORE_MAX[dtype]:
+            top -= 1
+        peeled = max(0, kc - top)
+        entries[kc] = {f"mg_core{sfx}": 1}
+        if peeled:
+            entries[kc].update({f"mg_down{sfx}": peeled,
+                                f"mg_up{sfx}": peeled})
+    launches = {}
+    for e in entries.values():
+        for key, n in e.items():
+            launches[key] = launches.get(key, 0) + n
+    return types.SimpleNamespace(
+        use_pallas=bool(use_pallas), nsmooth_speed=nsmooth_speed,
+        k_cross=k_cross, deep_geom=deep_geom, entries=entries,
+        launches=launches)
 
 
 def kernel_flags(bc, px, py, ix, iy):
@@ -111,53 +263,6 @@ def kernel_flags(bc, px, py, ix, iy):
     return (sxl, sxr, syl, syr, oxl, oxr, oyl, oyr)
 
 
-class _LocalMGOps:
-    """Duck-typed stand-in running the serial MG operator methods on
-    block-LOCAL grids, with the halo exchange as the ghost fill.
-
-    The port's serial `_smooth_once` / `_smooth_n` / `_residual` take no
-    parameters: they read `grids`, `alpha` and `beta` (the constant
-    operator), `edge_coeffs[level].x` / `.y` (vc), `planes[level]` through
-    `_coeff_views` (general) and `_fill_v`.  This object has exactly
-    those, block-local: alpha and beta read through to the serial object on
-    every call (ShardedDiffusion sets them every step), and the planes are
-    the one-ghost views of the block's coefficient frames."""
-
-    def __init__(self, serial, local_grids, planes, mesh):
-        self._serial = serial
-        self._cls = type(serial)
-        self.grids = local_grids
-        self.planes = planes
-        # vc: the serial smoother reads its planes as edge_coeffs
-        self.edge_coeffs = {k: types.SimpleNamespace(x=p[0], y=p[1])
-                            for k, p in planes.items() if p.shape[0] == 2}
-        self.bc = serial.bc
-        self.mesh = mesh
-
-    @property
-    def alpha(self):
-        return self._serial.alpha
-
-    @property
-    def beta(self):
-        return self._serial.beta
-
-    def _fill_v(self, level, v):
-        return halo_exchange(v, self.grids[level], self.bc, self.mesh)
-
-    def _smooth_once(self, level, v, f):
-        return self._cls._smooth_once(self, level, v, f)
-
-    def _smooth_n(self, level, v, f, n):
-        return self._cls._smooth_n(self, level, v, f, n)
-
-    def _residual(self, level, v, f):
-        return self._cls._residual(self, level, v, f)
-
-    def _coeff_views(self, level):
-        return self._cls._coeff_views(self, level)
-
-
 class ShardedMG:
     """Multigrid solve of (alpha - beta L) phi = f over a mesh of ranks.
 
@@ -167,11 +272,8 @@ class ShardedMG:
     detection, same convergence criterion, same smoother ordering).
     `use_pallas` keeps the JAX package's name: True selects the kernel
     structure, False the plain one, None the kernel structure on a CUDA
-    mesh and the plain one on the CPU (see the module docstring)."""
-
-    # deep mode prefers replicating levels whose split-axis blocks are
-    # smaller than this (one exchange then buys >= 7 sweeps)
-    _deep_crossover = 16
+    mesh with comm_mode "deep" and the plain one otherwise (see the module
+    docstring)."""
 
     def __init__(self, nx, ny, mesh, *,
                  xmin=0.0, xmax=1.0, ymin=0.0, ymax=1.0,
@@ -182,7 +284,6 @@ class ShardedMG:
                  comm_mode="deep", smoother="rbgs", nsmooth_speed=None,
                  use_pallas=None, verbose=0, dtype=None):
         _check_bcs(xl_BC_type, xr_BC_type, yl_BC_type, yr_BC_type)
-        _check_structure(mesh, comm_mode, use_pallas)
         # the serial MG supplies the level grids, the replicated coarse
         # recursion and the operator
         serial = CellCenterMG2d(
@@ -201,18 +302,18 @@ class ShardedMG:
     # ------------------------------------------------------------------
     def _setup_mesh(self, serial, mesh, verbose, *, comm_mode="deep",
                     smoother="rbgs", nsmooth_speed=None, use_pallas=None):
-        if comm_mode not in ("deep", "sweep"):
-            raise ValueError(f"unknown comm_mode '{comm_mode}'")
-        if smoother not in ("rbgs", "jacobi", "chebyshev"):
-            raise ValueError(f"unknown smoother '{smoother}'")
-        if smoother != "rbgs" and comm_mode != "deep":
-            raise ValueError("speed smoothers require comm_mode='deep'")
-        cuda = mesh.device.type == "cuda"
-        if use_pallas is None:
-            use_pallas = cuda
-        if use_pallas and comm_mode != "deep":
-            raise ValueError("use_pallas requires comm_mode='deep'")
-        self.use_pallas = use_pallas
+        self.dtype = serial.dtype
+        op = mg_kernel.flavour(serial)
+        plan = structure(
+            serial.nx, serial.ny, mesh.px, mesh.py, dtype=self.dtype,
+            op=op, comm_mode=comm_mode,
+            smoother=smoother, use_pallas=use_pallas,
+            cuda=mesh.device.type == "cuda", nsmooth=serial.nsmooth,
+            nsmooth_bottom=serial.nsmooth_bottom,
+            nsmooth_speed=nsmooth_speed)
+        assert max(plan.deep_geom) == serial.nlevels - 1
+        self.plan = plan
+        self.use_pallas = plan.use_pallas
         self.serial = serial
         self.mesh = mesh
         self.px, self.py = mesh.px, mesh.py
@@ -223,65 +324,13 @@ class ShardedMG:
         self.nsmooth_bottom = serial.nsmooth_bottom
         self.comm_mode = comm_mode
         self.smoother = smoother
-        # Chebyshev of degree ~4 matches 10 RB-GS sweeps' smoothing power;
-        # damped Jacobi needs a few more
-        if nsmooth_speed is None:
-            nsmooth_speed = 4 if smoother == "chebyshev" else 8
-        self.nsmooth_speed = nsmooth_speed
+        self.nsmooth_speed = plan.nsmooth_speed
         self.verbose = verbose
         self.max_cycles = serial.max_cycles
         self.bc = serial.bc
-        self.dtype = serial.dtype
         self.device = mesh.device
-        nx, ny = self.nx, self.ny
-
-        if nx % self.px != 0 or ny % self.py != 0:
-            raise ValueError("grid must divide evenly over the mesh")
-
-        # crossover: the coarsest block-partitioned level.  Blocks stay
-        # even powers of 2 above it, so local red-black parity == global
-        # parity and the local factor-2 restriction is exact.  Deep mode
-        # prefers split-axis blocks >= 16 cells (one exchange buys >= 7
-        # sweeps): tiny sharded levels cost more in halo latency than
-        # replicated compute
-        def _coarsest(min_seam_block):
-            for k in range(self.nlevels):
-                g = self.serial.grids[k]
-                if g.nx % self.px != 0 or g.ny % self.py != 0:
-                    continue
-                bx, by = g.nx // self.px, g.ny // self.py
-                if bx < 2 or by < 2:
-                    continue
-                seam = ([bx] if self.px > 1 else []) + \
-                       ([by] if self.py > 1 else [])
-                if not seam or min(seam) >= min_seam_block:
-                    return k
-            return None
-
-        if comm_mode == "deep":
-            self.k_cross = _coarsest(self._deep_crossover)
-            if self.k_cross is None:
-                self.k_cross = _coarsest(4)
-        else:
-            self.k_cross = _coarsest(2)
-        if self.k_cross is None:
-            self.k_cross = _coarsest(2)
-        if self.k_cross is None:
-            raise ValueError(
-                f"no level of a {nx}x{ny} grid gives >=2x2 blocks on a "
-                f"{self.px}x{self.py} mesh -- use the serial solver")
-        if use_pallas:
-            # one core kernel solves the gathered coarse problem: replicate
-            # every level it holds (on a 1x1 mesh the cycle is then the
-            # serial one's shape), 64^2 when blocks exchange halos
-            repl_max = mg_kernel.CORE_MAX[self.dtype]
-            if self.px * self.py > 1:
-                repl_max = min(repl_max, 64)
-            k = self.k_cross
-            while (k < self.nlevels - 1 and
-                   self.serial.grids[k].nx <= repl_max):
-                k += 1
-            self.k_cross = k
+        self.k_cross = plan.k_cross
+        self._deep_geom = plan.deep_geom
 
         # per-level local block grids (levels k_cross-1 .. finest; the
         # k_cross-1 entry gives the shapes of the last local restriction)
@@ -289,61 +338,19 @@ class ShardedMG:
         for k in range(max(self.k_cross - 1, 0), self.nlevels):
             g = self.serial.grids[k]
             bx, by = g.nx // self.px, g.ny // self.py
-            if k >= self.k_cross:
-                # block offsets ix*bx are even at every sharded level (bx a
-                # power of 2, >= 2): local red/black parity is global parity
-                assert bx >= 2 and by >= 2 and not bx & (bx - 1) and \
-                    not by & (by - 1)
             lg = Grid2d(bx, by, ng=self.ng,
                         xmin=0.0, xmax=bx * g.dx, ymin=0.0, ymax=by * g.dy)
             assert abs(lg.dx - g.dx) < 1e-14 * max(1.0, g.dx)
             self.local_grids[k] = lg
 
-        # deep-halo geometry per sharded level: halo depth d (bounded by
-        # 2*nsmooth+1 -- a full RB sweep consumes 2 halo cells -- and by
-        # the block extent along each split axis, since the exchange
-        # carries the neighbour's interior), and the per-round sweep
-        # schedule.  None: the exchange-per-half-sweep schedule
-        self._deep_geom = {}
-        if comm_mode == "deep":
-            for k in range(self.k_cross, self.nlevels):
-                lg = self.local_grids[k]
-                seam = ([lg.nx] if self.px > 1 else []) + \
-                       ([lg.ny] if self.py > 1 else [])
-                d = min([2 * self.nsmooth + 1] + seam)
-                if d < 3:
-                    self._deep_geom[k] = None
-                    continue
-
-                def schedule(n, per_round):
-                    full, rem = divmod(n, per_round)
-                    return [per_round] * full + ([rem] if rem else [])
-
-                self._deep_geom[k] = {
-                    "d": d,
-                    "dpx": d if self.px > 1 else 1,
-                    "dpy": d if self.py > 1 else 1,
-                    # rbgs: 2 halo cells per sweep; jacobi/cheb: 1 per step
-                    "sweeps_rb": schedule(self.nsmooth, (d - 1) // 2),
-                    "sweeps_j": schedule(self.nsmooth_speed, d - 1),
-                }
-        if cuda and (self.k_cross == 0 or None in self._deep_geom.values() or
-                     self.serial.grids[self.k_cross - 1].nx >
-                     mg_kernel.CORE_MAX[self.dtype]):
-            # a sharded level without a deep round, or a replicated level
-            # above the core kernel's, would need the plain cycle
-            raise NotImplementedError(_A20)
-
         self._flags = kernel_flags(self.bc, self.px, self.py, mesh.ix,
                                    mesh.iy)
         # the operator's coefficient planes on each sharded level's frame
-        # (none for the constant operator)
-        ncoef = mg_kernel.FLAVOURS[mg_kernel.flavour(serial)][1]
+        # (none for the constant operator), and their one-ghost frames
         self._planes = {k: self._coeff_layout(serial.planes[k], k)
                         for k in range(self.k_cross, self.nlevels)} \
-            if ncoef else {}
-        self._ops = _LocalMGOps(serial, self.local_grids, self._ng1_view(),
-                                mesh)
+            if mg_kernel.FLAVOURS[op][1] else {}
+        self._planes1 = self._ng1_frames()
 
         self.source_norm = 0.0
         self.initialized_rhs = 0
@@ -405,19 +412,19 @@ class ShardedMG:
         return self._block_layout(global_arr, level, geom["dpx"],
                                   geom["dpy"])
 
-    def _ng1_view(self):
-        """Standard one-ghost per-level views of the (possibly deep)
-        coefficient frames, for the plain residual and sweep smoother."""
+    def _ng1_frames(self):
+        """Each sharded level's coefficient planes on its one-ghost frame
+        (a contiguous copy where the level's frame is deeper), for the
+        half-sweep entry."""
         out = {}
         for k, planes in self._planes.items():
             geom = self._deep_geom.get(k)
-            if geom is None:
-                out[k] = planes
-            else:
+            if geom is not None:
                 lg = self.local_grids[k]
                 dpx, dpy = geom["dpx"], geom["dpy"]
-                out[k] = planes[..., dpx - 1:dpx + lg.nx + 1,
-                                dpy - 1:dpy + lg.ny + 1]
+                planes = planes[..., dpx - 1:dpx + lg.nx + 1,
+                                dpy - 1:dpy + lg.ny + 1].contiguous()
+            out[k] = planes
         return out
 
     # ------------------------------------------------------------------
@@ -523,6 +530,36 @@ class ShardedMG:
                                  geom["dpx"], geom["dpy"], phys=False)
 
     # ------------------------------------------------------------------
+    # the exchange-per-half-sweep schedule
+    # ------------------------------------------------------------------
+    def _sweep(self, k, v, f, colour=None, emit="v"):
+        """One `sweep` call at level k on the one-ghost block v (its seam
+        ghosts exchanged): (the frame, its emit or None)."""
+        lg = self.local_grids[k]
+        kw = dict(colour=colour, dx=lg.dx, dy=lg.dy, bc=self.bc, px=self.px,
+                  py=self.py, emit=emit)
+        if self._planes1:
+            kw["planes"] = self._planes1[k]
+        else:
+            # read at every call: the owner may change alpha and beta
+            kw["ab"] = (self.serial.alpha, self.serial.beta)
+        return sharded_mg_kernel.sweep(v, f, self._flags, **kw)
+
+    def _smooth_n(self, k, v, f, n):
+        """n red-black iterations at level k, the serial `_smooth_n`'s
+        schedule: a colour pass, then the exchange, for each half-sweep
+        (the passes fill the physical ghosts, the exchange the seams).
+        Returns the block with every ghost valid."""
+        v = seam_fill(v, self.bc, self.mesh)
+        if n == 0:
+            return self._sweep(k, v, f)[0]
+        for _ in range(n):
+            for colour in (0, 1):
+                v = seam_fill(self._sweep(k, v, f, colour)[0], self.bc,
+                              self.mesh)
+        return v
+
+    # ------------------------------------------------------------------
     # the cycle
     # ------------------------------------------------------------------
     def _replicated_coarse(self, kc, fc_blk):
@@ -534,11 +571,7 @@ class ShardedMG:
         gk = self.serial.grids[kc]
         f_glob = f_int.new_zeros((gk.qx, gk.qy))
         f_glob[gk.ilo:gk.ihi + 1, gk.jlo:gk.jhi + 1] = f_int
-        if self.use_pallas:
-            v_glob, _ = mg_kernel.core(self.serial, kc, None, f_glob, False)
-        else:
-            v_glob = self.serial._v_cycle(kc, torch.zeros_like(f_glob),
-                                          f_glob)
+        v_glob = mg_kernel.coarse_cycle(self.serial, kc, f_glob)
         bx, by = gk.nx // self.px, gk.ny // self.py
         i0, j0 = self.mesh.ix * bx, self.mesh.iy * by
         return v_glob[i0:i0 + bx + 2, j0:j0 + by + 2].contiguous()
@@ -548,39 +581,30 @@ class ShardedMG:
         CellCenterMG2d._v_cycle's shape).  want_top_r (kernel structure):
         also return the post-smoothing residual of the owned block, from
         the last kernel."""
-        ops = self._ops
         if k == 0:
-            # only reachable on a 1x1 mesh: the plain bottom smooth
-            return ops._smooth_n(0, v, f, self.nsmooth_bottom)
+            # only reachable on a 1x1 mesh: the bottom smooth
+            return self._smooth_n(0, v, f, self.nsmooth_bottom)
         geom = self._deep_geom.get(k)
-        lg, lg_c = self.local_grids[k], self.local_grids[k - 1]
         fused = geom is not None and self.use_pallas
         if geom is not None:
             f_deep = self._deep_rhs(k, f, geom)
             v, f_c = self._deep_smooth(k, v, f_deep, geom,
                                        "v_fc" if fused else "v")
         else:
-            v = ops._smooth_n(k, v, f, self.nsmooth)
+            v = self._smooth_n(k, v, f, self.nsmooth)
         if not fused:
-            f_c = restrict_array(ops._residual(k, v, f), lg, lg_c)
+            f_c = self._sweep(k, v, f, emit="v_fc")[1]
         if k - 1 >= self.k_cross:
             v_c = self._sharded_v_cycle(k - 1, torch.zeros_like(f_c), f_c)
         else:
             v_c = self._replicated_coarse(k - 1, f_c)
-
-        if fused:
-            v = sharded_mg_kernel.correct(v, v_c)
-        else:
-            e = prolong_array(v_c, lg_c, lg)
-            v = v.clone()
-            v[lg.ilo:lg.ihi + 1, lg.jlo:lg.jhi + 1] += ai(e, lg).v()
-        if geom is not None:
-            # the deep smoother exchanges v itself; no ghost fill needed
-            v, r = self._deep_smooth(k, v, f_deep, geom,
-                                     "v_r" if fused and want_top_r else "v")
-            return (v, r) if want_top_r else v
-        v = ops._fill_v(k, v)
-        return ops._smooth_n(k, v, f, self.nsmooth)
+        v = sharded_mg_kernel.correct(v, v_c)
+        if geom is None:
+            return self._smooth_n(k, v, f, self.nsmooth)
+        # the deep smoother exchanges v itself; no ghost fill needed
+        v, r = self._deep_smooth(k, v, f_deep, geom,
+                                 "v_r" if fused and want_top_r else "v")
+        return (v, r) if want_top_r else v
 
     def _cycle_local(self, v, f):
         """One V-cycle of the local padded block: (v, the owned block's
@@ -590,7 +614,7 @@ class ShardedMG:
             # the last round of the finest level returns the residual
             return self._sharded_v_cycle(top, v, f, want_top_r=True)
         v = self._sharded_v_cycle(top, v, f)
-        return v, self._ops._residual(top, v, f)[1:-1, 1:-1]
+        return v, self._sweep(top, v, f, emit="v_r")[1][1:-1, 1:-1]
 
     def solve_local(self, v, f, rtol, source_norm):
         """The solve loop (V-cycles and the convergence and stall tests) on
@@ -662,7 +686,6 @@ class ShardedVarCoeffMG(ShardedMG):
                  comm_mode="deep", smoother="rbgs", nsmooth_speed=None,
                  use_pallas=None, verbose=0, dtype=None):
         _check_bcs(xl_BC_type, xr_BC_type, yl_BC_type, yr_BC_type)
-        _check_structure(mesh, comm_mode, use_pallas)
         serial = VarCoeffCCMG2d(
             nx, ny, xmin=xmin, xmax=xmax, ymin=ymin, ymax=ymax,
             xl_BC_type=xl_BC_type, xr_BC_type=xr_BC_type,
@@ -683,14 +706,13 @@ class ShardedVarCoeffMG(ShardedMG):
         by the serial construction's arithmetic
         (VarCoeffCCMG2d.set_coefficients), the replicated levels left in
         the serial object (which the coarse core reads at every call), the
-        sharded levels laid out on this block's frames, and the plain
-        operator's one-ghost views rebuilt.  The result equals a fresh
+        sharded levels laid out on this block's frames, and their one-ghost
+        frames rebuilt.  The result equals a fresh
         construction with that eta, bit for bit."""
         self.serial.set_coefficients(coeffs, self.coeffs_bc)
         self._planes = {k: self._coeff_layout(self.serial.planes[k], k)
                         for k in range(self.k_cross, self.nlevels)}
-        self._ops = _LocalMGOps(self.serial, self.local_grids,
-                                self._ng1_view(), self.mesh)
+        self._planes1 = self._ng1_frames()
 
 
 class ShardedGeneralMG(ShardedMG):
@@ -708,7 +730,6 @@ class ShardedGeneralMG(ShardedMG):
                  comm_mode="deep", smoother="rbgs", nsmooth_speed=None,
                  use_pallas=None, verbose=0, dtype=None):
         _check_bcs(xl_BC_type, xr_BC_type, yl_BC_type, yr_BC_type)
-        _check_structure(mesh, comm_mode, use_pallas)
         serial = GeneralMG2d(
             nx, ny, xmin=xmin, xmax=xmax, ymin=ymin, ymax=ymax,
             xl_BC_type=xl_BC_type, xr_BC_type=xr_BC_type,

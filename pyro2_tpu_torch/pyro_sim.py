@@ -140,6 +140,10 @@ class Pyro:
         self.sim.initialize()
         self.sim.preevolve()
 
+        if self.dovis:
+            import matplotlib.pyplot as plt
+            plt.ion()
+
         self.sim.cc_data.t = 0.0
         self.is_initialized = True
 
@@ -158,6 +162,8 @@ class Pyro:
             self.sim.write(f"{basename}{self.sim.n:04d}")
 
         if self.dovis:
+            import matplotlib.pyplot as plt
+            plt.figure(num=1, figsize=(8, 6), dpi=100, facecolor="w")
             self.sim.dovis()
 
         while not self.sim.finished():
@@ -197,7 +203,14 @@ class Pyro:
             self.sim.write(f"{basename}{self.sim.n:04d}")
 
         if self.dovis:
+            tm_vis = self.tc.timer("vis")
+            tm_vis.begin()
             self.sim.dovis()
+            if self.rp.get_param("vis.store_images") == 1:
+                import matplotlib.pyplot as plt
+                basename = self.rp.get_param("io.basename")
+                plt.savefig(f"{basename}{self.sim.n:04d}.png")
+            tm_vis.end()
 
     def __repr__(self):
         return f"Pyro('{self.solver_name}')"

@@ -137,6 +137,8 @@ class NullSimulation:
             self.verbose = 0
 
         self.n_num_out = 0
+        # the colormap of dovis
+        self.cm = "viridis"
 
     def init_particles(self, bc):
         """Build the tracer particles on cc_data when

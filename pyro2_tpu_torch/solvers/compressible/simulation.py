@@ -489,9 +489,47 @@ class Simulation(NullSimulation):
         return U
 
     def dovis(self):
-        raise NotImplementedError(
-            "runtime visualization waits for a later slice of the port "
-            "(ROADMAP.md A.13); run with vis.dovis=0")
+        """Runtime visualization: rho, |U|, p, e (on a spherical grid the
+        r-theta cells projected to x-z)."""
+        import matplotlib.pyplot as plt
+        import numpy as np
+
+        from pyro2_tpu_torch.util import plot_tools
+
+        ivars = Variables(self.cc_data)
+        gamma = self.cc_data.get_aux("gamma")
+        myg = self.cc_data.grid
+        q = cons_to_prim(self.cc_data.data, gamma, ivars, myg)
+
+        rho = q[ivars.irho]
+        u = q[ivars.iu]
+        v = q[ivars.iv]
+        p = q[ivars.ip]
+        e = eos.rhoe(gamma, p) / rho
+        magvel = torch.sqrt(u ** 2 + v ** 2)
+
+        fields = [(r"$\rho$", rho), ("U", magvel), ("p", p), ("e", e)]
+
+        if getattr(myg, "coord_type", 0) == 1:
+            # project the r-theta grid to x-z for plotting
+            plt.clf()
+            x = np.asarray(myg.x2d) * np.sin(np.asarray(myg.y2d))
+            y = np.asarray(myg.x2d) * np.cos(np.asarray(myg.y2d))
+            _, axes, _ = plot_tools.setup_axes(myg, len(fields))
+            values = plot_tools.host_interiors(myg, [f for _, f in fields])
+            xv = x[myg.ilo:myg.ihi + 1, myg.jlo:myg.jhi + 1]
+            yv = y[myg.ilo:myg.ihi + 1, myg.jlo:myg.jhi + 1]
+            for n, (name, _) in enumerate(fields):
+                ax = axes[n]
+                img = ax.pcolormesh(xv, yv, values[n], shading="nearest",
+                                    cmap=self.cm)
+                axes.cbar_axes[n].colorbar(img)
+                ax.set_title(name)
+            plt.figtext(0.05, 0.0125, f"t = {self.cc_data.t:10.5g}")
+            plt.pause(0.001)
+            plt.draw()
+        else:
+            plot_tools.plot_fields(self, fields)
 
     def write_extras(self, f):
         """Record the custom-BC names (restart support)."""

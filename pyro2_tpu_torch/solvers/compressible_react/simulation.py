@@ -4,11 +4,14 @@ The port of pyro2_tpu/solvers/compressible_react/simulation.py: the CTU
 compressible solver with the advected species "fuel" and "ash" (nvar 6),
 in a Strang-split scaffold whose burn and diffuse are stubs, as in the
 JAX package.  `evolve` steps through the CUDA CTU kernel's wrapper, which
-takes passive scalars; `dovis` raises naming ROADMAP.md A.13, as in the
-base solver.
+takes passive scalars; `dovis` draws the fuel fraction beside the base
+solver's fields.
 """
 
+import torch
+
 from pyro2_tpu_torch.solvers import compressible
+from pyro2_tpu_torch.solvers.compressible import eos
 
 __all__ = ["Simulation"]
 
@@ -23,6 +26,26 @@ class Simulation(compressible.Simulation):
         """Same as compressible, plus the fuel and ash species."""
         super().initialize(extra_vars=["fuel", "ash"] + (extra_vars or []),
                            ng=ng)
+
+    def dovis(self):
+        """Runtime visualization incl. the fuel fraction."""
+        from pyro2_tpu_torch.util import plot_tools
+
+        ivars = compressible.Variables(self.cc_data)
+        gamma = self.cc_data.get_aux("gamma")
+        myg = self.cc_data.grid
+        q = compressible.cons_to_prim(self.cc_data.data, gamma, ivars, myg)
+
+        rho = q[ivars.irho]
+        u = q[ivars.iu]
+        v = q[ivars.iv]
+        p = q[ivars.ip]
+        e = eos.rhoe(gamma, p) / rho
+        magvel = torch.sqrt(u ** 2 + v ** 2)
+
+        plot_tools.plot_fields(
+            self, [(r"$\rho$", rho), ("U", magvel), ("p", p), ("e", e),
+                   (r"$X_\mathrm{fuel}$", q[ivars.ix])])
 
     def burn(self, dt):
         """React fuel to ash (a stub, as in the JAX package)."""

@@ -85,6 +85,6 @@ class Simulation(NullSimulation):
         self.n += 1
 
     def dovis(self):
-        raise NotImplementedError(
-            "runtime visualization waits for a later slice of the port "
-            "(ROADMAP.md A.13); run with vis.dovis=0")
+        from pyro2_tpu_torch.util import plot_tools
+        plot_tools.plot_fields(
+            self, [("phi", self.cc_data.get_var("phi"))], title="phi")

@@ -281,6 +281,14 @@ class Simulation(burgers_simulation):
             self.n += 1
 
     def dovis(self):
-        raise NotImplementedError(
-            "runtime visualization waits for a later slice of the port "
-            "(ROADMAP.md A.13); run with vis.dovis=0")
+        """Runtime visualization: velocities, vorticity, div U."""
+        from pyro2_tpu_torch.util import plot_tools
+
+        myg = self.cc_data.grid
+        u = self.cc_data.get_var("x-velocity")
+        v = self.cc_data.get_var("y-velocity")
+
+        plot_tools.plot_fields(
+            self, [("x-velocity", u), ("y-velocity", v),
+                   ("vorticity", plot_tools.vorticity(u, v, myg)),
+                   ("div U", self._cc_divU(u, v, myg))])

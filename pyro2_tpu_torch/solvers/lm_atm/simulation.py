@@ -418,9 +418,19 @@ class Simulation(NullSimulation):
             self.n += 1
 
     def dovis(self):
-        raise NotImplementedError(
-            "runtime visualization waits for a later slice of the port "
-            "(ROADMAP.md A.13); run with vis.dovis=0")
+        """Runtime visualization: rho', U, vorticity."""
+        from pyro2_tpu_torch.util import plot_tools
+
+        myg = self.cc_data.grid
+        rho = self.cc_data.get_var("density")
+        u = self.cc_data.get_var("x-velocity")
+        v = self.cc_data.get_var("y-velocity")
+        rhoprime = self.make_prime(rho, self.base["rho0"])
+
+        plot_tools.plot_fields(
+            self, [(r"$\rho'$", rhoprime), ("x-velocity", u),
+                   ("y-velocity", v),
+                   ("vorticity", plot_tools.vorticity(u, v, myg))])
 
     def write_extras(self, f):
         """Store the base-state profiles."""

@@ -195,6 +195,20 @@ class Simulation(NullSimulation):
         return U[iv.ixmom] / U[iv.ih], U[iv.iymom] / U[iv.ih]
 
     def dovis(self):
-        raise NotImplementedError(
-            "runtime visualization waits for a later slice of the port "
-            "(ROADMAP.md A.13); run with vis.dovis=0")
+        """Runtime visualization: h, |U|, vorticity, fuel fraction."""
+        from pyro2_tpu_torch.util import plot_tools
+
+        ivars = Variables(self.cc_data)
+        myg = self.cc_data.grid
+        q = cons_to_prim(self.cc_data.data, ivars, myg)
+
+        h = q[ivars.ih]
+        u = q[ivars.iu]
+        v = q[ivars.iv]
+        magvel = torch.sqrt(u ** 2 + v ** 2)
+
+        fields = [("h", h), ("U", magvel),
+                  ("vorticity", plot_tools.vorticity(u, v, myg))]
+        if ivars.naux > 0:
+            fields.append(("X", q[ivars.ix]))
+        plot_tools.plot_fields(self, fields)

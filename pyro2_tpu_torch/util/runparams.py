@@ -145,6 +145,42 @@ class RuntimeParameters:
                     else:
                         f.write(f"{option} = {value}\n")
 
+    def print_sphinx_tables(self, outfile="params-sphinx.inc"):
+        """Write Sphinx grid tables (option / value / description) of all
+        parameters, one table per section, for inclusion in generated
+        docs."""
+        import textwrap
+
+        wid_opt, wid_val, wid_desc = 36, 16, 50
+        sep = (f"  +-{'-' * wid_opt}-+-{'-' * wid_val}-+-"
+               f"{'-' * wid_desc}-+\n")
+        head = (f"  +={'=' * wid_opt}=+={'=' * wid_val}=+="
+                f"{'=' * wid_desc}=+\n")
+        row = f"  | {{:{wid_opt}}} | {{:{wid_val}}} | {{:{wid_desc}}} |\n"
+
+        all_keys = sorted(self.params.keys())
+        secs = sorted({k.split(".", 1)[0] for k in all_keys})
+        with open(outfile, "w") as f:
+            for sec in secs:
+                f.write(f"* section: ``[{sec}]``\n\n")
+                f.write(sep)
+                f.write(row.format("option", "value", "description"))
+                f.write(head)
+                for key in (k for k in all_keys
+                            if k.startswith(f"{sec}.")):
+                    option = key.split(".", 1)[1]
+                    desc = textwrap.wrap(
+                        self.param_comments.get(key, "").strip(), wid_desc)
+                    if not desc:
+                        desc = [" "]
+                    f.write(row.format(f"``{option}``",
+                                       f"``{str(self.params[key]).strip()}``",
+                                       desc[0]))
+                    for line in desc[1:]:
+                        f.write(row.format(" ", " ", line))
+                    f.write(sep)
+                f.write("\n\n")
+
     def __str__(self):
         return "".join(f"{key} = {self.params[key]}\n"
                        for key in sorted(self.params.keys()))

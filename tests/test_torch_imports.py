@@ -275,7 +275,8 @@ def test_sharded_slice_imports_without_cuda_or_jax():
         "'factor_devices', 'halo_exchange', 'halo_stats', 'make_mesh', "
         "'make_sharded_compressible_step', 'make_sharded_mg', "
         "'make_sharded_particle_advance'}\n"
-        "assert set(smk.launches) == {'mg_deep_smooth', 'mg_correct'}\n"
+        "assert set(smk.launches) == {'mg_deep_smooth', 'mg_correct', "
+        "'mg_sweep'}\n"
         "assert smk.SOURCE.name == 'mg_deep.cu' and smk._lib is None\n"
         "assert not dist.is_initialized()\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "

@@ -593,5 +593,25 @@ def test_two_solves_a_step_three_in_preevolve():
 
 
 def test_dovis_is_not_ported():
-    with pytest.raises(NotImplementedError, match="vis.dovis=0"):
-        _small().sim.dovis()
+    """dovis is ported (it refused before): it draws rho', the two
+    velocities and the vorticity into figure 1, the velocities' images
+    the interiors of the state (tests/test_torch_plot.py holds every
+    image to the JAX package's)."""
+    import matplotlib
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    pt = _small()
+    g = pt.sim.cc_data.grid
+    plt.figure(num=1, clear=True)
+    try:
+        pt.sim.dovis()
+        axes = [ax for ax in plt.figure(1).axes if ax.get_images()]
+        titles = [ax.get_title() for ax in axes]
+        images = [np.asarray(ax.get_images()[0].get_array()) for ax in axes]
+    finally:
+        plt.close("all")
+    assert titles == [r"$\rho'$", "x-velocity", "y-velocity", "vorticity"]
+    for name, image in zip(("x-velocity", "y-velocity"), images[1:3]):
+        u = pt.sim.cc_data.get_var(name)[g.ilo:g.ihi + 1, g.jlo:g.jhi + 1]
+        assert np.array_equal(image, u.numpy().T)

@@ -1,10 +1,10 @@
 """The port's refusals name ROADMAP.md items by their labels (A.n for queue
 A, Bn for queue B).  Every label a source of pyro2_tpu_torch cites is one
-ROADMAP.md defines, every parenthesised "(ROADMAP.md ...)" citation names
-one, and the runtime-visualisation refusals of each solver name A.13.
-Each solver that refused particles before they were ported (A.17) now
-advances them as the JAX package does.  Runs on the CPU: nothing is
-compiled."""
+ROADMAP.md defines, and every parenthesised "(ROADMAP.md ...)" citation
+names one.  Each solver that refused particles before they were ported
+(A.17) now advances them as the JAX package does, and each that refused
+runtime visualisation before it was ported (A.13) now draws.  Runs on
+the CPU: nothing is compiled."""
 
 import pathlib
 import re
@@ -78,12 +78,15 @@ PARTICLES = [("compressible", "quad"), ("compressible_rk", "quad"),
              ("compressible_react", "flame")]
 # beside the cavity, whose moving lid is no particle boundary
 PARTICLES_MORE = [("incompressible_viscous", "shear")]
-# the solvers whose dovis refuses runtime visualisation
-DOVIS = ["compressible", "diffusion", "incompressible", "swe", "lm_atm",
-         "compressible_rk", "burgers", "burgers_viscous",
-         "incompressible_viscous", "advection", "advection_nonuniform",
-         "advection_rk", "advection_fv4", "advection_weno",
-         "compressible_react"]
+# the solvers whose dovis refused runtime visualisation before A.13, and a
+# problem of each
+DOVIS = {"compressible": "quad", "diffusion": "gaussian",
+         "incompressible": "shear", "swe": "quad", "lm_atm": "bubble",
+         "compressible_rk": "quad", "burgers": "tophat",
+         "burgers_viscous": "tophat", "incompressible_viscous": "cavity",
+         "advection": "smooth", "advection_nonuniform": "slotted",
+         "advection_rk": "smooth", "advection_fv4": "smooth",
+         "advection_weno": "smooth", "compressible_react": "flame"}
 
 
 # the JAX incompressible solvers ask their data for a derived "velocity"
@@ -148,25 +151,38 @@ def test_particles_match_jax(solver, problem):
                               tp.init_positions.numpy())
 
 
-@pytest.mark.parametrize("solver", DOVIS)
+@pytest.mark.parametrize("solver", sorted(DOVIS))
 def test_dovis_refusal_names_a13(solver):
-    import importlib
+    """A.13 is done: no solver's dovis refuses (none cites A.13 any more).
+    Each draws its fields into figure 1 from a 16x16 run of the port alone
+    on the CPU, every image finite (tests/test_torch_plot.py holds the
+    drawings to the JAX package's)."""
+    import matplotlib
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
 
-    sim = importlib.import_module(
-        f"pyro2_tpu_torch.solvers.{solver}.simulation").Simulation
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md A\.13"):
-        sim.dovis(None)
+    p = Pyro(solver, device="cpu")
+    p.initialize_problem(DOVIS[solver], inputs_dict={"mesh.nx": 16,
+                                                     "mesh.ny": 16})
+    p.single_step()
+    plt.figure(num=1, clear=True)
+    try:
+        p.sim.dovis()
+        images = [im.get_array() for ax in plt.figure(1).axes
+                  for im in ax.get_images()]
+    finally:
+        plt.close("all")
+    assert images and all(np.isfinite(np.asarray(a)).all() for a in images)
+    source = PORT / "solvers" / solver / "simulation.py"
+    assert "A.13" not in source.read_text()
 
 
 def test_burgers_base_refusals_name_their_labels():
-    """The Burgers base class, under burgers, burgers_viscous and the
-    incompressible solvers, refuses dovis naming A.13, and no solver
-    refuses particles any more (A.17 is done)."""
-    from pyro2_tpu_torch.solvers.burgers.simulation import Simulation
-
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md A\.13"):
-        Simulation.dovis(None)
+    """No solver refuses particles any more (A.17 is done), nor runtime
+    visualisation (A.13 is done): no source cites either label."""
     for path in _sources():
         text = re.sub(r'"\s*\n\s*f?"', "", path.read_text())
         assert not re.search(r"particles wait", text), path
         assert "A.17" not in text, path
+        assert "A.13" not in text, path
+        assert not re.search(r"visualization waits", text), path

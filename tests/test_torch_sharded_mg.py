@@ -512,15 +512,44 @@ def test_alpha_beta_are_read_at_every_solve(use_pallas, comm_mode):
 
 
 def test_plain_structure_refused_on_cuda():
-    # checked before anything is built on the card, so it shows here
-    mesh = mesh_comm.Mesh((1, 1), "cuda")
-    eta, _ = _vc_problem()
-    for cls, extra in ((sharded_mg.ShardedMG, {}),
-                       (sharded_mg.ShardedVarCoeffMG, {"coeffs": eta}),
-                       (sharded_mg.ShardedGeneralMG, {})):
+    """Nothing of the plain structure is refused on a CUDA mesh but what the
+    half-sweep kernel cannot cover.  `structure` (which allocates nothing)
+    gives each level's kernel entries on a 1x1 CUDA mesh at 1024^2 float32:
+    with use_pallas=False every level of 4^2 and up runs mg_deep_smooth
+    rounds, one mg_sweep for its residual and one mg_correct, the 2x2
+    bottom 100 mg_sweep colour passes and the top one more for its
+    residual; with comm_mode="sweep" each level's smoothing is 4 x 10
+    mg_sweep passes.  Neither launches a plain version's entry or the
+    serial kernels (no replicated level).  A block of odd sides is refused
+    naming A.31."""
+    for op in OPS:
         for kw in ({"use_pallas": False}, {"comm_mode": "sweep"}):
-            with pytest.raises(NotImplementedError, match="A.20"):
-                cls(N, N, mesh, **kw, **extra)
+            st = sharded_mg.structure(1024, 1024, 1, 1,
+                                      dtype=torch.float32, op=op, cuda=True,
+                                      **kw)
+            assert not st.use_pallas and st.k_cross == 0
+            assert sorted(st.entries) == list(range(10))
+            assert st.entries[0] == {"mg_sweep": 100}
+            for k in range(1, 10):
+                want = ({"mg_deep_smooth": 2, "mg_sweep": 1}
+                        if "use_pallas" in kw else {"mg_sweep": 41})
+                want["mg_correct"] = 1
+                if k == 9:
+                    want["mg_sweep"] += 1
+                assert st.entries[k] == want, (op, kw, k)
+            assert set(st.launches) <= set(smk.launches)
+    # the kernel structure is the one use_pallas=None picks on CUDA
+    st = sharded_mg.structure(1024, 1024, 1, 1, dtype=torch.float32,
+                              cuda=True)
+    assert st.use_pallas and st.k_cross == 7
+    assert st.launches == {"mg_deep_smooth": 6, "mg_correct": 3,
+                           "mg_core": 1}
+    bc = bnd.BC(xlb="neumann", xrb="neumann", ylb="neumann", yrb="neumann")
+    odd = torch.empty((7, 6), dtype=torch.float32, device="meta")
+    for fn in (smk.sweep, smk.sweep_plain):
+        with pytest.raises(NotImplementedError, match=r"ROADMAP\.md A\.31"):
+            fn(odd, odd, (0, 0, 0, 0, 1, 1, 1, 1), colour=0, dx=0.1, dy=0.1,
+               bc=bc, px=1, py=1, ab=AB)
 
 
 def test_make_sharded_mg_builds_the_kernel_structure_without_fallback(

@@ -161,8 +161,38 @@ def deep_ghosts(mesh, case, level):
         rng.standard_normal((lg.nx, lg.ny))), (1, 1, 1, 1))
     f = torch.as_tensor(rng.standard_normal((lg.nx + 2, lg.ny + 2)))
     got, _ = mg._deep_smooth(level, v, mg._deep_rhs(level, f, geom), geom)
-    return {"deep": got, "halo": mg._ops._fill_v(level, v),
+    return {"deep": got, "halo": mesh_comm.halo_exchange(v, lg, mg.bc, mesh),
             "sweeps": geom["sweeps_j"]}
+
+
+def sweep_levels(mesh, cases, n_iter):
+    """The exchange-per-half-sweep schedule of a plain-structure sharded MG
+    (comm_mode "sweep") at each of its sharded levels, on this rank's block
+    of one global random v and f a level (the seed's): n_iter red-black
+    iterations (`_smooth_n`: a half-sweep call, then the seam exchange,
+    each colour), then the residual and its restriction (the half-sweep
+    call's "v_fc" emit) and the residual frame ("v_r").  For each case:
+    {level: (the smoothed one-ghost block, the restricted residual, the
+    residual frame)}."""
+    out = []
+    for case in cases:
+        mg = make_mg(mesh, case)
+        rng = np.random.default_rng(case["seed"])
+        res = {}
+        for k in range(mg.k_cross, mg.nlevels):
+            g, lg = mg.serial.grids[k], mg.local_grids[k]
+            v = rng.standard_normal((g.qx, g.qy))
+            f = rng.standard_normal((g.qx, g.qy))
+            r0, c0 = mesh.ix * lg.nx, mesh.iy * lg.ny
+            w = (slice(r0, r0 + lg.nx + 2), slice(c0, c0 + lg.ny + 2))
+            v_blk = torch.as_tensor(np.ascontiguousarray(v[w]))
+            f_blk = torch.as_tensor(np.ascontiguousarray(f[w]))
+            vs = mg._smooth_n(k, v_blk, f_blk, n_iter)
+            fc = mg._sweep(k, vs, f_blk, emit="v_fc")[1] if k > 0 else None
+            r = mg._sweep(k, vs, f_blk, emit="v_r")[1]
+            res[k] = (vs, fc, r)
+        out.append(res)
+    return out
 
 
 def diffusion(mesh, params, steps):

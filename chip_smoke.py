@@ -12,7 +12,9 @@ Phases (any failure exits non-zero and prints no result line):
      main path's CTU kernel, k_ctu<float, nvar 4, cartesian>, the swe
      kernel k_swe<float, 4>, the descent k_down, the rk stage k_rk<float,
      4>, the deep smoother k_deep<const, rbgs, v_fc, float> and the lm_atm
-     stages k_lm_mac, k_lm_rho and k_lm_states<float> once more);
+     stages k_lm_mac, k_lm_rho and k_lm_states<float> once more; the
+     stage prefixes of the CTU kernel, k_ctu<float|double, nvar 4,
+     cartesian, stages 1..3>, are among its lines);
   3. the CTU kernel (one fused launch a step) against its plain PyTorch
      version on the card, one step from the same state after 3 kernel
      steps, for seven configurations (CGF limiter 2 on sod, HLLC limiters
@@ -30,7 +32,11 @@ Phases (any failure exits non-zero and prints no result line):
      steps: ctu_periodic on advect and ctu_padin on kh at the same three
      shapes, ctu_ensemble on 3 x 200x136 and 8 x 256^2 acoustic_pulse
      members, each member also equal to its one-member kernel step bit for
-     bit;
+     bit; and the stage prefixes of ctu_periodic (make_ctu_step_padded's
+     stages 1..3, ctu_periodic_s1 .. _s3) on advect at the three shapes
+     against padded_step.plain_stages from the same filled frame after 3
+     kernel steps, float64 max |diff| <= 1e-12 max|out| per variable,
+     float32 <= 1e-5 max|out|, every ghost of the output the input's;
   3a. the swe kernel (one fused launch a step) against its plain step the
      same way, for five configurations (quad Roe limiter 2 outflow, kh
      HLLC periodic, dam Roe limiter 1 with reflecting y walls, advect
@@ -320,14 +326,26 @@ Phases (any failure exits non-zero and prints no result line):
      the coarse problems one ShardedDiffusion step hands it against random
      data (the share of subnormal values in each); and phase 5f's
      configurations at their paths' shapes, each beside its bound from
-     work() with the weight plane and the spherical lines counted;
+     work() with the weight plane and the spherical lines counted; the
+     stage split of ctu_periodic at advect 1024^2 float32 (bench.py's):
+     100 fills alone (stage 0), then 100 fill + step calls of each of
+     stages 1, 2, 3 and 4 from the same filled frame (a prefix's output is
+     no state to step on from), each run with the counts reset just
+     before and read just after (100 launches of its entry and no other),
+     each stage's ms and its difference from the stage before under
+     bench.py's names, an estimate and not a partition (each prefix is a
+     kernel of its own, with its own registers), beside the ptxas line of
+     every k_ctu instantiation, and each prefix kernel against its plain
+     version and its bound;
   7. under the profiler, after every CUDA-event timing: the kernels one
      swe step launches (k_swe, once), one rk stage (k_rk, once), one
      mg_deep_smooth call at the solvers' 10 sweeps (k_deep, once), each
      timed mg_sweep call (k_sweep, once), one
      call of each lm_atm stage on the 1024^2 bubble (k_lm_mac, k_lm_rho,
      k_lm_states, once each) and one mg_correct at 1024^2, 512^2 and 256^2
-     (k_correct, once) with their device time a launch, the k_down
+     (k_correct, once) with their device time a launch, the stage
+     split's kernels (k_ctu of stages 1..4, once a call) with their
+     device us a launch and the differences, the k_down
      launches of a cycle (one
      a peeled level) and of a call split into rounds (one a round), the
      device time of k_down and k_up a call at every peeled level of the
@@ -420,7 +438,6 @@ SPH_CONFIGS = (
 PERIODIC = {"mesh.xlboundary": "periodic", "mesh.xrboundary": "periodic",
             "mesh.ylboundary": "periodic", "mesh.yrboundary": "periodic",
             "compressible.small_dens": -1.e30, "driver.fix_dt": -1.0}
-PADDED_KERNELS = ("ctu_periodic", "ctu_padin", "ctu_ensemble")
 
 # the CTU checks' grids: ragged against every tile shape (200x136, and
 # 1024x1000, whose last tile column is partial), and the main path's
@@ -1084,7 +1101,7 @@ def padded_path(entry, problem, n, steps, n_ens=None):
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = dict(padded_step.launches)
-    expect = dict.fromkeys(PADDED_KERNELS, 0)
+    expect = dict.fromkeys(padded_step.launches, 0)
     expect[entry] = steps
     no_lm_launches(entry)
     no_sharded_launches(entry)
@@ -1108,6 +1125,136 @@ def padded_path(entry, problem, n, steps, n_ens=None):
         f"{launches[entry]} (1/step), no other; min rho "
         f"{float(dens.min()):.6g}")
     return sim, step, P, dt, launches[entry], advance
+
+
+# the pipeline's stages as the JAX package's benchmark names them
+# (bench.py's stage breakdown): the time a stage adds to the prefix before
+STAGE_NAMES = {1: "interface_states", 2: "transverse_flux(2xRiemann)",
+               3: "final_riemann(x2)", 4: "avisc+update"}
+
+
+def periodic_stage(sim, stages):
+    """make_ctu_step_padded(..., stages) for sim's grid: (fill, step)."""
+    from pyro2_tpu_torch.solvers.compressible import padded_step
+
+    g = sim.cc_data.grid
+    _, _, fill, step = padded_step.make_ctu_step_padded(
+        g.nx, g.ny, g.dx, g.dy, sim.rp.get_param("eos.gamma"),
+        sim.rp.params, sim.ivars, stages=stages)
+    return fill, step
+
+
+def stage_compare(stages, nx, ny, dtype, tol):
+    """A stage prefix of ctu_periodic (periodic advect) against its plain
+    version (padded_step.plain_stages), one call from the same filled
+    frame after 3 kernel steps of the whole step: max |diff| <= tol
+    max|out| per variable in float64, over the frame in float32, and every
+    ghost of the output the input's.  Returns max |diff|."""
+    import torch
+
+    sim, step, fill, P, dt = padded_entry("ctu_periodic", "advect", nx, ny,
+                                          dtype)
+    _, prefix = periodic_stage(sim, stages)
+    for _ in range(3):
+        P = step.launch(fill(P), dt)
+    P = fill(P)
+    got = prefix.launch(P, dt)
+    ref = prefix.plain(P, dt)
+    torch.cuda.synchronize()
+    g = sim.cc_data.grid
+    a, b = interior(ref, g), interior(got, g)
+    diff = (a - b).abs().flatten(1).amax(1)
+    scale = a.abs().flatten(1).amax(1)
+    if dtype == torch.float64:
+        within = bool((diff <= tol * scale).all())
+        bound = ", ".join(f"{float(x):.3e}" for x in tol * scale)
+        what = f"per variable {', '.join(f'{float(x):.3e}' for x in diff)}"
+    else:
+        within = float(diff.max()) <= tol * float(scale.max())
+        bound = f"{tol * float(scale.max()):.3e}"
+        what = f"{float(diff.max()):.3e}"
+    ghost = torch.ones(P.shape[-2:], dtype=torch.bool, device=P.device)
+    ghost[g.ilo:g.ihi + 1, g.jlo:g.jhi + 1] = False
+    ghosts = torch.equal(got[..., ghost], P[..., ghost])
+    ok = bool(torch.isfinite(b).all()) and within and ghosts
+    log(f"  {'ok ' if ok else 'BAD'} {prefix.name:16s} advect {nx}x{ny} "
+        f"{str(dtype)[6:]:8s} max|diff| {what} (tol {tol:g} x max|out| = "
+        f"{bound}), ghosts kept: {ghosts}")
+    if not ok:
+        raise AssertionError(f"{prefix.name} disagrees with its plain "
+                             "version")
+    return float(diff.max())
+
+
+def stage_split(psim, P, dt, reps, ctu_ptxas, bw, fp32, smi):
+    """The stage split of ctu_periodic at its path's frame (bench.py's
+    bench_stages): `reps` fills alone (stage 0), then `reps` fill + step
+    calls of each of stages 1..4, all from the same filled frame (a
+    prefix's output is no state: chained, stage 1's sum of four states
+    would grow fourfold a call), each with every count reset just before
+    and read just after; CUDA events.  Then each prefix's kernel alone
+    against its plain version and its bound.  Returns ({stage: (fill,
+    step)}, {stage: fill + step ms}, {stage: launches}, {stage: time_pair
+    of the kernel}); stage 4's time_pair is the padded entries' own."""
+    import torch
+
+    from pyro2_tpu_torch.solvers.compressible import ctu_kernel
+
+    g = psim.cc_data.grid
+    entries = {s: periodic_stage(psim, s) for s in (1, 2, 3, 4)}
+    fill = entries[4][0]
+    P = fill(P)
+    torch.cuda.synchronize()
+    ms = {0: event_ms(lambda: fill(P), reps)}
+    launches = {}
+    for s, (_, step) in entries.items():
+        event_ms(lambda: step(fill(P), dt), 3)          # warm up
+        torch.cuda.synchronize()
+        reset_counts()
+        ms[s] = event_ms(lambda: step(fill(P), dt), reps)
+        torch.cuda.synchronize()
+        launched = {k: v for k, v in all_counts().items() if v}
+        if launched != {step.name: reps}:
+            raise AssertionError(f"stage {s}: {reps} fill + step calls "
+                                 f"launched {launched}")
+        launches[s] = reps
+    log(f"  stage 0 (fill alone): {ms[0]:.4f} ms a call ({reps} calls)")
+    for s in (1, 2, 3, 4):
+        name = entries[s][1].name
+        log(f"  stage {s} (fill + {name}): {ms[s]:.4f} ms a call, "
+            f"{launches[s]} {name} launches and no other kernel; "
+            f"{STAGE_NAMES[s]} {ms[s] - ms[s - 1]:+.4f} ms")
+    log("  (the differences are an estimate, not a partition: each prefix "
+        "is a kernel of its own, compiled with its own registers and so "
+        "its own occupancy; the ptxas lines:)")
+    for line in ctu_ptxas:
+        log("    " + line)
+    times = {}
+    for s in (1, 2, 3):
+        step = entries[s][1]
+        times[s] = time_pair(
+            f"{step.name} ({psim.problem_name} {g.nx}x{g.ny}, stage {s})",
+            lambda: step.launch(P, dt), lambda: step.plain(P, dt),
+            ctu_kernel.work(g.nx, g.ny, psim.ivars.nvar, torch.float32,
+                            stages=s), bw, fp32)
+    log(f"  [{smi}]")
+    return entries, ms, launches, times
+
+
+def stage_profile(entries, P, dt, calls):
+    """Under the profiler, `calls` calls of each stage's step launch its
+    k_ctu once each and no other kernel; each stage's device us a launch
+    and its difference from the stage before."""
+    us, prev = {}, 0.0
+    for s, (_, step) in entries.items():
+        us[s] = one_launch_each(lambda: step.launch(P, dt), calls, "k_ctu",
+                                f"{step.name} calls (stage {s})", step.name)
+    for s in (1, 2, 3, 4):
+        log(f"  stage {s} ({entries[s][1].name}): {us[s]:.2f} us a launch; "
+            f"{STAGE_NAMES[s]} {us[s] - prev:+.2f} us (an estimate, not a "
+            "partition)")
+        prev = us[s]
+    return us
 
 
 def make_mg(n, bc, alpha, beta, dtype):
@@ -3651,6 +3798,7 @@ def one_launch_each(fn, calls, kernel, what, entry):
 def launch_count(entry):
     """The launch count of a kernel wrapper, by its entry name."""
     from pyro2_tpu_torch.multigrid import mg_kernel, sharded_mg_kernel
+    from pyro2_tpu_torch.solvers.compressible import padded_step
     from pyro2_tpu_torch.solvers.compressible_fv4 import mol_kernel
     from pyro2_tpu_torch.solvers.lm_atm import lm_kernel
     from pyro2_tpu_torch.solvers.swe import swe_kernel
@@ -3658,7 +3806,8 @@ def launch_count(entry):
     if entry == "swe_step":
         return swe_kernel.launches
     for counts in (mg_kernel.launches, mol_kernel.launches,
-                   sharded_mg_kernel.launches, lm_kernel.launches):
+                   sharded_mg_kernel.launches, lm_kernel.launches,
+                   padded_step.launches):
         if entry in counts:
             return counts[entry]
     raise KeyError(entry)
@@ -5278,10 +5427,13 @@ DEEP_EMITS = ("v, ", "v_fc, ", "v_r, ")
 def kernel_name(kernel, args):
     """A kernel and its template arguments, named: args as a profiler key
     or a mangled name gives them ("0", "float", "true" or "1")."""
-    if kernel == "k_ctu":                       # <T, NV, SPH, DEVDT>
+    if kernel == "k_ctu":               # <T, NV, SPH, DEVDT, STAGES>
         geometry = "spherical" if args[2] in ("true", "1") else "cartesian"
         devdt = ", device dt" if args[3:4] in (["true"], ["1"]) else ""
-        return f"k_ctu<{args[0]}, nvar {args[1]}, {geometry}{devdt}>"
+        stages = f", stages {args[4]}" if args[4:5] not in ([], ["4"]) \
+            else ""
+        return f"k_ctu<{args[0]}, nvar {args[1]}, {geometry}{devdt}" \
+            f"{stages}>"
     if kernel == "k_swe" and len(args) == 3:   # <T, NV, DEVDT>
         devdt = ", device dt" if args[2] in ("true", "1") else ""
         return f"k_swe<{args[0]}, {args[1]}{devdt}>"
@@ -5362,12 +5514,18 @@ def main():
                    lm_kernel, sharded_mg_kernel):
         module._load()
     log(f"  built in {time.perf_counter() - t0:.1f} s (with load)")
-    main_ptxas = {}
+    main_ptxas, ctu_ptxas = {}, []
     for so, nvcc_s, ptxas in built:
         log(f"  {os.path.relpath(so, HERE)}: nvcc {nvcc_s:.1f} s")
         for line in ptxas_summary(ptxas):
             log("    " + line)
-            for head in ("k_ctu<float, nvar 4, cartesian>", "k_swe<float, 4>",
+            if line.startswith("k_ctu<"):
+                ctu_ptxas.append(line)
+            for head in ("k_ctu<float, nvar 4, cartesian>",
+                         "k_ctu<float, nvar 4, cartesian, stages 1>",
+                         "k_ctu<float, nvar 4, cartesian, stages 2>",
+                         "k_ctu<float, nvar 4, cartesian, stages 3>",
+                         "k_swe<float, 4>",
                          "k_swe<float, 4, device dt>", "k_swe<double, 4>",
                          "k_swe<double, 4, device dt>",
                          "k_down<const, float>", "k_down<vc, float>",
@@ -5399,7 +5557,8 @@ def main():
     # 3c. the CTU kernel on spherical grids, and the padded entries, vs
     # their plain steps on the card
     log(f"[ctu_step spherical, ctu_periodic, ctu_padin, ctu_ensemble vs "
-        f"plain steps on the card; {smi}]")
+        f"plain steps, ctu_periodic's stage prefixes vs plain_stages, on "
+        f"the card; {smi}]")
     sph_err, padded_err = None, {}
     for dtype, tol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
         for nx, ny in CTU_SHAPES:
@@ -5414,6 +5573,10 @@ def main():
                 err = padded_compare(entry, problem, nx, ny, dtype, tol)
                 if nx == 1024 and dtype == torch.float32:
                     padded_err[entry] = err
+            for stages in (1, 2, 3):
+                err = stage_compare(stages, nx, ny, dtype, tol)
+                if (nx, ny) == (1024, 1024) and dtype == torch.float32:
+                    padded_err[f"ctu_periodic_s{stages}"] = err
             torch.cuda.empty_cache()
         padded_compare("ctu_ensemble", "acoustic_pulse", 200, 136, dtype,
                        tol, n_ens=3)
@@ -6120,6 +6283,12 @@ def main():
             lambda: pstep.launch(P, pdt), lambda: pstep.plain(P, pdt),
             ctu_kernel.work(g.nx, g.ny, psim.ivars.nvar, torch.float32,
                             n_members=pstep.n_members), bw, fp32)
+    psim, _, P, pdt, _, _ = padded["ctu_periodic"]
+    log(f"[timing: the stage split of ctu_periodic at advect "
+        f"{psim.cc_data.grid.nx}^2 float32 (bench.py's stages), CUDA "
+        f"events; {smi}]")
+    stage_entries, _, stage_launches, stage_times = stage_split(
+        psim, P, pdt, 100, ctu_ptxas, bw, fp32, smi)
 
     log(f"[timing: the sharded multigrid kernels at the 1024^2 path's "
         f"finest level, float32, CUDA events; {smi}]")
@@ -6179,6 +6348,9 @@ def main():
 
     profile_steps(periodic_step, 20,
                   "ctu_periodic advect 1024^2 float32 (fill + step)")
+    log(f"[the stage split of ctu_periodic under the profiler, advect "
+        f"1024^2 float32; {smi}]")
+    stage_profile(stage_entries, stage_entries[4][0](held[0]), pdt, 5)
     profile_steps(diff.single_step, 5, "diffusion gaussian 1024^2 float32")
     profile_steps(shear.single_step, 5,
                   "incompressible shear 1024^2 float32")
@@ -6359,6 +6531,22 @@ def main():
             "replaces":
                 f"pyro2_tpu/solvers/compressible/pallas_step.py:{line}",
             "launches": padded[name][4],
+            "max_abs_err": padded_err[name],
+            "ms": ms,
+            "plain_ms": p_ms,
+            "bound_ms": b_ms,
+            "bound_by": b_by,
+            "library_ms": None,
+        })
+    for stages in (1, 2, 3):
+        name = f"ctu_periodic_s{stages}"
+        ms, p_ms, b_ms, b_by = stage_times[stages]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "pyro2_tpu_torch/csrc/ctu_step.cu",
+            "replaces": "pyro2_tpu/solvers/compressible/pallas_step.py:375",
+            "launches": stage_launches[stages],
             "max_abs_err": padded_err[name],
             "ms": ms,
             "plain_ms": p_ms,

@@ -16,7 +16,13 @@
 //     (pad in, pad out) and make_pallas_ctu_ensemble_step (a batch):
 //     ctu_step_batched_{f32,f64}, the same pipeline with the floor, the
 //     sources, the sponge and the walls forced off, as _local_step_fn's
-//     defaults force them off there; member m of the batch is blockIdx.z.
+//     defaults force them off there; member m of the batch is blockIdx.z;
+//   * make_pallas_ctu_step_padded(..., stages=1..3), the pipeline cut short
+//     after the interface states (1), the transverse corrections (2) or
+//     the final Riemann pair (3), whose output sums the stage's live
+//     intermediates (bench.py differences these prefixes to split the
+//     step's time by stage): ctu_stage_batched_{f32,f64}, k_ctu's STAGES
+//     argument, four variables (see "Stage prefixes" below).
 // HLLC, HLLC_lm and CGF (spherical geometry: CGF only); limiter 0/1/2;
 // flattening on or off; solid walls on any edge; passive scalars (nvar > 4,
 // up to MAXVAR).
@@ -109,6 +115,22 @@
 // They take nvar 4 (Cartesian or spherical), the compressible solver's
 // state; the host-dt entries keep their own instantiations (DEVDT
 // false).
+//
+// Stage prefixes (STAGES 1..3; 4 is the whole step, which the if-constexpr
+// exits leave as it was).  Each emits, on the tile's interior cells, the sum
+// _local_step_fn returns, in its order, and copies the input elsewhere over
+// phase 6's ownership, so the output frame has no unwritten cell:
+//   1. after phase 3: ((U_xl + U_xr) + U_yl) + U_yr of the traced states,
+//      U_xl of face i being the high-x state of cell i - 1;
+//   2. inside phase 5, before either Riemann solve: the same sum of the
+//      transversely corrected states (phase 4, the first pair, runs);
+//   3. inside phase 5: F_x + F_y, the final pair's fluxes before the
+//      artificial viscosity.
+// The x face's part stays in registers until the cell's y face, in the same
+// iteration, completes the sum, which goes over the y face's right state
+// (read by no other face).  Phase 4's vertex divergence and the floored
+// state, which only the viscosity and the update read, are not formed.
+// Plan's shared-memory layout is the whole step's.
 //
 // Build (see ctu_kernel.py):
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -fmad=false
@@ -324,14 +346,17 @@ __device__ __forceinline__ T vdiv(const P& p, const A& u, const A& v,
 enum { LOX = 0, HIX = 1, LOY = 2, HIY = 3 };
 
 // one CTU step of the tile (blockIdx.y, blockIdx.x) of member blockIdx.z;
-// with DEVDT the step's dt is *dtp, in place of the parameter block's
-template <typename T, int NV, bool SPH, bool DEVDT>
+// with DEVDT the step's dt is *dtp, in place of the parameter block's; with
+// STAGES < 4 the step's prefix (see the header)
+template <typename T, int NV, bool SPH, bool DEVDT, int STAGES = 4>
 __global__ void __launch_bounds__(Launch<T, SPH>::threads,
                                   Launch<T, SPH>::blocks)
     k_ctu(const T* __restrict__ U, const T* __restrict__ S,
           const T* __restrict__ G, const T* __restrict__ W,
           T* __restrict__ out, const FixedParams<NV> pin, const Plan t,
           const T* __restrict__ dtp) {
+  static_assert(STAGES == 4 || (STAGES >= 1 && !SPH && !DEVDT),
+                "the prefixes are the Cartesian host-dt step's");
   FixedParams<NV> pdev = pin;
   if constexpr (DEVDT) pdev.dt = double(*dtp);
   const FixedParams<NV>& p = DEVDT ? pdev : pin;
@@ -364,6 +389,26 @@ __global__ void __launch_bounds__(Launch<T, SPH>::threads,
     return F1[(d * NV + n) * ct + k];
   };
   auto ub = [&](int n, int i, int j) { return UB[n * ct + bt.at(i, j)]; };
+  // a prefix's output: sum(n, c) on each interior cell this block owns (c
+  // its place in bt), the input elsewhere; phase 6's ownership
+  auto emit = [&](auto sum) {
+    const int r0 = blockIdx.y == 0 ? 0 : i0;
+    const int r1 = blockIdx.y == gridDim.y - 1 ? p.qx : i0 + t.tx;
+    const int c0 = blockIdx.x == 0 ? 0 : j0;
+    const int c1 = blockIdx.x == gridDim.x - 1 ? p.qy : j0 + t.ty;
+    const int ow = c1 - c0;
+    for (int k = tid; k < (r1 - r0) * ow; k += nt) {
+      const int i = r0 + k / ow, j = c0 + k % ow;
+      if (!inwin(p, i, j, 0, 0, 0, 0)) {
+#pragma unroll
+        for (int n = 0; n < NV; ++n) out[at(p, n, i, j)] = U[at(p, n, i, j)];
+        continue;
+      }
+      const int c = bt.at(i, j);
+#pragma unroll
+      for (int n = 0; n < NV; ++n) out[at(p, n, i, j)] = sum(n, c);
+    }
+  };
 
   // 1. floor and primitives, and the floored state on bt; S, the weight
   // and the geometry planes
@@ -381,7 +426,8 @@ __global__ void __launch_bounds__(Launch<T, SPH>::threads,
     }
 #pragma unroll
     for (int n = 0; n < NV; ++n) Q[n * bq.cells() + k] = q[n];
-    if (i >= bt.i0 && i < bt.i0 + bt.h && j >= bt.j0 && j < bt.j0 + bt.w) {
+    if (STAGES == 4 && i >= bt.i0 && i < bt.i0 + bt.h && j >= bt.j0 &&
+        j < bt.j0 + bt.w) {
 #pragma unroll
       for (int n = 0; n < NV; ++n) UB[n * ct + bt.at(i, j)] = u[n];
     }
@@ -448,6 +494,15 @@ __global__ void __launch_bounds__(Launch<T, SPH>::threads,
   }
   __syncthreads();
 
+  if constexpr (STAGES == 1) {
+    // the interface states of the cell's faces, in _local_step_fn's sum
+    emit([&](int n, int c) {
+      return ((st(HIX, n, c - bt.w) + st(LOX, n, c)) + st(HIY, n, c - 1)) +
+             st(LOY, n, c);
+    });
+    return;
+  }
+
   // 4. the first Riemann pair on the faces of bt's cells that have their
   // left neighbour in bt, zero outside buf=1; in spherical geometry also
   // the pressures of the pair's CGF interface states; and the vertex
@@ -456,7 +511,7 @@ __global__ void __launch_bounds__(Launch<T, SPH>::threads,
   for (int k = tid; k < ct; k += nt) {
     const int a = bt.i0 + k / bt.w, b = bt.j0 + k % bt.w;
     const bool w1 = inwin(p, a, b, 1, 1, 1, 1);
-    if (a > bt.i0 && b > bt.j0)
+    if (STAGES == 4 && a > bt.i0 && b > bt.j0)
       DV[k] = vdiv<T, SPH>(p, qv(IU), qv(IV), g, a, b);
     T ul[MAXVAR], ur[MAXVAR], f[MAXVAR], us[MAXVAR];
     if (a > bt.i0) {
@@ -509,6 +564,7 @@ __global__ void __launch_bounds__(Launch<T, SPH>::threads,
     for (int k = tid; k < ct; k += nt) {
       const int i = bt.i0 + k / bt.w, j = bt.j0 + k % bt.w;
       T ul[MAXVAR], ur[MAXVAR], f[MAXVAR], us[MAXVAR];
+      T sx[MAXVAR];   // a prefix's x-face part of the cell's sum
       const bool in_tile_x = i >= i0 && i <= i0 + t.tx && j >= j0 &&
                              j < j0 + t.ty;
       const bool in_tile_y = i >= i0 && i < i0 + t.tx && j >= j0 &&
@@ -542,17 +598,26 @@ __global__ void __launch_bounds__(Launch<T, SPH>::threads,
                     mhdtV * (f1(1, n, k + 1) * Ay - f1(1, n, k) * Ay);
           }
         }
-        riemann(p, 1, ul, ur, i, j, f, SPH ? us : (T*)nullptr);
-        if constexpr (SPH) P2[k] = pressure(p, us);
-        if (i <= ihi(p) || !p.edge_xr) {
-          const T divU = T(0.5) * (DV[k] + DV[k + 1]);
-          const T av = T(p.cvisc) * fmax(-divU * T(p.dx), T(0));
+        if constexpr (STAGES < 4) {
+          // stage 2 ends before this face's solve, stage 3 after it
+          if constexpr (STAGES == 3)
+            riemann(p, 1, ul, ur, i, j, f, (T*)nullptr);
 #pragma unroll
           for (int n = 0; n < NV; ++n)
-            f[n] = f[n] + av * (ub(n, i - 1, j) - ub(n, i, j));
-        }
+            sx[n] = STAGES == 2 ? ul[n] + ur[n] : f[n];
+        } else {
+          riemann(p, 1, ul, ur, i, j, f, SPH ? us : (T*)nullptr);
+          if constexpr (SPH) P2[k] = pressure(p, us);
+          if (i <= ihi(p) || !p.edge_xr) {
+            const T divU = T(0.5) * (DV[k] + DV[k + 1]);
+            const T av = T(p.cvisc) * fmax(-divU * T(p.dx), T(0));
 #pragma unroll
-        for (int n = 0; n < NV; ++n) st(LOX, n, k) = f[n];
+            for (int n = 0; n < NV; ++n)
+              f[n] = f[n] + av * (ub(n, i - 1, j) - ub(n, i, j));
+          }
+#pragma unroll
+          for (int n = 0; n < NV; ++n) st(LOX, n, k) = f[n];
+        }
       }
       if (in_tile_y && i <= ihi(p) && j <= jhi(p) + 1) {
         const int e0 = k + bt.w, e1 = e0 - 1;     // (i + 1, j), (i + 1, j - 1)
@@ -581,22 +646,40 @@ __global__ void __launch_bounds__(Launch<T, SPH>::threads,
                     mhdtV * (f1(0, n, e0) * Ax - f1(0, n, k) * Ax);
           }
         }
-        riemann(p, 2, ul, ur, i, j, f, SPH ? us : (T*)nullptr);
-        if constexpr (SPH) P2[ct + k] = pressure(p, us);
-        if (j <= jhi(p) || !p.edge_yr) {
-          const T divU = T(0.5) * (DV[k] + DV[k + bt.w]);
-          const T L = SPH ? g.Ly(i) : T(p.dy);
-          const T av = T(p.cvisc) * fmax(-divU * L, T(0));
+        if constexpr (STAGES < 4) {
+          if constexpr (STAGES == 3)
+            riemann(p, 2, ul, ur, i, j, f, (T*)nullptr);
+          // the cell's sum, on the tile's own cells (whose x face ran
+          // above), in _local_step_fn's order
+          if (j < j0 + t.ty && j <= jhi(p)) {
 #pragma unroll
-          for (int n = 0; n < NV; ++n)
-            f[n] = f[n] + av * (ub(n, i, j - 1) - ub(n, i, j));
+            for (int n = 0; n < NV; ++n)
+              st(LOY, n, k) = STAGES == 2 ? (sx[n] + ul[n]) + ur[n]
+                                          : sx[n] + f[n];
+          }
+        } else {
+          riemann(p, 2, ul, ur, i, j, f, SPH ? us : (T*)nullptr);
+          if constexpr (SPH) P2[ct + k] = pressure(p, us);
+          if (j <= jhi(p) || !p.edge_yr) {
+            const T divU = T(0.5) * (DV[k] + DV[k + bt.w]);
+            const T L = SPH ? g.Ly(i) : T(p.dy);
+            const T av = T(p.cvisc) * fmax(-divU * L, T(0));
+#pragma unroll
+            for (int n = 0; n < NV; ++n)
+              f[n] = f[n] + av * (ub(n, i, j - 1) - ub(n, i, j));
+          }
+#pragma unroll
+          for (int n = 0; n < NV; ++n) st(LOY, n, k) = f[n];
         }
-#pragma unroll
-        for (int n = 0; n < NV; ++n) st(LOY, n, k) = f[n];
       }
     }
   }
   __syncthreads();
+
+  if constexpr (STAGES == 2 || STAGES == 3) {
+    emit([&](int n, int c) { return st(LOY, n, c); });
+    return;
+  }
 
   // 6. the update on the tile's interior cells, and the input's ghosts
   // carried through by the tiles at the frame's edges: this block owns
@@ -705,12 +788,12 @@ __global__ void __launch_bounds__(Launch<T, SPH>::threads,
 
 // one launch of the NV-variable kernel with the plan's tile and shared
 // memory (the opt-in above 48 KB is set once per kernel and size)
-template <typename T, int NV, bool SPH, bool DEVDT>
+template <typename T, int NV, bool SPH, bool DEVDT, int STAGES = 4>
 int launch(const T* U, const T* S, const T* G, const T* W, T* out,
            const Params& base, const Plan& t, int n_members, const T* dtp,
            cudaStream_t st) {
   static int opted = 0;
-  auto kernel = k_ctu<T, NV, SPH, DEVDT>;
+  auto kernel = k_ctu<T, NV, SPH, DEVDT, STAGES>;
   if (t.smem > opted) {
     cudaError_t e = cudaFuncSetAttribute(
         (const void*)kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -749,13 +832,30 @@ int by_nvar(const T* U, const T* S, const T* G, const T* W, T* out,
   return (int)cudaErrorInvalidValue;
 }
 
-// the geometry and where dt comes from, as template arguments; the
-// device-dt step is instantiated for the compressible solver's four
-// variables alone (the on-device loop's, driver_loop.py)
+// the geometry, where dt comes from and the stages, as template arguments;
+// the device-dt step is instantiated for the compressible solver's four
+// variables alone (the on-device loop's, driver_loop.py), and so are the
+// prefixes (the periodic padded entry's, Cartesian, host dt)
 template <typename T>
 int by_kind(const T* U, const T* S, const T* G, const T* W, T* out,
             const Params& p, const Plan& t, int n_members, const T* dtp,
-            cudaStream_t st) {
+            cudaStream_t st, int stages) {
+  if (stages != 4) {
+    if (p.nvar != 4 || p.spherical || dtp != nullptr)
+      return (int)cudaErrorInvalidValue;
+    switch (stages) {
+      case 1:
+        return launch<T, 4, false, false, 1>(U, S, G, W, out, p, t,
+                                             n_members, dtp, st);
+      case 2:
+        return launch<T, 4, false, false, 2>(U, S, G, W, out, p, t,
+                                             n_members, dtp, st);
+      case 3:
+        return launch<T, 4, false, false, 3>(U, S, G, W, out, p, t,
+                                             n_members, dtp, st);
+    }
+    return (int)cudaErrorInvalidValue;
+  }
   if (dtp != nullptr) {
     if (p.nvar != 4) return (int)cudaErrorInvalidValue;
     return p.spherical
@@ -771,7 +871,8 @@ int by_kind(const T* U, const T* S, const T* G, const T* W, T* out,
 
 template <typename T>
 int run(const T* U, const T* S, const T* G, const T* W, T* out, Params p,
-        const int* tp, int n_members, const T* dtp, cudaStream_t st) {
+        const int* tp, int n_members, const T* dtp, cudaStream_t st,
+        int stages = 4) {
   static_assert(MAXVAR == 8, "by_nvar instantiates 4..8 variables");
   const Plan t = load_plan(tp);
   if (p.nvar < 4 || p.nvar > MAXVAR || p.nx < 1 || p.ny < 1 ||
@@ -798,7 +899,7 @@ int run(const T* U, const T* S, const T* G, const T* W, T* out, Params p,
                       t.p1 < 0 || t.p2 < 0))
     return (int)cudaErrorInvalidValue;
   p.mstride = n_members > 1 ? (size_t)p.nvar * p.qx * p.qy : 0;
-  return by_kind<T>(U, S, G, W, out, p, t, n_members, dtp, st);
+  return by_kind<T>(U, S, G, W, out, p, t, n_members, dtp, st, stages);
 }
 
 // the single-state entries' parameter block: the shared layout, then the
@@ -881,4 +982,27 @@ extern "C" int ctu_step_batched_f64(const double* U, double* out,
   return run<double>(U, nullptr, nullptr, nullptr, out,
                      batched_params(ip, dp), plan, n_members, nullptr,
                      (cudaStream_t)stream);
+}
+
+// the batched step cut short after stage 1, 2 or 3 (four variables): the
+// frame of each member holds the prefix's sum on its interior and the
+// input's ghosts
+extern "C" int ctu_stage_batched_f32(const float* U, float* out,
+                                     int n_members, const int* ip,
+                                     const double* dp, const int* plan,
+                                     int stages, void* stream) {
+  if (stages < 1 || stages > 3) return (int)cudaErrorInvalidValue;
+  return run<float>(U, nullptr, nullptr, nullptr, out,
+                    batched_params(ip, dp), plan, n_members, nullptr,
+                    (cudaStream_t)stream, stages);
+}
+
+extern "C" int ctu_stage_batched_f64(const double* U, double* out,
+                                     int n_members, const int* ip,
+                                     const double* dp, const int* plan,
+                                     int stages, void* stream) {
+  if (stages < 1 || stages > 3) return (int)cudaErrorInvalidValue;
+  return run<double>(U, nullptr, nullptr, nullptr, out,
+                     batched_params(ip, dp), plan, n_members, nullptr,
+                     (cudaStream_t)stream, stages);
 }

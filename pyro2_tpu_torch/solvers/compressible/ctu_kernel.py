@@ -6,7 +6,10 @@ make_pallas_ctu_step_padded_general), Cartesian and spherical geometry.
 It is built with nvcc into a shared library under pyro2_tpu_torch/_build/
 at first use (pyro2_tpu_torch.util.cuda_build) and bound with ctypes.  Its
 batched entry, which the padded steps of padded_step.py launch, is bound
-here too (`launch_batched`).  A step is one launch: each block computes one
+here too (`launch_batched`), with the stage prefixes of the periodic
+padded step (`stages` 1..3: the pipeline cut short after the interface
+states, the transverse corrections or the final Riemann pair).  A step is
+one launch: each block computes one
 output tile out of shared memory, and `plan` -- the tile, the halos each
 stage reads and the block's shared-memory layout -- is worked out here and
 handed to the kernel, so the CPU tests check it.
@@ -44,8 +47,8 @@ from pyro2_tpu_torch.util import cuda_build
 
 __all__ = ["CTUStep", "Plan", "build", "geometry", "launch_batched",
            "launches", "plan", "work", "FLOPS_PER_ZONE",
-           "FLOPS_PER_ZONE_PROBLEM", "FLOPS_PER_ZONE_SPHERICAL", "HALO",
-           "TILE"]
+           "FLOPS_PER_ZONE_PREFIX", "FLOPS_PER_ZONE_PROBLEM",
+           "FLOPS_PER_ZONE_SPHERICAL", "HALO", "TILE"]
 
 SOURCE = cuda_build.CSRC / "ctu_step.cu"
 
@@ -64,6 +67,20 @@ FLOPS_PER_ZONE_BY_STAGE = {
     "update": 36,      # conservative update
 }
 FLOPS_PER_ZONE = sum(FLOPS_PER_ZONE_BY_STAGE.values())
+# the same for the stage prefixes of the periodic padded step (stages 1..3):
+# the traced states, then the first pair and the transverse corrections
+# (5 operations a variable a state, two states a face, an x and a y face),
+# then the final pair's two solves (riemann1's count) without the
+# viscosity, each prefix ending in its sum of four states (3 adds a
+# variable) or of two fluxes (1); stage 4 is the whole step
+_TRACED = sum(FLOPS_PER_ZONE_BY_STAGE[k] for k in ("prim", "flatten",
+                                                   "states"))
+_PAIR = FLOPS_PER_ZONE_BY_STAGE["riemann1"]
+_TRANSVERSE = 5 * 2 * 2 * 4
+FLOPS_PER_ZONE_PREFIX = {1: _TRACED + 3 * 4,
+                         2: _TRACED + _PAIR + _TRANSVERSE + 3 * 4,
+                         3: _TRACED + 2 * _PAIR + _TRANSVERSE + 4,
+                         4: FLOPS_PER_ZONE}
 # the same for the spherical configuration (CGF, limiter 2, flattening on,
 # nvar 4, the half-dt and predictor-corrector sources, which spherical
 # geometry always has): CGF ~142 per face plus ~11 for its interface
@@ -223,6 +240,14 @@ def _load():
                                                    doubles, ints,
                                                    ctypes.c_void_p]
             fn.restype = ctypes.c_int
+        for name in ("ctu_stage_batched_f32", "ctu_stage_batched_f64"):
+            # U, out, n_members, ints, doubles, plan, stages, stream
+            fn = getattr(lib, name)
+            fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int, ints,
+                                                   doubles, ints,
+                                                   ctypes.c_int,
+                                                   ctypes.c_void_p]
+            fn.restype = ctypes.c_int
         lib.ctu_plan_ints.restype = ctypes.c_int
         if lib.ctu_plan_ints() != len(Plan.ARRAYS) + 9:
             raise RuntimeError("ctu_step.cu takes another plan layout")
@@ -231,18 +256,21 @@ def _load():
 
 
 def work(nx, ny, nvar, dtype, with_sources=False, spherical=False,
-         n_members=1, problem=False):
+         n_members=1, problem=False, stages=4):
     """(bytes, operations) one step of n_members states must move and do at
     least: each state read once and written once (plus the S stack when
     there are sources, a problem source's weight plane, and in spherical
     geometry the geometry buffer), and FLOPS_PER_ZONE (spherical:
     FLOPS_PER_ZONE_SPHERICAL; with a problem source FLOPS_PER_ZONE_PROBLEM
-    more) per interior zone."""
+    more; a stage prefix FLOPS_PER_ZONE_PREFIX[stages]) per interior
+    zone.  A prefix moves the whole step's bytes: it reads the state and
+    writes a frame of its size."""
     item = torch.empty((), dtype=dtype).element_size()
     qx, qy = nx + 8, ny + 8
     values = (2 * nvar + (4 if with_sources else 0) +
               (1 if problem else 0)) * qx * qy
-    flops = FLOPS_PER_ZONE_SPHERICAL if spherical else FLOPS_PER_ZONE
+    flops = FLOPS_PER_ZONE_SPHERICAL if spherical else \
+        FLOPS_PER_ZONE_PREFIX[stages]
     if problem:
         flops += FLOPS_PER_ZONE_PROBLEM
     if spherical:
@@ -272,10 +300,11 @@ def geometry(myg, dtype, device):
     return torch.as_tensor(host, dtype=dtype, device=device)
 
 
-def launch_batched(P, ints, doubles, n_members):
+def launch_batched(P, ints, doubles, n_members, stages=4):
     """One launch of the batched entry on the n_members states of P (a
     contiguous CUDA tensor, members one after another, each an (nvar, qx,
-    qy) stack): the CTU step without floor, sources, sponge and walls.
+    qy) stack): the CTU step without floor, sources, sponge and walls, or
+    with stages 1..3 its prefix (ctu_stage_batched_*, four variables).
     Returns the new states; the caller counts the launch."""
     if P.device.type != "cuda":
         raise ValueError("the CUDA CTU kernel takes a CUDA tensor")
@@ -283,14 +312,17 @@ def launch_batched(P, ints, doubles, n_members):
     tiles = plan(ints[1], ints[2], ints[0], P.dtype,
                  flatten=bool(ints[10]), n_members=n_members)
     out = torch.empty_like(P)
-    fn = lib.ctu_step_batched_f32 if P.dtype == torch.float32 \
-        else lib.ctu_step_batched_f64
+    sfx = "f32" if P.dtype == torch.float32 else "f64"
+    args = (P.data_ptr(), out.data_ptr(), n_members,
+            (ctypes.c_int * len(ints))(*ints),
+            (ctypes.c_double * len(doubles))(*doubles), _c_plan(tiles))
     with torch.cuda.device(P.device):
         stream = torch.cuda.current_stream(P.device).cuda_stream
-        err = fn(P.data_ptr(), out.data_ptr(), n_members,
-                 (ctypes.c_int * len(ints))(*ints),
-                 (ctypes.c_double * len(doubles))(*doubles), _c_plan(tiles),
-                 stream)
+        if stages == 4:
+            err = getattr(lib, f"ctu_step_batched_{sfx}")(*args, stream)
+        else:
+            err = getattr(lib, f"ctu_stage_batched_{sfx}")(*args, stages,
+                                                           stream)
     if err != 0:
         raise RuntimeError(f"CTU kernel launch failed: CUDA error {err}")
     return out

@@ -1,7 +1,7 @@
 """The padded-frame CTU steps: the port of the non-general entries of
 pyro2_tpu/solvers/compressible/pallas_step.py.
 
-  make_ctu_step_padded(nx, ny, dx, dy, gamma, rp_params, ivars)
+  make_ctu_step_padded(nx, ny, dx, dy, gamma, rp_params, ivars, stages=4)
       -> (to_padded, from_padded, fill, step)     (make_pallas_ctu_step_padded)
   make_ctu_step(nx, ny, dx, dy, gamma, rp_params, ivars)
       -> step                                      (make_pallas_ctu_step)
@@ -38,35 +38,106 @@ counted in `launches` under ctu_periodic, ctu_padin and ctu_ensemble.  For
 a CPU frame it is the plain step, simulation.plain_step with the same
 flags off, member by member.  tile_rows and interpret are TPU tiling and
 Pallas options, accepted and ignored.
+
+The stage prefixes.  make_ctu_step_padded(..., stages=s) with s in 1..3
+cuts the pipeline short, as the JAX entry's stages does for the JAX
+package's benchmark (bench.py differences the prefixes to split a step's
+time by stage): step(P, dt) returns a new frame whose interior holds the
+sum of the live intermediates at the cut -- ((U_xl + U_xr) + U_yl) + U_yr
+of the interface states (1) or of the transversely corrected states (2),
+F_x + F_y of the final Riemann pair before the artificial viscosity (3)
+-- and whose ghosts are P's.  A CUDA frame launches the stage entry
+(ctu_stage_batched_*, counted under ctu_periodic_s1 .. _s3), which takes
+four variables (others raise, naming ROADMAP.md A.32); a CPU frame runs
+plain_stages.  stages=4 is the whole step.  Any other value raises
+ValueError, where the JAX entry runs the whole step (a difference that
+ROADMAP.md records under C.4).
 """
 
 import torch
 
 from pyro2_tpu_torch.mesh.grid import Cartesian2d
-from pyro2_tpu_torch.solvers.compressible import ctu_kernel, simulation
+from pyro2_tpu_torch.solvers.compressible import (ctu_kernel, riemann,
+                                                  simulation)
+from pyro2_tpu_torch.solvers.compressible import unsplit_fluxes as flx
 from pyro2_tpu_torch.util import profile_pyro
 from pyro2_tpu_torch.util.runparams import RuntimeParameters
 
-__all__ = ["NG", "launches", "make_ctu_step", "make_ctu_step_padded",
-           "make_ctu_ensemble_step"]
+__all__ = ["NG", "STAGES", "launches", "make_ctu_step",
+           "make_ctu_step_padded", "make_ctu_ensemble_step", "plain_stages",
+           "stages_covered"]
 
 NG = 4
 
+# the pipeline's stages a periodic padded step may stop after (4: the whole
+# step)
+STAGES = (1, 2, 3, 4)
+
 # kernel launches made through the padded steps, by entry (read by
-# chip_smoke.py)
-launches = {"ctu_periodic": 0, "ctu_padin": 0, "ctu_ensemble": 0}
+# chip_smoke.py); the stage prefixes of ctu_periodic count apart
+launches = {"ctu_periodic": 0, "ctu_padin": 0, "ctu_ensemble": 0,
+            "ctu_periodic_s1": 0, "ctu_periodic_s2": 0,
+            "ctu_periodic_s3": 0}
 
 
 class _Walls:
     xl = xr = yl = yr = 0
 
 
+def stages_covered(nvar, stages):
+    """Raise NotImplementedError unless the stage entry of the CUDA kernel
+    takes a frame of nvar variables cut after `stages` (the whole step
+    takes 4..MAXVAR)."""
+    if stages != 4 and nvar != 4:
+        raise NotImplementedError(
+            f"the CTU kernel's stage prefixes take 4 variables, not {nvar} "
+            "(ROADMAP.md A.32)")
+
+
+def plain_stages(stages, my_data, rp, ivars):
+    """The plain CTU pipeline on my_data.grid cut short after `stages`
+    (1..3), with the padded entries' flags (no floor, sources, sponge or
+    walls; Cartesian): step(U, t, dt) -> a new frame holding on the
+    interior the sum _local_step_fn returns in its order, ((U_xl + U_xr) +
+    U_yl) + U_yr of the interface states (1) or of the transversely
+    corrected states (2), F_x + F_y of the final Riemann pair (3), and
+    U's ghosts elsewhere."""
+    myg = my_data.grid
+    tc = profile_pyro.TimerCollection()
+    iv = (slice(None), slice(myg.ilo, myg.ihi + 1),
+          slice(myg.jlo, myg.jhi + 1))
+
+    def step(U, t, dt):
+        U_xl, U_xr, U_yl, U_yr = flx.interface_states(U, my_data, rp, ivars,
+                                                      tc, dt)
+        if stages >= 2:
+            U_xl, U_xr, U_yl, U_yr = flx.apply_transverse_flux(
+                U_xl, U_xr, U_yl, U_yr, my_data, rp, ivars, _Walls(), tc,
+                dt)
+        if stages == 3:
+            F_x = riemann.riemann_flux(1, U_xl, U_xr, my_data, rp, ivars,
+                                       0, 0, tc)
+            F_y = riemann.riemann_flux(2, U_yl, U_yr, my_data, rp, ivars,
+                                       0, 0, tc)
+            total = F_x + F_y
+        else:
+            total = U_xl + U_xr + U_yl + U_yr
+        out = U.clone()
+        out[iv] = total[iv]
+        return out
+
+    return step
+
+
 class PaddedStep:
     """step(P, dt) -> P_new over frames of `shape` ((nvar, qx, qy), or
-    (n_members, nvar, qx, qy) when batched), counted under `name`."""
+    (n_members, nvar, qx, qy) when batched), counted under `name`; with
+    stages 1..3 the pipeline's prefix (plain_stages)."""
 
     def __init__(self, name, nx, ny, dx, dy, rp_params, ivars,
-                 n_members=None):
+                 n_members=None, stages=4):
+        if stages not in STAGES:
+            raise ValueError(f"stages is one of {STAGES}, not {stages!r}")
         rp = RuntimeParameters()
         rp.params = dict(rp_params)
         method = rp.get_param("compressible.riemann")
@@ -79,12 +150,16 @@ class PaddedStep:
 
         g = _Data.grid
         self.name = name
+        self.stages = stages
         self.batched = n_members is not None
         self.n_members = n_members or 1
         frame = (ivars.nvar, g.qx, g.qy)
         self.shape = (n_members,) + frame if self.batched else frame
-        self.plain_one = simulation.plain_step(
-            _Data(), rp, ivars, _Walls(), profile_pyro.TimerCollection())
+        if stages == 4:
+            self.plain_one = simulation.plain_step(
+                _Data(), rp, ivars, _Walls(), profile_pyro.TimerCollection())
+        else:
+            self.plain_one = plain_stages(stages, _Data(), rp, ivars)
         self._ints = [ivars.nvar, nx, ny, NG,
                       ivars.idens, ivars.ixmom, ivars.iymom, ivars.iener,
                       ctu_kernel.RIEMANN[method],
@@ -122,7 +197,7 @@ class PaddedStep:
         return self.launch(P, dt)
 
     def plain(self, P, dt):
-        """The plain step of each member (any device)."""
+        """The plain step (or prefix) of each member (any device)."""
         if not self.batched:
             return self.plain_one(P, None, float(dt))
         return torch.stack([self.plain_one(U, None, float(dt)) for U in P])
@@ -130,10 +205,11 @@ class PaddedStep:
     def launch(self, P, dt):
         """One launch of the CUDA kernel on the frame."""
         self.check(P)
+        stages_covered(self.shape[-3], self.stages)
         doubles = list(self._doubles)
         doubles[2] = float(dt)
         out = ctu_kernel.launch_batched(P, self._ints, doubles,
-                                        self.n_members)
+                                        self.n_members, self.stages)
         launches[self.name] += 1
         return out
 
@@ -155,13 +231,11 @@ def _fill(nx, ny):
 def make_ctu_step_padded(nx, ny, dx, dy, gamma, rp_params, ivars,
                          tile_rows=128, interpret=False, stages=4):
     """Periodic CTU stepping on a persistent frame: (to_padded,
-    from_padded, fill, step); a step is one ctu_periodic launch."""
-    if stages != 4:
-        raise NotImplementedError(
-            "the stage-truncated step (stages < 4) serves only the JAX "
-            "package's benchmark; its counterpart waits for a later slice "
-            "of the port (ROADMAP.md, A.19)")
-    step = PaddedStep("ctu_periodic", nx, ny, dx, dy, rp_params, ivars)
+    from_padded, fill, step); a step is one ctu_periodic launch, or with
+    stages 1..3 one launch of the prefix, counted under ctu_periodic_s<n>
+    (see the module's docstring)."""
+    name = "ctu_periodic" if stages == 4 else f"ctu_periodic_s{stages}"
+    step = PaddedStep(name, nx, ny, dx, dy, rp_params, ivars, stages=stages)
     fill = _fill(nx, ny)
 
     def to_padded(U):

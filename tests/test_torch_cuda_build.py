@@ -133,8 +133,10 @@ def _bind(module, monkeypatch, returns=None):
 
 def test_ctu_entries_match_their_bindings(monkeypatch):
     """ctu_step.cu exports one step entry per dtype, one device-dt step
-    entry per dtype (the step's nine and the dt pointer) and one batched
-    entry per dtype, each taking the launch plan, and the plan's length,
+    entry per dtype (the step's nine and the dt pointer), one batched
+    entry per dtype and one batched stage-prefix entry per dtype (the
+    batched entry's seven and the stages), each taking the launch plan,
+    and the plan's length,
     which is ctu_kernel.plan's; no scratch-size entry is left (the step
     keeps its intermediates on the chip).  The ctypes bindings give each
     entry its parameter count."""
@@ -148,7 +150,8 @@ def test_ctu_entries_match_their_bindings(monkeypatch):
     assert entries == {"ctu_plan_ints": 0, "ctu_step_f32": 9,
                        "ctu_step_f64": 9, "ctu_step_dev_f32": 10,
                        "ctu_step_dev_f64": 10, "ctu_step_batched_f32": 7,
-                       "ctu_step_batched_f64": 7}
+                       "ctu_step_batched_f64": 7, "ctu_stage_batched_f32": 8,
+                       "ctu_stage_batched_f64": 8}
     text = (cuda_build.CSRC / "ctu_step.cu").read_text()
     assert "scratch" not in text.split("namespace {", 1)[1]
     plan_ints = int(re.search(r"constexpr int PLAN_INTS = (\d+);",

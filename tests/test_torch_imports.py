@@ -123,7 +123,8 @@ def test_spherical_and_padded_slice_imports_without_cuda_or_jax():
         "from pyro2_tpu_torch.solvers.compressible.problems import "
         "bubble, gresho, hse, logo, ramp, rt2, rt_multimode, sedov\n"
         "assert set(ps.launches) == {'ctu_periodic', 'ctu_padin', "
-        "'ctu_ensemble'}\n"
+        "'ctu_ensemble', 'ctu_periodic_s1', 'ctu_periodic_s2', "
+        "'ctu_periodic_s3'}\n"
         "assert {'ensemble_states', 'ensemble_step'} <= "
         "set(pyro2_tpu_torch.parallel.__all__)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "

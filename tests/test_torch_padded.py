@@ -202,8 +202,6 @@ def test_ensemble_step_matches_jax():
 def test_padded_entries_check_and_refuse():
     jsim = _jax_sim("advect", 16)
     args = _args(jsim)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, A.19"):
-        padded_step.make_ctu_step_padded(*args, stages=2)
     _, _, _, step = padded_step.make_ctu_step_padded(*args)
     P = torch.zeros(step.shape, dtype=torch.float64)
     with pytest.raises(ValueError):

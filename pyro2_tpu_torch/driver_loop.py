@@ -49,7 +49,7 @@ import gc
 import torch
 
 from pyro2_tpu_torch.mesh import boundary as bnd
-from pyro2_tpu_torch.util import msg
+from pyro2_tpu_torch.util import msg, profile_pyro
 
 __all__ = ["dt_control", "make_chunk_runner", "run_sim_fast"]
 
@@ -202,23 +202,24 @@ class ChunkRunner:
         self.graph = graph
 
     def __call__(self, carry):
-        """Advance the carry by one chunk; returns the carry (on CUDA the
-        runner's static buffers, which the values given are copied
-        into)."""
-        carry = list(carry)
-        if carry[0].device.type != "cuda":
-            self._chunk(carry)
+        """Advance the carry by one chunk, in a span `chunk`; returns the
+        carry (on CUDA the runner's static buffers, which the values given
+        are copied into)."""
+        with profile_pyro.span("chunk"):
+            carry = list(carry)
+            if carry[0].device.type != "cuda":
+                self._chunk(carry)
+                self.replays += 1
+                return carry
+            if self.carry is None:
+                self.carry = [c.clone() for c in carry]
+                self._capture(self.carry)
+            for static, value in zip(self.carry, carry):
+                if value is not static:
+                    static.copy_(value)
+            self.graph.replay()
             self.replays += 1
-            return carry
-        if self.carry is None:
-            self.carry = [c.clone() for c in carry]
-            self._capture(self.carry)
-        for static, value in zip(self.carry, carry):
-            if value is not static:
-                static.copy_(value)
-        self.graph.replay()
-        self.replays += 1
-        return self.carry
+            return self.carry
 
 
 def make_chunk_runner(sim, chunk_steps):
@@ -273,21 +274,22 @@ def run_sim_fast(pyro, *, chunk_steps=64):
              torch.tensor(-1, **as_int)]
 
     # the device's predicates decide for the host (see the module's doc)
-    done = bool(run_chunk.status(carry)[0])
+    done = profile_pyro.read(run_chunk.status(carry)[0], "status")
     while not done:
         carry = run_chunk(carry)
         U, t, n, dt_old, pos, act = carry[:6]
         sim.cc_data.data = U.clone()
-        sim.cc_data.t = float(t)
-        sim.n = int(n)
-        sim.dt_old = float(dt_old)
+        sim.cc_data.t = profile_pyro.read(t, "t")
+        sim.n = profile_pyro.read(n, "n")
+        sim.dt_old = profile_pyro.read(dt_old, "dt_old")
         if particles is not None:
             particles.positions, particles.active = pos.clone(), act.clone()
 
         if pyro.verbose > 0:
             print(f"{sim.n:5d} {sim.cc_data.t:10.5f}  (chunk of "
                   f"{chunk_steps})")
-        done, due = (bool(x) for x in run_chunk.status(carry))
+        done, due = profile_pyro.read(torch.stack(run_chunk.status(carry)),
+                                      "status")
         if due:
             sim.n_num_out += 1
             sim.write(f"{basename}{sim.n:04d}")
@@ -299,6 +301,8 @@ def run_sim_fast(pyro, *, chunk_steps=64):
     if do_io or pyro.rp.get_param("io.force_final_output"):
         sim.write(f"{basename}{sim.n:04d}")
 
-    tm_main.end(sync=sim.cc_data.data)
+    # the run ends when the device has: one read drains its queue
+    profile_pyro.read(sim.cc_data.data.reshape(-1)[-1], "final")
+    tm_main.end()
     sim.finalize()
     return sim

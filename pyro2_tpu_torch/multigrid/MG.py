@@ -39,7 +39,7 @@ from pyro2_tpu_torch.defaults import resolve_device
 from pyro2_tpu_torch.mesh.grid import Grid2d
 from pyro2_tpu_torch.mesh.indexer import ai, embed, fill_ghost
 from pyro2_tpu_torch.multigrid import mg_kernel
-from pyro2_tpu_torch.util import msg
+from pyro2_tpu_torch.util import msg, profile_pyro
 
 __all__ = ["CellCenterMG2d", "stats"]
 
@@ -209,7 +209,8 @@ class CellCenterMG2d:
     def init_RHS(self, data):
         """Set the RHS f on the finest level and record its norm."""
         self.f[-1] = self._as_frame(data, "RHS")
-        self.source_norm = float(ai(self.f[-1], self.soln_grid).norm())
+        self.source_norm = profile_pyro.read(
+            ai(self.f[-1], self.soln_grid).norm(), "source_norm")
         if self.verbose:
             print("Source norm = ", self.source_norm)
         self.initialized_rhs = 1
@@ -333,7 +334,12 @@ class CellCenterMG2d:
     # ------------------------------------------------------------------
     def solve(self, rtol=1.e-11):
         """V-cycle until ||r||/||f|| < rtol (or max_cycles, or two stalled
-        cycles in a row)."""
+        cycles in a row), in a span `mg.solve` with a span `mg.cycle` for
+        each cycle."""
+        with profile_pyro.span("mg.solve"):
+            self._solve(rtol)
+
+    def _solve(self, rtol):
         if not self.initialized_rhs:
             msg.fail("ERROR: RHS not initialized")
 
@@ -349,11 +355,13 @@ class CellCenterMG2d:
         cycle = 1
         n_stalled = 0
         while residual_error > rtol and cycle <= self.max_cycles:
-            v_new, r = mg_kernel.cycle(self, v, f, f_h)
-            # the one device read of the cycle: residual norm and change
-            rnorm, relative_error = torch.stack([
-                ai(r, g).norm(),
-                ai((v_new - v) / (v_new + self.small), g).norm()]).tolist()
+            with profile_pyro.span("mg.cycle"):
+                v_new, r = mg_kernel.cycle(self, v, f, f_h)
+                # the one device read of the cycle: residual norm and change
+                rnorm, relative_error = profile_pyro.read(torch.stack([
+                    ai(r, g).norm(),
+                    ai((v_new - v) / (v_new + self.small), g).norm()]),
+                    "norms")
             v = v_new
             self.r[-1] = r
 

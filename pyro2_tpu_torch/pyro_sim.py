@@ -148,49 +148,59 @@ class Pyro:
         self.is_initialized = True
 
     def run_sim(self):
-        """Evolve the entire simulation."""
+        """Evolve the entire simulation.  A verbose run records its spans
+        and prints their report at the end."""
         if not self.is_initialized:
             msg.fail("ERROR: problem has not been initialized")
 
-        tm_main = self.tc.timer("main")
-        tm_main.begin()
+        with profile.recording(self.verbose > 0):
+            tm_main = self.tc.timer("main")
+            tm_main.begin()
 
-        basename = self.rp.get_param("io.basename")
-        do_io = self.rp.get_param("io.do_io")
+            basename = self.rp.get_param("io.basename")
+            do_io = self.rp.get_param("io.do_io")
 
-        if do_io:
-            self.sim.write(f"{basename}{self.sim.n:04d}")
+            if do_io:
+                self.sim.write(f"{basename}{self.sim.n:04d}")
 
-        if self.dovis:
-            import matplotlib.pyplot as plt
-            plt.figure(num=1, figsize=(8, 6), dpi=100, facecolor="w")
-            self.sim.dovis()
+            if self.dovis:
+                import matplotlib.pyplot as plt
+                plt.figure(num=1, figsize=(8, 6), dpi=100, facecolor="w")
+                self.sim.dovis()
 
-        while not self.sim.finished():
-            self.single_step()
+            while not self.sim.finished():
+                self.single_step()
 
-        force_final_output = self.rp.get_param("io.force_final_output")
-        if do_io or force_final_output:
+            force_final_output = self.rp.get_param("io.force_final_output")
+            if do_io or force_final_output:
+                if self.verbose > 0:
+                    msg.warning("outputting...")
+                self.sim.write(f"{basename}{self.sim.n:04d}")
+
+            # the run ends when the device has: one read drains its queue
+            profile.read(self.sim.cc_data.data.reshape(-1)[-1], "final")
+            tm_main.end()
+
             if self.verbose > 0:
-                msg.warning("outputting...")
-            self.sim.write(f"{basename}{self.sim.n:04d}")
-
-        tm_main.end(sync=self.sim.cc_data.data)
-
-        if self.verbose > 0:
-            self.rp.print_unused_params()
-            self.tc.report()
+                self.rp.print_unused_params()
+                self.tc.report()
 
         self.sim.finalize()
 
     def single_step(self):
-        """fill BCs -> compute dt -> evolve -> output -> vis."""
+        """fill BCs -> compute dt -> evolve -> output -> vis.  The first
+        three run in a span `step` (step id sim.n), each in a span of its
+        own."""
         if not self.is_initialized:
             msg.fail("ERROR: problem has not been initialized")
 
-        self.sim.cc_data.fill_BC_all()
-        self.sim.compute_timestep()
-        self.sim.evolve()
+        with profile.span("step", step=self.sim.n):
+            with profile.span("fill_BC_all"):
+                self.sim.cc_data.fill_BC_all()
+            with profile.span("compute_timestep"):
+                self.sim.compute_timestep()
+            with profile.span("evolve"):
+                self.sim.evolve()
 
         if self.verbose > 0:
             print(f"{self.sim.n:5d} {self.sim.cc_data.t:10.5f} "

@@ -43,9 +43,6 @@ class Simulation(advection.Simulation):
 
     def evolve(self):
         """Advance via the Butcher-tableau RK integrator."""
-        tm_evolve = self.tc.timer("evolve")
-        tm_evolve.begin()
-
         myd = self.cc_data
         method = self.rp.get_param("advection.temporal_method")
         rk = integration.RKIntegrator(myd.t, self.dt, method=method)
@@ -64,4 +61,3 @@ class Simulation(advection.Simulation):
 
         myd.t += self.dt
         self.n += 1
-        tm_evolve.end()

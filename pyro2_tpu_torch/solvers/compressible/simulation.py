@@ -24,7 +24,7 @@ from pyro2_tpu_torch.mesh.indexer import ai, aic
 from pyro2_tpu_torch.simulation_null import (NullSimulation, bc_setup,
                                              grid_setup)
 from pyro2_tpu_torch.solvers.compressible import BC, derives, eos, riemann
-from pyro2_tpu_torch.util import msg
+from pyro2_tpu_torch.util import msg, profile_pyro
 
 __all__ = ["Variables", "DomainEdges", "cons_to_prim", "prim_to_cons",
            "get_external_sources", "get_sponge_factor", "energy_source",
@@ -453,13 +453,11 @@ class Simulation(NullSimulation):
     def method_compute_timestep(self):
         """CFL: dt = cfl * min(Lx/(|u|+cs), Ly/(|v|+cs))."""
         cfl = self.rp.get_param("driver.cfl")
-        self.dt = cfl * float(self._dt_fn(self.cc_data.data))
+        self.dt = cfl * profile_pyro.read(
+            self._dt_fn(self.cc_data.data), "dt")
 
     def evolve(self):
         """One CTU step (one kernel launch on CUDA)."""
-        tm_evolve = self.tc.timer("evolve")
-        tm_evolve.begin()
-
         U = self._step(self.cc_data.data, self.cc_data.t, self.dt)
         self.cc_data.set_vars(U)
 
@@ -469,7 +467,6 @@ class Simulation(NullSimulation):
 
         self.cc_data.t += self.dt
         self.n += 1
-        tm_evolve.end(sync=self.cc_data.data)
 
     def particle_velocity(self, U):
         """(u, v) of a stack: the momenta over the density, the derived

@@ -16,6 +16,7 @@ from pyro2_tpu_torch.mesh import integration
 from pyro2_tpu_torch.mesh.indexer import ai, embed
 from pyro2_tpu_torch.solvers import compressible
 from pyro2_tpu_torch.solvers.compressible import eos
+from pyro2_tpu_torch.util import profile_pyro
 
 __all__ = ["build_substep", "Simulation"]
 
@@ -131,14 +132,12 @@ class Simulation(compressible.Simulation):
     def method_compute_timestep(self):
         """MOL CFL: dt = cfl * min(1 / ((|u|+cs)/dx + (|v|+cs)/dy))."""
         cfl = self.rp.get_param("driver.cfl")
-        self.dt = cfl * float(self._dt_fn(self.cc_data.data))
+        self.dt = cfl * profile_pyro.read(
+            self._dt_fn(self.cc_data.data), "dt")
 
     def evolve(self):
         """Advance via the Butcher-tableau RK integrator: one stage
         increment (one kernel launch on CUDA) per stage."""
-        tm_evolve = self.tc.timer("evolve")
-        tm_evolve.begin()
-
         myd = self.cc_data
         method = self.rp.get_param("compressible.temporal_method")
         rk = integration.RKIntegrator(myd.t, self.dt, method=method)
@@ -157,4 +156,3 @@ class Simulation(compressible.Simulation):
 
         myd.t += self.dt
         self.n += 1
-        tm_evolve.end(sync=myd.data)

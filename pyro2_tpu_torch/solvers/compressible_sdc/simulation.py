@@ -37,9 +37,6 @@ class Simulation(compressible_fv4.Simulation):
 
     def evolve(self):
         """One SDC timestep."""
-        tm_evolve = self.tc.timer("evolve")
-        tm_evolve.begin()
-
         myd = self.cc_data
         g = myd.grid
         sl = (slice(None), slice(g.ilo, g.ihi + 1), slice(g.jlo, g.jhi + 1))
@@ -79,4 +76,3 @@ class Simulation(compressible_fv4.Simulation):
 
         myd.t += self.dt
         self.n += 1
-        tm_evolve.end(sync=myd.data)

@@ -12,7 +12,7 @@ from pyro2_tpu_torch.mesh.indexer import ai
 from pyro2_tpu_torch.multigrid import MG
 from pyro2_tpu_torch.simulation_null import (NullSimulation, bc_setup,
                                              grid_setup)
-from pyro2_tpu_torch.util import msg
+from pyro2_tpu_torch.util import msg, profile_pyro
 
 
 class Simulation(NullSimulation):
@@ -57,22 +57,24 @@ class Simulation(NullSimulation):
         k = self.rp.get_param("diffusion.k")
         bcs = self.cc_data.BCs["phi"]
 
-        mg = MG.CellCenterMG2d(myg.nx, myg.ny,
-                               xmin=myg.xmin, xmax=myg.xmax,
-                               ymin=myg.ymin, ymax=myg.ymax,
-                               xl_BC_type=bcs.xlb, xr_BC_type=bcs.xrb,
-                               yl_BC_type=bcs.ylb, yr_BC_type=bcs.yrb,
-                               alpha=1.0, beta=0.5 * self.dt * k,
-                               verbose=0, device=self.device,
-                               dtype=self.dtype)
+        with profile_pyro.span("mg.setup"):
+            mg = MG.CellCenterMG2d(myg.nx, myg.ny,
+                                   xmin=myg.xmin, xmax=myg.xmax,
+                                   ymin=myg.ymin, ymax=myg.ymax,
+                                   xl_BC_type=bcs.xlb, xr_BC_type=bcs.xrb,
+                                   yl_BC_type=bcs.ylb, yr_BC_type=bcs.yrb,
+                                   alpha=1.0, beta=0.5 * self.dt * k,
+                                   verbose=0, device=self.device,
+                                   dtype=self.dtype)
 
-        # RHS: f = phi + dt/2 k L phi
-        pv = ai(phi, myg)
-        f = mg.soln_grid.scratch_array(dtype=self.dtype, device=self.device)
-        f[mg.ilo:mg.ihi + 1, mg.jlo:mg.jhi + 1] = \
-            pv.v() + 0.5 * self.dt * k * pv.lap()
-
-        mg.init_RHS(f)
+        # RHS: f = phi + dt/2 k L phi, and its norm's read
+        with profile_pyro.span("rhs"):
+            pv = ai(phi, myg)
+            f = mg.soln_grid.scratch_array(dtype=self.dtype,
+                                           device=self.device)
+            f[mg.ilo:mg.ihi + 1, mg.jlo:mg.jhi + 1] = \
+                pv.v() + 0.5 * self.dt * k * pv.lap()
+            mg.init_RHS(f)
         mg.init_zeros()
         mg.solve(rtol=1.e-10)
 

@@ -20,6 +20,7 @@ from pyro2_tpu_torch.simulation_null import (NullSimulation, bc_setup,
                                              grid_setup)
 from pyro2_tpu_torch.solvers.swe import derives
 from pyro2_tpu_torch.solvers.swe.swe_kernel import SWEStep
+from pyro2_tpu_torch.util import profile_pyro
 
 __all__ = ["Variables", "cons_to_prim", "prim_to_cons", "Simulation"]
 
@@ -169,13 +170,11 @@ class Simulation(NullSimulation):
     def method_compute_timestep(self):
         """CFL: dt = cfl * min(dx/(|u|+cs), dy/(|v|+cs))."""
         cfl = self.rp.get_param("driver.cfl")
-        self.dt = cfl * float(self._dt_fn(self.cc_data.data))
+        self.dt = cfl * profile_pyro.read(
+            self._dt_fn(self.cc_data.data), "dt")
 
     def evolve(self):
         """One swe CTU step (one kernel launch on CUDA)."""
-        tm_evolve = self.tc.timer("evolve")
-        tm_evolve.begin()
-
         U = self._step(self.cc_data.data, self.cc_data.t, self.dt)
         self.cc_data.set_vars(U)
 
@@ -185,7 +184,6 @@ class Simulation(NullSimulation):
 
         self.cc_data.t += self.dt
         self.n += 1
-        tm_evolve.end(sync=self.cc_data.data)
 
     def particle_velocity(self, U):
         """(u, v) of a stack: the momenta over the height, the derived

@@ -1,7 +1,12 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's main path once on one GPU and check it.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent DIR] [--mg-tiles]
+
+DIR is an unpacked `git archive` of the commit whose multigrid descent and
+ascent kernels phase 4c holds k_down and k_up to by bits; --mg-tiles runs
+phase 4c alone, with the kernels' timing (phases 1 and 2 for
+mg_vcycle.cu only).
 
 Phases (any failure exits non-zero and prints no result line):
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
@@ -71,6 +76,16 @@ Phases (any failure exits non-zero and prints no result line):
      splits the sweeps into rounds (mg_kernel.tile_plan), v with its
      ghosts, the restricted residual and the finest level's residual
      against down_plain and up_plain;
+  4c. with --parent: k_down and k_up of every case of phase 4 at every
+     peeled level of 1024^2 and 4096^2, float64 and float32, equal by bits
+     to the parent's kernels (built from DIR in the same call) -- v with
+     its ghosts, the restricted residual, the finest level's residual --
+     and within phase 4's tolerances of the plain versions; both builds'
+     ptxas lines of k_down and k_up.  Alone (--mg-tiles), also the
+     profiler's device us a launch of both, in turns: the constant
+     operator at 4096^2 and 2048^2 on diffusion gaussian's frames and on
+     random frames (with their subnormal share), and each operator at its
+     1024^2 cycle's peeled levels;
   4a. the lm_atm interface kernels (lm_mac, lm_rho, lm_states; one launch
      a call, tiles in shared memory) against their plain versions, on
      decisively signed random fields at 200x136, 1024x1000 (a ragged last
@@ -1548,7 +1563,7 @@ def rounds_compare(kernel, case, dtype, tol, nsmooth):
     for lv in mg_kernel.split(mg, dtype)[1]:
         g, gc = mg.grids[lv], mg.grids[lv - 1]
         v, f = frame(rng, g, dtype, 0.1), frame(rng, g, dtype)
-        plan = mg_kernel.tile_plan(g.nx, nsmooth, dtype)
+        plan = mg_kernel.tile_plan(g.nx, nsmooth, dtype, op)
         if kernel == "mg_down":
             guess = v if lv == fine else None
             ref = mg_kernel.down_plain(mg, lv, guess, f)
@@ -3859,7 +3874,9 @@ def down_launches(mg):
         mg_kernel.cycle(mg, v, f)
         torch.cuda.synchronize()
         n_cycle, how = launch_count("mg_down"), "was called"
-    rounds = [mg_kernel.tile_plan(mg.grids[lv].nx, mg.nsmooth, dtype).rounds
+    op = mg_kernel.flavour(mg)
+    rounds = [mg_kernel.tile_plan(mg.grids[lv].nx, mg.nsmooth, dtype,
+                                  op).rounds
               for lv in peeled]
     if n_cycle != sum(rounds) or rounds != [1] * len(peeled):
         raise AssertionError(f"a cycle launched k_down {n_cycle} times for "
@@ -3867,7 +3884,7 @@ def down_launches(mg):
     saved = mg.nsmooth
     mg.nsmooth = 50
     try:
-        plan = mg_kernel.tile_plan(mg.grids[fine].nx, 50, dtype)
+        plan = mg_kernel.tile_plan(mg.grids[fine].nx, 50, dtype, op)
         n_50 = count(lambda: mg_kernel.launch_down(mg, fine, v, f))
     finally:
         mg.nsmooth = saved
@@ -3900,7 +3917,8 @@ def down_tiles(mg, label):
         guess = v if lv == fine else None
         seen = set()
         for blocks in (128, 64, 32, 16, 4):
-            plan = mg_kernel.TilePlan(g.nx, mg.nsmooth, dtype, blocks)
+            plan = mg_kernel.TilePlan(g.nx, mg.nsmooth, dtype, blocks,
+                                      op=mg_kernel.flavour(mg))
             if plan.tile in seen:
                 continue
             seen.add(plan.tile)
@@ -4062,7 +4080,8 @@ def mg_timing(mg, label, bw, fp32):
         v = frame(rng, g, dtype, 0.1)
         guess = v if lv == fine else None           # as the cycle calls it
         want_r = lv == fine
-        plan = mg_kernel.tile_plan(g.nx, mg.nsmooth, dtype)
+        plan = mg_kernel.tile_plan(g.nx, mg.nsmooth, dtype,
+                                   mg_kernel.flavour(mg))
         log(f"  mg_down{sfx} and mg_up{sfx} {g.nx}^2 plan: "
             f"{tile_plan_text(plan)}")
         times = {
@@ -5478,7 +5497,308 @@ def event_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def main():
+# -- the tiled descent and ascent against the parent's kernels ----------------
+#
+# `python3 chip_smoke.py --mg-tiles [--parent DIR]` runs phase 4c alone (the
+# card line, mg_vcycle.cu's build and ptxas lines, the checks, the timing);
+# the full run makes phase 4c's checks after phase 4.  DIR is a `git
+# archive` of the commit to hold k_down and k_up to: its mg_kernel.py and
+# csrc/ are built and loaded beside this tree's.
+
+# the levels of phase 4c's checks, and the cases (MG_CASES: every operator
+# and edge kind)
+TILE_CHECK_SIZES = (1024, 4096)
+
+
+def parent_mg_kernel(root):
+    """The mg_kernel module of the tree at `root`, loaded beside this
+    tree's under another name, its library built from that tree's
+    mg_vcycle.cu and headers (cuda_build names the library by their
+    hash)."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(root) / "pyro2_tpu_torch" / "multigrid" / "mg_kernel.py"
+    spec = importlib.util.spec_from_file_location("parent_mg_kernel", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    mod.SOURCE = Path(root) / "pyro2_tpu_torch" / "csrc" / "mg_vcycle.cu"
+    return mod
+
+
+def same_bits(a, b):
+    """a and b equal bit for bit (+0.0 and -0.0 apart)."""
+    import torch
+
+    ints = torch.int32 if a.dtype == torch.float32 else torch.int64
+    return a.dtype == b.dtype and a.shape == b.shape and \
+        torch.equal(a.view(ints), b.view(ints))
+
+
+def tile_ptxas(libs):
+    """Build mg_vcycle.cu of each (label, module), all at once, with
+    ptxas' report and log its k_down and k_up lines; returns {label:
+    {kernel: line}}."""
+    from pyro2_tpu_torch.util import cuda_build
+
+    out = {}
+    built = cuda_build.build_many([mod.SOURCE for _, mod in libs],
+                                  verbose=True)
+    for (label, mod), (_, seconds, ptxas) in zip(libs, built):
+        mod._lib = None
+        mod._load()
+        log(f"  {label}: mg_vcycle.cu built in {seconds:.1f} s")
+        out[label] = {}
+        for line in ptxas_summary(ptxas):
+            if line.startswith(("k_down<", "k_up<")):
+                log("    " + line)
+                out[label][line.split(":")[0]] = line
+    return out
+
+
+def tile_check(libs, dtype, tol):
+    """k_down and k_up of every case of MG_CASES at every peeled level of
+    TILE_CHECK_SIZES: each (label, module) of libs against the first one
+    by bits (v with its ghosts, the restricted residual, the finest
+    level's residual), and each against down_plain and up_plain within
+    phase 4's tolerances."""
+    import numpy as np
+    import torch
+
+    from pyro2_tpu_torch.multigrid import mg_kernel
+
+    for n in TILE_CHECK_SIZES:
+        for case in MG_CASES:
+            name, op, edges, _ = case
+            mg = make_case_mg(n, name, op, edges, dtype)
+            fine = mg.nlevels - 1
+            rng = np.random.default_rng(n + 17)
+            rows, worst = 0, 0.0
+            for lv in mg_kernel.split(mg, dtype)[1]:
+                g, gc = mg.grids[lv], mg.grids[lv - 1]
+                v, f = frame(rng, g, dtype, 0.1), frame(rng, g, dtype)
+                vc = frame(rng, gc, dtype, 0.1)
+                runs = []
+                for guess in ((v, None) if lv < fine else (v,)):
+                    ref = mg_kernel.down_plain(mg, lv, guess, f)
+                    gots = [m.launch_down(mg, lv, guess, f) for _, m in libs]
+                    runs.append(("k_down", ref, gots,
+                                 [None, resid_scale(mg, lv, ref[0], f)]))
+                want_r = lv == fine
+                ref = mg_kernel.up_plain(mg, lv, v, f, vc, want_r)
+                gots = [m.launch_up(mg, lv, v, f, vc, want_r)
+                        for _, m in libs]
+                runs.append(("k_up", ref, gots,
+                             [None, resid_scale(mg, lv, ref[0], f)
+                              if want_r else None]))
+                for kernel, ref, gots, scales in runs:
+                    for k in range(2):
+                        if ref[k] is None:
+                            continue
+                        scale = scales[k] if scales[k] is not None else \
+                            float(ref[k].abs().max())
+                        for (label, _), got in zip(libs, gots):
+                            err = float((ref[k] - got[k]).abs().max())
+                            if not bool(torch.isfinite(got[k]).all()) or \
+                                    err > tol * scale:
+                                raise AssertionError(
+                                    f"{label} {kernel} {name} {g.nx}^2 "
+                                    f"{str(dtype)[6:]} output {k}: "
+                                    f"max|diff| {err:.3e} > {tol:g} x "
+                                    f"{scale:.3g}")
+                            worst = max(worst, err / scale)
+                        for (label, _), got in zip(libs[1:], gots[1:]):
+                            if not same_bits(got[k], gots[0][k]):
+                                raise AssertionError(
+                                    f"{label} {kernel} {name} {g.nx}^2 "
+                                    f"{str(dtype)[6:]} output {k} differs "
+                                    f"from {libs[0][0]}'s by bits")
+                        rows += 1
+            torch.cuda.synchronize()
+            same = (f"equal by bits to {libs[0][0]}'s, " if len(libs) > 1
+                    else "")
+            log(f"  ok  k_down, k_up {name:18s} {n:5d}^2 "
+                f"{str(dtype)[6:]:8s}: {rows} outputs of "
+                f"{' and '.join(label for label, _ in libs)}, {same}"
+                f"worst |diff| to the plain versions {worst:.3e} of scale")
+            del mg
+            torch.cuda.empty_cache()
+
+
+def gaussian_frames(n, dtype):
+    """The mg_down and mg_up calls of the first V-cycle of diffusion
+    gaussian's solve at n^2 (BENCHMARK.json's diffusion.gaussian, t_0 1e-4)
+    after one step: (mg, [(level, v, f)], [(level, v, f, vc, want_r)])."""
+    import torch
+
+    from pyro2_tpu_torch import Pyro
+    from pyro2_tpu_torch.multigrid import mg_kernel
+
+    p = Pyro("diffusion", device="cuda", dtype=dtype)
+    p.initialize_problem("gaussian", inputs_dict={
+        "mesh.nx": n, "mesh.ny": n, "driver.cfl": 2.0,
+        "gaussian.t_0": 1e-4, "driver.max_steps": 10 ** 9,
+        "driver.tmax": 1.0e30, "driver.verbose": 0})
+    p.single_step()
+    downs, ups, seen = [], [], {}
+    saved = mg_kernel.down, mg_kernel.up
+
+    def clone(a):
+        return None if a is None else a.clone()
+
+    def down(mg, level, v, f):
+        if "mg" not in seen:
+            seen["mg"] = mg
+        if len(downs) < len(mg_kernel.split(mg, f.dtype)[1]):
+            downs.append((level, clone(v), f.clone()))
+        return saved[0](mg, level, v, f)
+
+    def up(mg, level, v, f, vc, want_r):
+        if len(ups) < len(downs):
+            ups.append((level, v.clone(), f.clone(), vc.clone(), want_r))
+        return saved[1](mg, level, v, f, vc, want_r)
+
+    mg_kernel.down, mg_kernel.up = down, up
+    try:
+        p.single_step()
+    finally:
+        mg_kernel.down, mg_kernel.up = saved
+    torch.cuda.synchronize()
+    return seen["mg"], downs, ups
+
+
+def subnormal_share(*frames):
+    """The share of a frame's nonzero values that are subnormal, over
+    frames (None skipped)."""
+    import torch
+
+    sub = tot = 0
+    for a in frames:
+        if a is None:
+            continue
+        tiny = torch.finfo(a.dtype).tiny
+        nz = a != 0
+        sub += int((nz & (a.abs() < tiny)).sum())
+        tot += int(a.numel())
+    return sub / max(tot, 1)
+
+
+def tile_timing(libs, smi):
+    """The profiler's device us a launch of k_down and k_up under each
+    (label, module) of libs, in turns (first, others, others reversed,
+    first): the constant operator at 4096^2 and 2048^2 on the frames of
+    diffusion gaussian's first cycle and on random frames of the same
+    size, float32 and float64, with the share of subnormal values of
+    each; and every operator of MG_CASES at its 1024^2 cycle's peeled
+    levels (random frames), float32 and float64."""
+    import numpy as np
+    import torch
+
+    from pyro2_tpu_torch.multigrid import mg_kernel
+
+    order = list(libs) + list(reversed(libs[1:])) + [libs[0]] \
+        if len(libs) > 1 else list(libs) * 2
+
+    def times(calls, reps=10):
+        """{label: [us a launch of each call, each turn]}"""
+        out = {label: [[] for _ in calls] for label, _ in libs}
+        for label, mod in order:
+            for c, (kernel, fn) in enumerate(calls):
+                fn(mod)
+                us, _ = kernel_device_us(lambda: fn(mod), reps, kernel)
+                out[label][c].append(us)
+        return out
+
+    def line(what, calls, out):
+        for c, (kernel, _) in enumerate(calls):
+            cells = "; ".join(
+                f"{label} " + " / ".join(f"{u:.1f}" for u in out[label][c])
+                for label, _ in libs)
+            log(f"  {what[c]} {kernel}: {cells} us a launch")
+
+    log(f"  (profiler device us a launch, 10 launches a session, in turns "
+        f"{' -> '.join(label for label, _ in order)}; {smi})")
+    for dtype in (torch.float32, torch.float64):
+        mg, downs, ups = gaussian_frames(4096, dtype)
+        rng = np.random.default_rng(11)
+        up_of = {u[0]: u for u in ups}
+        for lv, v, f in downs[:2]:                # 4096^2, 2048^2
+            lu, vu, fu, vc, want_r = up_of[lv]
+            g = mg.grids[lv]
+            rv = None if v is None else frame(rng, g, dtype, 0.1)
+            rf, rvu = frame(rng, g, dtype), frame(rng, g, dtype, 0.1)
+            rvc = frame(rng, mg.grids[lv - 1], dtype, 0.1)
+            for data, args in (("gaussian", (v, f, vu, fu, vc)),
+                               ("random", (rv, rf, rvu, rf, rvc))):
+                dv, df, uv, uf, uc = args
+                calls = [("k_down", lambda m: m.launch_down(mg, lv, dv, df)),
+                         ("k_up", lambda m: m.launch_up(mg, lu, uv, uf, uc,
+                                                         want_r))]
+                out = times(calls)
+                share = [subnormal_share(dv, df), subnormal_share(uv, uf, uc)]
+                what = [f"{str(dtype)[6:]} {g.nx}^2 {data} (subnormal "
+                        f"{100 * s:.3g}% of the inputs)" for s in share]
+                line(what, calls, out)
+        del mg, downs, ups
+        torch.cuda.empty_cache()
+        for case in MG_CASES:
+            name, op, edges, _ = case
+            if name not in ("neumann_helmholtz", "vc_lm_edges",
+                            "general_dirichlet"):
+                continue
+            mg = make_case_mg(1024, name, op, edges, dtype)
+            fine = mg.nlevels - 1
+            for lv in reversed(mg_kernel.split(mg, dtype)[1]):
+                g, gc = mg.grids[lv], mg.grids[lv - 1]
+                v, f = frame(rng, g, dtype, 0.1), frame(rng, g, dtype)
+                vc = frame(rng, gc, dtype, 0.1)
+                guess = v if lv == fine else None
+                calls = [("k_down",
+                          lambda m: m.launch_down(mg, lv, guess, f)),
+                         ("k_up", lambda m: m.launch_up(mg, lv, v, f, vc,
+                                                         lv == fine))]
+                out = times(calls)
+                line([f"{str(dtype)[6:]} {name} {g.nx}^2"] * 2, calls, out)
+            del mg
+            torch.cuda.empty_cache()
+
+
+def mg_tiles_main(parent):
+    """Phase 4c alone: the card, mg_vcycle.cu's build and ptxas lines (and
+    the parent's), the checks and the timing."""
+    import torch
+
+    from pyro2_tpu_torch.multigrid import mg_kernel
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, HERE)
+    smi = subprocess.run(
+        ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip()
+    log(smi)
+    log(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
+    libs = ([("parent", parent_mg_kernel(parent))] if parent else []) + \
+        [("change" if parent else "this tree", mg_kernel)]
+    log("[4c. mg_vcycle.cu's k_down and k_up: build, ptxas]")
+    tile_ptxas(libs)
+    log("[4c. k_down and k_up of every case at "
+        f"{' and '.join(f'{n}^2' for n in TILE_CHECK_SIZES)}"
+        + (", against the parent's by bits" if parent else "") + "]")
+    for dtype, tol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
+        tile_check(libs, dtype, tol)
+    log("[4c. k_down and k_up timing]")
+    tile_timing(libs, smi)
+    log(smi)
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def main(parent=None):
     import torch
 
     if not torch.cuda.is_available():
@@ -5528,7 +5848,10 @@ def main():
                          "k_swe<float, 4>",
                          "k_swe<float, 4, device dt>", "k_swe<double, 4>",
                          "k_swe<double, 4, device dt>",
-                         "k_down<const, float>", "k_down<vc, float>",
+                         "k_down<const, float>", "k_up<const, float>",
+                         "k_down<float>", "k_up<float>",
+                         "k_down<double>", "k_up<double>",
+                         "k_down<vc, float>",
                          "k_down<general, float>", "k_rk<float, 4>",
                          "k_rk<double, 4>",
                          "k_deep<const, rbgs, v_fc, float>",
@@ -5644,6 +5967,17 @@ def main():
         for case in MG_CASES:
             for kernel in ("mg_down", "mg_up"):
                 rounds_compare(kernel, case, dtype, tol, 50)
+        torch.cuda.empty_cache()
+
+    # 4c. k_down and k_up against the parent's kernels by bits
+    if parent:
+        log(f"[4c. k_down and k_up of every case at "
+            f"{' and '.join(f'{n}^2' for n in TILE_CHECK_SIZES)}, against "
+            f"the parent's ({parent}) by bits]")
+        tiles = [("parent", parent_mg_kernel(parent)), ("change", mg_kernel)]
+        tile_ptxas(tiles)
+        for dtype, tol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
+            tile_check(tiles, dtype, tol)
         torch.cuda.empty_cache()
 
     # 4a. the lm_atm interface kernels vs their plain versions on the card
@@ -6734,4 +7068,6 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    args = sys.argv[1:]
+    parent = args[args.index("--parent") + 1] if "--parent" in args else None
+    sys.exit(mg_tiles_main(parent) if "--mg-tiles" in args else main(parent))

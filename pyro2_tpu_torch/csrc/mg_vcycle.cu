@@ -5,7 +5,9 @@
 // OP_CONST replaces the JAX package's pallas_mg.py, the other two
 // pyro2_tpu/multigrid/pallas_gen_mg.py, all on a square 2^k grid with one
 // ghost cell and homogeneous standard BCs.  One template per kernel,
-// instantiated for each operator:
+// instantiated for each operator (and for the constant operator's 64^2
+// tiles, k_down and k_up overloaded on RegArgs, with its cells in
+// registers):
 //
 //   mg_core  <- _make_core_kernel / _make_core_kernel_g: the whole
 //               sub-V-cycle of the coarse levels 0..top (nsmooth_bottom
@@ -61,12 +63,15 @@
 // the solvers' nsmooth (temporal blocking, as the TPU's banded kernels for
 // levels above 512^2): each block owns a tile of the level and runs every
 // half-sweep on a box of the tile and a halo as deep as the sweeps reach,
-// held in shared memory with f beside it, with block barriers only
-// (tile_smooth); the descent's last round restricts the residual of its
+// with block barriers only -- the constant operator's 64^2 tiles with each
+// thread's cells of the box in its registers (k_down / k_up on RegArgs,
+// mg_tiles.cuh reg_smooth), smaller tiles and the coefficient operators
+// with the box in shared memory, f beside it (tile_smooth, k_down<OP, T>,
+// k_up<OP, T>); the descent's last round restricts the residual of its
 // tile's cells from the box (a tile starts at an odd index and is even, so
 // it holds the four children of each of its coarse cells).
-// mg_kernel.tile_plan picks the tile per level and split the
-// sweeps into rounds of separate launches where a halo for all of them
+// mg_kernel.tile_plan picks the tile per level and operator, and splits
+// the sweeps into rounds of separate launches where a halo for all of them
 // would not fit.
 // mg_core: one launch of a thread-block cluster, each block holding v and
 // f of every level 0..top in its shared memory (128^2 float32: 183 KB;
@@ -77,11 +82,29 @@
 // stencils, 7 (CONST), 13 (VC) or 17 (GENERAL) operations per cell update
 // against 2 values and 2-5 coefficients in and one out, so a call's least
 // time is the bytes of its frames and planes over the memory rate
-// (mg_kernel.work counts them).  mg_down and mg_up read each cell's
-// neighbours from shared memory, at the price of the halo's recomputation
-// (1.8x the cells at 1024^2 with 64^2 tiles, more with smaller tiles), the
-// block barrier of each half-sweep and a 2-way bank conflict of the
-// stride-2 colour walk.  The core cannot approach its byte bound at all: it
+// (mg_kernel.work counts them).  mg_down and mg_up are far from it: a
+// round is 2 nsmooth dependent half-sweeps of a box, each ended by a block
+// barrier, and each cell update's IEEE division branches to a slow path
+// (taken for a zero or tiny numerator), which bounds how far a thread's
+// updates overlap, so the time goes into the instructions and the
+// shared-memory traffic of each update and into the halo swept again.
+// Held in shared memory (tile_smooth), an update read its four neighbours
+// and f there, with the stride-2 colour walk's 2-way bank conflict, and
+// walked its box and frame indices and edge tests.  The constant
+// operator's 64^2 tiles instead keep each thread's cells in registers
+// (reg_smooth): an update reads its f from the thread's own
+// slot, one neighbour from the next lane and, only at a run's first or
+// last row or at a warp's edge, one from shared memory, with no index
+// walk and no lane idle.  Without f's box in shared memory a float64
+// block takes a 64^2 tile (box 106^2: it loads 2.74 and sweeps 1.80 times
+// its tile) where it took 32^2 (5.35 and 2.87 times).  The registers bound
+// the box (mg_kernel.TILE_ROWS, TILE_THREADS), and a smaller box gives the
+// block fewer threads than tile_smooth's, whose slow-path divisions (the
+// coarse levels' zero numerators) then run in series, so smaller tiles
+// keep tile_smooth; the coefficient operators, whose updates also read
+// their coefficients at the frame, spilled with their cells in registers
+// and keep it too.  The core
+// cannot approach its byte bound at all: it
 // is a chain of ~400 dependent phases (a top of 128^2 at nsmooth 10 / 50
 // bottom sweeps), most of them on levels of 4 to 256 cells, and on one
 // block the 128^2 level's sweeps are bound by one SM's instruction
@@ -241,20 +264,41 @@ __device__ __forceinline__ T restricted(const T* v, const T* f,
 // iterations would not fit the shared memory; one at the solvers'
 // nsmooth).
 
-// the block of the tiled kernels: TILE_X threads (threadIdx.x) along a
-// row's cells of a colour, the plan's threads / TILE_X (threadIdx.y) over
-// the rows, at most TILE_THREADS threads
+// the block of the tiled kernels with boxes in shared memory: TILE_X
+// threads (threadIdx.x) along a row's cells of a colour, the plan's
+// threads / TILE_X (threadIdx.y) over the rows, at most TILE_THREADS
+// threads
 constexpr int TILE_X = 32, TILE_THREADS = 512;
+
+// the constant operator's register-resident tiled kernels (mg_tiles.cuh
+// RegCells): the rows of the box each thread holds in registers, the
+// block's most threads and the blocks an SM the kernels are built for
+// (launch bounds).
+// mg_kernel.TILE_ROWS, TILE_THREADS and TILE_SM_BLOCKS hold the same
+// numbers
+template <typename T>
+struct RegTile;
+template <>
+struct RegTile<float> {
+  static constexpr int ROWS = 10, THREADS = 608, BLOCKS = 2;
+};
+template <>
+struct RegTile<double> {
+  static constexpr int ROWS = 6, THREADS = 960, BLOCKS = 1;
+};
+
 
 // the launch plan of mg_kernel.tile_plan: the owned tile's side, the halo,
 // the rounds and the iterations of a full round, the block's threads, its
-// shared memory (bytes: the box of v, then the box of f) and the tiles
-// along a side
+// shared memory (bytes: the register-resident kernels' slots of v and f
+// for each thread, else the boxes of v and f), the tiles along a side and
+// the rows of the box a thread holds (RegTile's for the register-resident
+// kernels; 0 for tile_smooth's, which keep v in shared memory)
 struct TilePlan {
-  int tile, halo, rounds, iters, threads, smem, tiles;
+  int tile, halo, rounds, iters, threads, smem, tiles, rows;
 };
 
-constexpr int TILE_PLAN_INTS = 7;
+constexpr int TILE_PLAN_INTS = 8;
 
 // the ghosts of frame r that mirror interior cell (i, j), set to zero
 template <typename T>
@@ -299,6 +343,128 @@ __device__ __forceinline__ LevelBox tile_box(const TileArgs<T>& a) {
   return LevelBox{1 + (int)blockIdx.y * a.tile - a.halo,
                   1 + (int)blockIdx.x * a.tile - a.halo,
                   a.tile + 2 * a.halo, a.L.n, a.px, a.py};
+}
+
+// fn(slot index m, extended i, j) for each of the thread's cells in the
+// tile (cell (k, side) at m = 2 k + side of its slots), one at a time
+template <typename T, int R, typename F>
+__device__ __forceinline__ void tile_cells(const TileArgs<T>& a,
+                                           const LevelBox& t,
+                                           const RegPlace& o, F fn) {
+  const int ti = t.ei + a.halo, tj = t.ej + a.halo;
+#pragma unroll 1
+  for (int m = 0; m < 2 * R; ++m) {
+    const int i = t.ei + o.r0 + (m >> 1), j = t.ej + o.c0 + (m & 1);
+    if (i >= ti && i < ti + a.tile && j >= tj && j < tj + a.tile)
+      fn(m, i, j);
+  }
+}
+
+// the residual of the thread's cell at extended (i, j), slot index m: v
+// and its neighbours from the box b, f from the thread's slot
+template <int OP, typename T>
+__device__ __forceinline__ T tile_resid(const TileArgs<T>& a,
+                                        const LevelBox& t, const RegPlace& o,
+                                        const T* b, int m, int i, int j) {
+  const int at = t.at(i, j);
+  const T v0 = b[at];
+  const Nbrs<T> v = t.nbrs(b, a.L, at, i, j, v0);
+  return resid_val<OP>(v0, v.xp, v.xm, v.yp, v.ym, b[o.own + o.f + m], a.L,
+                       a.alpha, a.beta, i * a.L.q + j);
+}
+
+// the residual of the tile's cells restricted to its tile / 2 coarse cells
+// a side (the four children in restrict4's order, res(i, j) the residual
+// of tile cell (i, j)) with the coarse frame's zero ghosts beside them on
+// the level's edge, by the block's threads.  A tile starts at an odd index
+// and is even, so its coarse cells' children are its own cells
+template <typename T, typename Res>
+__device__ __forceinline__ void restrict_tile(const TileArgs<T>& a,
+                                              const LevelBox& t, Res res) {
+  const int ti = t.ei + a.halo, tj = t.ej + a.halo;
+  const int nc = a.L.n / 2, qc = nc + 2, h = a.tile / 2;
+  const int I0 = (ti + 1) / 2, J0 = (tj + 1) / 2;
+  const int R0 = blockIdx.y == 0 ? 0 : I0;
+  const int R1 = blockIdx.y == gridDim.y - 1 ? qc : I0 + h;
+  const int C0 = blockIdx.x == 0 ? 0 : J0;
+  const int C1 = blockIdx.x == gridDim.x - 1 ? qc : J0 + h;
+  const int nj = C1 - C0;
+  for (int k = threadIdx.x; k < (R1 - R0) * nj; k += blockDim.x) {
+    const int I = R0 + k / nj, J = C0 + k % nj;
+    T val = T(0);
+    if (I >= 1 && I <= nc && J >= 1 && J <= nc) {
+      const int i = 2 * I - 1, j = 2 * J - 1;
+      val = T(0.25) * (((res(i, j) + res(i + 1, j)) + res(i, j + 1)) +
+                       res(i + 1, j + 1));
+    }
+    a.r[I * qc + J] = val;
+  }
+}
+
+// write the tile's cells from the box b into the round's output, with the
+// ghosts that mirror them (`put`), by the block's threads
+template <int OP, typename T>
+__device__ __forceinline__ void put_tile(const TileArgs<T>& a,
+                                         const LevelBox& t, const T* b) {
+  const int ti = t.ei + a.halo, tj = t.ej + a.halo;
+  const int lt = __ffs(a.tile) - 1;  // the tile is a power of 2
+  for (int k = threadIdx.x; k < a.tile * a.tile; k += blockDim.x) {
+    const int i = ti + (k >> lt), j = tj + (k & (a.tile - 1));
+    put<OP>(a.dst, a.L, i, j, b[t.at(i, j)]);
+  }
+}
+
+// mg_down's round with the constant operator's cells in registers
+// (reg_smooth)
+template <typename T>
+__device__ __forceinline__ void down_regs(const TileArgs<T>& a, T* b,
+                                          const LevelBox& t) {
+  constexpr int OP = OP_CONST;
+  const Lev<T>& L = a.L;
+  constexpr int R = RegTile<T>::ROWS;
+  const RegPlace o = reg_place<R>(t);
+  RegCells<T, R> c;
+  reg_load(c, b, t, o, L.q, a.src, a.f,
+           [](T v, int, int) { return v; });
+  reg_smooth<OP>(c, b, t, L, o, 2 * a.iters);
+  reg_store(c, b, t, o);
+  put_tile<OP>(a, t, b);
+  if (!a.r) return;
+  // each tile cell's residual, over its f in the thread's slot, then
+  // over its v in the box once every thread has read the box
+  tile_cells<T, R>(a, t, o, [&](int m, int i, int j) {
+    b[o.own + o.f + m] = tile_resid<OP>(a, t, o, b, m, i, j);
+  });
+  __syncthreads();
+  tile_cells<T, R>(a, t, o, [&](int m, int i, int j) {
+    b[t.at(i, j)] = b[o.own + o.f + m];
+  });
+  __syncthreads();
+  restrict_tile(a, t, [&](int i, int j) { return b[t.at(i, j)]; });
+}
+
+// mg_up's round with the constant operator's cells in registers
+// (reg_smooth)
+template <typename T>
+__device__ __forceinline__ void up_regs(const TileArgs<T>& a, T* b,
+                                        const LevelBox& t) {
+  constexpr int OP = OP_CONST;
+  const Lev<T>& L = a.L;
+  const int q = L.q, qc = L.n / 2 + 2;
+  constexpr int R = RegTile<T>::ROWS;
+  const RegPlace o = reg_place<R>(t);
+  RegCells<T, R> c;
+  reg_load(c, b, t, o, q, a.src, a.f, [&](T v, int it, int jt) {
+    return a.vc ? v + prolong(a.vc, qc, it, jt) : v;
+  });
+  reg_smooth<OP>(c, b, t, L, o, 2 * a.iters);
+  reg_store(c, b, t, o);
+  put_tile<OP>(a, t, b);
+  if (!a.r) return;
+  tile_cells<T, R>(a, t, o, [&](int m, int i, int j) {
+    a.r[i * q + j] = tile_resid<OP>(a, t, o, b, m, i, j);
+    zero_ghosts(a.r, L, i, j);
+  });
 }
 
 // one round of mg_down on the tile (blockIdx.y, blockIdx.x): load the
@@ -386,6 +552,31 @@ __global__ void __launch_bounds__(TILE_THREADS) k_up(TileArgs<T> a) {
       }
     }
   }
+}
+
+// the arguments of a round of the constant operator's register-resident
+// kernels: a round's (their own type, so that the kernels overload k_down
+// and k_up by it)
+template <typename T>
+struct RegArgs {
+  TileArgs<T> a;
+};
+
+// one round of mg_down of the constant operator's register-resident tiles
+// (mg_kernel.tile_plan: the 64^2 tiles), as k_down<OP_CONST, T>
+template <typename T>
+__global__ void __launch_bounds__(RegTile<T>::THREADS, RegTile<T>::BLOCKS)
+    k_down(RegArgs<T> r) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  down_regs(r.a, reinterpret_cast<T*>(smem_raw), tile_box(r.a));
+}
+
+// one round of mg_up, the same way
+template <typename T>
+__global__ void __launch_bounds__(RegTile<T>::THREADS, RegTile<T>::BLOCKS)
+    k_up(RegArgs<T> r) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  up_regs(r.a, reinterpret_cast<T*>(smem_raw), tile_box(r.a));
 }
 
 // -- mg_core ------------------------------------------------------------------
@@ -731,8 +922,11 @@ __global__ void __launch_bounds__(CORE_THREADS) k_core(CoreArgs<T> a) {
 bool valid_size(int n) { return n >= 2 && (n & (n - 1)) == 0; }
 
 // the rounds of one mg_down or mg_up call on an n^2 level with
-// plan (mg_kernel.tile_plan; see TilePlan) by `kernel`, whose
-// shared-memory opt-in so far is `opted`: round k reads src (v in the first
+// plan (mg_kernel.tile_plan; see TilePlan) by `kernel` (boxes in shared
+// memory) or, for a plan with rows, `regs` (the constant operator's cells
+// in registers; nullptr for the coefficient operators), whose
+// shared-memory opt-ins so far are opted[0], opted[1]: round k reads src
+// (v in the first
 // round, else the last round's output) and writes dst, the rounds
 // alternating between scratch and vo so that the last one ends in vo; vc
 // goes to the first round, r to the last.  scratch may be nullptr with one
@@ -741,7 +935,8 @@ bool valid_size(int n) { return n >= 2 && (n & (n - 1)) == 0; }
 // nsmooth together, a halo as deep as a round's half-sweeps plus the
 // residual, and a box that fits its shared memory
 template <typename T>
-int tiled(void (*kernel)(TileArgs<T>), int& opted, const T* v, const T* f,
+int tiled(void (*kernel)(TileArgs<T>), void (*regs)(RegArgs<T>),
+          int* opted, const T* v, const T* f,
           const T* vc, T* vo, T* r, T* scratch, int n, int nsmooth,
           const int* bc, const double* coef, const double* ab,
           const int* plan, const void* planes, cudaStream_t st) {
@@ -752,24 +947,39 @@ int tiled(void (*kernel)(TileArgs<T>), int& opted, const T* v, const T* f,
       (bc[2] == PERIODIC) != (bc[3] == PERIODIC))
     return (int)cudaErrorInvalidValue;
   const TilePlan t{plan[0], plan[1], plan[2], plan[3],
-                   plan[4], plan[5], plan[6]};
+                   plan[4], plan[5], plan[6], plan[7]};
   const int rounds =
       nsmooth == 0 ? 1 : (nsmooth + t.iters - 1) / max(t.iters, 1);
   if (t.tile < 2 || (t.tile & (t.tile - 1)) || t.tile > n ||
-      t.tiles * t.tile != n || t.threads < TILE_X ||
-      t.threads > TILE_THREADS || t.threads % TILE_X || t.iters < 0 ||
+      t.tiles * t.tile != n || t.iters < 0 ||
       (nsmooth > 0 && t.iters < 1) || t.rounds != rounds ||
       t.halo < 2 * t.iters + 1 || (rounds > 1 && !scratch))
     return (int)cudaErrorInvalidValue;
-  const size_t w = (size_t)t.tile + 2 * t.halo;
-  if (t.smem < 1 || (size_t)t.smem < 2 * w * w * sizeof(T))
+  const int w = t.tile + 2 * t.halo;
+  if (t.smem < 1 || t.threads % 32 || t.threads < TILE_X)
     return (int)cudaErrorInvalidValue;
-  if (t.smem > opted) {
+  if (t.rows == 0) {
+    // the boxes of v and f in shared memory
+    if (t.threads > TILE_THREADS ||
+        (size_t)t.smem < 2 * (size_t)w * w * sizeof(T))
+      return (int)cudaErrorInvalidValue;
+  } else {
+    // the cells in registers: every pair of the box's columns over every
+    // run of `rows` rows has its thread, and each thread its slots
+    constexpr int R = RegTile<T>::ROWS;
+    if (!regs || t.rows != R || t.threads > RegTile<T>::THREADS ||
+        t.threads < (w / 2) * ((w + R - 1) / R) ||
+        (size_t)t.smem <
+            2 * (size_t)t.threads * reg_slot<R>() * sizeof(T))
+      return (int)cudaErrorInvalidValue;
+  }
+  const void* fn = t.rows ? (const void*)regs : (const void*)kernel;
+  int& opt = opted[t.rows ? 1 : 0];
+  if (t.smem > opt) {
     cudaError_t e = cudaFuncSetAttribute(
-        (const void*)kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        t.smem);
+        fn, cudaFuncAttributeMaxDynamicSharedMemorySize, t.smem);
     if (e != cudaSuccess) return (int)e;
-    opted = t.smem;
+    opt = t.smem;
   }
   TileArgs<T> a;
   a.f = f;
@@ -788,8 +998,11 @@ int tiled(void (*kernel)(TileArgs<T>), int& opted, const T* v, const T* f,
     a.dst = dst;
     a.r = k == rounds - 1 ? r : nullptr;
     a.iters = min(t.iters, nsmooth - k * t.iters);
-    kernel<<<dim3(t.tiles, t.tiles), dim3(TILE_X, t.threads / TILE_X),
-             t.smem, st>>>(a);
+    const dim3 grid(t.tiles, t.tiles), box(TILE_X, t.threads / TILE_X);
+    if (t.rows)
+      regs<<<grid, t.threads, t.smem, st>>>(RegArgs<T>{a});
+    else
+      kernel<<<grid, box, t.smem, st>>>(a);
     const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
     src = dst;
@@ -803,10 +1016,12 @@ template <int OP, typename T>
 int down(const T* v, const T* f, T* vo, T* fc, T* scratch, int n,
          int nsmooth, const int* bc, const double* coef, const double* ab,
          const int* plan, const void* planes, cudaStream_t st) {
-  static int opted = 0;
+  static int opted[2] = {0, 0};
+  void (*regs)(RegArgs<T>) = nullptr;
+  if constexpr (OP == OP_CONST) regs = k_down<T>;
   if (OP != OP_CONST && !planes) return (int)cudaErrorInvalidValue;
-  return tiled<T>(k_down<OP, T>, opted, v, f, nullptr, vo, fc, scratch, n,
-                  nsmooth, bc, coef, ab, plan, planes, st);
+  return tiled<T>(k_down<OP, T>, regs, opted, v, f, nullptr, vo, fc,
+                  scratch, n, nsmooth, bc, coef, ab, plan, planes, st);
 }
 
 // mg_up: vc the coarse correction; r the residual (nullptr: none)
@@ -814,10 +1029,12 @@ template <int OP, typename T>
 int up(const T* v, const T* f, const T* vc, T* vo, T* r, T* scratch, int n,
        int nsmooth, const int* bc, const double* coef, const double* ab,
        const int* plan, const void* planes, cudaStream_t st) {
-  static int opted = 0;
+  static int opted[2] = {0, 0};
+  void (*regs)(RegArgs<T>) = nullptr;
+  if constexpr (OP == OP_CONST) regs = k_up<T>;
   if (OP != OP_CONST && !planes) return (int)cudaErrorInvalidValue;
-  return tiled<T>(k_up<OP, T>, opted, v, f, vc, vo, r, scratch, n, nsmooth,
-                  bc, coef, ab, plan, planes, st);
+  return tiled<T>(k_up<OP, T>, regs, opted, v, f, vc, vo, r, scratch, n,
+                  nsmooth, bc, coef, ab, plan, planes, st);
 }
 
 // planes: one plane-stack pointer per level 0..top (nullptr for OP_CONST);

@@ -13,9 +13,12 @@ as `downs -> core -> ups`, the assembly of the JAX package's
   * each finer, peeled level adds one `down` (pre-smooth, residual,
     restrict) and one `up` (prolong and correct, post-smooth, and the
     residual on the finest level), which run their sweeps on tiles with
-    deep halos in shared memory, as `tile_plan` lays them out: one
-    ordinary launch at the solvers' nsmooth, several rounds where a halo
-    for all of them would not fit.
+    deep halos, as `tile_plan` lays them out -- the constant operator's
+    64^2 tiles with each thread's cells of a tile's box in its registers,
+    smaller tiles and the coefficient operators with the box in shared
+    memory: one ordinary
+    launch at the solvers' nsmooth, several rounds where a halo for all of
+    them would not fit.
 
 One cycle launches 1 core and 1 down plus 1 up per peeled level, as the
 TPU's did.  Which levels the core holds is a property of the card's shared
@@ -50,7 +53,6 @@ does.
 import copy
 import ctypes
 import functools
-import math
 
 import torch
 
@@ -64,7 +66,8 @@ __all__ = ["CORE_MAX", "FLAVOURS", "Ineligible", "ZERO", "build", "check",
            "core_offsets", "core_plain", "core_plan", "core_schedule",
            "cycle", "down", "down_plain", "edge_kinds", "flavour",
            "has_values", "kernel_rhs", "launches", "lifted_rhs", "split",
-           "tile_plan", "up", "up_plain", "TilePlan", "work"]
+           "tile_plan", "tile_threads", "up", "up_plain", "TilePlan",
+           "work"]
 
 SOURCE = cuda_build.CSRC / "mg_vcycle.cu"
 
@@ -273,9 +276,24 @@ def core_plan(top):
 # the plans of mg_down's and mg_up's tiles
 # ---------------------------------------------------------------------------
 
-# the tiled kernels' block: rows of 32 threads (mg_vcycle.cu TILE_X), at
-# most TILE_THREADS
-TILE_THREADS = 512
+# the constant operator's tiles of mg_down and mg_up (mg_vcycle.cu RegTile,
+# mg_tiles.cuh RegCells): each thread of a block holds v of TILE_ROWS rows
+# of a pair of the box's columns in registers, and shared memory holds each
+# thread's slots of 2 TILE_ROWS + 1 values for v, the exchange between
+# threads, and for f.  A block has at most TILE_THREADS threads, and the
+# kernels are built for TILE_SM_BLOCKS blocks an SM.  The threads bound the
+# box: at most 106^2 cells (halo 21 around a 64^2 tile, one round at
+# nsmooth 10), in both dtypes
+TILE_ROWS = {torch.float32: 10, torch.float64: 6}
+TILE_THREADS = {torch.float32: 608, torch.float64: 960}
+TILE_SM_BLOCKS = {torch.float32: 2, torch.float64: 1}
+# the other tiles (the coefficient operators', and the constant operator's
+# below TILE_MAX): the boxes of v and f in shared memory, a block of
+# BOX_THREADS threads, at most TILE_SMEM bytes so that two blocks share an
+# SM (also the sharded multigrid's deep smoother's budget,
+# sharded_mg_kernel.deep_plan)
+BOX_THREADS = 512
+TILE_SMEM = 110 * 1024
 # the owned tile's side: the largest power of 2 up to TILE_MAX that still
 # gives TILE_BLOCKS tiles or more and whose box holds a halo for all
 # nsmooth iterations, and not below TILE_MIN (nor above the level): a
@@ -283,45 +301,84 @@ TILE_THREADS = 512
 # descent and the ascent take the same tiles: fewer, larger ones were no
 # faster at any level on the card (chip_smoke.py times mg_down with them)
 TILE_MAX, TILE_MIN, TILE_BLOCKS = 64, 16, 128
-# the most bytes a tile's boxes (v and f) may take, so that two blocks
-# share an SM
-TILE_SMEM = 110 * 1024
+# the shared memory one block may opt into on the H100, and that an SM's
+# blocks may share (each also takes 1 KB of the SM's)
+SMEM_BLOCK, SMEM_SM = 232448, 233472
+
+
+def tile_threads(w, dtype):
+    """The threads of the constant operator's tiled block whose box is
+    w^2: one for each pair of the box's columns in each run of TILE_ROWS
+    rows, in whole warps."""
+    runs = -(-w // TILE_ROWS[dtype])
+    return -(-(w // 2) * runs // 32) * 32
 
 
 class TilePlan:
-    """The tiling of one mg_down or mg_up call on an n^2 level: the owned
-    tile's side, the halo (one cell per half-sweep of a round, and one for
-    the residual), the rounds of sweeps (separate launches, each on the
-    last one's output) and the iterations of a full round, the block's
-    threads, its shared memory (bytes: the boxes of v and f, each the tile
-    and its halo) and the tiles along a side.  `blocks` is the least count
-    of tiles the tile side keeps while it can (TILE_BLOCKS; others for
-    measuring other tiles).  `ints()` is the array the kernels take."""
+    """The tiling of one mg_down or mg_up call of operator `op` on an n^2
+    level: the owned tile's side, the halo (one cell per half-sweep of a
+    round, and one for the residual), the rounds of sweeps (separate
+    launches, each on the last one's output) and the iterations of a full
+    round, the block's threads, its shared memory (bytes: the
+    register-resident plan's slots of v and f for each thread, else the
+    boxes of v and f, the tile and its halo), the tiles along a side and
+    the rows of the box each thread holds in registers (0: v in shared
+    memory).  `blocks` is the least
+    count of tiles the tile side keeps while it can (TILE_BLOCKS; others
+    for measuring other tiles).  `ints()` is the array the kernels take."""
 
-    FIELDS = ("tile", "halo", "rounds", "iters", "threads", "smem", "tiles")
+    FIELDS = ("tile", "halo", "rounds", "iters", "threads", "smem", "tiles",
+              "rows")
 
-    def __init__(self, n, nsmooth, dtype, blocks=TILE_BLOCKS):
+    def __init__(self, n, nsmooth, dtype, blocks=TILE_BLOCKS, op="const"):
         item = torch.empty((), dtype=dtype).element_size()
-        side = math.isqrt(TILE_SMEM // (2 * item))  # the widest box that fits
 
-        def most(tile):                 # iterations a round's box holds
-            return (side - tile - 2) // 4         # tile + 2 (2 iters + 1)
+        def smem(w, regs):
+            if regs:                    # each thread's slots of v and f
+                return 2 * tile_threads(w, dtype) * \
+                    (2 * TILE_ROWS[dtype] + 1) * item
+            return 2 * w * w * item     # the boxes of v and f
 
-        tile = min(n, TILE_MAX)
-        while tile > TILE_MIN and ((n // tile) ** 2 < blocks or
-                                   most(tile) < nsmooth):
-            tile //= 2
+        def fits(w, regs):
+            if not regs:
+                return smem(w, regs) <= TILE_SMEM
+            return tile_threads(w, dtype) <= TILE_THREADS[dtype] and \
+                smem(w, regs) <= SMEM_BLOCK and \
+                TILE_SM_BLOCKS[dtype] * (smem(w, regs) + 1024) <= SMEM_SM
+
+        def most(tile, regs):           # iterations a round's box holds
+            its = 0                     # (box: tile + 2 (2 iters + 1))
+            while fits(tile + 4 * (its + 1) + 2, regs):
+                its += 1
+            return its
+
+        def side(regs):                 # the tile side
+            tile = min(n, TILE_MAX)
+            while tile > TILE_MIN and ((n // tile) ** 2 < blocks or
+                                       most(tile, regs) < nsmooth):
+                tile //= 2
+            return tile
+
+        # the constant operator's cells in registers where its tile is
+        # TILE_MAX; a smaller box gives its block fewer threads than the
+        # boxes' (their slow-path divisions then run in series: slower on
+        # the card), so smaller tiles and the coefficient operators keep
+        # the boxes of v and f in shared memory
+        regs = op == "const" and side(True) == TILE_MAX
+        tile = side(regs)
         if nsmooth == 0:
             rounds, iters = 1, 0
         else:
-            rounds = -(-nsmooth // min(most(tile), nsmooth))
+            rounds = -(-nsmooth // min(most(tile, regs), nsmooth))
             iters = -(-nsmooth // rounds)         # the rounds balanced
         self.nsmooth = nsmooth
         self.tile, self.iters, self.rounds = tile, iters, rounds
         self.halo = 2 * iters + 1
-        self.threads = TILE_THREADS
+        w = tile + 2 * self.halo
+        self.threads = tile_threads(w, dtype) if regs else BOX_THREADS
         self.tiles = n // tile
-        self.smem = 2 * (tile + 2 * self.halo) ** 2 * item
+        self.smem = smem(w, regs)
+        self.rows = TILE_ROWS[dtype] if regs else 0
 
     def round_iters(self):
         """The iterations of each round: a full round's, the last the
@@ -334,10 +391,10 @@ class TilePlan:
 
 
 @functools.lru_cache(maxsize=128)
-def tile_plan(n, nsmooth, dtype):
-    """The plan of one mg_down or mg_up call (see TilePlan), made once for
-    each set of arguments."""
-    return TilePlan(n, nsmooth, dtype)
+def tile_plan(n, nsmooth, dtype, op="const"):
+    """The plan of one mg_down or mg_up call of operator `op` (see
+    TilePlan), made once for each set of arguments."""
+    return TilePlan(n, nsmooth, dtype, op=op)
 
 
 def _coef(mg, level):
@@ -482,7 +539,7 @@ def launch_down(mg, level, v, f, plan=None):
     _check_tensors(mg, level, v, f)
     gc = mg.grids[level - 1]
     n = mg.grids[level].nx
-    plan = plan or tile_plan(n, mg.nsmooth, f.dtype)
+    plan = plan or tile_plan(n, mg.nsmooth, f.dtype, check(mg))
     vo = torch.empty_like(f)
     fc = torch.empty((gc.qx, gc.qy), dtype=f.dtype, device=f.device)
     scratch = torch.empty_like(f) if plan.rounds > 1 else None
@@ -500,7 +557,7 @@ def launch_up(mg, level, v, f, vc, want_r):
     _check_tensors(mg, level, v, f)
     _check_tensors(mg, level - 1, vc)
     n = mg.grids[level].nx
-    plan = tile_plan(n, mg.nsmooth, f.dtype)
+    plan = tile_plan(n, mg.nsmooth, f.dtype, check(mg))
     vo = torch.empty_like(f)
     r = torch.empty_like(f) if want_r else None
     scratch = torch.empty_like(f) if plan.rounds > 1 else None

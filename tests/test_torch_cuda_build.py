@@ -282,13 +282,19 @@ def test_down_entries_take_the_plan_and_no_grid_barrier(monkeypatch):
     body = text.split("k_down(TileArgs<T> a) {", 1)[1].split("\n}\n", 1)[0]
     assert "grid" not in body.replace("gridDim", "") and "sync()" not in body
     assert "tile_smooth<OP>(b, fb, t, L, 2 * a.iters, 0, AllCells{});" in body
+    # the constant operator's 64^2 tiles: the register-resident overload
+    regs = text.split("k_down(RegArgs<T> r) {", 1)[1].split("\n}\n", 1)[0]
+    assert "down_regs(" in regs
+    body = text.split("void down_regs(", 1)[1].split("\n}\n", 1)[0]
+    assert "grid" not in body.replace("gridDim", "") and "sync()" not in body
+    assert "reg_smooth<OP>(c, b, t, L, o, 2 * a.iters);" in body
     assert "tiled<T>(k_down<OP, T>," in text
     for gone in ("colored(", "coop_blocks", "void smooth("):
         assert gone not in text, gone
     assert "cg::this_cluster()" in text
     plan = mg_kernel.tile_plan(1024, 10, torch.float32)
     assert len(plan.ints()) == len(mg_kernel.TilePlan.FIELDS)
-    fns = _bind(mg_kernel, monkeypatch, {"mg_tile_plan_ints": 7})
+    fns = _bind(mg_kernel, monkeypatch, {"mg_tile_plan_ints": 8})
     for sfx, ncoef in mg_kernel.FLAVOURS.values():
         for t in ("f32", "f64"):
             assert len(fns[f"mg_down{sfx}_{t}"].argtypes) == \
@@ -334,7 +340,8 @@ def test_deep_entries_take_the_plan_and_no_grid_barrier(monkeypatch):
     k_deep is ordinary launches with block barriers only -- no cooperative
     launch, grid group or grid barrier is left -- and takes its boxes,
     load, sweeps and neighbours from mg_tiles.cuh, as mg_vcycle.cu's k_down
-    and k_up do: the tile code is defined there alone."""
+    and k_up take their boxes, load, sweeps and register-resident smoother:
+    the tile code is defined there alone."""
     import re
 
     import torch
@@ -356,10 +363,12 @@ def test_deep_entries_take_the_plan_and_no_grid_barrier(monkeypatch):
     vcycle = (cuda_build.CSRC / "mg_vcycle.cu").read_text()
     for name in ("struct BoxAxis", "struct LevelBox", "struct FrameBox",
                  "struct Nbrs", "void load_box(", "void tile_smooth(",
-                 "T* round_dst("):
+                 "T* round_dst(", "struct RegCells", "void reg_load(",
+                 "void reg_smooth("):
         assert name in tiles and name not in text and name not in vcycle
     for source in (text, vcycle):
         assert "tile_smooth<OP>(" in source and "load_box(" in source
+    assert "reg_smooth<OP>(" in vcycle and "reg_load(" in vcycle
     fns = _bind(smk, monkeypatch, {"mg_deep_plan_ints": n_ints})
     for t in ("f32", "f64"):
         assert len(fns[f"mg_deep_smooth_{t}"].argtypes) == \

@@ -453,29 +453,55 @@ def test_fv4_uncovered_variable_order_raises():
 UP_NSMOOTH = (0, 1, 10, 50)      # 50: more than one round's halo holds
 
 
-def _tile_plan_ok(p, n, nsmooth, item, ints):
-    """mg_vcycle.cu tiled()'s checks, line by line, on the plan's ints."""
-    tile, halo, rounds, iters, threads, smem, tiles = ints
+def _tile_plan_ok(p, n, nsmooth, item, ints, op="const"):
+    """mg_vcycle.cu tiled()'s checks, line by line, on the plan's ints:
+    the boxes of v and f (rows 0: the coefficient operators, and the
+    constant operator's tiles below 64^2), or the constant operator's
+    register-resident plan (RegTile's rows and threads: mg_kernel.TILE_ROWS,
+    TILE_THREADS; each thread's slots of 2 rows + 1 values of v and f)."""
+    tile, halo, rounds, iters, threads, smem, tiles, rows = ints
+    dtype = torch.float32 if item == 4 else torch.float64
     want = 1 if nsmooth == 0 else -(-nsmooth // max(iters, 1))
     if tile < 2 or tile & (tile - 1) or tile > n or tiles * tile != n or \
-            threads < 32 or threads > 512 or threads % 32 or iters < 0 or \
-            (nsmooth > 0 and iters < 1) or rounds != want or \
+            iters < 0 or (nsmooth > 0 and iters < 1) or rounds != want or \
             halo < 2 * iters + 1:
         return False
     w = tile + 2 * halo
-    return 1 <= smem and 2 * w * w * item <= smem
+    if smem < 1 or threads % 32 or threads < 32 or (rows and op != "const"):
+        return False
+    if rows == 0:
+        return threads <= 512 and 2 * w * w * item <= smem
+    return rows == mg_kernel.TILE_ROWS[dtype] and \
+        (w // 2) * -(-w // rows) <= threads <= \
+        mg_kernel.TILE_THREADS[dtype] and \
+        2 * threads * (2 * rows + 1) * item <= smem
+
+
+def _smem_fits(p, dtype):
+    """A plan's shared memory: the register-resident plan's slots of v and
+    f for each thread, within a block's opt-in limit and the SM's for the
+    blocks its kernels are built for; the boxes of v and f within
+    TILE_SMEM, so that two blocks share an SM."""
+    item = torch.empty((), dtype=dtype).element_size()
+    w = p.tile + 2 * p.halo
+    if p.rows == 0:
+        return p.smem == 2 * w * w * item and \
+            p.smem <= mg_kernel.TILE_SMEM <= SMEM_LIMIT // 2
+    return p.smem == 2 * p.threads * (2 * p.rows + 1) * item and \
+        p.smem <= SMEM_LIMIT and \
+        mg_kernel.TILE_SM_BLOCKS[dtype] * (p.smem + 1024) <= SMEM_SM
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("op", sorted(mg_kernel.FLAVOURS))
 def test_up_tiles_cover_every_level_once(dtype, op):
-    """For every level from 4^2 to 1024^2 (every operator takes the same
-    plan: its coefficient planes are read at the frame), the tiles of the
-    launch's grid cover the interior exactly once."""
+    """For every level from 4^2 to 1024^2, with the operator's plan (the
+    constant operator's register-resident 64^2 tiles, else boxes), the
+    tiles of the launch's grid cover the interior exactly once."""
     for k in range(2, 11):
         n = 2 ** k
         for nsmooth in UP_NSMOOTH:
-            p = mg_kernel.tile_plan(n, nsmooth, dtype)
+            p = mg_kernel.tile_plan(n, nsmooth, dtype, op)
             assert p.tile & (p.tile - 1) == 0 and p.tiles * p.tile == n
             cover = np.zeros((n, n), dtype=int)
             for bi in range(p.tiles):
@@ -491,36 +517,36 @@ def test_up_halo_covers_the_sweeps_reach(dtype, nsmooth):
     """The halo is as deep as a round's reach: one cell per half-sweep and
     one for the residual; the rounds take nsmooth iterations together, the
     last one the rest; the solvers' nsmooth (10) takes one round at every
-    level, and 50 more than one at 1024^2."""
-    for k in range(2, 11):
-        n = 2 ** k
-        p = mg_kernel.tile_plan(n, nsmooth, dtype)
-        its = p.round_iters()
-        assert len(its) == p.rounds and sum(its) == nsmooth
-        assert all(0 < i <= p.iters for i in its) or nsmooth == 0
-        assert p.halo >= 2 * max(its) + 1
-        if nsmooth <= 10:
-            assert p.rounds == 1
-    assert mg_kernel.tile_plan(1024, 50, dtype).rounds > 1
+    level, and 50 more than one at 1024^2, for every operator."""
+    for op in sorted(mg_kernel.FLAVOURS):
+        for k in range(2, 11):
+            n = 2 ** k
+            p = mg_kernel.tile_plan(n, nsmooth, dtype, op)
+            its = p.round_iters()
+            assert len(its) == p.rounds and sum(its) == nsmooth
+            assert all(0 < i <= p.iters for i in its) or nsmooth == 0
+            assert p.halo >= 2 * max(its) + 1
+            if nsmooth <= 10:
+                assert p.rounds == 1
+        assert mg_kernel.tile_plan(1024, 50, dtype, op).rounds > 1
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_up_shared_memory_fits(dtype):
-    """The boxes of v and f of every plan fit a block's opt-in limit, and
-    the budget that lets two blocks share an SM."""
-    item = torch.empty((), dtype=dtype).element_size()
-    for k in range(2, 11):
-        for nsmooth in UP_NSMOOTH:
-            p = mg_kernel.tile_plan(2 ** k, nsmooth, dtype)
-            assert p.smem == 2 * (p.tile + 2 * p.halo) ** 2 * item
-            assert p.smem <= mg_kernel.TILE_SMEM <= SMEM_LIMIT // 2
+    """Every plan's shared memory fits a block's opt-in limit and the SM
+    holds the blocks its kernels are built for (_smem_fits)."""
+    for op in sorted(mg_kernel.FLAVOURS):
+        for k in range(2, 11):
+            for nsmooth in UP_NSMOOTH:
+                p = mg_kernel.tile_plan(2 ** k, nsmooth, dtype, op)
+                assert _smem_fits(p, dtype), (op, k, nsmooth)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_up_plan_passes_the_kernels_checks(dtype):
     """The plan array each mg_up launch takes has the length mg_vcycle.cu
     reads (TILE_PLAN_INTS) and passes its checks at every level and
-    nsmooth."""
+    nsmooth, for every operator."""
     import re
 
     from pyro2_tpu_torch.util import cuda_build
@@ -529,39 +555,44 @@ def test_up_plan_passes_the_kernels_checks(dtype):
     n_ints = int(re.search(r"constexpr int TILE_PLAN_INTS = (\d+);",
                            text).group(1))
     item = torch.empty((), dtype=dtype).element_size()
-    for k in range(2, 11):
-        for nsmooth in UP_NSMOOTH:
-            p = mg_kernel.tile_plan(2 ** k, nsmooth, dtype)
-            assert len(p.ints()) == n_ints
-            assert _tile_plan_ok(p, 2 ** k, nsmooth, item, p.ints())
+    for op in sorted(mg_kernel.FLAVOURS):
+        for k in range(2, 11):
+            for nsmooth in UP_NSMOOTH:
+                p = mg_kernel.tile_plan(2 ** k, nsmooth, dtype, op)
+                assert len(p.ints()) == n_ints
+                assert _tile_plan_ok(p, 2 ** k, nsmooth, item, p.ints(), op)
 
 
 # -- the multigrid descent (mg_down) ------------------------------------------
 
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_down_tiles_cover_every_level_once(dtype):
-    """For every level from 4^2 to 1024^2 (every operator takes the same
-    plan), the tiles of the launch's grid cover the interior exactly once; each tile is even and starts at an odd index, so
-    it holds the four children of each of its coarse cells, and the coarse
-    cells of the tiles cover the coarse level exactly once."""
-    for k in range(2, 11):
-        n = 2 ** k
-        for nsmooth in UP_NSMOOTH:
-            p = mg_kernel.tile_plan(n, nsmooth, dtype)
-            assert p.tile & (p.tile - 1) == 0 and p.tiles * p.tile == n
-            assert p.tile >= 2 and p.tile % 2 == 0
-            cover = np.zeros((n + 2, n + 2), dtype=int)
-            coarse = np.zeros((n // 2 + 2, n // 2 + 2), dtype=int)
-            for bi in range(p.tiles):
-                for bj in range(p.tiles):
-                    ti, tj = 1 + bi * p.tile, 1 + bj * p.tile
-                    assert ti % 2 == 1 and tj % 2 == 1
-                    cover[ti:ti + p.tile, tj:tj + p.tile] += 1
-                    I0, J0 = (ti + 1) // 2, (tj + 1) // 2
-                    coarse[I0:I0 + p.tile // 2, J0:J0 + p.tile // 2] += 1
-            assert (cover[1:-1, 1:-1] == 1).all() and cover.sum() == n * n
-            assert (coarse[1:-1, 1:-1] == 1).all()
-            assert coarse.sum() == (n // 2) ** 2
+    """For every level from 4^2 to 1024^2 and every operator's plan, the
+    tiles of the launch's grid cover the interior exactly once; each tile
+    is even and starts at an odd index, so it holds the four children of
+    each of its coarse cells, and the coarse cells of the tiles cover the
+    coarse level exactly once."""
+    for op in sorted(mg_kernel.FLAVOURS):
+        for k in range(2, 11):
+            n = 2 ** k
+            for nsmooth in UP_NSMOOTH:
+                p = mg_kernel.tile_plan(n, nsmooth, dtype, op)
+                assert p.tile & (p.tile - 1) == 0 and p.tiles * p.tile == n
+                assert p.tile >= 2 and p.tile % 2 == 0
+                cover = np.zeros((n + 2, n + 2), dtype=int)
+                coarse = np.zeros((n // 2 + 2, n // 2 + 2), dtype=int)
+                for bi in range(p.tiles):
+                    for bj in range(p.tiles):
+                        ti, tj = 1 + bi * p.tile, 1 + bj * p.tile
+                        assert ti % 2 == 1 and tj % 2 == 1
+                        cover[ti:ti + p.tile, tj:tj + p.tile] += 1
+                        I0, J0 = (ti + 1) // 2, (tj + 1) // 2
+                        coarse[I0:I0 + p.tile // 2,
+                               J0:J0 + p.tile // 2] += 1
+                assert (cover[1:-1, 1:-1] == 1).all()
+                assert cover.sum() == n * n
+                assert (coarse[1:-1, 1:-1] == 1).all()
+                assert coarse.sum() == (n // 2) ** 2
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -570,31 +601,33 @@ def test_down_halo_covers_the_sweeps_reach(dtype, nsmooth):
     """The halo is the sweeps' reach plus one: one cell per half-sweep of a
     round and one for the residual the restriction reads; the rounds take
     nsmooth iterations together; the solvers' nsmooth (10) takes one round
-    at every level, and 50 more than one at 1024^2."""
-    for k in range(2, 11):
-        p = mg_kernel.tile_plan(2 ** k, nsmooth, dtype)
-        its = p.round_iters()
-        assert len(its) == p.rounds and sum(its) == nsmooth
-        assert all(0 < i <= p.iters for i in its) or nsmooth == 0
-        assert p.halo == 2 * p.iters + 1 >= 2 * max(its) + 1
-        if nsmooth <= 10:
-            assert p.rounds == 1
-    assert mg_kernel.tile_plan(1024, 50, dtype).rounds > 1
+    at every level, and 50 more than one at 1024^2, for every operator."""
+    for op in sorted(mg_kernel.FLAVOURS):
+        for k in range(2, 11):
+            p = mg_kernel.tile_plan(2 ** k, nsmooth, dtype, op)
+            its = p.round_iters()
+            assert len(its) == p.rounds and sum(its) == nsmooth
+            assert all(0 < i <= p.iters for i in its) or nsmooth == 0
+            assert p.halo == 2 * p.iters + 1 >= 2 * max(its) + 1
+            if nsmooth <= 10:
+                assert p.rounds == 1
+        assert mg_kernel.tile_plan(1024, 50, dtype, op).rounds > 1
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_down_shared_memory_fits(dtype):
-    """The boxes of v and f of every descent plan fit a block's opt-in
-    limit, and two blocks share an SM; each plan passes the checks of
+    """Every descent plan's shared memory fits (_smem_fits), its threads
+    are within the kernels' launch bounds, and it passes the checks of
     mg_vcycle.cu's tiled(), which the descent and the ascent share."""
     item = torch.empty((), dtype=dtype).element_size()
-    for k in range(2, 11):
-        for nsmooth in UP_NSMOOTH:
-            p = mg_kernel.tile_plan(2 ** k, nsmooth, dtype)
-            assert p.smem == 2 * (p.tile + 2 * p.halo) ** 2 * item
-            assert p.smem <= mg_kernel.TILE_SMEM and 2 * p.smem <= SMEM_SM
-            assert p.threads == mg_kernel.TILE_THREADS
-            assert _tile_plan_ok(p, 2 ** k, nsmooth, item, p.ints())
+    for op in sorted(mg_kernel.FLAVOURS):
+        for k in range(2, 11):
+            for nsmooth in UP_NSMOOTH:
+                p = mg_kernel.tile_plan(2 ** k, nsmooth, dtype, op)
+                assert _smem_fits(p, dtype)
+                assert p.threads <= (mg_kernel.TILE_THREADS[dtype]
+                                     if p.rows else mg_kernel.BOX_THREADS)
+                assert _tile_plan_ok(p, 2 ** k, nsmooth, item, p.ints(), op)
 
 
 # -- the cavity's moving lid: the same launches, one edge kind apart ----------

@@ -10,6 +10,8 @@ whose ghosts are zero.  The smoothed v (its ghosts as `put` writes them)
 and fc must equal `mg_kernel.down_plain` bit for bit, the cavity's ZERO
 edge (sign 0) included; a halo one cell short must not reach."""
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -70,7 +72,7 @@ def test_down_tiles_match_the_plain_descent(op, edge, dtype):
         v = torch.as_tensor(0.1 * rng.standard_normal((g.qx, g.qy)),
                             dtype=dtype)
         f = torch.as_tensor(rng.standard_normal((g.qx, g.qy)), dtype=dtype)
-        plan = mg_kernel.tile_plan(n, nsmooth, dtype)
+        plan = mg_kernel.tile_plan(n, nsmooth, dtype, op)
         assert plan.halo == 2 * plan.iters + 1
         for guess in (v, None):
             ref_v, ref_fc = mg_kernel.down_plain(mg, level, guess, f)
@@ -94,3 +96,72 @@ def test_a_halo_one_cell_short_does_not_reach(op):
     _down_schedule(mg, op, level, None, f, 8, [3], halo=7)
     with pytest.raises(AssertionError, match="the halo does not reach"):
         _down_schedule(mg, op, level, None, f, 8, [3], halo=6)
+
+
+@pytest.mark.parametrize("op,edge,dtype", CASES)
+def test_down_plan_tiles_of_the_register_smoother_match(op, edge, dtype):
+    """The tile side the constant operator's plan takes at 4096^2 and
+    2048^2 in both dtypes (64, halo 21, one round at nsmooth 10: the box
+    of v and f no longer bounds the float64 tile) at 128^2, which holds
+    2^2 of them: from a guess
+    and from a zero guess, v with its ghosts and the restricted residual
+    bit for bit as down_plain gives them, for every operator and edge
+    kind."""
+    plan = mg_kernel.tile_plan(4096, 10, dtype)
+    assert plan.tile == mg_kernel.tile_plan(2048, 10, dtype).tile == 64
+    assert (plan.halo, plan.round_iters()) == (21, [10])
+    n = 128
+    rng = np.random.default_rng(19)
+    mg = make_mg(op, n, edge, dtype)
+    mg.nsmooth = 10
+    level = mg.nlevels - 1
+    g = mg.grids[level]
+    v = torch.as_tensor(0.1 * rng.standard_normal((g.qx, g.qy)), dtype=dtype)
+    f = torch.as_tensor(rng.standard_normal((g.qx, g.qy)), dtype=dtype)
+    for guess in (v, None):
+        ref_v, ref_fc = mg_kernel.down_plain(mg, level, guess, f)
+        got_v, got_fc = _down_schedule(mg, op, level, guess, f, plan.tile,
+                                       plan.round_iters())
+        assert same_bits(got_v, ref_v), guess is None
+        assert same_bits(got_fc, ref_fc), guess is None
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_tile_plan_counts_the_box_of_v_alone(dtype):
+    """TilePlan of the constant operator's 64^2 tiles: no box of f beside
+    the box of v -- shared memory holds each thread's slots of 2 TILE_ROWS
+    + 1 values of v and f, v's cells staying in its registers -- and every
+    pair of the box's columns over every run of TILE_ROWS rows has its
+    thread; f64 at 4096^2, nsmooth 10 takes 64^2 tiles, halo 21, one round
+    (a box of v and f held 32^2); every plan's shared memory fits the
+    card's limit for a block and for the blocks an SM the kernels are built
+    for; the small levels still keep TILE_BLOCKS tiles.  Smaller tiles and
+    the coefficient operators keep their boxes of v and f."""
+    item = torch.empty((), dtype=dtype).element_size()
+    rows = mg_kernel.TILE_ROWS[dtype]
+    p = mg_kernel.tile_plan(4096, 10, dtype)
+    assert (p.tile, p.halo, p.rounds, p.iters) == (64, 21, 1, 10)
+    for k in range(2, 14):
+        n = 2 ** k
+        for nsmooth in (0, 1, 10, 50):
+            p = mg_kernel.tile_plan(n, nsmooth, dtype)
+            w = p.tile + 2 * p.halo
+            if n >= mg_kernel.TILE_MIN * math.isqrt(mg_kernel.TILE_BLOCKS):
+                assert p.tiles ** 2 >= mg_kernel.TILE_BLOCKS
+            if p.tile == mg_kernel.TILE_MAX:
+                assert p.rows == rows
+                assert p.smem == 2 * p.threads * (2 * rows + 1) * item
+                assert p.threads == mg_kernel.tile_threads(w, dtype)
+                assert p.threads >= (w // 2) * -(-w // rows)
+                assert p.threads % 32 == 0
+                assert p.threads <= mg_kernel.TILE_THREADS[dtype]
+                assert p.smem <= mg_kernel.SMEM_BLOCK
+                assert mg_kernel.TILE_SM_BLOCKS[dtype] * (p.smem + 1024) <= \
+                    mg_kernel.SMEM_SM
+            for q in (p, mg_kernel.tile_plan(n, nsmooth, dtype, "vc"),
+                      mg_kernel.tile_plan(n, nsmooth, dtype, "general")):
+                if q.tile == mg_kernel.TILE_MAX and q is p:
+                    continue
+                wq = q.tile + 2 * q.halo
+                assert q.rows == 0 and q.threads == mg_kernel.BOX_THREADS
+                assert q.smem == 2 * wq * wq * item <= mg_kernel.TILE_SMEM

@@ -270,9 +270,37 @@ def test_up_tiles_match_the_plain_ascent(op, edge, dtype):
         vc = torch.as_tensor(0.1 * rng.standard_normal((gc.qx, gc.qy)),
                              dtype=dtype)
         ref_v, ref_r = mg_kernel.up_plain(mg, level, v, f, vc, True)
-        plan = mg_kernel.tile_plan(n, nsmooth, dtype)
+        plan = mg_kernel.tile_plan(n, nsmooth, dtype, op)
         for t, rs in ((tile, rounds), (plan.tile, plan.round_iters())):
             got_v, got_r = _tile_schedule(mg, op, level, v, f, vc, True, t,
                                           rs)
             assert same_bits(got_v, ref_v), (n, t, rs)
             assert same_bits(got_r, ref_r), (n, t, rs)
+
+
+@pytest.mark.parametrize("op,edge,dtype", CASES)
+def test_up_plan_tiles_of_the_register_smoother_match(op, edge, dtype):
+    """The tile side the constant operator's plan takes at 4096^2 and
+    2048^2 in both dtypes (64, halo 21, one round at nsmooth 10: the box
+    of v and f no longer bounds the float64 tile) at 128^2, which holds
+    2^2 of them: v with its
+    ghosts and the residual bit for bit as up_plain gives them, for every
+    operator and edge kind."""
+    plan = mg_kernel.tile_plan(4096, 10, dtype)
+    assert plan.tile == mg_kernel.tile_plan(2048, 10, dtype).tile == 64
+    assert (plan.halo, plan.round_iters()) == (21, [10])
+    n = 128
+    rng = np.random.default_rng(17)
+    mg = make_mg(op, n, edge, dtype)
+    mg.nsmooth = 10
+    level = mg.nlevels - 1
+    g, gc = mg.grids[level], mg.grids[level - 1]
+    v = torch.as_tensor(0.1 * rng.standard_normal((g.qx, g.qy)), dtype=dtype)
+    f = torch.as_tensor(rng.standard_normal((g.qx, g.qy)), dtype=dtype)
+    vc = torch.as_tensor(0.1 * rng.standard_normal((gc.qx, gc.qy)),
+                         dtype=dtype)
+    ref_v, ref_r = mg_kernel.up_plain(mg, level, v, f, vc, True)
+    got_v, got_r = _tile_schedule(mg, op, level, v, f, vc, True, plan.tile,
+                                  plan.round_iters())
+    assert same_bits(got_v, ref_v)
+    assert same_bits(got_r, ref_r)
